@@ -1,0 +1,1 @@
+"""core layer of the PyTorch port (mirrors raytracetorch_tpu/core)."""

@@ -1,0 +1,1 @@
+"""elements layer of the PyTorch port (mirrors raytracetorch_tpu/elements)."""

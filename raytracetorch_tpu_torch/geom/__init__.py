@@ -1,0 +1,1 @@
+"""geom layer of the PyTorch port (mirrors raytracetorch_tpu/geom)."""

@@ -1,0 +1,1 @@
+"""optim layer of the PyTorch port (mirrors raytracetorch_tpu/optim)."""

@@ -1,0 +1,1 @@
+"""scene layer of the PyTorch port (mirrors raytracetorch_tpu/scene)."""

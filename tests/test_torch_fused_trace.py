@@ -1,0 +1,188 @@
+"""The fused forward trace of the PyTorch port (ops/fused_trace.py).
+
+On the CPU its dispatcher runs the plain version, which must match the JAX
+package's fused kernel ``trace_sequential_pallas_v2`` (run in interpret
+mode, as tests/test_pallas.py runs it) on the same table and rays, with
+tests/test_pallas.py's bounds: positions atol 1e-5, intensity atol 1e-6,
+moments rtol 1e-5 atol 1e-3.  The CUDA kernel itself is compared with the
+plain version on the card in tests/test_torch_cuda.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracetorch_tpu as jrt
+import raytracetorch_tpu_torch as trt
+from raytracetorch_tpu import ElementCustom
+from raytracetorch_tpu.constants import PhysKind
+from raytracetorch_tpu.elements import shapes
+from raytracetorch_tpu.ops.pallas_trace import trace_sequential_pallas_v2
+from raytracetorch_tpu_torch import interop
+from raytracetorch_tpu_torch.ops import fused_trace
+
+torch.set_num_threads(2)
+
+N = 2999
+
+
+def _bench():
+    return jrt.SequentialScene([
+        jrt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                        name='lens'),
+        jrt.CircularAperture(radius=5.0, name='stop'),
+        jrt.SensorElement(radius=6.0, translation=[0, 0, 19.0],
+                          name='sensor'),
+    ])
+
+
+def _two_bundle():
+    """Two sensors, two bundles: a tilted mirror disk (REFLECT) and an
+    off-axis absorbing disk (BLOCK) ahead of a singlet and an inverted
+    iris."""
+    return jrt.SequentialScene([
+        ElementCustom(shapes.disk, 1, PhysKind.REFLECT,
+                      extra={'radius': 1.0}, rotation=[0.3, 0.0, 0.0],
+                      name='mirror'),
+        ElementCustom(shapes.disk, 1, PhysKind.BLOCK, extra={'radius': 0.5},
+                      translation=[2.0, 0.0, 4.0], name='block'),
+        jrt.SensorElement(radius=20.0, translation=[0, 0, 6.0], name='s0'),
+        jrt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                        translation=[0, 0, 9.0], name='lens'),
+        jrt.CircularAperture(radius=3.0, invert=True,
+                             translation=[0, 0, 14.0], name='iris'),
+        jrt.SensorElement(radius=20.0, translation=[0, 0, 30.0], name='s1'),
+    ])
+
+
+def _rays(n, n_bundles, seed):
+    key = jax.random.PRNGKey(seed)
+    if n_bundles == 1:
+        return jrt.CollimatedDisk.make(
+            radius=jnp.float32(4.0),
+            translation=[0, 0, -10.0]).sample(key, n)
+    k0, k1 = jax.random.split(key)
+    a = jrt.CollimatedDisk.make(radius=jnp.float32(3.0),
+                                translation=[0, 0, -10.0],
+                                ray_id=0).sample(k0, n // 2)
+    b = jrt.CollimatedDisk.make(radius=jnp.float32(3.0),
+                                translation=[0.5, 0, -10.0],
+                                rotation=[0.05, 0.0, 0.0],
+                                ray_id=1).sample(k1, n - n // 2)
+    return jrt.Rays.concatenate([a, b])
+
+
+def _port_inputs(scene, rays, n_bundles):
+    """The JAX scene's table, kinds and rays, carried over through numpy."""
+    to_np = jax.tree_util.tree_map
+    table = interop.table_from_numpy(
+        to_np(np.asarray, scene.build_table(scene.init_params())), 'cpu')
+    meta = interop.meta_from_slots(scene.static_meta())
+    cfg = trt.SensorConfig(n_sensors=scene.n_sensors, n_bundles=n_bundles)
+    return table, interop.rays_from_numpy(to_np(np.asarray, rays),
+                                          'cpu'), cfg, meta
+
+
+@pytest.mark.parametrize('case', ['bench', 'two_bundle'])
+def test_plain_matches_jax_kernel(case):
+    scene, nb = (_bench(), 1) if case == 'bench' else (_two_bundle(), 2)
+    rays = _rays(N, nb, seed=nb)
+    out_j, sens_j, _ = trace_sequential_pallas_v2(
+        scene.build_table(scene.init_params()), rays, jax.random.PRNGKey(0),
+        scene.sensor_config(n_bundles=nb), scene.static_meta(),
+        interpret=True, block_rows=4)
+    table, rays_t, cfg, meta = _port_inputs(scene, rays, nb)
+    fused_trace.LAUNCHES = 0
+    out_t, sens_t = trt.trace_sequential_fused(table, rays_t, cfg, meta)
+    assert fused_trace.LAUNCHES == 0        # CPU tensors: plain version
+    np.testing.assert_allclose(out_t.pos.numpy(), np.asarray(out_j.pos),
+                               atol=1e-5)
+    np.testing.assert_allclose(out_t.dir.numpy(), np.asarray(out_j.dir),
+                               atol=1e-5)
+    np.testing.assert_allclose(out_t.intensity.numpy(),
+                               np.asarray(out_j.intensity), atol=1e-6)
+    np.testing.assert_allclose(sens_t.moments.numpy(),
+                               np.asarray(sens_j.moments), rtol=1e-5,
+                               atol=1e-3)
+    if case == 'two_bundle':
+        # every row kind did work: reflections, absorptions, both sensors
+        # saw both bundles
+        assert (out_t.dz.numpy() < 0).sum() > 0
+        assert (out_t.intensity.numpy() == 0).sum() > 0
+        assert (sens_t.moments[:, :, 0].numpy() > 0).all()
+
+
+def test_plain_matches_eager_trace():
+    """The plain version over the flat rows equals the eager trace over
+    the table (same formulas, another row layout)."""
+    scene = _two_bundle()
+    table, rays, cfg, meta = _port_inputs(scene, _rays(N, 2, seed=4), 2)
+    out_f, sens_f = trt.trace_sequential_fused(table, rays, cfg, meta)
+    out_e, sens_e, _ = trt.trace_sequential(table, rays, cfg, meta)
+    for c in ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity'):
+        torch.testing.assert_close(getattr(out_f, c), getattr(out_e, c),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(sens_f.moments, sens_e.moments, rtol=1e-6,
+                               atol=1e-4)
+
+
+def _fresnel_scene():
+    return jrt.SequentialScene([
+        ElementCustom(shapes.plane, 1, PhysKind.FRESNEL, ph=(1.5, 1.0),
+                      name='iface'),
+        jrt.SensorElement(radius=50.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+
+
+def _asphere_scene():
+    return jrt.SequentialScene([
+        jrt.AsphericLens(c1=0.03, k1=-0.5, a1=[1e-4, 0.0, 0.0, 0.0],
+                         c2=-0.01, d=12.0, t=2.0, ior_glass=1.6,
+                         name='asph'),
+        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+
+
+def _rect_scene():
+    return jrt.SequentialScene([
+        jrt.RectangularAperture(half_x=2.0, half_y=1.0, name='rect'),
+        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+
+
+@pytest.mark.parametrize('make', [_fresnel_scene, _asphere_scene,
+                                  _rect_scene])
+def test_dispatcher_raises_on_unsupported_rows(make):
+    scene = make()
+    table, rays, cfg, meta = _port_inputs(scene, _rays(64, 1, seed=0), 1)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        trt.trace_sequential_fused(table, rays, cfg, meta)
+
+
+def test_kernel_limits_raise():
+    table, rays, cfg, meta = _port_inputs(_bench(), _rays(64, 1, seed=0), 1)
+    with pytest.raises(NotImplementedError, match='bundles'):
+        trt.trace_sequential_fused(table, rays,
+                                   trt.SensorConfig(1, n_bundles=9), meta)
+    with pytest.raises(ValueError, match='CUDA'):
+        fused_trace.trace_seq_fwd_cuda(
+            trt.flatten_table_rows(table),
+            torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32),
+            rays, cfg)
+
+
+def test_kind_rows_of_bench_scene():
+    """The int rows the kernel reads: ph, sb, vb, plane, sensor, slot,
+    invert, pad (kinds as in the row table of the bench scene)."""
+    scene = trt.SequentialScene([
+        trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                        name='lens'),
+        trt.CircularAperture(radius=5.0, name='stop'),
+        trt.SensorElement(radius=6.0, translation=[0, 0, 19.0],
+                          name='sensor')])
+    assert fused_trace.kind_rows(scene.static_meta(),
+                                 scene.sensor_config()) == [
+        [3, 4, 1, 0, 0, 0, 0, 0], [3, 4, 1, 0, 0, 0, 0, 0],
+        [3, 0, 2, 0, 0, 0, 0, 0], [6, 1, 0, 1, 0, 0, 0, 0],
+        [0, 1, 0, 1, 1, 0, 0, 0]]
