@@ -3,11 +3,13 @@ and CUDA.
 
 A port of the JAX package ``raytracetorch_tpu`` (the reference, which stays
 beside it) to PyTorch, with the TPU kernels rewritten by hand for NVIDIA
-Hopper.  This slice covers the main path: a collimated disk source through a
+Hopper.  The port covers the main path: a collimated disk source through a
 singlet lens, a circular stop and a disk sensor, traced eagerly with
-autograd (``SequentialScene.simulate``) or by the fused CUDA forward kernel
-(``SequentialScene.simulate_fused``, ops/fused_trace.py).  ROADMAP.md lists
-what is still to be ported.
+autograd (``SequentialScene.simulate``) or by the fused CUDA kernels, K1
+forward and K2 backward (``SequentialScene.simulate_fused``,
+ops/fused_trace.py); and the design loop on top of either: Adam, L-BFGS and
+Levenberg-Marquardt (optim/fit.py) with log-barrier constraints
+(optim/constraints.py).  ROADMAP.md lists what is still to be ported.
 
 Every module mirrors the JAX module of the same path and names it in its
 docstring.  Importing the package imports neither jax nor the JAX package.
@@ -32,7 +34,13 @@ from .elements.ideal import (paraxial_dist_mat, paraxial_lens_mat,  # noqa: E402
 from .elements.lens import SingletLens  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
-from .ops.fused_trace import trace_sequential_fused  # noqa: E402
+from .ops.fused_trace import FusedTrace, trace_sequential_fused  # noqa: E402
+from .optim.constraints import (log_barrier, log_barrier_lb,  # noqa: E402
+                                log_barrier_ub, spacing_constraint,
+                                system_length_constraint,
+                                thickness_constraint)
+from .optim.fit import (fit, fit_lbfgs, fit_lm, grad_mask_fn,  # noqa: E402
+                        trainable_leaves)
 from .optim.goals import (focal_length_loss, spot_size_loss,  # noqa: E402
                           spot_target_loss)
 from .rays.ray import Rays  # noqa: E402

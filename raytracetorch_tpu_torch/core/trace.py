@@ -7,8 +7,9 @@ no-ops.  The optional streams of the JAX trace loop (opl, field, path/hit
 recording, fuzzy apodization, GRIN) are ROADMAP Queue 1 item 12, and the
 non-sequential trace is item 13.
 
-This is the differentiable path (``SequentialScene.simulate``); the fused
-CUDA kernel (ops/fused_trace.py) runs the same chain forward-only.
+This is the eager differentiable path (``SequentialScene.simulate``); the
+fused CUDA kernels (ops/fused_trace.py) run the same chain forward and its
+adjoint backward, and their plain versions are this loop over the flat rows.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ plain Python description that owns no tensors.  It
   explicit device) and a matching trainability mask (``trainable``);
 - compiles itself into SurfaceTable rows from a parameter dict (``build``),
   so gradients flow from traced rays back to every scalar;
-- exposes its paraxial surface matrices (``paraxial``).
+- exposes its paraxial surface matrices (``paraxial``) and the global z of
+  its optical surfaces (``optical_zs``, the hook of optim/constraints.py).
 """
 
 from __future__ import annotations
@@ -95,3 +96,7 @@ class Element:
         f = self.frame(p)
         eye = torch.eye(5, dtype=p['trans'].dtype, device=p['trans'].device)
         return [p['trans'][2]], [mm(f.paraxial_inv(), mm(eye, f.paraxial()))]
+
+    def optical_zs(self, p):
+        """Global z of each optical surface, differentiable."""
+        return [p['trans'][2]]

@@ -119,6 +119,10 @@ class _SphericLens(Element):
                 for i, c in enumerate(cs)]
         return Zs, mats
 
+    def optical_zs(self, p):
+        z0 = p['trans'][2]
+        return [z0 + zv for zv in self._vertex_zs(p)]
+
 
 class SingletLens(_SphericLens):
     """Biconvex/meniscus singlet: 2 refracting faces + edge cylinder.
@@ -164,3 +168,30 @@ class SingletLens(_SphericLens):
         if self.inked:
             return PhysKind.BLOCK, ()
         return self._refract_kind(), (p['ior_media'], p['ior_glass'])
+
+    # -- thick-lens analytics ----------------------------------------------
+
+    def power1(self, p):
+        return p['c1'] * (p['ior_glass'] - p['ior_media'])
+
+    def power2(self, p):
+        return p['c2'] * (p['ior_media'] - p['ior_glass'])
+
+    def power(self, p):
+        p1, p2 = self.power1(p), self.power2(p)
+        return p1 + p2 - p1 * p2 * p['t'] / p['ior_glass']
+
+    def f(self, p):
+        return 1.0 / self.power(p)
+
+    def f_bfl(self, p):
+        return self.f(p) * (1.0 - p['t'] * self.power1(p) / p['ior_glass'])
+
+    def f_ffl(self, p):
+        return -self.f(p) * (1.0 - p['t'] * self.power2(p) / p['ior_glass'])
+
+    def R1(self, p):
+        return 1.0 / p['c1']
+
+    def R2(self, p):
+        return -1.0 / p['c2']

@@ -1,47 +1,73 @@
-"""Fused sequential forward trace: the CUDA kernel K1, its plain version and
-the dispatcher between them.
+"""Fused sequential trace: the CUDA kernels K1 (forward) and K2 (backward),
+their plain versions, and the autograd Function that joins them.
 
-Counterpart of ``raytracetorch_tpu/ops/pallas_trace.py::
-trace_sequential_pallas_v2`` (TPU kernel ``_kernel_v2``, chain body
-``_chain_pure``) for the main-path kinds with every optional stream off.
-The kernel (``csrc/trace_seq_fwd.cu``, notes on its design and bounds
-there) walks every table row per ray in one pass and writes the final ray
-state and per-block moment partials once.
+Counterpart of ``raytracetorch_tpu/ops/pallas_trace.py``, sequential part,
+for the main-path kinds with every optional stream off:
 
-- ``trace_sequential_fused`` is the entry point: for CPU tensors it runs
-  ``trace_sequential_fused_plain``; for CUDA tensors it launches the kernel
-  or raises.  Rows of kinds the kernel lacks raise NotImplementedError
-  before either runs.
-- ``trace_sequential_fused_plain`` is the same function in plain torch: the
-  eager chain of core/trace.py over the rows of the flat table.
-- ``trace_seq_fwd_cuda`` launches the kernel and counts its launches in
-  ``LAUNCHES``.
+- ``trace_sequential_pallas_v2`` (TPU kernel ``_kernel_v2``, chain body
+  ``_chain_pure``) -> kernel K1, ``csrc/trace_seq_fwd.cu``;
+- ``trace_sequential_pallas_v2_bwd`` (TPU kernel ``_kernel_v2_bwd``) ->
+  kernel K2, ``csrc/trace_seq_bwd.cu``;
+- the ``custom_vjp`` ``fused_trace_grad`` with ``_fused_fwd`` and
+  ``_fused_bwd`` -> ``FusedTrace``.
 
-Forward only: the backward kernel K2 is ROADMAP Queue 2.
+Each kernel's source holds the notes on its design and bounds.  In this
+module:
+
+- ``trace_sequential_fused`` is the entry point.  When grad is enabled and
+  the table or a ray stream requires grad it goes through ``FusedTrace``;
+  otherwise it runs the forward alone.  CPU tensors run the plain versions;
+  CUDA tensors launch the kernels or raise.  Rows of kinds the kernels lack
+  raise NotImplementedError before anything runs.
+- ``trace_sequential_fused_plain`` and ``trace_seq_bwd_plain`` are the two
+  kernels' functions in plain torch: the eager chain of core/trace.py over
+  the rows of the flat table, and its autograd.
+- ``trace_seq_fwd_cuda`` and ``trace_seq_bwd_cuda`` launch the kernels and
+  count their launches in ``LAUNCHES`` and ``BWD_LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.static_dispatch import unsupported
-from ..core.table import ROW_WIDTH, FlatRow, flatten_table_rows
+from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
 from ..core.trace import _surface_step
+from ..rays.ray import Rays
 from . import nvcc_build
 
-LAUNCHES = 0          # kernel launches by trace_seq_fwd_cuda
+LAUNCHES = 0          # kernel launches by trace_seq_fwd_cuda (K1)
+BWD_LAUNCHES = 0      # kernel launches by trace_seq_bwd_cuda (K2)
 
-THREADS = 256         # rays per block (kThreads in the CUDA source)
+THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, plane, sensor, slot, invert, pad
 MAX_ROWS = 64
 MAX_SLOTS = 8
 MAX_BUNDLES = 8
-SOURCE = 'trace_seq_fwd.cu'
+COMPS = ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity')
+# The flat-table columns whose cotangent can be nonzero for the kernels'
+# kinds: q[0:5], Rw[0:9], tw[0:3], ph[0:2].  Everything else (n_sign, Rs,
+# ts, the bounds) enters the chain only through comparisons and selects.
+GRAD_COLS = tuple(ROW_OFFSETS[name] + j
+                  for name, size in (('q', 5), ('Rw', 9), ('tw', 3), ('ph', 2))
+                  for j in range(size))
 
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library name -> (source, C entry point, argtypes)
+_LIBRARIES = {
+    'trace_seq_fwd': ('trace_seq_fwd.cu', 'rtt_trace_seq_fwd',
+                      [_P, _P, _I] + [_P] * 16
+                      + [_I, _I, ctypes.c_longlong, _P]),
+    'trace_seq_bwd': ('trace_seq_bwd.cu', 'rtt_trace_seq_bwd',
+                      [_P, _P, _I] + [_P] * 24
+                      + [_I, _I, ctypes.c_longlong, _P]),
+}
+_fns = {}
 
 
 def _check_limits(n_rows, cfg: SensorConfig):
@@ -56,8 +82,8 @@ def _check_limits(n_rows, cfg: SensorConfig):
 
 
 def kind_rows(static_meta, cfg: SensorConfig):
-    """[K, KIND_WIDTH] int rows the kernel reads; raises NotImplementedError
-    for anything the kernel does not take."""
+    """[K, KIND_WIDTH] int rows the kernels read; raises NotImplementedError
+    for anything the kernels do not take."""
     n_slots = _check_limits(len(static_meta), cfg)
     rows = []
     for k, m in enumerate(static_meta):
@@ -73,25 +99,88 @@ def kind_rows(static_meta, cfg: SensorConfig):
 
 
 def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta):
-    """Fused forward trace -> ``(rays, SensorState)``.
+    """Fused trace -> ``(rays, SensorState)``, differentiable with respect
+    to the table and the 7 ray streams px..intensity.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    CPU tensors run the plain versions; CUDA tensors launch the kernels (or
     raise: there is no fallback)."""
     kinds = kind_rows(static_meta, cfg)
     flat = flatten_table_rows(table)
     device = rays.px.device
-    if device.type == 'cpu':
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no fused trace for device {device}')
+    kinds_t = torch.tensor(kinds, dtype=torch.int32, device=device)
+    comps = [getattr(rays, c) for c in COMPS]
+    if torch.is_grad_enabled() and (
+            flat.requires_grad or any(c.requires_grad for c in comps)):
+        *outs, moments = FusedTrace.apply(flat, kinds_t, cfg,
+                                          tuple(static_meta), *comps,
+                                          rays.ray_id)
+        return (rays.replace(**dict(zip(COMPS, outs))),
+                SensorState(moments=moments))
+    return _forward(flat, kinds_t, rays, cfg, static_meta)
+
+
+def _forward(flat, kinds, rays, cfg, static_meta):
+    if flat.device.type == 'cpu':
         return trace_sequential_fused_plain(flat, rays, cfg, static_meta)
-    if device.type == 'cuda':
-        kinds_t = torch.tensor(kinds, dtype=torch.int32, device=device)
-        return trace_seq_fwd_cuda(flat, kinds_t, rays, cfg)
-    raise ValueError(f'no fused trace for device {device}')
+    return trace_seq_fwd_cuda(flat, kinds, rays, cfg)
+
+
+def _rays_of(comps, ray_id):
+    # the fused trace neither reads nor returns the wavelength stream
+    return Rays(**dict(zip(COMPS, comps)), ray_id=ray_id, wavelength=None)
+
+
+class FusedTrace(torch.autograd.Function):
+    """The fused trace with its backward: K1 forward, K2 backward on CUDA
+    tensors; the plain versions on CPU tensors.
+
+    Counterpart of ``fused_trace_grad`` / ``_fused_fwd`` / ``_fused_bwd``.
+    Like ``_fused_fwd`` it keeps only its inputs (table and input rays) as
+    residuals; the backward re-runs the chain.  The wavelength is not an
+    output, so its identity pass-through is left to autograd.  Like the JAX
+    ``custom_vjp`` it has no higher-order or forward-mode rule.
+
+    ``apply(flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz, intensity,
+    ray_id)`` -> the 7 output ray streams and ``moments [S, B, 7]``."""
+
+    @staticmethod
+    def forward(ctx, flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz,
+                intensity, ray_id):
+        comps = (px, py, pz, dx, dy, dz, intensity)
+        out, sensors = _forward(flat_table, kinds, _rays_of(comps, ray_id),
+                                cfg, meta)
+        ctx.save_for_backward(flat_table, kinds, *comps, ray_id)
+        ctx.cfg, ctx.meta = cfg, meta
+        ctx.set_materialize_grads(False)
+        return (*(getattr(out, c) for c in COMPS), sensors.moments)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        flat, kinds, *comps, ray_id = ctx.saved_tensors
+        rays = _rays_of(comps, ray_id)
+        g_rays, g_moments = grads[:7], grads[7]
+        need = ctx.needs_input_grad
+        need_table, need_rays = need[0], any(need[4:11])
+        if flat.device.type == 'cuda':
+            g_flat, g_in = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg,
+                                              g_rays, g_moments, need_table,
+                                              need_rays)
+        else:
+            g_flat, g_in = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta,
+                                               g_rays, g_moments)
+        g_in = [g if n else None
+                for g, n in zip(g_in or (None,) * 7, need[4:11])]
+        return (g_flat if need_table else None, None, None, None, *g_in,
+                None)
 
 
 def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
                                  static_meta):
-    """The kernel's function in plain torch: the eager chain of
-    core/trace.py over the rows of the flat table the kernel reads."""
+    """K1's function in plain torch: the eager chain of core/trace.py over
+    the rows of the flat table the kernel reads."""
     sensors = SensorState.init(cfg, dtype=torch.float32,
                                device=rays.px.device)
     for k, meta in enumerate(static_meta):
@@ -100,21 +189,55 @@ def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
     return rays, sensors
 
 
+def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
+                        g_rays, g_moments):
+    """K2's function in plain torch: re-run ``trace_sequential_fused_plain``
+    under grad and take ``torch.autograd.grad``.
+
+    ``g_rays`` holds the cotangents of the 7 output streams px..intensity
+    (None for zero) and ``g_moments`` that of the [S, B, 7] moments (or
+    None).  Returns ``(g_flat [K, 160], 7 input-ray cotangents)``."""
+    with torch.enable_grad():
+        flat = flat_table.detach().requires_grad_(True)
+        comps = [getattr(rays, c).detach().requires_grad_(True)
+                 for c in COMPS]
+        out, sensors = trace_sequential_fused_plain(
+            flat, rays.replace(**dict(zip(COMPS, comps))), cfg, static_meta)
+        pairs = [(o, g) for o, g in zip(
+            [*(getattr(out, c) for c in COMPS), sensors.moments],
+            [*g_rays, g_moments]) if g is not None and o.requires_grad]
+        inputs = [flat, *comps]
+        res = (torch.autograd.grad([o for o, _ in pairs],
+                                   inputs, [g for _, g in pairs],
+                                   allow_unused=True)
+               if pairs else [None] * len(inputs))
+    res = [torch.zeros_like(x) if g is None else g
+           for g, x in zip(res, inputs)]
+    return res[0], tuple(res[1:])
+
+
 def build():
-    """Compile the kernel (once per source hash) and bind its C entry
-    point.  Returns ``(log, seconds)`` of the nvcc run (seconds 0.0 when the
-    library was already built)."""
-    global _lib
-    path, log, seconds = nvcc_build.build_library('trace_seq_fwd', [SOURCE])
-    lib = ctypes.CDLL(str(path))
-    fn = lib.rtt_trace_seq_fwd
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 16
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return log, seconds
+    """Compile both kernels (one nvcc each, started together; once per
+    source hash) and bind their C entry points.  Returns ``{library: (log,
+    seconds)}`` of the nvcc runs (seconds 0.0 when already built)."""
+    with concurrent.futures.ThreadPoolExecutor(len(_LIBRARIES)) as pool:
+        futures = {name: pool.submit(nvcc_build.build_library, name, [src])
+                   for name, (src, _, _) in _LIBRARIES.items()}
+    logs = {}
+    for name, fut in futures.items():
+        path, log, seconds = fut.result()
+        _, symbol, argtypes = _LIBRARIES[name]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _fns[name] = fn
+        logs[name] = (log, seconds)
+    return logs
+
+
+def _kernel(name):
+    if name not in _fns:
+        build()
+    return _fns[name]
 
 
 def _check(t, name, dtype, shape, device):
@@ -129,44 +252,99 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f'{name} must be contiguous')
 
 
+def _check_inputs(flat_table, kinds, rays, cfg, name):
+    """Shared checks of both wrappers -> (device, K, N, slots, bundles)."""
+    device = flat_table.device
+    if device.type != 'cuda':
+        raise ValueError(f'{name} needs CUDA tensors, got {device}')
+    k, n = flat_table.shape[0], rays.n
+    n_slots = _check_limits(k, cfg)
+    _check(flat_table, 'table', torch.float32, (k, ROW_WIDTH), device)
+    _check(kinds, 'kinds', torch.int32, (k, KIND_WIDTH), device)
+    for c in COMPS:
+        _check(getattr(rays, c), c, torch.float32, (n,), device)
+    _check(rays.ray_id, 'ray_id', torch.int32, (n,), device)
+    return device, k, n, n_slots, cfg.n_bundles
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig):
-    """Launch the kernel on the current stream -> ``(rays, SensorState)``.
+    """Launch K1 on the current stream -> ``(rays, SensorState)``.
 
     ``flat_table`` is the [K, 160] float32 table, ``kinds`` the [K, 8]
     int32 rows of ``kind_rows``; all on one CUDA device."""
     global LAUNCHES
-    device = flat_table.device
-    if device.type != 'cuda':
-        raise ValueError(f'trace_seq_fwd_cuda needs CUDA tensors, got '
-                         f'{device}')
-    k = flat_table.shape[0]
-    n = rays.n
-    n_slots, n_bundles = _check_limits(k, cfg), cfg.n_bundles
-    _check(flat_table, 'table', torch.float32, (k, ROW_WIDTH), device)
-    _check(kinds, 'kinds', torch.int32, (k, KIND_WIDTH), device)
-    comps = ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity')
-    for c in comps:
-        _check(getattr(rays, c), c, torch.float32, (n,), device)
-    _check(rays.ray_id, 'ray_id', torch.int32, (n,), device)
-
+    device, k, n, n_slots, n_bundles = _check_inputs(
+        flat_table, kinds, rays, cfg, 'trace_seq_fwd_cuda')
     outs = [torch.empty(n, dtype=torch.float32, device=device)
-            for _ in comps]
+            for _ in COMPS]
     n_blocks = -(-n // THREADS)
     partials = torch.empty(n_blocks, n_slots, n_bundles, N_MOMENTS,
                            dtype=torch.float32, device=device)
     if n > 0:
-        if _lib is None:
-            build()
+        fn = _kernel('trace_seq_fwd')
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _lib.rtt_trace_seq_fwd(
-                flat_table.data_ptr(), kinds.data_ptr(), k,
-                *(getattr(rays, c).data_ptr() for c in comps),
-                rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
-                partials.data_ptr(), n_slots, n_bundles, n, stream)
+            rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
+                    *(getattr(rays, c).data_ptr() for c in COMPS),
+                    rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
+                    partials.data_ptr(), n_slots, n_bundles, n,
+                    _stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         LAUNCHES += 1
-    out = rays.replace(**dict(zip(comps, outs)))
+    out = rays.replace(**dict(zip(COMPS, outs)))
     return out, SensorState(moments=partials.sum(dim=0))
+
+
+def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
+                       g_moments, need_table=True, need_rays=True):
+    """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
+    input-ray cotangents or None)``.
+
+    Inputs as for ``trace_seq_fwd_cuda``; ``g_rays`` holds the cotangents
+    of the 7 output streams (None for zero) and ``g_moments`` that of the
+    [S, B, 7] moments (None for zero).  ``need_table`` / ``need_rays`` say
+    which cotangents to compute; the kernel skips the others."""
+    global BWD_LAUNCHES
+    device, k, n, n_slots, n_bundles = _check_inputs(
+        flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
+    # autograd may hand expanded (stride-0) cotangents: the kernel reads
+    # them densely
+    g_rays = [None if g is None else g.contiguous() for g in g_rays]
+    for c, g in zip(COMPS, g_rays):
+        if g is not None:
+            _check(g, f'g_{c}', torch.float32, (n,), device)
+    mom_shape = (n_slots, n_bundles, N_MOMENTS)
+    g_mom = (torch.zeros(mom_shape, dtype=torch.float32, device=device)
+             if g_moments is None else g_moments.contiguous())
+    _check(g_mom, 'g_moments', torch.float32, mom_shape, device)
+
+    outs = ([torch.empty(n, dtype=torch.float32, device=device)
+             for _ in COMPS] if need_rays else None)
+    partials = (torch.empty(-(-n // THREADS), k, len(GRAD_COLS),
+                            dtype=torch.float32, device=device)
+                if need_table else None)
+    if n > 0 and (need_table or need_rays):
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        fn = _kernel('trace_seq_bwd')
+        with torch.cuda.device(device):
+            rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
+                    *(getattr(rays, c).data_ptr() for c in COMPS),
+                    rays.ray_id.data_ptr(), *map(ptr, g_rays),
+                    g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
+                    ptr(partials), n_slots, n_bundles, n, _stream(device))
+        if rc != 0:
+            raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
+                               f'error {rc}')
+        BWD_LAUNCHES += 1
+    g_flat = None
+    if need_table:
+        g_flat = torch.zeros(k, ROW_WIDTH, dtype=torch.float32,
+                             device=device)
+        g_flat[:, list(GRAD_COLS)] = partials.sum(dim=0)
+    return g_flat, (tuple(outs) if need_rays else None)

@@ -3,8 +3,9 @@
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) from the
 sources under ``csrc/`` into ``_build/`` (listed in ``.gitignore``), with a
 plain C entry point that callers bind with ``ctypes``.  The file name carries
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing is compiled at import time.
+a hash of the sources, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source rebuilds and an unchanged one is reused.  Nothing is
+compiled at import time.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def build_library(name, sources):
     srcs = [CSRC_DIR / s for s in sources]
     flags = NVCC_FLAGS
     h = hashlib.sha256(' '.join(flags).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC_DIR.glob('*.cuh')):
         h.update(s.read_bytes())
     out = BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
     log_path = out.with_suffix('.log')

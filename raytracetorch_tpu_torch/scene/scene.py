@@ -6,13 +6,17 @@ static structure; the parameters are a dict of per-element dicts of tensors
 keyed by element name.
 
 Two trace entry points share one contract, ``(params, rays) -> (rays,
-sensors, aux)``:
+sensors, aux)``, and both are differentiable:
 
-- ``simulate`` runs the eager, differentiable trace (core/trace.py);
-- ``simulate_fused`` runs the fused forward kernel (ops/fused_trace.py) at
-  every N.  The JAX package's auto-dispatch below a crossover N was measured
-  on a TPU and is not carried over; gradients through the fused path need
-  the backward kernel K2 (ROADMAP Queue 2).
+- ``simulate`` runs the eager trace (core/trace.py) under autograd;
+- ``simulate_fused`` runs the fused trace (ops/fused_trace.py) at every N:
+  kernel K1 forward and, under grad, kernel K2 backward.  The JAX package's
+  auto-dispatch below a crossover N was measured on a TPU and is not carried
+  over.
+
+Ray sources are registered with ``add_bundle`` and drawn with
+``sample_rays``; the sensor moments keep one column per bundle, so
+``n_bundles=None`` means the scene's bundle count, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..core.trace import trace_sequential
 from ..elements.ideal import paraxial_dist_mat
 from ..geom.transform import mm
 from ..ops.fused_trace import trace_sequential_fused
+from ..rays.sources import sample_bundles
 
 
 class SequentialScene:
@@ -34,7 +39,32 @@ class SequentialScene:
 
     def __init__(self, elements=None):
         self.elements = list(elements or [])
+        self.bundles = []          # list of (Bundle, n_rays)
         self._static_meta = None
+
+    # -- population --------------------------------------------------------
+
+    def add_element(self, element):
+        self.elements.append(element)
+        self._static_meta = None
+        return element
+
+    def add_bundle(self, bundle, n_rays=200):
+        self.bundles.append((bundle, n_rays))
+        return bundle
+
+    def clear_elements(self):
+        self.elements = []
+        self._static_meta = None
+
+    def clear_bundles(self):
+        self.bundles = []
+
+    def find_element(self, name):
+        for el in self.elements:
+            if el.name == name:
+                return el
+        raise KeyError(f'No element named {name!r}')
 
     # -- parameters --------------------------------------------------------
 
@@ -63,8 +93,14 @@ class SequentialScene:
     def n_sensors(self):
         return sum(1 for el in self.elements if el.is_sensor)
 
-    def sensor_config(self, n_bundles=1):
-        return SensorConfig(n_sensors=self.n_sensors, n_bundles=n_bundles)
+    @property
+    def n_bundles(self):
+        return max(len(self.bundles), 1)
+
+    def sensor_config(self, n_bundles=None):
+        return SensorConfig(
+            n_sensors=self.n_sensors,
+            n_bundles=self.n_bundles if n_bundles is None else n_bundles)
 
     def build_table(self, params):
         """Flatten all elements into a SurfaceTable on the params' device."""
@@ -102,23 +138,28 @@ class SequentialScene:
 
     # -- simulation --------------------------------------------------------
 
-    def simulate(self, params, rays, n_bundles=1):
+    def sample_rays(self, generator, device, bundles=None, dtype=None):
+        """Sample and merge the registered bundles (or ``bundles``, a list
+        of (Bundle, n_rays)) from ``generator``, a torch.Generator on
+        ``device``."""
+        spec = self.bundles if bundles is None else bundles
+        return sample_bundles(generator, spec, device,
+                              torch.float32 if dtype is None else dtype)
+
+    def simulate(self, params, rays, n_bundles=None):
         """Eager differentiable trace -> (rays, sensors, aux)."""
         return trace_sequential(self.build_table(params), rays,
                                 self.sensor_config(n_bundles),
                                 self.static_meta())
 
-    def simulate_fused(self, params, rays, n_bundles=1):
-        """Fused forward trace (CUDA kernel on the card, its plain version
-        on the CPU) -> (rays, sensors, aux).  Forward only: raises while any
-        table tensor requires grad instead of routing to ``simulate``."""
-        table = self.build_table(params)
-        if any(getattr(table, f).requires_grad
-               for f in table.__dataclass_fields__):
-            raise NotImplementedError(
-                'fused backward is ROADMAP Queue 2 K2; use simulate')
+    def simulate_fused(self, params, rays, n_bundles=None):
+        """Fused trace -> (rays, sensors, aux): the CUDA kernels on the card
+        (K1 forward, K2 backward under grad), their plain versions on the
+        CPU.  Differentiable with respect to the params and the ray streams
+        px..intensity; first order only."""
         out, sensors = trace_sequential_fused(
-            table, rays, self.sensor_config(n_bundles), self.static_meta())
+            self.build_table(params), rays, self.sensor_config(n_bundles),
+            self.static_meta())
         return out, sensors, {}
 
     def paraxial(self, params):

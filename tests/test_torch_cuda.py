@@ -1,5 +1,6 @@
-"""The fused forward kernel K1 (csrc/trace_seq_fwd.cu) against its plain
-PyTorch version, on the card.
+"""The fused kernels K1 (csrc/trace_seq_fwd.cu) and K2 (csrc/trace_seq_bwd.cu)
+against their plain PyTorch versions, on the card, and the gradient paths
+that run them.
 
 Every test here needs a CUDA card and is marked ``cuda``; without a card
 each skips.  The file imports neither jax nor the JAX package, so on a
@@ -11,7 +12,8 @@ Tolerances: final intensity exact; positions and directions atol/rtol 1e-5
 (f32 rounding of a chain of a few surfaces: the kernel contracts
 multiply-adds, eager torch does not); moments rtol 1e-5 atol 1e-3 (another
 summation order).  At N = 2,999 no ray sits close enough to a rim for its
-hit to flip.
+hit to flip.  K2's cotangents are held to chip_smoke.py's bounds (BWD_TOL,
+TAB_RTOL; reasons there).
 """
 
 import pytest
@@ -125,3 +127,85 @@ def test_kernel_refuses_strided_rays(dev):
     strided = rays.replace(px=torch.stack([rays.px, rays.py], 1)[:, 0])
     with pytest.raises(ValueError, match='contiguous'):
         trt.trace_sequential_fused(table, strided, cfg, meta)
+
+
+def _kinds(meta, cfg, dev):
+    return torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                        device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_k2_matches_plain(case, dev):
+    table, rays, cfg, meta = CASES[case](dev)
+    flat = trt.flatten_table_rows(table)
+    g_rays, g_mom = chip_smoke.random_cotangents(torch, rays.n, cfg, dev, 5)
+    before = fused_trace.BWD_LAUNCHES
+    gt_k, gr_k = fused_trace.trace_seq_bwd_cuda(flat, _kinds(meta, cfg, dev),
+                                                rays, cfg, g_rays, g_mom)
+    assert fused_trace.BWD_LAUNCHES == before + 1
+    gt_p, gr_p = fused_trace.trace_seq_bwd_plain(flat, rays, cfg, meta,
+                                                 g_rays, g_mom)
+    torch.cuda.synchronize()
+    res = chip_smoke.compare_ray_cotangents(torch, gr_k, gr_p)
+    assert res['rays_differ'] == 0
+    chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p)
+
+
+@pytest.mark.cuda
+def test_simulate_fused_backward_launches_k2_once(dev):
+    """A spot-loss gradient through simulate_fused launches K1 and K2 once
+    each and equals the eager path's."""
+    scene = chip_smoke.bench_scene(trt)
+    _, rays, _, _ = _bench_case(dev)
+    grads = []
+    for sim in (scene.simulate_fused, scene.simulate):
+        p = scene.init_params(dev)
+        p['lens']['c1'].requires_grad_(True)
+        fwd, bwd = fused_trace.LAUNCHES, fused_trace.BWD_LAUNCHES
+        _, sens, _ = sim(p, rays)
+        trt.spot_size_loss(sens).backward()
+        grads.append(p['lens']['c1'].grad)
+        launched = (fused_trace.LAUNCHES - fwd, fused_trace.BWD_LAUNCHES - bwd)
+        assert launched == ((1, 1) if sim == scene.simulate_fused
+                            else (0, 0))
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_ray_gradients_through_the_kernels(dev):
+    """Rays that require grad get gradients through simulate_fused on the
+    card: a loss on output pz and px plus the spot RMS, with rays.px and
+    rays.dx requiring grad, equals the eager path's."""
+    scene = chip_smoke.bench_scene(trt)
+    _, base, _, _ = _bench_case(dev)
+    grads = []
+    for sim in (scene.simulate_fused, scene.simulate):
+        rays = base.replace(px=base.px.clone().requires_grad_(True),
+                            dx=base.dx.clone().requires_grad_(True))
+        out, sens, _ = sim(scene.init_params(dev), rays)
+        loss = (out.pz.mean() + out.px.square().mean()
+                + trt.spot_size_loss(sens))
+        loss.backward()
+        grads.append((rays.px.grad, rays.dx.grad))
+    zeros = torch.zeros_like(base.px)
+    res = chip_smoke.compare_ray_cotangents(
+        torch, (grads[0][0], zeros, zeros, grads[0][1], zeros, zeros, zeros),
+        (grads[1][0], zeros, zeros, grads[1][1], zeros, zeros, zeros))
+    assert res['rays_differ'] == 0
+    assert float(grads[0][0].abs().max()) > 0
+    assert float(grads[0][1].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_k2_takes_empty_batch(dev):
+    """N = 0 launches nothing and gives a zero table cotangent."""
+    table, rays, cfg, meta = _bench_case(dev)
+    empty = trt.Rays(**{f: getattr(rays, f)[:0].contiguous()
+                        for f in rays.__dataclass_fields__})
+    before = fused_trace.BWD_LAUNCHES
+    g_flat, g_in = fused_trace.trace_seq_bwd_cuda(
+        trt.flatten_table_rows(table), _kinds(meta, cfg, dev), empty, cfg,
+        (None,) * 7, torch.ones(1, 1, 7, device=dev))
+    assert fused_trace.BWD_LAUNCHES == before
+    assert bool((g_flat == 0).all()) and g_in[0].shape == (0,)

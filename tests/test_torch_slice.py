@@ -65,21 +65,30 @@ def test_simulate_fused_matches_jax_end_to_end():
 
 
 def test_simulate_fused_refuses_gradients():
-    """Forward only until the backward kernel lands: a table that requires
-    grad raises instead of routing to simulate."""
+    """simulate_fused differentiates to first order through the fused
+    trace's autograd Function (the same gradients as the eager path) and
+    refuses second-order gradients, as the JAX custom_vjp does."""
     ts = _bench(trt)
-    p = ts.init_params('cpu')
-    p['lens']['c1'].requires_grad_(True)
     gen = torch.Generator('cpu').manual_seed(0)
     rays = trt.CollimatedDisk.make(radius=4.0,
                                    translation=[0, 0, -10.0]).sample(
         gen, 256, 'cpu')
-    with pytest.raises(NotImplementedError, match='K2'):
-        ts.simulate_fused(p, rays)
-    # the eager path takes the same call and differentiates
-    _, sens, _ = ts.simulate(p, rays)
-    trt.spot_size_loss(sens).backward()
-    assert torch.isfinite(p['lens']['c1'].grad)
+    grads = []
+    for sim in (ts.simulate_fused, ts.simulate):
+        p = ts.init_params('cpu')
+        p['lens']['c1'].requires_grad_(True)
+        _, sens, _ = sim(p, rays)
+        trt.spot_size_loss(sens).backward()
+        assert torch.isfinite(p['lens']['c1'].grad)
+        grads.append(p['lens']['c1'].grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-7)
+    p = ts.init_params('cpu')
+    p['lens']['c1'].requires_grad_(True)
+    _, sens, _ = ts.simulate_fused(p, rays)
+    (g,) = torch.autograd.grad(trt.spot_size_loss(sens), p['lens']['c1'],
+                               create_graph=True)
+    with pytest.raises(RuntimeError, match='once_differentiable'):
+        g.backward()
 
 
 def test_main_path_on_cpu_counts_no_launch():
