@@ -3,22 +3,28 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds both CUDA kernels from the sources in the checkout (K1, the fused
-forward, and K2, its hand-written adjoint; one nvcc each, started together)
-and checks each against its plain PyTorch version.  Then it drives three
-paths, each with both launch counters reset just before it and read just
-after: the forward main path (the 1M-ray singlet scene through
-``SequentialScene.simulate_fused``), the gradient main path (the same call
-under grad, then ``spot_size_loss`` and ``backward()``), and the design loop
-(the reference's singlet design by ``fit_lbfgs`` through ``simulate_fused``
-at 1M rays).  It checks each against the repo's anchors and against the
-eager ``simulate``, and times the kernels, their plain versions and the
-end-to-end calls with CUDA events.
+It builds the four CUDA libraries from the sources in the checkout (K1, the
+fused sequential forward; K2, its hand-written adjoint; K3, irradiance-grid
+binning; K5, the fused non-sequential bounce loop; one nvcc each, started
+together) and checks each kernel against its plain PyTorch version, K1 and
+K2 also with a 256 x 256 grid.  Then it drives five paths, each with every
+launch counter reset just before it and read just after: the forward main
+path (the 1M-ray singlet scene through ``SequentialScene.simulate_fused``),
+the gradient main path (the same call under grad, then ``spot_size_loss``
+and ``backward()``), the design loop (the reference's singlet design by
+``fit_lbfgs`` through ``simulate_fused`` at 1M rays), the non-sequential
+main path (the singlet traced as a ``Scene`` with a 256 x 256 grid through
+``Scene.simulate_fused``), and the same scene through the eager
+``Scene.simulate``, whose grid binning launches K3.  It checks each against
+the repo's anchors and against the eager paths, and times the kernels,
+their plain versions, a library call where one computes the same function,
+and the end-to-end calls with CUDA events.
 
 Each phase prints one JSON line; any failed check raises, so the script
-exits non-zero.  Then come the kernel summary line, the card's name and
-power limit as nvidia-smi reports them, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+exits non-zero.  Then come the kernel summary line (each kernel's launches
+on its main path, error, time, plain time, the bound of its work on this
+card and, for K3, a library call's time), the card's name and power limit
+as nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script fails.
 """
 
@@ -65,6 +71,36 @@ BWD_FLIPS_PER_MILLION = 10
 TAB_RTOL = 1e-4
 # The design loop: the reference's singlet (tests/test_optimize_singlet.py)
 DESIGN_STEPS = 25
+# Irradiance grids: the bench spot on a 256 x 256 grid over [-1, 1]^2
+# (benchmarks/suite.py grid_256_1M).  K3 alone, unit weights: bit for bit
+# (each bin a sum of integers, exact in f32).  Random weights: each bin
+# within GRID_RAND_RTOL of the grid's largest bin (float atomics add in a
+# run-dependent order).  A fused kernel's grid: its total to
+# GRID_TOTAL_RTOL of the plain total (K1) or NS_GRID_TOTAL_RTOL (K5), and
+# sum |grid_k - grid_p| / total <= GRID_SHARE: a ray whose hit an FMA ulp
+# moves across a bin edge moves its weight to the next bin.  The same rays
+# take their neighbour bin's cotangent in K2, so the intensity cotangent may
+# differ on a GRID_SHARE share of the rays.
+GRID, GRID_E = (256, 256), 1.0
+GRID_RAND_RTOL = 1e-5
+GRID_TOTAL_RTOL = 1e-6
+GRID_SHARE = 2e-3
+# K5 vs its plain version (tests/test_pallas.py test_nonseq_fused_*): rays
+# with |dpos| > NS_POS_TOL or |dintensity| > NS_INT_TOL number at most
+# max(3, NS_MISMATCH_SHARE * N) (a hit that flips at a rim changes the
+# ray's later bounces); moments to NS_MOMENT_RTOL of their scale.
+NS_POS_TOL, NS_INT_TOL = 1e-4, 1e-5
+NS_MISMATCH_SHARE = 1e-4
+NS_MOMENT_RTOL = 1e-4
+NS_GRID_TOTAL_RTOL = 1e-5
+NS_BOUNCES = 8
+# The non-sequential trace of an ordered system equals the sequential
+# trace (tests/test_nonsequential.py): spot RMS to NS_SPOT_RTOL.
+NS_SPOT_RTOL = 1e-3
+# H100 SXM datasheet peaks for the bound of each kernel's work: HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def check(cond, what):
@@ -227,28 +263,41 @@ def random_cotangents(torch, n, cfg, device, seed):
     return g_rays, g_mom
 
 
-def compare_ray_cotangents(torch, g_k, g_p):
-    """Per-ray cotangents, kernel vs plain (7 streams px..intensity, or a
-    subset with its group labels) -> dict; raises on a breach."""
+def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0):
+    """Per-ray cotangents, kernel vs plain (7 streams px..intensity) ->
+    dict; raises on a breach.  ``intensity_allowed`` rays may differ in the
+    intensity cotangent alone (a grid cotangent read from a neighbour bin)."""
     groups = ((0, 1, 2), (3, 4, 5), (6,))
     n = g_p[0].shape[0]
-    bad = torch.zeros(n, dtype=torch.bool, device=g_p[0].device)
+    bad = [torch.zeros(n, dtype=torch.bool, device=g_p[0].device)
+           for _ in groups]
     max_err, worst = 0.0, 0.0
-    for grp in groups:
+    for grp, bad_g in zip(groups, bad):
         scale = max(float(g_p[j].abs().max()) if n else 0.0 for j in grp)
         for j in grp:
             err = (g_k[j] - g_p[j]).abs()
             bound = BWD_TOL * (g_p[j].abs() + scale)
-            bad |= (err > bound) | ~torch.isfinite(g_k[j])
+            bad_g |= (err > bound) | ~torch.isfinite(g_k[j])
             if n:
                 max_err = max(max_err, float(err.max()))
                 worst = max(worst, float(err.max()) / max(scale, 1e-30))
-    n_bad = int(bad.sum())
+    n_bad = int((bad[0] | bad[1] | bad[2]).sum())
     allowed = math.ceil(BWD_FLIPS_PER_MILLION * n / 1e6)
-    check(n_bad <= allowed,
-          f'{n_bad} rays have other cotangents (allowed {allowed})')
-    return dict(n=n, rays_differ=n_bad, allowed=allowed,
-                max_abs_err=max_err, max_err_over_scale=worst)
+    res = dict(n=n, rays_differ=n_bad, allowed=allowed,
+               max_abs_err=max_err, max_err_over_scale=worst)
+    if intensity_allowed:
+        n_geom, n_int = int((bad[0] | bad[1]).sum()), int(bad[2].sum())
+        res.update(position_direction_differ=n_geom, intensity_differ=n_int,
+                   intensity_allowed=max(allowed, intensity_allowed))
+        check(n_geom <= allowed,
+              f'{n_geom} rays have other position or direction cotangents '
+              f'(allowed {allowed})')
+        check(n_int <= max(allowed, intensity_allowed),
+              f'{n_int} rays have other intensity cotangents')
+    else:
+        check(n_bad <= allowed,
+              f'{n_bad} rays have other cotangents (allowed {allowed})')
+    return res
 
 
 def compare_table_cotangents(torch, fused_trace, g_k, g_p):
@@ -273,6 +322,157 @@ def compare_table_cotangents(torch, fused_trace, g_k, g_p):
                 rows_with_grad=int((g_p.abs().sum(1) > 0).sum()))
 
 
+def grid_scene(rt):
+    """The bench scene with the 256 x 256 grid of benchmarks/suite.py."""
+    scene = bench_scene(rt)
+    scene.grid_shape, scene.grid_half_extent = GRID, GRID_E
+    return scene
+
+
+def naive_scene(rt, stop_z=0.0, n_bounces=NS_BOUNCES):
+    """BASELINE.json's naive scene: the bench singlet traced as a
+    non-sequential Scene (benchmarks/suite.py naive_scene_1M_8bounce), with
+    the 256 x 256 grid.  ``stop_z=10`` is the ordered variant of
+    tests/test_nonsequential.py, which a sequential trace must match."""
+    scene = rt.Scene([
+        rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                       ior_media=1.0, name='lens'),
+        rt.CircularAperture(radius=5.0, translation=[0.0, 0.0, stop_z],
+                            name='stop'),
+        rt.SensorElement(radius=6.0, translation=[0.0, 0.0, 19.0],
+                         name='sensor'),
+    ], n_bounces=n_bounces)
+    scene.grid_shape, scene.grid_half_extent = GRID, GRID_E
+    return scene
+
+
+def mirror_fold_scene(rt):
+    """A spherical mirror (R = -40) folds collimated rays back through a
+    sensor behind their source, which no z-ordered trace can follow
+    (tests/test_pallas.py test_nonseq_fused_grid_parity); 32 x 32 grid over
+    [-4, 4]^2."""
+    scene = rt.Scene([
+        rt.SphericalMirror(c1=-0.025, d=0.0, translation=[0.0, 0.0, 40.0],
+                           name='mirror'),
+        rt.SensorElement(radius=10.0, translation=[0.0, 0.0, 0.5],
+                         name='sensor'),
+    ], n_bounces=4)
+    scene.grid_shape, scene.grid_half_extent = (32, 32), 4.0
+    return scene
+
+
+def mirror_fold_rays(rt, torch, n, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    src = rt.CollimatedDisk.make(radius=2.0, translation=[0.0, 0.0, 1.0])
+    return src.sample(gen, n, device)
+
+
+def compare_grid(torch, g_k, g_p, total_rtol):
+    """A fused kernel's grid vs its plain version's -> dict; raises on a
+    breach (module notes: GRID_SHARE)."""
+    total = float(g_p.sum())
+    total_err = abs(float(g_k.sum()) - total)
+    share = float((g_k - g_p).abs().sum()) / max(abs(total), 1e-30)
+    res = dict(grid_total=total, grid_total_abs_err=total_err,
+               grid_l1_share=share, grid_max_abs_err=float(
+                   (g_k - g_p).abs().max()))
+    check(total_err <= total_rtol * abs(total),
+          f'grid totals differ: {float(g_k.sum())} vs {total}')
+    check(share <= GRID_SHARE, f'grids differ: L1 share {share}')
+    return res
+
+
+def compare_nonseq(torch, out_k, s_k, out_p, s_p):
+    """K5 (or the eager bounce loop) vs the plain bounce loop -> dict;
+    raises on a breach (module notes: NS_*)."""
+    n = out_p.px.shape[0]
+    comps = ('px', 'py', 'pz', 'dx', 'dy', 'dz')
+    dpos = torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
+                        for c in comps[:3]]).amax(0)
+    bad = ((dpos > NS_POS_TOL)
+           | ((out_k.intensity - out_p.intensity).abs() > NS_INT_TOL))
+    for c in comps + ('intensity',):
+        bad |= ~torch.isfinite(getattr(out_k, c))
+    n_bad = int(bad.sum())
+    allowed = max(3, math.ceil(NS_MISMATCH_SHARE * n))
+    keep = ~bad
+    max_err = max(float((getattr(out_k, c) - getattr(out_p, c))[keep]
+                        .abs().max()) if n else 0.0 for c in comps)
+    mk, mp = s_k.moments, s_p.moments
+    bound = NS_MOMENT_RTOL * torch.maximum(moment_scale(torch, mp), mp.abs())
+    mom_err = (mk - mp).abs()
+    res = dict(n=n, mismatched=n_bad, mismatch_allowed=allowed,
+               max_abs_err=max_err,
+               moment_err_over_bound=float(
+                   (mom_err / bound.clamp(min=1e-30)).max()))
+    check(n_bad <= allowed, f'{n_bad} rays differ (allowed {allowed})')
+    check(bool((mom_err <= bound + 1e-6).all()),
+          f'moments differ: {mk.tolist()} vs {mp.tolist()}')
+    res.update(compare_grid(torch, s_k.grid, s_p.grid, NS_GRID_TOTAL_RTOL))
+    return res
+
+
+# Float32 operations per ray of one table row, counted in the kernels'
+# sources (csrc/trace_seq_common.cuh): the intersection with its bounds,
+# and the normal, physics, update and sensor terms of a row that is
+# applied.  Each kernel's bound is the larger of its bytes over the HBM
+# rate and these operations over the float32 rate.
+def intersect_ops(meta):
+    return ((83 if meta.plane else 122) + (22 if meta.sb else 0)
+            + (22 if meta.vb else 0))
+
+
+def apply_ops(meta):
+    from raytracetorch_tpu_torch.constants import PhysKind
+    physics = {PhysKind.SNELL: 26, PhysKind.REFLECT: 13,
+               PhysKind.APERTURE: 8}.get(meta.ph, 0)
+    return 7 + (0 if meta.plane else 34) + physics + (13 if meta.sensor
+                                                      else 0)
+
+
+def bound(n_bytes, n_ops):
+    """(bound ms, what bounds it) of work of n_bytes and n_ops."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def table_bytes(meta):
+    return len(meta) * (160 + 8) * 4
+
+
+def grid_bytes(cfg):
+    if not cfg.grid_shape:
+        return 0
+    return max(cfg.n_sensors, 1) * cfg.grid_shape[0] * cfg.grid_shape[1] * 4
+
+
+def nonseq_work(rt, torch, scene, params, rays):
+    """K5's data-dependent work on these rays: the row scans it runs (one per
+    ray and bounce begun with intensity > 0 and a hit in the last bounce)
+    and the winners per row, counted with the plain bounce loop."""
+    from raytracetorch_tpu_torch.core.trace import bounce_step, nearest_hit
+    table = scene.build_table(params)
+    meta = scene.static_meta()
+    rows = [table.row(k) for k in range(table.n_surfaces)]
+    cfg = rt.SensorConfig(n_sensors=scene.n_sensors, n_bundles=1)
+    sens = rt.SensorState.init(cfg, device=rays.px.device)
+    going = rays.intensity > 0
+    scans, wins = 0, [0] * len(meta)
+    with torch.no_grad():
+        for _ in range(scene.n_bounces):
+            if not bool(going.any()):
+                break
+            scans += int(going.sum())
+            win, _ = nearest_hit(table, rays.pos_c, rays.dir_c, meta)
+            rays, sens, act = bounce_step(rows, rays, cfg, sens, meta,
+                                          plain=True)
+            for k in range(len(meta)):
+                wins[k] += int((act & going & (win == k)).sum())
+            going = going & act & (rays.intensity > 0)
+    return scans, wins
+
+
 def time_ms(torch, fn, warmup=3, reps=20):
     """Median ms of ``reps`` calls, each between two CUDA events."""
     for _ in range(warmup):
@@ -290,14 +490,14 @@ def time_ms(torch, fn, warmup=3, reps=20):
     return ts
 
 
-def time_pair(torch, kernel_fn, plain_fn, reps=20):
+def time_pair(torch, kernel_fn, plain_fn, reps=20, warmup=3):
     """Kernel and plain version in turns (plain, kernel, kernel, plain),
     reps/2 calls per turn -> (kernel ms median, plain ms median, runs)."""
     half = reps // 2
-    p1 = time_ms(torch, plain_fn, reps=half)
-    k1 = time_ms(torch, kernel_fn, reps=half)
-    k2 = time_ms(torch, kernel_fn, reps=half)
-    p2 = time_ms(torch, plain_fn, reps=half)
+    p1 = time_ms(torch, plain_fn, warmup, half)
+    k1 = time_ms(torch, kernel_fn, warmup, half)
+    k2 = time_ms(torch, kernel_fn, warmup, half)
+    p2 = time_ms(torch, plain_fn, warmup, half)
     k, p = k1 + k2, p1 + p2
     return statistics.median(k), statistics.median(p), k, p
 
@@ -314,7 +514,20 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import raytracetorch_tpu_torch as rt
-    from raytracetorch_tpu_torch.ops import fused_trace
+    from raytracetorch_tpu_torch.core.sensor import bin_indices
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace, grid
+
+    def reset_counters():
+        fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+        fused_nonseq.NONSEQ_LAUNCHES = 0
+        grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
+
+    def counters():
+        return dict(trace_seq_fwd=fused_trace.LAUNCHES,
+                    trace_seq_bwd=fused_trace.BWD_LAUNCHES,
+                    trace_nonseq_fwd=fused_nonseq.NONSEQ_LAUNCHES,
+                    grid_bin=grid.GRID_LAUNCHES,
+                    grid_gather=grid.GATHER_LAUNCHES)
 
     dev = torch.device('cuda')
     card = nvidia_smi_line()
@@ -328,7 +541,7 @@ def main():
          tf32=[torch.backends.cuda.matmul.allow_tf32,
                torch.backends.cudnn.allow_tf32])
 
-    # 2. build: both kernels, one nvcc each, started together
+    # 2. build: the four libraries, one nvcc each, started together
     t0 = time.perf_counter()
     logs = fused_trace.build()
     emit('build', seconds=time.perf_counter() - t0,
@@ -395,6 +608,141 @@ def main():
                   f'{case}: too few rows with a table cotangent: {res}')
             bwd_cases[f'{case}_{n}'] = res
     emit('kernel_vs_plain_bwd', **bwd_cases)
+
+    # 3c. K3 alone vs plain: 1M hits on two slots, some outside +-e
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    gcfg = rt.SensorConfig(n_sensors=2, grid_shape=GRID,
+                           grid_half_extent=GRID_E)
+    hx = torch.randn(N_MAIN, generator=gen, device=dev) * 0.6
+    hy = torch.randn(N_MAIN, generator=gen, device=dev) * 0.6
+    hslot = torch.randint(0, 2, (N_MAIN,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    ones = torch.ones(N_MAIN, device=dev)
+    hw = torch.rand(N_MAIN, generator=gen, device=dev)
+    g_unit_k = grid.bin_grid_cuda(hx, hy, ones, hslot, gcfg)
+    g_unit_p = grid.bin_grid_slots_plain(hx, hy, ones, hslot, gcfg)
+    g_rand_k = grid.bin_grid_cuda(hx, hy, hw, hslot, gcfg)
+    g_rand_p = grid.bin_grid_slots_plain(hx, hy, hw, hslot, gcfg)
+    ct = torch.randn(2, *GRID, generator=gen, device=dev)
+    gather_k = grid.grid_gather_cuda(ct, hx, hy, hslot, gcfg)
+    ix, iy = bin_indices(GRID, GRID_E, hx, hy)
+    gather_p = ct[hslot.long(), iy, ix]
+    torch.cuda.synchronize()
+    rand_err = float((g_rand_k - g_rand_p).abs().max())
+    rand_scale = float(g_rand_p.abs().max())
+    grid_res = dict(
+        n=N_MAIN, outside=int(((hx.abs() > GRID_E)
+                               | (hy.abs() > GRID_E)).sum()),
+        unit_equal=bool(torch.equal(g_unit_k, g_unit_p)),
+        unit_total=float(g_unit_k.sum()), rand_max_abs_err=rand_err,
+        rand_err_over_max_bin=rand_err / rand_scale,
+        gather_equal=bool(torch.equal(gather_k, gather_p)))
+    emit('grid_bin', **grid_res)
+    check(grid_res['unit_equal'] and grid_res['unit_total'] == N_MAIN,
+          'K3 with unit weights differs from its plain version')
+    check(rand_err <= GRID_RAND_RTOL * rand_scale,
+          f'K3 with random weights: {rand_err} of {rand_scale}')
+    check(grid_res['gather_equal'], "K3's gather differs from ct[s, iy, ix]")
+    check(grid_res['outside'] > 0, 'no hit outside the grid')
+
+    # 3d. K1 with the 256 x 256 grid vs plain; and nothing else changes
+    gscene = grid_scene(rt)
+    gcfg1 = gscene.sensor_config()
+    fwd_grid = {}
+    for n in (N_SMALL, N_MAIN):
+        rays = sample_rays(rt, torch, n, dev, SEED + n)
+        out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, gcfg1)
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(flat, rays,
+                                                              gcfg1, meta)
+        out_0, s_0 = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg)
+        torch.cuda.synchronize()
+        res = compare(torch, out_k, s_k, out_p, s_p)
+        res.update(compare_grid(torch, s_k.grid, s_p.grid, GRID_TOTAL_RTOL))
+        res['same_as_without_grid'] = bool(
+            torch.equal(out_k.px, out_0.px) and torch.equal(out_k.dz, out_0.dz)
+            and torch.equal(s_k.moments, s_0.moments))
+        check(res['same_as_without_grid'],
+              'K1 with a grid changed its rays or moments')
+        fwd_grid[f'bench_{n}'] = res
+    emit('fwd_grid', **fwd_grid)
+
+    # 3e. K2 with the grid's cotangent: d/d(rays, table) of
+    # sum(grid * W) + spot_rms, K2 vs plain, then through FusedTrace
+    bwd_grid = {}
+    w_grid = torch.randn(1, *GRID, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 31), device=dev)
+    for n in (N_SMALL, N_MAIN):
+        rays = sample_rays(rt, torch, n, dev, SEED + 11 + n)
+        _, s_p = fused_trace.trace_sequential_fused_plain(flat, rays, gcfg1,
+                                                          meta)
+        mom = s_p.moments.detach().requires_grad_(True)
+        (g_mom,) = torch.autograd.grad(
+            rt.SensorState(moments=mom, grid=s_p.grid).spot_rms(0)[0], mom)
+        gt_k, gr_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, gcfg1, (None,) * 7, g_mom, g_grid=w_grid)
+        gt_p, gr_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, gcfg1, meta, (None,) * 7, g_mom, g_grid=w_grid)
+        torch.cuda.synchronize()
+        res = compare_ray_cotangents(torch, gr_k, gr_p,
+                                     intensity_allowed=math.ceil(
+                                         GRID_SHARE * n))
+        res.update(compare_table_cotangents(torch, fused_trace, gt_k, gt_p))
+        res['intensity_cotangent_norm'] = float(gr_k[6].norm())
+        check(res['intensity_cotangent_norm'] > 0, 'no grid cotangent')
+        bwd_grid[f'bench_{n}'] = res
+
+    def grid_loss_grads(simulate):
+        p = gscene.init_params(dev)
+        for k in ('c1', 'c2'):
+            p['lens'][k].requires_grad_(True)
+        r = rays.replace(intensity=rays.intensity.clone().requires_grad_(True))
+        _, s, _ = simulate(p, r)
+        loss = (s.grid * w_grid).sum() + s.spot_rms(0)[0]
+        loss.backward()
+        return [float(p['lens'][k].grad) for k in ('c1', 'c2')], \
+            r.intensity.grad
+
+    reset_counters()
+    g_fused, gi_fused = grid_loss_grads(gscene.simulate_fused)
+    torch.cuda.synchronize()
+    bwd_grid_launches = counters()
+    g_eager, gi_eager = grid_loss_grads(gscene.simulate)
+    zeros = torch.zeros_like(gi_fused)
+    res = compare_ray_cotangents(
+        torch, (zeros,) * 6 + (gi_fused,), (zeros,) * 6 + (gi_eager,),
+        intensity_allowed=math.ceil(GRID_SHARE * N_MAIN))
+    rel = [abs(a - b) / abs(b) for a, b in zip(g_fused, g_eager)]
+    bwd_grid['fused_trace'] = dict(launches=bwd_grid_launches,
+                                   grad_fused=g_fused, grad_eager=g_eager,
+                                   rel_err=rel, intensity_grads=res)
+    emit('bwd_grid', **bwd_grid)
+    check(bwd_grid_launches['trace_seq_fwd'] == 1
+          and bwd_grid_launches['trace_seq_bwd'] == 1,
+          f'the grid loss launched {bwd_grid_launches}')
+    check(max(rel) < GRAD_RTOL, f'fused vs eager gradients differ: {rel}')
+
+    # 3f. K5 vs plain on the naive scene and the mirror fold
+    ns_cases = {}
+    for case, (make_scene, make_rays) in {
+            'naive': (naive_scene, sample_rays),
+            'mirror_fold': (mirror_fold_scene, mirror_fold_rays)}.items():
+        nsc = make_scene(rt)
+        ncfg, nmeta = nsc.sensor_config(), nsc.static_meta()
+        nflat = rt.flatten_table_rows(nsc.build_table(nsc.init_params(dev)))
+        nkinds = torch.tensor(fused_trace.kind_rows(nmeta, ncfg),
+                              dtype=torch.int32, device=dev)
+        for n in (N_SMALL, N_MAIN):
+            rays = make_rays(rt, torch, n, dev, SEED + 41 + n)
+            out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+                nflat, nkinds, rays, ncfg, nsc.n_bounces)
+            out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+                nflat, rays, ncfg, nmeta, nsc.n_bounces)
+            torch.cuda.synchronize()
+            res = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+            res['sensor_weight'] = float(s_k.moments[0, 0, 0])
+            check(res['grid_total'] > 0.5 * n, f'{case}: few sensor hits')
+            ns_cases[f'{case}_{n}'] = res
+    emit('nonseq_fwd', **ns_cases)
 
     # 4. forward main path, counted
     scene = bench_scene(rt)
@@ -529,6 +877,76 @@ def main():
           and torch.equal(lens['ior_glass'], dparams['lens']['ior_glass']),
           'a non-trainable leaf moved')
 
+    # 5c. the non-sequential main path, counted: Scene.simulate_fused at
+    # 1M rays, 8 bounces, 256 x 256 grid
+    nscene = naive_scene(rt)
+    nparams = nscene.init_params(dev)
+    rays = sample_rays(rt, torch, N_MAIN, dev, SEED)
+    torch.cuda.synchronize()
+    reset_counters()
+    n_out, n_sens, _ = nscene.simulate_fused(nparams, rays)
+    torch.cuda.synchronize()
+    ns_launches = counters()
+    n_rms = float(n_sens.spot_rms(0)[0])
+    n_finite = all(bool(torch.isfinite(getattr(n_out, c)).all())
+                   for c in ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity'))
+    # the ordered variant against the sequential trace of the same elements
+    oscene = naive_scene(rt, stop_z=10.0)
+    oparams = oscene.init_params(dev)
+    _, o_sens, _ = oscene.simulate_fused(oparams, rays)
+    _, q_sens, _ = oscene.to_sequential(oparams).simulate_fused(oparams,
+                                                                 rays)
+    o_rms, q_rms = float(o_sens.spot_rms(0)[0]), float(q_sens.spot_rms(0)[0])
+    # a budget of 100 bounces gives the same result as 8
+    b_out, b_sens, _ = naive_scene(rt, n_bounces=100).simulate_fused(
+        nparams, rays)
+    same_100 = (all(torch.equal(getattr(b_out, c), getattr(n_out, c))
+                    for c in ('px', 'py', 'pz', 'dx', 'dy', 'dz',
+                              'intensity'))
+                and torch.equal(b_sens.moments, n_sens.moments)
+                and torch.equal(b_sens.grid, n_sens.grid))
+    fscene = mirror_fold_scene(rt)
+    f_out, f_sens, _ = fscene.simulate_fused(
+        fscene.init_params(dev), mirror_fold_rays(rt, torch, N_MAIN, dev,
+                                                  SEED))
+    fold_dz, fold_rms = float(f_out.dz.mean()), float(f_sens.spot_rms(0)[0])
+    ns_main = dict(
+        n=N_MAIN, bounces=nscene.n_bounces, launches=ns_launches,
+        spot_rms=n_rms, centroid=n_sens.centroid(0)[0].tolist(),
+        finite=n_finite, shape=list(n_out.pos.shape),
+        grid_total=float(n_sens.grid.sum()),
+        sensor_weight=float(n_sens.moments[0, 0, 0]),
+        ordered_spot_rms=o_rms, sequential_spot_rms=q_rms,
+        budget_100_equal=same_100, fold_mean_dz=fold_dz,
+        fold_spot_rms=fold_rms)
+    emit('nonseq_main', **ns_main)
+    check(ns_launches['trace_nonseq_fwd'] == 1
+          and sum(ns_launches.values()) == 1,
+          f'Scene.simulate_fused launched {ns_launches}, not K5 once')
+    check(n_finite and ns_main['shape'] == [N_MAIN, 3], 'bad ray output')
+    check(abs(n_rms - SPOT_RMS_REF) < SPOT_RMS_TOL, f'spot_rms {n_rms}')
+    check(ns_main['grid_total'] == ns_main['sensor_weight'],
+          'grid total and sensor weight differ')
+    check(abs(o_rms - q_rms) <= NS_SPOT_RTOL * q_rms,
+          f'ordered scene: non-sequential {o_rms} vs sequential {q_rms}')
+    check(same_100, 'a budget of 100 bounces changed the result')
+    check(fold_dz < 0.0 and 1.0 < fold_rms < 2.0,
+          f'mirror fold: mean dz {fold_dz}, spot rms {fold_rms}')
+
+    # 5d. the same scene through the eager bounce loop, counted: its grid
+    # binning launches K3 once per bounce
+    torch.cuda.synchronize()
+    reset_counters()
+    e_out, e_sens, _ = nscene.simulate(nparams, rays)
+    torch.cuda.synchronize()
+    eager_launches = counters()
+    res = compare_nonseq(torch, e_out, e_sens, n_out, n_sens)
+    emit('nonseq_eager', launches=eager_launches,
+         spot_rms=float(e_sens.spot_rms(0)[0]), vs_fused=res)
+    check(eager_launches['grid_bin'] >= 1
+          and eager_launches['trace_nonseq_fwd'] == 0,
+          f'Scene.simulate launched {eager_launches}')
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -592,26 +1010,121 @@ def main():
         timing[key + '_runs'] = runs
     timing['trace_rays_per_s_fused'] = N_MAIN / (
         timing['simulate_fused_ms'] * 1e-3)
+
+    # K1 with and without the grid, in turns
+    rays = sample_rays(rt, torch, N_MAIN, dev, SEED + 1)
+    g_ms, ng_ms, g_runs, ng_runs = time_pair(
+        torch,
+        lambda: fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, gcfg1),
+        lambda: fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg))
+    timing['k1_grid'] = dict(with_grid_ms=g_ms, without_grid_ms=ng_ms,
+                             with_grid_runs=g_runs, without_grid_runs=ng_runs)
+    # K5 against its plain version, naive scene, 8 bounces, 256 x 256 grid
+    ncfg, nmeta = nscene.sensor_config(), nscene.static_meta()
+    nflat = rt.flatten_table_rows(nscene.build_table(nparams))
+    nkinds = torch.tensor(fused_trace.kind_rows(nmeta, ncfg),
+                          dtype=torch.int32, device=dev)
+    # (the plain loop takes ~8 s at 16M rays: 4 timed calls, 1 warm-up)
+    for n, reps, warm in ((N_MAIN, 20, 3), (N_LARGE, 4, 1)):
+        rays = sample_rays(rt, torch, n, dev, SEED + 1)
+        k_ms, p_ms, k_runs, p_runs = time_pair(
+            torch,
+            lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                nflat, nkinds, rays, ncfg, NS_BOUNCES),
+            lambda: fused_nonseq.trace_nonseq_fused_plain(
+                nflat, rays, ncfg, nmeta, NS_BOUNCES), reps=reps,
+            warmup=warm)
+        timing[f'nonseq_n{n}'] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                                      kernel_runs=k_runs, plain_runs=p_runs)
+    rays = sample_rays(rt, torch, N_MAIN, dev, SEED + 2)
+    ns_e2e = {
+        'scene_simulate_fused_ms': time_ms(
+            torch, lambda: nscene.simulate_fused(nparams, rays)),
+        'scene_simulate_eager_ms': time_ms(
+            torch, lambda: nscene.simulate(nparams, rays)),
+    }
+    for key, runs in ns_e2e.items():
+        timing[key] = statistics.median(runs)
+        timing[key + '_runs'] = runs
+    # K3 alone on the bench spot (the sensor hits of 1M rays, unit weights,
+    # one slot): the kernel, its plain version and one index_put_ call
+    out_s, _ = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg)
+    spot_x, spot_y = out_s.px, out_s.py
+    spot_w = torch.ones_like(spot_x)
+    g_k = grid.bin_grid_cuda(spot_x, spot_y, spot_w, 0, gcfg1)
+    ix, iy = bin_indices(GRID, GRID_E, spot_x, spot_y)
+    flat_idx = iy * GRID[1] + ix
+    g_lib = torch.zeros(GRID[0] * GRID[1], device=dev)
+    k3_ms, k3_plain_ms, k3_runs, k3_plain_runs = time_pair(
+        torch, lambda: grid.bin_grid_cuda(spot_x, spot_y, spot_w, 0, gcfg1),
+        lambda: grid.bin_grid_slots_plain(spot_x, spot_y, spot_w, 0, gcfg1))
+    lib_runs = time_ms(torch, lambda: g_lib.index_put_(
+        (flat_idx,), spot_w, accumulate=True))
+    timing['grid_bin_spot'] = dict(
+        kernel_ms=k3_ms, plain_ms=k3_plain_ms, library_ms=statistics.median(
+            lib_runs), kernel_runs=k3_runs, plain_runs=k3_plain_runs,
+        library_runs=lib_runs, cells_hit=int((g_k > 0).sum()),
+        hits=float(g_k.sum()))
+    timing['grid_bin_random'] = dict(zip(
+        ('kernel_ms', 'plain_ms'), time_pair(
+            torch, lambda: grid.bin_grid_cuda(hx, hy, hw, hslot, gcfg),
+            lambda: grid.bin_grid_slots_plain(hx, hy, hw, hslot, gcfg))[:2]))
     emit('timing', **timing)
 
+    # the bound of each kernel's work at 1M rays on this card
+    n = N_MAIN
+    k1_ops = n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
+    k1_bytes = n * (32 + 28) + table_bytes(meta)
+    scans, wins = nonseq_work(rt, torch, nscene, nparams,
+                              sample_rays(rt, torch, n, dev, SEED + 1))
+    k5_ops = (scans * sum(intersect_ops(m) for m in nmeta)
+              + sum(w * apply_ops(m) for w, m in zip(wins, nmeta)))
+    bounds = {
+        # K2: 8 input streams, the moment cotangent, 7 ray cotangents out,
+        # the table cotangent; a forward sweep and an adjoint of about
+        # twice its size: 3x K1's operations (csrc/trace_seq_bwd.cu)
+        'trace_seq_bwd': bound(n * (32 + 28) + table_bytes(meta),
+                               3 * k1_ops),
+        'trace_seq_fwd': bound(k1_bytes, k1_ops),
+        # K3: x, y, w of every hit in, the grid out; ~13 operations per
+        # hit (bin, clip, address, the atomic add)
+        'grid_bin': bound(n * 12 + grid_bytes(gcfg1), n * 13),
+        'trace_nonseq_fwd': bound(n * (32 + 28) + table_bytes(nmeta)
+                                  + grid_bytes(ncfg), k5_ops),
+    }
+    emit('bounds', n=n, k1_ops=k1_ops, k5_row_scans=scans,
+         k5_winners_per_row=wins, k5_ops=k5_ops,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+
     bwd_main = bwd_cases[f'bench_{N_MAIN}']
-    summary = {'kernels': [{
-        'name': 'trace_seq_fwd', 'route': 'cuda',
-        'source': 'raytracetorch_tpu_torch/csrc/trace_seq_fwd.cu',
-        'replaces': 'raytracetorch_tpu/ops/pallas_trace.py:489',
-        'launches': launches,
-        'max_abs_err': cases[f'bench_{N_MAIN}']['max_abs_err'],
-        'ms': timing[f'n{N_MAIN}']['kernel_ms'],
-        'plain_ms': timing[f'n{N_MAIN}']['plain_ms'],
-    }, {
-        'name': 'trace_seq_bwd', 'route': 'cuda',
-        'source': 'raytracetorch_tpu_torch/csrc/trace_seq_bwd.cu',
-        'replaces': 'raytracetorch_tpu/ops/pallas_trace.py:1712',
-        'launches': grad_launches[1],
-        'max_abs_err': bwd_main['max_abs_err'],
-        'ms': timing[f'bwd_n{N_MAIN}']['kernel_ms'],
-        'plain_ms': timing[f'bwd_n{N_MAIN}']['plain_ms'],
-    }]}
+
+    def entry(name, source, line, launches_, err, ms, plain_ms,
+              library_ms=None):
+        return {'name': name, 'route': 'cuda',
+                'source': f'raytracetorch_tpu_torch/csrc/{source}',
+                'replaces': f'raytracetorch_tpu/ops/pallas_trace.py:{line}',
+                'launches': launches_, 'max_abs_err': err, 'ms': ms,
+                'plain_ms': plain_ms, 'bound_ms': bounds[name][0],
+                'bound_by': bounds[name][1], 'library_ms': library_ms}
+
+    summary = {'kernels': [
+        entry('trace_seq_fwd', 'trace_seq_fwd.cu', 489, launches,
+              cases[f'bench_{N_MAIN}']['max_abs_err'],
+              timing[f'n{N_MAIN}']['kernel_ms'],
+              timing[f'n{N_MAIN}']['plain_ms']),
+        entry('trace_seq_bwd', 'trace_seq_bwd.cu', 1712, grad_launches[1],
+              bwd_main['max_abs_err'], timing[f'bwd_n{N_MAIN}']['kernel_ms'],
+              timing[f'bwd_n{N_MAIN}']['plain_ms']),
+        entry('grid_bin', 'grid_bin.cu', 331, eager_launches['grid_bin'],
+              rand_err, timing['grid_bin_spot']['kernel_ms'],
+              timing['grid_bin_spot']['plain_ms'],
+              timing['grid_bin_spot']['library_ms']),
+        entry('trace_nonseq_fwd', 'trace_nonseq_fwd.cu', 1029,
+              ns_launches['trace_nonseq_fwd'],
+              ns_cases[f'naive_{N_MAIN}']['max_abs_err'],
+              timing[f'nonseq_n{N_MAIN}']['kernel_ms'],
+              timing[f'nonseq_n{N_MAIN}']['plain_ms']),
+    ]}
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -3,13 +3,23 @@ and CUDA.
 
 A port of the JAX package ``raytracetorch_tpu`` (the reference, which stays
 beside it) to PyTorch, with the TPU kernels rewritten by hand for NVIDIA
-Hopper.  The port covers the main path: a collimated disk source through a
-singlet lens, a circular stop and a disk sensor, traced eagerly with
-autograd (``SequentialScene.simulate``) or by the fused CUDA kernels, K1
-forward and K2 backward (``SequentialScene.simulate_fused``,
-ops/fused_trace.py); and the design loop on top of either: Adam, L-BFGS and
-Levenberg-Marquardt (optim/fit.py) with log-barrier constraints
-(optim/constraints.py).  ROADMAP.md lists what is still to be ported.
+Hopper.  The port covers:
+
+- the sequential main path: a collimated disk source through a singlet
+  lens, a circular stop and a disk sensor, traced eagerly with autograd
+  (``SequentialScene.simulate``) or by the fused CUDA kernels, K1 forward
+  and K2 backward (``SequentialScene.simulate_fused``, ops/fused_trace.py);
+- the design loop on top of either: Adam, L-BFGS and Levenberg-Marquardt
+  (optim/fit.py) with log-barrier constraints (optim/constraints.py);
+- the non-sequential scene (``Scene``), with the ideal ``SphericalMirror``
+  that folds rays back: the eager bounce loop (``Scene.simulate``) and the
+  fused kernel K5, forward only (``Scene.simulate_fused``,
+  ops/fused_nonseq.py);
+- irradiance grids on every sensor (``scene.grid_shape = (H, W)``), binned
+  by kernel K3 (ops/grid.py), inside K1 and K5 on the card, with K2 routing
+  the grid's cotangent.
+
+ROADMAP.md lists what is still to be ported.
 
 Every module mirrors the JAX module of the same path and names it in its
 docstring.  Importing the package imports neither jax nor the JAX package.
@@ -26,14 +36,16 @@ from .core.sensor import SensorConfig, SensorState  # noqa: E402
 from .core.static_dispatch import StaticRowMeta  # noqa: E402
 from .core.table import (SurfaceRec, SurfaceTable, flatten_table_rows,  # noqa: E402
                          stack_records)
-from .core.trace import trace_sequential  # noqa: E402
+from .core.trace import trace_nonsequential, trace_sequential  # noqa: E402
 from .elements.aperture import CircularAperture  # noqa: E402
 from .elements.base import Element  # noqa: E402
 from .elements.ideal import (paraxial_dist_mat, paraxial_lens_mat,  # noqa: E402
                              paraxial_mirror_mat, paraxial_refract_mat)
 from .elements.lens import SingletLens  # noqa: E402
+from .elements.mirror import SphericalMirror  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
+from .ops.fused_nonseq import trace_nonseq_fused  # noqa: E402
 from .ops.fused_trace import FusedTrace, trace_sequential_fused  # noqa: E402
 from .optim.constraints import (log_barrier, log_barrier_lb,  # noqa: E402
                                 log_barrier_ub, spacing_constraint,
@@ -45,4 +57,4 @@ from .optim.goals import (focal_length_loss, spot_size_loss,  # noqa: E402
                           spot_target_loss)
 from .rays.ray import Rays  # noqa: E402
 from .rays.sources import Bundle, CollimatedDisk, sample_bundles  # noqa: E402
-from .scene.scene import SequentialScene  # noqa: E402
+from .scene.scene import Scene, SequentialScene  # noqa: E402

@@ -5,10 +5,10 @@ sequential trace every row's kinds are known before the trace runs
 (``StaticRowMeta``), so each step evaluates exactly one bound formula and
 one physics model.
 
-The port covers the kinds of the main path: bounds NONE/DISK/HEMI and
-NONE/APER_R2/Z_BETWEEN, physics TRANSMIT, BLOCK, REFLECT (ideal mirror),
-SNELL and APERTURE.  Every other kind raises NotImplementedError naming the
-ROADMAP item that brings it.
+The port covers the kinds of the main path and of the ideal spherical
+mirror: bounds NONE/DISK/HEMI/HEMI_APER and NONE/APER_R2/Z_BETWEEN, physics
+TRANSMIT, BLOCK, REFLECT (ideal mirror), SNELL and APERTURE.  Every other
+kind raises NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -34,6 +34,9 @@ def sb_check_one(kind: int, sb, hit):
         return dx_ * dx_ + dy_ * dy_ <= sb[..., 0]
     if kind == SBKind.HEMI:
         return torch.abs(z * sb[..., 0]) < 1.0 + INTERSECT_EPS
+    if kind == SBKind.HEMI_APER:
+        return ((torch.abs(z * sb[..., 0]) < 1.0 + INTERSECT_EPS)
+                & (x * x + y * y <= sb[..., 1]))
     raise NotImplementedError(
         f'surface bound {SBKind(kind).name} is {TODO_ELEMENTS}')
 
@@ -103,10 +106,14 @@ def unsupported(meta: StaticRowMeta):
         return f'dispersion is {TODO_FEATURES}'
     if meta.n_coat or meta.metal:
         return f'coatings and metal mirrors are {TODO_FEATURES}'
+    if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN,
+                   PhysKind.DOE, PhysKind.MLA, PhysKind.PHASE_GRID):
+        return f'physics {PhysKind(meta.ph).name} is {TODO_ELEMENTS}'
     if meta.ph not in (PhysKind.TRANSMIT, PhysKind.BLOCK, PhysKind.REFLECT,
                        PhysKind.SNELL, PhysKind.APERTURE):
         return f'physics {PhysKind(meta.ph).name} is {TODO_FEATURES}'
-    if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.HEMI):
+    if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.HEMI,
+                       SBKind.HEMI_APER):
         return f'surface bound {SBKind(meta.sb).name} is {TODO_ELEMENTS}'
     if meta.vb not in (VBKind.NONE, VBKind.APER_R2, VBKind.Z_BETWEEN):
         return f'volume bound {VBKind(meta.vb).name} is {TODO_ELEMENTS}'

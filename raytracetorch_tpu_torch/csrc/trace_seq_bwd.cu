@@ -9,11 +9,12 @@
 // the wrapper that launches it is ops/fused_trace.py::trace_seq_bwd_cuda.
 //
 // What it computes: the vector-Jacobian product of the fused forward.  Given
-// the table, the input rays, the cotangents of the 7 output ray streams and
-// of the [S, B, 7] moments, it returns the cotangents of the 7 input ray
-// streams and of the table.  The TPU kernel re-runs the chain and transposes
-// it with an in-kernel jax.vjp; a CUDA kernel has no autodiff, so the
-// adjoint of every step is written out below.
+// the table, the input rays, the cotangents of the 7 output ray streams, of
+// the [S, B, 7] moments and (when K1 binned a grid) of the [S, H, W] grid,
+// it returns the cotangents of the 7 input ray streams and of the table.
+// The TPU kernel re-runs the chain and transposes it with an in-kernel
+// jax.vjp; a CUDA kernel has no autodiff, so the adjoint of every step is
+// written out below.
 //
 // Design: one thread per ray, 256 threads per block; the flat table, the
 // int32 kinds and the moment cotangent sit in shared memory, and every thread
@@ -39,6 +40,11 @@
 //   the block (warp shuffles, one slot per warp and row in shared memory, a
 //   fixed-order sum over warps) into a [blocks, K, 19] buffer that the
 //   wrapper sums and scatters into [K, 160].  No atomics: deterministic.
+// - Grid cotangent: at each active sensor row the ray's incoming intensity
+//   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
+//   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
+//   reverse sweep from the hit it re-derives from the saved state.  The grid
+//   cotangent stays in device memory (256 KB for 256 x 256), read through L2.
 // - Dead lanes past N trace a zero ray with d = (0, 0, 1) and zero
 //   intensity: never active, so they add nothing and write nothing.
 //
@@ -61,6 +67,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_bin.cuh"
 #include "trace_seq_common.cuh"
 
 using namespace rtt;
@@ -84,20 +91,18 @@ constexpr uint32_t kTir = 1u << 7;      // total internal reflection
 constexpr uint32_t kN2Small = 1u << 8;  // |n2| < 1e-12
 constexpr uint32_t kMod = 1u << 9;      // APERTURE passes the ray
 
-struct Kinds {
-  int ph, sb, vb, slot;
-  bool plane, sensor, invert;
+// The grid's cotangent g[S, h, w] over [-e, e]^2 (g null: no grid, or a
+// zero cotangent).
+struct GridCt {
+  const float* g;
+  int h, w;
+  float e;
 };
-
-__device__ __forceinline__ Kinds read_kinds(const int32_t* kd) {
-  return {kd[kPhCol], kd[kSbCol], kd[kVbCol], kd[kSlotCol], kd[kPlaneCol] != 0,
-          kd[kSensorCol] != 0, kd[kInvertCol] != 0};
-}
 
 __device__ __forceinline__ bool uses_normal(int ph) { return ph == REFLECT || ph == SNELL; }
 
 // One row of K1's chain: updates (p, d, inten) and returns the row's bits.
-__device__ __forceinline__ uint32_t row_forward(const float* r, const Kinds& kd, V3& p, V3& d,
+__device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd, V3& p, V3& d,
                                                 float& inten) {
   uint32_t bits = 0;
   const float* q = r + kQ;
@@ -226,11 +231,11 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const Kinds& kd,
 // Adjoint of one row.  (p, d, inten) is the row's saved input state and
 // (gp, gd, gi) the cotangent of its output state, replaced by the cotangent
 // of its input state; tg[19] receives the row's table cotangent.  gm is the
-// [S, B, 7] moment cotangent.
-__device__ __forceinline__ void row_backward(const float* r, const Kinds& kd, V3 p, V3 d,
+// [S, B, 7] moment cotangent and gg the grid's.
+__device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
-                                             const float* gm, int n_bundles, V3& gp, V3& gd,
-                                             float& gi, float* tg) {
+                                             const float* gm, int n_bundles, const GridCt& gg,
+                                             V3& gp, V3& gd, float& gi, float* tg) {
   if (!(bits & kActive)) return;  // where(active, new, old) passes through
   const float* q = r + kQ;
   const float* Rw = r + kRw;
@@ -301,6 +306,11 @@ __device__ __forceinline__ void row_backward(const float* r, const Kinds& kd, V3
     g_hs.x += g[1] * w + 2.0f * g[3] * w * x + g[5] * w * y;
     g_hs.y += g[2] * w + 2.0f * g[4] * w * y + g[5] * w * x;
   }
+  // ---- sensor grid: the gather of _grid_partial_g_bwd, d grid[s, iy, ix] /
+  // d w = 1 with w = I; the bins have no derivative in x or y ----
+  if (kd.sensor && gg.g != nullptr)
+    g_i += gg.g[static_cast<size_t>(kd.slot) * gg.h * gg.w +
+                grid_cell(hs.x, hs.y, gg.h, gg.w, gg.e)];
 
   // ---- physics ----
   V3 g_nw = {0.0f, 0.0f, 0.0f};
@@ -447,7 +457,7 @@ __device__ __forceinline__ void row_backward(const float* r, const Kinds& kd, V3
 // Block-reduce one row's table cotangent into this warp's slot (lane 0
 // writes).  Columns that are structurally zero for the row's kinds skip
 // their shuffles: q on the plane path, ph off the SNELL path.
-__device__ __forceinline__ void reduce_row(const Kinds& kd, const float* tg, float* slot,
+__device__ __forceinline__ void reduce_row(const RowKinds& kd, const float* tg, float* slot,
                                            int lane) {
 #pragma unroll
   for (int c = 0; c < kGradCols; ++c) {
@@ -472,7 +482,7 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
                      float* __restrict__ cpx, float* __restrict__ cpy, float* __restrict__ cpz,
                      float* __restrict__ cdx, float* __restrict__ cdy, float* __restrict__ cdz,
                      float* __restrict__ cintensity, float* __restrict__ partials,
-                     int n_slots, int n_bundles, long long n) {
+                     int n_slots, int n_bundles, GridCt gg, long long n) {
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
@@ -513,7 +523,7 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
       saved[k][4] = d.y;
       saved[k][5] = d.z;
       saved[k][6] = inten;
-      bits[k] = row_forward(tab + k * kRowWidth, read_kinds(knd + k * kKindWidth), p, d, inten);
+      bits[k] = row_forward(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), p, d, inten);
     }
   }
 
@@ -528,14 +538,14 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
 #pragma unroll (kMaxRows <= 8 ? kMaxRows : 1)
   for (int kk = kMaxRows - 1; kk >= 0; --kk) {
     if (kk < n_rows) {
-      const Kinds kd = read_kinds(knd + kk * kKindWidth);
+      const RowKinds kd = read_row_kinds(knd + kk * kKindWidth);
       float tg[kGradCols];
 #pragma unroll
       for (int c = 0; c < kGradCols; ++c) tg[c] = 0.0f;
       const V3 sp = {saved[kk][0], saved[kk][1], saved[kk][2]};
       const V3 sd = {saved[kk][3], saved[kk][4], saved[kk][5]};
       row_backward(tab + kk * kRowWidth, kd, sp, sd, saved[kk][6], bits[kk], rid, gm,
-                   n_bundles, gp, gd, gi, tg);
+                   n_bundles, gg, gp, gd, gi, tg);
       if (partials != nullptr && __any_sync(0xffffffffu, bits[kk] & kActive))
         reduce_row(kd, tg, warp_tab + (warp * n_rows + kk) * kGradCols, lane);
     }
@@ -566,7 +576,7 @@ template <int kMaxRows>
 int launch(size_t smem, long long blocks, cudaStream_t stream, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            const float* const* g_rays, const float* gmom, float* const* c_rays, float* partials,
-           int n_slots, int n_bundles, long long n) {
+           int n_slots, int n_bundles, GridCt gg, long long n) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(trace_seq_bwd_kernel<kMaxRows>,
@@ -577,7 +587,7 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
       table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
       ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6], gmom,
       c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6], partials,
-      n_slots, n_bundles, n);
+      n_slots, n_bundles, gg, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -588,7 +598,8 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 // g* may be null (a zero cotangent); the 7 input-ray cotangents c* are all
 // given or all null (not wanted), and so is the partials buffer of
 // ceil(n / 256) * n_rows * 19 floats (the table cotangent).  gmom holds
-// n_slots * n_bundles * 7 floats.
+// n_slots * n_bundles * 7 floats; ggrid, the grid's cotangent, holds
+// n_slots * grid_h * grid_w floats over [-grid_e, grid_e]^2, or is null.
 extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n_rows,
                                  const float* px, const float* py, const float* pz,
                                  const float* dx, const float* dy, const float* dz,
@@ -598,6 +609,7 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
                                  const float* gintensity, const float* gmom, float* cpx,
                                  float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
                                  float* cintensity, float* partials, int n_slots, int n_bundles,
+                                 const float* ggrid, int grid_h, int grid_w, float grid_e,
                                  long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64) return static_cast<int>(cudaErrorInvalidValue);
@@ -611,9 +623,10 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
   const float* g_rays[7] = {gpx, gpy, gpz, gdx, gdy, gdz, gintensity};
   float* c_rays[7] = {cpx, cpy, cpz, cdx, cdy, cdz, cintensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
   if (n_rows <= 8)
     return launch<8>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
-                     partials, n_slots, n_bundles, n);
+                     partials, n_slots, n_bundles, gg, n);
   return launch<64>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
-                    partials, n_slots, n_bundles, n);
+                    partials, n_slots, n_bundles, gg, n);
 }

@@ -12,7 +12,9 @@
 // bound, normal, physics, and the masked update where(active, new, old) with
 // active = valid & intensity > 0.  On sensor rows it adds the 7 moment terms
 // (w, wx, wy, wx^2, wy^2, wxy, w>0) of the masked INCOMING intensity into
-// (slot, bundle).
+// (slot, bundle) and, when a grid is asked for, bins that intensity at the
+// hit's cell of the slot's irradiance grid (kernel K3's device function,
+// grid_bin.cuh; the TPU kernel's _grid_accumulate).
 //
 // Design: one thread per ray, 256 threads per block, the ragged edge masked
 // with i < n (no padding copy).  The flat [K, 160] table and the int32
@@ -21,7 +23,9 @@
 // warp-uniform and costs no divergence.  Moments: warp shuffles, then one
 // partial per warp in shared memory, then one per block summed in fixed warp
 // order into a [blocks, S, B, 7] buffer that the wrapper sums.  No atomics:
-// the result is deterministic.
+// the moments are deterministic.  The grid takes one atomicAdd per sensor
+// hit into the [S, H, W] grid in device memory (grid_bin.cu says what that
+// costs); with no grid the pointer is null and nothing else changes.
 //
 // What bounds it: per ray it reads 8 streams (32 B; the wavelength stream is
 // not read, no supported row is dispersive) and writes 7 (28 B), and does
@@ -40,6 +44,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_bin.cuh"
 #include "trace_seq_common.cuh"
 
 using namespace rtt;
@@ -55,7 +60,8 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
                      float* __restrict__ opx, float* __restrict__ opy, float* __restrict__ opz,
                      float* __restrict__ odx, float* __restrict__ ody, float* __restrict__ odz,
                      float* __restrict__ ointensity, float* __restrict__ partials, int n_slots,
-                     int n_bundles, long long n) {
+                     int n_bundles, float* __restrict__ grid, int grid_h, int grid_w,
+                     float grid_e, long long n) {
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
@@ -85,124 +91,22 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
 
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
-    const int32_t* kd = knd + k * kKindWidth;
-    const int ph = kd[kPhCol], sbk = kd[kSbCol], vbk = kd[kVbCol];
-    const bool plane = kd[kPlaneCol] != 0, invert = kd[kInvertCol] != 0;
-    const float* q = r + kQ;
-    const float* Rw = r + kRw;
+    const RowKinds kd = read_row_kinds(knd + k * kKindWidth);
+    const RowHit h = intersect_row(r, kd, p, d);
+    const V3 nw = world_normal(r, kd.plane, h.hs);
+    V3 nd;
+    float imod;
+    apply_physics(r, kd.ph, kd.sb, d, nw, h.hs, nd, imod);
+    const bool active = h.valid && inten > 0.0f;
+    const float t = h.t;
 
-    // ---- intersect (core/intersect.py) ----
-    const V3 o = rot(V3{p.x - r[kTw], p.y - r[kTw + 1], p.z - r[kTw + 2]}, Rw);
-    const V3 ds = rot(d, Rw);
-    float t1, t2;
-    bool v1, v2;
-    if (plane) {
-      // q = (0,0,0,-2,0): the solver's linear branch, t = 2 oz / B_safe
-      const float B = -2.0f * ds.z;
-      const float B_safe = fabsf(B) < kSolverEps ? kSolverEps : B;
-      t1 = (2.0f * o.z) / B_safe;
-      v1 = fabsf(B) >= kSolverEps;
-      t2 = t1;
-      v2 = false;
-    } else {
-      // geom/surfaces.py::solve_roots
-      const float A = q[0] * ds.x * ds.x + q[1] * ds.y * ds.y + q[2] * ds.z * ds.z;
-      const float B =
-          2.0f * (q[0] * o.x * ds.x + q[1] * o.y * ds.y + q[2] * o.z * ds.z) + q[3] * ds.z;
-      const float C = q[0] * o.x * o.x + q[1] * o.y * o.y + q[2] * o.z * o.z + q[3] * o.z + q[4];
-      const float disc = B * B - 4.0f * A * C;
-      const bool hit = disc >= 0.0f;
-      const float sq = sqrtf((hit ? disc : 1.0f) + 1e-24f);
-      const bool linear = fabsf(A) < kSolverEps;
-      const float A_safe = linear ? 1.0f : A;
-      const float B_safe = fabsf(B) < kSolverEps ? kSolverEps : B;
-      const float t_lin = -C / B_safe;
-      t1 = linear ? t_lin : (-B - sq) / (2.0f * A_safe);
-      t2 = linear ? t_lin : (-B + sq) / (2.0f * A_safe);
-      v1 = (linear && fabsf(B) >= kSolverEps) || (!linear && hit);
-      v2 = v1;
-    }
-    if (sbk != SB_NONE) {
-      bool keep1 = sb_check(sbk, r + kSb, fma3(o, t1, ds));
-      bool keep2 = sb_check(sbk, r + kSb, fma3(o, t2, ds));
-      if (invert) {
-        keep1 = !keep1;
-        keep2 = !keep2;
-      }
-      v1 = v1 && keep1;
-      v2 = v2 && keep2;
-    }
-    // geom/surfaces.py::min_positive with the world-scale epsilon
-    const float scale = sqrtf(dot3(o, o) + dot3(p, p) + 1e-12f);
-    const float eps = kIntersectEps + kRelEps * scale;
-    const float tm1 = (v1 && t1 > eps) ? t1 : kBig;
-    const float tm2 = (v2 && t2 > eps) ? t2 : kBig;
-    const float t_best = fminf(tm1, tm2);
-    bool valid = t_best < kBig * 0.5f;
-    const float t = valid ? t_best : 0.0f;
-    const V3 hs = fma3(o, t, ds);
-    if (vbk != VB_NONE) {
-      const V3 e = rot_t(hs, r + kRs);
-      const V3 he = {e.x + r[kTs], e.y + r[kTs + 1], e.z + r[kTs + 2]};
-      valid = valid && vb_check(vbk, r + kVb, he);
-    }
-
-    // ---- world normal (core/intersect.py::normal_world) ----
-    V3 nw;
-    if (plane) {
-      nw = {Rw[2], Rw[5], Rw[8]};
-    } else {
-      const float gx = 2.0f * q[0] * hs.x;
-      const float gy = 2.0f * q[1] * hs.y;
-      const float gz = 2.0f * q[2] * hs.z + q[3];
-      const float g2 = gx * gx + gy * gy + gz * gz;
-      const bool degen = g2 < kNormalEps * kNormalEps;
-      const float inv =
-          (r[kNSign] < 0.0f ? -1.0f : 1.0f) / (sqrtf(degen ? 1.0f : g2) + kNormalEps);
-      const V3 nl = degen ? V3{0.0f, 0.0f, 1.0f} : V3{gx * inv, gy * inv, gz * inv};
-      nw = rot_t(nl, Rw);
-    }
-
-    // ---- physics (core/static_dispatch.py::apply_physics_one) ----
-    V3 nd = d;
-    float imod = 1.0f;
-    if (ph == BLOCK) {
-      nd = {0.0f, 0.0f, 0.0f};
-      imod = 0.0f;
-    } else if (ph == REFLECT) {
-      nd = fma3(d, -2.0f * dot3(d, nw), nw);
-    } else if (ph == SNELL) {
-      const float dn = dot3(d, nw);
-      const bool from_in = dn < 0.0f;
-      const float eff_sign = from_in ? 1.0f : -1.0f;
-      const float cos_i = fabsf(dn);
-      const float n1 = from_in ? r[kPh] : r[kPh + 1];
-      const float n2 = from_in ? r[kPh + 1] : r[kPh];
-      const float mu = n1 / (fabsf(n2) < 1e-12f ? 1e-12f : n2);
-      const float sin2_t = mu * mu * (1.0f - cos_i * cos_i);
-      if (sin2_t > 1.0f) {  // total internal reflection
-        nd = fma3(d, -2.0f * dn, nw);
-      } else {
-        const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-        const float coef = (mu * cos_i - cos_t) * eff_sign;
-        nd = fma3(V3{d.x * mu, d.y * mu, d.z * mu}, coef, nw);
-      }
-    } else if (ph == APERTURE) {
-      // the filter re-checks its own RAW (non-inverted) bound
-      const float mod = sb_check(sbk, r + kSb, hs) ? 1.0f : 0.0f;
-      nd = {d.x * mod, d.y * mod, d.z * mod};
-      imod = mod;
-    }
-
-    const bool active = valid && inten > 0.0f;
-
-    // ---- sensor moments of the incoming intensity ----
-    if (kd[kSensorCol] != 0) {
+    // ---- sensor moments and grid of the incoming intensity ----
+    if (kd.sensor) {
       const float w = active ? inten : 0.0f;
-      const float x = hs.x, y = hs.y;
+      const float x = h.hs.x, y = h.hs.y;
       const float terms[kMoments] = {w,         w * x,     w * y, w * x * x,
                                      w * y * y, w * x * y, w > 0.0f ? 1.0f : 0.0f};
-      float* dst = warp_mom + warp * n_mom + kd[kSlotCol] * n_bundles * kMoments;
+      float* dst = warp_mom + warp * n_mom + kd.slot * n_bundles * kMoments;
       for (int b = 0; b < n_bundles; ++b) {
 #pragma unroll
         for (int m = 0; m < kMoments; ++m) {
@@ -210,6 +114,7 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
           if (lane == 0) dst[b * kMoments + m] += s;
         }
       }
+      if (grid != nullptr) grid_add(grid, kd.slot, x, y, w, grid_h, grid_w, grid_e);
     }
 
     if (active) {
@@ -241,15 +146,18 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
 }  // namespace
 
 // Launches the kernel on `stream`.  Returns a cudaError_t (0 on success).
-// The caller owns every buffer: 7 outputs of n floats and a partials buffer
-// of ceil(n / 256) * n_slots * n_bundles * 7 floats.
+// The caller owns every buffer: 7 outputs of n floats, a partials buffer of
+// ceil(n / 256) * n_slots * n_bundles * 7 floats, and the zeroed
+// [n_slots, grid_h, grid_w] grid over [-grid_e, grid_e]^2, or null for no
+// grid.
 extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n_rows,
                                  const float* px, const float* py, const float* pz,
                                  const float* dx, const float* dy, const float* dz,
                                  const float* intensity, const int32_t* ray_id, float* opx,
                                  float* opy, float* opz, float* odx, float* ody, float* odz,
                                  float* ointensity, float* partials, int n_slots, int n_bundles,
-                                 long long n, void* stream) {
+                                 float* grid, int grid_h, int grid_w, float grid_e, long long n,
+                                 void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -264,6 +172,6 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
   trace_seq_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody,
-      odz, ointensity, partials, n_slots, n_bundles, n);
+      odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, n);
   return static_cast<int>(cudaGetLastError());
 }

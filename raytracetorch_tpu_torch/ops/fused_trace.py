@@ -1,5 +1,6 @@
 """Fused sequential trace: the CUDA kernels K1 (forward) and K2 (backward),
-their plain versions, and the autograd Function that joins them.
+their plain versions, and the autograd Function that joins them; and the
+registry that builds every CUDA library of the package.
 
 Counterpart of ``raytracetorch_tpu/ops/pallas_trace.py``, sequential part,
 for the main-path kinds with every optional stream off:
@@ -24,6 +25,11 @@ module:
   the rows of the flat table, and its autograd.
 - ``trace_seq_fwd_cuda`` and ``trace_seq_bwd_cuda`` launch the kernels and
   count their launches in ``LAUNCHES`` and ``BWD_LAUNCHES``.
+- With ``cfg.grid_shape`` set, K1 also bins the sensor hits into the
+  ``[S, H, W]`` irradiance grid (kernel K3's device function) and K2 routes
+  the grid's cotangent back into the incoming intensities.
+- ``build`` compiles the four libraries (K1, K2, K3 in ops/grid.py, K5 in
+  ops/fused_nonseq.py), one nvcc each, started together.
 """
 
 from __future__ import annotations
@@ -57,15 +63,24 @@ GRAD_COLS = tuple(ROW_OFFSETS[name] + j
                   for name, size in (('q', 5), ('Rw', 9), ('tw', 3), ('ph', 2))
                   for j in range(size))
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# library name -> (source, C entry point, argtypes)
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
+_GRID = [_P, _I, _I, _F]      # grid (or its cotangent), H, W, half extent
+# library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
-    'trace_seq_fwd': ('trace_seq_fwd.cu', 'rtt_trace_seq_fwd',
-                      [_P, _P, _I] + [_P] * 16
-                      + [_I, _I, ctypes.c_longlong, _P]),
-    'trace_seq_bwd': ('trace_seq_bwd.cu', 'rtt_trace_seq_bwd',
-                      [_P, _P, _I] + [_P] * 24
-                      + [_I, _I, ctypes.c_longlong, _P]),
+    'trace_seq_fwd': ('trace_seq_fwd.cu', {
+        'rtt_trace_seq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
+        + [_L, _P]}),
+    'trace_seq_bwd': ('trace_seq_bwd.cu', {
+        'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
+        + [_L, _P]}),
+    'grid_bin': ('grid_bin.cu', {
+        'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
+        'rtt_grid_gather': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F,
+                            _P]}),
+    'trace_nonseq_fwd': ('trace_nonseq_fwd.cu', {
+        'rtt_trace_nonseq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
+        + [_I, _L, _P]}),
 }
 _fns = {}
 
@@ -104,21 +119,35 @@ def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta):
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels (or
     raise: there is no fallback)."""
+    flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
+    comps = [getattr(rays, c) for c in COMPS]
+    if needs_grad(flat, rays):
+        outs = FusedTrace.apply(flat, kinds_t, cfg, tuple(static_meta),
+                                *comps, rays.ray_id)
+        grid = outs[8] if cfg.grid_shape else SensorState.init(
+            cfg, device=flat.device).grid
+        return (rays.replace(**dict(zip(COMPS, outs[:7]))),
+                SensorState(moments=outs[7], grid=grid))
+    return _forward(flat, kinds_t, rays, cfg, static_meta)
+
+
+def flat_inputs(table, rays, cfg, static_meta):
+    """The flat [K, 160] table and the [K, 8] int32 kinds on the rays'
+    device, for K1 and K5; raises before anything runs on rows or limits
+    the kernels do not take."""
     kinds = kind_rows(static_meta, cfg)
-    flat = flatten_table_rows(table)
     device = rays.px.device
     if device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no fused trace for device {device}')
-    kinds_t = torch.tensor(kinds, dtype=torch.int32, device=device)
-    comps = [getattr(rays, c) for c in COMPS]
-    if torch.is_grad_enabled() and (
-            flat.requires_grad or any(c.requires_grad for c in comps)):
-        *outs, moments = FusedTrace.apply(flat, kinds_t, cfg,
-                                          tuple(static_meta), *comps,
-                                          rays.ray_id)
-        return (rays.replace(**dict(zip(COMPS, outs))),
-                SensorState(moments=moments))
-    return _forward(flat, kinds_t, rays, cfg, static_meta)
+    return (flatten_table_rows(table),
+            torch.tensor(kinds, dtype=torch.int32, device=device))
+
+
+def needs_grad(flat, rays):
+    """Whether a fused trace runs under autograd."""
+    return torch.is_grad_enabled() and (
+        flat.requires_grad
+        or any(getattr(rays, c).requires_grad for c in COMPS))
 
 
 def _forward(flat, kinds, rays, cfg, static_meta):
@@ -143,7 +172,8 @@ class FusedTrace(torch.autograd.Function):
     ``custom_vjp`` it has no higher-order or forward-mode rule.
 
     ``apply(flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz, intensity,
-    ray_id)`` -> the 7 output ray streams and ``moments [S, B, 7]``."""
+    ray_id)`` -> the 7 output ray streams, ``moments [S, B, 7]`` and, when
+    ``cfg.grid_shape`` is set, ``grid [S, H, W]``."""
 
     @staticmethod
     def forward(ctx, flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz,
@@ -154,7 +184,8 @@ class FusedTrace(torch.autograd.Function):
         ctx.save_for_backward(flat_table, kinds, *comps, ray_id)
         ctx.cfg, ctx.meta = cfg, meta
         ctx.set_materialize_grads(False)
-        return (*(getattr(out, c) for c in COMPS), sensors.moments)
+        grid = (sensors.grid,) if cfg.grid_shape else ()
+        return (*(getattr(out, c) for c in COMPS), sensors.moments, *grid)
 
     @staticmethod
     @once_differentiable
@@ -162,15 +193,17 @@ class FusedTrace(torch.autograd.Function):
         flat, kinds, *comps, ray_id = ctx.saved_tensors
         rays = _rays_of(comps, ray_id)
         g_rays, g_moments = grads[:7], grads[7]
+        g_grid = grads[8] if ctx.cfg.grid_shape else None
         need = ctx.needs_input_grad
         need_table, need_rays = need[0], any(need[4:11])
         if flat.device.type == 'cuda':
             g_flat, g_in = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg,
                                               g_rays, g_moments, need_table,
-                                              need_rays)
+                                              need_rays, g_grid=g_grid)
         else:
             g_flat, g_in = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta,
-                                               g_rays, g_moments)
+                                               g_rays, g_moments,
+                                               g_grid=g_grid)
         g_in = [g if n else None
                 for g, n in zip(g_in or (None,) * 7, need[4:11])]
         return (g_flat if need_table else None, None, None, None, *g_in,
@@ -185,18 +218,19 @@ def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
                                device=rays.px.device)
     for k, meta in enumerate(static_meta):
         rays, sensors = _surface_step(FlatRow(flat_table[k]), rays, cfg,
-                                      sensors, meta)
+                                      sensors, meta, plain=True)
     return rays, sensors
 
 
 def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
-                        g_rays, g_moments):
+                        g_rays, g_moments, g_grid=None):
     """K2's function in plain torch: re-run ``trace_sequential_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
     ``g_rays`` holds the cotangents of the 7 output streams px..intensity
-    (None for zero) and ``g_moments`` that of the [S, B, 7] moments (or
-    None).  Returns ``(g_flat [K, 160], 7 input-ray cotangents)``."""
+    (None for zero), ``g_moments`` that of the [S, B, 7] moments and
+    ``g_grid`` that of the [S, H, W] grid (each None for zero).  Returns
+    ``(g_flat [K, 160], 7 input-ray cotangents)``."""
     with torch.enable_grad():
         flat = flat_table.detach().requires_grad_(True)
         comps = [getattr(rays, c).detach().requires_grad_(True)
@@ -204,8 +238,10 @@ def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
         out, sensors = trace_sequential_fused_plain(
             flat, rays.replace(**dict(zip(COMPS, comps))), cfg, static_meta)
         pairs = [(o, g) for o, g in zip(
-            [*(getattr(out, c) for c in COMPS), sensors.moments],
-            [*g_rays, g_moments]) if g is not None and o.requires_grad]
+            [*(getattr(out, c) for c in COMPS), sensors.moments,
+             sensors.grid],
+            [*g_rays, g_moments, g_grid])
+            if g is not None and o.requires_grad]
         inputs = [flat, *comps]
         res = (torch.autograd.grad([o for o, _ in pairs],
                                    inputs, [g for _, g in pairs],
@@ -217,30 +253,35 @@ def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
 
 
 def build():
-    """Compile both kernels (one nvcc each, started together; once per
-    source hash) and bind their C entry points.  Returns ``{library: (log,
-    seconds)}`` of the nvcc runs (seconds 0.0 when already built)."""
+    """Compile the package's four CUDA libraries (one nvcc each, started
+    together; once per source hash) and bind their C entry points.  Returns
+    ``{library: (log, seconds)}`` of the nvcc runs (seconds 0.0 when already
+    built)."""
     with concurrent.futures.ThreadPoolExecutor(len(_LIBRARIES)) as pool:
         futures = {name: pool.submit(nvcc_build.build_library, name, [src])
-                   for name, (src, _, _) in _LIBRARIES.items()}
+                   for name, (src, _) in _LIBRARIES.items()}
     logs = {}
     for name, fut in futures.items():
         path, log, seconds = fut.result()
-        _, symbol, argtypes = _LIBRARIES[name]
-        fn = getattr(ctypes.CDLL(str(path)), symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _fns[name] = fn
+        lib = ctypes.CDLL(str(path))
+        for symbol, argtypes in _LIBRARIES[name][1].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _fns[symbol] = fn
         logs[name] = (log, seconds)
     return logs
 
 
-def _kernel(name):
-    if name not in _fns:
+def kernel(symbol):
+    """The bound C entry point ``symbol``, building the libraries first."""
+    if symbol not in _fns:
         build()
-    return _fns[name]
+    return _fns[symbol]
 
 
-def _check(t, name, dtype, shape, device):
+def check(t, name, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
     if t.device != device:
         raise ValueError(f'{name} is on {t.device}, expected {device}')
     if t.dtype != dtype:
@@ -252,23 +293,41 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f'{name} must be contiguous')
 
 
-def _check_inputs(flat_table, kinds, rays, cfg, name):
-    """Shared checks of both wrappers -> (device, K, N, slots, bundles)."""
+def check_inputs(flat_table, kinds, rays, cfg, name):
+    """Shared checks of the K1, K2 and K5 wrappers -> (device, K, N, slots,
+    bundles)."""
     device = flat_table.device
     if device.type != 'cuda':
         raise ValueError(f'{name} needs CUDA tensors, got {device}')
     k, n = flat_table.shape[0], rays.n
     n_slots = _check_limits(k, cfg)
-    _check(flat_table, 'table', torch.float32, (k, ROW_WIDTH), device)
-    _check(kinds, 'kinds', torch.int32, (k, KIND_WIDTH), device)
+    check(flat_table, 'table', torch.float32, (k, ROW_WIDTH), device)
+    check(kinds, 'kinds', torch.int32, (k, KIND_WIDTH), device)
     for c in COMPS:
-        _check(getattr(rays, c), c, torch.float32, (n,), device)
-    _check(rays.ray_id, 'ray_id', torch.int32, (n,), device)
+        check(getattr(rays, c), c, torch.float32, (n,), device)
+    check(rays.ray_id, 'ray_id', torch.int32, (n,), device)
     return device, k, n, n_slots, cfg.n_bundles
 
 
-def _stream(device):
+def stream(device):
+    """The current CUDA stream of ``device``, as the C entry points take
+    it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def grid_args(cfg: SensorConfig, grid):
+    """The (pointer, H, W, half extent) C arguments of a grid or of its
+    cotangent (a null pointer for None)."""
+    h, w = cfg.grid_shape if cfg.grid_shape else (0, 0)
+    return (None if grid is None else grid.data_ptr(), h, w,
+            float(cfg.grid_half_extent))
+
+
+def new_grid(cfg: SensorConfig, device):
+    """The zeroed [S, H, W] grid a kernel bins into ([S, 0, 0] with none)."""
+    h, w = cfg.grid_shape if cfg.grid_shape else (0, 0)
+    return torch.zeros(max(cfg.n_sensors, 1), h, w, dtype=torch.float32,
+                       device=device)
 
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig):
@@ -277,51 +336,59 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig):
     ``flat_table`` is the [K, 160] float32 table, ``kinds`` the [K, 8]
     int32 rows of ``kind_rows``; all on one CUDA device."""
     global LAUNCHES
-    device, k, n, n_slots, n_bundles = _check_inputs(
+    device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_fwd_cuda')
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     n_blocks = -(-n // THREADS)
     partials = torch.empty(n_blocks, n_slots, n_bundles, N_MOMENTS,
                            dtype=torch.float32, device=device)
+    grid = new_grid(cfg, device)
     if n > 0:
-        fn = _kernel('trace_seq_fwd')
+        fn = kernel('rtt_trace_seq_fwd')
         with torch.cuda.device(device):
             rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
                     *(getattr(rays, c).data_ptr() for c in COMPS),
                     rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
-                    partials.data_ptr(), n_slots, n_bundles, n,
-                    _stream(device))
+                    partials.data_ptr(), n_slots, n_bundles,
+                    *grid_args(cfg, grid if cfg.grid_shape else None), n,
+                    stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         LAUNCHES += 1
     out = rays.replace(**dict(zip(COMPS, outs)))
-    return out, SensorState(moments=partials.sum(dim=0))
+    return out, SensorState(moments=partials.sum(dim=0), grid=grid)
 
 
 def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
-                       g_moments, need_table=True, need_rays=True):
+                       g_moments, need_table=True, need_rays=True,
+                       g_grid=None):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``.
 
     Inputs as for ``trace_seq_fwd_cuda``; ``g_rays`` holds the cotangents
-    of the 7 output streams (None for zero) and ``g_moments`` that of the
-    [S, B, 7] moments (None for zero).  ``need_table`` / ``need_rays`` say
-    which cotangents to compute; the kernel skips the others."""
+    of the 7 output streams (None for zero), ``g_moments`` that of the
+    [S, B, 7] moments and ``g_grid`` that of the [S, H, W] grid (each None
+    for zero).  ``need_table`` / ``need_rays`` say which cotangents to
+    compute; the kernel skips the others."""
     global BWD_LAUNCHES
-    device, k, n, n_slots, n_bundles = _check_inputs(
+    device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
     # autograd may hand expanded (stride-0) cotangents: the kernel reads
     # them densely
     g_rays = [None if g is None else g.contiguous() for g in g_rays]
     for c, g in zip(COMPS, g_rays):
         if g is not None:
-            _check(g, f'g_{c}', torch.float32, (n,), device)
+            check(g, f'g_{c}', torch.float32, (n,), device)
     mom_shape = (n_slots, n_bundles, N_MOMENTS)
     g_mom = (torch.zeros(mom_shape, dtype=torch.float32, device=device)
              if g_moments is None else g_moments.contiguous())
-    _check(g_mom, 'g_moments', torch.float32, mom_shape, device)
+    check(g_mom, 'g_moments', torch.float32, mom_shape, device)
+    if g_grid is not None:
+        g_grid = g_grid.contiguous()
+        check(g_grid, 'g_grid', torch.float32,
+              (n_slots, *cfg.grid_shape), device)
 
     outs = ([torch.empty(n, dtype=torch.float32, device=device)
              for _ in COMPS] if need_rays else None)
@@ -331,13 +398,14 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     if n > 0 and (need_table or need_rays):
         def ptr(t):
             return None if t is None else t.data_ptr()
-        fn = _kernel('trace_seq_bwd')
+        fn = kernel('rtt_trace_seq_bwd')
         with torch.cuda.device(device):
             rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
                     *(getattr(rays, c).data_ptr() for c in COMPS),
                     rays.ray_id.data_ptr(), *map(ptr, g_rays),
                     g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
-                    ptr(partials), n_slots, n_bundles, n, _stream(device))
+                    ptr(partials), n_slots, n_bundles,
+                    *grid_args(cfg, g_grid), n, stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')

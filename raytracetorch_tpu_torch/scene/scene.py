@@ -1,18 +1,27 @@
-"""Sequential scene: element specs -> surface table -> trace.
+"""Scenes: element specs -> surface table -> trace.
 
-Counterpart of ``SequentialScene`` in ``raytracetorch_tpu/scene/scene.py``
-(the non-sequential ``Scene`` is ROADMAP Queue 1 item 13).  The scene holds
-static structure; the parameters are a dict of per-element dicts of tensors
-keyed by element name.
+Counterpart of ``Scene`` and ``SequentialScene`` in
+``raytracetorch_tpu/scene/scene.py``.  A scene holds static structure
+(elements, bundles, bounce budget, grid shape); the parameters are a dict of
+per-element dicts of tensors keyed by element name.
 
-Two trace entry points share one contract, ``(params, rays) -> (rays,
-sensors, aux)``, and both are differentiable:
+Both scene types share one contract, ``(params, rays) -> (rays, sensors,
+aux)``:
 
-- ``simulate`` runs the eager trace (core/trace.py) under autograd;
-- ``simulate_fused`` runs the fused trace (ops/fused_trace.py) at every N:
-  kernel K1 forward and, under grad, kernel K2 backward.  The JAX package's
-  auto-dispatch below a crossover N was measured on a TPU and is not carried
-  over.
+- ``Scene`` is the non-sequential nearest-hit bounce loop within a budget of
+  ``n_bounces``.  ``simulate`` runs it eagerly under autograd
+  (core/trace.py::trace_nonsequential); ``simulate_fused`` runs kernel K5
+  (ops/fused_nonseq.py), forward only: its backward is kernel K6, not
+  ported yet, so it raises under grad.
+- ``SequentialScene`` visits every surface once in order.  ``simulate`` is
+  the eager chain; ``simulate_fused`` runs kernel K1 forward and, under
+  grad, kernel K2 backward (ops/fused_trace.py) at every N.  The JAX
+  package's auto-dispatch below a crossover N was measured on a TPU and is
+  not carried over.
+
+``grid_shape = (H, W)`` and ``grid_half_extent`` give every sensor an
+irradiance grid (``sensors.grid [S, H, W]``), binned by kernel K3 on the
+card.
 
 Ray sources are registered with ``add_bundle`` and drawn with
 ``sample_rays``; the sensor moments keep one column per bundle, so
@@ -26,20 +35,23 @@ import torch
 from ..core.sensor import SensorConfig
 from ..core.static_dispatch import StaticRowMeta
 from ..core.table import stack_records
-from ..core.trace import trace_sequential
+from ..core.trace import nearest_hit, trace_nonsequential, trace_sequential
 from ..elements.ideal import paraxial_dist_mat
 from ..geom.transform import mm
+from ..ops.fused_nonseq import trace_nonseq_fused
 from ..ops.fused_trace import trace_sequential_fused
 from ..rays.sources import sample_bundles
 
 
-class SequentialScene:
-    """Ordered surface-by-surface propagation: the lens-design workhorse and
-    the benchmark configuration."""
+class Scene:
+    """Non-sequential scene: nearest-hit bounce simulation."""
 
-    def __init__(self, elements=None):
+    def __init__(self, elements=None, n_bounces=100):
         self.elements = list(elements or [])
         self.bundles = []          # list of (Bundle, n_rays)
+        self.n_bounces = n_bounces
+        self.grid_shape = ()
+        self.grid_half_extent = 1.0
         self._static_meta = None
 
     # -- population --------------------------------------------------------
@@ -100,7 +112,9 @@ class SequentialScene:
     def sensor_config(self, n_bundles=None):
         return SensorConfig(
             n_sensors=self.n_sensors,
-            n_bundles=self.n_bundles if n_bundles is None else n_bundles)
+            n_bundles=self.n_bundles if n_bundles is None else n_bundles,
+            grid_shape=tuple(self.grid_shape),
+            grid_half_extent=float(self.grid_half_extent))
 
     def build_table(self, params):
         """Flatten all elements into a SurfaceTable on the params' device."""
@@ -146,6 +160,54 @@ class SequentialScene:
         return sample_bundles(generator, spec, device,
                               torch.float32 if dtype is None else dtype)
 
+    def ray_cast(self, params, rays):
+        """Nearest-hit query without gradients: the winning row per ray
+        (``surface``), its ``element`` and ``surf_in_element`` from the
+        table's index maps, and the ``hit`` mask."""
+        table = self.build_table(params)
+        win, hit = nearest_hit(table, rays.pos_c, rays.dir_c,
+                               self.static_meta())
+        return dict(surface=win, element=table.elem_id[win],
+                    surf_in_element=table.surf_id[win], hit=hit)
+
+    def simulate(self, params, rays, n_bundles=None, **kw):
+        """Eager differentiable bounce loop -> (rays, sensors, aux).  The
+        JAX bounce loop's optional streams (``record_paths``, ``track_opl``, ...)
+        raise NotImplementedError naming their ROADMAP item."""
+        return trace_nonsequential(self.build_table(params), rays,
+                                   self.n_bounces,
+                                   self.sensor_config(n_bundles),
+                                   self.static_meta(), **kw)
+
+    def simulate_fused(self, params, rays, n_bundles=None):
+        """Fused bounce loop -> (rays, sensors, aux): kernel K5 on the card,
+        its plain version on the CPU.  Each ray leaves the loop at its first
+        bounce with no hit, so the default budget of 100 costs what the
+        scene needs.  Forward only: under grad it raises (kernel K6,
+        ROADMAP Queue 2)."""
+        out, sensors = trace_nonseq_fused(
+            self.build_table(params), rays, self.sensor_config(n_bundles),
+            self.static_meta(), self.n_bounces)
+        return out, sensors, {}
+
+    # -- conversions -------------------------------------------------------
+
+    def to_sequential(self, params=None):
+        """A SequentialScene of the same elements, sorted by their z."""
+        params = params or self.init_params('cpu')
+        order = sorted(self.elements,
+                       key=lambda el: float(params[el.name]['trans'][2]))
+        seq = SequentialScene(order, n_bounces=self.n_bounces)
+        seq.bundles = list(self.bundles)
+        seq.grid_shape = self.grid_shape
+        seq.grid_half_extent = self.grid_half_extent
+        return seq
+
+
+class SequentialScene(Scene):
+    """Ordered surface-by-surface propagation: the lens-design workhorse and
+    the benchmark configuration."""
+
     def simulate(self, params, rays, n_bundles=None):
         """Eager differentiable trace -> (rays, sensors, aux)."""
         return trace_sequential(self.build_table(params), rays,
@@ -161,6 +223,14 @@ class SequentialScene:
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta())
         return out, sensors, {}
+
+    def to_base(self):
+        """A non-sequential Scene of the same elements."""
+        base = Scene(self.elements, n_bounces=self.n_bounces)
+        base.bundles = list(self.bundles)
+        base.grid_shape = self.grid_shape
+        base.grid_half_extent = self.grid_half_extent
+        return base
 
     def paraxial(self, params):
         """Full-system 5x5 paraxial matrix: every element's surface matrices

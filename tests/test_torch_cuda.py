@@ -1,6 +1,6 @@
-"""The fused kernels K1 (csrc/trace_seq_fwd.cu) and K2 (csrc/trace_seq_bwd.cu)
-against their plain PyTorch versions, on the card, and the gradient paths
-that run them.
+"""The kernels K1 (csrc/trace_seq_fwd.cu), K2 (csrc/trace_seq_bwd.cu), K3
+(csrc/grid_bin.cu) and K5 (csrc/trace_nonseq_fwd.cu) against their plain
+PyTorch versions, on the card, and the paths that run them.
 
 Every test here needs a CUDA card and is marked ``cuda``; without a card
 each skips.  The file imports neither jax nor the JAX package, so on a
@@ -13,7 +13,8 @@ Tolerances: final intensity exact; positions and directions atol/rtol 1e-5
 multiply-adds, eager torch does not); moments rtol 1e-5 atol 1e-3 (another
 summation order).  At N = 2,999 no ray sits close enough to a rim for its
 hit to flip.  K2's cotangents are held to chip_smoke.py's bounds (BWD_TOL,
-TAB_RTOL; reasons there).
+TAB_RTOL; reasons there); so are grids (GRID_RAND_RTOL, GRID_SHARE and the
+grid totals) and K5 (the NS_* bounds), with the reasons there.
 """
 
 import pytest
@@ -21,7 +22,8 @@ import torch
 
 import chip_smoke
 import raytracetorch_tpu_torch as trt
-from raytracetorch_tpu_torch.ops import fused_trace
+from raytracetorch_tpu_torch.core.sensor import bin_indices
+from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace, grid
 
 torch.set_num_threads(2)
 
@@ -209,3 +211,156 @@ def test_k2_takes_empty_batch(dev):
         (None,) * 7, torch.ones(1, 1, 7, device=dev))
     assert fused_trace.BWD_LAUNCHES == before
     assert bool((g_flat == 0).all()) and g_in[0].shape == (0,)
+
+
+def _hits(dev, seed=3):
+    """N hits on two slots, some outside the grid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, generator=gen, device=dev) * 0.6
+    y = torch.randn(N, generator=gen, device=dev) * 0.6
+    slot = torch.randint(0, 2, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    w = torch.rand(N, generator=gen, device=dev)
+    cfg = trt.SensorConfig(n_sensors=2, grid_shape=chip_smoke.GRID,
+                           grid_half_extent=chip_smoke.GRID_E)
+    return x, y, slot, w, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('weights', ['unit', 'random'])
+def test_grid_bin_matches_plain(weights, dev):
+    """K3 alone: unit weights bit for bit, random weights to GRID_RAND_RTOL
+    of the largest bin (atomics add in a run-dependent order)."""
+    x, y, slot, w, cfg = _hits(dev)
+    if weights == 'unit':
+        w = torch.ones_like(w)
+    before = grid.GRID_LAUNCHES
+    g_k = grid.bin_grid_cuda(x, y, w, slot, cfg)
+    assert grid.GRID_LAUNCHES == before + 1
+    g_p = grid.bin_grid_slots_plain(x, y, w, slot, cfg)
+    torch.cuda.synchronize()
+    if weights == 'unit':
+        assert torch.equal(g_k, g_p)
+    else:
+        err = float((g_k - g_p).abs().max())
+        assert err <= chip_smoke.GRID_RAND_RTOL * float(g_p.abs().max())
+
+
+@pytest.mark.cuda
+def test_grid_gradient_is_the_gather(dev):
+    """bin_grid on CUDA tensors runs K3 and, backward, its gather:
+    d sum(grid * W) / d w = W[slot, iy, ix], exactly."""
+    x, y, slot, w, cfg = _hits(dev)
+    w = w.requires_grad_(True)
+    W = torch.randn(2, *chip_smoke.GRID, device=dev)
+    before = grid.GATHER_LAUNCHES
+    (grid.bin_grid(x, y, w, slot, cfg) * W).sum().backward()
+    assert grid.GATHER_LAUNCHES == before + 1
+    ix, iy = bin_indices(chip_smoke.GRID, chip_smoke.GRID_E, x, y)
+    assert torch.equal(w.grad, W[slot.long(), iy, ix])
+
+
+@pytest.mark.cuda
+def test_k1_grid_matches_plain(dev):
+    scene = chip_smoke.grid_scene(trt)
+    table, rays, _, meta = _bench_case(dev)
+    cfg = scene.sensor_config()
+    flat = trt.flatten_table_rows(table)
+    out_k, sens_k = fused_trace.trace_seq_fwd_cuda(flat, _kinds(meta, cfg,
+                                                                dev),
+                                                   rays, cfg)
+    out_p, sens_p = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                             meta)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(out_k, sens_k, out_p, sens_p)
+    chip_smoke.compare_grid(torch, sens_k.grid, sens_p.grid,
+                            chip_smoke.GRID_TOTAL_RTOL)
+    assert float(sens_k.grid.sum()) > 0.9 * N
+
+
+@pytest.mark.cuda
+def test_k2_grid_cotangent_matches_plain(dev):
+    """K2 with the grid's cotangent and a spot-RMS moment cotangent."""
+    scene = chip_smoke.grid_scene(trt)
+    table, rays, _, meta = _bench_case(dev)
+    cfg = scene.sensor_config()
+    flat = trt.flatten_table_rows(table)
+    W = torch.randn(1, *chip_smoke.GRID, device=dev)
+    g_mom = torch.zeros(1, 1, 7, device=dev)
+    g_mom[0, 0, 3:5] = 1.0
+    gt_k, gr_k = fused_trace.trace_seq_bwd_cuda(
+        flat, _kinds(meta, cfg, dev), rays, cfg, (None,) * 7, g_mom,
+        g_grid=W)
+    gt_p, gr_p = fused_trace.trace_seq_bwd_plain(flat, rays, cfg, meta,
+                                                 (None,) * 7, g_mom,
+                                                 g_grid=W)
+    torch.cuda.synchronize()
+    res = chip_smoke.compare_ray_cotangents(
+        torch, gr_k, gr_p, intensity_allowed=int(chip_smoke.GRID_SHARE * N))
+    assert res['position_direction_differ'] == 0
+    chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p)
+    assert float(gr_k[6].abs().sum()) > 0
+
+
+NS_CASES = {'naive': (chip_smoke.naive_scene, chip_smoke.sample_rays),
+            'mirror_fold': (chip_smoke.mirror_fold_scene,
+                            chip_smoke.mirror_fold_rays)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(NS_CASES))
+def test_k5_matches_plain(case, dev):
+    make_scene, make_rays = NS_CASES[case]
+    scene = make_scene(trt)
+    cfg, meta = scene.sensor_config(), scene.static_meta()
+    flat = trt.flatten_table_rows(scene.build_table(scene.init_params(dev)))
+    rays = make_rays(trt, torch, N, dev, 2)
+    before = fused_nonseq.NONSEQ_LAUNCHES
+    out_k, sens_k = fused_nonseq.trace_nonseq_fwd_cuda(
+        flat, _kinds(meta, cfg, dev), rays, cfg, scene.n_bounces)
+    assert fused_nonseq.NONSEQ_LAUNCHES == before + 1
+    out_p, sens_p = fused_nonseq.trace_nonseq_fused_plain(
+        flat, rays, cfg, meta, scene.n_bounces)
+    torch.cuda.synchronize()
+    res = chip_smoke.compare_nonseq(torch, out_k, sens_k, out_p, sens_p)
+    assert res['mismatched'] == 0
+    assert res['grid_total'] > 0.5 * N
+
+
+@pytest.mark.cuda
+def test_scene_simulate_fused_launches_k5_once(dev):
+    """Scene.simulate_fused launches K5 once and nothing else; a budget of
+    100 bounces gives the 8-bounce result bit for bit; under grad it raises
+    (its backward is K6)."""
+    scene = chip_smoke.naive_scene(trt)
+    params = scene.init_params(dev)
+    _, rays, _, _ = _bench_case(dev)
+    fwd, k5, k3 = (fused_trace.LAUNCHES, fused_nonseq.NONSEQ_LAUNCHES,
+                   grid.GRID_LAUNCHES)
+    out, sens, _ = scene.simulate_fused(params, rays)
+    assert (fused_trace.LAUNCHES - fwd, fused_nonseq.NONSEQ_LAUNCHES - k5,
+            grid.GRID_LAUNCHES - k3) == (0, 1, 0)
+    out_b, sens_b, _ = chip_smoke.naive_scene(
+        trt, n_bounces=100).simulate_fused(params, rays)
+    assert torch.equal(out_b.px, out.px) and torch.equal(out_b.dz, out.dz)
+    assert torch.equal(sens_b.moments, sens.moments)
+    assert torch.equal(sens_b.grid, sens.grid)
+    params['lens']['c1'].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match='K6'):
+        scene.simulate_fused(params, rays)
+
+
+@pytest.mark.cuda
+def test_eager_scene_bins_with_k3(dev):
+    """The eager bounce loop on the card bins its grid with K3 and agrees
+    with K5."""
+    scene = chip_smoke.naive_scene(trt)
+    params = scene.init_params(dev)
+    _, rays, _, _ = _bench_case(dev)
+    before = grid.GRID_LAUNCHES
+    out_e, sens_e, _ = scene.simulate(params, rays)
+    assert grid.GRID_LAUNCHES > before
+    out_f, sens_f, _ = scene.simulate_fused(params, rays)
+    torch.cuda.synchronize()
+    res = chip_smoke.compare_nonseq(torch, out_e, sens_e, out_f, sens_f)
+    assert res['mismatched'] == 0
