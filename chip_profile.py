@@ -11,10 +11,13 @@ the named kernel, the number of device operations, and the host wall time
 of the profiled calls (slowed by the profiler itself), so busy = device
 time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 
-- the four kernel wrappers: K1 (with and without the 256 x 256 grid), K2,
-  K3 on the bench spot, and K5 on the naive scene (8 bounces, grid);
+- the five kernel wrappers: K1 (with and without the 256 x 256 grid), K2,
+  K3 on the bench spot, K5 on the naive scene (8 bounces, grid) and K6 on
+  the same scene with the cotangents of a spot and grid loss (also at 16M
+  rays);
 - the end-to-end calls: ``SequentialScene.simulate_fused``, the fused grad
-  step, ``Scene.simulate_fused`` and the eager ``Scene.simulate``.
+  step, ``Scene.simulate_fused``, its grad step (K5 + K6) and the eager
+  ``Scene.simulate``.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -97,6 +100,17 @@ def main():
         _, s, _ = scene.simulate_fused(p_grad, rays)
         rt.spot_size_loss(s).backward()
 
+    w = torch.randn(1, *cs.GRID, device=dev)
+    np_grad = nscene.init_params(dev)
+    for k in ('c1', 'c2'):
+        np_grad['lens'][k].requires_grad_(True)
+
+    def ns_grad_step():
+        _, s, _ = nscene.simulate_fused(np_grad, rays)
+        ((s.grid * w).sum() + s.spot_rms(0)[0]).backward()
+
+    rays16 = cs.sample_rays(rt, torch, cs.N_LARGE, dev, cs.SEED)
+
     calls = {
         'k1': (lambda: fused_trace.trace_seq_fwd_cuda(flat, kinds, rays,
                                                       cfg),
@@ -111,12 +125,19 @@ def main():
         'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
             nflat, nkinds, rays, ncfg, nscene.n_bounces),
             'trace_nonseq_fwd_kernel'),
+        'k6': (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+            nflat, nkinds, rays, ncfg, nscene.n_bounces, (None,) * 7, g_mom,
+            g_grid=w), 'trace_nonseq_bwd_kernel'),
+        'k6_16m': (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+            nflat, nkinds, rays16, ncfg, nscene.n_bounces, (None,) * 7,
+            g_mom, g_grid=w), 'trace_nonseq_bwd_kernel'),
         'simulate_fused': (lambda: scene.simulate_fused(params, rays),
                            'trace_seq_fwd_kernel'),
         'grad_step_fused': (grad_step, 'trace_seq_bwd'),
         'scene_simulate_fused': (lambda: nscene.simulate_fused(nparams,
                                                                rays),
                                  'trace_nonseq_fwd_kernel'),
+        'scene_grad_step_fused': (ns_grad_step, 'trace_nonseq_bwd_kernel'),
         'scene_simulate_eager': (lambda: nscene.simulate(nparams, rays),
                                  'grid_bin_kernel'),
     }

@@ -3,22 +3,28 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds the four CUDA libraries from the sources in the checkout (K1, the
+It builds the five CUDA libraries from the sources in the checkout (K1, the
 fused sequential forward; K2, its hand-written adjoint; K3, irradiance-grid
-binning; K5, the fused non-sequential bounce loop; one nvcc each, started
-together) and checks each kernel against its plain PyTorch version, K1 and
-K2 also with a 256 x 256 grid.  Then it drives five paths, each with every
-launch counter reset just before it and read just after: the forward main
-path (the 1M-ray singlet scene through ``SequentialScene.simulate_fused``),
-the gradient main path (the same call under grad, then ``spot_size_loss``
-and ``backward()``), the design loop (the reference's singlet design by
-``fit_lbfgs`` through ``simulate_fused`` at 1M rays), the non-sequential
-main path (the singlet traced as a ``Scene`` with a 256 x 256 grid through
-``Scene.simulate_fused``), and the same scene through the eager
-``Scene.simulate``, whose grid binning launches K3.  It checks each against
-the repo's anchors and against the eager paths, and times the kernels,
-their plain versions, a library call where one computes the same function,
-and the end-to-end calls with CUDA events.
+binning; K5, the fused non-sequential bounce loop; K6, its hand-written
+adjoint; one nvcc each, started together) and checks each kernel against
+its plain PyTorch version, K1 and K2 also with a 256 x 256 grid, K6 on the
+naive scene, the mirror fold and a 25-bounce two-mirror cavity, and K6's
+forward replay against K5 bit for bit.  Then it drives seven paths, each
+with every launch counter reset just before it and read just after: the
+forward main path (the 1M-ray singlet scene through
+``SequentialScene.simulate_fused``), the gradient main path (the same call
+under grad, then ``spot_size_loss`` and ``backward()``), the design loop
+(the reference's singlet design by ``fit_lbfgs`` through ``simulate_fused``
+at 1M rays), the non-sequential main path (the singlet traced as a
+``Scene`` with a 256 x 256 grid through ``Scene.simulate_fused``), the same
+scene through the eager ``Scene.simulate``, whose grid binning launches K3,
+the non-sequential gradient path (``Scene.simulate_fused`` under grad, a
+spot and grid loss, ``backward()``: K5 then K6), and the non-sequential
+design loop (the reference's singlet as a ``Scene``, ``fit_lbfgs`` through
+``Scene.simulate_fused``).  It checks each against the repo's anchors and
+against the eager paths, and times the kernels, their plain versions, a
+library call where one computes the same function, and the end-to-end
+calls with CUDA events.
 
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero.  Then come the kernel summary line (each kernel's launches
@@ -97,6 +103,20 @@ NS_BOUNCES = 8
 # The non-sequential trace of an ordered system equals the sequential
 # trace (tests/test_nonsequential.py): spot RMS to NS_SPOT_RTOL.
 NS_SPOT_RTOL = 1e-3
+# K6 vs its plain version (autograd of the eager bounce loop), each ray's
+# cotangents under K2's BWD_TOL rule, at most max(3, NS_MISMATCH_SHARE * N)
+# rays outside it (rim flips, as K5's), GRID_SHARE * N in the intensity
+# cotangent alone with a grid; the table under TAB_RTOL.  Both are compared
+# on the rays whose forward K5 and the plain loop trace alike: on the naive
+# scene and the mirror fold all but max(3, NS_MISMATCH_SHARE * N) of them.
+# The two-mirror cavity is rounding-chaotic (a reflection near a mirror's
+# vertex leaves the self-intersection root at ~6e-6 after the quadratic
+# formula's cancellation, about the world-scale epsilon, so another rounding
+# re-hits the mirror): about a third of its rays end elsewhere under another
+# rounding (tests/test_torch_nonseq_grad.py), so there the count of such
+# rays is reported, not bounded.
+# K6's checkpointed bounces per thread (kCkpt in csrc/trace_nonseq_bwd.cu).
+K6_CHECKPOINTS = 8
 # H100 SXM datasheet peaks for the bound of each kernel's work: HBM bytes/s
 # and float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -255,36 +275,62 @@ def design_loss(torch, scene, rays, target_z=100.0):
 
 
 def random_cotangents(torch, n, cfg, device, seed):
+    """Seeded cotangents of the 7 ray streams, the moments and, with a
+    grid, the grid (else None) -> (g_rays, g_mom, g_grid)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     g_rays = tuple(torch.randn(n, generator=gen, device=device)
                    for _ in range(7))
     g_mom = torch.randn(max(cfg.n_sensors, 1), cfg.n_bundles, 7,
                         generator=gen, device=device)
-    return g_rays, g_mom
+    g_grid = (torch.randn(max(cfg.n_sensors, 1), *cfg.grid_shape,
+                          generator=gen, device=device)
+              if cfg.grid_shape else None)
+    return g_rays, g_mom, g_grid
 
 
-def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0):
+def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
+                           allowed=None):
     """Per-ray cotangents, kernel vs plain (7 streams px..intensity) ->
-    dict; raises on a breach.  ``intensity_allowed`` rays may differ in the
-    intensity cotangent alone (a grid cotangent read from a neighbour bin)."""
+    dict; raises on a breach.  ``allowed`` rays may differ (default
+    BWD_FLIPS_PER_MILLION), ``intensity_allowed`` in the intensity
+    cotangent alone (a grid cotangent read from a neighbour bin).  Per group
+    (position, direction, intensity) it reports the scale (the largest
+    |plain|), the median |plain|, and the worst error over the scale on all
+    rays and on the rays inside the bound."""
     groups = ((0, 1, 2), (3, 4, 5), (6,))
     n = g_p[0].shape[0]
     bad = [torch.zeros(n, dtype=torch.bool, device=g_p[0].device)
            for _ in groups]
-    max_err, worst = 0.0, 0.0
+    errs, scales = [], []
     for grp, bad_g in zip(groups, bad):
         scale = max(float(g_p[j].abs().max()) if n else 0.0 for j in grp)
+        scales.append(scale)
         for j in grp:
             err = (g_k[j] - g_p[j]).abs()
+            errs.append(err)
             bound = BWD_TOL * (g_p[j].abs() + scale)
             bad_g |= (err > bound) | ~torch.isfinite(g_k[j])
-            if n:
-                max_err = max(max_err, float(err.max()))
-                worst = max(worst, float(err.max()) / max(scale, 1e-30))
-    n_bad = int((bad[0] | bad[1] | bad[2]).sum())
-    allowed = math.ceil(BWD_FLIPS_PER_MILLION * n / 1e6)
+    any_bad = bad[0] | bad[1] | bad[2]
+    n_bad = int(any_bad.sum())
+    if allowed is None:
+        allowed = math.ceil(BWD_FLIPS_PER_MILLION * n / 1e6)
+    groups_res = {}
+    for name, grp, scale in zip(('position', 'direction', 'intensity'),
+                                groups, scales):
+        err = max((float(errs[j].max()) if n else 0.0) for j in grp)
+        err_in = max((float(errs[j][~any_bad].max()) if n > n_bad else 0.0)
+                     for j in grp)
+        groups_res[name] = dict(
+            scale=scale,
+            median_abs=(float(torch.cat([g_p[j] for j in grp]).abs()
+                              .median()) if n else 0.0),
+            max_err_over_scale=err / max(scale, 1e-30),
+            max_err_in_bound_over_scale=err_in / max(scale, 1e-30))
     res = dict(n=n, rays_differ=n_bad, allowed=allowed,
-               max_abs_err=max_err, max_err_over_scale=worst)
+               max_abs_err=max((float(e.max()) if n else 0.0) for e in errs),
+               max_err_over_scale=max(g['max_err_over_scale']
+                                      for g in groups_res.values()),
+               groups=groups_res)
     if intensity_allowed:
         n_geom, n_int = int((bad[0] | bad[1]).sum()), int(bad[2].sum())
         res.update(position_direction_differ=n_geom, intensity_differ=n_int,
@@ -365,6 +411,64 @@ def mirror_fold_rays(rt, torch, n, device, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     src = rt.CollimatedDisk.make(radius=2.0, translation=[0.0, 0.0, 1.0])
     return src.sample(gen, n, device)
+
+
+def cavity_scene(rt):
+    """Two facing spherical mirrors 40 apart and an off-axis sensor between
+    them, 25 bounces, no grid (tests/test_pallas.py::
+    test_nonseq_bwd_scan_large_budget): rays live beyond K6's 8 checkpoints.
+    Rays: ``mirror_fold_rays``."""
+    return rt.Scene([
+        rt.SphericalMirror(c1=-0.02, d=0.0, translation=[0.0, 0.0, 40.0],
+                           c1_grad=True, name='m1'),
+        rt.SphericalMirror(c1=0.02, d=0.0, translation=[0.0, 0.0, 0.0],
+                           rotation=[0.0, math.pi, 0.0], name='m2'),
+        rt.SensorElement(radius=3.0, translation=[6.0, 0.0, 20.0],
+                         name='sensor'),
+    ], n_bounces=25)
+
+
+def compare_k6(rt, torch, scene, rays, seed, chaotic=False):
+    """K6 vs its plain version on ``scene`` with seeded cotangents of the
+    rays, the moments and the grid, on the rays whose forward K5 and the
+    plain loop trace alike -> dict; raises on a breach (module notes: K6).
+    ``chaotic``: report, do not bound, the rays that trace apart."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    cfg, meta, nb = scene.sensor_config(), scene.static_meta(), \
+        scene.n_bounces
+    dev = rays.px.device
+    flat = rt.flatten_table_rows(scene.build_table(scene.init_params(dev)))
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=dev)
+    out_k, _ = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, nb)
+    out_p, _ = fused_nonseq.trace_nonseq_fused_plain(flat, rays, cfg, meta,
+                                                     nb)
+    dpos = torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
+                        for c in ('px', 'py', 'pz')]).amax(0)
+    same = ((dpos <= NS_POS_TOL)
+            & ((out_k.intensity - out_p.intensity).abs() <= NS_INT_TOL))
+    n, n_sub = rays.n, int(same.sum())
+    allowed = max(3, math.ceil(NS_MISMATCH_SHARE * n))
+    if not chaotic:
+        check(n - n_sub <= allowed,
+              f'{n - n_sub} rays trace apart in K5 and plain')
+    sub = rt.Rays(**{f: getattr(rays, f)[same].contiguous()
+                     for f in rays.__dataclass_fields__})
+    g_rays, g_mom, g_grid = random_cotangents(torch, n_sub, cfg, dev, seed)
+    gt_k, gr_k = fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, sub, cfg, nb, g_rays, g_mom, g_grid=g_grid)
+    gt_p, gr_p = fused_nonseq.trace_nonseq_bwd_plain(
+        flat, sub, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid)
+    torch.cuda.synchronize()
+    res = dict(forward_differ=n - n_sub)
+    res.update(compare_ray_cotangents(
+        torch, gr_k, gr_p, allowed=allowed,
+        intensity_allowed=(math.ceil(GRID_SHARE * n_sub)
+                           if cfg.grid_shape else 0)))
+    res.update(compare_table_cotangents(torch, fused_trace, gt_k, gt_p))
+    # the first row's curvature, q[0:3]: a mirror's c1 in the mirror scenes
+    res['row0_curvature_cotangent'] = float(gt_k[0, :3].abs().sum())
+    return res
 
 
 def compare_grid(torch, g_k, g_p, total_rtol):
@@ -449,8 +553,11 @@ def grid_bytes(cfg):
 
 def nonseq_work(rt, torch, scene, params, rays):
     """K5's data-dependent work on these rays: the row scans it runs (one per
-    ray and bounce begun with intensity > 0 and a hit in the last bounce)
-    and the winners per row, counted with the plain bounce loop."""
+    ray and bounce begun with intensity > 0 and a hit in the last bounce),
+    the winners per row, the largest number of bounces a ray won, and the
+    bounces K6 replays for the earlier segments of the rays that live beyond
+    its 8 checkpoints (8 + 16 + ... + 8m for a ray of m earlier segments),
+    counted with the plain bounce loop."""
     from raytracetorch_tpu_torch.core.trace import bounce_step, nearest_hit
     table = scene.build_table(params)
     meta = scene.static_meta()
@@ -458,6 +565,7 @@ def nonseq_work(rt, torch, scene, params, rays):
     cfg = rt.SensorConfig(n_sensors=scene.n_sensors, n_bundles=1)
     sens = rt.SensorState.init(cfg, device=rays.px.device)
     going = rays.intensity > 0
+    lives = torch.zeros_like(rays.intensity, dtype=torch.int32)
     scans, wins = 0, [0] * len(meta)
     with torch.no_grad():
         for _ in range(scene.n_bounces):
@@ -469,8 +577,11 @@ def nonseq_work(rt, torch, scene, params, rays):
                                           plain=True)
             for k in range(len(meta)):
                 wins[k] += int((act & going & (win == k)).sum())
+            lives += (act & going).int()
             going = going & act & (rays.intensity > 0)
-    return scans, wins
+    m = (lives - 1).clamp(min=0) // K6_CHECKPOINTS
+    replayed = int((K6_CHECKPOINTS // 2 * m * (m + 1)).sum())
+    return scans, wins, int(lives.max()), replayed
 
 
 def time_ms(torch, fn, warmup=3, reps=20):
@@ -503,6 +614,7 @@ def time_pair(torch, kernel_fn, plain_fn, reps=20, warmup=3):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script '
@@ -519,13 +631,14 @@ def main():
 
     def reset_counters():
         fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
-        fused_nonseq.NONSEQ_LAUNCHES = 0
+        fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
 
     def counters():
         return dict(trace_seq_fwd=fused_trace.LAUNCHES,
                     trace_seq_bwd=fused_trace.BWD_LAUNCHES,
                     trace_nonseq_fwd=fused_nonseq.NONSEQ_LAUNCHES,
+                    trace_nonseq_bwd=fused_nonseq.NONSEQ_BWD_LAUNCHES,
                     grid_bin=grid.GRID_LAUNCHES,
                     grid_gather=grid.GATHER_LAUNCHES)
 
@@ -541,7 +654,7 @@ def main():
          tf32=[torch.backends.cuda.matmul.allow_tf32,
                torch.backends.cudnn.allow_tf32])
 
-    # 2. build: the four libraries, one nvcc each, started together
+    # 2. build: the five libraries, one nvcc each, started together
     t0 = time.perf_counter()
     logs = fused_trace.build()
     emit('build', seconds=time.perf_counter() - t0,
@@ -594,7 +707,7 @@ def main():
     }.items():
         for n in (N_SMALL, N_MAIN):
             rays = make(rt, torch, n, dev, SEED + 11 + n)
-            g_rays, g_mom = random_cotangents(torch, n, cf, dev, SEED + n)
+            g_rays, g_mom, _ = random_cotangents(torch, n, cf, dev, SEED + n)
             gt_k, gr_k = fused_trace.trace_seq_bwd_cuda(fl, kd, rays, cf,
                                                         g_rays, g_mom)
             gt_p, gr_p = fused_trace.trace_seq_bwd_plain(fl, rays, cf, me,
@@ -947,6 +1060,143 @@ def main():
           and eager_launches['trace_nonseq_fwd'] == 0,
           f'Scene.simulate launched {eager_launches}')
 
+    # 5e. K6 vs its plain version on three scenes, with seeded cotangents of
+    # the rays, the moments and the grid, on the rays whose forward K5 and
+    # the plain loop trace alike (module notes: K6)
+    ns_scenes = {'naive': (naive_scene, sample_rays),
+                 'mirror_fold': (mirror_fold_scene, mirror_fold_rays),
+                 'cavity': (cavity_scene, mirror_fold_rays)}
+    ns_bwd = {}
+    for case, (make_scene, make_rays) in ns_scenes.items():
+        nsc = make_scene(rt)
+        for n in (N_SMALL, N_MAIN):
+            rays = make_rays(rt, torch, n, dev, SEED + 51 + n)
+            res = compare_k6(rt, torch, nsc, rays, SEED + 61 + n,
+                             chaotic=case == 'cavity')
+            if case != 'naive':
+                check(res['row0_curvature_cotangent'] > 0,
+                      f'{case}: no cotangent for the mirror curvature')
+            if case == 'cavity' and n == N_MAIN:
+                _, _, res['max_live_bounces'], res['replayed_bounces'] = \
+                    nonseq_work(rt, torch, nsc, nsc.init_params(dev), rays)
+                check(res['max_live_bounces'] > K6_CHECKPOINTS,
+                      'no cavity ray lives beyond the 8 checkpoints')
+            ns_bwd[f'{case}_{n}'] = res
+    emit('nonseq_bwd', **ns_bwd)
+
+    # 5f. K6's forward replay equals K5's output, bit for bit, on every ray
+    replay = {}
+    for case, (make_scene, make_rays) in ns_scenes.items():
+        nsc = make_scene(rt)
+        ncfg, nmeta, nb = nsc.sensor_config(), nsc.static_meta(), \
+            nsc.n_bounces
+        nflat = rt.flatten_table_rows(nsc.build_table(nsc.init_params(dev)))
+        nkinds = torch.tensor(fused_trace.kind_rows(nmeta, ncfg),
+                              dtype=torch.int32, device=dev)
+        rays = make_rays(rt, torch, N_MAIN, dev, SEED + 71)
+        out_k, _ = fused_nonseq.trace_nonseq_fwd_cuda(nflat, nkinds, rays,
+                                                      ncfg, nb)
+        _, _, ends = fused_nonseq.trace_nonseq_bwd_cuda(
+            nflat, nkinds, rays, ncfg, nb, (None,) * 7, None,
+            need_table=False, need_rays=False, replay=True)
+        torch.cuda.synchronize()
+        differ = torch.zeros(N_MAIN, dtype=torch.bool, device=dev)
+        for c in fused_trace.COMPS:
+            a, b = getattr(ends, c), getattr(out_k, c)
+            differ |= ~((a == b) | (torch.isnan(a) & torch.isnan(b)))
+        replay[case] = int(differ.sum())
+    emit('nonseq_replay', n=N_MAIN, rays_differ=replay)
+    check(not any(replay.values()), f'K6 replays another state: {replay}')
+
+    # 5g. the non-sequential gradient path, counted: Scene.simulate_fused
+    # under grad, spot RMS + sum(grid * W), backward; then the eager loop
+    ns_w = torch.randn(1, *GRID, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 81), device=dev)
+    rays = sample_rays(rt, torch, N_MAIN, dev, SEED + 3)
+
+    def nonseq_grads(simulate):
+        p = nscene.init_params(dev)
+        for k in ('c1', 'c2'):
+            p['lens'][k].requires_grad_(True)
+        r = rays.replace(px=rays.px.clone().requires_grad_(True),
+                         dx=rays.dx.clone().requires_grad_(True))
+        _, s, _ = simulate(p, r)
+        ((s.grid * ns_w).sum() + s.spot_rms(0)[0]).backward()
+        return ([p['lens'][k].grad for k in ('c1', 'c2')],
+                (r.px.grad, r.dx.grad))
+
+    torch.cuda.synchronize()
+    reset_counters()
+    ng_fused, nr_fused = nonseq_grads(nscene.simulate_fused)
+    torch.cuda.synchronize()
+    ns_grad_launches = counters()
+    ng_eager, nr_eager = nonseq_grads(nscene.simulate)
+    ng_100, nr_100 = nonseq_grads(naive_scene(rt, n_bounces=100)
+                                  .simulate_fused)
+    rel = [float((a - b).abs() / b.abs()) for a, b in zip(ng_fused,
+                                                          ng_eager)]
+    zeros = torch.zeros_like(rays.px)
+    ray_res = compare_ray_cotangents(
+        torch, (nr_fused[0], zeros, zeros, nr_fused[1], zeros, zeros, zeros),
+        (nr_eager[0], zeros, zeros, nr_eager[1], zeros, zeros, zeros),
+        allowed=max(3, math.ceil(NS_MISMATCH_SHARE * N_MAIN)))
+    same_100 = all(torch.equal(a, b) for a, b in zip(ng_fused + list(nr_fused),
+                                                    ng_100 + list(nr_100)))
+    emit('nonseq_grad_main', n=N_MAIN, launches=ns_grad_launches,
+         grad_fused=[float(g) for g in ng_fused],
+         grad_eager=[float(g) for g in ng_eager], rel_err=rel,
+         ray_grads=ray_res, budget_100_equal=same_100)
+    check(ns_grad_launches['trace_nonseq_fwd'] == 1
+          and ns_grad_launches['trace_nonseq_bwd'] == 1
+          and sum(ns_grad_launches.values()) == 2,
+          f'the non-sequential grad step launched {ns_grad_launches}')
+    check(max(rel) < GRAD_RTOL, f'fused vs eager gradients differ: {rel}')
+    check(all(float(g.abs().max()) > 0 for g in nr_fused),
+          'no ray gradient through Scene.simulate_fused')
+    check(same_100, 'a budget of 100 bounces changed the gradients')
+
+    # 5h. the non-sequential design loop, counted: the design singlet as a
+    # Scene, L-BFGS through Scene.simulate_fused at 1M rays
+    nd_scene = dscene.to_base()
+    nd_scene.n_bounces = NS_BOUNCES
+    evals = [0]
+
+    def counted(loss_fn):
+        def loss(p):
+            evals[0] += 1
+            return loss_fn(p)
+        return loss
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    nd_opt, nd_losses = rt.fit_lbfgs(
+        counted(design_loss(torch, nd_scene, drays)), dparams,
+        trainable=nd_scene.trainable(), steps=DESIGN_STEPS)
+    torch.cuda.synchronize()
+    nd_s = time.perf_counter() - t0
+    nd_launches = counters()
+    t0 = time.perf_counter()
+    rt.fit_lbfgs(design_loss(torch, nd_scene, drays), dparams,
+                 trainable=nd_scene.trainable(), steps=DESIGN_STEPS)
+    torch.cuda.synchronize()
+    nd_warm_s = time.perf_counter() - t0
+    nd_lens = nd_opt['lens']
+    nd_ratio = float(nd_lens['c1']) / float(nd_lens['c2'])
+    nd_f = float(dscene.elements[0].f(nd_lens))
+    emit('nonseq_design', n=N_MAIN, steps=DESIGN_STEPS, evaluations=evals[0],
+         launches=nd_launches, seconds_first=nd_s, seconds_warm=nd_warm_s,
+         loss_start=float(nd_losses[0]), loss_end=float(nd_losses[-1]),
+         c1=float(nd_lens['c1']), c2=float(nd_lens['c2']),
+         c1_over_c2=nd_ratio, sequential_c1_over_c2=ratio,
+         focal_length=nd_f, sequential_focal_length=f_opt)
+    check(nd_launches['trace_nonseq_fwd'] == evals[0]
+          and nd_launches['trace_nonseq_bwd'] == evals[0]
+          and sum(nd_launches.values()) == 2 * evals[0],
+          f'{evals[0]} evaluations launched {nd_launches}')
+    check(-7.5 < nd_ratio < -4.5, f'non-sequential c1/c2 {nd_ratio}')
+    check(95.0 < nd_f < 106.0, f'non-sequential focal length {nd_f}')
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -1036,12 +1286,58 @@ def main():
             warmup=warm)
         timing[f'nonseq_n{n}'] = dict(kernel_ms=k_ms, plain_ms=p_ms,
                                       kernel_runs=k_runs, plain_runs=p_runs)
+    # K6 against its plain version on the same scene, with the cotangents of
+    # the spot and grid loss; the plain backward keeps the eager graph of
+    # every bounce (~9 GB per 1M rays), so at 16M it is tried once and its
+    # out-of-memory error recorded
+    k6_args = ((None,) * 7, g_mom1)
+    for n, reps, warm in ((N_MAIN, 8, 1), (N_LARGE, 4, 1)):
+        rays = sample_rays(rt, torch, n, dev, SEED + 1)
+        k_runs = time_ms(torch, lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+            nflat, nkinds, rays, ncfg, NS_BOUNCES, *k6_args, g_grid=ns_w),
+            warm, 2 * reps if n == N_MAIN else 20)
+        res = dict(kernel_ms=statistics.median(k_runs), kernel_runs=k_runs)
+        try:
+            k_ms, p_ms, k_runs, p_runs = time_pair(
+                torch,
+                lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                    nflat, nkinds, rays, ncfg, NS_BOUNCES, *k6_args,
+                    g_grid=ns_w),
+                lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                    nflat, rays, ncfg, nmeta, NS_BOUNCES, *k6_args,
+                    g_grid=ns_w), reps=reps, warmup=warm)
+            res.update(paired_kernel_ms=k_ms, plain_ms=p_ms,
+                       paired_kernel_runs=k_runs, plain_runs=p_runs)
+        except torch.cuda.OutOfMemoryError:
+            res['plain_out_of_memory'] = True
+            torch.cuda.empty_cache()
+        timing[f'nonseq_bwd_n{n}'] = res
+    csc = cavity_scene(rt)
+    cflat = rt.flatten_table_rows(csc.build_table(csc.init_params(dev)))
+    ckinds = torch.tensor(fused_trace.kind_rows(csc.static_meta(),
+                                                csc.sensor_config()),
+                          dtype=torch.int32, device=dev)
+    rays = mirror_fold_rays(rt, torch, N_MAIN, dev, SEED + 1)
+    c_runs = time_ms(torch, lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+        cflat, ckinds, rays, csc.sensor_config(), csc.n_bounces, (None,) * 7,
+        g_mom1))
+    timing['nonseq_bwd_cavity'] = dict(kernel_ms=statistics.median(c_runs),
+                                       kernel_runs=c_runs)
     rays = sample_rays(rt, torch, N_MAIN, dev, SEED + 2)
+    ns_grad_p = nscene.init_params(dev)
+    for k in ('c1', 'c2'):
+        ns_grad_p['lens'][k].requires_grad_(True)
+
+    def ns_grad_step():
+        _, s, _ = nscene.simulate_fused(ns_grad_p, rays)
+        ((s.grid * ns_w).sum() + s.spot_rms(0)[0]).backward()
+
     ns_e2e = {
         'scene_simulate_fused_ms': time_ms(
             torch, lambda: nscene.simulate_fused(nparams, rays)),
         'scene_simulate_eager_ms': time_ms(
             torch, lambda: nscene.simulate(nparams, rays)),
+        'scene_grad_step_fused_ms': time_ms(torch, ns_grad_step),
     }
     for key, runs in ns_e2e.items():
         timing[key] = statistics.median(runs)
@@ -1069,17 +1365,34 @@ def main():
         ('kernel_ms', 'plain_ms'), time_pair(
             torch, lambda: grid.bin_grid_cuda(hx, hy, hw, hslot, gcfg),
             lambda: grid.bin_grid_slots_plain(hx, hy, hw, hslot, gcfg))[:2]))
+    timing['nonseq_design_warm_s'] = nd_warm_s
     emit('timing', **timing)
 
     # the bound of each kernel's work at 1M rays on this card
     n = N_MAIN
     k1_ops = n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
     k1_bytes = n * (32 + 28) + table_bytes(meta)
-    scans, wins = nonseq_work(rt, torch, nscene, nparams,
-                              sample_rays(rt, torch, n, dev, SEED + 1))
-    k5_ops = (scans * sum(intersect_ops(m) for m in nmeta)
+    scans, wins, _, replayed = nonseq_work(
+        rt, torch, nscene, nparams, sample_rays(rt, torch, n, dev, SEED + 1))
+    scan_ops = sum(intersect_ops(m) for m in nmeta)
+    win_ops = [w * (intersect_ops(m) + apply_ops(m))
+               for w, m in zip(wins, nmeta)]
+    k5_ops = (scans * scan_ops
               + sum(w * apply_ops(m) for w, m in zip(wins, nmeta)))
+    # K6: K5's replay; per winning bounce the winner's recompute and its
+    # adjoint, about twice the forward's size (the rows that lose the argmin
+    # have a zero adjoint); each segment-replay bounce a scan and the
+    # average winner's physics (csrc/trace_nonseq_bwd.cu)
+    k6_ops = (k5_ops + 3 * sum(win_ops) + replayed * (
+        scan_ops + sum(w * apply_ops(m) for w, m in zip(wins, nmeta))
+        / max(sum(wins), 1)))
     bounds = {
+        # K6, as timed: 8 input streams and 7 ray cotangents out (the spot
+        # and grid loss gives no ray cotangents in), the table, the moment
+        # and grid cotangents in, the table cotangent out
+        'trace_nonseq_bwd': bound(n * (32 + 28) + table_bytes(nmeta)
+                                  + grid_bytes(ncfg)
+                                  + len(nmeta) * 19 * 4, k6_ops),
         # K2: 8 input streams, the moment cotangent, 7 ray cotangents out,
         # the table cotangent; a forward sweep and an adjoint of about
         # twice its size: 3x K1's operations (csrc/trace_seq_bwd.cu)
@@ -1093,10 +1406,12 @@ def main():
                                   + grid_bytes(ncfg), k5_ops),
     }
     emit('bounds', n=n, k1_ops=k1_ops, k5_row_scans=scans,
-         k5_winners_per_row=wins, k5_ops=k5_ops,
+         k5_winners_per_row=wins, k5_ops=k5_ops, k6_ops=k6_ops,
+         k6_replayed_bounces=replayed,
          **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
 
     bwd_main = bwd_cases[f'bench_{N_MAIN}']
+    emit('elapsed', seconds=time.perf_counter() - t_start)
 
     def entry(name, source, line, launches_, err, ms, plain_ms,
               library_ms=None):
@@ -1124,6 +1439,11 @@ def main():
               ns_cases[f'naive_{N_MAIN}']['max_abs_err'],
               timing[f'nonseq_n{N_MAIN}']['kernel_ms'],
               timing[f'nonseq_n{N_MAIN}']['plain_ms']),
+        entry('trace_nonseq_bwd', 'trace_nonseq_bwd.cu', 2157,
+              ns_grad_launches['trace_nonseq_bwd'],
+              ns_bwd[f'naive_{N_MAIN}']['max_abs_err'],
+              timing[f'nonseq_bwd_n{N_MAIN}']['kernel_ms'],
+              timing[f'nonseq_bwd_n{N_MAIN}']['plain_ms']),
     ]}
     print(json.dumps(summary))
     print(card)

@@ -13,8 +13,9 @@ Hopper.  The port covers:
   (optim/fit.py) with log-barrier constraints (optim/constraints.py);
 - the non-sequential scene (``Scene``), with the ideal ``SphericalMirror``
   that folds rays back: the eager bounce loop (``Scene.simulate``) and the
-  fused kernel K5, forward only (``Scene.simulate_fused``,
-  ops/fused_nonseq.py);
+  fused kernels, K5 forward and K6 backward (``Scene.simulate_fused``,
+  ops/fused_nonseq.py), so the design loops run on non-sequential scenes
+  too;
 - irradiance grids on every sensor (``scene.grid_shape = (H, W)``), binned
   by kernel K3 (ops/grid.py), inside K1 and K5 on the card, with K2 routing
   the grid's cotangent.
@@ -45,7 +46,7 @@ from .elements.lens import SingletLens  # noqa: E402
 from .elements.mirror import SphericalMirror  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
-from .ops.fused_nonseq import trace_nonseq_fused  # noqa: E402
+from .ops.fused_nonseq import FusedNonseq, trace_nonseq_fused  # noqa: E402
 from .ops.fused_trace import FusedTrace, trace_sequential_fused  # noqa: E402
 from .optim.constraints import (log_barrier, log_barrier_lb,  # noqa: E402
                                 log_barrier_ub, spacing_constraint,

@@ -113,29 +113,16 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 
   for (int b = 0; b < n_bounces; ++b) {
     if (!(inten > 0.0f)) break;
-    // ---- nearest valid row, first of equals wins ----
-    float best_t = kBig;
-    int k_win = -1;
-    V3 hs = {0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < n_rows; ++k) {
-      const RowHit h =
-          intersect_row(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), p, d);
-      if (h.valid && h.t < best_t) {
-        best_t = h.t;
-        k_win = k;
-        hs = h.hs;
-      }
-    }
+    // ---- nearest valid row, its physics and the move ----
+    const float w = inten;
+    RowHit hw = {};
+    const int k_win = nonseq_bounce(tab, knd, n_rows, p, d, inten, hw);
     if (k_win < 0) break;
 
-    // ---- the winner's normal, physics and sensor record ----
-    const float* r = tab + k_win * kRowWidth;
+    // ---- a sensor winner records the incoming intensity at its hit ----
     const RowKinds kd = read_row_kinds(knd + k_win * kKindWidth);
-    V3 nd;
-    float imod;
-    apply_physics(r, kd.ph, kd.sb, d, world_normal(r, kd.plane, hs), hs, nd, imod);
     if (kd.sensor) {
-      const float w = inten, x = hs.x, y = hs.y;
+      const float x = hw.hs.x, y = hw.hs.y;
       if (counted) {
         // bucket 1 holds one (slot, bundle): its index is 0 at compile time
         float* a = acc + (kMomBucket == 1 ? 0 : (kd.slot * n_bundles + rid) * kMoments);
@@ -149,9 +136,6 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
       }
       if (grid != nullptr) grid_add(grid, kd.slot, x, y, w, grid_h, grid_w, grid_e);
     }
-    p = fma3(p, best_t, d);
-    d = nd;
-    inten = inten * imod;
   }
 
   if (live) {

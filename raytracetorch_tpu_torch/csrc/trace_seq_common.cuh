@@ -1,7 +1,10 @@
-// Shared by the fused kernels K1 (trace_seq_fwd.cu), K2 (trace_seq_bwd.cu)
-// and K5 (trace_nonseq_fwd.cu): the flat-row layout, the constants of the
-// trace engine, small vector helpers, the bound checks, the warp sum, and one
-// row's intersection, normal and physics as K1 and K5 evaluate them.
+// Shared by the fused kernels K1 (trace_seq_fwd.cu), K2 (trace_seq_bwd.cu),
+// K5 (trace_nonseq_fwd.cu) and K6 (trace_nonseq_bwd.cu): the flat-row layout,
+// the constants of the trace engine, small vector helpers, the bound checks,
+// the warp sum, and one row's intersection, normal and physics as K1 and K5
+// evaluate them.  The adjoints (trace_seq_adjoint.cuh) take their branch
+// decisions from these same functions, through their optional outputs, so a
+// backward never re-decides a branch in another copy of the arithmetic.
 
 #pragma once
 
@@ -97,12 +100,14 @@ __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
           kd[kSensorCol] != 0, kd[kInvertCol] != 0};
 }
 
-// One row's hit: the ray parameter t (0 where invalid), validity and the hit
-// in the surface frame.
+// One row's hit: the ray parameter t (0 where invalid), validity, the hit in
+// the surface frame, and the branches the adjoint needs: which root is the
+// minimum (both on a tie) and whether the quadric solver took its linear path.
 struct RowHit {
   float t;
   bool valid;
   V3 hs;
+  bool root1, root2, linear;
 };
 
 // Intersect a ray (world frame) with row r (core/intersect.py): plane fast
@@ -114,7 +119,7 @@ __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& 
   const V3 o = rot(V3{p.x - r[kTw], p.y - r[kTw + 1], p.z - r[kTw + 2]}, Rw);
   const V3 ds = rot(d, Rw);
   float t1, t2;
-  bool v1, v2;
+  bool v1, v2, linear = false;
   if (kd.plane) {
     // q = (0,0,0,-2,0): the solver's linear branch, t = 2 oz / B_safe
     const float B = -2.0f * ds.z;
@@ -132,7 +137,7 @@ __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& 
     const float disc = B * B - 4.0f * A * C;
     const bool hit = disc >= 0.0f;
     const float sq = sqrtf((hit ? disc : 1.0f) + 1e-24f);
-    const bool linear = fabsf(A) < kSolverEps;
+    linear = fabsf(A) < kSolverEps;
     const float A_safe = linear ? 1.0f : A;
     const float B_safe = fabsf(B) < kSolverEps ? kSolverEps : B;
     const float t_lin = -C / B_safe;
@@ -158,6 +163,9 @@ __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& 
   const float tm2 = (v2 && t2 > eps) ? t2 : kBig;
   const float t_best = fminf(tm1, tm2);
   RowHit h;
+  h.root1 = tm1 <= tm2;
+  h.root2 = tm2 <= tm1;
+  h.linear = linear;
   h.valid = t_best < kBig * 0.5f;
   h.t = h.valid ? t_best : 0.0f;
   h.hs = fma3(o, h.t, ds);
@@ -170,8 +178,10 @@ __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& 
 }
 
 // World-frame unit normal at a surface-frame hit (core/intersect.py::
-// normal_world).
-__device__ __forceinline__ V3 world_normal(const float* r, bool plane, V3 hs) {
+// normal_world).  `degen_out`, when given, receives whether the quadric's
+// gradient was degenerate (the normal then defaults to +z).
+__device__ __forceinline__ V3 world_normal(const float* r, bool plane, V3 hs,
+                                           bool* degen_out = nullptr) {
   const float* q = r + kQ;
   const float* Rw = r + kRw;
   if (plane) return {Rw[2], Rw[5], Rw[8]};
@@ -180,16 +190,26 @@ __device__ __forceinline__ V3 world_normal(const float* r, bool plane, V3 hs) {
   const float gz = 2.0f * q[2] * hs.z + q[3];
   const float g2 = gx * gx + gy * gy + gz * gz;
   const bool degen = g2 < kNormalEps * kNormalEps;
+  if (degen_out != nullptr) *degen_out = degen;
   const float inv = (r[kNSign] < 0.0f ? -1.0f : 1.0f) / (sqrtf(degen ? 1.0f : g2) + kNormalEps);
   const V3 nl = degen ? V3{0.0f, 0.0f, 1.0f} : V3{gx * inv, gy * inv, gz * inv};
   return rot_t(nl, Rw);
 }
 
+// The physics branches the adjoint needs (all false unless set below).
+struct PhysBranch {
+  bool from_in;   // SNELL: d.n < 0
+  bool dn_pos;    // SNELL: d.n > 0
+  bool tir;       // SNELL: total internal reflection
+  bool n2_small;  // SNELL: |n2| < 1e-12
+  bool pass;      // APERTURE: the filter passes the ray
+};
+
 // The row's physics (core/static_dispatch.py::apply_physics_one): the new
 // direction nd and the intensity factor imod of a ray d meeting normal nw at
-// surface-frame hit hs.
+// surface-frame hit hs.  `br`, when given, receives the branches taken.
 __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, V3 d, V3 nw, V3 hs,
-                                              V3& nd, float& imod) {
+                                              V3& nd, float& imod, PhysBranch* br = nullptr) {
   nd = d;
   imod = 1.0f;
   if (ph == BLOCK) {
@@ -204,8 +224,15 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, V
     const float cos_i = fabsf(dn);
     const float n1 = from_in ? r[kPh] : r[kPh + 1];
     const float n2 = from_in ? r[kPh + 1] : r[kPh];
-    const float mu = n1 / (fabsf(n2) < 1e-12f ? 1e-12f : n2);
+    const bool n2_small = fabsf(n2) < 1e-12f;
+    const float mu = n1 / (n2_small ? 1e-12f : n2);
     const float sin2_t = mu * mu * (1.0f - cos_i * cos_i);
+    if (br != nullptr) {
+      br->from_in = from_in;
+      br->dn_pos = dn > 0.0f;
+      br->tir = sin2_t > 1.0f;
+      br->n2_small = n2_small;
+    }
     if (sin2_t > 1.0f) {  // total internal reflection
       nd = fma3(d, -2.0f * dn, nw);
     } else {
@@ -218,7 +245,42 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, V
     const float mod = sb_check(sbk, r + kSb, hs) ? 1.0f : 0.0f;
     nd = {d.x * mod, d.y * mod, d.z * mod};
     imod = mod;
+    if (br != nullptr) br->pass = mod != 0.0f;
   }
+}
+
+// One bounce of the non-sequential loop (core/trace.py::bounce_step), as K5
+// runs it and K6 replays it: every row is intersected and the nearest valid
+// row wins with a strict t < best_t (the first of equals wins); then the
+// winner's normal and physics, and the move p += t d, d = the new direction,
+// I *= the winner's factor.  Returns the winner row, or -1 when no row wins
+// (nothing moves).  `hw` receives the winner's hit; `degen` and `br`, when
+// given, the winner's branches.  The caller records a sensor winner.
+__device__ __forceinline__ int nonseq_bounce(const float* tab, const int32_t* knd, int n_rows,
+                                             V3& p, V3& d, float& inten, RowHit& hw,
+                                             bool* degen = nullptr, PhysBranch* br = nullptr) {
+  float best_t = kBig;
+  int k_win = -1;
+  for (int k = 0; k < n_rows; ++k) {
+    const RowHit h =
+        intersect_row(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), p, d);
+    if (h.valid && h.t < best_t) {
+      best_t = h.t;
+      k_win = k;
+      hw = h;
+    }
+  }
+  if (k_win < 0) return -1;
+  const float* r = tab + k_win * kRowWidth;
+  const RowKinds kd = read_row_kinds(knd + k_win * kKindWidth);
+  V3 nd;
+  float imod;
+  apply_physics(r, kd.ph, kd.sb, d, world_normal(r, kd.plane, hw.hs, degen), hw.hs, nd, imod,
+                br);
+  p = fma3(p, best_t, d);
+  d = nd;
+  inten = inten * imod;
+  return k_win;
 }
 
 }  // namespace rtt

@@ -28,8 +28,11 @@ module:
 - With ``cfg.grid_shape`` set, K1 also bins the sensor hits into the
   ``[S, H, W]`` irradiance grid (kernel K3's device function) and K2 routes
   the grid's cotangent back into the incoming intensities.
-- ``build`` compiles the four libraries (K1, K2, K3 in ops/grid.py, K5 in
-  ops/fused_nonseq.py), one nvcc each, started together.
+- ``plain_vjp`` is the shared body of the plain backward versions
+  (``trace_seq_bwd_plain`` here, ``trace_nonseq_bwd_plain`` in
+  ops/fused_nonseq.py): ``torch.autograd.grad`` of a plain forward.
+- ``build`` compiles the five libraries (K1, K2, K3 in ops/grid.py, K5 and
+  K6 in ops/fused_nonseq.py), one nvcc each, started together.
 """
 
 from __future__ import annotations
@@ -81,6 +84,9 @@ _LIBRARIES = {
     'trace_nonseq_fwd': ('trace_nonseq_fwd.cu', {
         'rtt_trace_nonseq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
         + [_I, _L, _P]}),
+    'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
+        'rtt_trace_nonseq_bwd': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
+        + [_I, _L, _P]}),
 }
 _fns = {}
 
@@ -122,13 +128,18 @@ def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta):
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
     comps = [getattr(rays, c) for c in COMPS]
     if needs_grad(flat, rays):
-        outs = FusedTrace.apply(flat, kinds_t, cfg, tuple(static_meta),
-                                *comps, rays.ray_id)
-        grid = outs[8] if cfg.grid_shape else SensorState.init(
-            cfg, device=flat.device).grid
-        return (rays.replace(**dict(zip(COMPS, outs[:7]))),
-                SensorState(moments=outs[7], grid=grid))
+        return unpack(FusedTrace.apply(flat, kinds_t, cfg, tuple(static_meta),
+                                       *comps, rays.ray_id), rays, cfg)
     return _forward(flat, kinds_t, rays, cfg, static_meta)
+
+
+def unpack(outs, rays, cfg):
+    """The outputs of ``FusedTrace`` or ``FusedNonseq`` -> ``(rays,
+    SensorState)``."""
+    grid = outs[8] if cfg.grid_shape else SensorState.init(
+        cfg, device=outs[7].device).grid
+    return (rays.replace(**dict(zip(COMPS, outs[:7]))),
+            SensorState(moments=outs[7], grid=grid))
 
 
 def flat_inputs(table, rays, cfg, static_meta):
@@ -231,12 +242,22 @@ def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
     (None for zero), ``g_moments`` that of the [S, B, 7] moments and
     ``g_grid`` that of the [S, H, W] grid (each None for zero).  Returns
     ``(g_flat [K, 160], 7 input-ray cotangents)``."""
+    return plain_vjp(
+        lambda flat, r: trace_sequential_fused_plain(flat, r, cfg,
+                                                     static_meta),
+        flat_table, rays, g_rays, g_moments, g_grid)
+
+
+def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid):
+    """``torch.autograd.grad`` of ``forward(flat, rays) -> (rays,
+    SensorState)`` at ``(flat_table, rays)`` with the cotangents of
+    ``trace_seq_bwd_plain`` -> ``(g_flat, 7 input-ray cotangents)``, zeros
+    where the output does not depend on an input."""
     with torch.enable_grad():
         flat = flat_table.detach().requires_grad_(True)
         comps = [getattr(rays, c).detach().requires_grad_(True)
                  for c in COMPS]
-        out, sensors = trace_sequential_fused_plain(
-            flat, rays.replace(**dict(zip(COMPS, comps))), cfg, static_meta)
+        out, sensors = forward(flat, rays.replace(**dict(zip(COMPS, comps))))
         pairs = [(o, g) for o, g in zip(
             [*(getattr(out, c) for c in COMPS), sensors.moments,
              sensors.grid],
@@ -253,7 +274,7 @@ def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
 
 
 def build():
-    """Compile the package's four CUDA libraries (one nvcc each, started
+    """Compile the package's five CUDA libraries (one nvcc each, started
     together; once per source hash) and bind their C entry points.  Returns
     ``{library: (log, seconds)}`` of the nvcc runs (seconds 0.0 when already
     built)."""
@@ -294,7 +315,7 @@ def check(t, name, dtype, shape, device):
 
 
 def check_inputs(flat_table, kinds, rays, cfg, name):
-    """Shared checks of the K1, K2 and K5 wrappers -> (device, K, N, slots,
+    """Shared checks of the K1, K2, K5 and K6 wrappers -> (device, K, N, slots,
     bundles)."""
     device = flat_table.device
     if device.type != 'cuda':

@@ -11,8 +11,7 @@ aux)``:
 - ``Scene`` is the non-sequential nearest-hit bounce loop within a budget of
   ``n_bounces``.  ``simulate`` runs it eagerly under autograd
   (core/trace.py::trace_nonsequential); ``simulate_fused`` runs kernel K5
-  (ops/fused_nonseq.py), forward only: its backward is kernel K6, not
-  ported yet, so it raises under grad.
+  forward and, under grad, kernel K6 backward (ops/fused_nonseq.py).
 - ``SequentialScene`` visits every surface once in order.  ``simulate`` is
   the eager chain; ``simulate_fused`` runs kernel K1 forward and, under
   grad, kernel K2 backward (ops/fused_trace.py) at every N.  The JAX
@@ -183,8 +182,9 @@ class Scene:
         """Fused bounce loop -> (rays, sensors, aux): kernel K5 on the card,
         its plain version on the CPU.  Each ray leaves the loop at its first
         bounce with no hit, so the default budget of 100 costs what the
-        scene needs.  Forward only: under grad it raises (kernel K6,
-        ROADMAP Queue 2)."""
+        scene needs.  Differentiable with respect to the params and the ray
+        streams px..intensity (K6 in backward on the card); first order
+        only."""
         out, sensors = trace_nonseq_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), self.n_bounces)

@@ -1,6 +1,7 @@
 """The kernels K1 (csrc/trace_seq_fwd.cu), K2 (csrc/trace_seq_bwd.cu), K3
-(csrc/grid_bin.cu) and K5 (csrc/trace_nonseq_fwd.cu) against their plain
-PyTorch versions, on the card, and the paths that run them.
+(csrc/grid_bin.cu), K5 (csrc/trace_nonseq_fwd.cu) and K6
+(csrc/trace_nonseq_bwd.cu) against their plain PyTorch versions, on the
+card, and the paths that run them.
 
 Every test here needs a CUDA card and is marked ``cuda``; without a card
 each skips.  The file imports neither jax nor the JAX package, so on a
@@ -14,7 +15,8 @@ multiply-adds, eager torch does not); moments rtol 1e-5 atol 1e-3 (another
 summation order).  At N = 2,999 no ray sits close enough to a rim for its
 hit to flip.  K2's cotangents are held to chip_smoke.py's bounds (BWD_TOL,
 TAB_RTOL; reasons there); so are grids (GRID_RAND_RTOL, GRID_SHARE and the
-grid totals) and K5 (the NS_* bounds), with the reasons there.
+grid totals), K5 (the NS_* bounds) and K6 (``chip_smoke.compare_k6``),
+with the reasons there.
 """
 
 import pytest
@@ -141,7 +143,8 @@ def _kinds(meta, cfg, dev):
 def test_k2_matches_plain(case, dev):
     table, rays, cfg, meta = CASES[case](dev)
     flat = trt.flatten_table_rows(table)
-    g_rays, g_mom = chip_smoke.random_cotangents(torch, rays.n, cfg, dev, 5)
+    g_rays, g_mom, _ = chip_smoke.random_cotangents(torch, rays.n, cfg, dev,
+                                                    5)
     before = fused_trace.BWD_LAUNCHES
     gt_k, gr_k = fused_trace.trace_seq_bwd_cuda(flat, _kinds(meta, cfg, dev),
                                                 rays, cfg, g_rays, g_mom)
@@ -330,8 +333,8 @@ def test_k5_matches_plain(case, dev):
 @pytest.mark.cuda
 def test_scene_simulate_fused_launches_k5_once(dev):
     """Scene.simulate_fused launches K5 once and nothing else; a budget of
-    100 bounces gives the 8-bounce result bit for bit; under grad it raises
-    (its backward is K6)."""
+    100 bounces gives the 8-bounce result bit for bit; under grad its
+    backward launches K6 once and nothing else."""
     scene = chip_smoke.naive_scene(trt)
     params = scene.init_params(dev)
     _, rays, _, _ = _bench_case(dev)
@@ -346,8 +349,19 @@ def test_scene_simulate_fused_launches_k5_once(dev):
     assert torch.equal(sens_b.moments, sens.moments)
     assert torch.equal(sens_b.grid, sens.grid)
     params['lens']['c1'].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match='K6'):
-        scene.simulate_fused(params, rays)
+    _, sens_g, _ = scene.simulate_fused(params, rays)
+    before = dict(k5=fused_nonseq.NONSEQ_LAUNCHES,
+                  k6=fused_nonseq.NONSEQ_BWD_LAUNCHES,
+                  k1=fused_trace.LAUNCHES, k2=fused_trace.BWD_LAUNCHES,
+                  k3=grid.GRID_LAUNCHES, gather=grid.GATHER_LAUNCHES)
+    trt.spot_size_loss(sens_g).backward()
+    after = dict(k5=fused_nonseq.NONSEQ_LAUNCHES,
+                 k6=fused_nonseq.NONSEQ_BWD_LAUNCHES,
+                 k1=fused_trace.LAUNCHES, k2=fused_trace.BWD_LAUNCHES,
+                 k3=grid.GRID_LAUNCHES, gather=grid.GATHER_LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == dict(
+        k5=0, k6=1, k1=0, k2=0, k3=0, gather=0)
+    assert bool(torch.isfinite(params['lens']['c1'].grad))
 
 
 @pytest.mark.cuda
@@ -364,3 +378,86 @@ def test_eager_scene_bins_with_k3(dev):
     torch.cuda.synchronize()
     res = chip_smoke.compare_nonseq(torch, out_e, sens_e, out_f, sens_f)
     assert res['mismatched'] == 0
+
+
+K6_CASES = {'naive': (chip_smoke.naive_scene, chip_smoke.sample_rays),
+            'mirror_fold': (chip_smoke.mirror_fold_scene,
+                            chip_smoke.mirror_fold_rays),
+            'cavity': (chip_smoke.cavity_scene, chip_smoke.mirror_fold_rays)}
+
+
+def _k6_inputs(case, dev, n=N):
+    make_scene, make_rays = K6_CASES[case]
+    scene = make_scene(trt)
+    cfg, meta = scene.sensor_config(), scene.static_meta()
+    flat = trt.flatten_table_rows(scene.build_table(scene.init_params(dev)))
+    return scene, flat, _kinds(meta, cfg, dev), make_rays(trt, torch, n, dev,
+                                                          3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(K6_CASES))
+def test_k6_matches_plain(case, dev):
+    """K6 against autograd of the plain bounce loop, with random cotangents
+    of the rays, the moments and the grid, on the rays whose forward K5 and
+    the plain loop trace alike (all but a few, except in the
+    rounding-chaotic cavity)."""
+    scene, _, _, rays = _k6_inputs(case, dev)
+    before = fused_nonseq.NONSEQ_BWD_LAUNCHES
+    res = chip_smoke.compare_k6(trt, torch, scene, rays, 4,
+                                chaotic=case == 'cavity')
+    assert fused_nonseq.NONSEQ_BWD_LAUNCHES == before + 1
+    if case != 'naive':
+        assert res['row0_curvature_cotangent'] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(K6_CASES))
+def test_k6_replay_equals_k5(case, dev):
+    """The state K6's forward replay ends at is K5's output, bit for bit."""
+    scene, flat, kinds, rays = _k6_inputs(case, dev)
+    cfg = scene.sensor_config()
+    out_k, _ = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, cfg,
+                                                  scene.n_bounces)
+    g_flat, g_in, ends = fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, rays, cfg, scene.n_bounces, (None,) * 7, None,
+        need_table=False, need_rays=False, replay=True)
+    assert g_flat is None and g_in is None
+    for c in fused_trace.COMPS:
+        assert torch.equal(getattr(ends, c), getattr(out_k, c)), c
+
+
+@pytest.mark.cuda
+def test_k6_takes_empty_batch(dev):
+    """N = 0 launches nothing and gives a zero table cotangent."""
+    scene, flat, kinds, rays = _k6_inputs('naive', dev)
+    empty = trt.Rays(**{f: getattr(rays, f)[:0].contiguous()
+                        for f in rays.__dataclass_fields__})
+    before = fused_nonseq.NONSEQ_BWD_LAUNCHES
+    g_flat, g_in = fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, empty, scene.sensor_config(), scene.n_bounces,
+        (None,) * 7, torch.ones(1, 1, 7, device=dev))
+    assert fused_nonseq.NONSEQ_BWD_LAUNCHES == before
+    assert bool((g_flat == 0).all()) and g_in[0].shape == (0,)
+
+
+@pytest.mark.cuda
+def test_k6_takes_strided_cotangents(dev):
+    """Expanded (stride-0) and strided cotangents, as autograd may hand
+    them, give the result of their contiguous copies, bit for bit."""
+    scene, flat, kinds, rays = _k6_inputs('mirror_fold', dev)
+    cfg = scene.sensor_config()
+    g_mom = torch.randn(1, 1, 7, device=dev)
+    h, w = cfg.grid_shape
+    g_grid = torch.randn(1, h, 2 * w, device=dev)[:, :, ::2]
+    g_strided = (torch.ones(1, device=dev).expand(rays.n),
+                 torch.randn(2 * rays.n, device=dev)[::2]) + (None,) * 5
+    res = [fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, rays, cfg, scene.n_bounces, g, g_mom, g_grid=gg)
+        for g, gg in ((g_strided, g_grid),
+                      (tuple(None if x is None else x.contiguous()
+                             for x in g_strided), g_grid.contiguous()))]
+    assert torch.equal(res[0][0], res[1][0])
+    for a, b in zip(res[0][1], res[1][1]):
+        assert torch.equal(a, b)
+    assert float(res[0][1][0].abs().max()) > 0

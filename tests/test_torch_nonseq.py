@@ -304,19 +304,30 @@ def test_mirror_fold_path():
 
 
 def test_simulate_fused_under_grad_raises_k6():
-    """Scene.simulate_fused is forward only: its backward is kernel K6."""
+    """Scene.simulate_fused under grad goes through FusedNonseq (its
+    backward is kernel K6; the plain versions on the CPU) and gives finite,
+    nonzero gradients for the params and the rays; like the JAX custom_vjp
+    it is first order only, so a double backward raises."""
     scene = _naive(trt)
     p = scene.init_params('cpu')
     rays = trt.CollimatedDisk.make(radius=4.0, translation=[0, 0, -10.0]) \
         .sample(torch.Generator().manual_seed(0), 64, 'cpu')
     p['lens']['c1'].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match='K6'):
-        scene.simulate_fused(p, rays)
-    with torch.no_grad():
-        scene.simulate_fused(p, rays)
     r = rays.replace(px=rays.px.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match='K6'):
-        scene.simulate_fused(scene.init_params('cpu'), r)
+    out, sens, _ = scene.simulate_fused(p, r)
+    assert type(sens.moments.grad_fn).__name__ == 'FusedNonseqBackward'
+    loss = sens.spot_rms(0)[0] + out.px.square().mean()
+    g_c1, g_px = torch.autograd.grad(loss, (p['lens']['c1'], r.px),
+                                     create_graph=True)
+    assert bool(torch.isfinite(g_c1)) and float(g_c1.detach()) != 0.0
+    assert bool(torch.isfinite(g_px).all()) and float(g_px.abs().max()) > 0
+    with pytest.raises(RuntimeError, match='once_differentiable'):
+        g_c1.backward()
+    with torch.no_grad():
+        _, s0, _ = scene.simulate_fused(p, rays)
+    assert s0.moments.grad_fn is None
+    torch.testing.assert_close(s0.moments, sens.moments.detach(), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize('make,match', [
