@@ -11,13 +11,15 @@ the named kernel, the number of device operations, and the host wall time
 of the profiled calls (slowed by the profiler itself), so busy = device
 time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 
-- the five kernel wrappers: K1 (with and without the 256 x 256 grid), K2,
+- the kernel wrappers: K1 (with and without the 256 x 256 grid), K2,
   K3 on the bench spot, K5 on the naive scene (8 bounces, grid) and K6 on
   the same scene with the cotangents of a spot and grid loss (also at 16M
-  rays);
+  rays); K4's gather and scatter on the 256 x 256 ring-former map, and K1,
+  K2, K5 and K6 with that plate (chip_smoke.py section 7);
 - the end-to-end calls: ``SequentialScene.simulate_fused``, the fused grad
-  step, ``Scene.simulate_fused``, its grad step (K5 + K6) and the eager
-  ``Scene.simulate``.
+  step, ``Scene.simulate_fused``, its grad step (K5 + K6), the eager
+  ``Scene.simulate`` and the deep-optics grad step (the ring former, the
+  map the only trainable leaf: K1 + K2).
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -71,7 +73,8 @@ def main():
         print('chip_profile: run it from a checkout', file=sys.stderr)
         return 2
     import raytracetorch_tpu_torch as rt
-    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace, grid
+    from raytracetorch_tpu_torch.ops import (fused_nonseq, fused_trace, grid,
+                                             phase_grid)
 
     dev = torch.device('cuda')
     fused_trace.build()
@@ -111,6 +114,27 @@ def main():
 
     rays16 = cs.sample_rays(rt, torch, cs.N_LARGE, dev, cs.SEED)
 
+    # the deep-optics calls: the ring former with the 256 x 256 map
+    do_seq = cs.ring_scene(rt)
+    do_ns = cs.ring_scene(rt, bounces=cs.DO_BOUNCES, grid=True)
+    do_rays = cs.ring_rays(rt, torch, n, dev, cs.SEED)
+    plate = {}
+    for key, sc in (('seq', do_seq), ('ns', do_ns)):
+        pp = cs.ring_params(sc, dev)
+        pmeta, pcfg = sc.static_meta(), sc.sensor_config()
+        plate[key] = (rt.flatten_table_rows(sc.build_table(pp)),
+                      torch.tensor(fused_trace.kind_rows(pmeta, pcfg),
+                                   dtype=torch.int32, device=dev), pcfg,
+                      fused_trace.plate_maps(pmeta, sc.side_grids(pp)))
+    cmap = plate['seq'][3][0]
+    civ, ciu = cs.plate_cells(torch, do_rays, cs.DO_MAP)
+    g_c = tuple(torch.randn(n, device=dev) for _ in range(4))
+    do_grad_p = cs.ring_params(do_seq, dev, grad=True)
+
+    def do_grad_step():
+        out, _, _ = do_seq.simulate_fused(do_grad_p, do_rays)
+        cs.ring_loss(torch, out).backward()
+
     calls = {
         'k1': (lambda: fused_trace.trace_seq_fwd_cuda(flat, kinds, rays,
                                                       cfg),
@@ -140,6 +164,24 @@ def main():
         'scene_grad_step_fused': (ns_grad_step, 'trace_nonseq_bwd_kernel'),
         'scene_simulate_eager': (lambda: nscene.simulate(nparams, rays),
                                  'grid_bin_kernel'),
+        'k4': (lambda: phase_grid.grid_corners_cuda(cmap, civ, ciu),
+               'grid_corners_kernel'),
+        'k4_scatter': (lambda: phase_grid.grid_corners_bwd_cuda(
+            g_c, civ, ciu, cs.DO_MAP), 'grid_corners_bwd_kernel'),
+        'k1_plate': (lambda: fused_trace.trace_seq_fwd_cuda(
+            *plate['seq'][:2], do_rays, *plate['seq'][2:]),
+            'trace_seq_fwd_kernel'),
+        'k2_plate': (lambda: fused_trace.trace_seq_bwd_cuda(
+            *plate['seq'][:2], do_rays, plate['seq'][2], (None,) * 7, g_mom,
+            maps=plate['seq'][3]), 'trace_seq_bwd'),
+        'k5_plate': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+            *plate['ns'][:2], do_rays, plate['ns'][2], cs.DO_BOUNCES,
+            plate['ns'][3]), 'trace_nonseq_fwd_kernel'),
+        'k6_plate': (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+            *plate['ns'][:2], do_rays, plate['ns'][2], cs.DO_BOUNCES,
+            (None,) * 7, g_mom, g_grid=w, maps=plate['ns'][3]),
+            'trace_nonseq_bwd_kernel'),
+        'deep_optics_grad_step_fused': (do_grad_step, 'trace_seq_bwd'),
     }
     out = {'n': n, 'reps': REPS}
     for name, (fn, key) in calls.items():

@@ -117,6 +117,27 @@ NS_SPOT_RTOL = 1e-3
 # rays is reported, not bounded.
 # K6's checkpointed bounces per thread (kCkpt in csrc/trace_nonseq_bwd.cu).
 K6_CHECKPOINTS = 8
+# Deep optics: the ring former of examples/28_deep_optics_plate.py, a
+# PhaseGridPlate (half extents 4) and a sensor (radius 10) at z = 40, lit by
+# a collimated disk of radius 3 at z = -3, lam 0.5876 um; every ray should
+# land on the circle of radius 2.  The 1M-ray paths use a 256 x 256 map (the
+# largest the TPU kernels take) holding the example's closed form, an axicon
+# plus a focusing term: dphi/dr = (R - r) / (L lam_mm) cycles per mm.  The
+# design loop is the example as published: a 32 x 32 map from zero, its
+# 30,000 rays (the reference's draws with key 0, rays/reference_prng.py),
+# Adam for 800 steps at lr 1.5; its anchors are the residual RMS and the
+# learned radial slope alpha + beta r against R / (L lam_mm) and
+# -1 / (L lam_mm).
+DO_HX, DO_L, DO_RING, DO_LAM = 4.0, 40.0, 2.0, 0.5876
+DO_MAP, DO_SMALL_MAP = (256, 256), (32, 32)
+DO_BOUNCES = 3
+DO_DESIGN_RAYS, DO_DESIGN_STEPS, DO_DESIGN_LR = 30_000, 800, 1.5
+DO_RMS_MAX = 0.12
+DO_SLOPE_RTOL = 0.15
+# K4 alone: its gather bit for bit; its scatter, and every map cotangent of
+# K2 or K6 against its plain version, each cell within GRID_RAND_RTOL of the
+# largest |cell| (float atomics add in a run-dependent order).  Fused vs
+# eager map gradients on the card: each cell within GRAD_RTOL of the largest.
 # H100 SXM datasheet peaks for the bound of each kernel's work: HBM bytes/s
 # and float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -346,11 +367,14 @@ def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
     return res
 
 
-def compare_table_cotangents(torch, fused_trace, g_k, g_p):
+def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False):
     """Table cotangent [K, 160], kernel vs plain -> dict; raises on a
-    breach.  Outside GRAD_COLS both must be exactly zero."""
-    offs = list(fused_trace.GRAD_COLS)
-    fields = (offs[0:5], offs[5:14], offs[14:17], offs[17:19])
+    breach.  Outside GRAD_COLS (PLATE_GRAD_COLS with phase plates) both must
+    be exactly zero."""
+    offs = list(fused_trace.PLATE_GRAD_COLS if plates
+                else fused_trace.GRAD_COLS)
+    fields = (offs[0:5], offs[5:14], offs[14:17], offs[17:19]) + (
+        (offs[19:23],) if plates else ())
     worst = 0.0
     for cols in fields:
         scale = float(g_p[:, cols].abs().max())
@@ -516,6 +540,150 @@ def compare_nonseq(torch, out_k, s_k, out_p, s_p):
     return res
 
 
+def ring_map(shape, device):
+    """The ring former's closed-form phase map (cycles) on an [H, W] grid
+    over the plate: phi(r) = (R r - r^2 / 2) / (L lam_mm)."""
+    import torch
+    h, w = shape
+    y = torch.linspace(-DO_HX, DO_HX, h, dtype=torch.float64, device=device)
+    x = torch.linspace(-DO_HX, DO_HX, w, dtype=torch.float64, device=device)
+    r = torch.sqrt(y[:, None] ** 2 + x[None, :] ** 2)
+    return ((DO_RING * r - 0.5 * r * r) / (DO_L * DO_LAM * 1e-3)).float()
+
+
+def ring_scene(rt, shape=DO_MAP, bounces=None, grid=False):
+    """The ring former (examples/28_deep_optics_plate.py): a SequentialScene,
+    or with ``bounces`` a Scene; ``grid`` adds a 256 x 256 irradiance grid
+    over the sensor's [-4, 4]^2."""
+    els = [rt.PhaseGridPlate(half_x=DO_HX, half_y=DO_HX, shape=shape,
+                             name='plate'),
+           rt.SensorElement(radius=10.0, translation=[0.0, 0.0, DO_L],
+                            name='det')]
+    scene = (rt.SequentialScene(els) if bounces is None
+             else rt.Scene(els, n_bounces=bounces))
+    if grid:
+        scene.grid_shape, scene.grid_half_extent = GRID, DO_HX
+    return scene
+
+
+def ring_params(scene, device, grad=False):
+    """The scene's params with the closed-form map (requiring grad if
+    ``grad``: the map is then the only trainable leaf)."""
+    p = scene.init_params(device)
+    shape = tuple(p['plate']['grid'].shape)
+    p['plate']['grid'] = ring_map(shape, device).requires_grad_(grad)
+    return p
+
+
+def ring_rays(rt, torch, n, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    src = rt.CollimatedDisk.make(radius=3.0, translation=[0.0, 0.0, -3.0],
+                                 wavelength=DO_LAM)
+    return src.sample(gen, n, device)
+
+
+def rim_rays(rt, torch, n, device, seed):
+    """Collimated rays over a disk of radius 5.5 at z = -3: on the ring
+    former's plate (half extents 4) some cross beyond its far rims, where a
+    map of 34 pixels and more clamps its corner reads, and some miss it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    src = rt.CollimatedDisk.make(radius=5.5, translation=[0.0, 0.0, -3.0],
+                                 wavelength=DO_LAM)
+    return src.sample(gen, n, device)
+
+
+def ring_loss(torch, out):
+    """The example's loss: the intensity-weighted mean of (r - R)^2."""
+    r = torch.sqrt(out.px ** 2 + out.py ** 2 + 1e-12)
+    w = out.intensity
+    return torch.sum(w * (r - DO_RING) ** 2) / torch.clamp(torch.sum(w),
+                                                           min=1e-9)
+
+
+def radial_slope(grid):
+    """The example's check of a learned map: its radial slope dphi/dr fitted
+    as alpha + beta r over the lit annulus 0.8 < r < 2.8 -> (alpha, beta,
+    relative error of alpha against R k, of beta against -k), k = 1 /
+    (L lam_mm)."""
+    import numpy as np
+    n = grid.shape[0]
+    xs = np.linspace(-DO_HX, DO_HX, n)
+    X, Y = np.meshgrid(xs, xs, indexing='xy')
+    rr = np.sqrt(X ** 2 + Y ** 2)
+    gy, gx = np.gradient(grid, xs, xs)
+    dphidr = (gx * X + gy * Y) / np.maximum(rr, 1e-9)
+    lit = (rr > 0.8) & (rr < 2.8)
+    A = np.stack([np.ones(lit.sum()), rr[lit]], -1)
+    (alpha, beta), *_ = np.linalg.lstsq(A, dphidr[lit], rcond=None)
+    k = 1.0 / (DO_L * DO_LAM * 1e-3)
+    return (float(alpha), float(beta),
+            abs(alpha - DO_RING * k) / (DO_RING * k), abs(beta + k) / k)
+
+
+def plate_cells(torch, rays, shape):
+    """The cells (iv, iu) that K4 reads for rays crossing the plate at z = 0
+    (core/physics.py::phase_grid_dir on the rays' own x, y)."""
+    from raytracetorch_tpu_torch.core.physics import corner_clip
+    h, w = shape
+    u = ((rays.px + DO_HX) / (2 * DO_HX) * (w - 1)).clamp(0, corner_clip(w))
+    v = ((rays.py + DO_HX) / (2 * DO_HX) * (h - 1)).clamp(0, corner_clip(h))
+    return v.to(torch.int32), u.to(torch.int32)
+
+
+def compare_maps(torch, g_k, g_p, rtol=GRID_RAND_RTOL):
+    """Map cotangents, kernel vs plain: each cell within ``rtol`` of the
+    largest |cell| -> dict; raises on a breach (module notes: K4)."""
+    errs, scales = [], []
+    for a, b in zip(g_k, g_p):
+        scales.append(float(b.abs().max()))
+        errs.append(float((a - b).abs().max()))
+        check(scales[-1] > 0, 'a zero map cotangent')
+        check(bool(torch.isfinite(a).all()), 'a non-finite map cotangent')
+        check(errs[-1] <= rtol * scales[-1],
+              f'map cotangents differ by {errs[-1]} (scale {scales[-1]})')
+    return dict(map_max_abs_err=max(errs), map_scale=min(scales),
+                map_err_over_scale=max(e / s for e, s in zip(errs, scales)))
+
+
+def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
+    """K2 (or K6 with ``nonseq``) on a scene with a plate against its plain
+    version, with seeded cotangents of the rays, the moments and the grid:
+    ray cotangents under BWD_TOL, the table under TAB_RTOL over
+    PLATE_GRAD_COLS, the maps per ``compare_maps`` -> dict."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    cfg, meta = scene.sensor_config(), scene.static_meta()
+    dev = rays.px.device
+    flat = rt.flatten_table_rows(scene.build_table(params))
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=dev)
+    maps = fused_trace.plate_maps(meta, scene.side_grids(params))
+    maps = tuple(m.detach() for m in maps)
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, dev, seed)
+    if nonseq:
+        nb = scene.n_bounces
+        gt_k, gr_k, gm_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps)
+        gt_p, gr_p, gm_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps)
+    else:
+        gt_k, gr_k, gm_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, g_rays, g_mom, g_grid=g_grid, maps=maps)
+        gt_p, gr_p, gm_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, cfg, meta, g_rays, g_mom, g_grid=g_grid, maps=maps)
+    torch.cuda.synchronize()
+    res = compare_ray_cotangents(
+        torch, gr_k, gr_p, allowed=(max(3, math.ceil(
+            NS_MISMATCH_SHARE * rays.n)) if nonseq else None),
+        intensity_allowed=(math.ceil(GRID_SHARE * rays.n)
+                           if cfg.grid_shape else 0))
+    res.update(compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
+                                        plates=True))
+    res.update(compare_maps(torch, gm_k, gm_p))
+    return res
+
+
 # Float32 operations per ray of one table row, counted in the kernels'
 # sources (csrc/trace_seq_common.cuh): the intersection with its bounds,
 # and the normal, physics, update and sensor terms of a row that is
@@ -529,7 +697,8 @@ def intersect_ops(meta):
 def apply_ops(meta):
     from raytracetorch_tpu_torch.constants import PhysKind
     physics = {PhysKind.SNELL: 26, PhysKind.REFLECT: 13,
-               PhysKind.APERTURE: 8}.get(meta.ph, 0)
+               PhysKind.APERTURE: 8,
+               PhysKind.PHASE_GRID: 130}.get(meta.ph, 0)
     return 7 + (0 if meta.plane else 34) + physics + (13 if meta.sensor
                                                       else 0)
 
@@ -561,6 +730,7 @@ def nonseq_work(rt, torch, scene, params, rays):
     from raytracetorch_tpu_torch.core.trace import bounce_step, nearest_hit
     table = scene.build_table(params)
     meta = scene.static_meta()
+    grids = {k: m.detach() for k, m in scene.side_grids(params).items()}
     rows = [table.row(k) for k in range(table.n_surfaces)]
     cfg = rt.SensorConfig(n_sensors=scene.n_sensors, n_bundles=1)
     sens = rt.SensorState.init(cfg, device=rays.px.device)
@@ -574,7 +744,7 @@ def nonseq_work(rt, torch, scene, params, rays):
             scans += int(going.sum())
             win, _ = nearest_hit(table, rays.pos_c, rays.dir_c, meta)
             rays, sens, act = bounce_step(rows, rays, cfg, sens, meta,
-                                          plain=True)
+                                          plain=True, grids=grids)
             for k in range(len(meta)):
                 wins[k] += int((act & going & (win == k)).sum())
             lives += (act & going).int()
@@ -627,20 +797,32 @@ def main():
     sys.path.insert(0, ROOT)
     import raytracetorch_tpu_torch as rt
     from raytracetorch_tpu_torch.core.sensor import bin_indices
-    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace, grid
+    from raytracetorch_tpu_torch.ops import (fused_nonseq, fused_trace, grid,
+                                             phase_grid)
+    from raytracetorch_tpu_torch.rays import reference_prng
 
     def reset_counters():
         fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+        fused_trace.V1_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
+        phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
 
     def counters():
         return dict(trace_seq_fwd=fused_trace.LAUNCHES,
                     trace_seq_bwd=fused_trace.BWD_LAUNCHES,
+                    trace_seq_v1=fused_trace.V1_LAUNCHES,
                     trace_nonseq_fwd=fused_nonseq.NONSEQ_LAUNCHES,
                     trace_nonseq_bwd=fused_nonseq.NONSEQ_BWD_LAUNCHES,
                     grid_bin=grid.GRID_LAUNCHES,
-                    grid_gather=grid.GATHER_LAUNCHES)
+                    grid_gather=grid.GATHER_LAUNCHES,
+                    grid_corners=phase_grid.CORNER_LAUNCHES,
+                    grid_corners_bwd=phase_grid.CORNER_BWD_LAUNCHES)
+
+    def only(launched, **want):
+        """Whether exactly the counters in ``want`` moved, by those
+        counts."""
+        return all(launched[k] == want.get(k, 0) for k in launched)
 
     dev = torch.device('cuda')
     card = nvidia_smi_line()
@@ -654,7 +836,7 @@ def main():
          tf32=[torch.backends.cuda.matmul.allow_tf32,
                torch.backends.cudnn.allow_tf32])
 
-    # 2. build: the five libraries, one nvcc each, started together
+    # 2. build: the six libraries, one nvcc each, started together
     t0 = time.perf_counter()
     logs = fused_trace.build()
     emit('build', seconds=time.perf_counter() - t0,
@@ -1197,6 +1379,244 @@ def main():
     check(-7.5 < nd_ratio < -4.5, f'non-sequential c1/c2 {nd_ratio}')
     check(95.0 < nd_f < 106.0, f'non-sequential focal length {nd_f}')
 
+    # 7. deep optics.  7a: K4 alone against its plain version on the cells
+    # that 1M ring-former rays read on the 256 x 256 and the 32 x 32 map, and
+    # on 2,999 cells partly outside the map (clamped reads)
+    do_rays = ring_rays(rt, torch, N_MAIN, dev, SEED + 91)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    corner_cases, corner_inputs = {}, {}
+    for shape in (DO_MAP, DO_SMALL_MAP):
+        civ, ciu = plate_cells(torch, do_rays, shape)
+        corner_inputs[shape] = (ring_map(shape, dev), civ, ciu)
+    corner_inputs['clamped'] = (
+        torch.randn(*DO_SMALL_MAP, generator=gen, device=dev),
+        torch.randint(-3, 36, (N_SMALL,), generator=gen, device=dev,
+                      dtype=torch.int32),
+        torch.randint(-3, 36, (N_SMALL,), generator=gen, device=dev,
+                      dtype=torch.int32))
+    for key, (cmap, civ, ciu) in corner_inputs.items():
+        c_k = phase_grid.grid_corners_cuda(cmap, civ, ciu)
+        c_p = phase_grid.grid_corners_plain(cmap, civ, ciu)
+        g_c = tuple(torch.randn(civ.shape[0], generator=gen, device=dev)
+                    for _ in range(4))
+        s_k = phase_grid.grid_corners_bwd_cuda(g_c, civ, ciu, cmap.shape)
+        s_p = phase_grid.grid_corners_bwd_plain(g_c, civ, ciu, cmap.shape)
+        torch.cuda.synchronize()
+        res = dict(n=int(civ.shape[0]), shape=list(cmap.shape),
+                   cells_read=int(torch.unique(civ * 1000 + ciu).numel()),
+                   gather_equal=all(torch.equal(a, b)
+                                    for a, b in zip(c_k, c_p)))
+        check(res['gather_equal'], f'K4 gather differs ({key})')
+        res.update(compare_maps(torch, (s_k,), (s_p,)))
+        corner_cases['x'.join(map(str, cmap.shape)) if key != 'clamped'
+                     else key] = res
+    emit('grid_corners', **corner_cases)
+
+    # 7b. K1 and K5 with the 256 x 256 plate against their plain versions
+    # (the Scene with 3 bounces and the 256 x 256 irradiance grid), and K1
+    # with a 40 x 40 plate lit beyond its rims (clamped corner reads)
+    do_seq = ring_scene(rt)
+    do_ns = ring_scene(rt, bounces=DO_BOUNCES, grid=True)
+    do_rim = ring_scene(rt, shape=(40, 40))
+    do_p = ring_params(do_seq, dev)
+    do_np = ring_params(do_ns, dev)
+    do_rp = ring_params(do_rim, dev)
+    plate_fwd = {}
+    for case, sc, pp in (('sequential', do_seq, do_p),
+                         ('scene', do_ns, do_np), ('rim', do_rim, do_rp)):
+        cfg_c, meta_c = sc.sensor_config(), sc.static_meta()
+        flat_c = rt.flatten_table_rows(sc.build_table(pp))
+        kinds_c = torch.tensor(fused_trace.kind_rows(meta_c, cfg_c),
+                               dtype=torch.int32, device=dev)
+        maps_c = fused_trace.plate_maps(meta_c, sc.side_grids(pp))
+        for n in (N_SMALL, N_MAIN):
+            rays = (rim_rays if case == 'rim' else ring_rays)(
+                rt, torch, n, dev, SEED + 93 + n)
+            if case != 'scene':
+                out_k, s_k = fused_trace.trace_seq_fwd_cuda(
+                    flat_c, kinds_c, rays, cfg_c, maps_c)
+                out_p, s_p = fused_trace.trace_sequential_fused_plain(
+                    flat_c, rays, cfg_c, meta_c, maps_c)
+                torch.cuda.synchronize()
+                res = compare(torch, out_k, s_k, out_p, s_p)
+            else:
+                out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+                    flat_c, kinds_c, rays, cfg_c, sc.n_bounces, maps_c)
+                out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+                    flat_c, rays, cfg_c, meta_c, sc.n_bounces, maps_c)
+                torch.cuda.synchronize()
+                res = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+            if case == 'rim':
+                res['beyond_rims'] = int(((rays.px.abs() >= DO_HX)
+                                          | (rays.py.abs() >= DO_HX)).sum())
+                check(res['beyond_rims'] > 0, 'no ray beyond the rims')
+            else:
+                res['ring_rms'] = math.sqrt(float(ring_loss(torch, out_k)))
+                check(res['ring_rms'] < DO_RMS_MAX,
+                      f'{case}: the closed-form map misses the ring: {res}')
+            plate_fwd[f'{case}_{n}'] = res
+    emit('plate_fwd', **plate_fwd)
+
+    # 7c. K2 and K6 with the plate against their plain versions
+    plate_bwd = {}
+    for n in (N_SMALL, N_MAIN):
+        rays = ring_rays(rt, torch, n, dev, SEED + 95 + n)
+        plate_bwd[f'sequential_{n}'] = compare_plate_bwd(
+            rt, torch, do_seq, do_p, rays, SEED + 96 + n)
+        plate_bwd[f'scene_{n}'] = compare_plate_bwd(
+            rt, torch, do_ns, do_np, rays, SEED + 97 + n, nonseq=True)
+        plate_bwd[f'rim_{n}'] = compare_plate_bwd(
+            rt, torch, do_rim, do_rp, rim_rays(rt, torch, n, dev,
+                                               SEED + 99 + n), SEED + 98 + n)
+    emit('plate_bwd', **plate_bwd)
+
+    # 7d. the deep-optics forward path, counted: the ring former at 1M rays
+    # through SequentialScene.simulate_fused (K1 once, K4's device functions
+    # inside it)
+    torch.cuda.synchronize()
+    reset_counters()
+    do_out, do_sens, _ = do_seq.simulate_fused(do_p, do_rays)
+    torch.cuda.synchronize()
+    do_fwd_launches = counters()
+    do_rms = math.sqrt(float(ring_loss(torch, do_out)))
+    do_finite = all(bool(torch.isfinite(getattr(do_out, c)).all())
+                    for c in fused_trace.COMPS)
+    emit('deep_optics_main', n=N_MAIN, map=list(DO_MAP),
+         launches=do_fwd_launches, ring_rms=do_rms, finite=do_finite,
+         shape=list(do_out.pos.shape),
+         sensor_weight=float(do_sens.moments[0, 0, 0]))
+    check(only(do_fwd_launches, trace_seq_fwd=1),
+          f'the deep-optics forward launched {do_fwd_launches}')
+    check(do_finite and list(do_out.pos.shape) == [N_MAIN, 3],
+          'bad ray output')
+    check(do_rms < DO_RMS_MAX, f'ring residual {do_rms}')
+
+    # 7e. the deep-optics grad step, counted: the map is the only leaf that
+    # requires grad; the example's loss, backward (K1 + K2 once each)
+    def ring_grad(scene, simulate):
+        p = ring_params(scene, dev, grad=True)
+        out, _, _ = simulate(p, do_rays)
+        loss = ring_loss(torch, out)
+        loss.backward()
+        return p['plate']['grid'].grad, float(loss.detach())
+
+    torch.cuda.synchronize()
+    reset_counters()
+    gm_fused, do_loss = ring_grad(do_seq, do_seq.simulate_fused)
+    torch.cuda.synchronize()
+    do_grad_launches = counters()
+    reset_counters()
+    gm_eager, do_loss_eager = ring_grad(do_seq, do_seq.simulate)
+    torch.cuda.synchronize()
+    do_eager_launches = counters()
+    map_vs_eager = compare_maps(torch, (gm_fused,), (gm_eager,), GRAD_RTOL)
+    emit('deep_optics_grad', n=N_MAIN, launches=do_grad_launches,
+         loss=do_loss, loss_eager=do_loss_eager,
+         map_grad_norm=float(gm_fused.norm()), vs_eager=map_vs_eager)
+    check(only(do_grad_launches, trace_seq_fwd=1, trace_seq_bwd=1),
+          f'the deep-optics grad step launched {do_grad_launches}')
+
+    # 7f. the same through the eager trace on the card, counted: K4's gather
+    # once for the plate row, its scatter once in backward
+    emit('deep_optics_eager', launches=do_eager_launches,
+         loss=do_loss_eager)
+    check(only(do_eager_launches, grid_corners=1, grid_corners_bwd=1),
+          f'the eager deep-optics step launched {do_eager_launches}')
+
+    # 7g. the plate as a Scene, counted: Scene.simulate_fused forward (K5
+    # once) and grad (K5 + K6 once each); the ordered Scene equals the
+    # sequential trace
+    torch.cuda.synchronize()
+    reset_counters()
+    dn_out, dn_sens, _ = do_ns.simulate_fused(do_np, do_rays)
+    torch.cuda.synchronize()
+    dn_fwd_launches = counters()
+    reset_counters()
+    gn_fused, dn_loss = ring_grad(do_ns, do_ns.simulate_fused)
+    torch.cuda.synchronize()
+    dn_grad_launches = counters()
+    gn_eager, _ = ring_grad(do_ns, do_ns.simulate)
+    dn_vs_seq = compare_nonseq(
+        torch, dn_out, dn_sens, do_out,
+        rt.SensorState(moments=do_sens.moments, grid=dn_sens.grid))
+    dn_rms = math.sqrt(float(ring_loss(torch, dn_out)))
+    emit('deep_optics_scene', n=N_MAIN, bounces=DO_BOUNCES,
+         fwd_launches=dn_fwd_launches, grad_launches=dn_grad_launches,
+         ring_rms=dn_rms, sequential_ring_rms=do_rms,
+         grid_total=float(dn_sens.grid.sum()), vs_sequential=dn_vs_seq,
+         map_grad_vs_eager=compare_maps(torch, (gn_fused,), (gn_eager,),
+                                        GRAD_RTOL),
+         map_grad_vs_sequential=compare_maps(torch, (gn_fused,), (gm_fused,),
+                                             GRAD_RTOL))
+    check(only(dn_fwd_launches, trace_nonseq_fwd=1),
+          f'Scene.simulate_fused launched {dn_fwd_launches}')
+    check(only(dn_grad_launches, trace_nonseq_fwd=1, trace_nonseq_bwd=1),
+          f'the Scene grad step launched {dn_grad_launches}')
+    check(abs(dn_rms - do_rms) <= NS_SPOT_RTOL * do_rms,
+          f'ordered Scene ring residual {dn_rms} vs sequential {do_rms}')
+
+    # 7h. the design loop of example 28 as published, counted: 32 x 32 map
+    # from zero, its 30,000 rays, Adam (800 steps, lr 1.5) through
+    # SequentialScene.simulate_fused
+    ds = ring_scene(rt, shape=DO_SMALL_MAP)
+    ds_rays = reference_prng.collimated_disk(
+        reference_prng.prng_key(0), DO_DESIGN_RAYS, 3.0, (0.0, 0.0, -3.0),
+        DO_LAM, device=dev)
+    ds_evals = [0]
+
+    def ds_loss(p):
+        ds_evals[0] += 1
+        out, _, _ = ds.simulate_fused(p, ds_rays)
+        return ring_loss(torch, out)
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    ds_p, ds_hist = rt.fit(ds_loss, ds.init_params(dev),
+                           trainable=ds.trainable(), steps=DO_DESIGN_STEPS,
+                           lr=DO_DESIGN_LR)
+    torch.cuda.synchronize()
+    ds_s = time.perf_counter() - t0
+    ds_launches = counters()
+    ds_rms = math.sqrt(float(ds_hist[-1]))
+    alpha, beta, alpha_err, beta_err = radial_slope(
+        ds_p['plate']['grid'].detach().cpu().numpy())
+    emit('deep_optics_design', n=DO_DESIGN_RAYS, steps=DO_DESIGN_STEPS,
+         evaluations=ds_evals[0], launches=ds_launches, seconds=ds_s,
+         rms_start=math.sqrt(float(ds_hist[0])), rms_end=ds_rms,
+         alpha=alpha, beta=beta, alpha_rel_err=alpha_err,
+         beta_rel_err=beta_err)
+    check(only(ds_launches, trace_seq_fwd=ds_evals[0],
+               trace_seq_bwd=ds_evals[0]),
+          f'{ds_evals[0]} evaluations launched {ds_launches}')
+    check(ds_rms < DO_RMS_MAX, f'design ring residual {ds_rms}')
+    check(alpha_err < DO_SLOPE_RTOL and beta_err < DO_SLOPE_RTOL,
+          f'learned slope {alpha} + {beta} r off by {alpha_err}, {beta_err}')
+
+    # 7i. K0's counterpart, counted: trace_sequential_v1 on the bench scene
+    # at 1M rays launches K1's kernel with every stream off, equal bit for
+    # bit to K1 without a grid, and matches the plain version
+    rays = sample_rays(rt, torch, N_MAIN, dev, SEED + 98)
+    table_b = scene.build_table(scene.init_params(dev))
+    torch.cuda.synchronize()
+    reset_counters()
+    v1_out, v1_sens, _ = rt.trace_sequential_v1(table_b, rays, cfg, meta)
+    torch.cuda.synchronize()
+    v1_launches = counters()
+    k1_out, k1_sens = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg)
+    v1_p, v1_sp = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                           meta)
+    torch.cuda.synchronize()
+    v1_res = compare(torch, v1_out, v1_sens, v1_p, v1_sp)
+    v1_res['same_as_k1'] = (
+        all(torch.equal(getattr(v1_out, c), getattr(k1_out, c))
+            for c in fused_trace.COMPS)
+        and torch.equal(v1_sens.moments, k1_sens.moments))
+    emit('trace_v1', launches=v1_launches, **v1_res)
+    check(only(v1_launches, trace_seq_v1=1),
+          f'trace_sequential_v1 launched {v1_launches}')
+    check(v1_res['same_as_k1'], 'trace_sequential_v1 differs from K1')
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -1366,6 +1786,107 @@ def main():
             torch, lambda: grid.bin_grid_cuda(hx, hy, hw, hslot, gcfg),
             lambda: grid.bin_grid_slots_plain(hx, hy, hw, hslot, gcfg))[:2]))
     timing['nonseq_design_warm_s'] = nd_warm_s
+    # K4 alone at 1M cells of the ring-former rays, on the 256 x 256 and the
+    # 32 x 32 map: gather and scatter against their plain versions and the
+    # library calls (four advanced-index reads at precomputed clamped cells;
+    # four index_put_ with accumulate)
+    for shape in (DO_MAP, DO_SMALL_MAP):
+        cmap, civ, ciu = corner_inputs[shape]
+        g_c = tuple(torch.randn(N_MAIN, device=dev) for _ in range(4))
+        cells = phase_grid._cells(shape, civ, ciu)
+        v0, v1, u0, u1 = cells
+        pairs = ((v0, u0), (v0, u1), (v1, u0), (v1, u1))
+        g_lib = torch.zeros(shape, device=dev)
+
+        def lib_scatter():
+            for g, cell in zip(g_c, pairs):
+                g_lib.index_put_(cell, g, accumulate=True)
+        k_ms, p_ms, k_runs, p_runs = time_pair(
+            torch, lambda: phase_grid.grid_corners_cuda(cmap, civ, ciu),
+            lambda: phase_grid.grid_corners_plain(cmap, civ, ciu))
+        lib_runs = time_ms(torch, lambda: [cmap[cell] for cell in pairs])
+        kb_ms, pb_ms, kb_runs, pb_runs = time_pair(
+            torch, lambda: phase_grid.grid_corners_bwd_cuda(g_c, civ, ciu,
+                                                            shape),
+            lambda: phase_grid.grid_corners_bwd_plain(g_c, civ, ciu, shape))
+        libb_runs = time_ms(torch, lib_scatter)
+        timing['corners_' + 'x'.join(map(str, shape))] = dict(
+            kernel_ms=k_ms, plain_ms=p_ms,
+            library_ms=statistics.median(lib_runs), bwd_kernel_ms=kb_ms,
+            bwd_plain_ms=pb_ms, bwd_library_ms=statistics.median(libb_runs),
+            kernel_runs=k_runs, plain_runs=p_runs, library_runs=lib_runs,
+            bwd_kernel_runs=kb_runs, bwd_plain_runs=pb_runs,
+            bwd_library_runs=libb_runs)
+    # K1, K2, K5 and K6 with the 256 x 256 plate at 1M rays against their
+    # plain versions (the Scene: 3 bounces, 256 x 256 irradiance grid)
+    rays = ring_rays(rt, torch, N_MAIN, dev, SEED + 1)
+    plate_flat, plate_kinds, plate_maps = {}, {}, {}
+    for case, sc, pp in (('sequential', do_seq, do_p),
+                         ('scene', do_ns, do_np)):
+        plate_flat[case] = rt.flatten_table_rows(sc.build_table(pp))
+        plate_kinds[case] = torch.tensor(
+            fused_trace.kind_rows(sc.static_meta(), sc.sensor_config()),
+            dtype=torch.int32, device=dev)
+        plate_maps[case] = tuple(m.detach() for m in fused_trace.plate_maps(
+            sc.static_meta(), sc.side_grids(pp)))
+    pf, pk, pm = (plate_flat['sequential'], plate_kinds['sequential'],
+                  plate_maps['sequential'])
+    sf, sk, sm = (plate_flat['scene'], plate_kinds['scene'],
+                  plate_maps['scene'])
+    scfg, smeta = do_seq.sensor_config(), do_seq.static_meta()
+    ncfg_p, nmeta_p = do_ns.sensor_config(), do_ns.static_meta()
+    w_p = torch.randn(1, *GRID, device=dev)
+    plate_timing = {
+        'k1': (lambda: fused_trace.trace_seq_fwd_cuda(pf, pk, rays, scfg, pm),
+               lambda: fused_trace.trace_sequential_fused_plain(
+                   pf, rays, scfg, smeta, pm), 20, 3),
+        'k2': (lambda: fused_trace.trace_seq_bwd_cuda(
+            pf, pk, rays, scfg, no_rays, g_mom1, maps=pm),
+            lambda: fused_trace.trace_seq_bwd_plain(
+                pf, rays, scfg, smeta, no_rays, g_mom1, maps=pm), 20, 3),
+        'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+            sf, sk, rays, ncfg_p, DO_BOUNCES, sm),
+            lambda: fused_nonseq.trace_nonseq_fused_plain(
+                sf, rays, ncfg_p, nmeta_p, DO_BOUNCES, sm), 20, 3),
+        'k6': (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+            sf, sk, rays, ncfg_p, DO_BOUNCES, no_rays, g_mom1, g_grid=w_p,
+            maps=sm),
+            lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                sf, rays, ncfg_p, nmeta_p, DO_BOUNCES, no_rays, g_mom1,
+                g_grid=w_p, maps=sm), 8, 1),
+    }
+    for key, (kfn, pfn, reps, warm) in plate_timing.items():
+        k_ms, p_ms, k_runs, p_runs = time_pair(torch, kfn, pfn, reps=reps,
+                                               warmup=warm)
+        timing[f'plate_{key}'] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                                      kernel_runs=k_runs, plain_runs=p_runs)
+    # K0's counterpart against its plain version, bench scene, 1M rays
+    rays_b = sample_rays(rt, torch, N_MAIN, dev, SEED + 1)
+    k_ms, p_ms, k_runs, p_runs = time_pair(
+        torch, lambda: rt.trace_sequential_v1(table_b, rays_b, cfg, meta),
+        lambda: fused_trace.trace_sequential_fused_plain(flat, rays_b, cfg,
+                                                         meta))
+    timing['v1'] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs,
+                        plain_runs=p_runs)
+    # the deep-optics end-to-end metrics: the grad step at 1M rays on the
+    # 256 x 256 map (fused and eager) and the design loop of example 28
+    do_grad_p = ring_params(do_seq, dev, grad=True)
+
+    def do_step(simulate):
+        def step():
+            out, _, _ = simulate(do_grad_p, do_rays)
+            ring_loss(torch, out).backward()
+        return step
+    for key, fn in (('deep_optics_grad_step_fused_ms',
+                     do_step(do_seq.simulate_fused)),
+                    ('deep_optics_grad_step_eager_ms',
+                     do_step(do_seq.simulate)),
+                    ('deep_optics_scene_grad_step_fused_ms',
+                     do_step(do_ns.simulate_fused))):
+        runs = time_ms(torch, fn)
+        timing[key] = statistics.median(runs)
+        timing[key + '_runs'] = runs
+    timing['deep_optics_design_s'] = ds_s
     emit('timing', **timing)
 
     # the bound of each kernel's work at 1M rays on this card
@@ -1386,7 +1907,38 @@ def main():
     k6_ops = (k5_ops + 3 * sum(win_ops) + replayed * (
         scan_ops + sum(w * apply_ops(m) for w, m in zip(wins, nmeta))
         / max(sum(wins), 1)))
+    # with the 256 x 256 plate: K1 also reads the wavelength and the corners
+    # (in L2); K2 also scatters into the map's cotangent; K5 and K6 on the
+    # plate Scene with its 256 x 256 irradiance grid
+    map_bytes = DO_MAP[0] * DO_MAP[1] * 4
+    p_ops = n * sum(intersect_ops(m) + apply_ops(m) for m in smeta)
+    p_scans, p_wins, _, p_replayed = nonseq_work(
+        rt, torch, do_ns, do_np, ring_rays(rt, torch, n, dev, SEED + 1))
+    p_scan_ops = sum(intersect_ops(m) for m in nmeta_p)
+    p_k5_ops = (p_scans * p_scan_ops
+                + sum(w * apply_ops(m) for w, m in zip(p_wins, nmeta_p)))
+    p_k6_ops = (p_k5_ops + 3 * sum(
+        w * (intersect_ops(m) + apply_ops(m))
+        for w, m in zip(p_wins, nmeta_p)) + p_replayed * (
+        p_scan_ops + sum(w * apply_ops(m) for w, m in zip(p_wins, nmeta_p))
+        / max(sum(p_wins), 1)))
+    plate_bounds = {
+        'k1': bound(n * (36 + 28) + table_bytes(smeta) + map_bytes, p_ops),
+        'k2': bound(n * (36 + 28) + table_bytes(smeta) + 3 * map_bytes,
+                    3 * p_ops),
+        'k5': bound(n * (36 + 28) + table_bytes(nmeta_p) + map_bytes
+                    + grid_bytes(ncfg_p), p_k5_ops),
+        'k6': bound(n * (36 + 28) + table_bytes(nmeta_p) + 3 * map_bytes
+                    + grid_bytes(ncfg_p) + len(nmeta_p) * 23 * 4, p_k6_ops),
+    }
     bounds = {
+        # K4: 8 B of cell indices in and 16 B of corners out per cell, the
+        # map read once; ~20 operations per cell (clamps, addresses).  Its
+        # scatter moves the same bytes and reads and writes the map
+        'grid_corners': bound(n * 24 + map_bytes, n * 20),
+        'grid_corners_bwd': bound(n * 24 + 2 * map_bytes, n * 24),
+        # K0's counterpart runs K1's kernel on the same work
+        'trace_seq_v1': bound(k1_bytes, k1_ops),
         # K6, as timed: 8 input streams and 7 ray cotangents out (the spot
         # and grid loss gives no ray cotangents in), the table, the moment
         # and grid cotangents in, the table cotangent out
@@ -1407,8 +1959,12 @@ def main():
     }
     emit('bounds', n=n, k1_ops=k1_ops, k5_row_scans=scans,
          k5_winners_per_row=wins, k5_ops=k5_ops, k6_ops=k6_ops,
-         k6_replayed_bounces=replayed,
-         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+         k6_replayed_bounces=replayed, plate_k1_ops=p_ops,
+         plate_k5_row_scans=p_scans, plate_k5_winners_per_row=p_wins,
+         plate_k5_ops=p_k5_ops, plate_k6_ops=p_k6_ops,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()},
+         plate={k: dict(bound_ms=v[0], bound_by=v[1])
+                for k, v in plate_bounds.items()})
 
     bwd_main = bwd_cases[f'bench_{N_MAIN}']
     emit('elapsed', seconds=time.perf_counter() - t_start)
@@ -1444,6 +2000,16 @@ def main():
               ns_bwd[f'naive_{N_MAIN}']['max_abs_err'],
               timing[f'nonseq_bwd_n{N_MAIN}']['kernel_ms'],
               timing[f'nonseq_bwd_n{N_MAIN}']['plain_ms']),
+        entry('grid_corners', 'grid_corners.cu', 439,
+              do_eager_launches['grid_corners'],
+              max(corner_cases[key]['map_max_abs_err']
+                  for key in corner_cases),
+              timing['corners_256x256']['kernel_ms'],
+              timing['corners_256x256']['plain_ms'],
+              timing['corners_256x256']['library_ms']),
+        entry('trace_seq_v1', 'trace_seq_fwd.cu', 81,
+              v1_launches['trace_seq_v1'], v1_res['max_abs_err'],
+              timing['v1']['kernel_ms'], timing['v1']['plain_ms']),
     ]}
     print(json.dumps(summary))
     print(card)

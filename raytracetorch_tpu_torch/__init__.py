@@ -18,7 +18,14 @@ Hopper.  The port covers:
   too;
 - irradiance grids on every sensor (``scene.grid_shape = (H, W)``), binned
   by kernel K3 (ops/grid.py), inside K1 and K5 on the card, with K2 routing
-  the grid's cotangent.
+  the grid's cotangent;
+- deep optics: the pixelated ``PhaseGridPlate``, whose ``[H, W]`` phase map
+  is a trainable parameter, in both scene types, eager and fused; kernel K4
+  reads its bilinear corners and scatters their cotangents
+  (ops/phase_grid.py), on its own in the eager trace and inside K1, K2, K5
+  and K6;
+- ``trace_sequential_v1``, the fused trace with every stream off (the
+  counterpart of the first TPU kernel, run by K1's kernel).
 
 ROADMAP.md lists what is still to be ported.
 
@@ -40,6 +47,7 @@ from .core.table import (SurfaceRec, SurfaceTable, flatten_table_rows,  # noqa: 
 from .core.trace import trace_nonsequential, trace_sequential  # noqa: E402
 from .elements.aperture import CircularAperture  # noqa: E402
 from .elements.base import Element  # noqa: E402
+from .elements.diffractive import PhaseGridPlate  # noqa: E402
 from .elements.ideal import (paraxial_dist_mat, paraxial_lens_mat,  # noqa: E402
                              paraxial_mirror_mat, paraxial_refract_mat)
 from .elements.lens import SingletLens  # noqa: E402
@@ -47,7 +55,9 @@ from .elements.mirror import SphericalMirror  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
 from .ops.fused_nonseq import FusedNonseq, trace_nonseq_fused  # noqa: E402
-from .ops.fused_trace import FusedTrace, trace_sequential_fused  # noqa: E402
+from .ops.fused_trace import (FusedTrace, trace_sequential_fused,  # noqa: E402
+                              trace_sequential_v1)
+from .ops.phase_grid import GridCorners, grid_corners  # noqa: E402
 from .optim.constraints import (log_barrier, log_barrier_lb,  # noqa: E402
                                 log_barrier_ub, spacing_constraint,
                                 system_length_constraint,

@@ -5,10 +5,11 @@ sequential trace every row's kinds are known before the trace runs
 (``StaticRowMeta``), so each step evaluates exactly one bound formula and
 one physics model.
 
-The port covers the kinds of the main path and of the ideal spherical
-mirror: bounds NONE/DISK/HEMI/HEMI_APER and NONE/APER_R2/Z_BETWEEN, physics
-TRANSMIT, BLOCK, REFLECT (ideal mirror), SNELL and APERTURE.  Every other
-kind raises NotImplementedError naming the ROADMAP item that brings it.
+The port covers the kinds of the main path, of the ideal spherical mirror
+and of the pixelated phase plate: bounds NONE/DISK/RECT/HEMI/HEMI_APER and
+NONE/APER_R2/Z_BETWEEN, physics TRANSMIT, BLOCK, REFLECT (ideal mirror),
+SNELL, APERTURE and PHASE_GRID.  Every other kind raises
+NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from ..constants import INTERSECT_EPS, PhysKind, SBKind, VBKind
-from .physics import reflect_dir, snell_dir
+from ..geom import vec3 as v3
+from .physics import phase_grid_dir, reflect_dir, snell_dir
 
 # ROADMAP.md "Queue 1" items that bring the rest of the feature matrix
 TODO_FEATURES = 'ROADMAP Queue 1 item 12 (remaining sequential features)'
@@ -32,6 +34,8 @@ def sb_check_one(kind: int, sb, hit):
         dx_ = x - sb[..., 1]
         dy_ = y - sb[..., 2]
         return dx_ * dx_ + dy_ * dy_ <= sb[..., 0]
+    if kind == SBKind.RECT:
+        return (torch.abs(x) <= sb[..., 0]) & (torch.abs(y) <= sb[..., 1])
     if kind == SBKind.HEMI:
         return torch.abs(z * sb[..., 0]) < 1.0 + INTERSECT_EPS
     if kind == SBKind.HEMI_APER:
@@ -107,12 +111,13 @@ def unsupported(meta: StaticRowMeta):
     if meta.n_coat or meta.metal:
         return f'coatings and metal mirrors are {TODO_FEATURES}'
     if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN,
-                   PhysKind.DOE, PhysKind.MLA, PhysKind.PHASE_GRID):
+                   PhysKind.DOE, PhysKind.MLA):
         return f'physics {PhysKind(meta.ph).name} is {TODO_ELEMENTS}'
     if meta.ph not in (PhysKind.TRANSMIT, PhysKind.BLOCK, PhysKind.REFLECT,
-                       PhysKind.SNELL, PhysKind.APERTURE):
+                       PhysKind.SNELL, PhysKind.APERTURE,
+                       PhysKind.PHASE_GRID):
         return f'physics {PhysKind(meta.ph).name} is {TODO_FEATURES}'
-    if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.HEMI,
+    if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.RECT, SBKind.HEMI,
                        SBKind.HEMI_APER):
         return f'surface bound {SBKind(meta.sb).name} is {TODO_ELEMENTS}'
     if meta.vb not in (VBKind.NONE, VBKind.APER_R2, VBKind.Z_BETWEEN):
@@ -120,8 +125,14 @@ def unsupported(meta: StaticRowMeta):
     return None
 
 
-def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n):
-    """Single-kind physics -> (new direction tuple, intensity factor)."""
+def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
+                      wavelength=None, grid=None, plain=False):
+    """Single-kind physics -> (new direction tuple, intensity factor).
+
+    A PHASE_GRID row reads its ``[H, W]`` map ``grid`` (the side channel of
+    ``Scene.side_grids``) and the rays' ``wavelength`` (None: all unset, the
+    plate's design wavelength); its four corner reads are kernel K4 on CUDA
+    tensors (ops/phase_grid.py), its plain version with ``plain=True``."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
@@ -136,6 +147,20 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n):
         return reflect_dir(d, n), ones
     if kind == PhysKind.SNELL:
         return snell_dir(d, n, row.ph[..., 0], row.ph[..., 1]), ones
+    if kind == PhysKind.PHASE_GRID:
+        if grid is None:
+            raise ValueError('a PHASE_GRID row needs its [H, W] map: pass '
+                             'grids={row: map} (Scene.side_grids)')
+        from ..ops.phase_grid import grid_corners, grid_corners_plain
+        wl = torch.zeros_like(d[0]) if wavelength is None else wavelength
+        from_in = v3.dot(d, n) < 0
+        n1 = torch.where(from_in, row.ph[..., 0], row.ph[..., 1])
+        n2 = torch.where(from_in, row.ph[..., 1], row.ph[..., 0])
+        out, ok = phase_grid_dir(
+            d, row.Rw, hit_local, grid, row.ph[..., 2], row.ph[..., 3], wl,
+            n1, n2, row.ph[..., 4], row.ph[..., 5],
+            corners_fn=grid_corners_plain if plain else grid_corners)
+        return out, ok.to(d[0].dtype)
     # APERTURE: the filter re-checks its own RAW (non-inverted) bound
     mod = sb_check_one(meta.sb, row.sb, hit_local).to(d[0].dtype)
     return (d[0] * mod, d[1] * mod, d[2] * mod), mod

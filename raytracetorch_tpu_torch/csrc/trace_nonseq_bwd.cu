@@ -7,7 +7,8 @@
 // the forward by the custom_vjp fused_nonseq_grad.  The two compute the same
 // vector-Jacobian product (tests/test_pallas.py::
 // test_nonseq_bwd_scan_matches_unrolled holds them equal), so this one kernel
-// is the counterpart of both, for K5's kinds with every optional stream off.
+// is the counterpart of both, for K5's kinds (pixelated phase plates
+// included) with every other optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -15,9 +16,14 @@
 // What it computes: given the table, the input rays, the cotangents of the 7
 // output ray streams, of the [S, B, 7] moments and (with a grid) of the
 // [S, H, W] grid, the cotangents of the 7 input ray streams and of the
-// table.  Per ray the forward is a loop of bounces whose length differs per
-// ray; each bounce is one table row (its winner) applied as K2 applies a row,
-// so the reverse of a bounce is K2's row adjoint (trace_seq_adjoint.cuh).
+// table, and with phase plates those of their maps (the TPU kernel's
+// ct['grids']): a PHASE_GRID winner's adjoint adds its four corner
+// cotangents into the maps' cotangent by atomicAdd (kernel K4's scatter,
+// grid_corners.cuh), bounce after bounce, as the TPU scan kernel
+// accumulates its per-bounce map cotangent.  Per ray the forward is a loop
+// of bounces whose length differs per ray; each bounce is one table row (its
+// winner) applied as K2 applies a row, so the reverse of a bounce is K2's
+// row adjoint (trace_seq_adjoint.cuh).
 //
 // Design: one thread per ray, 256 threads per block.  The flat [K, 160]
 // table, the int32 [K, 8] kinds and the moment cotangent sit in shared
@@ -58,7 +64,9 @@
 //   [K, 19] slot in shared memory that only this warp writes.  At the end a
 //   fixed-order sum over the warps writes a [blocks, K, 19] buffer that the
 //   wrapper sums and scatters into [K, 160].  No atomics: deterministic.
-//   The cotangent is nonzero only in K2's 19 columns (q, Rw, tw, ph).
+//   The cotangent is nonzero only in K2's 19 columns (q, Rw, tw, ph), 23
+//   with phase plates.  A scene with neither a plate nor a RECT bound runs
+//   the instantiation without plate code (kPlates = false).
 //
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
@@ -96,33 +104,38 @@ constexpr unsigned kFull = 0xffffffffu;
 // One bounce of K5 (nonseq_bounce, the very function K5 runs).  Returns the
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
 // winner's branch bits.
-__device__ __forceinline__ int bounce(const float* tab, const int32_t* knd, int n_rows, V3& p,
-                                      V3& d, float& inten, uint32_t& bits) {
+template <bool kPlates>
+__device__ __forceinline__ int bounce(const float* tab, const int32_t* knd, int n_rows,
+                                      const Plates& pl, V3& p, V3& d, float& inten,
+                                      uint32_t& bits) {
   RowHit hw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce(tab, knd, n_rows, p, d, inten, hw, &degen, &br);
+  const int k = nonseq_bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, hw, &degen, &br);
   if (k >= 0) bits = branch_bits(hw, degen, br) | kActive;
   return k;
 }
 
-// Add the table cotangents tg of a warp's lanes into the warp's [K, 19]
-// slots: one reduction per distinct winner row k among the lanes (k < 0: the
-// lane applied no row).  Every lane of the warp calls it.
+// Add the table cotangents tg of a warp's lanes into the warp's [K, 19 or
+// 23] slots: one reduction per distinct winner row k among the lanes (k < 0:
+// the lane applied no row).  Every lane of the warp calls it.
+template <bool kPlates>
 __device__ __forceinline__ void reduce_winners(const int32_t* knd, int k, const float* tg,
                                                float* slots, int lane) {
+  constexpr int kCols = grad_cols<kPlates>();
   unsigned pending = __ballot_sync(kFull, k >= 0);
   while (pending != 0u) {
     const int row = __shfl_sync(kFull, k, __ffs(pending) - 1);
     const bool mine = k == row;
     pending &= ~__ballot_sync(kFull, mine);
-    float m[kGradCols];
+    float m[kCols];
 #pragma unroll
-    for (int c = 0; c < kGradCols; ++c) m[c] = mine ? tg[c] : 0.0f;
-    reduce_row(read_row_kinds(knd + row * kKindWidth), m, slots + row * kGradCols, lane);
+    for (int c = 0; c < kCols; ++c) m[c] = mine ? tg[c] : 0.0f;
+    reduce_row<kPlates>(read_row_kinds(knd + row * kKindWidth), m, slots + row * kCols, lane);
   }
 }
 
+template <bool kPlates>
 __global__ void __launch_bounds__(kThreads)
 trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                         int n_rows, const float* __restrict__ px, const float* __restrict__ py,
@@ -139,20 +152,23 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
                         float* __restrict__ rpx, float* __restrict__ rpy, float* __restrict__ rpz,
                         float* __restrict__ rdx, float* __restrict__ rdy, float* __restrict__ rdz,
                         float* __restrict__ rintensity, int n_slots, int n_bundles, GridCt gg,
+                        const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
+                        const float* __restrict__ wavelength, float* __restrict__ gmaps,
                         int n_bounces, long long n) {
+  constexpr int kCols = grad_cols<kPlates>();
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
   float* gm = smem + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
-  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, kGradCols]
+  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, kCols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
-  for (int j = tid; j < kWarps * n_rows * kGradCols; j += kThreads) warp_tab[j] = 0.0f;
+  for (int j = tid; j < kWarps * n_rows * kCols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -162,11 +178,13 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   V3 p0 = {0.0f, 0.0f, 0.0f}, d0 = {0.0f, 0.0f, 1.0f};
   float i0 = 0.0f;
   int rid = -1;
+  Plates pl = {maps, map_desc, 0.0f};
   if (live) {
     p0 = {px[i], py[i], pz[i]};
     d0 = {dx[i], dy[i], dz[i]};
     i0 = intensity[i];
     rid = ray_id[i];
+    if (kPlates) pl.wl = wavelength[i];
   }
 
   // ---- forward replay: K5's loop; counts the live bounces L and leaves the
@@ -187,7 +205,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
         const V3 pb = p, db = d;
         const float ib = inten;
         uint32_t bits = 0;
-        const int k = bounce(tab, knd, n_rows, p, d, inten, bits);
+        const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
         if (k < 0) {
           going = false;
         } else {
@@ -224,7 +242,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
   const int warp_live = __reduce_max_sync(kFull, n_live);
   const int s_last = warp_live > 0 ? (warp_live - 1) / kCkpt * kCkpt : -1;
-  float* slots = warp_tab + warp * n_rows * kGradCols;
+  float* slots = warp_tab + warp * n_rows * kCols;
   for (int s = s_last; s >= 0; s -= kCkpt) {  // warp-uniform
     if (s != s_last && s < n_live) {
       // replay from the ray's start to bounce s, then save [s, s + kCkpt)
@@ -232,7 +250,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
       d = d0;
       inten = i0;
       uint32_t bits = 0;
-      for (int b = 0; b < s; ++b) bounce(tab, knd, n_rows, p, d, inten, bits);
+      for (int b = 0; b < s; ++b) bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
 #pragma unroll
       for (int j = 0; j < kCkpt; ++j) {
         if (s + j < n_live) {
@@ -243,7 +261,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
           ck[j][4] = d.y;
           ck[j][5] = d.z;
           ck[j][6] = inten;
-          const int k = bounce(tab, knd, n_rows, p, d, inten, bits);
+          const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
           ckw[j] = (static_cast<uint32_t>(k) << 16) | bits;
         }
       }
@@ -253,16 +271,17 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
       if (s + j < warp_live) {  // warp-uniform
         const bool act = s + j < n_live;
         const int k = act ? static_cast<int>(ckw[j] >> 16) : -1;
-        float tg[kGradCols];
+        float tg[kCols];
 #pragma unroll
-        for (int c = 0; c < kGradCols; ++c) tg[c] = 0.0f;
+        for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
         if (act) {
           const V3 sp = {ck[j][0], ck[j][1], ck[j][2]};
           const V3 sd = {ck[j][3], ck[j][4], ck[j][5]};
-          row_backward(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), sp, sd,
-                       ck[j][6], ckw[j] & 0xffffu, rid, gm, n_bundles, gg, gp, gd, gi, tg);
+          row_backward<kPlates>(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), sp,
+                                sd, ck[j][6], ckw[j] & 0xffffu, rid, gm, n_bundles, gg, pl,
+                                gmaps, gp, gd, gi, tg);
         }
-        if (partials != nullptr) reduce_winners(knd, k, tg, slots, lane);
+        if (partials != nullptr) reduce_winners<kPlates>(knd, k, tg, slots, lane);
       }
     }
   }
@@ -279,13 +298,39 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
 
   if (partials == nullptr) return;
   __syncthreads();
-  const int n_tab = n_rows * kGradCols;
+  const int n_tab = n_rows * kCols;
   float* out = partials + static_cast<size_t>(blockIdx.x) * n_tab;
   for (int j = tid; j < n_tab; j += kThreads) {
     float s = 0.0f;
     for (int w = 0; w < kWarps; ++w) s += warp_tab[w * n_tab + j];
     out[j] = s;
   }
+}
+
+template <bool kPlates>
+int launch(long long blocks, cudaStream_t stream, const float* table, const int32_t* kinds,
+           int n_rows, const float* const* rays, const int32_t* ray_id,
+           const float* const* g_rays, const float* gmom, float* const* c_rays, float* partials,
+           float* const* r_rays, int n_slots, int n_bundles, GridCt gg, const float* maps,
+           const int32_t* map_desc, const float* wavelength, float* gmaps, int n_bounces,
+           long long n) {
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
+                       static_cast<size_t>(n_slots) * n_bundles * kMoments +
+                       static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates>());
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(trace_nonseq_bwd_kernel<kPlates>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  trace_nonseq_bwd_kernel<kPlates><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+      ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6], gmom,
+      c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6], partials,
+      r_rays[0], r_rays[1], r_rays[2], r_rays[3], r_rays[4], r_rays[5], r_rays[6], n_slots,
+      n_bundles, gg, maps, map_desc, wavelength, gmaps, n_bounces, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -298,6 +343,10 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // r*, which receive the state the forward replay ends at.  gmom holds
 // n_slots * n_bundles * 7 floats; ggrid, the grid's cotangent, holds
 // n_slots * grid_h * grid_w floats over [-grid_e, grid_e]^2, or is null.
+// With phase plates, `maps`, `map_desc` and `wavelength` are K5's, the
+// partials hold 23 columns, and `gmaps` (laid out as `maps`, zeroed by the
+// caller, or null: not wanted) receives the maps' cotangent; with none all
+// four are null.
 extern "C" int rtt_trace_nonseq_bwd(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -306,27 +355,26 @@ extern "C" int rtt_trace_nonseq_bwd(
     const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
     float* cintensity, float* partials, float* rpx, float* rpy, float* rpz, float* rdx,
     float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
-    int grid_h, int grid_w, float grid_e, int n_bounces, long long n, void* stream) {
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* gmaps, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
-                       static_cast<size_t>(n_slots) * n_bundles * kMoments +
-                       static_cast<size_t>(kWarps) * n_rows * kGradCols);
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(trace_nonseq_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
+  const float* g_rays[7] = {gpx, gpy, gpz, gdx, gdy, gdz, gintensity};
+  float* c_rays[7] = {cpx, cpy, cpz, cdx, cdy, cdz, cintensity};
+  float* r_rays[7] = {rpx, rpy, rpz, rdx, rdy, rdz, rintensity};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
-  trace_nonseq_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-      gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy, rpz,
-      rdx, rdy, rdz, rintensity, n_slots, n_bundles, gg, n_bounces, n);
-  return static_cast<int>(cudaGetLastError());
+  if (maps != nullptr)
+    return launch<true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
+                        partials, r_rays, n_slots, n_bundles, gg, maps, map_desc, wavelength,
+                        gmaps, n_bounces, n);
+  return launch<false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
+                       partials, r_rays, n_slots, n_bundles, gg, nullptr, nullptr, nullptr,
+                       nullptr, n_bounces, n);
 }

@@ -4,8 +4,9 @@
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::
 // _kernel_nonseq (launched by trace_nonseq_pallas, bounce body
 // _nonseq_bounce_core) for the main-path kinds and the ideal spherical
-// mirror (HEMI_APER bound), with every optional stream off: no random
-// draws, field, opl, recording, fuzzy apodization, GRIN or HALFSPACES rows.
+// mirror (HEMI_APER bound) and pixelated phase plates, with every other
+// optional stream off: no random draws, field, opl, recording, fuzzy
+// apodization, GRIN or HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -16,11 +17,15 @@
 // volume bound), and the nearest valid row wins with a strict t < best_t,
 // so the first of equal rows wins.  Only then are the winner's normal and
 // physics evaluated and the ray moved: p += t d, d = the new direction,
-// I *= the winner's factor.  A winner that is a sensor records the ray's
-// INCOMING intensity at its sensor-local hit: the 7 moment terms into
-// (slot, bundle), and the intensity into the slot's grid cell (kernel K3's
-// device function, grid_bin.cuh).  A nearer non-sensor winner leaves no
-// record, as the merge in bounce_step zeroes an earlier sensor crossing.
+// I *= the winner's factor.  A PHASE_GRID winner reads the four corners of
+// its [H, W] map at the hit (kernel K4's device functions, grid_corners.cuh;
+// the TPU kernel's cond-guarded _grid_corners_mxu) and the ray's wavelength;
+// the maps stay in device memory, read through L2.  A winner that is a
+// sensor records the ray's INCOMING intensity at its sensor-local hit: the 7
+// moment terms into (slot, bundle), and the intensity into the slot's grid
+// cell (kernel K3's device function, grid_bin.cuh).  A nearer non-sensor
+// winner leaves no record, as the merge in bounce_step zeroes an earlier
+// sensor crossing.
 //
 // The TPU kernel evaluates every row's physics for a whole tile and merges
 // with where, because its lanes cannot branch, and exits per tile when no
@@ -50,8 +55,9 @@
 // This is an estimate by count; PERF.md holds the measured time.
 //
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
-// bundles, any bounce budget >= 0.  It does not read the wavelength: no
-// supported row is dispersive.
+// bundles, any bounce budget >= 0.  It reads the wavelength only with a
+// plate; a scene with neither a plate nor a RECT bound runs the
+// instantiation without plate code (kPlates = false).
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
@@ -67,7 +73,7 @@ using namespace rtt;
 
 namespace {
 
-template <int kMomBucket>
+template <int kMomBucket, bool kPlates>
 __global__ void __launch_bounds__(kThreads)
 trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                         int n_rows, const float* __restrict__ px, const float* __restrict__ py,
@@ -78,7 +84,9 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
                         float* __restrict__ odx, float* __restrict__ ody, float* __restrict__ odz,
                         float* __restrict__ ointensity, float* __restrict__ partials,
                         int n_slots, int n_bundles, float* __restrict__ grid, int grid_h,
-                        int grid_w, float grid_e, int n_bounces, long long n) {
+                        int grid_w, float grid_e, const float* __restrict__ maps,
+                        const int32_t* __restrict__ map_desc,
+                        const float* __restrict__ wavelength, int n_bounces, long long n) {
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
@@ -98,11 +106,13 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
   V3 p = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
   float inten = 0.0f;
   int rid = -1;
+  Plates pl = {maps, map_desc, 0.0f};
   if (live) {
     p = {px[i], py[i], pz[i]};
     d = {dx[i], dy[i], dz[i]};
     inten = intensity[i];
     rid = ray_id[i];
+    if (kPlates) pl.wl = wavelength[i];
   }
   const bool counted = rid >= 0 && rid < n_bundles;
 
@@ -116,7 +126,7 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
     // ---- nearest valid row, its physics and the move ----
     const float w = inten;
     RowHit hw = {};
-    const int k_win = nonseq_bounce(tab, knd, n_rows, p, d, inten, hw);
+    const int k_win = nonseq_bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, hw);
     if (k_win < 0) break;
 
     // ---- a sensor winner records the incoming intensity at its hit ----
@@ -165,22 +175,48 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
 }
 
-template <int kMomBucket>
+// The plate arguments of a launch: the maps, their descriptors and the
+// rays' wavelengths (all null without a plate).
+struct PlateArgs {
+  const float* maps;
+  const int32_t* desc;
+  const float* wavelength;
+};
+
+template <int kMomBucket, bool kPlates>
 int launch(size_t smem, long long blocks, cudaStream_t stream, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            float* const* outs, float* partials, int n_slots, int n_bundles, float* grid,
-           int grid_h, int grid_w, float grid_e, int n_bounces, long long n) {
+           int grid_h, int grid_w, float grid_e, const PlateArgs& pa, int n_bounces,
+           long long n) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(trace_nonseq_fwd_kernel<kMomBucket>,
+        cudaFuncSetAttribute(trace_nonseq_fwd_kernel<kMomBucket, kPlates>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_nonseq_fwd_kernel<kMomBucket><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
-      ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials, n_slots,
-      n_bundles, grid, grid_h, grid_w, grid_e, n_bounces, n);
+  trace_nonseq_fwd_kernel<kMomBucket, kPlates>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+          table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+          ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials,
+          n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa.maps, pa.desc, pa.wavelength,
+          n_bounces, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPlates>
+int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const float* table,
+                  const int32_t* kinds, int n_rows, const float* const* rays,
+                  const int32_t* ray_id, float* const* outs, float* partials, int n_slots,
+                  int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
+                  const PlateArgs& pa, int n_bounces, long long n) {
+  if (n_slots * n_bundles == 1)
+    return launch<1, kPlates>(smem, blocks, stream, table, kinds, n_rows, rays, ray_id, outs,
+                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
+                              n_bounces, n);
+  return launch<64, kPlates>(smem, blocks, stream, table, kinds, n_rows, rays, ray_id, outs,
+                             partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
+                             n_bounces, n);
 }
 
 }  // namespace
@@ -189,7 +225,10 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 // The caller owns every buffer: 7 outputs of n floats, a partials buffer of
 // ceil(n / 256) * n_slots * n_bundles * 7 floats, and the zeroed
 // [n_slots, grid_h, grid_w] grid over [-grid_e, grid_e]^2, or null for no
-// grid.
+// grid.  With phase plates, `maps` holds their maps one after the other,
+// `map_desc` (offset, h, w) per map, and `wavelength` the n rays'
+// wavelengths.  All three null selects the instantiation without plate code,
+// which the caller must not give a PHASE_GRID row or a RECT bound.
 extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, int n_rows,
                                     const float* px, const float* py, const float* pz,
                                     const float* dx, const float* dy, const float* dz,
@@ -197,9 +236,13 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
                                     float* opy, float* opz, float* odx, float* ody, float* odz,
                                     float* ointensity, float* partials, int n_slots,
                                     int n_bundles, float* grid, int grid_h, int grid_w,
-                                    float grid_e, int n_bounces, long long n, void* stream) {
+                                    float grid_e, const float* maps, const int32_t* map_desc,
+                                    const float* wavelength, int n_bounces, long long n,
+                                    void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -209,9 +252,11 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_slots * n_bundles == 1)
-    return launch<1>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
-                     n_slots, n_bundles, grid, grid_h, grid_w, grid_e, n_bounces, n);
-  return launch<64>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials, n_slots,
-                    n_bundles, grid, grid_h, grid_w, grid_e, n_bounces, n);
+  if (maps != nullptr)
+    return launch_bucket<true>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                               PlateArgs{maps, map_desc, wavelength}, n_bounces, n);
+  return launch_bucket<false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                              PlateArgs{nullptr, nullptr, nullptr}, n_bounces, n);
 }

@@ -1,6 +1,9 @@
 // The adjoint shared by K2 (trace_seq_bwd.cu) and K6 (trace_nonseq_bwd.cu):
 // one row's forward step with its branch bits, one row's vector-Jacobian
-// product, the table-cotangent columns and their per-warp reduction.
+// product, the table-cotangent columns and their per-warp reduction.  A
+// PHASE_GRID row's adjoint (the hand-written transpose of core/physics.py::
+// phase_grid_dir) scatters its four corner cotangents into the map's
+// cotangent with kernel K4's device function (grid_corners.cuh).
 //
 // Both backward kernels replay their forward and save each applied row's
 // input state and branch bits; the reverse sweep takes the saved branches and
@@ -22,9 +25,17 @@
 namespace rtt {
 
 // Table columns with a nonzero cotangent, in the order of the partials
-// buffer (ops/fused_trace.py GRAD_COLS): q[0:5], Rw[0:9], tw[0:3], ph[0:2].
+// buffer (ops/fused_trace.py GRAD_COLS): q[0:5], Rw[0:9], tw[0:3], ph[0:2];
+// with phase plates (PLATE_GRAD_COLS) also ph[2:6]: the order, the design
+// wavelength and the half extents of a PHASE_GRID row.
 constexpr int kGradCols = 19;
+constexpr int kPlateGradCols = 23;
 constexpr int kGQ = 0, kGRw = 5, kGTw = 14, kGPh = 17;
+
+template <bool kPlates>
+__host__ __device__ constexpr int grad_cols() {
+  return kPlates ? kPlateGradCols : kGradCols;
+}
 
 // Branch decisions of one row, saved by the forward replay.
 constexpr uint32_t kActive = 1u << 0;   // valid && intensity > 0
@@ -37,6 +48,9 @@ constexpr uint32_t kDnPos = 1u << 6;    // d.n > 0
 constexpr uint32_t kTir = 1u << 7;      // total internal reflection
 constexpr uint32_t kN2Small = 1u << 8;  // |n2| < 1e-12
 constexpr uint32_t kMod = 1u << 9;      // APERTURE passes the ray
+constexpr uint32_t kPgOk = 1u << 10;    // PHASE_GRID: not evanescent
+constexpr uint32_t kUClip = 1u << 11;   // PHASE_GRID: u clipped
+constexpr uint32_t kVClip = 1u << 12;   // PHASE_GRID: v clipped
 
 // The grid's cotangent g[S, h, w] over [-e, e]^2 (g null: no grid, or a
 // zero cotangent).
@@ -46,6 +60,9 @@ struct GridCt {
   float e;
 };
 
+// The physics reads the normal's value: REFLECT and SNELL (and, for the
+// side d.n < 0 alone, PHASE_GRID, whose adjoint takes that side from its
+// bits and gives the normal no cotangent).
 __device__ __forceinline__ bool uses_normal(int ph) { return ph == REFLECT || ph == SNELL; }
 
 // The bits of a row's branches, from the hit, the normal's degeneracy and the
@@ -54,21 +71,24 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
                                                 const PhysBranch& br) {
   return (h.root1 ? kRoot1 : 0u) | (h.root2 ? kRoot2 : 0u) | (h.linear ? kLinear : 0u) |
          (degen ? kDegen : 0u) | (br.from_in ? kFromIn : 0u) | (br.dn_pos ? kDnPos : 0u) |
-         (br.tir ? kTir : 0u) | (br.n2_small ? kN2Small : 0u) | (br.pass ? kMod : 0u);
+         (br.tir ? kTir : 0u) | (br.n2_small ? kN2Small : 0u) | (br.pass ? kMod : 0u) |
+         (br.pg_ok ? kPgOk : 0u) | (br.u_clip ? kUClip : 0u) | (br.v_clip ? kVClip : 0u);
 }
 
 // One row of K1's chain: updates (p, d, inten) where the row is active and
 // returns the row's bits.
-__device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd, V3& p, V3& d,
-                                                float& inten) {
-  const RowHit h = intersect_row(r, kd, p, d);
+template <bool kPlates>
+__device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
+                                                const Plates& pl, V3& p, V3& d, float& inten) {
+  const RowHit h = intersect_row<kPlates>(r, kd, p, d);
   bool degen = false;
-  const V3 nw =
-      uses_normal(kd.ph) ? world_normal(r, kd.plane, h.hs, &degen) : V3{0.0f, 0.0f, 1.0f};
+  const V3 nw = uses_normal(kd.ph) || (kPlates && kd.ph == PHASE_GRID)
+                    ? world_normal(r, kd.plane, h.hs, &degen)
+                    : V3{0.0f, 0.0f, 1.0f};
   PhysBranch br = {};
   V3 nd;
   float imod;
-  apply_physics(r, kd.ph, kd.sb, d, nw, h.hs, nd, imod, &br);
+  apply_physics<kPlates>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br);
   uint32_t bits = branch_bits(h, degen, br);
   if (h.valid && inten > 0.0f) {
     bits |= kActive;
@@ -79,14 +99,127 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   return bits;
 }
 
+// Adjoint of a PHASE_GRID row's physics (core/physics.py::phase_grid_dir)
+// at surface-frame hit hs: g_nd, the cotangent of the new direction, adds
+// the cotangents of the incoming direction d (g_d), of the hit's x and y
+// (g_hs), and of the row's Rw and ph[0:6] (tg); the four corner cotangents
+// are added into gmaps (the maps' cotangent, laid out as pl.maps; null: not
+// wanted).  The sides (from_in), the evanescence and the clips come from the
+// row's bits; the cell is recomputed from the re-derived hit.
+__device__ __forceinline__ void phase_grid_backward(const float* r, const RowKinds& kd,
+                                                    const Plates& pl, float* gmaps, V3 d, V3 hs,
+                                                    uint32_t bits, V3 g_nd, V3& g_d, V3& g_hs,
+                                                    float* tg) {
+  const float* Rw = r + kRw;
+  // ---- the forward's values ----
+  const bool from_in = bits & kFromIn, ok = bits & kPgOk;
+  const float n1 = from_in ? r[kPh] : r[kPh + 1];
+  const float n2 = from_in ? r[kPh + 1] : r[kPh];
+  const V3 dl = rot(d, Rw);
+  const bool use_lam0 = !(pl.wl > 0.0f);
+  const float lam_mm = (use_lam0 ? r[kPh + 3] : pl.wl) * 1e-3f;
+  const float order = r[kPh + 2];
+  const PlatePatch pt = plate_patch(r, pl, kd.map, hs);
+  const Corners& c = pt.g;
+  const float wm1 = static_cast<float>(pt.w - 1), hm1 = static_cast<float>(pt.h - 1);
+  const float su = wm1 / (2.0f * pt.hx), sv = hm1 / (2.0f * pt.hy);
+  const float P = (1.0f - pt.fv) * (c.g01 - c.g00) + pt.fv * (c.g11 - c.g10);
+  const float Q = (1.0f - pt.fu) * (c.g10 - c.g00) + pt.fu * (c.g11 - c.g01);
+  const float gx = P * su, gy = Q * sv;
+  const float kick = order * lam_mm;
+  const float tx = n1 * dl.x + kick * gx;
+  const float ty = n1 * dl.y + kick * gy;
+  const float n2sq = n2 * n2;
+  const float tz = sqrtf(ok ? fmaxf(n2sq - (tx * tx + ty * ty), 0.0f) : 1.0f);
+  const float zs = fabsf(dl.z) < 1e-12f ? 1.0f : dl.z;
+  const float sign = zs > 0.0f ? 1.0f : (zs < 0.0f ? -1.0f : zs);
+  const float inv = 1.0f / n2;
+  const float ol[3] = {tx * inv, ty * inv, ok ? tz * sign * inv : dl.z};
+
+  // ---- nd = ol @ Rw.T ----
+  const V3 g_ol = rot(g_nd, Rw);
+  const float gnd[3] = {g_nd.x, g_nd.y, g_nd.z};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tg[kGRw + 3 * i + j] += gnd[i] * ol[j];
+  // ---- ol = (tx inv, ty inv, ok ? tz sign inv : dl.z) ----
+  float g_inv = g_ol.x * tx + g_ol.y * ty;
+  float g_tx = g_ol.x * inv, g_ty = g_ol.y * inv;
+  V3 g_dl = {0.0f, 0.0f, 0.0f};
+  float g_n2sq = 0.0f;
+  if (ok) {
+    // tz = sqrt(n2^2 - t2), t2 = tx^2 + ty^2
+    g_inv += g_ol.z * tz * sign;
+    const float g_s = g_ol.z * sign * inv / (2.0f * tz);
+    g_n2sq = g_s;
+    g_tx -= 2.0f * tx * g_s;
+    g_ty -= 2.0f * ty * g_s;
+  } else {
+    g_dl.z = g_ol.z;
+  }
+  const float g_n2 = -(g_inv * inv * inv) + 2.0f * n2 * g_n2sq;
+  // ---- tx = n1 dl.x + kick gx, ty = n1 dl.y + kick gy ----
+  const float g_n1 = g_tx * dl.x + g_ty * dl.y;
+  g_dl.x += g_tx * n1;
+  g_dl.y += g_ty * n1;
+  const float g_kick = g_tx * gx + g_ty * gy;
+  const float g_gx = g_tx * kick, g_gy = g_ty * kick;
+  // ---- kick = order lam_mm, lam_mm = (wl > 0 ? wl : lam0) 1e-3 ----
+  tg[kGPh + 2] += g_kick * lam_mm;
+  if (use_lam0) tg[kGPh + 3] += g_kick * order * 1e-3f;
+  // ---- gx = P su, gy = Q sv, the bilinear patch ----
+  const float g_P = g_gx * su, g_Q = g_gy * sv;
+  const float g_su = g_gx * P, g_sv = g_gy * Q;
+  const float g_fv = g_P * ((c.g11 - c.g10) - (c.g01 - c.g00));
+  const float g_fu = g_Q * ((c.g11 - c.g01) - (c.g10 - c.g00));
+  if (gmaps != nullptr) {
+    const Corners gc = {-g_P * (1.0f - pt.fv) - g_Q * (1.0f - pt.fu),
+                        g_P * (1.0f - pt.fv) - g_Q * pt.fu,
+                        -g_P * pt.fv + g_Q * (1.0f - pt.fu), g_P * pt.fv + g_Q * pt.fu};
+    scatter_corners(gmaps + (pt.map - pl.maps), pt.cells, gc);
+  }
+  // ---- su = (w - 1) / (2 hx), sv = (h - 1) / (2 hy) ----
+  float g_hx = -(g_su * su / pt.hx), g_hy = -(g_sv * sv / pt.hy);
+  // ---- f = clip(c) - trunc(clip(c)), c = (x + hx) / (2 hx) (w - 1) ----
+  if (!(bits & kUClip)) {
+    const float den = 2.0f * pt.hx, a = (hs.x + pt.hx) / den;
+    const float g_num = g_fu * wm1 / den;
+    g_hs.x += g_num;
+    g_hx += g_num - 2.0f * (g_fu * wm1 * a / den);
+  }
+  if (!(bits & kVClip)) {
+    const float den = 2.0f * pt.hy, a = (hs.y + pt.hy) / den;
+    const float g_num = g_fv * hm1 / den;
+    g_hs.y += g_num;
+    g_hy += g_num - 2.0f * (g_fv * hm1 * a / den);
+  }
+  tg[kGPh + 4] += g_hx;
+  tg[kGPh + 5] += g_hy;
+  // ---- n1, n2 by side ----
+  tg[kGPh] += from_in ? g_n1 : g_n2;
+  tg[kGPh + 1] += from_in ? g_n2 : g_n1;
+  // ---- dl = d @ Rw ----
+  g_d = fma3(g_d, 1.0f, rot_t(g_dl, Rw));
+  const float dv[3] = {d.x, d.y, d.z}, gdl[3] = {g_dl.x, g_dl.y, g_dl.z};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tg[kGRw + 3 * i + j] += dv[i] * gdl[j];
+}
+
 // Adjoint of one row.  (p, d, inten) is the row's saved input state and
 // (gp, gd, gi) the cotangent of its output state, replaced by the cotangent
-// of its input state; tg[19] receives the row's table cotangent.  gm is the
-// [S, B, 7] moment cotangent and gg the grid's.
+// of its input state; tg[grad_cols<kPlates>()] receives the row's table
+// cotangent.  gm is the [S, B, 7] moment cotangent and gg the grid's; a
+// PHASE_GRID row (kPlates only) reads its map from pl and adds its corner
+// cotangents into gmaps (null: not wanted).
+template <bool kPlates>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
-                                             V3& gp, V3& gd, float& gi, float* tg) {
+                                             const Plates& pl, float* gmaps, V3& gp, V3& gd,
+                                             float& gi, float* tg) {
   if (!(bits & kActive)) return;  // where(active, new, old) passes through
   const float* q = r + kQ;
   const float* Rw = r + kRw;
@@ -142,7 +275,10 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   }
 
   // ---- masked update: p' = p + t d, d' = nd, I' = I * imod ----
-  const float imod = kd.ph == BLOCK ? 0.0f : (kd.ph == APERTURE && !(bits & kMod) ? 0.0f : 1.0f);
+  const float imod = kd.ph == BLOCK || (kd.ph == APERTURE && !(bits & kMod)) ||
+                             (kPlates && kd.ph == PHASE_GRID && !(bits & kPgOk))
+                         ? 0.0f
+                         : 1.0f;
   float g_t = dot3(gp, d);
   V3 g_d = {t * gp.x, t * gp.y, t * gp.z};
   const V3 g_nd = gd;
@@ -165,7 +301,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
 
   // ---- physics ----
   V3 g_nw = {0.0f, 0.0f, 0.0f};
-  if (kd.ph == TRANSMIT) {
+  if (kPlates && kd.ph == PHASE_GRID) {
+    phase_grid_backward(r, kd, pl, gmaps, d, hs, bits, g_nd, g_d, g_hs, tg);
+  } else if (kd.ph == TRANSMIT) {
     g_d = fma3(g_d, 1.0f, g_nd);
   } else if (kd.ph == APERTURE) {
     if (bits & kMod) g_d = fma3(g_d, 1.0f, g_nd);
@@ -309,13 +447,17 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
 // this warp's slot for the row (lane 0 writes); every lane of the warp calls
 // it, each with its own tg (zeros for a lane that did not apply the row).
 // Columns that are structurally zero for the row's kinds skip their
-// shuffles: q on the plane path, ph off the SNELL path.
+// shuffles: q on the plane path, ph[0:2] off the SNELL and PHASE_GRID paths,
+// ph[2:6] off the PHASE_GRID path.
+template <bool kPlates>
 __device__ __forceinline__ void reduce_row(const RowKinds& kd, const float* tg, float* slot,
                                            int lane) {
+  const bool plate = kPlates && kd.ph == PHASE_GRID;
 #pragma unroll
-  for (int c = 0; c < kGradCols; ++c) {
+  for (int c = 0; c < grad_cols<kPlates>(); ++c) {
     if (c < kGRw && kd.plane) continue;
-    if (c >= kGPh && kd.ph != SNELL) continue;
+    if (c >= kGPh && c < kGPh + 2 && kd.ph != SNELL && !plate) continue;
+    if (c >= kGPh + 2 && !plate) continue;
     const float s = warp_sum(tg[c]);
     if (lane == 0) slot[c] += s;
   }

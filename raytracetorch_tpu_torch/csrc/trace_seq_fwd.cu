@@ -2,9 +2,13 @@
 //
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::_kernel_v2
 // (launched by trace_sequential_pallas_v2, chain body _chain_pure) for the
-// main-path kinds, with every optional stream off.  Its plain PyTorch
-// version is ops/fused_trace.py::trace_sequential_fused_plain, and the
-// wrapper that launches it is ops/fused_trace.py::trace_seq_fwd_cuda.
+// main-path kinds and pixelated phase plates, with every other optional
+// stream off.  Its plain PyTorch version is ops/fused_trace.py::
+// trace_sequential_fused_plain, and the wrapper that launches it is
+// ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
+// also the counterpart of the first TPU kernel, _kernel (launched by
+// trace_sequential_pallas, ops/fused_trace.py::trace_sequential_v1): the same
+// function with every stream off.
 //
 // What it computes, per ray, for each of the K table rows in order:
 // intersect (plane fast path or the quadric solver), surface-local bound per
@@ -14,7 +18,10 @@
 // (w, wx, wy, wx^2, wy^2, wxy, w>0) of the masked INCOMING intensity into
 // (slot, bundle) and, when a grid is asked for, bins that intensity at the
 // hit's cell of the slot's irradiance grid (kernel K3's device function,
-// grid_bin.cuh; the TPU kernel's _grid_accumulate).
+// grid_bin.cuh; the TPU kernel's _grid_accumulate).  A PHASE_GRID row reads
+// the four corners of its [H, W] phase map at the hit (kernel K4's device
+// functions, grid_corners.cuh; the TPU kernel's _grid_corners_mxu) and the
+// ray's wavelength.
 //
 // Design: one thread per ray, 256 threads per block, the ragged edge masked
 // with i < n (no padding copy).  The flat [K, 160] table and the int32
@@ -25,10 +32,15 @@
 // order into a [blocks, S, B, 7] buffer that the wrapper sums.  No atomics:
 // the moments are deterministic.  The grid takes one atomicAdd per sensor
 // hit into the [S, H, W] grid in device memory (grid_bin.cu says what that
-// costs); with no grid the pointer is null and nothing else changes.
+// costs); with no grid the pointer is null and nothing else changes.  The
+// phase maps stay in device memory, concatenated, read through L2 (a 256 x
+// 256 map is 256 KB); with no plate (and no RECT bound, which is plate
+// code too: trace_seq_common.cuh) their pointer is null and the kernel
+// instantiated without plate code (kPlates = false) runs, so such a scene
+// runs the instructions it ran before plates existed.
 //
-// What bounds it: per ray it reads 8 streams (32 B; the wavelength stream is
-// not read, no supported row is dispersive) and writes 7 (28 B), and does
+// What bounds it: per ray it reads 8 streams (32 B; the wavelength stream,
+// 4 B more, only with a plate) and writes 7 (28 B), and does
 // some hundreds of fp32 operations over the 5 rows of the main path.  At 1M
 // rays that is 60 MB, ~18 us at the H100's 3.35 TB/s, so the kernel should
 // be bound by bandwidth and launch overhead.  This is an estimate by count;
@@ -51,6 +63,7 @@ using namespace rtt;
 
 namespace {
 
+template <bool kPlates>
 __global__ void __launch_bounds__(kThreads)
 trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                      int n_rows, const float* __restrict__ px, const float* __restrict__ py,
@@ -61,7 +74,9 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
                      float* __restrict__ odx, float* __restrict__ ody, float* __restrict__ odz,
                      float* __restrict__ ointensity, float* __restrict__ partials, int n_slots,
                      int n_bundles, float* __restrict__ grid, int grid_h, int grid_w,
-                     float grid_e, long long n) {
+                     float grid_e, const float* __restrict__ maps,
+                     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
+                     long long n) {
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
@@ -82,21 +97,23 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   V3 p = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
   float inten = 0.0f;
   int rid = -1;
+  Plates pl = {maps, map_desc, 0.0f};
   if (live) {
     p = {px[i], py[i], pz[i]};
     d = {dx[i], dy[i], dz[i]};
     inten = intensity[i];
     rid = ray_id[i];
+    if (kPlates) pl.wl = wavelength[i];
   }
 
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
     const RowKinds kd = read_row_kinds(knd + k * kKindWidth);
-    const RowHit h = intersect_row(r, kd, p, d);
+    const RowHit h = intersect_row<kPlates>(r, kd, p, d);
     const V3 nw = world_normal(r, kd.plane, h.hs);
     V3 nd;
     float imod;
-    apply_physics(r, kd.ph, kd.sb, d, nw, h.hs, nd, imod);
+    apply_physics<kPlates>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod);
     const bool active = h.valid && inten > 0.0f;
     const float t = h.t;
 
@@ -143,35 +160,60 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   }
 }
 
+template <bool kPlates>
+int launch(size_t smem, long long blocks, cudaStream_t stream, const float* table,
+           const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
+           float* const* outs, float* partials, int n_slots, int n_bundles, float* grid,
+           int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+           const float* wavelength, long long n) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(trace_seq_fwd_kernel<kPlates>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  trace_seq_fwd_kernel<kPlates><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+      ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials, n_slots,
+      n_bundles, grid, grid_h, grid_w, grid_e, maps, map_desc, wavelength, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches the kernel on `stream`.  Returns a cudaError_t (0 on success).
 // The caller owns every buffer: 7 outputs of n floats, a partials buffer of
 // ceil(n / 256) * n_slots * n_bundles * 7 floats, and the zeroed
 // [n_slots, grid_h, grid_w] grid over [-grid_e, grid_e]^2, or null for no
-// grid.
+// grid.  With phase plates, `maps` holds their maps one after the other,
+// `map_desc` (offset, h, w) per map, and `wavelength` the n rays'
+// wavelengths.  All three null selects the instantiation without plate code,
+// which the caller must not give a PHASE_GRID row or a RECT bound.
 extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n_rows,
                                  const float* px, const float* py, const float* pz,
                                  const float* dx, const float* dy, const float* dz,
                                  const float* intensity, const int32_t* ray_id, float* opx,
                                  float* opy, float* opz, float* odx, float* ody, float* odz,
                                  float* ointensity, float* partials, int n_slots, int n_bundles,
-                                 float* grid, int grid_h, int grid_w, float grid_e, long long n,
-                                 void* stream) {
+                                 float* grid, int grid_h, int grid_w, float grid_e,
+                                 const float* maps, const int32_t* map_desc,
+                                 const float* wavelength, long long n, void* stream) {
   if (n <= 0) return 0;
+  if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
                        static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        trace_seq_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  trace_seq_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody,
-      odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, n);
-  return static_cast<int>(cudaGetLastError());
+  const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
+  float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (maps != nullptr)
+    return launch<true>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
+                        n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps, map_desc,
+                        wavelength, n);
+  return launch<false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
+                       n_slots, n_bundles, grid, grid_h, grid_w, grid_e, nullptr, nullptr,
+                       nullptr, n);
 }

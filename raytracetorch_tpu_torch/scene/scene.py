@@ -20,7 +20,8 @@ aux)``:
 
 ``grid_shape = (H, W)`` and ``grid_half_extent`` give every sensor an
 irradiance grid (``sensors.grid [S, H, W]``), binned by kernel K3 on the
-card.
+card.  A ``PhaseGridPlate``'s ``[H, W]`` map rides the side channel
+``side_grids(params)`` into every trace, eager and fused.
 
 Ray sources are registered with ``add_bundle`` and drawn with
 ``sample_rays``; the sensor moments keep one column per bundle, so
@@ -169,10 +170,23 @@ class Scene:
         return dict(surface=win, element=table.elem_id[win],
                     surf_in_element=table.surf_id[win], hit=hit)
 
+    def side_grids(self, params):
+        """{flat row: [H, W] map} of the PHASE_GRID rows (pixelated phase
+        plates): the maps do not fit the fixed-width table row.  Built from
+        params on every call, so gradients reach every pixel."""
+        out, k = {}, 0
+        for el in self.elements:
+            hook = getattr(el, 'phase_grid', None)
+            if hook is not None:
+                out[k] = hook(params[el.name])
+            k += el.n_surfaces
+        return out
+
     def simulate(self, params, rays, n_bundles=None, **kw):
         """Eager differentiable bounce loop -> (rays, sensors, aux).  The
         JAX bounce loop's optional streams (``record_paths``, ``track_opl``, ...)
         raise NotImplementedError naming their ROADMAP item."""
+        kw.setdefault('grids', self.side_grids(params))
         return trace_nonsequential(self.build_table(params), rays,
                                    self.n_bounces,
                                    self.sensor_config(n_bundles),
@@ -182,12 +196,13 @@ class Scene:
         """Fused bounce loop -> (rays, sensors, aux): kernel K5 on the card,
         its plain version on the CPU.  Each ray leaves the loop at its first
         bounce with no hit, so the default budget of 100 costs what the
-        scene needs.  Differentiable with respect to the params and the ray
-        streams px..intensity (K6 in backward on the card); first order
-        only."""
+        scene needs.  Differentiable with respect to the params (phase maps
+        included) and the ray streams px..intensity (K6 in backward on the
+        card); first order only."""
         out, sensors = trace_nonseq_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
-            self.static_meta(), self.n_bounces)
+            self.static_meta(), self.n_bounces,
+            grids=self.side_grids(params))
         return out, sensors, {}
 
     # -- conversions -------------------------------------------------------
@@ -212,16 +227,17 @@ class SequentialScene(Scene):
         """Eager differentiable trace -> (rays, sensors, aux)."""
         return trace_sequential(self.build_table(params), rays,
                                 self.sensor_config(n_bundles),
-                                self.static_meta())
+                                self.static_meta(),
+                                grids=self.side_grids(params))
 
     def simulate_fused(self, params, rays, n_bundles=None):
         """Fused trace -> (rays, sensors, aux): the CUDA kernels on the card
         (K1 forward, K2 backward under grad), their plain versions on the
-        CPU.  Differentiable with respect to the params and the ray streams
-        px..intensity; first order only."""
+        CPU.  Differentiable with respect to the params (phase maps
+        included) and the ray streams px..intensity; first order only."""
         out, sensors = trace_sequential_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
-            self.static_meta())
+            self.static_meta(), grids=self.side_grids(params))
         return out, sensors, {}
 
     def to_base(self):

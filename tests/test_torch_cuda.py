@@ -1,7 +1,8 @@
 """The kernels K1 (csrc/trace_seq_fwd.cu), K2 (csrc/trace_seq_bwd.cu), K3
-(csrc/grid_bin.cu), K5 (csrc/trace_nonseq_fwd.cu) and K6
-(csrc/trace_nonseq_bwd.cu) against their plain PyTorch versions, on the
-card, and the paths that run them.
+(csrc/grid_bin.cu), K4 (csrc/grid_corners.cu), K5
+(csrc/trace_nonseq_fwd.cu) and K6 (csrc/trace_nonseq_bwd.cu) against their
+plain PyTorch versions, on the card, and the paths that run them, pixelated
+phase plates included.
 
 Every test here needs a CUDA card and is marked ``cuda``; without a card
 each skips.  The file imports neither jax nor the JAX package, so on a
@@ -15,9 +16,12 @@ multiply-adds, eager torch does not); moments rtol 1e-5 atol 1e-3 (another
 summation order).  At N = 2,999 no ray sits close enough to a rim for its
 hit to flip.  K2's cotangents are held to chip_smoke.py's bounds (BWD_TOL,
 TAB_RTOL; reasons there); so are grids (GRID_RAND_RTOL, GRID_SHARE and the
-grid totals), K5 (the NS_* bounds) and K6 (``chip_smoke.compare_k6``),
-with the reasons there.
+grid totals), K5 (the NS_* bounds), K6 (``chip_smoke.compare_k6``) and the
+phase plates' map cotangents (``chip_smoke.compare_maps``), with the reasons
+there.
 """
+
+import math
 
 import pytest
 import torch
@@ -25,7 +29,8 @@ import torch
 import chip_smoke
 import raytracetorch_tpu_torch as trt
 from raytracetorch_tpu_torch.core.sensor import bin_indices
-from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace, grid
+from raytracetorch_tpu_torch.ops import (fused_nonseq, fused_trace, grid,
+                                         phase_grid)
 
 torch.set_num_threads(2)
 
@@ -461,3 +466,183 @@ def test_k6_takes_strided_cotangents(dev):
     for a, b in zip(res[0][1], res[1][1]):
         assert torch.equal(a, b)
     assert float(res[0][1][0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(16, 16), (40, 40), (256, 256)])
+def test_k4_matches_plain(shape, dev):
+    """K4's gather bit for bit and its scatter per chip_smoke.compare_maps,
+    on cells partly outside the map (clamped)."""
+    gen = torch.Generator(device=dev).manual_seed(shape[0])
+    cmap = torch.randn(*shape, generator=gen, device=dev)
+    iv, iu = (torch.randint(-3, shape[0] + 3, (N,), generator=gen,
+                            device=dev, dtype=torch.int32) for _ in range(2))
+    before = phase_grid.CORNER_LAUNCHES, phase_grid.CORNER_BWD_LAUNCHES
+    c_k = phase_grid.grid_corners_cuda(cmap, iv, iu)
+    g_c = tuple(torch.randn(N, generator=gen, device=dev) for _ in range(4))
+    s_k = phase_grid.grid_corners_bwd_cuda(g_c, iv, iu, shape)
+    assert (phase_grid.CORNER_LAUNCHES, phase_grid.CORNER_BWD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    c_p = phase_grid.grid_corners_plain(cmap, iv, iu)
+    s_p = phase_grid.grid_corners_bwd_plain(g_c, iv, iu, shape)
+    torch.cuda.synchronize()
+    for a, b in zip(c_k, c_p):
+        assert torch.equal(a, b)
+    chip_smoke.compare_maps(torch, (s_k,), (s_p,))
+
+
+def _plate_case(kind, dev):
+    """The ring former with a 40 x 40 closed-form map, lit beyond its rims
+    (chip_smoke.rim_rays), as a SequentialScene or a 3-bounce Scene with a
+    256 x 256 irradiance grid."""
+    scene = chip_smoke.ring_scene(
+        trt, shape=(40, 40), bounces=None if kind == 'sequential' else 3,
+        grid=kind == 'scene')
+    params = chip_smoke.ring_params(scene, dev)
+    return scene, params, chip_smoke.rim_rays(trt, torch, N, dev, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['sequential', 'scene'])
+def test_plate_kernels_match_plain(kind, dev):
+    """K1 (or K5) with a plate against its plain version, with this file's
+    forward bounds (the NS_* bounds for K5), and K2 (or K6) per
+    chip_smoke.compare_plate_bwd."""
+    scene, params, rays = _plate_case(kind, dev)
+    cfg, meta = scene.sensor_config(), scene.static_meta()
+    flat = trt.flatten_table_rows(scene.build_table(params))
+    kinds = _kinds(meta, cfg, dev)
+    maps = fused_trace.plate_maps(meta, scene.side_grids(params))
+    if kind == 'sequential':
+        out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg,
+                                                    maps)
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps)
+        torch.cuda.synchronize()
+        _assert_kernel_matches_plain(out_k, s_k, out_p, s_p)
+    else:
+        out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, scene.n_bounces, maps)
+        out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, scene.n_bounces, maps)
+        torch.cuda.synchronize()
+        chip_smoke.compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    assert int((out_k.intensity > 0).sum()) > N // 2
+    chip_smoke.compare_plate_bwd(trt, torch, scene, params, rays, 7,
+                                 nonseq=kind == 'scene')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['sequential', 'scene'])
+def test_map_only_gradient_on_the_card(kind, dev):
+    """Only the map requires grad: simulate_fused still runs its autograd
+    Function (the forward and backward kernels once each) and gives the
+    map the eager trace's gradient (each cell within GRAD_RTOL of the
+    largest); the eager trace launches K4's gather and scatter once each
+    per bounce that meets the plate."""
+    scene, _, rays = _plate_case(kind, dev)
+    fwd = (lambda: fused_trace.LAUNCHES) if kind == 'sequential' else \
+        (lambda: fused_nonseq.NONSEQ_LAUNCHES)
+    bwd = (lambda: fused_trace.BWD_LAUNCHES) if kind == 'sequential' else \
+        (lambda: fused_nonseq.NONSEQ_BWD_LAUNCHES)
+    grads = []
+    for sim in (scene.simulate_fused, scene.simulate):
+        p = chip_smoke.ring_params(scene, dev, grad=True)
+        before = (fwd(), bwd(), phase_grid.CORNER_LAUNCHES,
+                  phase_grid.CORNER_BWD_LAUNCHES)
+        out, _, _ = sim(p, rays)
+        chip_smoke.ring_loss(torch, out).backward()
+        torch.cuda.synchronize()
+        after = (fwd(), bwd(), phase_grid.CORNER_LAUNCHES,
+                 phase_grid.CORNER_BWD_LAUNCHES)
+        moved = tuple(a - b for a, b in zip(after, before))
+        if sim == scene.simulate_fused:
+            assert moved == (1, 1, 0, 0)
+        else:
+            assert moved[:2] == (0, 0) and moved[2] >= 1 and moved[3] >= 1
+        grads.append(p['plate']['grid'].grad)
+    assert float(grads[0].abs().max()) > 0
+    chip_smoke.compare_maps(torch, grads[:1], grads[1:], chip_smoke.GRAD_RTOL)
+
+
+@pytest.mark.cuda
+def test_v1_runs_k1_with_every_stream_off(dev):
+    """trace_sequential_v1 launches K1's kernel (counted in V1_LAUNCHES, not
+    LAUNCHES) and equals K1 without a grid bit for bit."""
+    table, rays, cfg, meta = _bench_case(dev)
+    flat = trt.flatten_table_rows(table)
+    before = fused_trace.V1_LAUNCHES, fused_trace.LAUNCHES
+    out_v, sens_v, aux = trt.trace_sequential_v1(table, rays, cfg, meta)
+    assert (fused_trace.V1_LAUNCHES, fused_trace.LAUNCHES) == \
+        (before[0] + 1, before[1]) and aux == {}
+    out_k, sens_k = fused_trace.trace_seq_fwd_cuda(
+        flat, _kinds(meta, cfg, dev), rays, cfg)
+    for c in fused_trace.COMPS:
+        assert torch.equal(getattr(out_v, c), getattr(out_k, c))
+    assert torch.equal(sens_v.moments, sens_k.moments)
+
+
+def _rect_stop_case(dev):
+    """The two-bundle table with its inverted stop bounded by a 2 x 1
+    rectangle (RECT) instead of a disk, and a 16 x 16 irradiance grid: a
+    RECT bound without a plate, which the kernels test only in their
+    instantiation with plate code."""
+    from raytracetorch_tpu_torch.constants import PhysKind, SBKind, VBKind
+    from raytracetorch_tpu_torch.core.table import ROW_OFFSETS
+    table, rays, cfg, meta = _two_bundle_case(dev)
+    cfg = trt.SensorConfig(n_sensors=cfg.n_sensors, n_bundles=cfg.n_bundles,
+                           grid_shape=(16, 16), grid_half_extent=20.0)
+    flat = trt.flatten_table_rows(table).clone()
+    sb = ROW_OFFSETS['sb']
+    flat[4, sb:sb + 3] = torch.tensor([2.0, 1.0, 0.0])
+    meta = list(meta)
+    meta[4] = trt.StaticRowMeta(PhysKind.APERTURE, SBKind.RECT, VBKind.NONE,
+                                invert=True, plane=True)
+    return flat, rays, cfg, meta
+
+
+@pytest.mark.cuda
+def test_rect_bound_without_a_plate_runs_plate_code(dev):
+    """plate_maps gives () for a RECT bound without a plate, so K1, K2, K5
+    and K6 run their instantiation with plate code (no map) and match
+    their plain versions with this file's bounds."""
+    flat, rays, cfg, meta = _rect_stop_case(dev)
+    maps = fused_trace.plate_maps(meta, None)
+    assert maps == ()
+    kinds = _kinds(meta, cfg, dev)
+    out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps)
+    out_p, s_p = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                          meta, maps)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(out_k, s_k, out_p, s_p)
+    chip_smoke.compare_grid(torch, s_k.grid, s_p.grid,
+                            chip_smoke.GRID_TOTAL_RTOL)
+    g_rays, g_mom, g_grid = chip_smoke.random_cotangents(torch, rays.n, cfg,
+                                                         dev, 5)
+    gt_k, gr_k, gm_k = fused_trace.trace_seq_bwd_cuda(
+        flat, kinds, rays, cfg, g_rays, g_mom, g_grid=g_grid, maps=maps)
+    gt_p, gr_p, gm_p = fused_trace.trace_seq_bwd_plain(
+        flat, rays, cfg, meta, g_rays, g_mom, g_grid=g_grid, maps=maps)
+    torch.cuda.synchronize()
+    assert gm_k == gm_p == ()
+    chip_smoke.compare_ray_cotangents(
+        torch, gr_k, gr_p, intensity_allowed=math.ceil(chip_smoke.GRID_SHARE
+                                                       * rays.n))
+    chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
+                                        plates=True)
+    out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, 4,
+                                                    maps)
+    out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(flat, rays, cfg, meta,
+                                                       4, maps)
+    torch.cuda.synchronize()
+    chip_smoke.compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    gt_k, gr_k, _ = fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, rays, cfg, 4, g_rays, g_mom, g_grid=g_grid, maps=maps)
+    gt_p, gr_p, _ = fused_nonseq.trace_nonseq_bwd_plain(
+        flat, rays, cfg, meta, 4, g_rays, g_mom, g_grid=g_grid, maps=maps)
+    torch.cuda.synchronize()
+    chip_smoke.compare_ray_cotangents(
+        torch, gr_k, gr_p, allowed=3,
+        intensity_allowed=math.ceil(chip_smoke.GRID_SHARE * rays.n))
+    chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
+                                        plates=True)

@@ -18,7 +18,8 @@ import raytracetorch_tpu_torch as trt
 from raytracetorch_tpu import ElementCustom
 from raytracetorch_tpu.constants import PhysKind
 from raytracetorch_tpu.elements import shapes
-from raytracetorch_tpu.ops.pallas_trace import trace_sequential_pallas_v2
+from raytracetorch_tpu.ops.pallas_trace import (trace_sequential_pallas,
+                                               trace_sequential_pallas_v2)
 from raytracetorch_tpu_torch import interop
 from raytracetorch_tpu_torch.ops import fused_trace
 
@@ -145,19 +146,126 @@ def _asphere_scene():
 
 
 def _rect_scene():
+    # a rectangular (RECT-bound) microlens array: the bound is ported, the
+    # MLA physics is not
     return jrt.SequentialScene([
-        jrt.RectangularAperture(half_x=2.0, half_y=1.0, name='rect'),
+        jrt.MicrolensArray(half_x=2.0, half_y=1.0, pitch=0.5, f=10.0,
+                           name='mla'),
+        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+
+
+def _ellipse_scene():
+    return jrt.SequentialScene([
+        jrt.EllipticAperture(r_major=2.0, r_minor=1.0, name='ellipse'),
         jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
                           name='sensor')])
 
 
 @pytest.mark.parametrize('make', [_fresnel_scene, _asphere_scene,
-                                  _rect_scene])
+                                  _rect_scene, _ellipse_scene])
 def test_dispatcher_raises_on_unsupported_rows(make):
     scene = make()
     table, rays, cfg, meta = _port_inputs(scene, _rays(64, 1, seed=0), 1)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         trt.trace_sequential_fused(table, rays, cfg, meta)
+
+
+def test_rect_bound_rows_trace():
+    """The RECT surface bound (a phase plate's aperture) is ported: an
+    inverted rectangular stop's row traces through the dispatcher and
+    matches the JAX package's fused kernel, with the bounds of
+    test_plain_matches_jax_kernel; it passes the rays inside the rectangle
+    and blocks the others."""
+    scene = jrt.SequentialScene([
+        jrt.RectangularAperture(half_x=2.0, half_y=1.0, invert=True,
+                                name='rect'),
+        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+    rays = _rays(N, 1, seed=5)
+    out_j, sens_j, _ = trace_sequential_pallas_v2(
+        scene.build_table(scene.init_params()), rays, jax.random.PRNGKey(0),
+        scene.sensor_config(), scene.static_meta(), interpret=True,
+        block_rows=4)
+    table, rays_t, cfg, meta = _port_inputs(scene, rays, 1)
+    out_t, sens_t = trt.trace_sequential_fused(table, rays_t, cfg, meta)
+    np.testing.assert_allclose(out_t.pos.numpy(), np.asarray(out_j.pos),
+                               atol=1e-5)
+    np.testing.assert_allclose(out_t.intensity.numpy(),
+                               np.asarray(out_j.intensity), atol=1e-6)
+    np.testing.assert_allclose(sens_t.moments.numpy(),
+                               np.asarray(sens_j.moments), rtol=1e-5,
+                               atol=1e-3)
+    passed = np.asarray(out_j.intensity) > 0
+    assert 0 < passed.sum() < N
+
+
+def test_plate_code_only_for_plate_kinds():
+    """``plate_maps`` selects the kernels' instantiation with plate code
+    (anything but None) exactly for scenes with a PHASE_GRID row or a RECT
+    bound: None for the bench scene, () for a rectangular stop, the map for
+    a plate."""
+    def meta_of(scene):
+        return _port_inputs(scene, _rays(8, 1, seed=0), 1)[3]
+    assert fused_trace.plate_maps(meta_of(_bench()), None) is None
+    rect = jrt.SequentialScene([
+        jrt.RectangularAperture(half_x=2.0, half_y=1.0, name='rect'),
+        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+    assert fused_trace.plate_maps(meta_of(rect), None) == ()
+    plate = jrt.SequentialScene([
+        jrt.PhaseGridPlate(half_x=4.0, half_y=4.0, shape=(8, 8), name='pp'),
+        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+    grid = torch.zeros(8, 8)
+    assert fused_trace.plate_maps(meta_of(plate), {0: grid})[0] is grid
+    with pytest.raises(ValueError, match='no phase map'):
+        fused_trace.plate_maps(meta_of(plate), None)
+
+
+def test_v1_matches_jax_first_kernel():
+    """K0's counterpart ``trace_sequential_v1`` (the chain with every stream
+    off) against the JAX package's ``trace_sequential_pallas`` in interpret
+    mode on the bench scene, with tests/test_pallas.py::
+    test_pallas_matches_xla's bounds: positions atol 1e-5, directions and
+    intensity atol 1e-6, moments rtol 1e-5 atol 1e-3.  CPU tensors run the
+    plain version (no launch)."""
+    scene = _bench()
+    rays = _rays(3000, 1, seed=0)
+    out_j, sens_j, _ = trace_sequential_pallas(
+        scene.build_table(scene.init_params()), rays, jax.random.PRNGKey(0),
+        scene.sensor_config(), scene.static_meta(), interpret=True)
+    table, rays_t, cfg, meta = _port_inputs(scene, rays, 1)
+    fused_trace.V1_LAUNCHES = 0
+    out_t, sens_t, aux = trt.trace_sequential_v1(table, rays_t, cfg, meta)
+    assert fused_trace.V1_LAUNCHES == 0 and aux == {}
+    np.testing.assert_allclose(out_t.pos.numpy(), np.asarray(out_j.pos),
+                               atol=1e-5)
+    np.testing.assert_allclose(out_t.dir.numpy(), np.asarray(out_j.dir),
+                               atol=1e-6)
+    np.testing.assert_allclose(out_t.intensity.numpy(),
+                               np.asarray(out_j.intensity), atol=1e-6)
+    np.testing.assert_allclose(sens_t.moments.numpy(),
+                               np.asarray(sens_j.moments), rtol=1e-5,
+                               atol=1e-3)
+
+
+def test_v1_keeps_the_first_kernels_contract():
+    """Like ``trace_sequential_pallas`` it refuses an irradiance grid and
+    phase-grid rows (and, through the dispatcher, more than 8 slots)."""
+    table, rays_t, cfg, meta = _port_inputs(_bench(), _rays(64, 1, seed=0),
+                                            1)
+    grid_cfg = trt.SensorConfig(n_sensors=1, grid_shape=(8, 8),
+                                grid_half_extent=1.0)
+    with pytest.raises(ValueError, match='grid'):
+        trt.trace_sequential_v1(table, rays_t, grid_cfg, meta)
+    plate = jrt.SequentialScene([
+        jrt.PhaseGridPlate(half_x=4.0, half_y=4.0, shape=(8, 8), name='pp'),
+        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+    table, rays_t, cfg, meta = _port_inputs(plate, _rays(64, 1, seed=0), 1)
+    with pytest.raises(ValueError, match='phase-grid'):
+        trt.trace_sequential_v1(table, rays_t, cfg, meta)
 
 
 def test_kernel_limits_raise():
