@@ -11,11 +11,16 @@ the named kernel, the number of device operations, and the host wall time
 of the profiled calls (slowed by the profiler itself), so busy = device
 time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 
-- the kernel wrappers: K1 (with and without the 256 x 256 grid), K2,
-  K3 on the bench spot, K5 on the naive scene (8 bounces, grid) and K6 on
-  the same scene with the cotangents of a spot and grid loss (also at 16M
-  rays); K4's gather and scatter on the 256 x 256 ring-former map, and K1,
-  K2, K5 and K6 with that plate (chip_smoke.py section 7);
+- the kernel wrappers: K1 (with and without the 256 x 256 grid), K2 (also
+  at 16M rays), K3 on the bench spot, K5 on the naive scene (8 bounces,
+  grid) and K6 on the same scene with the cotangents of a spot and grid
+  loss (also at 16M rays); K4's gather and scatter on the 256 x 256
+  ring-former map, and K1, K2, K5 and K6 with that plate (chip_smoke.py
+  section 7);
+- the library calls that compute K3's and K4's functions, as chip_smoke.py
+  times them: one ``index_put_`` (accumulate) of the bench spot's unit
+  weights into the 256 x 256 grid, and the four advanced-index reads and
+  four ``index_put_`` (accumulate) of K4's corners on the 256 x 256 map;
 - the end-to-end calls: ``SequentialScene.simulate_fused``, the fused grad
   step, ``Scene.simulate_fused``, its grad step (K5 + K6), the eager
   ``Scene.simulate`` and the deep-optics grad step (the ring former, the
@@ -130,6 +135,18 @@ def main():
     civ, ciu = cs.plate_cells(torch, do_rays, cs.DO_MAP)
     g_c = tuple(torch.randn(n, device=dev) for _ in range(4))
     do_grad_p = cs.ring_params(do_seq, dev, grad=True)
+    # the library calls of K3 and K4 (chip_smoke.py section 6)
+    from raytracetorch_tpu_torch.core.sensor import bin_indices
+    ix, iy = bin_indices(cs.GRID, cs.GRID_E, spot.px, spot.py)
+    spot_idx = (iy * cs.GRID[1] + ix,)
+    g_spot = torch.zeros(cs.GRID[0] * cs.GRID[1], device=dev)
+    v0, v1, u0, u1 = phase_grid._cells(cs.DO_MAP, civ, ciu)
+    corner_cells = ((v0, u0), (v0, u1), (v1, u0), (v1, u1))
+    g_corner = torch.zeros(cs.DO_MAP, device=dev)
+
+    def corner_scatter_library():
+        for g, cell in zip(g_c, corner_cells):
+            g_corner.index_put_(cell, g, accumulate=True)
 
     def do_grad_step():
         out, _, _ = do_seq.simulate_fused(do_grad_p, do_rays)
@@ -144,8 +161,12 @@ def main():
                     'trace_seq_fwd_kernel'),
         'k2': (lambda: fused_trace.trace_seq_bwd_cuda(
             flat, kinds, rays, cfg, (None,) * 7, g_mom), 'trace_seq_bwd'),
+        'k2_16m': (lambda: fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays16, cfg, (None,) * 7, g_mom), 'trace_seq_bwd'),
         'k3_spot': (lambda: grid.bin_grid_cuda(spot.px, spot.py, ones, 0,
                                                gcfg), 'grid_bin_kernel'),
+        'k3_library': (lambda: g_spot.index_put_(spot_idx, ones,
+                                                 accumulate=True), None),
         'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
             nflat, nkinds, rays, ncfg, nscene.n_bounces),
             'trace_nonseq_fwd_kernel'),
@@ -168,6 +189,9 @@ def main():
                'grid_corners_kernel'),
         'k4_scatter': (lambda: phase_grid.grid_corners_bwd_cuda(
             g_c, civ, ciu, cs.DO_MAP), 'grid_corners_bwd_kernel'),
+        'k4_library': (lambda: [cmap[cell] for cell in corner_cells],
+                       None),
+        'k4_scatter_library': (corner_scatter_library, None),
         'k1_plate': (lambda: fused_trace.trace_seq_fwd_cuda(
             *plate['seq'][:2], do_rays, *plate['seq'][2:]),
             'trace_seq_fwd_kernel'),

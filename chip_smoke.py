@@ -26,6 +26,8 @@ against the eager paths, and times the kernels, their plain versions, a
 library call where one computes the same function, and the end-to-end
 calls with CUDA events.
 
+The build phase prints each kernel's ptxas registers and spills, and the
+next K2's and K6's resident blocks per SM on their main paths' launches.
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero.  Then come the kernel summary line (each kernel's launches
 on its main path, error, time, plain time, the bound of its work on this
@@ -115,8 +117,9 @@ NS_SPOT_RTOL = 1e-3
 # re-hits the mirror): about a third of its rays end elsewhere under another
 # rounding (tests/test_torch_nonseq_grad.py), so there the count of such
 # rays is reported, not bounded.
-# K6's checkpointed bounces per thread (kCkpt in csrc/trace_nonseq_bwd.cu).
-K6_CHECKPOINTS = 8
+# K6's most checkpointed bounces per thread (kCkpt in
+# csrc/trace_nonseq_bwd.cu), the length of the segments it replays.
+K6_CHECKPOINTS = 13
 # Deep optics: the ring former of examples/28_deep_optics_plate.py, a
 # PhaseGridPlate (half extents 4) and a sensor (radius 10) at z = 40, lit by
 # a collimated disk of radius 3 at z = -3, lam 0.5876 um; every ray should
@@ -440,7 +443,7 @@ def mirror_fold_rays(rt, torch, n, device, seed):
 def cavity_scene(rt):
     """Two facing spherical mirrors 40 apart and an off-axis sensor between
     them, 25 bounces, no grid (tests/test_pallas.py::
-    test_nonseq_bwd_scan_large_budget): rays live beyond K6's 8 checkpoints.
+    test_nonseq_bwd_scan_large_budget): rays live beyond K6's 13 checkpoints.
     Rays: ``mirror_fold_rays``."""
     return rt.Scene([
         rt.SphericalMirror(c1=-0.02, d=0.0, translation=[0.0, 0.0, 40.0],
@@ -721,12 +724,10 @@ def grid_bytes(cfg):
 
 
 def nonseq_work(rt, torch, scene, params, rays):
-    """K5's data-dependent work on these rays: the row scans it runs (one per
-    ray and bounce begun with intensity > 0 and a hit in the last bounce),
-    the winners per row, the largest number of bounces a ray won, and the
-    bounces K6 replays for the earlier segments of the rays that live beyond
-    its 8 checkpoints (8 + 16 + ... + 8m for a ray of m earlier segments),
-    counted with the plain bounce loop."""
+    """K5's data-dependent work on these rays, counted with the plain bounce
+    loop: the row scans it runs (one per ray and bounce begun with
+    intensity > 0 and a hit in the last bounce), the winners per row, and
+    each ray's number of bounces won ([N] int32)."""
     from raytracetorch_tpu_torch.core.trace import bounce_step, nearest_hit
     table = scene.build_table(params)
     meta = scene.static_meta()
@@ -749,9 +750,32 @@ def nonseq_work(rt, torch, scene, params, rays):
                 wins[k] += int((act & going & (win == k)).sum())
             lives += (act & going).int()
             going = going & act & (rays.intensity > 0)
-    m = (lives - 1).clamp(min=0) // K6_CHECKPOINTS
-    replayed = int((K6_CHECKPOINTS // 2 * m * (m + 1)).sum())
-    return scans, wins, int(lives.max()), replayed
+    return scans, wins, lives
+
+
+def segment_replays(lives, checkpoints=K6_CHECKPOINTS):
+    """The bounces K6 replays for the earlier segments of rays that live
+    ``lives`` bounces, with ``checkpoints`` bounces a segment: a ray of m
+    earlier segments replays K + 2K + ... + mK, K = checkpoints (K6 keeps
+    min(budget, K6_CHECKPOINTS), and no ray outlives a budget below it)."""
+    m = (lives - 1).clamp(min=0) // checkpoints
+    return int((checkpoints * m * (m + 1) // 2).sum())
+
+
+def nonseq_ops(meta, scans, wins, replayed):
+    """(K5's, K6's) float32 operations for this work: K5 scans every row at
+    each bounce and applies the winner's physics; K6 replays K5, then per
+    winning bounce recomputes the winner and runs its adjoint, about twice
+    the forward's size (the rows that lose the argmin have a zero adjoint),
+    and each segment-replay bounce is a scan and the average winner's
+    physics (csrc/trace_nonseq_bwd.cu)."""
+    scan_ops = sum(intersect_ops(m) for m in meta)
+    apply = sum(w * apply_ops(m) for w, m in zip(wins, meta))
+    k5 = scans * scan_ops + apply
+    k6 = (k5 + 3 * sum(w * (intersect_ops(m) + apply_ops(m))
+                       for w, m in zip(wins, meta))
+          + replayed * (scan_ops + apply / max(sum(wins), 1)))
+    return k5, k6
 
 
 def time_ms(torch, fn, warmup=3, reps=20):
@@ -844,6 +868,22 @@ def main():
          ptxas={k: [ln.strip() for ln in v[0].splitlines()
                     if 'registers' in ln or 'spill' in ln]
                 for k, v in logs.items()})
+    # K2's and K6's resident blocks per SM on their main paths' launches
+    # (the bench scene, the naive scene; with plate code, the ring former)
+    occ, rs = {}, ring_scene(rt, bounces=DO_BOUNCES, grid=True)
+    for lib, sc in (('trace_seq_bwd', bench_scene(rt)),
+                    ('trace_nonseq_bwd', naive_scene(rt))):
+        occ[lib] = fused_trace.blocks_per_sm(lib, len(sc.static_meta()),
+                                             sc.sensor_config(), False,
+                                             sc.n_bounces)
+        occ[lib + '_plate'] = fused_trace.blocks_per_sm(
+            lib, len(rs.static_meta()), rs.sensor_config(), True,
+            rs.n_bounces)
+    cav = cavity_scene(rt)
+    occ['trace_nonseq_bwd_cavity'] = fused_trace.blocks_per_sm(
+        'trace_nonseq_bwd', len(cav.static_meta()), cav.sensor_config(),
+        False, cav.n_bounces)
+    emit('occupancy', blocks_per_sm=occ)
 
     # 3. K1 vs plain on the card
     scene = bench_scene(rt)
@@ -1259,10 +1299,23 @@ def main():
                 check(res['row0_curvature_cotangent'] > 0,
                       f'{case}: no cotangent for the mirror curvature')
             if case == 'cavity' and n == N_MAIN:
-                _, _, res['max_live_bounces'], res['replayed_bounces'] = \
-                    nonseq_work(rt, torch, nsc, nsc.init_params(dev), rays)
+                # its work, and K6's bound as timed in section 6 (these rays,
+                # the moments' cotangent) under K6's checkpoints and under
+                # the 8 of its earlier design
+                cmeta = nsc.static_meta()
+                c_scans, c_wins, lives = nonseq_work(
+                    rt, torch, nsc, nsc.init_params(dev), rays)
+                res['max_live_bounces'] = int(lives.max())
+                for ck in sorted({K6_CHECKPOINTS, 8}):
+                    rep = segment_replays(lives, ck)
+                    res[f'replayed_bounces_{ck}'] = rep
+                    res[f'bound_{ck}'] = dict(zip(('ms', 'by'), bound(
+                        n * (32 + 28) + table_bytes(cmeta)
+                        + len(cmeta) * 19 * 4,
+                        nonseq_ops(cmeta, c_scans, c_wins, rep)[1])))
                 check(res['max_live_bounces'] > K6_CHECKPOINTS,
-                      'no cavity ray lives beyond the 8 checkpoints')
+                      f'no cavity ray lives beyond the {K6_CHECKPOINTS} '
+                      f'checkpoints')
             ns_bwd[f'{case}_{n}'] = res
     emit('nonseq_bwd', **ns_bwd)
 
@@ -1893,35 +1946,19 @@ def main():
     n = N_MAIN
     k1_ops = n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
     k1_bytes = n * (32 + 28) + table_bytes(meta)
-    scans, wins, _, replayed = nonseq_work(
+    scans, wins, lives = nonseq_work(
         rt, torch, nscene, nparams, sample_rays(rt, torch, n, dev, SEED + 1))
-    scan_ops = sum(intersect_ops(m) for m in nmeta)
-    win_ops = [w * (intersect_ops(m) + apply_ops(m))
-               for w, m in zip(wins, nmeta)]
-    k5_ops = (scans * scan_ops
-              + sum(w * apply_ops(m) for w, m in zip(wins, nmeta)))
-    # K6: K5's replay; per winning bounce the winner's recompute and its
-    # adjoint, about twice the forward's size (the rows that lose the argmin
-    # have a zero adjoint); each segment-replay bounce a scan and the
-    # average winner's physics (csrc/trace_nonseq_bwd.cu)
-    k6_ops = (k5_ops + 3 * sum(win_ops) + replayed * (
-        scan_ops + sum(w * apply_ops(m) for w, m in zip(wins, nmeta))
-        / max(sum(wins), 1)))
+    replayed = segment_replays(lives)
+    k5_ops, k6_ops = nonseq_ops(nmeta, scans, wins, replayed)
     # with the 256 x 256 plate: K1 also reads the wavelength and the corners
     # (in L2); K2 also scatters into the map's cotangent; K5 and K6 on the
     # plate Scene with its 256 x 256 irradiance grid
     map_bytes = DO_MAP[0] * DO_MAP[1] * 4
     p_ops = n * sum(intersect_ops(m) + apply_ops(m) for m in smeta)
-    p_scans, p_wins, _, p_replayed = nonseq_work(
+    p_scans, p_wins, p_lives = nonseq_work(
         rt, torch, do_ns, do_np, ring_rays(rt, torch, n, dev, SEED + 1))
-    p_scan_ops = sum(intersect_ops(m) for m in nmeta_p)
-    p_k5_ops = (p_scans * p_scan_ops
-                + sum(w * apply_ops(m) for w, m in zip(p_wins, nmeta_p)))
-    p_k6_ops = (p_k5_ops + 3 * sum(
-        w * (intersect_ops(m) + apply_ops(m))
-        for w, m in zip(p_wins, nmeta_p)) + p_replayed * (
-        p_scan_ops + sum(w * apply_ops(m) for w, m in zip(p_wins, nmeta_p))
-        / max(sum(p_wins), 1)))
+    p_k5_ops, p_k6_ops = nonseq_ops(nmeta_p, p_scans, p_wins,
+                                    segment_replays(p_lives))
     plate_bounds = {
         'k1': bound(n * (36 + 28) + table_bytes(smeta) + map_bytes, p_ops),
         'k2': bound(n * (36 + 28) + table_bytes(smeta) + 3 * map_bytes,

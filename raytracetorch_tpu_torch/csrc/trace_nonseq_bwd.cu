@@ -37,17 +37,24 @@
 //   of intersect_row, world_normal and apply_physics).  The wrapper can ask
 //   for the state the replay ends at; chip_smoke.py holds it to K5's output.
 // - Checkpoints: the TPU kernel keeps every bounce's state in VMEM scratch
-//   sized by the budget.  A thread here keeps kCkpt = 8 bounces in an array
-//   that the unrolled loops index at compile time, so it lives in registers;
-//   nothing of size budget x N is allocated (7 floats x 100 bounces x 1M rays
-//   would be 2.8 GB).  8 covers the naive scene (4 winning bounces) and the
-//   mirror fold (2).  A ray that lives longer (the two-mirror cavity, 25) is
-//   reversed in segments of 8 bounces, the last first: the first replay
-//   leaves the last segment in the array; for each earlier segment the
+//   sized by the budget.  A thread here keeps up to kCkpt = 13 bounces
+//   (input state, winner row and bits: trace_seq_adjoint.cuh::put_state)
+//   in shared memory, [bounce][word][thread], 8 KB a bounce for a block,
+//   min(budget, 13) of them; nothing of size budget x N is allocated (7
+//   floats x 100 bounces x 1M rays would be 2.8 GB), and no register holds
+//   them, so the bounce loops need not unroll and the kernel keeps one copy
+//   of the bounce and of the adjoint.  The naive scene (budget 8, 4 winning
+//   bounces) and the plates (3) never run out.  A ray that lives longer
+//   than 13 bounces (the two-mirror cavity, 25) is reversed in segments of
+//   13, the last first: the first replay leaves the last segment in the
+//   checkpoints (bounce b in slot b % 13); for each earlier segment the
 //   thread replays from its start to the segment's first bounce and saves
 //   the segment.  The replay runs the same code on the same inputs, so it
 //   reaches the same states bit for bit.  The cost is a replay of
-//   L^2 / (2 * 8) bounces for a ray that lives L bounces.
+//   about L^2 / (2 * 13) bounces for a ray that lives L bounces.
+// - Occupancy: __launch_bounds__(256, 2) caps the instantiation without
+//   plate code at 128 registers, so two blocks (16 warps) share an SM
+//   (trace_seq_adjoint.cuh::bwd_min_blocks).
 // - Reverse sweep, last live bounce to first: K2's row adjoint of the
 //   winner with its saved bits.  A sensor winner adds the moment adjoint
 //   with the constant g_moments[slot, bundle] at its hit, weighted by the
@@ -59,11 +66,12 @@
 // - Table cotangent: each ray adds to the row it won at each bounce, and the
 //   rays of a warp win different rows.  The reverse loop runs warp-uniform,
 //   to the warp's largest live bounce count (lanes past their own count add
-//   zeros), and per bounce the warp reduces, by shuffles, one row at a time
-//   for each distinct winner among its lanes (a ballot picks them), into a
-//   [K, 19] slot in shared memory that only this warp writes.  At the end a
-//   fixed-order sum over the warps writes a [blocks, K, 19] buffer that the
-//   wrapper sums and scatters into [K, 160].  No atomics: deterministic.
+//   zeros), and per bounce the warp reduces one row at a time for each
+//   distinct winner among its lanes (a ballot picks them; K2's transpose
+//   reduce-scatter, trace_seq_adjoint.cuh::reduce_row) into a [K, 19] slot
+//   in shared memory that only this warp writes.  At the end a fixed-order
+//   sum over the warps writes a [blocks, K, 19] buffer that the wrapper sums
+//   and scatters into [K, 160].  No atomics: deterministic.
 //   The cotangent is nonzero only in K2's 19 columns (q, Rw, tw, ph), 23
 //   with phase plates.  A scene with neither a plate nor a RECT bound runs
 //   the instantiation without plate code (kPlates = false).
@@ -74,16 +82,17 @@
 // every bounce) plus, per live bounce, about 3x the winner's own
 // intersection and physics (the winner's recompute in row_backward, then an
 // adjoint about twice its size; the rows that lose the argmin have a zero
-// adjoint), plus the segment replays of long-lived rays and a warp
-// reduction per bounce and winner.  On the naive scene that is ~1.6x K5's
+// adjoint), plus the segment replays of long-lived rays and a
+// reduce-scatter (31 shuffles) per bounce and distinct winner of a warp.  On the naive scene that is ~1.6x K5's
 // operations, so like K2 and K5 it should be bound by its arithmetic.  This
 // is an estimate by count (chip_smoke.py computes the bound from a run's
 // rays); PERF.md holds the measured time.
 //
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
 // bundles, any bounce budget >= 0.  Shared memory is 4 * (168 K + 7 S B +
-// 8 * 19 K) bytes: 82 KB at 64 rows, so the launcher raises the block's
-// dynamic shared-memory limit above 48 KB.
+// 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
+// 111 KB for the cavity, 186 KB at 64 rows, so the launcher raises the
+// block's dynamic shared-memory limit above 48 KB.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K2, with K2's
 // derivative conventions (trace_seq_bwd.cu).
@@ -98,7 +107,19 @@ using namespace rtt;
 
 namespace {
 
-constexpr int kCkpt = 8;  // checkpointed bounces per thread
+// The most checkpointed bounces per thread, in shared memory: kCkpt x
+// kStateWords x 256 x 4 bytes, 104 KB at 13: the most with which two blocks
+// of a table of up to 8 rows still share an SM's 228 KB.  A launch keeps
+// min(budget, kCkpt) (checkpoints()): a budget that fits takes no more
+// shared memory than it needs, and leaves the rest to L1.
+#ifndef RTT_K6_CKPT
+#define RTT_K6_CKPT 13
+#endif
+constexpr int kCkpt = RTT_K6_CKPT;
+
+__host__ __device__ __forceinline__ int checkpoints(int n_bounces) {
+  return n_bounces < 1 ? 1 : (n_bounces < kCkpt ? n_bounces : kCkpt);
+}
 constexpr unsigned kFull = 0xffffffffu;
 
 // One bounce of K5 (nonseq_bounce, the very function K5 runs).  Returns the
@@ -120,8 +141,7 @@ __device__ __forceinline__ int bounce(const float* tab, const int32_t* knd, int 
 // 23] slots: one reduction per distinct winner row k among the lanes (k < 0:
 // the lane applied no row).  Every lane of the warp calls it.
 template <bool kPlates>
-__device__ __forceinline__ void reduce_winners(const int32_t* knd, int k, const float* tg,
-                                               float* slots, int lane) {
+__device__ __forceinline__ void reduce_winners(int k, const float* tg, float* slots, int lane) {
   constexpr int kCols = grad_cols<kPlates>();
   unsigned pending = __ballot_sync(kFull, k >= 0);
   while (pending != 0u) {
@@ -131,12 +151,12 @@ __device__ __forceinline__ void reduce_winners(const int32_t* knd, int k, const 
     float m[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) m[c] = mine ? tg[c] : 0.0f;
-    reduce_row<kPlates>(read_row_kinds(knd + row * kKindWidth), m, slots + row * kCols, lane);
+    reduce_row<kPlates>(m, slots + row * kCols, lane);
   }
 }
 
 template <bool kPlates>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kPlates>())
 trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                         int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                         const float* __restrict__ pz, const float* __restrict__ dx,
@@ -188,39 +208,27 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
 
   // ---- forward replay: K5's loop; counts the live bounces L and leaves the
-  // last segment of them in the checkpoints ----
-  float ck[kCkpt][7];  // each bounce's input state p, d, intensity
-  uint32_t ckw[kCkpt];  // its winner row << 16 | the winner's bits
+  // last segment of them in the checkpoints, bounce b in slot b % n_ck ----
+  // each checkpoint: a bounce's input state p, d, intensity and its winner
+  // row << 16 | the winner's bits, [n_ck][kStateWords][kThreads]
+  const int n_ck = checkpoints(n_bounces);
+  float* const ck = warp_tab + kWarps * n_rows * kCols + tid;
+  constexpr int kSlot = kStateWords * kThreads;
   V3 p = p0, d = d0;
   float inten = i0;
   int n_live = 0;
-  bool going = true;
-  for (int s = 0; going; s += kCkpt) {
-#pragma unroll
-    for (int j = 0; j < kCkpt; ++j) {
-      if (going && (s + j >= n_bounces || !(inten > 0.0f))) going = false;
-      if (going) {
-        // a bounce that no row wins leaves slot j alone: it may hold bounce
-        // s + j - kCkpt of the last segment, which the reverse sweep needs
-        const V3 pb = p, db = d;
-        const float ib = inten;
-        uint32_t bits = 0;
-        const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
-        if (k < 0) {
-          going = false;
-        } else {
-          ck[j][0] = pb.x;
-          ck[j][1] = pb.y;
-          ck[j][2] = pb.z;
-          ck[j][3] = db.x;
-          ck[j][4] = db.y;
-          ck[j][5] = db.z;
-          ck[j][6] = ib;
-          ckw[j] = (static_cast<uint32_t>(k) << 16) | bits;
-          n_live = s + j + 1;
-        }
-      }
-    }
+#pragma unroll 1
+  for (int b = 0; b < n_bounces && inten > 0.0f; ++b) {
+    const V3 pb = p, db = d;
+    const float ib = inten;
+    uint32_t bits = 0;
+    const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
+    // a bounce that no row wins leaves its slot alone: it may hold bounce
+    // b - n_ck of the last segment, which the reverse sweep needs
+    if (k < 0) break;
+    put_state<kThreads>(ck + (b % n_ck) * kSlot, pb, db, ib,
+                        (static_cast<uint32_t>(k) << 16) | bits);
+    n_live = b + 1;
   }
   if (live && rpx != nullptr) {
     rpx[i] = p.x;
@@ -232,7 +240,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
     rintensity[i] = inten;
   }
 
-  // ---- reverse sweep, in segments of kCkpt bounces, the last first ----
+  // ---- reverse sweep, in segments of n_ck bounces, the last first ----
   V3 gp = {0.0f, 0.0f, 0.0f}, gd = {0.0f, 0.0f, 0.0f};
   float gi = 0.0f;
   if (live) {
@@ -241,48 +249,43 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
     gi = gintensity ? gintensity[i] : 0.0f;
   }
   const int warp_live = __reduce_max_sync(kFull, n_live);
-  const int s_last = warp_live > 0 ? (warp_live - 1) / kCkpt * kCkpt : -1;
+  const int s_last = warp_live > 0 ? (warp_live - 1) / n_ck * n_ck : -1;
   float* slots = warp_tab + warp * n_rows * kCols;
-  for (int s = s_last; s >= 0; s -= kCkpt) {  // warp-uniform
+#pragma unroll 1
+  for (int s = s_last; s >= 0; s -= n_ck) {  // warp-uniform
     if (s != s_last && s < n_live) {
-      // replay from the ray's start to bounce s, then save [s, s + kCkpt)
+      // replay from the ray's start to bounce s, then save [s, s + n_ck)
       p = p0;
       d = d0;
       inten = i0;
       uint32_t bits = 0;
+#pragma unroll 1
       for (int b = 0; b < s; ++b) bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
-#pragma unroll
-      for (int j = 0; j < kCkpt; ++j) {
-        if (s + j < n_live) {
-          ck[j][0] = p.x;
-          ck[j][1] = p.y;
-          ck[j][2] = p.z;
-          ck[j][3] = d.x;
-          ck[j][4] = d.y;
-          ck[j][5] = d.z;
-          ck[j][6] = inten;
-          const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
-          ckw[j] = (static_cast<uint32_t>(k) << 16) | bits;
-        }
+#pragma unroll 1
+      for (int j = 0; j < n_ck && s + j < n_live; ++j) {
+        const V3 pb = p, db = d;
+        const float ib = inten;
+        const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
+        put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
       }
     }
+    const int j_top = min(n_ck, warp_live - s) - 1;
+#pragma unroll 1
+    for (int j = j_top; j >= 0; --j) {  // warp-uniform
+      const bool act = s + j < n_live;
+      V3 sp, sd;
+      float si;
+      uint32_t word = 0;
+      if (act) get_state<kThreads>(ck + j * kSlot, sp, sd, si, word);
+      const int k = act ? static_cast<int>(word >> 16) : -1;
+      float tg[kCols];
 #pragma unroll
-    for (int j = kCkpt - 1; j >= 0; --j) {
-      if (s + j < warp_live) {  // warp-uniform
-        const bool act = s + j < n_live;
-        const int k = act ? static_cast<int>(ckw[j] >> 16) : -1;
-        float tg[kCols];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
-        if (act) {
-          const V3 sp = {ck[j][0], ck[j][1], ck[j][2]};
-          const V3 sd = {ck[j][3], ck[j][4], ck[j][5]};
-          row_backward<kPlates>(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), sp,
-                                sd, ck[j][6], ckw[j] & 0xffffu, rid, gm, n_bundles, gg, pl,
-                                gmaps, gp, gd, gi, tg);
-        }
-        if (partials != nullptr) reduce_winners<kPlates>(knd, k, tg, slots, lane);
-      }
+      for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
+      if (act)
+        row_backward<kPlates>(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), sp, sd,
+                              si, word & 0xffffu, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi,
+                              tg);
+      if (partials != nullptr) reduce_winners<kPlates>(k, tg, slots, lane);
     }
   }
 
@@ -307,6 +310,26 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
 }
 
+// The dynamic shared memory of a launch: the table, its kinds, the moment
+// cotangent, the warp slots and the checkpoints.
+template <bool kPlates>
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces) {
+  return sizeof(float) *
+         (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
+          static_cast<size_t>(n_slots) * n_bundles * kMoments +
+          static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates>() +
+          static_cast<size_t>(checkpoints(n_bounces)) * kStateWords * kThreads);
+}
+
+// Allow the kernel its shared memory (beyond 48 KB only on request).
+template <bool kPlates>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(trace_nonseq_bwd_kernel<kPlates>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <bool kPlates>
 int launch(long long blocks, cudaStream_t stream, const float* table, const int32_t* kinds,
            int n_rows, const float* const* rays, const int32_t* ray_id,
@@ -314,16 +337,9 @@ int launch(long long blocks, cudaStream_t stream, const float* table, const int3
            float* const* r_rays, int n_slots, int n_bundles, GridCt gg, const float* maps,
            const int32_t* map_desc, const float* wavelength, float* gmaps, int n_bounces,
            long long n) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
-                       static_cast<size_t>(n_slots) * n_bundles * kMoments +
-                       static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates>());
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(trace_nonseq_bwd_kernel<kPlates>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = shared_bytes<kPlates>(n_rows, n_slots, n_bundles, n_bounces);
+  const cudaError_t e = prepare<kPlates>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   trace_nonseq_bwd_kernel<kPlates><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
       ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6], gmom,
@@ -377,4 +393,22 @@ extern "C" int rtt_trace_nonseq_bwd(
   return launch<false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
                        partials, r_rays, n_slots, n_bundles, gg, nullptr, nullptr, nullptr,
                        nullptr, n_bounces, n);
+}
+
+// The resident blocks per SM of the instantiation that a launch with these
+// sizes runs, at its dynamic shared memory, into *blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
+                                              int n_bounces, int plates, int* blocks) {
+  if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = plates ? shared_bytes<true>(n_rows, n_slots, n_bundles, n_bounces)
+                             : shared_bytes<false>(n_rows, n_slots, n_bundles, n_bounces);
+  const cudaError_t e = plates ? prepare<true>(smem) : prepare<false>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks,
+      plates ? reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<true>)
+             : reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<false>),
+      kThreads, smem));
 }

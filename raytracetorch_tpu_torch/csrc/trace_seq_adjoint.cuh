@@ -52,6 +52,52 @@ constexpr uint32_t kPgOk = 1u << 10;    // PHASE_GRID: not evanescent
 constexpr uint32_t kUClip = 1u << 11;   // PHASE_GRID: u clipped
 constexpr uint32_t kVClip = 1u << 12;   // PHASE_GRID: v clipped
 
+// A ray's saved state at one row or bounce: the input p, d and intensity
+// and one word of bits, kStateWords 32-bit words.  The backward kernels
+// keep them in shared memory as [slot][word][thread], the thread index
+// fastest: a warp's access to one word is 32 consecutive words, free of
+// bank conflicts, and no register holds them across the sweeps.  kStride is
+// the distance between two words of one thread's slot (kThreads there; 1
+// for a per-thread array).
+constexpr int kStateWords = 8;
+
+template <int kStride>
+__device__ __forceinline__ void put_state(float* s, V3 p, V3 d, float inten, uint32_t word) {
+  s[0] = p.x;
+  s[kStride] = p.y;
+  s[2 * kStride] = p.z;
+  s[3 * kStride] = d.x;
+  s[4 * kStride] = d.y;
+  s[5 * kStride] = d.z;
+  s[6 * kStride] = inten;
+  s[7 * kStride] = __uint_as_float(word);
+}
+
+template <int kStride>
+__device__ __forceinline__ void get_state(const float* s, V3& p, V3& d, float& inten,
+                                          uint32_t& word) {
+  p = {s[0], s[kStride], s[2 * kStride]};
+  d = {s[3 * kStride], s[4 * kStride], s[5 * kStride]};
+  inten = s[6 * kStride];
+  word = __float_as_uint(s[7 * kStride]);
+}
+
+// Resident blocks of kThreads per SM that K2's and K6's register budget is
+// capped for (__launch_bounds__): 2 leaves a thread 128 registers, which
+// the instantiations without plate code fit with no spill; K6's with plate
+// code spills a few words there and still runs faster than with one block
+// (PERF.md).  The macros let chip_ab.py build variants (-D...).
+#ifndef RTT_BWD_MIN_BLOCKS
+#define RTT_BWD_MIN_BLOCKS 2
+#endif
+#ifndef RTT_BWD_PLATE_MIN_BLOCKS
+#define RTT_BWD_PLATE_MIN_BLOCKS 2
+#endif
+template <bool kPlates>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return kPlates ? RTT_BWD_PLATE_MIN_BLOCKS : RTT_BWD_MIN_BLOCKS;
+}
+
 // The grid's cotangent g[S, h, w] over [-e, e]^2 (g null: no grid, or a
 // zero cotangent).
 struct GridCt {
@@ -443,24 +489,44 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   gi = g_i;
 }
 
-// Reduce one row's table cotangent over the lanes of a warp and add it into
-// this warp's slot for the row (lane 0 writes); every lane of the warp calls
-// it, each with its own tg (zeros for a lane that did not apply the row).
-// Columns that are structurally zero for the row's kinds skip their
-// shuffles: q on the plane path, ph[0:2] off the SNELL and PHASE_GRID paths,
-// ph[2:6] off the PHASE_GRID path.
-template <bool kPlates>
-__device__ __forceinline__ void reduce_row(const RowKinds& kd, const float* tg, float* slot,
-                                           int lane) {
-  const bool plate = kPlates && kd.ph == PHASE_GRID;
+// One step of reduce_row's transpose reduce-scatter on the kH columns of
+// a[0:2 kH]: a lane keeps the half that its bit kH selects, sends the other
+// half to lane ^ kH and adds what that lane sends back, into a[0:kH].  kH is
+// a template argument so that the loop unrolls and a stays in registers.
+template <int kH>
+__device__ __forceinline__ void transpose_step(float* a, int lane) {
+  const bool upper = lane & kH;
 #pragma unroll
-  for (int c = 0; c < grad_cols<kPlates>(); ++c) {
-    if (c < kGRw && kd.plane) continue;
-    if (c >= kGPh && c < kGPh + 2 && kd.ph != SNELL && !plate) continue;
-    if (c >= kGPh + 2 && !plate) continue;
-    const float s = warp_sum(tg[c]);
-    if (lane == 0) slot[c] += s;
+  for (int j = 0; j < kH; ++j) {
+    const float send = upper ? a[j] : a[j + kH];
+    const float keep = upper ? a[j + kH] : a[j];
+    a[j] = keep + __shfl_xor_sync(0xffffffffu, send, kH);
   }
+}
+
+// Reduce one row's table cotangent over the lanes of a warp and add it into
+// this warp's slot for the row; every lane of the warp calls it, each with
+// its own tg (zeros for a lane that did not apply the row).  A transpose
+// reduce-scatter: the columns, padded to 32, are halved five times
+// (transpose_step), 16 + 8 + 4 + 2 + 1 = 31 shuffles, where a warp sum per
+// column takes 5 (95 for 19 columns).  The selects are on constant
+// indices, so tg stays in registers.  Lane c ends with column c, and each
+// sum follows the tree of a warp sum (lane ^ 16 first, then ^ 8, ...), so
+// every column's sum is the one a per-column warp sum gives, bit for bit.
+// Lane c then adds it into slot[c]: one store per lane, adjacent words.
+template <bool kPlates>
+__device__ __forceinline__ void reduce_row(const float* tg, float* slot, int lane) {
+  constexpr int kCols = grad_cols<kPlates>();
+  static_assert(kCols <= 32, "a warp holds at most 32 columns");
+  float a[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) a[c] = c < kCols ? tg[c] : 0.0f;
+  transpose_step<16>(a, lane);
+  transpose_step<8>(a, lane);
+  transpose_step<4>(a, lane);
+  transpose_step<2>(a, lane);
+  transpose_step<1>(a, lane);
+  if (lane < kCols) slot[lane] += a[0];
 }
 
 }  // namespace rtt

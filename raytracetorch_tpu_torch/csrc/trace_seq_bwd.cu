@@ -30,9 +30,19 @@
 //   state (p, d, intensity: 7 floats) and its branch decisions as bits
 //   (active, chosen root, linear, degenerate normal, from_in, TIR, ...).
 //   The reverse sweep takes the saved branches; it never re-decides them
-//   from a re-rounded state.  The saved state is a per-thread array sized by
-//   the template bucket kMaxRows: with 8 the loops unroll and it stays in
-//   registers (the main path has 5 rows); with 64 it lives in local memory.
+//   from a re-rounded state.  The saved states of a table of up to 8 rows
+//   live in shared memory, [row][word][thread] (trace_seq_adjoint.cuh::
+//   put_state), sized by the launch's own row count: 8 KB a row, 40 KB for
+//   the bench scene's 5 rows.  So no register holds them across the sweeps,
+//   the row loops need not unroll, and the kernel keeps one copy of each
+//   row's forward and adjoint (an unrolled 8-row bucket held 8 of each:
+//   ~20k instructions).  Longer tables (up to 64 rows) keep them in a
+//   per-thread array in local memory.
+// - Occupancy: __launch_bounds__(256, 2) caps the instantiation without
+//   plate code at 128 registers, so two blocks (16 warps) share an SM and
+//   hide the latency of the IEEE sqrt and division subroutines
+//   (trace_seq_adjoint.cuh::bwd_min_blocks; PERF.md holds the measured
+//   registers, spills and blocks per SM).
 // - Reverse sweep, row K-1 down to 0: the adjoint of the masked update
 //   where(active, new, old), of the sensor moment terms, of the physics
 //   (REFLECT, SNELL with the from_in and TIR branches, APERTURE with its mask
@@ -44,9 +54,10 @@
 //   their cotangent is zero.  A row's cotangent is nonzero only in q[0:5],
 //   Rw[0:9], tw[0:3] and ph[0:2]: 19 of 160 columns, and with phase plates
 //   also ph[2:6] (order, design wavelength, half extents): 23.  Those are
-//   reduced over the block (warp shuffles, one slot per warp and row in
-//   shared memory, a fixed-order sum over warps) into a [blocks, K, 19 or
-//   23] buffer that the wrapper sums and scatters into [K, 160].  No
+//   reduced over the block (the transpose reduce-scatter of trace_seq_adjoint.cuh::reduce_row:
+//   31 shuffles a row, lane c ends with column c), one slot per warp and
+//   row in shared memory, a fixed-order sum over warps, into a [blocks, K,
+//   19 or 23] buffer that the wrapper sums and scatters into [K, 160].  No
 //   atomics: deterministic.
 // - Phase maps: a PHASE_GRID row's adjoint (trace_seq_adjoint.cuh::
 //   phase_grid_backward) re-reads the four corners of its cell and adds
@@ -66,11 +77,11 @@
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangent
 // streams (60 B) and writes 7 cotangents (28 B), about 88 B against K1's
 // 60 B, and does roughly 2-3x K1's arithmetic (a forward sweep, then an
-// adjoint about twice the size of the forward), plus 19 warp reductions per
-// row.  At 1M rays that is 88 MB, ~26 us at the H100's 3.35 TB/s; K1 measured
-// far above its bandwidth bound, so K2 should be bound by its arithmetic and
-// the per-row reductions.  This is an estimate by count; PERF.md holds the
-// measured time.
+// adjoint about twice the size of the forward), plus one reduce-scatter (31
+// shuffles) per row.  At 1M rays that is 88 MB, ~26 us at the H100's 3.35
+// TB/s; K1 measured far above its bandwidth bound, so K2 should be bound by
+// its arithmetic.  This is an estimate by count; PERF.md holds the measured
+// time.
 //
 // Numerics: fp32 throughout, built without --use_fast_math (IEEE sqrt and
 // division, denormals kept), as K1.  The derivative conventions follow
@@ -88,8 +99,15 @@ using namespace rtt;
 
 namespace {
 
-template <int kMaxRows, bool kPlates>
-__global__ void __launch_bounds__(kThreads)
+// Tables of up to kSharedRows rows keep each thread's saved state in shared
+// memory (kStateWords x 256 x 4 = 8 KB a row: 40 KB for the bench scene's 5
+// rows); longer ones (up to kMaxRows) in a per-thread array in local
+// memory.
+constexpr int kSharedRows = 8;
+constexpr int kMaxRows = 64;
+
+template <bool kShared, bool kPlates>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kPlates>())
 trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                      int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                      const float* __restrict__ pz, const float* __restrict__ dx,
@@ -107,6 +125,7 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
                      const float* __restrict__ wavelength, float* __restrict__ gmaps,
                      long long n) {
   constexpr int kCols = grad_cols<kPlates>();
+  constexpr int kStride = kShared ? kThreads : 1;
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
@@ -115,6 +134,10 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   float* warp_tab = gm + n_mom;  // [kWarps, n_rows, kCols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  // each row's saved state: [n_rows][kStateWords][kThreads] after the
+  // warp slots, or a per-thread array
+  float local[kShared ? 1 : kMaxRows * kStateWords];
+  float* const saved = kShared ? warp_tab + kWarps * n_rows * kCols + tid : local;
 
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
@@ -137,21 +160,14 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   }
 
   // ---- forward sweep: save each row's input state and branch bits ----
-  float saved[kMaxRows][7];
-  uint32_t bits[kMaxRows];
-#pragma unroll (kMaxRows <= 8 ? kMaxRows : 1)
-  for (int k = 0; k < kMaxRows; ++k) {
-    if (k < n_rows) {
-      saved[k][0] = p.x;
-      saved[k][1] = p.y;
-      saved[k][2] = p.z;
-      saved[k][3] = d.x;
-      saved[k][4] = d.y;
-      saved[k][5] = d.z;
-      saved[k][6] = inten;
-      bits[k] = row_forward<kPlates>(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth),
-                                     pl, p, d, inten);
-    }
+#pragma unroll 1
+  for (int k = 0; k < n_rows; ++k) {
+    const V3 p0 = p, d0 = d;
+    const float i0 = inten;
+    const uint32_t bits = row_forward<kPlates>(tab + k * kRowWidth,
+                                               read_row_kinds(knd + k * kKindWidth), pl, p, d,
+                                               inten);
+    put_state<kStride>(saved + k * kStateWords * kStride, p0, d0, i0, bits);
   }
 
   // ---- reverse sweep ----
@@ -162,20 +178,20 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     gd = {gdx ? gdx[i] : 0.0f, gdy ? gdy[i] : 0.0f, gdz ? gdz[i] : 0.0f};
     gi = gintensity ? gintensity[i] : 0.0f;
   }
-#pragma unroll (kMaxRows <= 8 ? kMaxRows : 1)
-  for (int kk = kMaxRows - 1; kk >= 0; --kk) {
-    if (kk < n_rows) {
-      const RowKinds kd = read_row_kinds(knd + kk * kKindWidth);
-      float tg[kCols];
+#pragma unroll 1
+  for (int k = n_rows - 1; k >= 0; --k) {
+    const RowKinds kd = read_row_kinds(knd + k * kKindWidth);
+    V3 sp, sd;
+    float si;
+    uint32_t bits;
+    get_state<kStride>(saved + k * kStateWords * kStride, sp, sd, si, bits);
+    float tg[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
-      const V3 sp = {saved[kk][0], saved[kk][1], saved[kk][2]};
-      const V3 sd = {saved[kk][3], saved[kk][4], saved[kk][5]};
-      row_backward<kPlates>(tab + kk * kRowWidth, kd, sp, sd, saved[kk][6], bits[kk], rid, gm,
-                            n_bundles, gg, pl, gmaps, gp, gd, gi, tg);
-      if (partials != nullptr && __any_sync(0xffffffffu, bits[kk] & kActive))
-        reduce_row<kPlates>(kd, tg, warp_tab + (warp * n_rows + kk) * kCols, lane);
-    }
+    for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
+    row_backward<kPlates>(tab + k * kRowWidth, kd, sp, sd, si, bits, rid, gm, n_bundles, gg,
+                          pl, gmaps, gp, gd, gi, tg);
+    if (partials != nullptr && __any_sync(0xffffffffu, bits & kActive))
+      reduce_row<kPlates>(tg, warp_tab + (warp * n_rows + k) * kCols, lane);
   }
 
   if (live && cpx != nullptr) {
@@ -208,22 +224,44 @@ struct PlateArgs {
   float* gmaps;
 };
 
-template <int kMaxRows, bool kPlates>
-int launch(long long blocks, cudaStream_t stream, const float* table, const int32_t* kinds,
-           int n_rows, const float* const* rays, const int32_t* ray_id,
+// The dynamic shared memory of a launch: the table, its kinds, the moment
+// cotangent, the warp slots and, for tables of up to kSharedRows rows, the
+// saved states.
+template <bool kPlates>
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
+  const size_t rows = static_cast<size_t>(n_rows);
+  return sizeof(float) *
+         (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
+          static_cast<size_t>(kWarps) * rows * grad_cols<kPlates>() +
+          (n_rows <= kSharedRows ? rows * kStateWords * kThreads : 0));
+}
+
+// The instantiation a launch runs, its shared memory allowed (beyond 48 KB
+// only on request) -> (cudaError_t, the kernel).
+template <bool kShared, bool kPlates>
+cudaError_t prepare(size_t smem, const void** fn) {
+  *fn = reinterpret_cast<const void*>(trace_seq_bwd_kernel<kShared, kPlates>);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(trace_seq_bwd_kernel<kShared, kPlates>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool kPlates>
+cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
+  return n_rows <= kSharedRows ? prepare<true, kPlates>(smem, fn)
+                               : prepare<false, kPlates>(smem, fn);
+}
+
+template <bool kShared, bool kPlates>
+int launch(long long blocks, cudaStream_t stream, size_t smem, const float* table,
+           const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            const float* const* g_rays, const float* gmom, float* const* c_rays, float* partials,
            int n_slots, int n_bundles, GridCt gg, const PlateArgs& pa, long long n) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
-                       static_cast<size_t>(n_slots) * n_bundles * kMoments +
-                       static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates>());
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(trace_seq_bwd_kernel<kMaxRows, kPlates>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  trace_seq_bwd_kernel<kMaxRows, kPlates>
+  const void* fn;
+  const cudaError_t e = prepare<kShared, kPlates>(smem, &fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trace_seq_bwd_kernel<kShared, kPlates>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
           ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6],
@@ -238,11 +276,12 @@ int launch_rows(long long blocks, cudaStream_t stream, const float* table, const
                 const float* const* g_rays, const float* gmom, float* const* c_rays,
                 float* partials, int n_slots, int n_bundles, GridCt gg, const PlateArgs& pa,
                 long long n) {
-  if (n_rows <= 8)
-    return launch<8, kPlates>(blocks, stream, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
-                              c_rays, partials, n_slots, n_bundles, gg, pa, n);
-  return launch<64, kPlates>(blocks, stream, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
-                             c_rays, partials, n_slots, n_bundles, gg, pa, n);
+  const size_t smem = shared_bytes<kPlates>(n_rows, n_slots, n_bundles);
+  if (n_rows <= kSharedRows)
+    return launch<true, kPlates>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
+                                 g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg, pa, n);
+  return launch<false, kPlates>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
+                                g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg, pa, n);
 }
 
 }  // namespace
@@ -271,7 +310,7 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
                                  const float* wavelength, float* gmaps, long long n,
                                  void* stream) {
   if (n <= 0) return 0;
-  if (n_rows <= 0 || n_rows > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
@@ -288,4 +327,21 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
   return launch_rows<false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
                             partials, n_slots, n_bundles, gg,
                             PlateArgs{nullptr, nullptr, nullptr, nullptr}, n);
+}
+
+// The resident blocks per SM of the instantiation that a launch with these
+// sizes runs, at its dynamic shared memory, into *blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
+// (n_bounces is K6's; K2 has none.)
+extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
+                                           int /*n_bounces*/, int plates, int* blocks) {
+  if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = plates ? shared_bytes<true>(n_rows, n_slots, n_bundles)
+                             : shared_bytes<false>(n_rows, n_slots, n_bundles);
+  const void* fn;
+  const cudaError_t e = plates ? prepare_rows<true>(n_rows, smem, &fn)
+                               : prepare_rows<false>(n_rows, smem, &fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
 }

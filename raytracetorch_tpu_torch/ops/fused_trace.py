@@ -88,6 +88,8 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 _GRID = [_P, _I, _I, _F]      # grid (or its cotangent), H, W, half extent
 _PLATES = [_P, _P, _P]        # maps, their (offset, H, W), wavelength
+# rows, slots, bundles, bounces, plate code, out: resident blocks per SM
+_OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
     'trace_seq_fwd': ('trace_seq_fwd.cu', {
@@ -95,7 +97,8 @@ _LIBRARIES = {
         + _PLATES + [_L, _P]}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
-        + _PLATES + [_P, _L, _P]}),
+        + _PLATES + [_P, _L, _P],
+        'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
         'rtt_grid_gather': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F,
@@ -109,7 +112,8 @@ _LIBRARIES = {
         + _PLATES + [_I, _L, _P]}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
         'rtt_trace_nonseq_bwd': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
-        + _PLATES + [_P, _I, _L, _P]}),
+        + _PLATES + [_P, _I, _L, _P],
+        'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY}),
 }
 _fns = {}
 
@@ -437,6 +441,24 @@ def kernel(symbol):
     if symbol not in _fns:
         build()
     return _fns[symbol]
+
+
+def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0):
+    """Resident blocks per SM of the instantiation of K2
+    (``library='trace_seq_bwd'``) or K6 (``'trace_nonseq_bwd'``, with its
+    bounce budget ``n_bounces``) that a launch with ``n_rows`` rows,
+    ``cfg``'s slots and bundles and, with ``plates``, plate code runs, at
+    that launch's dynamic shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    device)."""
+    out = ctypes.c_int(0)
+    rc = kernel(f'rtt_{library}_occupancy')(
+        n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces),
+        int(bool(plates)), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f'{library} occupancy query failed with CUDA '
+                           f'error {rc}')
+    return out.value
 
 
 def check(t, name, dtype, shape, device):

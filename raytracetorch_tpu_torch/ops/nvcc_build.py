@@ -13,6 +13,7 @@ from __future__ import annotations
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -63,3 +64,38 @@ def build_library(name, sources):
     log_path.write_text(log)
     os.replace(tmp, out)
     return out, log, seconds
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_PROPS = re.compile(r'Function properties for (\S+)')
+_PTXAS_FRAME = re.compile(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                          r'(\d+) bytes spill loads')
+_PTXAS_REGS = re.compile(r'Used (\d+) registers')
+
+
+def ptxas_usage(log):
+    """Each kernel's resources from an nvcc log with ``-Xptxas -v`` ->
+    ``{mangled kernel name: {'registers', 'stack', 'spill_stores',
+    'spill_loads'}}`` (bytes, per thread)."""
+    usage, name, props = {}, None, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            usage[name] = dict(registers=None, stack=0, spill_stores=0,
+                               spill_loads=0)
+            continue
+        m = _PTXAS_PROPS.search(line)
+        if m:
+            props = m.group(1)
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m and name is not None and props == name:
+            usage[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m and name is not None:
+            usage[name]['registers'] = int(m.group(1))
+            name = None
+    return usage

@@ -18,7 +18,9 @@ hit to flip.  K2's cotangents are held to chip_smoke.py's bounds (BWD_TOL,
 TAB_RTOL; reasons there); so are grids (GRID_RAND_RTOL, GRID_SHARE and the
 grid totals), K5 (the NS_* bounds), K6 (``chip_smoke.compare_k6``) and the
 phase plates' map cotangents (``chip_smoke.compare_maps``), with the reasons
-there.
+there.  K2's and K6's table cotangents are also held bit for bit across two
+launches, and their instantiations without plate code to zero register
+spills and at least two resident blocks per SM.
 """
 
 import math
@@ -646,3 +648,108 @@ def test_rect_bound_without_a_plate_runs_plate_code(dev):
         intensity_allowed=math.ceil(chip_smoke.GRID_SHARE * rays.n))
     chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
                                         plates=True)
+
+
+N_BLOCKS = 100_000   # rays for the tests that need many blocks
+
+
+def _bwd_case(lib, dev, n=N):
+    """K2 on the bench scene or K6 on the naive scene: (wrapper, its
+    positional inputs, cfg)."""
+    if lib == 'trace_seq_bwd':
+        table, rays, cfg, meta = _bench_case(dev)
+        rays = chip_smoke.sample_rays(trt, torch, n, dev, 9)
+        flat = trt.flatten_table_rows(table)
+        return (fused_trace.trace_seq_bwd_cuda,
+                (flat, _kinds(meta, cfg, dev), rays, cfg), cfg)
+    scene, flat, kinds, rays = _k6_inputs('naive', dev, n)
+    cfg = scene.sensor_config()
+    return (fused_nonseq.trace_nonseq_bwd_cuda,
+            (flat, kinds, rays, cfg, scene.n_bounces), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lib', ['trace_seq_bwd', 'trace_nonseq_bwd'])
+def test_bwd_table_cotangent_is_deterministic(lib, dev):
+    """Two launches of K2 (or K6) on the same inputs give the same table
+    cotangent and ray cotangents, bit for bit: lanes, warps and blocks are
+    summed in a fixed order, with no atomics."""
+    wrapper, args, cfg = _bwd_case(lib, dev, N_BLOCKS)
+    g_rays, g_mom, g_grid = chip_smoke.random_cotangents(
+        torch, N_BLOCKS, cfg, dev, 11)
+    runs = [wrapper(*args, g_rays, g_mom, g_grid=g_grid) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert float(runs[0][0].abs().max()) > 0
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def _no_plate(name):
+    """Whether a mangled kernel name is an instantiation without plate code
+    (its last template argument, kPlates, false)."""
+    import re
+    return re.search(r'_kernelI(?:Lb[01]E)*Lb0EE', name) is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lib', ['trace_seq_bwd', 'trace_nonseq_bwd'])
+def test_bwd_kernels_run_two_blocks_per_sm_without_spills(lib, dev):
+    """K2's and K6's instantiations without plate code spill no register
+    (ptxas), and the main path's launch (the bench scene's 5 rows, the naive
+    scene's) keeps at least 2 blocks resident on an SM at its shared
+    memory."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    usage = nvcc_build.ptxas_usage(fused_trace.build()[lib][0])
+    kernels = {k: v for k, v in usage.items() if f'{lib}_kernel' in k}
+    assert len(kernels) >= 2
+    no_plate = {k: v for k, v in kernels.items() if _no_plate(k)}
+    assert no_plate
+    for name, u in no_plate.items():
+        assert u['spill_stores'] == 0 and u['spill_loads'] == 0, (name, u)
+    _, args, cfg = _bwd_case(lib, dev)
+    bounces = args[4] if len(args) > 4 else 0
+    assert fused_trace.blocks_per_sm(lib, args[0].shape[0], cfg, False,
+                                     bounces) >= 2
+    assert fused_trace.blocks_per_sm(lib, args[0].shape[0], cfg, True,
+                                     bounces) >= 1
+
+
+def _many_rows_scene(kind):
+    """Three singlets, a stop and a sensor: 11 rows, beyond the 8 whose
+    saved states K2 keeps in shared memory (the 64-row instantiation), as a
+    SequentialScene or a 12-bounce Scene."""
+    els = [trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                           ior_media=1.0, translation=[0.0, 0.0, z],
+                           name=f'lens{j}')
+           for j, z in enumerate((0.0, 12.0, 24.0))]
+    els += [trt.CircularAperture(radius=5.0, translation=[0.0, 0.0, 30.0],
+                                 name='stop'),
+            trt.SensorElement(radius=20.0, translation=[0.0, 0.0, 45.0],
+                              name='sensor')]
+    return (trt.SequentialScene(els) if kind == 'sequential'
+            else trt.Scene(els, n_bounces=12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['sequential', 'scene'])
+def test_bwd_kernels_match_plain_beyond_eight_rows(kind, dev):
+    """K2 (or K6) on an 11-row table against its plain version, with
+    chip_smoke.py's bounds."""
+    scene = _many_rows_scene(kind)
+    rays = chip_smoke.sample_rays(trt, torch, N, dev, 13)
+    if kind == 'scene':
+        chip_smoke.compare_k6(trt, torch, scene, rays, 14)
+        return
+    cfg, meta = scene.sensor_config(), scene.static_meta()
+    flat = trt.flatten_table_rows(scene.build_table(scene.init_params(dev)))
+    assert flat.shape[0] > 8
+    g_rays, g_mom, _ = chip_smoke.random_cotangents(torch, N, cfg, dev, 15)
+    gt_k, gr_k = fused_trace.trace_seq_bwd_cuda(
+        flat, _kinds(meta, cfg, dev), rays, cfg, g_rays, g_mom)
+    gt_p, gr_p = fused_trace.trace_seq_bwd_plain(flat, rays, cfg, meta,
+                                                 g_rays, g_mom)
+    torch.cuda.synchronize()
+    assert chip_smoke.compare_ray_cotangents(torch, gr_k, gr_p)[
+        'rays_differ'] == 0
+    chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p)
