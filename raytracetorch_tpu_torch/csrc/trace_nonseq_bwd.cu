@@ -54,7 +54,7 @@
 //   about L^2 / (2 * 13) bounces for a ray that lives L bounces.
 // - Occupancy: __launch_bounds__(256, 2) caps the instantiation without
 //   plate code at 128 registers, so two blocks (16 warps) share an SM
-//   (trace_seq_adjoint.cuh::bwd_min_blocks).
+//   (trace_seq_adjoint.cuh::kBwdMinBlocks).
 // - Reverse sweep, last live bounce to first: K2's row adjoint of the
 //   winner with its saved bits.  A sensor winner adds the moment adjoint
 //   with the constant g_moments[slot, bundle] at its hit, weighted by the
@@ -112,10 +112,7 @@ namespace {
 // of a table of up to 8 rows still share an SM's 228 KB.  A launch keeps
 // min(budget, kCkpt) (checkpoints()): a budget that fits takes no more
 // shared memory than it needs, and leaves the rest to L1.
-#ifndef RTT_K6_CKPT
-#define RTT_K6_CKPT 13
-#endif
-constexpr int kCkpt = RTT_K6_CKPT;
+constexpr int kCkpt = 13;
 
 __host__ __device__ __forceinline__ int checkpoints(int n_bounces) {
   return n_bounces < 1 ? 1 : (n_bounces < kCkpt ? n_bounces : kCkpt);
@@ -156,7 +153,7 @@ __device__ __forceinline__ void reduce_winners(int k, const float* tg, float* sl
 }
 
 template <bool kPlates>
-__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kPlates>())
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                         int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                         const float* __restrict__ pz, const float* __restrict__ dx,

@@ -86,17 +86,8 @@ __device__ __forceinline__ void get_state(const float* s, V3& p, V3& d, float& i
 // capped for (__launch_bounds__): 2 leaves a thread 128 registers, which
 // the instantiations without plate code fit with no spill; K6's with plate
 // code spills a few words there and still runs faster than with one block
-// (PERF.md).  The macros let chip_ab.py build variants (-D...).
-#ifndef RTT_BWD_MIN_BLOCKS
-#define RTT_BWD_MIN_BLOCKS 2
-#endif
-#ifndef RTT_BWD_PLATE_MIN_BLOCKS
-#define RTT_BWD_PLATE_MIN_BLOCKS 2
-#endif
-template <bool kPlates>
-__host__ __device__ constexpr int bwd_min_blocks() {
-  return kPlates ? RTT_BWD_PLATE_MIN_BLOCKS : RTT_BWD_MIN_BLOCKS;
-}
+// (PERF.md).
+constexpr int kBwdMinBlocks = 2;
 
 // The grid's cotangent g[S, h, w] over [-e, e]^2 (g null: no grid, or a
 // zero cotangent).

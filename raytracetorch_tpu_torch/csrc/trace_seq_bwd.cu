@@ -41,7 +41,7 @@
 // - Occupancy: __launch_bounds__(256, 2) caps the instantiation without
 //   plate code at 128 registers, so two blocks (16 warps) share an SM and
 //   hide the latency of the IEEE sqrt and division subroutines
-//   (trace_seq_adjoint.cuh::bwd_min_blocks; PERF.md holds the measured
+//   (trace_seq_adjoint.cuh::kBwdMinBlocks; PERF.md holds the measured
 //   registers, spills and blocks per SM).
 // - Reverse sweep, row K-1 down to 0: the adjoint of the masked update
 //   where(active, new, old), of the sensor moment terms, of the physics
@@ -107,7 +107,7 @@ constexpr int kSharedRows = 8;
 constexpr int kMaxRows = 64;
 
 template <bool kShared, bool kPlates>
-__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kPlates>())
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                      int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                      const float* __restrict__ pz, const float* __restrict__ dx,

@@ -8,9 +8,7 @@
 - ``nvcc_build.ptxas_usage`` reads each kernel's registers and spills from
   an nvcc log, which the card tests hold to zero spills;
 - chip_smoke.py counts K6's segment replays with the kernel's own number
-  of checkpoints;
-- chip_ab.py's SASS count and its scenes (the inputs its A/B runs feed both
-  checkouts' kernels).
+  of checkpoints.
 
 The kernels themselves are held to their plain versions on the card in
 tests/test_torch_cuda.py."""
@@ -22,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_ab
 import chip_smoke
 import raytracetorch_tpu_torch as trt
 from raytracetorch_tpu_torch.ops import fused_trace, nvcc_build
@@ -118,43 +115,7 @@ def test_smoke_counts_replays_with_the_kernels_checkpoints():
     replays, is the kernel's kCkpt; the widest table cotangent fits the
     lanes of one warp (reduce_row's transpose reduce-scatter)."""
     src = (CSRC / 'trace_nonseq_bwd.cu').read_text()
-    m = re.search(r'#define RTT_K6_CKPT (\d+)', src)
+    m = re.search(r'constexpr int kCkpt = (\d+);', src)
     assert m and int(m.group(1)) == chip_smoke.K6_CHECKPOINTS
     assert len(fused_trace.PLATE_GRAD_COLS) <= 32
 
-
-def test_sass_count_reads_each_function(tmp_path, monkeypatch):
-    """chip_ab.sass_counts counts the instruction lines of each function in
-    cuobjdump's listing, not their encoding lines."""
-    listing = """
-	code for sm_90a
-		Function : _Z1kPf
-	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
-        /*0000*/                   LDC R1, c[0x0][0x28] ;         /* 0x00000a00ff017b82 */
-                                                                  /* 0x000fe40000000800 */
-        /*0010*/                   EXIT ;                         /* 0x000000000000794d */
-		Function : _Z1gv
-        /*0000*/                   BRA 0x0 ;                      /* 0x0000000000007947 */
-"""
-
-    class Done:
-        stdout = listing
-    monkeypatch.setattr(chip_ab.subprocess, 'run', lambda *a, **k: Done)
-    assert chip_ab.sass_counts(tmp_path / 'x.so') == {'_Z1kPf': 2,
-                                                      '_Z1gv': 1}
-
-
-def test_ab_scenes_build_on_the_cpu():
-    """Every scene of chip_ab.py builds its table, kinds and rays (the
-    plates with their maps); K2's on SequentialScenes, K6's with a budget."""
-    dev = torch.device('cpu')
-    cases = chip_ab.scenes(trt, torch, dev)
-    assert {lib for lib, _ in cases.values()} == {'k2', 'k6'}
-    for name, (lib, make) in cases.items():
-        x = make(64)
-        k = x['flat'].shape[0]
-        assert x['kinds'].shape == (k, fused_trace.KIND_WIDTH)
-        assert x['rays'].n == 64
-        assert (x['maps'] is not None) == ('ring' in name or 'rim' in name)
-        if lib == 'k6':
-            assert x['bounces'] >= 3
