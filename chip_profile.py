@@ -12,11 +12,11 @@ of the profiled calls (slowed by the profiler itself), so busy = device
 time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 
 - the kernel wrappers: K1 (with and without the 256 x 256 grid), K2 (also
-  at 16M rays), K3 on the bench spot, K5 on the naive scene (8 bounces,
-  grid) and K6 on the same scene with the cotangents of a spot and grid
-  loss (also at 16M rays); K4's gather and scatter on the 256 x 256
-  ring-former map, and K1, K2, K5 and K6 with that plate (chip_smoke.py
-  section 7);
+  at 16M rays), K3 on the bench spot (256 x 256 and 32 x 32 grids), K5 on
+  the naive scene (8 bounces, grid) and K6 on the same scene with the
+  cotangents of a spot and grid loss (also at 16M rays); K4's gather and
+  scatter on the 256 x 256 ring-former map, and K1, K2, K5 and K6 with
+  that plate (chip_smoke.py section 7);
 - the library calls that compute K3's and K4's functions, as chip_smoke.py
   times them: one ``index_put_`` (accumulate) of the bench spot's unit
   weights into the 256 x 256 grid, and the four advanced-index reads and
@@ -140,6 +140,8 @@ def main():
     ix, iy = bin_indices(cs.GRID, cs.GRID_E, spot.px, spot.py)
     spot_idx = (iy * cs.GRID[1] + ix,)
     g_spot = torch.zeros(cs.GRID[0] * cs.GRID[1], device=dev)
+    cfg32 = rt.SensorConfig(n_sensors=1, grid_shape=(32, 32),
+                            grid_half_extent=cs.GRID_E)
     v0, v1, u0, u1 = phase_grid._cells(cs.DO_MAP, civ, ciu)
     corner_cells = ((v0, u0), (v0, u1), (v1, u0), (v1, u1))
     g_corner = torch.zeros(cs.DO_MAP, device=dev)
@@ -165,6 +167,8 @@ def main():
             flat, kinds, rays16, cfg, (None,) * 7, g_mom), 'trace_seq_bwd'),
         'k3_spot': (lambda: grid.bin_grid_cuda(spot.px, spot.py, ones, 0,
                                                gcfg), 'grid_bin_kernel'),
+        'k3_spot_32': (lambda: grid.bin_grid_cuda(spot.px, spot.py, ones, 0,
+                                                  cfg32), 'grid_bin_kernel'),
         'k3_library': (lambda: g_spot.index_put_(spot_idx, ones,
                                                  accumulate=True), None),
         'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(

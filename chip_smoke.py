@@ -3,11 +3,13 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds the five CUDA libraries from the sources in the checkout (K1, the
+It builds the six CUDA libraries from the sources in the checkout (K1, the
 fused sequential forward; K2, its hand-written adjoint; K3, irradiance-grid
-binning; K5, the fused non-sequential bounce loop; K6, its hand-written
-adjoint; one nvcc each, started together) and checks each kernel against
-its plain PyTorch version, K1 and K2 also with a 256 x 256 grid, K6 on the
+binning; K4, a phase map's corner reads; K5, the fused non-sequential
+bounce loop; K6, its hand-written adjoint; one nvcc each, started together)
+and checks each kernel against its plain PyTorch version (K3 with the whole
+grid, a band of it and a band of each of 8 slots in shared memory, and
+with one hot cell), K1 and K2 also with a 256 x 256 grid, K6 on the
 naive scene, the mirror fold and a 25-bounce two-mirror cavity, and K6's
 forward replay against K5 bit for bit.  Then it drives seven paths, each
 with every launch counter reset just before it and read just after: the
@@ -27,7 +29,9 @@ library call where one computes the same function, and the end-to-end
 calls with CUDA events.
 
 The build phase prints each kernel's ptxas registers and spills, and the
-next K2's and K6's resident blocks per SM on their main paths' launches.
+next K2's, K5's and K6's resident blocks per SM on their main paths'
+launches.  The timing phase also times each of K3's launches in the eager
+bounce loop on its own.
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero.  Then come the kernel summary line (each kernel's launches
 on its main path, error, time, plain time, the bound of its work on this
@@ -883,6 +887,15 @@ def main():
     occ['trace_nonseq_bwd_cavity'] = fused_trace.blocks_per_sm(
         'trace_nonseq_bwd', len(cav.static_meta()), cav.sensor_config(),
         False, cav.n_bounces)
+    # K5's on the naive scene (the main path's instantiation) and the plate
+    # scene
+    nsc0 = naive_scene(rt)
+    occ['trace_nonseq_fwd'] = fused_trace.blocks_per_sm(
+        'trace_nonseq_fwd', len(nsc0.static_meta()), nsc0.sensor_config(),
+        False, nsc0.n_bounces)
+    occ['trace_nonseq_fwd_plate'] = fused_trace.blocks_per_sm(
+        'trace_nonseq_fwd', len(rs.static_meta()), rs.sensor_config(), True,
+        rs.n_bounces)
     emit('occupancy', blocks_per_sm=occ)
 
     # 3. K1 vs plain on the card
@@ -979,6 +992,36 @@ def main():
           f'K3 with random weights: {rand_err} of {rand_scale}')
     check(grid_res['gather_equal'], "K3's gather differs from ct[s, iy, ix]")
     check(grid_res['outside'] > 0, 'no hit outside the grid')
+    # K3 with other windows: a 32 x 32 grid (whole in shared memory), 8
+    # slots of 256 x 256 (2 MB: a band of 25 rows of each), and every hit in
+    # one cell (the most contention), each against its plain version
+    paths = {}
+    for key, shape in (('grid_32', (1, 32, 32)), ('slots_8', (8, 256, 256)),
+                       ('one_cell', (1, 256, 256))):
+        pcfg = rt.SensorConfig(n_sensors=shape[0], grid_shape=shape[1:],
+                               grid_half_extent=GRID_E)
+        px_, py_ = ((torch.full_like(hx, 0.1), torch.full_like(hy, -0.3))
+                    if key == 'one_cell' else (hx, hy))
+        pslot = torch.randint(0, shape[0], (N_MAIN,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        unit_k = grid.bin_grid_cuda(px_, py_, ones, pslot, pcfg)
+        unit_p = grid.bin_grid_slots_plain(px_, py_, ones, pslot, pcfg)
+        rnd_k = grid.bin_grid_cuda(px_, py_, hw, pslot, pcfg)
+        rnd_p = grid.bin_grid_slots_plain(px_, py_, hw, pslot, pcfg)
+        torch.cuda.synchronize()
+        err = float((rnd_k - rnd_p).abs().max())
+        scale = float(rnd_p.abs().max())
+        paths[key] = dict(
+            shape=list(shape), window_rows=grid.window_rows(*shape),
+            unit_equal=bool(torch.equal(unit_k, unit_p)),
+            unit_total=float(unit_k.sum()), cells_hit=int((unit_k > 0).sum()),
+            rand_max_abs_err=err, rand_err_over_max_bin=err / scale)
+        check(paths[key]['unit_equal'] and paths[key]['unit_total'] == N_MAIN,
+              f'K3 ({key}) with unit weights differs from its plain version')
+        check(err <= GRID_RAND_RTOL * scale,
+              f'K3 ({key}) with random weights: {err} of {scale}')
+    check(paths['one_cell']['cells_hit'] == 1, 'one-cell hits spread')
+    emit('grid_bin_paths', **paths)
 
     # 3d. K1 with the 256 x 256 grid vs plain; and nothing else changes
     gscene = grid_scene(rt)
@@ -1838,6 +1881,36 @@ def main():
         ('kernel_ms', 'plain_ms'), time_pair(
             torch, lambda: grid.bin_grid_cuda(hx, hy, hw, hslot, gcfg),
             lambda: grid.bin_grid_slots_plain(hx, hy, hw, hslot, gcfg))[:2]))
+    # K3 on the bench spot with the 32 x 32 grid and with 8 slots of
+    # 256 x 256, and each of the eager loop's launches on the naive scene
+    # (one per bounce: section 5d), captured from Scene.simulate and timed
+    # one by one
+    for key, shape in (('grid_bin_spot_32', (1, 32, 32)),
+                       ('grid_bin_spot_8x256', (8, 256, 256))):
+        pcfg = rt.SensorConfig(n_sensors=shape[0], grid_shape=shape[1:],
+                               grid_half_extent=GRID_E)
+        timing[key] = dict(zip(('kernel_ms', 'plain_ms'), time_pair(
+            torch, lambda: grid.bin_grid_cuda(spot_x, spot_y, spot_w,
+                                              shape[0] - 1, pcfg),
+            lambda: grid.bin_grid_slots_plain(spot_x, spot_y, spot_w,
+                                              shape[0] - 1, pcfg))[:2]))
+    eager_hits, bin_cuda = [], grid.bin_grid_cuda
+
+    def spy(x, y, w, slot, c, g=None):
+        eager_hits.append((x, y, w, slot, c))
+        return bin_cuda(x, y, w, slot, c, g)
+    grid.bin_grid_cuda = spy
+    try:
+        nscene.simulate(nparams, rays)
+    finally:
+        grid.bin_grid_cuda = bin_cuda
+    eager_k3 = []
+    for x, y, w, slot, c in eager_hits:
+        runs = time_ms(torch, lambda: grid.bin_grid_cuda(x, y, w, slot, c))
+        eager_k3.append(dict(kernel_ms=statistics.median(runs),
+                             nonzero_weights=int((w != 0).sum()),
+                             kernel_runs=runs))
+    timing['grid_bin_eager_launches'] = eager_k3
     timing['nonseq_design_warm_s'] = nd_warm_s
     # K4 alone at 1M cells of the ring-former rays, on the 256 x 256 and the
     # 32 x 32 map: gather and scatter against their plain versions and the

@@ -19,21 +19,64 @@
 // The TPU kernel recasts the histogram as one-hot bf16 matmuls on the MXU
 // with a hi+lo split of each weight (Mosaic has no scatter), which carries
 // about 2^-16 relative rounding per weight.  None of that is carried over:
-// on Hopper the histogram is a scatter-add, one thread per hit, each an
-// atomicAdd (a RED, its result unused) into the grid in device memory.
-// Within the fused kernels K1 and K5 the same device function bins each
-// sensor crossing as it is traced, so the hits never reach device memory.
+// on Hopper the histogram is a scatter-add.  Within the fused kernels K1 and
+// K5 the device function grid_add (grid_bin.cuh) bins each sensor crossing
+// as it is traced, one atomicAdd into device memory, so the hits never reach
+// device memory.
 //
 // What bounds it: per hit it reads 12 B (16 B with a slot stream), so 1M
-// hits are 12-16 MB, 4-5 us at the H100's 3.35 TB/s, plus one atomic.  A
-// 256 x 256 float32 grid is 256 KB, above the 227 KB of shared memory a
-// block can have, so a per-block histogram in shared memory does not fit at
-// that size, and the atomics go to L2.  There, hits on one cell serialize:
-// a focused spot (the bench scene puts 1M hits into roughly 1,500 cells, a
-// few hundred per cell) makes contention, not bytes, the bound.
-// Privatisation (per-block sub-grids of the busy region) and warp
-// aggregation (__match_any_sync on the cell, one atomic per distinct cell
-// per warp) are left to a later change.
+// hits are 12-16 MB, 4-5 us at the H100's 3.35 TB/s.  With one global
+// atomicAdd per hit (the first design of this kernel) contention set the
+// pace instead: the bench scene puts 1M hits into about 2,000 cells of a
+// 256 x 256 grid, a few hundred per cell, and atomics on one cell serialize
+// in L2; all hits on one cell took 1.7 ms (PERF.md).
+//
+// Design: a privatised histogram in shared memory, summed across a
+// thread-block cluster before it reaches device memory.
+// - The window: each block keeps a band of the grid in its shared memory,
+//   in every slot the same `rows` rows centred on the grid, at most
+//   kMaxSliceCells cells (50 KB; kBinMinBlocks = 3 blocks of 512 threads
+//   share an SM, the most at which ptxas keeps the kernel free of spills);
+//   a grid that small is held whole (ops/grid.py::window_rows picks the
+//   band).  Cells outside the band are added in device memory.
+// - A block first reads the weights of its hits; if no hit of its cluster
+//   counts (zero weights: four of the five launches of the eager bounce
+//   loop carry nothing else), the cluster ends there.  If all the block's
+//   weights are +-1 (the main path's unit weights), its window counts in
+//   ints: the shared-memory integer add (ATOMS.ADD) is native, the float
+//   add a compare-and-swap loop (ATOMS.CAST.SPIN).  Then each block zeroes
+//   its window and walks its grid-stride share of the hits, kBatch at a
+//   time (their loads in flight together); bins each with grid_axis
+//   (grid_cell's bins, so the bin edges stay the plain version's); and adds
+//   each weight into its own window, or into device memory outside the
+//   band.  A warp whose hits all fall on one cell adds their sum once (the
+//   worst case of contention, every hit on one cell, takes one atomic per
+//   warp); other warps add lane by lane, since combining lanes on equal
+//   cells with __match_any_sync cost the bench spot more than it saved
+//   (PERF.md).
+// - The flush: the kClusterBlocks = 2 blocks of a cluster sum their
+//   windows through distributed shared memory (each block half of the
+//   cells, the windows read in a fixed order) and add each nonzero sum to
+//   the grid in device memory: one atomicAdd per cell and cluster, not per
+//   block.  Cluster barriers before and after keep every window alive while
+//   the other block reads it.  (Clusters of 4 and 8 blocks flushed fewer
+//   atomics and ran 4-20% slower: the reads across the cluster cost more.)
+// - The kernel is persistent: it launches no more clusters than are
+//   resident at once, and none whose threads would have no batch of hits,
+//   so zeroing and flushing are paid once per resident block.
+// - A grid of which less than an eighth of the rows fit the window (8 slots
+//   of 256^2 are 2 MB) takes the path without a window: one hit a thread,
+//   each added in device memory as above.
+//
+// Why the adds stay in the block's own shared memory: on Hopper a float
+// atomicAdd into shared memory is a compare-and-swap loop
+// (ATOMS.CAST.SPIN), and into another block's a compare-and-swap loop across
+// the cluster (ATOM.E.CAST.SPIN), one round trip per try.  A first design
+// whose clusters held the whole grid in distributed shared memory, each hit
+// added into the owning block's slice, took 0.035-0.038 ms on the bench spot
+// against 0.022-0.026 for one global atomicAdd per hit (PERF.md).
+// Plain loads from the other blocks' windows, once, at the flush, cost
+// little.
 //
 // Numerics: float atomics add in an order that changes from run to run, so
 // a cell's sum of non-integer weights may differ in its last bits between
@@ -42,33 +85,198 @@
 // deterministic.  Zero weights are skipped (adding 0 changes nothing).
 
 #include <cstdint>
+#include <mutex>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "grid_bin.cuh"
 
 using namespace rtt;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBinThreads = 256;
+constexpr int kBinThreads = 512;       // threads per block of the scatter
+constexpr int kBinMinBlocks = 3;       // resident blocks an SM: 48 warps
+constexpr int kBatch = 4;              // hits a thread loads before it adds them
+constexpr int kMaxSliceCells = 12800;  // 50 KB of cells in a block's window
+constexpr int kClusterBlocks = 2;      // blocks whose windows one flush sums
+constexpr long long kMaxUnitHits = 1LL << 24;  // a block's hits an int window takes
+constexpr int kGatherThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kBinThreads)
-grid_bin_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                const float* __restrict__ w, const int32_t* __restrict__ slot, int slot0,
-                long long n, float* __restrict__ grid, int n_slots, int h, int wd, float e) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBinThreads + threadIdx.x;
-  if (i >= n) return;
-  const int s = slot != nullptr ? slot[i] : slot0;
-  if (s < 0 || s >= n_slots) return;
-  grid_add(grid, s, x[i], y[i], w[i], h, wd, e);
+// The window: in each of the grid's slots, rows [row0, row0 + rows) of its
+// h x wd cells, slot after slot in shared memory.
+struct Window {
+  int rows, row0;
+};
+
+// Add the weight wt of each lane's hit at flat cell `key` of the [S, H, W]
+// grid, `wkey` of the window (key < 0: the lane adds nothing; wkey < 0: the
+// cell lies outside the window, or there is none): into the block's window
+// (an int window counts +-1 weights) or into the grid in device memory.  A
+// warp whose counting lanes all hit one cell adds their sum once, from its
+// lowest counting lane; other warps add lane by lane.  Every lane of the
+// warp calls it.
+__device__ __forceinline__ void add_hit(int key, int wkey, float wt, int lane, float* window,
+                                        bool counts_int, float* grid) {
+  const unsigned act = __ballot_sync(kFull, key >= 0);
+  if (act == 0u) return;
+  const int first = __ffs(act) - 1;
+  const int key0 = __shfl_sync(kFull, key, first);
+  if (__all_sync(kFull, key < 0 || key == key0)) {
+    float sum = key >= 0 ? wt : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(kFull, sum, off);
+    sum = __shfl_sync(kFull, sum, 0);
+    if (lane != first) return;
+    wt = sum;
+  } else if (key < 0) {
+    return;
+  }
+  if (wkey < 0)
+    atomicAdd(grid + key, wt);
+  else if (counts_int)
+    atomicAdd(reinterpret_cast<int*>(window) + wkey, static_cast<int>(wt));
+  else
+    atomicAdd(window + wkey, wt);
 }
 
+// Hit i's flat cell of the [S, H, W] grid (-1: outside the slots, or a zero
+// weight, whose x and y are not read) and of the window (-1: outside it),
+// and its weight.
+__device__ __forceinline__ void load_hit(long long i, const float* x, const float* y,
+                                         const float* w, const int32_t* slot, int slot0,
+                                         int n_slots, int h, int wd, float e, const Window& win,
+                                         int& key, int& wkey, float& wt) {
+  const int s = slot != nullptr ? slot[i] : slot0;
+  wt = w[i];
+  key = -1;
+  wkey = -1;
+  if (s >= 0 && s < n_slots && wt != 0.0f) {
+    const int iy = grid_axis(y[i], h, e), ix = grid_axis(x[i], wd, e);
+    key = (s * h + iy) * wd + ix;
+    const int wy = iy - win.row0;
+    if (wy >= 0 && wy < win.rows) wkey = (s * win.rows + wy) * wd + ix;
+  }
+}
+
+// The scatter with a window: launched as clusters of kClusterBlocks blocks,
+// `rows` > 0.
+__global__ void __launch_bounds__(kBinThreads, kBinMinBlocks)
+grid_bin_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ w, const int32_t* __restrict__ slot, int slot0,
+                long long n, float* __restrict__ grid, int n_slots, int h, int wd, float e,
+                int rows) {
+  extern __shared__ float4 window4[];
+  __shared__ int mode[2];  // [0]: a hit of this block counts; [1]: its window holds ints
+  float* window = reinterpret_cast<float*>(window4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long step = static_cast<long long>(gridDim.x) * kBinThreads * kBatch;
+  const long long first = static_cast<long long>(blockIdx.x) * kBinThreads * kBatch;
+  // One pass over the weights alone: does any hit of this cluster count,
+  // and are all of this block's weights +-1 (the main path's unit
+  // weights)?  Then its window counts in ints, with the shared-memory
+  // integer add (ATOMS.ADD) in place of the float add's compare-and-swap
+  // loop.  The sums are the same: exact in both while a cell holds fewer
+  // than 2^24 hits, which a block's share of the hits cannot exceed
+  // (kMaxUnitHits).
+  bool counts = false, unit = true;
+  for (long long base = first; base < n; base += step)
+    for (int b = 0; b < kBatch; ++b) {
+      const long long i = base + b * kBinThreads + tid;
+      if (i < n) {
+        const int s = slot != nullptr ? slot[i] : slot0;
+        const float wt = w[i];
+        if (s >= 0 && s < n_slots && wt != 0.0f) {
+          counts = true;
+          unit = unit && fabsf(wt) == 1.0f;
+        }
+      }
+    }
+  const int block_counts = __syncthreads_or(counts);
+  const bool counts_int =
+      __syncthreads_and(unit) && (n + step - 1) / step * kBinThreads * kBatch < kMaxUnitHits;
+  if (tid == 0) {
+    mode[0] = block_counts;
+    mode[1] = counts_int;
+  }
+  cluster.sync();
+  int any = 0;
+  for (int r = 0; r < kClusterBlocks; ++r) any |= cluster.map_shared_rank(mode, r)[0];
+  if (!any) {
+    cluster.sync();  // no block leaves while another reads its flags
+    return;
+  }
+  const Window win = {rows, (h - rows) / 2};
+  const int cells = n_slots * rows * wd;
+  for (int j = tid; 4 * j < cells; j += kBinThreads)
+    window4[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  // the loop runs the same trips in every lane of a block: the warp calls
+  // of add_hit see every lane
+  for (long long base = first; base < n; base += step) {
+    int key[kBatch], wkey[kBatch];
+    float wt[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const long long i = base + b * kBinThreads + tid;
+      key[b] = -1;
+      wkey[b] = -1;
+      wt[b] = 0.0f;
+      if (i < n)
+        load_hit(i, x, y, w, slot, slot0, n_slots, h, wd, e, win, key[b], wkey[b], wt[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      add_hit(key[b], wkey[b], wt[b], lane, window, counts_int, grid);
+  }
+  cluster.sync();  // every window of the cluster is complete
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int chunk = (cells + kClusterBlocks - 1) / kClusterBlocks;
+  const int lo = rank * chunk, hi = min(cells, lo + chunk);
+  const int per_slot = rows * wd;
+  unsigned int_windows = 0u;  // bit r: block r's window holds ints
+  for (int r = 0; r < kClusterBlocks; ++r)
+    int_windows |= (cluster.map_shared_rank(mode, r)[1] != 0 ? 1u : 0u) << r;
+  for (int c = lo + tid; c < hi; c += kBinThreads) {
+    float v = 0.0f;
+    for (int r = 0; r < kClusterBlocks; ++r) {
+      const float* wr = cluster.map_shared_rank(window, r);
+      v += (int_windows >> r) & 1u ? static_cast<float>(reinterpret_cast<const int*>(wr)[c])
+                                   : wr[c];
+    }
+    if (v != 0.0f) {
+      const int s = c / per_slot;
+      atomicAdd(grid + (s * h + win.row0) * wd + (c - s * per_slot), v);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its window
+}
+
+// The scatter without a window: one hit a thread, added in device memory;
+// a warp whose lanes all hit one cell adds their sum once.
 __global__ void __launch_bounds__(kBinThreads)
+grid_bin_global_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                       const float* __restrict__ w, const int32_t* __restrict__ slot, int slot0,
+                       long long n, float* __restrict__ grid, int n_slots, int h, int wd,
+                       float e) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBinThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  int key = -1, wkey = -1;
+  float wt = 0.0f;
+  if (i < n)
+    load_hit(i, x, y, w, slot, slot0, n_slots, h, wd, e, Window{0, 0}, key, wkey, wt);
+  add_hit(key, wkey, wt, lane, nullptr, false, grid);
+}
+
+__global__ void __launch_bounds__(kGatherThreads)
 grid_gather_kernel(const float* __restrict__ g, const float* __restrict__ x,
                    const float* __restrict__ y, const int32_t* __restrict__ slot, int slot0,
                    long long n, float* __restrict__ out, int n_slots, int h, int wd, float e) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBinThreads + threadIdx.x;
+  const long long i = static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
   if (i >= n) return;
   const int s = slot != nullptr ? slot[i] : slot0;
   out[i] = (s < 0 || s >= n_slots)
@@ -76,21 +284,99 @@ grid_gather_kernel(const float* __restrict__ g, const float* __restrict__ x,
                : g[static_cast<size_t>(s) * h * wd + grid_cell(x[i], y[i], h, wd, e)];
 }
 
-long long blocks_of(long long n) { return (n + kBinThreads - 1) / kBinThreads; }
+void cluster_attr(cudaLaunchAttribute& attr) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kClusterBlocks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+}
+
+// Resident clusters of the scatter with `smem` bytes of window a block on
+// the current device.  The first call for a (device, smem) allows the kernel
+// the largest window and asks the occupancy calculator; later calls read
+// the answer back (the cache is shared by the host threads, under a lock).
+cudaError_t resident_clusters(size_t smem, int* out) {
+  struct Entry {
+    int device;
+    size_t smem;
+    int count;
+  };
+  static Entry cache[32];
+  static int n_cached = 0;
+  static std::mutex lock;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> hold(lock);
+  for (int j = 0; j < n_cached; ++j)
+    if (cache[j].device == device && cache[j].smem == smem) {
+      *out = cache[j].count;
+      return cudaSuccess;
+    }
+  e = cudaFuncSetAttribute(grid_bin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(sizeof(float) * kMaxSliceCells));
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kClusterBlocks);
+  cfg.blockDim = dim3(kBinThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  cluster_attr(attr);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(out, grid_bin_kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (*out < 1) return cudaErrorInvalidConfiguration;
+  if (n_cached < 32) cache[n_cached++] = {device, smem, *out};
+  return cudaSuccess;
+}
 
 }  // namespace
 
 // Adds the n hits into the [n_slots, h, wd] grid (the caller zeroes it or
 // passes a grid to accumulate into).  `slot` may be null: then every hit
-// goes to slot0.  Launches on `stream`; returns a cudaError_t (0 on success).
+// goes to slot0.  `rows` is the height of the window each block keeps in
+// shared memory, the same centred band of rows in every slot, at most h and
+// at most kMaxSliceCells cells in all (ops/grid.py::window_rows), or 0 for
+// none: then every hit is added in device memory.  Launches on `stream`;
+// returns a cudaError_t (0 on success): a launch the card refuses returns
+// its error, and nothing falls back.
 extern "C" int rtt_grid_bin(const float* x, const float* y, const float* w, const int32_t* slot,
                             int slot0, long long n, float* grid, int n_slots, int h, int wd,
-                            float e, void* stream) {
+                            float e, int rows, void* stream) {
   if (n <= 0) return 0;
-  if (blocks_of(n) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  grid_bin_kernel<<<static_cast<unsigned>(blocks_of(n)), kBinThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x, y, w, slot, slot0, n, grid, n_slots,
-                                                         h, wd, e);
+  const long long cells = static_cast<long long>(n_slots) * h * wd;
+  const long long win_cells = static_cast<long long>(n_slots) * rows * wd;
+  if (n_slots <= 0 || h <= 0 || wd <= 0 || cells > 0x7fffffffLL || rows < 0 || rows > h ||
+      win_cells > kMaxSliceCells)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows == 0) {
+    const long long blocks = (n + kBinThreads - 1) / kBinThreads;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid_bin_global_kernel<<<static_cast<unsigned>(blocks), kBinThreads, 0, st>>>(
+        x, y, w, slot, slot0, n, grid, n_slots, h, wd, e);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * static_cast<size_t>((win_cells + 3) / 4 * 4);
+  int most = 0;
+  cudaError_t err = resident_clusters(smem, &most);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long per_cluster = static_cast<long long>(kClusterBlocks) * kBinThreads * kBatch;
+  long long clusters = (n + per_cluster - 1) / per_cluster;
+  if (clusters > most) clusters = most;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kClusterBlocks));
+  cfg.blockDim = dim3(kBinThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  cluster_attr(attr);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, grid_bin_kernel, x, y, w, slot, slot0, n, grid, n_slots, h, wd,
+                           e, rows);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -101,8 +387,9 @@ extern "C" int rtt_grid_gather(const float* g, const float* x, const float* y,
                                const int32_t* slot, int slot0, long long n, float* out,
                                int n_slots, int h, int wd, float e, void* stream) {
   if (n <= 0) return 0;
-  if (blocks_of(n) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  grid_gather_kernel<<<static_cast<unsigned>(blocks_of(n)), kBinThreads, 0,
+  const long long blocks = (n + kGatherThreads - 1) / kGatherThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  grid_gather_kernel<<<static_cast<unsigned>(blocks), kGatherThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(g, x, y, slot, slot0, n, out,
                                                             n_slots, h, wd, e);
   return static_cast<int>(cudaGetLastError());

@@ -12,19 +12,21 @@
 
 namespace rtt {
 
+// The cell of a sensor-local coordinate v along an axis of n cells spanning
+// [-e, e]: clip(trunc((v + e) / (2e) * n), 0, n - 1) (core/sensor.py::
+// bin_indices).  The add, the division and the product are each rounded on
+// their own (__fadd_rn, __fdiv_rn, __fmul_rn), so no fused multiply-add
+// moves a bin edge away from the plain version's.  Truncation and clip run
+// in float (NaN goes to cell 0), so no hit overflows an int.
+__device__ __forceinline__ int grid_axis(float v, int n, float e) {
+  const float f = __fmul_rn(__fdiv_rn(__fadd_rn(v, e), 2.0f * e), static_cast<float>(n));
+  return static_cast<int>(fminf(fmaxf(truncf(f), 0.0f), static_cast<float>(n - 1)));
+}
+
 // Flat cell (iy * w + ix) of a sensor-local hit on an h x w grid spanning
-// [-e, e]^2: ix = clip(trunc((x + e) / (2e) * w), 0, w - 1), and iy likewise
-// (core/sensor.py::bin_indices).  The add, the division and the product are
-// each rounded on their own (__fadd_rn, __fdiv_rn, __fmul_rn), so no fused
-// multiply-add moves a bin edge away from the plain version's.  Truncation
-// and clip run in float (NaN goes to cell 0), so no hit overflows an int.
+// [-e, e]^2.
 __device__ __forceinline__ int grid_cell(float x, float y, int h, int w, float e) {
-  const float two_e = 2.0f * e;
-  const float fx = __fmul_rn(__fdiv_rn(__fadd_rn(x, e), two_e), static_cast<float>(w));
-  const float fy = __fmul_rn(__fdiv_rn(__fadd_rn(y, e), two_e), static_cast<float>(h));
-  const float cx = fminf(fmaxf(truncf(fx), 0.0f), static_cast<float>(w - 1));
-  const float cy = fminf(fmaxf(truncf(fy), 0.0f), static_cast<float>(h - 1));
-  return static_cast<int>(cy) * w + static_cast<int>(cx);
+  return grid_axis(y, h, e) * w + grid_axis(x, w, e);
 }
 
 // Add weight wt at the hit's cell of slot `slot` of the [S, h, w] grid in

@@ -30,8 +30,9 @@
 // memory.
 // - Forward replay: K5's loop with the same per-ray exit (intensity not > 0,
 //   or no row wins), through the same device function (nonseq_bounce,
-//   trace_seq_common.cuh), so it reaches K5's state bit for bit and picks
-//   K5's winners; each live bounce keeps its
+//   trace_seq_common.cuh, reading the same packed scan records, built in
+//   shared memory as K5 builds them), so it reaches K5's state bit for bit
+//   and picks K5's winners; each live bounce keeps its
 //   input state (7 floats), its winner row and the winner's branch bits,
 //   which come from the very calls that moved the ray (the optional outputs
 //   of intersect_row, world_normal and apply_physics).  The wrapper can ask
@@ -89,9 +90,9 @@
 // rays); PERF.md holds the measured time.
 //
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
-// bundles, any bounce budget >= 0.  Shared memory is 4 * (168 K + 7 S B +
+// bundles, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
 // 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
-// 111 KB for the cavity, 186 KB at 64 rows, so the launcher raises the
+// 111 KB for the cavity, 198 KB at 64 rows, so the launcher raises the
 // block's dynamic shared-memory limit above 48 KB.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K2, with K2's
@@ -123,13 +124,15 @@ constexpr unsigned kFull = 0xffffffffu;
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
 // winner's branch bits.
 template <bool kPlates>
-__device__ __forceinline__ int bounce(const float* tab, const int32_t* knd, int n_rows,
-                                      const Plates& pl, V3& p, V3& d, float& inten,
+__device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
+                                      int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits) {
   RowHit hw = {};
+  RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, hw, &degen, &br);
+  const int k =
+      nonseq_bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br);
   if (k >= 0) bits = branch_bits(hw, degen, br) | kActive;
   return k;
 }
@@ -173,15 +176,17 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
                         const float* __restrict__ wavelength, float* __restrict__ gmaps,
                         int n_bounces, long long n) {
   constexpr int kCols = grad_cols<kPlates>();
-  extern __shared__ float smem[];
-  float* tab = smem;
-  int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
-  float* gm = smem + n_rows * (kRowWidth + kKindWidth);
+  extern __shared__ float4 smem4[];
+  const float4* recs = smem4;
+  float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRec4);
+  int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
+  float* gm = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
   float* warp_tab = gm + n_mom;  // [kWarps, n_rows, kCols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
+  build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
@@ -219,7 +224,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
     const V3 pb = p, db = d;
     const float ib = inten;
     uint32_t bits = 0;
-    const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
+    const int k = bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -257,12 +262,12 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
       inten = i0;
       uint32_t bits = 0;
 #pragma unroll 1
-      for (int b = 0; b < s; ++b) bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
+      for (int b = 0; b < s; ++b) bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten;
-        const int k = bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, bits);
+        const int k = bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
       }
     }
@@ -307,12 +312,13 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
 }
 
-// The dynamic shared memory of a launch: the table, its kinds, the moment
-// cotangent, the warp slots and the checkpoints.
+// The dynamic shared memory of a launch: the packed scan records, the
+// table, its kinds, the moment cotangent, the warp slots and the
+// checkpoints.
 template <bool kPlates>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces) {
   return sizeof(float) *
-         (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
+         (static_cast<size_t>(n_rows) * (kRecWords + kRowWidth + kKindWidth) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
           static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates>() +
           static_cast<size_t>(checkpoints(n_bounces)) * kStateWords * kThreads);

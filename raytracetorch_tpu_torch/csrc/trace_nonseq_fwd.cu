@@ -35,24 +35,33 @@
 // keeps its state and can win none later, so the result equals the full
 // budget's, and a budget of 100 bounces costs what the scene needs.
 //
-// Design: one thread per ray, 256 threads per block.  The flat [K, 160]
-// table and the int32 [K, 8] kinds sit in shared memory, loaded once per
-// block.  The row scan is warp-uniform; the winner's physics and the exit
+// Design: one thread per ray, 256 threads per block.  Each block copies
+// the flat [K, 160] table and the int32 [K, 8] kinds into shared memory and
+// builds from them a packed scan record per row (trace_seq_common.cuh):
+// the fields the intersection reads, 16-byte aligned, read with 128-bit
+// loads, and the kinds it branches on as plain ints.  The row scan is
+// warp-uniform; the winner's physics (from the flat row) and the exit
 // diverge.  Moments vary per ray and bounce (slot and bundle of each hit),
 // so each thread keeps its own S*B*7 sums: a template bucket of 1 (one
-// sensor, one bundle, the main path) keeps them in 7 registers; the bucket
-// of 64 keeps them in local memory.  At the end: warp shuffles, one partial
-// per warp in shared memory, a fixed-order sum over warps into a
-// [blocks, S, B, 7] buffer that the wrapper sums.  No atomics: the moments
-// are deterministic.  The grid takes one atomicAdd per sensor hit.
+// sensor, one bundle, the main path) keeps them in shared memory,
+// [moment][thread], so that no register holds them across the bounce
+// loop; the bucket of 64 keeps them in local memory.  At the end: warp
+// shuffles, one partial per warp in shared memory, a fixed-order sum over
+// warps into a [blocks, S, B, 7] buffer that the wrapper sums.  No atomics:
+// the moments are deterministic.  The grid takes one atomicAdd per sensor
+// hit.  The instantiations of bucket 1 run 5 blocks an SM
+// (kFwdMinBlocks, 48 registers, no spill).
 //
 // What bounds it: like K1 it reads 8 streams and writes 7 (60 B per ray, 60
 // MB at 1M rays, ~18 us at 3.35 TB/s), but it runs the row scan once per
 // live bounce: the bench scene traced non-sequentially intersects its 5
-// rows on each of about 5 bounces, against K1's one pass over 5 rows.  The
-// per-ray arithmetic (IEEE division and sqrt in each intersection) should
-// bound it, as it does K1; the atomics of a focused grid add contention.
-// This is an estimate by count; PERF.md holds the measured time.
+// rows on each of about 5 bounces, against K1's one pass over 5 rows.
+// Measured on an H100 (PERF.md), neither its float nor its integer
+// pipe binds it, nor its shared loads (extra instructions of either kind
+// cost nothing; fewer loads gained nothing): each warp waits on the
+// dependent chain of a row (loads, two IEEE divisions and a square root,
+// compares that feed branches), so it gains from more warps an SM and from
+// fewer branches on that chain, not from fewer instructions.
 //
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
 // bundles, any bounce budget >= 0.  It reads the wavelength only with a
@@ -73,8 +82,29 @@ using namespace rtt;
 
 namespace {
 
+// Resident blocks of kThreads per SM that the instantiations of bucket 1
+// (the main path's, with and without plate code) are capped for
+// (__launch_bounds__): the most at which ptxas keeps them free of spills
+// and of a stack frame (PERF.md).  The bucket of 64 keeps its sums in a
+// local array: it stays uncapped.
+constexpr int kFwdMinBlocks = 5;
+
+template <int kMomBucket>
+__host__ __device__ constexpr int fwd_min_blocks() {
+  return kMomBucket == 1 ? kFwdMinBlocks : 1;
+}
+
+// The dynamic shared memory of a launch: the packed scan records, the flat
+// table, its kinds, the per-warp moment partials and bucket 1's per-thread
+// moment sums.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
+  return sizeof(float) * (static_cast<size_t>(n_rows) * (kRecWords + kRowWidth + kKindWidth) +
+                          static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
+                          static_cast<size_t>(kMoments) * kThreads);
+}
+
 template <int kMomBucket, bool kPlates>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket>())
 trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                         int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                         const float* __restrict__ pz, const float* __restrict__ dx,
@@ -87,14 +117,16 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
                         int grid_w, float grid_e, const float* __restrict__ maps,
                         const int32_t* __restrict__ map_desc,
                         const float* __restrict__ wavelength, int n_bounces, long long n) {
-  extern __shared__ float smem[];
-  float* tab = smem;
-  int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
-  float* warp_mom = smem + n_rows * (kRowWidth + kKindWidth);
+  extern __shared__ float4 smem4[];
+  const float4* recs = smem4;
+  float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRec4);
+  int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
+  float* warp_mom = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
+  build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   __syncthreads();
@@ -116,35 +148,49 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
   const bool counted = rid >= 0 && rid < n_bundles;
 
-  // loops over acc unroll fully for bucket 1 (registers), not for 64
-  float acc[kMomBucket * kMoments];
+  // The moment sums: bucket 1 keeps its 7 in shared memory, [moment]
+  // [thread] (a warp's access is 32 consecutive words, no bank conflict),
+  // so no register holds them across the bounce loop; the bucket of 64
+  // keeps them in a local array.  Each thread adds its hits in bounce order
+  // either way.
+  constexpr int kStride = kMomBucket == 1 ? kThreads : 1;
+  float acc_local[kMomBucket == 1 ? 1 : kMomBucket * kMoments];
+  float* const acc = kMomBucket == 1 ? warp_mom + kWarps * n_mom + tid : acc_local;
 #pragma unroll(kMomBucket == 1 ? kMoments : 1)
-  for (int j = 0; j < kMomBucket * kMoments; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < kMomBucket * kMoments; ++j) acc[j * kStride] = 0.0f;
 
   for (int b = 0; b < n_bounces; ++b) {
     if (!(inten > 0.0f)) break;
     // ---- nearest valid row, its physics and the move ----
     const float w = inten;
     RowHit hw = {};
-    const int k_win = nonseq_bounce<kPlates>(tab, knd, n_rows, pl, p, d, inten, hw);
+    RowKinds kd = {};
+    const int k_win = nonseq_bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kd);
     if (k_win < 0) break;
 
     // ---- a sensor winner records the incoming intensity at its hit ----
-    const RowKinds kd = read_row_kinds(knd + k_win * kKindWidth);
     if (kd.sensor) {
       const float x = hw.hs.x, y = hw.hs.y;
       if (counted) {
         // bucket 1 holds one (slot, bundle): its index is 0 at compile time
         float* a = acc + (kMomBucket == 1 ? 0 : (kd.slot * n_bundles + rid) * kMoments);
         a[0] += w;
-        a[1] += w * x;
-        a[2] += w * y;
-        a[3] += w * x * x;
-        a[4] += w * y * y;
-        a[5] += w * x * y;
-        a[6] += 1.0f;
+        a[kStride] += w * x;
+        a[2 * kStride] += w * y;
+        a[3 * kStride] += w * x * x;
+        a[4 * kStride] += w * y * y;
+        a[5 * kStride] += w * x * y;
+        a[6 * kStride] += 1.0f;
       }
-      if (grid != nullptr) grid_add(grid, kd.slot, x, y, w, grid_h, grid_w, grid_e);
+      if (grid != nullptr) {
+        // the grid's sizes enter here, once a ray: the empty asm keeps the
+        // compiler from computing their conversions before the bounce loop
+        // and holding them in registers across it
+        int gh = grid_h, gw = grid_w;
+        float ge = grid_e;
+        asm volatile("" : "+r"(gh), "+r"(gw), "+f"(ge));
+        grid_add(grid, kd.slot, x, y, w, gh, gw, ge);
+      }
     }
   }
 
@@ -162,7 +208,7 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 #pragma unroll(kMomBucket == 1 ? kMoments : 1)
   for (int j = 0; j < kMomBucket * kMoments; ++j) {
     if (j < n_mom) {  // uniform across the block
-      const float s = warp_sum(acc[j]);
+      const float s = warp_sum(acc[j * kStride]);
       if (lane == 0) warp_mom[warp * n_mom + j] = s;
     }
   }
@@ -183,18 +229,23 @@ struct PlateArgs {
   const float* wavelength;
 };
 
+// Allow the kernel its shared memory (beyond 48 KB only on request).
+template <int kMomBucket, bool kPlates>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(trace_nonseq_fwd_kernel<kMomBucket, kPlates>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int kMomBucket, bool kPlates>
 int launch(size_t smem, long long blocks, cudaStream_t stream, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            float* const* outs, float* partials, int n_slots, int n_bundles, float* grid,
            int grid_h, int grid_w, float grid_e, const PlateArgs& pa, int n_bounces,
            long long n) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(trace_nonseq_fwd_kernel<kMomBucket, kPlates>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = prepare<kMomBucket, kPlates>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   trace_nonseq_fwd_kernel<kMomBucket, kPlates>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
@@ -246,9 +297,7 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
-                       static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -259,4 +308,26 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
   return launch_bucket<false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
                               PlateArgs{nullptr, nullptr, nullptr}, n_bounces, n);
+}
+
+// The resident blocks per SM of the instantiation that a launch with these
+// sizes runs (the bounce budget does not change it), at its dynamic shared
+// memory, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
+                                              int n_bounces, int plates, int* blocks) {
+  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
+  const bool one = n_slots * n_bundles == 1;
+  const void* fn =
+      plates ? (one ? reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<1, true>)
+                    : reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<64, true>))
+             : (one ? reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<1, false>)
+                    : reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<64, false>));
+  const cudaError_t e = plates ? (one ? prepare<1, true>(smem) : prepare<64, true>(smem))
+                               : (one ? prepare<1, false>(smem) : prepare<64, false>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
 }

@@ -1,7 +1,8 @@
 // Shared by the fused kernels K1 (trace_seq_fwd.cu), K2 (trace_seq_bwd.cu),
 // K5 (trace_nonseq_fwd.cu) and K6 (trace_nonseq_bwd.cu): the flat-row layout,
 // the constants of the trace engine, small vector helpers, the bound checks,
-// the warp sum, and one row's intersection, normal and physics as K1 and K5
+// the warp sum, the packed scan record that K5 and K6's replay intersect
+// from, and one row's intersection, normal and physics as K1 and K5
 // evaluate them.  The adjoints (trace_seq_adjoint.cuh) take their branch
 // decisions from these same functions, through their optional outputs, so a
 // backward never re-decides a branch in another copy of the arithmetic.
@@ -61,36 +62,59 @@ __device__ __forceinline__ V3 fma3(V3 u, float s, V3 v) {
   return {u.x + s * v.x, u.y + s * v.y, u.z + s * v.z};
 }
 
-// v @ R with R a row-major 3x3
-__device__ __forceinline__ V3 rot(V3 v, const float* R) {
+// v @ R with R a row-major 3x3 (a pointer to it, or Vals<9>)
+template <class M>
+__device__ __forceinline__ V3 rot(V3 v, const M& R) {
   return {v.x * R[0] + v.y * R[3] + v.z * R[6],
           v.x * R[1] + v.y * R[4] + v.z * R[7],
           v.x * R[2] + v.y * R[5] + v.z * R[8]};
 }
 
 // v @ R.T
-__device__ __forceinline__ V3 rot_t(V3 v, const float* R) {
+template <class M>
+__device__ __forceinline__ V3 rot_t(V3 v, const M& R) {
   return {v.x * R[0] + v.y * R[1] + v.z * R[2],
           v.x * R[3] + v.y * R[4] + v.z * R[5],
           v.x * R[6] + v.y * R[7] + v.z * R[8]};
 }
 
-// A surface bound.  The RECT bound (a phase plate's or a rectangular stop's)
-// is plate code: only the kPlates instantiation tests it.
-template <bool kPlates>
-__device__ __forceinline__ bool sb_check(int kind, const float* sb, V3 h) {
+// A surface bound of both roots' surface-frame hits a and b, under one
+// dispatch on the kind.  The RECT bound (a phase plate's or a rectangular
+// stop's) is plate code: only the kPlates instantiation tests it.  `sb` is
+// the row's bound parameters: a pointer into a flat row, or Vals<3>.
+template <bool kPlates, class S>
+__device__ __forceinline__ void sb_check2(int kind, const S& sb, V3 a, V3 b, bool& ka,
+                                          bool& kb) {
   if (kind == SB_DISK) {
-    const float a = h.x - sb[1], b = h.y - sb[2];
-    return a * a + b * b <= sb[0];
+    const float a0 = a.x - sb[1], a1 = a.y - sb[2];
+    const float b0 = b.x - sb[1], b1 = b.y - sb[2];
+    ka = a0 * a0 + a1 * a1 <= sb[0];
+    kb = b0 * b0 + b1 * b1 <= sb[0];
+  } else if (kPlates && kind == SB_RECT) {
+    ka = fabsf(a.x) <= sb[0] && fabsf(a.y) <= sb[1];
+    kb = fabsf(b.x) <= sb[0] && fabsf(b.y) <= sb[1];
+  } else if (kind == SB_HEMI) {
+    ka = fabsf(a.z * sb[0]) < 1.0f + kIntersectEps;
+    kb = fabsf(b.z * sb[0]) < 1.0f + kIntersectEps;
+  } else if (kind == SB_HEMI_APER) {
+    ka = fabsf(a.z * sb[0]) < 1.0f + kIntersectEps && a.x * a.x + a.y * a.y <= sb[1];
+    kb = fabsf(b.z * sb[0]) < 1.0f + kIntersectEps && b.x * b.x + b.y * b.y <= sb[1];
+  } else {
+    ka = true;
+    kb = true;
   }
-  if (kPlates && kind == SB_RECT) return fabsf(h.x) <= sb[0] && fabsf(h.y) <= sb[1];
-  if (kind == SB_HEMI) return fabsf(h.z * sb[0]) < 1.0f + kIntersectEps;
-  if (kind == SB_HEMI_APER)
-    return fabsf(h.z * sb[0]) < 1.0f + kIntersectEps && h.x * h.x + h.y * h.y <= sb[1];
-  return true;
 }
 
-__device__ __forceinline__ bool vb_check(int kind, const float* vb, V3 h) {
+// The surface bound of one hit h.
+template <bool kPlates, class S>
+__device__ __forceinline__ bool sb_check(int kind, const S& sb, V3 h) {
+  bool k, unused;
+  sb_check2<kPlates>(kind, sb, h, h, k, unused);
+  return k;
+}
+
+template <class S>
+__device__ __forceinline__ bool vb_check(int kind, const S& vb, V3 h) {
   if (kind == VB_APER_R2) return h.x * h.x + h.y * h.y <= vb[0];
   if (kind == VB_Z_BETWEEN) return h.z >= vb[0] && h.z <= vb[1];
   return true;
@@ -113,6 +137,126 @@ __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
           kd[kSensorCol] != 0, kd[kInvertCol] != 0};
 }
 
+// ---- The packed scan record (K5's scan, and K6's replay of it) ----
+//
+// The non-sequential scan intersects every row at every bounce.  Read from
+// the flat row, whose fields lie at offsets that are not 16-byte aligned,
+// one intersection takes 24-37 scalar shared loads.  So each block copies
+// the fields the intersection reads into a 40-word record per row, 16-byte
+// aligned, and the scan reads it with 128-bit loads: 4 for a plane row
+// without bounds, 10 at most.  The words, in order: the four kinds the
+// intersection branches on, as ints (plane, surface bound, volume bound,
+// invert), tw, Rw, q, the surface bound's first 3 parameters, the volume
+// bound's first 2, ts, Rs, two words of padding
+// (tests/test_torch_kernel_layout.py holds them to core/table.py's
+// ROW_FIELDS and ops/fused_trace.py::kind_rows).
+constexpr int kRecScan = 0;  // plane, surface bound, volume bound, invert
+constexpr int kRecTw = 4;
+constexpr int kRecRw = 7;
+constexpr int kRecQ = 16;
+constexpr int kRecSb = 21;
+constexpr int kRecVb = 24;
+constexpr int kRecTs = 26;
+constexpr int kRecRs = 29;
+constexpr int kRecPad = 38;
+constexpr int kRecWords = 40;
+constexpr int kRec4 = kRecWords / 4;  // float4s per record
+static_assert(kRecScan == 0 && kRecTw == 4 && kRecWords % 4 == 0 && kRecPad < kRecWords,
+              "the kinds fill the first float4, the record whole float4s");
+
+// The flat-row column that record word w copies (-1: the kinds, the
+// padding).
+__host__ __device__ constexpr int rec_col(int w) {
+  return w < kRecTw    ? -1
+         : w < kRecRw  ? kTw + (w - kRecTw)
+         : w < kRecQ   ? kRw + (w - kRecRw)
+         : w < kRecSb  ? kQ + (w - kRecQ)
+         : w < kRecVb  ? kSb + (w - kRecSb)
+         : w < kRecTs  ? kVb + (w - kRecVb)
+         : w < kRecRs  ? kTs + (w - kRecTs)
+         : w < kRecPad ? kRs + (w - kRecRs)
+                       : -1;
+}
+
+// Write the n_rows records of the flat table and kinds (device memory) into
+// `rec` (shared memory, 16-byte aligned); every thread of the block calls
+// it, and a __syncthreads() must follow before the records are read.
+__device__ __forceinline__ void build_scan_records(float* rec, const float* table,
+                                                   const int32_t* kinds, int n_rows, int tid,
+                                                   int n_threads) {
+  for (int j = tid; j < n_rows * kRecWords; j += n_threads) {
+    const int k = j / kRecWords, w = j - k * kRecWords;
+    const int col = rec_col(w);
+    const int32_t* kd = kinds + k * kKindWidth;
+    rec[j] = w == kRecScan       ? __int_as_float(kd[kPlaneCol] != 0)
+             : w == kRecScan + 1 ? __int_as_float(kd[kSbCol])
+             : w == kRecScan + 2 ? __int_as_float(kd[kVbCol])
+             : w == kRecScan + 3 ? __int_as_float(kd[kInvertCol] != 0)
+             : col >= 0          ? table[k * kRowWidth + col]
+                                 : 0.0f;
+  }
+}
+
+// kN floats held by value (in registers once inlined), indexed like the
+// pointer into a flat row they replace.
+template <int kN>
+struct Vals {
+  float a[kN];
+  __device__ __forceinline__ float operator[](int j) const { return a[j]; }
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Record words [kOff, kOff + kN), read as the whole float4s that hold them.
+template <int kOff, int kN>
+__device__ __forceinline__ Vals<kN> rec_vals(const float4* v) {
+  constexpr int kFirst = kOff / 4, kLast = (kOff + kN - 1) / 4;
+  float4 g[kLast - kFirst + 1];
+#pragma unroll
+  for (int j = 0; j <= kLast - kFirst; ++j) g[j] = v[kFirst + j];
+  Vals<kN> out;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) out.a[j] = lane_of(g[(kOff + j) / 4 - kFirst], (kOff + j) % 4);
+  return out;
+}
+
+// What intersect_row reads of a row, from a packed record or a flat row.
+struct RecRow {
+  const float4* v;  // the row's kRec4 float4s
+  // the kinds the intersection reads (the others left 0)
+  __device__ __forceinline__ RowKinds scan_kinds() const {
+    const float4 k = v[kRecScan / 4];
+    return {0, __float_as_int(k.y), __float_as_int(k.z), 0, 0, __float_as_int(k.x) != 0,
+            false, __float_as_int(k.w) != 0};
+  }
+  __device__ __forceinline__ V3 tw() const {
+    const Vals<3> t = rec_vals<kRecTw, 3>(v);
+    return {t[0], t[1], t[2]};
+  }
+  __device__ __forceinline__ Vals<9> rw() const { return rec_vals<kRecRw, 9>(v); }
+  __device__ __forceinline__ Vals<5> q() const { return rec_vals<kRecQ, 5>(v); }
+  __device__ __forceinline__ Vals<3> sb() const { return rec_vals<kRecSb, 3>(v); }
+  __device__ __forceinline__ Vals<2> vb() const { return rec_vals<kRecVb, 2>(v); }
+  __device__ __forceinline__ V3 ts() const {
+    const Vals<3> t = rec_vals<kRecTs, 3>(v);
+    return {t[0], t[1], t[2]};
+  }
+  __device__ __forceinline__ Vals<9> rs() const { return rec_vals<kRecRs, 9>(v); }
+};
+
+struct FlatRowRef {
+  const float* r;  // a flat row of kRowWidth floats
+  __device__ __forceinline__ V3 tw() const { return {r[kTw], r[kTw + 1], r[kTw + 2]}; }
+  __device__ __forceinline__ const float* rw() const { return r + kRw; }
+  __device__ __forceinline__ const float* q() const { return r + kQ; }
+  __device__ __forceinline__ const float* sb() const { return r + kSb; }
+  __device__ __forceinline__ const float* vb() const { return r + kVb; }
+  __device__ __forceinline__ V3 ts() const { return {r[kTs], r[kTs + 1], r[kTs + 2]}; }
+  __device__ __forceinline__ const float* rs() const { return r + kRs; }
+};
+
 // One row's hit: the ray parameter t (0 where invalid), validity, the hit in
 // the surface frame, and the branches the adjoint needs: which root is the
 // minimum (both on a tie) and whether the quadric solver took its linear path.
@@ -123,14 +267,16 @@ struct RowHit {
   bool root1, root2, linear;
 };
 
-// Intersect a ray (world frame) with row r (core/intersect.py): plane fast
+// Intersect a ray (world frame) with a row (core/intersect.py): plane fast
 // path or the quadric solver, surface-local bound per root, the minimum
-// positive root above the world-scale epsilon, then the volume bound.
-template <bool kPlates>
-__device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& kd, V3 p, V3 d) {
-  const float* q = r + kQ;
-  const float* Rw = r + kRw;
-  const V3 o = rot(V3{p.x - r[kTw], p.y - r[kTw + 1], p.z - r[kTw + 2]}, Rw);
+// positive root above the world-scale epsilon, then the volume bound.  The
+// row is a RecRow or a FlatRowRef: the same arithmetic on the same values.
+template <bool kPlates, class Row>
+__device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKinds& kd, V3 p,
+                                                   V3 d) {
+  const auto Rw = row.rw();
+  const V3 tw = row.tw();
+  const V3 o = rot(V3{p.x - tw.x, p.y - tw.y, p.z - tw.z}, Rw);
   const V3 ds = rot(d, Rw);
   float t1, t2;
   bool v1, v2, linear = false;
@@ -144,6 +290,7 @@ __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& 
     v2 = false;
   } else {
     // geom/surfaces.py::solve_roots
+    const auto q = row.q();
     const float A = q[0] * ds.x * ds.x + q[1] * ds.y * ds.y + q[2] * ds.z * ds.z;
     const float B =
         2.0f * (q[0] * o.x * ds.x + q[1] * o.y * ds.y + q[2] * o.z * ds.z) + q[3] * ds.z;
@@ -161,8 +308,9 @@ __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& 
     v2 = v1;
   }
   if (kd.sb != SB_NONE) {
-    bool keep1 = sb_check<kPlates>(kd.sb, r + kSb, fma3(o, t1, ds));
-    bool keep2 = sb_check<kPlates>(kd.sb, r + kSb, fma3(o, t2, ds));
+    const auto sb = row.sb();
+    bool keep1, keep2;
+    sb_check2<kPlates>(kd.sb, sb, fma3(o, t1, ds), fma3(o, t2, ds), keep1, keep2);
     if (kd.invert) {
       keep1 = !keep1;
       keep2 = !keep2;
@@ -184,11 +332,18 @@ __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& 
   h.t = h.valid ? t_best : 0.0f;
   h.hs = fma3(o, h.t, ds);
   if (kd.vb != VB_NONE) {
-    const V3 e = rot_t(h.hs, r + kRs);
-    const V3 he = {e.x + r[kTs], e.y + r[kTs + 1], e.z + r[kTs + 2]};
-    h.valid = h.valid && vb_check(kd.vb, r + kVb, he);
+    const V3 e = rot_t(h.hs, row.rs());
+    const V3 ts = row.ts();
+    const V3 he = {e.x + ts.x, e.y + ts.y, e.z + ts.z};
+    h.valid = h.valid && vb_check(kd.vb, row.vb(), he);
   }
   return h;
+}
+
+// Intersect a ray with flat row r (K1, and the adjoints' recompute).
+template <bool kPlates>
+__device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& kd, V3 p, V3 d) {
+  return intersect_row_of<kPlates>(FlatRowRef{r}, kd, p, d);
 }
 
 // World-frame unit normal at a surface-frame hit (core/intersect.py::
@@ -352,24 +507,25 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
 }
 
 // One bounce of the non-sequential loop (core/trace.py::bounce_step), as K5
-// runs it and K6 replays it: every row is intersected and the nearest valid
-// row wins with a strict t < best_t (the first of equals wins); then the
-// winner's normal and physics, and the move p += t d, d = the new direction,
-// I *= the winner's factor.  Returns the winner row, or -1 when no row wins
-// (nothing moves).  `hw` receives the winner's hit; `degen` and `br`, when
-// given, the winner's branches.  The caller records a sensor winner.  Only
-// the winner reads its phase map.
+// runs it and K6 replays it: every row is intersected, from its packed
+// record `recs`, and the nearest valid row wins with a strict t < best_t
+// (the first of equals wins); then the winner's normal and physics, from
+// its flat row in `tab` and its kinds row in `knd`, and the move p += t d,
+// d = the new direction, I *= the winner's factor.  Returns the winner row,
+// or -1 when no row wins (nothing moves).  `hw` receives the winner's hit
+// and `kw` its kinds; `degen` and `br`, when given, the winner's branches.
+// The caller records a sensor winner.  Only the winner reads its phase map.
 template <bool kPlates>
-__device__ __forceinline__ int nonseq_bounce(const float* tab, const int32_t* knd, int n_rows,
-                                             const Plates& pl, V3& p, V3& d, float& inten,
-                                             RowHit& hw, bool* degen = nullptr,
+__device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
+                                             const int32_t* knd, int n_rows, const Plates& pl,
+                                             V3& p, V3& d, float& inten, RowHit& hw,
+                                             RowKinds& kw, bool* degen = nullptr,
                                              PhysBranch* br = nullptr) {
   float best_t = kBig;
   int k_win = -1;
   for (int k = 0; k < n_rows; ++k) {
-    const RowHit h =
-        intersect_row<kPlates>(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), p,
-                               d);
+    const RecRow row = {recs + k * kRec4};
+    const RowHit h = intersect_row_of<kPlates>(row, row.scan_kinds(), p, d);
     if (h.valid && h.t < best_t) {
       best_t = h.t;
       k_win = k;
@@ -378,10 +534,10 @@ __device__ __forceinline__ int nonseq_bounce(const float* tab, const int32_t* kn
   }
   if (k_win < 0) return -1;
   const float* r = tab + k_win * kRowWidth;
-  const RowKinds kd = read_row_kinds(knd + k_win * kKindWidth);
+  kw = read_row_kinds(knd + k_win * kKindWidth);
   V3 nd;
   float imod;
-  apply_physics<kPlates>(r, kd.ph, kd.sb, kd.map, d, world_normal(r, kd.plane, hw.hs, degen),
+  apply_physics<kPlates>(r, kw.ph, kw.sb, kw.map, d, world_normal(r, kw.plane, hw.hs, degen),
                          hw.hs, pl, nd, imod, br);
   p = fma3(p, best_t, d);
   d = nd;

@@ -100,7 +100,8 @@ _LIBRARIES = {
         + _PLATES + [_P, _L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
-        'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
+        'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _I,
+                         _P],
         'rtt_grid_gather': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F,
                             _P]}),
     'grid_corners': ('grid_corners.cu', {
@@ -109,7 +110,8 @@ _LIBRARIES = {
                                  _P]}),
     'trace_nonseq_fwd': ('trace_nonseq_fwd.cu', {
         'rtt_trace_nonseq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
-        + _PLATES + [_I, _L, _P]}),
+        + _PLATES + [_I, _L, _P],
+        'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
         'rtt_trace_nonseq_bwd': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
         + _PLATES + [_P, _I, _L, _P],
@@ -445,10 +447,10 @@ def kernel(symbol):
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0):
     """Resident blocks per SM of the instantiation of K2
-    (``library='trace_seq_bwd'``) or K6 (``'trace_nonseq_bwd'``, with its
-    bounce budget ``n_bounces``) that a launch with ``n_rows`` rows,
-    ``cfg``'s slots and bundles and, with ``plates``, plate code runs, at
-    that launch's dynamic shared memory
+    (``library='trace_seq_bwd'``), K5 (``'trace_nonseq_fwd'``) or K6
+    (``'trace_nonseq_bwd'``, with its bounce budget ``n_bounces``) that a
+    launch with ``n_rows`` rows, ``cfg``'s slots and bundles and, with
+    ``plates``, plate code runs, at that launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)

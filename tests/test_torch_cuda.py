@@ -20,7 +20,11 @@ grid totals), K5 (the NS_* bounds), K6 (``chip_smoke.compare_k6``) and the
 phase plates' map cotangents (``chip_smoke.compare_maps``), with the reasons
 there.  K2's and K6's table cotangents are also held bit for bit across two
 launches, and their instantiations without plate code to zero register
-spills and at least two resident blocks per SM.
+spills and at least two resident blocks per SM; K5's main-path
+instantiation to no spill, no stack frame and at least the parent design's
+blocks per SM.  K3 is held to its plain version with the whole grid, a
+band of it and no band in shared memory, on one hot cell, on ragged and
+small batches and on hits placed at its bin edges, unit weights exactly.
 """
 
 import math
@@ -753,3 +757,177 @@ def test_bwd_kernels_match_plain_beyond_eight_rows(kind, dev):
     assert chip_smoke.compare_ray_cotangents(torch, gr_k, gr_p)[
         'rays_differ'] == 0
     chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p)
+
+
+# K3's scatter with the whole grid in a block's shared memory (32^2), with
+# a band of a 256^2 slot, and without a window (two and eight 256^2 slots,
+# where a band would hold less than an eighth of the rows): (slots, H, W)
+# -> the window's rows (ops/grid.py::window_rows).
+K3_GRIDS = {(1, 32, 32): 32, (1, 256, 256): 50, (2, 256, 256): 0,
+            (8, 256, 256): 0}
+
+
+def _k3_hits(shape, n, seed):
+    """n hits spread over the grid's slots, some outside [-1, 1]^2."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn(n, generator=gen, device='cuda') * 0.6
+    y = torch.randn(n, generator=gen, device='cuda') * 0.6
+    slot = torch.randint(0, shape[0], (n,), generator=gen, device='cuda',
+                         dtype=torch.int32)
+    w = torch.rand(n, generator=gen, device='cuda')
+    cfg = trt.SensorConfig(n_sensors=shape[0], grid_shape=shape[1:],
+                           grid_half_extent=chip_smoke.GRID_E)
+    return x, y, slot, w, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('weights', ['unit', 'random'])
+@pytest.mark.parametrize('shape', sorted(K3_GRIDS))
+def test_k3_paths_match_plain(shape, weights, dev):
+    """K3 with each of its windows: unit weights bit for bit, random weights
+    to GRID_RAND_RTOL of the largest bin (atomics add in a run-dependent
+    order)."""
+    assert grid.window_rows(*shape) == K3_GRIDS[shape]
+    x, y, slot, w, cfg = _k3_hits(shape, N_BLOCKS, 21)
+    if weights == 'unit':
+        w = torch.ones_like(w)
+    g_k = grid.bin_grid_cuda(x, y, w, slot, cfg)
+    g_p = grid.bin_grid_slots_plain(x, y, w, slot, cfg)
+    torch.cuda.synchronize()
+    if weights == 'unit':
+        assert torch.equal(g_k, g_p)
+        assert float(g_k.sum()) == N_BLOCKS
+    else:
+        err = float((g_k - g_p).abs().max())
+        assert err <= chip_smoke.GRID_RAND_RTOL * float(g_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', sorted(K3_GRIDS))
+def test_k3_counts_one_cell_exactly(shape, dev):
+    """The worst case of contention: a million unit hits in one cell of the
+    last slot count exactly, and nothing lands elsewhere."""
+    n = 1_000_000
+    x = torch.full((n,), 0.1, device=dev)
+    y = torch.full((n,), -0.3, device=dev)
+    _, _, _, _, cfg = _k3_hits(shape, 1, 0)
+    g_k = grid.bin_grid_cuda(x, y, torch.ones(n, device=dev), shape[0] - 1,
+                             cfg)
+    torch.cuda.synchronize()
+    ix, iy = bin_indices(shape[1:], chip_smoke.GRID_E, x[:1], y[:1])
+    assert float(g_k[shape[0] - 1, iy[0], ix[0]]) == n
+    assert float(g_k.sum()) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 37, N, N_BLOCKS + 3])
+@pytest.mark.parametrize('shape', [(1, 256, 256), (8, 256, 256)])
+def test_k3_takes_ragged_and_small_batches(n, shape, dev):
+    """A batch below one block, ragged edges, and zero weights (skipped)
+    bin as the plain version bins them."""
+    x, y, slot, w, cfg = _k3_hits(shape, n, 23)
+    w = torch.where(w < 0.2, 0.0, 1.0)
+    g_k = grid.bin_grid_cuda(x, y, w, slot, cfg)
+    g_p = grid.bin_grid_slots_plain(x, y, w, slot, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(g_k, g_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 256, 256), (8, 256, 256)])
+def test_k3_unit_weights_are_deterministic(shape, dev):
+    """Two launches of unit weights on the bench spot give the same grid bit
+    for bit (sums of integers are exact in any order); a launch into a given
+    grid adds to it."""
+    table, rays, cfg, meta = _bench_case(dev)
+    rays = chip_smoke.sample_rays(trt, torch, N_BLOCKS, dev, 25)
+    flat = trt.flatten_table_rows(table)
+    out, _ = fused_trace.trace_seq_fwd_cuda(flat, _kinds(meta, cfg, dev),
+                                            rays, cfg)
+    _, _, _, _, gcfg = _k3_hits(shape, 1, 0)
+    ones = torch.ones_like(out.px)
+    runs = [grid.bin_grid_cuda(out.px, out.py, ones, shape[0] - 1, gcfg)
+            for _ in range(2)]
+    twice = grid.bin_grid_cuda(out.px, out.py, ones, shape[0] - 1, gcfg,
+                               grid=runs[0].clone())
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(twice, 2 * runs[0])
+
+
+# K5's resident blocks per SM on the naive scene's launch before this
+# design: 61 registers, 4 blocks of 256 threads (PERF.md, NVIDIA H100 80GB
+# HBM3).
+K5_PARENT_BLOCKS_PER_SM = 4
+
+
+@pytest.mark.cuda
+def test_k5_runs_without_spills_at_the_parents_occupancy(dev):
+    """K5's instantiations of one moment bucket (the main path's, and the
+    same with plate code) spill no register and have no stack frame
+    (ptxas), and the naive scene's launch keeps at least the parent's
+    blocks resident on an SM."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    usage = nvcc_build.ptxas_usage(fused_trace.build()['trace_nonseq_fwd'][0])
+    main = {k: v for k, v in usage.items()
+            if 'trace_nonseq_fwd_kernelILi1ELb' in k}
+    assert len(main) == 2
+    for name, u in main.items():
+        assert u['spill_stores'] == 0 and u['spill_loads'] == 0, (name, u)
+        assert u['stack'] == 0, (name, u)
+    scene = chip_smoke.naive_scene(trt)
+    assert fused_trace.blocks_per_sm(
+        'trace_nonseq_fwd', len(scene.static_meta()), scene.sensor_config(),
+        False) >= K5_PARENT_BLOCKS_PER_SM
+
+
+@pytest.mark.cuda
+def test_k5_grid_equals_k3_binning_of_its_hits(dev):
+    """On the naive scene every ray that keeps its intensity (1) ends on
+    the sensor (a plane at z = 19, not rotated, so its local x, y are the
+    world's), and the stop zeroes the others: K5's grid equals K3's binning
+    of the rays' end points with their intensities as weights, exactly."""
+    scene = chip_smoke.naive_scene(trt)
+    cfg, meta = scene.sensor_config(), scene.static_meta()
+    flat = trt.flatten_table_rows(scene.build_table(scene.init_params(dev)))
+    rays = chip_smoke.sample_rays(trt, torch, N_BLOCKS, dev, 27)
+    out, sens = fused_nonseq.trace_nonseq_fwd_cuda(
+        flat, _kinds(meta, cfg, dev), rays, cfg, scene.n_bounces)
+    torch.cuda.synchronize()
+    lit = out.intensity > 0
+    assert int(lit.sum()) > N_BLOCKS // 2
+    assert bool((out.intensity[lit] == 1.0).all())
+    assert float((out.pz[lit] - 19.0).abs().max()) < 1e-4
+    g3 = grid.bin_grid_cuda(out.px, out.py, out.intensity, 0, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(sens.grid, g3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 32, 32), (1, 256, 256), (8, 256, 256)])
+def test_k3_bins_hits_at_bin_edges_as_the_plain_version(shape, dev):
+    """Hits on every bin edge of both axes and up to 4 float steps to either
+    side of it (where K3's division-free binning hands over to the exact
+    one) land in the plain version's bins, with and without a window."""
+    import numpy as np
+    n_slots, h, w = shape
+    e = np.float32(chip_smoke.GRID_E)
+    edges = (-e + np.arange(w + 1, dtype=np.float32) * (2 * e / w)).astype(
+        np.float32)
+    pts = [edges]
+    for direction in (np.float32(-np.inf), np.float32(np.inf)):
+        p = edges
+        for _ in range(4):
+            p = np.nextafter(p, direction).astype(np.float32)
+            pts.append(p)
+    vals = np.concatenate(pts)
+    xx, yy = np.meshgrid(vals, vals[::7])
+    x = torch.tensor(xx.ravel(), device=dev)
+    y = torch.tensor(yy.ravel(), device=dev)
+    cfg = trt.SensorConfig(n_sensors=n_slots, grid_shape=(h, w),
+                           grid_half_extent=chip_smoke.GRID_E)
+    ones = torch.ones_like(x)
+    g_k = grid.bin_grid_cuda(x, y, ones, n_slots - 1, cfg)
+    g_p = grid.bin_grid_slots_plain(x, y, ones, n_slots - 1, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(g_k, g_p)
