@@ -992,9 +992,10 @@ def main():
           f'K3 with random weights: {rand_err} of {rand_scale}')
     check(grid_res['gather_equal'], "K3's gather differs from ct[s, iy, ix]")
     check(grid_res['outside'] > 0, 'no hit outside the grid')
-    # K3 with other windows: a 32 x 32 grid (whole in shared memory), 8
-    # slots of 256 x 256 (2 MB: a band of 25 rows of each), and every hit in
-    # one cell (the most contention), each against its plain version
+    # K3 on its other paths: a 32 x 32 grid (whole in shared memory), 8
+    # slots of 256 x 256 (2 MB: no window, one atomic per hit in device
+    # memory), and every hit in one cell (the most contention), each against
+    # its plain version
     paths = {}
     for key, shape in (('grid_32', (1, 32, 32)), ('slots_8', (8, 256, 256)),
                        ('one_cell', (1, 256, 256))):
@@ -1012,7 +1013,7 @@ def main():
         err = float((rnd_k - rnd_p).abs().max())
         scale = float(rnd_p.abs().max())
         paths[key] = dict(
-            shape=list(shape), window_rows=grid.window_rows(*shape),
+            shape=list(shape),
             unit_equal=bool(torch.equal(unit_k, unit_p)),
             unit_total=float(unit_k.sum()), cells_hit=int((unit_k > 0).sum()),
             rand_max_abs_err=err, rand_err_over_max_bin=err / scale)
@@ -1900,10 +1901,15 @@ def main():
         eager_hits.append((x, y, w, slot, c))
         return bin_cuda(x, y, w, slot, c, g)
     grid.bin_grid_cuda = spy
+    launched = grid.GRID_LAUNCHES
     try:
         nscene.simulate(nparams, rays)
     finally:
         grid.bin_grid_cuda = bin_cuda
+    launched = grid.GRID_LAUNCHES - launched
+    check(launched >= 1 and len(eager_hits) == launched,
+          f'captured {len(eager_hits)} of the eager loop\'s {launched} K3 '
+          'launches')
     eager_k3 = []
     for x, y, w, slot, c in eager_hits:
         runs = time_ms(torch, lambda: grid.bin_grid_cuda(x, y, w, slot, c))

@@ -34,39 +34,46 @@
 // Design: a privatised histogram in shared memory, summed across a
 // thread-block cluster before it reaches device memory.
 // - The window: each block keeps a band of the grid in its shared memory,
-//   in every slot the same `rows` rows centred on the grid, at most
-//   kMaxSliceCells cells (50 KB; kBinMinBlocks = 3 blocks of 512 threads
-//   share an SM, the most at which ptxas keeps the kernel free of spills);
-//   a grid that small is held whole (ops/grid.py::window_rows picks the
-//   band).  Cells outside the band are added in device memory.
-// - A block first reads the weights of its hits; if no hit of its cluster
-//   counts (zero weights: four of the five launches of the eager bounce
-//   loop carry nothing else), the cluster ends there.  If all the block's
-//   weights are +-1 (the main path's unit weights), its window counts in
-//   ints: the shared-memory integer add (ATOMS.ADD) is native, the float
-//   add a compare-and-swap loop (ATOMS.CAST.SPIN).  Then each block zeroes
-//   its window and walks its grid-stride share of the hits, kBatch at a
-//   time (their loads in flight together); bins each with grid_axis
-//   (grid_cell's bins, so the bin edges stay the plain version's); and adds
-//   each weight into its own window, or into device memory outside the
-//   band.  A warp whose hits all fall on one cell adds their sum once (the
-//   worst case of contention, every hit on one cell, takes one atomic per
-//   warp); other warps add lane by lane, since combining lanes on equal
-//   cells with __match_any_sync cost the bench spot more than it saved
-//   (PERF.md).
-// - The flush: the kClusterBlocks = 2 blocks of a cluster sum their
-//   windows through distributed shared memory (each block half of the
-//   cells, the windows read in a fixed order) and add each nonzero sum to
-//   the grid in device memory: one atomicAdd per cell and cluster, not per
-//   block.  Cluster barriers before and after keep every window alive while
-//   the other block reads it.  (Clusters of 4 and 8 blocks flushed fewer
-//   atomics and ran 4-20% slower: the reads across the cluster cost more.)
+//   in every slot the same rows centred on the grid, at most kMaxSliceCells
+//   cells (50 KB; kBinMinBlocks = 3 blocks of 512 threads share an SM); a
+//   grid that small is held whole.  Cells outside the band are added in
+//   device memory.  band_rows picks the band from the grid's shape.
+// - Each block walks its grid-stride share of the hits, kBatch at a time:
+//   first the batch's weights, all in flight together, then the
+//   coordinates of the hits that count (a batch whose loads waited on each
+//   other's branches paid one memory latency per hit).  It bins each with
+//   grid_axis (grid_cell's bins, so the bin edges stay the plain
+//   version's), and adds each weight into its own window, or into device
+//   memory outside the band.  A warp whose hits all fall on one cell adds
+//   their sum once (a focus inside one cell, the worst case of contention,
+//   takes one atomic per warp: 30x faster than lane by lane, at 3% on the
+//   bench spot); other warps add lane by lane, since combining lanes on
+//   equal cells with __match_any_sync cost the bench spot more than it
+//   saved (PERF.md).
+// - A block zeroes its window only when its first hit that the window takes
+//   comes in, and tells the other blocks of its cluster whether it did.
+//   Blocks that had nothing to add leave after one cluster barrier: four of
+//   the five launches of the eager bounce loop carry only zero weights
+//   (rays off the sensor), and cost one read of their weights.
+// - The flush: the kClusterBlocks = 2 blocks of a cluster sum the windows
+//   that took hits through distributed shared memory (each block half of
+//   the cells, the windows read in a fixed order) and add each nonzero sum
+//   to the grid in device memory: one atomicAdd per cell and cluster, not
+//   per block.  Cluster barriers before and after keep every window alive
+//   while the other block reads it.  (Clusters of 4 and 8 blocks flushed
+//   fewer atomics and ran 4-20% slower: the reads across the cluster cost
+//   more.)
 // - The kernel is persistent: it launches no more clusters than are
 //   resident at once, and none whose threads would have no batch of hits,
 //   so zeroing and flushing are paid once per resident block.
-// - A grid of which less than an eighth of the rows fit the window (8 slots
-//   of 256^2 are 2 MB) takes the path without a window: one hit a thread,
-//   each added in device memory as above.
+// - A grid of which less than an eighth of the rows fit the window (2 or 8
+//   slots of 256^2) takes the path without a window, one thread a hit and
+//   one atomicAdd into device memory each (grid_bin_global_kernel).
+// - Where the band pays: hits that crowd into few cells, as a focused spot
+//   does.  Hits spread over a whole 256^2 slot leave most of them outside
+//   the band and few per cell inside it, so the flush adds about as many
+//   atomics as it saves; that case runs a third slower than one atomic per
+//   hit (PERF.md).
 //
 // Why the adds stay in the block's own shared memory: on Hopper a float
 // atomicAdd into shared memory is a compare-and-swap loop
@@ -101,10 +108,20 @@ constexpr int kBinThreads = 512;       // threads per block of the scatter
 constexpr int kBinMinBlocks = 3;       // resident blocks an SM: 48 warps
 constexpr int kBatch = 4;              // hits a thread loads before it adds them
 constexpr int kMaxSliceCells = 12800;  // 50 KB of cells in a block's window
+constexpr int kMinBandShare = 8;       // a band below 1/8 of the rows: no window
 constexpr int kClusterBlocks = 2;      // blocks whose windows one flush sums
-constexpr long long kMaxUnitHits = 1LL << 24;  // a block's hits an int window takes
+constexpr int kGlobalThreads = 256;    // threads per block without a window
 constexpr int kGatherThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Rows of the band of an [n_slots, h, wd] grid that each block keeps in
+// shared memory: all h when the grid fits kMaxSliceCells, else as many as
+// fit; 0 (no window) when that is less than 1/kMinBandShare of them.
+int band_rows(int n_slots, int h, int wd) {
+  const long long fit = kMaxSliceCells / (static_cast<long long>(n_slots) * wd);
+  const int rows = fit < h ? static_cast<int>(fit) : h;
+  return static_cast<long long>(kMinBandShare) * rows >= h ? rows : 0;
+}
 
 // The window: in each of the grid's slots, rows [row0, row0 + rows) of its
 // h x wd cells, slot after slot in shared memory.
@@ -112,15 +129,60 @@ struct Window {
   int rows, row0;
 };
 
+// Load a batch of kBatch hits, base + b * kBinThreads + tid, and give each
+// its flat cell of the [S, H, W] grid (key -1: past n, outside the slots,
+// or a zero weight) and of the window (wkey -1: outside it), and its
+// weight.  The weights and slots of the batch are loaded first, all in
+// flight together; then the coordinates of the hits that count (a zero
+// weight's x and y are not read).
+__device__ __forceinline__ void load_batch(long long base, int tid, const float* x,
+                                           const float* y, const float* w, const int32_t* slot,
+                                           int slot0, long long n, int n_slots, int h, int wd,
+                                           float e, const Window& win, int (&key)[kBatch],
+                                           int (&wkey)[kBatch], float (&wt)[kBatch]) {
+  int s[kBatch];
+  float xv[kBatch], yv[kBatch];
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b) {
+    const long long i = base + b * kBinThreads + tid;
+    s[b] = -1;
+    wt[b] = 0.0f;
+    if (i < n) {
+      s[b] = slot != nullptr ? slot[i] : slot0;
+      wt[b] = w[i];
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b) {
+    const long long i = base + b * kBinThreads + tid;
+    xv[b] = 0.0f;
+    yv[b] = 0.0f;
+    if (s[b] >= 0 && s[b] < n_slots && wt[b] != 0.0f) {
+      xv[b] = x[i];
+      yv[b] = y[i];
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b) {
+    key[b] = -1;
+    wkey[b] = -1;
+    if (s[b] >= 0 && s[b] < n_slots && wt[b] != 0.0f) {
+      const int iy = grid_axis(yv[b], h, e), ix = grid_axis(xv[b], wd, e);
+      key[b] = (s[b] * h + iy) * wd + ix;
+      const int wy = iy - win.row0;
+      if (wy >= 0 && wy < win.rows) wkey[b] = (s[b] * win.rows + wy) * wd + ix;
+    }
+  }
+}
+
 // Add the weight wt of each lane's hit at flat cell `key` of the [S, H, W]
 // grid, `wkey` of the window (key < 0: the lane adds nothing; wkey < 0: the
-// cell lies outside the window, or there is none): into the block's window
-// (an int window counts +-1 weights) or into the grid in device memory.  A
-// warp whose counting lanes all hit one cell adds their sum once, from its
-// lowest counting lane; other warps add lane by lane.  Every lane of the
-// warp calls it.
+// cell lies outside the window): into the block's window or into the grid
+// in device memory.  A warp whose counting lanes all hit one cell adds
+// their sum once, from its lowest counting lane; other warps add lane by
+// lane.  Every lane of the warp calls it.
 __device__ __forceinline__ void add_hit(int key, int wkey, float wt, int lane, float* window,
-                                        bool counts_int, float* grid) {
+                                        float* grid) {
   const unsigned act = __ballot_sync(kFull, key >= 0);
   if (act == 0u) return;
   const int first = __ffs(act) - 1;
@@ -137,117 +199,62 @@ __device__ __forceinline__ void add_hit(int key, int wkey, float wt, int lane, f
   }
   if (wkey < 0)
     atomicAdd(grid + key, wt);
-  else if (counts_int)
-    atomicAdd(reinterpret_cast<int*>(window) + wkey, static_cast<int>(wt));
   else
     atomicAdd(window + wkey, wt);
 }
 
-// Hit i's flat cell of the [S, H, W] grid (-1: outside the slots, or a zero
-// weight, whose x and y are not read) and of the window (-1: outside it),
-// and its weight.
-__device__ __forceinline__ void load_hit(long long i, const float* x, const float* y,
-                                         const float* w, const int32_t* slot, int slot0,
-                                         int n_slots, int h, int wd, float e, const Window& win,
-                                         int& key, int& wkey, float& wt) {
-  const int s = slot != nullptr ? slot[i] : slot0;
-  wt = w[i];
-  key = -1;
-  wkey = -1;
-  if (s >= 0 && s < n_slots && wt != 0.0f) {
-    const int iy = grid_axis(y[i], h, e), ix = grid_axis(x[i], wd, e);
-    key = (s * h + iy) * wd + ix;
-    const int wy = iy - win.row0;
-    if (wy >= 0 && wy < win.rows) wkey = (s * win.rows + wy) * wd + ix;
-  }
-}
-
-// The scatter with a window: launched as clusters of kClusterBlocks blocks,
-// `rows` > 0.
+// The scatter with a window of `rows` rows (band_rows, > 0): launched as
+// clusters of kClusterBlocks blocks.
 __global__ void __launch_bounds__(kBinThreads, kBinMinBlocks)
 grid_bin_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 const float* __restrict__ w, const int32_t* __restrict__ slot, int slot0,
                 long long n, float* __restrict__ grid, int n_slots, int h, int wd, float e,
                 int rows) {
   extern __shared__ float4 window4[];
-  __shared__ int mode[2];  // [0]: a hit of this block counts; [1]: its window holds ints
+  __shared__ int took[kClusterBlocks];  // [r]: block r's window took hits
   float* window = reinterpret_cast<float*>(window4);
   cg::cluster_group cluster = cg::this_cluster();
+  // the first half of a cluster barrier: the blocks of the cluster have
+  // started before one writes into another's shared memory (below)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   const int tid = threadIdx.x, lane = tid & 31;
-  const long long step = static_cast<long long>(gridDim.x) * kBinThreads * kBatch;
-  const long long first = static_cast<long long>(blockIdx.x) * kBinThreads * kBatch;
-  // One pass over the weights alone: does any hit of this cluster count,
-  // and are all of this block's weights +-1 (the main path's unit
-  // weights)?  Then its window counts in ints, with the shared-memory
-  // integer add (ATOMS.ADD) in place of the float add's compare-and-swap
-  // loop.  The sums are the same: exact in both while a cell holds fewer
-  // than 2^24 hits, which a block's share of the hits cannot exceed
-  // (kMaxUnitHits).
-  bool counts = false, unit = true;
-  for (long long base = first; base < n; base += step)
-    for (int b = 0; b < kBatch; ++b) {
-      const long long i = base + b * kBinThreads + tid;
-      if (i < n) {
-        const int s = slot != nullptr ? slot[i] : slot0;
-        const float wt = w[i];
-        if (s >= 0 && s < n_slots && wt != 0.0f) {
-          counts = true;
-          unit = unit && fabsf(wt) == 1.0f;
-        }
-      }
-    }
-  const int block_counts = __syncthreads_or(counts);
-  const bool counts_int =
-      __syncthreads_and(unit) && (n + step - 1) / step * kBinThreads * kBatch < kMaxUnitHits;
-  if (tid == 0) {
-    mode[0] = block_counts;
-    mode[1] = counts_int;
-  }
-  cluster.sync();
-  int any = 0;
-  for (int r = 0; r < kClusterBlocks; ++r) any |= cluster.map_shared_rank(mode, r)[0];
-  if (!any) {
-    cluster.sync();  // no block leaves while another reads its flags
-    return;
-  }
+  const int rank = static_cast<int>(cluster.block_rank());
   const Window win = {rows, (h - rows) / 2};
   const int cells = n_slots * rows * wd;
-  for (int j = tid; 4 * j < cells; j += kBinThreads)
-    window4[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  __syncthreads();
+  const long long step = static_cast<long long>(gridDim.x) * kBinThreads * kBatch;
+  bool zeroed = false;  // the same in every thread of the block
   // the loop runs the same trips in every lane of a block: the warp calls
   // of add_hit see every lane
-  for (long long base = first; base < n; base += step) {
+  for (long long base = static_cast<long long>(blockIdx.x) * kBinThreads * kBatch; base < n;
+       base += step) {
     int key[kBatch], wkey[kBatch];
     float wt[kBatch];
+    load_batch(base, tid, x, y, w, slot, slot0, n, n_slots, h, wd, e, win, key, wkey, wt);
+    bool in_window = false;
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const long long i = base + b * kBinThreads + tid;
-      key[b] = -1;
-      wkey[b] = -1;
-      wt[b] = 0.0f;
-      if (i < n)
-        load_hit(i, x, y, w, slot, slot0, n_slots, h, wd, e, win, key[b], wkey[b], wt[b]);
+    for (int b = 0; b < kBatch; ++b) in_window = in_window || wkey[b] >= 0;
+    if (!zeroed && __syncthreads_or(in_window)) {
+      for (int j = tid; 4 * j < cells; j += kBinThreads)
+        window4[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      __syncthreads();
+      zeroed = true;
     }
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b)
-      add_hit(key[b], wkey[b], wt[b], lane, window, counts_int, grid);
+    for (int b = 0; b < kBatch; ++b) add_hit(key[b], wkey[b], wt[b], lane, window, grid);
   }
-  cluster.sync();  // every window of the cluster is complete
-  const int rank = static_cast<int>(cluster.block_rank());
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (tid < kClusterBlocks) cluster.map_shared_rank(took, tid)[rank] = zeroed;
+  cluster.sync();  // every window of the cluster is complete, and `took` too
+  unsigned took_hits = 0u;  // bit r: block r's window took hits
+  for (int r = 0; r < kClusterBlocks; ++r) took_hits |= (took[r] != 0 ? 1u : 0u) << r;
+  if (took_hits == 0u) return;  // nothing to flush, and no block reads another
   const int chunk = (cells + kClusterBlocks - 1) / kClusterBlocks;
   const int lo = rank * chunk, hi = min(cells, lo + chunk);
   const int per_slot = rows * wd;
-  unsigned int_windows = 0u;  // bit r: block r's window holds ints
-  for (int r = 0; r < kClusterBlocks; ++r)
-    int_windows |= (cluster.map_shared_rank(mode, r)[1] != 0 ? 1u : 0u) << r;
   for (int c = lo + tid; c < hi; c += kBinThreads) {
     float v = 0.0f;
-    for (int r = 0; r < kClusterBlocks; ++r) {
-      const float* wr = cluster.map_shared_rank(window, r);
-      v += (int_windows >> r) & 1u ? static_cast<float>(reinterpret_cast<const int*>(wr)[c])
-                                   : wr[c];
-    }
+    for (int r = 0; r < kClusterBlocks; ++r)
+      if ((took_hits >> r) & 1u) v += cluster.map_shared_rank(window, r)[c];
     if (v != 0.0f) {
       const int s = c / per_slot;
       atomicAdd(grid + (s * h + win.row0) * wd + (c - s * per_slot), v);
@@ -256,20 +263,18 @@ grid_bin_kernel(const float* __restrict__ x, const float* __restrict__ y,
   cluster.sync();  // no block leaves while another reads its window
 }
 
-// The scatter without a window: one hit a thread, added in device memory;
-// a warp whose lanes all hit one cell adds their sum once.
-__global__ void __launch_bounds__(kBinThreads)
+// The scatter without a window: one thread a hit, one atomicAdd each into
+// the grid in device memory.
+__global__ void __launch_bounds__(kGlobalThreads)
 grid_bin_global_kernel(const float* __restrict__ x, const float* __restrict__ y,
                        const float* __restrict__ w, const int32_t* __restrict__ slot, int slot0,
                        long long n, float* __restrict__ grid, int n_slots, int h, int wd,
                        float e) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBinThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  int key = -1, wkey = -1;
-  float wt = 0.0f;
-  if (i < n)
-    load_hit(i, x, y, w, slot, slot0, n_slots, h, wd, e, Window{0, 0}, key, wkey, wt);
-  add_hit(key, wkey, wt, lane, nullptr, false, grid);
+  const long long i = static_cast<long long>(blockIdx.x) * kGlobalThreads + threadIdx.x;
+  if (i >= n) return;
+  const int s = slot != nullptr ? slot[i] : slot0;
+  if (s < 0 || s >= n_slots) return;
+  grid_add(grid, s, x[i], y[i], w[i], h, wd, e);
 }
 
 __global__ void __launch_bounds__(kGatherThreads)
@@ -335,30 +340,26 @@ cudaError_t resident_clusters(size_t smem, int* out) {
 
 // Adds the n hits into the [n_slots, h, wd] grid (the caller zeroes it or
 // passes a grid to accumulate into).  `slot` may be null: then every hit
-// goes to slot0.  `rows` is the height of the window each block keeps in
-// shared memory, the same centred band of rows in every slot, at most h and
-// at most kMaxSliceCells cells in all (ops/grid.py::window_rows), or 0 for
-// none: then every hit is added in device memory.  Launches on `stream`;
-// returns a cudaError_t (0 on success): a launch the card refuses returns
-// its error, and nothing falls back.
+// goes to slot0.  Launches on `stream`; returns a cudaError_t (0 on
+// success): a launch the card refuses returns its error, and nothing falls
+// back.
 extern "C" int rtt_grid_bin(const float* x, const float* y, const float* w, const int32_t* slot,
                             int slot0, long long n, float* grid, int n_slots, int h, int wd,
-                            float e, int rows, void* stream) {
+                            float e, void* stream) {
   if (n <= 0) return 0;
-  const long long cells = static_cast<long long>(n_slots) * h * wd;
-  const long long win_cells = static_cast<long long>(n_slots) * rows * wd;
-  if (n_slots <= 0 || h <= 0 || wd <= 0 || cells > 0x7fffffffLL || rows < 0 || rows > h ||
-      win_cells > kMaxSliceCells)
+  if (n_slots <= 0 || h <= 0 || wd <= 0 ||
+      static_cast<long long>(n_slots) * h * wd > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = band_rows(n_slots, h, wd);
   if (rows == 0) {
-    const long long blocks = (n + kBinThreads - 1) / kBinThreads;
+    const long long blocks = (n + kGlobalThreads - 1) / kGlobalThreads;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-    grid_bin_global_kernel<<<static_cast<unsigned>(blocks), kBinThreads, 0, st>>>(
+    grid_bin_global_kernel<<<static_cast<unsigned>(blocks), kGlobalThreads, 0, st>>>(
         x, y, w, slot, slot0, n, grid, n_slots, h, wd, e);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = sizeof(float) * static_cast<size_t>((win_cells + 3) / 4 * 4);
+  const size_t smem = sizeof(float) * static_cast<size_t>((n_slots * rows * wd + 3) / 4 * 4);
   int most = 0;
   cudaError_t err = resident_clusters(smem, &most);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -15,9 +15,7 @@ are in its source.  In this module:
   ``core/sensor.py::bin_grid_plain`` (``index_put_`` with accumulate) per
   slot, with the weights of the other slots masked to zero.
 - ``bin_grid_cuda`` and ``grid_gather_cuda`` launch the kernel's scatter
-  and gather and count them in ``GRID_LAUNCHES`` and ``GATHER_LAUNCHES``;
-  ``window_rows`` picks the band of the grid that each block of the scatter
-  keeps in shared memory.
+  and gather and count them in ``GRID_LAUNCHES`` and ``GATHER_LAUNCHES``.
 
 The fused kernels K1 and K5 bin their sensor hits with K3's device function
 (csrc/grid_bin.cuh) as they trace; those launches count as theirs.
@@ -33,23 +31,10 @@ from .fused_trace import check, kernel, stream
 
 GRID_LAUNCHES = 0      # launches of the scatter by bin_grid_cuda (K3)
 GATHER_LAUNCHES = 0    # launches of the gather by grid_gather_cuda (K3)
-# The scatter keeps a band of the grid in each block's shared memory
-# (csrc/grid_bin.cu): at most MAX_WINDOW_CELLS float cells (kMaxSliceCells,
-# 50 KB), the same centred rows in every slot.
-MAX_WINDOW_CELLS = 12_800
 
 
 def _n_slots(cfg: SensorConfig):
     return max(cfg.n_sensors, 1)
-
-
-def window_rows(n_slots, h, w):
-    """Rows of the band of an ``[n_slots, h, w]`` grid that each block of
-    K3's scatter keeps in shared memory: all ``h`` when the grid fits
-    ``MAX_WINDOW_CELLS``, else as many as fit; 0 (no window: every hit is
-    added in device memory) when that is less than an eighth of them."""
-    rows = min(h, MAX_WINDOW_CELLS // (n_slots * w))
-    return rows if 8 * rows >= h else 0
 
 
 def bin_grid(x, y, w, slot, cfg: SensorConfig, grid=None, plain=False):
@@ -132,8 +117,7 @@ def bin_grid_cuda(x, y, w, slot, cfg: SensorConfig, grid=None):
             rc = kernel('rtt_grid_bin')(
                 x.data_ptr(), y.data_ptr(), w.data_ptr(), slot_ptr, slot0, n,
                 grid.data_ptr(), shape[0], h, wd,
-                float(cfg.grid_half_extent), window_rows(*shape),
-                stream(device))
+                float(cfg.grid_half_extent), stream(device))
         if rc != 0:
             raise RuntimeError(f'grid_bin launch failed with CUDA error {rc}')
         GRID_LAUNCHES += 1

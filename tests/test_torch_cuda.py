@@ -760,11 +760,10 @@ def test_bwd_kernels_match_plain_beyond_eight_rows(kind, dev):
 
 
 # K3's scatter with the whole grid in a block's shared memory (32^2), with
-# a band of a 256^2 slot, and without a window (two and eight 256^2 slots,
-# where a band would hold less than an eighth of the rows): (slots, H, W)
-# -> the window's rows (ops/grid.py::window_rows).
-K3_GRIDS = {(1, 32, 32): 32, (1, 256, 256): 50, (2, 256, 256): 0,
-            (8, 256, 256): 0}
+# a band of 50 rows of a 256^2 slot, and without a window (two and eight
+# 256^2 slots, where a band would hold less than an eighth of the rows:
+# csrc/grid_bin.cu::band_rows), as (slots, H, W).
+K3_GRIDS = ((1, 32, 32), (1, 256, 256), (2, 256, 256), (8, 256, 256))
 
 
 def _k3_hits(shape, n, seed):
@@ -787,7 +786,6 @@ def test_k3_paths_match_plain(shape, weights, dev):
     """K3 with each of its windows: unit weights bit for bit, random weights
     to GRID_RAND_RTOL of the largest bin (atomics add in a run-dependent
     order)."""
-    assert grid.window_rows(*shape) == K3_GRIDS[shape]
     x, y, slot, w, cfg = _k3_hits(shape, N_BLOCKS, 21)
     if weights == 'unit':
         w = torch.ones_like(w)
@@ -855,6 +853,27 @@ def test_k3_unit_weights_are_deterministic(shape, dev):
     assert torch.equal(twice, 2 * runs[0])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [37, N_BLOCKS])
+@pytest.mark.parametrize('shape', sorted(K3_GRIDS))
+def test_k3_zero_weights_leave_the_grid(shape, n, dev):
+    """A launch whose weights are all zero (the eager loop's bounces that
+    end off the sensor) leaves the grid it is given as it was, and a launch
+    whose only weights fall in one block of a cluster bins them as the plain
+    version does."""
+    x, y, slot, w, cfg = _k3_hits(shape, n, 29)
+    before = torch.rand((shape[0],) + shape[1:], device=dev)
+    after = grid.bin_grid_cuda(x, y, torch.zeros_like(w), slot, cfg,
+                               grid=before.clone())
+    lone = torch.zeros_like(w)
+    lone[n // 3] = 1.0
+    g_k = grid.bin_grid_cuda(x, y, lone, slot, cfg)
+    g_p = grid.bin_grid_slots_plain(x, y, lone, slot, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(after, before)
+    assert torch.equal(g_k, g_p) and float(g_k.sum()) == 1.0
+
+
 # K5's resident blocks per SM on the naive scene's launch before this
 # design: 61 registers, 4 blocks of 256 threads (PERF.md, NVIDIA H100 80GB
 # HBM3).
@@ -907,8 +926,9 @@ def test_k5_grid_equals_k3_binning_of_its_hits(dev):
 @pytest.mark.parametrize('shape', [(1, 32, 32), (1, 256, 256), (8, 256, 256)])
 def test_k3_bins_hits_at_bin_edges_as_the_plain_version(shape, dev):
     """Hits on every bin edge of both axes and up to 4 float steps to either
-    side of it (where K3's division-free binning hands over to the exact
-    one) land in the plain version's bins, with and without a window."""
+    side of it land in the plain version's bins, with and without a window:
+    grid_axis rounds the add, the division and the product each on its own,
+    as the plain version does, so no fused multiply-add moves an edge."""
     import numpy as np
     n_slots, h, w = shape
     e = np.float32(chip_smoke.GRID_E)

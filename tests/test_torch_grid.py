@@ -119,6 +119,49 @@ def test_bin_grid_slots_plain_masks_other_slots():
     torch.testing.assert_close(g1[1], bin_grid_plain((8, 8), 1.0, x, y, w))
 
 
+# The grid shapes of K3's paths on the card (csrc/grid_bin.cu): the whole
+# grid in a block's shared memory (32^2), a band of a 256^2 slot, and no
+# window (two and eight 256^2 slots)
+K3_SHAPES = ((1, 32, 32), (1, 256, 256), (2, 256, 256), (8, 256, 256))
+
+
+@pytest.mark.parametrize('weights', ['unit', 'random'])
+@pytest.mark.parametrize('shape', K3_SHAPES)
+def test_bin_grid_slots_match_jax_on_k3_shapes(shape, weights):
+    """``bin_grid`` over sensor slots (K3's function; the plain version on
+    the CPU) against JAX ``_bin_grid`` of each slot's hits, on hits spread
+    over the grid and on every bin edge of both axes (e = 1, so the
+    division is exact in both): exact with unit weights, rtol 3e-5 with
+    random ones (JAX's hi+lo split)."""
+    n_slots, h, w_ = shape
+    e = 1.0
+    x, y, w = _hits(5, e)
+    edges = (-e + np.arange(w_ + 1, dtype=np.float32) * np.float32(2 * e / w_)
+             ).astype(np.float32)
+    x = np.concatenate([x, edges, np.zeros_like(edges)]).astype(np.float32)
+    y = np.concatenate([y, np.zeros_like(edges), edges[::-1]]).astype(
+        np.float32)
+    rng = np.random.default_rng(6)
+    w = (np.ones(x.shape, np.float32) if weights == 'unit'
+         else rng.random(x.shape[0]).astype(np.float32))
+    slot = rng.integers(0, n_slots, x.shape[0]).astype(np.int32)
+    cfg = trt.SensorConfig(n_sensors=n_slots, grid_shape=(h, w_),
+                           grid_half_extent=e)
+    g_t = grid.bin_grid(torch.from_numpy(x), torch.from_numpy(y),
+                        torch.from_numpy(w), torch.from_numpy(slot),
+                        cfg).numpy()
+    g_j = np.stack([np.asarray(_bin_grid(
+        (h, w_), e, 1024, jnp.asarray(x), jnp.asarray(y),
+        jnp.asarray(np.where(slot == s, w, 0.0).astype(np.float32))))
+        for s in range(n_slots)])
+    assert g_t.shape == shape
+    if weights == 'unit':
+        np.testing.assert_array_equal(g_t, g_j)
+        assert g_t.sum() == x.shape[0]
+    else:
+        np.testing.assert_allclose(g_t, g_j, rtol=3e-5, atol=0)
+
+
 def _two_sensor(rt):
     scene = rt.SequentialScene([
         rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,

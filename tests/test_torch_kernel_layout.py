@@ -6,10 +6,8 @@ read from the sources on the CPU:
   core/table.py ROW_FIELDS, the record is whole float4s, and its kinds are
   the columns of ops/fused_trace.py::kind_rows that the intersection
   branches on;
-- K3's shared-memory window (csrc/grid_bin.cu): ops/grid.py::window_rows
-  keeps the whole grid in a block's shared memory where it fits the
-  kernel's 50 KB, else the most rows of every slot that do (none when that
-  is less than an eighth of them), within the card's 227 KB a block.
+- the occupancy queries that K2, K5 and K6 export are bound by the
+  wrappers.
 
 The kernels themselves are held to their plain versions on the card in
 tests/test_torch_cuda.py."""
@@ -21,12 +19,10 @@ import re
 import pytest
 
 from raytracetorch_tpu_torch.core.table import ROW_FIELDS, ROW_OFFSETS
-from raytracetorch_tpu_torch.ops import fused_trace, grid
+from raytracetorch_tpu_torch.ops import fused_trace
 
 CSRC = pathlib.Path(fused_trace.__file__).resolve().parents[1] / 'csrc'
 COMMON = (CSRC / 'trace_seq_common.cuh').read_text()
-GRID_BIN = (CSRC / 'grid_bin.cu').read_text()
-SMEM_PER_BLOCK = 232_448       # bytes of shared memory a block can have
 
 
 def _constants(src):
@@ -99,43 +95,6 @@ def test_record_field_copies_its_flat_columns(field, flat, words):
     assert len(mine) == 1, arms
     end, col = mine[0]
     assert col == FLAT[flat] and C[end] == C[field] + words
-
-
-def test_k3_constants_match_the_wrapper():
-    """ops/grid.py's window limit is the kernel's, and the largest window
-    fits a block's shared memory."""
-    g = _constants(GRID_BIN)
-    assert g['kMaxSliceCells'] == grid.MAX_WINDOW_CELLS
-    assert 4 * grid.MAX_WINDOW_CELLS <= SMEM_PER_BLOCK
-
-
-# (slots, H, W) -> the window's rows: the whole grid up to 50 KB, else a
-# centred band of every slot, none where the band would be less than an
-# eighth of the rows
-GRIDS = {(1, 32, 32): 32, (1, 112, 112): 112, (1, 220, 220): 58,
-         (1, 256, 256): 50, (2, 256, 256): 0, (8, 256, 256): 0,
-         (64, 1024, 1024): 0}
-
-
-@pytest.mark.parametrize('shape', sorted(GRIDS))
-def test_k3_window_covers_what_fits(shape):
-    """window_rows gives the most rows of every slot that fit the block's
-    shared memory, all of them for a grid that fits, none when they are
-    less than an eighth of the grid, and the launcher's window (its cells
-    rounded up to whole float4s) fits a block."""
-    n_slots, h, w = shape
-    rows = grid.window_rows(n_slots, h, w)
-    assert rows == GRIDS[shape]
-    cells = n_slots * rows * w
-    assert 0 <= rows <= h and cells <= grid.MAX_WINDOW_CELLS
-    assert 4 * ((cells + 3) // 4 * 4) <= SMEM_PER_BLOCK
-    fit = min(h, grid.MAX_WINDOW_CELLS // (n_slots * w))
-    if n_slots * h * w <= grid.MAX_WINDOW_CELLS:
-        assert rows == h
-    elif 8 * fit >= h:
-        assert rows == fit and n_slots * (rows + 1) * w > grid.MAX_WINDOW_CELLS
-    else:
-        assert rows == 0
 
 
 @pytest.mark.parametrize('lib', ['trace_seq_bwd', 'trace_nonseq_fwd',
