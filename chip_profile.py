@@ -18,9 +18,12 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   scatter on the 256 x 256 ring-former map, and K1, K2, K5 and K6 with
   that plate (chip_smoke.py section 7);
 - the library calls that compute K3's and K4's functions, as chip_smoke.py
-  times them: one ``index_put_`` (accumulate) of the bench spot's unit
-  weights into the 256 x 256 grid, and the four advanced-index reads and
-  four ``index_put_`` (accumulate) of K4's corners on the 256 x 256 map;
+  times them: one ``index_add_`` and one ``index_put_`` (accumulate) of the
+  bench spot's unit weights into the 256 x 256 grid, and of random weights
+  spread over it; one ``torch.take`` and four advanced-index reads of K4's
+  corners on the 256 x 256 map, one ``index_add_`` and four ``index_put_``
+  (accumulate) of their cotangents, and K4's scatter on the 32 x 32 map
+  with its ``index_add_``;
 - the end-to-end calls: ``SequentialScene.simulate_fused``, the fused grad
   step, ``Scene.simulate_fused``, its grad step (K5 + K6), the eager
   ``Scene.simulate`` and the deep-optics grad step (the ring former, the
@@ -133,18 +136,33 @@ def main():
                       fused_trace.plate_maps(pmeta, sc.side_grids(pp)))
     cmap = plate['seq'][3][0]
     civ, ciu = cs.plate_cells(torch, do_rays, cs.DO_MAP)
+    civ32, ciu32 = cs.plate_cells(torch, do_rays, cs.DO_SMALL_MAP)
     g_c = tuple(torch.randn(n, device=dev) for _ in range(4))
+    g_c4 = torch.cat(g_c)
     do_grad_p = cs.ring_params(do_seq, dev, grad=True)
     # the library calls of K3 and K4 (chip_smoke.py section 6)
     from raytracetorch_tpu_torch.core.sensor import bin_indices
     ix, iy = bin_indices(cs.GRID, cs.GRID_E, spot.px, spot.py)
     spot_idx = (iy * cs.GRID[1] + ix,)
     g_spot = torch.zeros(cs.GRID[0] * cs.GRID[1], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    hx, hy = (torch.randn(n, generator=gen, device=dev) * 0.6
+              for _ in range(2))
+    hw = torch.rand(n, generator=gen, device=dev)
+    rix, riy = bin_indices(cs.GRID, cs.GRID_E, hx, hy)
+    rand_idx = riy * cs.GRID[1] + rix
     cfg32 = rt.SensorConfig(n_sensors=1, grid_shape=(32, 32),
                             grid_half_extent=cs.GRID_E)
     v0, v1, u0, u1 = phase_grid._cells(cs.DO_MAP, civ, ciu)
     corner_cells = ((v0, u0), (v0, u1), (v1, u0), (v1, u1))
+    flat4 = torch.cat([v * cs.DO_MAP[1] + u for v, u in corner_cells])
     g_corner = torch.zeros(cs.DO_MAP, device=dev)
+    g_corner_flat = torch.zeros(cs.DO_MAP[0] * cs.DO_MAP[1], device=dev)
+    v0, v1, u0, u1 = phase_grid._cells(cs.DO_SMALL_MAP, civ32, ciu32)
+    flat4_32 = torch.cat([v * cs.DO_SMALL_MAP[1] + u for v, u in
+                          ((v0, u0), (v0, u1), (v1, u0), (v1, u1))])
+    g_corner_32 = torch.zeros(cs.DO_SMALL_MAP[0] * cs.DO_SMALL_MAP[1],
+                              device=dev)
 
     def corner_scatter_library():
         for g, cell in zip(g_c, corner_cells):
@@ -169,8 +187,16 @@ def main():
                                                gcfg), 'grid_bin_kernel'),
         'k3_spot_32': (lambda: grid.bin_grid_cuda(spot.px, spot.py, ones, 0,
                                                   cfg32), 'grid_bin_kernel'),
-        'k3_library': (lambda: g_spot.index_put_(spot_idx, ones,
-                                                 accumulate=True), None),
+        'k3_library': (lambda: g_spot.index_add_(0, spot_idx[0], ones),
+                       None),
+        'k3_index_put': (lambda: g_spot.index_put_(spot_idx, ones,
+                                                   accumulate=True), None),
+        'k3_random': (lambda: grid.bin_grid_cuda(hx, hy, hw, 0, gcfg),
+                      'grid_bin'),
+        'k3_random_library': (lambda: g_spot.index_add_(0, rand_idx, hw),
+                              None),
+        'k3_random_index_put': (lambda: g_spot.index_put_(
+            (rand_idx,), hw, accumulate=True), None),
         'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
             nflat, nkinds, rays, ncfg, nscene.n_bounces),
             'trace_nonseq_fwd_kernel'),
@@ -192,10 +218,17 @@ def main():
         'k4': (lambda: phase_grid.grid_corners_cuda(cmap, civ, ciu),
                'grid_corners_kernel'),
         'k4_scatter': (lambda: phase_grid.grid_corners_bwd_cuda(
-            g_c, civ, ciu, cs.DO_MAP), 'grid_corners_bwd_kernel'),
-        'k4_library': (lambda: [cmap[cell] for cell in corner_cells],
-                       None),
-        'k4_scatter_library': (corner_scatter_library, None),
+            g_c, civ, ciu, cs.DO_MAP), 'grid_corners_bwd'),
+        'k4_scatter_32': (lambda: phase_grid.grid_corners_bwd_cuda(
+            g_c, civ32, ciu32, cs.DO_SMALL_MAP), 'grid_corners_bwd'),
+        'k4_library': (lambda: torch.take(cmap, flat4), None),
+        'k4_index_reads': (lambda: [cmap[cell] for cell in corner_cells],
+                           None),
+        'k4_scatter_library': (lambda: g_corner_flat.index_add_(
+            0, flat4, g_c4), None),
+        'k4_scatter_index_put': (corner_scatter_library, None),
+        'k4_scatter_32_library': (lambda: g_corner_32.index_add_(
+            0, flat4_32, g_c4), None),
         'k1_plate': (lambda: fused_trace.trace_seq_fwd_cuda(
             *plate['seq'][:2], do_rays, *plate['seq'][2:]),
             'trace_seq_fwd_kernel'),

@@ -29,14 +29,20 @@ library call where one computes the same function, and the end-to-end
 calls with CUDA events.
 
 The build phase prints each kernel's ptxas registers and spills, and the
-next K2's, K5's and K6's resident blocks per SM on their main paths'
-launches.  The timing phase also times each of K3's launches in the eager
-bounce loop on its own.
+next K1's, K2's, K5's and K6's resident blocks per SM on their main paths'
+launches.  K4's scatter is checked on both of its paths: maps held in
+shared memory (32 x 32 and the largest the launcher takes) and larger ones
+(one row more, and 256 x 256).  The timing phase also times each of K3's
+launches in the eager bounce loop on its own, and the one-call library
+yardsticks: ``index_add_`` (and ``index_put_``) for K3 on the bench spot
+and on random hits over one 256 x 256 slot, ``torch.take`` for K4's
+gather and ``index_add_`` (and four ``index_put_``) for its scatter.
 Each phase prints one JSON line; any failed check raises, so the script
 exits non-zero.  Then come the kernel summary line (each kernel's launches
 on its main path, error, time, plain time, the bound of its work on this
-card and, for K3, a library call's time), the card's name and power limit
-as nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+card and, for K3 and K4's gather and scatter, a library call's time), the
+card's name and power limit as nvidia-smi reports them, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script fails.
 """
 
@@ -652,6 +658,19 @@ def compare_maps(torch, g_k, g_p, rtol=GRID_RAND_RTOL):
                 map_err_over_scale=max(e / s for e, s in zip(errs, scales)))
 
 
+def k4_shared_cap():
+    """The most cells of a map that K4's scatter holds in shared memory
+    (kMaxSharedCells, read from its source): larger maps take its vector
+    path."""
+    import re
+    src = os.path.join(ROOT, 'raytracetorch_tpu_torch', 'csrc',
+                       'grid_corners.cu')
+    with open(src) as f:
+        m = re.search(r'constexpr int kMaxSharedCells = (\d+);', f.read())
+    check(m is not None, 'kMaxSharedCells not found in grid_corners.cu')
+    return int(m.group(1))
+
+
 def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
     """K2 (or K6 with ``nonseq``) on a scene with a plate against its plain
     version, with seeded cotangents of the rays, the moments and the grid:
@@ -872,10 +891,12 @@ def main():
          ptxas={k: [ln.strip() for ln in v[0].splitlines()
                     if 'registers' in ln or 'spill' in ln]
                 for k, v in logs.items()})
-    # K2's and K6's resident blocks per SM on their main paths' launches
-    # (the bench scene, the naive scene; with plate code, the ring former)
+    # K1's, K2's and K6's resident blocks per SM on their main paths'
+    # launches (the bench scene, the naive scene; with plate code, the ring
+    # former)
     occ, rs = {}, ring_scene(rt, bounces=DO_BOUNCES, grid=True)
-    for lib, sc in (('trace_seq_bwd', bench_scene(rt)),
+    for lib, sc in (('trace_seq_fwd', bench_scene(rt)),
+                    ('trace_seq_bwd', bench_scene(rt)),
                     ('trace_nonseq_bwd', naive_scene(rt))):
         occ[lib] = fused_trace.blocks_per_sm(lib, len(sc.static_meta()),
                                              sc.sensor_config(), False,
@@ -1477,12 +1498,16 @@ def main():
     check(95.0 < nd_f < 106.0, f'non-sequential focal length {nd_f}')
 
     # 7. deep optics.  7a: K4 alone against its plain version on the cells
-    # that 1M ring-former rays read on the 256 x 256 and the 32 x 32 map, and
-    # on 2,999 cells partly outside the map (clamped reads)
+    # that 1M ring-former rays read on the 256 x 256 and the 32 x 32 map and
+    # on the largest map the scatter holds in shared memory and one row more
+    # (its two paths), and on 2,999 cells partly outside the map (clamped
+    # reads)
     do_rays = ring_rays(rt, torch, N_MAIN, dev, SEED + 91)
     gen = torch.Generator(device=dev).manual_seed(SEED + 92)
     corner_cases, corner_inputs = {}, {}
-    for shape in (DO_MAP, DO_SMALL_MAP):
+    cap = k4_shared_cap()
+    for shape in (DO_MAP, DO_SMALL_MAP, (cap // 100, 100),
+                  (cap // 100 + 1, 100)):
         civ, ciu = plate_cells(torch, do_rays, shape)
         corner_inputs[shape] = (ring_map(shape, dev), civ, ciu)
     corner_inputs['clamped'] = (
@@ -1502,7 +1527,9 @@ def main():
         res = dict(n=int(civ.shape[0]), shape=list(cmap.shape),
                    cells_read=int(torch.unique(civ * 1000 + ciu).numel()),
                    gather_equal=all(torch.equal(a, b)
-                                    for a, b in zip(c_k, c_p)))
+                                    for a, b in zip(c_k, c_p)),
+                   gather_max_abs_err=max(float((a - b).abs().max())
+                                          for a, b in zip(c_k, c_p)))
         check(res['gather_equal'], f'K4 gather differs ({key})')
         res.update(compare_maps(torch, (s_k,), (s_p,)))
         corner_cases['x'.join(map(str, cmap.shape)) if key != 'clamped'
@@ -1871,17 +1898,32 @@ def main():
     k3_ms, k3_plain_ms, k3_runs, k3_plain_runs = time_pair(
         torch, lambda: grid.bin_grid_cuda(spot_x, spot_y, spot_w, 0, gcfg1),
         lambda: grid.bin_grid_slots_plain(spot_x, spot_y, spot_w, 0, gcfg1))
-    lib_runs = time_ms(torch, lambda: g_lib.index_put_(
+    put_runs = time_ms(torch, lambda: g_lib.index_put_(
         (flat_idx,), spot_w, accumulate=True))
+    add_runs = time_ms(torch, lambda: g_lib.index_add_(0, flat_idx, spot_w))
     timing['grid_bin_spot'] = dict(
         kernel_ms=k3_ms, plain_ms=k3_plain_ms, library_ms=statistics.median(
-            lib_runs), kernel_runs=k3_runs, plain_runs=k3_plain_runs,
-        library_runs=lib_runs, cells_hit=int((g_k > 0).sum()),
-        hits=float(g_k.sum()))
+            add_runs), index_put_ms=statistics.median(put_runs),
+        kernel_runs=k3_runs, plain_runs=k3_plain_runs,
+        library_runs=add_runs, index_put_runs=put_runs,
+        cells_hit=int((g_k > 0).sum()), hits=float(g_k.sum()))
     timing['grid_bin_random'] = dict(zip(
         ('kernel_ms', 'plain_ms'), time_pair(
             torch, lambda: grid.bin_grid_cuda(hx, hy, hw, hslot, gcfg),
             lambda: grid.bin_grid_slots_plain(hx, hy, hw, hslot, gcfg))[:2]))
+    # K3 on the random hits with their weights, all in one 256 x 256 slot,
+    # against one index_add_ and one index_put_ at their flat cells
+    rix, riy = bin_indices(GRID, GRID_E, hx, hy)
+    r_idx = riy * GRID[1] + rix
+    r_k, r_p, r_runs, _ = time_pair(
+        torch, lambda: grid.bin_grid_cuda(hx, hy, hw, 0, gcfg1),
+        lambda: grid.bin_grid_slots_plain(hx, hy, hw, 0, gcfg1))
+    timing['grid_bin_random_1x256'] = dict(
+        kernel_ms=r_k, plain_ms=r_p, library_ms=statistics.median(time_ms(
+            torch, lambda: g_lib.index_add_(0, r_idx, hw))),
+        index_put_ms=statistics.median(time_ms(
+            torch, lambda: g_lib.index_put_((r_idx,), hw, accumulate=True))),
+        kernel_runs=r_runs)
     # K3 on the bench spot with the 32 x 32 grid and with 8 slots of
     # 256 x 256, and each of the eager loop's launches on the naive scene
     # (one per bounce: section 5d), captured from Scene.simulate and timed
@@ -1920,15 +1962,20 @@ def main():
     timing['nonseq_design_warm_s'] = nd_warm_s
     # K4 alone at 1M cells of the ring-former rays, on the 256 x 256 and the
     # 32 x 32 map: gather and scatter against their plain versions and the
-    # library calls (four advanced-index reads at precomputed clamped cells;
-    # four index_put_ with accumulate)
+    # library calls at precomputed clamped cells: for the gather one
+    # torch.take of the 4N flat cells (and the four advanced-index reads),
+    # for the scatter one index_add_ of the 4N cotangents at the 4N flat
+    # cells (and four index_put_ with accumulate, which sort their indices)
     for shape in (DO_MAP, DO_SMALL_MAP):
         cmap, civ, ciu = corner_inputs[shape]
         g_c = tuple(torch.randn(N_MAIN, device=dev) for _ in range(4))
         cells = phase_grid._cells(shape, civ, ciu)
         v0, v1, u0, u1 = cells
         pairs = ((v0, u0), (v0, u1), (v1, u0), (v1, u1))
+        flat4 = torch.cat([v * shape[1] + u for v, u in pairs])
+        g_flat4 = torch.cat(g_c)
         g_lib = torch.zeros(shape, device=dev)
+        g_add = torch.zeros(shape[0] * shape[1], device=dev)
 
         def lib_scatter():
             for g, cell in zip(g_c, pairs):
@@ -1936,19 +1983,24 @@ def main():
         k_ms, p_ms, k_runs, p_runs = time_pair(
             torch, lambda: phase_grid.grid_corners_cuda(cmap, civ, ciu),
             lambda: phase_grid.grid_corners_plain(cmap, civ, ciu))
+        take_runs = time_ms(torch, lambda: torch.take(cmap, flat4))
         lib_runs = time_ms(torch, lambda: [cmap[cell] for cell in pairs])
         kb_ms, pb_ms, kb_runs, pb_runs = time_pair(
             torch, lambda: phase_grid.grid_corners_bwd_cuda(g_c, civ, ciu,
                                                             shape),
             lambda: phase_grid.grid_corners_bwd_plain(g_c, civ, ciu, shape))
+        add_runs = time_ms(torch, lambda: g_add.index_add_(0, flat4, g_flat4))
         libb_runs = time_ms(torch, lib_scatter)
         timing['corners_' + 'x'.join(map(str, shape))] = dict(
             kernel_ms=k_ms, plain_ms=p_ms,
-            library_ms=statistics.median(lib_runs), bwd_kernel_ms=kb_ms,
-            bwd_plain_ms=pb_ms, bwd_library_ms=statistics.median(libb_runs),
-            kernel_runs=k_runs, plain_runs=p_runs, library_runs=lib_runs,
-            bwd_kernel_runs=kb_runs, bwd_plain_runs=pb_runs,
-            bwd_library_runs=libb_runs)
+            library_ms=statistics.median(take_runs),
+            index_reads_ms=statistics.median(lib_runs), bwd_kernel_ms=kb_ms,
+            bwd_plain_ms=pb_ms, bwd_library_ms=statistics.median(add_runs),
+            bwd_index_put_ms=statistics.median(libb_runs),
+            kernel_runs=k_runs, plain_runs=p_runs, library_runs=take_runs,
+            index_reads_runs=lib_runs, bwd_kernel_runs=kb_runs,
+            bwd_plain_runs=pb_runs, bwd_library_runs=add_runs,
+            bwd_index_put_runs=libb_runs)
     # K1, K2, K5 and K6 with the 256 x 256 plate at 1M rays against their
     # plain versions (the Scene: 3 bounces, 256 x 256 irradiance grid)
     rays = ring_rays(rt, torch, N_MAIN, dev, SEED + 1)
@@ -2118,11 +2170,18 @@ def main():
               timing[f'nonseq_bwd_n{N_MAIN}']['plain_ms']),
         entry('grid_corners', 'grid_corners.cu', 439,
               do_eager_launches['grid_corners'],
-              max(corner_cases[key]['map_max_abs_err']
+              max(corner_cases[key]['gather_max_abs_err']
                   for key in corner_cases),
               timing['corners_256x256']['kernel_ms'],
               timing['corners_256x256']['plain_ms'],
               timing['corners_256x256']['library_ms']),
+        entry('grid_corners_bwd', 'grid_corners.cu', 439,
+              do_eager_launches['grid_corners_bwd'],
+              max(corner_cases[key]['map_max_abs_err']
+                  for key in corner_cases),
+              timing['corners_256x256']['bwd_kernel_ms'],
+              timing['corners_256x256']['bwd_plain_ms'],
+              timing['corners_256x256']['bwd_library_ms']),
         entry('trace_seq_v1', 'trace_seq_fwd.cu', 81,
               v1_launches['trace_seq_v1'], v1_res['max_abs_err'],
               timing['v1']['kernel_ms'], timing['v1']['plain_ms']),

@@ -92,11 +92,11 @@
 // deterministic.  Zero weights are skipped (adding 0 changes nothing).
 
 #include <cstdint>
-#include <mutex>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_launch.cuh"
 #include "grid_bin.cuh"
 
 using namespace rtt;
@@ -289,53 +289,6 @@ grid_gather_kernel(const float* __restrict__ g, const float* __restrict__ x,
                : g[static_cast<size_t>(s) * h * wd + grid_cell(x[i], y[i], h, wd, e)];
 }
 
-void cluster_attr(cudaLaunchAttribute& attr) {
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kClusterBlocks;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-}
-
-// Resident clusters of the scatter with `smem` bytes of window a block on
-// the current device.  The first call for a (device, smem) allows the kernel
-// the largest window and asks the occupancy calculator; later calls read
-// the answer back (the cache is shared by the host threads, under a lock).
-cudaError_t resident_clusters(size_t smem, int* out) {
-  struct Entry {
-    int device;
-    size_t smem;
-    int count;
-  };
-  static Entry cache[32];
-  static int n_cached = 0;
-  static std::mutex lock;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  const std::lock_guard<std::mutex> hold(lock);
-  for (int j = 0; j < n_cached; ++j)
-    if (cache[j].device == device && cache[j].smem == smem) {
-      *out = cache[j].count;
-      return cudaSuccess;
-    }
-  e = cudaFuncSetAttribute(grid_bin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(sizeof(float) * kMaxSliceCells));
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kClusterBlocks);
-  cfg.blockDim = dim3(kBinThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr;
-  cluster_attr(attr);
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaOccupancyMaxActiveClusters(out, grid_bin_kernel, &cfg);
-  if (e != cudaSuccess) return e;
-  if (*out < 1) return cudaErrorInvalidConfiguration;
-  if (n_cached < 32) cache[n_cached++] = {device, smem, *out};
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Adds the n hits into the [n_slots, h, wd] grid (the caller zeroes it or
@@ -361,24 +314,15 @@ extern "C" int rtt_grid_bin(const float* x, const float* y, const float* w, cons
   }
   const size_t smem = sizeof(float) * static_cast<size_t>((n_slots * rows * wd + 3) / 4 * 4);
   int most = 0;
-  cudaError_t err = resident_clusters(smem, &most);
+  const cudaError_t err = resident_clusters<kClusterBlocks>(
+      grid_bin_kernel, kBinThreads, sizeof(float) * kMaxSliceCells, smem, &most);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long per_cluster = static_cast<long long>(kClusterBlocks) * kBinThreads * kBatch;
   long long clusters = (n + per_cluster - 1) / per_cluster;
   if (clusters > most) clusters = most;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kClusterBlocks));
-  cfg.blockDim = dim3(kBinThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr;
-  cluster_attr(attr);
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, grid_bin_kernel, x, y, w, slot, slot0, n, grid, n_slots, h, wd,
-                           e, rows);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_clusters<kClusterBlocks>(grid_bin_kernel, clusters, kBinThreads,
+                                                          smem, st, x, y, w, slot, slot0, n, grid,
+                                                          n_slots, h, wd, e, rows));
 }
 
 // out[i] = g[slot_i, iy_i, ix_i] (0 for a slot outside 0..n_slots-1): the

@@ -45,14 +45,46 @@ __device__ __forceinline__ Corners read_corners(const float* map, const CornerCe
   return {__ldg(map + c.c00), __ldg(map + c.c01), __ldg(map + c.c10), __ldg(map + c.c11)};
 }
 
-// Add the four corner cotangents into the map's cotangent gmap at the cells
-// they were read from (the transpose of read_corners).  Zeros are skipped.
-__device__ __forceinline__ void scatter_corners(float* gmap, const CornerCells& c,
+// Add two cotangents at flat cells a and b of an n-cell map, b == a or
+// a + 1 (a row of the patch: columns u0 and u1 = u0 or u0 + 1).  Equal cells
+// are summed in registers first.  Two cells of one 16-byte group go in one
+// vector atomic (red.global.add.v4.f32: the L2 takes it as one operation),
+// its other two lanes adding 0; a pair that straddles two groups, or whose
+// group reaches past the map, takes two scalar atomics.  Zeros are skipped.
+// The 16-byte groups are taken from the absolute address, so any float
+// alignment of gmap is safe, and no lane outside cells 0..n-1 is touched.
+__device__ __forceinline__ void scatter_pair(float* gmap, int n, int a, float ga, int b,
+                                             float gb) {
+  if (a == b) {
+    ga += gb;
+    if (ga != 0.0f) atomicAdd(gmap + a, ga);
+    return;
+  }
+  if (ga == 0.0f && gb == 0.0f) return;
+  const int q = static_cast<int>((reinterpret_cast<uintptr_t>(gmap + a) >> 2) & 3);
+  if (q == 3 || a - q < 0 || a - q + 4 > n) {
+    if (ga != 0.0f) atomicAdd(gmap + a, ga);
+    if (gb != 0.0f) atomicAdd(gmap + b, gb);
+    return;
+  }
+  const float4 v = make_float4(q == 0 ? ga : 0.0f, q == 0 ? gb : (q == 1 ? ga : 0.0f),
+                               q == 1 ? gb : (q == 2 ? ga : 0.0f), q == 2 ? gb : 0.0f);
+  atomicAdd(reinterpret_cast<float4*>(gmap + a - q), v);
+}
+
+// Add the four corner cotangents into the n-cell map cotangent gmap at the
+// cells they were read from (the transpose of read_corners): one row pair
+// at a time (scatter_pair), both rows summed first where they coincide (a
+// cell clamped at the map's top or bottom rim).  About 2.5 L2 operations a
+// cell instead of 4 scalar atomics.  Zeros are skipped.
+__device__ __forceinline__ void scatter_corners(float* gmap, int n, const CornerCells& c,
                                                 const Corners& g) {
-  if (g.g00 != 0.0f) atomicAdd(gmap + c.c00, g.g00);
-  if (g.g01 != 0.0f) atomicAdd(gmap + c.c01, g.g01);
-  if (g.g10 != 0.0f) atomicAdd(gmap + c.c10, g.g10);
-  if (g.g11 != 0.0f) atomicAdd(gmap + c.c11, g.g11);
+  if (c.c10 == c.c00) {
+    scatter_pair(gmap, n, c.c00, g.g00 + g.g10, c.c01, g.g01 + g.g11);
+    return;
+  }
+  scatter_pair(gmap, n, c.c00, g.g00, c.c01, g.g01);
+  scatter_pair(gmap, n, c.c10, g.g10, c.c11, g.g11);
 }
 
 }  // namespace rtt

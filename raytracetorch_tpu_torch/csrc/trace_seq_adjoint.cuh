@@ -214,7 +214,7 @@ __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKin
     const Corners gc = {-g_P * (1.0f - pt.fv) - g_Q * (1.0f - pt.fu),
                         g_P * (1.0f - pt.fv) - g_Q * pt.fu,
                         -g_P * pt.fv + g_Q * (1.0f - pt.fu), g_P * pt.fv + g_Q * pt.fu};
-    scatter_corners(gmaps + (pt.map - pl.maps), pt.cells, gc);
+    scatter_corners(gmaps + (pt.map - pl.maps), pt.h * pt.w, pt.cells, gc);
   }
   // ---- su = (w - 1) / (2 hx), sv = (h - 1) / (2 hy) ----
   float g_hx = -(g_su * su / pt.hx), g_hy = -(g_sv * sv / pt.hy);

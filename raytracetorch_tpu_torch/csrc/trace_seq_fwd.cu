@@ -24,10 +24,13 @@
 // ray's wavelength.
 //
 // Design: one thread per ray, 256 threads per block, the ragged edge masked
-// with i < n (no padding copy).  The flat [K, 160] table and the int32
-// [K, 8] kinds sit in shared memory, loaded once per block; every thread
-// visits the same row at the same time, so the switch on a row's kinds is
-// warp-uniform and costs no divergence.  Moments: warp shuffles, then one
+// with i < n (no padding copy).  Each thread issues its ray's loads first,
+// then the block copies the flat [K, 160] table and the int32 [K, 8] kinds
+// into shared memory, so the loads' latency overlaps the copy and the
+// barrier.  Every thread visits the same row at the same time, so the
+// switch on a row's kinds (read as two 128-bit loads) is warp-uniform and
+// costs no divergence.  Moments: a sensor row's 7 sums over the warp by one
+// transpose reduce-scatter (9 shuffles, where 7 warp sums take 35), then one
 // partial per warp in shared memory, then one per block summed in fixed warp
 // order into a [blocks, S, B, 7] buffer that the wrapper sums.  No atomics:
 // the moments are deterministic.  The grid takes one atomicAdd per sensor
@@ -40,11 +43,19 @@
 // runs the instructions it ran before plates existed.
 //
 // What bounds it: per ray it reads 8 streams (32 B; the wavelength stream,
-// 4 B more, only with a plate) and writes 7 (28 B), and does
-// some hundreds of fp32 operations over the 5 rows of the main path.  At 1M
-// rays that is 60 MB, ~18 us at the H100's 3.35 TB/s, so the kernel should
-// be bound by bandwidth and launch overhead.  This is an estimate by count;
-// PERF.md holds the measured time.
+// 4 B more, only with a plate) and writes 7 (28 B): 60 MB at 1M rays, ~18 us
+// at the H100's 3.35 TB/s.  It runs at about 3.4x that, bound by the
+// instructions it issues, as measured on an H100 (PERF.md): 24 more
+// independent FFMAs a row made it 6-8% slower (K5, whose rows wait on their
+// dependent chain, did not notice as many).  So the design cuts
+// instructions and keeps more warps: 5 blocks an SM without plate code
+// (kSeqFwdMinBlocks; 48 registers, with the sensor row's sizes read inside
+// its branch so no register holds them across the row loop; 57 registers
+// and 4 blocks before), the kinds in two loads, the moments' sums in 9
+// shuffles.  Measured and not kept: persistent blocks that stage each tile
+// of rays in shared memory with cp.async while the tile before traces (5-7%
+// slower), K5's packed scan records (building them costs what reading them
+// saves), copying only the row columns the kinds read.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
@@ -63,8 +74,57 @@ using namespace rtt;
 
 namespace {
 
+// Resident blocks of kThreads per SM that the instantiations are capped
+// for (__launch_bounds__): without plate code 48 registers a thread, with
+// it 64 (at 48 it spills).
+constexpr int kSeqFwdMinBlocks = 5;
+constexpr int kSeqFwdPlateMinBlocks = 4;
+
 template <bool kPlates>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int seq_fwd_min_blocks() {
+  return kPlates ? kSeqFwdPlateMinBlocks : kSeqFwdMinBlocks;
+}
+
+// The dynamic shared memory of a launch: the flat table, its kinds (16-byte
+// aligned after it) and the per-warp moment partials.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
+  return sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
+                          static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments);
+}
+
+// A row's kinds from its 8 ints in shared memory, 16-byte aligned: two
+// 128-bit loads.
+__device__ __forceinline__ RowKinds read_row_kinds4(const int4* kd) {
+  const int4 a = kd[0], b = kd[1];
+  const int k[kKindWidth] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  return {k[kPhCol],          k[kSbCol],          k[kVbCol],           k[kSlotCol], k[kMapCol],
+          k[kPlaneCol] != 0, k[kSensorCol] != 0, k[kInvertCol] != 0};
+}
+
+// The sums over the warp's 32 lanes of each lane's 8 values v: a transpose
+// reduce-scatter (4, 2 and 1 shuffles each halve the values a lane holds,
+// two more finish the sums), 9 shuffles where 8 warp_sums take 40.  Every
+// lane gets the sum of value (lane >> 2) & 7.  Each sum adds the same pairs
+// in the same tree as warp_sum's (lanes 16 apart, then 8, 4, 2, 1), so it
+// equals warp_sum's bit for bit.
+__device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float a[4], b[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    a[j] = (h16 ? v[j + 4] : v[j]) + __shfl_xor_sync(kFull, h16 ? v[j] : v[j + 4], 16);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    b[j] = (h8 ? a[j + 2] : a[j]) + __shfl_xor_sync(kFull, h8 ? a[j] : a[j + 2], 8);
+  float c = (h4 ? b[1] : b[0]) + __shfl_xor_sync(kFull, h4 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(kFull, c, 2);
+  c += __shfl_xor_sync(kFull, c, 1);
+  return c;
+}
+
+template <bool kPlates>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates>())
 trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                      int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                      const float* __restrict__ pz, const float* __restrict__ dx,
@@ -77,23 +137,21 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
                      float grid_e, const float* __restrict__ maps,
                      const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
                      long long n) {
-  extern __shared__ float smem[];
-  float* tab = smem;
-  int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
-  float* warp_mom = smem + n_rows * (kRowWidth + kKindWidth);
+  extern __shared__ float4 smem4[];
+  float* tab = reinterpret_cast<float*>(smem4);
+  int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
+  const int4* knd4 = reinterpret_cast<const int4*>(knd);
+  float* warp_mom = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
-  for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
-  for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
-  for (int j = tid; j < kWarps * n_mom; j += kThreads) warp_mom[j] = 0.0f;
-  __syncthreads();
-
+  // The ray's loads go out first, so that their latency overlaps the copy
+  // of the table into shared memory and the barrier.  Threads past the
+  // ragged edge trace a zero ray of zero intensity: every step stays
+  // finite, and they contribute nothing to the moments.
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
   const bool live = i < n;
-  // Threads past the ragged edge trace a zero ray of zero intensity: every
-  // step stays finite, and they contribute nothing to the moments.
   V3 p = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
   float inten = 0.0f;
   int rid = -1;
@@ -106,9 +164,14 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     if (kPlates) pl.wl = wavelength[i];
   }
 
+  for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
+  for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
+  for (int j = tid; j < kWarps * n_mom; j += kThreads) warp_mom[j] = 0.0f;
+  __syncthreads();
+
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
-    const RowKinds kd = read_row_kinds(knd + k * kKindWidth);
+    const RowKinds kd = read_row_kinds4(knd4 + 2 * k);
     const RowHit h = intersect_row<kPlates>(r, kd, p, d);
     const V3 nw = world_normal(r, kd.plane, h.hs);
     V3 nd;
@@ -123,15 +186,27 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
       const float x = h.hs.x, y = h.hs.y;
       const float terms[kMoments] = {w,         w * x,     w * y, w * x * x,
                                      w * y * y, w * x * y, w > 0.0f ? 1.0f : 0.0f};
-      float* dst = warp_mom + warp * n_mom + kd.slot * n_bundles * kMoments;
-      for (int b = 0; b < n_bundles; ++b) {
+      // the sizes enter here, at a sensor row: the empty asm keeps the
+      // compiler from computing what depends on them before the row loop
+      // and holding it in registers across it
+      int nb = n_bundles, nm = n_mom;
+      asm volatile("" : "+r"(nb), "+r"(nm));
+      float* dst = warp_mom + warp * nm + kd.slot * nb * kMoments;
+      const int e = (lane >> 2) & 7;
+      for (int b = 0; b < nb; ++b) {
+        float v[8];
 #pragma unroll
-        for (int m = 0; m < kMoments; ++m) {
-          const float s = warp_sum(rid == b ? terms[m] : 0.0f);
-          if (lane == 0) dst[b * kMoments + m] += s;
-        }
+        for (int m = 0; m < kMoments; ++m) v[m] = rid == b ? terms[m] : 0.0f;
+        v[7] = 0.0f;
+        const float s = warp_sums8(v, lane);
+        if ((lane & 3) == 0 && e < kMoments) dst[b * kMoments + e] += s;
       }
-      if (grid != nullptr) grid_add(grid, kd.slot, x, y, w, grid_h, grid_w, grid_e);
+      if (grid != nullptr) {
+        int gh = grid_h, gw = grid_w;
+        float ge = grid_e;
+        asm volatile("" : "+r"(gh), "+r"(gw), "+f"(ge));
+        grid_add(grid, kd.slot, x, y, w, gh, gw, ge);
+      }
     }
 
     if (active) {
@@ -160,18 +235,23 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   }
 }
 
+// Allow the instantiation its shared memory (beyond 48 KB only on request).
+template <bool kPlates>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(trace_seq_fwd_kernel<kPlates>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <bool kPlates>
 int launch(size_t smem, long long blocks, cudaStream_t stream, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            float* const* outs, float* partials, int n_slots, int n_bundles, float* grid,
            int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
            const float* wavelength, long long n) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(trace_seq_fwd_kernel<kPlates>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = prepare<kPlates>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   trace_seq_fwd_kernel<kPlates><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
       ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials, n_slots,
@@ -203,9 +283,7 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
-                       static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -216,4 +294,20 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
   return launch<false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
                        n_slots, n_bundles, grid, grid_h, grid_w, grid_e, nullptr, nullptr,
                        nullptr, n);
+}
+
+// The resident blocks per SM of the instantiation that a launch with these
+// sizes runs (K1 has no bounces: the argument keeps the other kernels'
+// signature), at its dynamic shared memory, into *blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
+extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
+                                           int n_bounces, int plates, int* blocks) {
+  (void)n_bounces;
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
+  const cudaError_t e = plates ? prepare<true>(smem) : prepare<false>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const void* fn = plates ? reinterpret_cast<const void*>(trace_seq_fwd_kernel<true>)
+                          : reinterpret_cast<const void*>(trace_seq_fwd_kernel<false>);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
 }

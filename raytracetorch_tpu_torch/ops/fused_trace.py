@@ -94,7 +94,8 @@ _OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 _LIBRARIES = {
     'trace_seq_fwd': ('trace_seq_fwd.cu', {
         'rtt_trace_seq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
-        + _PLATES + [_L, _P]}),
+        + _PLATES + [_L, _P],
+        'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
         + _PLATES + [_P, _L, _P],
@@ -445,8 +446,9 @@ def kernel(symbol):
 
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0):
-    """Resident blocks per SM of the instantiation of K2
-    (``library='trace_seq_bwd'``), K5 (``'trace_nonseq_fwd'``) or K6
+    """Resident blocks per SM of the instantiation of K1
+    (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
+    (``'trace_nonseq_fwd'``) or K6
     (``'trace_nonseq_bwd'``, with its bounce budget ``n_bounces``) that a
     launch with ``n_rows`` rows, ``cfg``'s slots and bundles and, with
     ``plates``, plate code runs, at that launch's dynamic shared memory

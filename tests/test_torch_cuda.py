@@ -25,6 +25,13 @@ instantiation to no spill, no stack frame and at least the parent design's
 blocks per SM.  K3 is held to its plain version with the whole grid, a
 band of it and no band in shared memory, on one hot cell, on ragged and
 small batches and on hits placed at its bin edges, unit weights exactly.
+K4's scatter is held to its plain version on both of its paths (a map in
+shared memory, vector atomics), at the launcher's cap and one row over
+it, on odd and even widths, on row pairs that straddle 16-byte groups,
+clamped rims, one hot cell, zero or missing cotangents and ragged batches.
+K1 is held to its plain version at the edges of its blocks and waves, its
+moments bit for bit across two launches, and its two instantiations to no
+spill, no stack frame and their launch bounds' blocks per SM.
 """
 
 import math
@@ -951,3 +958,171 @@ def test_k3_bins_hits_at_bin_edges_as_the_plain_version(shape, dev):
     g_p = grid.bin_grid_slots_plain(x, y, ones, n_slots - 1, cfg)
     torch.cuda.synchronize()
     assert torch.equal(g_k, g_p)
+
+
+# ---- K4's scatter: the shared-map path (maps of at most the launcher's
+# kMaxSharedCells) and the vector path (larger maps) ----
+
+K4_CAP = chip_smoke.k4_shared_cap()
+# (rows, columns): 32 x 32 and an odd width in shared memory; an even and an
+# odd width at the cap or just under it and one row over it; 256 x 256
+K4_MAPS = {'32x32': (32, 32), 'odd_33x47': (33, 47),
+           'cap_even': (K4_CAP // 100, 100),
+           'over_cap_even': (K4_CAP // 100 + 1, 100),
+           'cap_odd': (K4_CAP // 101, 101),
+           'over_cap_odd': (K4_CAP // 101 + 1, 101), '256x256': (256, 256)}
+
+
+def _k4_cells(shape, pattern, n, dev, seed=0):
+    """Cells (iv, iu) of an [H, W] map and their four cotangents (some None
+    for the 'zeros' pattern).  'random': cells partly outside the map
+    (clamped) with flat offsets at every residue mod 4; 'residue3': every
+    cell's flat offset c00 = 3 mod 4 (its row pair straddles two 16-byte
+    groups); 'rim': cells on and beyond the far rims and below row and
+    column 0, where corners coincide; 'hot': every cell the same, with
+    integer cotangents;
+    'zeros': one zero tensor and one None among the cotangents."""
+    h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed + h * 1000 + w)
+    rand = lambda lo, hi: torch.randint(lo, hi, (n,), generator=gen,  # noqa
+                                        device=dev, dtype=torch.int32)
+    if pattern == 'residue3':
+        iv, base = rand(0, h - 1), rand(0, w - 4)
+        iu = base + (3 - (iv * w + base)) % 4
+    elif pattern == 'rim':
+        iv = torch.where(rand(0, 2) == 0, rand(h - 2, h + 3), rand(-3, 1))
+        iu = torch.where(rand(0, 2) == 0, rand(w - 2, w + 3), rand(-3, 1))
+    elif pattern == 'hot':
+        iv = torch.full((n,), h // 2, dtype=torch.int32, device=dev)
+        iu = torch.full((n,), w // 3, dtype=torch.int32, device=dev)
+    else:
+        iv, iu = rand(-2, h + 2), rand(-2, w + 2)
+    g = [torch.randn(n, generator=gen, device=dev) for _ in range(4)]
+    if pattern == 'hot':
+        # small integers: their sum in one cell is exact in any order, so
+        # the comparison holds the combine, not the summation order
+        g = [torch.randint(-4, 5, (n,), generator=gen, device=dev).float()
+             for _ in range(4)]
+    if pattern == 'zeros':
+        g[1] = torch.zeros(n, device=dev)
+        g[2] = None
+    return iv, iu, tuple(g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('pattern', ['random', 'residue3', 'rim', 'hot',
+                                     'zeros'])
+@pytest.mark.parametrize('map_name', sorted(K4_MAPS))
+def test_k4_scatter_paths_match_plain(map_name, pattern, dev):
+    """K4's scatter on both of its paths, at the launcher's cap and one row
+    over it, with odd and even widths, against its plain version
+    (chip_smoke.compare_maps): the sum of the cells' cotangents in each
+    cell, wherever the row pairs fall in the 16-byte groups, where clamped
+    corners coincide, on one hot cell and with zero or missing cotangents;
+    one launch a call."""
+    shape = K4_MAPS[map_name]
+    iv, iu, g = _k4_cells(shape, pattern, 100_003, dev)
+    if pattern == 'residue3':
+        assert bool(((iv.long() * shape[1] + iu) % 4 == 3).all())
+    before = phase_grid.CORNER_BWD_LAUNCHES
+    s_k = phase_grid.grid_corners_bwd_cuda(g, iv, iu, shape)
+    assert phase_grid.CORNER_BWD_LAUNCHES == before + 1
+    s_p = phase_grid.grid_corners_bwd_plain(g, iv, iu, shape)
+    torch.cuda.synchronize()
+    chip_smoke.compare_maps(torch, (s_k,), (s_p,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 37, N, 2048 * 3 + 5])
+@pytest.mark.parametrize('map_name', ['32x32', 'over_cap_even'])
+def test_k4_scatter_takes_ragged_batches(map_name, n, dev):
+    """Batches that are not a multiple of a block, or of a cluster's batch of
+    cells, and a batch of one cell, on both paths; all-zero cotangents leave
+    the map zero."""
+    shape = K4_MAPS[map_name]
+    iv, iu, g = _k4_cells(shape, 'random', n, dev, seed=n)
+    s_k = phase_grid.grid_corners_bwd_cuda(g, iv, iu, shape)
+    s_p = phase_grid.grid_corners_bwd_plain(g, iv, iu, shape)
+    zero = phase_grid.grid_corners_bwd_cuda(
+        tuple(torch.zeros(n, device=dev) for _ in range(4)), iv, iu, shape)
+    torch.cuda.synchronize()
+    chip_smoke.compare_maps(torch, (s_k,), (s_p,))
+    assert not bool(zero.any())
+
+
+# ---- K1 ----
+
+def _k1_bench(dev, n, seed=5):
+    scene = chip_smoke.bench_scene(trt)
+    cfg, meta = scene.sensor_config(), scene.static_meta()
+    flat = trt.flatten_table_rows(scene.build_table(scene.init_params(dev)))
+    rays = chip_smoke.sample_rays(trt, torch, n, dev, seed)
+    return flat, _kinds(meta, cfg, dev), rays, cfg, meta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', ['1', '255', '257', 'ragged_waves'])
+def test_k1_block_edges(n, dev):
+    """K1 against its plain version on one ray, one ray short of a block,
+    one over it, and a count of more blocks than are resident at once whose
+    last block is ragged, per chip_smoke.compare (its tolerances and
+    reasons)."""
+    flat, _, _, cfg, _ = _k1_bench(dev, 1)
+    if n == 'ragged_waves':
+        per_sm = fused_trace.blocks_per_sm('trace_seq_fwd', flat.shape[0],
+                                           cfg, False)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n = (2 * per_sm * sms + 7) * fused_trace.THREADS - 19
+    n = int(n)
+    flat, kinds, rays, cfg, meta = _k1_bench(dev, n)
+    out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg)
+    out_p, s_p = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                          meta)
+    torch.cuda.synchronize()
+    res = chip_smoke.compare(torch, out_k, s_k, out_p, s_p)
+    assert res['n'] == n and float(s_k.moments[0, 0, 0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('grid_on', [False, True])
+def test_k1_moments_are_deterministic(grid_on, dev):
+    """Two launches of K1 on the same rays give the same moments and ray
+    streams, bit for bit: lanes, warps and blocks are summed in a fixed
+    order, with no atomics."""
+    flat, kinds, rays, cfg, _ = _k1_bench(dev, N_BLOCKS * 3 + 11)
+    if grid_on:
+        cfg = chip_smoke.grid_scene(trt).sensor_config()
+    runs = [fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert float(runs[0][1].moments[0, 0, 0]) > 0
+    assert torch.equal(runs[0][1].moments, runs[1][1].moments)
+    for c in fused_trace.COMPS:
+        assert torch.equal(getattr(runs[0][0], c), getattr(runs[1][0], c))
+
+
+@pytest.mark.cuda
+def test_k1_runs_without_spills_at_its_occupancy(dev):
+    """K1's two instantiations spill no register and have no stack frame
+    (ptxas), and the bench scene's launch keeps the blocks their launch
+    bounds ask for (kSeqFwdMinBlocks, kSeqFwdPlateMinBlocks with plate
+    code) resident on an SM (the occupancy query K1 exports)."""
+    import pathlib
+    import re
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    usage = nvcc_build.ptxas_usage(fused_trace.build()['trace_seq_fwd'][0])
+    kernels = {k: v for k, v in usage.items() if 'trace_seq_fwd_kernel' in k}
+    assert len(kernels) == 2
+    for name, u in kernels.items():
+        assert u['spill_stores'] == 0 and u['spill_loads'] == 0, (name, u)
+        assert u['stack'] == 0, (name, u)
+    src = (pathlib.Path(fused_trace.__file__).resolve().parents[1] / 'csrc'
+           / 'trace_seq_fwd.cu').read_text()
+    scene = chip_smoke.bench_scene(trt)
+    rows, cfg = len(scene.static_meta()), scene.sensor_config()
+    for plates, name in ((False, 'kSeqFwdMinBlocks'),
+                         (True, 'kSeqFwdPlateMinBlocks')):
+        want = int(re.search(rf'constexpr int {name} = (\d+);',
+                             src).group(1))
+        assert fused_trace.blocks_per_sm('trace_seq_fwd', rows, cfg,
+                                         plates) >= want

@@ -6,8 +6,9 @@ read from the sources on the CPU:
   core/table.py ROW_FIELDS, the record is whole float4s, and its kinds are
   the columns of ops/fused_trace.py::kind_rows that the intersection
   branches on;
-- the occupancy queries that K2, K5 and K6 export are bound by the
-  wrappers.
+- the occupancy queries that K1, K2, K5 and K6 export are bound by the
+  wrappers, and every C entry point the wrappers bind takes as many
+  arguments in its source as the wrappers pass.
 
 The kernels themselves are held to their plain versions on the card in
 tests/test_torch_cuda.py."""
@@ -97,12 +98,27 @@ def test_record_field_copies_its_flat_columns(field, flat, words):
     assert col == FLAT[flat] and C[end] == C[field] + words
 
 
-@pytest.mark.parametrize('lib', ['trace_seq_bwd', 'trace_nonseq_fwd',
-                                 'trace_nonseq_bwd'])
+@pytest.mark.parametrize('lib', ['trace_seq_fwd', 'trace_seq_bwd',
+                                 'trace_nonseq_fwd', 'trace_nonseq_bwd'])
 def test_occupancy_queries_are_bound(lib):
-    """K2, K5 and K6 export their occupancy query, and the wrapper binds it
-    (fused_trace.blocks_per_sm)."""
+    """K1, K2, K5 and K6 export their occupancy query, and the wrapper
+    binds it (fused_trace.blocks_per_sm)."""
     sym = f'rtt_{lib}_occupancy'
     assert sym in fused_trace._LIBRARIES[lib][1]
     src = (CSRC / fused_trace._LIBRARIES[lib][0]).read_text()
     assert f'extern "C" int {sym}(' in src
+
+
+@pytest.mark.parametrize('lib', sorted(fused_trace._LIBRARIES))
+def test_bound_entry_points_take_their_arguments(lib):
+    """Each C entry point that ``fused_trace._LIBRARIES`` binds is an
+    ``extern "C"`` function of its library's source with as many parameters
+    as its ``argtypes``: ctypes passes what it is told, so a mismatch would
+    reach the card unnoticed."""
+    src_name, entries = fused_trace._LIBRARIES[lib]
+    src = (CSRC / src_name).read_text()
+    for sym, argtypes in entries.items():
+        m = re.search(r'extern "C" int ' + sym + r'\(([^)]*)\)', src)
+        assert m is not None, sym
+        assert len(m.group(1).split(',')) == len(argtypes), sym
+

@@ -244,20 +244,11 @@ def test_rim_and_miss_rays_follow_the_xla_gather():
         assert g_t is None or not g_t.any()
 
 
-@pytest.mark.parametrize('shape', [(16, 16), (40, 24)])
-def test_plain_corners_match_the_tpu_kernel_function(shape):
-    """K4's plain version against the TPU kernel function
-    ``_grid_corners_mxu``, called directly on in-range ``[rows, 128]``
-    cells: the reads are exact (one-hot products at HIGHEST precision on
-    the CPU); the scatter (``jax.vjp`` of the one-hot products) to atol
-    1e-6, both by ``grid_corners_bwd_plain`` and by autograd of the plain
-    gather."""
-    h, w = shape
-    rng = np.random.default_rng(h)
+def _check_corners_against_tpu(shape, iv, iu, rng):
+    """K4's plain gather, its plain scatter and autograd of the gather
+    against ``_grid_corners_mxu`` and its ``jax.vjp`` on cells (iv, iu)."""
     grid = rng.normal(size=shape).astype(np.float32)
-    iv = rng.integers(0, h - 1, size=(4, 128)).astype(np.int32)
-    iu = rng.integers(0, w - 1, size=(4, 128)).astype(np.int32)
-    cts = [rng.normal(size=(4, 128)).astype(np.float32) for _ in range(4)]
+    cts = [rng.normal(size=iv.shape).astype(np.float32) for _ in range(4)]
     c_j, vjp = jax.vjp(lambda g: _grid_corners_mxu(g, jnp.asarray(iv),
                                                    jnp.asarray(iu)),
                        jnp.asarray(grid))
@@ -272,6 +263,60 @@ def test_plain_corners_match_the_tpu_kernel_function(shape):
         [torch.from_numpy(c) for c in cts], iv_t, iu_t, shape)
     for g in (grid_t.grad, g_s):
         np.testing.assert_allclose(g.numpy(), np.asarray(g_j), atol=1e-6)
+
+
+@pytest.mark.parametrize('shape', [(16, 16), (40, 24)])
+def test_plain_corners_match_the_tpu_kernel_function(shape):
+    """K4's plain version against the TPU kernel function
+    ``_grid_corners_mxu``, called directly on in-range ``[rows, 128]``
+    cells: the reads are exact (one-hot products at HIGHEST precision on
+    the CPU); the scatter (``jax.vjp`` of the one-hot products) to atol
+    1e-6, both by ``grid_corners_bwd_plain`` and by autograd of the plain
+    gather."""
+    h, w = shape
+    rng = np.random.default_rng(h)
+    iv = rng.integers(0, h - 1, size=(4, 128)).astype(np.int32)
+    iu = rng.integers(0, w - 1, size=(4, 128)).astype(np.int32)
+    _check_corners_against_tpu(shape, iv, iu, rng)
+
+
+def _k4_pattern(pattern, rng):
+    """(shape, iv, iu) of in-range [4, 128] cells on which K4's scatter
+    branches on the card: row pairs at each position in a 16-byte group
+    (flat offset c00 = 0..3 mod 4) on an even and an odd width, pairs
+    ending in the last column (on a map tall enough that few share a cell:
+    the tolerance is for sums of a few terms), a 32 x 32 map (held in
+    shared memory by the kernel), and a map larger than any shared-memory
+    copy."""
+    shape = {'residues_even': (40, 24), 'residues_odd': (40, 37),
+             'last_column': (257, 45), 'map_32x32': (32, 32),
+             'map_128x128': (128, 128)}[pattern]
+    h, w = shape
+    iv = rng.integers(0, h - 1, size=(4, 128)).astype(np.int32)
+    if pattern.startswith('residues'):
+        base = rng.integers(0, w - 4, size=(4, 128))
+        res = np.arange(4 * 128).reshape(4, 128) % 4
+        iu = (base + (res - (iv * w + base)) % 4).astype(np.int32)
+        assert ((iv * w + iu) % 4 == res).all()
+    elif pattern == 'last_column':
+        iu = np.full((4, 128), w - 2, dtype=np.int32)
+    else:
+        iu = rng.integers(0, w - 1, size=(4, 128)).astype(np.int32)
+    return shape, iv, iu
+
+
+@pytest.mark.parametrize('pattern', ['residues_even', 'residues_odd',
+                                     'last_column', 'map_32x32',
+                                     'map_128x128'])
+def test_plain_corners_match_the_tpu_kernel_on_scatter_patterns(pattern):
+    """As ``test_plain_corners_match_the_tpu_kernel_function``, on the
+    cells that K4's scatter paths on the card tell apart (the TPU function
+    takes in-range cells only; clamping is held by
+    ``test_corner_reads_clamp_out_of_range_cells``)."""
+    rng = np.random.default_rng(len(pattern))
+    shape, iv, iu = _k4_pattern(pattern, rng)
+    assert (iu <= shape[1] - 2).all() and (iv <= shape[0] - 2).all()
+    _check_corners_against_tpu(shape, iv, iu, rng)
 
 
 def test_corner_reads_clamp_out_of_range_cells():
