@@ -27,7 +27,13 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 - the end-to-end calls: ``SequentialScene.simulate_fused``, the fused grad
   step, ``Scene.simulate_fused``, its grad step (K5 + K6), the eager
   ``Scene.simulate`` and the deep-optics grad step (the ring former, the
-  map the only trainable leaf: K1 + K2).
+  map the only trainable leaf: K1 + K2);
+- the mixed-surface and asphere scenes (chip_smoke.py section 8): K1, K2,
+  K5 and K6 in their instantiation with the extended kinds, and
+  ``simulate_fused`` on each (benchmarks/suite.py's
+  ``mixed_surfaces_sequential_1M`` and ``asphere_sequential_1M``), and
+  ``Renderer.render_3d`` at 1024 x 1024 on the naive scene
+  (``render_1024x1024``).
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -244,6 +250,44 @@ def main():
             'trace_nonseq_bwd_kernel'),
         'deep_optics_grad_step_fused': (do_grad_step, 'trace_seq_bwd'),
     }
+    # the extended kinds (chip_smoke.py section 8) and the renderer
+    from raytracetorch_tpu_torch.render.camera import Camera, Renderer
+    for case, make in (('mixed', cs.mixed_scene),
+                       ('asphere', cs.asphere_scene)):
+        sc, ns = make(rt), make(rt, cs.EXT_BOUNCES)
+        emeta, ecfg = sc.static_meta(), sc.sensor_config()
+        ep = sc.init_params(dev)
+        eflat = rt.flatten_table_rows(sc.build_table(ep))
+        ekinds = torch.tensor(fused_trace.kind_rows(emeta, ecfg),
+                              dtype=torch.int32, device=dev)
+        nb, necfg = ns.n_bounces, ns.sensor_config()
+        calls.update({
+            f'{case}_k1': (lambda f=eflat, k=ekinds, c=ecfg:
+                           fused_trace.trace_seq_fwd_cuda(
+                               f, k, rays, c, (), ext=True),
+                           'trace_seq_fwd_kernel'),
+            f'{case}_k2': (lambda f=eflat, k=ekinds, c=ecfg:
+                           fused_trace.trace_seq_bwd_cuda(
+                               f, k, rays, c, (None,) * 7, g_mom, maps=(),
+                               ext=True), 'trace_seq_bwd'),
+            f'{case}_k5': (lambda f=eflat, k=ekinds, c=necfg, b=nb:
+                           fused_nonseq.trace_nonseq_fwd_cuda(
+                               f, k, rays, c, b, (), ext=True),
+                           'trace_nonseq_fwd_kernel'),
+            f'{case}_k6': (lambda f=eflat, k=ekinds, c=necfg, b=nb:
+                           fused_nonseq.trace_nonseq_bwd_cuda(
+                               f, k, rays, c, b, (None,) * 7, g_mom,
+                               maps=(), ext=True),
+                           'trace_nonseq_bwd_kernel'),
+            f'{case}_simulate_fused': (lambda sc=sc, p=ep:
+                                       sc.simulate_fused(p, rays),
+                                       'trace_seq_fwd_kernel')})
+    cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
+                 fov_deg=45.0, width=cs.RENDER_SIZE[1],
+                 height=cs.RENDER_SIZE[0])
+    renderer = Renderer(nscene)
+    calls['render_1024x1024'] = (lambda: renderer.render_3d(nparams, cam),
+                                 None)
     out = {'n': n, 'reps': REPS}
     for name, (fn, key) in calls.items():
         out[name] = profile(torch, fn, key)

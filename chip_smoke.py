@@ -28,6 +28,21 @@ against the eager paths, and times the kernels, their plain versions, a
 library call where one computes the same function, and the end-to-end
 calls with CUDA events.
 
+Section 8 drives benchmarks/suite.py's mixed-surface scene (a cylindrical
+singlet, an inverted square stop, a singlet, a sensor) and asphere scene,
+sequential and as 12-bounce Scenes, through K1, K2, K5 and K6 in their
+instantiation with the extended kinds: each kernel against its plain
+version at 2,999 and 1M rays, then the counted forward (K1 or K5 once)
+and gradient paths (K1 + K2, K5 + K6) against spot-RMS anchors computed
+with the JAX package and against the eager gradients, the asphere design
+of tests/test_asphere.py (400 Adam steps on k1, K1 + K2 per step, under
+0.35x the first loss) and benchmarks/suite.py's render_1024x1024 on the
+naive and the mixed scene (timed; the image against the same renderer on
+the CPU); then it times the four kernels on both scenes against their
+plain versions and the three new entry points, with bounds and blocks per
+SM.  Every path of sections 4-7 also checks that it launched no
+instantiation with the extended kinds.
+
 The build phase prints each kernel's ptxas registers and spills, and the
 next K1's, K2's, K5's and K6's resident blocks per SM on their main paths'
 launches.  K4's scatter is checked on both of its paths: maps held in
@@ -63,6 +78,26 @@ N_LARGE = 16_000_000
 # the JAX package at 1M rays; the paraxial focal length is 20.513.
 SPOT_RMS_REF, SPOT_RMS_TOL = 0.1691, 0.002
 FOCAL_REF, FOCAL_TOL = 20.513, 1e-3
+# Anchors of benchmarks/suite.py's mixed-surface and asphere scenes: their
+# spot RMS by the JAX package at 1M rays, the mean over keys 0-3 (the same
+# as sequential scenes and as 12-bounce Scenes), each within 6 of its
+# standard deviations over those keys (0.00098, 0.000155): this run draws
+# its own rays.
+MIXED_RMS_REF, MIXED_RMS_TOL = 2.0362, 0.006
+ASPH_RMS_REF, ASPH_RMS_TOL = 0.66825, 0.001
+# The asphere design of tests/test_asphere.py:52-81 (the conic of the
+# reference's singlet, Adam on k1): its final loss under this share of the
+# first.
+ASPH_DESIGN_RAYS, ASPH_DESIGN_STEPS, ASPH_DESIGN_LR = 4000, 400, 0.02
+ASPH_DESIGN_SHARE = 0.35
+# The renderer (benchmarks/suite.py render_1024x1024): the card's image
+# against the same renderer on the CPU, each channel to RENDER_TOL, except
+# the pixels whose winning row flips under another rounding (a ray grazing
+# two rows' hits within an ulp, or a bound's rim): at most RENDER_FLIP_SHARE
+# of them.
+RENDER_SIZE = (1024, 1024)
+RENDER_TOL = 1e-5
+RENDER_FLIP_SHARE = 1e-3
 # Kernel vs plain: positions and directions to atol/rtol 1e-5 (f32 rounding
 # of a 5-surface chain; the kernel contracts multiply-adds, eager torch
 # does not), at most 10 rays per 1M whose hit flips at a bound's rim, and
@@ -380,14 +415,16 @@ def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
     return res
 
 
-def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False):
+def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False,
+                             ext=False):
     """Table cotangent [K, 160], kernel vs plain -> dict; raises on a
-    breach.  Outside GRAD_COLS (PLATE_GRAD_COLS with phase plates) both must
-    be exactly zero."""
-    offs = list(fused_trace.PLATE_GRAD_COLS if plates
-                else fused_trace.GRAD_COLS)
+    breach.  Outside GRAD_COLS (PLATE_GRAD_COLS with phase plates,
+    EXT_GRAD_COLS with the extended kinds) both must be exactly zero."""
+    offs = list(fused_trace.grad_cols(() if plates else None, ext))
+    # the asphere's a4..a10 span r^4..r^10: each column its own scale
     fields = (offs[0:5], offs[5:14], offs[14:17], offs[17:19]) + (
-        (offs[19:23],) if plates else ())
+        (offs[19:23],) if len(offs) > 19 else ()) + tuple(
+        [c] for c in offs[23:])
     worst = 0.0
     for cols in fields:
         scale = float(g_p[:, cols].abs().max())
@@ -465,6 +502,44 @@ def cavity_scene(rt):
     ], n_bounces=25)
 
 
+def mixed_scene(rt, n_bounces=None):
+    """benchmarks/suite.py's mixed-surface scene (11 rows): a cylindrical
+    singlet (two QUADRIC_ZY faces, four side planes), an inverted square
+    stop at z = 8 (RECT), a spherical singlet at z = 14 and a disk sensor at
+    z = 40; with ``n_bounces`` a Scene.  Rays: ``sample_rays``."""
+    els = [rt.CylSingletLens(c1=0.04, c2=-0.04, height=12.0, width=14.0,
+                             t=3.0, ior_glass=1.5, name='cyl'),
+           rt.RectangularAperture(half_x=5.0, half_y=5.0, invert=True,
+                                  translation=[0.0, 0.0, 8.0], name='stop'),
+           rt.SingletLens(c1=0.03, c2=-0.03, d=14.0, t=2.0, ior_glass=1.62,
+                          translation=[0.0, 0.0, 14.0], name='lens2'),
+           rt.SensorElement(radius=10.0, translation=[0.0, 0.0, 40.0],
+                            name='sensor')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def asphere_scene(rt, n_bounces=None):
+    """benchmarks/suite.py's asphere scene: an even-asphere singlet (k1 =
+    -0.6, a4 = 2.5e-4, a6 = 1e-6) and a disk sensor at z = 19; with
+    ``n_bounces`` a Scene.  Rays: ``sample_rays``."""
+    els = [rt.AsphericLens(c1=0.05, k1=-0.6, a1=[2.5e-4, 1e-6, 0.0, 0.0],
+                           c2=-0.02, d=10.0, t=3.0, ior_glass=1.5,
+                           name='asph'),
+           rt.SensorElement(radius=8.0, translation=[0.0, 0.0, 19.0],
+                            name='sensor')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+# The leaves each extended scene's gradient phases train (the issue's
+# choice: a cylindrical face and a spherical face; the conic and the
+# polynomial)
+EXT_TRAINED = {'mixed': (('cyl', 'c1'), ('lens2', 'c2')),
+               'asphere': (('asph', 'k1'), ('asph', 'a1'))}
+EXT_BOUNCES = 12
+
+
 def compare_k6(rt, torch, scene, rays, seed, chaotic=False):
     """K6 vs its plain version on ``scene`` with seeded cotangents of the
     rays, the moments and the grid, on the rays whose forward K5 and the
@@ -477,9 +552,12 @@ def compare_k6(rt, torch, scene, rays, seed, chaotic=False):
     flat = rt.flatten_table_rows(scene.build_table(scene.init_params(dev)))
     kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
                          device=dev)
-    out_k, _ = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, nb)
+    ext = fused_trace.ext_kinds(meta)
+    maps = fused_trace.plate_maps(meta, None)
+    out_k, _ = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, nb,
+                                                  maps, ext)
     out_p, _ = fused_nonseq.trace_nonseq_fused_plain(flat, rays, cfg, meta,
-                                                     nb)
+                                                     nb, maps)
     dpos = torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
                         for c in ('px', 'py', 'pz')]).amax(0)
     same = ((dpos <= NS_POS_TOL)
@@ -493,16 +571,19 @@ def compare_k6(rt, torch, scene, rays, seed, chaotic=False):
                      for f in rays.__dataclass_fields__})
     g_rays, g_mom, g_grid = random_cotangents(torch, n_sub, cfg, dev, seed)
     gt_k, gr_k = fused_nonseq.trace_nonseq_bwd_cuda(
-        flat, kinds, sub, cfg, nb, g_rays, g_mom, g_grid=g_grid)
+        flat, kinds, sub, cfg, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
+        ext=ext)[:2]
     gt_p, gr_p = fused_nonseq.trace_nonseq_bwd_plain(
-        flat, sub, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid)
+        flat, sub, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+        maps=maps)[:2]
     torch.cuda.synchronize()
     res = dict(forward_differ=n - n_sub)
     res.update(compare_ray_cotangents(
         torch, gr_k, gr_p, allowed=allowed,
         intensity_allowed=(math.ceil(GRID_SHARE * n_sub)
                            if cfg.grid_shape else 0)))
-    res.update(compare_table_cotangents(torch, fused_trace, gt_k, gt_p))
+    res.update(compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
+                                        maps is not None, ext))
     # the first row's curvature, q[0:3]: a mirror's c1 in the mirror scenes
     res['row0_curvature_cotangent'] = float(gt_k[0, :3].abs().sum())
     return res
@@ -549,7 +630,9 @@ def compare_nonseq(torch, out_k, s_k, out_p, s_p):
     check(n_bad <= allowed, f'{n_bad} rays differ (allowed {allowed})')
     check(bool((mom_err <= bound + 1e-6).all()),
           f'moments differ: {mk.tolist()} vs {mp.tolist()}')
-    res.update(compare_grid(torch, s_k.grid, s_p.grid, NS_GRID_TOTAL_RTOL))
+    if s_p.grid.numel():
+        res.update(compare_grid(torch, s_k.grid, s_p.grid,
+                                NS_GRID_TOTAL_RTOL))
     return res
 
 
@@ -675,7 +758,8 @@ def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
     """K2 (or K6 with ``nonseq``) on a scene with a plate against its plain
     version, with seeded cotangents of the rays, the moments and the grid:
     ray cotangents under BWD_TOL, the table under TAB_RTOL over
-    PLATE_GRAD_COLS, the maps per ``compare_maps`` -> dict."""
+    PLATE_GRAD_COLS (EXT_GRAD_COLS with the extended kinds), the maps per
+    ``compare_maps`` -> dict."""
     from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
     cfg, meta = scene.sensor_config(), scene.static_meta()
     dev = rays.px.device
@@ -684,18 +768,20 @@ def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
                          device=dev)
     maps = fused_trace.plate_maps(meta, scene.side_grids(params))
     maps = tuple(m.detach() for m in maps)
+    ext = fused_trace.ext_kinds(meta)
     g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, dev, seed)
     if nonseq:
         nb = scene.n_bounces
         gt_k, gr_k, gm_k = fused_nonseq.trace_nonseq_bwd_cuda(
             flat, kinds, rays, cfg, nb, g_rays, g_mom, g_grid=g_grid,
-            maps=maps)
+            maps=maps, ext=ext)
         gt_p, gr_p, gm_p = fused_nonseq.trace_nonseq_bwd_plain(
             flat, rays, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
             maps=maps)
     else:
         gt_k, gr_k, gm_k = fused_trace.trace_seq_bwd_cuda(
-            flat, kinds, rays, cfg, g_rays, g_mom, g_grid=g_grid, maps=maps)
+            flat, kinds, rays, cfg, g_rays, g_mom, g_grid=g_grid, maps=maps,
+            ext=ext)
         gt_p, gr_p, gm_p = fused_trace.trace_seq_bwd_plain(
             flat, rays, cfg, meta, g_rays, g_mom, g_grid=g_grid, maps=maps)
     torch.cuda.synchronize()
@@ -705,7 +791,7 @@ def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
         intensity_allowed=(math.ceil(GRID_SHARE * rays.n)
                            if cfg.grid_shape else 0))
     res.update(compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
-                                        plates=True))
+                                        plates=True, ext=ext))
     res.update(compare_maps(torch, gm_k, gm_p))
     return res
 
@@ -715,9 +801,18 @@ def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
 # and the normal, physics, update and sensor terms of a row that is
 # applied.  Each kernel's bound is the larger of its bytes over the HBM
 # rate and these operations over the float32 rate.
+# The extended kinds: an asphere row refines both roots (4 Halley steps of
+# ~83 operations and a last residual of ~75 each) and its normal takes ~30;
+# VB_RECT adds ~6 comparisons to a volume bound's, VB_CYL_EDGE two sags
+# and ~8 comparisons (~26).
+ASPH_REFINE_OPS = 2 * (4 * 83 + 75)
+EXT_VB_OPS = {3: 6, 4: 26}
+
+
 def intersect_ops(meta):
     return ((83 if meta.plane else 122) + (22 if meta.sb else 0)
-            + (22 if meta.vb else 0))
+            + (22 if meta.vb else 0) + EXT_VB_OPS.get(meta.vb, 0)
+            + (ASPH_REFINE_OPS if meta.asph else 0))
 
 
 def apply_ops(meta):
@@ -725,8 +820,8 @@ def apply_ops(meta):
     physics = {PhysKind.SNELL: 26, PhysKind.REFLECT: 13,
                PhysKind.APERTURE: 8,
                PhysKind.PHASE_GRID: 130}.get(meta.ph, 0)
-    return 7 + (0 if meta.plane else 34) + physics + (13 if meta.sensor
-                                                      else 0)
+    normal = 0 if meta.plane else 30 if meta.asph else 34
+    return 7 + normal + physics + (13 if meta.sensor else 0)
 
 
 def bound(n_bytes, n_ops):
@@ -830,6 +925,285 @@ def time_pair(torch, kernel_fn, plain_fn, reps=20, warmup=3):
     return statistics.median(k), statistics.median(p), k, p
 
 
+def extended_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 8: benchmarks/suite.py's mixed-surface and asphere scenes,
+    sequential and as 12-bounce Scenes, through K1, K2, K5 and K6 in their
+    instantiation with the extended kinds: each kernel against its plain
+    version at 2,999 and 1M rays; the counted forward and gradient paths
+    with the spot anchors and eager gradients; the asphere design of
+    tests/test_asphere.py:52-81 through ``simulate_fused``; the renderer at
+    1024 x 1024 on the naive and the mixed scene, timed and held to the
+    same renderer on the CPU; then the four kernels' times against their
+    plain versions, their bounds and their blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    from raytracetorch_tpu_torch.render.camera import Camera, Renderer
+    scenes = {'mixed': (mixed_scene, MIXED_RMS_REF, MIXED_RMS_TOL),
+              'asphere': (asphere_scene, ASPH_RMS_REF, ASPH_RMS_TOL)}
+
+    def inputs(make):
+        seq, ns = make(rt), make(rt, EXT_BOUNCES)
+        meta, cfg = seq.static_meta(), seq.sensor_config()
+        check(fused_trace.ext_kinds(meta), 'a scene without an extended kind')
+        flat = rt.flatten_table_rows(seq.build_table(seq.init_params(dev)))
+        kinds = torch.tensor(fused_trace.kind_rows(meta, cfg),
+                             dtype=torch.int32, device=dev)
+        return (seq, ns, flat, kinds, fused_trace.plate_maps(meta, None),
+                meta, cfg, ns.static_meta(), ns.sensor_config())
+
+    # 8a. each kernel against its plain version
+    kern = {}
+    for case, (make, _, _) in scenes.items():
+        seq, ns, flat, kinds, maps, meta, cfg, nmeta, ncfg = inputs(make)
+        for n in (N_SMALL, N_MAIN):
+            rays = sample_rays(rt, torch, n, dev, SEED + 101 + n)
+            out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays,
+                                                        cfg, maps, ext=True)
+            out_p, s_p = fused_trace.trace_sequential_fused_plain(
+                flat, rays, cfg, meta, maps)
+            torch.cuda.synchronize()
+            res = {'k1': compare(torch, out_k, s_k, out_p, s_p)}
+            g_rays, g_mom, _ = random_cotangents(torch, n, cfg, dev,
+                                                 SEED + 102 + n)
+            gt_k, gr_k, _ = fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=True)
+            gt_p, gr_p, _ = fused_trace.trace_seq_bwd_plain(
+                flat, rays, cfg, meta, g_rays, g_mom, maps=maps)
+            torch.cuda.synchronize()
+            res['k2'] = compare_ray_cotangents(torch, gr_k, gr_p)
+            res['k2'].update(compare_table_cotangents(
+                torch, fused_trace, gt_k, gt_p, plates=True, ext=True))
+            check(res['k2']['rows_with_grad'] >= 3,
+                  f'{case}: too few rows with a table cotangent')
+            out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, rays, ncfg, EXT_BOUNCES, maps, ext=True)
+            out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+                flat, rays, ncfg, nmeta, EXT_BOUNCES, maps)
+            torch.cuda.synchronize()
+            res['k5'] = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+            res['k6'] = compare_k6(rt, torch, ns, rays, SEED + 103 + n)
+            kern[f'{case}_{n}'] = res
+    emit('ext_kernels_vs_plain', **kern)
+
+    # 8b. the counted paths: forward (K1 or K5 once, with the extended
+    # kinds) against the spot anchor, and a gradient step (K1 + K2 or K5 +
+    # K6 once each) against the eager trace's gradients, in the leaves of
+    # EXT_TRAINED and the rays' px
+    paths = {}
+    rays = sample_rays(rt, torch, N_MAIN, dev, SEED)
+    for case, (make, ref, tol) in scenes.items():
+        seq, ns = make(rt), make(rt, EXT_BOUNCES)
+        for kind, sc, fwd, bwd in (
+                ('sequential', seq, 'trace_seq_fwd', 'trace_seq_bwd'),
+                ('scene', ns, 'trace_nonseq_fwd', 'trace_nonseq_bwd')):
+            params = sc.init_params(dev)
+            torch.cuda.synchronize()
+            reset_counters()
+            out, sens, _ = sc.simulate_fused(params, rays)
+            torch.cuda.synchronize()
+            fwd_launches = counters()
+            rms = float(sens.spot_rms(0)[0])
+            finite = all(bool(torch.isfinite(getattr(out, c)).all())
+                         for c in fused_trace.COMPS)
+
+            def grads(simulate, sc=sc):
+                p = sc.init_params(dev)
+                for el, k in EXT_TRAINED[case]:
+                    p[el][k].requires_grad_(True)
+                r = rays.replace(px=rays.px.clone().requires_grad_(True))
+                o, s_, _ = simulate(p, r)
+                (rt.spot_size_loss(s_) + (o.px * o.dx).mean()).backward()
+                return ([p[el][k].grad for el, k in EXT_TRAINED[case]],
+                        r.px.grad)
+
+            torch.cuda.synchronize()
+            reset_counters()
+            g_f, rg_f = grads(sc.simulate_fused)
+            torch.cuda.synchronize()
+            grad_launches = counters()
+            g_e, rg_e = grads(sc.simulate)
+            rel = [float(((a - b).abs() / b.abs()).max())
+                   for a, b in zip(g_f, g_e)]
+            zeros = torch.zeros_like(rays.px)
+            res = dict(
+                fwd_launches=fwd_launches, grad_launches=grad_launches,
+                spot_rms=rms, spot_rms_ref=ref, finite=finite,
+                shape=list(out.pos.shape), grad_fused=[
+                    g.tolist() for g in g_f],
+                grad_eager=[g.tolist() for g in g_e], rel_err=rel,
+                ray_grads=compare_ray_cotangents(
+                    torch, (rg_f,) + (zeros,) * 6, (rg_e,) + (zeros,) * 6,
+                    allowed=max(3, math.ceil(NS_MISMATCH_SHARE * N_MAIN))))
+            paths[f'{case}_{kind}'] = res
+            check(only(fwd_launches, **{fwd: 1, 'ext': 1}),
+                  f'{case} {kind}: the forward launched {fwd_launches}')
+            check(only(grad_launches, **{fwd: 1, bwd: 1, 'ext': 2}),
+                  f'{case} {kind}: the grad step launched {grad_launches}')
+            check(finite and res['shape'] == [N_MAIN, 3], 'bad ray output')
+            check(abs(rms - ref) < tol, f'{case} {kind}: spot rms {rms}')
+            check(max(rel) < GRAD_RTOL,
+                  f'{case} {kind}: fused vs eager gradients differ: {rel}')
+        check(abs(paths[f'{case}_scene']['spot_rms']
+                  - paths[f'{case}_sequential']['spot_rms'])
+              <= NS_SPOT_RTOL * paths[f'{case}_sequential']['spot_rms'],
+              f'{case}: the Scene and the sequential trace differ')
+    emit('ext_main', n=N_MAIN, **paths)
+
+    # 8c. the asphere design of tests/test_asphere.py:52-81 on the card:
+    # Adam on the conic of the reference's singlet through simulate_fused
+    dscene = rt.SequentialScene([rt.AsphericLens(
+        c1=0.0167, c2=-0.00283, d=25.4, t=4.0, ior_glass=1.5168,
+        k1_grad=True, name='lens')])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    drays = rt.CollimatedDisk.make(radius=8.0,
+                                   translation=[0.0, 0.0, -10.0]).sample(
+        gen, ASPH_DESIGN_RAYS, dev)
+    evals = [0]
+    base_loss = design_loss(torch, dscene, drays)
+
+    def loss(p):
+        evals[0] += 1
+        return base_loss(p)
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    d_opt, d_hist = rt.fit(loss, dscene.init_params(dev),
+                           trainable=dscene.trainable(),
+                           steps=ASPH_DESIGN_STEPS, lr=ASPH_DESIGN_LR)
+    torch.cuda.synchronize()
+    d_s = time.perf_counter() - t0
+    d_launches = counters()
+    l0, lf = float(d_hist[0]), float(d_hist[-1])
+    k1 = float(d_opt['lens']['k1'])
+    emit('asphere_design', n=ASPH_DESIGN_RAYS, steps=ASPH_DESIGN_STEPS,
+         evaluations=evals[0], launches=d_launches, seconds=d_s,
+         loss_start=l0, loss_end=lf, loss_share=lf / l0, k1=k1)
+    check(only(d_launches, trace_seq_fwd=evals[0], trace_seq_bwd=evals[0],
+               ext=2 * evals[0]),
+          f'{evals[0]} evaluations launched {d_launches}')
+    check(lf < ASPH_DESIGN_SHARE * l0,
+          f'asphere design: {l0} -> {lf} (not under {ASPH_DESIGN_SHARE})')
+    check(math.isfinite(k1) and k1 != 0.0, f'asphere design: k1 {k1}')
+
+    # 8d. the renderer, benchmarks/suite.py render_1024x1024: the naive
+    # scene and the mixed scene (its cylinder's edges), plain torch on the
+    # card, timed, and held to the same renderer on the CPU
+    cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
+                 fov_deg=45.0, width=RENDER_SIZE[1], height=RENDER_SIZE[0])
+    renders = {}
+    for case, sc in (('naive', naive_scene(rt)),
+                     ('mixed', mixed_scene(rt, EXT_BOUNCES))):
+        r = Renderer(sc)
+        p_dev = sc.init_params(dev)
+        torch.cuda.synchronize()
+        reset_counters()
+        img = r.render_3d(p_dev, cam)
+        torch.cuda.synchronize()
+        launched = counters()
+        runs = time_ms(torch, lambda: r.render_3d(p_dev, cam), 2, 10)
+        img_cpu = r.render_3d(sc.init_params('cpu'), cam)
+        diff = (img.cpu() - img_cpu).abs().amax(-1)
+        hit = ~(img_cpu == 1.0).all(-1)
+        res = dict(shape=list(img.shape), ms=statistics.median(runs),
+                   runs=runs, launches=launched,
+                   finite=bool(torch.isfinite(img).all()),
+                   hit_share=float(hit.float().mean()),
+                   pixels_differ_share=float((diff > RENDER_TOL).float()
+                                             .mean()),
+                   max_abs_err=float(diff.max()),
+                   max_abs_err_agreeing=float(
+                       diff[diff <= RENDER_TOL].max()))
+        renders[case] = res
+        check(res['shape'] == [*RENDER_SIZE, 3] and res['finite']
+              and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+              f'{case}: bad image')
+        check(only(launched), f'the renderer launched {launched}')
+        check(0.02 < res['hit_share'] < 0.98,
+              f'{case}: {res["hit_share"]} of the pixels hit geometry')
+        check(res['pixels_differ_share'] <= RENDER_FLIP_SHARE,
+              f'{case}: {res["pixels_differ_share"]} of the pixels differ '
+              f'from the CPU image')
+    emit('render', size=list(RENDER_SIZE), **renders)
+
+    # 8e. times at 1M rays against the plain versions, bounds (this run's
+    # work, section 6's method), blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    no_rays = (None,) * 7
+    g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    n = N_MAIN
+    for case, (make, _, _) in scenes.items():
+        seq, ns, flat, kinds, maps, meta, cfg, nmeta, ncfg = inputs(make)
+        rays = sample_rays(rt, torch, n, dev, SEED + 1)
+        pairs = {
+            'k1': (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, rays, cfg, maps, ext=True),
+                lambda: fused_trace.trace_sequential_fused_plain(
+                    flat, rays, cfg, meta, maps), 20, 3),
+            'k2': (lambda: fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, rays, cfg, no_rays, g_mom1, maps=maps,
+                ext=True),
+                lambda: fused_trace.trace_seq_bwd_plain(
+                    flat, rays, cfg, meta, no_rays, g_mom1, maps=maps),
+                20, 3),
+            'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, rays, ncfg, EXT_BOUNCES, maps, ext=True),
+                lambda: fused_nonseq.trace_nonseq_fused_plain(
+                    flat, rays, ncfg, nmeta, EXT_BOUNCES, maps), 4, 1),
+            'k6': (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                flat, kinds, rays, ncfg, EXT_BOUNCES, no_rays, g_mom1,
+                maps=maps, ext=True),
+                lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                    flat, rays, ncfg, nmeta, EXT_BOUNCES, no_rays, g_mom1,
+                    maps=maps), 4, 1)}
+        for key, (kfn, pfn, reps, warm) in pairs.items():
+            k_ms, p_ms, k_runs, p_runs = time_pair(torch, kfn, pfn, reps,
+                                                   warm)
+            timing[f'{case}_{key}'] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                                           kernel_runs=k_runs,
+                                           plain_runs=p_runs)
+        p = seq.init_params(dev)
+        p_grad = seq.init_params(dev)
+        for el, k in EXT_TRAINED[case]:
+            p_grad[el][k].requires_grad_(True)
+
+        def step(sc):
+            def run():
+                _, s_, _ = sc.simulate_fused(p_grad, rays)
+                rt.spot_size_loss(s_).backward()
+            return run
+        for key, fn in (('simulate_fused', lambda: seq.simulate_fused(p,
+                                                                       rays)),
+                        ('grad_step_fused', step(seq)),
+                        ('scene_simulate_fused', lambda: ns.simulate_fused(
+                            p, rays)),
+                        ('scene_grad_step_fused', step(ns))):
+            runs = time_ms(torch, fn)
+            timing[f'{case}_{key}_ms'] = statistics.median(runs)
+            timing[f'{case}_{key}_runs'] = runs
+        k1_ops = n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
+        scans, wins, lives = nonseq_work(rt, torch, ns, p, rays)
+        k5_ops, k6_ops = nonseq_ops(nmeta, scans, wins,
+                                    segment_replays(lives))
+        io = n * (32 + 28) + table_bytes(meta)
+        cols = len(fused_trace.EXT_GRAD_COLS) * 4 * len(meta)
+        bounds[case] = {k: dict(zip(('bound_ms', 'bound_by'), v)) for k, v in {
+            'k1': bound(io, k1_ops), 'k2': bound(io + cols, 3 * k1_ops),
+            'k5': bound(io, k5_ops), 'k6': bound(io + cols, k6_ops)}.items()}
+        bounds[case].update(k1_ops=k1_ops, k5_row_scans=scans,
+                            k5_winners_per_row=wins, k5_ops=k5_ops,
+                            k6_ops=k6_ops)
+        for lib, sc in (('trace_seq_fwd', seq), ('trace_seq_bwd', seq),
+                        ('trace_nonseq_fwd', ns), ('trace_nonseq_bwd', ns)):
+            occ[f'{lib}_{case}'] = fused_trace.blocks_per_sm(
+                lib, len(sc.static_meta()), sc.sensor_config(), True,
+                sc.n_bounces, ext=True)
+    emit('ext_timing', **timing)
+    emit('ext_bounds', n=n, **bounds)
+    emit('ext_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -850,7 +1224,7 @@ def main():
 
     def reset_counters():
         fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
-        fused_trace.V1_LAUNCHES = 0
+        fused_trace.V1_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -864,7 +1238,8 @@ def main():
                     grid_bin=grid.GRID_LAUNCHES,
                     grid_gather=grid.GATHER_LAUNCHES,
                     grid_corners=phase_grid.CORNER_LAUNCHES,
-                    grid_corners_bwd=phase_grid.CORNER_BWD_LAUNCHES)
+                    grid_corners_bwd=phase_grid.CORNER_BWD_LAUNCHES,
+                    ext=fused_trace.EXT_LAUNCHES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -1149,22 +1524,25 @@ def main():
     params = scene.init_params(dev)
     rays = sample_rays(rt, torch, N_MAIN, dev, SEED)
     torch.cuda.synchronize()
-    fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+    reset_counters()
     out, sens, _ = scene.simulate_fused(params, rays)
     torch.cuda.synchronize()
     launches = fused_trace.LAUNCHES
     bwd_launches_fwd = fused_trace.BWD_LAUNCHES
+    main_launches = counters()
     rms = float(sens.spot_rms(0)[0])
     cen = sens.centroid(0)[0].tolist()
     f = float(-1.0 / scene.paraxial(params)[1, 0])
     finite = all(bool(torch.isfinite(getattr(out, c)).all())
                  for c in ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity'))
     emit('main_path', launches=launches, bwd_launches=bwd_launches_fwd,
+         counters=main_launches,
          n=N_MAIN, spot_rms=rms, centroid=cen, focal_length=f,
          finite=finite, shape=list(out.pos.shape),
          hits=float(sens.moments[0, 0, 6]))
-    check(launches == 1 and bwd_launches_fwd == 0,
-          'simulate_fused did not launch K1 alone')
+    check(only(main_launches, trace_seq_fwd=1),
+          f'simulate_fused launched {main_launches}, not K1 alone without '
+          f'the extended kinds')
     check(finite and list(out.pos.shape) == [N_MAIN, 3], 'bad ray output')
     check(abs(rms - SPOT_RMS_REF) < SPOT_RMS_TOL, f'spot_rms {rms}')
     check(max(abs(c) for c in cen) < 1e-3, f'centroid {cen}')
@@ -1183,10 +1561,11 @@ def main():
                 float(loss.detach()))
 
     torch.cuda.synchronize()
-    fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+    reset_counters()
     g_fused, loss_fused = lens_grads(scene.simulate_fused)
     torch.cuda.synchronize()
     grad_launches = (fused_trace.LAUNCHES, fused_trace.BWD_LAUNCHES)
+    grad_counters = counters()
     g_eager, loss_eager = lens_grads(scene.simulate)
     rel = [abs(a - b) / abs(b) for a, b in zip(g_fused, g_eager)]
 
@@ -1213,8 +1592,10 @@ def main():
          grad_eager=g_eager, rel_err=rel, loss_fused=loss_fused,
          loss_eager=loss_eager, ray_grads=ray_res,
          ray_grad_norm=[float(g.norm()) for g in rg_fused])
-    check(grad_launches == (1, 1),
-          f'the grad step launched K1, K2 {grad_launches} times, not once')
+    check(grad_launches == (1, 1) and only(grad_counters, trace_seq_fwd=1,
+                                           trace_seq_bwd=1),
+          f'the grad step launched {grad_counters}, not K1 and K2 once '
+          f'each without the extended kinds')
     check(all(math.isfinite(g) for g in g_fused), 'non-finite grad')
     check(max(rel) < GRAD_RTOL, f'fused vs eager gradients differ: {rel}')
     check(all(float(g.abs().max()) > 0 for g in rg_fused),
@@ -1245,13 +1626,14 @@ def main():
         gen, N_MAIN, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+    reset_counters()
     p_opt, losses = rt.fit_lbfgs(design_loss(torch, dscene, drays), dparams,
                                  trainable=dscene.trainable(),
                                  steps=DESIGN_STEPS)
     torch.cuda.synchronize()
     design_s = time.perf_counter() - t0
     design_launches = (fused_trace.LAUNCHES, fused_trace.BWD_LAUNCHES)
+    design_ext = fused_trace.EXT_LAUNCHES
     # the first fit in a process pays a one-time cost: time a second run
     t0 = time.perf_counter()
     rt.fit_lbfgs(design_loss(torch, dscene, drays), dparams,
@@ -1269,7 +1651,9 @@ def main():
          c1=float(lens['c1']), c2=float(lens['c2']), c1_over_c2=ratio,
          focal_length=f_opt, t=float(lens['t']),
          ior_glass=float(lens['ior_glass']))
-    check(design_launches[1] > 0, 'the design loop did not launch K2')
+    check(design_launches[1] > 0 and design_ext == 0,
+          f'the design loop launched K2 {design_launches[1]} times, '
+          f'{design_ext} with the extended kinds')
     check(lf < 0.02 * l0, f'L-BFGS did not converge: {l0} -> {lf}')
     check(-7.5 < ratio < -4.5, f'c1/c2 {ratio}')
     check(95.0 < f_opt < 106.0, f'focal length {f_opt}')
@@ -1740,6 +2124,9 @@ def main():
     check(only(v1_launches, trace_seq_v1=1),
           f'trace_sequential_v1 launched {v1_launches}')
     check(v1_res['same_as_k1'], 'trace_sequential_v1 differs from K1')
+
+    # 8. the mixed-surface and asphere scenes, and the renderer
+    extended_phases(rt, torch, dev, reset_counters, counters, only)
 
     # 6. timing
     timing = {'card': card}

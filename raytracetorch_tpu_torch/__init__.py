@@ -25,7 +25,14 @@ Hopper.  The port covers:
   (ops/phase_grid.py), on its own in the eager trace and inside K1, K2, K5
   and K6;
 - ``trace_sequential_v1``, the fused trace with every stream off (the
-  counterpart of the first TPU kernel, run by K1's kernel).
+  counterpart of the first TPU kernel, run by K1's kernel);
+- the mixed-surface and asphere scenes: the ``CylSingletLens`` (faces
+  curved in y, side planes bounded by the faces' sags), the
+  ``RectangularAperture``, rectangular sensors and the even-asphere
+  ``AsphericLens``, eager and through K1, K2, K5 and K6, which take these
+  kinds in an instantiation of their own;
+- the single-bounce renderer (``render/camera.py``: ``Camera``,
+  ``OrbitCamera``, ``Renderer``), plain torch on either device.
 
 ROADMAP.md lists what is still to be ported.
 
@@ -45,12 +52,12 @@ from .core.static_dispatch import StaticRowMeta  # noqa: E402
 from .core.table import (SurfaceRec, SurfaceTable, flatten_table_rows,  # noqa: E402
                          stack_records)
 from .core.trace import trace_nonsequential, trace_sequential  # noqa: E402
-from .elements.aperture import CircularAperture  # noqa: E402
+from .elements.aperture import CircularAperture, RectangularAperture  # noqa: E402
 from .elements.base import Element  # noqa: E402
 from .elements.diffractive import PhaseGridPlate  # noqa: E402
 from .elements.ideal import (paraxial_dist_mat, paraxial_lens_mat,  # noqa: E402
                              paraxial_mirror_mat, paraxial_refract_mat)
-from .elements.lens import SingletLens  # noqa: E402
+from .elements.lens import AsphericLens, CylSingletLens, SingletLens  # noqa: E402
 from .elements.mirror import SphericalMirror  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402

@@ -2,8 +2,9 @@
 
 Counterpart of ``raytracetorch_tpu/core/intersect.py`` for the sequential
 trace (the row's kinds are static; the dense per-ray kind dispatch of the
-non-sequential trace is ROADMAP Queue 1 item 13).  Protocol: per-root
-surface-local bounds, the minimum positive root with the world-scale
+non-sequential trace is ROADMAP Queue 1 item 13).  Protocol: the quadric's
+roots (an even asphere's refined onto its sag), per-root surface-local
+bounds, the minimum positive root with the world-scale
 epsilon, then the element-volume bound on the chosen hit.
 """
 
@@ -13,7 +14,8 @@ import torch
 
 from ..constants import SOLVER_EPS, SBKind, VBKind
 from ..geom import vec3 as v3
-from ..geom.surfaces import min_positive, solve_roots, surface_normal
+from ..geom.surfaces import (asph_normal, asph_refine, min_positive,
+                             solve_roots, surface_normal)
 from .static_dispatch import TODO_FEATURES, sb_check_one, vb_check_one
 
 
@@ -25,9 +27,8 @@ def intersect(row, pos, direction, static_meta):
     (0 where invalid), ``valid``, the hit in the surface (``hit_s``) and
     element (``hit_e``) frames, and the ray in the surface frame
     (``o_s``, ``d_s``)."""
-    if static_meta.asph or static_meta.ff:
-        raise NotImplementedError(
-            f'aspheric/freeform surfaces are {TODO_FEATURES}')
+    if static_meta.ff:
+        raise NotImplementedError(f'freeform surfaces are {TODO_FEATURES}')
     o_s = v3.rot(v3.sub(pos, v3.from_array(row.tw)), row.Rw)
     d_s = v3.rot(direction, row.Rw)
 
@@ -41,6 +42,13 @@ def intersect(row, pos, direction, static_meta):
         t2, v2 = t1, v1
     else:
         (t1, v1), (t2, v2) = solve_roots(row.q, o_s, d_s)
+
+    if static_meta.asph:
+        # even asphere: refine both base-conic roots onto the sag before
+        # the surface bound
+        c, kc2, coeffs = _asph_coeffs(row)
+        t1, v1 = asph_refine(c, kc2, coeffs, o_s, d_s, t1, v1)
+        t2, v2 = asph_refine(c, kc2, coeffs, o_s, d_s, t2, v2)
 
     if static_meta.sb != SBKind.NONE:
         def sb(hit):
@@ -63,8 +71,16 @@ def intersect(row, pos, direction, static_meta):
                 d_s=d_s)
 
 
+def _asph_coeffs(row):
+    """(c, (1 + k) c^2, [a4, a6, a8, a10]) of an asphere row."""
+    c = row.q[..., 0]
+    return c, row.q[..., 2] * c, [row.asph[..., i] for i in range(4)]
+
+
 def normal_world(row, hit_s, static_meta):
     """World-frame unit normal at a surface-frame hit: n_local @ Rw.T."""
+    if static_meta.asph:
+        return v3.rot_t(asph_normal(*_asph_coeffs(row), hit_s), row.Rw)
     if static_meta.plane:
         # +z in the surface frame; n @ Rw.T = Rw[:, 2]
         return (row.Rw[..., 0, 2] + 0.0 * hit_s[0],

@@ -5,19 +5,23 @@ sequential trace every row's kinds are known before the trace runs
 (``StaticRowMeta``), so each step evaluates exactly one bound formula and
 one physics model.
 
-The port covers the kinds of the main path, of the ideal spherical mirror
-and of the pixelated phase plate: bounds NONE/DISK/RECT/HEMI/HEMI_APER and
-NONE/APER_R2/Z_BETWEEN, physics TRANSMIT, BLOCK, REFLECT (ideal mirror),
-SNELL, APERTURE and PHASE_GRID.  Every other kind raises
-NotImplementedError naming the ROADMAP item that brings it.
+The port covers the kinds of the main path, of the ideal spherical mirror,
+of the pixelated phase plate and of the mixed-surface and asphere scenes:
+surface bounds NONE/DISK/RECT/HEMI/HEMI_APER, volume bounds
+NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics TRANSMIT, BLOCK, REFLECT
+(ideal mirror), SNELL, APERTURE and PHASE_GRID, and even-asphere rows.
+Every other kind raises NotImplementedError naming the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..constants import INTERSECT_EPS, PhysKind, SBKind, VBKind
+from ..constants import (CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS, PhysKind,
+                         SBKind, VBKind)
 from ..geom import vec3 as v3
+from ..geom.surfaces import sag_z
 from .physics import phase_grid_dir, reflect_dir, snell_dir
 
 # ROADMAP.md "Queue 1" items that bring the rest of the feature matrix
@@ -54,8 +58,25 @@ def vb_check_one(kind: int, vb, hit):
         return x * x + y * y <= vb[..., 0]
     if kind == VBKind.Z_BETWEEN:
         return (z >= vb[..., 0]) & (z <= vb[..., 1])
+    if kind == VBKind.RECT:
+        # [xmin, xmax, ymin, ymax] with CYL_RECT_EPS of slack
+        return _in_rect(vb, 0, x, y)
+    if kind == VBKind.CYL_EDGE:
+        # [c1, z1, c2, z2, xmin, xmax, ymin, ymax]: inside the rectangle and
+        # between the y-dependent sags of a cylindrical lens's two faces
+        z_front = sag_z(vb[..., 0], y) + vb[..., 1]
+        z_back = sag_z(vb[..., 2], y) + vb[..., 3]
+        return (_in_rect(vb, 4, x, y) & (z >= z_front + CYL_EDGE_EPS)
+                & (z <= z_back - CYL_EDGE_EPS))
     raise NotImplementedError(
         f'volume bound {VBKind(kind).name} is {TODO_ELEMENTS}')
+
+
+def _in_rect(vb, i, x, y):
+    return ((x <= vb[..., i + 1] + CYL_RECT_EPS)
+            & (x >= vb[..., i] - CYL_RECT_EPS)
+            & (y <= vb[..., i + 3] + CYL_RECT_EPS)
+            & (y >= vb[..., i + 2] - CYL_RECT_EPS))
 
 
 class StaticRowMeta:
@@ -104,8 +125,8 @@ class StaticRowMeta:
 
 def unsupported(meta: StaticRowMeta):
     """Why the port cannot trace this row yet (None when it can)."""
-    if meta.asph or meta.ff:
-        return f'aspheric/freeform surfaces are {TODO_FEATURES}'
+    if meta.ff:
+        return f'freeform surfaces are {TODO_FEATURES}'
     if meta.disp:
         return f'dispersion is {TODO_FEATURES}'
     if meta.n_coat or meta.metal:
@@ -120,7 +141,8 @@ def unsupported(meta: StaticRowMeta):
     if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.RECT, SBKind.HEMI,
                        SBKind.HEMI_APER):
         return f'surface bound {SBKind(meta.sb).name} is {TODO_ELEMENTS}'
-    if meta.vb not in (VBKind.NONE, VBKind.APER_R2, VBKind.Z_BETWEEN):
+    if meta.vb not in (VBKind.NONE, VBKind.APER_R2, VBKind.Z_BETWEEN,
+                       VBKind.RECT, VBKind.CYL_EDGE):
         return f'volume bound {VBKind(meta.vb).name} is {TODO_ELEMENTS}'
     return None
 

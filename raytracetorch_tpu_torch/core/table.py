@@ -105,6 +105,8 @@ class SurfaceRec:
     vb: Sequence = ()
     ph_kind: int = PhysKind.TRANSMIT
     ph: Sequence = ()            # up to 6: ior_in, ior_out, ...
+    asph: Sequence = ()          # even-asphere a4..a10 (is_asphere marks use)
+    is_asphere: bool = False
     is_sensor: bool = False
     sensor_slot: int = 0
     is_plane: bool = False       # static: row is a z=0 plane (fast path)
@@ -152,7 +154,7 @@ def stack_records(recs, elem_ids, surf_ids, dtype=torch.float32,
                             device=device),
         ph_kind=ints(r.ph_kind for r in recs),
         ph=torch.stack([_pad_vec(r.ph, 6, dtype, device) for r in recs]),
-        asph=torch.zeros(k, 4, dtype=dtype, device=device),
+        asph=torch.stack([_pad_vec(r.asph, 4, dtype, device) for r in recs]),
         ff=torch.zeros(k, MAX_FF_TERMS, dtype=dtype, device=device),
         disp=torch.zeros(k, 12, dtype=dtype, device=device),
         coat=torch.zeros(k, 16, dtype=dtype, device=device),

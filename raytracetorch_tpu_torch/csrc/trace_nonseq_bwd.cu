@@ -7,8 +7,8 @@
 // the forward by the custom_vjp fused_nonseq_grad.  The two compute the same
 // vector-Jacobian product (tests/test_pallas.py::
 // test_nonseq_bwd_scan_matches_unrolled holds them equal), so this one kernel
-// is the counterpart of both, for K5's kinds (pixelated phase plates
-// included) with every other optional stream off.
+// is the counterpart of both, for K5's kinds (pixelated phase plates and the
+// extended kinds included) with every other optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -74,8 +74,11 @@
 //   sum over the warps writes a [blocks, K, 19] buffer that the wrapper sums
 //   and scatters into [K, 160].  No atomics: deterministic.
 //   The cotangent is nonzero only in K2's 19 columns (q, Rw, tw, ph), 23
-//   with phase plates.  A scene with neither a plate nor a RECT bound runs
-//   the instantiation without plate code (kPlates = false).
+//   with phase plates, 27 with the extended kinds (asph).  A scene with
+//   neither a plate nor a RECT bound runs the instantiation without plate
+//   code (kPlates = false); a scene with the extended kinds (the caller's
+//   `ext`) the one with plate code and kExt, whose replay is K5's of the
+//   same kinds (the scan over the flat rows) and whose adjoint is K2's.
 //
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
@@ -123,7 +126,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // One bounce of K5 (nonseq_bounce, the very function K5 runs).  Returns the
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
 // winner's branch bits.
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits) {
@@ -131,8 +134,8 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k =
-      nonseq_bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br);
+  const int k = nonseq_bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kw,
+                                             &degen, &br);
   if (k >= 0) bits = branch_bits(hw, degen, br) | kActive;
   return k;
 }
@@ -140,9 +143,9 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
 // Add the table cotangents tg of a warp's lanes into the warp's [K, 19 or
 // 23] slots: one reduction per distinct winner row k among the lanes (k < 0:
 // the lane applied no row).  Every lane of the warp calls it.
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 __device__ __forceinline__ void reduce_winners(int k, const float* tg, float* slots, int lane) {
-  constexpr int kCols = grad_cols<kPlates>();
+  constexpr int kCols = grad_cols<kPlates, kExt>();
   unsigned pending = __ballot_sync(kFull, k >= 0);
   while (pending != 0u) {
     const int row = __shfl_sync(kFull, k, __ffs(pending) - 1);
@@ -151,11 +154,11 @@ __device__ __forceinline__ void reduce_winners(int k, const float* tg, float* sl
     float m[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) m[c] = mine ? tg[c] : 0.0f;
-    reduce_row<kPlates>(m, slots + row * kCols, lane);
+    reduce_row<kPlates, kExt>(m, slots + row * kCols, lane);
   }
 }
 
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                         int n_rows, const float* __restrict__ px, const float* __restrict__ py,
@@ -175,10 +178,12 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
                         const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
                         const float* __restrict__ wavelength, float* __restrict__ gmaps,
                         int n_bounces, long long n) {
-  constexpr int kCols = grad_cols<kPlates>();
+  constexpr int kCols = grad_cols<kPlates, kExt>();
   extern __shared__ float4 smem4[];
+  // the packed scan records (none with kExt, whose scan reads the flat rows)
+  constexpr int kRecs = kExt ? 0 : kRec4;
   const float4* recs = smem4;
-  float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRec4);
+  float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRecs);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
   float* gm = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
@@ -186,7 +191,8 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
-  build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
+  if (!kExt)
+    build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
@@ -224,7 +230,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
     const V3 pb = p, db = d;
     const float ib = inten;
     uint32_t bits = 0;
-    const int k = bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+    const int k = bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -262,12 +268,13 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
       inten = i0;
       uint32_t bits = 0;
 #pragma unroll 1
-      for (int b = 0; b < s; ++b) bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+      for (int b = 0; b < s; ++b)
+        bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten;
-        const int k = bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+        const int k = bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
       }
     }
@@ -284,10 +291,11 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
 #pragma unroll
       for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
       if (act)
-        row_backward<kPlates>(tab + k * kRowWidth, read_row_kinds(knd + k * kKindWidth), sp, sd,
-                              si, word & 0xffffu, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi,
-                              tg);
-      if (partials != nullptr) reduce_winners<kPlates>(k, tg, slots, lane);
+        row_backward<kPlates, kExt>(tab + k * kRowWidth,
+                                    read_row_kinds<kExt>(knd + k * kKindWidth), sp, sd, si,
+                                    word & 0xffffu, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi,
+                                    tg);
+      if (partials != nullptr) reduce_winners<kPlates, kExt>(k, tg, slots, lane);
     }
   }
 
@@ -312,38 +320,39 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
 }
 
-// The dynamic shared memory of a launch: the packed scan records, the
-// table, its kinds, the moment cotangent, the warp slots and the
-// checkpoints.
-template <bool kPlates>
+// The dynamic shared memory of a launch: the packed scan records (not with
+// kExt), the table, its kinds, the moment cotangent, the warp slots and the
+// checkpoints.  Without the records the mixed-surface Scene's 11 rows and
+// 12 checkpoints fit two blocks an SM.
+template <bool kPlates, bool kExt>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces) {
   return sizeof(float) *
-         (static_cast<size_t>(n_rows) * (kRecWords + kRowWidth + kKindWidth) +
+         (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates>() +
+          static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates, kExt>() +
           static_cast<size_t>(checkpoints(n_bounces)) * kStateWords * kThreads);
 }
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_nonseq_bwd_kernel<kPlates>,
+  return cudaFuncSetAttribute(trace_nonseq_bwd_kernel<kPlates, kExt>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 int launch(long long blocks, cudaStream_t stream, const float* table, const int32_t* kinds,
            int n_rows, const float* const* rays, const int32_t* ray_id,
            const float* const* g_rays, const float* gmom, float* const* c_rays, float* partials,
            float* const* r_rays, int n_slots, int n_bundles, GridCt gg, const float* maps,
            const int32_t* map_desc, const float* wavelength, float* gmaps, int n_bounces,
            long long n) {
-  const size_t smem = shared_bytes<kPlates>(n_rows, n_slots, n_bundles, n_bounces);
-  const cudaError_t e = prepare<kPlates>(smem);
+  const size_t smem = shared_bytes<kPlates, kExt>(n_rows, n_slots, n_bundles, n_bounces);
+  const cudaError_t e = prepare<kPlates, kExt>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_nonseq_bwd_kernel<kPlates><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  trace_nonseq_bwd_kernel<kPlates, kExt><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
       ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6], gmom,
       c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6], partials,
@@ -365,7 +374,8 @@ int launch(long long blocks, cudaStream_t stream, const float* table, const int3
 // With phase plates, `maps`, `map_desc` and `wavelength` are K5's, the
 // partials hold 23 columns, and `gmaps` (laid out as `maps`, zeroed by the
 // caller, or null: not wanted) receives the maps' cotangent; with none all
-// four are null.
+// four are null.  `ext` as for rtt_trace_seq_fwd (the partials then hold 27
+// columns).
 extern "C" int rtt_trace_nonseq_bwd(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -375,12 +385,13 @@ extern "C" int rtt_trace_nonseq_bwd(
     float* cintensity, float* partials, float* rpx, float* rpy, float* rpz, float* rdx,
     float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
-    const float* wavelength, float* gmaps, int n_bounces, long long n, void* stream) {
+    const float* wavelength, float* gmaps, int ext, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (ext && maps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
@@ -389,29 +400,44 @@ extern "C" int rtt_trace_nonseq_bwd(
   float* r_rays[7] = {rpx, rpy, rpz, rdx, rdy, rdz, rintensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
+  if (ext)
+    return launch<true, true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                              c_rays, partials, r_rays, n_slots, n_bundles, gg, maps, map_desc,
+                              wavelength, gmaps, n_bounces, n);
   if (maps != nullptr)
-    return launch<true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
-                        partials, r_rays, n_slots, n_bundles, gg, maps, map_desc, wavelength,
-                        gmaps, n_bounces, n);
-  return launch<false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
-                       partials, r_rays, n_slots, n_bundles, gg, nullptr, nullptr, nullptr,
-                       nullptr, n_bounces, n);
+    return launch<true, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                               c_rays, partials, r_rays, n_slots, n_bundles, gg, maps, map_desc,
+                               wavelength, gmaps, n_bounces, n);
+  return launch<false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
+                              partials, r_rays, n_slots, n_bundles, gg, nullptr, nullptr, nullptr,
+                              nullptr, n_bounces, n);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without
+// plate code, 1 with it, 2 with it and the extended kinds.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                              int n_bounces, int plates, int* blocks) {
+                                              int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = plates ? shared_bytes<true>(n_rows, n_slots, n_bundles, n_bounces)
-                             : shared_bytes<false>(n_rows, n_slots, n_bundles, n_bounces);
-  const cudaError_t e = plates ? prepare<true>(smem) : prepare<false>(smem);
+  size_t smem;
+  cudaError_t e;
+  const void* fn;
+  if (code == 2) {
+    smem = shared_bytes<true, true>(n_rows, n_slots, n_bundles, n_bounces);
+    e = prepare<true, true>(smem);
+    fn = reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<true, true>);
+  } else if (code == 1) {
+    smem = shared_bytes<true, false>(n_rows, n_slots, n_bundles, n_bounces);
+    e = prepare<true, false>(smem);
+    fn = reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<true, false>);
+  } else {
+    smem = shared_bytes<false, false>(n_rows, n_slots, n_bundles, n_bounces);
+    e = prepare<false, false>(smem);
+    fn = reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<false, false>);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks,
-      plates ? reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<true>)
-             : reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<false>),
-      kThreads, smem));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
 }

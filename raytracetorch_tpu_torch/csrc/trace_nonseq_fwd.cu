@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::
 // _kernel_nonseq (launched by trace_nonseq_pallas, bounce body
-// _nonseq_bounce_core) for the main-path kinds and the ideal spherical
-// mirror (HEMI_APER bound) and pixelated phase plates, with every other
-// optional stream off: no random draws, field, opl, recording, fuzzy
-// apodization, GRIN or HALFSPACES rows.
+// _nonseq_bounce_core) for the main-path kinds, the ideal spherical mirror
+// (HEMI_APER bound), pixelated phase plates and the extended kinds of the
+// mixed-surface and asphere scenes, with every other optional stream off:
+// no random draws, field, opl, recording, fuzzy apodization, GRIN or
+// HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -66,7 +67,11 @@
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
 // bundles, any bounce budget >= 0.  It reads the wavelength only with a
 // plate; a scene with neither a plate nor a RECT bound runs the
-// instantiation without plate code (kPlates = false).
+// instantiation without plate code (kPlates = false).  A scene with the
+// extended kinds (the caller's `ext`) runs the instantiation with plate code
+// and kExt, whose scan reads the flat rows and their kinds rows instead of
+// the packed records (which hold neither an asphere's terms nor all 8 words
+// of a volume bound), and builds no records.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
@@ -86,25 +91,27 @@ namespace {
 // (the main path's, with and without plate code) are capped for
 // (__launch_bounds__): the most at which ptxas keeps them free of spills
 // and of a stack frame (PERF.md).  The bucket of 64 keeps its sums in a
-// local array: it stays uncapped.
+// local array: it stays uncapped, and so do the instantiations with the
+// extended kinds (77-80 registers, 3 blocks an SM).
 constexpr int kFwdMinBlocks = 5;
 
-template <int kMomBucket>
+template <int kMomBucket, bool kExt>
 __host__ __device__ constexpr int fwd_min_blocks() {
-  return kMomBucket == 1 ? kFwdMinBlocks : 1;
+  return kMomBucket == 1 && !kExt ? kFwdMinBlocks : 1;
 }
 
-// The dynamic shared memory of a launch: the packed scan records, the flat
-// table, its kinds, the per-warp moment partials and bucket 1's per-thread
-// moment sums.
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
-  return sizeof(float) * (static_cast<size_t>(n_rows) * (kRecWords + kRowWidth + kKindWidth) +
+// The dynamic shared memory of a launch: the packed scan records (not with
+// the extended kinds), the flat table, its kinds, the per-warp moment
+// partials and bucket 1's per-thread moment sums.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext) {
+  return sizeof(float) * (static_cast<size_t>(n_rows) *
+                              ((ext ? 0 : kRecWords) + kRowWidth + kKindWidth) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
                           static_cast<size_t>(kMoments) * kThreads);
 }
 
-template <int kMomBucket, bool kPlates>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket>())
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
 trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                         int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                         const float* __restrict__ pz, const float* __restrict__ dx,
@@ -118,15 +125,18 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
                         const int32_t* __restrict__ map_desc,
                         const float* __restrict__ wavelength, int n_bounces, long long n) {
   extern __shared__ float4 smem4[];
+  // the packed scan records (none with kExt, whose scan reads the flat rows)
+  constexpr int kRecs = kExt ? 0 : kRec4;
   const float4* recs = smem4;
-  float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRec4);
+  float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRecs);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
   float* warp_mom = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
-  build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
+  if (!kExt)
+    build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   __syncthreads();
@@ -165,7 +175,8 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
     const float w = inten;
     RowHit hw = {};
     RowKinds kd = {};
-    const int k_win = nonseq_bounce<kPlates>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kd);
+    const int k_win =
+        nonseq_bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kd);
     if (k_win < 0) break;
 
     // ---- a sensor winner records the incoming intensity at its hit ----
@@ -230,23 +241,23 @@ struct PlateArgs {
 };
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <int kMomBucket, bool kPlates>
+template <int kMomBucket, bool kPlates, bool kExt>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_nonseq_fwd_kernel<kMomBucket, kPlates>,
+  return cudaFuncSetAttribute(trace_nonseq_fwd_kernel<kMomBucket, kPlates, kExt>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <int kMomBucket, bool kPlates>
+template <int kMomBucket, bool kPlates, bool kExt>
 int launch(size_t smem, long long blocks, cudaStream_t stream, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            float* const* outs, float* partials, int n_slots, int n_bundles, float* grid,
            int grid_h, int grid_w, float grid_e, const PlateArgs& pa, int n_bounces,
            long long n) {
-  const cudaError_t e = prepare<kMomBucket, kPlates>(smem);
+  const cudaError_t e = prepare<kMomBucket, kPlates, kExt>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_nonseq_fwd_kernel<kMomBucket, kPlates>
+  trace_nonseq_fwd_kernel<kMomBucket, kPlates, kExt>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
           ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials,
@@ -255,19 +266,35 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const float* table,
                   const int32_t* kinds, int n_rows, const float* const* rays,
                   const int32_t* ray_id, float* const* outs, float* partials, int n_slots,
                   int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
                   const PlateArgs& pa, int n_bounces, long long n) {
   if (n_slots * n_bundles == 1)
-    return launch<1, kPlates>(smem, blocks, stream, table, kinds, n_rows, rays, ray_id, outs,
-                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
-                              n_bounces, n);
-  return launch<64, kPlates>(smem, blocks, stream, table, kinds, n_rows, rays, ray_id, outs,
-                             partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
-                             n_bounces, n);
+    return launch<1, kPlates, kExt>(smem, blocks, stream, table, kinds, n_rows, rays, ray_id,
+                                    outs, partials, n_slots, n_bundles, grid, grid_h, grid_w,
+                                    grid_e, pa, n_bounces, n);
+  return launch<64, kPlates, kExt>(smem, blocks, stream, table, kinds, n_rows, rays, ray_id,
+                                   outs, partials, n_slots, n_bundles, grid, grid_h, grid_w,
+                                   grid_e, pa, n_bounces, n);
+}
+
+// The instantiation of `code` (0 without plate code, 1 with it, 2 with it
+// and the extended kinds) and moment bucket, its shared memory allowed.
+template <int kMomBucket>
+const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 2) {
+    *e = prepare<kMomBucket, true, true>(smem);
+    return reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<kMomBucket, true, true>);
+  }
+  if (code == 1) {
+    *e = prepare<kMomBucket, true, false>(smem);
+    return reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<kMomBucket, true, false>);
+  }
+  *e = prepare<kMomBucket, false, false>(smem);
+  return reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<kMomBucket, false, false>);
 }
 
 }  // namespace
@@ -279,7 +306,8 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 // grid.  With phase plates, `maps` holds their maps one after the other,
 // `map_desc` (offset, h, w) per map, and `wavelength` the n rays'
 // wavelengths.  All three null selects the instantiation without plate code,
-// which the caller must not give a PHASE_GRID row or a RECT bound.
+// which the caller must not give a PHASE_GRID row or a RECT bound.  `ext`
+// as for rtt_trace_seq_fwd.
 extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, int n_rows,
                                     const float* px, const float* py, const float* pz,
                                     const float* dx, const float* dy, const float* dz,
@@ -288,45 +316,47 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
                                     float* ointensity, float* partials, int n_slots,
                                     int n_bundles, float* grid, int grid_h, int grid_w,
                                     float grid_e, const float* maps, const int32_t* map_desc,
-                                    const float* wavelength, int n_bounces, long long n,
-                                    void* stream) {
+                                    const float* wavelength, int ext, int n_bounces,
+                                    long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (ext && maps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, ext != 0);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PlateArgs pa = {maps, map_desc, wavelength};
+  if (ext)
+    return launch_bucket<true, true>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                                     partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                                     pa, n_bounces, n);
   if (maps != nullptr)
-    return launch_bucket<true>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
-                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
-                               PlateArgs{maps, map_desc, wavelength}, n_bounces, n);
-  return launch_bucket<false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
-                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
-                              PlateArgs{nullptr, nullptr, nullptr}, n_bounces, n);
+    return launch_bucket<true, false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                                      partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                                      pa, n_bounces, n);
+  return launch_bucket<false, false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                                     partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                                     PlateArgs{nullptr, nullptr, nullptr}, n_bounces, n);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs (the bounce budget does not change it), at its dynamic shared
 // memory, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// `code`: 0 without plate code, 1 with it, 2 with it and the extended kinds.
 // Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                              int n_bounces, int plates, int* blocks) {
+                                              int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
-  const bool one = n_slots * n_bundles == 1;
-  const void* fn =
-      plates ? (one ? reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<1, true>)
-                    : reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<64, true>))
-             : (one ? reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<1, false>)
-                    : reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<64, false>));
-  const cudaError_t e = plates ? (one ? prepare<1, true>(smem) : prepare<64, true>(smem))
-                               : (one ? prepare<1, false>(smem) : prepare<64, false>(smem));
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code == 2);
+  cudaError_t e;
+  const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
+                                            : kernel_of<64>(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));

@@ -27,14 +27,16 @@ namespace rtt {
 // Table columns with a nonzero cotangent, in the order of the partials
 // buffer (ops/fused_trace.py GRAD_COLS): q[0:5], Rw[0:9], tw[0:3], ph[0:2];
 // with phase plates (PLATE_GRAD_COLS) also ph[2:6]: the order, the design
-// wavelength and the half extents of a PHASE_GRID row.
+// wavelength and the half extents of a PHASE_GRID row; with the extended
+// kinds (EXT_GRAD_COLS) also asph[0:4], an even asphere's a4..a10.
 constexpr int kGradCols = 19;
 constexpr int kPlateGradCols = 23;
-constexpr int kGQ = 0, kGRw = 5, kGTw = 14, kGPh = 17;
+constexpr int kExtGradCols = 27;
+constexpr int kGQ = 0, kGRw = 5, kGTw = 14, kGPh = 17, kGAsph = 23;
 
-template <bool kPlates>
+template <bool kPlates, bool kExt = false>
 __host__ __device__ constexpr int grad_cols() {
-  return kPlates ? kPlateGradCols : kGradCols;
+  return kExt ? kExtGradCols : kPlates ? kPlateGradCols : kGradCols;
 }
 
 // Branch decisions of one row, saved by the forward replay.
@@ -114,13 +116,13 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
 
 // One row of K1's chain: updates (p, d, inten) where the row is active and
 // returns the row's bits.
-template <bool kPlates>
+template <bool kPlates, bool kExt = false>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
                                                 const Plates& pl, V3& p, V3& d, float& inten) {
-  const RowHit h = intersect_row<kPlates>(r, kd, p, d);
+  const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
   bool degen = false;
   const V3 nw = uses_normal(kd.ph) || (kPlates && kd.ph == PHASE_GRID)
-                    ? world_normal(r, kd.plane, h.hs, &degen)
+                    ? world_normal<kExt>(r, kd.plane, h.hs, &degen, kd.asph)
                     : V3{0.0f, 0.0f, 1.0f};
   PhysBranch br = {};
   V3 nd;
@@ -245,13 +247,197 @@ __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKin
     for (int j = 0; j < 3; ++j) tg[kGRw + 3 * i + j] += dv[i] * gdl[j];
 }
 
+// ---- Adjoints of an even asphere (kExt) ----
+//
+// Like autograd of the plain version (and jax.vjp of the TPU kernel's
+// chain), they differentiate the 4 unrolled Halley steps, the clamps
+// included, not the implicit function of the converged root: each step's
+// input is recomputed from the root it started at, then the steps are
+// reversed.  The cotangents of the asphere's c, (1 + k) c^2 and a4..a10 add
+// into AsphCt.
+
+struct AsphCt {
+  float c, kc2, a[4];
+};
+
+// Adjoint of one asph_step at ray parameter t: `lam`, the cotangent of the
+// step's result, adds the cotangents of o, d and of the asphere's terms
+// into g_o, g_d and ac; returns the cotangent of t.  Each line reverses the
+// line of asph_g or asph_step that it names.
+__device__ __forceinline__ float asph_step_backward(const Asph& s, V3 o, V3 d, float t,
+                                                    float lam, V3& g_o, V3& g_d, AsphCt& ac) {
+  // ---- the step's forward values ----
+  const float x = o.x + t * d.x, y = o.y + t * d.y;
+  const float r2 = x * x + y * y;
+  const float raw = 1.0f - s.kc2 * r2;
+  const float sq = sqrtf(fmaxf(raw, 0.0f) + 1e-24f);
+  const float den1 = 1.0f + sq;
+  const float r4 = r2 * r2, r6 = r4 * r2, r8 = r6 * r2;
+  const float W = 2.0f * sq * (den1 * den1);
+  const float inv = 1.0f / W;
+  const float dsq = -s.kc2 * (0.5f / sq);
+  const float P = 1.0f / sq + 2.0f / den1;
+  const float dinv = -P * inv * dsq;
+  const AsphG G = asph_g(s, o, d, t);
+  const float dsag = s.c / den1 + s.c * r2 * s.kc2 * inv + 2.0f * s.a[0] * r2 +
+                     3.0f * s.a[1] * r4 + 4.0f * s.a[2] * r6 + 5.0f * s.a[3] * r8;
+  const float d2sag = 2.0f * s.c * s.kc2 * inv + s.c * r2 * s.kc2 * dinv + 2.0f * s.a[0] +
+                      6.0f * s.a[1] * r2 + 12.0f * s.a[2] * r4 + 20.0f * s.a[3] * r6;
+  const float dr2 = 2.0f * (x * d.x + y * d.y);
+  const float d2r2 = 2.0f * (d.x * d.x + d.y * d.y);
+  const float denom = 2.0f * G.dg * G.dg - G.g * G.d2g;
+  const bool clamped = fabsf(denom) < 1e-12f;
+  const float den_c = clamped ? 1e-12f : denom;
+  const float num = 2.0f * G.g * G.dg;
+  // ---- t' = t - num / den_c, den_c = clamp(2 G'^2 - G G'') ----
+  const float g_num = -lam / den_c;
+  const float g_den = clamped ? 0.0f : lam * (num / den_c) / den_c;
+  float g_g = 2.0f * G.dg * g_num - G.d2g * g_den;
+  const float g_dg = 2.0f * G.g * g_num + 4.0f * G.dg * g_den;
+  const float g_u = G.g * g_den;  // the cotangent of -G''
+  // ---- G'' = -(S'' dr2^2 + S' d2r2), G' = d.z - S' dr2 ----
+  const float g_d2sag = g_u * dr2 * dr2;
+  const float g_dr2 = g_u * 2.0f * d2sag * dr2 - g_dg * dsag;
+  const float g_dsag = g_u * d2r2 - g_dg * dr2;
+  const float g_d2r2 = g_u * dsag;
+  g_d.z += g_dg;
+  // ---- d2r2 = 2 (dx^2 + dy^2), dr2 = 2 (x dx + y dy) ----
+  g_d.x += 4.0f * d.x * g_d2r2 + 2.0f * x * g_dr2;
+  g_d.y += 4.0f * d.y * g_d2r2 + 2.0f * y * g_dr2;
+  float g_x = 2.0f * d.x * g_dr2, g_y = 2.0f * d.y * g_dr2;
+  // ---- S'' = 2 c kc2 inv + c r2 kc2 dinv + 2 a4 + 6 a6 r2 + ... ----
+  float g_inv = g_d2sag * 2.0f * s.c * s.kc2;
+  const float g_dinv = g_d2sag * s.c * r2 * s.kc2;
+  ac.c += g_d2sag * (2.0f * s.kc2 * inv + r2 * s.kc2 * dinv);
+  ac.kc2 += g_d2sag * (2.0f * s.c * inv + s.c * r2 * dinv);
+  float g_r2 = g_d2sag * (s.c * s.kc2 * dinv + 6.0f * s.a[1] + 24.0f * s.a[2] * r2 +
+                          60.0f * s.a[3] * r4);
+  ac.a[0] += 2.0f * g_d2sag;
+  ac.a[1] += 6.0f * r2 * g_d2sag;
+  ac.a[2] += 12.0f * r4 * g_d2sag;
+  ac.a[3] += 20.0f * r6 * g_d2sag;
+  // ---- dinv = -P inv dsq, P = 1 / sq + 2 / den1 ----
+  const float g_P = -g_dinv * inv * dsq;
+  g_inv -= g_dinv * P * dsq;
+  const float g_dsq = -g_dinv * P * inv;
+  float g_sq = -g_P / (sq * sq) - 2.0f * g_P / (den1 * den1);
+  // ---- dsq = -kc2 (0.5 / sq) ----
+  ac.kc2 -= g_dsq * 0.5f / sq;
+  g_sq += g_dsq * s.kc2 * 0.5f / (sq * sq);
+  // ---- S' = c / den1 + c r2 kc2 inv + 2 a4 r2 + 3 a6 r4 + ... ----
+  ac.c += g_dsag * (1.0f / den1 + r2 * s.kc2 * inv);
+  g_sq -= g_dsag * s.c / (den1 * den1);
+  g_r2 += g_dsag * (s.c * s.kc2 * inv + 2.0f * s.a[0] + 6.0f * s.a[1] * r2 +
+                    12.0f * s.a[2] * r4 + 20.0f * s.a[3] * r6);
+  ac.kc2 += g_dsag * s.c * r2 * inv;
+  g_inv += g_dsag * s.c * r2 * s.kc2;
+  ac.a[0] += 2.0f * r2 * g_dsag;
+  ac.a[1] += 3.0f * r4 * g_dsag;
+  ac.a[2] += 4.0f * r6 * g_dsag;
+  ac.a[3] += 5.0f * r8 * g_dsag;
+  // ---- inv = 1 / W, W = 2 sq den1^2 ----
+  const float g_W = -g_inv * inv * inv;
+  g_sq += g_W * (2.0f * den1 * den1 + 4.0f * sq * den1);
+  // ---- G = z - S, S = c r2 / den1 + a4 r4 + a6 r6 + a8 r8 + a10 r10 ----
+  const float g_sag = -g_g;
+  ac.c += g_sag * r2 / den1;
+  g_r2 += g_sag * (s.c / den1 + 2.0f * s.a[0] * r2 + 3.0f * s.a[1] * r4 + 4.0f * s.a[2] * r6 +
+                   5.0f * s.a[3] * r8);
+  g_sq -= g_sag * s.c * r2 / (den1 * den1);
+  ac.a[0] += g_sag * r4;
+  ac.a[1] += g_sag * r6;
+  ac.a[2] += g_sag * r8;
+  ac.a[3] += g_sag * r8 * r2;
+  // ---- sq = sqrt(max(1 - kc2 r2, 0) + 1e-24) (torch.clamp: the bound
+  // itself passes) ----
+  const float g_raw = raw >= 0.0f ? g_sq / (2.0f * sq) : 0.0f;
+  ac.kc2 -= g_raw * r2;
+  g_r2 -= g_raw * s.kc2;
+  // ---- r2 = x^2 + y^2; x, y, z = o + t d ----
+  g_x += 2.0f * x * g_r2;
+  g_y += 2.0f * y * g_r2;
+  g_o.x += g_x;
+  g_o.y += g_y;
+  g_o.z += g_g;
+  g_d.x += g_x * t;
+  g_d.y += g_y * t;
+  g_d.z += g_g * t;
+  return lam + g_x * d.x + g_y * d.y + g_g * d.z;
+}
+
+// Adjoint of asph_refine from the base-conic root t0: `lam`, the cotangent
+// of the refined root, -> the cotangent of t0, adding those of o, d and the
+// asphere's terms.  Step i's input is recomputed from t0 by i steps, as the
+// forward computed it (6 steps more than keeping the 4 inputs, in exchange
+// for one copy of the step's adjoint in the code and no array of them).
+__device__ __forceinline__ float asph_refine_backward(const Asph& s, V3 o, V3 d, float t0,
+                                                      float lam, V3& g_o, V3& g_d, AsphCt& ac) {
+#pragma unroll 1
+  for (int i = kAsphSteps - 1; i >= 0; --i) {
+    float t = t0;
+#pragma unroll 1
+    for (int j = 0; j < i; ++j) t = asph_step(s, o, d, t);
+    lam = asph_step_backward(s, o, d, t, lam, g_o, g_d, ac);
+  }
+  return lam;
+}
+
+// Adjoint of asph_normal at surface-frame hit h: g_n, the normal's
+// cotangent, adds the cotangents of h.x, h.y (g_h) and of the asphere's
+// terms (ac).
+__device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n, V3& g_h,
+                                                     AsphCt& ac) {
+  const float x = h.x, y = h.y;
+  const float r2 = x * x + y * y;
+  const float raw = 1.0f - s.kc2 * r2;
+  const float sq = sqrtf(fmaxf(raw, 0.0f) + 1e-24f);
+  const float den1 = 1.0f + sq;
+  const float r4 = r2 * r2, r6 = r4 * r2, r8 = r6 * r2;
+  const float W = 2.0f * sq * (den1 * den1);
+  const float N = s.c * r2 * s.kc2;
+  const float dsag = asph_slope(s, r2);
+  const float gx = -2.0f * dsag * x, gy = -2.0f * dsag * y;
+  const float rS = sqrtf(gx * gx + gy * gy + 1.0f + 1e-24f);
+  const float inv = 1.0f / rS;
+  // ---- n = (gx, gy, 1) inv, inv = 1 / sqrt(gx^2 + gy^2 + 1 + 1e-24) ----
+  const float g_inv = g_n.x * gx + g_n.y * gy + g_n.z;
+  const float g_S = -g_inv * inv * inv / (2.0f * rS);
+  const float g_gx = g_n.x * inv + 2.0f * gx * g_S;
+  const float g_gy = g_n.y * inv + 2.0f * gy * g_S;
+  // ---- gx = -2 S' x, gy = -2 S' y ----
+  const float g_dsag = -2.0f * x * g_gx - 2.0f * y * g_gy;
+  float g_x = -2.0f * dsag * g_gx, g_y = -2.0f * dsag * g_gy;
+  // ---- S' = c / den1 + N / W + 2 a4 r2 + 3 a6 r4 + ..., N = c r2 kc2,
+  // W = 2 sq den1^2 ----
+  ac.c += g_dsag * (1.0f / den1 + r2 * s.kc2 / W);
+  float g_r2 = g_dsag * (s.c * s.kc2 / W + 2.0f * s.a[0] + 6.0f * s.a[1] * r2 +
+                         12.0f * s.a[2] * r4 + 20.0f * s.a[3] * r6);
+  ac.kc2 += g_dsag * s.c * r2 / W;
+  const float g_W = -g_dsag * (N / W) / W;
+  const float g_sq = g_W * (2.0f * den1 * den1 + 4.0f * sq * den1) - g_dsag * s.c / (den1 * den1);
+  ac.a[0] += 2.0f * r2 * g_dsag;
+  ac.a[1] += 3.0f * r4 * g_dsag;
+  ac.a[2] += 4.0f * r6 * g_dsag;
+  ac.a[3] += 5.0f * r8 * g_dsag;
+  // ---- sq = sqrt(max(1 - kc2 r2, 0) + 1e-24) ----
+  const float g_raw = raw >= 0.0f ? g_sq / (2.0f * sq) : 0.0f;
+  ac.kc2 -= g_raw * r2;
+  g_r2 -= g_raw * s.kc2;
+  g_x += 2.0f * x * g_r2;
+  g_y += 2.0f * y * g_r2;
+  g_h.x += g_x;
+  g_h.y += g_y;
+}
+
 // Adjoint of one row.  (p, d, inten) is the row's saved input state and
 // (gp, gd, gi) the cotangent of its output state, replaced by the cotangent
-// of its input state; tg[grad_cols<kPlates>()] receives the row's table
-// cotangent.  gm is the [S, B, 7] moment cotangent and gg the grid's; a
-// PHASE_GRID row (kPlates only) reads its map from pl and adds its corner
-// cotangents into gmaps (null: not wanted).
-template <bool kPlates>
+// of its input state; tg[grad_cols<kPlates, kExt>()] receives the row's
+// table cotangent.  gm is the [S, B, 7] moment cotangent and gg the grid's;
+// a PHASE_GRID row (kPlates only) reads its map from pl and adds its corner
+// cotangents into gmaps (null: not wanted).  An asphere row (kExt only)
+// refines its root and takes its normal as the forward did, and reverses
+// both (asph_refine_backward, asph_normal_backward).
+template <bool kPlates, bool kExt = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
@@ -289,7 +475,12 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
       t2 = (-B + sq) / (2.0f * A);
     }
   }
-  const float t = r1 ? t1 : t2;
+  const bool asph = kExt && kd.asph;
+  const Asph as = asph_of(q, r + kAsph);
+  AsphCt ac = {};
+  // an asphere's chosen root, refined as the forward refined it (both roots
+  // refine to the same t on a tie)
+  const float t = asph ? asph_steps(as, o, ds, r1 ? t1 : t2) : (r1 ? t1 : t2);
   const V3 hs = fma3(o, t, ds);
 
   const bool need_normal = uses_normal(kd.ph);
@@ -299,6 +490,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   if (need_normal) {
     if (kd.plane) {
       nw = {Rw[2], Rw[5], Rw[8]};
+    } else if (asph) {
+      nl = asph_normal(as, hs);
+      nw = rot_t(nl, Rw);
     } else {
       gv = {2.0f * q[0] * hs.x, 2.0f * q[1] * hs.y, 2.0f * q[2] * hs.z + q[3]};
       if (!degen) {
@@ -403,7 +597,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
       for (int i = 0; i < 3; ++i)
 #pragma unroll
         for (int j = 0; j < 3; ++j) tg[kGRw + 3 * i + j] += gnw[i] * nlv[j];
-      if (!degen) {
+      if (asph) {
+        asph_normal_backward(as, hs, g_nl, g_hs, ac);
+      } else if (!degen) {
         // nl = gv * inv, inv = sign / (sqrt(|gv|^2) + NORMAL_EPS)
         const float g_inv = dot3(g_nl, gv);
         const float g_den = -(g_inv * inv / den);
@@ -432,8 +628,13 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     g_ds.z += -2.0f * g_B;
   } else {
     // a tie (both roots minimal) splits the cotangent as torch.minimum does
-    const float g_t1 = r1 ? (r2 ? 0.5f * g_t : g_t) : 0.0f;
-    const float g_t2 = r2 ? (r1 ? 0.5f * g_t : g_t) : 0.0f;
+    float g_t1 = r1 ? (r2 ? 0.5f * g_t : g_t) : 0.0f;
+    float g_t2 = r2 ? (r1 ? 0.5f * g_t : g_t) : 0.0f;
+    if (asph) {
+      // through the Halley steps back to the base conic's roots t1, t2
+      if (r1) g_t1 = asph_refine_backward(as, o, ds, t1, g_t1, g_o, g_ds, ac);
+      if (r2) g_t2 = asph_refine_backward(as, o, ds, t2, g_t2, g_o, g_ds, ac);
+    }
     float g_A = 0.0f, g_B, g_C = 0.0f;
     if (linear) {
       // t = -C / B
@@ -462,6 +663,13 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     g_o.x += 2.0f * q[0] * (g_B * ds.x + g_C * o.x);
     g_o.y += 2.0f * q[1] * (g_B * ds.y + g_C * o.y);
     g_o.z += 2.0f * q[2] * (g_B * ds.z + g_C * o.z) + g_C * q[3];
+  }
+  if (asph) {
+    // c = q[0] and kc2 = q[2] q[0]; a4..a10 = asph[0:4]
+    tg[kGQ + 0] += ac.c + ac.kc2 * q[2];
+    tg[kGQ + 2] += ac.kc2 * q[0];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tg[kGAsph + j] += ac.a[j];
   }
 
   // ---- world -> surface frame: o = (p - tw) @ Rw, ds = d @ Rw ----
@@ -505,9 +713,9 @@ __device__ __forceinline__ void transpose_step(float* a, int lane) {
 // sum follows the tree of a warp sum (lane ^ 16 first, then ^ 8, ...), so
 // every column's sum is the one a per-column warp sum gives, bit for bit.
 // Lane c then adds it into slot[c]: one store per lane, adjacent words.
-template <bool kPlates>
+template <bool kPlates, bool kExt = false>
 __device__ __forceinline__ void reduce_row(const float* tg, float* slot, int lane) {
-  constexpr int kCols = grad_cols<kPlates>();
+  constexpr int kCols = grad_cols<kPlates, kExt>();
   static_assert(kCols <= 32, "a warp holds at most 32 columns");
   float a[32];
 #pragma unroll

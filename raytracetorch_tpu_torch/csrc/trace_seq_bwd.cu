@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::
 // _kernel_v2_bwd (launched by trace_sequential_pallas_v2_bwd, joined to the
-// forward by the custom_vjp fused_trace_grad) for the main-path kinds and
-// pixelated phase plates, with every other optional stream off.  Its plain
+// forward by the custom_vjp fused_trace_grad) for the main-path kinds,
+// pixelated phase plates and the extended kinds of the mixed-surface and
+// asphere scenes, with every other optional stream off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_bwd_cuda.
@@ -66,6 +67,10 @@
 //   that the TPU kernel takes with jax.vjp of its one-hot matmuls.  Float
 //   atomics add in a run-dependent order.  With no plate and no RECT bound
 //   the kernel is instantiated without plate code (kPlates = false).
+// - The extended kinds (kExt, with plate code; the caller's `ext`): an even
+//   asphere's row reverses its normal and its 4 Halley steps, recomputed
+//   from the saved state (trace_seq_adjoint.cuh), and its table cotangent
+//   adds asph[0:4]: 27 columns.  The saved state stays 8 words a row.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -106,7 +111,7 @@ namespace {
 constexpr int kSharedRows = 8;
 constexpr int kMaxRows = 64;
 
-template <bool kShared, bool kPlates>
+template <bool kShared, bool kPlates, bool kExt>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                      int n_rows, const float* __restrict__ px, const float* __restrict__ py,
@@ -124,7 +129,7 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
                      const int32_t* __restrict__ map_desc,
                      const float* __restrict__ wavelength, float* __restrict__ gmaps,
                      long long n) {
-  constexpr int kCols = grad_cols<kPlates>();
+  constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kStride = kShared ? kThreads : 1;
   extern __shared__ float smem[];
   float* tab = smem;
@@ -164,9 +169,8 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   for (int k = 0; k < n_rows; ++k) {
     const V3 p0 = p, d0 = d;
     const float i0 = inten;
-    const uint32_t bits = row_forward<kPlates>(tab + k * kRowWidth,
-                                               read_row_kinds(knd + k * kKindWidth), pl, p, d,
-                                               inten);
+    const uint32_t bits = row_forward<kPlates, kExt>(
+        tab + k * kRowWidth, read_row_kinds<kExt>(knd + k * kKindWidth), pl, p, d, inten);
     put_state<kStride>(saved + k * kStateWords * kStride, p0, d0, i0, bits);
   }
 
@@ -180,7 +184,7 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   }
 #pragma unroll 1
   for (int k = n_rows - 1; k >= 0; --k) {
-    const RowKinds kd = read_row_kinds(knd + k * kKindWidth);
+    const RowKinds kd = read_row_kinds<kExt>(knd + k * kKindWidth);
     V3 sp, sd;
     float si;
     uint32_t bits;
@@ -188,10 +192,10 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     float tg[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
-    row_backward<kPlates>(tab + k * kRowWidth, kd, sp, sd, si, bits, rid, gm, n_bundles, gg,
-                          pl, gmaps, gp, gd, gi, tg);
+    row_backward<kPlates, kExt>(tab + k * kRowWidth, kd, sp, sd, si, bits, rid, gm, n_bundles,
+                                gg, pl, gmaps, gp, gd, gi, tg);
     if (partials != nullptr && __any_sync(0xffffffffu, bits & kActive))
-      reduce_row<kPlates>(tg, warp_tab + (warp * n_rows + k) * kCols, lane);
+      reduce_row<kPlates, kExt>(tg, warp_tab + (warp * n_rows + k) * kCols, lane);
   }
 
   if (live && cpx != nullptr) {
@@ -227,41 +231,41 @@ struct PlateArgs {
 // The dynamic shared memory of a launch: the table, its kinds, the moment
 // cotangent, the warp slots and, for tables of up to kSharedRows rows, the
 // saved states.
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
   const size_t rows = static_cast<size_t>(n_rows);
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          static_cast<size_t>(kWarps) * rows * grad_cols<kPlates>() +
+          static_cast<size_t>(kWarps) * rows * grad_cols<kPlates, kExt>() +
           (n_rows <= kSharedRows ? rows * kStateWords * kThreads : 0));
 }
 
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
-template <bool kShared, bool kPlates>
+template <bool kShared, bool kPlates, bool kExt>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = reinterpret_cast<const void*>(trace_seq_bwd_kernel<kShared, kPlates>);
+  *fn = reinterpret_cast<const void*>(trace_seq_bwd_kernel<kShared, kPlates, kExt>);
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_seq_bwd_kernel<kShared, kPlates>,
+  return cudaFuncSetAttribute(trace_seq_bwd_kernel<kShared, kPlates, kExt>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
-  return n_rows <= kSharedRows ? prepare<true, kPlates>(smem, fn)
-                               : prepare<false, kPlates>(smem, fn);
+  return n_rows <= kSharedRows ? prepare<true, kPlates, kExt>(smem, fn)
+                               : prepare<false, kPlates, kExt>(smem, fn);
 }
 
-template <bool kShared, bool kPlates>
+template <bool kShared, bool kPlates, bool kExt>
 int launch(long long blocks, cudaStream_t stream, size_t smem, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            const float* const* g_rays, const float* gmom, float* const* c_rays, float* partials,
            int n_slots, int n_bundles, GridCt gg, const PlateArgs& pa, long long n) {
   const void* fn;
-  const cudaError_t e = prepare<kShared, kPlates>(smem, &fn);
+  const cudaError_t e = prepare<kShared, kPlates, kExt>(smem, &fn);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_seq_bwd_kernel<kShared, kPlates>
+  trace_seq_bwd_kernel<kShared, kPlates, kExt>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
           ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6],
@@ -270,18 +274,20 @@ int launch(long long blocks, cudaStream_t stream, size_t smem, const float* tabl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 int launch_rows(long long blocks, cudaStream_t stream, const float* table, const int32_t* kinds,
                 int n_rows, const float* const* rays, const int32_t* ray_id,
                 const float* const* g_rays, const float* gmom, float* const* c_rays,
                 float* partials, int n_slots, int n_bundles, GridCt gg, const PlateArgs& pa,
                 long long n) {
-  const size_t smem = shared_bytes<kPlates>(n_rows, n_slots, n_bundles);
+  const size_t smem = shared_bytes<kPlates, kExt>(n_rows, n_slots, n_bundles);
   if (n_rows <= kSharedRows)
-    return launch<true, kPlates>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
-                                 g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg, pa, n);
-  return launch<false, kPlates>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
-                                g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg, pa, n);
+    return launch<true, kPlates, kExt>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
+                                       g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg,
+                                       pa, n);
+  return launch<false, kPlates, kExt>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
+                                      g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg, pa,
+                                      n);
 }
 
 }  // namespace
@@ -290,12 +296,14 @@ int launch_rows(long long blocks, cudaStream_t stream, const float* table, const
 // The caller owns every buffer.  Each of the 7 output-ray cotangents
 // g* may be null (a zero cotangent); the 7 input-ray cotangents c* are all
 // given or all null (not wanted), and so is the partials buffer of
-// ceil(n / 256) * n_rows * 19 floats (the table cotangent; 23 with plates).
+// ceil(n / 256) * n_rows * 19 floats (the table cotangent; 23 with plates,
+// 27 with the extended kinds).
 // gmom holds n_slots * n_bundles * 7 floats; ggrid, the grid's cotangent,
 // holds n_slots * grid_h * grid_w floats over [-grid_e, grid_e]^2, or is
 // null.  With phase plates, `maps`, `map_desc` and `wavelength` are K1's,
 // and `gmaps` (laid out as `maps`, zeroed by the caller, or null: not
-// wanted) receives the maps' cotangent; with none all four are null.
+// wanted) receives the maps' cotangent; with none all four are null.  `ext`
+// as for rtt_trace_seq_fwd.
 extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n_rows,
                                  const float* px, const float* py, const float* pz,
                                  const float* dx, const float* dy, const float* dz,
@@ -307,12 +315,13 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
                                  float* cintensity, float* partials, int n_slots, int n_bundles,
                                  const float* ggrid, int grid_h, int grid_w, float grid_e,
                                  const float* maps, const int32_t* map_desc,
-                                 const float* wavelength, float* gmaps, long long n,
+                                 const float* wavelength, float* gmaps, int ext, long long n,
                                  void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (ext && maps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
@@ -320,27 +329,33 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
   float* c_rays[7] = {cpx, cpy, cpz, cdx, cdy, cdz, cintensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
+  const PlateArgs pa = {maps, map_desc, wavelength, gmaps};
+  if (ext)
+    return launch_rows<true, true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                                   c_rays, partials, n_slots, n_bundles, gg, pa, n);
   if (maps != nullptr)
-    return launch_rows<true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
-                             partials, n_slots, n_bundles, gg,
-                             PlateArgs{maps, map_desc, wavelength, gmaps}, n);
-  return launch_rows<false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
-                            partials, n_slots, n_bundles, gg,
-                            PlateArgs{nullptr, nullptr, nullptr, nullptr}, n);
+    return launch_rows<true, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                                    c_rays, partials, n_slots, n_bundles, gg, pa, n);
+  return launch_rows<false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                                   c_rays, partials, n_slots, n_bundles, gg,
+                                   PlateArgs{nullptr, nullptr, nullptr, nullptr}, n);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
-// (n_bounces is K6's; K2 has none.)
+// (n_bounces is K6's; K2 has none.)  `code`: 0 without plate code, 1 with
+// it, 2 with it and the extended kinds.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                           int /*n_bounces*/, int plates, int* blocks) {
+                                           int /*n_bounces*/, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = plates ? shared_bytes<true>(n_rows, n_slots, n_bundles)
-                             : shared_bytes<false>(n_rows, n_slots, n_bundles);
+  const size_t smem = code == 2   ? shared_bytes<true, true>(n_rows, n_slots, n_bundles)
+                      : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles)
+                                  : shared_bytes<false, false>(n_rows, n_slots, n_bundles);
   const void* fn;
-  const cudaError_t e = plates ? prepare_rows<true>(n_rows, smem, &fn)
-                               : prepare_rows<false>(n_rows, smem, &fn);
+  const cudaError_t e = code == 2   ? prepare_rows<true, true>(n_rows, smem, &fn)
+                        : code == 1 ? prepare_rows<true, false>(n_rows, smem, &fn)
+                                    : prepare_rows<false, false>(n_rows, smem, &fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));

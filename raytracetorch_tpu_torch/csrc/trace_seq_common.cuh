@@ -12,6 +12,14 @@
 // meet such a row, or a RECT bound, take a compile-time kPlates: a kernel
 // instantiated with kPlates = false (a scene with neither) has no plate code
 // at all, so it runs the instructions it ran before plates existed.
+//
+// The kinds of the mixed-surface and asphere scenes, the "extended kinds"
+// (the rectangular volume bound VB_RECT, a cylindrical lens's edge bound
+// VB_CYL_EDGE, and even aspheres, whose base-conic roots are refined onto
+// the sag by Halley steps and whose normal is the sag's), take a second
+// compile-time flag, kExt, set only in an instantiation that also has plate
+// code.  The instantiations with kExt = false hold none of that code: a
+// scene without those kinds runs the instructions it ran before.
 
 #pragma once
 
@@ -31,12 +39,15 @@ constexpr int kMoments = 7;
 
 // Offsets of the float columns in a flat row (core/table.py ROW_FIELDS).
 constexpr int kQ = 0, kNSign = 5, kRw = 6, kTw = 15, kRs = 18, kTs = 27;
-constexpr int kSb = 30, kVb = 34, kPh = 42;
+constexpr int kSb = 30, kVb = 34, kPh = 42, kAsph = 48;
 
 // Columns of a kinds row (ops/fused_trace.py::kind_rows).
 constexpr int kPhCol = 0, kSbCol = 1, kVbCol = 2, kPlaneCol = 3;
 constexpr int kSensorCol = 4, kSlotCol = 5, kInvertCol = 6;
 constexpr int kMapCol = 7;  // a PHASE_GRID row's map (plate) index
+// The surface column (kPlaneCol): the quadric solver, the plane fast path,
+// or (kExt only) the quadric's roots refined onto an even asphere.
+constexpr int kSurfPlane = 1, kSurfAsph = 2;
 
 // constants.py and geom/surfaces.py
 constexpr float kBig = 1e30f;
@@ -44,10 +55,12 @@ constexpr float kIntersectEps = 1e-6f;
 constexpr float kSolverEps = 1e-6f;
 constexpr float kNormalEps = 1e-8f;
 constexpr float kRelEps = 1e-5f;
+constexpr float kCylRectEps = 1e-5f;
+constexpr float kCylEdgeEps = 1e-4f;
 
 enum PhysKind { TRANSMIT = 0, BLOCK = 1, REFLECT = 2, SNELL = 3, APERTURE = 6, PHASE_GRID = 15 };
 enum SBKind { SB_NONE = 0, SB_DISK = 1, SB_RECT = 2, SB_HEMI = 4, SB_HEMI_APER = 5 };
-enum VBKind { VB_NONE = 0, VB_APER_R2 = 1, VB_Z_BETWEEN = 2 };
+enum VBKind { VB_NONE = 0, VB_APER_R2 = 1, VB_Z_BETWEEN = 2, VB_RECT = 3, VB_CYL_EDGE = 4 };
 
 struct V3 {
   float x, y, z;
@@ -113,10 +126,34 @@ __device__ __forceinline__ bool sb_check(int kind, const S& sb, V3 h) {
   return k;
 }
 
+// Sag of a curvature-c surface at radius r (geom/surfaces.py::sag_z).
+__device__ __forceinline__ float sag_z(float c, float r) {
+  const float r2 = r * r;
+  const float term = fmaxf(1.0f - c * c * r2, 0.0f);
+  return (c * r2) / (1.0f + sqrtf(term + 1e-24f));
+}
+
+// Inside the rectangle [v[0], v[1]] x [v[2], v[3]] with kCylRectEps slack.
 template <class S>
+__device__ __forceinline__ bool in_rect(const S& v, int i, float x, float y) {
+  return x <= v[i + 1] + kCylRectEps && x >= v[i] - kCylRectEps && y <= v[i + 3] + kCylRectEps &&
+         y >= v[i + 2] - kCylRectEps;
+}
+
+// The volume bound of an element-frame hit h (core/static_dispatch.py::
+// vb_check_one).  VB_RECT and VB_CYL_EDGE are the extended kinds' (kExt).
+template <bool kExt, class S>
 __device__ __forceinline__ bool vb_check(int kind, const S& vb, V3 h) {
   if (kind == VB_APER_R2) return h.x * h.x + h.y * h.y <= vb[0];
   if (kind == VB_Z_BETWEEN) return h.z >= vb[0] && h.z <= vb[1];
+  if constexpr (kExt) {
+    if (kind == VB_RECT) return in_rect(vb, 0, h.x, h.y);
+    if (kind == VB_CYL_EDGE)
+      // [c1, z1, c2, z2, xmin, xmax, ymin, ymax]: between the y-dependent
+      // sags of a cylindrical lens's faces
+      return in_rect(vb, 4, h.x, h.y) && h.z >= sag_z(vb[0], h.y) + vb[1] + kCylEdgeEps &&
+             h.z <= sag_z(vb[2], h.y) + vb[3] - kCylEdgeEps;
+  }
   return true;
 }
 
@@ -129,12 +166,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The kinds of one table row, read from its int32 kinds row.
 struct RowKinds {
   int ph, sb, vb, slot, map;
-  bool plane, sensor, invert;
+  bool plane, sensor, invert, asph;
 };
 
+// The row's kinds; without kExt the surface column is 0 or 1 and asph is
+// false.
+template <bool kExt = false>
 __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
-  return {kd[kPhCol], kd[kSbCol], kd[kVbCol], kd[kSlotCol], kd[kMapCol], kd[kPlaneCol] != 0,
-          kd[kSensorCol] != 0, kd[kInvertCol] != 0};
+  return {kd[kPhCol],
+          kd[kSbCol],
+          kd[kVbCol],
+          kd[kSlotCol],
+          kd[kMapCol],
+          kExt ? kd[kPlaneCol] == kSurfPlane : kd[kPlaneCol] != 0,
+          kd[kSensorCol] != 0,
+          kd[kInvertCol] != 0,
+          kExt && kd[kPlaneCol] == kSurfAsph};
 }
 
 // ---- The packed scan record (K5's scan, and K6's replay of it) ----
@@ -228,8 +275,8 @@ struct RecRow {
   // the kinds the intersection reads (the others left 0)
   __device__ __forceinline__ RowKinds scan_kinds() const {
     const float4 k = v[kRecScan / 4];
-    return {0, __float_as_int(k.y), __float_as_int(k.z), 0, 0, __float_as_int(k.x) != 0,
-            false, __float_as_int(k.w) != 0};
+    return {0,     __float_as_int(k.y), __float_as_int(k.z),      0, 0, __float_as_int(k.x) != 0,
+            false, __float_as_int(k.w) != 0, false};
   }
   __device__ __forceinline__ V3 tw() const {
     const Vals<3> t = rec_vals<kRecTw, 3>(v);
@@ -255,7 +302,110 @@ struct FlatRowRef {
   __device__ __forceinline__ const float* vb() const { return r + kVb; }
   __device__ __forceinline__ V3 ts() const { return {r[kTs], r[kTs + 1], r[kTs + 2]}; }
   __device__ __forceinline__ const float* rs() const { return r + kRs; }
+  __device__ __forceinline__ const float* asph() const { return r + kAsph; }
 };
+
+// ---- Even aspheres (kExt): geom/surfaces.py::asph_sag, asph_refine,
+// asph_normal.  An asphere row's q holds its base conic (c, c, (1 + k) c,
+// -2, 0) and asph[0:4] the a4..a10 terms. ----
+
+struct Asph {
+  float c, kc2, a[4];  // kc2 = (1 + k) c^2 = q[2] q[0]
+};
+
+__device__ __forceinline__ Asph asph_of(const float* q, const float* a) {
+  return {q[0], q[2] * q[0], {a[0], a[1], a[2], a[3]}};
+}
+
+// G(t) = z - sag(r^2) along the ray o + t d and its first two derivatives
+// in t: the closed forms of geom/surfaces.py::_asph_g, in its order.
+struct AsphG {
+  float g, dg, d2g;
+};
+
+__device__ __forceinline__ AsphG asph_g(const Asph& s, V3 o, V3 d, float t) {
+  const float x = o.x + t * d.x, y = o.y + t * d.y, z = o.z + t * d.z;
+  const float r2 = x * x + y * y;
+  const float term = fmaxf(1.0f - s.kc2 * r2, 0.0f);
+  const float sq = sqrtf(term + 1e-24f);
+  const float den1 = 1.0f + sq;
+  float sag = s.c * r2 / den1, rp = r2 * r2;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sag = sag + s.a[j] * rp;
+    rp = rp * r2;
+  }
+  const float inv = 1.0f / (2.0f * sq * (den1 * den1));
+  float dsag = s.c / den1 + s.c * r2 * s.kc2 * inv;
+  rp = r2;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dsag = dsag + static_cast<float>(j + 2) * s.a[j] * rp;
+    rp = rp * r2;
+  }
+  const float dsq = -s.kc2 * (0.5f / sq);
+  const float dinv = -(1.0f / sq + 2.0f / den1) * inv * dsq;
+  float d2sag = 2.0f * s.c * s.kc2 * inv + s.c * r2 * s.kc2 * dinv;
+  rp = 1.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    d2sag = d2sag + static_cast<float>((j + 2) * (j + 1)) * s.a[j] * rp;
+    rp = rp * r2;
+  }
+  const float dr2 = 2.0f * (x * d.x + y * d.y);
+  const float d2r2 = 2.0f * (d.x * d.x + d.y * d.y);
+  return {z - sag, d.z - dsag * dr2, -(d2sag * dr2 * dr2 + dsag * d2r2)};
+}
+
+constexpr int kAsphSteps = 4;  // Halley steps of asph_refine
+
+// One Halley step t - 2 G G' / (2 G'^2 - G G''), the denominator held off
+// zero at 1e-12.
+__device__ __forceinline__ float asph_step(const Asph& s, V3 o, V3 d, float t) {
+  const AsphG G = asph_g(s, o, d, t);
+  float denom = 2.0f * G.dg * G.dg - G.g * G.d2g;
+  denom = fabsf(denom) < 1e-12f ? 1e-12f : denom;
+  return t - 2.0f * G.g * G.dg / denom;
+}
+
+// The Halley steps from a base-conic root t.
+__device__ __forceinline__ float asph_steps(const Asph& s, V3 o, V3 d, float t) {
+#pragma unroll 1
+  for (int i = 0; i < kAsphSteps; ++i) t = asph_step(s, o, d, t);
+  return t;
+}
+
+// Refine a base-conic root t onto the asphere; `valid` stays true where
+// |G| < 1e-4 after the steps and t > INTERSECT_EPS.
+__device__ __forceinline__ float asph_refine(const Asph& s, V3 o, V3 d, float t, bool& valid) {
+  t = asph_steps(s, o, d, t);
+  valid = valid && fabsf(asph_g(s, o, d, t).g) < 1e-4f && t > kIntersectEps;
+  return t;
+}
+
+// The asphere's sag slope dS/dr^2 at a surface-frame point, as
+// asph_normal writes it.
+__device__ __forceinline__ float asph_slope(const Asph& s, float r2) {
+  const float sq = sqrtf(fmaxf(1.0f - s.kc2 * r2, 0.0f) + 1e-24f);
+  const float den1 = 1.0f + sq;
+  float dsag = s.c / den1 + s.c * r2 * s.kc2 / (2.0f * sq * (den1 * den1));
+  float rp = r2;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dsag = dsag + static_cast<float>(j + 2) * s.a[j] * rp;
+    rp = rp * r2;
+  }
+  return dsag;
+}
+
+// Unit normal (-2 S' x, -2 S' y, 1) / |.| at a surface-frame hit (no
+// orientation sign: +z at the vertex).
+__device__ __forceinline__ V3 asph_normal(const Asph& s, V3 h) {
+  const float dsag = asph_slope(s, h.x * h.x + h.y * h.y);
+  const float gx = -2.0f * dsag * h.x, gy = -2.0f * dsag * h.y;
+  const float inv = 1.0f / sqrtf(gx * gx + gy * gy + 1.0f + 1e-24f);
+  return {gx * inv, gy * inv, inv};
+}
 
 // One row's hit: the ray parameter t (0 where invalid), validity, the hit in
 // the surface frame, and the branches the adjoint needs: which root is the
@@ -268,10 +418,12 @@ struct RowHit {
 };
 
 // Intersect a ray (world frame) with a row (core/intersect.py): plane fast
-// path or the quadric solver, surface-local bound per root, the minimum
-// positive root above the world-scale epsilon, then the volume bound.  The
-// row is a RecRow or a FlatRowRef: the same arithmetic on the same values.
-template <bool kPlates, class Row>
+// path or the quadric solver (with kExt, an asphere's roots refined onto its
+// sag), surface-local bound per root, the minimum positive root above the
+// world-scale epsilon, then the volume bound.  The row is a RecRow or a
+// FlatRowRef (a FlatRowRef only with kExt): the same arithmetic on the same
+// values.
+template <bool kPlates, bool kExt, class Row>
 __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKinds& kd, V3 p,
                                                    V3 d) {
   const auto Rw = row.rw();
@@ -306,6 +458,13 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
     t2 = linear ? t_lin : (-B + sq) / (2.0f * A_safe);
     v1 = (linear && fabsf(B) >= kSolverEps) || (!linear && hit);
     v2 = v1;
+    if constexpr (kExt) {
+      if (kd.asph) {
+        const Asph s = asph_of(row.q(), row.asph());
+        t1 = asph_refine(s, o, ds, t1, v1);
+        t2 = asph_refine(s, o, ds, t2, v2);
+      }
+    }
   }
   if (kd.sb != SB_NONE) {
     const auto sb = row.sb();
@@ -335,25 +494,30 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
     const V3 e = rot_t(h.hs, row.rs());
     const V3 ts = row.ts();
     const V3 he = {e.x + ts.x, e.y + ts.y, e.z + ts.z};
-    h.valid = h.valid && vb_check(kd.vb, row.vb(), he);
+    h.valid = h.valid && vb_check<kExt>(kd.vb, row.vb(), he);
   }
   return h;
 }
 
 // Intersect a ray with flat row r (K1, and the adjoints' recompute).
-template <bool kPlates>
+template <bool kPlates, bool kExt = false>
 __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& kd, V3 p, V3 d) {
-  return intersect_row_of<kPlates>(FlatRowRef{r}, kd, p, d);
+  return intersect_row_of<kPlates, kExt>(FlatRowRef{r}, kd, p, d);
 }
 
 // World-frame unit normal at a surface-frame hit (core/intersect.py::
 // normal_world).  `degen_out`, when given, receives whether the quadric's
-// gradient was degenerate (the normal then defaults to +z).
+// gradient was degenerate (the normal then defaults to +z).  With kExt an
+// asphere row (`asph`) takes the sag's normal, never degenerate.
+template <bool kExt = false>
 __device__ __forceinline__ V3 world_normal(const float* r, bool plane, V3 hs,
-                                           bool* degen_out = nullptr) {
+                                           bool* degen_out = nullptr, bool asph = false) {
   const float* q = r + kQ;
   const float* Rw = r + kRw;
   if (plane) return {Rw[2], Rw[5], Rw[8]};
+  if constexpr (kExt) {
+    if (asph) return rot_t(asph_normal(asph_of(q, r + kAsph), hs), Rw);
+  }
   const float gx = 2.0f * q[0] * hs.x;
   const float gy = 2.0f * q[1] * hs.y;
   const float gz = 2.0f * q[2] * hs.z + q[3];
@@ -515,7 +679,10 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
 // or -1 when no row wins (nothing moves).  `hw` receives the winner's hit
 // and `kw` its kinds; `degen` and `br`, when given, the winner's branches.
 // The caller records a sensor winner.  Only the winner reads its phase map.
-template <bool kPlates>
+// The extended kinds' instantiation (kExt) scans the flat rows and their
+// kinds rows instead: its kinds need fields (the asphere's terms, all 8 of
+// a volume bound's) that the packed record does not hold.
+template <bool kPlates, bool kExt = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
@@ -524,8 +691,14 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   float best_t = kBig;
   int k_win = -1;
   for (int k = 0; k < n_rows; ++k) {
-    const RecRow row = {recs + k * kRec4};
-    const RowHit h = intersect_row_of<kPlates>(row, row.scan_kinds(), p, d);
+    RowHit h;
+    if constexpr (kExt) {
+      h = intersect_row<kPlates, kExt>(tab + k * kRowWidth,
+                                       read_row_kinds<kExt>(knd + k * kKindWidth), p, d);
+    } else {
+      const RecRow row = {recs + k * kRec4};
+      h = intersect_row_of<kPlates, kExt>(row, row.scan_kinds(), p, d);
+    }
     if (h.valid && h.t < best_t) {
       best_t = h.t;
       k_win = k;
@@ -534,11 +707,12 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   }
   if (k_win < 0) return -1;
   const float* r = tab + k_win * kRowWidth;
-  kw = read_row_kinds(knd + k_win * kKindWidth);
+  kw = read_row_kinds<kExt>(knd + k_win * kKindWidth);
   V3 nd;
   float imod;
-  apply_physics<kPlates>(r, kw.ph, kw.sb, kw.map, d, world_normal(r, kw.plane, hw.hs, degen),
-                         hw.hs, pl, nd, imod, br);
+  apply_physics<kPlates>(r, kw.ph, kw.sb, kw.map, d,
+                         world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs, pl, nd,
+                         imod, br);
   p = fma3(p, best_t, d);
   d = nd;
   inten = inten * imod;

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::_kernel_v2
 // (launched by trace_sequential_pallas_v2, chain body _chain_pure) for the
-// main-path kinds and pixelated phase plates, with every other optional
-// stream off.  Its plain PyTorch version is ops/fused_trace.py::
+// main-path kinds, pixelated phase plates and the extended kinds of the
+// mixed-surface and asphere scenes, with every other optional stream off.  Its plain PyTorch version is ops/fused_trace.py::
 // trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
@@ -40,7 +40,12 @@
 // 256 map is 256 KB); with no plate (and no RECT bound, which is plate
 // code too: trace_seq_common.cuh) their pointer is null and the kernel
 // instantiated without plate code (kPlates = false) runs, so such a scene
-// runs the instructions it ran before plates existed.
+// runs the instructions it ran before plates existed.  A scene with the
+// extended kinds (an even asphere, VB_RECT, VB_CYL_EDGE; the caller's `ext`)
+// runs a third instantiation, with plate code and kExt: the asphere's
+// Halley refinement in the intersection and its normal
+// (trace_seq_common.cuh).  It has registers of its own
+// (kSeqFwdExtMinBlocks).
 //
 // What bounds it: per ray it reads 8 streams (32 B; the wavelength stream,
 // 4 B more, only with a plate) and writes 7 (28 B): 60 MB at 1M rays, ~18 us
@@ -76,13 +81,15 @@ namespace {
 
 // Resident blocks of kThreads per SM that the instantiations are capped
 // for (__launch_bounds__): without plate code 48 registers a thread, with
-// it 64 (at 48 it spills).
+// it 64 (at 48 it spills); with the extended kinds 85 (77 used, no spill;
+// 12% faster than at 2 blocks, PERF.md).
 constexpr int kSeqFwdMinBlocks = 5;
 constexpr int kSeqFwdPlateMinBlocks = 4;
+constexpr int kSeqFwdExtMinBlocks = 3;
 
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 __host__ __device__ constexpr int seq_fwd_min_blocks() {
-  return kPlates ? kSeqFwdPlateMinBlocks : kSeqFwdMinBlocks;
+  return kExt ? kSeqFwdExtMinBlocks : kPlates ? kSeqFwdPlateMinBlocks : kSeqFwdMinBlocks;
 }
 
 // The dynamic shared memory of a launch: the flat table, its kinds (16-byte
@@ -93,12 +100,12 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
 }
 
 // A row's kinds from its 8 ints in shared memory, 16-byte aligned: two
-// 128-bit loads.
+// 128-bit loads (as read_row_kinds reads them).
+template <bool kExt>
 __device__ __forceinline__ RowKinds read_row_kinds4(const int4* kd) {
   const int4 a = kd[0], b = kd[1];
   const int k[kKindWidth] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  return {k[kPhCol],          k[kSbCol],          k[kVbCol],           k[kSlotCol], k[kMapCol],
-          k[kPlaneCol] != 0, k[kSensorCol] != 0, k[kInvertCol] != 0};
+  return read_row_kinds<kExt>(k);
 }
 
 // The sums over the warp's 32 lanes of each lane's 8 values v: a transpose
@@ -123,8 +130,8 @@ __device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
   return c;
 }
 
-template <bool kPlates>
-__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates>())
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
 trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
                      int n_rows, const float* __restrict__ px, const float* __restrict__ py,
                      const float* __restrict__ pz, const float* __restrict__ dx,
@@ -171,9 +178,9 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
 
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
-    const RowKinds kd = read_row_kinds4(knd4 + 2 * k);
-    const RowHit h = intersect_row<kPlates>(r, kd, p, d);
-    const V3 nw = world_normal(r, kd.plane, h.hs);
+    const RowKinds kd = read_row_kinds4<kExt>(knd4 + 2 * k);
+    const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
+    const V3 nw = world_normal<kExt>(r, kd.plane, h.hs, nullptr, kd.asph);
     V3 nd;
     float imod;
     apply_physics<kPlates>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod);
@@ -236,27 +243,42 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
 }
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_seq_fwd_kernel<kPlates>,
+  return cudaFuncSetAttribute(trace_seq_fwd_kernel<kPlates, kExt>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates>
+template <bool kPlates, bool kExt>
 int launch(size_t smem, long long blocks, cudaStream_t stream, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            float* const* outs, float* partials, int n_slots, int n_bundles, float* grid,
            int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
            const float* wavelength, long long n) {
-  const cudaError_t e = prepare<kPlates>(smem);
+  const cudaError_t e = prepare<kPlates, kExt>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_seq_fwd_kernel<kPlates><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  trace_seq_fwd_kernel<kPlates, kExt><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
       ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials, n_slots,
       n_bundles, grid, grid_h, grid_w, grid_e, maps, map_desc, wavelength, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of `code` (0 without plate code, 1 with it, 2 with it
+// and the extended kinds), its shared memory allowed.
+const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 2) {
+    *e = prepare<true, true>(smem);
+    return reinterpret_cast<const void*>(trace_seq_fwd_kernel<true, true>);
+  }
+  if (code == 1) {
+    *e = prepare<true, false>(smem);
+    return reinterpret_cast<const void*>(trace_seq_fwd_kernel<true, false>);
+  }
+  *e = prepare<false, false>(smem);
+  return reinterpret_cast<const void*>(trace_seq_fwd_kernel<false, false>);
 }
 
 }  // namespace
@@ -268,7 +290,10 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 // grid.  With phase plates, `maps` holds their maps one after the other,
 // `map_desc` (offset, h, w) per map, and `wavelength` the n rays'
 // wavelengths.  All three null selects the instantiation without plate code,
-// which the caller must not give a PHASE_GRID row or a RECT bound.
+// which the caller must not give a PHASE_GRID row or a RECT bound.  `ext`
+// nonzero selects the instantiation with the extended kinds, which the
+// caller must give (for its plate code) `maps` and the rest, a PHASE_GRID
+// row or not; with `ext` zero the caller must not give it an extended kind.
 extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n_rows,
                                  const float* px, const float* py, const float* pz,
                                  const float* dx, const float* dy, const float* dz,
@@ -277,37 +302,42 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
                                  float* ointensity, float* partials, int n_slots, int n_bundles,
                                  float* grid, int grid_h, int grid_w, float grid_e,
                                  const float* maps, const int32_t* map_desc,
-                                 const float* wavelength, long long n, void* stream) {
+                                 const float* wavelength, int ext, long long n, void* stream) {
   if (n <= 0) return 0;
   if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (ext && maps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ext)
+    return launch<true, true>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+                              map_desc, wavelength, n);
   if (maps != nullptr)
-    return launch<true>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
-                        n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps, map_desc,
-                        wavelength, n);
-  return launch<false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
-                       n_slots, n_bundles, grid, grid_h, grid_w, grid_e, nullptr, nullptr,
-                       nullptr, n);
+    return launch<true, false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+                               map_desc, wavelength, n);
+  return launch<false, false>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, nullptr,
+                              nullptr, nullptr, n);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs (K1 has no bounces: the argument keeps the other kernels'
 // signature), at its dynamic shared memory, into *blocks
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without plate
+// code, 1 with it, 2 with it and the extended kinds.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                           int n_bounces, int plates, int* blocks) {
+                                           int n_bounces, int code, int* blocks) {
   (void)n_bounces;
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
-  const cudaError_t e = plates ? prepare<true>(smem) : prepare<false>(smem);
+  cudaError_t e;
+  const void* fn = kernel_of(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const void* fn = plates ? reinterpret_cast<const void*>(trace_seq_fwd_kernel<true>)
-                          : reinterpret_cast<const void*>(trace_seq_fwd_kernel<false>);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
 }

@@ -83,6 +83,12 @@ class Element:
     def is_sensor(self):
         return False
 
+    @property
+    def is_aperture(self):
+        """True for pure aperture elements, which the 3D renderer leaves out
+        of its occlusion (render/camera.py)."""
+        return False
+
     def frame(self, p):
         return Frame(rot_vec=p['rot_vec'], trans=p['trans'])
 

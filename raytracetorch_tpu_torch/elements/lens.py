@@ -1,23 +1,27 @@
-"""Thick spherical lenses.
+"""Thick lenses: the spherical singlet, the cylindrical singlet and the
+even-asphere singlet.
 
-Counterpart of ``raytracetorch_tpu/elements/lens.py`` (``_SphericLens`` and
-``SingletLens``; doublets, triplets, cylindrical and aspheric lenses are
-ROADMAP Queue 1 item 14).  Optical faces are hemisphere-clipped quadrics
-bounded by the lens aperture; the edge is a cylinder bounded between the
-faces' sag heights.  Each surface's physics carries
-``(ior_normal_side, ior_far_side)``: faces have +z normals, the edge an
-outward radial normal.
+Counterpart of ``raytracetorch_tpu/elements/lens.py`` (``_SphericLens``,
+``SingletLens``, ``CylSingletLens`` and ``AsphericLens``; doublets, triplets
+and freeform lenses are ROADMAP Queue 1 item 14).  Optical faces are
+hemisphere-clipped quadrics bounded by the lens aperture; the edge is a
+cylinder bounded between the faces' sag heights (a cylindrical lens: four
+side planes bounded between the faces' y-dependent sags).  Each surface's
+physics carries ``(ior_normal_side, ior_far_side)``: faces have +z normals,
+the edge an outward normal.
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from ..constants import PhysKind, SBKind, VBKind
 from ..core.static_dispatch import TODO_FEATURES
 from ..core.table import SurfaceRec
-from ..geom.surfaces import q_cylinder, q_quadric, sag_z
-from ..geom.transform import mm
+from ..geom.surfaces import q_cylinder, q_plane, q_quadric, q_quadric_zy, sag_z
+from ..geom.transform import mm, rodrigues
 from .base import Element, compose_world, frame_params, zvec
 from .ideal import paraxial_refract_mat
 
@@ -25,6 +29,17 @@ from .ideal import paraxial_refract_mat
 def _sag_float(c, r):
     term = max(1.0 - c * c * r * r, 0.0)
     return (c * r * r) / (1.0 + math.sqrt(term))
+
+
+def _refuse_unported(abbe_vd=None, sellmeier=None, coating=None,
+                     fresnel=False):
+    """Raise for the lens options the port does not trace yet."""
+    if abbe_vd is not None or sellmeier is not None:
+        raise NotImplementedError(f'dispersion is {TODO_FEATURES}')
+    if coating:
+        raise NotImplementedError(f'coatings are {TODO_FEATURES}')
+    if fresnel:
+        raise NotImplementedError(f'Fresnel physics is {TODO_FEATURES}')
 
 
 def _validate_faces(curvatures, thicknesses, aperture_r, z_list):
@@ -140,12 +155,7 @@ class SingletLens(_SphericLens):
                  abbe_vd=None, sellmeier=None, coating=None,
                  fresnel=False, inked=False, name='singlet', **kw):
         super().__init__(name=name, **kw)
-        if abbe_vd is not None or sellmeier is not None:
-            raise NotImplementedError(f'dispersion is {TODO_FEATURES}')
-        if coating:
-            raise NotImplementedError(f'coatings are {TODO_FEATURES}')
-        if fresnel:
-            raise NotImplementedError(f'Fresnel physics is {TODO_FEATURES}')
+        _refuse_unported(abbe_vd, sellmeier, coating, fresnel)
         _validate_faces([c1, c2], [t], d / 2.0, [-t / 2.0, t / 2.0])
         self._init = dict(c1=c1, c2=c2, t=t, radius=d / 2.0,
                           ior_glass=ior_glass, ior_media=ior_media)
@@ -195,3 +205,159 @@ class SingletLens(_SphericLens):
 
     def R2(self, p):
         return -1.0 / p['c2']
+
+
+# Outward-normal rotations of the 4 side planes of a box edge (+x, -x, +y,
+# -y)
+_SIDE_ROTS = (
+    (0.0, math.pi / 2.0, 0.0),
+    (0.0, -math.pi / 2.0, 0.0),
+    (-math.pi / 2.0, 0.0, 0.0),
+    (math.pi / 2.0, 0.0, 0.0),
+)
+
+
+class CylSingletLens(SingletLens):
+    """Cylindrical singlet: two faces curved in y only (QUADRIC_ZY, HEMI
+    bound, rectangular volume bound) and four side planes bounded between
+    the faces' y-dependent sags (CYL_EDGE).  ``height`` and ``width`` are the
+    full extents in y and x.  Fresnel physics is ROADMAP Queue 1 item 12 and
+    raises NotImplementedError."""
+
+    def __init__(self, c1, c2, height, width, t, ior_glass, ior_media=1.0,
+                 c1_grad=False, c2_grad=False, t_grad=False,
+                 height_grad=False, width_grad=False, ior_glass_grad=False,
+                 ior_media_grad=False, fresnel=False, inked=False,
+                 name='cyl_singlet', **kw):
+        Element.__init__(self, name=name, **kw)
+        _refuse_unported(fresnel=fresnel)
+        if abs(0.5 * c1) > 1.0 / height or abs(0.5 * c2) > 1.0 / height:
+            raise ValueError("|R| must be larger than Height/2")
+        if (_sag_float(c1, height / 2) - t / 2
+                > _sag_float(c2, height / 2) + t / 2):
+            raise ValueError("Front and back surfaces intersecting")
+        self._init = dict(c1=c1, c2=c2, t=t, half_w=width / 2.0,
+                          half_h=height / 2.0, ior_glass=ior_glass,
+                          ior_media=ior_media)
+        self._grads = dict(c1=c1_grad, c2=c2_grad, t=t_grad,
+                           half_w=width_grad, half_h=height_grad,
+                           ior_glass=ior_glass_grad,
+                           ior_media=ior_media_grad)
+        self.inked = inked
+
+    @property
+    def n_surfaces(self):
+        return 6
+
+    def build(self, p):
+        Re, te = frame_params(p)
+        hw, hh, t = p['half_w'], p['half_h'], p['t']
+        zs = [-t / 2.0, t / 2.0]
+        iors = self._ior_chain(p)
+        rect = (-hw, hw, -hh, hh)
+        recs = []
+        for i, (c, zv) in enumerate(zip([p['c1'], p['c2']], zs)):
+            q, sign = q_quadric_zy(c, 0.0)
+            Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(zv))
+            recs.append(SurfaceRec(
+                q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
+                sb_kind=SBKind.HEMI, sb=(c,),
+                vb_kind=VBKind.RECT, vb=rect,
+                ph_kind=self._refract_kind(), ph=(iors[i + 1], iors[i])))
+        edge_kind, edge_ph = self._edge_phys(p)
+        edge_vb = (p['c1'], zs[0], p['c2'], zs[1]) + rect
+        zero = torch.zeros_like(hw)
+        offsets = [torch.stack([hw, zero, zero]),
+                   torch.stack([-hw, zero, zero]),
+                   torch.stack([zero, hh, zero]),
+                   torch.stack([zero, -hh, zero])]
+        for rot, off in zip(_SIDE_ROTS, offsets):
+            q, sign = q_plane(te.dtype, te.device)
+            Rp = rodrigues(torch.tensor(rot, dtype=te.dtype,
+                                        device=te.device))
+            Rw, tw, Rs, ts = compose_world(Re, te, Rp, off)
+            recs.append(SurfaceRec(
+                q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
+                vb_kind=VBKind.CYL_EDGE, vb=edge_vb, is_plane=True,
+                ph_kind=edge_kind, ph=edge_ph))
+        return recs
+
+    def paraxial(self, p):
+        """No power in x: each face's matrix refracts in y alone."""
+        f = self.frame(p)
+        t, t_inv = f.paraxial(), f.paraxial_inv()
+        z0 = p['trans'][2]
+        zs = [-p['t'] / 2.0, p['t'] / 2.0]
+        iors = self._ior_chain(p)
+        zero = torch.zeros_like(p['c1'])
+        mats = [mm(t_inv, mm(paraxial_refract_mat(zero, p[f'c{i + 1}'],
+                                                  iors[i], iors[i + 1]), t))
+                for i in range(2)]
+        return [z0 + zv for zv in zs], mats
+
+    def optical_zs(self, p):
+        z0 = p['trans'][2]
+        return [z0 - p['t'] / 2.0, z0 + p['t'] / 2.0]
+
+
+class AsphericLens(SingletLens):
+    """Singlet whose faces are even aspheres: conic constant ``k`` and the
+    a4 r^4 .. a10 r^10 terms (``a1``, ``a2``: up to 4 each, padded with
+    zeros) per face, refined from the base conic's roots by 4 Halley steps
+    (geom/surfaces.py::asph_refine) and differentiable in every one of them.
+    Dispersion, coatings and Fresnel physics raise as for
+    ``SingletLens``."""
+
+    def __init__(self, c1, c2, d, t, ior_glass, ior_media=1.0,
+                 k1=0.0, k2=0.0, a1=(), a2=(),
+                 c1_grad=False, c2_grad=False, t_grad=False, d_grad=False,
+                 k1_grad=False, k2_grad=False, a1_grad=False, a2_grad=False,
+                 ior_glass_grad=False, ior_media_grad=False,
+                 fresnel=False, inked=False, name='asphere', **kw):
+        super().__init__(c1, c2, d, t, ior_glass, ior_media=ior_media,
+                         c1_grad=c1_grad, c2_grad=c2_grad, t_grad=t_grad,
+                         d_grad=d_grad, ior_glass_grad=ior_glass_grad,
+                         ior_media_grad=ior_media_grad, fresnel=fresnel,
+                         inked=inked, name=name, **kw)
+
+        def pad4(a):
+            a = [float(v) for v in a]
+            return a + [0.0] * (4 - len(a))
+        self._init.update(k1=float(k1), k2=float(k2), a1=pad4(a1),
+                          a2=pad4(a2))
+        self._grads.update(k1=k1_grad, k2=k2_grad, a1=a1_grad, a2=a2_grad)
+
+    def param_scales(self):
+        """Natural optimization magnitudes: a_{2i+4} scales like
+        r_aperture^-(2i+4), so a unit step moves the edge sag by O(1); pass
+        to ``fit(scales=...)`` for joint conic and polynomial design."""
+        r = self._init['radius']
+        poly = [r ** -(2 * i + 4) for i in range(4)]
+        return {'a1': poly, 'a2': list(poly)}
+
+    def build(self, p):
+        Re, te = frame_params(p)
+        r = p['radius']
+        zs = [-p['t'] / 2.0, p['t'] / 2.0]
+        iors = self._ior_chain(p)
+        recs = []
+        for i, (cn, kn, an, zv) in enumerate(
+                [('c1', 'k1', 'a1', zs[0]), ('c2', 'k2', 'a2', zs[1])]):
+            q, sign = q_quadric(p[cn], p[kn])
+            Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(zv))
+            recs.append(SurfaceRec(
+                q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
+                sb_kind=SBKind.HEMI, sb=(p[cn],),
+                vb_kind=VBKind.APER_R2, vb=(r * r,),
+                ph_kind=self._refract_kind(), ph=(iors[i + 1], iors[i]),
+                asph=tuple(p[an][j] for j in range(4)), is_asphere=True))
+        edge_kind, edge_ph = self._edge_phys(p)
+        q, sign = q_cylinder(r)
+        Rw, tw, Rs, ts = compose_world(Re, te)
+        z_lo = sag_z(p['c1'], r) + zs[0]
+        z_hi = sag_z(p['c2'], r) + zs[1]
+        recs.append(SurfaceRec(
+            q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
+            vb_kind=VBKind.Z_BETWEEN, vb=(z_lo, z_hi),
+            ph_kind=edge_kind, ph=edge_ph))
+        return recs

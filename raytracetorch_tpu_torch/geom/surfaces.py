@@ -1,13 +1,16 @@
 """Quadric surface coefficients and the branchless intersection solver.
 
-Counterpart of ``raytracetorch_tpu/geom/surfaces.py`` (quadric families
-only; the asphere and freeform refinements are ROADMAP Queue 1 item 12).
-Every family is a diagonal implicit quadric
+Counterpart of ``raytracetorch_tpu/geom/surfaces.py`` (the quadric
+families and the even asphere; the freeform refinement is ROADMAP Queue 1
+item 12).  Every family is a diagonal implicit quadric
 
     F(p) = qx*x^2 + qy*y^2 + qz*z^2 + lz*z + q0 = 0
 
 with the encodings PLANE (0, 0, 0, -2, 0) n_sign -1, CYLINDER(R)
-(1, 1, 0, 0, -R^2) n_sign +1, QUADRIC(c, k) (c, c, c(1+k), -2, 0) n_sign -1.
+(1, 1, 0, 0, -R^2) n_sign +1, QUADRIC(c, k) (c, c, c(1+k), -2, 0) n_sign -1,
+QUADRIC_ZY(c, k) (0, c, c(1+k), -2, 0) n_sign -1 (curvature in y only: a
+cylindrical lens face).  An even asphere starts from its base conic's roots
+and refines each onto the sag ``asph_sag`` (``asph_refine``).
 
 Misses carry finite ``(t, valid)`` sentinels, never inf, and every sqrt is
 double-where'd with ``+1e-24`` inside, so forward and backward stay NaN-free.
@@ -36,6 +39,12 @@ def q_quadric(c, k):
     k = torch.as_tensor(k, dtype=c.dtype, device=c.device)
     return torch.stack([c, c, c * (1.0 + k), torch.full_like(c, -2.0),
                         torch.zeros_like(c)]), -1.0
+
+
+def q_quadric_zy(c, k):
+    k = torch.as_tensor(k, dtype=c.dtype, device=c.device)
+    return torch.stack([torch.zeros_like(c), c, c * (1.0 + k),
+                        torch.full_like(c, -2.0), torch.zeros_like(c)]), -1.0
 
 
 def ray_coeffs(q, o, d):
@@ -118,3 +127,84 @@ def sag_z(c, r):
     r2 = r * r
     term = torch.clamp(1.0 - c * c * r2, min=0.0)
     return (c * r2) / (1.0 + torch.sqrt(term + 1e-24))
+
+
+def asph_sag(c, kc2, coeffs, r2):
+    """Even-asphere sag at r^2: the conic term plus a4 r^4 .. a10 r^10,
+    with ``kc2 = (1 + k) c^2``."""
+    term = torch.clamp(1.0 - kc2 * r2, min=0.0)
+    z = c * r2 / (1.0 + torch.sqrt(term + 1e-24))
+    rp = r2 * r2
+    for a in coeffs:
+        z = z + a * rp
+        rp = rp * r2
+    return z
+
+
+def _asph_g(c, kc2, coeffs, o, d, t):
+    """G(t) = z(t) - sag(r(t)^2) along the ray and its first two
+    derivatives in t (the closed forms of the JAX package's asph_refine)."""
+    x = o[0] + t * d[0]
+    y = o[1] + t * d[1]
+    z = o[2] + t * d[2]
+    r2 = x * x + y * y
+    g = z - asph_sag(c, kc2, coeffs, r2)
+    term = torch.clamp(1.0 - kc2 * r2, min=0.0)
+    sq = torch.sqrt(term + 1e-24)
+    inv = 1.0 / (2.0 * sq * (1.0 + sq) ** 2)
+    dsag = c / (1.0 + sq) + c * r2 * kc2 * inv
+    rp, i = r2, 2.0
+    for a in coeffs:
+        dsag = dsag + i * a * rp
+        rp = rp * r2
+        i = i + 1.0
+    dsq = -kc2 * (0.5 / sq)
+    dinv = -(1.0 / sq + 2.0 / (1.0 + sq)) * inv * dsq
+    d2sag = 2.0 * c * kc2 * inv + c * r2 * kc2 * dinv
+    rp, i = torch.ones_like(r2), 2.0
+    for a in coeffs:
+        d2sag = d2sag + i * (i - 1.0) * a * rp
+        rp = rp * r2
+        i = i + 1.0
+    dr2 = 2.0 * (x * d[0] + y * d[1])
+    d2r2 = 2.0 * (d[0] * d[0] + d[1] * d[1])
+    dg = d[2] - dsag * dr2
+    d2g = -(d2sag * dr2 * dr2 + dsag * d2r2)
+    return g, dg, d2g
+
+
+def asph_refine(c, kc2, coeffs, o, d, t0, valid, n_iter=4):
+    """Refine a base-conic root ``t0`` onto the even asphere: ``n_iter``
+    Halley steps ``t -= 2 G G' / (2 G'^2 - G G'')`` (the denominator held
+    off zero at 1e-12), differentiable through every step.  Returns ``(t,
+    valid)``: a root stays valid where |G| < 1e-4 after the steps and
+    t > INTERSECT_EPS."""
+    t = t0
+    for _ in range(n_iter):
+        g, dg, d2g = _asph_g(c, kc2, coeffs, o, d, t)
+        denom = 2.0 * dg * dg - g * d2g
+        denom = torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
+        t = t - 2.0 * g * dg / denom
+    g, _, _ = _asph_g(c, kc2, coeffs, o, d, t)
+    return t, valid & (torch.abs(g) < 1e-4) & (t > INTERSECT_EPS)
+
+
+def asph_normal(c, kc2, coeffs, p_local):
+    """Unit normal of the even asphere at a surface-frame point: the
+    normalized gradient (-2 S' x, -2 S' y, 1) of z - S(r^2), +z at the
+    vertex (no orientation sign)."""
+    x, y, z = p_local
+    r2 = x * x + y * y
+    term = torch.clamp(1.0 - kc2 * r2, min=0.0)
+    sq = torch.sqrt(term + 1e-24)
+    dsag = c / (1.0 + sq) + c * r2 * kc2 / (2.0 * sq * (1.0 + sq) ** 2)
+    rp, i = r2, 2.0
+    for a in coeffs:
+        dsag = dsag + i * a * rp
+        rp = rp * r2
+        i = i + 1.0
+    gx = -2.0 * dsag * x
+    gy = -2.0 * dsag * y
+    gz = torch.ones_like(z)
+    inv = 1.0 / torch.sqrt(gx * gx + gy * gy + gz * gz + 1e-24)
+    return gx * inv, gy * inv, gz * inv

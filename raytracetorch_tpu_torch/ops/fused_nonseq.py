@@ -3,8 +3,9 @@ ray) and K6 (its adjoint), their plain versions, and the autograd Function
 that joins them.
 
 Counterpart of ``raytracetorch_tpu/ops/pallas_trace.py``, non-sequential
-part, for the kinds of ops/fused_trace.py (pixelated phase plates included)
-plus the ideal spherical mirror, with every other optional stream off:
+part, for the kinds of ops/fused_trace.py (pixelated phase plates and the
+extended kinds included) plus the ideal spherical mirror, with every other
+optional stream off:
 
 - ``trace_nonseq_pallas`` (TPU kernel ``_kernel_nonseq``, bounce body
   ``_nonseq_bounce_core``) -> kernel K5, ``csrc/trace_nonseq_fwd.cu``;
@@ -27,7 +28,8 @@ The kernels' notes are in their sources.  In this module:
   over the rows of the flat table, and its autograd.
 - ``trace_nonseq_fwd_cuda`` and ``trace_nonseq_bwd_cuda`` launch the
   kernels and count their launches in ``NONSEQ_LAUNCHES`` and
-  ``NONSEQ_BWD_LAUNCHES``.
+  ``NONSEQ_BWD_LAUNCHES`` (a launch with the extended kinds also in
+  ``fused_trace.EXT_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ from torch.autograd.function import once_differentiable
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.table import FlatRow
 from ..core.trace import bounce_loop
-from .fused_trace import (COMPS, GRAD_COLS, PLATE_GRAD_COLS, THREADS,
-                          _rays_of, check_cotangents, check_inputs,
-                          flat_inputs, grid_args, kernel, map_cotangents,
+from . import fused_trace
+from .fused_trace import (COMPS, THREADS, _rays_of, check_cotangents,
+                          check_inputs, ext_kinds, ext_maps, flat_inputs,
+                          grad_cols, grid_args, kernel, map_cotangents,
                           needs_grad, new_grid, plain_vjp, plate_args,
                           plate_buffers, plate_inputs, plate_maps,
                           plate_rows, ptr, split_plates, stream,
@@ -75,7 +78,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None):
     if flat.device.type == 'cpu':
         return trace_nonseq_fused_plain(flat, rays, cfg, static_meta,
                                         n_bounces, maps)
-    return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps)
+    return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
+                                 ext_kinds(static_meta))
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -124,7 +128,7 @@ class FusedNonseq(torch.autograd.Function):
             res = trace_nonseq_bwd_cuda(
                 flat, kinds, rays, ctx.cfg, ctx.n_bounces, g_rays, g_moments,
                 need_table, need_rays, g_grid=g_grid, maps=maps,
-                need_maps=any(need[14:]))
+                need_maps=any(need[14:]), ext=ext_kinds(ctx.meta))
         else:
             res = trace_nonseq_bwd_plain(
                 flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays,
@@ -166,17 +170,18 @@ def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
 
 
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
-                          n_bounces, maps=None):
+                          n_bounces, maps=None, ext=False):
     """Launch K5 on the current stream -> ``(rays, SensorState)``.
 
     ``flat_table`` is the [K, 160] float32 table, ``kinds`` the [K, 8]
     int32 rows of ``kind_rows``, ``maps`` the PHASE_GRID rows' [H, W] maps
-    in row order; all on one CUDA device."""
+    in row order; all on one CUDA device.  ``ext``: the table has the
+    extended kinds (``fused_trace.ext_kinds``)."""
     global NONSEQ_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
     _check_bounces(n_bounces)
-    plates = plate_buffers(maps, rays, device)
+    plates = plate_buffers(ext_maps(maps, ext), rays, device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     partials = torch.empty(-(-n // THREADS), n_slots, n_bundles, N_MOMENTS,
@@ -190,11 +195,13 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
                 partials.data_ptr(), n_slots, n_bundles,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
-                *plate_args(plates), int(n_bounces), n, stream(device))
+                *plate_args(plates), int(ext), int(n_bounces), n,
+                stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
+        fused_trace.EXT_LAUNCHES += int(ext)
     out = rays.replace(**dict(zip(COMPS, outs)))
     return out, SensorState(moments=partials.sum(dim=0), grid=grid)
 
@@ -202,7 +209,7 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
 def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, g_rays, g_moments, need_table=True,
                           need_rays=True, g_grid=None, replay=False,
-                          maps=None, need_maps=True):
+                          maps=None, need_maps=True, ext=False):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps their cotangents (or
     None) next, and with ``replay=True`` last the rays at the state the
@@ -212,15 +219,16 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     cotangents of the 7 output streams (None for zero), ``g_moments`` that
     of the [S, B, 7] moments and ``g_grid`` that of the [S, H, W] grid (each
     None for zero).  ``need_table`` / ``need_rays`` / ``need_maps`` say
-    which cotangents to compute; the kernel skips the others."""
+    which cotangents to compute; the kernel skips the others.  ``ext`` as
+    for ``trace_nonseq_fwd_cuda``."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     _check_bounces(n_bounces)
-    plates = plate_buffers(maps, rays, device)
+    plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
-    cols = PLATE_GRAD_COLS if plates is not None else GRAD_COLS
+    cols = grad_cols(plates, ext)
 
     def streams(wanted):
         return ([torch.empty(n, dtype=torch.float32, device=device)
@@ -240,11 +248,13 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                     g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
                     ptr(partials), *map(ptr, ends or (None,) * 7), n_slots,
                     n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
-                    ptr(g_maps), int(n_bounces), n, stream(device))
+                    ptr(g_maps), int(ext), int(n_bounces), n,
+                    stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
+        fused_trace.EXT_LAUNCHES += int(ext)
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                    device)
     if replay:

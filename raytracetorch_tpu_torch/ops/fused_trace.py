@@ -28,7 +28,8 @@ module:
   kernels' functions in plain torch: the eager chain of core/trace.py over
   the rows of the flat table, and its autograd.
 - ``trace_seq_fwd_cuda`` and ``trace_seq_bwd_cuda`` launch the kernels and
-  count their launches in ``LAUNCHES`` and ``BWD_LAUNCHES``.
+  count their launches in ``LAUNCHES`` and ``BWD_LAUNCHES``; a launch of
+  the instantiation with the extended kinds also in ``EXT_LAUNCHES``.
 - With ``cfg.grid_shape`` set, K1 also bins the sensor hits into the
   ``[S, H, W]`` irradiance grid (kernel K3's device function) and K2 routes
   the grid's cotangent back into the incoming intensities.
@@ -39,6 +40,12 @@ module:
   device functions read the corners; K2 scatters their cotangents).
   Without a plate none of these is passed and the kernels run their
   instantiation without plate code.
+- A scene with a kind of the mixed-surface and asphere scenes (an even
+  asphere, a rectangular volume bound, a cylindrical lens's edge bound:
+  ``ext_kinds``) runs a third instantiation, with plate code and those
+  kinds (``ext=True`` at the wrappers; maps as with plates, possibly none).
+  Its K2 and K6 add the asphere coefficients' cotangents: ``EXT_GRAD_COLS``.
+  The other two instantiations hold none of that code.
 - ``plain_vjp`` is the shared body of the plain backward versions
   (``trace_seq_bwd_plain`` here, ``trace_nonseq_bwd_plain`` in
   ops/fused_nonseq.py): ``torch.autograd.grad`` of a plain forward.
@@ -55,7 +62,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..constants import PhysKind, SBKind
+from ..constants import PhysKind, SBKind, VBKind
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.static_dispatch import unsupported
 from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
@@ -66,9 +73,15 @@ from . import nvcc_build
 LAUNCHES = 0          # kernel launches by trace_seq_fwd_cuda (K1)
 BWD_LAUNCHES = 0      # kernel launches by trace_seq_bwd_cuda (K2)
 V1_LAUNCHES = 0       # K1's kernel launched by trace_sequential_v1
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with the extended kinds
+EXT_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
-KIND_WIDTH = 8        # ph, sb, vb, plane, sensor, slot, invert, map
+KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
+# the surface column: the quadric solver, the plane fast path, or the
+# quadric's roots refined onto an even asphere
+SURF_QUADRIC, SURF_PLANE, SURF_ASPHERE = 0, 1, 2
 MAX_ROWS = 64
 MAX_SLOTS = 8
 MAX_BUNDLES = 8
@@ -83,22 +96,30 @@ GRAD_COLS = tuple(ROW_OFFSETS[name] + j
                   for j in range(size))
 PLATE_GRAD_COLS = GRAD_COLS + tuple(ROW_OFFSETS['ph'] + j
                                     for j in range(2, 6))
+# The instantiation with the extended kinds (``ext_kinds``) adds an even
+# asphere's coefficients asph[0:4]: its c and (1 + k) c^2 reach q[0] and
+# q[2], already among the columns.
+EXT_GRAD_COLS = PLATE_GRAD_COLS + tuple(ROW_OFFSETS['asph'] + j
+                                        for j in range(4))
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 _GRID = [_P, _I, _I, _F]      # grid (or its cotangent), H, W, half extent
-_PLATES = [_P, _P, _P]        # maps, their (offset, H, W), wavelength
-# rows, slots, bundles, bounces, plate code, out: resident blocks per SM
+# maps, their (offset, H, W), wavelength; the extended kinds (0 or 1)
+_PLATES = [_P, _P, _P]
+_EXT = [_I]
+# rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
+# code and the extended kinds), out: resident blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
     'trace_seq_fwd': ('trace_seq_fwd.cu', {
         'rtt_trace_seq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
-        + _PLATES + [_L, _P],
+        + _PLATES + _EXT + [_L, _P],
         'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
-        + _PLATES + [_P, _L, _P],
+        + _PLATES + [_P] + _EXT + [_L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
@@ -110,11 +131,11 @@ _LIBRARIES = {
                                  _P]}),
     'trace_nonseq_fwd': ('trace_nonseq_fwd.cu', {
         'rtt_trace_nonseq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
-        + _PLATES + [_I, _L, _P],
+        + _PLATES + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
         'rtt_trace_nonseq_bwd': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
-        + _PLATES + [_P, _I, _L, _P],
+        + _PLATES + [_P] + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY}),
 }
 _fns = {}
@@ -137,10 +158,19 @@ def plate_rows(static_meta):
                  if m.ph == PhysKind.PHASE_GRID)
 
 
+def ext_kinds(static_meta):
+    """Whether a row has a kind that only the kernels' instantiation with
+    the extended kinds takes: an even asphere, a rectangular volume bound or
+    a cylindrical lens's edge bound."""
+    return any(m.asph or m.vb in (VBKind.RECT, VBKind.CYL_EDGE)
+               for m in static_meta)
+
+
 def kind_rows(static_meta, cfg: SensorConfig):
     """[K, KIND_WIDTH] int rows the kernels read; raises NotImplementedError
-    for anything the kernels do not take.  The last column is a PHASE_GRID
-    row's map index (0 for every other row)."""
+    for anything the kernels do not take.  The surface column holds
+    SURF_QUADRIC, SURF_PLANE or SURF_ASPHERE; the last column is a
+    PHASE_GRID row's map index (0 for every other row)."""
     n_slots = _check_limits(len(static_meta), cfg)
     maps = {k: j for j, k in enumerate(plate_rows(static_meta))}
     rows = []
@@ -151,7 +181,9 @@ def kind_rows(static_meta, cfg: SensorConfig):
         if m.sensor and not 0 <= m.slot < n_slots:
             raise ValueError(f'row {k}: sensor slot {m.slot} outside '
                              f'0..{n_slots - 1}')
-        rows.append([m.ph, m.sb, m.vb, int(m.plane), int(m.sensor), m.slot,
+        surf = (SURF_ASPHERE if m.asph
+                else SURF_PLANE if m.plane else SURF_QUADRIC)
+        rows.append([m.ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
                      int(m.invert), maps.get(k, 0)])
     return rows
 
@@ -161,15 +193,16 @@ def plate_maps(static_meta, grids):
     ``grids`` ({row: map}); raises if a plate row has none.
 
     None when no row has a plate's kinds (PHASE_GRID physics, the RECT
-    bound): the kernels then run their instantiation without plate code.  A
-    RECT-bounded row without a plate gives ``()``."""
+    bound) or the extended kinds (``ext_kinds``): the kernels then run their
+    instantiation without plate code.  Such a scene without a plate gives
+    ``()``."""
     grids = grids or {}
     missing = [k for k in plate_rows(static_meta) if k not in grids]
     if missing:
         raise ValueError(f'PHASE_GRID rows {missing} have no phase map: '
                          f'pass grids={{row: map}} (Scene.side_grids)')
-    if not any(m.ph == PhysKind.PHASE_GRID or m.sb == SBKind.RECT
-               for m in static_meta):
+    if not (any(m.ph == PhysKind.PHASE_GRID or m.sb == SBKind.RECT
+                for m in static_meta) or ext_kinds(static_meta)):
         return None
     return tuple(grids[k] for k in plate_rows(static_meta))
 
@@ -203,8 +236,8 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     ``unsupported`` refuses those), at most 8 sensor slots.  Its function is
     K1's with the grid, the maps and the wavelength off, so on CUDA tensors
     it launches K1's kernel so (counted in ``V1_LAUNCHES``; a RECT bound
-    takes its instantiation with plate code, with no map); CPU tensors run
-    the plain version."""
+    takes its instantiation with plate code, with no map, and the extended
+    kinds theirs); CPU tensors run the plain version."""
     global V1_LAUNCHES
     if cfg.grid_shape:
         raise ValueError('trace_sequential_v1 takes no irradiance grid: use '
@@ -219,7 +252,7 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     else:
         out, sensors, launched = _seq_fwd_launch(
             flat, kinds_t, rays, cfg, plate_maps(static_meta, None),
-            'trace_sequential_v1')
+            'trace_sequential_v1', ext_kinds(static_meta))
         V1_LAUNCHES += launched
     return out, sensors, {}
 
@@ -278,7 +311,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, maps=None):
     if flat.device.type == 'cpu':
         return trace_sequential_fused_plain(flat, rays, cfg, static_meta,
                                             maps)
-    return trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps)
+    return trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
+                              ext_kinds(static_meta))
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -335,7 +369,8 @@ class FusedTrace(torch.autograd.Function):
             res = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg, g_rays,
                                      g_moments, need_table, need_rays,
                                      g_grid=g_grid, maps=maps,
-                                     need_maps=need_maps)
+                                     need_maps=need_maps,
+                                     ext=ext_kinds(ctx.meta))
         else:
             res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                       g_moments, g_grid=g_grid, maps=maps)
@@ -445,19 +480,21 @@ def kernel(symbol):
     return _fns[symbol]
 
 
-def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0):
+def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
+                  ext=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
     (``'trace_nonseq_bwd'``, with its bounce budget ``n_bounces``) that a
     launch with ``n_rows`` rows, ``cfg``'s slots and bundles and, with
-    ``plates``, plate code runs, at that launch's dynamic shared memory
+    ``plates``, plate code (with ``ext``, also the extended kinds) runs, at
+    that launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
     rc = kernel(f'rtt_{library}_occupancy')(
         n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces),
-        int(bool(plates)), ctypes.byref(out))
+        2 if ext else int(bool(plates)), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f'{library} occupancy query failed with CUDA '
                            f'error {rc}')
@@ -567,25 +604,39 @@ def plate_args(plates):
     return plates.args() if plates is not None else (None, None, None)
 
 
+def ext_maps(maps, ext):
+    """The maps a launch passes: with the extended kinds (which run with
+    plate code) at least ``()``."""
+    return () if ext and maps is None else maps
+
+
+def grad_cols(plates, ext):
+    """The table columns whose cotangents K2 and K6 reduce."""
+    return (EXT_GRAD_COLS if ext else PLATE_GRAD_COLS if plates is not None
+            else GRAD_COLS)
+
+
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
-                       maps=None):
+                       maps=None, ext=False):
     """Launch K1 on the current stream -> ``(rays, SensorState)``.
 
     ``flat_table`` is the [K, 160] float32 table, ``kinds`` the [K, 8]
     int32 rows of ``kind_rows``, ``maps`` the PHASE_GRID rows' [H, W] maps
-    in row order; all on one CUDA device."""
+    in row order; all on one CUDA device.  ``ext``: the table has the
+    extended kinds (``ext_kinds``)."""
     global LAUNCHES
     out, sensors, launched = _seq_fwd_launch(flat_table, kinds, rays, cfg,
-                                             maps, 'trace_seq_fwd_cuda')
+                                             maps, 'trace_seq_fwd_cuda', ext)
     LAUNCHES += launched
     return out, sensors
 
 
-def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name):
+def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False):
     """K1's launch -> ``(rays, SensorState, launches)``."""
+    global EXT_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
-    plates = plate_buffers(maps, rays, device)
+    plates = plate_buffers(ext_maps(maps, ext), rays, device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     n_blocks = -(-n // THREADS)
@@ -601,18 +652,19 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name):
                     rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
                     partials.data_ptr(), n_slots, n_bundles,
                     *grid_args(cfg, grid if cfg.grid_shape else None),
-                    *plate_args(plates), n, stream(device))
+                    *plate_args(plates), int(ext), n, stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
+        EXT_LAUNCHES += int(ext)
     out = rays.replace(**dict(zip(COMPS, outs)))
     return out, SensorState(moments=partials.sum(dim=0), grid=grid), launched
 
 
 def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_moments, need_table=True, need_rays=True,
-                       g_grid=None, maps=None, need_maps=True):
+                       g_grid=None, maps=None, need_maps=True, ext=False):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, and with phase maps their cotangents
     (or None) third.
@@ -621,14 +673,15 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     of the 7 output streams (None for zero), ``g_moments`` that of the
     [S, B, 7] moments and ``g_grid`` that of the [S, H, W] grid (each None
     for zero).  ``need_table`` / ``need_rays`` / ``need_maps`` say which
-    cotangents to compute; the kernel skips the others."""
-    global BWD_LAUNCHES
+    cotangents to compute; the kernel skips the others.  ``ext`` as for
+    ``trace_seq_fwd_cuda``."""
+    global BWD_LAUNCHES, EXT_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
-    plates = plate_buffers(maps, rays, device)
+    plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
-    cols = PLATE_GRAD_COLS if plates is not None else GRAD_COLS
+    cols = grad_cols(plates, ext)
     outs = ([torch.empty(n, dtype=torch.float32, device=device)
              for _ in COMPS] if need_rays else None)
     partials = (torch.empty(-(-n // THREADS), k, len(cols),
@@ -645,11 +698,12 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                     g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
                     ptr(partials), n_slots, n_bundles,
                     *grid_args(cfg, g_grid), *plate_args(plates),
-                    ptr(g_maps), n, stream(device))
+                    ptr(g_maps), int(ext), n, stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
+        EXT_LAUNCHES += int(ext)
     return table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                     device)
 

@@ -142,7 +142,7 @@ class Scene:
                 for r in el.build(el.init_params('cpu')):
                     meta.append(StaticRowMeta(
                         r.ph_kind, r.sb_kind, r.vb_kind, r.is_sensor,
-                        r.sb_invert, plane=r.is_plane,
+                        r.sb_invert, r.is_asphere, plane=r.is_plane,
                         slot=slot if el.is_sensor else 0,
                         dispm=(0, 0)))     # non-dispersive on both sides
                 if el.is_sensor:

@@ -30,8 +30,12 @@ shared memory, vector atomics), at the launcher's cap and one row over
 it, on odd and even widths, on row pairs that straddle 16-byte groups,
 clamped rims, one hot cell, zero or missing cotangents and ragged batches.
 K1 is held to its plain version at the edges of its blocks and waves, its
-moments bit for bit across two launches, and its two instantiations to no
-spill, no stack frame and their launch bounds' blocks per SM.
+moments bit for bit across two launches, and its two instantiations
+without the extended kinds to no spill, no stack frame and their launch
+bounds' blocks per SM.  The instantiations of K1, K2, K5 and K6 with the
+extended kinds (the mixed-surface and asphere scenes) are held to their
+plain versions with the same bounds, and the paths that should take them
+(and the main paths, which should not) are counted.
 """
 
 import math
@@ -696,11 +700,24 @@ def test_bwd_table_cotangent_is_deterministic(lib, dev):
         assert torch.equal(a, b)
 
 
+def _flags(name):
+    """The template arguments of a mangled kernel name, as ints: the last
+    is kExt, the one before kPlates."""
+    import re
+    m = re.search(r'_kernelI((?:L[bi]\d+E)+)E', name)
+    return [int(v) for v in re.findall(r'L[bi](\d+)E', m.group(1))]
+
+
 def _no_plate(name):
     """Whether a mangled kernel name is an instantiation without plate code
-    (its last template argument, kPlates, false)."""
-    import re
-    return re.search(r'_kernelI(?:Lb[01]E)*Lb0EE', name) is not None
+    (its template argument kPlates, the last but one, false)."""
+    return _flags(name)[-2] == 0
+
+
+def _ext(name):
+    """Whether a mangled kernel name is the instantiation with the extended
+    kinds (its last template argument, kExt, true)."""
+    return _flags(name)[-1] == 1
 
 
 @pytest.mark.cuda
@@ -889,14 +906,14 @@ K5_PARENT_BLOCKS_PER_SM = 4
 
 @pytest.mark.cuda
 def test_k5_runs_without_spills_at_the_parents_occupancy(dev):
-    """K5's instantiations of one moment bucket (the main path's, and the
-    same with plate code) spill no register and have no stack frame
+    """K5's instantiations of one moment bucket without the extended kinds
+    (the main path's, and the same with plate code) spill no register and have no stack frame
     (ptxas), and the naive scene's launch keeps at least the parent's
     blocks resident on an SM."""
     from raytracetorch_tpu_torch.ops import nvcc_build
     usage = nvcc_build.ptxas_usage(fused_trace.build()['trace_nonseq_fwd'][0])
     main = {k: v for k, v in usage.items()
-            if 'trace_nonseq_fwd_kernelILi1ELb' in k}
+            if 'trace_nonseq_fwd_kernelILi1ELb' in k and not _ext(k)}
     assert len(main) == 2
     for name, u in main.items():
         assert u['spill_stores'] == 0 and u['spill_loads'] == 0, (name, u)
@@ -1103,15 +1120,17 @@ def test_k1_moments_are_deterministic(grid_on, dev):
 
 @pytest.mark.cuda
 def test_k1_runs_without_spills_at_its_occupancy(dev):
-    """K1's two instantiations spill no register and have no stack frame
-    (ptxas), and the bench scene's launch keeps the blocks their launch
+    """K1's two instantiations without the extended kinds spill no
+    register and have no stack frame (ptxas), and the bench scene's launch
+    keeps the blocks their launch
     bounds ask for (kSeqFwdMinBlocks, kSeqFwdPlateMinBlocks with plate
     code) resident on an SM (the occupancy query K1 exports)."""
     import pathlib
     import re
     from raytracetorch_tpu_torch.ops import nvcc_build
     usage = nvcc_build.ptxas_usage(fused_trace.build()['trace_seq_fwd'][0])
-    kernels = {k: v for k, v in usage.items() if 'trace_seq_fwd_kernel' in k}
+    kernels = {k: v for k, v in usage.items()
+               if 'trace_seq_fwd_kernel' in k and not _ext(k)}
     assert len(kernels) == 2
     for name, u in kernels.items():
         assert u['spill_stores'] == 0 and u['spill_loads'] == 0, (name, u)
@@ -1126,3 +1145,211 @@ def test_k1_runs_without_spills_at_its_occupancy(dev):
                              src).group(1))
         assert fused_trace.blocks_per_sm('trace_seq_fwd', rows, cfg,
                                          plates) >= want
+
+
+EXT_CASES = ('mixed', 'asphere')
+
+
+def _ext_case(case, dev, n=N):
+    """A benchmarks/suite.py scene with the extended kinds, sequential, and
+    its 12-bounce Scene -> (scene, Scene, flat table, kinds, maps, rays)."""
+    make = (chip_smoke.mixed_scene if case == 'mixed'
+            else chip_smoke.asphere_scene)
+    seq, ns = make(trt), make(trt, chip_smoke.EXT_BOUNCES)
+    meta, cfg = seq.static_meta(), seq.sensor_config()
+    flat = trt.flatten_table_rows(seq.build_table(seq.init_params(dev)))
+    return (seq, ns, flat, _kinds(meta, cfg, dev),
+            fused_trace.plate_maps(meta, None),
+            chip_smoke.sample_rays(trt, torch, n, dev, 21))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', EXT_CASES)
+def test_ext_kernels_match_plain(case, dev):
+    """K1, K2, K5 and K6 in their instantiation with the extended kinds, on
+    the mixed-surface scene (cylindrical faces, CYL_EDGE side planes, VB
+    RECT, an inverted RECT stop) and the asphere scene, against their plain
+    versions with this file's bounds; K6's replay ends at K5's output bit
+    for bit."""
+    seq, ns, flat, kinds, maps, rays = _ext_case(case, dev)
+    meta, cfg = seq.static_meta(), seq.sensor_config()
+    assert fused_trace.ext_kinds(meta) and maps == ()
+    out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
+                                                ext=True)
+    out_p, s_p = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                          meta, maps)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(out_k, s_k, out_p, s_p)
+    g_rays, g_mom, _ = chip_smoke.random_cotangents(torch, rays.n, cfg, dev,
+                                                    22)
+    gt_k, gr_k, _ = fused_trace.trace_seq_bwd_cuda(
+        flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=True)
+    gt_p, gr_p, _ = fused_trace.trace_seq_bwd_plain(
+        flat, rays, cfg, meta, g_rays, g_mom, maps=maps)
+    torch.cuda.synchronize()
+    chip_smoke.compare_ray_cotangents(torch, gr_k, gr_p)
+    res = chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
+                                              plates=True, ext=True)
+    assert res['rows_with_grad'] >= 3
+    nmeta, ncfg, nb = ns.static_meta(), ns.sensor_config(), ns.n_bounces
+    out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, ncfg,
+                                                    nb, maps, ext=True)
+    out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(flat, rays, ncfg,
+                                                       nmeta, nb, maps)
+    torch.cuda.synchronize()
+    chip_smoke.compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    *_, ends = fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, rays, ncfg, nb, (None,) * 7, None, need_table=False,
+        need_rays=False, replay=True, maps=maps, ext=True)
+    for c in fused_trace.COMPS:
+        assert torch.equal(getattr(ends, c), getattr(out_k, c)), c
+    chip_smoke.compare_k6(trt, torch, ns, rays, 23)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', EXT_CASES)
+def test_ext_scenes_launch_their_instantiation(case, dev):
+    """``simulate_fused`` on the mixed-surface and asphere scenes launches
+    K1 (and K2 under grad) once each, their Scenes K5 (and K6), every launch
+    in the instantiation with the extended kinds (``EXT_LAUNCHES``); the
+    gradients in the leaves of chip_smoke.EXT_TRAINED match the eager
+    trace's to chip_smoke.GRAD_RTOL."""
+    seq, ns, _, _, _, rays = _ext_case(case, dev)
+    for sc, fwd, bwd in ((seq, 'LAUNCHES', 'BWD_LAUNCHES'),
+                         (ns, 'NONSEQ_LAUNCHES', 'NONSEQ_BWD_LAUNCHES')):
+        mod = fused_trace if sc is seq else fused_nonseq
+
+        def grads(simulate):
+            p = sc.init_params(dev)
+            for el, k in chip_smoke.EXT_TRAINED[case]:
+                p[el][k].requires_grad_(True)
+            _, s, _ = simulate(p, rays)
+            trt.spot_size_loss(s).backward()
+            return [p[el][k].grad for el, k in chip_smoke.EXT_TRAINED[case]]
+
+        setattr(mod, fwd, 0)
+        setattr(mod, bwd, 0)
+        fused_trace.EXT_LAUNCHES = 0
+        g_f = grads(sc.simulate_fused)
+        torch.cuda.synchronize()
+        assert (getattr(mod, fwd), getattr(mod, bwd),
+                fused_trace.EXT_LAUNCHES) == (1, 1, 2)
+        for a, b in zip(g_f, grads(sc.simulate)):
+            assert bool(torch.isfinite(a).all())
+            assert float(((a - b).abs() / b.abs()).max()) < \
+                chip_smoke.GRAD_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', EXT_CASES)
+def test_v1_takes_the_extended_kinds(case, dev):
+    """``trace_sequential_v1`` on a scene with the extended kinds launches
+    K1's kernel in its instantiation with them, equal bit for bit to K1."""
+    seq, _, flat, kinds, maps, rays = _ext_case(case, dev)
+    meta, cfg = seq.static_meta(), seq.sensor_config()
+    fused_trace.V1_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
+    out_v, sens_v, _ = trt.trace_sequential_v1(
+        seq.build_table(seq.init_params(dev)), rays, cfg, meta)
+    torch.cuda.synchronize()
+    assert (fused_trace.V1_LAUNCHES, fused_trace.EXT_LAUNCHES) == (1, 1)
+    out_k, sens_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg,
+                                                   maps, ext=True)
+    torch.cuda.synchronize()
+    for c in fused_trace.COMPS:
+        assert torch.equal(getattr(out_v, c), getattr(out_k, c)), c
+    assert torch.equal(sens_v.moments, sens_k.moments)
+
+
+@pytest.mark.cuda
+def test_main_path_runs_no_extended_kinds(dev):
+    """The bench scene's forward and gradient step (K1, K2), and the naive
+    scene's (K5, K6), launch their instantiations without the extended
+    kinds."""
+    rays = chip_smoke.sample_rays(trt, torch, N, dev, 24)
+    for sc in (chip_smoke.bench_scene(trt), chip_smoke.naive_scene(trt)):
+        p = sc.init_params(dev)
+        p['lens']['c1'].requires_grad_(True)
+        fused_trace.EXT_LAUNCHES = 0
+        _, s, _ = sc.simulate_fused(p, rays)
+        trt.spot_size_loss(s).backward()
+        torch.cuda.synchronize()
+        assert fused_trace.EXT_LAUNCHES == 0
+        assert float(p['lens']['c1'].grad.abs()) > 0
+
+
+@pytest.mark.cuda
+def test_ext_instantiations_are_built(dev):
+    """Each of K1, K2, K5 and K6 builds its instantiations with the extended
+    kinds (K2's for both homes of its saved states, K5's for both moment
+    buckets), and their occupancy queries answer."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        ext = [k for k in usage if f'{lib}_kernel' in k and _ext(k)]
+        assert len(ext) == count, (lib, ext)
+        assert all(usage[k]['registers'] for k in ext)
+    for case in EXT_CASES:
+        seq, ns, *_ = _ext_case(case, dev, 1)
+        for lib, sc in (('trace_seq_fwd', seq), ('trace_seq_bwd', seq),
+                        ('trace_nonseq_fwd', ns), ('trace_nonseq_bwd', ns)):
+            assert fused_trace.blocks_per_sm(
+                lib, len(sc.static_meta()), sc.sensor_config(), True,
+                sc.n_bounces, ext=True) >= 1
+
+
+def _plate_asphere_scene(bounces=None):
+    """A 40 x 40 phase plate ahead of an even-asphere singlet and a sensor
+    with a 32 x 32 grid: plate code, the extended kinds and a grid in one
+    launch."""
+    els = [trt.PhaseGridPlate(half_x=4.0, half_y=4.0, shape=(40, 40),
+                              name='plate'),
+           trt.AsphericLens(c1=0.05, k1=-0.6, a1=[2.5e-4, 1e-6], c2=-0.02,
+                            d=10.0, t=3.0, ior_glass=1.5,
+                            translation=[0.0, 0.0, 10.0], name='asph'),
+           trt.SensorElement(radius=10.0, translation=[0.0, 0.0, 30.0],
+                             name='det')]
+    scene = (trt.SequentialScene(els) if bounces is None
+             else trt.Scene(els, n_bounces=bounces))
+    scene.grid_shape, scene.grid_half_extent = (32, 32), 4.0
+    return scene
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['sequential', 'scene'])
+def test_ext_with_a_plate_and_a_grid_matches_plain(kind, dev):
+    """A scene with a phase plate, an asphere and a grid runs the
+    instantiation with the extended kinds (which holds plate code), reading
+    the plate's map: K1/K5 and K2/K6 against their plain versions with
+    chip_smoke.py's plate bounds (``compare_plate_bwd``)."""
+    scene = _plate_asphere_scene(None if kind == 'sequential' else 4)
+    meta, cfg = scene.static_meta(), scene.sensor_config()
+    assert fused_trace.ext_kinds(meta)
+    params = chip_smoke.ring_params(scene, dev)
+    maps = tuple(m.detach() for m in fused_trace.plate_maps(
+        meta, scene.side_grids(params)))
+    flat = trt.flatten_table_rows(scene.build_table(params))
+    kinds = _kinds(meta, cfg, dev)
+    rays = chip_smoke.ring_rays(trt, torch, N, dev, 25)
+    fused_trace.EXT_LAUNCHES = 0
+    if kind == 'sequential':
+        out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg,
+                                                    maps, ext=True)
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps)
+        torch.cuda.synchronize()
+        _assert_kernel_matches_plain(out_k, s_k, out_p, s_p)
+        chip_smoke.compare_grid(torch, s_k.grid, s_p.grid,
+                                chip_smoke.GRID_TOTAL_RTOL)
+    else:
+        out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, scene.n_bounces, maps, ext=True)
+        out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, scene.n_bounces, maps)
+        torch.cuda.synchronize()
+        chip_smoke.compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    chip_smoke.compare_plate_bwd(trt, torch, scene, params, rays, 26,
+                                 nonseq=kind == 'scene')
+    assert fused_trace.EXT_LAUNCHES == 2

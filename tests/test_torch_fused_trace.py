@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import raytracetorch_tpu as jrt
 import raytracetorch_tpu_torch as trt
 from raytracetorch_tpu import ElementCustom
@@ -136,11 +137,12 @@ def _fresnel_scene():
                           name='sensor')])
 
 
-def _asphere_scene():
+def _freeform_scene():
+    # an XY-polynomial freeform face: the asphere under it is ported, the
+    # freeform refinement is not
     return jrt.SequentialScene([
-        jrt.AsphericLens(c1=0.03, k1=-0.5, a1=[1e-4, 0.0, 0.0, 0.0],
-                         c2=-0.01, d=12.0, t=2.0, ior_glass=1.6,
-                         name='asph'),
+        jrt.FreeformLens(c1=0.03, c2=-0.01, d=12.0, t=2.0, ior_glass=1.6,
+                         xy1=[(2, 0, 1e-4)], name='ff'),
         jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
                           name='sensor')])
 
@@ -162,7 +164,7 @@ def _ellipse_scene():
                           name='sensor')])
 
 
-@pytest.mark.parametrize('make', [_fresnel_scene, _asphere_scene,
+@pytest.mark.parametrize('make', [_fresnel_scene, _freeform_scene,
                                   _rect_scene, _ellipse_scene])
 def test_dispatcher_raises_on_unsupported_rows(make):
     scene = make()
@@ -202,25 +204,41 @@ def test_rect_bound_rows_trace():
 
 def test_plate_code_only_for_plate_kinds():
     """``plate_maps`` selects the kernels' instantiation with plate code
-    (anything but None) exactly for scenes with a PHASE_GRID row or a RECT
-    bound: None for the bench scene, () for a rectangular stop, the map for
-    a plate."""
+    (anything but None) exactly for scenes with a PHASE_GRID row, a RECT
+    bound or an extended kind: None for the bench scene, () for a
+    rectangular stop or sensor, the map for a plate.  ``ext_kinds`` selects
+    the instantiation with the extended kinds exactly for scenes with an
+    asphere, a rectangular volume bound or a cylindrical lens's edge: the
+    suite's mixed-surface and asphere scenes (() for their maps), not a
+    scene whose only new kind is the RECT surface bound."""
     def meta_of(scene):
         return _port_inputs(scene, _rays(8, 1, seed=0), 1)[3]
-    assert fused_trace.plate_maps(meta_of(_bench()), None) is None
-    rect = jrt.SequentialScene([
-        jrt.RectangularAperture(half_x=2.0, half_y=1.0, name='rect'),
-        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
-                          name='sensor')])
-    assert fused_trace.plate_maps(meta_of(rect), None) == ()
+    bench = meta_of(_bench())
+    assert fused_trace.plate_maps(bench, None) is None
+    assert not fused_trace.ext_kinds(bench)
+    for rect in (jrt.RectangularAperture(half_x=2.0, half_y=1.0,
+                                         name='rect'),
+                 jrt.SensorElement(half_x=2.0, half_y=1.0,
+                                   translation=[0, 0, 5.0], name='rect')):
+        meta = meta_of(jrt.SequentialScene([
+            rect, jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+                                    name='sensor')]))
+        assert fused_trace.plate_maps(meta, None) == ()
+        assert not fused_trace.ext_kinds(meta)
     plate = jrt.SequentialScene([
         jrt.PhaseGridPlate(half_x=4.0, half_y=4.0, shape=(8, 8), name='pp'),
         jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
                           name='sensor')])
     grid = torch.zeros(8, 8)
     assert fused_trace.plate_maps(meta_of(plate), {0: grid})[0] is grid
+    assert not fused_trace.ext_kinds(meta_of(plate))
     with pytest.raises(ValueError, match='no phase map'):
         fused_trace.plate_maps(meta_of(plate), None)
+    for scene in (chip_smoke.mixed_scene(jrt), chip_smoke.asphere_scene(jrt),
+                  chip_smoke.mixed_scene(jrt, 12)):
+        meta = meta_of(scene)
+        assert fused_trace.ext_kinds(meta)
+        assert fused_trace.plate_maps(meta, None) == ()
 
 
 def test_v1_matches_jax_first_kernel():

@@ -152,6 +152,7 @@ def test_unsupported_elements_raise():
         trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
                         abbe_vd=64.2)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.SensorElement(half_x=1.0, half_y=1.0)
+        trt.CylSingletLens(c1=0.04, c2=-0.04, height=12.0, width=14.0,
+                           t=3.0, ior_glass=1.5, fresnel=True)
     with pytest.raises(ValueError, match='larger than D/2'):
         trt.SingletLens(c1=0.5, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5)
