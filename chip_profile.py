@@ -33,7 +33,11 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   ``simulate_fused`` on each (benchmarks/suite.py's
   ``mixed_surfaces_sequential_1M`` and ``asphere_sequential_1M``), and
   ``Renderer.render_3d`` at 1024 x 1024 on the naive scene
-  (``render_1024x1024``).
+  (``render_1024x1024``);
+- the dispersive scenes (chip_smoke.py section 9: the achromat with Abbe
+  and with Sellmeier glasses, the Sellmeier Cooke triplet) on their own
+  rays: K1 and K5 in their extended instantiation, K2 and K6 in the one
+  with dispersion, ``simulate_fused`` and its grad step.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -282,6 +286,51 @@ def main():
             f'{case}_simulate_fused': (lambda sc=sc, p=ep:
                                        sc.simulate_fused(p, rays),
                                        'trace_seq_fwd_kernel')})
+    # dispersion (chip_smoke.py section 9): the achromat (Abbe, Sellmeier)
+    # and the Cooke triplet, their own rays; K2 and K6 in the instantiation
+    # with dispersion, and the entry points
+    for case in cs.DISP_CASES:
+        sc, _, nbd = cs.disp_case(rt, case)
+        ns = cs.disp_case(rt, case, cs.DISP_BOUNCES)[0]
+        dmeta, dcfg = sc.static_meta(), sc.sensor_config(nbd)
+        dp = sc.init_params(dev)
+        dflat = rt.flatten_table_rows(sc.build_table(dp))
+        dkinds = torch.tensor(fused_trace.kind_rows(dmeta, dcfg),
+                              dtype=torch.int32, device=dev)
+        drays = cs.disp_rays(rt, torch, case, n, dev, cs.SEED + 1)
+        dg = torch.randn(1, nbd, 7, generator=torch.Generator(
+            device=dev).manual_seed(cs.SEED), device=dev)
+        ndcfg = ns.sensor_config(nbd)
+        dgrad = sc.init_params(dev)
+        for el, k in cs.DISP_TRAINED[case]:
+            dgrad[el][k].requires_grad_(True)
+
+        def disp_step(sc=sc, p=dgrad, r=drays, b=nbd):
+            _, s_, _ = sc.simulate_fused(p, r, b)
+            rt.spot_size_loss(s_).backward()
+
+        calls.update({
+            f'{case}_k1': (lambda f=dflat, k=dkinds, r=drays, c=dcfg:
+                           fused_trace.trace_seq_fwd_cuda(
+                               f, k, r, c, (), ext=True),
+                           'trace_seq_fwd_kernel'),
+            f'{case}_k2': (lambda f=dflat, k=dkinds, r=drays, c=dcfg, g=dg:
+                           fused_trace.trace_seq_bwd_cuda(
+                               f, k, r, c, (None,) * 7, g, maps=(),
+                               ext=True, disp=True), 'trace_seq_bwd'),
+            f'{case}_k5': (lambda f=dflat, k=dkinds, r=drays, c=ndcfg:
+                           fused_nonseq.trace_nonseq_fwd_cuda(
+                               f, k, r, c, cs.DISP_BOUNCES, (), ext=True),
+                           'trace_nonseq_fwd_kernel'),
+            f'{case}_k6': (lambda f=dflat, k=dkinds, r=drays, c=ndcfg, g=dg:
+                           fused_nonseq.trace_nonseq_bwd_cuda(
+                               f, k, r, c, cs.DISP_BOUNCES, (None,) * 7, g,
+                               maps=(), ext=True, disp=True),
+                           'trace_nonseq_bwd_kernel'),
+            f'{case}_simulate_fused': (lambda sc=sc, p=dp, r=drays, b=nbd:
+                                       sc.simulate_fused(p, r, b),
+                                       'trace_seq_fwd_kernel'),
+            f'{case}_grad_step_fused': (disp_step, 'trace_seq_bwd')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

@@ -43,6 +43,21 @@ plain versions and the three new entry points, with bounds and blocks per
 SM.  Every path of sections 4-7 also checks that it launched no
 instantiation with the extended kinds.
 
+Section 9 drives chromatic dispersion: the achromat of
+tests/test_dispersion.py (Abbe glasses, and Sellmeier ones by
+``glass_pair``) with a sensor at its design plane and the Sellmeier Cooke
+triplet of examples/16_cooke_triplet.py, sequential and as 12-bounce
+Scenes, through K1 and K5 in their extended instantiation and K2 and K6 in
+their instantiation with dispersion: each kernel against its plain version
+at 2,999 and 1M rays (K2 and K6 with the dispersion columns and the
+wavelength's cotangent), the counted forward and gradient paths against
+JAX anchors (tests/dispersion_anchors.py) and the eager gradients (the
+curvatures, the Abbe achromat's glass indices, the wavelength), the two
+achromat designs by ``fit_lbfgs`` at 1M rays (the F-to-C gap, K1 and K2
+once per evaluation), then the four kernels' times against their plain
+versions, K1 and K5 against the achromat at constant indices, the entry
+points, bounds and blocks per SM.
+
 The build phase prints each kernel's ptxas registers and spills, and the
 next K1's, K2's, K5's and K6's resident blocks per SM on their main paths'
 launches.  K4's scatter is checked on both of its paths: maps held in
@@ -182,6 +197,51 @@ DO_BOUNCES = 3
 DO_DESIGN_RAYS, DO_DESIGN_STEPS, DO_DESIGN_LR = 30_000, 800, 1.5
 DO_RMS_MAX = 0.12
 DO_SLOPE_RTOL = 0.15
+# Chromatic dispersion (section 9).  The achromat of tests/test_dispersion.py:
+# 59-68 (a cemented doublet of an N-BK7 crown and an SF2-like flint, Abbe
+# numbers; and the same with glass_pair('N-BK7', 'SF2', model='sellmeier'))
+# with a sensor at its design plane z = 100, lit by two collimated disks of
+# radius 3 at z = -10, F and C light, ACHROMAT_RAYS each; and the Sellmeier
+# Cooke triplet of examples/16_cooke_triplet.py:40-55 (N-SK16 / F2 / N-SK16,
+# stop r = 5 at z = 12.3) with a sensor at its image plane z = 60.9, lit at
+# the F, d and C lines and at tan(field) 0 and 0.1: six bundles, 1M rays in
+# all.  Anchors from the JAX package (tests/dispersion_anchors.py, on the
+# CPU): the triplet's spot RMS per bundle at 1M rays, the mean over keys 0-3,
+# each within 6 of its standard deviations over those keys (this run draws
+# its own rays); the achromat's axis crossings of a paraxial ray (height
+# 0.1) at the F, d and C lines, to CROSS_TOL (float32 rounding of the
+# crossing's division at a slope of 1e-3).  The achromat design (the loss of
+# tests/test_dispersion.py:76-83, fit_lbfgs): the F-to-C focus gap under
+# ACHROMAT_DESIGN's share of its start in its steps, the JAX test's own
+# anchor for the Abbe glasses.  The wavelength's cotangent, kernel against
+# plain: each ray within WL_RTOL of the stream's scale (the Sellmeier terms
+# of a glass cancel about a hundredfold in d n / d lambda, so float32
+# rounding in another order reads ~1e-4 of the scale on the CPU).
+F_LINE, D_LINE, C_LINE = 0.4861, 0.5876, 0.6563
+ACHROMAT_KW = dict(c1=0.02, c2=-0.025, c3=-0.004, d=20.0, t1=4.0, t2=2.0)
+ACHROMAT_ABBE = dict(ior_glass1=1.5168, ior_glass2=1.6727, abbe_vd1=64.17,
+                     abbe_vd2=32.25)
+ACHROMAT_Z = 100.0
+ACHROMAT_RAYS = 524_288
+ACHROMAT_DESIGN = {'abbe': (20, 0.25), 'sellmeier': (30, 0.3)}
+ACHROMAT_CROSS_REF = {'abbe': (109.11491, 108.55776, 108.31959),
+                      'sellmeier': (103.19884, 102.89629, 102.8531)}
+CROSS_TOL = 2e-3
+COOKE_LINES = (0.48613, 0.5876, 0.65627)
+COOKE_FIELDS = (0.0, 0.1)
+COOKE_IMG_Z = 60.9
+COOKE_RMS_REF = (0.355714, 0.350965, 0.346175, 0.359114, 0.354366, 0.34994)
+COOKE_RMS_TOL = (0.001291, 0.001215, 0.002606, 0.001061, 0.00252, 0.001301)
+DISP_BOUNCES = 12
+WL_RTOL = 1e-3
+# K2 and K6 against their plain versions on these scenes: each ray's
+# cotangents under DISP_BWD_TOL * (|plain| + the group's scale), BWD_TOL's
+# rule at 10 times its bound: the rays pass 3 to 6 refracting faces and
+# travel 60-110 mm to the sensor, and the position cotangents' float32
+# rounding in another order (the kernel contracts multiply-adds) reaches
+# 1.6e-5 of the group's scale on a CPU build of the same device functions,
+# 3 times the bench scene's worst.
+DISP_BWD_TOL = 1e-4
 # K4 alone: its gather bit for bit; its scatter, and every map cotangent of
 # K2 or K6 against its plain version, each cell within GRID_RAND_RTOL of the
 # largest |cell| (float atomics add in a run-dependent order).  Fused vs
@@ -358,11 +418,12 @@ def random_cotangents(torch, n, cfg, device, seed):
 
 
 def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
-                           allowed=None):
+                           allowed=None, tol=BWD_TOL):
     """Per-ray cotangents, kernel vs plain (7 streams px..intensity) ->
-    dict; raises on a breach.  ``allowed`` rays may differ (default
-    BWD_FLIPS_PER_MILLION), ``intensity_allowed`` in the intensity
-    cotangent alone (a grid cotangent read from a neighbour bin).  Per group
+    dict; raises on a breach of ``tol`` (BWD_TOL's rule).  ``allowed`` rays
+    may differ (default BWD_FLIPS_PER_MILLION), ``intensity_allowed`` in the
+    intensity cotangent alone (a grid cotangent read from a neighbour
+    bin).  Per group
     (position, direction, intensity) it reports the scale (the largest
     |plain|), the median |plain|, and the worst error over the scale on all
     rays and on the rays inside the bound."""
@@ -377,7 +438,7 @@ def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
         for j in grp:
             err = (g_k[j] - g_p[j]).abs()
             errs.append(err)
-            bound = BWD_TOL * (g_p[j].abs() + scale)
+            bound = tol * (g_p[j].abs() + scale)
             bad_g |= (err > bound) | ~torch.isfinite(g_k[j])
     any_bad = bad[0] | bad[1] | bad[2]
     n_bad = int(any_bad.sum())
@@ -416,12 +477,14 @@ def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
 
 
 def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False,
-                             ext=False):
+                             ext=False, disp=False):
     """Table cotangent [K, 160], kernel vs plain -> dict; raises on a
     breach.  Outside GRAD_COLS (PLATE_GRAD_COLS with phase plates,
-    EXT_GRAD_COLS with the extended kinds) both must be exactly zero."""
-    offs = list(fused_trace.grad_cols(() if plates else None, ext))
-    # the asphere's a4..a10 span r^4..r^10: each column its own scale
+    EXT_GRAD_COLS with the extended kinds, and DISP_GRAD_COLS with a
+    dispersive row) both must be exactly zero."""
+    offs = list(fused_trace.grad_cols(() if plates else None, ext, disp))
+    # the asphere's a4..a10 span r^4..r^10, the dispersion coefficients
+    # B ~ 1 and C ~ 0.01-100 um^2: each column its own scale
     fields = (offs[0:5], offs[5:14], offs[14:17], offs[17:19]) + (
         (offs[19:23],) if len(offs) > 19 else ()) + tuple(
         [c] for c in offs[23:])
@@ -532,6 +595,70 @@ def asphere_scene(rt, n_bounces=None):
             else rt.Scene(els, n_bounces=n_bounces))
 
 
+def achromat_scene(rt, model='abbe', n_bounces=None, grad=False):
+    """The achromat of tests/test_dispersion.py:59-68 with a sensor at its
+    design plane z = 100: the Abbe glasses of the test, or glass_pair(
+    'N-BK7', 'SF2', model='sellmeier'); ``grad``: the three curvatures
+    trainable; with ``n_bounces`` a Scene.  Rays: ``achromat_bundles``."""
+    glasses = (ACHROMAT_ABBE if model == 'abbe'
+               else rt.glass_pair('N-BK7', 'SF2', model='sellmeier'))
+    els = [rt.DoubletLens(**ACHROMAT_KW, **glasses, c1_grad=grad,
+                          c2_grad=grad, c3_grad=grad, name='achromat'),
+           rt.SensorElement(radius=30.0, translation=[0.0, 0.0, ACHROMAT_Z],
+                            name='sensor')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def achromat_bundles(rt, n=ACHROMAT_RAYS):
+    """[(bundle, n)]: collimated disks of radius 3 at z = -10, F light
+    (ray_id 0) and C light (ray_id 1)."""
+    return [(rt.CollimatedDisk.make(radius=3.0, ray_id=j, wavelength=wl,
+                                    translation=[0.0, 0.0, -10.0]), n)
+            for j, wl in enumerate((F_LINE, C_LINE))]
+
+
+def cooke_scene(rt, n_bounces=None):
+    """The Sellmeier Cooke triplet of examples/16_cooke_triplet.py:40-55
+    (pert 1: the textbook 50 mm f/4.5; 11 rows with the stop and a sensor at
+    the image plane z = 60.9); with ``n_bounces`` a Scene.  Rays:
+    ``cooke_bundles``."""
+    sk16 = rt.glass('N-SK16', model='sellmeier')
+    f2 = rt.glass('F2', model='sellmeier')
+    els = [rt.SingletLens(c1=1.0 / 22.01, c2=1.0 / -435.8, d=17.0, t=3.26,
+                          translation=[0.0, 0.0, 1.63], c1_grad=True,
+                          c2_grad=True, name='crown_front', **sk16),
+           rt.SingletLens(c1=1.0 / -22.21, c2=1.0 / 22.26, d=11.0, t=1.0,
+                          translation=[0.0, 0.0, 9.77], c1_grad=True,
+                          c2_grad=True, name='flint', **f2),
+           rt.CircularAperture(radius=5.0, translation=[0.0, 0.0, 12.3],
+                               name='stop'),
+           rt.SingletLens(c1=1.0 / 79.68, c2=1.0 / -18.40, d=13.0, t=2.95,
+                          translation=[0.0, 0.0, 16.5], c1_grad=True,
+                          c2_grad=True, name='crown_rear', **sk16),
+           rt.SensorElement(radius=20.0, translation=[0.0, 0.0, COOKE_IMG_Z],
+                            name='sensor')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def cooke_bundles(rt, n=N_MAIN):
+    """[(bundle, n_j)], n rays in all: a collimated disk of radius 5 at
+    z = -10 for each field tan(f) of COOKE_FIELDS and line of COOKE_LINES
+    (ray_id = 3 * field index + line index), tilted about x so its rays
+    head up at tan(f), centred so that they cross the axis at the stop."""
+    out, n_b = [], len(COOKE_FIELDS) * len(COOKE_LINES)
+    for i, f in enumerate(COOKE_FIELDS):
+        for j, wl in enumerate(COOKE_LINES):
+            b = len(out)
+            out.append((rt.CollimatedDisk.make(
+                radius=5.0, ray_id=b, wavelength=wl,
+                rotation=[-math.atan(f), 0.0, 0.0],
+                translation=[0.0, -f * (12.3 + 10.0), -10.0]),
+                n // n_b + (n % n_b if b == n_b - 1 else 0)))
+    return out
+
+
 # The leaves each extended scene's gradient phases train (the issue's
 # choice: a cylindrical face and a spherical face; the conic and the
 # polynomial)
@@ -553,6 +680,7 @@ def compare_k6(rt, torch, scene, rays, seed, chaotic=False):
     kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
                          device=dev)
     ext = fused_trace.ext_kinds(meta)
+    disp = fused_trace.dispersive(meta)
     maps = fused_trace.plate_maps(meta, None)
     out_k, _ = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, nb,
                                                   maps, ext)
@@ -570,22 +698,48 @@ def compare_k6(rt, torch, scene, rays, seed, chaotic=False):
     sub = rt.Rays(**{f: getattr(rays, f)[same].contiguous()
                      for f in rays.__dataclass_fields__})
     g_rays, g_mom, g_grid = random_cotangents(torch, n_sub, cfg, dev, seed)
-    gt_k, gr_k = fused_nonseq.trace_nonseq_bwd_cuda(
+    res_k = fused_nonseq.trace_nonseq_bwd_cuda(
         flat, kinds, sub, cfg, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
-        ext=ext)[:2]
-    gt_p, gr_p = fused_nonseq.trace_nonseq_bwd_plain(
-        flat, sub, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
-        maps=maps)[:2]
+        ext=ext, disp=disp, need_wavelength=disp)
+    res_p = fused_nonseq.trace_nonseq_bwd_plain(
+        flat, sub, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
+        need_wavelength=disp)
+    (gt_k, gr_k), (gt_p, gr_p) = res_k[:2], res_p[:2]
     torch.cuda.synchronize()
     res = dict(forward_differ=n - n_sub)
     res.update(compare_ray_cotangents(
         torch, gr_k, gr_p, allowed=allowed,
         intensity_allowed=(math.ceil(GRID_SHARE * n_sub)
-                           if cfg.grid_shape else 0)))
+                           if cfg.grid_shape else 0),
+        tol=DISP_BWD_TOL if disp else BWD_TOL))
     res.update(compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
-                                        maps is not None, ext))
+                                        maps is not None, ext, disp))
+    if disp:
+        res['wavelength'] = compare_wavelength_cotangents(
+            torch, res_k[3], res_p[3], allowed)
     # the first row's curvature, q[0:3]: a mirror's c1 in the mirror scenes
     res['row0_curvature_cotangent'] = float(gt_k[0, :3].abs().sum())
+    return res
+
+
+def compare_wavelength_cotangents(torch, g_k, g_p, allowed=None):
+    """The wavelength's cotangent [N], kernel vs plain -> dict; raises if
+    more than ``allowed`` rays (default BWD_FLIPS_PER_MILLION) differ by
+    more than WL_RTOL of the stream's scale (module notes)."""
+    n = g_p.shape[0]
+    scale = float(g_p.abs().max()) if n else 0.0
+    err = (g_k - g_p).abs()
+    bad = (err > WL_RTOL * scale) | ~torch.isfinite(g_k)
+    if allowed is None:
+        allowed = math.ceil(BWD_FLIPS_PER_MILLION * n / 1e6)
+    res = dict(scale=scale, rays_differ=int(bad.sum()), allowed=allowed,
+               max_err_over_scale=float(err.max()) / max(scale, 1e-30),
+               max_err_in_bound_over_scale=(
+                   float(err[~bad].max()) / max(scale, 1e-30)
+                   if int(bad.sum()) < n else 0.0))
+    check(scale > 0.0, 'the wavelength has no cotangent')
+    check(res['rays_differ'] <= allowed,
+          f'{res["rays_differ"]} rays have another wavelength cotangent')
     return res
 
 
@@ -807,6 +961,11 @@ def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
 # and ~8 comparisons (~26).
 ASPH_REFINE_OPS = 2 * (4 * 83 + 75)
 EXT_VB_OPS = {3: 6, 4: 26}
+# A dispersive row's indices: lambda^2 (~3 operations), then per side a
+# Cauchy index (~4) or a Sellmeier one (3 terms of ~7 and a square root,
+# ~24); a constant side costs nothing.
+DISP_L2_OPS = 3
+DISP_SIDE_OPS = {0: 0, 1: 4, 2: 24}
 
 
 def intersect_ops(meta):
@@ -821,7 +980,9 @@ def apply_ops(meta):
                PhysKind.APERTURE: 8,
                PhysKind.PHASE_GRID: 130}.get(meta.ph, 0)
     normal = 0 if meta.plane else 30 if meta.asph else 34
-    return 7 + normal + physics + (13 if meta.sensor else 0)
+    disp = (DISP_L2_OPS + sum(DISP_SIDE_OPS[m] for m in meta.dispm)
+            if meta.disp else 0)
+    return 7 + normal + physics + disp + (13 if meta.sensor else 0)
 
 
 def bound(n_bytes, n_ops):
@@ -925,6 +1086,167 @@ def time_pair(torch, kernel_fn, plain_fn, reps=20, warmup=3):
     return statistics.median(k), statistics.median(p), k, p
 
 
+def ext_kernels_vs_plain(rt, torch, ns, flat, kinds, maps, meta, cfg, rays,
+                         seed, n_bounces):
+    """K1, K2, K5 and K6 in their instantiations with the extended kinds
+    (and, on a dispersive table, K2's and K6's with dispersion and the
+    wavelength's cotangent) against their plain versions on ``rays`` ->
+    dict; raises on a breach.  ``ns`` is the scene as a Scene of
+    ``n_bounces``; seeds ``seed + 1`` and ``seed + 2`` draw the cotangents
+    of K2 and K6."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    disp = fused_trace.dispersive(meta)
+    nmeta, ncfg = ns.static_meta(), ns.sensor_config(cfg.n_bundles)
+    out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
+                                                ext=True)
+    out_p, s_p = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                          meta, maps)
+    torch.cuda.synchronize()
+    res = {'k1': compare(torch, out_k, s_k, out_p, s_p)}
+    g_rays, g_mom, _ = random_cotangents(torch, rays.n, cfg, rays.px.device,
+                                         seed + 1)
+    res_k = fused_trace.trace_seq_bwd_cuda(
+        flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=True,
+        disp=disp, need_wavelength=disp)
+    res_p = fused_trace.trace_seq_bwd_plain(flat, rays, cfg, meta, g_rays,
+                                            g_mom, maps=maps,
+                                            need_wavelength=disp)
+    torch.cuda.synchronize()
+    res['k2'] = compare_ray_cotangents(torch, res_k[1], res_p[1],
+                                       tol=DISP_BWD_TOL if disp else BWD_TOL)
+    res['k2'].update(compare_table_cotangents(
+        torch, fused_trace, res_k[0], res_p[0], plates=True, ext=True,
+        disp=disp))
+    check(res['k2']['rows_with_grad'] >= 3, 'too few rows with a table '
+          'cotangent')
+    if disp:
+        res['k2']['wavelength'] = compare_wavelength_cotangents(
+            torch, res_k[3], res_p[3])
+        dcols = list(fused_trace.DISP_GRAD_COLS)
+        res['k2']['disp_rows_with_grad'] = int(
+            (res_p[0][:, dcols].abs().sum(1) > 0).sum())
+        check(res['k2']['disp_rows_with_grad'] >= 2,
+              'too few rows with a dispersion cotangent')
+    out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+        flat, kinds, rays, ncfg, n_bounces, maps, ext=True)
+    out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+        flat, rays, ncfg, nmeta, n_bounces, maps)
+    torch.cuda.synchronize()
+    res['k5'] = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    *_, ends = fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, rays, ncfg, n_bounces, (None,) * 7, None,
+        need_table=False, need_rays=False, replay=True, maps=maps, ext=True,
+        disp=disp)
+    torch.cuda.synchronize()
+    res['k6_replay_equals_k5'] = all(
+        torch.equal(getattr(ends, c), getattr(out_k, c))
+        for c in fused_trace.COMPS)
+    check(res['k6_replay_equals_k5'], "K6's replay ends apart from K5")
+    res['k6'] = compare_k6(rt, torch, ns, rays, seed + 2)
+    return res
+
+
+def ext_timing(torch, flat, kinds, maps, meta, cfg, nmeta, ncfg, rays,
+               n_bounces):
+    """Median CUDA-event ms of K1, K2, K5 and K6 in their instantiations
+    with the extended kinds (K2's and K6's with dispersion on a dispersive
+    table) against their plain versions at the scene's sizes, with the
+    cotangents of a moment loss -> {kernel: dict}."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    from raytracetorch_tpu_torch.ops.fused_trace import dispersive
+    disp, no_rays = dispersive(meta), (None,) * 7
+    g_mom1 = torch.randn(1, cfg.n_bundles, 7, generator=torch.Generator(
+        device=rays.px.device).manual_seed(SEED), device=rays.px.device)
+    pairs = {
+        'k1': (lambda: fused_trace.trace_seq_fwd_cuda(
+            flat, kinds, rays, cfg, maps, ext=True),
+            lambda: fused_trace.trace_sequential_fused_plain(
+                flat, rays, cfg, meta, maps), 20, 3),
+        'k2': (lambda: fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, no_rays, g_mom1, maps=maps, ext=True,
+            disp=disp),
+            lambda: fused_trace.trace_seq_bwd_plain(
+                flat, rays, cfg, meta, no_rays, g_mom1, maps=maps), 20, 3),
+        'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, ncfg, n_bounces, maps, ext=True),
+            lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, rays, ncfg, nmeta, n_bounces, maps), 4, 1),
+        'k6': (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, ncfg, n_bounces, no_rays, g_mom1, maps=maps,
+            ext=True, disp=disp),
+            lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                flat, rays, ncfg, nmeta, n_bounces, no_rays, g_mom1,
+                maps=maps), 4, 1)}
+    out = {}
+    for key, (kfn, pfn, reps, warm) in pairs.items():
+        k_ms, p_ms, k_runs, p_runs = time_pair(torch, kfn, pfn, reps, warm)
+        out[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs,
+                        plain_runs=p_runs)
+    return out
+
+
+def counted_path(rt, torch, sc, rays, n_bundles, trained, fwd, bwd, counters,
+                 reset_counters, only, label):
+    """The forward of ``sc.simulate_fused`` (kernel ``fwd`` once, in the
+    instantiation with the extended kinds) and a spot-loss gradient step
+    (``fwd`` and ``bwd`` once each) against the eager trace's gradients in
+    the leaves ``trained`` ([(element, param)]), the rays' px and, on a
+    dispersive scene, their wavelength -> dict with the bundles' spot RMS;
+    raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_trace
+    dev = rays.px.device
+    disp = fused_trace.dispersive(sc.static_meta())
+    params = sc.init_params(dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    out, sens, _ = sc.simulate_fused(params, rays, n_bundles)
+    torch.cuda.synchronize()
+    fwd_launches = counters()
+    finite = all(bool(torch.isfinite(getattr(out, c)).all())
+                 for c in fused_trace.COMPS)
+
+    def grads(simulate):
+        p = sc.init_params(dev)
+        for el, k in trained:
+            p[el][k].requires_grad_(True)
+        r = rays.replace(px=rays.px.clone().requires_grad_(True),
+                         wavelength=rays.wavelength.clone()
+                         .requires_grad_(disp))
+        o, s_, _ = simulate(p, r, n_bundles)
+        (rt.spot_size_loss(s_) + (o.px * o.dx).mean()).backward()
+        return [p[el][k].grad for el, k in trained], r.px.grad, \
+            r.wavelength.grad
+
+    torch.cuda.synchronize()
+    reset_counters()
+    g_f, rg_f, wg_f = grads(sc.simulate_fused)
+    torch.cuda.synchronize()
+    grad_launches = counters()
+    g_e, rg_e, wg_e = grads(sc.simulate)
+    rel = [float(((a - b).abs() / b.abs()).max()) for a, b in zip(g_f, g_e)]
+    zeros = torch.zeros_like(rays.px)
+    allowed = max(3, math.ceil(NS_MISMATCH_SHARE * rays.n))
+    res = dict(
+        fwd_launches=fwd_launches, grad_launches=grad_launches,
+        spot_rms=[float(v) for v in sens.spot_rms(0)], finite=finite,
+        shape=list(out.pos.shape), grad_fused=[g.tolist() for g in g_f],
+        grad_eager=[g.tolist() for g in g_e], rel_err=rel,
+        ray_grads=compare_ray_cotangents(
+            torch, (rg_f,) + (zeros,) * 6, (rg_e,) + (zeros,) * 6,
+            allowed=allowed, tol=DISP_BWD_TOL if disp else BWD_TOL))
+    if disp:
+        res['wavelength_grads'] = compare_wavelength_cotangents(
+            torch, wg_f, wg_e, allowed)
+    check(only(fwd_launches, **{fwd: 1, 'ext': 1}),
+          f'{label}: the forward launched {fwd_launches}')
+    check(only(grad_launches, **{fwd: 1, bwd: 1, 'ext': 2}),
+          f'{label}: the grad step launched {grad_launches}')
+    check(finite and res['shape'] == [rays.n, 3], f'{label}: bad rays')
+    check(max(rel) < GRAD_RTOL,
+          f'{label}: fused vs eager gradients differ: {rel}')
+    return res
+
+
 def extended_phases(rt, torch, dev, reset_counters, counters, only):
     """Section 8: benchmarks/suite.py's mixed-surface and asphere scenes,
     sequential and as 12-bounce Scenes, through K1, K2, K5 and K6 in their
@@ -935,7 +1257,7 @@ def extended_phases(rt, torch, dev, reset_counters, counters, only):
     1024 x 1024 on the naive and the mixed scene, timed and held to the
     same renderer on the CPU; then the four kernels' times against their
     plain versions, their bounds and their blocks per SM."""
-    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    from raytracetorch_tpu_torch.ops import fused_trace
     from raytracetorch_tpu_torch.render.camera import Camera, Renderer
     scenes = {'mixed': (mixed_scene, MIXED_RMS_REF, MIXED_RMS_TOL),
               'asphere': (asphere_scene, ASPH_RMS_REF, ASPH_RMS_TOL)}
@@ -956,32 +1278,9 @@ def extended_phases(rt, torch, dev, reset_counters, counters, only):
         seq, ns, flat, kinds, maps, meta, cfg, nmeta, ncfg = inputs(make)
         for n in (N_SMALL, N_MAIN):
             rays = sample_rays(rt, torch, n, dev, SEED + 101 + n)
-            out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays,
-                                                        cfg, maps, ext=True)
-            out_p, s_p = fused_trace.trace_sequential_fused_plain(
-                flat, rays, cfg, meta, maps)
-            torch.cuda.synchronize()
-            res = {'k1': compare(torch, out_k, s_k, out_p, s_p)}
-            g_rays, g_mom, _ = random_cotangents(torch, n, cfg, dev,
-                                                 SEED + 102 + n)
-            gt_k, gr_k, _ = fused_trace.trace_seq_bwd_cuda(
-                flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=True)
-            gt_p, gr_p, _ = fused_trace.trace_seq_bwd_plain(
-                flat, rays, cfg, meta, g_rays, g_mom, maps=maps)
-            torch.cuda.synchronize()
-            res['k2'] = compare_ray_cotangents(torch, gr_k, gr_p)
-            res['k2'].update(compare_table_cotangents(
-                torch, fused_trace, gt_k, gt_p, plates=True, ext=True))
-            check(res['k2']['rows_with_grad'] >= 3,
-                  f'{case}: too few rows with a table cotangent')
-            out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
-                flat, kinds, rays, ncfg, EXT_BOUNCES, maps, ext=True)
-            out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
-                flat, rays, ncfg, nmeta, EXT_BOUNCES, maps)
-            torch.cuda.synchronize()
-            res['k5'] = compare_nonseq(torch, out_k, s_k, out_p, s_p)
-            res['k6'] = compare_k6(rt, torch, ns, rays, SEED + 103 + n)
-            kern[f'{case}_{n}'] = res
+            kern[f'{case}_{n}'] = ext_kernels_vs_plain(
+                rt, torch, ns, flat, kinds, maps, meta, cfg, rays,
+                SEED + 101 + n, EXT_BOUNCES)
     emit('ext_kernels_vs_plain', **kern)
 
     # 8b. the counted paths: forward (K1 or K5 once, with the extended
@@ -995,56 +1294,16 @@ def extended_phases(rt, torch, dev, reset_counters, counters, only):
         for kind, sc, fwd, bwd in (
                 ('sequential', seq, 'trace_seq_fwd', 'trace_seq_bwd'),
                 ('scene', ns, 'trace_nonseq_fwd', 'trace_nonseq_bwd')):
-            params = sc.init_params(dev)
-            torch.cuda.synchronize()
-            reset_counters()
-            out, sens, _ = sc.simulate_fused(params, rays)
-            torch.cuda.synchronize()
-            fwd_launches = counters()
-            rms = float(sens.spot_rms(0)[0])
-            finite = all(bool(torch.isfinite(getattr(out, c)).all())
-                         for c in fused_trace.COMPS)
-
-            def grads(simulate, sc=sc):
-                p = sc.init_params(dev)
-                for el, k in EXT_TRAINED[case]:
-                    p[el][k].requires_grad_(True)
-                r = rays.replace(px=rays.px.clone().requires_grad_(True))
-                o, s_, _ = simulate(p, r)
-                (rt.spot_size_loss(s_) + (o.px * o.dx).mean()).backward()
-                return ([p[el][k].grad for el, k in EXT_TRAINED[case]],
-                        r.px.grad)
-
-            torch.cuda.synchronize()
-            reset_counters()
-            g_f, rg_f = grads(sc.simulate_fused)
-            torch.cuda.synchronize()
-            grad_launches = counters()
-            g_e, rg_e = grads(sc.simulate)
-            rel = [float(((a - b).abs() / b.abs()).max())
-                   for a, b in zip(g_f, g_e)]
-            zeros = torch.zeros_like(rays.px)
-            res = dict(
-                fwd_launches=fwd_launches, grad_launches=grad_launches,
-                spot_rms=rms, spot_rms_ref=ref, finite=finite,
-                shape=list(out.pos.shape), grad_fused=[
-                    g.tolist() for g in g_f],
-                grad_eager=[g.tolist() for g in g_e], rel_err=rel,
-                ray_grads=compare_ray_cotangents(
-                    torch, (rg_f,) + (zeros,) * 6, (rg_e,) + (zeros,) * 6,
-                    allowed=max(3, math.ceil(NS_MISMATCH_SHARE * N_MAIN))))
+            res = counted_path(rt, torch, sc, rays, None, EXT_TRAINED[case],
+                               fwd, bwd, counters, reset_counters, only,
+                               f'{case} {kind}')
+            res['spot_rms_ref'] = ref
             paths[f'{case}_{kind}'] = res
-            check(only(fwd_launches, **{fwd: 1, 'ext': 1}),
-                  f'{case} {kind}: the forward launched {fwd_launches}')
-            check(only(grad_launches, **{fwd: 1, bwd: 1, 'ext': 2}),
-                  f'{case} {kind}: the grad step launched {grad_launches}')
-            check(finite and res['shape'] == [N_MAIN, 3], 'bad ray output')
+            rms = res['spot_rms'][0]
             check(abs(rms - ref) < tol, f'{case} {kind}: spot rms {rms}')
-            check(max(rel) < GRAD_RTOL,
-                  f'{case} {kind}: fused vs eager gradients differ: {rel}')
-        check(abs(paths[f'{case}_scene']['spot_rms']
-                  - paths[f'{case}_sequential']['spot_rms'])
-              <= NS_SPOT_RTOL * paths[f'{case}_sequential']['spot_rms'],
+        check(abs(paths[f'{case}_scene']['spot_rms'][0]
+                  - paths[f'{case}_sequential']['spot_rms'][0])
+              <= NS_SPOT_RTOL * paths[f'{case}_sequential']['spot_rms'][0],
               f'{case}: the Scene and the sequential trace differ')
     emit('ext_main', n=N_MAIN, **paths)
 
@@ -1128,40 +1387,13 @@ def extended_phases(rt, torch, dev, reset_counters, counters, only):
     # 8e. times at 1M rays against the plain versions, bounds (this run's
     # work, section 6's method), blocks per SM
     timing, bounds, occ = {}, {}, {}
-    no_rays = (None,) * 7
-    g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
-        device=dev).manual_seed(SEED), device=dev)
     n = N_MAIN
     for case, (make, _, _) in scenes.items():
         seq, ns, flat, kinds, maps, meta, cfg, nmeta, ncfg = inputs(make)
         rays = sample_rays(rt, torch, n, dev, SEED + 1)
-        pairs = {
-            'k1': (lambda: fused_trace.trace_seq_fwd_cuda(
-                flat, kinds, rays, cfg, maps, ext=True),
-                lambda: fused_trace.trace_sequential_fused_plain(
-                    flat, rays, cfg, meta, maps), 20, 3),
-            'k2': (lambda: fused_trace.trace_seq_bwd_cuda(
-                flat, kinds, rays, cfg, no_rays, g_mom1, maps=maps,
-                ext=True),
-                lambda: fused_trace.trace_seq_bwd_plain(
-                    flat, rays, cfg, meta, no_rays, g_mom1, maps=maps),
-                20, 3),
-            'k5': (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
-                flat, kinds, rays, ncfg, EXT_BOUNCES, maps, ext=True),
-                lambda: fused_nonseq.trace_nonseq_fused_plain(
-                    flat, rays, ncfg, nmeta, EXT_BOUNCES, maps), 4, 1),
-            'k6': (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
-                flat, kinds, rays, ncfg, EXT_BOUNCES, no_rays, g_mom1,
-                maps=maps, ext=True),
-                lambda: fused_nonseq.trace_nonseq_bwd_plain(
-                    flat, rays, ncfg, nmeta, EXT_BOUNCES, no_rays, g_mom1,
-                    maps=maps), 4, 1)}
-        for key, (kfn, pfn, reps, warm) in pairs.items():
-            k_ms, p_ms, k_runs, p_runs = time_pair(torch, kfn, pfn, reps,
-                                                   warm)
-            timing[f'{case}_{key}'] = dict(kernel_ms=k_ms, plain_ms=p_ms,
-                                           kernel_runs=k_runs,
-                                           plain_runs=p_runs)
+        for key, res in ext_timing(torch, flat, kinds, maps, meta, cfg,
+                                   nmeta, ncfg, rays, EXT_BOUNCES).items():
+            timing[f'{case}_{key}'] = res
         p = seq.init_params(dev)
         p_grad = seq.init_params(dev)
         for el, k in EXT_TRAINED[case]:
@@ -1202,6 +1434,254 @@ def extended_phases(rt, torch, dev, reset_counters, counters, only):
     emit('ext_bounds', n=n, **bounds)
     emit('ext_occupancy', blocks_per_sm=occ)
     return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds)
+
+
+DISP_CASES = ('achromat_abbe', 'achromat_sellmeier', 'cooke')
+# The leaves each dispersive scene's gradient phases train: the
+# achromat's curvatures and (Abbe: their Cauchy B depends on it) its glass
+# indices, a curvature of each of the triplet's lenses
+DISP_TRAINED = {
+    'achromat_abbe': (('achromat', 'c1'), ('achromat', 'c2'),
+                      ('achromat', 'c3'), ('achromat', 'ior_glass1'),
+                      ('achromat', 'ior_glass2')),
+    'achromat_sellmeier': (('achromat', 'c1'), ('achromat', 'c2'),
+                           ('achromat', 'c3')),
+    'cooke': (('crown_front', 'c1'), ('flint', 'c2'), ('crown_rear', 'c2'))}
+
+
+def disp_case(rt, case, n_bounces=None):
+    """(scene, bundle maker, bundles) of a DISP_CASES name; with
+    ``n_bounces`` the scene is a Scene."""
+    if case == 'cooke':
+        return cooke_scene(rt, n_bounces), cooke_bundles, 6
+    return (achromat_scene(rt, case.split('_')[1], n_bounces),
+            lambda rt_, n: achromat_bundles(rt_, n // 2), 2)
+
+
+def disp_rays(rt, torch, case, n, device, seed):
+    """About n seeded rays of a DISP_CASES scene's bundles."""
+    _, bundles, _ = disp_case(rt, case)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return rt.sample_bundles(gen, bundles(rt, n), device)
+
+
+def axis_crossings(rt, torch, scene, params, device, height=0.1):
+    """The z at which a ray at ``height`` parallel to the axis crosses it
+    behind the scene, at the F, d and C lines: one fused trace of 3 rays."""
+    rays = rt.Rays.create([[0.0, height, -10.0]] * 3, [[0.0, 0.0, 1.0]] * 3,
+                          wavelength=[F_LINE, D_LINE, C_LINE], device=device)
+    out, _, _ = scene.simulate_fused(params, rays)
+    t = -out.py / out.dy
+    return [float(v) for v in out.pz + t * out.dz]
+
+
+def dispersion_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 9: chromatic dispersion.  The achromat (Abbe and Sellmeier
+    glasses) and the Sellmeier Cooke triplet, sequential and as 12-bounce
+    Scenes, through K1, K2, K5 and K6 in their instantiation with the
+    extended kinds: each kernel against its plain version at 2,999 and 1M
+    rays (K2 and K6 with the wavelength's cotangent and the disp columns);
+    the counted forward and gradient paths with the JAX anchors (the
+    triplet's spot RMS per bundle, the achromat's axis crossings) and the
+    eager gradients, the wavelength's included; the achromat designs by
+    fit_lbfgs at 1M rays (K1 and K2 once per evaluation); then the four
+    kernels' times against their plain versions, K1 and K5 against the same
+    achromat with constant indices (the main path's instantiations), the
+    entry points, bounds and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+
+    def inputs(case):
+        seq, _, nb = disp_case(rt, case)
+        ns = disp_case(rt, case, DISP_BOUNCES)[0]
+        meta = seq.static_meta()
+        check(fused_trace.ext_kinds(meta) and fused_trace.dispersive(meta),
+              f'{case}: not a dispersive scene')
+        cfg = seq.sensor_config(nb)
+        flat = rt.flatten_table_rows(seq.build_table(seq.init_params(dev)))
+        kinds = torch.tensor(fused_trace.kind_rows(meta, cfg),
+                             dtype=torch.int32, device=dev)
+        return (seq, ns, nb, flat, kinds, fused_trace.plate_maps(meta, None),
+                meta, cfg, ns.static_meta(), ns.sensor_config(nb))
+
+    # 9a. each kernel against its plain version
+    kern = {}
+    for case in DISP_CASES:
+        seq, ns, nb, flat, kinds, maps, meta, cfg, nmeta, ncfg = inputs(case)
+        for n in (N_SMALL, N_MAIN):
+            rays = disp_rays(rt, torch, case, n, dev, SEED + 201 + n)
+            kern[f'{case}_{n}'] = ext_kernels_vs_plain(
+                rt, torch, ns, flat, kinds, maps, meta, cfg, rays,
+                SEED + 201 + n, DISP_BOUNCES)
+    emit('disp_kernels_vs_plain', **kern)
+
+    # 9b. the counted paths: forward (K1 or K5 once) against the JAX
+    # anchors, a gradient step (K1 + K2 or K5 + K6 once each) against the
+    # eager trace's gradients in DISP_TRAINED, the rays' px and wavelength
+    paths = {}
+    for case in DISP_CASES:
+        seq, _, nb = disp_case(rt, case)
+        ns = disp_case(rt, case, DISP_BOUNCES)[0]
+        rays = disp_rays(rt, torch, case, N_MAIN, dev, SEED)
+        for kind, sc, fwd, bwd in (
+                ('sequential', seq, 'trace_seq_fwd', 'trace_seq_bwd'),
+                ('scene', ns, 'trace_nonseq_fwd', 'trace_nonseq_bwd')):
+            res = counted_path(rt, torch, sc, rays, nb, DISP_TRAINED[case],
+                               fwd, bwd, counters, reset_counters, only,
+                               f'{case} {kind}')
+            paths[f'{case}_{kind}'] = res
+            if case == 'cooke':
+                rms = res['spot_rms']
+                res.update(spot_rms_ref=list(COOKE_RMS_REF),
+                           spot_rms_tol=list(COOKE_RMS_TOL))
+                check(all(abs(a - b) < t for a, b, t in zip(
+                    rms, COOKE_RMS_REF, COOKE_RMS_TOL)),
+                      f'cooke {kind}: spot rms {rms}')
+        if case != 'cooke':
+            model = case.split('_')[1]
+            reset_counters()
+            cross = axis_crossings(rt, torch, seq, seq.init_params(dev), dev)
+            torch.cuda.synchronize()
+            paths[f'{case}_crossings'] = dict(
+                z=cross, ref=list(ACHROMAT_CROSS_REF[model]), tol=CROSS_TOL,
+                launches=counters())
+            check(all(abs(a - b) < CROSS_TOL for a, b in zip(
+                cross, ACHROMAT_CROSS_REF[model])),
+                  f'{case}: axis crossings {cross}')
+        check(all(abs(a - b) <= NS_SPOT_RTOL * b for a, b in zip(
+            paths[f'{case}_scene']['spot_rms'],
+            paths[f'{case}_sequential']['spot_rms'])),
+              f'{case}: the Scene and the sequential trace differ')
+    emit('disp_main', n=N_MAIN, **paths)
+
+    # 9c. the achromat designs at full width: fit_lbfgs on the two-colour
+    # doublet through simulate_fused with the loss of
+    # tests/test_dispersion.py:76-83; the F-to-C gap of a ray at height 2
+    designs = {}
+    for model, (steps, share) in ACHROMAT_DESIGN.items():
+        dscene = achromat_scene(rt, model, grad=True)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 211)
+        drays = rt.sample_bundles(gen, achromat_bundles(rt), dev)
+        evals = [0]
+        base_loss = design_loss(torch, dscene, drays, ACHROMAT_Z)
+
+        def loss(p, base_loss=base_loss, evals=evals):
+            evals[0] += 1
+            return base_loss(p)
+
+        def gap(p, dscene=dscene):
+            with torch.no_grad():
+                z = axis_crossings(rt, torch, dscene, p, dev, height=2.0)
+            return abs(z[0] - z[2])
+
+        p0 = dscene.init_params(dev)
+        gap0 = gap(p0)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        p1, hist = rt.fit_lbfgs(loss, p0, trainable=dscene.trainable(),
+                                steps=steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counters()
+        gap1 = gap(p1)
+        designs[model] = dict(
+            n=drays.n, steps=steps, evaluations=evals[0], launches=launched,
+            seconds=seconds, gap_start=gap0, gap_end=gap1,
+            gap_share=gap1 / gap0, gap_share_max=share,
+            loss_start=float(hist[0]), loss_end=float(hist[-1]),
+            curvatures=[float(p1['achromat'][c]) for c in ('c1', 'c2', 'c3')])
+        check(only(launched, trace_seq_fwd=evals[0], trace_seq_bwd=evals[0],
+                   ext=2 * evals[0]),
+              f'{model} design: {evals[0]} evaluations launched {launched}')
+        check(gap1 < share * gap0,
+              f'{model} achromat: gap {gap0} -> {gap1} (not under {share})')
+        check(float(hist[-1]) < float(hist[0]), f'{model} design: no gain')
+    emit('achromat_design', **designs)
+
+    # 9d. times at 1M rays against the plain versions; K1 and K5 against
+    # the same achromat with constant indices (their main-path
+    # instantiations; K5 keeps its packed scan records there); bounds
+    # (this run's work, section 6's method), blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    for case in DISP_CASES:
+        seq, ns, nb, flat, kinds, maps, meta, cfg, nmeta, ncfg = inputs(case)
+        rays = disp_rays(rt, torch, case, N_MAIN, dev, SEED + 1)
+        for key, res in ext_timing(torch, flat, kinds, maps, meta, cfg,
+                                   nmeta, ncfg, rays, DISP_BOUNCES).items():
+            timing[f'{case}_{key}'] = res
+        p = seq.init_params(dev)
+        p_grad = seq.init_params(dev)
+        for el, k in DISP_TRAINED[case]:
+            p_grad[el][k].requires_grad_(True)
+
+        def step(sc):
+            def run():
+                _, s_, _ = sc.simulate_fused(p_grad, rays, nb)
+                rt.spot_size_loss(s_).backward()
+            return run
+        for key, fn in (('simulate_fused',
+                         lambda: seq.simulate_fused(p, rays, nb)),
+                        ('grad_step_fused', step(seq)),
+                        ('scene_simulate_fused',
+                         lambda: ns.simulate_fused(p, rays, nb)),
+                        ('scene_grad_step_fused', step(ns))):
+            runs = time_ms(torch, fn)
+            timing[f'{case}_{key}_ms'] = statistics.median(runs)
+            timing[f'{case}_{key}_runs'] = runs
+        k1_ops = rays.n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
+        scans, wins, lives = nonseq_work(rt, torch, ns, p, rays)
+        k5_ops, k6_ops = nonseq_ops(nmeta, scans, wins,
+                                    segment_replays(lives))
+        # 8 input streams and the wavelength (36 B), 7 outputs (28 B)
+        io = rays.n * (36 + 28) + table_bytes(meta)
+        cols = (len(fused_trace.EXT_GRAD_COLS)
+                + len(fused_trace.DISP_GRAD_COLS)) * 4 * len(meta)
+        bounds[case] = {k: dict(zip(('bound_ms', 'bound_by'), v)) for k, v in {
+            'k1': bound(io, k1_ops), 'k2': bound(io + cols, 3 * k1_ops),
+            'k5': bound(io, k5_ops), 'k6': bound(io + cols, k6_ops)}.items()}
+        bounds[case].update(k1_ops=k1_ops, k5_row_scans=scans,
+                            k5_winners_per_row=wins, k5_ops=k5_ops,
+                            k6_ops=k6_ops, n=rays.n)
+        for lib, sc in (('trace_seq_fwd', seq), ('trace_seq_bwd', seq),
+                        ('trace_nonseq_fwd', ns), ('trace_nonseq_bwd', ns)):
+            occ[f'{lib}_{case}'] = fused_trace.blocks_per_sm(
+                lib, len(sc.static_meta()), sc.sensor_config(nb), True,
+                sc.n_bounces, ext=True, disp=True)
+    # the cost of dispersion: K1 and K5 on the Abbe achromat against the
+    # same doublet with constant d-line indices (no extended kind)
+    const = {}
+    for name, model in (('dispersive', 'abbe'), ('constant', 'const')):
+        if model == 'const':
+            els = achromat_scene(rt).elements
+            glass = {k: v for k, v in ACHROMAT_ABBE.items()
+                     if k.startswith('ior')}
+            seq = rt.SequentialScene([rt.DoubletLens(
+                **ACHROMAT_KW, **glass, name='achromat'), els[1]])
+        else:
+            seq = achromat_scene(rt)
+        ns = rt.Scene(seq.elements, n_bounces=DISP_BOUNCES)
+        meta, cfg = seq.static_meta(), seq.sensor_config(2)
+        ext = fused_trace.ext_kinds(meta)
+        maps = fused_trace.plate_maps(meta, None)
+        flat = rt.flatten_table_rows(seq.build_table(seq.init_params(dev)))
+        kinds = torch.tensor(fused_trace.kind_rows(meta, cfg),
+                             dtype=torch.int32, device=dev)
+        rays = disp_rays(rt, torch, 'achromat_abbe', N_MAIN, dev, SEED + 1)
+        const[name] = dict(
+            ext=ext,
+            k1_ms=statistics.median(time_ms(
+                torch, lambda: fused_trace.trace_seq_fwd_cuda(
+                    flat, kinds, rays, cfg, maps, ext))),
+            k5_ms=statistics.median(time_ms(
+                torch, lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                    flat, kinds, rays, ns.sensor_config(2), DISP_BOUNCES,
+                    maps, ext))))
+    timing['achromat_dispersive_vs_constant'] = const
+    emit('disp_timing', **timing)
+    emit('disp_bounds', **bounds)
+    emit('disp_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, designs=designs, timing=timing,
+                bounds=bounds)
 
 
 def main():
@@ -2127,6 +2607,9 @@ def main():
 
     # 8. the mixed-surface and asphere scenes, and the renderer
     extended_phases(rt, torch, dev, reset_counters, counters, only)
+
+    # 9. chromatic dispersion: the achromat and the Cooke triplet
+    dispersion_phases(rt, torch, dev, reset_counters, counters, only)
 
     # 6. timing
     timing = {'card': card}

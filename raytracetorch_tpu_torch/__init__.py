@@ -32,7 +32,13 @@ Hopper.  The port covers:
   ``AsphericLens``, eager and through K1, K2, K5 and K6, which take these
   kinds in an instantiation of their own;
 - the single-bounce renderer (``render/camera.py``: ``Camera``,
-  ``OrbitCamera``, ``Renderer``), plain torch on either device.
+  ``OrbitCamera``, ``Renderer``), plain torch on either device;
+- chromatic dispersion: Abbe/Cauchy and Sellmeier glasses
+  (``utils/glass.py``: ``glass``, ``glass_pair``) in ``SingletLens``,
+  ``AsphericLens``, the cemented ``DoubletLens`` and ``TripletLens``, each
+  ray refracting at the index of its wavelength, eager and through K1, K2,
+  K5 and K6 (the instantiation of the extended kinds), which also return
+  the wavelength's cotangent.
 
 ROADMAP.md lists what is still to be ported.
 
@@ -57,7 +63,8 @@ from .elements.base import Element  # noqa: E402
 from .elements.diffractive import PhaseGridPlate  # noqa: E402
 from .elements.ideal import (paraxial_dist_mat, paraxial_lens_mat,  # noqa: E402
                              paraxial_mirror_mat, paraxial_refract_mat)
-from .elements.lens import AsphericLens, CylSingletLens, SingletLens  # noqa: E402
+from .elements.lens import (AsphericLens, CylSingletLens,  # noqa: E402
+                            DoubletLens, SingletLens, TripletLens)
 from .elements.mirror import SphericalMirror  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
@@ -76,3 +83,4 @@ from .optim.goals import (focal_length_loss, spot_size_loss,  # noqa: E402
 from .rays.ray import Rays  # noqa: E402
 from .rays.sources import Bundle, CollimatedDisk, sample_bundles  # noqa: E402
 from .scene.scene import Scene, SequentialScene  # noqa: E402
+from .utils.glass import glass, glass_pair  # noqa: E402

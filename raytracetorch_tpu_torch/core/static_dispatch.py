@@ -9,17 +9,17 @@ The port covers the kinds of the main path, of the ideal spherical mirror,
 of the pixelated phase plate and of the mixed-surface and asphere scenes:
 surface bounds NONE/DISK/RECT/HEMI/HEMI_APER, volume bounds
 NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics TRANSMIT, BLOCK, REFLECT
-(ideal mirror), SNELL, APERTURE and PHASE_GRID, and even-asphere rows.
-Every other kind raises NotImplementedError naming the ROADMAP item that
-brings it.
+(ideal mirror), SNELL, APERTURE and PHASE_GRID, even-asphere rows, and
+dispersive media (Cauchy and Sellmeier, ``dispersive_iors``).  Every other
+kind raises NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..constants import (CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS, PhysKind,
-                         SBKind, VBKind)
+from ..constants import (CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS,
+                         DispModel, PhysKind, SBKind, VBKind)
 from ..geom import vec3 as v3
 from ..geom.surfaces import sag_z
 from .physics import phase_grid_dir, reflect_dir, snell_dir
@@ -127,8 +127,6 @@ def unsupported(meta: StaticRowMeta):
     """Why the port cannot trace this row yet (None when it can)."""
     if meta.ff:
         return f'freeform surfaces are {TODO_FEATURES}'
-    if meta.disp:
-        return f'dispersion is {TODO_FEATURES}'
     if meta.n_coat or meta.metal:
         return f'coatings and metal mirrors are {TODO_FEATURES}'
     if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN,
@@ -147,19 +145,68 @@ def unsupported(meta: StaticRowMeta):
     return None
 
 
+def dispersive_iors(row, wavelength_um, meta=None):
+    """Per-ray media indices ``(n_in, n_out)`` of a dispersive surface.
+
+    Each side's model is static (``meta.dispm``, a DispModel pair; None
+    keeps Cauchy on both sides).  The row's ``disp`` columns are laid out
+    [in side 6 | out side 6]:
+
+    - CAUCHY: n = n_d + B (1/lambda^2 - 1/lambda_d^2), B (um^2) in the
+      side's first slot, the d-line index (0.5876 um) in ph[side];
+    - SELLMEIER: n^2 = 1 + sum_i Bi lambda^2 / (lambda^2 - Ci), the side's
+      six slots holding B1 B2 B3 C1 C2 C3 (Ci in um^2);
+    - NONE: the constant ph value.
+
+    Unset wavelengths (0) evaluate at the d line; lambda^2 is held at
+    1e-6 or more and each Sellmeier denominator off zero by 1e-9, as in the
+    JAX package."""
+    d2 = 0.5876 ** 2
+    l2 = torch.where(wavelength_um > 0,
+                     torch.clamp(wavelength_um * wavelength_um, min=1e-6), d2)
+    inv_l2, inv_d2 = 1.0 / l2, 1.0 / d2
+    models = (meta.dispm if meta is not None
+              else (DispModel.CAUCHY, DispModel.CAUCHY))
+
+    def side(j, base):
+        nd = row.ph[..., j]
+        if models[j] == DispModel.SELLMEIER:
+            n2 = torch.ones_like(l2)
+            for i in range(3):
+                b = row.disp[..., base + i]
+                c = row.disp[..., base + 3 + i]
+                den = l2 - c
+                den = torch.where(torch.abs(den) < 1e-9,
+                                  torch.where(den < 0, -1e-9, 1e-9), den)
+                n2 = n2 + b * l2 / den
+            return torch.sqrt(torch.clamp(n2, min=1e-6))
+        if models[j] == DispModel.CAUCHY:
+            return nd + row.disp[..., base] * (inv_l2 - inv_d2)
+        return nd + 0.0 * l2
+
+    return side(0, 0), side(1, 6)
+
+
 def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
                       wavelength=None, grid=None, plain=False):
     """Single-kind physics -> (new direction tuple, intensity factor).
 
-    A PHASE_GRID row reads its ``[H, W]`` map ``grid`` (the side channel of
-    ``Scene.side_grids``) and the rays' ``wavelength`` (None: all unset, the
-    plate's design wavelength); its four corner reads are kernel K4 on CUDA
-    tensors (ops/phase_grid.py), its plain version with ``plain=True``."""
+    A dispersive row (``meta.disp``) takes its media indices per ray from
+    ``dispersive_iors`` at the rays' ``wavelength`` (None: the d-line
+    indices ph[0:2]).  A PHASE_GRID row reads its ``[H, W]`` map ``grid``
+    (the side channel of ``Scene.side_grids``) and the rays' ``wavelength``
+    (None: all unset, the plate's design wavelength); its four corner reads
+    are kernel K4 on CUDA tensors (ops/phase_grid.py), its plain version
+    with ``plain=True``."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
     kind = meta.ph
     ones = torch.ones_like(d[0])
+    if meta.disp and wavelength is not None:
+        n_in, n_out = dispersive_iors(row, wavelength, meta)
+    else:
+        n_in, n_out = row.ph[..., 0], row.ph[..., 1]
     if kind == PhysKind.TRANSMIT:
         return d, ones
     if kind == PhysKind.BLOCK:
@@ -168,7 +215,7 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     if kind == PhysKind.REFLECT:
         return reflect_dir(d, n), ones
     if kind == PhysKind.SNELL:
-        return snell_dir(d, n, row.ph[..., 0], row.ph[..., 1]), ones
+        return snell_dir(d, n, n_in, n_out), ones
     if kind == PhysKind.PHASE_GRID:
         if grid is None:
             raise ValueError('a PHASE_GRID row needs its [H, W] map: pass '
@@ -176,8 +223,8 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
         from ..ops.phase_grid import grid_corners, grid_corners_plain
         wl = torch.zeros_like(d[0]) if wavelength is None else wavelength
         from_in = v3.dot(d, n) < 0
-        n1 = torch.where(from_in, row.ph[..., 0], row.ph[..., 1])
-        n2 = torch.where(from_in, row.ph[..., 1], row.ph[..., 0])
+        n1 = torch.where(from_in, n_in, n_out)
+        n2 = torch.where(from_in, n_out, n_in)
         out, ok = phase_grid_dir(
             d, row.Rw, hit_local, grid, row.ph[..., 2], row.ph[..., 3], wl,
             n1, n2, row.ph[..., 4], row.ph[..., 5],

@@ -107,6 +107,9 @@ class SurfaceRec:
     ph: Sequence = ()            # up to 6: ior_in, ior_out, ...
     asph: Sequence = ()          # even-asphere a4..a10 (is_asphere marks use)
     is_asphere: bool = False
+    disp: Sequence = ()          # 12-wide [in 6 | out 6] per DispModel layout
+    disp_model: tuple = (0, 0)   # (DispModel of the ior_in side, of ior_out)
+    is_dispersive: bool = False
     is_sensor: bool = False
     sensor_slot: int = 0
     is_plane: bool = False       # static: row is a z=0 plane (fast path)
@@ -156,7 +159,7 @@ def stack_records(recs, elem_ids, surf_ids, dtype=torch.float32,
         ph=torch.stack([_pad_vec(r.ph, 6, dtype, device) for r in recs]),
         asph=torch.stack([_pad_vec(r.asph, 4, dtype, device) for r in recs]),
         ff=torch.zeros(k, MAX_FF_TERMS, dtype=dtype, device=device),
-        disp=torch.zeros(k, 12, dtype=dtype, device=device),
+        disp=torch.stack([_pad_vec(r.disp, 12, dtype, device) for r in recs]),
         coat=torch.zeros(k, 16, dtype=dtype, device=device),
         is_sensor=bools(r.is_sensor for r in recs),
         sensor_slot=ints(r.sensor_slot for r in recs),

@@ -79,6 +79,13 @@
 //   code (kPlates = false); a scene with the extended kinds (the caller's
 //   `ext`) the one with plate code and kExt, whose replay is K5's of the
 //   same kinds (the scan over the flat rows) and whose adjoint is K2's.
+//   There a dispersive winner adds its 12 disp columns (reduced per distinct
+//   dispersive winner after the 27 others; only when the caller says the
+//   table has such a row, `disp`, which takes 12 more columns a row of shared
+//   memory) and the ray's wavelength its cotangent.  Like K2's, that code sits
+//   in a fourth instantiation (kDispersion), an overload of the kernel with
+//   one more argument (WaveOut), so the other three keep their parameters and
+//   their code; all four run one body, nonseq_bwd.
 //
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
@@ -126,7 +133,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // One bounce of K5 (nonseq_bounce, the very function K5 runs).  Returns the
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
 // winner's branch bits.
-template <bool kPlates, bool kExt>
+template <bool kPlates, bool kExt, bool kDispersion>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits) {
@@ -134,18 +141,18 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kw,
-                                             &degen, &br);
+  const int k = nonseq_bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d,
+                                                           inten, hw, kw, &degen, &br);
   if (k >= 0) bits = branch_bits(hw, degen, br) | kActive;
   return k;
 }
 
-// Add the table cotangents tg of a warp's lanes into the warp's [K, 19 or
-// 23] slots: one reduction per distinct winner row k among the lanes (k < 0:
-// the lane applied no row).  Every lane of the warp calls it.
-template <bool kPlates, bool kExt>
-__device__ __forceinline__ void reduce_winners(int k, const float* tg, float* slots, int lane) {
-  constexpr int kCols = grad_cols<kPlates, kExt>();
+// Add kCols table cotangents tg of a warp's lanes into the warp's slots,
+// `stride` floats a row: one reduction per distinct winner row k among the
+// lanes (k < 0: the lane applied no row).  Every lane of the warp calls it.
+template <int kCols>
+__device__ __forceinline__ void reduce_winners(int k, const float* tg, float* slots, int stride,
+                                               int lane) {
   unsigned pending = __ballot_sync(kFull, k >= 0);
   while (pending != 0u) {
     const int row = __shfl_sync(kFull, k, __ffs(pending) - 1);
@@ -154,31 +161,38 @@ __device__ __forceinline__ void reduce_winners(int k, const float* tg, float* sl
     float m[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) m[c] = mine ? tg[c] : 0.0f;
-    reduce_row<kPlates, kExt>(m, slots + row * kCols, lane);
+    reduce_cols<kCols>(m, slots + row * stride, lane);
   }
 }
 
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
-                        int n_rows, const float* __restrict__ px, const float* __restrict__ py,
-                        const float* __restrict__ pz, const float* __restrict__ dx,
-                        const float* __restrict__ dy, const float* __restrict__ dz,
-                        const float* __restrict__ intensity, const int32_t* __restrict__ ray_id,
-                        const float* __restrict__ gpx, const float* __restrict__ gpy,
-                        const float* __restrict__ gpz, const float* __restrict__ gdx,
-                        const float* __restrict__ gdy, const float* __restrict__ gdz,
-                        const float* __restrict__ gintensity, const float* __restrict__ gmom,
-                        float* __restrict__ cpx, float* __restrict__ cpy, float* __restrict__ cpz,
-                        float* __restrict__ cdx, float* __restrict__ cdy, float* __restrict__ cdz,
-                        float* __restrict__ cintensity, float* __restrict__ partials,
-                        float* __restrict__ rpx, float* __restrict__ rpy, float* __restrict__ rpz,
-                        float* __restrict__ rdx, float* __restrict__ rdy, float* __restrict__ rdz,
-                        float* __restrict__ rintensity, int n_slots, int n_bundles, GridCt gg,
-                        const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
-                        const float* __restrict__ wavelength, float* __restrict__ gmaps,
-                        int n_bounces, long long n) {
+// What only the instantiation with dispersion takes.
+struct WaveOut {
+  float* cwl;     // the wavelength's cotangent, n floats (null: not wanted)
+  int disp_cols;  // kDispGradCols when the table has a dispersive row, else 0
+};
+
+// The kernel's body, shared by its four instantiations (the kernels below).
+template <bool kPlates, bool kExt, bool kDispersion>
+__device__ __forceinline__ void nonseq_bwd(
+    const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
+    const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
+    const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ intensity, const int32_t* __restrict__ ray_id,
+    const float* __restrict__ gpx, const float* __restrict__ gpy, const float* __restrict__ gpz,
+    const float* __restrict__ gdx, const float* __restrict__ gdy, const float* __restrict__ gdz,
+    const float* __restrict__ gintensity, const float* __restrict__ gmom,
+    float* __restrict__ cpx, float* __restrict__ cpy, float* __restrict__ cpz,
+    float* __restrict__ cdx, float* __restrict__ cdy, float* __restrict__ cdz,
+    float* __restrict__ cintensity, float* __restrict__ partials, float* __restrict__ rpx,
+    float* __restrict__ rpy, float* __restrict__ rpz, float* __restrict__ rdx,
+    float* __restrict__ rdy, float* __restrict__ rdz, float* __restrict__ rintensity,
+    int n_slots, int n_bundles, GridCt gg, const float* __restrict__ maps,
+    const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
+    float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo) {
   constexpr int kCols = grad_cols<kPlates, kExt>();
+  // a row's columns in the warp slots and the partials: with a dispersive
+  // row (kDispersion) its disp columns after the kCols
+  const int n_cols = kDispersion ? kCols + wo.disp_cols : kCols;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
   constexpr int kRecs = kExt ? 0 : kRec4;
@@ -187,7 +201,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
   float* gm = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
-  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, kCols]
+  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -196,7 +210,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
-  for (int j = tid; j < kWarps * n_rows * kCols; j += kThreads) warp_tab[j] = 0.0f;
+  for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -220,7 +234,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   // each checkpoint: a bounce's input state p, d, intensity and its winner
   // row << 16 | the winner's bits, [n_ck][kStateWords][kThreads]
   const int n_ck = checkpoints(n_bounces);
-  float* const ck = warp_tab + kWarps * n_rows * kCols + tid;
+  float* const ck = warp_tab + kWarps * n_rows * n_cols + tid;
   constexpr int kSlot = kStateWords * kThreads;
   V3 p = p0, d = d0;
   float inten = i0;
@@ -230,7 +244,8 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
     const V3 pb = p, db = d;
     const float ib = inten;
     uint32_t bits = 0;
-    const int k = bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+    const int k =
+        bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -250,7 +265,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
 
   // ---- reverse sweep, in segments of n_ck bounces, the last first ----
   V3 gp = {0.0f, 0.0f, 0.0f}, gd = {0.0f, 0.0f, 0.0f};
-  float gi = 0.0f;
+  float gi = 0.0f, gwl = 0.0f;
   if (live) {
     gp = {gpx ? gpx[i] : 0.0f, gpy ? gpy[i] : 0.0f, gpz ? gpz[i] : 0.0f};
     gd = {gdx ? gdx[i] : 0.0f, gdy ? gdy[i] : 0.0f, gdz ? gdz[i] : 0.0f};
@@ -258,7 +273,7 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
   const int warp_live = __reduce_max_sync(kFull, n_live);
   const int s_last = warp_live > 0 ? (warp_live - 1) / n_ck * n_ck : -1;
-  float* slots = warp_tab + warp * n_rows * kCols;
+  float* slots = warp_tab + warp * n_rows * n_cols;
 #pragma unroll 1
   for (int s = s_last; s >= 0; s -= n_ck) {  // warp-uniform
     if (s != s_last && s < n_live) {
@@ -269,12 +284,13 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
       uint32_t bits = 0;
 #pragma unroll 1
       for (int b = 0; b < s; ++b)
-        bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+        bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten;
-        const int k = bounce<kPlates, kExt>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+        const int k =
+            bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
       }
     }
@@ -290,12 +306,34 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
       float tg[kCols];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
-      if (act)
-        row_backward<kPlates, kExt>(tab + k * kRowWidth,
-                                    read_row_kinds<kExt>(knd + k * kKindWidth), sp, sd, si,
-                                    word & 0xffffu, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi,
-                                    tg);
-      if (partials != nullptr) reduce_winners<kPlates, kExt>(k, tg, slots, lane);
+      if constexpr (kDispersion) {
+        WaveCt wc = {0.0f, 0.0f, 0.0f};
+        int dispm = 0;
+        if (act) {
+          const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
+          row_backward<kPlates, kExt, kDispersion>(tab + k * kRowWidth, kd, sp, sd, si,
+                                                   word & 0xffffu, rid, gm, n_bundles, gg, pl,
+                                                   gmaps, gp, gd, gi, tg, &wc);
+          dispm = kd.dispm;
+        }
+        if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, n_cols, lane);
+        // a dispersive winner: its media's cotangents on to the disp
+        // columns and the wavelength, once tg is reduced
+        gwl += wc.wl;
+        float td[kDispGradCols];
+#pragma unroll
+        for (int c = 0; c < kDispGradCols; ++c) td[c] = 0.0f;
+        if (dispm != 0) gwl += disp_backward(tab + k * kRowWidth, dispm, pl.wl, wc, td);
+        if (partials != nullptr && wo.disp_cols != 0)
+          reduce_winners<kDispGradCols>(dispm != 0 ? k : -1, td, slots + kCols, n_cols, lane);
+      } else {
+        if (act)
+          row_backward<kPlates, kExt>(tab + k * kRowWidth,
+                                      read_row_kinds<kExt, false>(knd + k * kKindWidth), sp, sd,
+                                      si, word & 0xffffu, rid, gm, n_bundles, gg, pl, gmaps, gp,
+                                      gd, gi, tg);
+        if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, kCols, lane);
+      }
     }
   }
 
@@ -308,10 +346,13 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
     cdz[i] = gd.z;
     cintensity[i] = gi;
   }
+  if constexpr (kDispersion) {
+    if (live && wo.cwl != nullptr) wo.cwl[i] = gwl;
+  }
 
   if (partials == nullptr) return;
   __syncthreads();
-  const int n_tab = n_rows * kCols;
+  const int n_tab = n_rows * n_cols;
   float* out = partials + static_cast<size_t>(blockIdx.x) * n_tab;
   for (int j = tid; j < n_tab; j += kThreads) {
     float s = 0.0f;
@@ -320,44 +361,112 @@ trace_nonseq_bwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
 }
 
+#define RTT_NONSEQ_BWD_PARAMS                                                                      \
+  const float *__restrict__ table, const int32_t *__restrict__ kinds, int n_rows,                  \
+      const float *__restrict__ px, const float *__restrict__ py, const float *__restrict__ pz,    \
+      const float *__restrict__ dx, const float *__restrict__ dy, const float *__restrict__ dz,    \
+      const float *__restrict__ intensity, const int32_t *__restrict__ ray_id,                     \
+      const float *__restrict__ gpx, const float *__restrict__ gpy,                                \
+      const float *__restrict__ gpz, const float *__restrict__ gdx,                                \
+      const float *__restrict__ gdy, const float *__restrict__ gdz,                                \
+      const float *__restrict__ gintensity, const float *__restrict__ gmom,                        \
+      float *__restrict__ cpx, float *__restrict__ cpy, float *__restrict__ cpz,                   \
+      float *__restrict__ cdx, float *__restrict__ cdy, float *__restrict__ cdz,                   \
+      float *__restrict__ cintensity, float *__restrict__ partials, float *__restrict__ rpx,       \
+      float *__restrict__ rpy, float *__restrict__ rpz, float *__restrict__ rdx,                   \
+      float *__restrict__ rdy, float *__restrict__ rdz, float *__restrict__ rintensity,            \
+      int n_slots, int n_bundles, GridCt gg, const float *__restrict__ maps,                       \
+      const int32_t *__restrict__ map_desc, const float *__restrict__ wavelength,                  \
+      float *__restrict__ gmaps, int n_bounces, long long n
+#define RTT_NONSEQ_BWD_ARGS                                                                        \
+  table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy, gdz,  \
+      gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy, rpz, rdx,   \
+      rdy, rdz, rintensity, n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n_bounces, \
+      n
+
+// The kernel without dispersion: with or without plate code, with or
+// without the extended kinds.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS) {
+  nonseq_bwd<kPlates, kExt, false>(RTT_NONSEQ_BWD_ARGS, WaveOut{nullptr, 0});
+}
+
+// The kernel with plate code, the extended kinds and dispersion.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo) {
+  static_assert(kPlates && kExt, "dispersion runs with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true>(RTT_NONSEQ_BWD_ARGS, wo);
+}
+
+// The types of the two kernels.
+using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
+using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
+
+#undef RTT_NONSEQ_BWD_PARAMS
+#undef RTT_NONSEQ_BWD_ARGS
+
 // The dynamic shared memory of a launch: the packed scan records (not with
-// kExt), the table, its kinds, the moment cotangent, the warp slots and the
+// kExt), the table, its kinds, the moment cotangent, the warp slots
+// (disp_cols more columns a row on a table with a dispersive row) and the
 // checkpoints.  Without the records the mixed-surface Scene's 11 rows and
 // 12 checkpoints fit two blocks an SM.
 template <bool kPlates, bool kExt>
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces) {
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols) {
   return sizeof(float) *
          (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          static_cast<size_t>(kWarps) * n_rows * grad_cols<kPlates, kExt>() +
+          static_cast<size_t>(kWarps) * n_rows * (grad_cols<kPlates, kExt>() + disp_cols) +
           static_cast<size_t>(checkpoints(n_bounces)) * kStateWords * kThreads);
 }
 
+// The kernel of an instantiation.
+template <bool kPlates, bool kExt, bool kDispersion>
+const void* kernel_fn() {
+  if constexpr (kDispersion)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdExtKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else
+    return reinterpret_cast<const void*>(
+        static_cast<BwdKernel>(trace_nonseq_bwd_kernel<kPlates, kExt>));
+}
+
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt>
+template <bool kPlates, bool kExt, bool kDispersion>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_nonseq_bwd_kernel<kPlates, kExt>,
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates, bool kExt>
+template <bool kPlates, bool kExt, bool kDispersion>
 int launch(long long blocks, cudaStream_t stream, const float* table, const int32_t* kinds,
            int n_rows, const float* const* rays, const int32_t* ray_id,
            const float* const* g_rays, const float* gmom, float* const* c_rays, float* partials,
            float* const* r_rays, int n_slots, int n_bundles, GridCt gg, const float* maps,
-           const int32_t* map_desc, const float* wavelength, float* gmaps, int n_bounces,
-           long long n) {
-  const size_t smem = shared_bytes<kPlates, kExt>(n_rows, n_slots, n_bundles, n_bounces);
-  const cudaError_t e = prepare<kPlates, kExt>(smem);
+           const int32_t* map_desc, const float* wavelength, float* gmaps, WaveOut wo,
+           int n_bounces, long long n) {
+  const size_t smem =
+      shared_bytes<kPlates, kExt>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
+  const cudaError_t e = prepare<kPlates, kExt, kDispersion>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_nonseq_bwd_kernel<kPlates, kExt><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
-      ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6], gmom,
-      c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6], partials,
-      r_rays[0], r_rays[1], r_rays[2], r_rays[3], r_rays[4], r_rays[5], r_rays[6], n_slots,
-      n_bundles, gg, maps, map_desc, wavelength, gmaps, n_bounces, n);
+  if constexpr (kDispersion)
+    trace_nonseq_bwd_kernel<true, true><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+        table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+        ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6], gmom,
+        c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6], partials,
+        r_rays[0], r_rays[1], r_rays[2], r_rays[3], r_rays[4], r_rays[5], r_rays[6], n_slots,
+        n_bundles, gg, maps, map_desc, wavelength, gmaps, n_bounces, n, wo);
+  else
+    trace_nonseq_bwd_kernel<kPlates, kExt>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+            table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+            ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6],
+            gmom, c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6],
+            partials, r_rays[0], r_rays[1], r_rays[2], r_rays[3], r_rays[4], r_rays[5], r_rays[6],
+            n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n_bounces, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,7 +484,8 @@ int launch(long long blocks, cudaStream_t stream, const float* table, const int3
 // partials hold 23 columns, and `gmaps` (laid out as `maps`, zeroed by the
 // caller, or null: not wanted) receives the maps' cotangent; with none all
 // four are null.  `ext` as for rtt_trace_seq_fwd (the partials then hold 27
-// columns).
+// columns), `cwl` and `disp` as for rtt_trace_seq_bwd (39 columns with
+// `disp`).
 extern "C" int rtt_trace_nonseq_bwd(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -385,13 +495,15 @@ extern "C" int rtt_trace_nonseq_bwd(
     float* cintensity, float* partials, float* rpx, float* rpy, float* rpz, float* rdx,
     float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
-    const float* wavelength, float* gmaps, int ext, int n_bounces, long long n, void* stream) {
+    const float* wavelength, float* gmaps, float* cwl, int disp, int ext, int n_bounces,
+    long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (ext && maps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ext && (cwl != nullptr || disp)) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
@@ -400,24 +512,30 @@ extern "C" int rtt_trace_nonseq_bwd(
   float* r_rays[7] = {rpx, rpy, rpz, rdx, rdy, rdz, rintensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
+  const WaveOut none = {nullptr, 0};
+  if (disp || cwl != nullptr)
+    return launch<true, true, true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                                    c_rays, partials, r_rays, n_slots, n_bundles, gg, maps,
+                                    map_desc, wavelength, gmaps,
+                                    WaveOut{cwl, disp ? kDispGradCols : 0}, n_bounces, n);
   if (ext)
-    return launch<true, true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
-                              c_rays, partials, r_rays, n_slots, n_bundles, gg, maps, map_desc,
-                              wavelength, gmaps, n_bounces, n);
+    return launch<true, true, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                                     c_rays, partials, r_rays, n_slots, n_bundles, gg, maps,
+                                     map_desc, wavelength, gmaps, none, n_bounces, n);
   if (maps != nullptr)
-    return launch<true, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
-                               c_rays, partials, r_rays, n_slots, n_bundles, gg, maps, map_desc,
-                               wavelength, gmaps, n_bounces, n);
-  return launch<false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom, c_rays,
-                              partials, r_rays, n_slots, n_bundles, gg, nullptr, nullptr, nullptr,
-                              nullptr, n_bounces, n);
+    return launch<true, false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays,
+                                      gmom, c_rays, partials, r_rays, n_slots, n_bundles, gg,
+                                      maps, map_desc, wavelength, gmaps, none, n_bounces, n);
+  return launch<false, false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
+                                     c_rays, partials, r_rays, n_slots, n_bundles, gg, nullptr,
+                                     nullptr, nullptr, nullptr, none, n_bounces, n);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without
-// plate code, 1 with it, 2 with it and the extended kinds.  Returns a
-// cudaError_t.
+// plate code, 1 with it, 2 with it and the extended kinds, 3 with those and
+// dispersion on a table with a dispersive row.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
@@ -425,18 +543,22 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 2) {
-    smem = shared_bytes<true, true>(n_rows, n_slots, n_bundles, n_bounces);
-    e = prepare<true, true>(smem);
-    fn = reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<true, true>);
+  if (code == 3) {
+    smem = shared_bytes<true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
+    e = prepare<true, true, true>(smem);
+    fn = kernel_fn<true, true, true>();
+  } else if (code == 2) {
+    smem = shared_bytes<true, true>(n_rows, n_slots, n_bundles, n_bounces, 0);
+    e = prepare<true, true, false>(smem);
+    fn = kernel_fn<true, true, false>();
   } else if (code == 1) {
-    smem = shared_bytes<true, false>(n_rows, n_slots, n_bundles, n_bounces);
-    e = prepare<true, false>(smem);
-    fn = reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<true, false>);
+    smem = shared_bytes<true, false>(n_rows, n_slots, n_bundles, n_bounces, 0);
+    e = prepare<true, false, false>(smem);
+    fn = kernel_fn<true, false, false>();
   } else {
-    smem = shared_bytes<false, false>(n_rows, n_slots, n_bundles, n_bounces);
-    e = prepare<false, false>(smem);
-    fn = reinterpret_cast<const void*>(trace_nonseq_bwd_kernel<false, false>);
+    smem = shared_bytes<false, false>(n_rows, n_slots, n_bundles, n_bounces, 0);
+    e = prepare<false, false, false>(smem);
+    fn = kernel_fn<false, false, false>();
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));

@@ -4,8 +4,9 @@
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::
 // _kernel_nonseq (launched by trace_nonseq_pallas, bounce body
 // _nonseq_bounce_core) for the main-path kinds, the ideal spherical mirror
-// (HEMI_APER bound), pixelated phase plates and the extended kinds of the
-// mixed-surface and asphere scenes, with every other optional stream off:
+// (HEMI_APER bound), pixelated phase plates, the extended kinds of the
+// mixed-surface and asphere scenes and dispersive media, with every other
+// optional stream off:
 // no random draws, field, opl, recording, fuzzy apodization, GRIN or
 // HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
@@ -65,13 +66,15 @@
 // fewer branches on that chain, not from fewer instructions.
 //
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
-// bundles, any bounce budget >= 0.  It reads the wavelength only with a
-// plate; a scene with neither a plate nor a RECT bound runs the
+// bundles, any bounce budget >= 0.  It reads the wavelength only with plate
+// code; a scene with neither a plate nor a RECT bound runs the
 // instantiation without plate code (kPlates = false).  A scene with the
 // extended kinds (the caller's `ext`) runs the instantiation with plate code
 // and kExt, whose scan reads the flat rows and their kinds rows instead of
 // the packed records (which hold neither an asphere's terms nor all 8 words
-// of a volume bound), and builds no records.
+// of a volume bound), and builds no records; its winner's physics reads a
+// dispersive row's indices at the ray's wavelength.  So a scene whose only
+// extended kind is a dispersive glass (a doublet) scans the flat rows too.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
@@ -281,11 +284,11 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
                                    grid_e, pa, n_bounces, n);
 }
 
-// The instantiation of `code` (0 without plate code, 1 with it, 2 with it
-// and the extended kinds) and moment bucket, its shared memory allowed.
+// The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
+// it and the extended kinds) and moment bucket, its shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
-  if (code == 2) {
+  if (code >= 2) {
     *e = prepare<kMomBucket, true, true>(smem);
     return reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<kMomBucket, true, true>);
   }
@@ -347,13 +350,14 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs (the bounce budget does not change it), at its dynamic shared
 // memory, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-// `code`: 0 without plate code, 1 with it, 2 with it and the extended kinds.
+// `code`: 0 without plate code, 1 with it, 2 (or 3, as K2's and K6's code
+// for a table with a dispersive row) with it and the extended kinds.
 // Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code == 2);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2);
   cudaError_t e;
   const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
                                             : kernel_of<64>(code, smem, &e);

@@ -28,10 +28,13 @@ namespace rtt {
 // buffer (ops/fused_trace.py GRAD_COLS): q[0:5], Rw[0:9], tw[0:3], ph[0:2];
 // with phase plates (PLATE_GRAD_COLS) also ph[2:6]: the order, the design
 // wavelength and the half extents of a PHASE_GRID row; with the extended
-// kinds (EXT_GRAD_COLS) also asph[0:4], an even asphere's a4..a10.
+// kinds (EXT_GRAD_COLS) also asph[0:4], an even asphere's a4..a10; and on a
+// table with a dispersive row (DISP_GRAD_COLS) after those the 12 disp
+// columns, reduced on their own (disp_backward), only for dispersive rows.
 constexpr int kGradCols = 19;
 constexpr int kPlateGradCols = 23;
 constexpr int kExtGradCols = 27;
+constexpr int kDispGradCols = 12;
 constexpr int kGQ = 0, kGRw = 5, kGTw = 14, kGPh = 17, kGAsph = 23;
 
 template <bool kPlates, bool kExt = false>
@@ -84,6 +87,16 @@ __device__ __forceinline__ void get_state(const float* s, V3& p, V3& d, float& i
   word = __float_as_uint(s[7 * kStride]);
 }
 
+// What a row's adjoint gives towards the wavelength's cotangent
+// (kDispersion): a dispersive row's cotangents of its two media indices,
+// which disp_backward carries on to the disp columns and the wavelength, and
+// the cotangent of the wavelength where a row reads it itself (a PHASE_GRID
+// row's kick), summed over the rows.
+struct WaveCt {
+  float n_in, n_out;
+  float wl;
+};
+
 // Resident blocks of kThreads per SM that K2's and K6's register budget is
 // capped for (__launch_bounds__): 2 leaves a thread 128 registers, which
 // the instantiations without plate code fit with no spill; K6's with plate
@@ -116,7 +129,7 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
 
 // One row of K1's chain: updates (p, d, inten) where the row is active and
 // returns the row's bits.
-template <bool kPlates, bool kExt = false>
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
                                                 const Plates& pl, V3& p, V3& d, float& inten) {
   const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
@@ -127,7 +140,8 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   PhysBranch br = {};
   V3 nd;
   float imod;
-  apply_physics<kPlates>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br);
+  apply_physics<kPlates, kExt, kDispersion>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod,
+                                            &br, kd.dispm);
   uint32_t bits = branch_bits(h, degen, br);
   if (h.valid && inten > 0.0f) {
     bits |= kActive;
@@ -138,22 +152,96 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   return bits;
 }
 
+// The cotangents g_n1, g_n2 of the indices of the media of incidence and
+// transmission: into ph[0:2] (tg) by the side the ray arrived from.  On a
+// dispersive row (kDispersion) a side's index is its d-line index ph[side]
+// plus a term of the wavelength (Cauchy), ph[side] (constant) or the
+// Sellmeier formula, which reads no ph: tg takes the cotangents of the first
+// two kinds, and wc keeps both for disp_backward, which carries them on to
+// the disp columns and the wavelength after tg is reduced.
+template <bool kDispersion>
+__device__ __forceinline__ void media_backward(int dispm, bool from_in, float g_n1, float g_n2,
+                                               float* tg, WaveCt* wc) {
+  if constexpr (kDispersion) {
+    if (dispm != 0) {
+      wc->n_in = from_in ? g_n1 : g_n2;
+      wc->n_out = from_in ? g_n2 : g_n1;
+      if (disp_model(dispm, 0) != DISP_SELLMEIER) tg[kGPh] += wc->n_in;
+      if (disp_model(dispm, 1) != DISP_SELLMEIER) tg[kGPh + 1] += wc->n_out;
+      return;
+    }
+  }
+  tg[kGPh] += from_in ? g_n1 : g_n2;
+  tg[kGPh + 1] += from_in ? g_n2 : g_n1;
+}
+
+// Adjoint of dispersive_iors on a dispersive row at the ray's wavelength
+// wl, past its ph columns (media_backward): wc's cotangents of the two media
+// indices add into the row's 12 disp columns (td, zeroed by the caller);
+// returns the wavelength's cotangent.  Like autograd of the plain version:
+// the clamp of lambda^2 and of a Sellmeier n^2 pass the cotangent at and
+// above their bound, a Sellmeier denominator held off zero passes none.
+__device__ __forceinline__ float disp_backward(const float* r, int dispm, float wl,
+                                               const WaveCt& wc, float* td) {
+  const bool set = wl > 0.0f;
+  const float l2 = disp_l2(wl);
+  float g_l2 = 0.0f;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const int model = disp_model(dispm, side);
+    const float g_n = side == 0 ? wc.n_in : wc.n_out;
+    const float* c = r + kDisp + 6 * side;
+    float* gc = td + 6 * side;
+    if (model == DISP_SELLMEIER) {
+      // n = sqrt(max(n2, 1e-6)), n2 = 1 + sum_i B_i l2 / den_i
+      float n2 = 1.0f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) n2 = n2 + c[i] * l2 / sellmeier_den(l2, c[3 + i]);
+      const float n = sqrtf(fmaxf(n2, 1e-6f));
+      const float g_n2 = n2 >= 1e-6f ? g_n / (2.0f * n) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float raw = l2 - c[3 + i];
+        const float den = sellmeier_den(l2, c[3 + i]);
+        const float num = c[i] * l2;
+        gc[i] += g_n2 * l2 / den;
+        g_l2 += g_n2 * c[i] / den;
+        if (!(fabsf(raw) < 1e-9f)) {
+          const float g_den = -(g_n2 * (num / den) / den);
+          g_l2 += g_den;
+          gc[3 + i] -= g_den;
+        }
+      }
+    } else if (model == DISP_CAUCHY) {
+      // n = nd + B (1 / l2 - 1 / l2_d)
+        const float inv = 1.0f / l2;
+        gc[0] += g_n * (inv - kInvDLine2);
+        g_l2 -= g_n * c[0] * inv * inv;
+    }
+  }
+  // l2 = max(wl^2, 1e-6) where wl > 0, else the d line's
+  return set && wl * wl >= 1e-6f ? 2.0f * wl * g_l2 : 0.0f;
+}
+
 // Adjoint of a PHASE_GRID row's physics (core/physics.py::phase_grid_dir)
 // at surface-frame hit hs: g_nd, the cotangent of the new direction, adds
 // the cotangents of the incoming direction d (g_d), of the hit's x and y
 // (g_hs), and of the row's Rw and ph[0:6] (tg); the four corner cotangents
 // are added into gmaps (the maps' cotangent, laid out as pl.maps; null: not
 // wanted).  The sides (from_in), the evanescence and the clips come from the
-// row's bits; the cell is recomputed from the re-derived hit.
+// row's bits; the cell is recomputed from the re-derived hit.  With
+// kDispersion the wavelength's cotangent (its kick, and a dispersive row's
+// media) goes to wc.
+template <bool kDispersion = false>
 __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKinds& kd,
                                                     const Plates& pl, float* gmaps, V3 d, V3 hs,
                                                     uint32_t bits, V3 g_nd, V3& g_d, V3& g_hs,
-                                                    float* tg) {
+                                                    float* tg, WaveCt* wc = nullptr) {
   const float* Rw = r + kRw;
   // ---- the forward's values ----
   const bool from_in = bits & kFromIn, ok = bits & kPgOk;
-  const float n1 = from_in ? r[kPh] : r[kPh + 1];
-  const float n2 = from_in ? r[kPh + 1] : r[kPh];
+  float n1, n2;
+  media_iors<kDispersion>(r, from_in, kd.dispm, pl.wl, n1, n2);
   const V3 dl = rot(d, Rw);
   const bool use_lam0 = !(pl.wl > 0.0f);
   const float lam_mm = (use_lam0 ? r[kPh + 3] : pl.wl) * 1e-3f;
@@ -207,6 +295,9 @@ __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKin
   // ---- kick = order lam_mm, lam_mm = (wl > 0 ? wl : lam0) 1e-3 ----
   tg[kGPh + 2] += g_kick * lam_mm;
   if (use_lam0) tg[kGPh + 3] += g_kick * order * 1e-3f;
+  if constexpr (kDispersion) {
+    if (!use_lam0) wc->wl += g_kick * order * 1e-3f;
+  }
   // ---- gx = P su, gy = Q sv, the bilinear patch ----
   const float g_P = g_gx * su, g_Q = g_gy * sv;
   const float g_su = g_gx * P, g_sv = g_gy * Q;
@@ -236,8 +327,7 @@ __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKin
   tg[kGPh + 4] += g_hx;
   tg[kGPh + 5] += g_hy;
   // ---- n1, n2 by side ----
-  tg[kGPh] += from_in ? g_n1 : g_n2;
-  tg[kGPh + 1] += from_in ? g_n2 : g_n1;
+  media_backward<kDispersion>(kd.dispm, from_in, g_n1, g_n2, tg, wc);
   // ---- dl = d @ Rw ----
   g_d = fma3(g_d, 1.0f, rot_t(g_dl, Rw));
   const float dv[3] = {d.x, d.y, d.z}, gdl[3] = {g_dl.x, g_dl.y, g_dl.z};
@@ -436,13 +526,16 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // a PHASE_GRID row (kPlates only) reads its map from pl and adds its corner
 // cotangents into gmaps (null: not wanted).  An asphere row (kExt only)
 // refines its root and takes its normal as the forward did, and reverses
-// both (asph_refine_backward, asph_normal_backward).
-template <bool kPlates, bool kExt = false>
+// both (asph_refine_backward, asph_normal_backward).  A dispersive row
+// (kDispersion only) refracts at the indices of the ray's wavelength, whose
+// cotangents go to wc (disp_backward carries them on), as does the
+// wavelength's own where a PHASE_GRID row reads it.
+template <bool kPlates, bool kExt = false, bool kDispersion = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
                                              const Plates& pl, float* gmaps, V3& gp, V3& gd,
-                                             float& gi, float* tg) {
+                                             float& gi, float* tg, WaveCt* wc = nullptr) {
   if (!(bits & kActive)) return;  // where(active, new, old) passes through
   const float* q = r + kQ;
   const float* Rw = r + kRw;
@@ -533,7 +626,7 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   // ---- physics ----
   V3 g_nw = {0.0f, 0.0f, 0.0f};
   if (kPlates && kd.ph == PHASE_GRID) {
-    phase_grid_backward(r, kd, pl, gmaps, d, hs, bits, g_nd, g_d, g_hs, tg);
+    phase_grid_backward<kDispersion>(r, kd, pl, gmaps, d, hs, bits, g_nd, g_d, g_hs, tg, wc);
   } else if (kd.ph == TRANSMIT) {
     g_d = fma3(g_d, 1.0f, g_nd);
   } else if (kd.ph == APERTURE) {
@@ -552,8 +645,8 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     const float dn = dot3(d, nw);
     const float eff_sign = from_in ? 1.0f : -1.0f;
     const float cos_i = fabsf(dn);
-    const float n1 = from_in ? r[kPh] : r[kPh + 1];
-    const float n2 = from_in ? r[kPh + 1] : r[kPh];
+    float n1, n2;
+    media_iors<kDispersion>(r, from_in, kd.dispm, pl.wl, n1, n2);
     const bool n2_small = bits & kN2Small;
     const float n2_safe = n2_small ? 1e-12f : n2;
     const float mu = n1 / n2_safe;
@@ -576,8 +669,7 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     const float g_dn = g_cos_i * sgn;
     const float g_n1 = g_mu / n2_safe;
     const float g_n2 = n2_small ? 0.0f : -(g_mu * mu / n2_safe);
-    tg[kGPh] += from_in ? g_n1 : g_n2;
-    tg[kGPh + 1] += from_in ? g_n2 : g_n1;
+    media_backward<kDispersion>(kd.dispm, from_in, g_n1, g_n2, tg, wc);
     g_d = fma3(g_d, g_dn, nw);
     g_nw = fma3(g_nw, g_dn, d);
   }
@@ -703,19 +795,20 @@ __device__ __forceinline__ void transpose_step(float* a, int lane) {
   }
 }
 
-// Reduce one row's table cotangent over the lanes of a warp and add it into
-// this warp's slot for the row; every lane of the warp calls it, each with
-// its own tg (zeros for a lane that did not apply the row).  A transpose
-// reduce-scatter: the columns, padded to 32, are halved five times
+// Reduce kCols columns of one row's cotangent over the lanes of a warp and
+// add them into this warp's slot for the row; every lane of the warp calls
+// it, each with its own tg (zeros for a lane that did not apply the row).  A
+// transpose reduce-scatter: the columns, padded to 32, are halved five times
 // (transpose_step), 16 + 8 + 4 + 2 + 1 = 31 shuffles, where a warp sum per
 // column takes 5 (95 for 19 columns).  The selects are on constant
 // indices, so tg stays in registers.  Lane c ends with column c, and each
 // sum follows the tree of a warp sum (lane ^ 16 first, then ^ 8, ...), so
 // every column's sum is the one a per-column warp sum gives, bit for bit.
 // Lane c then adds it into slot[c]: one store per lane, adjacent words.
-template <bool kPlates, bool kExt = false>
-__device__ __forceinline__ void reduce_row(const float* tg, float* slot, int lane) {
-  constexpr int kCols = grad_cols<kPlates, kExt>();
+// reduce_row reduces a row's grad_cols<kPlates, kExt>() columns; the 12
+// disp columns of a dispersive row follow them, reduced on their own.
+template <int kCols>
+__device__ __forceinline__ void reduce_cols(const float* tg, float* slot, int lane) {
   static_assert(kCols <= 32, "a warp holds at most 32 columns");
   float a[32];
 #pragma unroll
@@ -726,6 +819,11 @@ __device__ __forceinline__ void reduce_row(const float* tg, float* slot, int lan
   transpose_step<2>(a, lane);
   transpose_step<1>(a, lane);
   if (lane < kCols) slot[lane] += a[0];
+}
+
+template <bool kPlates, bool kExt = false>
+__device__ __forceinline__ void reduce_row(const float* tg, float* slot, int lane) {
+  reduce_cols<grad_cols<kPlates, kExt>()>(tg, slot, lane);
 }
 
 }  // namespace rtt

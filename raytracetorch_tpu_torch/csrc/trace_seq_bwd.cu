@@ -4,8 +4,9 @@
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::
 // _kernel_v2_bwd (launched by trace_sequential_pallas_v2_bwd, joined to the
 // forward by the custom_vjp fused_trace_grad) for the main-path kinds,
-// pixelated phase plates and the extended kinds of the mixed-surface and
-// asphere scenes, with every other optional stream off.  Its plain
+// pixelated phase plates, the extended kinds of the mixed-surface and
+// asphere scenes and dispersive media, with every other optional stream
+// off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_bwd_cuda.
@@ -71,6 +72,19 @@
 //   asphere's row reverses its normal and its 4 Halley steps, recomputed
 //   from the saved state (trace_seq_adjoint.cuh), and its table cotangent
 //   adds asph[0:4]: 27 columns.  The saved state stays 8 words a row.
+//   A dispersive row's SNELL (or PHASE_GRID) adjoint hands the cotangents of
+//   its two per-ray indices to disp_backward, which adds those of ph[0:2],
+//   of the row's 12 disp columns (a second reduce-scatter after the 27, run
+//   only for dispersive rows: 39 columns a row when the caller says the
+//   table has one, `disp`, else the parent's 27 and its shared memory) and
+//   of the ray's wavelength.  That code sits in a fourth instantiation
+//   (kDispersion), an overload of the kernel with one more argument,
+//   WaveOut: the wavelength's cotangent (null: not wanted) and the disp
+//   flag.  The other three keep their parameters and their code (with
+//   dispersion in it, the extended instantiation spilled 156 B, not 92, and
+//   the mixed-surface scene's K2 ran ~7% slower, PERF.md); all four run one
+//   body, seq_bwd.  A phase-plate scene whose wavelength is under grad
+//   takes the fourth too, for the kick's wavelength cotangent.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -111,43 +125,49 @@ namespace {
 constexpr int kSharedRows = 8;
 constexpr int kMaxRows = 64;
 
-template <bool kShared, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
-                     int n_rows, const float* __restrict__ px, const float* __restrict__ py,
-                     const float* __restrict__ pz, const float* __restrict__ dx,
-                     const float* __restrict__ dy, const float* __restrict__ dz,
-                     const float* __restrict__ intensity, const int32_t* __restrict__ ray_id,
-                     const float* __restrict__ gpx, const float* __restrict__ gpy,
-                     const float* __restrict__ gpz, const float* __restrict__ gdx,
-                     const float* __restrict__ gdy, const float* __restrict__ gdz,
-                     const float* __restrict__ gintensity, const float* __restrict__ gmom,
-                     float* __restrict__ cpx, float* __restrict__ cpy, float* __restrict__ cpz,
-                     float* __restrict__ cdx, float* __restrict__ cdy, float* __restrict__ cdz,
-                     float* __restrict__ cintensity, float* __restrict__ partials,
-                     int n_slots, int n_bundles, GridCt gg, const float* __restrict__ maps,
-                     const int32_t* __restrict__ map_desc,
-                     const float* __restrict__ wavelength, float* __restrict__ gmaps,
-                     long long n) {
+// What only the instantiation with dispersion takes.
+struct WaveOut {
+  float* cwl;     // the wavelength's cotangent, n floats (null: not wanted)
+  int disp_cols;  // kDispGradCols when the table has a dispersive row, else 0
+};
+
+// The kernel's body, shared by its four instantiations (the kernels below).
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
+__device__ __forceinline__ void seq_bwd(
+    const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
+    const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
+    const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ intensity, const int32_t* __restrict__ ray_id,
+    const float* __restrict__ gpx, const float* __restrict__ gpy, const float* __restrict__ gpz,
+    const float* __restrict__ gdx, const float* __restrict__ gdy, const float* __restrict__ gdz,
+    const float* __restrict__ gintensity, const float* __restrict__ gmom,
+    float* __restrict__ cpx, float* __restrict__ cpy, float* __restrict__ cpz,
+    float* __restrict__ cdx, float* __restrict__ cdy, float* __restrict__ cdz,
+    float* __restrict__ cintensity, float* __restrict__ partials, int n_slots, int n_bundles,
+    GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
+    const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo) {
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kStride = kShared ? kThreads : 1;
+  // a row's columns in the warp slots and the partials: with a dispersive
+  // row (kDispersion) its disp columns after the kCols
+  const int n_cols = kDispersion ? kCols + wo.disp_cols : kCols;
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
   float* gm = smem + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
-  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, kCols]
+  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   // each row's saved state: [n_rows][kStateWords][kThreads] after the
   // warp slots, or a per-thread array
   float local[kShared ? 1 : kMaxRows * kStateWords];
-  float* const saved = kShared ? warp_tab + kWarps * n_rows * kCols + tid : local;
+  float* const saved = kShared ? warp_tab + kWarps * n_rows * n_cols + tid : local;
 
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
-  for (int j = tid; j < kWarps * n_rows * kCols; j += kThreads) warp_tab[j] = 0.0f;
+  for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -169,14 +189,15 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   for (int k = 0; k < n_rows; ++k) {
     const V3 p0 = p, d0 = d;
     const float i0 = inten;
-    const uint32_t bits = row_forward<kPlates, kExt>(
-        tab + k * kRowWidth, read_row_kinds<kExt>(knd + k * kKindWidth), pl, p, d, inten);
+    const uint32_t bits = row_forward<kPlates, kExt, kDispersion>(
+        tab + k * kRowWidth, read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth), pl, p, d,
+        inten);
     put_state<kStride>(saved + k * kStateWords * kStride, p0, d0, i0, bits);
   }
 
   // ---- reverse sweep ----
   V3 gp = {0.0f, 0.0f, 0.0f}, gd = {0.0f, 0.0f, 0.0f};
-  float gi = 0.0f;
+  float gi = 0.0f, gwl = 0.0f;
   if (live) {
     gp = {gpx ? gpx[i] : 0.0f, gpy ? gpy[i] : 0.0f, gpz ? gpz[i] : 0.0f};
     gd = {gdx ? gdx[i] : 0.0f, gdy ? gdy[i] : 0.0f, gdz ? gdz[i] : 0.0f};
@@ -184,7 +205,8 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   }
 #pragma unroll 1
   for (int k = n_rows - 1; k >= 0; --k) {
-    const RowKinds kd = read_row_kinds<kExt>(knd + k * kKindWidth);
+    const float* r = tab + k * kRowWidth;
+    const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
     V3 sp, sd;
     float si;
     uint32_t bits;
@@ -192,10 +214,29 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     float tg[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
-    row_backward<kPlates, kExt>(tab + k * kRowWidth, kd, sp, sd, si, bits, rid, gm, n_bundles,
-                                gg, pl, gmaps, gp, gd, gi, tg);
-    if (partials != nullptr && __any_sync(0xffffffffu, bits & kActive))
-      reduce_row<kPlates, kExt>(tg, warp_tab + (warp * n_rows + k) * kCols, lane);
+    if constexpr (kDispersion) {
+      WaveCt wc = {0.0f, 0.0f, 0.0f};
+      row_backward<kPlates, kExt, kDispersion>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg,
+                                               pl, gmaps, gp, gd, gi, tg, &wc);
+      const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
+      float* slot = warp_tab + (warp * n_rows + k) * n_cols;
+      if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
+      // a dispersive row (warp-uniform): its media's cotangents on to the
+      // disp columns and the wavelength, once tg is reduced
+      gwl += wc.wl;
+      if (kd.dispm != 0) {
+        float td[kDispGradCols];
+#pragma unroll
+        for (int c = 0; c < kDispGradCols; ++c) td[c] = 0.0f;
+        if (bits & kActive) gwl += disp_backward(r, kd.dispm, pl.wl, wc, td);
+        if (any && wo.disp_cols != 0) reduce_cols<kDispGradCols>(td, slot + kCols, lane);
+      }
+    } else {
+      row_backward<kPlates, kExt>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp,
+                                  gd, gi, tg);
+      if (partials != nullptr && __any_sync(0xffffffffu, bits & kActive))
+        reduce_row<kPlates, kExt>(tg, warp_tab + (warp * n_rows + k) * kCols, lane);
+    }
   }
 
   if (live && cpx != nullptr) {
@@ -207,10 +248,13 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     cdz[i] = gd.z;
     cintensity[i] = gi;
   }
+  if constexpr (kDispersion) {
+    if (live && wo.cwl != nullptr) wo.cwl[i] = gwl;
+  }
 
   if (partials == nullptr) return;
   __syncthreads();
-  const int n_tab = n_rows * kCols;
+  const int n_tab = n_rows * n_cols;
   float* out = partials + static_cast<size_t>(blockIdx.x) * n_tab;
   for (int j = tid; j < n_tab; j += kThreads) {
     float s = 0.0f;
@@ -218,6 +262,48 @@ trace_seq_bwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     out[j] = s;
   }
 }
+
+#define RTT_SEQ_BWD_PARAMS                                                                        \
+  const float *__restrict__ table, const int32_t *__restrict__ kinds, int n_rows,                 \
+      const float *__restrict__ px, const float *__restrict__ py, const float *__restrict__ pz,    \
+      const float *__restrict__ dx, const float *__restrict__ dy, const float *__restrict__ dz,    \
+      const float *__restrict__ intensity, const int32_t *__restrict__ ray_id,                    \
+      const float *__restrict__ gpx, const float *__restrict__ gpy,                               \
+      const float *__restrict__ gpz, const float *__restrict__ gdx,                               \
+      const float *__restrict__ gdy, const float *__restrict__ gdz,                               \
+      const float *__restrict__ gintensity, const float *__restrict__ gmom,                       \
+      float *__restrict__ cpx, float *__restrict__ cpy, float *__restrict__ cpz,                  \
+      float *__restrict__ cdx, float *__restrict__ cdy, float *__restrict__ cdz,                  \
+      float *__restrict__ cintensity, float *__restrict__ partials, int n_slots, int n_bundles,   \
+      GridCt gg, const float *__restrict__ maps, const int32_t *__restrict__ map_desc,            \
+      const float *__restrict__ wavelength, float *__restrict__ gmaps, long long n
+#define RTT_SEQ_BWD_ARGS                                                                          \
+  table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy, gdz, \
+      gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots, n_bundles,  \
+      gg, maps, map_desc, wavelength, gmaps, n
+
+// The kernel without dispersion: with or without plate code, with or
+// without the extended kinds.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS) {
+  seq_bwd<kShared, kPlates, kExt, false>(RTT_SEQ_BWD_ARGS, WaveOut{nullptr, 0});
+}
+
+// The kernel with plate code, the extended kinds and dispersion.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo) {
+  static_assert(kPlates && kExt, "dispersion runs with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true>(RTT_SEQ_BWD_ARGS, wo);
+}
+
+// The types of the two kernels.
+using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
+using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
+
+#undef RTT_SEQ_BWD_PARAMS
+#undef RTT_SEQ_BWD_ARGS
 
 // The plate arguments of a launch: the maps, their descriptors, the rays'
 // wavelengths and the maps' cotangent.
@@ -229,65 +315,84 @@ struct PlateArgs {
 };
 
 // The dynamic shared memory of a launch: the table, its kinds, the moment
-// cotangent, the warp slots and, for tables of up to kSharedRows rows, the
-// saved states.
+// cotangent, the warp slots (disp_cols more columns a row on a table with a
+// dispersive row) and, for tables of up to kSharedRows rows, the saved
+// states.
 template <bool kPlates, bool kExt>
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols) {
   const size_t rows = static_cast<size_t>(n_rows);
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          static_cast<size_t>(kWarps) * rows * grad_cols<kPlates, kExt>() +
+          static_cast<size_t>(kWarps) * rows * (grad_cols<kPlates, kExt>() + disp_cols) +
           (n_rows <= kSharedRows ? rows * kStateWords * kThreads : 0));
+}
+
+// The kernel of an instantiation.
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
+const void* kernel_fn() {
+  if constexpr (kDispersion)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdExtKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else
+    return reinterpret_cast<const void*>(
+        static_cast<BwdKernel>(trace_seq_bwd_kernel<kShared, kPlates, kExt>));
 }
 
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
-template <bool kShared, bool kPlates, bool kExt>
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = reinterpret_cast<const void*>(trace_seq_bwd_kernel<kShared, kPlates, kExt>);
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion>();
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_seq_bwd_kernel<kShared, kPlates, kExt>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates, bool kExt>
+template <bool kPlates, bool kExt, bool kDispersion>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
-  return n_rows <= kSharedRows ? prepare<true, kPlates, kExt>(smem, fn)
-                               : prepare<false, kPlates, kExt>(smem, fn);
+  return n_rows <= kSharedRows ? prepare<true, kPlates, kExt, kDispersion>(smem, fn)
+                               : prepare<false, kPlates, kExt, kDispersion>(smem, fn);
 }
 
-template <bool kShared, bool kPlates, bool kExt>
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
 int launch(long long blocks, cudaStream_t stream, size_t smem, const float* table,
            const int32_t* kinds, int n_rows, const float* const* rays, const int32_t* ray_id,
            const float* const* g_rays, const float* gmom, float* const* c_rays, float* partials,
-           int n_slots, int n_bundles, GridCt gg, const PlateArgs& pa, long long n) {
+           int n_slots, int n_bundles, GridCt gg, const PlateArgs& pa, WaveOut wo, long long n) {
   const void* fn;
-  const cudaError_t e = prepare<kShared, kPlates, kExt>(smem, &fn);
+  const cudaError_t e = prepare<kShared, kPlates, kExt, kDispersion>(smem, &fn);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_seq_bwd_kernel<kShared, kPlates, kExt>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-          table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
-          ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6],
-          gmom, c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6],
-          partials, n_slots, n_bundles, gg, pa.maps, pa.desc, pa.wavelength, pa.gmaps, n);
+  if constexpr (kDispersion)
+    trace_seq_bwd_kernel<kShared, true, true>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+        table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+        ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6], gmom,
+        c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6], partials,
+        n_slots, n_bundles, gg, pa.maps, pa.desc, pa.wavelength, pa.gmaps, n, wo);
+  else
+    trace_seq_bwd_kernel<kShared, kPlates, kExt>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+            table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+            ray_id, g_rays[0], g_rays[1], g_rays[2], g_rays[3], g_rays[4], g_rays[5], g_rays[6],
+            gmom, c_rays[0], c_rays[1], c_rays[2], c_rays[3], c_rays[4], c_rays[5], c_rays[6],
+            partials, n_slots, n_bundles, gg, pa.maps, pa.desc, pa.wavelength, pa.gmaps, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPlates, bool kExt>
+template <bool kPlates, bool kExt, bool kDispersion>
 int launch_rows(long long blocks, cudaStream_t stream, const float* table, const int32_t* kinds,
                 int n_rows, const float* const* rays, const int32_t* ray_id,
                 const float* const* g_rays, const float* gmom, float* const* c_rays,
                 float* partials, int n_slots, int n_bundles, GridCt gg, const PlateArgs& pa,
-                long long n) {
-  const size_t smem = shared_bytes<kPlates, kExt>(n_rows, n_slots, n_bundles);
+                WaveOut wo, long long n) {
+  const size_t smem = shared_bytes<kPlates, kExt>(n_rows, n_slots, n_bundles, wo.disp_cols);
   if (n_rows <= kSharedRows)
-    return launch<true, kPlates, kExt>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
-                                       g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg,
-                                       pa, n);
-  return launch<false, kPlates, kExt>(blocks, stream, smem, table, kinds, n_rows, rays, ray_id,
-                                      g_rays, gmom, c_rays, partials, n_slots, n_bundles, gg, pa,
-                                      n);
+    return launch<true, kPlates, kExt, kDispersion>(blocks, stream, smem, table, kinds, n_rows,
+                                                    rays, ray_id, g_rays, gmom, c_rays, partials,
+                                                    n_slots, n_bundles, gg, pa, wo, n);
+  return launch<false, kPlates, kExt, kDispersion>(blocks, stream, smem, table, kinds, n_rows,
+                                                   rays, ray_id, g_rays, gmom, c_rays, partials,
+                                                   n_slots, n_bundles, gg, pa, wo, n);
 }
 
 }  // namespace
@@ -297,13 +402,17 @@ int launch_rows(long long blocks, cudaStream_t stream, const float* table, const
 // g* may be null (a zero cotangent); the 7 input-ray cotangents c* are all
 // given or all null (not wanted), and so is the partials buffer of
 // ceil(n / 256) * n_rows * 19 floats (the table cotangent; 23 with plates,
-// 27 with the extended kinds).
+// 27 with the extended kinds, 39 with `disp` too).
 // gmom holds n_slots * n_bundles * 7 floats; ggrid, the grid's cotangent,
 // holds n_slots * grid_h * grid_w floats over [-grid_e, grid_e]^2, or is
 // null.  With phase plates, `maps`, `map_desc` and `wavelength` are K1's,
 // and `gmaps` (laid out as `maps`, zeroed by the caller, or null: not
 // wanted) receives the maps' cotangent; with none all four are null.  `ext`
-// as for rtt_trace_seq_fwd.
+// as for rtt_trace_seq_fwd; with it, `cwl` (n floats, or null: not wanted)
+// receives the wavelength's cotangent, and `disp` nonzero says that the
+// table has a dispersive row (its disp columns' cotangents are computed only
+// so): either selects the instantiation with dispersion.  Without `ext` both
+// must be null and 0.
 extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n_rows,
                                  const float* px, const float* py, const float* pz,
                                  const float* dx, const float* dy, const float* dz,
@@ -315,13 +424,14 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
                                  float* cintensity, float* partials, int n_slots, int n_bundles,
                                  const float* ggrid, int grid_h, int grid_w, float grid_e,
                                  const float* maps, const int32_t* map_desc,
-                                 const float* wavelength, float* gmaps, int ext, long long n,
-                                 void* stream) {
+                                 const float* wavelength, float* gmaps, float* cwl, int disp,
+                                 int ext, long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps != nullptr && (map_desc == nullptr || wavelength == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (ext && maps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ext && (cwl != nullptr || disp)) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
@@ -330,32 +440,42 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
   const PlateArgs pa = {maps, map_desc, wavelength, gmaps};
+  const WaveOut none = {nullptr, 0};
+  if (disp || cwl != nullptr)
+    return launch_rows<true, true, true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays,
+                                         gmom, c_rays, partials, n_slots, n_bundles, gg, pa,
+                                         WaveOut{cwl, disp ? kDispGradCols : 0}, n);
   if (ext)
-    return launch_rows<true, true>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
-                                   c_rays, partials, n_slots, n_bundles, gg, pa, n);
+    return launch_rows<true, true, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays,
+                                          gmom, c_rays, partials, n_slots, n_bundles, gg, pa,
+                                          none, n);
   if (maps != nullptr)
-    return launch_rows<true, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
-                                    c_rays, partials, n_slots, n_bundles, gg, pa, n);
-  return launch_rows<false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays, gmom,
-                                   c_rays, partials, n_slots, n_bundles, gg,
-                                   PlateArgs{nullptr, nullptr, nullptr, nullptr}, n);
+    return launch_rows<true, false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays,
+                                           gmom, c_rays, partials, n_slots, n_bundles, gg, pa,
+                                           none, n);
+  return launch_rows<false, false, false>(blocks, s, table, kinds, n_rows, rays, ray_id, g_rays,
+                                          gmom, c_rays, partials, n_slots, n_bundles, gg,
+                                          PlateArgs{nullptr, nullptr, nullptr, nullptr}, none, n);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
 // (n_bounces is K6's; K2 has none.)  `code`: 0 without plate code, 1 with
-// it, 2 with it and the extended kinds.
+// it, 2 with it and the extended kinds, 3 with those and dispersion on a
+// table with a dispersive row.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = code == 2   ? shared_bytes<true, true>(n_rows, n_slots, n_bundles)
-                      : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles)
-                                  : shared_bytes<false, false>(n_rows, n_slots, n_bundles);
+  const int disp_cols = code == 3 ? kDispGradCols : 0;
+  const size_t smem = code >= 2   ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
+                      : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
+                                  : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 2   ? prepare_rows<true, true>(n_rows, smem, &fn)
-                        : code == 1 ? prepare_rows<true, false>(n_rows, smem, &fn)
-                                    : prepare_rows<false, false>(n_rows, smem, &fn);
+  const cudaError_t e = code == 3   ? prepare_rows<true, true, true>(n_rows, smem, &fn)
+                        : code == 2 ? prepare_rows<true, true, false>(n_rows, smem, &fn)
+                        : code == 1 ? prepare_rows<true, false, false>(n_rows, smem, &fn)
+                                    : prepare_rows<false, false, false>(n_rows, smem, &fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));

@@ -16,10 +16,17 @@
 // The kinds of the mixed-surface and asphere scenes, the "extended kinds"
 // (the rectangular volume bound VB_RECT, a cylindrical lens's edge bound
 // VB_CYL_EDGE, and even aspheres, whose base-conic roots are refined onto
-// the sag by Halley steps and whose normal is the sag's), take a second
-// compile-time flag, kExt, set only in an instantiation that also has plate
-// code.  The instantiations with kExt = false hold none of that code: a
-// scene without those kinds runs the instructions it ran before.
+// the sag by Halley steps and whose normal is the sag's), and dispersive
+// media (a SNELL or PHASE_GRID row whose indices depend on the ray's
+// wavelength: Cauchy or Sellmeier glasses), take a second compile-time
+// flag, kExt, set only in an instantiation that also has plate code (and so
+// the rays' wavelengths).  The instantiations with kExt = false hold none of
+// that code: a scene without those kinds runs the instructions it ran
+// before.  Dispersion has a third flag, kDispersion, which defaults to kExt:
+// K1 and K5 refract dispersive rows in their one extended instantiation, and
+// K2 and K6 have a fourth instantiation with dispersion (kDispersion), so
+// that their extended one without it keeps its registers
+// (trace_seq_adjoint.cuh).
 
 #pragma once
 
@@ -39,7 +46,7 @@ constexpr int kMoments = 7;
 
 // Offsets of the float columns in a flat row (core/table.py ROW_FIELDS).
 constexpr int kQ = 0, kNSign = 5, kRw = 6, kTw = 15, kRs = 18, kTs = 27;
-constexpr int kSb = 30, kVb = 34, kPh = 42, kAsph = 48;
+constexpr int kSb = 30, kVb = 34, kPh = 42, kAsph = 48, kDisp = 52;
 
 // Columns of a kinds row (ops/fused_trace.py::kind_rows).
 constexpr int kPhCol = 0, kSbCol = 1, kVbCol = 2, kPlaneCol = 3;
@@ -48,6 +55,10 @@ constexpr int kMapCol = 7;  // a PHASE_GRID row's map (plate) index
 // The surface column (kPlaneCol): the quadric solver, the plane fast path,
 // or (kExt only) the quadric's roots refined onto an even asphere.
 constexpr int kSurfPlane = 1, kSurfAsph = 2;
+// A dispersive row's two DispModels ride the physics column from bit
+// kDispShift on, two bits a side, in then out (ops/fused_trace.py
+// DISP_SHIFT); only read_row_kinds<true> decodes them.
+constexpr int kDispShift = 8;
 
 // constants.py and geom/surfaces.py
 constexpr float kBig = 1e30f;
@@ -163,17 +174,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The kinds of one table row, read from its int32 kinds row.
+// The kinds of one table row, read from its int32 kinds row.  dispm holds a
+// dispersive row's two DispModels (disp_model; 0: not dispersive).
 struct RowKinds {
   int ph, sb, vb, slot, map;
   bool plane, sensor, invert, asph;
+  int dispm;
 };
 
 // The row's kinds; without kExt the surface column is 0 or 1 and asph is
-// false.
-template <bool kExt = false>
+// false; without kDispersion the physics column holds the kind alone and
+// dispm is 0.
+template <bool kExt = false, bool kDispersion = kExt>
 __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
-  return {kd[kPhCol],
+  return {kDispersion ? kd[kPhCol] & ((1 << kDispShift) - 1) : kd[kPhCol],
           kd[kSbCol],
           kd[kVbCol],
           kd[kSlotCol],
@@ -181,7 +195,8 @@ __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
           kExt ? kd[kPlaneCol] == kSurfPlane : kd[kPlaneCol] != 0,
           kd[kSensorCol] != 0,
           kd[kInvertCol] != 0,
-          kExt && kd[kPlaneCol] == kSurfAsph};
+          kExt && kd[kPlaneCol] == kSurfAsph,
+          kDispersion ? kd[kPhCol] >> kDispShift : 0};
 }
 
 // ---- The packed scan record (K5's scan, and K6's replay of it) ----
@@ -407,6 +422,68 @@ __device__ __forceinline__ V3 asph_normal(const Asph& s, V3 h) {
   return {gx * inv, gy * inv, inv};
 }
 
+// ---- Dispersive media (kExt): core/static_dispatch.py::dispersive_iors.
+// A dispersive row's disp columns hold [in side 6 | out side 6]: a Cauchy
+// side's B (um^2) first, a Sellmeier side's B1 B2 B3 C1 C2 C3 (C in um^2);
+// a Cauchy or constant side's d-line index is its ph column. ----
+
+enum DispModel { DISP_NONE = 0, DISP_CAUCHY = 1, DISP_SELLMEIER = 2 };
+
+// lambda_d^2 and its inverse (the d line, 0.5876 um), rounded once to float
+constexpr float kDLine2 = static_cast<float>(0.5876 * 0.5876);
+constexpr float kInvDLine2 = static_cast<float>(1.0 / (0.5876 * 0.5876));
+
+// The DispModel of a row's side 0 (in) or 1 (out).
+__device__ __forceinline__ int disp_model(int dispm, int side) {
+  return (dispm >> (2 * side)) & 3;
+}
+
+// lambda^2 (um^2) of a wavelength, held at 1e-6 or more; an unset one (not
+// > 0) the d line's.
+__device__ __forceinline__ float disp_l2(float wl) {
+  return wl > 0.0f ? fmaxf(wl * wl, 1e-6f) : kDLine2;
+}
+
+// A Sellmeier term's denominator lambda^2 - C, held off zero at 1e-9.
+__device__ __forceinline__ float sellmeier_den(float l2, float c) {
+  const float den = l2 - c;
+  return fabsf(den) < 1e-9f ? (den < 0.0f ? -1e-9f : 1e-9f) : den;
+}
+
+// One side's index at lambda^2 l2: c, its 6 disp columns; nd, its ph.
+__device__ __forceinline__ float disp_side(int model, float nd, const float* c, float l2) {
+  if (model == DISP_SELLMEIER) {
+    float n2 = 1.0f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) n2 = n2 + c[i] * l2 / sellmeier_den(l2, c[3 + i]);
+    return sqrtf(fmaxf(n2, 1e-6f));
+  }
+  if (model == DISP_CAUCHY) return nd + c[0] * (1.0f / l2 - kInvDLine2);
+  return nd;
+}
+
+// The indices (n1, n2) of the media of incidence and transmission of a
+// SNELL or PHASE_GRID row: ph[0:2] by the side the ray arrives from, or
+// with kDispersion on a dispersive row (dispm) each side's index at the ray's
+// wavelength wl.
+template <bool kDispersion>
+__device__ __forceinline__ void media_iors(const float* r, bool from_in, int dispm, float wl,
+                                           float& n1, float& n2) {
+  if constexpr (kDispersion) {
+    float n_in = r[kPh], n_out = r[kPh + 1];
+    if (dispm != 0) {
+      const float l2 = disp_l2(wl);
+      n_in = disp_side(disp_model(dispm, 0), n_in, r + kDisp, l2);
+      n_out = disp_side(disp_model(dispm, 1), n_out, r + kDisp + 6, l2);
+    }
+    n1 = from_in ? n_in : n_out;
+    n2 = from_in ? n_out : n_in;
+  } else {
+    n1 = from_in ? r[kPh] : r[kPh + 1];
+    n2 = from_in ? r[kPh + 1] : r[kPh];
+  }
+}
+
 // One row's hit: the ray parameter t (0 where invalid), validity, the hit in
 // the surface frame, and the branches the adjoint needs: which root is the
 // minimum (both on a tie) and whether the quadric solver took its linear path.
@@ -593,18 +670,20 @@ struct PhysBranch {
 // The row's physics (core/static_dispatch.py::apply_physics_one): the new
 // direction nd and the intensity factor imod of a ray d meeting normal nw at
 // surface-frame hit hs.  `br`, when given, receives the branches taken.  A
-// PHASE_GRID row (kPlates only) reads map kd_map of `pl`.
-template <bool kPlates>
+// PHASE_GRID row (kPlates only) reads map kd_map of `pl`; a dispersive row
+// (kDispersion only: `dispm`) refracts at the indices of the ray's wavelength
+// pl.wl.
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt>
 __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, int kd_map, V3 d,
                                               V3 nw, V3 hs, const Plates& pl, V3& nd, float& imod,
-                                              PhysBranch* br = nullptr) {
+                                              PhysBranch* br = nullptr, int dispm = 0) {
   nd = d;
   imod = 1.0f;
   if (kPlates && ph == PHASE_GRID) {
     // core/physics.py::phase_grid_dir: n2 d_out_t = n1 d_in_t + m lam grad(phi)
     const bool from_in = dot3(d, nw) < 0.0f;
-    const float n1 = from_in ? r[kPh] : r[kPh + 1];
-    const float n2 = from_in ? r[kPh + 1] : r[kPh];
+    float n1, n2;
+    media_iors<kDispersion>(r, from_in, dispm, pl.wl, n1, n2);
     const float* Rw = r + kRw;
     const V3 dl = rot(d, Rw);
     const float lam_mm = (pl.wl > 0.0f ? pl.wl : r[kPh + 3]) * 1e-3f;
@@ -643,8 +722,8 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
     const bool from_in = dn < 0.0f;
     const float eff_sign = from_in ? 1.0f : -1.0f;
     const float cos_i = fabsf(dn);
-    const float n1 = from_in ? r[kPh] : r[kPh + 1];
-    const float n2 = from_in ? r[kPh + 1] : r[kPh];
+    float n1, n2;
+    media_iors<kDispersion>(r, from_in, dispm, pl.wl, n1, n2);
     const bool n2_small = fabsf(n2) < 1e-12f;
     const float mu = n1 / (n2_small ? 1e-12f : n2);
     const float sin2_t = mu * mu * (1.0f - cos_i * cos_i);
@@ -682,7 +761,7 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
 // The extended kinds' instantiation (kExt) scans the flat rows and their
 // kinds rows instead: its kinds need fields (the asphere's terms, all 8 of
 // a volume bound's) that the packed record does not hold.
-template <bool kPlates, bool kExt = false>
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
@@ -707,12 +786,12 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   }
   if (k_win < 0) return -1;
   const float* r = tab + k_win * kRowWidth;
-  kw = read_row_kinds<kExt>(knd + k_win * kKindWidth);
+  kw = read_row_kinds<kExt, kDispersion>(knd + k_win * kKindWidth);
   V3 nd;
   float imod;
-  apply_physics<kPlates>(r, kw.ph, kw.sb, kw.map, d,
-                         world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs, pl, nd,
-                         imod, br);
+  apply_physics<kPlates, kExt, kDispersion>(r, kw.ph, kw.sb, kw.map, d,
+                               world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs, pl,
+                               nd, imod, br, kw.dispm);
   p = fma3(p, best_t, d);
   d = nd;
   inten = inten * imod;

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::_kernel_v2
 // (launched by trace_sequential_pallas_v2, chain body _chain_pure) for the
-// main-path kinds, pixelated phase plates and the extended kinds of the
-// mixed-surface and asphere scenes, with every other optional stream off.  Its plain PyTorch version is ops/fused_trace.py::
+// main-path kinds, pixelated phase plates, the extended kinds of the
+// mixed-surface and asphere scenes and dispersive media, with every other
+// optional stream off.  Its plain PyTorch version is ops/fused_trace.py::
 // trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
@@ -41,14 +42,15 @@
 // code too: trace_seq_common.cuh) their pointer is null and the kernel
 // instantiated without plate code (kPlates = false) runs, so such a scene
 // runs the instructions it ran before plates existed.  A scene with the
-// extended kinds (an even asphere, VB_RECT, VB_CYL_EDGE; the caller's `ext`)
-// runs a third instantiation, with plate code and kExt: the asphere's
-// Halley refinement in the intersection and its normal
+// extended kinds (an even asphere, VB_RECT, VB_CYL_EDGE, a dispersive
+// medium; the caller's `ext`) runs a third instantiation, with plate code
+// and kExt: the asphere's Halley refinement in the intersection and its
+// normal, and a dispersive row's indices at the ray's wavelength
 // (trace_seq_common.cuh).  It has registers of its own
 // (kSeqFwdExtMinBlocks).
 //
 // What bounds it: per ray it reads 8 streams (32 B; the wavelength stream,
-// 4 B more, only with a plate) and writes 7 (28 B): 60 MB at 1M rays, ~18 us
+// 4 B more, only with plate code) and writes 7 (28 B): 60 MB at 1M rays, ~18 us
 // at the H100's 3.35 TB/s.  It runs at about 3.4x that, bound by the
 // instructions it issues, as measured on an H100 (PERF.md): 24 more
 // independent FFMAs a row made it 6-8% slower (K5, whose rows wait on their
@@ -183,7 +185,8 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     const V3 nw = world_normal<kExt>(r, kd.plane, h.hs, nullptr, kd.asph);
     V3 nd;
     float imod;
-    apply_physics<kPlates>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod);
+    apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, nullptr,
+                                 kd.dispm);
     const bool active = h.valid && inten > 0.0f;
     const float t = h.t;
 
@@ -266,10 +269,10 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of `code` (0 without plate code, 1 with it, 2 with it
-// and the extended kinds), its shared memory allowed.
+// The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
+// it and the extended kinds), its shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
-  if (code == 2) {
+  if (code >= 2) {
     *e = prepare<true, true>(smem);
     return reinterpret_cast<const void*>(trace_seq_fwd_kernel<true, true>);
   }
@@ -330,7 +333,8 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
 // sizes runs (K1 has no bounces: the argument keeps the other kernels'
 // signature), at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without plate
-// code, 1 with it, 2 with it and the extended kinds.  Returns a cudaError_t.
+// code, 1 with it, 2 (or 3, as K2's code for a table with a dispersive row)
+// with it and the extended kinds.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int* blocks) {
   (void)n_bounces;

@@ -1,14 +1,20 @@
-"""Thick lenses: the spherical singlet, the cylindrical singlet and the
-even-asphere singlet.
+"""Thick lenses: the spherical singlet, doublet and triplet, the cylindrical
+singlet and the even-asphere singlet.
 
 Counterpart of ``raytracetorch_tpu/elements/lens.py`` (``_SphericLens``,
-``SingletLens``, ``CylSingletLens`` and ``AsphericLens``; doublets, triplets
-and freeform lenses are ROADMAP Queue 1 item 14).  Optical faces are
-hemisphere-clipped quadrics bounded by the lens aperture; the edge is a
-cylinder bounded between the faces' sag heights (a cylindrical lens: four
-side planes bounded between the faces' y-dependent sags).  Each surface's
-physics carries ``(ior_normal_side, ior_far_side)``: faces have +z normals,
-the edge an outward normal.
+``SingletLens``, ``DoubletLens``, ``TripletLens``, ``CylSingletLens`` and
+``AsphericLens``; freeform lenses are ROADMAP Queue 1 item 14).  Optical
+faces are hemisphere-clipped quadrics bounded by the lens aperture; the edges
+are cylinders bounded between the adjacent faces' sag heights (a cylindrical
+lens: four side planes bounded between the faces' y-dependent sags).  Each
+surface's physics carries ``(ior_normal_side, ior_far_side)``: faces have +z
+normals, the edge an outward normal.
+
+Glasses may disperse: an Abbe number (``abbe_vd*``, the 2-term Cauchy
+model) or 3-term Sellmeier coefficients (``sellmeier*``,
+utils/glass.py::glass) per medium put the model and its coefficients into
+the face's ``disp`` columns, read per ray by
+core/static_dispatch.py::dispersive_iors.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import math
 
 import torch
 
-from ..constants import PhysKind, SBKind, VBKind
+from ..constants import DispModel, PhysKind, SBKind, VBKind
 from ..core.static_dispatch import TODO_FEATURES
 from ..core.table import SurfaceRec
 from ..geom.surfaces import q_cylinder, q_plane, q_quadric, q_quadric_zy, sag_z
@@ -31,11 +37,37 @@ def _sag_float(c, r):
     return (c * r * r) / (1.0 + math.sqrt(term))
 
 
-def _refuse_unported(abbe_vd=None, sellmeier=None, coating=None,
-                     fresnel=False):
+# Cauchy 2-term model n(l) = n_d + B (1/l^2 - 1/l_d^2): the Abbe number
+# v_d = (n_d - 1)/(n_F - n_C) with F/C lines 0.4861/0.6563 um gives
+# B = (n_d - 1) / (v_d * (1/l_F^2 - 1/l_C^2)).
+_ABBE_FC = 1.0 / 0.4861 ** 2 - 1.0 / 0.6563 ** 2
+
+
+def abbe_to_cauchy_b(n_d, v_d):
+    """Cauchy B (um^2) from a d-line index and an Abbe number."""
+    return (n_d - 1.0) / (v_d * _ABBE_FC)
+
+
+def _disp_rec(dc, i_norm, i_far):
+    """(disp 12-vector, disp_model pair, is_dispersive) of one optical face
+    from a per-medium dispersion chain ``dc`` (``_SphericLens._disp_chain``);
+    the face's physics is ph=(iors[i_norm], iors[i_far]), so the table's
+    [in 6 | out 6] layout pairs dc[i_norm] with the in side."""
+    if dc is None:
+        return (), (0, 0), False
+
+    def pad6(c):
+        c = list(c)
+        return c + [0.0] * (6 - len(c))
+
+    m_in, c_in = dc[i_norm]
+    m_out, c_out = dc[i_far]
+    return (tuple(pad6(c_in) + pad6(c_out)),
+            (int(m_in), int(m_out)), bool(m_in or m_out))
+
+
+def _refuse_unported(coating=None, fresnel=False):
     """Raise for the lens options the port does not trace yet."""
-    if abbe_vd is not None or sellmeier is not None:
-        raise NotImplementedError(f'dispersion is {TODO_FEATURES}')
     if coating:
         raise NotImplementedError(f'coatings are {TODO_FEATURES}')
     if fresnel:
@@ -91,6 +123,37 @@ class _SphericLens(Element):
         iors = self._ior_chain(p)
         return PhysKind.BLOCK, (iors[0], iors[1])
 
+    def _b_chain(self, p):
+        """Cauchy B per medium (parallel to ``_ior_chain``), or None: no
+        Abbe numbers.  Subclasses with Abbe numbers override."""
+        return None
+
+    def _sellmeier_chain(self):
+        """Per-medium Sellmeier coefficient tuples (B1 B2 B3 C1 C2 C3,
+        um^2), parallel to ``_ior_chain``, from the ``sellmeier*`` keyword
+        arguments; None entries fall back to the Abbe/Cauchy model or a
+        constant index.  None: no Sellmeier glass."""
+        return getattr(self, '_sellmeier_media', None)
+
+    def _disp_chain(self, p):
+        """Per-medium (DispModel, coefficients) pairs, or None when no
+        medium disperses.  A Sellmeier glass takes precedence over an Abbe
+        number."""
+        sell = self._sellmeier_chain()
+        bs = self._b_chain(p)
+        if sell is None and bs is None:
+            return None
+        out = []
+        for i in range(len(self._ior_chain(p))):
+            si = sell[i] if sell is not None else None
+            if si is not None:
+                out.append((DispModel.SELLMEIER, tuple(si)))
+            elif bs is not None:
+                out.append((DispModel.CAUCHY, (bs[i],)))
+            else:
+                out.append((DispModel.NONE, ()))
+        return out
+
     def build(self, p):
         Re, te = frame_params(p)
         r = p['radius']
@@ -98,15 +161,18 @@ class _SphericLens(Element):
         cs = [p[n] for n in self._curv_names]
         iors = self._ior_chain(p)
         kind = self._refract_kind()
+        dc = self._disp_chain(p)
         recs = []
         for i, (c, zv) in enumerate(zip(cs, zs)):
             q, sign = q_quadric(c, 0.0)
             Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(zv))
+            disp, dm, isd = _disp_rec(dc, i + 1, i)
             recs.append(SurfaceRec(
                 q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
                 sb_kind=SBKind.HEMI, sb=(c,),
                 vb_kind=VBKind.APER_R2, vb=(r * r,),
-                ph_kind=kind, ph=(iors[i + 1], iors[i])))
+                ph_kind=kind, ph=(iors[i + 1], iors[i]),
+                disp=disp, disp_model=dm, is_dispersive=isd))
         edge_kind, edge_ph = self._edge_phys(p)
         for i in range(self.n_optical - 1):
             q, sign = q_cylinder(r)
@@ -142,9 +208,10 @@ class _SphericLens(Element):
 class SingletLens(_SphericLens):
     """Biconvex/meniscus singlet: 2 refracting faces + edge cylinder.
 
-    ``d`` is the diameter and ``t`` the centre thickness.  Dispersion
-    (``abbe_vd``/``sellmeier``), coatings and Fresnel physics are ROADMAP
-    Queue 1 item 12 and raise NotImplementedError."""
+    ``d`` is the diameter and ``t`` the centre thickness.  The glass
+    disperses with an Abbe number ``abbe_vd`` or Sellmeier coefficients
+    ``sellmeier`` (``**glass(name, model)``).  Coatings and Fresnel physics
+    are ROADMAP Queue 1 item 12 and raise NotImplementedError."""
 
     _curv_names = ('c1', 'c2')
     _thick_names = ('t',)
@@ -153,9 +220,14 @@ class SingletLens(_SphericLens):
                  c1_grad=False, c2_grad=False, t_grad=False, d_grad=False,
                  ior_glass_grad=False, ior_media_grad=False,
                  abbe_vd=None, sellmeier=None, coating=None,
-                 fresnel=False, inked=False, name='singlet', **kw):
+                 coating_grad=False, fresnel=False, inked=False,
+                 name='singlet', **kw):
         super().__init__(name=name, **kw)
-        _refuse_unported(abbe_vd, sellmeier, coating, fresnel)
+        _refuse_unported(coating, fresnel)
+        self.abbe_vd = abbe_vd
+        self.sellmeier = tuple(sellmeier) if sellmeier is not None else None
+        if self.sellmeier is not None:
+            self._sellmeier_media = [None, self.sellmeier, None]
         _validate_faces([c1, c2], [t], d / 2.0, [-t / 2.0, t / 2.0])
         self._init = dict(c1=c1, c2=c2, t=t, radius=d / 2.0,
                           ior_glass=ior_glass, ior_media=ior_media)
@@ -172,6 +244,13 @@ class SingletLens(_SphericLens):
 
     def _ior_chain(self, p):
         return [p['ior_media'], p['ior_glass'], p['ior_media']]
+
+    def _b_chain(self, p):
+        if self.abbe_vd is None:
+            return None
+        b = abbe_to_cauchy_b(p['ior_glass'], self.abbe_vd)
+        zero = b * 0.0
+        return [zero, b, zero]
 
     def _edge_phys(self, p):
         """The edge refracts unless inked; its normal points outward."""
@@ -205,6 +284,133 @@ class SingletLens(_SphericLens):
 
     def R2(self, p):
         return -1.0 / p['c2']
+
+
+class DoubletLens(_SphericLens):
+    """Cemented doublet: 3 refracting faces + 2 blocked edge cylinders.
+    Glass 1 (between faces 1 and 2) and glass 2 (between faces 2 and 3)
+    disperse with Abbe numbers ``abbe_vd1``/``abbe_vd2`` or Sellmeier
+    coefficients ``sellmeier1``/``sellmeier2`` (``**glass_pair(crown,
+    flint, model)``).  Coatings and Fresnel physics raise as for
+    ``SingletLens``."""
+
+    _curv_names = ('c1', 'c2', 'c3')
+    _thick_names = ('t1', 't2')
+
+    def __init__(self, c1, c2, c3, d, t1, t2, ior_glass1, ior_glass2,
+                 ior_media=1.0, c1_grad=False, c2_grad=False, c3_grad=False,
+                 t1_grad=False, t2_grad=False, d_grad=False,
+                 ior_glass1_grad=False, ior_glass2_grad=False,
+                 ior_media_grad=False, abbe_vd1=None, abbe_vd2=None,
+                 sellmeier1=None, sellmeier2=None, coating=None,
+                 coating_grad=False, fresnel=False, name='doublet', **kw):
+        super().__init__(name=name, **kw)
+        _refuse_unported(coating, fresnel)
+        self.abbe_vd1, self.abbe_vd2 = abbe_vd1, abbe_vd2
+        self.sellmeier1 = (tuple(sellmeier1) if sellmeier1 is not None
+                           else None)
+        self.sellmeier2 = (tuple(sellmeier2) if sellmeier2 is not None
+                           else None)
+        if sellmeier1 is not None or sellmeier2 is not None:
+            self._sellmeier_media = [None, self.sellmeier1,
+                                     self.sellmeier2, None]
+        tt = t1 + t2
+        zs = [-tt / 2.0, -tt / 2.0 + t1, tt / 2.0]
+        _validate_faces([c1, c2, c3], [t1, t2], d / 2.0, zs)
+        self._init = dict(c1=c1, c2=c2, c3=c3, t1=t1, t2=t2, radius=d / 2.0,
+                          ior_glass1=ior_glass1, ior_glass2=ior_glass2,
+                          ior_media=ior_media)
+        self._grads = dict(c1=c1_grad, c2=c2_grad, c3=c3_grad, t1=t1_grad,
+                           t2=t2_grad, radius=d_grad,
+                           ior_glass1=ior_glass1_grad,
+                           ior_glass2=ior_glass2_grad,
+                           ior_media=ior_media_grad)
+
+    def extra_params(self):
+        return dict(self._init)
+
+    def extra_trainable(self):
+        return dict(self._grads)
+
+    def _ior_chain(self, p):
+        return [p['ior_media'], p['ior_glass1'], p['ior_glass2'],
+                p['ior_media']]
+
+    def _b_chain(self, p):
+        if self.abbe_vd1 is None and self.abbe_vd2 is None:
+            return None
+        zero = p['ior_media'] * 0.0
+        b1 = (abbe_to_cauchy_b(p['ior_glass1'], self.abbe_vd1)
+              if self.abbe_vd1 else zero)
+        b2 = (abbe_to_cauchy_b(p['ior_glass2'], self.abbe_vd2)
+              if self.abbe_vd2 else zero)
+        return [zero, b1, b2, zero]
+
+    def _edge_phys(self, p):
+        return PhysKind.BLOCK, ()
+
+    def R1(self, p):
+        return 1.0 / p['c1']
+
+    def R2(self, p):
+        return 1.0 / p['c2']
+
+    def R3(self, p):
+        return -1.0 / p['c3']
+
+
+class TripletLens(_SphericLens):
+    """Cemented triplet: 4 refracting faces + 3 blocked edge cylinders.
+    Its glasses disperse with Sellmeier coefficients ``sellmeier1`` ..
+    ``sellmeier3`` (the JAX class takes no Abbe numbers).  Coatings and
+    Fresnel physics raise as for ``SingletLens``."""
+
+    _curv_names = ('c1', 'c2', 'c3', 'c4')
+    _thick_names = ('t1', 't2', 't3')
+
+    def __init__(self, c1, c2, c3, c4, d, t1, t2, t3, ior_glass1, ior_glass2,
+                 ior_glass3, ior_media=1.0, c1_grad=False, c2_grad=False,
+                 c3_grad=False, c4_grad=False, t1_grad=False, t2_grad=False,
+                 t3_grad=False, d_grad=False, ior_glass1_grad=False,
+                 ior_glass2_grad=False, ior_glass3_grad=False,
+                 ior_media_grad=False, sellmeier1=None, sellmeier2=None,
+                 sellmeier3=None, coating=None, coating_grad=False,
+                 fresnel=False, name='triplet', **kw):
+        super().__init__(name=name, **kw)
+        _refuse_unported(coating, fresnel)
+        sells = [sellmeier1, sellmeier2, sellmeier3]
+        if any(sl is not None for sl in sells):
+            self._sellmeier_media = ([None]
+                                     + [tuple(sl) if sl is not None else None
+                                        for sl in sells] + [None])
+        tt = t1 + t2 + t3
+        zs = [-tt / 2.0]
+        for t in (t1, t2, t3):
+            zs.append(zs[-1] + t)
+        _validate_faces([c1, c2, c3, c4], [t1, t2, t3], d / 2.0, zs)
+        self._init = dict(c1=c1, c2=c2, c3=c3, c4=c4, t1=t1, t2=t2, t3=t3,
+                          radius=d / 2.0, ior_glass1=ior_glass1,
+                          ior_glass2=ior_glass2, ior_glass3=ior_glass3,
+                          ior_media=ior_media)
+        self._grads = dict(c1=c1_grad, c2=c2_grad, c3=c3_grad, c4=c4_grad,
+                           t1=t1_grad, t2=t2_grad, t3=t3_grad, radius=d_grad,
+                           ior_glass1=ior_glass1_grad,
+                           ior_glass2=ior_glass2_grad,
+                           ior_glass3=ior_glass3_grad,
+                           ior_media=ior_media_grad)
+
+    def extra_params(self):
+        return dict(self._init)
+
+    def extra_trainable(self):
+        return dict(self._grads)
+
+    def _ior_chain(self, p):
+        return [p['ior_media'], p['ior_glass1'], p['ior_glass2'],
+                p['ior_glass3'], p['ior_media']]
+
+    def _edge_phys(self, p):
+        return PhysKind.BLOCK, ()
 
 
 # Outward-normal rotations of the 4 side planes of a box edge (+x, -x, +y,
@@ -305,8 +511,8 @@ class AsphericLens(SingletLens):
     a4 r^4 .. a10 r^10 terms (``a1``, ``a2``: up to 4 each, padded with
     zeros) per face, refined from the base conic's roots by 4 Halley steps
     (geom/surfaces.py::asph_refine) and differentiable in every one of them.
-    Dispersion, coatings and Fresnel physics raise as for
-    ``SingletLens``."""
+    Its glass disperses, and coatings and Fresnel physics raise, as for
+    ``SingletLens`` (whose keyword arguments it passes on)."""
 
     def __init__(self, c1, c2, d, t, ior_glass, ior_media=1.0,
                  k1=0.0, k2=0.0, a1=(), a2=(),
@@ -340,16 +546,19 @@ class AsphericLens(SingletLens):
         r = p['radius']
         zs = [-p['t'] / 2.0, p['t'] / 2.0]
         iors = self._ior_chain(p)
+        dc = self._disp_chain(p)
         recs = []
         for i, (cn, kn, an, zv) in enumerate(
                 [('c1', 'k1', 'a1', zs[0]), ('c2', 'k2', 'a2', zs[1])]):
             q, sign = q_quadric(p[cn], p[kn])
             Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(zv))
+            disp, dm, isd = _disp_rec(dc, i + 1, i)
             recs.append(SurfaceRec(
                 q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
                 sb_kind=SBKind.HEMI, sb=(p[cn],),
                 vb_kind=VBKind.APER_R2, vb=(r * r,),
                 ph_kind=self._refract_kind(), ph=(iors[i + 1], iors[i]),
+                disp=disp, disp_model=dm, is_dispersive=isd,
                 asph=tuple(p[an][j] for j in range(4)), is_asphere=True))
         edge_kind, edge_ph = self._edge_phys(p)
         q, sign = q_cylinder(r)

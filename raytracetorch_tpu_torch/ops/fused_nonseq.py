@@ -42,11 +42,12 @@ from ..core.table import FlatRow
 from ..core.trace import bounce_loop
 from . import fused_trace
 from .fused_trace import (COMPS, THREADS, _rays_of, check_cotangents,
-                          check_inputs, ext_kinds, ext_maps, flat_inputs,
-                          grad_cols, grid_args, kernel, map_cotangents,
+                          check_inputs, dispersive, dispersive_kinds,
+                          ext_kinds, ext_maps,
+                          flat_inputs, grad_cols, grid_args, kernel,
                           needs_grad, new_grid, plain_vjp, plate_args,
-                          plate_buffers, plate_inputs, plate_maps,
-                          plate_rows, ptr, split_plates, stream,
+                          plate_buffers, plate_cotangents, plate_inputs,
+                          plate_maps, plate_rows, ptr, split_plates, stream,
                           table_and_map_cotangents, unpack)
 
 NONSEQ_LAUNCHES = 0       # kernel launches by trace_nonseq_fwd_cuda (K5)
@@ -89,16 +90,17 @@ class FusedNonseq(torch.autograd.Function):
     Counterpart of ``fused_nonseq_grad`` / ``_fused_nonseq_fwd`` /
     ``_fused_nonseq_bwd``.  Like ``_fused_nonseq_fwd`` it keeps only its
     inputs (table and input rays) as residuals; the backward re-runs the
-    bounce loop.  The wavelength is read (phase plates) but gets no
-    cotangent; it is not an output, so its identity pass-through is left to
-    autograd.  Like the JAX ``custom_vjp`` it has no higher-order or
-    forward-mode rule.
+    bounce loop.  The wavelength is read (phase plates, dispersion) and gets
+    the cotangent of that reading when it requires grad (from K6's
+    instantiation with the extended kinds); it is not an output, so its
+    identity pass-through is left to autograd.  Like the JAX ``custom_vjp``
+    it has no higher-order or forward-mode rule.
 
     ``apply(flat_table, kinds, cfg, meta, n_bounces, px, py, pz, dx, dy, dz,
     intensity, ray_id, *plates)`` -> the 7 output ray streams, ``moments
     [S, B, 7]`` and, when ``cfg.grid_shape`` is set, ``grid [S, H, W]``;
-    ``plates`` as for ``FusedTrace``: the maps get their cotangents from
-    K6."""
+    ``plates`` as for ``FusedTrace``: the maps and the wavelength get their
+    cotangents from K6."""
 
     @staticmethod
     def forward(ctx, flat_table, kinds, cfg, meta, n_bounces, px, py, pz, dx,
@@ -124,20 +126,22 @@ class FusedNonseq(torch.autograd.Function):
         g_grid = grads[8] if ctx.cfg.grid_shape else None
         need = ctx.needs_input_grad
         need_table, need_rays = need[0], any(need[5:12])
+        need_wl = len(need) > 13 and need[13]
         if flat.device.type == 'cuda':
             res = trace_nonseq_bwd_cuda(
                 flat, kinds, rays, ctx.cfg, ctx.n_bounces, g_rays, g_moments,
                 need_table, need_rays, g_grid=g_grid, maps=maps,
-                need_maps=any(need[14:]), ext=ext_kinds(ctx.meta))
+                need_maps=any(need[14:]), ext=ext_kinds(ctx.meta),
+                disp=dispersive(ctx.meta), need_wavelength=need_wl)
         else:
             res = trace_nonseq_bwd_plain(
                 flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays,
-                g_moments, g_grid=g_grid, maps=maps)
+                g_moments, g_grid=g_grid, maps=maps, need_wavelength=need_wl)
         g_flat, g_in = res[:2]
         g_in = [g if n else None
                 for g, n in zip(g_in or (None,) * 7, need[5:12])]
         return (g_flat if need_table else None, None, None, None, None,
-                *g_in, None, *map_cotangents(res, maps, need[14:]))
+                *g_in, None, *plate_cotangents(res, maps, need[13:]))
 
 
 def trace_nonseq_fused_plain(flat_table, rays, cfg: SensorConfig,
@@ -153,20 +157,21 @@ def trace_nonseq_fused_plain(flat_table, rays, cfg: SensorConfig,
 
 def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
                            n_bounces, g_rays, g_moments, g_grid=None,
-                           maps=None):
+                           maps=None, need_wavelength=False):
     """K6's function in plain torch: re-run ``trace_nonseq_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
     ``g_rays`` holds the cotangents of the 7 output streams px..intensity
     (None for zero), ``g_moments`` that of the [S, B, 7] moments and
     ``g_grid`` that of the [S, H, W] grid (each None for zero).  Returns
-    ``(g_flat [K, 160], 7 input-ray cotangents)``, and with phase maps
-    their cotangents third."""
+    ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps their
+    cotangents third, and with ``need_wavelength`` the wavelength's
+    cotangent fourth (the maps' then ``()`` without maps)."""
     return plain_vjp(
         lambda flat, r, m: trace_nonseq_fused_plain(flat, r, cfg,
                                                     static_meta, n_bounces,
                                                     m),
-        flat_table, rays, g_rays, g_moments, g_grid, maps)
+        flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength)
 
 
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
@@ -209,26 +214,34 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
 def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, g_rays, g_moments, need_table=True,
                           need_rays=True, g_grid=None, replay=False,
-                          maps=None, need_maps=True, ext=False):
+                          maps=None, need_maps=True, ext=False, disp=None,
+                          need_wavelength=False):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
-    input-ray cotangents or None)``, with phase maps their cotangents (or
-    None) next, and with ``replay=True`` last the rays at the state the
-    kernel's forward replay ended at (K5's output, bit for bit).
+    input-ray cotangents or None)``, with phase maps (or the extended kinds)
+    their cotangents (or None) next, with ``need_wavelength`` the
+    wavelength's cotangent next, and with ``replay=True`` last the rays at
+    the state the kernel's forward replay ended at (K5's output, bit for
+    bit).
 
     Inputs as for ``trace_nonseq_fwd_cuda``; ``g_rays`` holds the
     cotangents of the 7 output streams (None for zero), ``g_moments`` that
     of the [S, B, 7] moments and ``g_grid`` that of the [S, H, W] grid (each
-    None for zero).  ``need_table`` / ``need_rays`` / ``need_maps`` say
-    which cotangents to compute; the kernel skips the others.  ``ext`` as
-    for ``trace_nonseq_fwd_cuda``."""
+    None for zero).  ``need_table`` / ``need_rays`` / ``need_maps`` /
+    ``need_wavelength`` say which cotangents to compute; the kernel skips
+    the others.  ``ext`` as for ``trace_nonseq_fwd_cuda``, ``disp`` as for
+    ``fused_trace.trace_seq_bwd_cuda`` (a dispersive table and the
+    wavelength's cotangent take the instantiation with dispersion)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     _check_bounces(n_bounces)
+    if disp is None:
+        disp = ext and dispersive_kinds(kinds)
+    ext = ext or need_wavelength
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
-    cols = grad_cols(plates, ext)
+    cols = grad_cols(plates, ext, disp)
 
     def streams(wanted):
         return ([torch.empty(n, dtype=torch.float32, device=device)
@@ -239,7 +252,10 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 if need_table else None)
     g_maps = (torch.zeros_like(plates.maps)
               if plates is not None and need_maps else None)
-    if n > 0 and (need_table or need_rays or replay or g_maps is not None):
+    g_wl = (torch.empty(n, dtype=torch.float32, device=device)
+            if need_wavelength else None)
+    if n > 0 and (need_table or need_rays or replay or g_maps is not None
+                  or need_wavelength):
         fn = kernel('rtt_trace_nonseq_bwd')
         with torch.cuda.device(device):
             rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
@@ -248,15 +264,15 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                     g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
                     ptr(partials), *map(ptr, ends or (None,) * 7), n_slots,
                     n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
-                    ptr(g_maps), int(ext), int(n_bounces), n,
-                    stream(device))
+                    ptr(g_maps), ptr(g_wl), int(ext and disp), int(ext),
+                    int(n_bounces), n, stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
         fused_trace.EXT_LAUNCHES += int(ext)
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
-                                   device)
+                                   device, g_wl)
     if replay:
         res += (rays.replace(**dict(zip(COMPS, ends))),)
     return res

@@ -41,11 +41,16 @@ module:
   Without a plate none of these is passed and the kernels run their
   instantiation without plate code.
 - A scene with a kind of the mixed-surface and asphere scenes (an even
-  asphere, a rectangular volume bound, a cylindrical lens's edge bound:
-  ``ext_kinds``) runs a third instantiation, with plate code and those
-  kinds (``ext=True`` at the wrappers; maps as with plates, possibly none).
-  Its K2 and K6 add the asphere coefficients' cotangents: ``EXT_GRAD_COLS``.
-  The other two instantiations hold none of that code.
+  asphere, a rectangular volume bound, a cylindrical lens's edge bound) or
+  a dispersive medium (``ext_kinds``) runs a third instantiation, with
+  plate code and those kinds (``ext=True`` at the wrappers; maps as with
+  plates, possibly none, and always the rays' wavelength).  Its K2 and K6
+  add the asphere coefficients' cotangents (``EXT_GRAD_COLS``).  K2 and K6
+  take a dispersive table in a fourth instantiation, which adds the
+  dispersion coefficients' cotangents (``DISP_GRAD_COLS``) and returns the
+  wavelength's when it is asked for (``need_wavelength``; a plate scene
+  whose wavelength requires grad runs it in backward for that).  The
+  instantiations without the extended kinds hold none of that code.
 - ``plain_vjp`` is the shared body of the plain backward versions
   (``trace_seq_bwd_plain`` here, ``trace_nonseq_bwd_plain`` in
   ops/fused_nonseq.py): ``torch.autograd.grad`` of a plain forward.
@@ -82,6 +87,10 @@ KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
 # the surface column: the quadric solver, the plane fast path, or the
 # quadric's roots refined onto an even asphere
 SURF_QUADRIC, SURF_PLANE, SURF_ASPHERE = 0, 1, 2
+# A dispersive row's two DispModels ride the physics column: the in side's
+# in bits DISP_SHIFT and DISP_SHIFT + 1, the out side's in the two above
+# (only the instantiations that take dispersion read them).
+DISP_SHIFT = 8
 MAX_ROWS = 64
 MAX_SLOTS = 8
 MAX_BUNDLES = 8
@@ -101,6 +110,10 @@ PLATE_GRAD_COLS = GRAD_COLS + tuple(ROW_OFFSETS['ph'] + j
 # q[2], already among the columns.
 EXT_GRAD_COLS = PLATE_GRAD_COLS + tuple(ROW_OFFSETS['asph'] + j
                                         for j in range(4))
+# A table with a dispersive row adds its 12 dispersion coefficients, the
+# Cauchy B or the Sellmeier B1..C3 of each side (reduced by K2 and K6 after
+# the other columns, and only for dispersive rows).
+DISP_GRAD_COLS = tuple(ROW_OFFSETS['disp'] + j for j in range(12))
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
@@ -108,8 +121,12 @@ _GRID = [_P, _I, _I, _F]      # grid (or its cotangent), H, W, half extent
 # maps, their (offset, H, W), wavelength; the extended kinds (0 or 1)
 _PLATES = [_P, _P, _P]
 _EXT = [_I]
+# K2's and K6's wavelength cotangent (or null) and whether the table has a
+# dispersive row (its partials then hold DISP_GRAD_COLS too)
+_WAVE = [_P, _I]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
-# code and the extended kinds), out: resident blocks per SM
+# code and the extended kinds, 3 those and a dispersive table), out: resident
+# blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
@@ -119,7 +136,7 @@ _LIBRARIES = {
         'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
-        + _PLATES + [_P] + _EXT + [_L, _P],
+        + _PLATES + [_P] + _WAVE + _EXT + [_L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
@@ -135,7 +152,7 @@ _LIBRARIES = {
         'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
         'rtt_trace_nonseq_bwd': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
-        + _PLATES + [_P] + _EXT + [_I, _L, _P],
+        + _PLATES + [_P] + _WAVE + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY}),
 }
 _fns = {}
@@ -160,17 +177,30 @@ def plate_rows(static_meta):
 
 def ext_kinds(static_meta):
     """Whether a row has a kind that only the kernels' instantiation with
-    the extended kinds takes: an even asphere, a rectangular volume bound or
-    a cylindrical lens's edge bound."""
-    return any(m.asph or m.vb in (VBKind.RECT, VBKind.CYL_EDGE)
+    the extended kinds takes: an even asphere, a rectangular volume bound, a
+    cylindrical lens's edge bound or a dispersive medium."""
+    return any(m.asph or m.disp or m.vb in (VBKind.RECT, VBKind.CYL_EDGE)
                for m in static_meta)
+
+
+def dispersive(static_meta):
+    """Whether a row refracts at per-ray indices (``dispersive_iors``)."""
+    return any(m.disp for m in static_meta)
+
+
+def dispersive_kinds(kinds):
+    """Whether a kinds tensor of ``kind_rows`` has a dispersive row (its
+    physics column carries DispModels): one small read of the tensor, for
+    the K2 and K6 wrappers when their caller does not say."""
+    return bool((kinds[:, 0] >> DISP_SHIFT).any())
 
 
 def kind_rows(static_meta, cfg: SensorConfig):
     """[K, KIND_WIDTH] int rows the kernels read; raises NotImplementedError
     for anything the kernels do not take.  The surface column holds
-    SURF_QUADRIC, SURF_PLANE or SURF_ASPHERE; the last column is a
-    PHASE_GRID row's map index (0 for every other row)."""
+    SURF_QUADRIC, SURF_PLANE or SURF_ASPHERE; a dispersive row's physics
+    column adds its two DispModels from bit DISP_SHIFT on; the last column
+    is a PHASE_GRID row's map index (0 for every other row)."""
     n_slots = _check_limits(len(static_meta), cfg)
     maps = {k: j for j, k in enumerate(plate_rows(static_meta))}
     rows = []
@@ -183,7 +213,10 @@ def kind_rows(static_meta, cfg: SensorConfig):
                              f'0..{n_slots - 1}')
         surf = (SURF_ASPHERE if m.asph
                 else SURF_PLANE if m.plane else SURF_QUADRIC)
-        rows.append([m.ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
+        ph = m.ph
+        if m.disp:
+            ph |= (m.dispm[0] << DISP_SHIFT) | (m.dispm[1] << DISP_SHIFT + 2)
+        rows.append([ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
                      int(m.invert), maps.get(k, 0)])
     return rows
 
@@ -234,10 +267,13 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     Its contract is the TPU kernel's: no irradiance grid, no stochastic,
     GRIN or phase-grid rows (the port has no stochastic or GRIN kind, so
     ``unsupported`` refuses those), at most 8 sensor slots.  Its function is
-    K1's with the grid, the maps and the wavelength off, so on CUDA tensors
-    it launches K1's kernel so (counted in ``V1_LAUNCHES``; a RECT bound
-    takes its instantiation with plate code, with no map, and the extended
-    kinds theirs); CPU tensors run the plain version."""
+    K1's with the grid and the maps off, so on CUDA tensors it launches
+    K1's kernel so (counted in ``V1_LAUNCHES``; a RECT bound takes its
+    instantiation with plate code, with no map, and the extended kinds
+    theirs, which reads the wavelength of a dispersive row); CPU tensors run
+    the plain version.  On a dispersive row it follows the chain and
+    refracts at each ray's index, where the TPU kernel refracts at the
+    d-line index (ROADMAP Queue 3)."""
     global V1_LAUNCHES
     if cfg.grid_shape:
         raise ValueError('trace_sequential_v1 takes no irradiance grid: use '
@@ -279,17 +315,21 @@ def flat_inputs(table, rays, cfg, static_meta):
 
 
 def needs_grad(flat, rays, maps=None):
-    """Whether a fused trace runs under autograd: the table, a ray stream or
-    a phase map requires grad."""
+    """Whether a fused trace runs under autograd: the table, a ray stream, a
+    phase map or (when the kernels read it: ``maps`` not None) the
+    wavelength requires grad."""
     return torch.is_grad_enabled() and (
         flat.requires_grad
         or any(getattr(rays, c).requires_grad for c in COMPS)
-        or any(m.requires_grad for m in maps or ()))
+        or any(m.requires_grad for m in maps or ())
+        or (maps is not None and rays.wavelength is not None
+            and rays.wavelength.requires_grad))
 
 
 def plate_inputs(rays, maps):
     """The trailing tensor arguments of ``FusedTrace`` and ``FusedNonseq``:
-    ``(wavelength, *maps)`` with plate code (``plate_maps`` not None), none
+    ``(wavelength, *maps)`` with plate code (``plate_maps`` not None, which
+    the extended kinds, dispersion among them, always have), none
     without."""
     return (wavelength_of(rays), *maps) if maps is not None else ()
 
@@ -316,8 +356,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, maps=None):
 
 
 def _rays_of(comps, ray_id, wavelength):
-    # the fused trace reads the wavelength (phase plates) and returns it
-    # unchanged
+    # the fused trace reads the wavelength (phase plates, dispersion) and
+    # returns it unchanged
     return Rays(**dict(zip(COMPS, comps)), ray_id=ray_id,
                 wavelength=wavelength)
 
@@ -329,16 +369,19 @@ class FusedTrace(torch.autograd.Function):
     Counterpart of ``fused_trace_grad`` / ``_fused_fwd`` / ``_fused_bwd``.
     Like ``_fused_fwd`` it keeps only its inputs (table, input rays, phase
     maps) as residuals; the backward re-runs the chain.  The wavelength is
-    read (phase plates) but gets no cotangent; it is not an output, so its
-    identity pass-through is left to autograd.  Like the JAX ``custom_vjp``
-    it has no higher-order or forward-mode rule.
+    read (phase plates, dispersion) and gets the cotangent of that reading
+    when it requires grad, which K2 computes in its instantiation with the
+    extended kinds; it is not an output, so its identity pass-through is
+    left to autograd.  Like the JAX ``custom_vjp`` it has no higher-order
+    or forward-mode rule.
 
     ``apply(flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz, intensity,
     ray_id, *plates)`` -> the 7 output ray streams, ``moments [S, B, 7]``
     and, when ``cfg.grid_shape`` is set, ``grid [S, H, W]``.  ``plates`` is
     empty without a phase plate, else ``(wavelength, *maps)``
     (``plate_inputs``), the maps being the PHASE_GRID rows' in row order
-    (``plate_maps``); their cotangents come from K2."""
+    (``plate_maps``); their cotangents and the wavelength's come from
+    K2."""
 
     @staticmethod
     def forward(ctx, flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz,
@@ -364,31 +407,36 @@ class FusedTrace(torch.autograd.Function):
         g_grid = grads[8] if ctx.cfg.grid_shape else None
         need = ctx.needs_input_grad
         need_table, need_rays = need[0], any(need[4:11])
-        need_maps = any(need[13:])
+        need_maps, need_wl = any(need[13:]), len(need) > 12 and need[12]
         if flat.device.type == 'cuda':
             res = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg, g_rays,
                                      g_moments, need_table, need_rays,
                                      g_grid=g_grid, maps=maps,
                                      need_maps=need_maps,
-                                     ext=ext_kinds(ctx.meta))
+                                     ext=ext_kinds(ctx.meta),
+                                     disp=dispersive(ctx.meta),
+                                     need_wavelength=need_wl)
         else:
             res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
-                                      g_moments, g_grid=g_grid, maps=maps)
+                                      g_moments, g_grid=g_grid, maps=maps,
+                                      need_wavelength=need_wl)
         g_flat, g_in = res[:2]
         g_in = [g if n else None
                 for g, n in zip(g_in or (None,) * 7, need[4:11])]
         return (g_flat if need_table else None, None, None, None, *g_in,
-                None, *map_cotangents(res, maps, need[13:]))
+                None, *plate_cotangents(res, maps, need[12:]))
 
 
-def map_cotangents(res, maps, need):
+def plate_cotangents(res, maps, need):
     """The trailing cotangents of ``FusedTrace`` and ``FusedNonseq`` for
-    their ``plate_inputs`` (None for the wavelength), from the third item
-    of a backward's result ``res``."""
+    their ``plate_inputs``: the wavelength's (the fourth item of a
+    backward's result ``res``, when ``need[0]`` asked for it) and the maps'
+    (its third)."""
     if maps is None:
         return ()
     g_maps = (res[2] if len(res) > 2 else None) or (None,) * len(maps)
-    return (None, *(g if n else None for g, n in zip(g_maps, need)))
+    return (res[3] if need[0] else None,
+            *(g if n else None for g, n in zip(g_maps, need[1:])))
 
 
 def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
@@ -407,47 +455,56 @@ def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
 
 
 def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
-                        g_rays, g_moments, g_grid=None, maps=None):
+                        g_rays, g_moments, g_grid=None, maps=None,
+                        need_wavelength=False):
     """K2's function in plain torch: re-run ``trace_sequential_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
     ``g_rays`` holds the cotangents of the 7 output streams px..intensity
     (None for zero), ``g_moments`` that of the [S, B, 7] moments and
     ``g_grid`` that of the [S, H, W] grid (each None for zero).  Returns
-    ``(g_flat [K, 160], 7 input-ray cotangents)``, and with phase maps
-    their cotangents third."""
+    ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps their
+    cotangents third, and with ``need_wavelength`` the wavelength's
+    cotangent fourth (the maps' then ``()`` without maps)."""
     return plain_vjp(
         lambda flat, r, m: trace_sequential_fused_plain(flat, r, cfg,
                                                         static_meta, m),
-        flat_table, rays, g_rays, g_moments, g_grid, maps)
+        flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength)
 
 
 def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid,
-              maps=None):
+              maps=None, need_wavelength=False):
     """``torch.autograd.grad`` of ``forward(flat, rays, maps) -> (rays,
     SensorState)`` at ``(flat_table, rays, maps)`` with the cotangents of
-    ``trace_seq_bwd_plain`` -> ``(g_flat, 7 input-ray cotangents)``, and
-    with maps their cotangents third; zeros where the output does not
-    depend on an input."""
+    ``trace_seq_bwd_plain`` -> ``(g_flat, 7 input-ray cotangents)``, with
+    maps their cotangents third, and with ``need_wavelength`` the
+    wavelength's cotangent fourth; zeros where the output does not depend
+    on an input."""
     with torch.enable_grad():
         flat = flat_table.detach().requires_grad_(True)
         comps = [getattr(rays, c).detach().requires_grad_(True)
                  for c in COMPS]
         maps_in = [m.detach().requires_grad_(True) for m in maps or ()]
-        out, sensors = forward(flat, rays.replace(**dict(zip(COMPS, comps))),
-                               tuple(maps_in))
+        wl = [wavelength_of(rays).detach().requires_grad_(True)
+              for _ in range(int(need_wavelength))]
+        r_in = rays.replace(**dict(zip(COMPS, comps)))
+        if need_wavelength:
+            r_in = r_in.replace(wavelength=wl[0])
+        out, sensors = forward(flat, r_in, tuple(maps_in))
         pairs = [(o, g) for o, g in zip(
             [*(getattr(out, c) for c in COMPS), sensors.moments,
              sensors.grid],
             [*g_rays, g_moments, g_grid])
             if g is not None and o.requires_grad]
-        inputs = [flat, *comps, *maps_in]
+        inputs = [flat, *comps, *maps_in, *wl]
         res = (torch.autograd.grad([o for o, _ in pairs],
                                    inputs, [g for _, g in pairs],
                                    allow_unused=True)
                if pairs else [None] * len(inputs))
     res = [torch.zeros_like(x) if g is None else g
            for g, x in zip(res, inputs)]
+    if need_wavelength:
+        return res[0], tuple(res[1:8]), tuple(res[8:-1]), res[-1]
     if maps is not None:
         return res[0], tuple(res[1:8]), tuple(res[8:])
     return res[0], tuple(res[1:8])
@@ -481,20 +538,21 @@ def kernel(symbol):
 
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
-                  ext=False):
+                  ext=False, disp=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
     (``'trace_nonseq_bwd'``, with its bounce budget ``n_bounces``) that a
     launch with ``n_rows`` rows, ``cfg``'s slots and bundles and, with
-    ``plates``, plate code (with ``ext``, also the extended kinds) runs, at
-    that launch's dynamic shared memory
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
-    device)."""
+    ``plates``, plate code (with ``ext``, also the extended kinds; with
+    ``disp`` too, on a table with a dispersive row) runs, at that launch's
+    dynamic shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the current device)."""
     out = ctypes.c_int(0)
+    code = (3 if disp else 2) if ext else int(bool(plates))
     rc = kernel(f'rtt_{library}_occupancy')(
-        n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces),
-        2 if ext else int(bool(plates)), ctypes.byref(out))
+        n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces), code,
+        ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f'{library} occupancy query failed with CUDA '
                            f'error {rc}')
@@ -610,10 +668,12 @@ def ext_maps(maps, ext):
     return () if ext and maps is None else maps
 
 
-def grad_cols(plates, ext):
-    """The table columns whose cotangents K2 and K6 reduce."""
-    return (EXT_GRAD_COLS if ext else PLATE_GRAD_COLS if plates is not None
-            else GRAD_COLS)
+def grad_cols(plates, ext, disp=False):
+    """The table columns whose cotangents K2 and K6 reduce (``disp``: the
+    table has a dispersive row, which only the extended kinds take)."""
+    if ext:
+        return EXT_GRAD_COLS + (DISP_GRAD_COLS if disp else ())
+    return PLATE_GRAD_COLS if plates is not None else GRAD_COLS
 
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
@@ -664,24 +724,33 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False):
 
 def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_moments, need_table=True, need_rays=True,
-                       g_grid=None, maps=None, need_maps=True, ext=False):
+                       g_grid=None, maps=None, need_maps=True, ext=False,
+                       disp=None, need_wavelength=False):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
-    input-ray cotangents or None)``, and with phase maps their cotangents
-    (or None) third.
+    input-ray cotangents or None)``, with phase maps (or the extended
+    kinds) their cotangents (or None) third, and with ``need_wavelength``
+    the wavelength's cotangent fourth.
 
     Inputs as for ``trace_seq_fwd_cuda``; ``g_rays`` holds the cotangents
     of the 7 output streams (None for zero), ``g_moments`` that of the
     [S, B, 7] moments and ``g_grid`` that of the [S, H, W] grid (each None
-    for zero).  ``need_table`` / ``need_rays`` / ``need_maps`` say which
-    cotangents to compute; the kernel skips the others.  ``ext`` as for
-    ``trace_seq_fwd_cuda``."""
+    for zero).  ``need_table`` / ``need_rays`` / ``need_maps`` /
+    ``need_wavelength`` say which cotangents to compute; the kernel skips
+    the others.  ``ext`` as for ``trace_seq_fwd_cuda``; ``disp``: the table
+    has a dispersive row (``dispersive``; None: read it off ``kinds``).  A
+    dispersive table and the wavelength's cotangent take the kernel's
+    instantiation with dispersion, which also has the extended kinds,
+    whatever ``ext``."""
     global BWD_LAUNCHES, EXT_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
+    if disp is None:
+        disp = ext and dispersive_kinds(kinds)
+    ext = ext or need_wavelength
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
-    cols = grad_cols(plates, ext)
+    cols = grad_cols(plates, ext, disp)
     outs = ([torch.empty(n, dtype=torch.float32, device=device)
              for _ in COMPS] if need_rays else None)
     partials = (torch.empty(-(-n // THREADS), k, len(cols),
@@ -689,7 +758,10 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                 if need_table else None)
     g_maps = (torch.zeros_like(plates.maps)
               if plates is not None and need_maps else None)
-    if n > 0 and (need_table or need_rays or g_maps is not None):
+    g_wl = (torch.empty(n, dtype=torch.float32, device=device)
+            if need_wavelength else None)
+    if n > 0 and (need_table or need_rays or g_maps is not None
+                  or need_wavelength):
         fn = kernel('rtt_trace_seq_bwd')
         with torch.cuda.device(device):
             rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
@@ -698,14 +770,15 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                     g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
                     ptr(partials), n_slots, n_bundles,
                     *grid_args(cfg, g_grid), *plate_args(plates),
-                    ptr(g_maps), int(ext), n, stream(device))
+                    ptr(g_maps), ptr(g_wl), int(ext and disp), int(ext), n,
+                    stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
         EXT_LAUNCHES += int(ext)
     return table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
-                                    device)
+                                    device, g_wl)
 
 
 def ptr(t):
@@ -734,10 +807,11 @@ def check_cotangents(g_rays, g_moments, g_grid, cfg, n, device):
 
 
 def table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
-                             device):
+                             device, g_wl=None):
     """The K2 and K6 wrappers' results: ``(g_flat [K, 160] or None, 7
-    input-ray cotangents or None)``, and with plates the maps' cotangents
-    (or None) third."""
+    input-ray cotangents or None)``, with plates the maps' cotangents (or
+    None) third, and the wavelength's cotangent ``g_wl`` fourth when
+    given."""
     g_flat = None
     if partials is not None:
         g_flat = torch.zeros(k, ROW_WIDTH, dtype=torch.float32,
@@ -746,4 +820,6 @@ def table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
     res = (g_flat, tuple(outs) if outs is not None else None)
     if plates is not None:
         res += (None if g_maps is None else plates.split(g_maps),)
+    if g_wl is not None:
+        res += (g_wl,)
     return res

@@ -142,10 +142,14 @@ def fit_lbfgs(loss_fn, params, trainable=None, steps=50, **lbfgs_kw):
     follow optax's ``lbfgs``: history 10, at most 20 line-search evaluations
     per step (``max_eval=21``: torch counts the step's first evaluation and
     otherwise caps the line search at ``max_iter * 5 // 4 - 1`` evaluations,
-    which is 0 for one iteration).  ``lbfgs_kw`` overrides the optimizer's
-    arguments.  Returns ``(params, losses [steps])``."""
+    which is 0 for one iteration), and no stopping rule (torch's defaults end
+    every later step once the loss moves by less than 1e-9 or no gradient
+    entry exceeds 1e-7, which a loss of 1e-5 mm^2, such as an achromat's
+    spot, meets long before it converges).  ``lbfgs_kw`` overrides the
+    optimizer's arguments.  Returns ``(params, losses [steps])``."""
     y, to_p, leaves, mask = _setup(params, None, trainable)
     kw = dict(lr=1.0, max_iter=1, max_eval=21, history_size=10,
+              tolerance_grad=0.0, tolerance_change=0.0,
               line_search_fn='strong_wolfe')
     kw.update(lbfgs_kw)
     opt = torch.optim.LBFGS(leaves, **kw)

@@ -142,9 +142,9 @@ class Scene:
                 for r in el.build(el.init_params('cpu')):
                     meta.append(StaticRowMeta(
                         r.ph_kind, r.sb_kind, r.vb_kind, r.is_sensor,
-                        r.sb_invert, r.is_asphere, plane=r.is_plane,
-                        slot=slot if el.is_sensor else 0,
-                        dispm=(0, 0)))     # non-dispersive on both sides
+                        r.sb_invert, r.is_asphere, r.is_dispersive,
+                        plane=r.is_plane, slot=slot if el.is_sensor else 0,
+                        dispm=r.disp_model))
                 if el.is_sensor:
                     slot += 1
             self._static_meta = meta

@@ -33,9 +33,11 @@ K1 is held to its plain version at the edges of its blocks and waves, its
 moments bit for bit across two launches, and its two instantiations
 without the extended kinds to no spill, no stack frame and their launch
 bounds' blocks per SM.  The instantiations of K1, K2, K5 and K6 with the
-extended kinds (the mixed-surface and asphere scenes) are held to their
-plain versions with the same bounds, and the paths that should take them
-(and the main paths, which should not) are counted.
+extended kinds (the mixed-surface and asphere scenes, and the dispersive
+achromat and Cooke triplet, K2's and K6's wavelength cotangent and
+dispersion columns included, the latter with chip_smoke.DISP_BWD_TOL) are
+held to their plain versions with the same bounds, and the paths that
+should take them (and the main paths, which should not) are counted.
 """
 
 import math
@@ -1281,11 +1283,12 @@ def test_main_path_runs_no_extended_kinds(dev):
 def test_ext_instantiations_are_built(dev):
     """Each of K1, K2, K5 and K6 builds its instantiations with the extended
     kinds (K2's for both homes of its saved states, K5's for both moment
-    buckets), and their occupancy queries answer."""
+    buckets; K2 and K6 also the overloads that take dispersion and the
+    wavelength's cotangent), and their occupancy queries answer."""
     from raytracetorch_tpu_torch.ops import nvcc_build
     logs = fused_trace.build()
-    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
-            'trace_nonseq_bwd': 1}
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 4, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 2}
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
         ext = [k for k in usage if f'{lib}_kernel' in k and _ext(k)]
@@ -1353,3 +1356,155 @@ def test_ext_with_a_plate_and_a_grid_matches_plain(kind, dev):
     chip_smoke.compare_plate_bwd(trt, torch, scene, params, rays, 26,
                                  nonseq=kind == 'scene')
     assert fused_trace.EXT_LAUNCHES == 2
+
+
+DISP_CASES = chip_smoke.DISP_CASES
+
+
+def _disp_case(case, dev, n=N):
+    """A dispersive scene of chip_smoke.py section 9 (the achromat with Abbe
+    or Sellmeier glasses, the Cooke triplet), sequential, and its 12-bounce
+    Scene -> (scene, Scene, bundles, flat table, kinds, maps, rays)."""
+    seq, _, nb = chip_smoke.disp_case(trt, case)
+    ns = chip_smoke.disp_case(trt, case, chip_smoke.DISP_BOUNCES)[0]
+    meta, cfg = seq.static_meta(), seq.sensor_config(nb)
+    flat = trt.flatten_table_rows(seq.build_table(seq.init_params(dev)))
+    return (seq, ns, nb, flat, _kinds(meta, cfg, dev),
+            fused_trace.plate_maps(meta, None),
+            chip_smoke.disp_rays(trt, torch, case, n, dev, 31))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', DISP_CASES)
+def test_disp_kernels_match_plain(case, dev):
+    """K1, K2, K5 and K6 in their instantiation with the extended kinds on
+    the dispersive scenes, against their plain versions: K2 with the disp
+    columns and the wavelength's cotangent, K6 (chip_smoke.compare_k6) with
+    both; K6's replay ends at K5's output bit for bit."""
+    seq, ns, nb, flat, kinds, maps, rays = _disp_case(case, dev)
+    meta, cfg = seq.static_meta(), seq.sensor_config(nb)
+    assert fused_trace.dispersive(meta) and maps == ()
+    out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
+                                                ext=True)
+    out_p, s_p = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                          meta, maps)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(out_k, s_k, out_p, s_p)
+    g_rays, g_mom, _ = chip_smoke.random_cotangents(torch, rays.n, cfg, dev,
+                                                    32)
+    gt_k, gr_k, _, gw_k = fused_trace.trace_seq_bwd_cuda(
+        flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=True,
+        disp=True, need_wavelength=True)
+    gt_p, gr_p, _, gw_p = fused_trace.trace_seq_bwd_plain(
+        flat, rays, cfg, meta, g_rays, g_mom, maps=maps,
+        need_wavelength=True)
+    torch.cuda.synchronize()
+    chip_smoke.compare_ray_cotangents(torch, gr_k, gr_p,
+                                      tol=chip_smoke.DISP_BWD_TOL)
+    chip_smoke.compare_table_cotangents(torch, fused_trace, gt_k, gt_p,
+                                        plates=True, ext=True, disp=True)
+    chip_smoke.compare_wavelength_cotangents(torch, gw_k, gw_p)
+    dcols = list(fused_trace.DISP_GRAD_COLS)
+    assert float(gt_k[:, dcols].abs().max()) > 0
+    nmeta, ncfg = ns.static_meta(), ns.sensor_config(nb)
+    nbounce = ns.n_bounces
+    out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(flat, kinds, rays, ncfg,
+                                                    nbounce, maps, ext=True)
+    out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(flat, rays, ncfg,
+                                                       nmeta, nbounce, maps)
+    torch.cuda.synchronize()
+    chip_smoke.compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    *_, ends = fused_nonseq.trace_nonseq_bwd_cuda(
+        flat, kinds, rays, ncfg, nbounce, (None,) * 7, None,
+        need_table=False, need_rays=False, replay=True, maps=maps, ext=True)
+    for c in fused_trace.COMPS:
+        assert torch.equal(getattr(ends, c), getattr(out_k, c)), c
+    res = chip_smoke.compare_k6(trt, torch, ns, rays, 33)
+    assert res['wavelength']['scale'] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', DISP_CASES)
+def test_disp_scenes_launch_their_instantiation(case, dev):
+    """``simulate_fused`` on a dispersive scene launches K1 (and K2 under
+    grad) once each, its Scene K5 (and K6), every launch in the
+    instantiation with the extended kinds; the gradients in chip_smoke.
+    DISP_TRAINED and the rays' wavelength match the eager trace's."""
+    seq, ns, nb, _, _, _, rays = _disp_case(case, dev)
+    for sc, fwd, bwd in ((seq, 'LAUNCHES', 'BWD_LAUNCHES'),
+                         (ns, 'NONSEQ_LAUNCHES', 'NONSEQ_BWD_LAUNCHES')):
+        mod = fused_trace if sc is seq else fused_nonseq
+
+        def grads(simulate):
+            p = sc.init_params(dev)
+            for el, k in chip_smoke.DISP_TRAINED[case]:
+                p[el][k].requires_grad_(True)
+            wl = rays.wavelength.clone().requires_grad_(True)
+            _, s, _ = simulate(p, rays.replace(wavelength=wl), nb)
+            trt.spot_size_loss(s).backward()
+            return ([p[el][k].grad for el, k in chip_smoke.DISP_TRAINED[case]],
+                    wl.grad)
+
+        setattr(mod, fwd, 0)
+        setattr(mod, bwd, 0)
+        fused_trace.EXT_LAUNCHES = 0
+        g_f, w_f = grads(sc.simulate_fused)
+        torch.cuda.synchronize()
+        assert (getattr(mod, fwd), getattr(mod, bwd),
+                fused_trace.EXT_LAUNCHES) == (1, 1, 2)
+        g_e, w_e = grads(sc.simulate)
+        for a, b in zip(g_f, g_e):
+            assert bool(torch.isfinite(a).all())
+            assert float(((a - b).abs() / b.abs()).max()) < \
+                chip_smoke.GRAD_RTOL
+        chip_smoke.compare_wavelength_cotangents(torch, w_f, w_e, 3)
+
+
+@pytest.mark.cuda
+def test_plate_wavelength_cotangent_takes_the_extended_instantiation(dev):
+    """With the wavelength under grad, a phase-plate scene's backward runs
+    K2 (and K6) in the instantiation with the extended kinds, whose
+    wavelength cotangent (the kick reads it) matches the plain version's;
+    without, it runs the plate instantiation as before."""
+    for sc, mod, bwd in (
+            (chip_smoke.ring_scene(trt), fused_trace, 'BWD_LAUNCHES'),
+            (chip_smoke.ring_scene(trt, bounces=chip_smoke.DO_BOUNCES),
+             fused_nonseq, 'NONSEQ_BWD_LAUNCHES')):
+        rays = chip_smoke.ring_rays(trt, torch, N, dev, 34)
+        rays = rays.replace(wavelength=torch.linspace(
+            0.45, 0.65, N, device=dev))
+        p = chip_smoke.ring_params(sc, dev)
+        wl = rays.wavelength.clone().requires_grad_(True)
+        fused_trace.EXT_LAUNCHES = 0
+        setattr(mod, bwd, 0)
+        out, _, _ = sc.simulate_fused(p, rays.replace(wavelength=wl))
+        (out.px * out.dx).mean().backward()
+        torch.cuda.synchronize()
+        assert fused_trace.EXT_LAUNCHES == 1 and getattr(mod, bwd) == 1
+        # the plain versions on the CPU, the same rays and map
+        p_cpu = chip_smoke.ring_params(sc, 'cpu')
+        r_cpu = rays.to('cpu')
+        w_cpu = r_cpu.wavelength.clone().requires_grad_(True)
+        o_c, _, _ = sc.simulate_fused(p_cpu, r_cpu.replace(wavelength=w_cpu))
+        (o_c.px * o_c.dx).mean().backward()
+        chip_smoke.compare_wavelength_cotangents(torch, wl.grad.cpu(),
+                                                 w_cpu.grad, 3)
+
+
+@pytest.mark.cuda
+def test_disp_instantiations_build_and_fit(dev):
+    """The dispersive launches' occupancy (code 3: 12 more table columns a
+    row in K2's and K6's shared memory) keeps at least one block an SM on
+    every section 9 scene, and the mixed-surface Scene's K6 (no dispersive
+    row, no extra columns) keeps its 2."""
+    for case in DISP_CASES:
+        seq, ns, nb, *_ = _disp_case(case, dev, 1)
+        for lib, sc in (('trace_seq_fwd', seq), ('trace_seq_bwd', seq),
+                        ('trace_nonseq_fwd', ns), ('trace_nonseq_bwd', ns)):
+            assert fused_trace.blocks_per_sm(
+                lib, len(sc.static_meta()), sc.sensor_config(nb), True,
+                sc.n_bounces, ext=True, disp=True) >= 1
+    mixed = chip_smoke.mixed_scene(trt, chip_smoke.EXT_BOUNCES)
+    assert fused_trace.blocks_per_sm(
+        'trace_nonseq_bwd', len(mixed.static_meta()), mixed.sensor_config(),
+        True, mixed.n_bounces, ext=True) >= 2

@@ -8,7 +8,9 @@ read from the sources on the CPU:
   branches on;
 - the occupancy queries that K1, K2, K5 and K6 export are bound by the
   wrappers, and every C entry point the wrappers bind takes as many
-  arguments in its source as the wrappers pass.
+  arguments in its source as the wrappers pass;
+- a dispersive row's DispModels in its kinds row's physics column, the
+  flat-row offsets and the dispersion columns the adjoints reduce.
 
 The kernels themselves are held to their plain versions on the card in
 tests/test_torch_cuda.py."""
@@ -122,3 +124,57 @@ def test_bound_entry_points_take_their_arguments(lib):
         assert m is not None, sym
         assert len(m.group(1).split(',')) == len(argtypes), sym
 
+
+ADJOINT = (CSRC / 'trace_seq_adjoint.cuh').read_text()
+
+
+def test_flat_row_offsets_of_the_physics_and_dispersion():
+    """The flat-row offsets the physics reads (ph, asph, and a dispersive
+    row's 12 disp columns) are core/table.py's."""
+    for const, name in (('kPh', 'ph'), ('kAsph', 'asph'), ('kDisp', 'disp')):
+        assert C[const] == ROW_OFFSETS[name], const
+    assert SIZES['disp'] == 12
+
+
+@pytest.mark.parametrize('dispm', [(1, 1), (2, 2), (0, 2), (2, 0), (1, 2)])
+def test_kinds_encode_dispersion_in_the_physics_column(dispm):
+    """A dispersive row's two DispModels ride its physics column from bit
+    kDispShift on, two bits a side, in then out, as read_row_kinds<true>
+    decodes them (``kd >> kDispShift`` and ``disp_model``: ``(dispm >> 2
+    side) & 3``, the kind ``kd & (1 << kDispShift) - 1``); the kinds row
+    stays KIND_WIDTH = 8 ints, and a row that does not disperse keeps its
+    bare kind."""
+    from raytracetorch_tpu_torch.core.sensor import SensorConfig
+    from raytracetorch_tpu_torch.core.static_dispatch import StaticRowMeta
+    assert C['kDispShift'] == fused_trace.DISP_SHIFT == 8
+    assert C['kKindWidth'] == fused_trace.KIND_WIDTH == 8
+    assert 'kd[kPhCol] & ((1 << kDispShift) - 1)' in COMMON
+    assert 'kd[kPhCol] >> kDispShift' in COMMON
+    assert 'return (dispm >> (2 * side)) & 3;' in COMMON
+    meta = [StaticRowMeta(3, 4, 1, disp=True, dispm=dispm),
+            StaticRowMeta(3, 4, 1, dispm=dispm)]
+    rows = fused_trace.kind_rows(meta, SensorConfig())
+    assert all(len(r) == 8 for r in rows)
+    code = rows[0][0]
+    assert code & ((1 << C['kDispShift']) - 1) == 3
+    word = code >> C['kDispShift']
+    assert ((word >> 0) & 3, (word >> 2) & 3) == dispm
+    assert rows[1][0] == 3
+
+
+def test_dispersion_models_and_columns_match_the_kernels():
+    """The kernels' DispModel values and the d line are constants.py's and
+    core/static_dispatch.py's; K2 and K6 reduce DISP_GRAD_COLS (12 columns
+    after the 27 of the extended kinds) for a table with a dispersive row."""
+    from raytracetorch_tpu_torch.constants import DispModel
+    m = re.search(r'enum DispModel \{([^}]*)\}', COMMON)
+    vals = dict(re.findall(r'(DISP_\w+) = (\d+)', m.group(1)))
+    assert {k: int(v) for k, v in vals.items()} == {
+        'DISP_NONE': DispModel.NONE, 'DISP_CAUCHY': DispModel.CAUCHY,
+        'DISP_SELLMEIER': DispModel.SELLMEIER}
+    assert 'static_cast<float>(0.5876 * 0.5876)' in COMMON
+    a = _constants(ADJOINT)
+    assert a['kDispGradCols'] == len(fused_trace.DISP_GRAD_COLS) == 12
+    assert a['kExtGradCols'] == len(fused_trace.EXT_GRAD_COLS)
+    assert fused_trace.DISP_GRAD_COLS == tuple(
+        range(ROW_OFFSETS['disp'], ROW_OFFSETS['disp'] + 12))

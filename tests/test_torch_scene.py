@@ -150,7 +150,7 @@ def test_unsupported_elements_raise():
                         fresnel=True)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
-                        abbe_vd=64.2)
+                        coating=[(1.38, 0.1)])
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         trt.CylSingletLens(c1=0.04, c2=-0.04, height=12.0, width=14.0,
                            t=3.0, ior_glass=1.5, fresnel=True)
