@@ -37,7 +37,14 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 - the dispersive scenes (chip_smoke.py section 9: the achromat with Abbe
   and with Sellmeier glasses, the Sellmeier Cooke triplet) on their own
   rays: K1 and K5 in their extended instantiation, K2 and K6 in the one
-  with dispersion, ``simulate_fused`` and its grad step.
+  with dispersion, ``simulate_fused`` and its grad step;
+- the deterministic streams (chip_smoke.py section 10): K1, K2, K5 and K6
+  in their instantiations with the streams (the path length on the bench
+  singlet and the naive scene; K1 with the records on the bench singlet and
+  the Cooke triplet, K5 with them on the naive scene),
+  ``simulate_fused(track_opl=True)`` on both scene types, the wavefront
+  grad step (``wavefront_rms(refocus=True)`` in c1 and c2, K1 + K2) and
+  ``footprints`` on the Cooke triplet.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -331,6 +338,64 @@ def main():
                                        sc.simulate_fused(p, r, b),
                                        'trace_seq_fwd_kernel'),
             f'{case}_grad_step_fused': (disp_step, 'trace_seq_bwd')})
+    # the deterministic streams (chip_smoke.py section 10)
+    opl = dict(track_opl=True)
+    rec = dict(track_opl=True, record_paths=True, record_hits=True)
+    for label, name, nonseq, flags in (('k1_opl', 'bench', False, opl),
+                                       ('k1_records', 'bench', False, rec),
+                                       ('k1_records_cooke', 'cooke', False,
+                                        rec),
+                                       ('k5_opl', 'bench', True, opl),
+                                       ('k5_records', 'bench', True, rec)):
+        sc, sp, sr, snb = cs.stream_case(rt, torch, name, n, dev,
+                                         cs.SEED + 1,
+                                         cs.NS_BOUNCES if nonseq else None)
+        smeta, scfg, sflat, skinds, smaps, sext, _ = cs.stream_inputs(
+            rt, torch, sc, sp, snb)
+        if nonseq:
+            calls[f'streams_{label}'] = (
+                lambda f=sflat, k=skinds, r=sr, c=scfg, b=sc.n_bounces,
+                m=smaps, x=sext, fl=flags: fused_nonseq.trace_nonseq_fwd_cuda(
+                    f, k, r, c, b, m, x, **fl), 'trace_nonseq_fwd_kernel')
+        else:
+            calls[f'streams_{label}'] = (
+                lambda f=sflat, k=skinds, r=sr, c=scfg, m=smaps, x=sext,
+                fl=flags: fused_trace.trace_seq_fwd_cuda(
+                    f, k, r, c, m, x, **fl), 'trace_seq_fwd_kernel')
+        if flags is opl:
+            g1 = torch.ones(sr.n, device=dev)
+            gm = torch.zeros(1, 1, 7, device=dev)
+            calls[f'streams_{label.replace("k1", "k2").replace("k5", "k6")}'] = (
+                (lambda f=sflat, k=skinds, r=sr, c=scfg, b=sc.n_bounces,
+                 m=smaps, g=g1: fused_nonseq.trace_nonseq_bwd_cuda(
+                     f, k, r, c, b, (None,) * 7, gm, maps=m, g_opl=g,
+                     opl=True), 'trace_nonseq_bwd_kernel') if nonseq else
+                (lambda f=sflat, k=skinds, r=sr, c=scfg, m=smaps, g=g1:
+                 fused_trace.trace_seq_bwd_cuda(
+                     f, k, r, c, (None,) * 7, gm, maps=m, g_opl=g, opl=True),
+                 'trace_seq_bwd'))
+    bench = cs.bench_scene(rt)
+    wf_p = bench.init_params(dev)
+    wf_g = bench.init_params(dev)
+    for k in ('c1', 'c2'):
+        wf_g['lens'][k].requires_grad_(True)
+    wf_rays = cs.sample_rays(rt, torch, n, dev, cs.SEED)
+
+    def wf_step():
+        o, _, a = bench.simulate_fused(wf_g, wf_rays, track_opl=True)
+        rt.wavefront_rms(o, a['opl'], refocus=True).backward()
+    cooke = cs.cooke_scene(rt)
+    c_p = cooke.init_params(dev)
+    c_rays = rt.sample_bundles(torch.Generator(device=dev).manual_seed(
+        cs.SEED), cs.cooke_bundles(rt, n), dev)
+    calls.update({
+        'simulate_fused_opl': (lambda: bench.simulate_fused(
+            wf_p, wf_rays, track_opl=True), 'trace_seq_fwd_kernel'),
+        'scene_simulate_fused_opl': (lambda: nscene.simulate_fused(
+            nparams, wf_rays, track_opl=True), 'trace_nonseq_fwd_kernel'),
+        'wavefront_grad_step_fused': (wf_step, 'trace_seq_bwd'),
+        'footprints_cooke': (lambda: rt.footprints(cooke, c_p, c_rays),
+                             'trace_seq_fwd_kernel')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

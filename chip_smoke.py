@@ -58,6 +58,26 @@ once per evaluation), then the four kernels' times against their plain
 versions, K1 and K5 against the achromat at constant indices, the entry
 points, bounds and blocks per SM.
 
+Section 10 drives the deterministic streams (the optical path length and
+the final medium, path and hit recording) through the instantiations of K1,
+K2, K5 and K6 with the streams: each kernel against its plain version at
+2,999 and 1M rays (K1 and K2 with the path length on the bench singlet, the
+256 x 256 ring-former plate and the Sellmeier achromat, the OPL cotangents
+of K2 against autograd of the plain version; K1 with the records on the
+bench singlet and the Cooke triplet; K5 and K6 with the path length and K5
+with the records on the 8-bounce naive scene and the mirror fold), the
+counted paths (``simulate_fused(track_opl=True)``: K1 once; a
+``wavefront_rms(refocus=True)`` grad step in c1 and c2: K1 + K2, against
+the eager gradients; the same as a Scene: K5; K5 + K6; ``footprints`` on the
+Cooke triplet at 1M rays: K1 once; a grad step through ``record_hits``: K1
+once and its backward recomputed eagerly, no K2), the JAX anchors of
+tests/wavefront_anchors.py (the bench singlet's wavefront error and Zernike
+terms on the reference's threefry rays, the axial OPL, the Cooke
+footprints), the wavefront design by ``fit_lbfgs`` (20 steps, 1M rays, K1
+and K2 once per evaluation), and the stream instantiations' times, bounds
+(with the streams' bytes) and blocks per SM; the kernel summary line lists
+them beside the seven kernels.
+
 The build phase prints each kernel's ptxas registers and spills, and the
 next K1's, K2's, K5's and K6's resident blocks per SM on their main paths'
 launches.  K4's scatter is checked on both of its paths: maps held in
@@ -1684,6 +1704,526 @@ def dispersion_phases(rt, torch, dev, reset_counters, counters, only):
                 bounds=bounds)
 
 
+# Section 10: the deterministic streams.  Anchors from the JAX package
+# (tests/wavefront_anchors.py, on the CPU): the bench singlet's refocused
+# RMS wavefront error, its defocus and spherical Zernike terms over the
+# launch pupil (r = 4) and its final media, on 1M rays of the reference's
+# threefry draws (rays/reference_prng.py), both packages tracing the same
+# rays (WF_RMS_RTOL, WF_ZERNIKE_TOL: float32 OPLs of ~30 summed in another
+# order; the plain versions' own agreement with the JAX package,
+# tests/test_torch_wavefront.py); tests/test_wavefront.py's axial OPL; the
+# footprint r_max of the Cooke triplet's faces, stop and sensor at 1M rays
+# (the mean over four PRNG keys, 6 standard deviations); the wavefront
+# design's loss before and after (fit_lbfgs, 20 steps, c1 and c2): the
+# start on the same rays to WF_RMS_RTOL, the end within WF_DESIGN_TOL of
+# the JAX run's, both at the float32 floor of the RMS where the two
+# optimizers' line searches stop (the JAX run ends at 2.5e-5, and its
+# 20,000-ray run's loss jitters between 1.4e-5 and 4.9e-5 over its last
+# steps; the two L-BFGS line searches end at other points of a flat
+# valley: WF_DESIGN_REF's curvatures are reported, not bounded).
+WF_PUPIL = 4.0
+WF_BENCH_REF = {'rms': 0.000989, 'zernike': (0.00217499, -0.0021453),
+                'n_final': (1.0,)}
+WF_RMS_RTOL, WF_RMS_ATOL = 2e-3, 5e-6
+WF_ZERNIKE_TOL = 2e-3
+AXIAL_OPL_REF = 8.0 + 1.5168 * 4.0
+COOKE_FACE_ROWS = (0, 1, 3, 4, 6, 7, 8, 10)
+COOKE_RMAX_REF = (6.166214, 5.763087, 4.0932, 3.919939, 4.152991, 4.73311,
+                  4.947919, 5.58179)
+COOKE_RMAX_TOL = (0.00184, 0.002017, 0.00191, 0.001893, 0.001536, 0.003274,
+                  0.003429, 0.000662)
+WF_DESIGN_STEPS = 20
+WF_DESIGN_REF = (0.000989, 2.537e-05, 0.02494481, -0.00352133)
+WF_DESIGN_TOL = 3e-5
+# Kernel against plain version: the optical path length within OPL_RTOL of
+# (1 + |plain|) (float32 n t over up to 11 rows, the kernel contracting
+# multiply-adds: ~8 ulps of an OPL of ~110 measured on the card); the
+# records within POS_TOL of 1 + the ray's world scale (the largest |value|
+# of its records), as ``compare`` holds positions: a surface-frame hit
+# inherits the rounding of the world-frame position and t it comes from
+# (on the Cooke triplet 1.3e-4 absolute at a world scale of ~60, measured);
+# the raw hit of a row that took no weight (a miss: the root of a quadric
+# whose leading coefficient can all but vanish, a ray nearly parallel to an
+# edge cylinder's axis, lying hundreds of mm out) within RAW_HIT_RTOL of
+# that scale (1.3e-2 worst on 3M such entries of the Cooke triplet at 1M
+# rays, one entry over 1e-2); the medium, the hit weights and slots equal.
+# A ray off in any of them counts as flipped (FLIPS_PER_MILLION, as
+# ``compare``).
+OPL_RTOL = 2e-6
+RAW_HIT_RTOL = 1e-2
+
+
+def compare_streams(torch, aux_k, aux_p):
+    """The streams of K1 or K5 against their plain versions' -> dict;
+    raises on a breach (module notes: OPL_RTOL, POS_TOL, RAW_HIT_RTOL)."""
+    n = aux_p['opl'].shape[0] if 'opl' in aux_p else aux_p['paths'].shape[1]
+    bad = torch.zeros(n, dtype=torch.bool, device=next(iter(
+        aux_p.values())).device)
+    worst, raw = {}, None
+    if 'paths' in aux_p:
+        world = 1.0 + torch.nan_to_num(aux_p['paths'].abs(),
+                                       nan=0.0).amax(-1).amax(0)
+    for key, p in aux_p.items():
+        k = aux_k[key]
+        check(tuple(k.shape) == tuple(p.shape) and k.dtype == p.dtype,
+              f'stream {key}: {tuple(k.shape)} {k.dtype} against '
+              f'{tuple(p.shape)} {p.dtype}')
+        err = (k.float() - p.float()).abs()
+        worst[key] = float(torch.nan_to_num(err, nan=0.0).max())
+        nan_ok = torch.isnan(k) == torch.isnan(p)
+        if key in ('paths', 'hits'):
+            # each record within POS_TOL of 1 + the trace's world scale (the
+            # largest |component| of the record, and of the ray's recorded
+            # positions: a surface-frame hit inherits the rounding of the
+            # world-frame position and t it is computed from)
+            scale = 1.0 + torch.nan_to_num(p.abs(), nan=0.0).amax(-1)
+            if 'paths' in aux_p:
+                scale = torch.maximum(scale, world)
+            rel = torch.nan_to_num(err, nan=0.0).amax(-1) / scale
+            ok = (rel <= POS_TOL) & nan_ok.all(-1)
+            if key == 'hits':
+                # a row's raw hit where the row took no weight: a miss's
+                # root, possibly ill-conditioned (module notes)
+                missed = aux_p['hit_weights'] == 0
+                raw = dict(entries=int(missed.sum()),
+                           over_pos_tol=int((missed & (rel > POS_TOL))
+                                            .sum()),
+                           over_raw_rtol=int((missed & (rel > RAW_HIT_RTOL))
+                                             .sum()),
+                           max_rel=float(rel[missed].max())
+                           if bool(missed.any()) else 0.0,
+                           hit_max_rel=float(rel[~missed].max())
+                           if bool((~missed).any()) else 0.0)
+                ok = ok | (missed & (rel <= RAW_HIT_RTOL) & nan_ok.all(-1))
+            ok = ok.all(0)
+        elif key == 'opl':
+            ok = torch.isclose(k, p, rtol=OPL_RTOL, atol=OPL_RTOL)
+        else:
+            ok = (k == p).all(0) if k.dim() > 1 else k == p
+        bad |= ~ok
+    n_flip = int(bad.sum())
+    allowed = math.ceil(FLIPS_PER_MILLION * n / 1e6)
+    res = dict(stream_flipped=n_flip, stream_flips_allowed=allowed,
+               stream_max_abs_err=worst)
+    if raw is not None:
+        res['raw_hits'] = raw
+    check(n_flip <= allowed,
+          f'{n_flip} rays have other streams (allowed {allowed}): {res}')
+    return res
+
+
+def stream_case(rt, torch, name, n, device, seed, n_bounces=None):
+    """(scene, params, rays, bundles) of a section 10 case: the bench
+    singlet, the 256 x 256 ring-former plate, the Sellmeier achromat, the
+    Cooke triplet; with ``n_bounces`` their Scene (the bench singlet: the
+    naive scene), or the mirror fold (``name`` 'fold')."""
+    if name == 'fold':
+        sc = mirror_fold_scene(rt)
+        return (sc, sc.init_params(device),
+                mirror_fold_rays(rt, torch, n, device, seed), 1)
+    if name == 'ring':
+        sc = ring_scene(rt, bounces=n_bounces)
+        return (sc, ring_params(sc, device),
+                ring_rays(rt, torch, n, device, seed), 1)
+    if name == 'bench':
+        sc = bench_scene(rt) if n_bounces is None else naive_scene(rt)
+        return sc, sc.init_params(device), sample_rays(
+            rt, torch, n, device, seed), 1
+    sc, _, nb = disp_case(rt, name, n_bounces)
+    return sc, sc.init_params(device), disp_rays(rt, torch, name, n, device,
+                                                 seed), nb
+
+
+def stream_inputs(rt, torch, sc, params, nb):
+    """(meta, cfg, flat, kinds, maps, ext, disp) of a scene's fused
+    launch."""
+    from raytracetorch_tpu_torch.ops import fused_trace
+    meta, cfg = sc.static_meta(), sc.sensor_config(nb)
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=flat.device)
+    grids = {k: v.detach() for k, v in sc.side_grids(params).items()}
+    return (meta, cfg, flat, kinds, fused_trace.plate_maps(meta, grids),
+            fused_trace.ext_kinds(meta), fused_trace.dispersive(meta))
+
+
+def stream_kernels_vs_plain(rt, torch, name, n, device, seed, records,
+                            nonseq=False):
+    """K1 and K2 (``nonseq``: K5 and K6) in their instantiations with the
+    streams against their plain versions: the rays, moments and streams
+    (``records``: the path and hit records too), and the ray, table and
+    map cotangents under seeded cotangents of the rays, moments, opl and
+    n_final -> dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    sc, params, rays, nb = stream_case(rt, torch, name, n, device, seed,
+                                       NS_BOUNCES if nonseq else None)
+    meta, cfg, flat, kinds, maps, ext, disp = stream_inputs(
+        rt, torch, sc, params, nb)
+    flags = dict(track_opl=True, record_paths=records, record_hits=records)
+    if nonseq:
+        nbn = sc.n_bounces
+        out_k, s_k, aux_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nbn, maps, ext, **flags)
+        out_p, s_p, aux_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nbn, maps, **flags)
+        torch.cuda.synchronize()
+        res = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    else:
+        out_k, s_k, aux_k = fused_trace.trace_seq_fwd_cuda(
+            flat, kinds, rays, cfg, maps, ext, **flags)
+        out_p, s_p, aux_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps, **flags)
+        torch.cuda.synchronize()
+        res = compare(torch, out_k, s_k, out_p, s_p)
+    res.update(compare_streams(torch, aux_k, aux_p))
+    if records:
+        return res
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, device,
+                                              seed + 1)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    g_opl, g_nf = (torch.randn(rays.n, generator=gen, device=device)
+                   for _ in range(2))
+    if nonseq:
+        g_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nbn, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, ext=ext, disp=disp, g_opl=g_opl, g_nfinal=g_nf,
+            opl=True)
+        g_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nbn, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, g_opl=g_opl, g_nfinal=g_nf)
+    else:
+        g_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, g_rays, g_mom, g_grid=g_grid, maps=maps,
+            ext=ext, disp=disp, g_opl=g_opl, g_nfinal=g_nf, opl=True)
+        g_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, cfg, meta, g_rays, g_mom, g_grid=g_grid, maps=maps,
+            g_opl=g_opl, g_nfinal=g_nf)
+    torch.cuda.synchronize()
+    # K6: compare_k6's allowances (rim flips; a grid cotangent read from a
+    # neighbour bin)
+    allowed = max(3, math.ceil(NS_MISMATCH_SHARE * rays.n)) if nonseq \
+        else None
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1], allowed=allowed,
+        intensity_allowed=(math.ceil(GRID_SHARE * rays.n)
+                           if nonseq and cfg.grid_shape else 0),
+        tol=DISP_BWD_TOL if disp else BWD_TOL)
+    res['bwd'].update(compare_table_cotangents(
+        torch, fused_trace, g_k[0], g_p[0], plates=True, ext=True,
+        disp=disp))
+    if maps:
+        res['bwd'].update(compare_maps(torch, g_k[2], g_p[2]))
+    return res
+
+
+def wf_loss(rt, out, aux):
+    """The design loss: the refocused RMS wavefront error."""
+    return rt.wavefront_rms(out, aux['opl'], refocus=True)
+
+
+def streams_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 10: the deterministic streams (track_opl, record_paths,
+    record_hits) through K1, K2, K5 and K6 in their instantiations with the
+    streams: each kernel against its plain version at 2,999 and 1M rays
+    (K1 and K2 with the path length on the bench singlet, the ring-former
+    plate and the Sellmeier achromat, K1 with the records on the bench
+    singlet and the Cooke triplet, K5 and K6 with the path length and K5
+    with the records on the 8-bounce naive scene and the mirror fold); the
+    counted paths (simulate_fused with track_opl, a wavefront grad step in
+    c1 and c2 against the eager gradients, the same as a Scene, footprints
+    on the Cooke triplet, a grad step through record_hits, which recomputes
+    its backward eagerly); the JAX anchors; the wavefront design by
+    fit_lbfgs at 1M rays; then times, bounds and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    from raytracetorch_tpu_torch.rays import reference_prng
+
+    # 10a. each kernel against its plain version
+    kern = {}
+    for n in (N_SMALL, N_MAIN):
+        for name in ('bench', 'ring', 'achromat_sellmeier'):
+            kern[f'k1k2_opl_{name}_{n}'] = stream_kernels_vs_plain(
+                rt, torch, name, n, dev, SEED + 301 + n, records=False)
+        for name in ('bench', 'cooke'):
+            kern[f'k1_records_{name}_{n}'] = stream_kernels_vs_plain(
+                rt, torch, name, n, dev, SEED + 302 + n, records=True)
+        for name in ('bench', 'fold'):
+            kern[f'k5k6_opl_{name}_{n}'] = stream_kernels_vs_plain(
+                rt, torch, name, n, dev, SEED + 303 + n, records=False,
+                nonseq=True)
+            kern[f'k5_records_{name}_{n}'] = stream_kernels_vs_plain(
+                rt, torch, name, n, dev, SEED + 304 + n, records=True,
+                nonseq=True)
+    emit('streams_kernels_vs_plain', **kern)
+
+    # 10b. the counted paths on 1M rays
+    seq, ns = bench_scene(rt), naive_scene(rt)
+    rays = sample_rays(rt, torch, N_MAIN, dev, SEED)
+    paths = {}
+
+    def wf_grads(sc, simulate, **kw):
+        p = sc.init_params(dev)
+        for k in ('c1', 'c2'):
+            p['lens'][k].requires_grad_(True)
+        out, _, aux = simulate(p, rays, **kw)
+        loss = (wf_loss(rt, out, aux) if 'opl' in aux
+                else (aux['hits'][-1, :, :2] ** 2).mean())
+        loss.backward()
+        return [p['lens'][k].grad for k in ('c1', 'c2')], float(loss.detach())
+
+    for label, sc, fwd, bwd in (
+            ('sequential', seq, 'trace_seq_fwd', 'trace_seq_bwd'),
+            ('scene', ns, 'trace_nonseq_fwd', 'trace_nonseq_bwd')):
+        p = sc.init_params(dev)
+        torch.cuda.synchronize()
+        reset_counters()
+        out, _, aux = sc.simulate_fused(p, rays, track_opl=True)
+        torch.cuda.synchronize()
+        fwd_launches = counters()
+        check(only(fwd_launches, **{fwd: 1, 'streams': 1}),
+              f'{label} simulate_fused(track_opl) launched {fwd_launches}')
+        check(bool(torch.isfinite(aux['opl']).all()), f'{label}: opl')
+        reset_counters()
+        g_f, loss_f = wf_grads(sc, sc.simulate_fused, track_opl=True)
+        torch.cuda.synchronize()
+        grad_launches = counters()
+        check(only(grad_launches, **{fwd: 1, bwd: 1, 'streams': 2}),
+              f'{label} wavefront grad step launched {grad_launches}')
+        g_e, loss_e = wf_grads(sc, sc.simulate, track_opl=True)
+        rel = [float(((a - b).abs() / b.abs()).max())
+               for a, b in zip(g_f, g_e)]
+        paths[label] = dict(fwd_launches=fwd_launches,
+                            grad_launches=grad_launches,
+                            loss_fused=loss_f, loss_eager=loss_e,
+                            grad_fused=[float(g) for g in g_f],
+                            grad_eager=[float(g) for g in g_e], rel_err=rel)
+        check(max(rel) < GRAD_RTOL,
+              f'{label}: fused vs eager wavefront gradients differ: {rel}')
+    # a grad step through record_hits: K1 once, its backward recomputed
+    # through the eager chain (no K2)
+    reset_counters()
+    g_f, loss_f = wf_grads(seq, seq.simulate_fused, record_hits=True)
+    torch.cuda.synchronize()
+    rec_launches = counters()
+    check(only(rec_launches, trace_seq_fwd=1, streams=1,
+               record_recomputes=1),
+          f'the record_hits grad step launched {rec_launches}')
+    g_e, loss_e = wf_grads(seq, seq.simulate, record_hits=True)
+    rel = [float(((a - b).abs() / b.abs()).max()) for a, b in zip(g_f, g_e)]
+    paths['record_hits_grad'] = dict(launches=rec_launches, rel_err=rel,
+                                     grad_fused=[float(g) for g in g_f])
+    check(max(rel) < GRAD_RTOL,
+          f'record_hits: fused vs eager gradients differ: {rel}')
+    # footprints on the Cooke triplet: K1 once (its records)
+    cooke = cooke_scene(rt)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c_rays = rt.sample_bundles(gen, cooke_bundles(rt), dev)
+    cp = cooke.init_params(dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    reps = rt.footprints(cooke, cp, c_rays)
+    torch.cuda.synchronize()
+    fp_launches = counters()
+    r_max = [reps[k]['r_max'] for k in COOKE_FACE_ROWS]
+    paths['footprints'] = dict(launches=fp_launches, r_max=r_max,
+                               r_max_ref=list(COOKE_RMAX_REF),
+                               r_max_tol=list(COOKE_RMAX_TOL),
+                               report=rt.footprint_report(reps))
+    check(only(fp_launches, trace_seq_fwd=1, streams=1),
+          f'footprints launched {fp_launches}')
+    check(all(abs(a - b) <= t for a, b, t in zip(
+        r_max, COOKE_RMAX_REF, COOKE_RMAX_TOL)),
+          f'cooke footprints r_max {r_max}')
+    emit('streams_main', n=N_MAIN, **paths)
+
+    # 10c. anchors: the bench singlet on the reference's threefry rays
+    wf_rays = reference_prng.collimated_disk(
+        reference_prng.prng_key(0), N_MAIN, WF_PUPIL, (0.0, 0.0, -10.0),
+        device=dev)
+    with torch.no_grad():
+        out, _, aux = seq.simulate_fused(seq.init_params(dev), wf_rays,
+                                         track_opl=True)
+        rms = float(wf_loss(rt, out, aux))
+        alive = (out.intensity > 0).float()
+        tot = rt.opl_to_point(out, aux['opl'], rt.best_focus(out))
+        opd = tot - (tot * alive).sum() / alive.sum()
+        coef = rt.zernike_fit(torch.stack([wf_rays.px, wf_rays.py], 1), opd,
+                              WF_PUPIL, weights=alive)
+        zern = [float(coef[3]), float(coef[10])]
+        n_final = sorted({float(v) for v in aux['n_final'].unique()})
+        axial = rt.Rays.create([[0.0, 0.0, -10.0]], [[0.0, 0.0, 1.0]],
+                               device=dev)
+        lens = rt.SequentialScene([rt.SingletLens(
+            c1=0.016667, c2=-0.00283, d=25.4, t=4.0, ior_glass=1.5168,
+            name='lens')])
+        _, _, a_aux = lens.simulate_fused(lens.init_params(dev), axial,
+                                          track_opl=True)
+        axial_opl = float(a_aux['opl'][0])
+    ztol = WF_ZERNIKE_TOL * max(abs(v) for v in WF_BENCH_REF['zernike'])
+    anchors = dict(rms=rms, rms_ref=WF_BENCH_REF['rms'], zernike=zern,
+                   zernike_ref=list(WF_BENCH_REF['zernike']),
+                   zernike_tol=ztol + WF_RMS_ATOL, n_final=n_final,
+                   axial_opl=axial_opl, axial_opl_ref=AXIAL_OPL_REF)
+    emit('streams_anchors', **anchors)
+    check(abs(rms - WF_BENCH_REF['rms'])
+          <= WF_RMS_RTOL * WF_BENCH_REF['rms'] + WF_RMS_ATOL,
+          f'bench wavefront rms {rms}')
+    check(all(abs(a - b) <= ztol + WF_RMS_ATOL
+              for a, b in zip(zern, WF_BENCH_REF['zernike'])),
+          f'bench zernike terms {zern}')
+    check(tuple(n_final) == WF_BENCH_REF['n_final'], f'n_final {n_final}')
+    check(abs(axial_opl - AXIAL_OPL_REF) <= 1e-6 * AXIAL_OPL_REF,
+          f'axial opl {axial_opl}')
+
+    # 10d. the wavefront design on those rays: K1 and K2 once an evaluation
+    evals = [0]
+
+    def loss(p):
+        evals[0] += 1
+        o, _, a = seq.simulate_fused(p, wf_rays, track_opl=True)
+        return wf_loss(rt, o, a)
+    p0 = seq.init_params(dev)
+    trainable = seq.trainable()
+    trainable['lens'].update(c1=True, c2=True)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    p1, hist = rt.fit_lbfgs(loss, p0, trainable=trainable,
+                            steps=WF_DESIGN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counters()
+    with torch.no_grad():
+        end = float(loss(p1))
+    design = dict(n=wf_rays.n, steps=WF_DESIGN_STEPS, evaluations=evals[0] - 1,
+                  launches=launched, seconds=seconds,
+                  loss_start=float(hist[0]), loss_end=end,
+                  c1=float(p1['lens']['c1']), c2=float(p1['lens']['c2']),
+                  ref=WF_DESIGN_REF, tol=WF_DESIGN_TOL)
+    emit('wavefront_design', **design)
+    n_ev = evals[0] - 1
+    check(only(launched, trace_seq_fwd=n_ev, trace_seq_bwd=n_ev,
+               streams=2 * n_ev),
+          f'wavefront design: {n_ev} evaluations launched {launched}')
+    check(abs(design['loss_start'] - WF_DESIGN_REF[0])
+          <= WF_RMS_RTOL * WF_DESIGN_REF[0] + WF_RMS_ATOL,
+          f'wavefront design start {design["loss_start"]}')
+    check(abs(end - WF_DESIGN_REF[1]) <= WF_DESIGN_TOL,
+          f'wavefront design end {end} (JAX {WF_DESIGN_REF[1]})')
+
+    # 10e. times at 1M rays against the plain versions, the entry points,
+    # bounds (the streams' bytes counted) and blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    opl = dict(track_opl=True)
+    rec = dict(track_opl=True, record_paths=True, record_hits=True)
+    for name, nonseq, flags in (('bench', False, opl), ('bench', False, rec),
+                                ('cooke', False, rec), ('bench', True, opl),
+                                ('bench', True, rec)):
+        sc, params, r, nb = stream_case(rt, torch, name, N_MAIN, dev,
+                                        SEED + 1,
+                                        NS_BOUNCES if nonseq else None)
+        meta, cfg, flat, kinds, maps, ext, disp = stream_inputs(
+            rt, torch, sc, params, nb)
+        key = (f'{"k5" if nonseq else "k1"}_{name}_'
+               f'{"records" if flags is rec else "opl"}')
+        if nonseq:
+            kfn = (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, sc.n_bounces, maps, ext, **flags))
+            pfn = (lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, sc.n_bounces, maps, **flags))
+        else:
+            kfn = (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, ext, **flags))
+            pfn = (lambda: fused_trace.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps, **flags))
+        k_ms, p_ms, k_runs, _ = time_pair(torch, kfn, pfn, reps=10,
+                                          warmup=2)
+        timing[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
+        rows = sc.n_bounces if nonseq else len(meta)
+        # 8 input streams, the wavelength (36 B) and 7 outputs (28 B), opl
+        # and n_final (8 B); records: positions 12 B a row (and the launch's
+        # on a sequential trace), hits 12 B and their weight 4 B a row (K5:
+        # and the slot, 4 B)
+        io = r.n * (36 + 28 + 8) + table_bytes(meta) + grid_bytes(cfg)
+        if flags is rec:
+            io += r.n * (12 * (rows + (0 if nonseq else 1))
+                         + (20 if nonseq else 16) * rows)
+        if nonseq:
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
+                                        segment_replays(lives))
+            bounds[key] = bound(io, k5_ops)
+            if flags is opl:
+                g_rays, g_mom, g_grid = random_cotangents(torch, r.n, cfg,
+                                                          dev, SEED + 3)
+                g_opl = torch.ones(r.n, device=dev)
+                k_ms, p_ms, k_runs, _ = time_pair(
+                    torch, lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                        flat, kinds, r, cfg, sc.n_bounces, (None,) * 7,
+                        g_mom, g_grid=g_grid, maps=maps, ext=ext,
+                        g_opl=g_opl, opl=True),
+                    lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                        flat, r, cfg, meta, sc.n_bounces, (None,) * 7,
+                        g_mom, g_grid=g_grid, maps=maps, g_opl=g_opl),
+                    reps=6, warmup=1)
+                timing['k6_bench_opl'] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                                              kernel_runs=k_runs)
+                bounds['k6_bench_opl'] = bound(
+                    io + len(meta) * len(fused_trace.EXT_GRAD_COLS) * 4,
+                    k6_ops)
+                occ['trace_nonseq_bwd'] = fused_trace.blocks_per_sm(
+                    'trace_nonseq_bwd', len(meta), cfg, True, sc.n_bounces,
+                    ext=True, streams=True)
+            occ['trace_nonseq_fwd'] = fused_trace.blocks_per_sm(
+                'trace_nonseq_fwd', len(meta), cfg, True, sc.n_bounces,
+                ext=True, streams=True)
+        else:
+            # the path length adds n t and the medium's select: ~4 a row
+            bounds[key] = bound(io, k1_ops + r.n * 4 * len(meta))
+            if flags is opl:
+                g_mom = random_cotangents(torch, r.n, cfg, dev,
+                                          SEED + 4)[1]
+                g_opl = torch.ones(r.n, device=dev)
+                k_ms, p_ms, k_runs, _ = time_pair(
+                    torch, lambda: fused_trace.trace_seq_bwd_cuda(
+                        flat, kinds, r, cfg, (None,) * 7, g_mom, maps=maps,
+                        ext=ext, g_opl=g_opl, opl=True),
+                    lambda: fused_trace.trace_seq_bwd_plain(
+                        flat, r, cfg, meta, (None,) * 7, g_mom, maps=maps,
+                        g_opl=g_opl), reps=10, warmup=2)
+                timing['k2_bench_opl'] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                                              kernel_runs=k_runs)
+                bounds['k2_bench_opl'] = bound(
+                    io + len(meta) * len(fused_trace.EXT_GRAD_COLS) * 4,
+                    3 * k1_ops)
+                for lib in ('trace_seq_fwd', 'trace_seq_bwd'):
+                    occ[lib] = fused_trace.blocks_per_sm(
+                        lib, len(meta), cfg, True, ext=True, streams=True)
+    # the entry points
+    p_wf = seq.init_params(dev)
+    for key, fn in (
+            ('simulate_fused_opl',
+             lambda: seq.simulate_fused(p_wf, rays, track_opl=True)),
+            ('wavefront_grad_step_fused',
+             lambda: wf_grads(seq, seq.simulate_fused, track_opl=True)),
+            ('wavefront_grad_step_eager',
+             lambda: wf_grads(seq, seq.simulate, track_opl=True)),
+            ('scene_simulate_fused_opl',
+             lambda: ns.simulate_fused(p_wf, rays, track_opl=True)),
+            ('footprints_cooke',
+             lambda: rt.footprints(cooke, cp, c_rays))):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{key}_ms'] = statistics.median(runs)
+        timing[f'{key}_runs'] = runs
+    timing['wavefront_design_s'] = seconds
+    emit('streams_timing', **timing)
+    emit('streams_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('streams_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds,
+                design=design)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1705,6 +2245,7 @@ def main():
     def reset_counters():
         fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
         fused_trace.V1_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
+        fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -1719,7 +2260,9 @@ def main():
                     grid_gather=grid.GATHER_LAUNCHES,
                     grid_corners=phase_grid.CORNER_LAUNCHES,
                     grid_corners_bwd=phase_grid.CORNER_BWD_LAUNCHES,
-                    ext=fused_trace.EXT_LAUNCHES)
+                    ext=fused_trace.EXT_LAUNCHES,
+                    streams=fused_trace.STREAM_LAUNCHES,
+                    record_recomputes=fused_trace.RECORD_RECOMPUTES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -2611,6 +3154,9 @@ def main():
     # 9. chromatic dispersion: the achromat and the Cooke triplet
     dispersion_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 10. the deterministic streams, the wavefront analysis, footprints
+    streams = streams_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -3056,6 +3602,37 @@ def main():
               v1_launches['trace_seq_v1'], v1_res['max_abs_err'],
               timing['v1']['kernel_ms'], timing['v1']['plain_ms']),
     ]}
+    # the instantiations with the streams (section 10): launches on the
+    # counted paths, errors at 1M rays, times and bounds of the path length
+    st_k, st_t, st_b = (streams['kernels'], streams['timing'],
+                        streams['bounds'])
+    st_p = streams['paths']
+
+    def st_err(*keys):
+        return max(max([st_k[k]['max_abs_err']]
+                       + list(st_k[k]['stream_max_abs_err'].values()))
+                   for k in keys)
+    for name, source, line, launches_, err, key in (
+            ('trace_seq_fwd_streams', 'trace_seq_fwd.cu', 489,
+             st_p['sequential']['fwd_launches']['trace_seq_fwd'],
+             st_err(f'k1k2_opl_bench_{N_MAIN}', f'k1_records_bench_{N_MAIN}'),
+             'k1_bench_opl'),
+            ('trace_seq_bwd_opl', 'trace_seq_bwd.cu', 1712,
+             st_p['sequential']['grad_launches']['trace_seq_bwd'],
+             st_k[f'k1k2_opl_bench_{N_MAIN}']['bwd']['max_abs_err'],
+             'k2_bench_opl'),
+            ('trace_nonseq_fwd_streams', 'trace_nonseq_fwd.cu', 1029,
+             st_p['scene']['fwd_launches']['trace_nonseq_fwd'],
+             st_err(f'k5k6_opl_bench_{N_MAIN}', f'k5_records_bench_{N_MAIN}'),
+             'k5_bench_opl'),
+            ('trace_nonseq_bwd_opl', 'trace_nonseq_bwd.cu', 2157,
+             st_p['scene']['grad_launches']['trace_nonseq_bwd'],
+             st_k[f'k5k6_opl_bench_{N_MAIN}']['bwd']['max_abs_err'],
+             'k6_bench_opl')):
+        bounds[name] = st_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, st_t[key]['kernel_ms'],
+            st_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -38,7 +38,15 @@ Hopper.  The port covers:
   ``AsphericLens``, the cemented ``DoubletLens`` and ``TripletLens``, each
   ray refracting at the index of its wavelength, eager and through K1, K2,
   K5 and K6 (the instantiation of the extended kinds), which also return
-  the wavelength's cotangent.
+  the wavelength's cotangent;
+- the deterministic streams: the optical path length and the final medium
+  (``track_opl``), the positions after every row or bounce
+  (``record_paths``) and the hit records (``record_hits``), in ``simulate``
+  and ``simulate_fused`` of both scene types, eager and through K1, K2, K5
+  and K6 (an instantiation of their own), with the wavefront analysis that
+  reads them (``utils/wavefront.py``: best focus, the RMS wavefront error,
+  Zernike fits, interferograms) and the beam footprints
+  (``utils/footprint.py``).
 
 ROADMAP.md lists what is still to be ported.
 
@@ -68,9 +76,11 @@ from .elements.lens import (AsphericLens, CylSingletLens,  # noqa: E402
 from .elements.mirror import SphericalMirror  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
-from .ops.fused_nonseq import FusedNonseq, trace_nonseq_fused  # noqa: E402
-from .ops.fused_trace import (FusedTrace, trace_sequential_fused,  # noqa: E402
-                              trace_sequential_v1)
+from .geom.zernike import noll_nm  # noqa: E402
+from .ops.fused_nonseq import (FusedNonseq, FusedNonseqStreams,  # noqa: E402
+                               trace_nonseq_fused)
+from .ops.fused_trace import (FusedTrace, FusedTraceStreams,  # noqa: E402
+                              trace_sequential_fused, trace_sequential_v1)
 from .ops.phase_grid import GridCorners, grid_corners  # noqa: E402
 from .optim.constraints import (log_barrier, log_barrier_lb,  # noqa: E402
                                 log_barrier_ub, spacing_constraint,
@@ -83,4 +93,8 @@ from .optim.goals import (focal_length_loss, spot_size_loss,  # noqa: E402
 from .rays.ray import Rays  # noqa: E402
 from .rays.sources import Bundle, CollimatedDisk, sample_bundles  # noqa: E402
 from .scene.scene import Scene, SequentialScene  # noqa: E402
+from .utils.footprint import footprint_report, footprints  # noqa: E402
 from .utils.glass import glass, glass_pair  # noqa: E402
+from .utils.wavefront import (ZERNIKE_NAMES, best_focus,  # noqa: E402
+                              interferogram, opl_to_point, wavefront_rms,
+                              zernike_basis, zernike_fit, zernike_name)

@@ -12,6 +12,8 @@ NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics TRANSMIT, BLOCK, REFLECT
 (ideal mirror), SNELL, APERTURE and PHASE_GRID, even-asphere rows, and
 dispersive media (Cauchy and Sellmeier, ``dispersive_iors``).  Every other
 kind raises NotImplementedError naming the ROADMAP item that brings it.
+``medium_after`` gives the index of the medium a ray travels in after a
+row, for the optical path length (``track_opl``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from ..constants import (CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS,
                          DispModel, PhysKind, SBKind, VBKind)
 from ..geom import vec3 as v3
 from ..geom.surfaces import sag_z
-from .physics import phase_grid_dir, reflect_dir, snell_dir
+from .physics import (phase_grid_dir, reflect_dir, refract_components,
+                      snell_dir)
 
 # ROADMAP.md "Queue 1" items that bring the rest of the feature matrix
 TODO_FEATURES = 'ROADMAP Queue 1 item 12 (remaining sequential features)'
@@ -185,6 +188,33 @@ def dispersive_iors(row, wavelength_um, meta=None):
         return nd + 0.0 * l2
 
     return side(0, 0), side(1, 6)
+
+
+def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None):
+    """Index of the medium a ray travels in AFTER this row, for the optical
+    path length; None where the row leaves the medium unchanged.
+
+    SNELL moves the ray into the transmission-side medium unless total
+    internal reflection keeps it in the incidence medium: ``where(tir, n1,
+    n2)``; PHASE_GRID always transmits (an evanescent order is dead): ``n2``.
+    ``n1`` and ``n2`` come from ``refract_components``, so they follow the
+    side the ray arrives from (the sign of ``d . n``); a dispersive row
+    takes its indices at the rays' ``wavelength`` (``dispersive_iors``).
+    Every other ported kind returns None; the Fresnel and DOE kinds are
+    refused by ``unsupported``, as everywhere."""
+    why = unsupported(meta)
+    if why:
+        raise NotImplementedError(why)
+    if meta.ph not in (PhysKind.SNELL, PhysKind.PHASE_GRID):
+        return None
+    if meta.disp and wavelength is not None:
+        n_in, n_out = dispersive_iors(row, wavelength, meta)
+    else:
+        n_in, n_out = row.ph[..., 0], row.ph[..., 1]
+    _, _, n1, n2, _, tir, _, _ = refract_components(d, n, n_in, n_out)
+    if meta.ph == PhysKind.PHASE_GRID:
+        return n2
+    return torch.where(tir, n1, n2)
 
 
 def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,

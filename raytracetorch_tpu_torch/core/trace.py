@@ -20,11 +20,17 @@ Both loops record the moments and the irradiance grid (core/sensor.py),
 and both read the ``[H, W]`` maps of pixelated phase plates through
 ``grids`` ({flat row: map}, ``Scene.side_grids``), as the reference's
 loops do; a PHASE_GRID row reads its corners with kernel K4 on the card
-(ops/phase_grid.py).  The optional streams of the JAX trace loops (opl,
-field, path/hit recording, fuzzy apodization) are ROADMAP Queue 1 item 12
-and raise; so do rows of the kinds the port lacks (GRIN, HALFSPACES,
-stochastic Fresnel and scatter), through ``unsupported``.  No supported
-kind draws random numbers, so the loops take no key.
+(ops/phase_grid.py).  The deterministic optional streams of the JAX trace
+loops are ported (``Streams``): ``track_opl`` (the optical path length
+``aux['opl']`` and the index of the final medium ``aux['n_final']``),
+``record_paths`` (``aux['paths']``) and ``record_hits`` (``aux['hits']``,
+``aux['hit_weights']`` and, non-sequentially, ``aux['hit_slots']``), with
+the JAX package's keys, shapes and meaning.  The field stream, ``E0`` and
+fuzzy apodization come with their elements (ROADMAP Queue 1 item 14:
+polarization, fuzzy apertures) and raise; so do rows
+of the kinds the port lacks (GRIN, HALFSPACES, stochastic Fresnel and
+scatter), through ``unsupported``.  No supported kind draws random
+numbers, so the loops take no key.
 
 These are the eager differentiable paths (``simulate``); the fused CUDA
 kernels run the same functions (ops/fused_trace.py for the chain,
@@ -41,18 +47,102 @@ from ..geom import vec3 as v3
 from ..rays.ray import Rays
 from .intersect import intersect, normal_world
 from .sensor import SensorConfig, SensorState
-from .static_dispatch import TODO_FEATURES, apply_physics_one, unsupported
+from .static_dispatch import (TODO_ELEMENTS, apply_physics_one, medium_after,
+                              unsupported)
+
+
+class Streams:
+    """The optional per-ray streams of a trace: the optical path length and
+    the medium index (``track_opl``), the positions after each row or bounce
+    (``record_paths``; a sequential trace's start with the launch
+    position, ``launch``) and the hit records (``record_hits``).  ``aux()``
+    returns them with the JAX package's keys and shapes."""
+
+    def __init__(self, rays: Rays, record_paths=False, record_hits=False,
+                 track_opl=False, launch=True):
+        self.paths = (([v3.to_array(rays.pos_c)] if launch else [])
+                      if record_paths else None)
+        self.hits = [] if record_hits else None
+        self.weights, self.slots = [], []
+        self.opl = torch.zeros_like(rays.intensity) if track_opl else None
+        self.n_cur = torch.ones_like(rays.intensity) if track_opl else None
+
+    @staticmethod
+    def of(rays, record_paths=False, record_hits=False, track_opl=False,
+           launch=True):
+        """``Streams`` when any stream is asked for, else None."""
+        if record_paths or record_hits or track_opl:
+            return Streams(rays, record_paths, record_hits, track_opl, launch)
+        return None
+
+    def surface(self, meta, row, prev: Rays, out: Rays, res, n_w, active):
+        """A sequential row: opl += n_cur t where active, then the medium
+        after the row (``medium_after``); the position after the row; the
+        RAW surface-local hit of every ray and, as its weight, the
+        intensity after the row where active (0 elsewhere), on every row."""
+        if self.opl is not None:
+            self.opl = self.opl + torch.where(active, self.n_cur * res['t'],
+                                              0.0)
+            n_next = medium_after(meta, row, prev.dir_c, n_w,
+                                  prev.wavelength)
+            if n_next is not None:
+                self.n_cur = torch.where(active, n_next, self.n_cur)
+        if self.paths is not None:
+            self.paths.append(v3.to_array(out.pos_c))
+        if self.hits is not None:
+            self.hits.append(v3.to_array(res['hit_s']))
+            self.weights.append(torch.where(active, out.intensity, 0.0))
+
+    def bounce(self, out: Rays, best_t, active, n_next, hit, weight, slot):
+        """A non-sequential bounce: opl += n_cur best_t where a row won,
+        then the winner's medium ``n_next``; the position after the bounce;
+        the winning sensor's local hit, its INCOMING intensity and its slot
+        (0, 0 and 0 where no sensor won)."""
+        if self.opl is not None:
+            self.opl = self.opl + torch.where(active, self.n_cur * best_t,
+                                              0.0)
+            self.n_cur = torch.where(active, n_next, self.n_cur)
+        self.settled(out, hit, weight, slot)
+
+    def settled(self, out: Rays, hit=None, weight=None, slot=None):
+        """Record one bounce in which nothing moves (after the loop
+        stopped): the position unchanged, zero hits, weights and slots, as
+        the JAX loop's dead branch records them."""
+        if self.paths is not None:
+            self.paths.append(v3.to_array(out.pos_c))
+        if self.hits is not None:
+            zero = torch.zeros_like(out.intensity)
+            self.hits.append(v3.to_array(hit if hit is not None
+                                         else (zero, zero, zero)))
+            self.weights.append(weight if weight is not None else zero)
+            self.slots.append(slot if slot is not None
+                              else torch.zeros_like(zero, dtype=torch.int32))
+
+    def aux(self):
+        aux = {}
+        if self.paths is not None:
+            aux['paths'] = torch.stack(self.paths)
+        if self.hits is not None:
+            aux['hits'] = torch.stack(self.hits)
+            aux['hit_weights'] = torch.stack(self.weights)
+            if self.slots:
+                aux['hit_slots'] = torch.stack(self.slots)
+        if self.opl is not None:
+            aux['opl'] = self.opl
+            aux['n_final'] = self.n_cur
+        return aux
 
 
 def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
-                  static_meta, plain=False, grid=None):
+                  static_meta, plain=False, grid=None, streams=None):
     """Apply one surface interaction to the whole ray batch (masked).
 
     ``row`` is a SurfaceTable row or a FlatRow (a row of the fused kernel's
     flat table): only its float columns are read; the kinds come from
     ``static_meta``.  ``grid`` is the row's phase map (PHASE_GRID rows).
     ``plain=True`` bins the grid and reads the map's corners with their
-    plain versions on any device."""
+    plain versions on any device.  ``streams`` (a ``Streams``) records the
+    row."""
     res = intersect(row, rays.pos_c, rays.dir_c, static_meta)
     active = res['valid'] & (rays.intensity > 0)
     n_w = normal_world(row, res['hit_s'], static_meta)
@@ -65,23 +155,50 @@ def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
         w = torch.where(active, rays.intensity, 0.0)
         sensors = sensors.record(cfg, static_meta.slot, rays.ray_id,
                                  res['hit_s'], w, plain=plain)
-    return rays.masked_update(active, new_pos, new_dir, imod), sensors
+    out = rays.masked_update(active, new_pos, new_dir, imod)
+    if streams is not None:
+        streams.surface(static_meta, row, rays, out, res, n_w, active)
+    return out, sensors
+
+
+def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
+                  plain=False, grids=None, streams=None):
+    """The sequential chain over ``rows`` (one per static_meta entry) ->
+    ``(rays, sensors)``; ``streams`` records every row."""
+    sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
+    for k, meta in enumerate(static_meta):
+        rays, sensors = _surface_step(rows[k], rays, cfg, sensors, meta,
+                                      plain=plain, grid=(grids or {}).get(k),
+                                      streams=streams)
+    return rays, sensors
+
+
+def _refuse_unported(track_field=False, E0=None, fuzzy_fns=None):
+    if track_field or E0 is not None or fuzzy_fns:
+        raise NotImplementedError(
+            f'track_field, E0 and fuzzy apodization are {TODO_ELEMENTS}')
 
 
 def trace_sequential(table, rays: Rays, cfg: SensorConfig = SensorConfig(),
-                     static_meta=None, grids=None):
+                     static_meta=None, grids=None, record_paths=False,
+                     record_hits=False, track_opl=False, track_field=False,
+                     E0=None, fuzzy_fns=None):
     """Ordered pass over every surface row; returns ``(rays, sensors,
-    aux)`` (``aux`` is empty: the optional streams are not ported yet).
-    ``grids`` maps each PHASE_GRID row to its ``[H, W]`` phase map."""
+    aux)``.  ``grids`` maps each PHASE_GRID row to its ``[H, W]`` phase
+    map.  ``aux`` holds the streams asked for (``Streams``): ``paths [K+1,
+    N, 3]`` (the launch position, then the position after each row),
+    ``hits [K, N, 3]`` and ``hit_weights [K, N]``, ``opl`` and ``n_final``
+    ``[N]``."""
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_sequential needs one StaticRowMeta per row '
                          '(SequentialScene.static_meta())')
+    _refuse_unported(track_field, E0, fuzzy_fns)
     dtype = torch.promote_types(rays.px.dtype, table.tw.dtype)
-    sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
-    for k, meta in enumerate(static_meta):
-        rays, sensors = _surface_step(table.row(k), rays, cfg, sensors, meta,
-                                      grid=(grids or {}).get(k))
-    return rays, sensors, {}
+    streams = Streams.of(rays, record_paths, record_hits, track_opl)
+    rows = [table.row(k) for k in range(table.n_surfaces)]
+    rays, sensors = surface_chain(rows, rays, cfg, static_meta, dtype,
+                                  grids=grids, streams=streams)
+    return rays, sensors, streams.aux() if streams is not None else {}
 
 
 def nearest_hit(table, pos, direction, static_meta):
@@ -100,7 +217,7 @@ def nearest_hit(table, pos, direction, static_meta):
 
 
 def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
-                static_meta, plain=False, grids=None):
+                static_meta, plain=False, grids=None, streams=None):
     """One non-sequential bounce -> ``(rays, sensors, active [N])``.
 
     ``rows`` holds one row per table row (SurfaceTable rows or FlatRows);
@@ -108,7 +225,10 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     Each row's intersection and physics are computed once for all rays and
     where-merged into the running nearest hit; comparisons have no
     derivative, so gradients flow through the winner's computation alone.
-    A nearer non-sensor winner zeroes an earlier sensor crossing."""
+    A nearer non-sensor winner zeroes an earlier sensor crossing.
+    ``streams`` records the bounce: the winner's medium is written for
+    every winner (a non-refracting one keeps ``n_cur``), so a nearer mirror
+    overtaking a refracting candidate leaves no stale medium."""
     pos, d = rays.pos_c, rays.dir_c
     best_t = torch.full_like(rays.intensity, BIG)
     new_pos, new_dir = pos, d
@@ -118,6 +238,8 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     sens_hit = (zero, zero, zero)        # the winning sensor-local hit
     sens_w = zero                        # its weight (0: no sensor won)
     sens_slot = torch.zeros_like(rays.intensity, dtype=torch.int32)
+    track_opl = streams is not None and streams.opl is not None
+    n_next = streams.n_cur if track_opl else None
     live = rays.intensity > 0
     for k, (row, meta) in enumerate(zip(rows, static_meta)):
         res = intersect(row, pos, d, meta)
@@ -131,6 +253,10 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
         new_dir = v3.where(mask, dir_k, new_dir)
         imod_all = torch.where(mask, imod_k, imod_all)
         active_any = active_any | mask
+        if track_opl:
+            n_k = medium_after(meta, row, d, n_w, rays.wavelength)
+            n_next = torch.where(mask, n_k if n_k is not None
+                                 else streams.n_cur, n_next)
         if meta.sensor:
             sens_hit = v3.where(mask, res['hit_s'], sens_hit)
             sens_w = torch.where(mask, rays.intensity, sens_w)
@@ -140,19 +266,27 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     sensors = sensors.record(cfg, sens_slot, rays.ray_id, sens_hit, sens_w,
                              plain=plain)
     rays = rays.masked_update(active_any, new_pos, new_dir, imod_all)
+    if streams is not None:
+        streams.bounce(rays, torch.where(active_any, best_t, 0.0), active_any,
+                       n_next, sens_hit, sens_w, sens_slot)
     return rays, sensors, active_any
 
 
 def bounce_loop(rows, rays: Rays, n_bounces: int, cfg: SensorConfig,
-                static_meta, dtype, plain=False, grids=None):
+                static_meta, dtype, plain=False, grids=None, streams=None):
     """Up to ``n_bounces`` bounce steps, stopping after the first bounce in
-    which no ray interacted -> ``(rays, sensors)``."""
+    which no ray interacted -> ``(rays, sensors)``.  ``streams`` records
+    every bounce of the full budget: the bounces after the stop as settled
+    (``Streams.settled``)."""
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
-    for _ in range(n_bounces):
+    for b in range(n_bounces):
         rays, sensors, act = bounce_step(rows, rays, cfg, sensors,
                                          static_meta, plain=plain,
-                                         grids=grids)
+                                         grids=grids, streams=streams)
         if not bool(act.any()):
+            if streams is not None:
+                for _ in range(b + 1, n_bounces):
+                    streams.settled(rays)
             break
     return rays, sensors
 
@@ -163,23 +297,25 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
                         track_field=False, E0=None, track_opl=False,
                         fuzzy_fns=None, grids=None):
     """Bounce loop within a budget of ``n_bounces`` (the reference's
-    ``Scene.simulate``); returns ``(rays, sensors, aux)`` (``aux`` is
-    empty: the optional streams are not ported yet and raise).  ``grids``
-    maps each PHASE_GRID row to its ``[H, W]`` phase map."""
+    ``Scene.simulate``); returns ``(rays, sensors, aux)``.  ``grids`` maps
+    each PHASE_GRID row to its ``[H, W]`` phase map.  ``aux`` holds the
+    streams asked for: ``paths [B, N, 3]`` (the position after each bounce
+    of the full budget B), ``hits [B, N, 3]``, ``hit_weights [B, N]`` and
+    ``hit_slots [B, N]`` int32 (the winning sensor's local hit, the incoming
+    intensity and the slot; a nearer non-sensor winner zeroes the weight),
+    ``opl`` and ``n_final`` ``[N]``."""
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_nonsequential needs one StaticRowMeta per '
                          'row (Scene.static_meta())')
-    if (record_paths or record_hits or track_field or E0 is not None
-            or track_opl or fuzzy_fns):
-        raise NotImplementedError(
-            'record_paths, record_hits, track_field, track_opl and fuzzy '
-            f'apodization are {TODO_FEATURES}')
+    _refuse_unported(track_field, E0, fuzzy_fns)
     for k, meta in enumerate(static_meta):
         why = unsupported(meta)
         if why:
             raise NotImplementedError(f'non-sequential trace, row {k}: {why}')
     rows = [table.row(k) for k in range(table.n_surfaces)]
     dtype = torch.promote_types(rays.px.dtype, table.tw.dtype)
+    streams = Streams.of(rays, record_paths, record_hits, track_opl,
+                         launch=False)
     rays, sensors = bounce_loop(rows, rays, n_bounces, cfg, static_meta,
-                                dtype, grids=grids)
-    return rays, sensors, {}
+                                dtype, grids=grids, streams=streams)
+    return rays, sensors, streams.aux() if streams is not None else {}

@@ -8,7 +8,8 @@
 // vector-Jacobian product (tests/test_pallas.py::
 // test_nonseq_bwd_scan_matches_unrolled holds them equal), so this one kernel
 // is the counterpart of both, for K5's kinds (pixelated phase plates and the
-// extended kinds included) with every other optional stream off.
+// extended kinds included) and the optical path length, with every other
+// optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -86,6 +87,14 @@
 //   in a fourth instantiation (kDispersion), an overload of the kernel with
 //   one more argument (WaveOut), so the other three keep their parameters and
 //   their code; all four run one body, nonseq_bwd.
+// - The optical path length (K5's track_opl): a fifth instantiation, kOpl,
+//   built on the fourth (an overload with OplIn: the cotangents of K5's opl
+//   and n_final).  Its replays carry the medium's index (medium_after of
+//   each winner, as K5's instantiation with the streams takes it), each
+//   checkpoint keeps the one before its bounce as a ninth word (the state
+//   grows from 8 to 9 words: 9 KB a bounce for a block; opl itself needs no
+//   word, its cotangent being the same at every bounce), and the reverse
+//   sweep runs K2's path-length adjoint of the winner.
 //
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
@@ -132,11 +141,12 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // One bounce of K5 (nonseq_bounce, the very function K5 runs).  Returns the
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
-// winner's branch bits.
-template <bool kPlates, bool kExt, bool kDispersion>
+// winner's branch bits.  With kOpl, n_cur becomes the winner's medium
+// (medium_after, as K5's instantiation with the streams takes it).
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
-                                      uint32_t& bits) {
+                                      uint32_t& bits, float* n_cur = nullptr) {
   RowHit hw = {};
   RowKinds kw = {};
   bool degen = false;
@@ -144,6 +154,11 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
   const int k = nonseq_bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d,
                                                            inten, hw, kw, &degen, &br);
   if (k >= 0) bits = branch_bits(hw, degen, br) | kActive;
+  if constexpr (kOpl) {
+    if (k >= 0)
+      *n_cur = medium_after<kDispersion>(tab + k * kRowWidth, kw, br.from_in, br.tir, pl.wl,
+                                         *n_cur);
+  }
   return k;
 }
 
@@ -171,8 +186,19 @@ struct WaveOut {
   int disp_cols;  // kDispGradCols when the table has a dispersive row, else 0
 };
 
-// The kernel's body, shared by its four instantiations (the kernels below).
-template <bool kPlates, bool kExt, bool kDispersion>
+// What only the instantiation with the optical path length takes: the
+// cotangents of K5's opl and n_final streams (n floats each; null: zero).
+struct OplIn {
+  const float* g_opl;
+  const float* g_nfinal;
+};
+
+// The kernel's body, shared by its five instantiations (the kernels below).
+// With kOpl (which has kDispersion) the replays also carry the index of the
+// medium, each checkpoint keeps the one before its bounce as a ninth word
+// (a segment replay recomputes it from the launch, as it recomputes the
+// rest), and the reverse sweep runs row_backward's path-length adjoint.
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -188,8 +214,10 @@ __device__ __forceinline__ void nonseq_bwd(
     float* __restrict__ rdy, float* __restrict__ rdz, float* __restrict__ rintensity,
     int n_slots, int n_bundles, GridCt gg, const float* __restrict__ maps,
     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
-    float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo) {
+    float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo,
+    OplIn oi = {nullptr, nullptr}) {
   constexpr int kCols = grad_cols<kPlates, kExt>();
+  constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols
   const int n_cols = kDispersion ? kCols + wo.disp_cols : kCols;
@@ -235,22 +263,24 @@ __device__ __forceinline__ void nonseq_bwd(
   // row << 16 | the winner's bits, [n_ck][kStateWords][kThreads]
   const int n_ck = checkpoints(n_bounces);
   float* const ck = warp_tab + kWarps * n_rows * n_cols + tid;
-  constexpr int kSlot = kStateWords * kThreads;
+  constexpr int kSlot = kWords * kThreads;
   V3 p = p0, d = d0;
   float inten = i0;
   int n_live = 0;
+  float n_cur = 1.0f;  // kOpl: the medium (index 1 at launch)
 #pragma unroll 1
   for (int b = 0; b < n_bounces && inten > 0.0f; ++b) {
     const V3 pb = p, db = d;
-    const float ib = inten;
+    const float ib = inten, nb = n_cur;
     uint32_t bits = 0;
-    const int k =
-        bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+    const int k = bounce<kPlates, kExt, kDispersion, kOpl>(recs, tab, knd, n_rows, pl, p, d,
+                                                           inten, bits, &n_cur);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
     put_state<kThreads>(ck + (b % n_ck) * kSlot, pb, db, ib,
                         (static_cast<uint32_t>(k) << 16) | bits);
+    if constexpr (kOpl) put_medium<kThreads>(ck + (b % n_ck) * kSlot, nb);
     n_live = b + 1;
   }
   if (live && rpx != nullptr) {
@@ -266,10 +296,15 @@ __device__ __forceinline__ void nonseq_bwd(
   // ---- reverse sweep, in segments of n_ck bounces, the last first ----
   V3 gp = {0.0f, 0.0f, 0.0f}, gd = {0.0f, 0.0f, 0.0f};
   float gi = 0.0f, gwl = 0.0f;
+  OplCt oc = {0.0f, 1.0f, 0.0f};  // kOpl: the path length's adjoint
   if (live) {
     gp = {gpx ? gpx[i] : 0.0f, gpy ? gpy[i] : 0.0f, gpz ? gpz[i] : 0.0f};
     gd = {gdx ? gdx[i] : 0.0f, gdy ? gdy[i] : 0.0f, gdz ? gdz[i] : 0.0f};
     gi = gintensity ? gintensity[i] : 0.0f;
+    if constexpr (kOpl) {
+      oc.g_opl = oi.g_opl ? oi.g_opl[i] : 0.0f;
+      oc.g_n = oi.g_nfinal ? oi.g_nfinal[i] : 0.0f;
+    }
   }
   const int warp_live = __reduce_max_sync(kFull, n_live);
   const int s_last = warp_live > 0 ? (warp_live - 1) / n_ck * n_ck : -1;
@@ -281,17 +316,20 @@ __device__ __forceinline__ void nonseq_bwd(
       p = p0;
       d = d0;
       inten = i0;
+      n_cur = 1.0f;
       uint32_t bits = 0;
 #pragma unroll 1
       for (int b = 0; b < s; ++b)
-        bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+        bounce<kPlates, kExt, kDispersion, kOpl>(recs, tab, knd, n_rows, pl, p, d, inten, bits,
+                                                 &n_cur);
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
-        const float ib = inten;
-        const int k =
-            bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d, inten, bits);
+        const float ib = inten, nb = n_cur;
+        const int k = bounce<kPlates, kExt, kDispersion, kOpl>(recs, tab, knd, n_rows, pl, p, d,
+                                                               inten, bits, &n_cur);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
+        if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
       }
     }
     const int j_top = min(n_ck, warp_live - s) - 1;
@@ -302,6 +340,9 @@ __device__ __forceinline__ void nonseq_bwd(
       float si;
       uint32_t word = 0;
       if (act) get_state<kThreads>(ck + j * kSlot, sp, sd, si, word);
+      if constexpr (kOpl) {
+        if (act) oc.n_cur = get_medium<kThreads>(ck + j * kSlot);
+      }
       const int k = act ? static_cast<int>(word >> 16) : -1;
       float tg[kCols];
 #pragma unroll
@@ -311,9 +352,9 @@ __device__ __forceinline__ void nonseq_bwd(
         int dispm = 0;
         if (act) {
           const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
-          row_backward<kPlates, kExt, kDispersion>(tab + k * kRowWidth, kd, sp, sd, si,
-                                                   word & 0xffffu, rid, gm, n_bundles, gg, pl,
-                                                   gmaps, gp, gd, gi, tg, &wc);
+          row_backward<kPlates, kExt, kDispersion, kOpl>(tab + k * kRowWidth, kd, sp, sd, si,
+                                                         word & 0xffffu, rid, gm, n_bundles, gg,
+                                                         pl, gmaps, gp, gd, gi, tg, &wc, &oc);
           dispm = kd.dispm;
         }
         if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, n_cols, lane);
@@ -400,9 +441,18 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo) {
   nonseq_bwd<kPlates, kExt, true>(RTT_NONSEQ_BWD_ARGS, wo);
 }
 
-// The types of the two kernels.
+// The kernel with those and the optical path length.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi) {
+  static_assert(kPlates && kExt, "the path length runs with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi);
+}
+
+// The types of the three kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
+using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
@@ -412,19 +462,22 @@ using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 // (disp_cols more columns a row on a table with a dispersive row) and the
 // checkpoints.  Without the records the mixed-surface Scene's 11 rows and
 // 12 checkpoints fit two blocks an SM.
-template <bool kPlates, bool kExt>
+template <bool kPlates, bool kExt, bool kOpl = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols) {
   return sizeof(float) *
          (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
           static_cast<size_t>(kWarps) * n_rows * (grad_cols<kPlates, kExt>() + disp_cols) +
-          static_cast<size_t>(checkpoints(n_bounces)) * kStateWords * kThreads);
+          static_cast<size_t>(checkpoints(n_bounces)) * state_words<kOpl>() * kThreads);
 }
 
 // The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kDispersion>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 const void* kernel_fn() {
-  if constexpr (kDispersion)
+  if constexpr (kOpl)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdOplKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kDispersion)
     return reinterpret_cast<const void*>(
         static_cast<BwdExtKernel>(trace_nonseq_bwd_kernel<true, true>));
   else
@@ -433,10 +486,10 @@ const void* kernel_fn() {
 }
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt, bool kDispersion>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -531,11 +584,50 @@ extern "C" int rtt_trace_nonseq_bwd(
                                      nullptr, nullptr, nullptr, none, n_bounces, n);
 }
 
+// Launches the instantiation with the optical path length on `stream`: the
+// arguments of rtt_trace_nonseq_bwd (its `ext` implied: `maps`, `map_desc`
+// and `wavelength` must be given, a PHASE_GRID row or not), then `g_opl`
+// and `g_nfinal`, the cotangents of K5's opl and n_final streams (n floats
+// each; null: zero).  Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_bwd_opl(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
+    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
+    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
+    float* cintensity, float* partials, float* rpx, float* rpy, float* rpz, float* rdx,
+    float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
+    const float* g_nfinal, int n_bounces, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
+  const size_t smem =
+      shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
+  const cudaError_t e = prepare<true, true, true, true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trace_nonseq_bwd_kernel<true, true>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx,
+          rpy, rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
+          GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces, n,
+          wo, OplIn{g_opl, g_nfinal});
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without
 // plate code, 1 with it, 2 with it and the extended kinds, 3 with those and
-// dispersion on a table with a dispersive row.  Returns a cudaError_t.
+// dispersion on a table with a dispersive row, 4 the instantiation with the
+// path length on such a table.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
@@ -543,7 +635,11 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 3) {
+  if (code == 4) {
+    smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
+    e = prepare<true, true, true, true>(smem);
+    fn = kernel_fn<true, true, true, true>();
+  } else if (code == 3) {
     smem = shared_bytes<true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
     e = prepare<true, true, true>(smem);
     fn = kernel_fn<true, true, true>();

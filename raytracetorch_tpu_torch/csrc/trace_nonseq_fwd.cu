@@ -6,9 +6,9 @@
 // _nonseq_bounce_core) for the main-path kinds, the ideal spherical mirror
 // (HEMI_APER bound), pixelated phase plates, the extended kinds of the
 // mixed-surface and asphere scenes and dispersive media, with every other
-// optional stream off:
-// no random draws, field, opl, recording, fuzzy apodization, GRIN or
-// HALFSPACES rows.
+// optional stream off but the deterministic ones (the optical path length,
+// path and hit recording, in an instantiation of their own, below): no
+// random draws, field, fuzzy apodization, GRIN or HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -75,6 +75,18 @@
 // of a volume bound), and builds no records; its winner's physics reads a
 // dispersive row's indices at the ray's wavelength.  So a scene whose only
 // extended kind is a dispersive glass (a doublet) scans the flat rows too.
+//
+// The streams (the caller's track_opl, record_paths, record_hits; the TPU
+// kernel's :1020-1023, :1123-1132, :1202-1215) run in an instantiation of
+// their own, built on the extended one (it takes every scene), with a copy
+// of the kernel's body (nonseq_fwd_streams), so the others keep their code.
+// Per bounce it adds n_cur t and takes the winner's medium
+// (medium_after), and writes the position and the bounce's sensor record
+// ([B][3][N] planar, the hit weights and slots [B][N]); the bounces after a
+// ray left its loop are written settled (the position, zero records), as
+// the JAX loop's dead branch records them.  The records are bytes: 32 B a
+// ray and bounce, 256 B at the naive scene's 8-bounce budget, against the
+// 72 B of the rest.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
@@ -235,6 +247,223 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
   }
 }
 
+// The body of the instantiation with the streams (plate code, the extended
+// kinds and dispersion): the kernel's above, in a copy of its own, so that
+// the kernel keeps its text and so its code in every other instantiation
+// (the bucket of 64's registers moved when the two shared one body).  It
+// also accumulates the optical path length n_cur t of each bounce and the
+// winner's medium (medium_after), and writes the
+// streams of `so` that are not null: after each bounce the position, the
+// bounce's sensor record (the local hit and slot of the last sensor row that
+// was the nearest when the scan met it, and the incoming intensity where a
+// sensor won, 0 where a nearer row did), and from the bounce at which the
+// ray leaves its loop to the budget the settled ones: the position
+// unchanged, zero hits, weights and slots.
+template <int kMomBucket>
+__device__ __forceinline__ void nonseq_fwd_streams(
+    const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
+    const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
+    const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ intensity, const int32_t* __restrict__ ray_id,
+    float* __restrict__ opx, float* __restrict__ opy, float* __restrict__ opz,
+    float* __restrict__ odx, float* __restrict__ ody, float* __restrict__ odz,
+    float* __restrict__ ointensity, float* __restrict__ partials, int n_slots, int n_bundles,
+    float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
+    const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
+    const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so) {
+  constexpr bool kPlates = true, kExt = true;
+  extern __shared__ float4 smem4[];
+  // the packed scan records (none with kExt, whose scan reads the flat rows)
+  constexpr int kRecs = kExt ? 0 : kRec4;
+  const float4* recs = smem4;
+  float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRecs);
+  int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
+  float* warp_mom = tab + n_rows * (kRowWidth + kKindWidth);
+  const int n_mom = n_slots * n_bundles * kMoments;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  if (!kExt)
+    build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
+  for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
+  for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
+  __syncthreads();
+
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
+  const bool live = i < n;
+  // Threads past the ragged edge hold a zero ray of zero intensity: they
+  // leave the loop at once and add nothing.
+  V3 p = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+  float inten = 0.0f;
+  int rid = -1;
+  Plates pl = {maps, map_desc, 0.0f};
+  if (live) {
+    p = {px[i], py[i], pz[i]};
+    d = {dx[i], dy[i], dz[i]};
+    inten = intensity[i];
+    rid = ray_id[i];
+    if (kPlates) pl.wl = wavelength[i];
+  }
+  const bool counted = rid >= 0 && rid < n_bundles;
+  // the streams: the path length, the medium (index 1 at launch)
+  float opl = 0.0f, n_cur = 1.0f;
+
+  // The moment sums: bucket 1 keeps its 7 in shared memory, [moment]
+  // [thread] (a warp's access is 32 consecutive words, no bank conflict),
+  // so no register holds them across the bounce loop; the bucket of 64
+  // keeps them in a local array.  Each thread adds its hits in bounce order
+  // either way.
+  constexpr int kStride = kMomBucket == 1 ? kThreads : 1;
+  float acc_local[kMomBucket == 1 ? 1 : kMomBucket * kMoments];
+  float* const acc = kMomBucket == 1 ? warp_mom + kWarps * n_mom + tid : acc_local;
+#pragma unroll(kMomBucket == 1 ? kMoments : 1)
+  for (int j = 0; j < kMomBucket * kMoments; ++j) acc[j * kStride] = 0.0f;
+
+  // leaves b_end at the bounce at which the ray left its loop
+  int b_end = n_bounces;
+  for (int b = 0; b < n_bounces; ++b) {
+    if (!(inten > 0.0f)) {
+      b_end = b;
+      break;
+    }
+    const float w = inten;
+    RowHit hw = {};
+    RowKinds kd = {};
+    PhysBranch br = {};
+    SensorRec rec;
+    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true>(
+        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec);
+    if (k_win < 0) {
+      b_end = b;
+      break;
+    }
+    opl = opl + n_cur * hw.t;
+    n_cur = medium_after<kExt>(tab + k_win * kRowWidth, kd, br.from_in, br.tir, pl.wl, n_cur);
+    if (live && so.paths != nullptr) {
+      float* dst = so.paths + 3 * b * n + i;
+      dst[0] = p.x;
+      dst[n] = p.y;
+      dst[2 * n] = p.z;
+    }
+    if (live && so.hits != nullptr) {
+      float* dst = so.hits + 3 * b * n + i;
+      dst[0] = rec.hs.x;
+      dst[n] = rec.hs.y;
+      dst[2 * n] = rec.hs.z;
+      so.hit_w[b * n + i] = kd.sensor ? w : 0.0f;
+      so.hit_slot[b * n + i] = rec.slot;
+    }
+    if (kd.sensor) {  // as in the kernel above
+      const float x = hw.hs.x, y = hw.hs.y;
+      if (counted) {
+        float* a = acc + (kMomBucket == 1 ? 0 : (kd.slot * n_bundles + rid) * kMoments);
+        a[0] += w;
+        a[kStride] += w * x;
+        a[2 * kStride] += w * y;
+        a[3 * kStride] += w * x * x;
+        a[4 * kStride] += w * y * y;
+        a[5 * kStride] += w * x * y;
+        a[6 * kStride] += 1.0f;
+      }
+      if (grid != nullptr) {
+        int gh = grid_h, gw = grid_w;
+        float ge = grid_e;
+        asm volatile("" : "+r"(gh), "+r"(gw), "+f"(ge));
+        grid_add(grid, kd.slot, x, y, w, gh, gw, ge);
+      }
+    }
+  }
+
+  if (live) {
+    opx[i] = p.x;
+    opy[i] = p.y;
+    opz[i] = p.z;
+    odx[i] = d.x;
+    ody[i] = d.y;
+    odz[i] = d.z;
+    ointensity[i] = inten;
+    if (so.opl != nullptr) {
+      so.opl[i] = opl;
+      so.n_final[i] = n_cur;
+    }
+    // the settled bounces, from the one at which the ray left its loop
+    for (int s = b_end; s < n_bounces; ++s) {
+      if (so.paths != nullptr) {
+        float* dst = so.paths + 3 * s * n + i;
+        dst[0] = p.x;
+        dst[n] = p.y;
+        dst[2 * n] = p.z;
+      }
+      if (so.hits != nullptr) {
+        float* dst = so.hits + 3 * s * n + i;
+        dst[0] = 0.0f;
+        dst[n] = 0.0f;
+        dst[2 * n] = 0.0f;
+        so.hit_w[s * n + i] = 0.0f;
+        so.hit_slot[s * n + i] = 0;
+      }
+    }
+  }
+
+  // ---- moments: warp sums, per-warp partials, fixed-order block sum ----
+#pragma unroll(kMomBucket == 1 ? kMoments : 1)
+  for (int j = 0; j < kMomBucket * kMoments; ++j) {
+    if (j < n_mom) {  // uniform across the block
+      const float s = warp_sum(acc[j * kStride]);
+      if (lane == 0) warp_mom[warp * n_mom + j] = s;
+    }
+  }
+  __syncthreads();
+  float* out = partials + static_cast<size_t>(blockIdx.x) * n_mom;
+  for (int j = tid; j < n_mom; j += kThreads) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += warp_mom[w * n_mom + j];
+    out[j] = s;
+  }
+}
+
+#define RTT_NONSEQ_FWD_PARAMS                                                                   \
+  const float *__restrict__ table, const int32_t *__restrict__ kinds, int n_rows,               \
+      const float *__restrict__ px, const float *__restrict__ py, const float *__restrict__ pz,  \
+      const float *__restrict__ dx, const float *__restrict__ dy, const float *__restrict__ dz,  \
+      const float *__restrict__ intensity, const int32_t *__restrict__ ray_id,                  \
+      float *__restrict__ opx, float *__restrict__ opy, float *__restrict__ opz,                \
+      float *__restrict__ odx, float *__restrict__ ody, float *__restrict__ odz,                \
+      float *__restrict__ ointensity, float *__restrict__ partials, int n_slots, int n_bundles, \
+      float *__restrict__ grid, int grid_h, int grid_w, float grid_e,                           \
+      const float *__restrict__ maps, const int32_t *__restrict__ map_desc,                     \
+      const float *__restrict__ wavelength, int n_bounces, long long n
+#define RTT_NONSEQ_FWD_ARGS                                                                     \
+  table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody, odz, \
+      ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps, map_desc,   \
+      wavelength, n_bounces, n
+
+// The kernel with the streams (plate code, the extended kinds, dispersion).
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so) {
+  static_assert(kPlates && kExt, "the streams run with the extended kinds");
+  nonseq_fwd_streams<kMomBucket>(RTT_NONSEQ_FWD_ARGS, so);
+}
+
+// The types of the two kernels.
+using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
+using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
+
+#undef RTT_NONSEQ_FWD_PARAMS
+#undef RTT_NONSEQ_FWD_ARGS
+
+// The kernel of an instantiation.
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false>
+const void* kernel_fn() {
+  if constexpr (kStreams)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdStreamKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else
+    return reinterpret_cast<const void*>(
+        static_cast<FwdKernel>(trace_nonseq_fwd_kernel<kMomBucket, kPlates, kExt>));
+}
+
 // The plate arguments of a launch: the maps, their descriptors and the
 // rays' wavelengths (all null without a plate).
 struct PlateArgs {
@@ -244,10 +473,10 @@ struct PlateArgs {
 };
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <int kMomBucket, bool kPlates, bool kExt>
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_nonseq_fwd_kernel<kMomBucket, kPlates, kExt>,
+  return cudaFuncSetAttribute(kernel_fn<kMomBucket, kPlates, kExt, kStreams>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -285,19 +514,41 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 }
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
-// it and the extended kinds) and moment bucket, its shared memory allowed.
+// it and the extended kinds, 4 the one with the streams) and moment bucket,
+// its shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 4) {
+    *e = prepare<kMomBucket, true, true, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true>();
+  }
   if (code >= 2) {
     *e = prepare<kMomBucket, true, true>(smem);
-    return reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<kMomBucket, true, true>);
+    return kernel_fn<kMomBucket, true, true>();
   }
   if (code == 1) {
     *e = prepare<kMomBucket, true, false>(smem);
-    return reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<kMomBucket, true, false>);
+    return kernel_fn<kMomBucket, true, false>();
   }
   *e = prepare<kMomBucket, false, false>(smem);
-  return reinterpret_cast<const void*>(trace_nonseq_fwd_kernel<kMomBucket, false, false>);
+  return kernel_fn<kMomBucket, false, false>();
+}
+
+template <int kMomBucket>
+int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const float* table,
+                   const int32_t* kinds, int n_rows, const float* const* rays,
+                   const int32_t* ray_id, float* const* outs, float* partials, int n_slots,
+                   int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
+                   const PlateArgs& pa, int n_bounces, long long n, const StreamOut& so) {
+  const cudaError_t e = prepare<kMomBucket, true, true, true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trace_nonseq_fwd_kernel<kMomBucket, true, true>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+          table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+          ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials,
+          n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa.maps, pa.desc, pa.wavelength,
+          n_bounces, n, so);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -347,12 +598,52 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
                                      PlateArgs{nullptr, nullptr, nullptr}, n_bounces, n);
 }
 
+// Launches the instantiation with the streams on `stream`: the arguments of
+// rtt_trace_nonseq_fwd (its `ext` implied: `maps`, `map_desc` and
+// `wavelength` must be given, a PHASE_GRID row or not), then the stream
+// outputs, each null when not wanted: `opl` and `n_final` (n floats each),
+// `paths` (n_bounces * 3 * n floats), `hits` (n_bounces * 3 * n), `hit_w`
+// (n_bounces * n floats) and `hit_slot` (n_bounces * n int32, both given
+// with `hits`).  Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_fwd_streams(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
+    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
+    float* hit_w, int32_t* hit_slot, int n_bounces, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr) ||
+      (hits == nullptr) != (hit_slot == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true);
+  const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
+  float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PlateArgs pa = {maps, map_desc, wavelength};
+  const StreamOut so = {opl, n_final, paths, hits, hit_w, hit_slot};
+  if (n_slots * n_bundles == 1)
+    return launch_streams<1>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
+                             n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa, n_bounces, n,
+                             so);
+  return launch_streams<64>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
+                            n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa, n_bounces, n,
+                            so);
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs (the bounce budget does not change it), at its dynamic shared
 // memory, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 // `code`: 0 without plate code, 1 with it, 2 (or 3, as K2's and K6's code
-// for a table with a dispersive row) with it and the extended kinds.
-// Returns a cudaError_t.
+// for a table with a dispersive row) with it and the extended kinds, 4 the
+// instantiation with the streams.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)

@@ -66,6 +66,33 @@ constexpr uint32_t kVClip = 1u << 12;   // PHASE_GRID: v clipped
 // for a per-thread array).
 constexpr int kStateWords = 8;
 
+// The instantiations with the optical path length (kOpl) save one word more
+// per row or bounce, the index of the medium the ray travels in before it
+// (opl itself needs none: its cotangent is the same at every row).
+template <bool kOpl>
+__host__ __device__ constexpr int state_words() {
+  return kStateWords + (kOpl ? 1 : 0);
+}
+
+template <int kStride>
+__device__ __forceinline__ void put_medium(float* s, float n_cur) {
+  s[kStateWords * kStride] = n_cur;
+}
+
+template <int kStride>
+__device__ __forceinline__ float get_medium(const float* s) {
+  return s[kStateWords * kStride];
+}
+
+// The optical path length's adjoint state of one ray (kOpl): the path
+// length's cotangent g_opl (constant along the chain: opl is a sum), the
+// index n_cur of the medium before the row (saved), and g_n, the cotangent
+// of the medium after the row, which row_backward replaces by the one
+// before it.
+struct OplCt {
+  float g_opl, n_cur, g_n;
+};
+
 template <int kStride>
 __device__ __forceinline__ void put_state(float* s, V3 p, V3 d, float inten, uint32_t word) {
   s[0] = p.x;
@@ -232,11 +259,12 @@ __device__ __forceinline__ float disp_backward(const float* r, int dispm, float 
 // row's bits; the cell is recomputed from the re-derived hit.  With
 // kDispersion the wavelength's cotangent (its kick, and a dispersive row's
 // media) goes to wc.
-template <bool kDispersion = false>
+template <bool kDispersion = false, bool kOpl = false>
 __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKinds& kd,
                                                     const Plates& pl, float* gmaps, V3 d, V3 hs,
                                                     uint32_t bits, V3 g_nd, V3& g_d, V3& g_hs,
-                                                    float* tg, WaveCt* wc = nullptr) {
+                                                    float* tg, WaveCt* wc = nullptr,
+                                                    float g_n2_medium = 0.0f) {
   const float* Rw = r + kRw;
   // ---- the forward's values ----
   const bool from_in = bits & kFromIn, ok = bits & kPgOk;
@@ -285,7 +313,9 @@ __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKin
   } else {
     g_dl.z = g_ol.z;
   }
-  const float g_n2 = -(g_inv * inv * inv) + 2.0f * n2 * g_n2sq;
+  float g_n2 = -(g_inv * inv * inv) + 2.0f * n2 * g_n2sq;
+  // kOpl: n2 is also the medium after the row
+  if constexpr (kOpl) g_n2 += g_n2_medium;
   // ---- tx = n1 dl.x + kick gx, ty = n1 dl.y + kick gy ----
   const float g_n1 = g_tx * dl.x + g_ty * dl.y;
   g_dl.x += g_tx * n1;
@@ -529,13 +559,21 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // both (asph_refine_backward, asph_normal_backward).  A dispersive row
 // (kDispersion only) refracts at the indices of the ray's wavelength, whose
 // cotangents go to wc (disp_backward carries them on), as does the
-// wavelength's own where a PHASE_GRID row reads it.
-template <bool kPlates, bool kExt = false, bool kDispersion = false>
+// wavelength's own where a PHASE_GRID row reads it.  With kOpl (which has
+// kDispersion) `oc` carries the optical path length's adjoint: the adjoint
+// of opl += n_cur t joins g_opl n_cur to t's cotangent (through the
+// intersection into p, d and the table) and g_opl t to n_cur's, and a
+// refracting row hands the cotangent of the medium after it to the index
+// medium_after took (n2, or n1 under TIR: ph[0:2] by side, or the disp
+// columns and the wavelength through wc).
+template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
                                              const Plates& pl, float* gmaps, V3& gp, V3& gd,
-                                             float& gi, float* tg, WaveCt* wc = nullptr) {
+                                             float& gi, float* tg, WaveCt* wc = nullptr,
+                                             OplCt* oc = nullptr) {
+  static_assert(kDispersion || !kOpl, "the path length runs with dispersion");
   if (!(bits & kActive)) return;  // where(active, new, old) passes through
   const float* q = r + kQ;
   const float* Rw = r + kRw;
@@ -606,6 +644,14 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   float g_t = dot3(gp, d);
   V3 g_d = {t * gp.x, t * gp.y, t * gp.z};
   const V3 g_nd = gd;
+  // ---- opl += n_cur t; n_cur' = medium_after (a refracting row), else n_cur ----
+  float g_medium = 0.0f;  // the cotangent of the medium after a refracting row
+  if constexpr (kOpl) {
+    const bool refracts = kd.ph == SNELL || (kPlates && kd.ph == PHASE_GRID);
+    g_medium = refracts ? oc->g_n : 0.0f;
+    g_t += oc->g_opl * oc->n_cur;
+    oc->g_n = (refracts ? 0.0f : oc->g_n) + oc->g_opl * t;
+  }
   float g_i = gi * imod;
   V3 g_hs = {0.0f, 0.0f, 0.0f};
 
@@ -626,7 +672,8 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   // ---- physics ----
   V3 g_nw = {0.0f, 0.0f, 0.0f};
   if (kPlates && kd.ph == PHASE_GRID) {
-    phase_grid_backward<kDispersion>(r, kd, pl, gmaps, d, hs, bits, g_nd, g_d, g_hs, tg, wc);
+    phase_grid_backward<kDispersion, kOpl>(r, kd, pl, gmaps, d, hs, bits, g_nd, g_d, g_hs, tg,
+                                           wc, g_medium);
   } else if (kd.ph == TRANSMIT) {
     g_d = fma3(g_d, 1.0f, g_nd);
   } else if (kd.ph == APERTURE) {
@@ -639,6 +686,11 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     g_d = fma3(g_d, g_s, nw);
     g_nw = fma3(g_nw, -2.0f * s, g_nd);
     g_nw = fma3(g_nw, g_s, d);
+    // under TIR the ray stays in the medium of incidence: n1
+    if constexpr (kOpl) {
+      if (kd.ph == SNELL)
+        media_backward<kDispersion>(kd.dispm, bits & kFromIn, g_medium, 0.0f, tg, wc);
+    }
   } else if (kd.ph == SNELL) {
     // nd = mu d + coef n, coef = (mu cos_i - cos_t) eff_sign
     const bool from_in = bits & kFromIn;
@@ -668,7 +720,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     const float sgn = from_in ? -1.0f : ((bits & kDnPos) ? 1.0f : 0.0f);
     const float g_dn = g_cos_i * sgn;
     const float g_n1 = g_mu / n2_safe;
-    const float g_n2 = n2_small ? 0.0f : -(g_mu * mu / n2_safe);
+    float g_n2 = n2_small ? 0.0f : -(g_mu * mu / n2_safe);
+    // kOpl: n2 itself (not n2_safe) is the medium after the row
+    if constexpr (kOpl) g_n2 += g_medium;
     media_backward<kDispersion>(kd.dispm, from_in, g_n1, g_n2, tg, wc);
     g_d = fma3(g_d, g_dn, nw);
     g_nw = fma3(g_nw, g_dn, d);

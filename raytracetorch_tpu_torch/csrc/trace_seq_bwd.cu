@@ -5,8 +5,8 @@
 // _kernel_v2_bwd (launched by trace_sequential_pallas_v2_bwd, joined to the
 // forward by the custom_vjp fused_trace_grad) for the main-path kinds,
 // pixelated phase plates, the extended kinds of the mixed-surface and
-// asphere scenes and dispersive media, with every other optional stream
-// off.  Its plain
+// asphere scenes and dispersive media, and the optical path length
+// (g_opl, g_nfinal), with every other optional stream off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_bwd_cuda.
@@ -85,6 +85,17 @@
 //   the mixed-surface scene's K2 ran ~7% slower, PERF.md); all four run one
 //   body, seq_bwd.  A phase-plate scene whose wavelength is under grad
 //   takes the fourth too, for the kick's wavelength cotangent.
+// - The optical path length (K1's track_opl): a fifth instantiation, kOpl,
+//   built on the fourth (an overload with one more argument, OplIn: the
+//   cotangents of K1's opl and n_final), so that the others keep their
+//   code.  Its forward sweep carries the medium's index and saves it before
+//   each row as a ninth state word (9 KB a row of shared memory: 45 KB on
+//   the bench scene); its reverse sweep runs row_backward's path-length
+//   adjoint (trace_seq_adjoint.cuh: g_opl n_cur joins t's cotangent,
+//   g_opl t the medium's, and a refracting row hands the medium's
+//   cotangent to the index it took).  A recording run's backward does not
+//   come here: it recomputes through the eager chain, as the reference's
+//   _fused_bwd does (ops/fused_trace.py).
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -131,8 +142,20 @@ struct WaveOut {
   int disp_cols;  // kDispGradCols when the table has a dispersive row, else 0
 };
 
-// The kernel's body, shared by its four instantiations (the kernels below).
-template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
+// What only the instantiation with the optical path length takes: the
+// cotangents of K1's opl and n_final streams (n floats each; null: zero).
+struct OplIn {
+  const float* g_opl;
+  const float* g_nfinal;
+};
+
+// The kernel's body, shared by its five instantiations (the kernels below).
+// With kOpl (which has kDispersion) the forward sweep also carries the
+// index of the medium and saves it before each row as a ninth state word
+// (recomputing it in the reverse sweep would mean replaying the chain up to
+// each row: the word costs 1 KB a row of shared memory), and the reverse
+// sweep runs row_backward's path-length adjoint (OplCt).
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -145,9 +168,11 @@ __device__ __forceinline__ void seq_bwd(
     float* __restrict__ cdx, float* __restrict__ cdy, float* __restrict__ cdz,
     float* __restrict__ cintensity, float* __restrict__ partials, int n_slots, int n_bundles,
     GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
-    const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo) {
+    const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo,
+    OplIn oi = {nullptr, nullptr}) {
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kStride = kShared ? kThreads : 1;
+  constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols
   const int n_cols = kDispersion ? kCols + wo.disp_cols : kCols;
@@ -161,7 +186,7 @@ __device__ __forceinline__ void seq_bwd(
   const int lane = tid & 31, warp = tid >> 5;
   // each row's saved state: [n_rows][kStateWords][kThreads] after the
   // warp slots, or a per-thread array
-  float local[kShared ? 1 : kMaxRows * kStateWords];
+  float local[kShared ? 1 : kMaxRows * kWords];
   float* const saved = kShared ? warp_tab + kWarps * n_rows * n_cols + tid : local;
 
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
@@ -185,23 +210,35 @@ __device__ __forceinline__ void seq_bwd(
   }
 
   // ---- forward sweep: save each row's input state and branch bits ----
+  float n_cur = 1.0f;  // kOpl: the medium (index 1 at launch)
 #pragma unroll 1
   for (int k = 0; k < n_rows; ++k) {
     const V3 p0 = p, d0 = d;
     const float i0 = inten;
-    const uint32_t bits = row_forward<kPlates, kExt, kDispersion>(
-        tab + k * kRowWidth, read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth), pl, p, d,
-        inten);
-    put_state<kStride>(saved + k * kStateWords * kStride, p0, d0, i0, bits);
+    const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
+    const uint32_t bits =
+        row_forward<kPlates, kExt, kDispersion>(tab + k * kRowWidth, kd, pl, p, d, inten);
+    put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
+    if constexpr (kOpl) {
+      put_medium<kStride>(saved + k * kWords * kStride, n_cur);
+      if (bits & kActive)
+        n_cur = medium_after<kDispersion>(tab + k * kRowWidth, kd, bits & kFromIn, bits & kTir,
+                                          pl.wl, n_cur);
+    }
   }
 
   // ---- reverse sweep ----
   V3 gp = {0.0f, 0.0f, 0.0f}, gd = {0.0f, 0.0f, 0.0f};
   float gi = 0.0f, gwl = 0.0f;
+  OplCt oc = {0.0f, 1.0f, 0.0f};  // kOpl: the path length's adjoint
   if (live) {
     gp = {gpx ? gpx[i] : 0.0f, gpy ? gpy[i] : 0.0f, gpz ? gpz[i] : 0.0f};
     gd = {gdx ? gdx[i] : 0.0f, gdy ? gdy[i] : 0.0f, gdz ? gdz[i] : 0.0f};
     gi = gintensity ? gintensity[i] : 0.0f;
+    if constexpr (kOpl) {
+      oc.g_opl = oi.g_opl ? oi.g_opl[i] : 0.0f;
+      oc.g_n = oi.g_nfinal ? oi.g_nfinal[i] : 0.0f;
+    }
   }
 #pragma unroll 1
   for (int k = n_rows - 1; k >= 0; --k) {
@@ -210,14 +247,15 @@ __device__ __forceinline__ void seq_bwd(
     V3 sp, sd;
     float si;
     uint32_t bits;
-    get_state<kStride>(saved + k * kStateWords * kStride, sp, sd, si, bits);
+    get_state<kStride>(saved + k * kWords * kStride, sp, sd, si, bits);
+    if constexpr (kOpl) oc.n_cur = get_medium<kStride>(saved + k * kWords * kStride);
     float tg[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
     if constexpr (kDispersion) {
       WaveCt wc = {0.0f, 0.0f, 0.0f};
-      row_backward<kPlates, kExt, kDispersion>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg,
-                                               pl, gmaps, gp, gd, gi, tg, &wc);
+      row_backward<kPlates, kExt, kDispersion, kOpl>(r, kd, sp, sd, si, bits, rid, gm, n_bundles,
+                                                     gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc);
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
       if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
@@ -298,9 +336,18 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo) {
   seq_bwd<kShared, kPlates, kExt, true>(RTT_SEQ_BWD_ARGS, wo);
 }
 
-// The types of the two kernels.
+// The kernel with those and the optical path length.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi) {
+  static_assert(kPlates && kExt, "the path length runs with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true>(RTT_SEQ_BWD_ARGS, wo, oi);
+}
+
+// The types of the three kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
+using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -317,20 +364,23 @@ struct PlateArgs {
 // The dynamic shared memory of a launch: the table, its kinds, the moment
 // cotangent, the warp slots (disp_cols more columns a row on a table with a
 // dispersive row) and, for tables of up to kSharedRows rows, the saved
-// states.
-template <bool kPlates, bool kExt>
+// states (a word more a row with the path length).
+template <bool kPlates, bool kExt, bool kOpl = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols) {
   const size_t rows = static_cast<size_t>(n_rows);
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
           static_cast<size_t>(kWarps) * rows * (grad_cols<kPlates, kExt>() + disp_cols) +
-          (n_rows <= kSharedRows ? rows * kStateWords * kThreads : 0));
+          (n_rows <= kSharedRows ? rows * state_words<kOpl>() * kThreads : 0));
 }
 
 // The kernel of an instantiation.
-template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 const void* kernel_fn() {
-  if constexpr (kDispersion)
+  if constexpr (kOpl)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdOplKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kDispersion)
     return reinterpret_cast<const void*>(
         static_cast<BwdExtKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else
@@ -340,18 +390,18 @@ const void* kernel_fn() {
 
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
-template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion>();
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates, bool kExt, bool kDispersion>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
-  return n_rows <= kSharedRows ? prepare<true, kPlates, kExt, kDispersion>(smem, fn)
-                               : prepare<false, kPlates, kExt, kDispersion>(smem, fn);
+  return n_rows <= kSharedRows ? prepare<true, kPlates, kExt, kDispersion, kOpl>(smem, fn)
+                               : prepare<false, kPlates, kExt, kDispersion, kOpl>(smem, fn);
 }
 
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
@@ -458,21 +508,69 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
                                           PlateArgs{nullptr, nullptr, nullptr, nullptr}, none, n);
 }
 
+// Launches the instantiation with the optical path length on `stream`: the
+// arguments of rtt_trace_seq_bwd (its `ext` implied: `maps`, `map_desc` and
+// `wavelength` must be given, a PHASE_GRID row or not), then `g_opl` and
+// `g_nfinal`, the cotangents of K1's opl and n_final streams (n floats
+// each; null: zero).  Returns a cudaError_t.
+extern "C" int rtt_trace_seq_bwd_opl(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
+    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
+    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
+    float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
+    const float* g_nfinal, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
+  const OplIn oi = {g_opl, g_nfinal};
+  const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* fn;
+  const cudaError_t e = prepare_rows<true, true, true, true>(n_rows, smem, &fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned g = static_cast<unsigned>(blocks);
+  if (n_rows <= kSharedRows)
+    trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
+        n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n, wo,
+        oi);
+  else
+    trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
+        n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n, wo,
+        oi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
 // (n_bounces is K6's; K2 has none.)  `code`: 0 without plate code, 1 with
 // it, 2 with it and the extended kinds, 3 with those and dispersion on a
-// table with a dispersive row.
+// table with a dispersive row, 4 the instantiation with the path length on
+// such a table.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  const int disp_cols = code == 3 ? kDispGradCols : 0;
-  const size_t smem = code >= 2   ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
-                      : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
-                                  : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
+  const int disp_cols = code >= 3 ? kDispGradCols : 0;
+  const size_t smem =
+      code == 4   ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      : code >= 2 ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
+                  : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 3   ? prepare_rows<true, true, true>(n_rows, smem, &fn)
+  const cudaError_t e = code == 4   ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
+                        : code == 3 ? prepare_rows<true, true, true>(n_rows, smem, &fn)
                         : code == 2 ? prepare_rows<true, true, false>(n_rows, smem, &fn)
                         : code == 1 ? prepare_rows<true, false, false>(n_rows, smem, &fn)
                                     : prepare_rows<false, false, false>(n_rows, smem, &fn);

@@ -27,6 +27,14 @@
 // K2 and K6 have a fourth instantiation with dispersion (kDispersion), so
 // that their extended one without it keeps its registers
 // (trace_seq_adjoint.cuh).
+//
+// The deterministic streams (the optical path length and the medium index,
+// the positions after each row or bounce, the hit records) run in one more
+// instantiation of each of K1, K2, K5 and K6, built on the one with
+// dispersion (kStreams or kOpl: its kernels are overloads with one more
+// argument, StreamOut or OplIn), so that every other instantiation keeps
+// its code: medium_after below gives the medium a ray travels in after a
+// row, from the refraction's own from_in and TIR decisions.
 
 #pragma once
 
@@ -749,6 +757,45 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
   }
 }
 
+// The index of the medium a ray travels in after an active row
+// (core/static_dispatch.py::medium_after): a SNELL row moves it into the
+// transmission-side medium unless total internal reflection keeps it in the
+// incidence medium, a PHASE_GRID row always transmits; every other row
+// leaves n_cur.  from_in and tir are the refraction's own decisions
+// (PhysBranch, or the adjoint's saved bits), the indices media_iors's.
+template <bool kDispersion>
+__device__ __forceinline__ float medium_after(const float* r, const RowKinds& kd, bool from_in,
+                                              bool tir, float wl, float n_cur) {
+  if (kd.ph != SNELL && kd.ph != PHASE_GRID) return n_cur;
+  float n1, n2;
+  media_iors<kDispersion>(r, from_in, kd.dispm, wl, n1, n2);
+  return kd.ph == SNELL && tir ? n1 : n2;
+}
+
+// The stream outputs of K1's and K5's instantiation with the streams, each
+// null when not wanted: the optical path length and the final medium's
+// index (n floats each); the positions (K1: the launch position, then after
+// each of the K rows, [K + 1][3][n]; K5: after each bounce of the budget,
+// [B][3][n]); the hits ([K or B][3][n]), their weights ([K or B][n]) and
+// (K5) the sensor slots ([B][n] int32).  Planar, so that a warp's stores
+// coalesce; the wrappers return permuted views in the JAX package's shapes.
+struct StreamOut {
+  float* opl;
+  float* n_final;
+  float* paths;
+  float* hits;
+  float* hit_w;
+  int32_t* hit_slot;
+};
+
+// A bounce's sensor record (core/trace.py::bounce_step): the local hit and
+// slot of the last sensor row that was the nearest so far when the scan met
+// it (a nearer non-sensor winner later zeroes only the weight), or zeros.
+struct SensorRec {
+  V3 hs;
+  int slot;
+};
+
 // One bounce of the non-sequential loop (core/trace.py::bounce_step), as K5
 // runs it and K6 replays it: every row is intersected, from its packed
 // record `recs`, and the nearest valid row wins with a strict t < best_t
@@ -758,22 +805,29 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
 // or -1 when no row wins (nothing moves).  `hw` receives the winner's hit
 // and `kw` its kinds; `degen` and `br`, when given, the winner's branches.
 // The caller records a sensor winner.  Only the winner reads its phase map.
+// With kRecord (the instantiation with the streams, which has kExt) `rec`
+// receives the bounce's sensor record.
 // The extended kinds' instantiation (kExt) scans the flat rows and their
 // kinds rows instead: its kinds need fields (the asphere's terms, all 8 of
 // a volume bound's) that the packed record does not hold.
-template <bool kPlates, bool kExt = false, bool kDispersion = kExt>
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
                                              RowKinds& kw, bool* degen = nullptr,
-                                             PhysBranch* br = nullptr) {
+                                             PhysBranch* br = nullptr, SensorRec* rec = nullptr) {
+  static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
   float best_t = kBig;
   int k_win = -1;
+  if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
   for (int k = 0; k < n_rows; ++k) {
     RowHit h;
     if constexpr (kExt) {
-      h = intersect_row<kPlates, kExt>(tab + k * kRowWidth,
-                                       read_row_kinds<kExt>(knd + k * kKindWidth), p, d);
+      const RowKinds kk = read_row_kinds<kExt>(knd + k * kKindWidth);
+      h = intersect_row<kPlates, kExt>(tab + k * kRowWidth, kk, p, d);
+      if constexpr (kRecord) {
+        if (h.valid && h.t < best_t && kk.sensor) *rec = SensorRec{h.hs, kk.slot};
+      }
     } else {
       const RecRow row = {recs + k * kRec4};
       h = intersect_row_of<kPlates, kExt>(row, row.scan_kinds(), p, d);

@@ -3,8 +3,10 @@
 // Replaces the TPU kernel raytracetorch_tpu/ops/pallas_trace.py::_kernel_v2
 // (launched by trace_sequential_pallas_v2, chain body _chain_pure) for the
 // main-path kinds, pixelated phase plates, the extended kinds of the
-// mixed-surface and asphere scenes and dispersive media, with every other
-// optional stream off.  Its plain PyTorch version is ops/fused_trace.py::
+// mixed-surface and asphere scenes and dispersive media, and the
+// deterministic streams of _chain_pure (the optical path length, path and
+// hit recording), with every other optional stream off (field, random
+// draws, fuzzy apodization).  Its plain PyTorch version is ops/fused_trace.py::
 // trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
@@ -63,6 +65,19 @@
 // of rays in shared memory with cp.async while the tile before traces (5-7%
 // slower), K5's packed scan records (building them costs what reading them
 // saves), copying only the row columns the kinds read.
+//
+// The streams (the caller's track_opl, record_paths, record_hits) run in an
+// instantiation of their own, kStreams, an overload of the kernel with one
+// more argument (StreamOut), built on the extended one (plate code, the
+// extended kinds, dispersion: it takes every scene), so every other
+// instantiation keeps its code.  Per active row it adds n_cur t to the path
+// length and takes the medium after the row from the refraction's own
+// decisions (trace_seq_common.cuh::medium_after); the records go out planar,
+// [K + 1][3][N] positions and [K][3][N] hits, so that a warp's stores
+// coalesce.  They are bytes: the path length and the medium add 8 B a ray to
+// the 64 B it moves, the positions 12 B a row plus the launch's, the hits
+// 16 B a row: ~220 B a ray on the 5-row bench scene with both records, ~380
+// B on the 11-row Cooke triplet.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
@@ -132,20 +147,25 @@ __device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
   return c;
 }
 
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict__ kinds,
-                     int n_rows, const float* __restrict__ px, const float* __restrict__ py,
-                     const float* __restrict__ pz, const float* __restrict__ dx,
-                     const float* __restrict__ dy, const float* __restrict__ dz,
-                     const float* __restrict__ intensity, const int32_t* __restrict__ ray_id,
-                     float* __restrict__ opx, float* __restrict__ opy, float* __restrict__ opz,
-                     float* __restrict__ odx, float* __restrict__ ody, float* __restrict__ odz,
-                     float* __restrict__ ointensity, float* __restrict__ partials, int n_slots,
-                     int n_bundles, float* __restrict__ grid, int grid_h, int grid_w,
-                     float grid_e, const float* __restrict__ maps,
-                     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
-                     long long n) {
+// The kernel's body, shared by its instantiations (the kernels below).  With
+// kStreams (the instantiation with the streams: plate code, the extended
+// kinds and dispersion) it also accumulates the optical path length n_cur t
+// of each active row and the medium after it (medium_after), and writes the
+// streams of `so` that are not null: the position after each row, and each
+// row's raw surface-frame hit (every ray's, active or not) with the
+// intensity after the row as its weight where the row is active (0 else).
+template <bool kPlates, bool kExt, bool kStreams>
+__device__ __forceinline__ void seq_fwd(
+    const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
+    const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
+    const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ intensity, const int32_t* __restrict__ ray_id,
+    float* __restrict__ opx, float* __restrict__ opy, float* __restrict__ opz,
+    float* __restrict__ odx, float* __restrict__ ody, float* __restrict__ odz,
+    float* __restrict__ ointensity, float* __restrict__ partials, int n_slots, int n_bundles,
+    float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
+    const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
+    const float* __restrict__ wavelength, long long n, StreamOut so) {
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -172,6 +192,15 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     rid = ray_id[i];
     if (kPlates) pl.wl = wavelength[i];
   }
+  // the streams: the path length, the medium (index 1 at launch)
+  float opl = 0.0f, n_cur = 1.0f;
+  if constexpr (kStreams) {
+    if (live && so.paths != nullptr) {
+      so.paths[i] = p.x;
+      so.paths[n + i] = p.y;
+      so.paths[2 * n + i] = p.z;
+    }
+  }
 
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
@@ -185,8 +214,13 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     const V3 nw = world_normal<kExt>(r, kd.plane, h.hs, nullptr, kd.asph);
     V3 nd;
     float imod;
-    apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, nullptr,
-                                 kd.dispm);
+    PhysBranch br = {};
+    if constexpr (kStreams)
+      apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br,
+                                   kd.dispm);
+    else
+      apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, nullptr,
+                                   kd.dispm);
     const bool active = h.valid && inten > 0.0f;
     const float t = h.t;
 
@@ -219,10 +253,31 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
       }
     }
 
+    if constexpr (kStreams) {
+      if (active) {
+        opl = opl + n_cur * t;
+        n_cur = medium_after<kExt>(r, kd, br.from_in, br.tir, pl.wl, n_cur);
+      }
+    }
     if (active) {
       p = fma3(p, t, d);
       d = nd;
       inten = inten * imod;
+    }
+    if constexpr (kStreams) {
+      if (live && so.paths != nullptr) {
+        float* dst = so.paths + 3 * (k + 1) * n + i;
+        dst[0] = p.x;
+        dst[n] = p.y;
+        dst[2 * n] = p.z;
+      }
+      if (live && so.hits != nullptr) {
+        float* dst = so.hits + 3 * k * n + i;
+        dst[0] = h.hs.x;
+        dst[n] = h.hs.y;
+        dst[2 * n] = h.hs.z;
+        so.hit_w[k * n + i] = active ? inten : 0.0f;
+      }
     }
   }
 
@@ -234,6 +289,12 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
     ody[i] = d.y;
     odz[i] = d.z;
     ointensity[i] = inten;
+    if constexpr (kStreams) {
+      if (so.opl != nullptr) {
+        so.opl[i] = opl;
+        so.n_final[i] = n_cur;
+      }
+    }
   }
 
   __syncthreads();
@@ -245,11 +306,61 @@ trace_seq_fwd_kernel(const float* __restrict__ table, const int32_t* __restrict_
   }
 }
 
-// Allow the instantiation its shared memory (beyond 48 KB only on request).
+#define RTT_SEQ_FWD_PARAMS                                                                      \
+  const float *__restrict__ table, const int32_t *__restrict__ kinds, int n_rows,               \
+      const float *__restrict__ px, const float *__restrict__ py, const float *__restrict__ pz,  \
+      const float *__restrict__ dx, const float *__restrict__ dy, const float *__restrict__ dz,  \
+      const float *__restrict__ intensity, const int32_t *__restrict__ ray_id,                  \
+      float *__restrict__ opx, float *__restrict__ opy, float *__restrict__ opz,                \
+      float *__restrict__ odx, float *__restrict__ ody, float *__restrict__ odz,                \
+      float *__restrict__ ointensity, float *__restrict__ partials, int n_slots, int n_bundles, \
+      float *__restrict__ grid, int grid_h, int grid_w, float grid_e,                           \
+      const float *__restrict__ maps, const int32_t *__restrict__ map_desc,                     \
+      const float *__restrict__ wavelength, long long n
+#define RTT_SEQ_FWD_ARGS                                                                        \
+  table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody, odz, \
+      ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps, map_desc,   \
+      wavelength, n
+
+// The kernel without the streams: with or without plate code, with or
+// without the extended kinds.
 template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS) {
+  seq_fwd<kPlates, kExt, false>(RTT_SEQ_FWD_ARGS, StreamOut{});
+}
+
+// The kernel with the streams (plate code, the extended kinds, dispersion).
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so) {
+  static_assert(kPlates && kExt, "the streams run with the extended kinds");
+  seq_fwd<kPlates, kExt, true>(RTT_SEQ_FWD_ARGS, so);
+}
+
+// The types of the two kernels.
+using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
+using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
+
+#undef RTT_SEQ_FWD_PARAMS
+#undef RTT_SEQ_FWD_ARGS
+
+// The kernel of an instantiation.
+template <bool kPlates, bool kExt, bool kStreams>
+const void* kernel_fn() {
+  if constexpr (kStreams)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdStreamKernel>(trace_seq_fwd_kernel<true, true>));
+  else
+    return reinterpret_cast<const void*>(
+        static_cast<FwdKernel>(trace_seq_fwd_kernel<kPlates, kExt>));
+}
+
+// Allow the instantiation its shared memory (beyond 48 KB only on request).
+template <bool kPlates, bool kExt, bool kStreams = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(trace_seq_fwd_kernel<kPlates, kExt>,
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -270,18 +381,23 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 }
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
-// it and the extended kinds), its shared memory allowed.
+// it and the extended kinds, 4 the one with the streams), its shared memory
+// allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 4) {
+    *e = prepare<true, true, true>(smem);
+    return kernel_fn<true, true, true>();
+  }
   if (code >= 2) {
     *e = prepare<true, true>(smem);
-    return reinterpret_cast<const void*>(trace_seq_fwd_kernel<true, true>);
+    return kernel_fn<true, true, false>();
   }
   if (code == 1) {
     *e = prepare<true, false>(smem);
-    return reinterpret_cast<const void*>(trace_seq_fwd_kernel<true, false>);
+    return kernel_fn<true, false, false>();
   }
   *e = prepare<false, false>(smem);
-  return reinterpret_cast<const void*>(trace_seq_fwd_kernel<false, false>);
+  return kernel_fn<false, false, false>();
 }
 
 }  // namespace
@@ -329,12 +445,46 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
                               nullptr, nullptr, n);
 }
 
+// Launches the instantiation with the streams on `stream`: the arguments of
+// rtt_trace_seq_fwd (its `ext` implied: `maps`, `map_desc` and `wavelength`
+// must be given, a PHASE_GRID row or not), then the stream outputs, each
+// null when not wanted: `opl` and `n_final` (n floats each), `paths`
+// ((n_rows + 1) * 3 * n floats), `hits` (n_rows * 3 * n) and `hit_w`
+// (n_rows * n, given with `hits`).  Returns a cudaError_t.
+extern "C" int rtt_trace_seq_fwd_streams(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
+    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
+    float* hit_w, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
+  const cudaError_t e = prepare<true, true, true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const StreamOut so = {opl, n_final, paths, hits, hit_w, nullptr};
+  trace_seq_fwd_kernel<true, true>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
+          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+          map_desc, wavelength, n, so);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs (K1 has no bounces: the argument keeps the other kernels'
 // signature), at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without plate
 // code, 1 with it, 2 (or 3, as K2's code for a table with a dispersive row)
-// with it and the extended kinds.  Returns a cudaError_t.
+// with it and the extended kinds, 4 the instantiation with the streams.
+// Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int* blocks) {
   (void)n_bounces;

@@ -29,7 +29,16 @@ The kernels' notes are in their sources.  In this module:
 - ``trace_nonseq_fwd_cuda`` and ``trace_nonseq_bwd_cuda`` launch the
   kernels and count their launches in ``NONSEQ_LAUNCHES`` and
   ``NONSEQ_BWD_LAUNCHES`` (a launch with the extended kinds also in
-  ``fused_trace.EXT_LAUNCHES``).
+  ``fused_trace.EXT_LAUNCHES``, one with the streams in
+  ``fused_trace.STREAM_LAUNCHES``).
+- The deterministic streams go as in ops/fused_trace.py: K5's
+  instantiation with them writes ``opl``, ``n_final`` and the per-bounce
+  records of the full budget (the bounces after a ray left its loop
+  settled, as the JAX loop's dead branch records them), ``FusedNonseqStreams``
+  returns them, and its backward is K6 with the cotangents of ``opl`` and
+  ``n_final``, or on a recording run the eager bounce loop under autograd
+  (``fused_trace.plain_vjp``), as the reference's ``_fused_nonseq_bwd``
+  recomputes through its XLA trace.
 """
 
 from __future__ import annotations
@@ -39,48 +48,59 @@ from torch.autograd.function import once_differentiable
 
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.table import FlatRow
-from ..core.trace import bounce_loop
+from ..core.trace import Streams, bounce_loop
 from . import fused_trace
-from .fused_trace import (COMPS, THREADS, _rays_of, check_cotangents,
-                          check_inputs, dispersive, dispersive_kinds,
-                          ext_kinds, ext_maps,
-                          flat_inputs, grad_cols, grid_args, kernel,
-                          needs_grad, new_grid, plain_vjp, plate_args,
-                          plate_buffers, plate_cotangents, plate_inputs,
-                          plate_maps, plate_rows, ptr, split_plates, stream,
-                          table_and_map_cotangents, unpack)
+from .fused_trace import (COMPS, NO_STREAMS, StreamFlags, THREADS,
+                          backward_result, check_cotangents, check_inputs,
+                          check_streams, dispersive, dispersive_kinds,
+                          ext_kinds, ext_maps, flat_inputs, fused_forward,
+                          grad_cols, grid_args, kernel, needs_grad, new_grid,
+                          plain_vjp, plate_args, plate_buffers, plate_inputs,
+                          plate_maps, plate_rows, ptr, saved_inputs, stream,
+                          stream_args, stream_aux, stream_buffers,
+                          stream_cotangents, table_and_map_cotangents, unpack)
 
 NONSEQ_LAUNCHES = 0       # kernel launches by trace_nonseq_fwd_cuda (K5)
 NONSEQ_BWD_LAUNCHES = 0   # kernel launches by trace_nonseq_bwd_cuda (K6)
 
 
 def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
-                       n_bounces, grids=None):
+                       n_bounces, grids=None, track_opl=False,
+                       record_paths=False, record_hits=False):
     """Fused bounce loop within ``n_bounces`` -> ``(rays, SensorState)``,
     differentiable with respect to the table, the 7 ray streams
     px..intensity and the phase maps of ``grids`` ({PHASE_GRID row:
-    [H, W] map}) (first order).
+    [H, W] map}) (first order).  With any of ``track_opl``,
+    ``record_paths`` and ``record_hits`` -> ``(rays, SensorState, aux)``
+    (core/trace.py::trace_nonsequential's ``aux``).
 
     CPU tensors run the plain versions; CUDA tensors launch K5 and, in
     backward, K6 (or raise: there is no fallback)."""
+    flags = StreamFlags(track_opl, record_paths, record_hits)
     flat, kinds = flat_inputs(table, rays, cfg, static_meta)
     maps = plate_maps(static_meta, grids)
+    comps = [getattr(rays, c) for c in COMPS]
     if needs_grad(flat, rays, maps):
+        if flags.any:
+            outs = FusedNonseqStreams.apply(
+                flat, kinds, cfg, tuple(static_meta), flags, n_bounces,
+                *comps, rays.ray_id, *plate_inputs(rays, maps))
+            return unpack(outs, rays, cfg, flags, nonseq=True)
         return unpack(FusedNonseq.apply(flat, kinds, cfg, tuple(static_meta),
-                                        n_bounces,
-                                        *(getattr(rays, c) for c in COMPS),
-                                        rays.ray_id,
+                                        n_bounces, *comps, rays.ray_id,
                                         *plate_inputs(rays, maps)),
                       rays, cfg)
-    return _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps)
+    return _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps,
+                    flags)
 
 
-def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None):
+def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
+             flags=NO_STREAMS):
     if flat.device.type == 'cpu':
         return trace_nonseq_fused_plain(flat, rays, cfg, static_meta,
-                                        n_bounces, maps)
+                                        n_bounces, maps, *flags)
     return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
-                                 ext_kinds(static_meta))
+                                 ext_kinds(static_meta), *flags)
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -105,117 +125,181 @@ class FusedNonseq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flat_table, kinds, cfg, meta, n_bounces, px, py, pz, dx,
                 dy, dz, intensity, ray_id, *plates):
-        comps = (px, py, pz, dx, dy, dz, intensity)
-        wavelength, maps = split_plates(plates)
-        out, sensors = _forward(flat_table, kinds,
-                                _rays_of(comps, ray_id, wavelength), cfg,
-                                meta, n_bounces, maps)
-        ctx.save_for_backward(flat_table, kinds, *comps, ray_id, *plates)
-        ctx.cfg, ctx.meta, ctx.n_bounces = cfg, meta, n_bounces
-        ctx.set_materialize_grads(False)
-        grid = (sensors.grid,) if cfg.grid_shape else ()
-        return (*(getattr(out, c) for c in COMPS), sensors.moments, *grid)
+        ctx.n_bounces = n_bounces
+        return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
+                             NO_STREAMS, (px, py, pz, dx, dy, dz, intensity),
+                             ray_id, plates, n_bounces)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
-        flat, kinds, *comps, ray_id = ctx.saved_tensors[:10]
-        wavelength, maps = split_plates(ctx.saved_tensors[10:])
-        rays = _rays_of(comps, ray_id, wavelength)
-        g_rays, g_moments = grads[:7], grads[7]
-        g_grid = grads[8] if ctx.cfg.grid_shape else None
         need = ctx.needs_input_grad
-        need_table, need_rays = need[0], any(need[5:12])
-        need_wl = len(need) > 13 and need[13]
-        if flat.device.type == 'cuda':
-            res = trace_nonseq_bwd_cuda(
-                flat, kinds, rays, ctx.cfg, ctx.n_bounces, g_rays, g_moments,
-                need_table, need_rays, g_grid=g_grid, maps=maps,
-                need_maps=any(need[14:]), ext=ext_kinds(ctx.meta),
-                disp=dispersive(ctx.meta), need_wavelength=need_wl)
-        else:
-            res = trace_nonseq_bwd_plain(
-                flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays,
-                g_moments, g_grid=g_grid, maps=maps, need_wavelength=need_wl)
-        g_flat, g_in = res[:2]
-        g_in = [g if n else None
-                for g, n in zip(g_in or (None,) * 7, need[5:12])]
-        return (g_flat if need_table else None, None, None, None, None,
-                *g_in, None, *plate_cotangents(res, maps, need[13:]))
+        res = _nonseq_backward(ctx, grads, need[:4] + (False,) + need[4:])
+        return res[:4] + res[5:]
+
+
+class FusedNonseqStreams(torch.autograd.Function):
+    """``FusedNonseq`` with the deterministic streams ``flags`` as outputs
+    after the grid: ``opl`` and ``n_final`` [N], ``paths`` [B, N, 3],
+    ``hits`` [B, N, 3], ``hit_weights`` [B, N] and ``hit_slots`` [B, N]
+    (int32, no derivative), each when asked for.
+
+    ``apply(flat_table, kinds, cfg, meta, flags, n_bounces, px, ...,
+    ray_id, *plates)``; its backward as ``FusedTraceStreams``'s, with K6."""
+
+    @staticmethod
+    def forward(ctx, flat_table, kinds, cfg, meta, flags, n_bounces, px, py,
+                pz, dx, dy, dz, intensity, ray_id, *plates):
+        ctx.n_bounces = n_bounces
+        return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
+                             flags, (px, py, pz, dx, dy, dz, intensity),
+                             ray_id, plates, n_bounces)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        return _nonseq_backward(ctx, grads, ctx.needs_input_grad)
+
+
+def _nonseq_backward(ctx, grads, need):
+    """``FusedNonseqStreams``'s backward (``FusedNonseq``'s with ``need``
+    holding False for the flags) -> the cotangents of its inputs."""
+    flat, kinds, rays, maps = saved_inputs(ctx)
+    g_rays, g_moments, g_grid, g_aux = stream_cotangents(ctx, grads)
+    need_table, need_rays = need[0], any(need[6:13])
+    need_maps, need_wl = any(need[15:]), len(need) > 14 and need[14]
+    if ctx.flags.records:
+        fused_trace.RECORD_RECOMPUTES += 1
+        res = plain_vjp(
+            lambda f, r, m: _loop(f, r, ctx.cfg, ctx.meta, ctx.n_bounces, m,
+                                  ctx.flags, plain=False),
+            flat, rays, g_rays, g_moments, g_grid, maps, need_wl, g_aux)
+    elif flat.device.type == 'cuda':
+        res = trace_nonseq_bwd_cuda(
+            flat, kinds, rays, ctx.cfg, ctx.n_bounces, g_rays, g_moments,
+            need_table, need_rays, g_grid=g_grid, maps=maps,
+            need_maps=need_maps, ext=ext_kinds(ctx.meta),
+            disp=dispersive(ctx.meta), need_wavelength=need_wl,
+            g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
+            opl=ctx.flags.track_opl)
+    else:
+        res = trace_nonseq_bwd_plain(
+            flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
+            g_grid=g_grid, maps=maps, need_wavelength=need_wl,
+            g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'))
+    return backward_result(res, maps, need, 6)
+
+
+def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
+          flags=NO_STREAMS, plain=True):
+    """The eager bounce loop of core/trace.py over the rows of the flat
+    table -> ``(rays, SensorState)``, with ``flags``' streams ``(rays,
+    SensorState, aux)``.  ``plain=False`` runs K3's and K4's kernels on
+    CUDA tensors, as the eager ``Scene.simulate`` does."""
+    streams = Streams.of(rays, **flags._asdict(), launch=False)
+    rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
+    out, sensors = bounce_loop(
+        rows, rays, n_bounces, cfg, static_meta, torch.float32, plain=plain,
+        grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams)
+    return (out, sensors) if streams is None else (out, sensors,
+                                                   streams.aux())
 
 
 def trace_nonseq_fused_plain(flat_table, rays, cfg: SensorConfig,
-                             static_meta, n_bounces, maps=None):
+                             static_meta, n_bounces, maps=None,
+                             track_opl=False, record_paths=False,
+                             record_hits=False):
     """K5's function in plain torch: the eager bounce loop over the rows of
     the flat table the kernel reads, with the phase maps ``maps`` of its
-    PHASE_GRID rows (in row order)."""
-    rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
-    return bounce_loop(rows, rays, n_bounces, cfg, static_meta,
-                       torch.float32, plain=True,
-                       grids=dict(zip(plate_rows(static_meta), maps or ())))
+    PHASE_GRID rows (in row order) -> ``(rays, SensorState)``, with any
+    stream ``(rays, SensorState, aux)``."""
+    return _loop(flat_table, rays, cfg, static_meta, n_bounces, maps,
+                 StreamFlags(track_opl, record_paths, record_hits))
 
 
 def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
                            n_bounces, g_rays, g_moments, g_grid=None,
-                           maps=None, need_wavelength=False):
+                           maps=None, need_wavelength=False, g_opl=None,
+                           g_nfinal=None):
     """K6's function in plain torch: re-run ``trace_nonseq_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
     ``g_rays`` holds the cotangents of the 7 output streams px..intensity
-    (None for zero), ``g_moments`` that of the [S, B, 7] moments and
-    ``g_grid`` that of the [S, H, W] grid (each None for zero).  Returns
-    ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps their
-    cotangents third, and with ``need_wavelength`` the wavelength's
+    (None for zero), ``g_moments`` that of the [S, B, 7] moments,
+    ``g_grid`` that of the [S, H, W] grid and ``g_opl`` / ``g_nfinal``
+    those of the ``opl`` and ``n_final`` streams (each None for zero).
+    Returns ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps
+    their cotangents third, and with ``need_wavelength`` the wavelength's
     cotangent fourth (the maps' then ``()`` without maps)."""
+    g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
+             if g is not None}
+    flags = StreamFlags(bool(g_aux), False, False)
     return plain_vjp(
-        lambda flat, r, m: trace_nonseq_fused_plain(flat, r, cfg,
-                                                    static_meta, n_bounces,
-                                                    m),
-        flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength)
+        lambda flat, r, m: _loop(flat, r, cfg, static_meta, n_bounces, m,
+                                 flags),
+        flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength,
+        g_aux)
 
 
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
-                          n_bounces, maps=None, ext=False):
-    """Launch K5 on the current stream -> ``(rays, SensorState)``.
+                          n_bounces, maps=None, ext=False, track_opl=False,
+                          record_paths=False, record_hits=False):
+    """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
+    stream ``(rays, SensorState, aux)``.
 
     ``flat_table`` is the [K, 160] float32 table, ``kinds`` the [K, 8]
     int32 rows of ``kind_rows``, ``maps`` the PHASE_GRID rows' [H, W] maps
     in row order; all on one CUDA device.  ``ext``: the table has the
-    extended kinds (``fused_trace.ext_kinds``)."""
+    extended kinds (``fused_trace.ext_kinds``).  The streams run K5's
+    instantiation with them, whatever ``ext``."""
     global NONSEQ_LAUNCHES
+    flags = StreamFlags(track_opl, record_paths, record_hits)
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
     _check_bounces(n_bounces)
-    plates = plate_buffers(ext_maps(maps, ext), rays, device)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any), rays, device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     partials = torch.empty(-(-n // THREADS), n_slots, n_bundles, N_MOMENTS,
                            dtype=torch.float32, device=device)
     grid = new_grid(cfg, device)
+    bufs = stream_buffers(flags, n_bounces, n, device, nonseq=True)
     if n > 0:
-        with torch.cuda.device(device):
-            rc = kernel('rtt_trace_nonseq_fwd')(
-                flat_table.data_ptr(), kinds.data_ptr(), k,
+        args = (flat_table.data_ptr(), kinds.data_ptr(), k,
                 *(getattr(rays, c).data_ptr() for c in COMPS),
                 rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
                 partials.data_ptr(), n_slots, n_bundles,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
-                *plate_args(plates), int(ext), int(n_bounces), n,
-                stream(device))
+                *plate_args(plates))
+        with torch.cuda.device(device):
+            if flags.any:
+                rc = kernel('rtt_trace_nonseq_fwd_streams')(
+                    *args, *stream_args(bufs, nonseq=True), int(n_bounces),
+                    n, stream(device))
+            else:
+                rc = kernel('rtt_trace_nonseq_fwd')(
+                    *args, int(ext), int(n_bounces), n, stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        fused_trace.EXT_LAUNCHES += int(ext)
+        if flags.any:
+            fused_trace.STREAM_LAUNCHES += 1
+        else:
+            fused_trace.EXT_LAUNCHES += int(ext)
     out = rays.replace(**dict(zip(COMPS, outs)))
-    return out, SensorState(moments=partials.sum(dim=0), grid=grid)
+    sensors = SensorState(moments=partials.sum(dim=0), grid=grid)
+    if flags.any:
+        return out, sensors, stream_aux(bufs)
+    return out, sensors
 
 
 def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, g_rays, g_moments, need_table=True,
                           need_rays=True, g_grid=None, replay=False,
                           maps=None, need_maps=True, ext=False, disp=None,
-                          need_wavelength=False):
+                          need_wavelength=False, g_opl=None, g_nfinal=None,
+                          opl=False):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
@@ -230,17 +314,20 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     ``need_wavelength`` say which cotangents to compute; the kernel skips
     the others.  ``ext`` as for ``trace_nonseq_fwd_cuda``, ``disp`` as for
     ``fused_trace.trace_seq_bwd_cuda`` (a dispersive table and the
-    wavelength's cotangent take the instantiation with dispersion)."""
+    wavelength's cotangent take the instantiation with dispersion), and
+    ``opl``, ``g_opl`` and ``g_nfinal`` too (K5 ran with ``track_opl``: the
+    instantiation with the optical path length, whatever ``ext``)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     _check_bounces(n_bounces)
+    ext = ext or need_wavelength or opl
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
-    ext = ext or need_wavelength
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
+    g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
     cols = grad_cols(plates, ext, disp)
 
     def streams(wanted):
@@ -256,21 +343,29 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             if need_wavelength else None)
     if n > 0 and (need_table or need_rays or replay or g_maps is not None
                   or need_wavelength):
-        fn = kernel('rtt_trace_nonseq_bwd')
+        args = (flat_table.data_ptr(), kinds.data_ptr(), k,
+                *(getattr(rays, c).data_ptr() for c in COMPS),
+                rays.ray_id.data_ptr(), *map(ptr, g_rays),
+                g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
+                ptr(partials), *map(ptr, ends or (None,) * 7), n_slots,
+                n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
+                ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
-                    *(getattr(rays, c).data_ptr() for c in COMPS),
-                    rays.ray_id.data_ptr(), *map(ptr, g_rays),
-                    g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
-                    ptr(partials), *map(ptr, ends or (None,) * 7), n_slots,
-                    n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
-                    ptr(g_maps), ptr(g_wl), int(ext and disp), int(ext),
-                    int(n_bounces), n, stream(device))
+            if opl:
+                rc = kernel('rtt_trace_nonseq_bwd_opl')(
+                    *args, ptr(g_opl), ptr(g_nfinal), int(n_bounces), n,
+                    stream(device))
+            else:
+                rc = kernel('rtt_trace_nonseq_bwd')(
+                    *args, int(ext), int(n_bounces), n, stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        fused_trace.EXT_LAUNCHES += int(ext)
+        if opl:
+            fused_trace.STREAM_LAUNCHES += 1
+        else:
+            fused_trace.EXT_LAUNCHES += int(ext)
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                    device, g_wl)
     if replay:

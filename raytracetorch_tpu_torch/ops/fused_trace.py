@@ -54,6 +54,23 @@ module:
 - ``plain_vjp`` is the shared body of the plain backward versions
   (``trace_seq_bwd_plain`` here, ``trace_nonseq_bwd_plain`` in
   ops/fused_nonseq.py): ``torch.autograd.grad`` of a plain forward.
+- The deterministic streams of the JAX kernels (``track_opl``,
+  ``record_paths``, ``record_hits``; ``StreamFlags``) run in an
+  instantiation of their own of each of K1, K2, K5 and K6, built on the one
+  with the extended kinds and dispersion, which takes every scene (its
+  launches count in ``STREAM_LAUNCHES``, not in ``EXT_LAUNCHES``).  A
+  forward with any stream returns ``(rays, SensorState, aux)``, with the
+  JAX package's keys and shapes; without one ``(rays, SensorState)``, as
+  before.  K1 writes the records planar ([K + 1, 3, N] positions, [K, 3, N]
+  hits) and the wrapper returns permuted views of JAX's shapes.
+  ``FusedTraceStreams`` is ``FusedTrace`` with the streams as outputs.
+  Its backward follows the reference's ``_fused_bwd``: with ``track_opl``
+  alone K2 takes the cotangents of ``opl`` and ``n_final``; a recording run
+  (``record_paths`` or ``record_hits``) recomputes its backward through the
+  eager chain with autograd (``plain_vjp``, counted in
+  ``RECORD_RECOMPUTES``), because K2, like the TPU reverse kernel, carries
+  no cotangent streams for the O(K N) records; K2 is not tried on such a
+  run.  That is the reference's design, not a fallback.
 - ``build`` compiles the six libraries (K1, K2, K3 in ops/grid.py, K4 in
   ops/phase_grid.py, K5 and K6 in ops/fused_nonseq.py), one nvcc each,
   started together.
@@ -61,6 +78,7 @@ module:
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 
@@ -71,7 +89,7 @@ from ..constants import PhysKind, SBKind, VBKind
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.static_dispatch import unsupported
 from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
-from ..core.trace import _surface_step
+from ..core.trace import Streams, surface_chain
 from ..rays.ray import Rays
 from . import nvcc_build
 
@@ -81,6 +99,12 @@ V1_LAUNCHES = 0       # K1's kernel launched by trace_sequential_v1
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with the extended kinds
 EXT_LAUNCHES = 0
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with the streams
+STREAM_LAUNCHES = 0
+# backward passes of recording runs recomputed through the eager trace
+# (FusedTraceStreams and FusedNonseqStreams)
+RECORD_RECOMPUTES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -124,6 +148,10 @@ _EXT = [_I]
 # K2's and K6's wavelength cotangent (or null) and whether the table has a
 # dispersive row (its partials then hold DISP_GRAD_COLS too)
 _WAVE = [_P, _I]
+# K1's and K5's stream outputs: opl, n_final, paths, hits, hit weights (K5:
+# and hit slots); K2's and K6's stream cotangents: g_opl, g_nfinal
+_STREAMS = [_P] * 5
+_OPL = [_P, _P]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table), out: resident
 # blocks per SM
@@ -133,10 +161,14 @@ _LIBRARIES = {
     'trace_seq_fwd': ('trace_seq_fwd.cu', {
         'rtt_trace_seq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
         + _PLATES + _EXT + [_L, _P],
+        'rtt_trace_seq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
+        + _GRID + _PLATES + _STREAMS + [_L, _P],
         'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
         + _PLATES + [_P] + _WAVE + _EXT + [_L, _P],
+        'rtt_trace_seq_bwd_opl': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
+        + _PLATES + [_P] + _WAVE + _OPL + [_L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
@@ -149,10 +181,14 @@ _LIBRARIES = {
     'trace_nonseq_fwd': ('trace_nonseq_fwd.cu', {
         'rtt_trace_nonseq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
         + _PLATES + _EXT + [_I, _L, _P],
+        'rtt_trace_nonseq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
+        + _GRID + _PLATES + _STREAMS + [_P] + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
         'rtt_trace_nonseq_bwd': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
         + _PLATES + [_P] + _WAVE + _EXT + [_I, _L, _P],
+        'rtt_trace_nonseq_bwd_opl': [_P, _P, _I] + [_P] * 31 + [_I, _I]
+        + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY}),
 }
 _fns = {}
@@ -240,23 +276,58 @@ def plate_maps(static_meta, grids):
     return tuple(grids[k] for k in plate_rows(static_meta))
 
 
+class StreamFlags(collections.namedtuple(
+        'StreamFlags', ('track_opl', 'record_paths', 'record_hits'))):
+    """Which deterministic streams a fused trace computes."""
+
+    @property
+    def any(self):
+        return self.track_opl or self.record_paths or self.record_hits
+
+    @property
+    def records(self):
+        return self.record_paths or self.record_hits
+
+    def keys(self, nonseq=False):
+        """The ``aux`` keys of the streams, in the order of the autograd
+        Functions' outputs."""
+        return ((('opl', 'n_final') if self.track_opl else ())
+                + (('paths',) if self.record_paths else ())
+                + ((('hits', 'hit_weights')
+                    + (('hit_slots',) if nonseq else ()))
+                   if self.record_hits else ()))
+
+
+NO_STREAMS = StreamFlags(False, False, False)
+
+
 def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
-                           grids=None):
+                           grids=None, track_opl=False, record_paths=False,
+                           record_hits=False):
     """Fused trace -> ``(rays, SensorState)``, differentiable with respect
     to the table, the 7 ray streams px..intensity and the phase maps of
-    ``grids`` ({PHASE_GRID row: [H, W] map}).
+    ``grids`` ({PHASE_GRID row: [H, W] map}).  With any of ``track_opl``,
+    ``record_paths`` and ``record_hits`` -> ``(rays, SensorState, aux)``
+    (core/trace.py::trace_sequential's ``aux``).
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels (or
     raise: there is no fallback)."""
+    flags = StreamFlags(track_opl, record_paths, record_hits)
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
     maps = plate_maps(static_meta, grids)
     comps = [getattr(rays, c) for c in COMPS]
     if needs_grad(flat, rays, maps):
+        if flags.any:
+            outs = FusedTraceStreams.apply(flat, kinds_t, cfg,
+                                           tuple(static_meta), flags, *comps,
+                                           rays.ray_id,
+                                           *plate_inputs(rays, maps))
+            return unpack(outs, rays, cfg, flags)
         return unpack(FusedTrace.apply(flat, kinds_t, cfg, tuple(static_meta),
                                        *comps, rays.ray_id,
                                        *plate_inputs(rays, maps)),
                       rays, cfg)
-    return _forward(flat, kinds_t, rays, cfg, static_meta, maps)
+    return _forward(flat, kinds_t, rays, cfg, static_meta, maps, flags)
 
 
 def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
@@ -293,13 +364,18 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     return out, sensors, {}
 
 
-def unpack(outs, rays, cfg):
+def unpack(outs, rays, cfg, flags=NO_STREAMS, nonseq=False):
     """The outputs of ``FusedTrace`` or ``FusedNonseq`` -> ``(rays,
-    SensorState)``."""
+    SensorState)``; of their ``...Streams`` versions with ``flags`` ->
+    ``(rays, SensorState, aux)``."""
     grid = outs[8] if cfg.grid_shape else SensorState.init(
         cfg, device=outs[7].device).grid
-    return (rays.replace(**dict(zip(COMPS, outs[:7]))),
-            SensorState(moments=outs[7], grid=grid))
+    res = (rays.replace(**dict(zip(COMPS, outs[:7]))),
+           SensorState(moments=outs[7], grid=grid))
+    if not flags.any:
+        return res
+    first = 9 if cfg.grid_shape else 8
+    return res + (dict(zip(flags.keys(nonseq), outs[first:])),)
 
 
 def flat_inputs(table, rays, cfg, static_meta):
@@ -347,12 +423,13 @@ def wavelength_of(rays):
     return rays.wavelength
 
 
-def _forward(flat, kinds, rays, cfg, static_meta, maps=None):
+def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
+             flags=NO_STREAMS):
     if flat.device.type == 'cpu':
         return trace_sequential_fused_plain(flat, rays, cfg, static_meta,
-                                            maps)
+                                            maps, *flags)
     return trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
-                              ext_kinds(static_meta))
+                              ext_kinds(static_meta), *flags)
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -386,45 +463,128 @@ class FusedTrace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz,
                 intensity, ray_id, *plates):
-        comps = (px, py, pz, dx, dy, dz, intensity)
-        wavelength, maps = split_plates(plates)
-        out, sensors = _forward(flat_table, kinds,
-                                _rays_of(comps, ray_id, wavelength), cfg,
-                                meta, maps)
-        ctx.save_for_backward(flat_table, kinds, *comps, ray_id, *plates)
-        ctx.cfg, ctx.meta = cfg, meta
-        ctx.set_materialize_grads(False)
-        grid = (sensors.grid,) if cfg.grid_shape else ()
-        return (*(getattr(out, c) for c in COMPS), sensors.moments, *grid)
+        return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
+                             NO_STREAMS, (px, py, pz, dx, dy, dz, intensity),
+                             ray_id, plates)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
-        flat, kinds, *comps, ray_id = ctx.saved_tensors[:10]
-        wavelength, maps = split_plates(ctx.saved_tensors[10:])
-        rays = _rays_of(comps, ray_id, wavelength)
-        g_rays, g_moments = grads[:7], grads[7]
-        g_grid = grads[8] if ctx.cfg.grid_shape else None
         need = ctx.needs_input_grad
-        need_table, need_rays = need[0], any(need[4:11])
-        need_maps, need_wl = any(need[13:]), len(need) > 12 and need[12]
-        if flat.device.type == 'cuda':
-            res = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg, g_rays,
-                                     g_moments, need_table, need_rays,
-                                     g_grid=g_grid, maps=maps,
-                                     need_maps=need_maps,
-                                     ext=ext_kinds(ctx.meta),
-                                     disp=dispersive(ctx.meta),
-                                     need_wavelength=need_wl)
-        else:
-            res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
-                                      g_moments, g_grid=g_grid, maps=maps,
-                                      need_wavelength=need_wl)
-        g_flat, g_in = res[:2]
-        g_in = [g if n else None
-                for g, n in zip(g_in or (None,) * 7, need[4:11])]
-        return (g_flat if need_table else None, None, None, None, *g_in,
-                None, *plate_cotangents(res, maps, need[12:]))
+        res = _fused_backward(ctx, grads, need[:4] + (False,) + need[4:])
+        return res[:4] + res[5:]
+
+
+class FusedTraceStreams(torch.autograd.Function):
+    """``FusedTrace`` with the deterministic streams ``flags``
+    (``StreamFlags``) as outputs after the grid: ``opl`` and ``n_final``
+    [N], ``paths`` [K + 1, N, 3], ``hits`` [K, N, 3] and ``hit_weights``
+    [K, N] (each when asked for).
+
+    ``apply(flat_table, kinds, cfg, meta, flags, px, ..., ray_id,
+    *plates)``.  Backward: with ``track_opl`` alone, K2 (or its plain
+    version) with the cotangents of ``opl`` and ``n_final``; a recording run
+    recomputes through the eager chain with autograd, as the reference's
+    ``_fused_bwd`` does through its XLA trace (``plain_vjp``,
+    ``RECORD_RECOMPUTES``)."""
+
+    @staticmethod
+    def forward(ctx, flat_table, kinds, cfg, meta, flags, px, py, pz, dx, dy,
+                dz, intensity, ray_id, *plates):
+        return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
+                             flags, (px, py, pz, dx, dy, dz, intensity),
+                             ray_id, plates)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        return _fused_backward(ctx, grads, ctx.needs_input_grad)
+
+
+def fused_forward(ctx, forward, flat_table, kinds, cfg, meta, flags, comps,
+                  ray_id, plates, *extra):
+    """The shared forward of the fused autograd Functions: runs ``forward``
+    (``_forward`` here, ops/fused_nonseq.py's there, ``extra`` its bounce
+    budget), saves the inputs and returns the outputs: the 7 ray streams,
+    the moments, the grid (when ``cfg.grid_shape`` is set) and the streams
+    of ``flags``."""
+    wavelength, maps = split_plates(plates)
+    res = forward(flat_table, kinds, _rays_of(comps, ray_id, wavelength),
+                  cfg, meta, *extra, maps, flags)
+    out, sensors = res[:2]
+    ctx.save_for_backward(flat_table, kinds, *comps, ray_id, *plates)
+    ctx.cfg, ctx.meta, ctx.flags = cfg, meta, flags
+    ctx.set_materialize_grads(False)
+    grid = (sensors.grid,) if cfg.grid_shape else ()
+    aux = res[2] if flags.any else {}
+    streams = tuple(aux[k] for k in flags.keys('hit_slots' in aux))
+    if 'hit_slots' in aux:
+        ctx.mark_non_differentiable(aux['hit_slots'])
+    return (*(getattr(out, c) for c in COMPS), sensors.moments, *grid,
+            *streams)
+
+
+def saved_inputs(ctx):
+    """The saved inputs of a fused autograd Function -> ``(flat, kinds,
+    rays, maps)``."""
+    flat, kinds, *comps, ray_id = ctx.saved_tensors[:10]
+    wavelength, maps = split_plates(ctx.saved_tensors[10:])
+    return flat, kinds, _rays_of(comps, ray_id, wavelength), maps
+
+
+def stream_cotangents(ctx, grads):
+    """The cotangents of a fused Function's outputs -> ``(g_rays, g_moments,
+    g_grid, g_aux)``, ``g_aux`` keyed as ``aux`` (None for zero)."""
+    first = 9 if ctx.cfg.grid_shape else 8
+    g_grid = grads[8] if ctx.cfg.grid_shape else None
+    nonseq = hasattr(ctx, 'n_bounces')
+    return (grads[:7], grads[7], g_grid,
+            dict(zip(ctx.flags.keys(nonseq), grads[first:])))
+
+
+def _fused_backward(ctx, grads, need):
+    """``FusedTraceStreams``'s backward (``FusedTrace``'s with ``need``
+    holding False for the flags) -> the cotangents of its inputs."""
+    global RECORD_RECOMPUTES
+    flat, kinds, rays, maps = saved_inputs(ctx)
+    g_rays, g_moments, g_grid, g_aux = stream_cotangents(ctx, grads)
+    need_table, need_rays = need[0], any(need[5:12])
+    need_maps, need_wl = any(need[14:]), len(need) > 13 and need[13]
+    if ctx.flags.records:
+        RECORD_RECOMPUTES += 1
+        res = plain_vjp(
+            lambda f, r, m: _chain(f, r, ctx.cfg, ctx.meta, m, ctx.flags,
+                                   plain=False),
+            flat, rays, g_rays, g_moments, g_grid, maps, need_wl, g_aux)
+    elif flat.device.type == 'cuda':
+        res = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg, g_rays,
+                                 g_moments, need_table, need_rays,
+                                 g_grid=g_grid, maps=maps,
+                                 need_maps=need_maps,
+                                 ext=ext_kinds(ctx.meta),
+                                 disp=dispersive(ctx.meta),
+                                 need_wavelength=need_wl,
+                                 g_opl=g_aux.get('opl'),
+                                 g_nfinal=g_aux.get('n_final'),
+                                 opl=ctx.flags.track_opl)
+    else:
+        res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
+                                  g_moments, g_grid=g_grid, maps=maps,
+                                  need_wavelength=need_wl,
+                                  g_opl=g_aux.get('opl'),
+                                  g_nfinal=g_aux.get('n_final'))
+    return backward_result(res, maps, need, 5)
+
+
+def backward_result(res, maps, need, first):
+    """A backward's result ``res`` (``plain_vjp``'s layout) -> the
+    cotangents of a fused Function's inputs, whose 7 ray streams start at
+    input ``first``; None for every input not needing one."""
+    g_flat, g_in = res[:2]
+    g_in = [g if n else None
+            for g, n in zip(g_in or (None,) * 7, need[first:first + 7])]
+    return ((g_flat if need[0] else None,) + (None,) * (first - 1)
+            + (*g_in, None) + plate_cotangents(res, maps, need[first + 8:]))
 
 
 def plate_cotangents(res, maps, need):
@@ -439,47 +599,67 @@ def plate_cotangents(res, maps, need):
             *(g if n else None for g, n in zip(g_maps, need[1:])))
 
 
+def _chain(flat_table, rays, cfg, static_meta, maps=None, flags=NO_STREAMS,
+           plain=True):
+    """The eager chain of core/trace.py over the rows of the flat table ->
+    ``(rays, SensorState)``, with ``flags``' streams ``(rays, SensorState,
+    aux)``.  ``plain=False`` runs K3's and K4's kernels on CUDA tensors, as
+    the eager ``simulate`` does."""
+    streams = Streams.of(rays, **flags._asdict())
+    rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
+    out, sensors = surface_chain(
+        rows, rays, cfg, static_meta, torch.float32, plain=plain,
+        grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams)
+    return (out, sensors) if streams is None else (out, sensors,
+                                                   streams.aux())
+
+
 def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
-                                 static_meta, maps=None):
+                                 static_meta, maps=None, track_opl=False,
+                                 record_paths=False, record_hits=False):
     """K1's function in plain torch: the eager chain of core/trace.py over
     the rows of the flat table the kernel reads, with the phase maps
-    ``maps`` of its PHASE_GRID rows (in row order)."""
-    grids = dict(zip(plate_rows(static_meta), maps or ()))
-    sensors = SensorState.init(cfg, dtype=torch.float32,
-                               device=rays.px.device)
-    for k, meta in enumerate(static_meta):
-        rays, sensors = _surface_step(FlatRow(flat_table[k]), rays, cfg,
-                                      sensors, meta, plain=True,
-                                      grid=grids.get(k))
-    return rays, sensors
+    ``maps`` of its PHASE_GRID rows (in row order) -> ``(rays,
+    SensorState)``, with any stream ``(rays, SensorState, aux)``."""
+    return _chain(flat_table, rays, cfg, static_meta, maps,
+                  StreamFlags(track_opl, record_paths, record_hits))
 
 
 def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
                         g_rays, g_moments, g_grid=None, maps=None,
-                        need_wavelength=False):
+                        need_wavelength=False, g_opl=None, g_nfinal=None):
     """K2's function in plain torch: re-run ``trace_sequential_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
     ``g_rays`` holds the cotangents of the 7 output streams px..intensity
-    (None for zero), ``g_moments`` that of the [S, B, 7] moments and
-    ``g_grid`` that of the [S, H, W] grid (each None for zero).  Returns
-    ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps their
-    cotangents third, and with ``need_wavelength`` the wavelength's
-    cotangent fourth (the maps' then ``()`` without maps)."""
+    (None for zero), ``g_moments`` that of the [S, B, 7] moments,
+    ``g_grid`` that of the [S, H, W] grid and ``g_opl`` / ``g_nfinal``
+    those of the ``opl`` and ``n_final`` streams (each None for zero; either
+    given runs the chain with ``track_opl``).  Returns ``(g_flat [K, 160],
+    7 input-ray cotangents)``, with phase maps their cotangents third, and
+    with ``need_wavelength`` the wavelength's cotangent fourth (the maps'
+    then ``()`` without maps)."""
+    g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
+             if g is not None}
+    flags = StreamFlags(bool(g_aux), False, False)
     return plain_vjp(
-        lambda flat, r, m: trace_sequential_fused_plain(flat, r, cfg,
-                                                        static_meta, m),
-        flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength)
+        lambda flat, r, m: _chain(flat, r, cfg, static_meta, m, flags),
+        flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength,
+        g_aux)
 
 
 def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid,
-              maps=None, need_wavelength=False):
+              maps=None, need_wavelength=False, g_aux=None):
     """``torch.autograd.grad`` of ``forward(flat, rays, maps) -> (rays,
-    SensorState)`` at ``(flat_table, rays, maps)`` with the cotangents of
-    ``trace_seq_bwd_plain`` -> ``(g_flat, 7 input-ray cotangents)``, with
-    maps their cotangents third, and with ``need_wavelength`` the
-    wavelength's cotangent fourth; zeros where the output does not depend
-    on an input."""
+    SensorState[, aux])`` at ``(flat_table, rays, maps)`` with the
+    cotangents of ``trace_seq_bwd_plain`` and ``g_aux``, those of the
+    streams' ``aux`` by key (None or missing: zero) -> ``(g_flat, 7
+    input-ray cotangents)``, with maps their cotangents third, and with
+    ``need_wavelength`` the wavelength's cotangent fourth; zeros where the
+    output does not depend on an input.  It is also the backward of
+    ``FusedTraceStreams`` and ``FusedNonseqStreams`` on a recording run,
+    with the eager trace as ``forward``, as the reference's ``_fused_bwd``
+    recomputes through its XLA trace."""
     with torch.enable_grad():
         flat = flat_table.detach().requires_grad_(True)
         comps = [getattr(rays, c).detach().requires_grad_(True)
@@ -490,24 +670,27 @@ def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid,
         r_in = rays.replace(**dict(zip(COMPS, comps)))
         if need_wavelength:
             r_in = r_in.replace(wavelength=wl[0])
-        out, sensors = forward(flat, r_in, tuple(maps_in))
+        res = forward(flat, r_in, tuple(maps_in))
+        out, sensors = res[:2]
+        aux = res[2] if len(res) > 2 else {}
+        g_aux = g_aux or {}
         pairs = [(o, g) for o, g in zip(
             [*(getattr(out, c) for c in COMPS), sensors.moments,
-             sensors.grid],
-            [*g_rays, g_moments, g_grid])
+             sensors.grid, *(aux[k] for k in g_aux)],
+            [*g_rays, g_moments, g_grid, *g_aux.values()])
             if g is not None and o.requires_grad]
         inputs = [flat, *comps, *maps_in, *wl]
-        res = (torch.autograd.grad([o for o, _ in pairs],
-                                   inputs, [g for _, g in pairs],
-                                   allow_unused=True)
-               if pairs else [None] * len(inputs))
-    res = [torch.zeros_like(x) if g is None else g
-           for g, x in zip(res, inputs)]
+        grads = (torch.autograd.grad([o for o, _ in pairs],
+                                     inputs, [g for _, g in pairs],
+                                     allow_unused=True)
+                 if pairs else [None] * len(inputs))
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, inputs)]
     if need_wavelength:
-        return res[0], tuple(res[1:8]), tuple(res[8:-1]), res[-1]
+        return grads[0], tuple(grads[1:8]), tuple(grads[8:-1]), grads[-1]
     if maps is not None:
-        return res[0], tuple(res[1:8]), tuple(res[8:])
-    return res[0], tuple(res[1:8])
+        return grads[0], tuple(grads[1:8]), tuple(grads[8:])
+    return grads[0], tuple(grads[1:8])
 
 
 def build():
@@ -538,18 +721,21 @@ def kernel(symbol):
 
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
-                  ext=False, disp=False):
+                  ext=False, disp=False, streams=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
     (``'trace_nonseq_bwd'``, with its bounce budget ``n_bounces``) that a
     launch with ``n_rows`` rows, ``cfg``'s slots and bundles and, with
     ``plates``, plate code (with ``ext``, also the extended kinds; with
-    ``disp`` too, on a table with a dispersive row) runs, at that launch's
-    dynamic shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    on the current device)."""
+    ``disp`` too, on a table with a dispersive row; with ``streams``, the
+    instantiation with the streams, on a table with a dispersive row when
+    ``disp``) runs, at that launch's dynamic shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    device)."""
     out = ctypes.c_int(0)
-    code = (3 if disp else 2) if ext else int(bool(plates))
+    code = (4 if streams else (3 if disp else 2) if ext
+            else int(bool(plates)))
     rc = kernel(f'rtt_{library}_occupancy')(
         n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces), code,
         ctypes.byref(out))
@@ -677,55 +863,108 @@ def grad_cols(plates, ext, disp=False):
 
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
-                       maps=None, ext=False):
-    """Launch K1 on the current stream -> ``(rays, SensorState)``.
+                       maps=None, ext=False, track_opl=False,
+                       record_paths=False, record_hits=False):
+    """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
+    stream ``(rays, SensorState, aux)``.
 
     ``flat_table`` is the [K, 160] float32 table, ``kinds`` the [K, 8]
     int32 rows of ``kind_rows``, ``maps`` the PHASE_GRID rows' [H, W] maps
     in row order; all on one CUDA device.  ``ext``: the table has the
-    extended kinds (``ext_kinds``)."""
+    extended kinds (``ext_kinds``).  The streams run K1's instantiation
+    with them, whatever ``ext``."""
     global LAUNCHES
-    out, sensors, launched = _seq_fwd_launch(flat_table, kinds, rays, cfg,
-                                             maps, 'trace_seq_fwd_cuda', ext)
-    LAUNCHES += launched
-    return out, sensors
+    flags = StreamFlags(track_opl, record_paths, record_hits)
+    res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
+                          'trace_seq_fwd_cuda', ext, flags)
+    LAUNCHES += res[-1]
+    return res[:-1]
 
 
-def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False):
-    """K1's launch -> ``(rays, SensorState, launches)``."""
-    global EXT_LAUNCHES
+def stream_buffers(flags, rows, n, device, nonseq=False):
+    """K1's (``rows`` = K) or K5's (``rows`` = the bounce budget) stream
+    outputs, planar: ``{key: tensor}`` with ``paths`` [K + 1 or B, 3, N],
+    ``hits`` [K or B, 3, N], ``hit_weights`` and (K5) ``hit_slots`` [K or
+    B, N] (int32), ``opl`` and ``n_final`` [N]."""
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device=device)
+    bufs = {}
+    if flags.track_opl:
+        bufs.update(opl=new(n), n_final=new(n))
+    if flags.record_paths:
+        bufs['paths'] = new(rows + (0 if nonseq else 1), 3, n)
+    if flags.record_hits:
+        bufs.update(hits=new(rows, 3, n), hit_weights=new(rows, n))
+        if nonseq:
+            bufs['hit_slots'] = new(rows, n, dtype=torch.int32)
+    return bufs
+
+
+def stream_args(bufs, nonseq=False):
+    """The stream pointers of K1's or K5's instantiation with the streams
+    (null where not wanted)."""
+    keys = ('opl', 'n_final', 'paths', 'hits', 'hit_weights')
+    return tuple(ptr(bufs.get(k)) for k in
+                 keys + (('hit_slots',) if nonseq else ()))
+
+
+def stream_aux(bufs):
+    """``aux`` of the stream buffers: the planar records as views of the
+    JAX package's [rows, N, 3]."""
+    return {k: v.permute(0, 2, 1) if k in ('paths', 'hits') else v
+            for k, v in bufs.items()}
+
+
+def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
+                    flags=NO_STREAMS):
+    """K1's launch -> ``(rays, SensorState, launches)``, with any stream
+    ``(rays, SensorState, aux, launches)``."""
+    global EXT_LAUNCHES, STREAM_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
-    plates = plate_buffers(ext_maps(maps, ext), rays, device)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any), rays, device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     n_blocks = -(-n // THREADS)
     partials = torch.empty(n_blocks, n_slots, n_bundles, N_MOMENTS,
                            dtype=torch.float32, device=device)
     grid = new_grid(cfg, device)
+    bufs = stream_buffers(flags, k, n, device)
     launched = 0
     if n > 0:
-        fn = kernel('rtt_trace_seq_fwd')
+        args = (flat_table.data_ptr(), kinds.data_ptr(), k,
+                *(getattr(rays, c).data_ptr() for c in COMPS),
+                rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
+                partials.data_ptr(), n_slots, n_bundles,
+                *grid_args(cfg, grid if cfg.grid_shape else None),
+                *plate_args(plates))
         with torch.cuda.device(device):
-            rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
-                    *(getattr(rays, c).data_ptr() for c in COMPS),
-                    rays.ray_id.data_ptr(), *(o.data_ptr() for o in outs),
-                    partials.data_ptr(), n_slots, n_bundles,
-                    *grid_args(cfg, grid if cfg.grid_shape else None),
-                    *plate_args(plates), int(ext), n, stream(device))
+            if flags.any:
+                rc = kernel('rtt_trace_seq_fwd_streams')(
+                    *args, *stream_args(bufs), n, stream(device))
+            else:
+                rc = kernel('rtt_trace_seq_fwd')(*args, int(ext), n,
+                                                 stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        EXT_LAUNCHES += int(ext)
+        if flags.any:
+            STREAM_LAUNCHES += 1
+        else:
+            EXT_LAUNCHES += int(ext)
     out = rays.replace(**dict(zip(COMPS, outs)))
-    return out, SensorState(moments=partials.sum(dim=0), grid=grid), launched
+    sensors = SensorState(moments=partials.sum(dim=0), grid=grid)
+    if flags.any:
+        return out, sensors, stream_aux(bufs), launched
+    return out, sensors, launched
 
 
 def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_moments, need_table=True, need_rays=True,
                        g_grid=None, maps=None, need_maps=True, ext=False,
-                       disp=None, need_wavelength=False):
+                       disp=None, need_wavelength=False, g_opl=None,
+                       g_nfinal=None, opl=False):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
     kinds) their cotangents (or None) third, and with ``need_wavelength``
@@ -740,16 +979,20 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     has a dispersive row (``dispersive``; None: read it off ``kinds``).  A
     dispersive table and the wavelength's cotangent take the kernel's
     instantiation with dispersion, which also has the extended kinds,
-    whatever ``ext``."""
-    global BWD_LAUNCHES, EXT_LAUNCHES
+    whatever ``ext``.  ``opl`` (K1 ran with ``track_opl``) takes the
+    instantiation with the optical path length, whatever ``ext``, with
+    ``g_opl`` and ``g_nfinal`` the cotangents of K1's ``opl`` and
+    ``n_final`` (None for zero)."""
+    global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
+    ext = ext or need_wavelength or opl
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
-    ext = ext or need_wavelength
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
+    g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
     cols = grad_cols(plates, ext, disp)
     outs = ([torch.empty(n, dtype=torch.float32, device=device)
              for _ in COMPS] if need_rays else None)
@@ -762,23 +1005,40 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             if need_wavelength else None)
     if n > 0 and (need_table or need_rays or g_maps is not None
                   or need_wavelength):
-        fn = kernel('rtt_trace_seq_bwd')
+        args = (flat_table.data_ptr(), kinds.data_ptr(), k,
+                *(getattr(rays, c).data_ptr() for c in COMPS),
+                rays.ray_id.data_ptr(), *map(ptr, g_rays),
+                g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
+                ptr(partials), n_slots, n_bundles,
+                *grid_args(cfg, g_grid), *plate_args(plates),
+                ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            rc = fn(flat_table.data_ptr(), kinds.data_ptr(), k,
-                    *(getattr(rays, c).data_ptr() for c in COMPS),
-                    rays.ray_id.data_ptr(), *map(ptr, g_rays),
-                    g_mom.data_ptr(), *map(ptr, outs or (None,) * 7),
-                    ptr(partials), n_slots, n_bundles,
-                    *grid_args(cfg, g_grid), *plate_args(plates),
-                    ptr(g_maps), ptr(g_wl), int(ext and disp), int(ext), n,
-                    stream(device))
+            if opl:
+                rc = kernel('rtt_trace_seq_bwd_opl')(
+                    *args, ptr(g_opl), ptr(g_nfinal), n, stream(device))
+            else:
+                rc = kernel('rtt_trace_seq_bwd')(*args, int(ext), n,
+                                                 stream(device))
         if rc != 0:
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        EXT_LAUNCHES += int(ext)
+        if opl:
+            STREAM_LAUNCHES += 1
+        else:
+            EXT_LAUNCHES += int(ext)
     return table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                     device, g_wl)
+
+
+def check_streams(grads, n, device):
+    """The K2 and K6 wrappers' stream cotangents (``g_opl``, ``g_nfinal``),
+    made contiguous and checked (None stays None)."""
+    grads = [None if g is None else g.contiguous() for g in grads]
+    for name, g in zip(('g_opl', 'g_nfinal'), grads):
+        if g is not None:
+            check(g, name, torch.float32, (n,), device)
+    return grads
 
 
 def ptr(t):

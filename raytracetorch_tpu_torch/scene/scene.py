@@ -18,6 +18,11 @@ aux)``:
   package's auto-dispatch below a crossover N was measured on a TPU and is
   not carried over.
 
+Both ``simulate`` and ``simulate_fused`` take the deterministic streams
+``track_opl``, ``record_paths`` and ``record_hits`` and return them in
+``aux`` with the JAX package's keys and shapes (core/trace.py); the fused
+traces run them through the kernels' instantiation with the streams.
+
 ``grid_shape = (H, W)`` and ``grid_half_extent`` give every sensor an
 irradiance grid (``sensors.grid [S, H, W]``), binned by kernel K3 on the
 card.  A ``PhaseGridPlate``'s ``[H, W]`` map rides the side channel
@@ -45,6 +50,8 @@ from ..rays.sources import sample_bundles
 
 class Scene:
     """Non-sequential scene: nearest-hit bounce simulation."""
+
+    sequential = False
 
     def __init__(self, elements=None, n_bounces=100):
         self.elements = list(elements or [])
@@ -183,27 +190,32 @@ class Scene:
         return out
 
     def simulate(self, params, rays, n_bundles=None, **kw):
-        """Eager differentiable bounce loop -> (rays, sensors, aux).  The
-        JAX bounce loop's optional streams (``record_paths``, ``track_opl``, ...)
-        raise NotImplementedError naming their ROADMAP item."""
+        """Eager differentiable bounce loop -> (rays, sensors, aux).  ``kw``
+        goes to core/trace.py::trace_nonsequential: the streams
+        ``track_opl``, ``record_paths`` and ``record_hits``; the field, ``E0``
+        and fuzzy apodization raise NotImplementedError naming their ROADMAP
+        item."""
         kw.setdefault('grids', self.side_grids(params))
         return trace_nonsequential(self.build_table(params), rays,
                                    self.n_bounces,
                                    self.sensor_config(n_bundles),
                                    self.static_meta(), **kw)
 
-    def simulate_fused(self, params, rays, n_bundles=None):
+    def simulate_fused(self, params, rays, n_bundles=None, track_opl=False,
+                       record_paths=False, record_hits=False):
         """Fused bounce loop -> (rays, sensors, aux): kernel K5 on the card,
         its plain version on the CPU.  Each ray leaves the loop at its first
         bounce with no hit, so the default budget of 100 costs what the
         scene needs.  Differentiable with respect to the params (phase maps
         included) and the ray streams px..intensity (K6 in backward on the
-        card); first order only."""
-        out, sensors = trace_nonseq_fused(
+        card); first order only.  ``aux`` holds the streams asked for, as
+        ``simulate``'s; the records cover the full budget."""
+        res = trace_nonseq_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), self.n_bounces,
-            grids=self.side_grids(params))
-        return out, sensors, {}
+            grids=self.side_grids(params), track_opl=track_opl,
+            record_paths=record_paths, record_hits=record_hits)
+        return res if len(res) == 3 else (*res, {})
 
     # -- conversions -------------------------------------------------------
 
@@ -223,22 +235,36 @@ class SequentialScene(Scene):
     """Ordered surface-by-surface propagation: the lens-design workhorse and
     the benchmark configuration."""
 
-    def simulate(self, params, rays, n_bundles=None):
-        """Eager differentiable trace -> (rays, sensors, aux)."""
+    sequential = True
+
+    def simulate(self, params, rays, n_bundles=None, track_opl=False,
+                 record_paths=False, record_hits=False):
+        """Eager differentiable trace -> (rays, sensors, aux); ``aux`` holds
+        the streams asked for (core/trace.py::trace_sequential)."""
         return trace_sequential(self.build_table(params), rays,
                                 self.sensor_config(n_bundles),
                                 self.static_meta(),
-                                grids=self.side_grids(params))
+                                grids=self.side_grids(params),
+                                track_opl=track_opl,
+                                record_paths=record_paths,
+                                record_hits=record_hits)
 
-    def simulate_fused(self, params, rays, n_bundles=None):
+    def simulate_fused(self, params, rays, n_bundles=None, track_opl=False,
+                       record_paths=False, record_hits=False):
         """Fused trace -> (rays, sensors, aux): the CUDA kernels on the card
         (K1 forward, K2 backward under grad), their plain versions on the
         CPU.  Differentiable with respect to the params (phase maps
-        included) and the ray streams px..intensity; first order only."""
-        out, sensors = trace_sequential_fused(
+        included) and the ray streams px..intensity; first order only.
+        ``aux`` holds the streams asked for, as ``simulate``'s; with
+        ``track_opl`` alone K2 takes their cotangents, and a recording run
+        recomputes its backward through the eager chain, as the JAX
+        package's does."""
+        res = trace_sequential_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
-            self.static_meta(), grids=self.side_grids(params))
-        return out, sensors, {}
+            self.static_meta(), grids=self.side_grids(params),
+            track_opl=track_opl, record_paths=record_paths,
+            record_hits=record_hits)
+        return res if len(res) == 3 else (*res, {})
 
     def to_base(self):
         """A non-sequential Scene of the same elements."""

@@ -37,7 +37,13 @@ extended kinds (the mixed-surface and asphere scenes, and the dispersive
 achromat and Cooke triplet, K2's and K6's wavelength cotangent and
 dispersion columns included, the latter with chip_smoke.DISP_BWD_TOL) are
 held to their plain versions with the same bounds, and the paths that
-should take them (and the main paths, which should not) are counted.
+should take them (and the main paths, which should not) are counted.  So
+are the instantiations with the deterministic streams (the optical path
+length, path and hit recording; chip_smoke.py section 10's
+``stream_kernels_vs_plain`` with its bounds, OPL_RTOL for the path length),
+the paths that launch them, the recording run's eager backward
+(``RECORD_RECOMPUTES``), their blocks per SM, and ``footprints`` on the
+card against the CPU.
 """
 
 import math
@@ -718,8 +724,15 @@ def _no_plate(name):
 
 def _ext(name):
     """Whether a mangled kernel name is the instantiation with the extended
-    kinds (its last template argument, kExt, true)."""
+    kinds (its last template argument, kExt, true); the overloads with the
+    streams share its template arguments (``_streams``)."""
     return _flags(name)[-1] == 1
+
+
+def _streams(name):
+    """Whether a mangled kernel name is an overload with the deterministic
+    streams (a StreamOut or OplIn argument)."""
+    return 'StreamOut' in name or 'OplIn' in name
 
 
 @pytest.mark.cuda
@@ -1291,7 +1304,8 @@ def test_ext_instantiations_are_built(dev):
             'trace_nonseq_bwd': 2}
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
-        ext = [k for k in usage if f'{lib}_kernel' in k and _ext(k)]
+        ext = [k for k in usage
+               if f'{lib}_kernel' in k and _ext(k) and not _streams(k)]
         assert len(ext) == count, (lib, ext)
         assert all(usage[k]['registers'] for k in ext)
     for case in EXT_CASES:
@@ -1508,3 +1522,112 @@ def test_disp_instantiations_build_and_fit(dev):
     assert fused_trace.blocks_per_sm(
         'trace_nonseq_bwd', len(mixed.static_meta()), mixed.sensor_config(),
         True, mixed.n_bounces, ext=True) >= 2
+
+
+# ---- the deterministic streams (chip_smoke.py section 10) ----
+
+STREAM_CASES = [('bench', False, False), ('ring', False, False),
+                ('achromat_sellmeier', False, False), ('bench', True, False),
+                ('cooke', True, False), ('bench', False, True),
+                ('fold', False, True), ('bench', True, True),
+                ('fold', True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,records,nonseq', STREAM_CASES,
+                         ids=[f'{n}-{"rec" if r else "opl"}-'
+                              f'{"k5k6" if s else "k1k2"}'
+                              for n, r, s in STREAM_CASES])
+def test_stream_kernels_match_plain(name, records, nonseq, dev):
+    """K1 and K2 (K5 and K6) with the streams against their plain versions:
+    rays, moments, opl, n_final and the records, and with the path length
+    alone the ray, table and map cotangents under seeded cotangents of opl
+    and n_final too."""
+    res = chip_smoke.stream_kernels_vs_plain(trt, torch, name, N, dev, 41,
+                                             records=records, nonseq=nonseq)
+    assert res['stream_flipped'] <= res['stream_flips_allowed']
+
+
+@pytest.mark.cuda
+def test_stream_paths_launch_their_instantiation(dev):
+    """``simulate_fused`` with ``track_opl`` launches K1 (K5) once in the
+    instantiation with the streams and, under grad, K2 (K6) in theirs; a
+    recording run's backward recomputes the eager trace and launches no K2;
+    a run without streams takes no stream instantiation."""
+    seq = chip_smoke.bench_scene(trt)
+    rays = chip_smoke.sample_rays(trt, torch, N, dev, 42)
+    for sc, mod, fwd, bwd in (
+            (seq, fused_trace, 'LAUNCHES', 'BWD_LAUNCHES'),
+            (chip_smoke.naive_scene(trt), fused_nonseq, 'NONSEQ_LAUNCHES',
+             'NONSEQ_BWD_LAUNCHES')):
+        p = sc.init_params(dev)
+        p['lens']['c1'].requires_grad_(True)
+        for k in (fwd, bwd):
+            setattr(mod, k, 0)
+        fused_trace.STREAM_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
+        out, _, aux = sc.simulate_fused(p, rays, track_opl=True)
+        trt.wavefront_rms(out, aux['opl']).backward()
+        torch.cuda.synchronize()
+        assert (getattr(mod, fwd), getattr(mod, bwd)) == (1, 1)
+        assert fused_trace.STREAM_LAUNCHES == 2
+        assert fused_trace.EXT_LAUNCHES == 0
+        assert bool(torch.isfinite(p['lens']['c1'].grad))
+    p = seq.init_params(dev)
+    p['lens']['c1'].requires_grad_(True)
+    fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+    fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
+    _, _, aux = seq.simulate_fused(p, rays, record_hits=True)
+    aux['hits'][-1].square().mean().backward()
+    torch.cuda.synchronize()
+    assert (fused_trace.LAUNCHES, fused_trace.BWD_LAUNCHES) == (1, 0)
+    assert fused_trace.RECORD_RECOMPUTES == 1
+    fused_trace.STREAM_LAUNCHES = 0
+    seq.simulate_fused(seq.init_params(dev), rays)
+    assert fused_trace.STREAM_LAUNCHES == 0
+
+
+@pytest.mark.cuda
+def test_stream_instantiations_are_built(dev):
+    """K1 and K5 build one overload with the streams (K5 for both moment
+    buckets), K2 one with the path length for both homes of its saved
+    states, K6 one; each has its registers."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        found = [k for k in usage if f'{lib}_kernel' in k and _streams(k)]
+        assert len(found) == count, (lib, found)
+        assert all(usage[k]['registers'] for k in found)
+
+
+@pytest.mark.cuda
+def test_stream_instantiations_fit(dev):
+    """The stream instantiations keep at least 2 blocks an SM on the bench
+    and naive scenes (3 for K1), as measured when they were written."""
+    seq, ns = chip_smoke.bench_scene(trt), chip_smoke.naive_scene(trt)
+    want = {'trace_seq_fwd': (seq, 3), 'trace_seq_bwd': (seq, 2),
+            'trace_nonseq_fwd': (ns, 2), 'trace_nonseq_bwd': (ns, 2)}
+    for lib, (sc, blocks) in want.items():
+        assert fused_trace.blocks_per_sm(
+            lib, len(sc.static_meta()), sc.sensor_config(), True,
+            sc.n_bounces, ext=True, streams=True) >= blocks
+
+
+@pytest.mark.cuda
+def test_footprints_on_the_card_match_cpu(dev):
+    """``footprints`` of the Cooke triplet through K1 on the card against
+    the eager trace on the CPU, the same rays: labels, counts and r_max
+    (POS_TOL relative)."""
+    sc = chip_smoke.cooke_scene(trt)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    rays = trt.sample_bundles(gen, chip_smoke.cooke_bundles(trt, N), dev)
+    fused_trace.LAUNCHES = 0
+    rep_k = trt.footprints(sc, sc.init_params(dev), rays)
+    assert fused_trace.LAUNCHES == 1
+    rep_c = trt.footprints(sc, sc.init_params('cpu'), rays.to('cpu'))
+    for a, b in zip(rep_k, rep_c):
+        assert a['label'] == b['label'] and a['n'] == b['n']
+        assert math.isclose(a['r_max'], b['r_max'],
+                            rel_tol=chip_smoke.POS_TOL, abs_tol=1e-6)

@@ -345,7 +345,7 @@ def test_unported_streams_raise():
     p = scene.init_params('cpu')
     rays = trt.CollimatedDisk.make(radius=4.0, translation=[0, 0, -10.0]) \
         .sample(torch.Generator().manual_seed(0), 64, 'cpu')
-    for kw in ({'record_hits': True}, {'track_opl': True},
-               {'track_field': True}):
+    for kw in ({'track_field': True}, {'E0': torch.ones(1, 3)},
+               {'fuzzy_fns': {0: lambda x, y, z: x}}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             scene.simulate(p, rays, **kw)
