@@ -44,7 +44,12 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   the Cooke triplet, K5 with them on the naive scene),
   ``simulate_fused(track_opl=True)`` on both scene types, the wavefront
   grad step (``wavefront_rms(refocus=True)`` in c1 and c2, K1 + K2) and
-  ``footprints`` on the Cooke triplet.
+  ``footprints`` on the Cooke triplet;
+- the Fresnel kinds (chip_smoke.py section 11): K1, K2, K5 and K6 in their
+  instantiations with them (the bench singlet with ``fresnel=True`` and
+  ``'weighted'``, the naive scene with ``fresnel=True``, the Cooke
+  triplet's 27-row ghost), ``simulate_fused`` with a generator on both
+  scene types and its spot-loss grad step.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -396,6 +401,60 @@ def main():
         'wavefront_grad_step_fused': (wf_step, 'trace_seq_bwd'),
         'footprints_cooke': (lambda: rt.footprints(cooke, c_p, c_rays),
                              'trace_seq_fwd_kernel')})
+    # the Fresnel kinds (chip_smoke.py section 11)
+    for name, nonseq in (('mc', False), ('weighted', False),
+                         ('cooke_ghost', False), ('mc', True)):
+        fsc, build, fp, fr, fcfg, fdraws = cs.fresnel_case(
+            rt, torch, name, n, dev, cs.FRESNEL_SEED + 5, nonseq)
+        ftable, fmeta = build(fp)
+        fflat = rt.flatten_table_rows(ftable).detach()
+        fkinds = torch.tensor(fused_trace.kind_rows(fmeta, fcfg),
+                              dtype=torch.int32, device=dev)
+        fmaps = fused_trace.plate_maps(fmeta, {})
+        fdisp = fused_trace.dispersive(fmeta)
+        fgm = torch.ones(1, fcfg.n_bundles, 7, device=dev)
+        label = f'fresnel_{name}'
+        if nonseq:
+            calls[f'{label}_k5'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, b=fsc.n_bounces,
+                m=fmaps, d=fdraws: fused_nonseq.trace_nonseq_fwd_cuda(
+                    f, k, r, c, b, m, False, fresnel=True, key=d),
+                'trace_nonseq_fwd_kernel')
+            calls[f'{label}_k6'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, b=fsc.n_bounces,
+                m=fmaps, d=fdraws, g=fgm: fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, b, (None,) * 7, g, maps=m, fresnel=True,
+                    key=d), 'trace_nonseq_bwd_kernel')
+        else:
+            calls[f'{label}_k1'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, d=fdraws:
+                fused_trace.trace_seq_fwd_cuda(f, k, r, c, m, True,
+                                               fresnel=True, uniforms=d),
+                'trace_seq_fwd_kernel')
+            calls[f'{label}_k2'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, d=fdraws,
+                g=fgm, x=fdisp: fused_trace.trace_seq_bwd_cuda(
+                    f, k, r, c, (None,) * 7, g, maps=m, disp=x,
+                    fresnel=True, uniforms=d), 'trace_seq_bwd')
+    f_seq = cs.fresnel_scene(rt, True)
+    f_ns = cs.fresnel_scene(rt, True, cs.NS_BOUNCES)
+    f_sp, f_np = f_seq.init_params(dev), f_ns.init_params(dev)
+    f_gp = f_seq.init_params(dev)
+    for k in ('c1', 'c2'):
+        f_gp['lens'][k].requires_grad_(True)
+
+    def fresnel_step():
+        _, s, _ = f_seq.simulate_fused(
+            f_gp, wf_rays, generator=torch.Generator(device=dev))
+        rt.spot_size_loss(s).backward()
+    calls.update({
+        'fresnel_simulate_fused_mc': (lambda: f_seq.simulate_fused(
+            f_sp, wf_rays, generator=torch.Generator(device=dev)),
+            'trace_seq_fwd_kernel'),
+        'fresnel_grad_step_fused_mc': (fresnel_step, 'trace_seq_bwd'),
+        'fresnel_scene_simulate_fused_mc': (lambda: f_ns.simulate_fused(
+            f_np, wf_rays, generator=torch.Generator(device=dev)),
+            'trace_nonseq_fwd_kernel')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

@@ -378,15 +378,20 @@ def moment_scale(torch, m):
                         (wx2 * wy2).abs().sqrt(), cnt.abs()], dim=-1)
 
 
-def compare(torch, out_k, s_k, out_p, s_p):
-    """Kernel vs plain -> dict of worst errors; raises on a breach."""
+def compare(torch, out_k, s_k, out_p, s_p, intensity_rtol=0.0, world=False,
+            pos_tol=POS_TOL):
+    """Kernel vs plain -> dict of worst errors; raises on a breach.  The
+    intensities must be equal, or within ``intensity_rtol`` where rows
+    weight them (FRESNEL_W, REFLECT_W: FRESNEL_I_RTOL).  With ``world``
+    each position component is held within POS_TOL of 1 + the ray's world
+    scale (its largest |coordinate|), as ``compare_streams`` holds records:
+    a ghost path's two reflections turn the beam back and forth, so the
+    rounding of a coordinate grows with the whole path's; ``pos_tol``
+    replaces POS_TOL (GHOST_POS_TOL on the 27-row Cooke ghost)."""
     n = out_k.px.shape[0]
     comps = ('px', 'py', 'pz', 'dx', 'dy', 'dz')
-    bad = out_k.intensity != out_p.intensity
-    for c in comps:
-        a, b = getattr(out_k, c), getattr(out_p, c)
-        bad |= (a - b).abs() > POS_TOL + POS_TOL * b.abs()
-        bad |= ~torch.isfinite(a)
+    bad, over, i_err = traced_apart(torch, out_k, out_p, intensity_rtol,
+                                    world, pos_tol)
     n_flip = int(bad.sum())
     allowed = math.ceil(FLIPS_PER_MILLION * n / 1e6)
     keep = ~bad
@@ -398,11 +403,34 @@ def compare(torch, out_k, s_k, out_p, s_p):
     worst = float((mom_err / bound.clamp(min=1e-30)).max())
     res = dict(n=n, flipped=n_flip, flips_allowed=allowed,
                max_abs_err=max_err, moment_err_over_bound=worst,
-               max_moment_abs_err=float(mom_err.max()))
+               max_moment_abs_err=float(mom_err.max()),
+               max_intensity_rel_err=float(
+                   (i_err[keep] / out_p.intensity[keep].abs().clamp(
+                       min=1e-30)).max()) if n else 0.0,
+               max_err_over_tol=float(over[keep].max()) if n else 0.0)
     check(n_flip <= allowed, f'{n_flip} rays differ (allowed {allowed})')
     check(bool((mom_err <= bound + 1e-6).all()),
           f'moments differ: {mk.tolist()} vs {mp.tolist()}')
     return res
+
+
+def traced_apart(torch, out_k, out_p, intensity_rtol=0.0, world=False,
+                 pos_tol=POS_TOL):
+    """``compare``'s rule -> (the rays kernel and plain version trace apart
+    [N] bool, each ray's worst position or direction error over its bound,
+    the intensities' errors)."""
+    i_err = (out_k.intensity - out_p.intensity).abs()
+    bad = ~(i_err <= intensity_rtol * out_p.intensity.abs())
+    scale = (torch.stack([out_p.px.abs(), out_p.py.abs(), out_p.pz.abs()])
+             .amax(0) if world else 0.0)
+    over = torch.zeros_like(out_p.px)   # the worst error over its bound
+    for c in ('px', 'py', 'pz', 'dx', 'dy', 'dz'):
+        a, b = getattr(out_k, c), getattr(out_p, c)
+        mag = torch.maximum(b.abs(), scale) if c[0] == 'p' and world \
+            else b.abs()
+        over = torch.maximum(over, (a - b).abs() / (pos_tol + pos_tol * mag))
+        bad |= ~torch.isfinite(a)
+    return bad | (over > 1.0), over, i_err
 
 
 def design_scene(rt):
@@ -997,8 +1025,10 @@ def intersect_ops(meta):
 def apply_ops(meta):
     from raytracetorch_tpu_torch.constants import PhysKind
     physics = {PhysKind.SNELL: 26, PhysKind.REFLECT: 13,
-               PhysKind.APERTURE: 8,
-               PhysKind.PHASE_GRID: 130}.get(meta.ph, 0)
+               PhysKind.APERTURE: 8, PhysKind.PHASE_GRID: 130,
+               PhysKind.FRESNEL: 26 + FRESNEL_OPS,
+               PhysKind.FRESNEL_W: 26 + FRESNEL_OPS,
+               PhysKind.REFLECT_W: 26 + FRESNEL_OPS}.get(meta.ph, 0)
     normal = 0 if meta.plane else 30 if meta.asph else 34
     disp = (DISP_L2_OPS + sum(DISP_SIDE_OPS[m] for m in meta.dispm)
             if meta.disp else 0)
@@ -1022,12 +1052,16 @@ def grid_bytes(cfg):
     return max(cfg.n_sensors, 1) * cfg.grid_shape[0] * cfg.grid_shape[1] * 4
 
 
-def nonseq_work(rt, torch, scene, params, rays):
+def nonseq_work(rt, torch, scene, params, rays, key=None):
     """K5's data-dependent work on these rays, counted with the plain bounce
     loop: the row scans it runs (one per ray and bounce begun with
     intensity > 0 and a hit in the last bounce), the winners per row, and
-    each ray's number of bounces won ([N] int32)."""
+    each ray's number of bounces won ([N] int32).  ``key``: the Philox key
+    of a scene's FRESNEL draws."""
     from raytracetorch_tpu_torch.core.trace import bounce_step, nearest_hit
+    from raytracetorch_tpu_torch.rays.draws import NonseqDraws
+    draws = (NonseqDraws(rays.n, rays.px.device, key=key)
+             if key is not None else None)
     table = scene.build_table(params)
     meta = scene.static_meta()
     grids = {k: m.detach() for k, m in scene.side_grids(params).items()}
@@ -1038,13 +1072,14 @@ def nonseq_work(rt, torch, scene, params, rays):
     lives = torch.zeros_like(rays.intensity, dtype=torch.int32)
     scans, wins = 0, [0] * len(meta)
     with torch.no_grad():
-        for _ in range(scene.n_bounces):
+        for b in range(scene.n_bounces):
             if not bool(going.any()):
                 break
             scans += int(going.sum())
             win, _ = nearest_hit(table, rays.pos_c, rays.dir_c, meta)
             rays, sens, act = bounce_step(rows, rays, cfg, sens, meta,
-                                          plain=True, grids=grids)
+                                          plain=True, grids=grids,
+                                          draws=draws, bounce=b)
             for k in range(len(meta)):
                 wins[k] += int((act & going & (win == k)).sum())
             lives += (act & going).int()
@@ -1753,6 +1788,112 @@ OPL_RTOL = 2e-6
 RAW_HIT_RTOL = 1e-2
 
 
+# ---- Section 11: Fresnel physics and the random draws ----
+#
+# The bench scene with its singlet's faces FRESNEL (``fresnel=True``) or
+# FRESNEL_W (``'weighted'``), the naive scene with a FRESNEL singlet, and
+# the ghosts of the plane window and of the Cooke triplet.  The JAX anchors
+# come from tests/fresnel_anchors.py (the JAX package on the CPU at N_MAIN
+# rays of the reference's threefry draws; the sequential ones with the
+# reference's very Fresnel uniforms, rays/reference_prng.fresnel_uniforms,
+# the non-sequential one with its XLA loop's fold_in draws, which the port's
+# counter-based draws do not reproduce).
+#
+# Tolerances: a ray whose uniform lies within an ulp or two of R takes the
+# other branch on the card (FMA contraction of R) or in another package, so
+# FRESNEL_FLIPS rays of 1M may differ from the JAX anchor's (the port against
+# its plain version: FLIPS_PER_MILLION, as elsewhere); the flipped share
+# moves the forward fraction by at most FRESNEL_FLIPS / N and the spot RMS by
+# at most ~FRESNEL_FLIPS / N of its value (held at FRESNEL_RMS_RTOL);
+# FRESNEL_W's mean intensity is a mean of float32 products at rtol 1e-5;
+# the non-sequential sensor share within FRESNEL_NS_SIGMAS binomial sigmas
+# of the difference of two independent estimates (other draws by design).
+FRESNEL_FLIPS = 20
+# FRESNEL_W's and REFLECT_W's weights are products of R or 1 - R, which the
+# card rounds otherwise (FMA contraction of R's two quotients): each factor
+# carries a few ulps, the 27-row Cooke ghost's product ~20 factors, well
+# inside 1e-5 relative (kernel against plain)
+FRESNEL_I_RTOL = 1e-5
+# The Cooke ghost's path runs 27 rows (the other scenes at most 11), its
+# two reflections turning the beam back and forth: at 1M rays 14 rays
+# ended between 1.0 and 1.25 POS_TOL of their world scale from the plain
+# version's (H100, 1M rays), beside 5 rays that part at a bound's rim
+# (``flip_margins``: margins 1e-7 to 6e-6); its positions, and only its,
+# are held at twice POS_TOL of that scale
+GHOST_POS_TOL = 2 * POS_TOL
+FRESNEL_RMS_RTOL = 1e-4
+FRESNEL_W_RTOL = 1e-5
+FRESNEL_NS_SIGMAS = 5.0
+# tests/fresnel_anchors.py (the JAX package on the CPU, N_MAIN rays)
+FRESNEL_SEQ_REF = {'forward': 0.92144, 'mean_intensity': 1.0,
+                   'sensor_share': 0.92144, 'spot_rms': 0.16907466}
+FRESNEL_W_REF = {'forward': 1.0, 'mean_intensity': 0.92145248,
+                 'sensor_share': 1.0, 'spot_rms': 0.16907028}
+FRESNEL_NS_REF = 0.922074
+# the Cooke triplet's ghost of its first face and its last lens's back face:
+# 27 rows, beyond K2's 8 rows of saved states in shared memory
+COOKE_GHOST = (0, 8)
+# the seeds of the section's draws (the sequential streams' generator, the
+# non-sequential Philox key)
+FRESNEL_SEED = SEED + 1201
+FRESNEL_KEY = (0x2545F491, 0x9E3779B9)
+# a FRESNEL, FRESNEL_W or REFLECT_W row's physics beyond SNELL's: the
+# reflectance (2 divisions, ~20 more operations) and the weight's clip
+FRESNEL_OPS = 22
+# the counter-based draw of a FRESNEL winner (K5, K6): 10 Philox rounds of
+# 2 high and 2 low 32-bit products, 4 XORs, 2 key additions, counted at
+# the float32 rate
+PHILOX_OPS = 100
+# the window ghost's closed form: normal incidence on n = 1.5, R = 0.04
+WINDOW_R = ((1.0 - 1.5) / 2.5) ** 2
+WINDOW_GHOST = (1.0 - WINDOW_R) ** 2 * WINDOW_R ** 2
+
+
+def with_fresnel(scene, mode):
+    """``scene`` (either package's) with every lens's optical faces in the
+    Fresnel ``mode`` (True: FRESNEL, 'weighted': FRESNEL_W)."""
+    for el in scene.elements:
+        if hasattr(el, '_refract_kind'):
+            el.fresnel = mode
+    scene._static_meta = None
+    return scene
+
+
+def fresnel_scene(rt, mode, n_bounces=None):
+    """The bench scene with its singlet in Fresnel ``mode``; with
+    ``n_bounces`` the naive scene (a Scene with its 256 x 256 grid)."""
+    sc = (bench_scene(rt) if n_bounces is None
+          else naive_scene(rt, n_bounces=n_bounces))
+    return with_fresnel(sc, mode)
+
+
+def window_scene(rt):
+    """tests/test_ghosts.py's plane-parallel n = 1.5 window and a sensor
+    behind it."""
+    return rt.SequentialScene([
+        rt.SingletLens(c1=0.0, c2=0.0, d=10.0, t=3.0, ior_glass=1.5,
+                       name='win'),
+        rt.SensorElement(radius=8.0, translation=[0.0, 0.0, 10.0],
+                         name='sensor')])
+
+
+def fresnel_stats(dz, intensity, moments):
+    """The anchors' statistics of a Fresnel trace, from numpy arrays: the
+    share of rays going forward (dz > 0), the mean intensity, the sensor's
+    share of rays (moment w > 0 over N) and the spot RMS of slot 0, bundle
+    0 (float64)."""
+    import numpy as np
+    m = np.asarray(moments, np.float64)[0, 0]
+    w = max(m[0], 1e-12)
+    var = (m[3] / w - (m[1] / w) ** 2) + (m[4] / w - (m[2] / w) ** 2)
+    n = len(dz)
+    return dict(forward=float((np.asarray(dz) > 0).sum()) / n,
+                mean_intensity=float(np.asarray(intensity, np.float64)
+                                     .mean()),
+                sensor_share=float(m[6]) / n,
+                spot_rms=float(np.sqrt(max(var, 1e-24))))
+
+
 def compare_streams(torch, aux_k, aux_p):
     """The streams of K1 or K5 against their plain versions' -> dict;
     raises on a breach (module notes: OPL_RTOL, POS_TOL, RAW_HIT_RTOL)."""
@@ -2224,6 +2365,520 @@ def streams_phases(rt, torch, dev, reset_counters, counters, only):
                 design=design)
 
 
+FRESNEL_SEQ_CASES = ('mc', 'weighted', 'window_ghost', 'cooke_ghost')
+FRESNEL_NS_CASES = ('mc', 'weighted')
+
+
+def fresnel_case(rt, torch, name, n, device, seed, nonseq=False):
+    """(scene, build, params, rays, cfg, draws) of a section 11 case:
+    ``build(params) -> (table, static_meta)``; ``draws`` the sequential
+    FRESNEL streams ([F, n], from a generator seeded ``seed + 1``), the
+    non-sequential Philox key (FRESNEL_KEY) or None.  Cases: 'mc' and
+    'weighted' (the bench singlet in that mode; ``nonseq``: the naive
+    scene), 'window_ghost' (the window's ghost (0, 1), n axial rays over a
+    disk of radius 4) and 'cooke_ghost' (the Cooke triplet's ghost
+    COOKE_GHOST on its six bundles)."""
+    from raytracetorch_tpu_torch.rays.draws import row_uniforms
+    from raytracetorch_tpu_torch.utils import ghosts
+    if name.endswith('_ghost'):
+        window = name == 'window_ghost'
+        sc = window_scene(rt) if window else cooke_scene(rt)
+        pair = (0, 1) if window else COOKE_GHOST
+        if window:
+            rays, cfg = sample_rays(rt, torch, n, device, seed), \
+                sc.sensor_config()
+        else:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            rays = rt.sample_bundles(gen, cooke_bundles(rt, n), device)
+            cfg = sc.sensor_config(len(COOKE_LINES) * len(COOKE_FIELDS))
+        return (sc, lambda p: ghosts.ghost_table(sc, p, pair),
+                sc.init_params(device), rays, cfg, None)
+    mode = True if name == 'mc' else 'weighted'
+    sc = fresnel_scene(rt, mode, NS_BOUNCES if nonseq else None)
+    rays = sample_rays(rt, torch, n, device, seed)
+    draws = None
+    if mode is True:
+        draws = FRESNEL_KEY if nonseq else row_uniforms(
+            sc.static_meta(), n,
+            torch.Generator(device=device).manual_seed(seed + 1))
+    return (sc, lambda p: (sc.build_table(p), sc.static_meta()),
+            sc.init_params(device), rays, sc.sensor_config(), draws)
+
+
+def flip_margins(torch, flat, meta, rays, cfg, uniforms, apart,
+                 limit=FRESNEL_FLIPS):
+    """Where K1 and its plain version part on each ray they trace apart
+    (``apart``; the first ``limit`` of them) -> list of dicts: the first row
+    at which their records differ (the hit weight's sign or value, or the
+    position after the row) with its physics kind, and, from the plain
+    version's ray entering that row, how near the row's discontinuities it
+    passes: ``rim``, the relative margin of each bound (1 - r^2 / R^2 of a
+    DISK or APER_R2 bound, 1 - |z c| of a HEMI bound, the distance inside a
+    Z_BETWEEN bound over its length; 0 at the rim, negative outside),
+    ``graze``, the quadric's discriminant over B^2 + |4 A C| (0: tangent),
+    and ``critical``, 1 - sin^2 of the refraction angle (0 at the critical
+    angle).  A sign that float32 rounding can flip makes the two part."""
+    import dataclasses
+    from raytracetorch_tpu_torch.constants import SBKind, VBKind
+    from raytracetorch_tpu_torch.core.intersect import intersect, normal_world
+    from raytracetorch_tpu_torch.core.physics import refract_components
+    from raytracetorch_tpu_torch.core.static_dispatch import dispersive_iors
+    from raytracetorch_tpu_torch.core.table import FlatRow
+    from raytracetorch_tpu_torch.geom import vec3 as v3
+    from raytracetorch_tpu_torch.geom.surfaces import ray_coeffs
+    from raytracetorch_tpu_torch.ops import fused_trace
+    idx = torch.nonzero(apart).flatten()[:limit]
+    if idx.numel() == 0:
+        return []
+    sub = rays.replace(**{f.name: getattr(rays, f.name)[idx]
+                          for f in dataclasses.fields(rays)})
+    u = None if uniforms is None else uniforms[:, idx].contiguous()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=flat.device)
+    maps = fused_trace.plate_maps(meta, {})
+    rec = dict(record_paths=True, record_hits=True, uniforms=u)
+    out_k, _, aux_k = fused_trace.trace_seq_fwd_cuda(
+        flat, kinds, sub, cfg, maps, fused_trace.ext_kinds(meta),
+        fresnel=True, **rec)
+    out_p, _, aux_p = fused_trace.trace_sequential_fused_plain(
+        flat, sub, cfg, meta, maps, **rec)
+    hw_k, hw_p = aux_k['hit_weights'], aux_p['hit_weights']
+    pk, pp = aux_k['paths'][1:], aux_p['paths'][1:]
+    scale = 1.0 + pp.abs().amax(-1)
+    differ = (((hw_k > 0) != (hw_p > 0))
+              | ((hw_k - hw_p).abs() > 1e-3 * hw_p.abs())
+              | ((pk - pp).abs().amax(-1) > 1e-3 * scale))
+    n_streams = [sum(m.ph == 4 for m in meta[:k]) for k in range(len(meta))]
+    report = []
+    for j in range(idx.numel()):
+        rows = torch.nonzero(differ[:, j]).flatten()
+        entry = dict(ray=int(idx[j]), kernel_intensity=float(
+            out_k.intensity[j]), plain_intensity=float(out_p.intensity[j]))
+        if rows.numel() == 0:
+            report.append(entry)
+            continue
+        k = int(rows[0])
+        one = sub.replace(**{f.name: getattr(sub, f.name)[j:j + 1]
+                             for f in dataclasses.fields(sub)})
+        if k > 0:
+            one = fused_trace.trace_sequential_fused_plain(
+                flat[:k], one, cfg, meta[:k], maps,
+                uniforms=None if u is None
+                else u[:n_streams[k], j:j + 1].contiguous())[0]
+        m, row = meta[k], FlatRow(flat[k])
+        res = intersect(row, one.pos_c, one.dir_c, m)
+        rim = {}
+        if m.vb == VBKind.APER_R2:
+            rim['aper_r2'] = 1.0 - float(res['hit_e'][0] ** 2
+                                         + res['hit_e'][1] ** 2) / float(
+                                             row.vb[0])
+        if m.vb == VBKind.Z_BETWEEN:
+            lo, hi = float(row.vb[0]), float(row.vb[1])
+            z = float(res['hit_e'][2])
+            rim['z_between'] = min(z - lo, hi - z) / (hi - lo)
+        o_s, d_s = res['o_s'], res['d_s']
+        if m.plane:
+            hits = [v3.fma(o_s, -o_s[2] / d_s[2], d_s)]
+        else:
+            a, b, c = ray_coeffs(row.q, o_s, d_s)
+            disc = b * b - 4.0 * a * c
+            entry['graze'] = float(disc / (b * b + (4.0 * a * c).abs()))
+            sq = torch.sqrt(disc.clamp(min=0.0))
+            hits = [v3.fma(o_s, t, d_s) for t in
+                    ((-b - sq) / (2.0 * a), (-b + sq) / (2.0 * a))]
+        for name_, fn in (
+                ('disk', lambda h: 1.0 - float((h[0] - row.sb[1]) ** 2 + (
+                    h[1] - row.sb[2]) ** 2) / float(row.sb[0])),
+                ('hemi', lambda h: 1.0 - abs(float(h[2] * row.sb[0])))):
+            if m.sb == (SBKind.DISK if name_ == 'disk' else SBKind.HEMI):
+                rim[name_] = max(fn(h) for h in hits)
+        n_w = normal_world(row, res['hit_s'], m)
+        n_in, n_out = (dispersive_iors(row, one.wavelength, m) if m.disp
+                       else (row.ph[0:1], row.ph[1:2]))
+        _, cos_i, _, _, mu, _, _, _ = refract_components(one.dir_c, n_w,
+                                                         n_in, n_out)
+        entry.update(row=k, kind=int(m.ph), hit=bool(res['valid'][0]),
+                     kernel_hit=bool(hw_k[k, j] > 0),
+                     plain_hit=bool(hw_p[k, j] > 0), rim=rim,
+                     critical=float(1.0 - mu * mu * (1.0 - cos_i * cos_i)))
+        report.append(entry)
+    return report
+
+
+def fresnel_kernels_vs_plain(rt, torch, name, n, device, seed, nonseq=False):
+    """K1 and K2 (``nonseq``: K5 and K6) in their instantiation with the
+    Fresnel kinds against their plain versions on a section 11 case, with
+    the same draws: the rays and moments (the grid on the naive scene), and
+    the ray and table cotangents under seeded cotangents; K6's replay
+    against K5 bit for bit -> dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    sc, build, params, rays, cfg, draws = fresnel_case(
+        rt, torch, name, n, device, seed, nonseq)
+    table, meta = build(params)
+    flat = rt.flatten_table_rows(table).detach()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=device)
+    maps = fused_trace.plate_maps(meta, {})
+    ext, disp = fused_trace.ext_kinds(meta), fused_trace.dispersive(meta)
+    if nonseq:
+        nb = sc.n_bounces
+        out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, fresnel=True, key=draws)
+        out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nb, maps, key=draws)
+        torch.cuda.synchronize()
+        res = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+        apart = ~((torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
+                                for c in ('px', 'py', 'pz')]).amax(0)
+                   <= NS_POS_TOL)
+                  & ((out_k.intensity - out_p.intensity).abs()
+                     <= NS_INT_TOL))
+    else:
+        out_k, s_k = fused_trace.trace_seq_fwd_cuda(
+            flat, kinds, rays, cfg, maps, ext, fresnel=True, uniforms=draws)
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps, uniforms=draws)
+        torch.cuda.synchronize()
+        # compare's rule: intensities equal, or within FRESNEL_I_RTOL where
+        # rows weight them (FRESNEL_W, REFLECT_W); positions within POS_TOL
+        # of 1 + |x|, the 27-row Cooke ghost's within GHOST_POS_TOL of its
+        # world scale
+        weighted = any(m.ph in (8, 9) for m in meta)
+        tol = dict(intensity_rtol=FRESNEL_I_RTOL if weighted else 0.0)
+        if name == 'cooke_ghost':
+            tol.update(world=True, pos_tol=GHOST_POS_TOL)
+        apart = traced_apart(torch, out_k, out_p, **tol)[0]
+        flips = flip_margins(torch, flat, meta, rays, cfg, draws, apart)
+        emit('fresnel_flips', case=name, n=n, apart=int(apart.sum()),
+             rays=flips)
+        res = compare(torch, out_k, s_k, out_p, s_p, **tol)
+        res['flips'] = flips
+    res.update(rows=len(meta), forward=float((out_k.dz > 0).float().mean()),
+               mean_intensity=float(out_k.intensity.double().mean()))
+    # the backward on the rays both trace alike: the others (flipped at a
+    # rim or a draw, counted above) launch dead, as compare_k6 leaves them
+    # out; the ray indices, and so the non-sequential draws, stay
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, device,
+                                              seed + 2)
+    if nonseq:
+        g_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, ext=ext, disp=disp, fresnel=True, key=draws,
+            replay=True)
+        g_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, key=draws)
+    else:
+        g_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=ext,
+            disp=disp, fresnel=True, uniforms=draws)
+        g_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, cfg, meta, g_rays, g_mom, maps=maps, uniforms=draws)
+    torch.cuda.synchronize()
+    if nonseq:
+        out_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, fresnel=True, key=draws)[0]
+        res['replay_equal'] = all(torch.equal(getattr(g_k[-1], c),
+                                              getattr(out_k, c))
+                                  for c in fused_trace.COMPS)
+        check(res['replay_equal'], f'{name}: K6 replay differs from K5')
+    # K6: compare_k6's allowances (rim flips; a grid cotangent read from a
+    # neighbour bin)
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1],
+        allowed=max(3, math.ceil(NS_MISMATCH_SHARE * rays.n)) if nonseq
+        else None,
+        intensity_allowed=(math.ceil(GRID_SHARE * rays.n)
+                           if nonseq and cfg.grid_shape else 0),
+        tol=DISP_BWD_TOL if disp else BWD_TOL)
+    res['bwd'].update(compare_table_cotangents(
+        torch, fused_trace, g_k[0], g_p[0], plates=True, ext=True,
+        disp=disp))
+    return res
+
+
+def fresnel_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 11: Fresnel physics and the random draws through K1, K2, K5
+    and K6 in their instantiations with the Fresnel kinds: each kernel
+    against its plain version at 2,999 and 1M rays on the same draws (the
+    bench singlet with ``fresnel=True`` and ``'weighted'``, the window's
+    ghost, a 27-row ghost of the Cooke triplet; K5 and K6 on the naive
+    scene in both modes, K6's replay against K5); the counted paths
+    (``simulate_fused`` with a generator and its spot-loss grad step in c1
+    and c2 against the eager gradients, both modes and both scene types;
+    the window ghost through the fused trace; the Cooke ghost's flux
+    gradient in c1 against the eager trace's); the JAX anchors
+    (tests/fresnel_anchors.py: on the reference's threefry rays and, with
+    ``fresnel=True``, its very uniforms; the non-sequential sensor share
+    within binomial sigmas); then times, bounds (with the uniforms' 4 B a
+    ray and FRESNEL row) and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    from raytracetorch_tpu_torch.rays import reference_prng
+    from raytracetorch_tpu_torch.utils import ghosts
+
+    # 11a. each kernel against its plain version
+    kern = {}
+    for n in (N_SMALL, N_MAIN):
+        for name in FRESNEL_SEQ_CASES:
+            kern[f'k1k2_{name}_{n}'] = fresnel_kernels_vs_plain(
+                rt, torch, name, n, dev, FRESNEL_SEED + n)
+        for name in FRESNEL_NS_CASES:
+            kern[f'k5k6_{name}_{n}'] = fresnel_kernels_vs_plain(
+                rt, torch, name, n, dev, FRESNEL_SEED + 7 + n, nonseq=True)
+    emit('fresnel_kernels_vs_plain', **kern)
+    ghost = kern[f'k1k2_window_ghost_{N_MAIN}']
+    check(abs(ghost['mean_intensity'] - WINDOW_GHOST) <= 1e-5 * WINDOW_GHOST,
+          f'window ghost flux {ghost["mean_intensity"]} (T R R T = '
+          f'{WINDOW_GHOST})')
+
+    # 11b. the counted paths on 1M rays
+    rays = sample_rays(rt, torch, N_MAIN, dev, FRESNEL_SEED)
+    paths = {}
+
+    def grads(sc, simulate, **kw):
+        p = sc.init_params(dev)
+        for k in ('c1', 'c2'):
+            p['lens'][k].requires_grad_(True)
+        _, sens, _ = simulate(p, rays, **kw)
+        loss = rt.spot_size_loss(sens)
+        loss.backward()
+        return [p['lens'][k].grad for k in ('c1', 'c2')], float(loss.detach())
+
+    for label, mode, nb, fwd, bwd in (
+            ('sequential_mc', True, None, 'trace_seq_fwd', 'trace_seq_bwd'),
+            ('sequential_weighted', 'weighted', None, 'trace_seq_fwd',
+             'trace_seq_bwd'),
+            ('scene_mc', True, NS_BOUNCES, 'trace_nonseq_fwd',
+             'trace_nonseq_bwd'),
+            ('scene_weighted', 'weighted', NS_BOUNCES,
+             'trace_nonseq_fwd', 'trace_nonseq_bwd')):
+        sc = fresnel_scene(rt, mode, nb)
+
+        def kw():
+            # the same draws for the fused and the eager call
+            return (dict(generator=torch.Generator(device=dev).manual_seed(
+                FRESNEL_SEED + 3)) if mode is True else {})
+        p = sc.init_params(dev)
+        torch.cuda.synchronize()
+        reset_counters()
+        out, sens, _ = sc.simulate_fused(p, rays, **kw())
+        torch.cuda.synchronize()
+        fwd_launches = counters()
+        check(only(fwd_launches, **{fwd: 1, 'fresnel': 1}),
+              f'{label} simulate_fused launched {fwd_launches}')
+        check(bool(torch.isfinite(sens.moments).all()), f'{label}: moments')
+        reset_counters()
+        g_f, loss_f = grads(sc, sc.simulate_fused, **kw())
+        torch.cuda.synchronize()
+        grad_launches = counters()
+        check(only(grad_launches, **{fwd: 1, bwd: 1, 'fresnel': 2}),
+              f'{label} grad step launched {grad_launches}')
+        g_e, loss_e = grads(sc, sc.simulate, **kw())
+        rel = [float(((a - b).abs() / b.abs()).max())
+               for a, b in zip(g_f, g_e)]
+        paths[label] = dict(fwd_launches=fwd_launches,
+                            grad_launches=grad_launches,
+                            forward=float((out.dz > 0).float().mean()),
+                            mean_intensity=float(out.intensity.mean()),
+                            loss_fused=loss_f, loss_eager=loss_e,
+                            grad_fused=[float(g) for g in g_f],
+                            grad_eager=[float(g) for g in g_e], rel_err=rel)
+        check(max(rel) < GRAD_RTOL,
+              f'{label}: fused vs eager gradients differ: {rel}')
+    # the main path takes no Fresnel instantiation
+    bench = bench_scene(rt)
+    reset_counters()
+    bench.simulate_fused(bench.init_params(dev), rays)
+    torch.cuda.synchronize()
+    main_launches = counters()
+    check(only(main_launches, trace_seq_fwd=1),
+          f'the main path launched {main_launches}')
+    # the window ghost through the fused trace: K1 once, T R R T
+    win = window_scene(rt)
+    table, meta = ghosts.ghost_table(win, win.init_params(dev), (0, 1))
+    reset_counters()
+    g_out, g_sens = rt.trace_sequential_fused(table, rays,
+                                              win.sensor_config(), meta)
+    torch.cuda.synchronize()
+    win_launches = counters()
+    inside = (rays.px ** 2 + rays.py ** 2) <= 25.0
+    flux = float(g_out.intensity[inside].double().mean())
+    paths['window_ghost'] = dict(launches=win_launches, flux=flux,
+                                 closed_form=WINDOW_GHOST,
+                                 sensor_total=float(g_sens.moments[0, 0, 0]))
+    check(only(win_launches, trace_seq_fwd=1, fresnel=1),
+          f'the window ghost launched {win_launches}')
+    check(abs(flux - WINDOW_GHOST) <= 1e-5 * WINDOW_GHOST,
+          f'window ghost flux {flux}')
+    # the Cooke ghost's flux gradient in c1: K1 + K2 against the eager trace
+    cooke = cooke_scene(rt)
+    c_rays = rt.sample_bundles(torch.Generator(device=dev).manual_seed(
+        FRESNEL_SEED + 4), cooke_bundles(rt, N_MAIN), dev)
+
+    def ghost_grad(fused):
+        p = cooke.init_params(dev)
+        p['crown_front']['c1'].requires_grad_(True)
+        if fused:
+            t, m = ghosts.ghost_table(cooke, p, COOKE_GHOST)
+            out, _ = rt.trace_sequential_fused(t, c_rays, cooke.sensor_config(
+                6), m)
+        else:
+            out, _, _ = ghosts.ghost_trace(cooke, p, c_rays, COOKE_GHOST)
+        out.intensity.mean().backward()
+        return float(p['crown_front']['c1'].grad), float(
+            out.intensity.detach().mean())
+    reset_counters()
+    gk, flux_k = ghost_grad(True)
+    torch.cuda.synchronize()
+    cg_launches = counters()
+    ge, flux_e = ghost_grad(False)
+    paths['cooke_ghost_grad'] = dict(launches=cg_launches, grad_fused=gk,
+                                     grad_eager=ge, flux_fused=flux_k,
+                                     flux_eager=flux_e,
+                                     rel_err=abs(gk - ge) / abs(ge))
+    check(only(cg_launches, trace_seq_fwd=1, trace_seq_bwd=1, fresnel=2),
+          f'the Cooke ghost grad launched {cg_launches}')
+    check(ge != 0.0 and abs(gk - ge) <= GRAD_RTOL * abs(ge),
+          f'Cooke ghost flux gradient {gk} (eager {ge})')
+    emit('fresnel_main', n=N_MAIN, **paths)
+
+    # 11c. anchors on the reference's threefry rays
+    ref_rays = reference_prng.collimated_disk(
+        reference_prng.prng_key(0), N_MAIN, 4.0, (0.0, 0.0, -10.0),
+        device=dev)
+    anchors = {}
+    with torch.no_grad():
+        for mode, ref in ((True, FRESNEL_SEQ_REF),
+                          ('weighted', FRESNEL_W_REF)):
+            sc = fresnel_scene(rt, mode)
+            u = reference_prng.fresnel_uniforms(reference_prng.prng_key(0),
+                                                sc.static_meta(), N_MAIN,
+                                                device=dev)
+            out, sens, _ = sc.simulate_fused(sc.init_params(dev), ref_rays,
+                                             uniforms=u)
+            st = fresnel_stats(out.dz.cpu().numpy(),
+                               out.intensity.cpu().numpy(),
+                               sens.moments.cpu().numpy())
+            label = 'mc' if mode is True else 'weighted'
+            anchors[label] = dict(got=st, ref=ref)
+            check(abs(st['forward'] - ref['forward'])
+                  <= FRESNEL_FLIPS / N_MAIN, f'{label}: forward share {st}')
+            check(abs(st['sensor_share'] - ref['sensor_share'])
+                  <= FRESNEL_FLIPS / N_MAIN, f'{label}: sensor share {st}')
+            check(abs(st['mean_intensity'] - ref['mean_intensity'])
+                  <= FRESNEL_W_RTOL * ref['mean_intensity'],
+                  f'{label}: mean intensity {st}')
+            check(abs(st['spot_rms'] - ref['spot_rms'])
+                  <= FRESNEL_RMS_RTOL * ref['spot_rms'],
+                  f'{label}: spot rms {st}')
+        ns = fresnel_scene(rt, True, NS_BOUNCES)
+        _, sens, _ = ns.simulate_fused(
+            ns.init_params(dev), ref_rays,
+            generator=torch.Generator(device=dev).manual_seed(FRESNEL_SEED))
+        share = float(sens.moments[0, 0, 6]) / N_MAIN
+        sigma = math.sqrt(2 * FRESNEL_NS_REF * (1 - FRESNEL_NS_REF) / N_MAIN)
+        anchors['scene_sensor_share'] = dict(
+            got=share, ref=FRESNEL_NS_REF, sigma=sigma,
+            sigmas=abs(share - FRESNEL_NS_REF) / sigma)
+        check(abs(share - FRESNEL_NS_REF) <= FRESNEL_NS_SIGMAS * sigma,
+              f'scene sensor share {share} (JAX {FRESNEL_NS_REF})')
+    emit('fresnel_anchors', **anchors)
+
+    # 11d. times at 1M rays against the plain versions, bounds (the
+    # uniforms' 4 B a ray and FRESNEL row counted) and blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    for name, nonseq in (('mc', False), ('weighted', False),
+                         ('cooke_ghost', False), ('mc', True),
+                         ('weighted', True)):
+        sc, build, params, r, cfg, draws = fresnel_case(
+            rt, torch, name, N_MAIN, dev, FRESNEL_SEED + 5, nonseq)
+        table, meta = build(params)
+        flat = rt.flatten_table_rows(table).detach()
+        kinds = torch.tensor(fused_trace.kind_rows(meta, cfg),
+                             dtype=torch.int32, device=dev)
+        maps = fused_trace.plate_maps(meta, {})
+        ext, disp = fused_trace.ext_kinds(meta), fused_trace.dispersive(meta)
+        n_draws = sum(m.ph == 4 for m in meta)
+        key = f'{"k5" if nonseq else "k1"}_{name}'
+        g_rays, g_mom, g_grid = random_cotangents(torch, r.n, cfg, dev,
+                                                  SEED + 5)
+        io = (r.n * (36 + 28 + 4 * (0 if nonseq else n_draws))
+              + table_bytes(meta) + grid_bytes(cfg))
+        if nonseq:
+            nb = sc.n_bounces
+            kfn = (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, nb, maps, ext, fresnel=True, key=draws))
+            pfn = (lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, nb, maps, key=draws))
+            bk = (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                flat, kinds, r, cfg, nb, g_rays, g_mom, g_grid=g_grid,
+                maps=maps, ext=ext, fresnel=True, key=draws))
+            bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                flat, r, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+                maps=maps, key=draws))
+            reps = dict(reps=4, warmup=1)
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r,
+                                             key=draws)
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
+                                        segment_replays(lives))
+            draws_ops = PHILOX_OPS * sum(
+                w for w, m in zip(wins, meta) if m.ph == 4)
+            bounds[key] = bound(io, k5_ops + draws_ops)
+            bounds[key.replace('k5', 'k6')] = bound(
+                io + r.n * 28 + len(meta) * len(fused_trace.EXT_GRAD_COLS)
+                * 4, k6_ops + 2 * draws_ops)
+        else:
+            kfn = (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, ext, fresnel=True,
+                uniforms=draws))
+            pfn = (lambda: fused_trace.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps, uniforms=draws))
+            bk = (lambda: fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=ext,
+                disp=disp, fresnel=True, uniforms=draws))
+            bp = (lambda: fused_trace.trace_seq_bwd_plain(
+                flat, r, cfg, meta, g_rays, g_mom, maps=maps,
+                uniforms=draws))
+            reps = dict(reps=10, warmup=2)
+            k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
+            bounds[key] = bound(io, k1_ops)
+            bounds[key.replace('k1', 'k2')] = bound(
+                io + r.n * 28 + len(meta) * len(fused_trace.grad_cols(
+                    (), True, disp)) * 4, 3 * k1_ops)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, kfn, pfn, **reps)
+        timing[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, bk, bp, **reps)
+        timing[key.replace('k1', 'k2').replace('k5', 'k6')] = dict(
+            kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        if name == 'mc':
+            for lib in (('trace_nonseq_fwd', 'trace_nonseq_bwd') if nonseq
+                        else ('trace_seq_fwd', 'trace_seq_bwd')):
+                occ[lib] = fused_trace.blocks_per_sm(
+                    lib, len(meta), cfg, True, sc.n_bounces, ext=True,
+                    fresnel=True)
+    ns, seq = (fresnel_scene(rt, True, NS_BOUNCES),
+               fresnel_scene(rt, True))
+    p_ns, p_seq = ns.init_params(dev), seq.init_params(dev)
+    for label, fn in (
+            ('simulate_fused_mc', lambda: seq.simulate_fused(
+                p_seq, rays, generator=torch.Generator(device=dev))),
+            ('grad_step_fused_mc', lambda: grads(
+                seq, seq.simulate_fused,
+                generator=torch.Generator(device=dev))),
+            ('scene_simulate_fused_mc', lambda: ns.simulate_fused(
+                p_ns, rays, generator=torch.Generator(device=dev)))):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{label}_ms'] = statistics.median(runs)
+        timing[f'{label}_runs'] = runs
+    emit('fresnel_timing', **timing)
+    emit('fresnel_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('fresnel_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds,
+                anchors=anchors)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2246,6 +2901,7 @@ def main():
         fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
         fused_trace.V1_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
         fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
+        fused_trace.FRESNEL_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -2262,7 +2918,8 @@ def main():
                     grid_corners_bwd=phase_grid.CORNER_BWD_LAUNCHES,
                     ext=fused_trace.EXT_LAUNCHES,
                     streams=fused_trace.STREAM_LAUNCHES,
-                    record_recomputes=fused_trace.RECORD_RECOMPUTES)
+                    record_recomputes=fused_trace.RECORD_RECOMPUTES,
+                    fresnel=fused_trace.FRESNEL_LAUNCHES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -3157,6 +3814,9 @@ def main():
     # 10. the deterministic streams, the wavefront analysis, footprints
     streams = streams_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 11. Fresnel physics and the random draws, ghosts
+    fresnel = fresnel_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -3633,6 +4293,33 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, st_t[key]['kernel_ms'],
             st_t[key]['plain_ms']))
+    # the instantiations with the Fresnel kinds (section 11): launches on
+    # the counted paths with fresnel=True, errors at 1M rays, times and
+    # bounds on the bench singlet (K1, K2) and the naive scene (K5, K6)
+    fr_k, fr_t, fr_b = (fresnel['kernels'], fresnel['timing'],
+                        fresnel['bounds'])
+    fr_p = fresnel['paths']
+    for name, source, line, launches_, err, key in (
+            ('trace_seq_fwd_fresnel', 'trace_seq_fwd.cu', 489,
+             fr_p['sequential_mc']['fwd_launches']['trace_seq_fwd'],
+             max(fr_k[f'k1k2_{c}_{N_MAIN}']['max_abs_err']
+                 for c in FRESNEL_SEQ_CASES), 'k1_mc'),
+            ('trace_seq_bwd_fresnel', 'trace_seq_bwd.cu', 1712,
+             fr_p['sequential_mc']['grad_launches']['trace_seq_bwd'],
+             max(fr_k[f'k1k2_{c}_{N_MAIN}']['bwd']['max_abs_err']
+                 for c in FRESNEL_SEQ_CASES), 'k2_mc'),
+            ('trace_nonseq_fwd_fresnel', 'trace_nonseq_fwd.cu', 1029,
+             fr_p['scene_mc']['fwd_launches']['trace_nonseq_fwd'],
+             max(fr_k[f'k5k6_{c}_{N_MAIN}']['max_abs_err']
+                 for c in FRESNEL_NS_CASES), 'k5_mc'),
+            ('trace_nonseq_bwd_fresnel', 'trace_nonseq_bwd.cu', 2157,
+             fr_p['scene_mc']['grad_launches']['trace_nonseq_bwd'],
+             max(fr_k[f'k5k6_{c}_{N_MAIN}']['bwd']['max_abs_err']
+                 for c in FRESNEL_NS_CASES), 'k6_mc')):
+        bounds[name] = fr_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, fr_t[key]['kernel_ms'],
+            fr_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -46,7 +46,14 @@ Hopper.  The port covers:
   and K6 (an instantiation of their own), with the wavefront analysis that
   reads them (``utils/wavefront.py``: best focus, the RMS wavefront error,
   Zernike fits, interferograms) and the beam footprints
-  (``utils/footprint.py``).
+  (``utils/footprint.py``);
+- Fresnel physics on uncoated interfaces: ``fresnel=True`` (the
+  Monte-Carlo branch draw, FRESNEL) and ``fresnel='weighted'`` (FRESNEL_W)
+  on every lens, and the ghost reflection REFLECT_W of the two-reflection
+  ghost tables (``utils/ghosts.py``: ``ghost_pairs``, ``ghost_table``,
+  ``ghost_trace``), eager and through K1, K2, K5 and K6; the draws come
+  from the caller's generator (``rays/draws.py``: pre-drawn streams
+  sequentially, counter-based Philox non-sequentially).
 
 ROADMAP.md lists what is still to be ported.
 
@@ -94,6 +101,7 @@ from .rays.ray import Rays  # noqa: E402
 from .rays.sources import Bundle, CollimatedDisk, sample_bundles  # noqa: E402
 from .scene.scene import Scene, SequentialScene  # noqa: E402
 from .utils.footprint import footprint_report, footprints  # noqa: E402
+from .utils.ghosts import ghost_pairs, ghost_table, ghost_trace  # noqa: E402
 from .utils.glass import glass, glass_pair  # noqa: E402
 from .utils.wavefront import (ZERNIKE_NAMES, best_focus,  # noqa: E402
                               interferogram, opl_to_point, wavefront_rms,

@@ -1,8 +1,9 @@
 """Surface interaction physics on component-planar vectors.
 
 Counterpart of ``raytracetorch_tpu/core/physics.py`` (reflection, Snell
-refraction and the pixelated phase plate; the Fresnel, grating, scatter and
-radial-phase models are ROADMAP Queue 1 item 12).  ``ph[0]`` is the index on
+refraction, the unpolarized Fresnel reflectance and its Monte-Carlo branch
+draw, and the pixelated phase plate; the grating, scatter and radial-phase
+models are ROADMAP Queue 1 items 12 and 14).  ``ph[0]`` is the index on
 the side the geometric normal points toward, ``ph[1]`` the far side.  Snell
 is the physical one: n1 = medium of incidence, mu = n1 / n2.
 """
@@ -22,7 +23,15 @@ def reflect_dir(d, n):
 def refract_components(d, n, ior_in, ior_out):
     """Shared Snell geometry: (dot, cos_i, n1, n2, mu, tir, cos_t,
     eff_sign); the normal flipped against the incident ray is
-    ``eff_sign * n``."""
+    ``eff_sign * n``.
+
+    cos_t's square root is taken away from 0 only: at the critical angle
+    itself (sin2_t == 1 in float32) its derivative is infinite, and a ray
+    that the row's mask leaves out (a row it misses) would turn autograd's
+    zero cotangent into 0 / 0 = NaN, which poisons every sum over the rays
+    (the JAX package's ``refract_components`` does so, ROADMAP Queue 3).
+    The values are the same; the derivative there is 0, where the kernels,
+    which skip a ray's missed rows, take none."""
     dot = v3.dot(d, n)
     from_in = dot < 0
     eff_sign = torch.where(from_in, 1.0, -1.0)
@@ -32,8 +41,8 @@ def refract_components(d, n, ior_in, ior_out):
     mu = n1 / torch.where(torch.abs(n2) < 1e-12, 1e-12, n2)
     sin2_t = mu * mu * (1.0 - cos_i * cos_i)
     tir = sin2_t > 1.0
-    cos_t = torch.sqrt(torch.where(tir, 1.0,
-                                   torch.clamp(1.0 - sin2_t, min=0.0)))
+    x = torch.where(tir, 1.0, torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = torch.where(x > 0, torch.sqrt(torch.where(x > 0, x, 1.0)), 0.0)
     cos_t = torch.where(tir, 0.0, cos_t)
     return dot, cos_i, n1, n2, mu, tir, cos_t, eff_sign
 
@@ -46,6 +55,35 @@ def snell_dir(d, n, ior_in, ior_out):
     v_refract = v3.fma(v3.scale(d, mu), coef, n)
     v_reflect = v3.fma(d, -2.0 * dot, n)
     return v3.where(tir, v_reflect, v_refract)
+
+
+def fresnel_rs_rp(cos_i, cos_t, n1, n2):
+    """Per-polarization Fresnel intensity reflectances (Rs, Rp); the 1e-8
+    in each denominator is the JAX package's."""
+    rs = ((n1 * cos_i - n2 * cos_t) / (n1 * cos_i + n2 * cos_t + 1e-8)) ** 2
+    rp = ((n1 * cos_t - n2 * cos_i) / (n1 * cos_t + n2 * cos_i + 1e-8)) ** 2
+    return rs, rp
+
+
+def fresnel_reflectance(cos_i, cos_t, n1, n2):
+    """Unpolarized Fresnel R = (Rs + Rp) / 2."""
+    rs, rp = fresnel_rs_rp(cos_i, cos_t, n1, n2)
+    return 0.5 * (rs + rp)
+
+
+def fresnel_dir(d, n, ior_in, ior_out, u):
+    """Monte-Carlo Fresnel: reflect where the per-ray uniform draw ``u`` <
+    R (R = 1 under total internal reflection, so those always reflect),
+    else refract.  The choice carries no derivative; each branch is
+    differentiable as reflect_dir and snell_dir are."""
+    dot, cos_i, n1, n2, mu, tir, cos_t, eff_sign = refract_components(
+        d, n, ior_in, ior_out)
+    R = torch.where(tir, 1.0, fresnel_reflectance(cos_i, cos_t, n1, n2))
+    reflect = u < R
+    v_reflect = v3.fma(d, -2.0 * dot, n)
+    coef = (mu * cos_i - cos_t) * eff_sign
+    v_refract = v3.fma(v3.scale(d, mu), coef, n)
+    return v3.where(reflect, v_reflect, v_refract)
 
 
 def corner_clip(n):

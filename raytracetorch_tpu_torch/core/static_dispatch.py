@@ -9,11 +9,14 @@ The port covers the kinds of the main path, of the ideal spherical mirror,
 of the pixelated phase plate and of the mixed-surface and asphere scenes:
 surface bounds NONE/DISK/RECT/HEMI/HEMI_APER, volume bounds
 NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics TRANSMIT, BLOCK, REFLECT
-(ideal mirror), SNELL, APERTURE and PHASE_GRID, even-asphere rows, and
-dispersive media (Cauchy and Sellmeier, ``dispersive_iors``).  Every other
-kind raises NotImplementedError naming the ROADMAP item that brings it.
-``medium_after`` gives the index of the medium a ray travels in after a
-row, for the optical path length (``track_opl``).
+(ideal mirror), SNELL, APERTURE and PHASE_GRID, the uncoated Fresnel kinds
+FRESNEL (the Monte-Carlo branch draw: it reads the ray's uniform ``u``),
+FRESNEL_W (refract, intensity times 1 - R) and REFLECT_W (the ghost
+reflection, intensity times R), even-asphere rows, and dispersive media
+(Cauchy and Sellmeier, ``dispersive_iors``).  Every other kind (coatings,
+metals, SCATTER among them) raises NotImplementedError naming the ROADMAP
+item that brings it.  ``medium_after`` gives the index of the medium a ray
+travels in after a row, for the optical path length (``track_opl``).
 """
 
 from __future__ import annotations
@@ -24,12 +27,15 @@ from ..constants import (CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS,
                          DispModel, PhysKind, SBKind, VBKind)
 from ..geom import vec3 as v3
 from ..geom.surfaces import sag_z
-from .physics import (phase_grid_dir, reflect_dir, refract_components,
-                      snell_dir)
+from .physics import (fresnel_dir, fresnel_reflectance, phase_grid_dir,
+                      reflect_dir, refract_components, snell_dir)
 
 # ROADMAP.md "Queue 1" items that bring the rest of the feature matrix
 TODO_FEATURES = 'ROADMAP Queue 1 item 12 (remaining sequential features)'
 TODO_ELEMENTS = 'ROADMAP Queue 1 item 14 (remaining elements)'
+# the Fresnel kinds of uncoated interfaces: the Monte-Carlo branch draw, the
+# weighted transmission and the ghost reflection
+FRESNEL_KINDS = (PhysKind.FRESNEL, PhysKind.FRESNEL_W, PhysKind.REFLECT_W)
 
 
 def sb_check_one(kind: int, sb, hit):
@@ -137,7 +143,7 @@ def unsupported(meta: StaticRowMeta):
         return f'physics {PhysKind(meta.ph).name} is {TODO_ELEMENTS}'
     if meta.ph not in (PhysKind.TRANSMIT, PhysKind.BLOCK, PhysKind.REFLECT,
                        PhysKind.SNELL, PhysKind.APERTURE,
-                       PhysKind.PHASE_GRID):
+                       PhysKind.PHASE_GRID) + FRESNEL_KINDS:
         return f'physics {PhysKind(meta.ph).name} is {TODO_FEATURES}'
     if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.RECT, SBKind.HEMI,
                        SBKind.HEMI_APER):
@@ -190,36 +196,60 @@ def dispersive_iors(row, wavelength_um, meta=None):
     return side(0, 0), side(1, 6)
 
 
-def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None):
+def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
     """Index of the medium a ray travels in AFTER this row, for the optical
     path length; None where the row leaves the medium unchanged.
 
-    SNELL moves the ray into the transmission-side medium unless total
-    internal reflection keeps it in the incidence medium: ``where(tir, n1,
-    n2)``; PHASE_GRID always transmits (an evanescent order is dead): ``n2``.
-    ``n1`` and ``n2`` come from ``refract_components``, so they follow the
-    side the ray arrives from (the sign of ``d . n``); a dispersive row
-    takes its indices at the rays' ``wavelength`` (``dispersive_iors``).
-    Every other ported kind returns None; the Fresnel and DOE kinds are
-    refused by ``unsupported``, as everywhere."""
+    SNELL and FRESNEL_W move the ray into the transmission-side medium
+    unless total internal reflection keeps it in the incidence medium:
+    ``where(tir, n1, n2)``; FRESNEL follows its drawn branch, ``where(u <
+    R, n1, n2)`` with R = 1 under TIR (``u``, the row's uniform, the same
+    one the physics read); PHASE_GRID always transmits (an evanescent order
+    is dead): ``n2``.  ``n1`` and ``n2`` come from ``refract_components``,
+    so they follow the side the ray arrives from (the sign of ``d . n``); a
+    dispersive row takes its indices at the rays' ``wavelength``
+    (``dispersive_iors``).  Every other ported kind (REFLECT_W among them)
+    returns None; the kinds the port lacks are refused by ``unsupported``,
+    as everywhere."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
-    if meta.ph not in (PhysKind.SNELL, PhysKind.PHASE_GRID):
+    if meta.ph not in (PhysKind.SNELL, PhysKind.PHASE_GRID, PhysKind.FRESNEL,
+                       PhysKind.FRESNEL_W):
         return None
     if meta.disp and wavelength is not None:
         n_in, n_out = dispersive_iors(row, wavelength, meta)
     else:
         n_in, n_out = row.ph[..., 0], row.ph[..., 1]
-    _, _, n1, n2, _, tir, _, _ = refract_components(d, n, n_in, n_out)
+    _, cos_i, n1, n2, _, tir, cos_t, _ = refract_components(d, n, n_in,
+                                                            n_out)
     if meta.ph == PhysKind.PHASE_GRID:
         return n2
+    if meta.ph == PhysKind.FRESNEL:
+        R = torch.where(tir, 1.0, fresnel_reflectance(cos_i, cos_t, n1, n2))
+        return torch.where(_draw(u) < R, n1, n2)
     return torch.where(tir, n1, n2)
 
 
+def _draw(u):
+    if u is None:
+        raise ValueError('a FRESNEL row needs its per-ray uniform draw u '
+                         '(core/trace.py passes it from the trace\'s '
+                         'generator or injected draws)')
+    return u
+
+
 def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
-                      wavelength=None, grid=None, plain=False):
+                      wavelength=None, grid=None, plain=False, u=None):
     """Single-kind physics -> (new direction tuple, intensity factor).
+
+    FRESNEL reflects where the row's uniform ``u`` < R (``fresnel_dir``;
+    intensity unchanged, the choice without derivative); FRESNEL_W refracts
+    (TIR reflects at full power) with intensity factor ``clip(1 - R, 0,
+    1)``; REFLECT_W reflects with ``clip(R, 0, 1)`` (1 under TIR).  R is
+    the unpolarized reflectance of the bare interface
+    (``fresnel_reflectance``), differentiable in the direction, the normal
+    and the indices.
 
     A dispersive row (``meta.disp``) takes its media indices per ray from
     ``dispersive_iors`` at the rays' ``wavelength`` (None: the d-line
@@ -246,6 +276,17 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
         return reflect_dir(d, n), ones
     if kind == PhysKind.SNELL:
         return snell_dir(d, n, n_in, n_out), ones
+    if kind == PhysKind.FRESNEL:
+        return fresnel_dir(d, n, n_in, n_out, _draw(u)), ones
+    if kind in (PhysKind.FRESNEL_W, PhysKind.REFLECT_W):
+        _, cos_i, n1, n2, _, tir, cos_t, _ = refract_components(
+            d, n, n_in, n_out)
+        R = fresnel_reflectance(cos_i, cos_t, n1, n2)
+        if kind == PhysKind.FRESNEL_W:
+            return snell_dir(d, n, n_in, n_out), torch.where(
+                tir, 1.0, torch.clamp(1.0 - R, 0.0, 1.0))
+        return reflect_dir(d, n), torch.where(tir, 1.0,
+                                              torch.clamp(R, 0.0, 1.0))
     if kind == PhysKind.PHASE_GRID:
         if grid is None:
             raise ValueError('a PHASE_GRID row needs its [H, W] map: pass '

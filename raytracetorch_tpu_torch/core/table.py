@@ -84,6 +84,16 @@ class SurfaceTable:
         return SurfaceTable(**{f.name: getattr(self, f.name)[k]
                                for f in dataclasses.fields(self)})
 
+    def index_rows(self, order):
+        """The table of rows ``order`` (a list of row indices, repeats
+        allowed), differentiable in every column."""
+        idx = torch.as_tensor(order, dtype=torch.long, device=self.q.device)
+        return SurfaceTable(**{f.name: getattr(self, f.name)[idx]
+                               for f in dataclasses.fields(self)})
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
 
 @dataclasses.dataclass
 class SurfaceRec:

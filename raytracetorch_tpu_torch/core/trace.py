@@ -27,10 +27,22 @@ loops are ported (``Streams``): ``track_opl`` (the optical path length
 ``aux['hit_weights']`` and, non-sequentially, ``aux['hit_slots']``), with
 the JAX package's keys, shapes and meaning.  The field stream, ``E0`` and
 fuzzy apodization come with their elements (ROADMAP Queue 1 item 14:
-polarization, fuzzy apertures) and raise; so do rows
-of the kinds the port lacks (GRIN, HALFSPACES, stochastic Fresnel and
-scatter), through ``unsupported``.  No supported kind draws random
-numbers, so the loops take no key.
+polarization, fuzzy apertures) and raise; so do rows of the kinds the port
+lacks (GRIN, HALFSPACES, coatings, metals, scatter), through
+``unsupported``.
+
+The Fresnel kinds FRESNEL_W and REFLECT_W are deterministic; FRESNEL draws
+one uniform per ray (rays/draws.py).  ``trace_sequential`` takes the
+caller's ``generator`` (one ``[N]`` stream per FRESNEL row, pre-drawn in
+row order, ``[F, N]``) or the streams themselves (``uniforms``); the
+non-sequential loops take ``generator`` (two Philox seed words drawn once)
+or injected ``draws(bounce, row) -> [N]``, and each bounce draws the
+counter-based value of (ray, bounce, row), so the host-side early stop
+changes no draw.  A table with a FRESNEL row and no source of draws raises
+ValueError: a trace never draws from a default seed.  A REFLECT_W row
+defines a ghost path (utils/ghosts.py): a ray that misses it leaves the
+sequential trace with intensity 0, as the JAX package's ``_surface_step``
+kills it.
 
 These are the eager differentiable paths (``simulate``); the fused CUDA
 kernels run the same functions (ops/fused_trace.py for the chain,
@@ -42,8 +54,9 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import BIG
+from ..constants import BIG, PhysKind
 from ..geom import vec3 as v3
+from ..rays.draws import nonseq_draws, sequential_uniforms, stream_index
 from ..rays.ray import Rays
 from .intersect import intersect, normal_world
 from .sensor import SensorConfig, SensorState
@@ -75,16 +88,18 @@ class Streams:
             return Streams(rays, record_paths, record_hits, track_opl, launch)
         return None
 
-    def surface(self, meta, row, prev: Rays, out: Rays, res, n_w, active):
+    def surface(self, meta, row, prev: Rays, out: Rays, res, n_w, active,
+                u=None):
         """A sequential row: opl += n_cur t where active, then the medium
-        after the row (``medium_after``); the position after the row; the
-        RAW surface-local hit of every ray and, as its weight, the
-        intensity after the row where active (0 elsewhere), on every row."""
+        after the row (``medium_after``, a FRESNEL row's with its draw
+        ``u``); the position after the row; the RAW surface-local hit of
+        every ray and, as its weight, the intensity after the row where
+        active (0 elsewhere), on every row."""
         if self.opl is not None:
             self.opl = self.opl + torch.where(active, self.n_cur * res['t'],
                                               0.0)
             n_next = medium_after(meta, row, prev.dir_c, n_w,
-                                  prev.wavelength)
+                                  prev.wavelength, u)
             if n_next is not None:
                 self.n_cur = torch.where(active, n_next, self.n_cur)
         if self.paths is not None:
@@ -134,21 +149,22 @@ class Streams:
 
 
 def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
-                  static_meta, plain=False, grid=None, streams=None):
+                  static_meta, plain=False, grid=None, streams=None, u=None):
     """Apply one surface interaction to the whole ray batch (masked).
 
     ``row`` is a SurfaceTable row or a FlatRow (a row of the fused kernel's
     flat table): only its float columns are read; the kinds come from
-    ``static_meta``.  ``grid`` is the row's phase map (PHASE_GRID rows).
-    ``plain=True`` bins the grid and reads the map's corners with their
-    plain versions on any device.  ``streams`` (a ``Streams``) records the
-    row."""
+    ``static_meta``.  ``grid`` is the row's phase map (PHASE_GRID rows),
+    ``u`` its ``[N]`` uniforms (FRESNEL rows).  ``plain=True`` bins the grid
+    and reads the map's corners with their plain versions on any device.
+    ``streams`` (a ``Streams``) records the row.  A ray that misses a
+    REFLECT_W row leaves the path: its intensity becomes 0."""
     res = intersect(row, rays.pos_c, rays.dir_c, static_meta)
     active = res['valid'] & (rays.intensity > 0)
     n_w = normal_world(row, res['hit_s'], static_meta)
     new_dir, imod = apply_physics_one(static_meta, row, res['hit_s'],
                                       rays.dir_c, n_w, rays.wavelength,
-                                      grid, plain)
+                                      grid, plain, u)
     new_pos = v3.fma(rays.pos_c, res['t'], rays.dir_c)
     if static_meta.sensor:
         # sensors record the surface-local hit and the INCOMING intensity
@@ -156,20 +172,25 @@ def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
         sensors = sensors.record(cfg, static_meta.slot, rays.ray_id,
                                  res['hit_s'], w, plain=plain)
     out = rays.masked_update(active, new_pos, new_dir, imod)
+    if static_meta.ph == PhysKind.REFLECT_W:
+        out = out.replace(intensity=torch.where(active, out.intensity, 0.0))
     if streams is not None:
-        streams.surface(static_meta, row, rays, out, res, n_w, active)
+        streams.surface(static_meta, row, rays, out, res, n_w, active, u)
     return out, sensors
 
 
 def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
-                  plain=False, grids=None, streams=None):
+                  plain=False, grids=None, streams=None, uniforms=None):
     """The sequential chain over ``rows`` (one per static_meta entry) ->
-    ``(rays, sensors)``; ``streams`` records every row."""
+    ``(rays, sensors)``; ``streams`` records every row; ``uniforms`` holds
+    the FRESNEL rows' ``[F, N]`` draws in row order (rays/draws.py)."""
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
+    first = stream_index(static_meta)
     for k, meta in enumerate(static_meta):
+        u = uniforms[first[k]] if k in first else None
         rays, sensors = _surface_step(rows[k], rays, cfg, sensors, meta,
                                       plain=plain, grid=(grids or {}).get(k),
-                                      streams=streams)
+                                      streams=streams, u=u)
     return rays, sensors
 
 
@@ -182,22 +203,27 @@ def _refuse_unported(track_field=False, E0=None, fuzzy_fns=None):
 def trace_sequential(table, rays: Rays, cfg: SensorConfig = SensorConfig(),
                      static_meta=None, grids=None, record_paths=False,
                      record_hits=False, track_opl=False, track_field=False,
-                     E0=None, fuzzy_fns=None):
+                     E0=None, fuzzy_fns=None, generator=None, uniforms=None):
     """Ordered pass over every surface row; returns ``(rays, sensors,
     aux)``.  ``grids`` maps each PHASE_GRID row to its ``[H, W]`` phase
-    map.  ``aux`` holds the streams asked for (``Streams``): ``paths [K+1,
-    N, 3]`` (the launch position, then the position after each row),
-    ``hits [K, N, 3]`` and ``hit_weights [K, N]``, ``opl`` and ``n_final``
-    ``[N]``."""
+    map.  A table with FRESNEL rows reads one ``[N]`` uniform stream per
+    such row, in row order: ``uniforms`` (``[F, N]``) when given, else drawn
+    from ``generator`` (a ``torch.Generator``; rays/draws.py::row_uniforms);
+    with neither it raises ValueError.  ``aux`` holds the streams asked for
+    (``Streams``): ``paths [K+1, N, 3]`` (the launch position, then the
+    position after each row), ``hits [K, N, 3]`` and ``hit_weights [K, N]``,
+    ``opl`` and ``n_final`` ``[N]``."""
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_sequential needs one StaticRowMeta per row '
                          '(SequentialScene.static_meta())')
     _refuse_unported(track_field, E0, fuzzy_fns)
+    u = sequential_uniforms(static_meta, rays.n, rays.px.device, generator,
+                            uniforms)
     dtype = torch.promote_types(rays.px.dtype, table.tw.dtype)
     streams = Streams.of(rays, record_paths, record_hits, track_opl)
     rows = [table.row(k) for k in range(table.n_surfaces)]
     rays, sensors = surface_chain(rows, rays, cfg, static_meta, dtype,
-                                  grids=grids, streams=streams)
+                                  grids=grids, streams=streams, uniforms=u)
     return rays, sensors, streams.aux() if streams is not None else {}
 
 
@@ -217,11 +243,15 @@ def nearest_hit(table, pos, direction, static_meta):
 
 
 def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
-                static_meta, plain=False, grids=None, streams=None):
+                static_meta, plain=False, grids=None, streams=None,
+                draws=None, bounce=0):
     """One non-sequential bounce -> ``(rays, sensors, active [N])``.
 
     ``rows`` holds one row per table row (SurfaceTable rows or FlatRows);
-    ``grids`` maps each PHASE_GRID row to its phase map.
+    ``grids`` maps each PHASE_GRID row to its phase map; ``draws(bounce,
+    row) -> [N]`` gives a FRESNEL row's uniforms at bounce ``bounce``
+    (rays/draws.py::NonseqDraws; every row draws its own, so drawing them
+    all and selecting the winner's equals drawing the winner's alone).
     Each row's intersection and physics are computed once for all rays and
     where-merged into the running nearest hit; comparisons have no
     derivative, so gradients flow through the winner's computation alone.
@@ -246,15 +276,16 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
         mask = (res['t'] < best_t) & res['valid'] & live
         best_t = torch.where(mask, res['t'], best_t)
         n_w = normal_world(row, res['hit_s'], meta)
+        u = draws(bounce, k) if meta.ph == PhysKind.FRESNEL else None
         dir_k, imod_k = apply_physics_one(meta, row, res['hit_s'], d, n_w,
                                           rays.wavelength,
-                                          (grids or {}).get(k), plain)
+                                          (grids or {}).get(k), plain, u)
         new_pos = v3.where(mask, v3.fma(pos, res['t'], d), new_pos)
         new_dir = v3.where(mask, dir_k, new_dir)
         imod_all = torch.where(mask, imod_k, imod_all)
         active_any = active_any | mask
         if track_opl:
-            n_k = medium_after(meta, row, d, n_w, rays.wavelength)
+            n_k = medium_after(meta, row, d, n_w, rays.wavelength, u)
             n_next = torch.where(mask, n_k if n_k is not None
                                  else streams.n_cur, n_next)
         if meta.sensor:
@@ -273,16 +304,20 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
 
 
 def bounce_loop(rows, rays: Rays, n_bounces: int, cfg: SensorConfig,
-                static_meta, dtype, plain=False, grids=None, streams=None):
+                static_meta, dtype, plain=False, grids=None, streams=None,
+                draws=None):
     """Up to ``n_bounces`` bounce steps, stopping after the first bounce in
     which no ray interacted -> ``(rays, sensors)``.  ``streams`` records
     every bounce of the full budget: the bounces after the stop as settled
-    (``Streams.settled``)."""
+    (``Streams.settled``).  ``draws`` as for ``bounce_step`` (None: no row
+    draws); the stop changes no draw, each being a function of its
+    bounce."""
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
     for b in range(n_bounces):
         rays, sensors, act = bounce_step(rows, rays, cfg, sensors,
                                          static_meta, plain=plain,
-                                         grids=grids, streams=streams)
+                                         grids=grids, streams=streams,
+                                         draws=draws, bounce=b)
         if not bool(act.any()):
             if streams is not None:
                 for _ in range(b + 1, n_bounces):
@@ -295,15 +330,20 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
                         cfg: SensorConfig = SensorConfig(), static_meta=None,
                         record_paths=False, record_hits=False,
                         track_field=False, E0=None, track_opl=False,
-                        fuzzy_fns=None, grids=None):
+                        fuzzy_fns=None, grids=None, generator=None,
+                        draws=None):
     """Bounce loop within a budget of ``n_bounces`` (the reference's
     ``Scene.simulate``); returns ``(rays, sensors, aux)``.  ``grids`` maps
-    each PHASE_GRID row to its ``[H, W]`` phase map.  ``aux`` holds the
-    streams asked for: ``paths [B, N, 3]`` (the position after each bounce
-    of the full budget B), ``hits [B, N, 3]``, ``hit_weights [B, N]`` and
-    ``hit_slots [B, N]`` int32 (the winning sensor's local hit, the incoming
-    intensity and the slot; a nearer non-sensor winner zeroes the weight),
-    ``opl`` and ``n_final`` ``[N]``."""
+    each PHASE_GRID row to its ``[H, W]`` phase map.  A table with FRESNEL
+    rows draws from ``generator`` (two Philox seed words, drawn once) or
+    from ``draws(bounce, row) -> [N]`` (injected;
+    rays/draws.py::nonseq_draws); with neither it raises ValueError.
+    ``aux`` holds the streams asked for: ``paths [B, N, 3]`` (the position
+    after each bounce of the full budget B), ``hits [B, N, 3]``,
+    ``hit_weights [B, N]`` and ``hit_slots [B, N]`` int32 (the winning
+    sensor's local hit, the incoming intensity and the slot; a nearer
+    non-sensor winner zeroes the weight), ``opl`` and ``n_final``
+    ``[N]``."""
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_nonsequential needs one StaticRowMeta per '
                          'row (Scene.static_meta())')
@@ -312,10 +352,12 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
         why = unsupported(meta)
         if why:
             raise NotImplementedError(f'non-sequential trace, row {k}: {why}')
+    rng = nonseq_draws(static_meta, rays.n, rays.px.device, generator, draws)
     rows = [table.row(k) for k in range(table.n_surfaces)]
     dtype = torch.promote_types(rays.px.dtype, table.tw.dtype)
     streams = Streams.of(rays, record_paths, record_hits, track_opl,
                          launch=False)
     rays, sensors = bounce_loop(rows, rays, n_bounces, cfg, static_meta,
-                                dtype, grids=grids, streams=streams)
+                                dtype, grids=grids, streams=streams,
+                                draws=rng)
     return rays, sensors, streams.aux() if streams is not None else {}

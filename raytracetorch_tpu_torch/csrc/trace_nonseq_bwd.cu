@@ -8,8 +8,8 @@
 // vector-Jacobian product (tests/test_pallas.py::
 // test_nonseq_bwd_scan_matches_unrolled holds them equal), so this one kernel
 // is the counterpart of both, for K5's kinds (pixelated phase plates and the
-// extended kinds included) and the optical path length, with every other
-// optional stream off.
+// extended kinds included), the optical path length and the Fresnel kinds
+// with their draws, with every other optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -96,6 +96,17 @@
 //   word, its cotangent being the same at every bounce), and the reverse
 //   sweep runs K2's path-length adjoint of the winner.
 //
+// - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W): a sixth
+//   instantiation, kFresnel, built on the fifth (an overload with one more
+//   argument, the Philox key of K5's draws), so that the others keep their
+//   code.  The TPU scan kernel replays its in-kernel draws by reseeding per
+//   tile and bounce (_kernel_nonseq_bwd_scan :2227-2246); here a FRESNEL
+//   winner's draw is philox_uniform of (ray, bounce, row), so the first
+//   replay and every segment replay recompute K5's very draws from their
+//   counters, and nothing is stored.  The drawn branch is a saved bit
+//   (kReflect), and the reverse sweep runs K2's Fresnel adjoints
+//   (trace_seq_adjoint.cuh).
+//
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
 // H100's 3.35 TB/s.  Its arithmetic is K5's (the replay scans every row on
@@ -142,22 +153,24 @@ constexpr unsigned kFull = 0xffffffffu;
 // One bounce of K5 (nonseq_bounce, the very function K5 runs).  Returns the
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
 // winner's branch bits.  With kOpl, n_cur becomes the winner's medium
-// (medium_after, as K5's instantiation with the streams takes it).
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+// (medium_after, as K5's instantiation with the streams takes it).  With
+// kFresnel a FRESNEL winner draws at `rd`'s counter, as K5 drew.
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
-                                      uint32_t& bits, float* n_cur = nullptr) {
+                                      uint32_t& bits, float* n_cur = nullptr,
+                                      const RayDraw* rd = nullptr) {
   RowHit hw = {};
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce<kPlates, kExt, kDispersion>(recs, tab, knd, n_rows, pl, p, d,
-                                                           inten, hw, kw, &degen, &br);
-  if (k >= 0) bits = branch_bits(hw, degen, br) | kActive;
+  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel>(
+      recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd);
+  if (k >= 0) bits = branch_bits<kFresnel>(hw, degen, br) | kActive;
   if constexpr (kOpl) {
     if (k >= 0)
-      *n_cur = medium_after<kDispersion>(tab + k * kRowWidth, kw, br.from_in, br.tir, pl.wl,
-                                         *n_cur);
+      *n_cur = medium_after<kDispersion, kFresnel>(tab + k * kRowWidth, kw, br.from_in, br.tir,
+                                                   pl.wl, *n_cur, br.reflect);
   }
   return k;
 }
@@ -193,12 +206,14 @@ struct OplIn {
   const float* g_nfinal;
 };
 
-// The kernel's body, shared by its five instantiations (the kernels below).
+// The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the replays also carry the index of the
 // medium, each checkpoint keeps the one before its bounce as a ninth word
 // (a segment replay recomputes it from the launch, as it recomputes the
 // rest), and the reverse sweep runs row_backward's path-length adjoint.
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+// With kFresnel (which has kOpl) every replayed bounce draws under `key` at
+// its own counter (ray, bounce).
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -215,7 +230,8 @@ __device__ __forceinline__ void nonseq_bwd(
     int n_slots, int n_bundles, GridCt gg, const float* __restrict__ maps,
     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
     float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}) {
+    OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}) {
+  static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
@@ -268,13 +284,15 @@ __device__ __forceinline__ void nonseq_bwd(
   float inten = i0;
   int n_live = 0;
   float n_cur = 1.0f;  // kOpl: the medium (index 1 at launch)
+  RayDraw rd = {key, static_cast<uint32_t>(i), 0u};  // kFresnel: the draws' counter
 #pragma unroll 1
   for (int b = 0; b < n_bounces && inten > 0.0f; ++b) {
     const V3 pb = p, db = d;
     const float ib = inten, nb = n_cur;
     uint32_t bits = 0;
-    const int k = bounce<kPlates, kExt, kDispersion, kOpl>(recs, tab, knd, n_rows, pl, p, d,
-                                                           inten, bits, &n_cur);
+    rd.bounce = static_cast<uint32_t>(b);
+    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel>(
+        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -319,15 +337,18 @@ __device__ __forceinline__ void nonseq_bwd(
       n_cur = 1.0f;
       uint32_t bits = 0;
 #pragma unroll 1
-      for (int b = 0; b < s; ++b)
-        bounce<kPlates, kExt, kDispersion, kOpl>(recs, tab, knd, n_rows, pl, p, d, inten, bits,
-                                                 &n_cur);
+      for (int b = 0; b < s; ++b) {
+        rd.bounce = static_cast<uint32_t>(b);
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel>(recs, tab, knd, n_rows, pl, p, d,
+                                                           inten, bits, &n_cur, &rd);
+      }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten, nb = n_cur;
-        const int k = bounce<kPlates, kExt, kDispersion, kOpl>(recs, tab, knd, n_rows, pl, p, d,
-                                                               inten, bits, &n_cur);
+        rd.bounce = static_cast<uint32_t>(s + j);
+        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel>(
+            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
       }
@@ -352,9 +373,9 @@ __device__ __forceinline__ void nonseq_bwd(
         int dispm = 0;
         if (act) {
           const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
-          row_backward<kPlates, kExt, kDispersion, kOpl>(tab + k * kRowWidth, kd, sp, sd, si,
-                                                         word & 0xffffu, rid, gm, n_bundles, gg,
-                                                         pl, gmaps, gp, gd, gi, tg, &wc, &oc);
+          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel>(
+              tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm, n_bundles, gg, pl,
+              gmaps, gp, gd, gi, tg, &wc, &oc);
           dispm = kd.dispm;
         }
         if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, n_cols, lane);
@@ -449,10 +470,19 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi) {
   nonseq_bwd<kPlates, kExt, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi);
 }
 
-// The types of the three kernels.
+// The kernel with those and the Fresnel kinds.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key) {
+  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key);
+}
+
+// The types of the four kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
+using BwdFresnelKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
@@ -472,9 +502,12 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int d
 }
 
 // The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
 const void* kernel_fn() {
-  if constexpr (kOpl)
+  if constexpr (kFresnel)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFresnelKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kOpl)
     return reinterpret_cast<const void*>(
         static_cast<BwdOplKernel>(trace_nonseq_bwd_kernel<true, true>));
   else if constexpr (kDispersion)
@@ -486,10 +519,10 @@ const void* kernel_fn() {
 }
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -588,7 +621,9 @@ extern "C" int rtt_trace_nonseq_bwd(
 // arguments of rtt_trace_nonseq_bwd (its `ext` implied: `maps`, `map_desc`
 // and `wavelength` must be given, a PHASE_GRID row or not), then `g_opl`
 // and `g_nfinal`, the cotangents of K5's opl and n_final streams (n floats
-// each; null: zero).  Returns a cudaError_t.
+// each; null: zero).  `fresnel` nonzero selects the instantiation with the
+// Fresnel kinds, which replays K5's draws under its Philox key (key0,
+// key1); without it the key is ignored.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -599,7 +634,8 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
     float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, int n_bounces, long long n, void* stream) {
+    const float* g_nfinal, uint32_t key0, uint32_t key1, int fresnel, int n_bounces,
+    long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -610,16 +646,21 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const size_t smem =
       shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  const cudaError_t e = prepare<true, true, true, true>(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  trace_nonseq_bwd_kernel<true, true>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
-          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx,
-          rpy, rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
-          GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces, n,
-          wo, OplIn{g_opl, g_nfinal});
-  return static_cast<int>(cudaGetLastError());
+  // one launch for both instantiations: the Fresnel kernel's overload takes
+  // the key as its last argument
+  auto go = [&](auto... draws) {
+    const cudaError_t e = prepare<true, true, true, true, sizeof...(draws) != 0>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    trace_nonseq_bwd_kernel<true, true>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+            gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx,
+            rpy, rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
+            GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces,
+            n, wo, OplIn{g_opl, g_nfinal}, draws...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return fresnel ? go(PhiloxKey{key0, key1}) : go();
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
@@ -627,7 +668,8 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without
 // plate code, 1 with it, 2 with it and the extended kinds, 3 with those and
 // dispersion on a table with a dispersive row, 4 the instantiation with the
-// path length on such a table.  Returns a cudaError_t.
+// path length on such a table, 5 the one with the Fresnel kinds on such a
+// table.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
@@ -635,7 +677,11 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 4) {
+  if (code == 5) {
+    smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
+    e = prepare<true, true, true, true, true>(smem);
+    fn = kernel_fn<true, true, true, true, true>();
+  } else if (code == 4) {
     smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
     e = prepare<true, true, true, true>(smem);
     fn = kernel_fn<true, true, true, true>();

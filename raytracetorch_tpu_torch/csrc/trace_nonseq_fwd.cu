@@ -7,8 +7,10 @@
 // (HEMI_APER bound), pixelated phase plates, the extended kinds of the
 // mixed-surface and asphere scenes and dispersive media, with every other
 // optional stream off but the deterministic ones (the optical path length,
-// path and hit recording, in an instantiation of their own, below): no
-// random draws, field, fuzzy apodization, GRIN or HALFSPACES rows.
+// path and hit recording, in an instantiation of their own, below) and the
+// Fresnel kinds of uncoated interfaces with their draws (one more
+// instantiation): no scatter draws, field, fuzzy apodization, GRIN or
+// HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -87,6 +89,19 @@
 // the JAX loop's dead branch records them.  The records are bytes: 32 B a
 // ray and bounce, 256 B at the naive scene's 8-bounce budget, against the
 // 72 B of the rest.
+//
+// The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W) run in one more
+// instantiation, kFresnel, of the streams' body (an overload with one more
+// argument, the Philox key), so every other instantiation keeps its code.
+// The TPU kernel draws with the TPU's own generator, reseeded per tile and
+// bounce (_kernel_nonseq :1102-1114), which cannot be reproduced off the
+// TPU.  Here a FRESNEL winner draws philox_uniform (trace_seq_common.cuh) of
+// the counter (ray, bounce, row): a pure function, so the draw of the
+// winning row alone equals the eager loop's draw of every row then the
+// winner's, K6 replays it by its counter with nothing stored, and the
+// plain version (rays/draws.py) draws the same values.  Ten Philox rounds
+// cost ~100 integer operations a FRESNEL winner, against the ~400 of a
+// bounce's row scan on the naive scene.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
@@ -258,8 +273,9 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // was the nearest when the scan met it, and the incoming intensity where a
 // sensor won, 0 where a nearer row did), and from the bounce at which the
 // ray leaves its loop to the budget the settled ones: the position
-// unchanged, zero hits, weights and slots.
-template <int kMomBucket>
+// unchanged, zero hits, weights and slots.  With kFresnel it also runs the
+// Fresnel kinds, a FRESNEL winner drawing Philox under `key`.
+template <int kMomBucket, bool kFresnel = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -270,7 +286,8 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     float* __restrict__ ointensity, float* __restrict__ partials, int n_slots, int n_bundles,
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
-    const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so) {
+    const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so,
+    PhiloxKey key = {0u, 0u}) {
   constexpr bool kPlates = true, kExt = true;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -331,14 +348,16 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     RowKinds kd = {};
     PhysBranch br = {};
     SensorRec rec;
-    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true>(
-        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec);
+    const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
+    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel>(
+        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd);
     if (k_win < 0) {
       b_end = b;
       break;
     }
     opl = opl + n_cur * hw.t;
-    n_cur = medium_after<kExt>(tab + k_win * kRowWidth, kd, br.from_in, br.tir, pl.wl, n_cur);
+    n_cur = medium_after<kExt, kFresnel>(tab + k_win * kRowWidth, kd, br.from_in, br.tir, pl.wl,
+                                         n_cur, br.reflect);
     if (live && so.paths != nullptr) {
       float* dst = so.paths + 3 * b * n + i;
       dst[0] = p.x;
@@ -446,17 +465,41 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so) {
   nonseq_fwd_streams<kMomBucket>(RTT_NONSEQ_FWD_ARGS, so);
 }
 
-// The types of the two kernels.
+// The kernel with the streams and the Fresnel kinds.
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key) {
+  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
+  nonseq_fwd_streams<kMomBucket, true>(RTT_NONSEQ_FWD_ARGS, so, key);
+}
+
+// Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
+// one after the other), into 4 n words: the device generator's known-answer
+// check (tests/test_torch_cuda.py, chip_smoke.py).
+__global__ void philox_kernel(const uint32_t* __restrict__ ctr, const uint32_t* __restrict__ key,
+                              uint32_t* __restrict__ out, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  uint32_t c[4] = {ctr[4 * j], ctr[4 * j + 1], ctr[4 * j + 2], ctr[4 * j + 3]};
+  philox4x32(c, PhiloxKey{key[2 * j], key[2 * j + 1]});
+  for (int w = 0; w < 4; ++w) out[4 * j + w] = c[w];
+}
+
+// The types of the three kernels.
 using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
+using FwdFresnelKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
 
 // The kernel of an instantiation.
-template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false>
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false>
 const void* kernel_fn() {
-  if constexpr (kStreams)
+  if constexpr (kFresnel)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFresnelKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else if constexpr (kStreams)
     return reinterpret_cast<const void*>(
         static_cast<FwdStreamKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
   else
@@ -473,10 +516,10 @@ struct PlateArgs {
 };
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false>
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kMomBucket, kPlates, kExt, kStreams>(),
+  return cudaFuncSetAttribute(kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -514,10 +557,14 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 }
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
-// it and the extended kinds, 4 the one with the streams) and moment bucket,
-// its shared memory allowed.
+// it and the extended kinds, 4 the one with the streams, 5 the one with the
+// Fresnel kinds) and moment bucket, its shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 5) {
+    *e = prepare<kMomBucket, true, true, true, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, true>();
+  }
   if (code == 4) {
     *e = prepare<kMomBucket, true, true, true>(smem);
     return kernel_fn<kMomBucket, true, true, true>();
@@ -534,20 +581,24 @@ const void* kernel_of(int code, size_t smem, cudaError_t* e) {
   return kernel_fn<kMomBucket, false, false>();
 }
 
-template <int kMomBucket>
+// The instantiation with the streams, or with `draws` (the Philox key) the
+// one with the Fresnel kinds too: the Fresnel kernel's overload takes the
+// key as its last argument.
+template <int kMomBucket, class... Draws>
 int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const float* table,
                    const int32_t* kinds, int n_rows, const float* const* rays,
                    const int32_t* ray_id, float* const* outs, float* partials, int n_slots,
                    int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
-                   const PlateArgs& pa, int n_bounces, long long n, const StreamOut& so) {
-  const cudaError_t e = prepare<kMomBucket, true, true, true>(smem);
+                   const PlateArgs& pa, int n_bounces, long long n, const StreamOut& so,
+                   Draws... draws) {
+  const cudaError_t e = prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   trace_nonseq_fwd_kernel<kMomBucket, true, true>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
           ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials,
           n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa.maps, pa.desc, pa.wavelength,
-          n_bounces, n, so);
+          n_bounces, n, so, draws...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,7 +655,9 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
 // outputs, each null when not wanted: `opl` and `n_final` (n floats each),
 // `paths` (n_bounces * 3 * n floats), `hits` (n_bounces * 3 * n), `hit_w`
 // (n_bounces * n floats) and `hit_slot` (n_bounces * n int32, both given
-// with `hits`).  Returns a cudaError_t.
+// with `hits`).  `fresnel` nonzero selects the instantiation with the
+// Fresnel kinds, whose FRESNEL rows draw under the Philox key (key0, key1);
+// without it the key is ignored.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -612,7 +665,8 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, int32_t* hit_slot, int n_bounces, long long n, void* stream) {
+    float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, int fresnel, int n_bounces,
+    long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -629,13 +683,27 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PlateArgs pa = {maps, map_desc, wavelength};
   const StreamOut so = {opl, n_final, paths, hits, hit_w, hit_slot};
-  if (n_slots * n_bundles == 1)
-    return launch_streams<1>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
-                             n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa, n_bounces, n,
-                             so);
-  return launch_streams<64>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs, partials,
-                            n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa, n_bounces, n,
-                            so);
+  auto go = [&](auto... draws) {
+    if (n_slots * n_bundles == 1)
+      return launch_streams<1>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
+                               n_bounces, n, so, draws...);
+    return launch_streams<64>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
+                              n_bounces, n, so, draws...);
+  };
+  return fresnel ? go(PhiloxKey{key0, key1}) : go();
+}
+
+// Philox4x32-10 of n counters (4 n words) under n keys (2 n words) into out
+// (4 n words), on `stream`: the known-answer check of the device generator.
+// Returns a cudaError_t.
+extern "C" int rtt_philox4x32(const uint32_t* ctr, const uint32_t* key, uint32_t* out, int n,
+                              void* stream) {
+  if (n <= 0) return 0;
+  philox_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ctr, key, out, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
@@ -643,7 +711,8 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
 // memory, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 // `code`: 0 without plate code, 1 with it, 2 (or 3, as K2's and K6's code
 // for a table with a dispersive row) with it and the extended kinds, 4 the
-// instantiation with the streams.  Returns a cudaError_t.
+// instantiation with the streams, 5 the one with the Fresnel kinds.
+// Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)

@@ -12,6 +12,16 @@
 // apply_physics, through their optional branch outputs), so a replay reaches
 // the forward's state bit for bit and its bits belong to the branch the
 // forward took.
+//
+// The Fresnel kinds (kFresnel): FRESNEL's drawn branch is a saved bit
+// (kReflect), and its adjoint goes through the chosen direction alone (the
+// choice has no derivative); FRESNEL_W's and REFLECT_W's intensity factor
+// clip(1 - R, 0, 1) and clip(R, 0, 1) pass their cotangent through the
+// unpolarized reflectance R of the interface (fresnel_weight_backward) into
+// the direction, the normal (so the curvatures), the indices and, on a
+// dispersive row, the wavelength; the clip passes it inside [0, 1] (its
+// bounds included, as torch.clamp), TIR none.  A REFLECT_W row that a ray
+// misses zeroes its intensity, so the intensity's cotangent stops there.
 
 #pragma once
 
@@ -56,6 +66,7 @@ constexpr uint32_t kMod = 1u << 9;      // APERTURE passes the ray
 constexpr uint32_t kPgOk = 1u << 10;    // PHASE_GRID: not evanescent
 constexpr uint32_t kUClip = 1u << 11;   // PHASE_GRID: u clipped
 constexpr uint32_t kVClip = 1u << 12;   // PHASE_GRID: v clipped
+constexpr uint32_t kReflect = 1u << 13; // FRESNEL: the draw chose reflection
 
 // A ray's saved state at one row or bounce: the input p, d and intensity
 // and one word of bits, kStateWords 32-bit words.  The backward kernels
@@ -139,42 +150,54 @@ struct GridCt {
   float e;
 };
 
-// The physics reads the normal's value: REFLECT and SNELL (and, for the
-// side d.n < 0 alone, PHASE_GRID, whose adjoint takes that side from its
-// bits and gives the normal no cotangent).
-__device__ __forceinline__ bool uses_normal(int ph) { return ph == REFLECT || ph == SNELL; }
+// The physics reads the normal's value: REFLECT and SNELL, and with
+// kFresnel the Fresnel kinds (and, for the side d.n < 0 alone, PHASE_GRID,
+// whose adjoint takes that side from its bits and gives the normal no
+// cotangent).
+template <bool kFresnel = false>
+__device__ __forceinline__ bool uses_normal(int ph) {
+  return ph == REFLECT || ph == SNELL ||
+         (kFresnel && (ph == FRESNEL || ph == FRESNEL_W || ph == REFLECT_W));
+}
 
 // The bits of a row's branches, from the hit, the normal's degeneracy and the
 // physics branches (without kActive).
+template <bool kFresnel = false>
 __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
                                                 const PhysBranch& br) {
   return (h.root1 ? kRoot1 : 0u) | (h.root2 ? kRoot2 : 0u) | (h.linear ? kLinear : 0u) |
          (degen ? kDegen : 0u) | (br.from_in ? kFromIn : 0u) | (br.dn_pos ? kDnPos : 0u) |
          (br.tir ? kTir : 0u) | (br.n2_small ? kN2Small : 0u) | (br.pass ? kMod : 0u) |
-         (br.pg_ok ? kPgOk : 0u) | (br.u_clip ? kUClip : 0u) | (br.v_clip ? kVClip : 0u);
+         (br.pg_ok ? kPgOk : 0u) | (br.u_clip ? kUClip : 0u) | (br.v_clip ? kVClip : 0u) |
+         (kFresnel && br.reflect ? kReflect : 0u);
 }
 
 // One row of K1's chain: updates (p, d, inten) where the row is active and
-// returns the row's bits.
-template <bool kPlates, bool kExt = false, bool kDispersion = kExt>
+// returns the row's bits.  With kFresnel a FRESNEL row draws with the ray's
+// uniform u, and a REFLECT_W row zeroes the intensity of a ray it does not
+// hold.
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
-                                                const Plates& pl, V3& p, V3& d, float& inten) {
+                                                const Plates& pl, V3& p, V3& d, float& inten,
+                                                float u = 0.0f) {
   const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
   bool degen = false;
-  const V3 nw = uses_normal(kd.ph) || (kPlates && kd.ph == PHASE_GRID)
+  const V3 nw = uses_normal<kFresnel>(kd.ph) || (kPlates && kd.ph == PHASE_GRID)
                     ? world_normal<kExt>(r, kd.plane, h.hs, &degen, kd.asph)
                     : V3{0.0f, 0.0f, 1.0f};
   PhysBranch br = {};
   V3 nd;
   float imod;
-  apply_physics<kPlates, kExt, kDispersion>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod,
-                                            &br, kd.dispm);
-  uint32_t bits = branch_bits(h, degen, br);
+  apply_physics<kPlates, kExt, kDispersion, kFresnel>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl,
+                                                      nd, imod, &br, kd.dispm, u);
+  uint32_t bits = branch_bits<kFresnel>(h, degen, br);
   if (h.valid && inten > 0.0f) {
     bits |= kActive;
     p = fma3(p, h.t, d);
     d = nd;
     inten = inten * imod;
+  } else if (kFresnel && kd.ph == REFLECT_W) {
+    inten = 0.0f;
   }
   return bits;
 }
@@ -185,12 +208,22 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
 // plus a term of the wavelength (Cauchy), ph[side] (constant) or the
 // Sellmeier formula, which reads no ph: tg takes the cotangents of the first
 // two kinds, and wc keeps both for disp_backward, which carries them on to
-// the disp columns and the wavelength after tg is reduced.
-template <bool kDispersion>
+// the disp columns and the wavelength after tg is reduced.  A row's first
+// call sets wc's indices' cotangents; with kAdd a further call of the same
+// row (the Fresnel weights' reflectance) adds to them.
+template <bool kDispersion, bool kAdd = false>
 __device__ __forceinline__ void media_backward(int dispm, bool from_in, float g_n1, float g_n2,
                                                float* tg, WaveCt* wc) {
   if constexpr (kDispersion) {
     if (dispm != 0) {
+      if constexpr (kAdd) {
+        const float g_in = from_in ? g_n1 : g_n2, g_out = from_in ? g_n2 : g_n1;
+        wc->n_in += g_in;
+        wc->n_out += g_out;
+        if (disp_model(dispm, 0) != DISP_SELLMEIER) tg[kGPh] += g_in;
+        if (disp_model(dispm, 1) != DISP_SELLMEIER) tg[kGPh + 1] += g_out;
+        return;
+      }
       wc->n_in = from_in ? g_n1 : g_n2;
       wc->n_out = from_in ? g_n2 : g_n1;
       if (disp_model(dispm, 0) != DISP_SELLMEIER) tg[kGPh] += wc->n_in;
@@ -200,6 +233,69 @@ __device__ __forceinline__ void media_backward(int dispm, bool from_in, float g_
   }
   tg[kGPh] += from_in ? g_n1 : g_n2;
   tg[kGPh + 1] += from_in ? g_n2 : g_n1;
+}
+
+// The forward values of the refraction at a Fresnel row (kFresnel), from the
+// saved sides (kFromIn, kN2Small): core/physics.py::refract_components away
+// from TIR.
+struct FresnelFwd {
+  float dn, cos_i, n1, n2, n2_safe, mu, one_m_c2, cos_t;
+};
+
+template <bool kDispersion>
+__device__ __forceinline__ FresnelFwd fresnel_forward(const float* r, const RowKinds& kd,
+                                                      const Plates& pl, V3 d, V3 nw,
+                                                      uint32_t bits) {
+  FresnelFwd f;
+  f.dn = dot3(d, nw);
+  f.cos_i = fabsf(f.dn);
+  media_iors<kDispersion>(r, bits & kFromIn, kd.dispm, pl.wl, f.n1, f.n2);
+  f.n2_safe = (bits & kN2Small) ? 1e-12f : f.n2;
+  f.mu = f.n1 / f.n2_safe;
+  f.one_m_c2 = 1.0f - f.cos_i * f.cos_i;
+  f.cos_t = sqrtf(fmaxf(1.0f - f.mu * f.mu * f.one_m_c2, 0.0f));
+  return f;
+}
+
+// Adjoint of R = fresnel_R(cos_i, cos_t, n1, n2) away from TIR: g_R, R's
+// cotangent, adds the cotangents of the direction (g_d), of the normal
+// (g_nw) and of the media's indices (media_backward: ph[0:2], or on a
+// dispersive row wc).  Each line reverses a line of fresnel_R or of
+// refract_components.
+template <bool kDispersion>
+__device__ __forceinline__ void fresnel_weight_backward(const RowKinds& kd, const FresnelFwd& f,
+                                                        V3 d, V3 nw, uint32_t bits, float g_R,
+                                                        V3& g_d, V3& g_nw, float* tg,
+                                                        WaveCt* wc) {
+  const float ci = f.cos_i, ct = f.cos_t, n1 = f.n1, n2 = f.n2;
+  // ---- R = (xs^2 + xp^2) / 2, xs = as / bs, xp = ap / bp ----
+  const float as = n1 * ci - n2 * ct, bs = n1 * ci + n2 * ct + 1e-8f;
+  const float ap = n1 * ct - n2 * ci, bp = n1 * ct + n2 * ci + 1e-8f;
+  const float xs = as / bs, xp = ap / bp;
+  const float g_xs = g_R * xs, g_xp = g_R * xp;  // 0.5 g_R 2 x
+  const float g_as = g_xs / bs, g_bs = -(g_xs * xs / bs);
+  const float g_ap = g_xp / bp, g_bp = -(g_xp * xp / bp);
+  float g_n1 = (g_as + g_bs) * ci + (g_ap + g_bp) * ct;
+  float g_n2 = (g_bs - g_as) * ct + (g_bp - g_ap) * ci;
+  float g_ci = (g_as + g_bs) * n1 + (g_bp - g_ap) * n2;
+  const float g_ct = (g_bs - g_as) * n2 + (g_ap + g_bp) * n1;
+  // ---- cos_t = sqrt(max(1 - sin2_t, 0)), sin2_t = mu^2 (1 - cos_i^2);
+  // at the critical angle itself (cos_t = 0) no derivative, as the plain
+  // version's guarded square root (core/physics.py::refract_components) ----
+  const float g_sin2 = ct > 0.0f ? -(g_ct / (2.0f * ct)) : 0.0f;
+  const float g_mu = g_sin2 * 2.0f * f.mu * f.one_m_c2;
+  g_ci += g_sin2 * f.mu * f.mu * (-2.0f * ci);
+  // ---- mu = n1 / n2_safe ----
+  g_n1 += g_mu / f.n2_safe;
+  if (!(bits & kN2Small)) g_n2 -= g_mu * f.mu / f.n2_safe;
+  // ---- cos_i = |d . n| ----
+  const bool from_in = bits & kFromIn;
+  const float sgn = from_in ? -1.0f : ((bits & kDnPos) ? 1.0f : 0.0f);
+  const float g_dn = g_ci * sgn;
+  g_d = fma3(g_d, g_dn, nw);
+  g_nw = fma3(g_nw, g_dn, d);
+  // after the direction's adjoint, which set the media's cotangents
+  media_backward<kDispersion, true>(kd.dispm, from_in, g_n1, g_n2, tg, wc);
 }
 
 // Adjoint of dispersive_iors on a dispersive row at the ray's wavelength
@@ -566,7 +662,13 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // refracting row hands the cotangent of the medium after it to the index
 // medium_after took (n2, or n1 under TIR: ph[0:2] by side, or the disp
 // columns and the wavelength through wc).
-template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false>
+// With kFresnel (which has kOpl) the Fresnel kinds: FRESNEL through its
+// saved branch (kReflect) as REFLECT or SNELL, FRESNEL_W as SNELL and
+// REFLECT_W as REFLECT, the weights' cotangents through R
+// (fresnel_weight_backward), and an inactive REFLECT_W row stops the
+// intensity's cotangent (the forward zeroed the intensity there).
+template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false,
+          bool kFresnel = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
@@ -574,7 +676,11 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
                                              float& gi, float* tg, WaveCt* wc = nullptr,
                                              OplCt* oc = nullptr) {
   static_assert(kDispersion || !kOpl, "the path length runs with dispersion");
-  if (!(bits & kActive)) return;  // where(active, new, old) passes through
+  static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
+  if (!(bits & kActive)) {  // where(active, new, old) passes through
+    if (kFresnel && kd.ph == REFLECT_W) gi = 0.0f;
+    return;
+  }
   const float* q = r + kQ;
   const float* Rw = r + kRw;
   const bool r1 = bits & kRoot1, r2 = bits & kRoot2;
@@ -614,7 +720,7 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   const float t = asph ? asph_steps(as, o, ds, r1 ? t1 : t2) : (r1 ? t1 : t2);
   const V3 hs = fma3(o, t, ds);
 
-  const bool need_normal = uses_normal(kd.ph);
+  const bool need_normal = uses_normal<kFresnel>(kd.ph);
   const bool degen = bits & kDegen;
   V3 nw = {0.0f, 0.0f, 1.0f}, nl = {0.0f, 0.0f, 1.0f}, gv = {0.0f, 0.0f, 0.0f};
   float root_g2 = 1.0f, den = 1.0f, inv = 0.0f;
@@ -637,17 +743,34 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   }
 
   // ---- masked update: p' = p + t d, d' = nd, I' = I * imod ----
-  const float imod = kd.ph == BLOCK || (kd.ph == APERTURE && !(bits & kMod)) ||
-                             (kPlates && kd.ph == PHASE_GRID && !(bits & kPgOk))
-                         ? 0.0f
-                         : 1.0f;
+  float imod = kd.ph == BLOCK || (kd.ph == APERTURE && !(bits & kMod)) ||
+                       (kPlates && kd.ph == PHASE_GRID && !(bits & kPgOk))
+                   ? 0.0f
+                   : 1.0f;
+  // kFresnel: FRESNEL_W's clip(1 - R, 0, 1) and REFLECT_W's clip(R, 0, 1)
+  // away from TIR, and R's cotangent g_R
+  const bool weighted =
+      kFresnel && (kd.ph == FRESNEL_W || kd.ph == REFLECT_W) && !(bits & kTir);
+  FresnelFwd ff = {};
+  float g_R = 0.0f;
+  if constexpr (kFresnel) {
+    if (weighted) {
+      ff = fresnel_forward<kDispersion>(r, kd, pl, d, nw, bits);
+      const float R = fresnel_R(ff.cos_i, ff.cos_t, ff.n1, ff.n2);
+      const float x = kd.ph == FRESNEL_W ? 1.0f - R : R;
+      imod = fminf(fmaxf(x, 0.0f), 1.0f);
+      const float g_x = x >= 0.0f && x <= 1.0f ? gi * inten : 0.0f;
+      g_R = kd.ph == FRESNEL_W ? -g_x : g_x;
+    }
+  }
   float g_t = dot3(gp, d);
   V3 g_d = {t * gp.x, t * gp.y, t * gp.z};
   const V3 g_nd = gd;
   // ---- opl += n_cur t; n_cur' = medium_after (a refracting row), else n_cur ----
   float g_medium = 0.0f;  // the cotangent of the medium after a refracting row
   if constexpr (kOpl) {
-    const bool refracts = kd.ph == SNELL || (kPlates && kd.ph == PHASE_GRID);
+    const bool refracts = kd.ph == SNELL || (kPlates && kd.ph == PHASE_GRID) ||
+                          (kFresnel && (kd.ph == FRESNEL || kd.ph == FRESNEL_W));
     g_medium = refracts ? oc->g_n : 0.0f;
     g_t += oc->g_opl * oc->n_cur;
     oc->g_n = (refracts ? 0.0f : oc->g_n) + oc->g_opl * t;
@@ -678,7 +801,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     g_d = fma3(g_d, 1.0f, g_nd);
   } else if (kd.ph == APERTURE) {
     if (bits & kMod) g_d = fma3(g_d, 1.0f, g_nd);
-  } else if (kd.ph == REFLECT || (kd.ph == SNELL && (bits & kTir))) {
+  } else if (kd.ph == REFLECT || (kd.ph == SNELL && (bits & kTir)) ||
+             (kFresnel && (kd.ph == REFLECT_W || (kd.ph == FRESNEL_W && (bits & kTir)) ||
+                           (kd.ph == FRESNEL && (bits & kReflect))))) {
     // nd = d - 2 (d.n) n
     const float s = dot3(d, nw);
     const float g_s = -2.0f * dot3(g_nd, nw);
@@ -686,12 +811,13 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     g_d = fma3(g_d, g_s, nw);
     g_nw = fma3(g_nw, -2.0f * s, g_nd);
     g_nw = fma3(g_nw, g_s, d);
-    // under TIR the ray stays in the medium of incidence: n1
+    // under TIR (or a FRESNEL reflection) the ray stays in the medium of
+    // incidence: n1
     if constexpr (kOpl) {
-      if (kd.ph == SNELL)
+      if (kd.ph == SNELL || (kFresnel && (kd.ph == FRESNEL_W || kd.ph == FRESNEL)))
         media_backward<kDispersion>(kd.dispm, bits & kFromIn, g_medium, 0.0f, tg, wc);
     }
-  } else if (kd.ph == SNELL) {
+  } else if (kd.ph == SNELL || (kFresnel && (kd.ph == FRESNEL_W || kd.ph == FRESNEL))) {
     // nd = mu d + coef n, coef = (mu cos_i - cos_t) eff_sign
     const bool from_in = bits & kFromIn;
     const float dn = dot3(d, nw);
@@ -726,6 +852,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     media_backward<kDispersion>(kd.dispm, from_in, g_n1, g_n2, tg, wc);
     g_d = fma3(g_d, g_dn, nw);
     g_nw = fma3(g_nw, g_dn, d);
+  }
+  if constexpr (kFresnel) {
+    if (weighted) fresnel_weight_backward<kDispersion>(kd, ff, d, nw, bits, g_R, g_d, g_nw, tg, wc);
   }
 
   // ---- normal ----

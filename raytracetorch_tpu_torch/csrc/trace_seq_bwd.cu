@@ -5,8 +5,10 @@
 // _kernel_v2_bwd (launched by trace_sequential_pallas_v2_bwd, joined to the
 // forward by the custom_vjp fused_trace_grad) for the main-path kinds,
 // pixelated phase plates, the extended kinds of the mixed-surface and
-// asphere scenes and dispersive media, and the optical path length
-// (g_opl, g_nfinal), with every other optional stream off.  Its plain
+// asphere scenes and dispersive media, the optical path length (g_opl,
+// g_nfinal) and the Fresnel kinds of uncoated interfaces with K1's
+// pre-drawn uniforms (the TPU kernel's u_vals, :1883-1891), with every other
+// optional stream off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_bwd_cuda.
@@ -96,6 +98,15 @@
 //   cotangent to the index it took).  A recording run's backward does not
 //   come here: it recomputes through the eager chain, as the reference's
 //   _fused_bwd does (ops/fused_trace.py).
+// - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W): a sixth
+//   instantiation, kFresnel, built on the fifth (an overload with one more
+//   argument, SeqDraws: K1's [F][N] uniforms), so that the others keep their
+//   code.  Its forward sweep reads each FRESNEL row's uniform as K1 does and
+//   saves the drawn branch as a bit (kReflect); its reverse sweep runs
+//   row_backward's Fresnel adjoints (trace_seq_adjoint.cuh): the chosen
+//   direction alone for FRESNEL, and for FRESNEL_W and REFLECT_W the
+//   cotangent of the reflectance R in their weights.  The saved state stays
+//   9 words.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -149,13 +160,23 @@ struct OplIn {
   const float* g_nfinal;
 };
 
-// The kernel's body, shared by its five instantiations (the kernels below).
+// What only the instantiation with the Fresnel kinds takes: K1's uniforms,
+// n_draws streams of n floats, one per FRESNEL row in row order.
+struct SeqDraws {
+  const float* u;
+  int n_draws;
+};
+
+// The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the forward sweep also carries the
 // index of the medium and saves it before each row as a ninth state word
 // (recomputing it in the reverse sweep would mean replaying the chain up to
 // each row: the word costs 1 KB a row of shared memory), and the reverse
-// sweep runs row_backward's path-length adjoint (OplCt).
-template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+// sweep runs row_backward's path-length adjoint (OplCt).  With kFresnel
+// (which has kOpl) a FRESNEL row of the forward sweep reads the ray's
+// uniform from the next stream of `dr`.
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
+          bool kFresnel = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -169,7 +190,8 @@ __device__ __forceinline__ void seq_bwd(
     float* __restrict__ cintensity, float* __restrict__ partials, int n_slots, int n_bundles,
     GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}) {
+    OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}) {
+  static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kStride = kShared ? kThreads : 1;
   constexpr int kWords = state_words<kOpl>();
@@ -211,19 +233,28 @@ __device__ __forceinline__ void seq_bwd(
 
   // ---- forward sweep: save each row's input state and branch bits ----
   float n_cur = 1.0f;  // kOpl: the medium (index 1 at launch)
+  int f = 0;           // kFresnel: the next FRESNEL row's stream
 #pragma unroll 1
   for (int k = 0; k < n_rows; ++k) {
     const V3 p0 = p, d0 = d;
     const float i0 = inten;
     const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
-    const uint32_t bits =
-        row_forward<kPlates, kExt, kDispersion>(tab + k * kRowWidth, kd, pl, p, d, inten);
+    float u = 0.0f;
+    if constexpr (kFresnel) {
+      if (kd.ph == FRESNEL) {  // warp-uniform
+        if (live && f < dr.n_draws) u = dr.u[static_cast<long long>(f) * n + i];
+        ++f;
+      }
+    }
+    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel>(
+        tab + k * kRowWidth, kd, pl, p, d, inten, u);
     put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
     if constexpr (kOpl) {
       put_medium<kStride>(saved + k * kWords * kStride, n_cur);
       if (bits & kActive)
-        n_cur = medium_after<kDispersion>(tab + k * kRowWidth, kd, bits & kFromIn, bits & kTir,
-                                          pl.wl, n_cur);
+        n_cur = medium_after<kDispersion, kFresnel>(tab + k * kRowWidth, kd, bits & kFromIn,
+                                                    bits & kTir, pl.wl, n_cur,
+                                                    bits & kReflect);
     }
   }
 
@@ -254,8 +285,8 @@ __device__ __forceinline__ void seq_bwd(
     for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
     if constexpr (kDispersion) {
       WaveCt wc = {0.0f, 0.0f, 0.0f};
-      row_backward<kPlates, kExt, kDispersion, kOpl>(r, kd, sp, sd, si, bits, rid, gm, n_bundles,
-                                                     gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc);
+      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel>(
+          r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc);
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
       if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
@@ -344,10 +375,19 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi) {
   seq_bwd<kShared, kPlates, kExt, true, true>(RTT_SEQ_BWD_ARGS, wo, oi);
 }
 
-// The types of the three kernels.
+// The kernel with those and the Fresnel kinds.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr) {
+  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr);
+}
+
+// The types of the four kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
+using BwdFresnelKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -375,9 +415,13 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols) {
 }
 
 // The kernel of an instantiation.
-template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
+          bool kFresnel = false>
 const void* kernel_fn() {
-  if constexpr (kOpl)
+  if constexpr (kFresnel)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFresnelKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kOpl)
     return reinterpret_cast<const void*>(
         static_cast<BwdOplKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else if constexpr (kDispersion)
@@ -390,18 +434,20 @@ const void* kernel_fn() {
 
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
-template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
+          bool kFresnel = false>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl>();
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
-  return n_rows <= kSharedRows ? prepare<true, kPlates, kExt, kDispersion, kOpl>(smem, fn)
-                               : prepare<false, kPlates, kExt, kDispersion, kOpl>(smem, fn);
+  return n_rows <= kSharedRows
+             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel>(smem, fn)
+             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel>(smem, fn);
 }
 
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
@@ -512,7 +558,10 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
 // arguments of rtt_trace_seq_bwd (its `ext` implied: `maps`, `map_desc` and
 // `wavelength` must be given, a PHASE_GRID row or not), then `g_opl` and
 // `g_nfinal`, the cotangents of K1's opl and n_final streams (n floats
-// each; null: zero).  Returns a cudaError_t.
+// each; null: zero).  `fresnel` nonzero selects the instantiation with the
+// Fresnel kinds, which reads K1's `uniforms`, n_draws * n floats (null with
+// n_draws 0 when no row draws); without it both are ignored.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_seq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -522,10 +571,13 @@ extern "C" int rtt_trace_seq_bwd_opl(
     float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, long long n, void* stream) {
+    const float* g_nfinal, const float* uniforms, int n_draws, int fresnel, long long n,
+    void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fresnel && (n_draws < 0 || (n_draws > 0 && uniforms == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -533,23 +585,29 @@ extern "C" int rtt_trace_seq_bwd_opl(
   const OplIn oi = {g_opl, g_nfinal};
   const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* fn;
-  const cudaError_t e = prepare_rows<true, true, true, true>(n_rows, smem, &fn);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned g = static_cast<unsigned>(blocks);
-  if (n_rows <= kSharedRows)
-    trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n, wo,
-        oi);
-  else
-    trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n, wo,
-        oi);
-  return static_cast<int>(cudaGetLastError());
+  // one launch per row layout for both instantiations: the Fresnel kernel's
+  // overload takes the draws as its last argument
+  auto go = [&](auto... draws) {
+    const void* fn;
+    const cudaError_t e =
+        prepare_rows<true, true, true, true, sizeof...(draws) != 0>(n_rows, smem, &fn);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (n_rows <= kSharedRows)
+      trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength,
+          gmaps, n, wo, oi, draws...);
+    else
+      trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength,
+          gmaps, n, wo, oi, draws...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
@@ -558,18 +616,19 @@ extern "C" int rtt_trace_seq_bwd_opl(
 // (n_bounces is K6's; K2 has none.)  `code`: 0 without plate code, 1 with
 // it, 2 with it and the extended kinds, 3 with those and dispersion on a
 // table with a dispersive row, 4 the instantiation with the path length on
-// such a table.
+// such a table, 5 the one with the Fresnel kinds on such a table.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
   const size_t smem =
-      code == 4   ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      code >= 4   ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code >= 2 ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 4   ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
+  const cudaError_t e = code == 5   ? prepare_rows<true, true, true, true, true>(n_rows, smem, &fn)
+                        : code == 4 ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
                         : code == 3 ? prepare_rows<true, true, true>(n_rows, smem, &fn)
                         : code == 2 ? prepare_rows<true, true, false>(n_rows, smem, &fn)
                         : code == 1 ? prepare_rows<true, false, false>(n_rows, smem, &fn)

@@ -35,6 +35,16 @@
 // argument, StreamOut or OplIn), so that every other instantiation keeps
 // its code: medium_after below gives the medium a ray travels in after a
 // row, from the refraction's own from_in and TIR decisions.
+//
+// The Fresnel kinds of uncoated interfaces (FRESNEL, the Monte-Carlo branch
+// draw; FRESNEL_W, refraction with intensity times 1 - R; REFLECT_W, the
+// ghost reflection with intensity times R) take a last compile-time flag,
+// kFresnel, set only in one more instantiation of each kernel, built on the
+// one with the streams (K1, K5) or the path length (K2, K6): every other
+// instantiation holds none of their code.  FRESNEL reads one uniform per ray
+// and row: K1 and K2 from the [F][n] streams the wrapper pre-draws, K5 and
+// K6 from philox_uniform below, a pure function of (key, ray, bounce, row),
+// so K6 replays K5's draws by their counters.
 
 #pragma once
 
@@ -77,7 +87,17 @@ constexpr float kRelEps = 1e-5f;
 constexpr float kCylRectEps = 1e-5f;
 constexpr float kCylEdgeEps = 1e-4f;
 
-enum PhysKind { TRANSMIT = 0, BLOCK = 1, REFLECT = 2, SNELL = 3, APERTURE = 6, PHASE_GRID = 15 };
+enum PhysKind {
+  TRANSMIT = 0,
+  BLOCK = 1,
+  REFLECT = 2,
+  SNELL = 3,
+  FRESNEL = 4,
+  APERTURE = 6,
+  FRESNEL_W = 8,
+  REFLECT_W = 9,
+  PHASE_GRID = 15
+};
 enum SBKind { SB_NONE = 0, SB_DISK = 1, SB_RECT = 2, SB_HEMI = 4, SB_HEMI_APER = 5 };
 enum VBKind { VB_NONE = 0, VB_APER_R2 = 1, VB_Z_BETWEEN = 2, VB_RECT = 3, VB_CYL_EDGE = 4 };
 
@@ -206,6 +226,50 @@ __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
           kExt && kd[kPlaneCol] == kSurfAsph,
           kDispersion ? kd[kPhCol] >> kDispShift : 0};
 }
+
+// ---- Counter-based draws (kFresnel, K5 and K6): Philox4x32-10 (Salmon et
+// al., SC'11), written out with __umulhi; rays/draws.py is its plain
+// version, and both are held to the generator's known-answer vectors. ----
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+
+struct PhiloxKey {
+  uint32_t k0, k1;
+};
+
+// The 10 rounds of Philox4x32 on counter c under key k; c receives the four
+// output words.
+__device__ __forceinline__ void philox4x32(uint32_t (&c)[4], PhiloxKey k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c[0]), lo0 = kPhiloxM0 * c[0];
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c[2]), lo1 = kPhiloxM1 * c[2];
+    c[0] = hi1 ^ c[1] ^ k.k0;
+    c[1] = lo1;
+    c[2] = hi0 ^ c[3] ^ k.k1;
+    c[3] = lo0;
+    k.k0 += kPhiloxW0;
+    k.k1 += kPhiloxW1;
+  }
+}
+
+// The non-sequential draw of ray n at bounce b for row k: (word0 >> 8) *
+// 2^-24 of the counter (n, b, k, 0), in [0, 1) and exact in float (word1 is
+// kept for a second draw of the same row).
+__device__ __forceinline__ float philox_uniform(PhiloxKey key, uint32_t n, uint32_t b,
+                                                uint32_t k) {
+  uint32_t c[4] = {n, b, k, 0u};
+  philox4x32(c, key);
+  return static_cast<float>(c[0] >> 8) * 5.9604644775390625e-08f;
+}
+
+// Where a non-sequential FRESNEL draw comes from: the key and the ray's and
+// bounce's counter words.
+struct RayDraw {
+  PhiloxKey key;
+  uint32_t ray, bounce;
+};
 
 // ---- The packed scan record (K5's scan, and K6's replay of it) ----
 //
@@ -673,18 +737,67 @@ struct PhysBranch {
   bool pg_ok;     // PHASE_GRID: the kicked ray propagates (not evanescent)
   bool u_clip;    // PHASE_GRID: u was clipped
   bool v_clip;    // PHASE_GRID: v was clipped
+  bool reflect;   // FRESNEL: the draw chose reflection (u < R; always under TIR)
 };
+
+// The unpolarized Fresnel reflectance of a bare interface (core/physics.py::
+// fresnel_reflectance): (Rs + Rp) / 2 with the 1e-8 in each denominator.
+__device__ __forceinline__ float fresnel_R(float cos_i, float cos_t, float n1, float n2) {
+  const float xs = (n1 * cos_i - n2 * cos_t) / (n1 * cos_i + n2 * cos_t + 1e-8f);
+  const float xp = (n1 * cos_t - n2 * cos_i) / (n1 * cos_t + n2 * cos_i + 1e-8f);
+  return 0.5f * (xs * xs + xp * xp);
+}
+
+// The Fresnel kinds' physics (kFresnel; core/static_dispatch.py::
+// apply_physics_one): the refraction's geometry as SNELL takes it, then
+// FRESNEL reflects where u < R (R = 1 under TIR), FRESNEL_W refracts (TIR
+// reflects at full power) with imod = clip(1 - R, 0, 1), REFLECT_W reflects
+// with imod = clip(R, 0, 1) (1 under TIR).
+template <bool kDispersion>
+__device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3 nw, float wl,
+                                                int dispm, float u, V3& nd, float& imod,
+                                                PhysBranch* br) {
+  const float dn = dot3(d, nw);
+  const bool from_in = dn < 0.0f;
+  const float eff_sign = from_in ? 1.0f : -1.0f;
+  const float cos_i = fabsf(dn);
+  float n1, n2;
+  media_iors<kDispersion>(r, from_in, dispm, wl, n1, n2);
+  const bool n2_small = fabsf(n2) < 1e-12f;
+  const float mu = n1 / (n2_small ? 1e-12f : n2);
+  const float sin2_t = mu * mu * (1.0f - cos_i * cos_i);
+  const bool tir = sin2_t > 1.0f;
+  const float cos_t = tir ? 0.0f : sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+  const float R = fresnel_R(cos_i, cos_t, n1, n2);
+  const bool reflect = ph == REFLECT_W || tir || (ph == FRESNEL && u < R);
+  if (reflect) {
+    nd = fma3(d, -2.0f * dn, nw);
+  } else {
+    const float coef = (mu * cos_i - cos_t) * eff_sign;
+    nd = fma3(V3{d.x * mu, d.y * mu, d.z * mu}, coef, nw);
+  }
+  imod = ph == FRESNEL || tir ? 1.0f : fminf(fmaxf(ph == FRESNEL_W ? 1.0f - R : R, 0.0f), 1.0f);
+  if (br != nullptr) {
+    br->from_in = from_in;
+    br->dn_pos = dn > 0.0f;
+    br->tir = tir;
+    br->n2_small = n2_small;
+    br->reflect = ph == FRESNEL && reflect;
+  }
+}
 
 // The row's physics (core/static_dispatch.py::apply_physics_one): the new
 // direction nd and the intensity factor imod of a ray d meeting normal nw at
 // surface-frame hit hs.  `br`, when given, receives the branches taken.  A
 // PHASE_GRID row (kPlates only) reads map kd_map of `pl`; a dispersive row
 // (kDispersion only: `dispm`) refracts at the indices of the ray's wavelength
-// pl.wl.
-template <bool kPlates, bool kExt = false, bool kDispersion = kExt>
+// pl.wl; the Fresnel kinds (kFresnel only) take fresnel_physics, FRESNEL
+// with the ray's uniform u.
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false>
 __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, int kd_map, V3 d,
                                               V3 nw, V3 hs, const Plates& pl, V3& nd, float& imod,
-                                              PhysBranch* br = nullptr, int dispm = 0) {
+                                              PhysBranch* br = nullptr, int dispm = 0,
+                                              float u = 0.0f) {
   nd = d;
   imod = 1.0f;
   if (kPlates && ph == PHASE_GRID) {
@@ -754,22 +867,34 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
     nd = {d.x * mod, d.y * mod, d.z * mod};
     imod = mod;
     if (br != nullptr) br->pass = mod != 0.0f;
+  } else if (kFresnel && (ph == FRESNEL || ph == FRESNEL_W || ph == REFLECT_W)) {
+    fresnel_physics<kDispersion>(r, ph, d, nw, pl.wl, dispm, u, nd, imod, br);
   }
 }
 
 // The index of the medium a ray travels in after an active row
-// (core/static_dispatch.py::medium_after): a SNELL row moves it into the
-// transmission-side medium unless total internal reflection keeps it in the
-// incidence medium, a PHASE_GRID row always transmits; every other row
-// leaves n_cur.  from_in and tir are the refraction's own decisions
+// (core/static_dispatch.py::medium_after): a SNELL (or FRESNEL_W) row moves
+// it into the transmission-side medium unless total internal reflection
+// keeps it in the incidence medium, a FRESNEL row unless its draw reflected
+// it (`reflect`), a PHASE_GRID row always transmits; every other row leaves
+// n_cur.  from_in, tir and reflect are the physics' own decisions
 // (PhysBranch, or the adjoint's saved bits), the indices media_iors's.
-template <bool kDispersion>
+template <bool kDispersion, bool kFresnel = false>
 __device__ __forceinline__ float medium_after(const float* r, const RowKinds& kd, bool from_in,
-                                              bool tir, float wl, float n_cur) {
-  if (kd.ph != SNELL && kd.ph != PHASE_GRID) return n_cur;
-  float n1, n2;
-  media_iors<kDispersion>(r, from_in, kd.dispm, wl, n1, n2);
-  return kd.ph == SNELL && tir ? n1 : n2;
+                                              bool tir, float wl, float n_cur,
+                                              bool reflect = false) {
+  if constexpr (kFresnel) {
+    const bool snell_like = kd.ph == SNELL || kd.ph == FRESNEL_W;
+    if (!snell_like && kd.ph != FRESNEL && kd.ph != PHASE_GRID) return n_cur;
+    float n1, n2;
+    media_iors<kDispersion>(r, from_in, kd.dispm, wl, n1, n2);
+    return (snell_like && tir) || (kd.ph == FRESNEL && reflect) ? n1 : n2;
+  } else {
+    if (kd.ph != SNELL && kd.ph != PHASE_GRID) return n_cur;
+    float n1, n2;
+    media_iors<kDispersion>(r, from_in, kd.dispm, wl, n1, n2);
+    return kd.ph == SNELL && tir ? n1 : n2;
+  }
 }
 
 // The stream outputs of K1's and K5's instantiation with the streams, each
@@ -806,17 +931,21 @@ struct SensorRec {
 // and `kw` its kinds; `degen` and `br`, when given, the winner's branches.
 // The caller records a sensor winner.  Only the winner reads its phase map.
 // With kRecord (the instantiation with the streams, which has kExt) `rec`
-// receives the bounce's sensor record.
+// receives the bounce's sensor record.  With kFresnel (which has kRecord) a
+// FRESNEL winner draws philox_uniform at `rd`'s counter and its own row.
 // The extended kinds' instantiation (kExt) scans the flat rows and their
 // kinds rows instead: its kinds need fields (the asphere's terms, all 8 of
 // a volume bound's) that the packed record does not hold.
-template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false>
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
+          bool kFresnel = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
                                              RowKinds& kw, bool* degen = nullptr,
-                                             PhysBranch* br = nullptr, SensorRec* rec = nullptr) {
+                                             PhysBranch* br = nullptr, SensorRec* rec = nullptr,
+                                             const RayDraw* rd = nullptr) {
   static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
+  static_assert(kExt || !kFresnel, "the Fresnel kinds read the kinds rows of the flat scan");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -843,9 +972,18 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   kw = read_row_kinds<kExt, kDispersion>(knd + k_win * kKindWidth);
   V3 nd;
   float imod;
-  apply_physics<kPlates, kExt, kDispersion>(r, kw.ph, kw.sb, kw.map, d,
-                               world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs, pl,
-                               nd, imod, br, kw.dispm);
+  if constexpr (kFresnel) {
+    const float u = kw.ph == FRESNEL
+                        ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
+                        : 0.0f;
+    apply_physics<kPlates, kExt, kDispersion, true>(
+        r, kw.ph, kw.sb, kw.map, d, world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs,
+        pl, nd, imod, br, kw.dispm, u);
+  } else {
+    apply_physics<kPlates, kExt, kDispersion>(r, kw.ph, kw.sb, kw.map, d,
+                                 world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs, pl,
+                                 nd, imod, br, kw.dispm);
+  }
   p = fma3(p, best_t, d);
   d = nd;
   inten = inten * imod;

@@ -5,8 +5,9 @@
 // main-path kinds, pixelated phase plates, the extended kinds of the
 // mixed-surface and asphere scenes and dispersive media, and the
 // deterministic streams of _chain_pure (the optical path length, path and
-// hit recording), with every other optional stream off (field, random
-// draws, fuzzy apodization).  Its plain PyTorch version is ops/fused_trace.py::
+// hit recording), and the Fresnel kinds of uncoated interfaces with their
+// pre-drawn uniforms (_chain_pure's u_vals), with every other optional
+// stream off (field, scatter draws, fuzzy apodization).  Its plain PyTorch version is ops/fused_trace.py::
 // trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
@@ -79,6 +80,18 @@
 // 16 B a row: ~220 B a ray on the 5-row bench scene with both records, ~380
 // B on the 11-row Cooke triplet.
 //
+// The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W; trace_seq_common.cuh::
+// fresnel_physics) run in one more instantiation, kFresnel, an overload
+// with one more argument (SeqDraws), built on the one with the streams
+// (which it takes too), so every other instantiation keeps its code.  A
+// FRESNEL row reads the ray's uniform from its stream of the [F][N] draws
+// the wrapper pre-draws from the caller's generator (the TPU kernel's
+// pre-drawn u_vals, one stream per FRESNEL row in row order): 4 B a ray and
+// FRESNEL row more to read.  A REFLECT_W row that a ray misses kills it
+// (intensity 0), as core/trace.py::_surface_step does; the TPU kernel's
+// chain omits the kill (ROADMAP Queue 3), and this one follows the eager
+// chain, so a ghost table (utils/ghosts.py) runs here too.
+//
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
 // rely on (finite BIG sentinels for misses, +1e-24 under every sqrt, the
@@ -147,6 +160,13 @@ __device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
   return c;
 }
 
+// The FRESNEL rows' uniforms (kFresnel): n_draws streams of n floats, one
+// per FRESNEL row in row order.
+struct SeqDraws {
+  const float* u;
+  int n_draws;
+};
+
 // The kernel's body, shared by its instantiations (the kernels below).  With
 // kStreams (the instantiation with the streams: plate code, the extended
 // kinds and dispersion) it also accumulates the optical path length n_cur t
@@ -154,7 +174,10 @@ __device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
 // streams of `so` that are not null: the position after each row, and each
 // row's raw surface-frame hit (every ray's, active or not) with the
 // intensity after the row as its weight where the row is active (0 else).
-template <bool kPlates, bool kExt, bool kStreams>
+// With kFresnel (which has kStreams) it also runs the Fresnel kinds, a
+// FRESNEL row reading the ray's uniform from the next stream of `dr`, and a
+// REFLECT_W row kills the rays it does not hold.
+template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false>
 __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -165,7 +188,9 @@ __device__ __forceinline__ void seq_fwd(
     float* __restrict__ ointensity, float* __restrict__ partials, int n_slots, int n_bundles,
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
-    const float* __restrict__ wavelength, long long n, StreamOut so) {
+    const float* __restrict__ wavelength, long long n, StreamOut so,
+    SeqDraws dr = {nullptr, 0}) {
+  static_assert(kStreams || !kFresnel, "the Fresnel kinds run with the streams");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -207,6 +232,7 @@ __device__ __forceinline__ void seq_fwd(
   for (int j = tid; j < kWarps * n_mom; j += kThreads) warp_mom[j] = 0.0f;
   __syncthreads();
 
+  int f = 0;  // kFresnel: the next FRESNEL row's stream
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
     const RowKinds kd = read_row_kinds4<kExt>(knd4 + 2 * k);
@@ -215,7 +241,15 @@ __device__ __forceinline__ void seq_fwd(
     V3 nd;
     float imod;
     PhysBranch br = {};
-    if constexpr (kStreams)
+    if constexpr (kFresnel) {
+      float u = 0.0f;
+      if (kd.ph == FRESNEL) {  // warp-uniform
+        if (live && f < dr.n_draws) u = dr.u[static_cast<long long>(f) * n + i];
+        ++f;
+      }
+      apply_physics<kPlates, kExt, kExt, true>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod,
+                                               &br, kd.dispm, u);
+    } else if constexpr (kStreams)
       apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br,
                                    kd.dispm);
     else
@@ -256,13 +290,15 @@ __device__ __forceinline__ void seq_fwd(
     if constexpr (kStreams) {
       if (active) {
         opl = opl + n_cur * t;
-        n_cur = medium_after<kExt>(r, kd, br.from_in, br.tir, pl.wl, n_cur);
+        n_cur = medium_after<kExt, kFresnel>(r, kd, br.from_in, br.tir, pl.wl, n_cur, br.reflect);
       }
     }
     if (active) {
       p = fma3(p, t, d);
       d = nd;
       inten = inten * imod;
+    } else if (kFresnel && kd.ph == REFLECT_W) {
+      inten = 0.0f;  // a ray that misses a ghost's reflection leaves its path
     }
     if constexpr (kStreams) {
       if (live && so.paths != nullptr) {
@@ -338,17 +374,29 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so) {
   seq_fwd<kPlates, kExt, true>(RTT_SEQ_FWD_ARGS, so);
 }
 
-// The types of the two kernels.
+// The kernel with the streams and the Fresnel kinds.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr) {
+  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
+  seq_fwd<kPlates, kExt, true, true>(RTT_SEQ_FWD_ARGS, so, dr);
+}
+
+// The types of the three kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
+using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
 // The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kStreams>
+template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false>
 const void* kernel_fn() {
-  if constexpr (kStreams)
+  if constexpr (kFresnel)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFresnelKernel>(trace_seq_fwd_kernel<true, true>));
+  else if constexpr (kStreams)
     return reinterpret_cast<const void*>(
         static_cast<FwdStreamKernel>(trace_seq_fwd_kernel<true, true>));
   else
@@ -357,10 +405,10 @@ const void* kernel_fn() {
 }
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt, bool kStreams = false>
+template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -381,9 +429,13 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 }
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
-// it and the extended kinds, 4 the one with the streams), its shared memory
-// allowed.
+// it and the extended kinds, 4 the one with the streams, 5 the one with the
+// Fresnel kinds), its shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 5) {
+    *e = prepare<true, true, true, true>(smem);
+    return kernel_fn<true, true, true, true>();
+  }
   if (code == 4) {
     *e = prepare<true, true, true>(smem);
     return kernel_fn<true, true, true>();
@@ -450,7 +502,11 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
 // must be given, a PHASE_GRID row or not), then the stream outputs, each
 // null when not wanted: `opl` and `n_final` (n floats each), `paths`
 // ((n_rows + 1) * 3 * n floats), `hits` (n_rows * 3 * n) and `hit_w`
-// (n_rows * n, given with `hits`).  Returns a cudaError_t.
+// (n_rows * n, given with `hits`).  `fresnel` nonzero selects the
+// instantiation with the Fresnel kinds, which reads `uniforms`, the FRESNEL
+// rows' n_draws * n floats ([F][n], one stream per FRESNEL row in row order;
+// null with n_draws 0 when no row draws); without it both are ignored.
+// Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -458,24 +514,31 @@ extern "C" int rtt_trace_seq_fwd_streams(
     float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, long long n, void* stream) {
+    float* hit_w, const float* uniforms, int n_draws, int fresnel, long long n, void* stream) {
   if (n <= 0) return 0;
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (fresnel && (n_draws < 0 || (n_draws > 0 && uniforms == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
-  const cudaError_t e = prepare<true, true, true>(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const StreamOut so = {opl, n_final, paths, hits, hit_w, nullptr};
-  trace_seq_fwd_kernel<true, true>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
-          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
-          map_desc, wavelength, n, so);
-  return static_cast<int>(cudaGetLastError());
+  // one launch for both instantiations: the Fresnel kernel's overload takes
+  // the draws as its last argument
+  auto go = [&](auto... draws) {
+    const cudaError_t e = prepare<true, true, true, sizeof...(draws) != 0>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    trace_seq_fwd_kernel<true, true>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
+            ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+            maps, map_desc, wavelength, n, so, draws...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
@@ -483,8 +546,8 @@ extern "C" int rtt_trace_seq_fwd_streams(
 // signature), at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without plate
 // code, 1 with it, 2 (or 3, as K2's code for a table with a dispersive row)
-// with it and the extended kinds, 4 the instantiation with the streams.
-// Returns a cudaError_t.
+// with it and the extended kinds, 4 the instantiation with the streams, 5
+// the one with the Fresnel kinds.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int* blocks) {
   (void)n_bounces;

@@ -66,12 +66,19 @@ def _disp_rec(dc, i_norm, i_far):
             (int(m_in), int(m_out)), bool(m_in or m_out))
 
 
-def _refuse_unported(coating=None, fresnel=False):
+def _refuse_unported(coating=None):
     """Raise for the lens options the port does not trace yet."""
     if coating:
         raise NotImplementedError(f'coatings are {TODO_FEATURES}')
-    if fresnel:
-        raise NotImplementedError(f'Fresnel physics is {TODO_FEATURES}')
+
+
+def _fresnel_option(fresnel):
+    """The ``fresnel`` option of a lens: False (SNELL), True (the
+    Monte-Carlo FRESNEL branch draw) or 'weighted' (FRESNEL_W)."""
+    if fresnel not in (False, True, 'weighted'):
+        raise ValueError(f"fresnel must be False, True or 'weighted', got "
+                         f"{fresnel!r}")
+    return fresnel
 
 
 def _validate_faces(curvatures, thicknesses, aperture_r, z_list):
@@ -116,8 +123,14 @@ class _SphericLens(Element):
     def n_surfaces(self):
         return 2 * self.n_optical - 1   # faces + edges
 
+    fresnel = False
+
     def _refract_kind(self):
-        return PhysKind.SNELL
+        """The optical faces' physics: SNELL, or with ``fresnel=True`` the
+        Monte-Carlo FRESNEL draw, with ``fresnel='weighted'`` FRESNEL_W."""
+        if self.fresnel == 'weighted':
+            return PhysKind.FRESNEL_W
+        return PhysKind.FRESNEL if self.fresnel else PhysKind.SNELL
 
     def _edge_phys(self, p):
         iors = self._ior_chain(p)
@@ -210,8 +223,10 @@ class SingletLens(_SphericLens):
 
     ``d`` is the diameter and ``t`` the centre thickness.  The glass
     disperses with an Abbe number ``abbe_vd`` or Sellmeier coefficients
-    ``sellmeier`` (``**glass(name, model)``).  Coatings and Fresnel physics
-    are ROADMAP Queue 1 item 12 and raise NotImplementedError."""
+    ``sellmeier`` (``**glass(name, model)``).  ``fresnel=True`` makes the
+    faces' physics the Monte-Carlo FRESNEL branch draw (a trace then needs a
+    generator), ``fresnel='weighted'`` the deterministic FRESNEL_W.
+    Coatings are ROADMAP Queue 1 item 12 and raise NotImplementedError."""
 
     _curv_names = ('c1', 'c2')
     _thick_names = ('t',)
@@ -223,7 +238,8 @@ class SingletLens(_SphericLens):
                  coating_grad=False, fresnel=False, inked=False,
                  name='singlet', **kw):
         super().__init__(name=name, **kw)
-        _refuse_unported(coating, fresnel)
+        _refuse_unported(coating)
+        self.fresnel = _fresnel_option(fresnel)
         self.abbe_vd = abbe_vd
         self.sellmeier = tuple(sellmeier) if sellmeier is not None else None
         if self.sellmeier is not None:
@@ -291,8 +307,7 @@ class DoubletLens(_SphericLens):
     Glass 1 (between faces 1 and 2) and glass 2 (between faces 2 and 3)
     disperse with Abbe numbers ``abbe_vd1``/``abbe_vd2`` or Sellmeier
     coefficients ``sellmeier1``/``sellmeier2`` (``**glass_pair(crown,
-    flint, model)``).  Coatings and Fresnel physics raise as for
-    ``SingletLens``."""
+    flint, model)``).  ``fresnel`` and coatings as for ``SingletLens``."""
 
     _curv_names = ('c1', 'c2', 'c3')
     _thick_names = ('t1', 't2')
@@ -305,7 +320,8 @@ class DoubletLens(_SphericLens):
                  sellmeier1=None, sellmeier2=None, coating=None,
                  coating_grad=False, fresnel=False, name='doublet', **kw):
         super().__init__(name=name, **kw)
-        _refuse_unported(coating, fresnel)
+        _refuse_unported(coating)
+        self.fresnel = _fresnel_option(fresnel)
         self.abbe_vd1, self.abbe_vd2 = abbe_vd1, abbe_vd2
         self.sellmeier1 = (tuple(sellmeier1) if sellmeier1 is not None
                            else None)
@@ -362,8 +378,8 @@ class DoubletLens(_SphericLens):
 class TripletLens(_SphericLens):
     """Cemented triplet: 4 refracting faces + 3 blocked edge cylinders.
     Its glasses disperse with Sellmeier coefficients ``sellmeier1`` ..
-    ``sellmeier3`` (the JAX class takes no Abbe numbers).  Coatings and
-    Fresnel physics raise as for ``SingletLens``."""
+    ``sellmeier3`` (the JAX class takes no Abbe numbers).  ``fresnel`` and
+    coatings as for ``SingletLens``."""
 
     _curv_names = ('c1', 'c2', 'c3', 'c4')
     _thick_names = ('t1', 't2', 't3')
@@ -377,7 +393,8 @@ class TripletLens(_SphericLens):
                  sellmeier3=None, coating=None, coating_grad=False,
                  fresnel=False, name='triplet', **kw):
         super().__init__(name=name, **kw)
-        _refuse_unported(coating, fresnel)
+        _refuse_unported(coating)
+        self.fresnel = _fresnel_option(fresnel)
         sells = [sellmeier1, sellmeier2, sellmeier3]
         if any(sl is not None for sl in sells):
             self._sellmeier_media = ([None]
@@ -427,8 +444,7 @@ class CylSingletLens(SingletLens):
     """Cylindrical singlet: two faces curved in y only (QUADRIC_ZY, HEMI
     bound, rectangular volume bound) and four side planes bounded between
     the faces' y-dependent sags (CYL_EDGE).  ``height`` and ``width`` are the
-    full extents in y and x.  Fresnel physics is ROADMAP Queue 1 item 12 and
-    raises NotImplementedError."""
+    full extents in y and x.  ``fresnel`` as for ``SingletLens``."""
 
     def __init__(self, c1, c2, height, width, t, ior_glass, ior_media=1.0,
                  c1_grad=False, c2_grad=False, t_grad=False,
@@ -436,7 +452,7 @@ class CylSingletLens(SingletLens):
                  ior_media_grad=False, fresnel=False, inked=False,
                  name='cyl_singlet', **kw):
         Element.__init__(self, name=name, **kw)
-        _refuse_unported(fresnel=fresnel)
+        self.fresnel = _fresnel_option(fresnel)
         if abs(0.5 * c1) > 1.0 / height or abs(0.5 * c2) > 1.0 / height:
             raise ValueError("|R| must be larger than Height/2")
         if (_sag_float(c1, height / 2) - t / 2
@@ -511,8 +527,9 @@ class AsphericLens(SingletLens):
     a4 r^4 .. a10 r^10 terms (``a1``, ``a2``: up to 4 each, padded with
     zeros) per face, refined from the base conic's roots by 4 Halley steps
     (geom/surfaces.py::asph_refine) and differentiable in every one of them.
-    Its glass disperses, and coatings and Fresnel physics raise, as for
-    ``SingletLens`` (whose keyword arguments it passes on)."""
+    Its glass disperses, ``fresnel`` selects the faces' physics and
+    coatings raise, as for ``SingletLens`` (whose keyword arguments it
+    passes on)."""
 
     def __init__(self, c1, c2, d, t, ior_glass, ior_media=1.0,
                  k1=0.0, k2=0.0, a1=(), a2=(),

@@ -39,6 +39,14 @@ The kernels' notes are in their sources.  In this module:
   ``n_final``, or on a recording run the eager bounce loop under autograd
   (``fused_trace.plain_vjp``), as the reference's ``_fused_nonseq_bwd``
   recomputes through its XLA trace.
+- The Fresnel kinds run K5's and K6's instantiation with them
+  (``fused_trace.fresnel_kinds``; ``fused_trace.FRESNEL_LAUNCHES``).
+  FRESNEL draws the counter-based Philox value of (ray, bounce, row) under
+  the trace's two seed words (drawn once from the caller's ``generator``:
+  rays/draws.py), in K5, K6's replay and the plain versions
+  alike, so K6 replays K5's branches by their counters.  As the
+  reference's ``_fused_nonseq_bwd`` does, a recording run's backward
+  raises on a drawing scene.
 """
 
 from __future__ import annotations
@@ -49,11 +57,13 @@ from torch.autograd.function import once_differentiable
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.table import FlatRow
 from ..core.trace import Streams, bounce_loop
+from ..rays.draws import NonseqDraws, needs_draws, nonseq_draws
 from . import fused_trace
 from .fused_trace import (COMPS, NO_STREAMS, StreamFlags, THREADS,
                           backward_result, check_cotangents, check_inputs,
                           check_streams, dispersive, dispersive_kinds,
-                          ext_kinds, ext_maps, flat_inputs, fused_forward,
+                          ext_kinds, ext_maps, flat_inputs,
+                          fresnel_kinds, fused_forward,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
                           plate_maps, plate_rows, ptr, saved_inputs, stream,
@@ -66,24 +76,27 @@ NONSEQ_BWD_LAUNCHES = 0   # kernel launches by trace_nonseq_bwd_cuda (K6)
 
 def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
                        n_bounces, grids=None, track_opl=False,
-                       record_paths=False, record_hits=False):
+                       record_paths=False, record_hits=False, generator=None):
     """Fused bounce loop within ``n_bounces`` -> ``(rays, SensorState)``,
     differentiable with respect to the table, the 7 ray streams
     px..intensity and the phase maps of ``grids`` ({PHASE_GRID row:
     [H, W] map}) (first order).  With any of ``track_opl``,
     ``record_paths`` and ``record_hits`` -> ``(rays, SensorState, aux)``
-    (core/trace.py::trace_nonsequential's ``aux``).
+    (core/trace.py::trace_nonsequential's ``aux``).  A table with FRESNEL
+    rows draws under two Philox seed words drawn once from ``generator``;
+    without it it raises ValueError.
 
     CPU tensors run the plain versions; CUDA tensors launch K5 and, in
     backward, K6 (or raise: there is no fallback)."""
     flags = StreamFlags(track_opl, record_paths, record_hits)
     flat, kinds = flat_inputs(table, rays, cfg, static_meta)
+    key = draw_key(static_meta, generator)
     maps = plate_maps(static_meta, grids)
     comps = [getattr(rays, c) for c in COMPS]
     if needs_grad(flat, rays, maps):
-        if flags.any:
+        if flags.any or key is not None:
             outs = FusedNonseqStreams.apply(
-                flat, kinds, cfg, tuple(static_meta), flags, n_bounces,
+                flat, kinds, cfg, tuple(static_meta), flags, n_bounces, key,
                 *comps, rays.ray_id, *plate_inputs(rays, maps))
             return unpack(outs, rays, cfg, flags, nonseq=True)
         return unpack(FusedNonseq.apply(flat, kinds, cfg, tuple(static_meta),
@@ -91,16 +104,25 @@ def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
                                         *plate_inputs(rays, maps)),
                       rays, cfg)
     return _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps,
-                    flags)
+                    flags, key)
+
+
+def draw_key(static_meta, generator=None):
+    """The Philox key of a fused non-sequential trace: two 32-bit words
+    drawn once from ``generator``; None when no row draws.  A drawing table
+    without a generator raises ValueError (rays/draws.py::nonseq_draws)."""
+    draws = nonseq_draws(static_meta, 0, None, generator)
+    return draws.key if draws is not None else None
 
 
 def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
-             flags=NO_STREAMS):
+             flags=NO_STREAMS, key=None):
     if flat.device.type == 'cpu':
         return trace_nonseq_fused_plain(flat, rays, cfg, static_meta,
-                                        n_bounces, maps, *flags)
+                                        n_bounces, maps, *flags, key=key)
     return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
-                                 ext_kinds(static_meta), *flags)
+                                 ext_kinds(static_meta), *flags,
+                                 fresnel=fresnel_kinds(static_meta), key=key)
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -127,32 +149,37 @@ class FusedNonseq(torch.autograd.Function):
                 dy, dz, intensity, ray_id, *plates):
         ctx.n_bounces = n_bounces
         return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
-                             NO_STREAMS, (px, py, pz, dx, dy, dz, intensity),
-                             ray_id, plates, n_bounces)
+                             NO_STREAMS, None,
+                             (px, py, pz, dx, dy, dz, intensity), ray_id,
+                             plates, n_bounces)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
         need = ctx.needs_input_grad
-        res = _nonseq_backward(ctx, grads, need[:4] + (False,) + need[4:])
-        return res[:4] + res[5:]
+        res = _nonseq_backward(
+            ctx, grads, need[:4] + (False,) + need[4:5] + (False,) + need[5:])
+        return res[:4] + res[5:6] + res[7:]
 
 
 class FusedNonseqStreams(torch.autograd.Function):
     """``FusedNonseq`` with the deterministic streams ``flags`` as outputs
     after the grid: ``opl`` and ``n_final`` [N], ``paths`` [B, N, 3],
     ``hits`` [B, N, 3], ``hit_weights`` [B, N] and ``hit_slots`` [B, N]
-    (int32, no derivative), each when asked for.
+    (int32, no derivative), each when asked for, and with ``key``, the
+    FRESNEL draws' two seed words (None: no row draws).
 
-    ``apply(flat_table, kinds, cfg, meta, flags, n_bounces, px, ...,
-    ray_id, *plates)``; its backward as ``FusedTraceStreams``'s, with K6."""
+    ``apply(flat_table, kinds, cfg, meta, flags, n_bounces, key, px, ...,
+    ray_id, *plates)``; its backward as ``FusedTraceStreams``'s, with K6
+    replaying the draws by their counters; a recording run on a drawing
+    scene raises there."""
 
     @staticmethod
-    def forward(ctx, flat_table, kinds, cfg, meta, flags, n_bounces, px, py,
-                pz, dx, dy, dz, intensity, ray_id, *plates):
+    def forward(ctx, flat_table, kinds, cfg, meta, flags, n_bounces, key, px,
+                py, pz, dx, dy, dz, intensity, ray_id, *plates):
         ctx.n_bounces = n_bounces
         return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
-                             flags, (px, py, pz, dx, dy, dz, intensity),
+                             flags, key, (px, py, pz, dx, dy, dz, intensity),
                              ray_id, plates, n_bounces)
 
     @staticmethod
@@ -166,8 +193,14 @@ def _nonseq_backward(ctx, grads, need):
     holding False for the flags) -> the cotangents of its inputs."""
     flat, kinds, rays, maps = saved_inputs(ctx)
     g_rays, g_moments, g_grid, g_aux = stream_cotangents(ctx, grads)
-    need_table, need_rays = need[0], any(need[6:13])
-    need_maps, need_wl = any(need[15:]), len(need) > 14 and need[14]
+    need_table, need_rays = need[0], any(need[7:14])
+    need_maps, need_wl = any(need[16:]), len(need) > 15 and need[15]
+    if ctx.flags.records and ctx.draws is not None:
+        raise NotImplementedError(
+            'gradients through a recording run (record_paths, record_hits) '
+            'of the fused non-sequential trace of a stochastic (FRESNEL) '
+            'scene: as in the JAX package, use simulate() for such design '
+            'loops, or fresnel=\'weighted\'')
     if ctx.flags.records:
         fused_trace.RECORD_RECOMPUTES += 1
         res = plain_vjp(
@@ -181,26 +214,36 @@ def _nonseq_backward(ctx, grads, need):
             need_maps=need_maps, ext=ext_kinds(ctx.meta),
             disp=dispersive(ctx.meta), need_wavelength=need_wl,
             g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
-            opl=ctx.flags.track_opl)
+            opl=ctx.flags.track_opl, fresnel=fresnel_kinds(ctx.meta),
+            key=ctx.draws)
     else:
         res = trace_nonseq_bwd_plain(
             flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
             g_grid=g_grid, maps=maps, need_wavelength=need_wl,
-            g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'))
-    return backward_result(res, maps, need, 6)
+            g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
+            key=ctx.draws)
+    return backward_result(res, maps, need, 7)
 
 
 def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
-          flags=NO_STREAMS, plain=True):
+          flags=NO_STREAMS, plain=True, key=None, draws=None):
     """The eager bounce loop of core/trace.py over the rows of the flat
     table -> ``(rays, SensorState)``, with ``flags``' streams ``(rays,
-    SensorState, aux)``.  ``plain=False`` runs K3's and K4's kernels on
-    CUDA tensors, as the eager ``Scene.simulate`` does."""
+    SensorState, aux)``; FRESNEL rows draw Philox under ``key``, or from
+    ``draws(bounce, row)`` when given.  ``plain=False`` runs K3's and K4's
+    kernels on CUDA tensors, as the eager ``Scene.simulate`` does."""
     streams = Streams.of(rays, **flags._asdict(), launch=False)
     rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
+    rng = None
+    if needs_draws(static_meta):
+        if key is None and draws is None:
+            raise ValueError('a table with FRESNEL rows needs the Philox key '
+                             'of its draws')
+        rng = NonseqDraws(rays.n, rays.px.device, key=key, fn=draws)
     out, sensors = bounce_loop(
         rows, rays, n_bounces, cfg, static_meta, torch.float32, plain=plain,
-        grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams)
+        grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams,
+        draws=rng)
     return (out, sensors) if streams is None else (out, sensors,
                                                    streams.aux())
 
@@ -208,19 +251,22 @@ def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
 def trace_nonseq_fused_plain(flat_table, rays, cfg: SensorConfig,
                              static_meta, n_bounces, maps=None,
                              track_opl=False, record_paths=False,
-                             record_hits=False):
+                             record_hits=False, key=None, draws=None):
     """K5's function in plain torch: the eager bounce loop over the rows of
     the flat table the kernel reads, with the phase maps ``maps`` of its
-    PHASE_GRID rows (in row order) -> ``(rays, SensorState)``, with any
-    stream ``(rays, SensorState, aux)``."""
+    PHASE_GRID rows (in row order) and the FRESNEL draws' Philox ``key`` ->
+    ``(rays, SensorState)``, with any stream ``(rays, SensorState, aux)``.
+    ``draws(bounce, row) -> [N]`` replaces the Philox draws (the tests feed
+    the JAX package's; K5 itself draws by counter only)."""
     return _loop(flat_table, rays, cfg, static_meta, n_bounces, maps,
-                 StreamFlags(track_opl, record_paths, record_hits))
+                 StreamFlags(track_opl, record_paths, record_hits), key=key,
+                 draws=draws)
 
 
 def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
                            n_bounces, g_rays, g_moments, g_grid=None,
                            maps=None, need_wavelength=False, g_opl=None,
-                           g_nfinal=None):
+                           g_nfinal=None, key=None):
     """K6's function in plain torch: re-run ``trace_nonseq_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
@@ -230,20 +276,22 @@ def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
     those of the ``opl`` and ``n_final`` streams (each None for zero).
     Returns ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps
     their cotangents third, and with ``need_wavelength`` the wavelength's
-    cotangent fourth (the maps' then ``()`` without maps)."""
+    cotangent fourth (the maps' then ``()`` without maps).  ``key``: the
+    forward's Philox key."""
     g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
              if g is not None}
     flags = StreamFlags(bool(g_aux), False, False)
     return plain_vjp(
         lambda flat, r, m: _loop(flat, r, cfg, static_meta, n_bounces, m,
-                                 flags),
+                                 flags, key=key),
         flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength,
         g_aux)
 
 
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, maps=None, ext=False, track_opl=False,
-                          record_paths=False, record_hits=False):
+                          record_paths=False, record_hits=False,
+                          fresnel=False, key=None):
     """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -251,13 +299,19 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     int32 rows of ``kind_rows``, ``maps`` the PHASE_GRID rows' [H, W] maps
     in row order; all on one CUDA device.  ``ext``: the table has the
     extended kinds (``fused_trace.ext_kinds``).  The streams run K5's
-    instantiation with them, whatever ``ext``."""
+    instantiation with them, whatever ``ext``; ``fresnel`` (the table has a
+    Fresnel kind, ``fused_trace.fresnel_kinds``) the one with the Fresnel
+    kinds, which also takes the streams.  ``key`` is the FRESNEL draws' two
+    Philox seed words, None when no row draws; its caller derives it from
+    the table's static metadata (``draw_key``)."""
     global NONSEQ_LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
     _check_bounces(n_bounces)
-    plates = plate_buffers(ext_maps(maps, ext or flags.any), rays, device)
+    key_args = _key_args(fresnel, key)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
+                           device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     partials = torch.empty(-(-n // THREADS), n_slots, n_bundles, N_MOMENTS,
@@ -272,10 +326,10 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if flags.any:
+            if fresnel or flags.any:
                 rc = kernel('rtt_trace_nonseq_fwd_streams')(
-                    *args, *stream_args(bufs, nonseq=True), int(n_bounces),
-                    n, stream(device))
+                    *args, *stream_args(bufs, nonseq=True), *key_args,
+                    int(n_bounces), n, stream(device))
             else:
                 rc = kernel('rtt_trace_nonseq_fwd')(
                     *args, int(ext), int(n_bounces), n, stream(device))
@@ -283,7 +337,9 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        if flags.any:
+        if fresnel:
+            fused_trace.FRESNEL_LAUNCHES += 1
+        elif flags.any:
             fused_trace.STREAM_LAUNCHES += 1
         else:
             fused_trace.EXT_LAUNCHES += int(ext)
@@ -299,7 +355,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           need_rays=True, g_grid=None, replay=False,
                           maps=None, need_maps=True, ext=False, disp=None,
                           need_wavelength=False, g_opl=None, g_nfinal=None,
-                          opl=False):
+                          opl=False, fresnel=False, key=None):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
@@ -316,12 +372,16 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     ``fused_trace.trace_seq_bwd_cuda`` (a dispersive table and the
     wavelength's cotangent take the instantiation with dispersion), and
     ``opl``, ``g_opl`` and ``g_nfinal`` too (K5 ran with ``track_opl``: the
-    instantiation with the optical path length, whatever ``ext``)."""
+    instantiation with the optical path length, whatever ``ext``), and
+    ``fresnel`` and ``key`` as for ``trace_nonseq_fwd_cuda``
+    (the instantiation with the Fresnel kinds, which replays K5's draws by
+    their counters and also takes the path length)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     _check_bounces(n_bounces)
-    ext = ext or need_wavelength or opl
+    key_args = _key_args(fresnel, key)
+    ext = ext or need_wavelength or opl or fresnel
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
@@ -351,10 +411,10 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if opl:
+            if fresnel or opl:
                 rc = kernel('rtt_trace_nonseq_bwd_opl')(
-                    *args, ptr(g_opl), ptr(g_nfinal), int(n_bounces), n,
-                    stream(device))
+                    *args, ptr(g_opl), ptr(g_nfinal), *key_args,
+                    int(n_bounces), n, stream(device))
             else:
                 rc = kernel('rtt_trace_nonseq_bwd')(
                     *args, int(ext), int(n_bounces), n, stream(device))
@@ -362,7 +422,9 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        if opl:
+        if fresnel:
+            fused_trace.FRESNEL_LAUNCHES += 1
+        elif opl:
             fused_trace.STREAM_LAUNCHES += 1
         else:
             fused_trace.EXT_LAUNCHES += int(ext)
@@ -371,6 +433,17 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     if replay:
         res += (rays.replace(**dict(zip(COMPS, ends))),)
     return res
+
+
+def _key_args(fresnel, key):
+    """The Philox key and Fresnel C arguments of K5's and K6's
+    instantiation with the streams: the key's two words (0 when no row
+    draws) and whether to run the instantiation with the Fresnel kinds."""
+    if key is not None and not fresnel:
+        raise ValueError('a Philox key is read only by the instantiation '
+                         'with the Fresnel kinds')
+    k0, k1 = key if key is not None else (0, 0)
+    return int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF, int(fresnel)
 
 
 def _check_bounces(n_bounces):

@@ -71,6 +71,20 @@ module:
   ``RECORD_RECOMPUTES``), because K2, like the TPU reverse kernel, carries
   no cotangent streams for the O(K N) records; K2 is not tried on such a
   run.  That is the reference's design, not a fallback.
+- The Fresnel kinds of uncoated interfaces (FRESNEL, FRESNEL_W,
+  REFLECT_W; ``fresnel_kinds``) run in one more instantiation of each of
+  K1, K2, K5 and K6, built on the one with the streams (K1, K5) or the path
+  length (K2, K6), so that every other instantiation keeps its code; their
+  launches count in ``FRESNEL_LAUNCHES``, not in ``STREAM_LAUNCHES`` or
+  ``EXT_LAUNCHES``.  FRESNEL's Monte-Carlo branch reads the trace's draws
+  (rays/draws.py): K1, K2 and their plain versions the ``[F, N]`` uniform
+  streams pre-drawn from the caller's generator (or injected), in row
+  order, the same streams the eager chain reads; K5, K6 and theirs the
+  counter-based Philox draw of (ray, bounce, row) under two seed words.
+  The streams travel into ``FusedTraceStreams`` as an input without
+  derivative (the choice has none), and a recording run's eager recompute
+  reuses them.  A scene with a drawing row runs ``FusedTraceStreams`` even
+  without streams.
 - ``build`` compiles the six libraries (K1, K2, K3 in ops/grid.py, K4 in
   ops/phase_grid.py, K5 and K6 in ops/fused_nonseq.py), one nvcc each,
   started together.
@@ -87,9 +101,10 @@ from torch.autograd.function import once_differentiable
 
 from ..constants import PhysKind, SBKind, VBKind
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
-from ..core.static_dispatch import unsupported
+from ..core.static_dispatch import FRESNEL_KINDS, unsupported
 from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
 from ..core.trace import Streams, surface_chain
+from ..rays.draws import draws_per_ray, sequential_uniforms
 from ..rays.ray import Rays
 from . import nvcc_build
 
@@ -105,6 +120,9 @@ STREAM_LAUNCHES = 0
 # backward passes of recording runs recomputed through the eager trace
 # (FusedTraceStreams and FusedNonseqStreams)
 RECORD_RECOMPUTES = 0
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with the Fresnel kinds
+FRESNEL_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -152,9 +170,14 @@ _WAVE = [_P, _I]
 # and hit slots); K2's and K6's stream cotangents: g_opl, g_nfinal
 _STREAMS = [_P] * 5
 _OPL = [_P, _P]
+# the draws of the instantiations with the Fresnel kinds, then whether to
+# run that instantiation: K1's and K2's [F, N] uniform streams and their
+# count F; K5's and K6's two Philox seed words
+_UNIFORMS = [_P, _I, _I]
+_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
-# code and the extended kinds, 3 those and a dispersive table), out: resident
-# blocks per SM
+# code and the extended kinds, 3 those and a dispersive table, 4 the streams
+# or the path length, 5 the Fresnel kinds), out: resident blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
@@ -162,13 +185,13 @@ _LIBRARIES = {
         'rtt_trace_seq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
         + _PLATES + _EXT + [_L, _P],
         'rtt_trace_seq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-        + _GRID + _PLATES + _STREAMS + [_L, _P],
+        + _GRID + _PLATES + _STREAMS + _UNIFORMS + [_L, _P],
         'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
         + _PLATES + [_P] + _WAVE + _EXT + [_L, _P],
         'rtt_trace_seq_bwd_opl': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
-        + _PLATES + [_P] + _WAVE + _OPL + [_L, _P],
+        + _PLATES + [_P] + _WAVE + _OPL + _UNIFORMS + [_L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
@@ -182,13 +205,14 @@ _LIBRARIES = {
         'rtt_trace_nonseq_fwd': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
         + _PLATES + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-        + _GRID + _PLATES + _STREAMS + [_P] + [_I, _L, _P],
-        'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY}),
+        + _GRID + _PLATES + _STREAMS + [_P] + _KEY + [_I, _L, _P],
+        'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY,
+        'rtt_philox4x32': [_P, _P, _P, _I, _P]}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
         'rtt_trace_nonseq_bwd': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
         + _PLATES + [_P] + _WAVE + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_opl': [_P, _P, _I] + [_P] * 31 + [_I, _I]
-        + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_I, _L, _P],
+        + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY}),
 }
 _fns = {}
@@ -217,6 +241,12 @@ def ext_kinds(static_meta):
     cylindrical lens's edge bound or a dispersive medium."""
     return any(m.asph or m.disp or m.vb in (VBKind.RECT, VBKind.CYL_EDGE)
                for m in static_meta)
+
+
+def fresnel_kinds(static_meta):
+    """Whether a row has a Fresnel kind (FRESNEL, FRESNEL_W, REFLECT_W),
+    which only the kernels' instantiation with the Fresnel kinds takes."""
+    return any(m.ph in FRESNEL_KINDS for m in static_meta)
 
 
 def dispersive(static_meta):
@@ -303,31 +333,38 @@ NO_STREAMS = StreamFlags(False, False, False)
 
 def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
                            grids=None, track_opl=False, record_paths=False,
-                           record_hits=False):
+                           record_hits=False, generator=None, uniforms=None):
     """Fused trace -> ``(rays, SensorState)``, differentiable with respect
     to the table, the 7 ray streams px..intensity and the phase maps of
     ``grids`` ({PHASE_GRID row: [H, W] map}).  With any of ``track_opl``,
     ``record_paths`` and ``record_hits`` -> ``(rays, SensorState, aux)``
-    (core/trace.py::trace_sequential's ``aux``).
+    (core/trace.py::trace_sequential's ``aux``).  A table with FRESNEL rows
+    reads ``uniforms`` ([F, N], one stream per such row in row order) or
+    streams drawn from ``generator`` (rays/draws.py), as the eager
+    ``trace_sequential`` does; with neither it raises ValueError.
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels (or
     raise: there is no fallback)."""
     flags = StreamFlags(track_opl, record_paths, record_hits)
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
+    u = sequential_uniforms(static_meta, rays.n, rays.px.device, generator,
+                            uniforms)
+    draws = u if u.shape[0] else None
     maps = plate_maps(static_meta, grids)
     comps = [getattr(rays, c) for c in COMPS]
     if needs_grad(flat, rays, maps):
-        if flags.any:
+        if flags.any or draws is not None:
             outs = FusedTraceStreams.apply(flat, kinds_t, cfg,
-                                           tuple(static_meta), flags, *comps,
-                                           rays.ray_id,
+                                           tuple(static_meta), flags, draws,
+                                           *comps, rays.ray_id,
                                            *plate_inputs(rays, maps))
             return unpack(outs, rays, cfg, flags)
         return unpack(FusedTrace.apply(flat, kinds_t, cfg, tuple(static_meta),
                                        *comps, rays.ray_id,
                                        *plate_inputs(rays, maps)),
                       rays, cfg)
-    return _forward(flat, kinds_t, rays, cfg, static_meta, maps, flags)
+    return _forward(flat, kinds_t, rays, cfg, static_meta, maps, flags,
+                    draws)
 
 
 def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
@@ -335,9 +372,10 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     {})``: the counterpart of ``trace_sequential_pallas`` (TPU kernel
     ``_kernel``), forward only.
 
-    Its contract is the TPU kernel's: no irradiance grid, no stochastic,
-    GRIN or phase-grid rows (the port has no stochastic or GRIN kind, so
-    ``unsupported`` refuses those), at most 8 sensor slots.  Its function is
+    Its contract is the TPU kernel's: no irradiance grid, no stochastic
+    (FRESNEL), GRIN or phase-grid rows (``unsupported`` refuses GRIN), at
+    most 8 sensor slots; FRESNEL_W and REFLECT_W take K1's instantiation
+    with the Fresnel kinds.  Its function is
     K1's with the grid and the maps off, so on CUDA tensors it launches
     K1's kernel so (counted in ``V1_LAUNCHES``; a RECT bound takes its
     instantiation with plate code, with no map, and the extended kinds
@@ -352,6 +390,9 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     if plate_rows(static_meta):
         raise ValueError('trace_sequential_v1 takes no phase-grid rows: use '
                          'trace_sequential_fused')
+    if draws_per_ray(static_meta):
+        raise ValueError('trace_sequential_v1 takes no stochastic (FRESNEL) '
+                         'rows: use trace_sequential_fused')
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
     if flat.device.type == 'cpu':
         out, sensors = trace_sequential_fused_plain(flat, rays, cfg,
@@ -359,7 +400,8 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     else:
         out, sensors, launched = _seq_fwd_launch(
             flat, kinds_t, rays, cfg, plate_maps(static_meta, None),
-            'trace_sequential_v1', ext_kinds(static_meta))
+            'trace_sequential_v1', ext_kinds(static_meta),
+            fresnel=fresnel_kinds(static_meta))
         V1_LAUNCHES += launched
     return out, sensors, {}
 
@@ -424,12 +466,14 @@ def wavelength_of(rays):
 
 
 def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
-             flags=NO_STREAMS):
+             flags=NO_STREAMS, uniforms=None):
     if flat.device.type == 'cpu':
         return trace_sequential_fused_plain(flat, rays, cfg, static_meta,
-                                            maps, *flags)
+                                            maps, *flags, uniforms=uniforms)
     return trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
-                              ext_kinds(static_meta), *flags)
+                              ext_kinds(static_meta), *flags,
+                              fresnel=fresnel_kinds(static_meta),
+                              uniforms=uniforms)
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -464,36 +508,41 @@ class FusedTrace(torch.autograd.Function):
     def forward(ctx, flat_table, kinds, cfg, meta, px, py, pz, dx, dy, dz,
                 intensity, ray_id, *plates):
         return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
-                             NO_STREAMS, (px, py, pz, dx, dy, dz, intensity),
-                             ray_id, plates)
+                             NO_STREAMS, None,
+                             (px, py, pz, dx, dy, dz, intensity), ray_id,
+                             plates)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
         need = ctx.needs_input_grad
-        res = _fused_backward(ctx, grads, need[:4] + (False,) + need[4:])
-        return res[:4] + res[5:]
+        res = _fused_backward(ctx, grads,
+                              need[:4] + (False, False) + need[4:])
+        return res[:4] + res[6:]
 
 
 class FusedTraceStreams(torch.autograd.Function):
     """``FusedTrace`` with the deterministic streams ``flags``
     (``StreamFlags``) as outputs after the grid: ``opl`` and ``n_final``
     [N], ``paths`` [K + 1, N, 3], ``hits`` [K, N, 3] and ``hit_weights``
-    [K, N] (each when asked for).
+    [K, N] (each when asked for), and with ``uniforms``, the FRESNEL rows'
+    ``[F, N]`` draws (None: no row draws; no derivative), which forward and
+    backward both read.
 
-    ``apply(flat_table, kinds, cfg, meta, flags, px, ..., ray_id,
-    *plates)``.  Backward: with ``track_opl`` alone, K2 (or its plain
-    version) with the cotangents of ``opl`` and ``n_final``; a recording run
-    recomputes through the eager chain with autograd, as the reference's
-    ``_fused_bwd`` does through its XLA trace (``plain_vjp``,
-    ``RECORD_RECOMPUTES``)."""
+    ``apply(flat_table, kinds, cfg, meta, flags, uniforms, px, ..., ray_id,
+    *plates)``.  Backward: with ``track_opl`` alone (or no stream), K2 (or
+    its plain version) with the cotangents of ``opl`` and ``n_final``; a
+    recording run recomputes through the eager chain with autograd, on the
+    same draws, as the reference's ``_fused_bwd`` does through its XLA trace
+    (``plain_vjp``, ``RECORD_RECOMPUTES``)."""
 
     @staticmethod
-    def forward(ctx, flat_table, kinds, cfg, meta, flags, px, py, pz, dx, dy,
-                dz, intensity, ray_id, *plates):
+    def forward(ctx, flat_table, kinds, cfg, meta, flags, uniforms, px, py,
+                pz, dx, dy, dz, intensity, ray_id, *plates):
         return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
-                             flags, (px, py, pz, dx, dy, dz, intensity),
-                             ray_id, plates)
+                             flags, uniforms,
+                             (px, py, pz, dx, dy, dz, intensity), ray_id,
+                             plates)
 
     @staticmethod
     @once_differentiable
@@ -501,19 +550,20 @@ class FusedTraceStreams(torch.autograd.Function):
         return _fused_backward(ctx, grads, ctx.needs_input_grad)
 
 
-def fused_forward(ctx, forward, flat_table, kinds, cfg, meta, flags, comps,
-                  ray_id, plates, *extra):
+def fused_forward(ctx, forward, flat_table, kinds, cfg, meta, flags, draws,
+                  comps, ray_id, plates, *extra):
     """The shared forward of the fused autograd Functions: runs ``forward``
     (``_forward`` here, ops/fused_nonseq.py's there, ``extra`` its bounce
-    budget), saves the inputs and returns the outputs: the 7 ray streams,
-    the moments, the grid (when ``cfg.grid_shape`` is set) and the streams
-    of ``flags``."""
+    budget) with the trace's ``draws`` (the sequential ``[F, N]`` uniforms,
+    the non-sequential Philox key, or None), saves the inputs and returns
+    the outputs: the 7 ray streams, the moments, the grid (when
+    ``cfg.grid_shape`` is set) and the streams of ``flags``."""
     wavelength, maps = split_plates(plates)
     res = forward(flat_table, kinds, _rays_of(comps, ray_id, wavelength),
-                  cfg, meta, *extra, maps, flags)
+                  cfg, meta, *extra, maps, flags, draws)
     out, sensors = res[:2]
     ctx.save_for_backward(flat_table, kinds, *comps, ray_id, *plates)
-    ctx.cfg, ctx.meta, ctx.flags = cfg, meta, flags
+    ctx.cfg, ctx.meta, ctx.flags, ctx.draws = cfg, meta, flags, draws
     ctx.set_materialize_grads(False)
     grid = (sensors.grid,) if cfg.grid_shape else ()
     aux = res[2] if flags.any else {}
@@ -548,13 +598,13 @@ def _fused_backward(ctx, grads, need):
     global RECORD_RECOMPUTES
     flat, kinds, rays, maps = saved_inputs(ctx)
     g_rays, g_moments, g_grid, g_aux = stream_cotangents(ctx, grads)
-    need_table, need_rays = need[0], any(need[5:12])
-    need_maps, need_wl = any(need[14:]), len(need) > 13 and need[13]
+    need_table, need_rays = need[0], any(need[6:13])
+    need_maps, need_wl = any(need[15:]), len(need) > 14 and need[14]
     if ctx.flags.records:
         RECORD_RECOMPUTES += 1
         res = plain_vjp(
             lambda f, r, m: _chain(f, r, ctx.cfg, ctx.meta, m, ctx.flags,
-                                   plain=False),
+                                   plain=False, uniforms=ctx.draws),
             flat, rays, g_rays, g_moments, g_grid, maps, need_wl, g_aux)
     elif flat.device.type == 'cuda':
         res = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg, g_rays,
@@ -566,14 +616,17 @@ def _fused_backward(ctx, grads, need):
                                  need_wavelength=need_wl,
                                  g_opl=g_aux.get('opl'),
                                  g_nfinal=g_aux.get('n_final'),
-                                 opl=ctx.flags.track_opl)
+                                 opl=ctx.flags.track_opl,
+                                 fresnel=fresnel_kinds(ctx.meta),
+                                 uniforms=ctx.draws)
     else:
         res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                   g_moments, g_grid=g_grid, maps=maps,
                                   need_wavelength=need_wl,
                                   g_opl=g_aux.get('opl'),
-                                  g_nfinal=g_aux.get('n_final'))
-    return backward_result(res, maps, need, 5)
+                                  g_nfinal=g_aux.get('n_final'),
+                                  uniforms=ctx.draws)
+    return backward_result(res, maps, need, 6)
 
 
 def backward_result(res, maps, need, first):
@@ -600,34 +653,42 @@ def plate_cotangents(res, maps, need):
 
 
 def _chain(flat_table, rays, cfg, static_meta, maps=None, flags=NO_STREAMS,
-           plain=True):
+           plain=True, uniforms=None):
     """The eager chain of core/trace.py over the rows of the flat table ->
     ``(rays, SensorState)``, with ``flags``' streams ``(rays, SensorState,
-    aux)``.  ``plain=False`` runs K3's and K4's kernels on CUDA tensors, as
-    the eager ``simulate`` does."""
+    aux)``; ``uniforms`` holds the FRESNEL rows' ``[F, N]`` draws.
+    ``plain=False`` runs K3's and K4's kernels on CUDA tensors, as the eager
+    ``simulate`` does."""
     streams = Streams.of(rays, **flags._asdict())
     rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
+    uniforms = sequential_uniforms(static_meta, rays.n, rays.px.device,
+                                   uniforms=uniforms)
     out, sensors = surface_chain(
         rows, rays, cfg, static_meta, torch.float32, plain=plain,
-        grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams)
+        grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams,
+        uniforms=uniforms)
     return (out, sensors) if streams is None else (out, sensors,
                                                    streams.aux())
 
 
 def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
                                  static_meta, maps=None, track_opl=False,
-                                 record_paths=False, record_hits=False):
+                                 record_paths=False, record_hits=False,
+                                 uniforms=None):
     """K1's function in plain torch: the eager chain of core/trace.py over
     the rows of the flat table the kernel reads, with the phase maps
-    ``maps`` of its PHASE_GRID rows (in row order) -> ``(rays,
-    SensorState)``, with any stream ``(rays, SensorState, aux)``."""
+    ``maps`` of its PHASE_GRID rows (in row order) and the FRESNEL rows'
+    ``[F, N]`` ``uniforms`` -> ``(rays, SensorState)``, with any stream
+    ``(rays, SensorState, aux)``."""
     return _chain(flat_table, rays, cfg, static_meta, maps,
-                  StreamFlags(track_opl, record_paths, record_hits))
+                  StreamFlags(track_opl, record_paths, record_hits),
+                  uniforms=uniforms)
 
 
 def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
                         g_rays, g_moments, g_grid=None, maps=None,
-                        need_wavelength=False, g_opl=None, g_nfinal=None):
+                        need_wavelength=False, g_opl=None, g_nfinal=None,
+                        uniforms=None):
     """K2's function in plain torch: re-run ``trace_sequential_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
@@ -638,12 +699,14 @@ def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
     given runs the chain with ``track_opl``).  Returns ``(g_flat [K, 160],
     7 input-ray cotangents)``, with phase maps their cotangents third, and
     with ``need_wavelength`` the wavelength's cotangent fourth (the maps'
-    then ``()`` without maps)."""
+    then ``()`` without maps).  ``uniforms``: the forward's FRESNEL
+    draws."""
     g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
              if g is not None}
     flags = StreamFlags(bool(g_aux), False, False)
     return plain_vjp(
-        lambda flat, r, m: _chain(flat, r, cfg, static_meta, m, flags),
+        lambda flat, r, m: _chain(flat, r, cfg, static_meta, m, flags,
+                                  uniforms=uniforms),
         flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength,
         g_aux)
 
@@ -721,7 +784,7 @@ def kernel(symbol):
 
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
-                  ext=False, disp=False, streams=False):
+                  ext=False, disp=False, streams=False, fresnel=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
@@ -730,11 +793,12 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     ``plates``, plate code (with ``ext``, also the extended kinds; with
     ``disp`` too, on a table with a dispersive row; with ``streams``, the
     instantiation with the streams, on a table with a dispersive row when
-    ``disp``) runs, at that launch's dynamic shared memory
+    ``disp``; with ``fresnel``, the instantiation with the Fresnel kinds,
+    likewise) runs, at that launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (4 if streams else (3 if disp else 2) if ext
+    code = (5 if fresnel else 4 if streams else (3 if disp else 2) if ext
             else int(bool(plates)))
     rc = kernel(f'rtt_{library}_occupancy')(
         n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces), code,
@@ -864,7 +928,8 @@ def grad_cols(plates, ext, disp=False):
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                        maps=None, ext=False, track_opl=False,
-                       record_paths=False, record_hits=False):
+                       record_paths=False, record_hits=False, fresnel=False,
+                       uniforms=None):
     """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -872,13 +937,32 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     int32 rows of ``kind_rows``, ``maps`` the PHASE_GRID rows' [H, W] maps
     in row order; all on one CUDA device.  ``ext``: the table has the
     extended kinds (``ext_kinds``).  The streams run K1's instantiation
-    with them, whatever ``ext``."""
+    with them, whatever ``ext``; ``fresnel`` (the table has a Fresnel kind,
+    ``fresnel_kinds``) the one with the Fresnel kinds, which also takes the
+    streams.  ``uniforms`` holds the table's FRESNEL rows' [F, N] draws, one
+    stream per such row in row order (None: no row draws); its caller
+    derives them from the table's static metadata
+    (rays/draws.py::sequential_uniforms)."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
-                          'trace_seq_fwd_cuda', ext, flags)
+                          'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms)
     LAUNCHES += res[-1]
     return res[:-1]
+
+
+def draw_args(fresnel, uniforms, n, device):
+    """The K1 and K2 wrappers' draw arguments: the [F, N] ``uniforms``
+    (None: no row draws) checked to be a contiguous float32 tensor on
+    ``device`` -> the (pointer, F, ``fresnel``) C arguments."""
+    if uniforms is None or uniforms.shape[0] == 0:
+        return None, 0, int(fresnel)
+    if not fresnel:
+        raise ValueError('uniforms are read only by the instantiation with '
+                         'the Fresnel kinds')
+    check(uniforms, 'uniforms', torch.float32, (uniforms.shape[0], n),
+          device)
+    return uniforms.data_ptr(), uniforms.shape[0], 1
 
 
 def stream_buffers(flags, rows, n, device, nonseq=False):
@@ -916,13 +1000,15 @@ def stream_aux(bufs):
 
 
 def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
-                    flags=NO_STREAMS):
+                    flags=NO_STREAMS, fresnel=False, uniforms=None):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
-    global EXT_LAUNCHES, STREAM_LAUNCHES
+    global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
-    plates = plate_buffers(ext_maps(maps, ext or flags.any), rays, device)
+    draws = draw_args(fresnel, uniforms, n, device)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
+                           device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     n_blocks = -(-n // THREADS)
@@ -939,9 +1025,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if flags.any:
+            if fresnel or flags.any:
                 rc = kernel('rtt_trace_seq_fwd_streams')(
-                    *args, *stream_args(bufs), n, stream(device))
+                    *args, *stream_args(bufs), *draws, n, stream(device))
             else:
                 rc = kernel('rtt_trace_seq_fwd')(*args, int(ext), n,
                                                  stream(device))
@@ -949,7 +1035,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if flags.any:
+        if fresnel:
+            FRESNEL_LAUNCHES += 1
+        elif flags.any:
             STREAM_LAUNCHES += 1
         else:
             EXT_LAUNCHES += int(ext)
@@ -964,7 +1052,8 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_moments, need_table=True, need_rays=True,
                        g_grid=None, maps=None, need_maps=True, ext=False,
                        disp=None, need_wavelength=False, g_opl=None,
-                       g_nfinal=None, opl=False):
+                       g_nfinal=None, opl=False, fresnel=False,
+                       uniforms=None):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
     kinds) their cotangents (or None) third, and with ``need_wavelength``
@@ -982,11 +1071,14 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     whatever ``ext``.  ``opl`` (K1 ran with ``track_opl``) takes the
     instantiation with the optical path length, whatever ``ext``, with
     ``g_opl`` and ``g_nfinal`` the cotangents of K1's ``opl`` and
-    ``n_final`` (None for zero)."""
-    global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES
+    ``n_final`` (None for zero).  ``fresnel`` and ``uniforms`` as for
+    ``trace_seq_fwd_cuda``: the instantiation with the Fresnel kinds
+    (which also takes the path length), reading K1's draws."""
+    global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
-    ext = ext or need_wavelength or opl
+    ext = ext or need_wavelength or opl or fresnel
+    draws = draw_args(fresnel, uniforms, n, device)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
@@ -1013,9 +1105,10 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                 *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if opl:
+            if fresnel or opl:
                 rc = kernel('rtt_trace_seq_bwd_opl')(
-                    *args, ptr(g_opl), ptr(g_nfinal), n, stream(device))
+                    *args, ptr(g_opl), ptr(g_nfinal), *draws, n,
+                    stream(device))
             else:
                 rc = kernel('rtt_trace_seq_bwd')(*args, int(ext), n,
                                                  stream(device))
@@ -1023,7 +1116,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if opl:
+        if fresnel:
+            FRESNEL_LAUNCHES += 1
+        elif opl:
             STREAM_LAUNCHES += 1
         else:
             EXT_LAUNCHES += int(ext)

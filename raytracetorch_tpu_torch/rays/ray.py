@@ -56,6 +56,19 @@ class Rays:
                    dz=d[2] * inv, intensity=intensity, ray_id=ray_id,
                    wavelength=wavelength)
 
+    @classmethod
+    def from_components(cls, pos_c, dir_c, intensity, ray_id, wavelength):
+        """From component tuples of [N] tensors, taken as they are (no
+        normalization); each is made contiguous, as the kernels read
+        them."""
+        px, py, pz = (torch.as_tensor(c).contiguous() for c in pos_c)
+        dx, dy, dz = (torch.as_tensor(c).contiguous() for c in dir_c)
+        return cls(px=px, py=py, pz=pz, dx=dx, dy=dy, dz=dz,
+                   intensity=torch.as_tensor(intensity).contiguous(),
+                   ray_id=torch.as_tensor(ray_id,
+                                          dtype=torch.int32).contiguous(),
+                   wavelength=torch.as_tensor(wavelength).contiguous())
+
     @property
     def pos(self):
         """[N, 3] position view (materialized on access)."""

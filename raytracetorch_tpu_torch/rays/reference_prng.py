@@ -5,10 +5,15 @@ partitionable threefry, the default of JAX 0.5 and later).  The port's
 sources draw from a ``torch.Generator`` instead, so the same seed gives other
 rays.  Where a run must trace the very rays of a reference example (its
 published setting), this module reproduces those draws bit for bit:
-``prng_key``, ``split`` and ``uniform`` follow ``jax.random.PRNGKey``,
-``split`` and ``uniform``, and ``collimated_disk`` follows
-``CollimatedDisk.make(radius, translation).sample(key, n)``.
-tests/test_torch_phase_grid.py holds them equal to ``jax.random``.
+``prng_key``, ``split``, ``fold_in`` and ``uniform`` follow
+``jax.random.PRNGKey``, ``split``, ``fold_in`` and ``uniform``,
+``collimated_disk`` follows ``CollimatedDisk.make(radius,
+translation).sample(key, n)``, and ``fresnel_uniforms`` rebuilds the
+uniform streams that the JAX package's ``trace_sequential`` (and its fused
+kernel) draws for the FRESNEL rows of a table under a key, so that a run
+can realize the reference's very Fresnel branches.
+tests/test_torch_phase_grid.py and tests/test_torch_fresnel.py hold them
+equal to ``jax.random``.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..constants import PhysKind
 from .ray import Rays
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -59,6 +65,26 @@ def split(key, num=2):
     """``jax.random.split(key, num)`` -> [num, 2] uint32 keys."""
     b0, b1 = threefry2x32(key, *_counters(num))
     return np.stack([b0, b1], axis=1)
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)`` for an int data in [0, 2**32): the
+    cipher of the counter words (0, data)."""
+    b0, b1 = threefry2x32(key, np.array([0], np.uint32),
+                          np.array([int(data)], np.uint32))
+    return np.array([b0[0], b1[0]], np.uint32)
+
+
+def fresnel_uniforms(key, static_meta, n, device=None):
+    """The ``[F, N]`` float32 streams of the FRESNEL rows of a table, in
+    row order, as the JAX package's ``trace_sequential(table, rays, key)``
+    draws them: ``uniform(split(key, K)[k], (N,))`` for FRESNEL row k of the
+    K rows -> a tensor on ``device`` (the port's ``uniforms=``)."""
+    keys = split(key, max(len(static_meta), 1))
+    rows = [uniform(keys[k], n) for k, m in enumerate(static_meta)
+            if m.ph == PhysKind.FRESNEL]
+    out = np.stack(rows) if rows else np.zeros((0, n), np.float32)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
 
 
 def uniform(key, n, minval=0.0, maxval=1.0):

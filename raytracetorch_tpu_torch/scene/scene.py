@@ -23,6 +23,15 @@ Both ``simulate`` and ``simulate_fused`` take the deterministic streams
 ``aux`` with the JAX package's keys and shapes (core/trace.py); the fused
 traces run them through the kernels' instantiation with the streams.
 
+A scene whose lenses take ``fresnel=True`` draws the Monte-Carlo Fresnel
+branch: every trace then takes the caller's ``generator`` (a
+``torch.Generator``) or the draws themselves (sequential: ``uniforms``,
+``[F, N]``; non-sequential, eagerly: ``draws(bounce, row) -> [N]``) and
+raises ValueError without one
+(rays/draws.py).  The eager and fused sequential traces draw the same
+streams from the same generator state; the non-sequential ones the same
+counter-based values.
+
 ``grid_shape = (H, W)`` and ``grid_half_extent`` give every sensor an
 irradiance grid (``sensors.grid [S, H, W]``), binned by kernel K3 on the
 card.  A ``PhaseGridPlate``'s ``[H, W]`` map rides the side channel
@@ -192,9 +201,10 @@ class Scene:
     def simulate(self, params, rays, n_bundles=None, **kw):
         """Eager differentiable bounce loop -> (rays, sensors, aux).  ``kw``
         goes to core/trace.py::trace_nonsequential: the streams
-        ``track_opl``, ``record_paths`` and ``record_hits``; the field, ``E0``
-        and fuzzy apodization raise NotImplementedError naming their ROADMAP
-        item."""
+        ``track_opl``, ``record_paths`` and ``record_hits``; the FRESNEL
+        draws' ``generator`` or injected ``draws``; the field,
+        ``E0`` and fuzzy apodization raise NotImplementedError naming their
+        ROADMAP item."""
         kw.setdefault('grids', self.side_grids(params))
         return trace_nonsequential(self.build_table(params), rays,
                                    self.n_bounces,
@@ -202,19 +212,23 @@ class Scene:
                                    self.static_meta(), **kw)
 
     def simulate_fused(self, params, rays, n_bundles=None, track_opl=False,
-                       record_paths=False, record_hits=False):
+                       record_paths=False, record_hits=False, generator=None):
         """Fused bounce loop -> (rays, sensors, aux): kernel K5 on the card,
         its plain version on the CPU.  Each ray leaves the loop at its first
         bounce with no hit, so the default budget of 100 costs what the
         scene needs.  Differentiable with respect to the params (phase maps
         included) and the ray streams px..intensity (K6 in backward on the
         card); first order only.  ``aux`` holds the streams asked for, as
-        ``simulate``'s; the records cover the full budget."""
+        ``simulate``'s; the records cover the full budget.  FRESNEL rows
+        draw under two Philox seed words drawn once from ``generator``: the
+        kernel draws by counter, so an injected ``draws`` function is
+        ``simulate``'s alone."""
         res = trace_nonseq_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), self.n_bounces,
             grids=self.side_grids(params), track_opl=track_opl,
-            record_paths=record_paths, record_hits=record_hits)
+            record_paths=record_paths, record_hits=record_hits,
+            generator=generator)
         return res if len(res) == 3 else (*res, {})
 
     # -- conversions -------------------------------------------------------
@@ -238,19 +252,24 @@ class SequentialScene(Scene):
     sequential = True
 
     def simulate(self, params, rays, n_bundles=None, track_opl=False,
-                 record_paths=False, record_hits=False):
+                 record_paths=False, record_hits=False, generator=None,
+                 uniforms=None):
         """Eager differentiable trace -> (rays, sensors, aux); ``aux`` holds
-        the streams asked for (core/trace.py::trace_sequential)."""
+        the streams asked for (core/trace.py::trace_sequential).  FRESNEL
+        rows read ``uniforms`` ([F, N]) or streams drawn from
+        ``generator``."""
         return trace_sequential(self.build_table(params), rays,
                                 self.sensor_config(n_bundles),
                                 self.static_meta(),
                                 grids=self.side_grids(params),
                                 track_opl=track_opl,
                                 record_paths=record_paths,
-                                record_hits=record_hits)
+                                record_hits=record_hits, generator=generator,
+                                uniforms=uniforms)
 
     def simulate_fused(self, params, rays, n_bundles=None, track_opl=False,
-                       record_paths=False, record_hits=False):
+                       record_paths=False, record_hits=False, generator=None,
+                       uniforms=None):
         """Fused trace -> (rays, sensors, aux): the CUDA kernels on the card
         (K1 forward, K2 backward under grad), their plain versions on the
         CPU.  Differentiable with respect to the params (phase maps
@@ -258,12 +277,14 @@ class SequentialScene(Scene):
         ``aux`` holds the streams asked for, as ``simulate``'s; with
         ``track_opl`` alone K2 takes their cotangents, and a recording run
         recomputes its backward through the eager chain, as the JAX
-        package's does."""
+        package's does.  FRESNEL rows read ``uniforms`` or streams drawn
+        from ``generator``, the same that ``simulate`` draws from the same
+        generator state."""
         res = trace_sequential_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), grids=self.side_grids(params),
             track_opl=track_opl, record_paths=record_paths,
-            record_hits=record_hits)
+            record_hits=record_hits, generator=generator, uniforms=uniforms)
         return res if len(res) == 3 else (*res, {})
 
     def to_base(self):

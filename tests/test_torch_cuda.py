@@ -43,7 +43,12 @@ length, path and hit recording; chip_smoke.py section 10's
 ``stream_kernels_vs_plain`` with its bounds, OPL_RTOL for the path length),
 the paths that launch them, the recording run's eager backward
 (``RECORD_RECOMPUTES``), their blocks per SM, and ``footprints`` on the
-card against the CPU.
+card against the CPU.  So are the instantiations with the Fresnel kinds
+(chip_smoke.py section 11's ``fresnel_kernels_vs_plain`` with its bounds:
+the bench singlet with ``fresnel=True`` and ``'weighted'``, the window's
+and a Cooke triplet's ghost, the naive scene), the paths that launch them,
+their blocks per SM, the device generator's Philox known-answer vectors
+and the window ghost's closed-form flux.
 """
 
 import math
@@ -731,8 +736,15 @@ def _ext(name):
 
 def _streams(name):
     """Whether a mangled kernel name is an overload with the deterministic
-    streams (a StreamOut or OplIn argument)."""
-    return 'StreamOut' in name or 'OplIn' in name
+    streams (a StreamOut or OplIn argument) and without the Fresnel kinds
+    (``_fresnel``), which take those arguments too."""
+    return ('StreamOut' in name or 'OplIn' in name) and not _fresnel(name)
+
+
+def _fresnel(name):
+    """Whether a mangled kernel name is an overload with the Fresnel kinds
+    (a SeqDraws or PhiloxKey argument)."""
+    return 'SeqDraws' in name or 'PhiloxKey' in name
 
 
 @pytest.mark.cuda
@@ -1305,7 +1317,8 @@ def test_ext_instantiations_are_built(dev):
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
         ext = [k for k in usage
-               if f'{lib}_kernel' in k and _ext(k) and not _streams(k)]
+               if f'{lib}_kernel' in k and _ext(k) and not _streams(k)
+               and not _fresnel(k)]
         assert len(ext) == count, (lib, ext)
         assert all(usage[k]['registers'] for k in ext)
     for case in EXT_CASES:
@@ -1631,3 +1644,122 @@ def test_footprints_on_the_card_match_cpu(dev):
         assert a['label'] == b['label'] and a['n'] == b['n']
         assert math.isclose(a['r_max'], b['r_max'],
                             rel_tol=chip_smoke.POS_TOL, abs_tol=1e-6)
+
+
+# ---- the Fresnel kinds (chip_smoke.py section 11) ----
+
+@pytest.mark.cuda
+def test_philox_on_the_card_matches_known_answers(dev):
+    """The kernels' Philox4x32-10 (csrc/trace_seq_common.cuh, through K5's
+    library's check entry point) gives the generator's published
+    known-answer vectors, and the plain version's words on random
+    counters and keys."""
+    from raytracetorch_tpu_torch.rays import draws
+    m = 0xFFFFFFFF
+    ctr = [[0, 0, 0, 0], [m, m, m, m],
+           [0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344]]
+    key = [[0, 0], [m, m], [0xa4093822, 0x299f31d0]]
+    want = [[0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8],
+            [0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd],
+            [0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1]]
+    gen = torch.Generator().manual_seed(5)
+    rand = torch.randint(0, 2 ** 32, (64, 6), generator=gen,
+                         dtype=torch.int64)
+    ctr += rand[:, :4].tolist()
+    key += rand[:, 4:].tolist()
+
+    def words(rows):
+        return torch.tensor(rows, dtype=torch.int64).to(torch.int32).to(dev)
+    c, k = words(ctr), words(key)
+    out = torch.empty_like(c)
+    rc = fused_trace.kernel('rtt_philox4x32')(
+        c.data_ptr(), k.data_ptr(), out.data_ptr(), len(ctr),
+        fused_trace.stream(dev))
+    torch.cuda.synchronize()
+    assert rc == 0
+    got = out.cpu().to(torch.int64) & m
+    assert got[:3].tolist() == want
+    for j in range(3, len(ctr)):
+        w = draws.philox4x32(*(torch.tensor([ctr[j][i]]) for i in range(4)),
+                             key[j])
+        assert [int(v) for v in w] == got[j].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,nonseq', [(c, False)
+                                         for c in chip_smoke.FRESNEL_SEQ_CASES]
+                         + [(c, True) for c in chip_smoke.FRESNEL_NS_CASES],
+                         ids=[f'{c}-k1k2' for c in chip_smoke.FRESNEL_SEQ_CASES]
+                         + [f'{c}-k5k6' for c in chip_smoke.FRESNEL_NS_CASES])
+def test_fresnel_kernels_match_plain(name, nonseq, dev):
+    """K1 and K2 (K5 and K6) with the Fresnel kinds against their plain
+    versions on the same draws: rays, moments and the ray and table
+    cotangents (chip_smoke.py's bounds); K6's replay against K5."""
+    res = chip_smoke.fresnel_kernels_vs_plain(trt, torch, name, N, dev, 51,
+                                              nonseq=nonseq)
+    assert res['flipped' if not nonseq else 'mismatched'] <= res[
+        'flips_allowed' if not nonseq else 'mismatch_allowed']
+    if name == 'window_ghost':
+        assert abs(res['mean_intensity'] - chip_smoke.WINDOW_GHOST) <= \
+            1e-5 * chip_smoke.WINDOW_GHOST
+
+
+@pytest.mark.cuda
+def test_fresnel_paths_launch_their_instantiation(dev):
+    """``simulate_fused`` of a Fresnel scene launches K1 (K5) once in the
+    instantiation with the Fresnel kinds and, under grad, K2 (K6) in
+    theirs; the eager and fused traces draw alike from one generator
+    state; the main path takes no Fresnel instantiation."""
+    rays = chip_smoke.sample_rays(trt, torch, N, dev, 52)
+    for nb, mod, fwd, bwd in (
+            (None, fused_trace, 'LAUNCHES', 'BWD_LAUNCHES'),
+            (8, fused_nonseq, 'NONSEQ_LAUNCHES', 'NONSEQ_BWD_LAUNCHES')):
+        sc = chip_smoke.fresnel_scene(trt, True, nb)
+        p = sc.init_params(dev)
+        p['lens']['c1'].requires_grad_(True)
+        setattr(mod, fwd, 0)
+        setattr(mod, bwd, 0)
+        fused_trace.FRESNEL_LAUNCHES = 0
+        out, sens, _ = sc.simulate_fused(
+            p, rays, generator=torch.Generator(device=dev).manual_seed(3))
+        sens.moments[0, 0, 0].backward()
+        torch.cuda.synchronize()
+        assert (getattr(mod, fwd), getattr(mod, bwd)) == (1, 1)
+        assert fused_trace.FRESNEL_LAUNCHES == 2
+        out_e, _, _ = sc.simulate(
+            p, rays, generator=torch.Generator(device=dev).manual_seed(3))
+        assert int((out.dz.sign() != out_e.dz.sign()).sum()) <= 1
+    fused_trace.FRESNEL_LAUNCHES = 0
+    seq = chip_smoke.bench_scene(trt)
+    seq.simulate_fused(seq.init_params(dev), rays)
+    assert fused_trace.FRESNEL_LAUNCHES == 0
+
+
+@pytest.mark.cuda
+def test_fresnel_instantiations_are_built(dev):
+    """K1 and K6 build one overload with the Fresnel kinds, K2 one for each
+    home of its saved states and K5 one for each moment bucket; each has
+    its registers."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        found = [k for k in usage if f'{lib}_kernel' in k and _fresnel(k)]
+        assert len(found) == count, (lib, found)
+        assert all(usage[k]['registers'] for k in found)
+
+
+@pytest.mark.cuda
+def test_fresnel_instantiations_fit(dev):
+    """The Fresnel instantiations keep at least 2 blocks an SM on the bench
+    and naive scenes (3 for K1), as measured when they were written."""
+    seq = chip_smoke.fresnel_scene(trt, True)
+    ns = chip_smoke.fresnel_scene(trt, True, 8)
+    want = {'trace_seq_fwd': (seq, 3), 'trace_seq_bwd': (seq, 2),
+            'trace_nonseq_fwd': (ns, 2), 'trace_nonseq_bwd': (ns, 2)}
+    for lib, (sc, blocks) in want.items():
+        assert fused_trace.blocks_per_sm(
+            lib, len(sc.static_meta()), sc.sensor_config(), True,
+            sc.n_bounces, ext=True, fresnel=True) >= blocks

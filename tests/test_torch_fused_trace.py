@@ -129,9 +129,10 @@ def test_plain_matches_eager_trace():
                                atol=1e-4)
 
 
-def _fresnel_scene():
+def _scatter_scene():
+    # a SCATTER row: the Fresnel kinds are ported, scattering is not
     return jrt.SequentialScene([
-        ElementCustom(shapes.plane, 1, PhysKind.FRESNEL, ph=(1.5, 1.0),
+        ElementCustom(shapes.plane, 1, PhysKind.SCATTER, ph=(1.5, 1.0),
                       name='iface'),
         jrt.SensorElement(radius=50.0, translation=[0, 0, 25.0],
                           name='sensor')])
@@ -164,7 +165,7 @@ def _ellipse_scene():
                           name='sensor')])
 
 
-@pytest.mark.parametrize('make', [_fresnel_scene, _freeform_scene,
+@pytest.mark.parametrize('make', [_scatter_scene, _freeform_scene,
                                   _rect_scene, _ellipse_scene])
 def test_dispatcher_raises_on_unsupported_rows(make):
     scene = make()

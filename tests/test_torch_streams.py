@@ -203,7 +203,7 @@ def test_medium_after_matches_jax(name, scene, k, wl):
 
 
 def test_medium_after_refuses_unported_kinds():
-    meta = trt.StaticRowMeta(4, 0, 0)             # FRESNEL
+    meta = trt.StaticRowMeta(10, 0, 0)            # SCATTER
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         medium_after(meta, None, None, None)
 
