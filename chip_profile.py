@@ -47,9 +47,14 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   ``footprints`` on the Cooke triplet;
 - the Fresnel kinds (chip_smoke.py section 11): K1, K2, K5 and K6 in their
   instantiations with them (the bench singlet with ``fresnel=True`` and
-  ``'weighted'``, the naive scene with ``fresnel=True``, the Cooke
-  triplet's 27-row ghost), ``simulate_fused`` with a generator on both
-  scene types and its spot-loss grad step.
+  ``'weighted'``, the naive scene in both modes, the Cooke triplet's
+  27-row ghost), ``simulate_fused`` with a generator on both scene types
+  and its spot-loss grad step;
+- thin-film coatings and metal mirrors (chip_smoke.py section 12): K1 and
+  K2 in their instantiations with the coatings on the coated bench singlet
+  (``'weighted'``), K5 and K6 on example 11's telescope, the coated
+  singlet's ``simulate_fused`` and grad step (c1, c2 and the coat), and
+  the telescope's ``Scene.simulate_fused``.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -403,7 +408,8 @@ def main():
                              'trace_seq_fwd_kernel')})
     # the Fresnel kinds (chip_smoke.py section 11)
     for name, nonseq in (('mc', False), ('weighted', False),
-                         ('cooke_ghost', False), ('mc', True)):
+                         ('cooke_ghost', False), ('mc', True),
+                         ('weighted', True)):
         fsc, build, fp, fr, fcfg, fdraws = cs.fresnel_case(
             rt, torch, name, n, dev, cs.FRESNEL_SEED + 5, nonseq)
         ftable, fmeta = build(fp)
@@ -455,6 +461,62 @@ def main():
         'fresnel_scene_simulate_fused_mc': (lambda: f_ns.simulate_fused(
             f_np, wf_rays, generator=torch.Generator(device=dev)),
             'trace_nonseq_fwd_kernel')})
+    # thin-film coatings and metal mirrors (chip_smoke.py section 12)
+    for name, nonseq in (('coated_w', False), ('telescope', True)):
+        csc, cp, cr, ccfg, cdraws = cs.coating_case(
+            rt, torch, name, n, dev, cs.COAT_SEED + 7, nonseq)
+        cmeta = csc.static_meta()
+        cflat = rt.flatten_table_rows(csc.build_table(cp)).detach()
+        ckinds = torch.tensor(fused_trace.kind_rows(cmeta, ccfg),
+                              dtype=torch.int32, device=dev)
+        cmaps = fused_trace.plate_maps(cmeta, {})
+        cside = fused_trace.coat_side(cmeta, dev)
+        cdisp = fused_trace.dispersive(cmeta)
+        cgm = torch.ones(1, ccfg.n_bundles, 7, device=dev)
+        label = f'coat_{name}'
+        if nonseq:
+            calls[f'{label}_k5'] = (
+                lambda f=cflat, k=ckinds, r=cr, c=ccfg, b=csc.n_bounces,
+                m=cmaps, x=cside: fused_nonseq.trace_nonseq_fwd_cuda(
+                    f, k, r, c, b, m, True, coat=x),
+                'trace_nonseq_fwd_kernel')
+            calls[f'{label}_k6'] = (
+                lambda f=cflat, k=ckinds, r=cr, c=ccfg, b=csc.n_bounces,
+                m=cmaps, g=cgm, x=cside, y=cdisp:
+                fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, b, (None,) * 7, g, maps=m, disp=y, coat=x),
+                'trace_nonseq_bwd_kernel')
+        else:
+            calls[f'{label}_k1'] = (
+                lambda f=cflat, k=ckinds, r=cr, c=ccfg, m=cmaps, x=cside:
+                fused_trace.trace_seq_fwd_cuda(f, k, r, c, m, True,
+                                               fresnel=True, coat=x),
+                'trace_seq_fwd_kernel')
+            calls[f'{label}_k2'] = (
+                lambda f=cflat, k=ckinds, r=cr, c=ccfg, m=cmaps, g=cgm,
+                x=cside, y=cdisp: fused_trace.trace_seq_bwd_cuda(
+                    f, k, r, c, (None,) * 7, g, maps=m, disp=y, coat=x),
+                'trace_seq_bwd')
+    c_seq = cs.coated_scene(rt, 'weighted')
+    c_sp, c_gp = c_seq.init_params(dev), c_seq.init_params(dev)
+    for k in ('c1', 'c2', 'coat_d'):
+        c_gp['lens'][k].requires_grad_(True)
+    tel = cs.telescope_scene(rt, rt, rt.glass, list(cs.TELESCOPE_PAIR))
+    tel_p = tel.init_params(dev)
+    tel_rays = rt.CollimatedDisk.make(
+        radius=50.0, translation=[0.0, 0.0, 2.0],
+        wavelength=cs.TELESCOPE_WL).sample(
+            torch.Generator(device=dev).manual_seed(cs.COAT_SEED), n, dev)
+
+    def coat_step():
+        _, s, _ = c_seq.simulate_fused(c_gp, wf_rays)
+        rt.spot_size_loss(s).backward()
+    calls.update({
+        'coat_simulate_fused_weighted': (lambda: c_seq.simulate_fused(
+            c_sp, wf_rays), 'trace_seq_fwd_kernel'),
+        'coat_grad_step_fused_weighted': (coat_step, 'trace_seq_bwd'),
+        'coat_scene_simulate_fused_telescope': (lambda: tel.simulate_fused(
+            tel_p, tel_rays), 'trace_nonseq_fwd_kernel')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

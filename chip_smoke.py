@@ -525,12 +525,15 @@ def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
 
 
 def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False,
-                             ext=False, disp=False):
+                             ext=False, disp=False, coat=False):
     """Table cotangent [K, 160], kernel vs plain -> dict; raises on a
     breach.  Outside GRAD_COLS (PLATE_GRAD_COLS with phase plates,
-    EXT_GRAD_COLS with the extended kinds, and DISP_GRAD_COLS with a
-    dispersive row) both must be exactly zero."""
-    offs = list(fused_trace.grad_cols(() if plates else None, ext, disp))
+    EXT_GRAD_COLS with the extended kinds, DISP_GRAD_COLS with a dispersive
+    row and, with ``coat``, COAT_GRAD_COLS) both must be exactly zero, but
+    the plain version's at the coat's layer indices (static: no parameter
+    reaches them, and the kernels do not compute them)."""
+    offs = list(fused_trace.grad_cols(() if plates else None, ext, disp,
+                                      coat))
     # the asphere's a4..a10 span r^4..r^10, the dispersion coefficients
     # B ~ 1 and C ~ 0.01-100 um^2: each column its own scale
     fields = (offs[0:5], offs[5:14], offs[14:17], offs[17:19]) + (
@@ -545,8 +548,11 @@ def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False,
               f'(scale {scale})')
         worst = max(worst, err / max(scale, 1e-30))
     outside = [c for c in range(g_p.shape[1]) if c not in offs]
+    indices = ({c - 1 for c in fused_trace.COAT_GRAD_COLS} if coat
+               else set())
     check(float(g_k[:, outside].abs().max()) == 0.0
-          and float(g_p[:, outside].abs().max()) == 0.0,
+          and float(g_p[:, [c for c in outside if c not in indices]]
+                    .abs().max()) == 0.0,
           'nonzero table cotangent outside GRAD_COLS')
     return dict(table_err_over_scale=worst,
                 table_max_abs_err=float((g_k - g_p).abs().max()),
@@ -1849,6 +1855,148 @@ WINDOW_R = ((1.0 - 1.5) / 2.5) ** 2
 WINDOW_GHOST = (1.0 - WINDOW_R) ** 2 * WINDOW_R ** 2
 
 
+# ---- Section 12: thin-film coatings and metal mirrors ----
+#
+# The bench singlet with a quarter-wave MgF2 coat on both faces (its
+# thickness trainable), in FRESNEL_W and FRESNEL; the naive scene with it;
+# example 11's telescope (a parabolic aluminium primary under an enhancing
+# pair, a Sellmeier corrector, 8 bounces); the stress rows (an 8-layer
+# stack with a silver film on a FRESNEL_W singlet, a dispersive gold mirror
+# lit at 0.45 and 0.70 um, a Mangin mirror with an aluminium back); and
+# example 29's classical Cassegrain (ideal conic mirrors: the main path's
+# instantiation).  The JAX anchors come from tests/coating_anchors.py (the
+# JAX package on the CPU, on the reference's threefry rays and, with
+# fresnel=True, its very uniforms).
+COAT_NC = 1.38
+COAT_QW = 0.5876 / (4 * COAT_NC)
+# the quarter-wave coat's normal-incidence reflectance on the bench glass
+COAT_R_QW = ((1.5 - COAT_NC ** 2) / (1.5 + COAT_NC ** 2)) ** 2
+COAT_SEED = SEED + 1301
+# example 11: the enhancing pair (ZnS-like high, MgF2 low, quarter waves),
+# the detuned start of its design, its rays and steps
+TELESCOPE_WL = 0.5876
+TELESCOPE_PAIR = ((2.35, TELESCOPE_WL / (4 * 2.35)),
+                  (1.38, TELESCOPE_WL / (4 * 1.38)))
+TELESCOPE_START = (0.05, 0.08)
+TELESCOPE_RAYS = 100_000
+TELESCOPE_STEPS = 300
+# the stress rows' 8-layer stack: three high-low quarter-wave pairs, a high
+# layer and a 10 nm silver film next to the glass
+STRESS_STACK = ((2.35, TELESCOPE_WL / (4 * 2.35)),
+                (1.38, TELESCOPE_WL / (4 * 1.38))) * 3 + (
+                    (2.35, TELESCOPE_WL / (4 * 2.35)), ('Ag', 0.01))
+STRESS_CASES = ('stack8', 'gold', 'mangin')
+# example 29's classical Cassegrain: primary f 50 at z 100, secondary 40
+# inside it with magnification 5 (R2 = -25, k2 = -2.25), back focus z 110
+CASS_F1, CASS_SEP, CASS_MAG = 50.0, 40.0, 5.0
+
+
+def coated_scene(rt, mode, n_bounces=None):
+    """The bench scene with its singlet under a quarter-wave MgF2 coat on
+    both faces (``coat_d`` trainable) in Fresnel ``mode``; with
+    ``n_bounces`` the naive scene (a Scene with its 256 x 256 grid)."""
+    els = [rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                          ior_media=1.0, fresnel=mode,
+                          coating=[(COAT_NC, COAT_QW)], coating_grad=True,
+                          name='lens'),
+           rt.CircularAperture(radius=5.0, name='stop'),
+           rt.SensorElement(radius=6.0, translation=[0.0, 0.0, 19.0],
+                            name='sensor')]
+    if n_bounces is None:
+        return rt.SequentialScene(els)
+    scene = rt.Scene(els, n_bounces=n_bounces)
+    scene.grid_shape, scene.grid_half_extent = GRID, GRID_E
+    return scene
+
+
+def telescope_scene(rt, mirrors, glass, coating=None,
+                    n_bounces=NS_BOUNCES):
+    """examples/11_telescope_metal_optics.py's scene: the f = 500 parabolic
+    aluminium primary (``coating`` on it, trainable), the N-BK7 Sellmeier
+    corrector (``glass``: the package's utils/glass.py::glass) and the
+    sensor near prime focus (``mirrors``: the package's mirror module)."""
+    return rt.Scene([
+        mirrors.ParabolicMirror(c1=-0.001, d=200.0,
+                                translation=[0, 0, 500.0], metal='Al',
+                                coating=coating, coating_grad=True,
+                                name='primary'),
+        rt.SingletLens(c1=0.0004, c2=-0.0004, d=120.0, t=5.0,
+                       translation=[0, 0, 100.0], name='corrector',
+                       **glass('N-BK7', model='sellmeier')),
+        rt.SensorElement(radius=40.0, translation=[0, 0, 1.0], name='ccd'),
+    ], n_bounces=n_bounces)
+
+
+def stress_scene(rt, mirrors, name, n_bounces=None):
+    """A stress row's scene (``mirrors``: the package's mirror module):
+    'stack8' the bench singlet, FRESNEL_W, under STRESS_STACK on both
+    faces; 'gold' a dispersive gold spherical mirror; 'mangin' a Mangin
+    mirror with an aluminium back (tests/test_conic_mirror.py's); each
+    with a sensor, and with ``n_bounces`` as a Scene."""
+    if name == 'stack8':
+        els = [rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0,
+                              ior_glass=1.5, fresnel='weighted',
+                              coating=list(STRESS_STACK), coating_grad=True,
+                              name='lens'),
+               rt.SensorElement(radius=6.0, translation=[0.0, 0.0, 19.0],
+                                name='sensor')]
+    elif name == 'gold':
+        els = [mirrors.SphericalMirror(c1=-0.01, d=40.0, metal='Au',
+                                       metal_dispersion=True,
+                                       translation=[0, 0, 50.0],
+                                       name='mirror'),
+               rt.SensorElement(radius=30.0, translation=[0, 0, -5.0],
+                                name='sensor')]
+    else:
+        els = [mirrors.ManginMirror(c1=-0.02, c2=-0.025, d=30.0, t=4.0,
+                                    ior_glass=1.5168, metal='Al',
+                                    translation=[0, 0, 60.0],
+                                    name='mirror'),
+               rt.SensorElement(radius=30.0, translation=[0, 0, -5.0],
+                                name='sensor')]
+    if n_bounces is None:
+        return rt.SequentialScene(els)
+    return rt.Scene(els, n_bounces=n_bounces)
+
+
+def stress_bundles(rt, name, n):
+    """[(bundle, n)] of a stress row: the bench disk; the gold mirror's two
+    bundles at 0.45 and 0.70 um (tests/test_coatings.py:507-521); a disk of
+    radius 10 on the Mangin mirror."""
+    if name == 'stack8':
+        return [(rt.CollimatedDisk.make(radius=4.0,
+                                        translation=[0.0, 0.0, -10.0]), n)]
+    if name == 'gold':
+        return [(rt.CollimatedDisk.make(radius=15.0, ray_id=j,
+                                        wavelength=wl,
+                                        translation=[0.0, 0.0, -3.0]),
+                 n // 2) for j, wl in enumerate((0.45, 0.70))]
+    return [(rt.CollimatedDisk.make(radius=10.0,
+                                    translation=[0.0, 0.0, -3.0]), n)]
+
+
+def cassegrain_scene(rt, mirrors, k1=-1.0):
+    """examples/29_cassegrain_telescope.py's classical Cassegrain: a
+    parabolic primary (conic constant ``k1``) and the stigmatic hyperbolic
+    secondary (ideal reflectors, conic constants trainable), the sensor at
+    the back focus."""
+    a = CASS_F1 - CASS_SEP
+    b = CASS_MAG * a
+    c2 = 1.0 / (2.0 / (1.0 / b - 1.0 / a))
+    k2 = -((CASS_MAG + 1.0) / (CASS_MAG - 1.0)) ** 2
+    z_p, z_s = 100.0, 100.0 - CASS_SEP
+    return rt.SequentialScene([
+        mirrors.ConicMirror(c1=-1.0 / (2 * CASS_F1), k=k1, d=60.0,
+                            k_grad=True, translation=[0, 0, z_p],
+                            name='primary'),
+        mirrors.ConicMirror(c1=c2, k=k2, d=16.0, k_grad=True,
+                            translation=[0, 0, z_s], name='secondary'),
+        rt.SensorElement(radius=5.0, translation=[0, 0, z_s + b],
+                         name='img')])
+
+
+
+
 def with_fresnel(scene, mode):
     """``scene`` (either package's) with every lens's optical faces in the
     Fresnel ``mode`` (True: FRESNEL, 'weighted': FRESNEL_W)."""
@@ -2879,6 +3027,570 @@ def fresnel_phases(rt, torch, dev, reset_counters, counters, only):
                 anchors=anchors)
 
 
+# tests/coating_anchors.py (the JAX package on the CPU)
+COAT_W_REF = {'forward': 1.0, 'mean_intensity': 0.97185408,
+              'sensor_share': 1.0, 'spot_rms': 0.16907049}
+COAT_MC_REF = {'forward': 0.971861, 'mean_intensity': 1.0,
+               'sensor_share': 0.971861, 'spot_rms': 0.16907107}
+COAT_NS_REF = 0.972086
+TELESCOPE_REF = {'bare': 0.3029479296875, 'enhanced': 0.3264509375,
+                 'optimized': 0.326947734375,
+                 'coat_d': [0.06251496821641922, 0.09285855293273926]}
+TELESCOPE12_REF = {'bare': 0.9154471875, 'enhanced': 0.969435078125,
+                   'optimized': 0.970558125,
+                   'coat_d': [0.06251128017902374, 0.09284263849258423]}
+TELESCOPE_PARTED = 0.1005
+# the design of tests/test_coatings.py:121-164: the quarter wave within 0.003
+COAT_DESIGN_TOL = 0.003
+# Example 11's 50 mm disk: most rays reflected off the primary meet a
+# float32 root of the paraboloid ~0.01 mm off the mirror (the quadric
+# solver's cancellation where its |A| is barely above SOLVER_EPS; ROADMAP
+# Queue 3) and stay on it, in the JAX package (throughput 0.303 where the
+# aluminium reflects 0.91) as in the port, and each implementation's
+# rounding meets that root on other rays.  So its throughputs are held to
+# JAX's within TELESCOPE_PARTED (the share of rays the two packages' traces
+# end apart, tests/coating_anchors.py) and its design's thicknesses within
+# TELESCOPE_D_TOL um; a 12 mm disk, where no ray meets that root, is held
+# to JAX's within FRESNEL_W_RTOL and 1e-4 um.  K5 and its plain version may
+# part on up to TELESCOPE_APART_MAX of the 50 mm disk's rays (the rays
+# alike must give the same cotangents).
+TELESCOPE_D_TOL = 5e-3
+TELESCOPE12_D_TOL = 1e-4
+TELESCOPE_APART_MAX = 0.15
+COAT_SEQ_CASES = ('coated_w', 'coated_mc') + STRESS_CASES
+COAT_NS_CASES = ('coated_mc', 'telescope') + STRESS_CASES
+# the stack's float32 operations a layer and polarization: one sin and cos
+# and the real 2 x 2 update (~30); an absorbing layer's complex cosine,
+# admittance and phase (~120); a metal substrate's complex cosine (~40);
+# and the reflectance from (B, C) (~20)
+COAT_LAYER_OPS, COAT_ABS_LAYER_OPS, COAT_METAL_OPS, COAT_RT_OPS = (
+    32, 120, 40, 20)
+
+
+def coat_ops(meta):
+    """The stack's float32 operations of one ray at a coated or metal row
+    (both polarizations), 0 where no coating acts."""
+    from raytracetorch_tpu_torch.core.static_dispatch import coat_acts
+    if not coat_acts(meta):
+        return 0
+    layer = COAT_ABS_LAYER_OPS if meta.coat_k is not None else COAT_LAYER_OPS
+    return 2 * (meta.n_coat * layer + COAT_RT_OPS
+                + (COAT_METAL_OPS if meta.metal else 0))
+
+
+def coating_case(rt, torch, name, n, device, seed, nonseq=False):
+    """(scene, params, rays, cfg, draws) of a section 12 case: 'coated_w'
+    and 'coated_mc' (the coated bench singlet, FRESNEL_W and FRESNEL;
+    ``nonseq``: the naive scene), 'telescope' (example 11, the enhancing
+    pair, 50 mm disk at 0.5876 um, 8 bounces) and the STRESS_CASES; draws:
+    the sequential FRESNEL streams ([F, n]), the Philox key, or None."""
+    from raytracetorch_tpu_torch.rays.draws import row_uniforms
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nb = NS_BOUNCES if nonseq else None
+    if name.startswith('coated'):
+        sc = coated_scene(rt, 'weighted' if name == 'coated_w' else True, nb)
+        rays = sample_rays(rt, torch, n, device, seed)
+    elif name == 'telescope':
+        sc = telescope_scene(rt, rt, rt.glass, list(TELESCOPE_PAIR))
+        rays = rt.CollimatedDisk.make(
+            radius=50.0, translation=[0.0, 0.0, 2.0],
+            wavelength=TELESCOPE_WL).sample(gen, n, device)
+    else:
+        sc = stress_scene(rt, rt, name, nb)
+        rays = rt.sample_bundles(gen, stress_bundles(rt, name, n), device)
+    draws = None
+    if any(m.ph == 4 for m in sc.static_meta()):
+        draws = FRESNEL_KEY if nonseq else row_uniforms(
+            sc.static_meta(), n, torch.Generator(device=device).manual_seed(
+                seed + 1))
+    cfg = sc.sensor_config(2 if name == 'gold' else None)
+    return sc, sc.init_params(device), rays, cfg, draws
+
+
+def coating_kernels_vs_plain(rt, torch, name, n, device, seed, nonseq=False):
+    """K1 and K2 (``nonseq``: K5 and K6) in their instantiation with the
+    coatings against their plain versions on a section 12 case, with the
+    same draws: the rays and moments, then the ray and table (the coat
+    thicknesses' included) and wavelength cotangents under seeded
+    cotangents on the rays both trace alike; K6's replay against K5 bit for
+    bit.  Example 11's telescope is rounding-chaotic (``sensitive_share``):
+    up to TELESCOPE_APART_MAX of its rays may trace apart, and its replay
+    is not held bit for bit -> dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    sc, params, rays, cfg, draws = coating_case(rt, torch, name, n, device,
+                                                seed, nonseq)
+    meta = sc.static_meta()
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=device)
+    maps = fused_trace.plate_maps(meta, {})
+    ext, disp = fused_trace.ext_kinds(meta), fused_trace.dispersive(meta)
+    coat = fused_trace.coat_side(meta, device)
+    fres = fused_trace.fresnel_kinds(meta)
+    chaotic = name == 'telescope'
+    if nonseq:
+        nb = sc.n_bounces
+        out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, fresnel=fres, key=draws,
+            coat=coat)
+        out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nb, maps, key=draws)
+        torch.cuda.synchronize()
+        apart = ~((torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
+                                for c in ('px', 'py', 'pz')]).amax(0)
+                   <= NS_POS_TOL)
+                  & ((out_k.intensity - out_p.intensity).abs()
+                     <= NS_INT_TOL))
+        if chaotic:
+            res = dict(n=n, apart=int(apart.sum()),
+                       apart_share=float(apart.float().mean()))
+            check(res['apart_share'] <= TELESCOPE_APART_MAX,
+                  f'telescope: {res["apart"]} rays trace apart')
+        else:
+            res = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    else:
+        out_k, s_k = fused_trace.trace_seq_fwd_cuda(
+            flat, kinds, rays, cfg, maps, ext, fresnel=fres, uniforms=draws,
+            coat=coat)
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps, uniforms=draws)
+        torch.cuda.synchronize()
+        weighted = any(m.ph in (8, 9) or m.metal for m in meta)
+        tol = dict(intensity_rtol=FRESNEL_I_RTOL if weighted else 0.0)
+        apart = traced_apart(torch, out_k, out_p, **tol)[0]
+        res = compare(torch, out_k, s_k, out_p, s_p, **tol)
+    res.update(rows=len(meta),
+               mean_intensity=float(out_k.intensity.double().mean()))
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, device,
+                                              seed + 2)
+    if nonseq:
+        g_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, ext=ext, disp=disp, fresnel=fres, key=draws,
+            coat=coat, replay=True, need_wavelength=True)
+        g_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, key=draws, need_wavelength=True)
+    else:
+        g_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=ext,
+            disp=disp, fresnel=fres, uniforms=draws, coat=coat,
+            need_wavelength=True)
+        g_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, cfg, meta, g_rays, g_mom, maps=maps, uniforms=draws,
+            need_wavelength=True)
+    torch.cuda.synchronize()
+    if nonseq and not chaotic:
+        out_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, fresnel=fres, key=draws,
+            coat=coat)[0]
+        res['replay_equal'] = all(torch.equal(getattr(g_k[-1], c),
+                                              getattr(out_k, c))
+                                  for c in fused_trace.COMPS)
+        check(res['replay_equal'], f'{name}: K6 replay differs from K5')
+    allowed = max(3, math.ceil(NS_MISMATCH_SHARE * rays.n)) if nonseq \
+        else None
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1], allowed=allowed,
+        intensity_allowed=(math.ceil(GRID_SHARE * rays.n)
+                           if nonseq and cfg.grid_shape else 0),
+        tol=DISP_BWD_TOL if disp else BWD_TOL)
+    res['bwd'].update(compare_table_cotangents(
+        torch, fused_trace, g_k[0], g_p[0], plates=True, ext=True, disp=disp,
+        coat=True))
+    if rays.wavelength is not None and bool((rays.wavelength > 0).any()):
+        res['bwd']['wavelength'] = compare_wavelength_cotangents(
+            torch, g_k[3], g_p[3], allowed)
+    return res
+
+
+def telescope_design(rt, torch, rays, steps=TELESCOPE_STEPS):
+    """Example 11 as its script runs it, through K5 (and K6 in each design
+    step): the bare, enhanced and optimized throughputs on ``rays`` and the
+    thicknesses after ``steps`` Adam steps from TELESCOPE_START."""
+    def tput(sc, p):
+        with torch.no_grad():
+            _, sens, _ = sc.simulate_fused(p, rays)
+        return float(sens.moments[0, 0, 0].double()) / rays.n
+    dev = rays.px.device
+    bare = telescope_scene(rt, rt, rt.glass, None)
+    enh = telescope_scene(rt, rt, rt.glass, list(TELESCOPE_PAIR))
+    got = dict(bare=tput(bare, bare.init_params(dev)),
+               enhanced=tput(enh, enh.init_params(dev)))
+    p = enh.init_params(dev)
+    cd = torch.tensor(TELESCOPE_START, dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    p['primary']['coat_d'] = cd
+    opt = torch.optim.Adam([cd], lr=2e-3)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        opt.zero_grad()
+        _, s_, _ = enh.simulate_fused(p, rays)
+        (-s_.moments[0, 0, 0] / rays.n).backward()
+        opt.step()
+        with torch.no_grad():
+            cd.clamp_(1e-3, 0.4)
+    got['design_seconds'] = time.perf_counter() - t0
+    got['optimized'] = tput(enh, {**p, 'primary': {**p['primary'],
+                                                   'coat_d': cd.detach()}})
+    got['coat_d'] = [float(x) for x in cd.detach()]
+    return got
+
+
+def coating_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 12: thin-film coatings and metal mirrors through K1, K2, K5
+    and K6 in their instantiation with the coatings: each kernel against
+    its plain version at 1M rays (the coated bench singlet in FRESNEL_W
+    and FRESNEL, example 11's telescope, the stress rows; K5 and K6 as
+    Scenes); the counted paths (the coated singlet's forward and grad step
+    in c1, c2 and the coat against the eager gradients, its quarter-wave
+    design; the FRESNEL singlet and the naive Scene with a generator;
+    example 11 at 1M rays and as published; example 29's Cassegrain through
+    the main path's K1 and K2); the JAX anchors (tests/coating_anchors.py);
+    then times, bounds (with the stack's operations and the side buffer's
+    bytes) and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    from raytracetorch_tpu_torch.rays import reference_prng
+
+    # 12a. each kernel against its plain version
+    kern = {}
+    for name in COAT_SEQ_CASES:
+        kern[f'k1k2_{name}'] = coating_kernels_vs_plain(
+            rt, torch, name, N_MAIN, dev, COAT_SEED + 11)
+    for name in COAT_NS_CASES:
+        kern[f'k5k6_{name}'] = coating_kernels_vs_plain(
+            rt, torch, name, N_MAIN, dev, COAT_SEED + 13, nonseq=True)
+    emit('coating_kernels_vs_plain', n=N_MAIN, **kern)
+
+    # 12b. the counted paths
+    rays = sample_rays(rt, torch, N_MAIN, dev, COAT_SEED)
+    paths = {}
+
+    def grads(sc, simulate, keys, rays_, loss_fn, **kw):
+        p = sc.init_params(dev)
+        for el, k in keys:
+            p[el][k].requires_grad_(True)
+        _, sens, _ = simulate(p, rays_, **kw)
+        loss = loss_fn(sens)
+        loss.backward()
+        return [p[el][k].grad.clone() for el, k in keys], float(
+            loss.detach())
+
+    def rel_err(g_f, g_e):
+        return max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                   for a, b in zip(g_f, g_e))
+
+    # 1. the coated singlet, FRESNEL_W: K1, K1 + K2
+    sc = coated_scene(rt, 'weighted')
+    keys = (('lens', 'c1'), ('lens', 'c2'), ('lens', 'coat_d'))
+    reset_counters()
+    out, sens, _ = sc.simulate_fused(sc.init_params(dev), rays)
+    torch.cuda.synchronize()
+    fwd = counters()
+    check(only(fwd, trace_seq_fwd=1, coat=1),
+          f'coated singlet simulate_fused launched {fwd}')
+    reset_counters()
+    g_f, loss_f = grads(sc, sc.simulate_fused, keys, rays, rt.spot_size_loss)
+    torch.cuda.synchronize()
+    gl = counters()
+    check(only(gl, trace_seq_fwd=1, trace_seq_bwd=1, coat=2),
+          f'coated singlet grad step launched {gl}')
+    g_e, loss_e = grads(sc, sc.simulate, keys, rays, rt.spot_size_loss)
+    flux = float(out.intensity.double().mean())
+    paths['coated_weighted'] = dict(
+        fwd_launches=fwd, grad_launches=gl, mean_intensity=flux,
+        closed_form=(1 - COAT_R_QW) ** 2, loss_fused=loss_f,
+        loss_eager=loss_e, rel_err=rel_err(g_f, g_e),
+        grad_coat_d=[float(x) for x in g_f[2]])
+    check(paths['coated_weighted']['rel_err'] < GRAD_RTOL,
+          f'coated singlet: fused vs eager gradients {paths}')
+    check(abs(flux - (1 - COAT_R_QW) ** 2) <= 1e-3,
+          f'coated singlet flux {flux} (1 - R_qw)^2 {(1 - COAT_R_QW) ** 2}')
+    # its design (tests/test_coatings.py:121-164): Adam on the coat from
+    # 0.06 um to the quarter wave, through K5 and K6
+    dsc = rt.Scene([
+        rt.SingletLens(c1=0.02, c2=-0.02, d=10.0, t=3.0, ior_glass=1.5168,
+                       fresnel='weighted', coating=[(COAT_NC, 0.06)],
+                       coating_grad=True, name='lens'),
+        rt.SensorElement(radius=8.0, translation=[0, 0, 19.3], name='s'),
+    ], n_bounces=6)
+    d_rays = rt.CollimatedDisk.make(radius=1.0, translation=[0, 0, -10.0]) \
+        .sample(torch.Generator(device=dev).manual_seed(COAT_SEED + 2),
+                5000, dev)
+    dp = dsc.init_params(dev)
+    coat_d = dp['lens']['coat_d'].requires_grad_(True)
+    opt = torch.optim.Adam([coat_d], lr=2e-3)
+    reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(150):
+        opt.zero_grad()
+        _, s_, _ = dsc.simulate_fused(dp, d_rays)
+        (-s_.moments[0, 0, 0] / d_rays.n).backward()
+        opt.step()
+        with torch.no_grad():
+            coat_d.clamp_(1e-3, 0.3)
+    torch.cuda.synchronize()
+    d_launches = counters()
+    paths['coat_design'] = dict(
+        d_opt=float(coat_d.detach()[0]), d_qw=COAT_QW, launches=d_launches,
+        seconds=time.perf_counter() - t0)
+    check(only(d_launches, trace_nonseq_fwd=150, trace_nonseq_bwd=150,
+               coat=300), f'the coat design launched {d_launches}')
+    check(abs(paths['coat_design']['d_opt'] - COAT_QW) <= COAT_DESIGN_TOL,
+          f'coat design ended at {paths["coat_design"]["d_opt"]} (QW '
+          f'{COAT_QW})')
+    # 2. FRESNEL with a generator: K1; the naive Scene: K5
+    for label, nb, lib in (('sequential_mc', None, 'trace_seq_fwd'),
+                           ('scene_mc', NS_BOUNCES, 'trace_nonseq_fwd')):
+        sc = coated_scene(rt, True, nb)
+        reset_counters()
+        out, sens, _ = sc.simulate_fused(
+            sc.init_params(dev), rays,
+            generator=torch.Generator(device=dev).manual_seed(COAT_SEED))
+        torch.cuda.synchronize()
+        fl = counters()
+        check(only(fl, **{lib: 1, 'coat': 1}), f'{label} launched {fl}')
+        paths[label] = dict(launches=fl,
+                            forward=float((out.dz > 0).float().mean()),
+                            sensor_share=float(sens.moments[0, 0, 6]) /
+                            N_MAIN)
+    # 3. example 11 at 1M rays: K5; a grad step in the coat: K5 + K6; the
+    # fused gradient against the eager one on a 12 mm disk (not chaotic)
+    tel = telescope_scene(rt, rt, rt.glass, list(TELESCOPE_PAIR))
+    t_rays = rt.CollimatedDisk.make(
+        radius=50.0, translation=[0.0, 0.0, 2.0],
+        wavelength=TELESCOPE_WL).sample(
+            torch.Generator(device=dev).manual_seed(COAT_SEED + 3), N_MAIN,
+            dev)
+    reset_counters()
+    out, sens, _ = tel.simulate_fused(tel.init_params(dev), t_rays)
+    torch.cuda.synchronize()
+    tf = counters()
+    check(only(tf, trace_nonseq_fwd=1, coat=1), f'telescope launched {tf}')
+
+    def flux_loss(s_):
+        return -s_.moments[0, 0, 0] / N_MAIN
+    reset_counters()
+    g_t, _ = grads(tel, tel.simulate_fused, (('primary', 'coat_d'),),
+                   t_rays, flux_loss)
+    torch.cuda.synchronize()
+    tg = counters()
+    check(only(tg, trace_nonseq_fwd=1, trace_nonseq_bwd=1, coat=2),
+          f'telescope grad step launched {tg}')
+    check(bool(torch.isfinite(g_t[0]).all()), 'telescope: coat gradient')
+    r12 = rt.CollimatedDisk.make(
+        radius=12.0, translation=[0.0, 0.0, 2.0],
+        wavelength=TELESCOPE_WL).sample(
+            torch.Generator(device=dev).manual_seed(COAT_SEED + 4), N_MAIN,
+            dev)
+    g12_f, _ = grads(tel, tel.simulate_fused, (('primary', 'coat_d'),), r12,
+                     flux_loss)
+    g12_e, _ = grads(tel, tel.simulate, (('primary', 'coat_d'),), r12,
+                     flux_loss)
+    paths['telescope'] = dict(
+        fwd_launches=tf, grad_launches=tg,
+        throughput=float(sens.moments[0, 0, 0]) / N_MAIN,
+        grad_coat_d=[float(x) for x in g_t[0]],
+        disk12_rel_err=rel_err(g12_f, g12_e))
+    check(paths['telescope']['disk12_rel_err'] < GRAD_RTOL,
+          f'telescope: fused vs eager gradients {paths["telescope"]}')
+    # example 29's Cassegrain: ideal conic mirrors, the main path's K1, K2
+    cass = cassegrain_scene(rt, rt)
+    c_rays = rt.CollimatedDisk.make(radius=25.0, translation=[0, 0, 0.0]) \
+        .sample(torch.Generator(device=dev).manual_seed(COAT_SEED + 5),
+                N_MAIN, dev)
+    reset_counters()
+    out, sens, _ = cass.simulate_fused(cass.init_params(dev), c_rays)
+    torch.cuda.synchronize()
+    cf = counters()
+    check(only(cf, trace_seq_fwd=1), f'Cassegrain launched {cf}')
+    focus = 100.0 - CASS_SEP + CASS_MAG * (CASS_F1 - CASS_SEP)
+    t_ = (focus - out.pz) / out.dz
+    miss = torch.sqrt((out.px + t_ * out.dx) ** 2
+                      + (out.py + t_ * out.dy) ** 2)
+    # the grad step away from the stigmatic solution (k1 = -0.9), where the
+    # spot (~1e-5 mm there) and its gradient are not float32 rounding
+    ck = (('primary', 'k'), ('secondary', 'k'))
+    cass9 = cassegrain_scene(rt, rt, k1=-0.9)
+    reset_counters()
+    gc_f, _ = grads(cass9, cass9.simulate_fused, ck, c_rays,
+                    rt.spot_size_loss)
+    torch.cuda.synchronize()
+    cg = counters()
+    gc_e, _ = grads(cass9, cass9.simulate, ck, c_rays, rt.spot_size_loss)
+    paths['cassegrain'] = dict(
+        fwd_launches=cf, grad_launches=cg,
+        spot_rms=float(sens.spot_rms(0)[0]),
+        max_miss=float(miss.max()), back_focus=focus,
+        rel_err=rel_err(gc_f, gc_e))
+    check(only(cg, trace_seq_fwd=1, trace_seq_bwd=1),
+          f'Cassegrain grad step launched {cg}')
+    check(paths['cassegrain']['max_miss'] < 1e-3
+          and paths['cassegrain']['spot_rms'] < 1e-3,
+          f'Cassegrain focus {paths["cassegrain"]}')
+    check(paths['cassegrain']['rel_err'] < GRAD_RTOL,
+          f'Cassegrain: fused vs eager gradients {paths["cassegrain"]}')
+    emit('coating_main', n=N_MAIN, **paths)
+
+    # 12c. anchors on the reference's threefry rays
+    anchors = {}
+    ref_rays = reference_prng.collimated_disk(
+        reference_prng.prng_key(0), N_MAIN, 4.0, (0.0, 0.0, -10.0),
+        device=dev)
+    with torch.no_grad():
+        for mode, ref in (('weighted', COAT_W_REF), (True, COAT_MC_REF)):
+            sc = coated_scene(rt, mode)
+            u = reference_prng.fresnel_uniforms(
+                reference_prng.prng_key(0), sc.static_meta(), N_MAIN,
+                device=dev)
+            out, sens, _ = sc.simulate_fused(sc.init_params(dev), ref_rays,
+                                             uniforms=u)
+            st = fresnel_stats(out.dz.cpu().numpy(),
+                               out.intensity.cpu().numpy(),
+                               sens.moments.cpu().numpy())
+            label = 'mc' if mode is True else 'weighted'
+            anchors[label] = dict(got=st, ref=ref)
+            check(abs(st['forward'] - ref['forward'])
+                  <= FRESNEL_FLIPS / N_MAIN, f'{label}: forward share {st}')
+            check(abs(st['mean_intensity'] - ref['mean_intensity'])
+                  <= FRESNEL_W_RTOL * ref['mean_intensity'],
+                  f'{label}: mean intensity {st}')
+            check(abs(st['spot_rms'] - ref['spot_rms'])
+                  <= FRESNEL_RMS_RTOL * ref['spot_rms'],
+                  f'{label}: spot rms {st}')
+        ns = coated_scene(rt, True, NS_BOUNCES)
+        _, sens, _ = ns.simulate_fused(
+            ns.init_params(dev), ref_rays,
+            generator=torch.Generator(device=dev).manual_seed(COAT_SEED))
+        share = float(sens.moments[0, 0, 6]) / N_MAIN
+        sigma = math.sqrt(2 * COAT_NS_REF * (1 - COAT_NS_REF) / N_MAIN)
+        anchors['scene_sensor_share'] = dict(got=share, ref=COAT_NS_REF,
+                                             sigmas=abs(share - COAT_NS_REF)
+                                             / sigma)
+        check(abs(share - COAT_NS_REF) <= FRESNEL_NS_SIGMAS * sigma,
+              f'coated scene sensor share {share} (JAX {COAT_NS_REF})')
+    # example 11 as published (the reference's rays over its 50 mm disk,
+    # 300 Adam steps), and on a 12 mm disk
+    for label, radius, ref, tol, d_tol in (
+            ('telescope', 50.0, TELESCOPE_REF, TELESCOPE_PARTED,
+             TELESCOPE_D_TOL),
+            ('telescope12', 12.0, TELESCOPE12_REF, None, TELESCOPE12_D_TOL)):
+        p_rays = reference_prng.collimated_disk(
+            reference_prng.prng_key(0), TELESCOPE_RAYS, radius,
+            (0.0, 0.0, 2.0), wavelength=TELESCOPE_WL, device=dev)
+        reset_counters()
+        got = telescope_design(rt, torch, p_rays)
+        torch.cuda.synchronize()
+        got['launches'] = counters()
+        anchors[label] = dict(got=got, ref=ref)
+        check(only(got['launches'], trace_nonseq_fwd=TELESCOPE_STEPS + 3,
+                   trace_nonseq_bwd=TELESCOPE_STEPS,
+                   coat=2 * TELESCOPE_STEPS + 3),
+              f'{label} launched {got["launches"]}')
+        for k in ('bare', 'enhanced', 'optimized'):
+            t_ = (tol + 1e-5 if tol is not None
+                  else FRESNEL_W_RTOL * ref[k])
+            check(abs(got[k] - ref[k]) <= t_,
+                  f'{label} {k} throughput {got[k]} (JAX {ref[k]})')
+        check(got['enhanced'] > got['bare']
+              and got['optimized'] >= got['enhanced'] - 1e-3,
+              f'{label} throughputs {got}')
+        check(max(abs(a - b) for a, b in zip(got['coat_d'], ref['coat_d']))
+              <= d_tol, f'{label} design {got["coat_d"]} (JAX '
+              f'{ref["coat_d"]})')
+    emit('coating_anchors', **anchors)
+
+    # 12d. times at 1M rays against the plain versions, bounds (the stack's
+    # operations, the side buffer's bytes) and blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    for name, nonseq in (('coated_w', False), ('telescope', True)):
+        sc, params, r, cfg, draws = coating_case(rt, torch, name, N_MAIN,
+                                                 dev, COAT_SEED + 7, nonseq)
+        meta = sc.static_meta()
+        flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+        kinds = torch.tensor(fused_trace.kind_rows(meta, cfg),
+                             dtype=torch.int32, device=dev)
+        maps = fused_trace.plate_maps(meta, {})
+        ext, disp = fused_trace.ext_kinds(meta), fused_trace.dispersive(meta)
+        coat = fused_trace.coat_side(meta, dev)
+        fres = fused_trace.fresnel_kinds(meta)
+        key = 'k5' if nonseq else 'k1'
+        g_rays, g_mom, g_grid = random_cotangents(torch, r.n, cfg, dev,
+                                                  SEED + 6)
+        io = (r.n * (36 + 28) + table_bytes(meta) + grid_bytes(cfg)
+              + len(meta) * fused_trace.COAT_SIDE * 4)
+        cols = len(fused_trace.grad_cols((), True, disp, True))
+        if nonseq:
+            nb = sc.n_bounces
+            kfn = (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, nb, maps, ext, fresnel=fres, key=draws,
+                coat=coat))
+            pfn = (lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, nb, maps, key=draws))
+            bk = (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                flat, kinds, r, cfg, nb, g_rays, g_mom, g_grid=g_grid,
+                maps=maps, ext=ext, disp=disp, fresnel=fres, key=draws,
+                coat=coat))
+            bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                flat, r, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+                maps=maps, key=draws))
+            reps = dict(reps=4, warmup=1)
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r,
+                                             key=draws)
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
+                                        segment_replays(lives))
+            stack = sum(w * coat_ops(m) for w, m in zip(wins, meta))
+            bounds['k5'] = bound(io, k5_ops + stack)
+            bounds['k6'] = bound(io + r.n * 28 + len(meta) * cols * 4,
+                                 k6_ops + 4 * stack)
+        else:
+            kfn = (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, ext, fresnel=fres,
+                uniforms=draws, coat=coat))
+            pfn = (lambda: fused_trace.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps, uniforms=draws))
+            bk = (lambda: fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=ext,
+                disp=disp, fresnel=fres, uniforms=draws, coat=coat))
+            bp = (lambda: fused_trace.trace_seq_bwd_plain(
+                flat, r, cfg, meta, g_rays, g_mom, maps=maps,
+                uniforms=draws))
+            reps = dict(reps=10, warmup=2)
+            k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m) + coat_ops(m)
+                               for m in meta)
+            bounds['k1'] = bound(io, k1_ops)
+            bounds['k2'] = bound(io + r.n * 28 + len(meta) * cols * 4,
+                                 3 * k1_ops)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, kfn, pfn, **reps)
+        timing[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, bk, bp, **reps)
+        timing[key.replace('k1', 'k2').replace('k5', 'k6')] = dict(
+            kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        for lib in (('trace_nonseq_fwd', 'trace_nonseq_bwd') if nonseq
+                    else ('trace_seq_fwd', 'trace_seq_bwd')):
+            occ[lib] = fused_trace.blocks_per_sm(
+                lib, len(meta), cfg, True, sc.n_bounces, ext=True,
+                disp=disp, coat=True)
+    sc = coated_scene(rt, 'weighted')
+    p_ = sc.init_params(dev)
+    for label, fn in (
+            ('simulate_fused_weighted', lambda: sc.simulate_fused(p_, rays)),
+            ('grad_step_fused_weighted', lambda: grads(
+                sc, sc.simulate_fused, keys, rays, rt.spot_size_loss)),
+            ('scene_simulate_fused_telescope', lambda: tel.simulate_fused(
+                tel.init_params(dev), t_rays))):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{label}_ms'] = statistics.median(runs)
+        timing[f'{label}_runs'] = runs
+    emit('coating_timing', **timing)
+    emit('coating_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('coating_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds,
+                anchors=anchors)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2901,7 +3613,7 @@ def main():
         fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
         fused_trace.V1_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
         fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
-        fused_trace.FRESNEL_LAUNCHES = 0
+        fused_trace.FRESNEL_LAUNCHES = fused_trace.COAT_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -2919,7 +3631,8 @@ def main():
                     ext=fused_trace.EXT_LAUNCHES,
                     streams=fused_trace.STREAM_LAUNCHES,
                     record_recomputes=fused_trace.RECORD_RECOMPUTES,
-                    fresnel=fused_trace.FRESNEL_LAUNCHES)
+                    fresnel=fused_trace.FRESNEL_LAUNCHES,
+                    coat=fused_trace.COAT_LAUNCHES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -3817,6 +4530,9 @@ def main():
     # 11. Fresnel physics and the random draws, ghosts
     fresnel = fresnel_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 12. thin-film coatings and metal mirrors, the mirror family
+    coating = coating_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -4320,6 +5036,33 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, fr_t[key]['kernel_ms'],
             fr_t[key]['plain_ms']))
+    # the instantiations with the coatings (section 12): launches on the
+    # counted paths of the coated singlet (K1, K2) and the telescope (K5,
+    # K6), errors at 1M rays over the cases, times and bounds on those two
+    co_k, co_t, co_b = (coating['kernels'], coating['timing'],
+                        coating['bounds'])
+    co_p = coating['paths']
+    for name, source, line, launches_, err, key in (
+            ('trace_seq_fwd_coat', 'trace_seq_fwd.cu', 489,
+             co_p['coated_weighted']['fwd_launches']['trace_seq_fwd'],
+             max(co_k[f'k1k2_{c}']['max_abs_err'] for c in COAT_SEQ_CASES),
+             'k1'),
+            ('trace_seq_bwd_coat', 'trace_seq_bwd.cu', 1712,
+             co_p['coated_weighted']['grad_launches']['trace_seq_bwd'],
+             max(co_k[f'k1k2_{c}']['bwd']['max_abs_err']
+                 for c in COAT_SEQ_CASES), 'k2'),
+            ('trace_nonseq_fwd_coat', 'trace_nonseq_fwd.cu', 1029,
+             co_p['telescope']['fwd_launches']['trace_nonseq_fwd'],
+             max(co_k[f'k5k6_{c}']['max_abs_err'] for c in COAT_NS_CASES
+                 if c != 'telescope'), 'k5'),
+            ('trace_nonseq_bwd_coat', 'trace_nonseq_bwd.cu', 2157,
+             co_p['telescope']['grad_launches']['trace_nonseq_bwd'],
+             max(co_k[f'k5k6_{c}']['bwd']['max_abs_err']
+                 for c in COAT_NS_CASES), 'k6')):
+        bounds[name] = co_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, co_t[key]['kernel_ms'],
+            co_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -11,8 +11,7 @@ Hopper.  The port covers:
   and K2 backward (``SequentialScene.simulate_fused``, ops/fused_trace.py);
 - the design loop on top of either: Adam, L-BFGS and Levenberg-Marquardt
   (optim/fit.py) with log-barrier constraints (optim/constraints.py);
-- the non-sequential scene (``Scene``), with the ideal ``SphericalMirror``
-  that folds rays back: the eager bounce loop (``Scene.simulate``) and the
+- the non-sequential scene (``Scene``), with mirrors that fold rays back: the eager bounce loop (``Scene.simulate``) and the
   fused kernels, K5 forward and K6 backward (``Scene.simulate_fused``,
   ops/fused_nonseq.py), so the design loops run on non-sequential scenes
   too;
@@ -53,7 +52,16 @@ Hopper.  The port covers:
   ghost tables (``utils/ghosts.py``: ``ghost_pairs``, ``ghost_table``,
   ``ghost_trace``), eager and through K1, K2, K5 and K6; the draws come
   from the caller's generator (``rays/draws.py``: pre-drawn streams
-  sequentially, counter-based Philox non-sequentially).
+  sequentially, counter-based Philox non-sequentially);
+- thin-film coatings and metal mirrors: ``coating=`` stacks (dielectric or
+  absorbing, per face or on both faces, trainable thicknesses ``coat_d``)
+  on every lens with Fresnel physics, and the mirror family
+  (``CylindricalMirror``, ``ParabolicMirror``, ``ParabolicMirrorXZ``,
+  ``ConicMirror``, ``AsphericMirror``, ``ManginMirror``,
+  ``ParabolicMirrorOffAxis`` beside ``SphericalMirror``) with ``metal=``,
+  ``coating=`` and ``metal_dispersion=``, eager and through K1, K2, K5 and
+  K6 (an instantiation of their own), with the pure thin-film functions of
+  ``utils/coatings.py``.
 
 ROADMAP.md lists what is still to be ported.
 
@@ -80,7 +88,10 @@ from .elements.ideal import (paraxial_dist_mat, paraxial_lens_mat,  # noqa: E402
                              paraxial_mirror_mat, paraxial_refract_mat)
 from .elements.lens import (AsphericLens, CylSingletLens,  # noqa: E402
                             DoubletLens, SingletLens, TripletLens)
-from .elements.mirror import SphericalMirror  # noqa: E402
+from .elements.mirror import (AsphericMirror, ConicMirror,  # noqa: E402
+                              CylindricalMirror, ManginMirror,
+                              ParabolicMirror, ParabolicMirrorOffAxis,
+                              ParabolicMirrorXZ, SphericalMirror)
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
 from .geom.zernike import noll_nm  # noqa: E402
@@ -100,6 +111,11 @@ from .optim.goals import (focal_length_loss, spot_size_loss,  # noqa: E402
 from .rays.ray import Rays  # noqa: E402
 from .rays.sources import Bundle, CollimatedDisk, sample_bundles  # noqa: E402
 from .scene.scene import Scene, SequentialScene  # noqa: E402
+from .utils.coatings import (METAL_GRID_UM, METAL_NK, METALS,  # noqa: E402
+                              coating_rt, metal_nk_at, metal_reflectance,
+                              parse_coating_entries,
+                              unpolarized_metal_reflectance,
+                              unpolarized_reflectance)
 from .utils.footprint import footprint_report, footprints  # noqa: E402
 from .utils.ghosts import ghost_pairs, ghost_table, ghost_trace  # noqa: E402
 from .utils.glass import glass, glass_pair  # noqa: E402

@@ -71,14 +71,17 @@ def fresnel_reflectance(cos_i, cos_t, n1, n2):
     return 0.5 * (rs + rp)
 
 
-def fresnel_dir(d, n, ior_in, ior_out, u):
+def fresnel_dir(d, n, ior_in, ior_out, u, R_override=None):
     """Monte-Carlo Fresnel: reflect where the per-ray uniform draw ``u`` <
     R (R = 1 under total internal reflection, so those always reflect),
-    else refract.  The choice carries no derivative; each branch is
-    differentiable as reflect_dir and snell_dir are."""
+    else refract.  ``R_override`` replaces the bare interface's reflectance
+    (a coated row's, core/static_dispatch.py::coated_rt_sp).  The choice
+    carries no derivative; each branch is differentiable as reflect_dir and
+    snell_dir are."""
     dot, cos_i, n1, n2, mu, tir, cos_t, eff_sign = refract_components(
         d, n, ior_in, ior_out)
-    R = torch.where(tir, 1.0, fresnel_reflectance(cos_i, cos_t, n1, n2))
+    R = torch.where(tir, 1.0, fresnel_reflectance(cos_i, cos_t, n1, n2)
+                    if R_override is None else R_override)
     reflect = u < R
     v_reflect = v3.fma(d, -2.0 * dot, n)
     coef = (mu * cos_i - cos_t) * eff_sign

@@ -5,18 +5,20 @@ sequential trace every row's kinds are known before the trace runs
 (``StaticRowMeta``), so each step evaluates exactly one bound formula and
 one physics model.
 
-The port covers the kinds of the main path, of the ideal spherical mirror,
-of the pixelated phase plate and of the mixed-surface and asphere scenes:
-surface bounds NONE/DISK/RECT/HEMI/HEMI_APER, volume bounds
-NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics TRANSMIT, BLOCK, REFLECT
-(ideal mirror), SNELL, APERTURE and PHASE_GRID, the uncoated Fresnel kinds
-FRESNEL (the Monte-Carlo branch draw: it reads the ray's uniform ``u``),
-FRESNEL_W (refract, intensity times 1 - R) and REFLECT_W (the ghost
-reflection, intensity times R), even-asphere rows, and dispersive media
-(Cauchy and Sellmeier, ``dispersive_iors``).  Every other kind (coatings,
-metals, SCATTER among them) raises NotImplementedError naming the ROADMAP
-item that brings it.  ``medium_after`` gives the index of the medium a ray
-travels in after a row, for the optical path length (``track_opl``).
+The port covers the kinds of the main path, of the mirror family, of the
+pixelated phase plate and of the mixed-surface and asphere scenes: surface
+bounds NONE/DISK/RECT/HEMI/HEMI_APER, volume bounds
+NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics TRANSMIT, BLOCK, REFLECT (the
+ideal mirror, and a metal one: ``mirror_reflectances_sp``), SNELL, APERTURE
+and PHASE_GRID, the Fresnel kinds FRESNEL (the Monte-Carlo branch draw: it
+reads the ray's uniform ``u``), FRESNEL_W (refract, intensity times 1 - R)
+and REFLECT_W (the ghost reflection, intensity times R) on bare or
+thin-film coated interfaces (``coated_rt_sp``, absorbing films included),
+even-asphere rows, and dispersive media (Cauchy and Sellmeier,
+``dispersive_iors``).  Every other kind (SCATTER, the polarized field's
+JONES among them) raises NotImplementedError naming the ROADMAP item that
+brings it.  ``medium_after`` gives the index of the medium a ray travels in
+after a row, for the optical path length (``track_opl``).
 """
 
 from __future__ import annotations
@@ -27,14 +29,16 @@ from ..constants import (CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS,
                          DispModel, PhysKind, SBKind, VBKind)
 from ..geom import vec3 as v3
 from ..geom.surfaces import sag_z
+from ..utils.coatings import (D_LINE_UM, _max, coating_rt, metal_nk_at,
+                              metal_reflectance)
 from .physics import (fresnel_dir, fresnel_reflectance, phase_grid_dir,
                       reflect_dir, refract_components, snell_dir)
 
 # ROADMAP.md "Queue 1" items that bring the rest of the feature matrix
 TODO_FEATURES = 'ROADMAP Queue 1 item 12 (remaining sequential features)'
 TODO_ELEMENTS = 'ROADMAP Queue 1 item 14 (remaining elements)'
-# the Fresnel kinds of uncoated interfaces: the Monte-Carlo branch draw, the
-# weighted transmission and the ghost reflection
+# the Fresnel kinds: the Monte-Carlo branch draw, the weighted transmission
+# and the ghost reflection
 FRESNEL_KINDS = (PhysKind.FRESNEL, PhysKind.FRESNEL_W, PhysKind.REFLECT_W)
 
 
@@ -132,12 +136,20 @@ class StaticRowMeta:
             getattr(self, s) == getattr(other, s) for s in self.__slots__)
 
 
+def coat_acts(meta: StaticRowMeta):
+    """Whether the row's thin-film stack or metal substrate changes the
+    trace: a metal mirror, or a stack on a Fresnel kind (on a SNELL row a
+    stack has no intensity to act on: it only enters the polarized field's
+    amplitudes, which the port does not trace yet)."""
+    return meta.metal or bool(meta.n_coat and meta.ph in FRESNEL_KINDS)
+
+
 def unsupported(meta: StaticRowMeta):
     """Why the port cannot trace this row yet (None when it can)."""
     if meta.ff:
         return f'freeform surfaces are {TODO_FEATURES}'
-    if meta.n_coat or meta.metal:
-        return f'coatings and metal mirrors are {TODO_FEATURES}'
+    if meta.metal and meta.ph != PhysKind.REFLECT:
+        return 'a metal substrate is a REFLECT row\'s'
     if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN,
                    PhysKind.DOE, PhysKind.MLA):
         return f'physics {PhysKind(meta.ph).name} is {TODO_ELEMENTS}'
@@ -196,6 +208,91 @@ def dispersive_iors(row, wavelength_um, meta=None):
     return side(0, 0), side(1, 6)
 
 
+def _stack_lam(wavelength):
+    """The wavelength a stack is evaluated at: the ray's own, or the d line
+    (0.5876 um) where it is unset (0) or the rays carry none."""
+    if wavelength is None:
+        return D_LINE_UM
+    return torch.where(wavelength > 0, wavelength, D_LINE_UM)
+
+
+def coated_reflectance(meta: StaticRowMeta, row, d, n, n_in, n_out,
+                       wavelength=None):
+    """Unpolarized reflectance of the row's thin-film stack at the ray's
+    incidence (``coated_rt_sp``'s mean of Rs and Rp)."""
+    rs, rp = coated_reflectance_sp(meta, row, d, n, n_in, n_out, wavelength)
+    return 0.5 * (rs + rp)
+
+
+def coated_reflectance_sp(meta: StaticRowMeta, row, d, n, n_in, n_out,
+                          wavelength=None):
+    """Per-polarization (Rs, Rp) of the row's thin-film stack."""
+    rs, rp, _, _ = coated_rt_sp(meta, row, d, n, n_in, n_out, wavelength)
+    return rs, rp
+
+
+def coated_rt_sp(meta: StaticRowMeta, row, d, n, n_in, n_out,
+                 wavelength=None):
+    """Per-polarization (Rs, Rp, Ts, Tp) of the row's thin-film stack
+    (utils/coatings.py::coating_rt; ``meta.n_coat`` layers, ``row.coat``
+    interleaving (index, thickness um), ``meta.coat_k`` the static per-layer
+    extinction of absorbing films, which make R + T < 1).
+
+    The stack is listed from the low-index (air) side; a ray arriving from
+    the higher-index side (n1 >= n2, ``refract_components``'s sides) meets
+    the layers in reverse order, which matters for a stack of more than one
+    layer, so both orders are computed and selected per ray, as in the JAX
+    package.  The wavelength is the ray's own, or 0.5876 um where it is
+    0."""
+    _, cos_i, n1, n2, _, _, _, _ = refract_components(d, n, n_in, n_out)
+    ns = [row.coat[..., 2 * i] for i in range(meta.n_coat)]
+    ds = [row.coat[..., 2 * i + 1] for i in range(meta.n_coat)]
+    ks = list(meta.coat_k) if meta.coat_k is not None else None
+    lam = _stack_lam(wavelength)
+
+    def rt_of(pol):
+        r, t = coating_rt(ns, ds, n1, n2, cos_i, lam, pol=pol, k_stack=ks)
+        if meta.n_coat > 1:
+            r_rev, t_rev = coating_rt(
+                ns[::-1], ds[::-1], n1, n2, cos_i, lam, pol=pol,
+                k_stack=ks[::-1] if ks is not None else None)
+            r = torch.where(n1 < n2, r, r_rev)
+            t = torch.where(n1 < n2, t, t_rev)
+        return r, t
+
+    rs, ts = rt_of('s')
+    rp, tp = rt_of('p')
+    return rs, rp, ts, tp
+
+
+def mirror_reflectances_sp(meta: StaticRowMeta, row, d, n, wavelength=None):
+    """Per-polarization (Rs, Rp) of a metal mirror row, bare or under a
+    dielectric (or absorbing) stack (utils/coatings.py::
+    metal_reflectance).  The row's ph holds (n_metal, k_metal, n_ambient);
+    ``row.coat`` lists the stack outermost first, the order the ambient
+    side sees (light reaches a mirror from its ambient side alone: no
+    reversal).  With ``meta.metal_nk`` (metal_dispersion=True) the
+    substrate's (n, k) follow the ray's wavelength on the metal's knots
+    (``metal_nk_at``); an unset wavelength evaluates at the d line on the
+    same knots."""
+    cos_i = torch.abs(v3.dot(d, n))
+    n_amb = row.ph[..., 2]
+    ns = [row.coat[..., 2 * i] for i in range(meta.n_coat)]
+    ds = [row.coat[..., 2 * i + 1] for i in range(meta.n_coat)]
+    lam = _stack_lam(wavelength)
+    if meta.metal_nk is not None:
+        lam_t = lam if torch.is_tensor(lam) else torch.full_like(cos_i, lam)
+        n_m, k_m = metal_nk_at(meta.metal_nk[0], meta.metal_nk[1], lam_t)
+    else:
+        n_m, k_m = row.ph[..., 0], row.ph[..., 1]
+    ks = list(meta.coat_k) if meta.coat_k is not None else None
+    rs = metal_reflectance(ns, ds, n_amb, n_m, k_m, cos_i, lam, pol='s',
+                           k_stack=ks)
+    rp = metal_reflectance(ns, ds, n_amb, n_m, k_m, cos_i, lam, pol='p',
+                           k_stack=ks)
+    return rs, rp
+
+
 def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
     """Index of the medium a ray travels in AFTER this row, for the optical
     path length; None where the row leaves the medium unchanged.
@@ -204,13 +301,14 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
     unless total internal reflection keeps it in the incidence medium:
     ``where(tir, n1, n2)``; FRESNEL follows its drawn branch, ``where(u <
     R, n1, n2)`` with R = 1 under TIR (``u``, the row's uniform, the same
-    one the physics read); PHASE_GRID always transmits (an evanescent order
-    is dead): ``n2``.  ``n1`` and ``n2`` come from ``refract_components``,
-    so they follow the side the ray arrives from (the sign of ``d . n``); a
-    dispersive row takes its indices at the rays' ``wavelength``
-    (``dispersive_iors``).  Every other ported kind (REFLECT_W among them)
-    returns None; the kinds the port lacks are refused by ``unsupported``,
-    as everywhere."""
+    one the physics read; R the coated stack's on a coated row,
+    ``coated_reflectance``); PHASE_GRID always transmits (an evanescent
+    order is dead): ``n2``.  ``n1`` and ``n2`` come from
+    ``refract_components``, so they follow the side the ray arrives from
+    (the sign of ``d . n``); a dispersive row takes its indices at the rays'
+    ``wavelength`` (``dispersive_iors``).  Every other ported kind
+    (REFLECT_W and metal mirrors among them) returns None; the kinds the
+    port lacks are refused by ``unsupported``, as everywhere."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
@@ -226,7 +324,12 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
     if meta.ph == PhysKind.PHASE_GRID:
         return n2
     if meta.ph == PhysKind.FRESNEL:
-        R = torch.where(tir, 1.0, fresnel_reflectance(cos_i, cos_t, n1, n2))
+        if meta.n_coat:
+            r_raw = coated_reflectance(meta, row, d, n, n_in, n_out,
+                                       wavelength)
+        else:
+            r_raw = fresnel_reflectance(cos_i, cos_t, n1, n2)
+        R = torch.where(tir, 1.0, r_raw)
         return torch.where(_draw(u) < R, n1, n2)
     return torch.where(tir, n1, n2)
 
@@ -248,8 +351,14 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     (TIR reflects at full power) with intensity factor ``clip(1 - R, 0,
     1)``; REFLECT_W reflects with ``clip(R, 0, 1)`` (1 under TIR).  R is
     the unpolarized reflectance of the bare interface
-    (``fresnel_reflectance``), differentiable in the direction, the normal
-    and the indices.
+    (``fresnel_reflectance``) or, on a coated row (``meta.n_coat``), of its
+    thin-film stack (``coated_rt_sp``), differentiable in the direction,
+    the normal, the indices, the layer thicknesses and the wavelength.  An
+    absorbing stack (``meta.coat_k``) loses the film's absorptance: FRESNEL's
+    transmitted branch carries ``clip(T / max(1 - R, 1e-12), 0, 1)`` and
+    FRESNEL_W weighs by ``clip(T, 0, 1)``.  A metal REFLECT row
+    (``meta.metal``) reflects with intensity factor ``(Rs + Rp) / 2`` of
+    ``mirror_reflectances_sp``.
 
     A dispersive row (``meta.disp``) takes its media indices per ray from
     ``dispersive_iors`` at the rays' ``wavelength`` (None: the d-line
@@ -273,15 +382,42 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
         zero = torch.zeros_like(d[0])
         return (zero, zero, zero), zero
     if kind == PhysKind.REFLECT:
+        if meta.metal:
+            rs, rp = mirror_reflectances_sp(meta, row, d, n, wavelength)
+            return reflect_dir(d, n), 0.5 * (rs + rp)
         return reflect_dir(d, n), ones
     if kind == PhysKind.SNELL:
         return snell_dir(d, n, n_in, n_out), ones
     if kind == PhysKind.FRESNEL:
-        return fresnel_dir(d, n, n_in, n_out, _draw(u)), ones
+        if not meta.n_coat:
+            return fresnel_dir(d, n, n_in, n_out, _draw(u)), ones
+        rs, rp, ts, tp = coated_rt_sp(meta, row, d, n, n_in, n_out,
+                                      wavelength)
+        r_ov, t_ov = 0.5 * (rs + rp), 0.5 * (ts + tp)
+        out = fresnel_dir(d, n, n_in, n_out, _draw(u), R_override=r_ov)
+        if meta.coat_k is None:
+            return out, ones
+        # an absorbing stack: the transmitted branch carries T / (1 - R), so
+        # that the expected flux is R + T and the absorptance is lost; the
+        # branch is fresnel_dir's (same R, same TIR rule, same compare)
+        tir = refract_components(d, n, n_in, n_out)[5]
+        r_eff = torch.where(tir, 1.0, r_ov)
+        w_t = t_ov / _max(1.0 - r_eff, 1e-12)
+        return out, torch.where(_draw(u) < r_eff, ones,
+                                torch.clamp(w_t, 0.0, 1.0))
     if kind in (PhysKind.FRESNEL_W, PhysKind.REFLECT_W):
         _, cos_i, n1, n2, _, tir, cos_t, _ = refract_components(
             d, n, n_in, n_out)
-        R = fresnel_reflectance(cos_i, cos_t, n1, n2)
+        if kind == PhysKind.FRESNEL_W and meta.coat_k is not None:
+            # an absorbing stack: the weight is its transmittance T
+            _, _, ts, tp = coated_rt_sp(meta, row, d, n, n_in, n_out,
+                                        wavelength)
+            return snell_dir(d, n, n_in, n_out), torch.where(
+                tir, 1.0, torch.clamp(0.5 * (ts + tp), 0.0, 1.0))
+        if meta.n_coat:
+            R = coated_reflectance(meta, row, d, n, n_in, n_out, wavelength)
+        else:
+            R = fresnel_reflectance(cos_i, cos_t, n1, n2)
         if kind == PhysKind.FRESNEL_W:
             return snell_dir(d, n, n_in, n_out), torch.where(
                 tir, 1.0, torch.clamp(1.0 - R, 0.0, 1.0))

@@ -120,6 +120,15 @@ class SurfaceRec:
     disp: Sequence = ()          # 12-wide [in 6 | out 6] per DispModel layout
     disp_model: tuple = (0, 0)   # (DispModel of the ior_in side, of ior_out)
     is_dispersive: bool = False
+    coat: Sequence = ()          # interleaved (n, d_um) pairs, outermost first
+    n_coat: int = 0              # static layer count (0: a bare interface)
+    coat_k: Any = None           # static per-layer extinction (absorbing
+                                 # films; None: dielectric), on StaticRowMeta
+    is_metal: bool = False       # REFLECT row on an absorbing substrate
+                                 # ph = (n_metal, k_metal, n_ambient)
+    metal_nk: Any = None         # static ((n knots), (k knots)) of the
+                                 # metal's dispersion (utils/coatings.py::
+                                 # METAL_NK), on StaticRowMeta
     is_sensor: bool = False
     sensor_slot: int = 0
     is_plane: bool = False       # static: row is a z=0 plane (fast path)
@@ -170,7 +179,8 @@ def stack_records(recs, elem_ids, surf_ids, dtype=torch.float32,
         asph=torch.stack([_pad_vec(r.asph, 4, dtype, device) for r in recs]),
         ff=torch.zeros(k, MAX_FF_TERMS, dtype=dtype, device=device),
         disp=torch.stack([_pad_vec(r.disp, 12, dtype, device) for r in recs]),
-        coat=torch.zeros(k, 16, dtype=dtype, device=device),
+        coat=torch.stack([_pad_vec(r.coat, 16, dtype, device)
+                          for r in recs]),
         is_sensor=bools(r.is_sensor for r in recs),
         sensor_slot=ints(r.sensor_slot for r in recs),
         elem_id=ints(elem_ids),

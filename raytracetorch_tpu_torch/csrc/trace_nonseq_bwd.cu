@@ -8,8 +8,9 @@
 // vector-Jacobian product (tests/test_pallas.py::
 // test_nonseq_bwd_scan_matches_unrolled holds them equal), so this one kernel
 // is the counterpart of both, for K5's kinds (pixelated phase plates and the
-// extended kinds included), the optical path length and the Fresnel kinds
-// with their draws, with every other optional stream off.
+// extended kinds included), the optical path length, the Fresnel kinds
+// with their draws, and thin-film coatings and metal mirrors, with every
+// other optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -107,6 +108,14 @@
 //   (kReflect), and the reverse sweep runs K2's Fresnel adjoints
 //   (trace_seq_adjoint.cuh).
 //
+// - Thin-film coatings and metal mirrors: a seventh instantiation, kCoat,
+//   built on the sixth (an overload with one more argument, CoatSide: the
+//   rows' [K][20] side buffer, in shared memory after the moment
+//   cotangent).  Replays and the reverse sweep take a coated or metal
+//   winner's weight through its stack (thin_film.cuh, recomputed: the
+//   checkpoints keep their words), and a winner's 8 coat-thickness columns
+//   are reduced after its disp columns.
+//
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
 // H100's 3.35 TB/s.  Its arithmetic is K5's (the replay scans every row on
@@ -154,18 +163,22 @@ constexpr unsigned kFull = 0xffffffffu;
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
 // winner's branch bits.  With kOpl, n_cur becomes the winner's medium
 // (medium_after, as K5's instantiation with the streams takes it).  With
-// kFresnel a FRESNEL winner draws at `rd`'s counter, as K5 drew.
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
+// kFresnel a FRESNEL winner draws at `rd`'s counter, as K5 drew; with
+// kCoat (which has kFresnel) a coated or metal winner reads its row of the
+// side buffer `cside`.
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
+          bool kCoat = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits, float* n_cur = nullptr,
-                                      const RayDraw* rd = nullptr) {
+                                      const RayDraw* rd = nullptr,
+                                      const float* cside = nullptr) {
   RowHit hw = {};
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel>(
-      recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd);
+  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat>(
+      recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd, cside);
   if (k >= 0) bits = branch_bits<kFresnel>(hw, degen, br) | kActive;
   if constexpr (kOpl) {
     if (k >= 0)
@@ -206,14 +219,23 @@ struct OplIn {
   const float* g_nfinal;
 };
 
+// What only the instantiation with the coatings takes: the rows' side
+// buffer, [K][kCoatSide] floats (ops/fused_trace.py::coat_side).
+struct CoatSide {
+  const float* side;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the replays also carry the index of the
 // medium, each checkpoint keeps the one before its bounce as a ninth word
 // (a segment replay recomputes it from the launch, as it recomputes the
 // rest), and the reverse sweep runs row_backward's path-length adjoint.
 // With kFresnel (which has kOpl) every replayed bounce draws under `key` at
-// its own counter (ray, bounce).
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
+// its own counter (ray, bounce).  With kCoat (which has kFresnel) coated and
+// metal winners read their rows of `cs`, and a row's 8 coat-thickness
+// columns follow its disp columns.
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
+          bool kCoat = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -230,13 +252,16 @@ __device__ __forceinline__ void nonseq_bwd(
     int n_slots, int n_bundles, GridCt gg, const float* __restrict__ maps,
     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
     float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}) {
+    OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
+  static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
-  // row (kDispersion) its disp columns after the kCols
-  const int n_cols = kDispersion ? kCols + wo.disp_cols : kCols;
+  // row (kDispersion) its disp columns after the kCols, with kCoat the coat
+  // columns after those
+  const int n_cols =
+      kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) : kCols;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
   constexpr int kRecs = kExt ? 0 : kRec4;
@@ -245,7 +270,8 @@ __device__ __forceinline__ void nonseq_bwd(
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
   float* gm = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
-  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, n_cols]
+  float* cside = gm + n_mom;  // kCoat: the side buffer
+  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0);  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -254,6 +280,9 @@ __device__ __forceinline__ void nonseq_bwd(
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
+  if constexpr (kCoat) {
+    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+  }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
 
@@ -291,8 +320,8 @@ __device__ __forceinline__ void nonseq_bwd(
     const float ib = inten, nb = n_cur;
     uint32_t bits = 0;
     rd.bounce = static_cast<uint32_t>(b);
-    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel>(
-        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd);
+    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
+        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -339,16 +368,17 @@ __device__ __forceinline__ void nonseq_bwd(
 #pragma unroll 1
       for (int b = 0; b < s; ++b) {
         rd.bounce = static_cast<uint32_t>(b);
-        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel>(recs, tab, knd, n_rows, pl, p, d,
-                                                           inten, bits, &n_cur, &rd);
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(recs, tab, knd, n_rows, pl, p,
+                                                                  d, inten, bits, &n_cur, &rd,
+                                                                  cside);
       }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten, nb = n_cur;
         rd.bounce = static_cast<uint32_t>(s + j);
-        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel>(
-            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd);
+        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
+            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
       }
@@ -370,13 +400,17 @@ __device__ __forceinline__ void nonseq_bwd(
       for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
       if constexpr (kDispersion) {
         WaveCt wc = {0.0f, 0.0f, 0.0f};
-        int dispm = 0;
+        int dispm = 0, coated = 0;
+        float tc[kCoat ? kMaxCoatLayers : 1];  // kCoat: the coat columns
+#pragma unroll
+        for (int c = 0; c < (kCoat ? kMaxCoatLayers : 1); ++c) tc[c] = 0.0f;
         if (act) {
-          const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
-          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel>(
+          const RowKinds kd = read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
+          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
               tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm, n_bundles, gg, pl,
-              gmaps, gp, gd, gi, tg, &wc, &oc);
+              gmaps, gp, gd, gi, tg, &wc, &oc, cside + k * kCoatSide, tc);
           dispm = kd.dispm;
+          coated = kd.coat & kCoatCountMask;
         }
         if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, n_cols, lane);
         // a dispersive winner: its media's cotangents on to the disp
@@ -388,6 +422,12 @@ __device__ __forceinline__ void nonseq_bwd(
         if (dispm != 0) gwl += disp_backward(tab + k * kRowWidth, dispm, pl.wl, wc, td);
         if (partials != nullptr && wo.disp_cols != 0)
           reduce_winners<kDispGradCols>(dispm != 0 ? k : -1, td, slots + kCols, n_cols, lane);
+        // a coated or metal winner: its thickness columns
+        if constexpr (kCoat) {
+          if (partials != nullptr)
+            reduce_winners<kMaxCoatLayers>(coated != 0 ? k : -1, tc,
+                                           slots + kCols + wo.disp_cols, n_cols, lane);
+        }
       } else {
         if (act)
           row_backward<kPlates, kExt>(tab + k * kRowWidth,
@@ -478,33 +518,49 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey k
   nonseq_bwd<kPlates, kExt, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key);
 }
 
-// The types of the four kernels.
+// The kernel with those and the coatings.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs) {
+  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs);
+}
+
+// The types of the five kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
 using BwdFresnelKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey);
+using BwdCoatKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
 
 // The dynamic shared memory of a launch: the packed scan records (not with
-// kExt), the table, its kinds, the moment cotangent, the warp slots
-// (disp_cols more columns a row on a table with a dispersive row) and the
-// checkpoints.  Without the records the mixed-surface Scene's 11 rows and
-// 12 checkpoints fit two blocks an SM.
-template <bool kPlates, bool kExt, bool kOpl = false>
+// kExt), the table, its kinds, the moment cotangent, with kCoat the side
+// buffer, the warp slots (disp_cols more columns a row on a table with a
+// dispersive row, and with kCoat 8 more) and the checkpoints.  Without the
+// records the mixed-surface Scene's 11 rows and 12 checkpoints fit two
+// blocks an SM.
+template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols) {
   return sizeof(float) *
-         (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth) +
+         (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth +
+                                         (kCoat ? kCoatSide : 0)) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          static_cast<size_t>(kWarps) * n_rows * (grad_cols<kPlates, kExt>() + disp_cols) +
+          static_cast<size_t>(kWarps) * n_rows *
+              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0)) +
           static_cast<size_t>(checkpoints(n_bounces)) * state_words<kOpl>() * kThreads);
 }
 
 // The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
+          bool kCoat = false>
 const void* kernel_fn() {
-  if constexpr (kFresnel)
+  if constexpr (kCoat)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdCoatKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kFresnel)
     return reinterpret_cast<const void*>(
         static_cast<BwdFresnelKernel>(trace_nonseq_bwd_kernel<true, true>));
   else if constexpr (kOpl)
@@ -519,10 +575,11 @@ const void* kernel_fn() {
 }
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
+          bool kCoat = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -623,7 +680,11 @@ extern "C" int rtt_trace_nonseq_bwd(
 // and `g_nfinal`, the cotangents of K5's opl and n_final streams (n floats
 // each; null: zero).  `fresnel` nonzero selects the instantiation with the
 // Fresnel kinds, which replays K5's draws under its Philox key (key0,
-// key1); without it the key is ignored.  Returns a cudaError_t.
+// key1); without it the key is ignored.  `coat_side`, when not null,
+// selects the instantiation with the coatings (which also takes the Fresnel
+// kinds and the key so): the n_rows * 20 floats of ops/fused_trace.py::
+// coat_side; its partials hold 8 more columns a row (the coat thicknesses,
+// after the disp columns).  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -634,8 +695,8 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
     float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, uint32_t key0, uint32_t key1, int fresnel, int n_bounces,
-    long long n, void* stream) {
+    const float* g_nfinal, uint32_t key0, uint32_t key1, int fresnel, const float* coat_side,
+    int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -645,11 +706,16 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const size_t smem =
-      shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  // one launch for both instantiations: the Fresnel kernel's overload takes
-  // the key as its last argument
+      coat_side != nullptr
+          ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                 wo.disp_cols)
+          : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
+  // one launch for the three instantiations: the Fresnel kernel's overload
+  // takes the key as its last argument, the coated one the key and the side
+  // buffer
   auto go = [&](auto... draws) {
-    const cudaError_t e = prepare<true, true, true, true, sizeof...(draws) != 0>(smem);
+    const cudaError_t e =
+        prepare<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) == 2>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_nonseq_bwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -660,6 +726,7 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
             n, wo, OplIn{g_opl, g_nfinal}, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
 }
 
@@ -669,7 +736,8 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
 // plate code, 1 with it, 2 with it and the extended kinds, 3 with those and
 // dispersion on a table with a dispersive row, 4 the instantiation with the
 // path length on such a table, 5 the one with the Fresnel kinds on such a
-// table.  Returns a cudaError_t.
+// table, 6 the one with the coatings on such a table.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
@@ -677,7 +745,12 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 5) {
+  if (code == 6) {
+    smem = shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                kDispGradCols);
+    e = prepare<true, true, true, true, true, true>(smem);
+    fn = kernel_fn<true, true, true, true, true, true>();
+  } else if (code == 5) {
     smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
     e = prepare<true, true, true, true, true>(smem);
     fn = kernel_fn<true, true, true, true, true>();

@@ -7,10 +7,10 @@
 // (HEMI_APER bound), pixelated phase plates, the extended kinds of the
 // mixed-surface and asphere scenes and dispersive media, with every other
 // optional stream off but the deterministic ones (the optical path length,
-// path and hit recording, in an instantiation of their own, below) and the
-// Fresnel kinds of uncoated interfaces with their draws (one more
-// instantiation): no scatter draws, field, fuzzy apodization, GRIN or
-// HALFSPACES rows.
+// path and hit recording, in an instantiation of their own, below), the
+// Fresnel kinds with their draws (one more instantiation) and thin-film
+// coatings and metal mirrors (one more): no scatter draws, field, fuzzy
+// apodization, GRIN or HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -103,6 +103,13 @@
 // cost ~100 integer operations a FRESNEL winner, against the ~400 of a
 // bounce's row scan on the naive scene.
 //
+// Thin-film coatings and metal mirrors run in one more instantiation,
+// kCoat, of the streams' body (an overload with one more argument after the
+// key: CoatSide, the rows' [K][20] side buffer, copied into shared memory
+// after the kinds), so every other instantiation keeps its code.  Only the
+// winner's physics reads it: the stack runs once per coated winner and
+// bounce (twice: s and p).
+//
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
 
@@ -131,14 +138,22 @@ __host__ __device__ constexpr int fwd_min_blocks() {
 }
 
 // The dynamic shared memory of a launch: the packed scan records (not with
-// the extended kinds), the flat table, its kinds, the per-warp moment
+// the extended kinds), the flat table, its kinds, with `coat` (the
+// instantiation with the coatings) the side buffer, the per-warp moment
 // partials and bucket 1's per-thread moment sums.
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext) {
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext, bool coat = false) {
   return sizeof(float) * (static_cast<size_t>(n_rows) *
-                              ((ext ? 0 : kRecWords) + kRowWidth + kKindWidth) +
+                              ((ext ? 0 : kRecWords) + kRowWidth + kKindWidth +
+                               (coat ? kCoatSide : 0)) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
                           static_cast<size_t>(kMoments) * kThreads);
 }
+
+// The coated rows' side buffer (kCoat): [K][kCoatSide] floats
+// (ops/fused_trace.py::coat_side).
+struct CoatSide {
+  const float* side;
+};
 
 template <int kMomBucket, bool kPlates, bool kExt>
 __global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
@@ -274,8 +289,10 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // sensor won, 0 where a nearer row did), and from the bounce at which the
 // ray leaves its loop to the budget the settled ones: the position
 // unchanged, zero hits, weights and slots.  With kFresnel it also runs the
-// Fresnel kinds, a FRESNEL winner drawing Philox under `key`.
-template <int kMomBucket, bool kFresnel = false>
+// Fresnel kinds, a FRESNEL winner drawing Philox under `key`; with kCoat
+// (which has kFresnel) the coated and metal winners weigh by their stacks,
+// reading their rows of `cs`.
+template <int kMomBucket, bool kFresnel = false, bool kCoat = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -287,7 +304,8 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so,
-    PhiloxKey key = {0u, 0u}) {
+    PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}) {
+  static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   constexpr bool kPlates = true, kExt = true;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -295,7 +313,8 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   const float4* recs = smem4;
   float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRecs);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
-  float* warp_mom = tab + n_rows * (kRowWidth + kKindWidth);
+  float* cside = tab + n_rows * (kRowWidth + kKindWidth);  // kCoat: the side buffer
+  float* warp_mom = cside + (kCoat ? n_rows * kCoatSide : 0);
   const int n_mom = n_slots * n_bundles * kMoments;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -304,6 +323,9 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     build_scan_records(reinterpret_cast<float*>(smem4), table, kinds, n_rows, tid, kThreads);
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
+  if constexpr (kCoat) {
+    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+  }
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -349,8 +371,8 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     PhysBranch br = {};
     SensorRec rec;
     const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
-    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel>(
-        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd);
+    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat>(
+        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd, cside);
     if (k_win < 0) {
       b_end = b;
       break;
@@ -473,6 +495,14 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key) {
   nonseq_fwd_streams<kMomBucket, true>(RTT_NONSEQ_FWD_ARGS, so, key);
 }
 
+// The kernel with the streams, the Fresnel kinds and the coatings.
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs) {
+  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
+  nonseq_fwd_streams<kMomBucket, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs);
+}
+
 // Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
 // one after the other), into 4 n words: the device generator's known-answer
 // check (tests/test_torch_cuda.py, chip_smoke.py).
@@ -485,18 +515,23 @@ __global__ void philox_kernel(const uint32_t* __restrict__ ctr, const uint32_t* 
   for (int w = 0; w < 4; ++w) out[4 * j + w] = c[w];
 }
 
-// The types of the three kernels.
+// The types of the four kernels.
 using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey);
+using FwdCoatKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
 
 // The kernel of an instantiation.
-template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false>
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
+          bool kCoat = false>
 const void* kernel_fn() {
-  if constexpr (kFresnel)
+  if constexpr (kCoat)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdCoatKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else if constexpr (kFresnel)
     return reinterpret_cast<const void*>(
         static_cast<FwdFresnelKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
   else if constexpr (kStreams)
@@ -516,10 +551,11 @@ struct PlateArgs {
 };
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false>
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
+          bool kCoat = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel>(),
+  return cudaFuncSetAttribute(kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -558,9 +594,14 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
-// Fresnel kinds) and moment bucket, its shared memory allowed.
+// Fresnel kinds, 6 the one with the coatings) and moment bucket, its shared
+// memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 6) {
+    *e = prepare<kMomBucket, true, true, true, true, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, true, true>();
+  }
   if (code == 5) {
     *e = prepare<kMomBucket, true, true, true, true>(smem);
     return kernel_fn<kMomBucket, true, true, true, true>();
@@ -583,7 +624,8 @@ const void* kernel_of(int code, size_t smem, cudaError_t* e) {
 
 // The instantiation with the streams, or with `draws` (the Philox key) the
 // one with the Fresnel kinds too: the Fresnel kernel's overload takes the
-// key as its last argument.
+// key as its last argument; with the key and the side buffer the one with
+// the coatings.
 template <int kMomBucket, class... Draws>
 int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const float* table,
                    const int32_t* kinds, int n_rows, const float* const* rays,
@@ -591,7 +633,8 @@ int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const flo
                    int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
                    const PlateArgs& pa, int n_bounces, long long n, const StreamOut& so,
                    Draws... draws) {
-  const cudaError_t e = prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0>(smem);
+  const cudaError_t e =
+      prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0, sizeof...(Draws) == 2>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   trace_nonseq_fwd_kernel<kMomBucket, true, true>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
@@ -657,7 +700,10 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
 // (n_bounces * n floats) and `hit_slot` (n_bounces * n int32, both given
 // with `hits`).  `fresnel` nonzero selects the instantiation with the
 // Fresnel kinds, whose FRESNEL rows draw under the Philox key (key0, key1);
-// without it the key is ignored.  Returns a cudaError_t.
+// without it the key is ignored.  `coat_side`, when not null, selects the
+// instantiation with the coatings (which also takes the Fresnel kinds and
+// reads the key so): the n_rows * 20 floats of ops/fused_trace.py::
+// coat_side.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -665,8 +711,8 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, int fresnel, int n_bounces,
-    long long n, void* stream) {
+    float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, int fresnel,
+    const float* coat_side, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -677,7 +723,7 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, coat_side != nullptr);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -692,6 +738,7 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
                               n_bounces, n, so, draws...);
   };
+  if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
 }
 
@@ -717,7 +764,7 @@ extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bun
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code == 6);
   cudaError_t e;
   const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
                                             : kernel_of<64>(code, smem, &e);

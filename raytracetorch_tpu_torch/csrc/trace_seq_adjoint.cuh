@@ -22,6 +22,16 @@
 // dispersive row, the wavelength; the clip passes it inside [0, 1] (its
 // bounds included, as torch.clamp), TIR none.  A REFLECT_W row that a ray
 // misses zeroes its intensity, so the intensity's cotangent stops there.
+//
+// Coatings and metal mirrors (kCoat): the reflectance (or, through an
+// absorbing stack, the transmittance) that weighs a coated row's intensity
+// is its stack's, and its cotangent goes back through the stack
+// (thin_film.cuh::stack_rt_ct, which recomputes the stack and saves no
+// state across rows) into the cosine of incidence (so the direction and the
+// normal), the media's indices (or a metal's ambient, and a metal's own
+// index: ph[0:2], or through a dispersive metal's knots the wavelength), the
+// wavelength, and the layers' thicknesses, whose cotangents a row's
+// adjoint adds into `tc` (the coat columns, reduced after the others).
 
 #pragma once
 
@@ -176,10 +186,11 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
 // returns the row's bits.  With kFresnel a FRESNEL row draws with the ray's
 // uniform u, and a REFLECT_W row zeroes the intensity of a ray it does not
 // hold.
-template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false>
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false,
+          bool kCoat = false>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
                                                 const Plates& pl, V3& p, V3& d, float& inten,
-                                                float u = 0.0f) {
+                                                float u = 0.0f, const float* side = nullptr) {
   const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
   bool degen = false;
   const V3 nw = uses_normal<kFresnel>(kd.ph) || (kPlates && kd.ph == PHASE_GRID)
@@ -188,8 +199,8 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   PhysBranch br = {};
   V3 nd;
   float imod;
-  apply_physics<kPlates, kExt, kDispersion, kFresnel>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl,
-                                                      nd, imod, &br, kd.dispm, u);
+  apply_physics<kPlates, kExt, kDispersion, kFresnel, kCoat>(
+      r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br, kd.dispm, u, kd.coat, side);
   uint32_t bits = branch_bits<kFresnel>(h, degen, br);
   if (h.valid && inten > 0.0f) {
     bits |= kActive;
@@ -296,6 +307,94 @@ __device__ __forceinline__ void fresnel_weight_backward(const RowKinds& kd, cons
   g_nw = fma3(g_nw, g_dn, d);
   // after the direction's adjoint, which set the media's cotangents
   media_backward<kDispersion, true>(kd.dispm, from_in, g_n1, g_n2, tg, wc);
+}
+
+// A coated or metal row's weight (kCoat), from the row's saved branches:
+// a metal REFLECT row's (Rs + Rp) / 2; away from TIR a coated FRESNEL_W
+// row's clip(1 - R, 0, 1) (an absorbing stack's clip(T, 0, 1)), a coated
+// REFLECT_W row's clip(R, 0, 1), an absorbing FRESNEL row's transmitted
+// branch's clip(T / max(1 - R, 1e-12), 0, 1).  Returns whether the row has
+// one; then `a` receives its stack, `imod` the weight, and g_r, g_t the
+// cotangents of the stack's mean R and T from g_w, the weight's (the clips
+// pass it inside [0, 1], bounds included, as torch.clamp).
+__device__ __forceinline__ bool stack_weight(const float* r, const RowKinds& kd, const Plates& pl,
+                                             V3 d, V3 nw, uint32_t bits, const float* side,
+                                             float g_w, StackIn& a, float& imod, float& g_r,
+                                             float& g_t) {
+  const float cos_i = fabsf(dot3(d, nw));
+  if (kd.ph == REFLECT) {
+    if (!(kd.coat & kCoatMetal)) return false;
+    a = metal_stack(r, kd.coat, side, cos_i, pl.wl);
+    imod = stack_rt_unpolarized(a).R;
+    g_r = g_w;
+    return true;
+  }
+  const bool absorbing = kd.coat & kCoatAbsorbing;
+  if ((kd.coat & kCoatCountMask) == 0 || (bits & kTir) ||
+      !(kd.ph == FRESNEL_W || kd.ph == REFLECT_W ||
+        (kd.ph == FRESNEL && absorbing && !(bits & kReflect))))
+    return false;
+  float n1, n2;
+  media_iors<true>(r, bits & kFromIn, kd.dispm, pl.wl, n1, n2);
+  a = coated_stack(r, kd.coat, side, n1, n2, cos_i, pl.wl);
+  const StackRT rt = stack_rt_unpolarized(a);
+  float x;
+  if (kd.ph == FRESNEL) {
+    const float m = fmaxf(1.0f - rt.R, 1e-12f);
+    x = rt.T / m;
+    const float g_x = x >= 0.0f && x <= 1.0f ? g_w : 0.0f;
+    g_t = g_x / m;
+    g_r = -max_ct(1.0f - rt.R, 1e-12f, -(g_x * x / m));
+  } else {
+    x = kd.ph == REFLECT_W ? rt.R : absorbing ? rt.T : 1.0f - rt.R;
+    const float g_x = x >= 0.0f && x <= 1.0f ? g_w : 0.0f;
+    if (kd.ph == REFLECT_W)
+      g_r = g_x;
+    else if (absorbing)
+      g_t = g_x;
+    else
+      g_r = -g_x;
+  }
+  imod = fminf(fmaxf(x, 0.0f), 1.0f);
+  return true;
+}
+
+// Adjoint of a stack's weight (kCoat): g_r, g_t, the cotangents of the
+// stack's mean R and T (stack_weight) add those of the direction (g_d) and
+// the normal (g_nw) through cos_i = |d . nw|; of a coated row's media
+// (media_backward, its n1 and n2: ph[0:2], or a dispersive row's wc); of a
+// metal's ambient ph[2] and its (n, k), ph[0:2], or through a dispersive
+// metal's knots the wavelength; of the wavelength (wc->wl, where the ray
+// has one: an unset wavelength is the constant d line); and of the layers'
+// thicknesses (tc, in the coat columns' order).
+template <bool kDispersion>
+__device__ __forceinline__ void stack_weight_backward(const RowKinds& kd, const StackIn& a, V3 d,
+                                                      V3 nw, uint32_t bits, float wl,
+                                                      const float* side, float g_r, float g_t,
+                                                      V3& g_d, V3& g_nw, float* tg, WaveCt* wc,
+                                                      float* tc) {
+  StackCt sc = {};
+  stack_rt_unpolarized_ct(a, g_r, g_t, sc);
+  const float dn = dot3(d, nw);
+  const float g_dn = sc.cos_i * (dn < 0.0f ? -1.0f : (dn > 0.0f ? 1.0f : 0.0f));
+  g_d = fma3(g_d, g_dn, nw);
+  g_nw = fma3(g_nw, g_dn, d);
+  float g_lam = sc.lam;
+  if (a.metal) {
+    tg[kGPh + 2] += sc.n_in;
+    if (kd.coat & kCoatMetalNk) {
+      float n, k, sn, sk;
+      metal_nk(side, a.lam, n, k, &sn, &sk);
+      g_lam += sc.n_out * sn + sc.k_out * sk;
+    } else {
+      tg[kGPh] += sc.n_out;
+      tg[kGPh + 1] += sc.k_out;
+    }
+  } else {
+    media_backward<kDispersion, true>(kd.dispm, bits & kFromIn, sc.n_in, sc.n_out, tg, wc);
+  }
+  if (wl > 0.0f) wc->wl += g_lam;
+  for (int j = 0; j < a.n; ++j) tc[j] += sc.d[j];
 }
 
 // Adjoint of dispersive_iors on a dispersive row at the ray's wavelength
@@ -667,16 +766,22 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // REFLECT_W as REFLECT, the weights' cotangents through R
 // (fresnel_weight_backward), and an inactive REFLECT_W row stops the
 // intensity's cotangent (the forward zeroed the intensity there).
+// With kCoat (which has kFresnel) a coated row's weight goes through its
+// stack (`side`, its side-buffer row) and a metal REFLECT row's through its
+// metal's (stack_weight_backward); the thicknesses' cotangents add into
+// tc[kMaxCoatLayers].
 template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false,
-          bool kFresnel = false>
+          bool kFresnel = false, bool kCoat = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
                                              const Plates& pl, float* gmaps, V3& gp, V3& gd,
                                              float& gi, float* tg, WaveCt* wc = nullptr,
-                                             OplCt* oc = nullptr) {
+                                             OplCt* oc = nullptr, const float* side = nullptr,
+                                             float* tc = nullptr) {
   static_assert(kDispersion || !kOpl, "the path length runs with dispersion");
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
+  static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   if (!(bits & kActive)) {  // where(active, new, old) passes through
     if (kFresnel && kd.ph == REFLECT_W) gi = 0.0f;
     return;
@@ -749,10 +854,17 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
                    : 1.0f;
   // kFresnel: FRESNEL_W's clip(1 - R, 0, 1) and REFLECT_W's clip(R, 0, 1)
   // away from TIR, and R's cotangent g_R
-  const bool weighted =
-      kFresnel && (kd.ph == FRESNEL_W || kd.ph == REFLECT_W) && !(bits & kTir);
+  const bool weighted = kFresnel && (kd.ph == FRESNEL_W || kd.ph == REFLECT_W) &&
+                        !(bits & kTir) && !(kCoat && (kd.coat & kCoatCountMask) != 0);
   FresnelFwd ff = {};
   float g_R = 0.0f;
+  // kCoat: a stack's weight, its inputs and the cotangents of its R and T
+  bool stacked = false;
+  StackIn sa = {};
+  float g_sr = 0.0f, g_st = 0.0f;
+  if constexpr (kCoat) {
+    stacked = stack_weight(r, kd, pl, d, nw, bits, side, gi * inten, sa, imod, g_sr, g_st);
+  }
   if constexpr (kFresnel) {
     if (weighted) {
       ff = fresnel_forward<kDispersion>(r, kd, pl, d, nw, bits);
@@ -855,6 +967,11 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   }
   if constexpr (kFresnel) {
     if (weighted) fresnel_weight_backward<kDispersion>(kd, ff, d, nw, bits, g_R, g_d, g_nw, tg, wc);
+  }
+  if constexpr (kCoat) {
+    if (stacked)
+      stack_weight_backward<kDispersion>(kd, sa, d, nw, bits, pl.wl, side, g_sr, g_st, g_d, g_nw,
+                                         tg, wc, tc);
   }
 
   // ---- normal ----

@@ -6,9 +6,9 @@
 // forward by the custom_vjp fused_trace_grad) for the main-path kinds,
 // pixelated phase plates, the extended kinds of the mixed-surface and
 // asphere scenes and dispersive media, the optical path length (g_opl,
-// g_nfinal) and the Fresnel kinds of uncoated interfaces with K1's
-// pre-drawn uniforms (the TPU kernel's u_vals, :1883-1891), with every other
-// optional stream off.  Its plain
+// g_nfinal), the Fresnel kinds with K1's pre-drawn uniforms (the TPU
+// kernel's u_vals, :1883-1891), and thin-film coatings and metal mirrors,
+// with every other optional stream off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_bwd_cuda.
@@ -107,6 +107,13 @@
 //   direction alone for FRESNEL, and for FRESNEL_W and REFLECT_W the
 //   cotangent of the reflectance R in their weights.  The saved state stays
 //   9 words.
+// - Thin-film coatings and metal mirrors: a seventh instantiation, kCoat,
+//   built on the sixth (an overload with one more argument, CoatSide: the
+//   rows' [K][20] side buffer, copied into shared memory after the moment
+//   cotangent), so that the others keep their code.  Its reverse sweep
+//   takes a coated or metal row's weight back through the row's stack
+//   (thin_film.cuh::stack_rt_ct, recomputed there: no saved state for it)
+//   and reduces the 8 coat-thickness columns after the others.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -167,6 +174,12 @@ struct SeqDraws {
   int n_draws;
 };
 
+// What only the instantiation with the coatings takes: the rows' side
+// buffer, [K][kCoatSide] floats (ops/fused_trace.py::coat_side).
+struct CoatSide {
+  const float* side;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the forward sweep also carries the
 // index of the medium and saves it before each row as a ninth state word
@@ -174,9 +187,11 @@ struct SeqDraws {
 // each row: the word costs 1 KB a row of shared memory), and the reverse
 // sweep runs row_backward's path-length adjoint (OplCt).  With kFresnel
 // (which has kOpl) a FRESNEL row of the forward sweep reads the ray's
-// uniform from the next stream of `dr`.
+// uniform from the next stream of `dr`.  With kCoat (which has kFresnel)
+// coated and metal rows read their rows of `cs`, and a row's 8
+// coat-thickness columns follow its disp columns.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false>
+          bool kFresnel = false, bool kCoat = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -190,20 +205,24 @@ __device__ __forceinline__ void seq_bwd(
     float* __restrict__ cintensity, float* __restrict__ partials, int n_slots, int n_bundles,
     GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}) {
+    OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
+  static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kStride = kShared ? kThreads : 1;
   constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
-  // row (kDispersion) its disp columns after the kCols
-  const int n_cols = kDispersion ? kCols + wo.disp_cols : kCols;
+  // row (kDispersion) its disp columns after the kCols, with kCoat the coat
+  // columns after those
+  const int n_cols =
+      kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) : kCols;
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
   float* gm = smem + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
-  float* warp_tab = gm + n_mom;  // [kWarps, n_rows, n_cols]
+  float* cside = gm + n_mom;  // kCoat: the side buffer
+  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0);  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   // each row's saved state: [n_rows][kStateWords][kThreads] after the
@@ -214,6 +233,9 @@ __device__ __forceinline__ void seq_bwd(
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
+  if constexpr (kCoat) {
+    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+  }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
 
@@ -238,7 +260,7 @@ __device__ __forceinline__ void seq_bwd(
   for (int k = 0; k < n_rows; ++k) {
     const V3 p0 = p, d0 = d;
     const float i0 = inten;
-    const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
+    const RowKinds kd = read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
     float u = 0.0f;
     if constexpr (kFresnel) {
       if (kd.ph == FRESNEL) {  // warp-uniform
@@ -246,8 +268,8 @@ __device__ __forceinline__ void seq_bwd(
         ++f;
       }
     }
-    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel>(
-        tab + k * kRowWidth, kd, pl, p, d, inten, u);
+    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat>(
+        tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide);
     put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
     if constexpr (kOpl) {
       put_medium<kStride>(saved + k * kWords * kStride, n_cur);
@@ -274,7 +296,7 @@ __device__ __forceinline__ void seq_bwd(
 #pragma unroll 1
   for (int k = n_rows - 1; k >= 0; --k) {
     const float* r = tab + k * kRowWidth;
-    const RowKinds kd = read_row_kinds<kExt, kDispersion>(knd + k * kKindWidth);
+    const RowKinds kd = read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
     V3 sp, sd;
     float si;
     uint32_t bits;
@@ -285,8 +307,12 @@ __device__ __forceinline__ void seq_bwd(
     for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
     if constexpr (kDispersion) {
       WaveCt wc = {0.0f, 0.0f, 0.0f};
-      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel>(
-          r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc);
+      float tc[kCoat ? kMaxCoatLayers : 1];  // kCoat: the coat columns
+#pragma unroll
+      for (int c = 0; c < (kCoat ? kMaxCoatLayers : 1); ++c) tc[c] = 0.0f;
+      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
+          r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc,
+          cside + k * kCoatSide, tc);
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
       if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
@@ -299,6 +325,11 @@ __device__ __forceinline__ void seq_bwd(
         for (int c = 0; c < kDispGradCols; ++c) td[c] = 0.0f;
         if (bits & kActive) gwl += disp_backward(r, kd.dispm, pl.wl, wc, td);
         if (any && wo.disp_cols != 0) reduce_cols<kDispGradCols>(td, slot + kCols, lane);
+      }
+      // a coated or metal row (warp-uniform): its thickness columns
+      if constexpr (kCoat) {
+        if (any && (kd.coat & kCoatCountMask) != 0)
+          reduce_cols<kMaxCoatLayers>(tc, slot + kCols + wo.disp_cols, lane);
       }
     } else {
       row_backward<kPlates, kExt>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp,
@@ -383,11 +414,20 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr) {
   seq_bwd<kShared, kPlates, kExt, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr);
 }
 
-// The types of the four kernels.
+// The kernel with those and the coatings.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs) {
+  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr, cs);
+}
+
+// The types of the five kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
 using BwdFresnelKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws);
+using BwdCoatKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -402,23 +442,29 @@ struct PlateArgs {
 };
 
 // The dynamic shared memory of a launch: the table, its kinds, the moment
-// cotangent, the warp slots (disp_cols more columns a row on a table with a
-// dispersive row) and, for tables of up to kSharedRows rows, the saved
-// states (a word more a row with the path length).
-template <bool kPlates, bool kExt, bool kOpl = false>
+// cotangent, with kCoat the side buffer, the warp slots (disp_cols more
+// columns a row on a table with a dispersive row, and with kCoat 8 more)
+// and, for tables of up to kSharedRows rows, the saved states (a word more
+// a row with the path length).
+template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols) {
   const size_t rows = static_cast<size_t>(n_rows);
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          static_cast<size_t>(kWarps) * rows * (grad_cols<kPlates, kExt>() + disp_cols) +
+          (kCoat ? rows * kCoatSide : 0) +
+          static_cast<size_t>(kWarps) * rows *
+              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0)) +
           (n_rows <= kSharedRows ? rows * state_words<kOpl>() * kThreads : 0));
 }
 
 // The kernel of an instantiation.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false>
+          bool kFresnel = false, bool kCoat = false>
 const void* kernel_fn() {
-  if constexpr (kFresnel)
+  if constexpr (kCoat)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdCoatKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kFresnel)
     return reinterpret_cast<const void*>(
         static_cast<BwdFresnelKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else if constexpr (kOpl)
@@ -435,19 +481,20 @@ const void* kernel_fn() {
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false>
+          bool kFresnel = false, bool kCoat = false>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel>();
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
+          bool kCoat = false>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
   return n_rows <= kSharedRows
-             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel>(smem, fn)
-             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel>(smem, fn);
+             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(smem, fn)
+             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(smem, fn);
 }
 
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
@@ -560,8 +607,11 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
 // `g_nfinal`, the cotangents of K1's opl and n_final streams (n floats
 // each; null: zero).  `fresnel` nonzero selects the instantiation with the
 // Fresnel kinds, which reads K1's `uniforms`, n_draws * n floats (null with
-// n_draws 0 when no row draws); without it both are ignored.  Returns a
-// cudaError_t.
+// n_draws 0 when no row draws); without it both are ignored.  `coat_side`,
+// when not null, selects the instantiation with the coatings (which also
+// takes the Fresnel kinds and reads `uniforms` so): the n_rows * 20 floats
+// of ops/fused_trace.py::coat_side; its partials hold 8 more columns a row
+// (the coat thicknesses, after the disp columns).  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -571,9 +621,10 @@ extern "C" int rtt_trace_seq_bwd_opl(
     float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, const float* uniforms, int n_draws, int fresnel, long long n,
-    void* stream) {
+    const float* g_nfinal, const float* uniforms, int n_draws, int fresnel,
+    const float* coat_side, long long n, void* stream) {
   if (n <= 0) return 0;
+  if (coat_side != nullptr) fresnel = 1;
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -583,15 +634,19 @@ extern "C" int rtt_trace_seq_bwd_opl(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const OplIn oi = {g_opl, g_nfinal};
-  const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
+  const size_t smem =
+      coat_side != nullptr
+          ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols)
+          : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  // one launch per row layout for both instantiations: the Fresnel kernel's
-  // overload takes the draws as its last argument
+  // one launch per row layout for the three instantiations: the Fresnel
+  // kernel's overload takes the draws as its last argument, the coated one
+  // the draws and the side buffer
   auto go = [&](auto... draws) {
     const void* fn;
-    const cudaError_t e =
-        prepare_rows<true, true, true, true, sizeof...(draws) != 0>(n_rows, smem, &fn);
+    const cudaError_t e = prepare_rows<true, true, true, true, sizeof...(draws) != 0,
+                                       sizeof...(draws) == 2>(n_rows, smem, &fn);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (n_rows <= kSharedRows)
       trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
@@ -607,6 +662,7 @@ extern "C" int rtt_trace_seq_bwd_opl(
           gmaps, n, wo, oi, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
 
@@ -616,18 +672,21 @@ extern "C" int rtt_trace_seq_bwd_opl(
 // (n_bounces is K6's; K2 has none.)  `code`: 0 without plate code, 1 with
 // it, 2 with it and the extended kinds, 3 with those and dispersion on a
 // table with a dispersive row, 4 the instantiation with the path length on
-// such a table, 5 the one with the Fresnel kinds on such a table.
+// such a table, 5 the one with the Fresnel kinds on such a table, 6 the one
+// with the coatings on such a table.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
   const size_t smem =
-      code >= 4   ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      code == 6   ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      : code >= 4 ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code >= 2 ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 5   ? prepare_rows<true, true, true, true, true>(n_rows, smem, &fn)
+  const cudaError_t e = code == 6   ? prepare_rows<true, true, true, true, true, true>(n_rows, smem, &fn)
+                        : code == 5 ? prepare_rows<true, true, true, true, true>(n_rows, smem, &fn)
                         : code == 4 ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
                         : code == 3 ? prepare_rows<true, true, true>(n_rows, smem, &fn)
                         : code == 2 ? prepare_rows<true, true, false>(n_rows, smem, &fn)

@@ -45,6 +45,17 @@
 // and row: K1 and K2 from the [F][n] streams the wrapper pre-draws, K5 and
 // K6 from philox_uniform below, a pure function of (key, ray, bounce, row),
 // so K6 replays K5's draws by their counters.
+//
+// Thin-film coatings and metal mirrors (a coated FRESNEL, FRESNEL_W or
+// REFLECT_W row, a metal REFLECT row) take one more compile-time flag,
+// kCoat, set only in one more instantiation of each kernel, built on the one
+// with the Fresnel kinds.  A row's static coating data rides its kinds row
+// (the layer count and flags above the dispersion bits, thin_film.cuh) and a
+// [K][20] side buffer (the layers' extinction, a dispersive metal's knots)
+// that the kernels keep in shared memory; the stack itself is
+// thin_film.cuh's.  One stack evaluation per ray and row serves both the
+// branch and medium_after (which reads the branch's bit), in the order the
+// ray meets the layers.
 
 #pragma once
 
@@ -53,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "grid_corners.cuh"
+#include "thin_film.cuh"
 
 namespace rtt {
 
@@ -65,6 +77,7 @@ constexpr int kMoments = 7;
 // Offsets of the float columns in a flat row (core/table.py ROW_FIELDS).
 constexpr int kQ = 0, kNSign = 5, kRw = 6, kTw = 15, kRs = 18, kTs = 27;
 constexpr int kSb = 30, kVb = 34, kPh = 42, kAsph = 48, kDisp = 52;
+constexpr int kCoatCol = 104;  // the thin-film stack: (index, thickness) x 8
 
 // Columns of a kinds row (ops/fused_trace.py::kind_rows).
 constexpr int kPhCol = 0, kSbCol = 1, kVbCol = 2, kPlaneCol = 3;
@@ -203,17 +216,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // The kinds of one table row, read from its int32 kinds row.  dispm holds a
-// dispersive row's two DispModels (disp_model; 0: not dispersive).
+// dispersive row's two DispModels (disp_model; 0: not dispersive), coat a
+// coated or metal row's layer count and flags (thin_film.cuh; 0: none).
 struct RowKinds {
   int ph, sb, vb, slot, map;
   bool plane, sensor, invert, asph;
   int dispm;
+  int coat;
 };
 
 // The row's kinds; without kExt the surface column is 0 or 1 and asph is
 // false; without kDispersion the physics column holds the kind alone and
-// dispm is 0.
-template <bool kExt = false, bool kDispersion = kExt>
+// dispm is 0; without kCoat coat is 0 (and the dispersion bits are the
+// column's top bits), with it the bits above the dispersion's.
+template <bool kExt = false, bool kDispersion = kExt, bool kCoat = false>
 __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
   return {kDispersion ? kd[kPhCol] & ((1 << kDispShift) - 1) : kd[kPhCol],
           kd[kSbCol],
@@ -224,7 +240,10 @@ __device__ __forceinline__ RowKinds read_row_kinds(const int32_t* kd) {
           kd[kSensorCol] != 0,
           kd[kInvertCol] != 0,
           kExt && kd[kPlaneCol] == kSurfAsph,
-          kDispersion ? kd[kPhCol] >> kDispShift : 0};
+          kDispersion ? (kCoat ? (kd[kPhCol] >> kDispShift) & ((1 << (kCoatShift - kDispShift)) - 1)
+                               : kd[kPhCol] >> kDispShift)
+                      : 0,
+          kCoat ? kd[kPhCol] >> kCoatShift : 0};
 }
 
 // ---- Counter-based draws (kFresnel, K5 and K6): Philox4x32-10 (Salmon et
@@ -748,15 +767,66 @@ __device__ __forceinline__ float fresnel_R(float cos_i, float cos_t, float n1, f
   return 0.5f * (xs * xs + xp * xp);
 }
 
+// The stack of a coated Fresnel row (kCoat; core/static_dispatch.py::
+// coated_rt_sp) for a ray arriving from the medium of index n1 into n2 at
+// cos_i: the layers in reverse order when the ray meets them from the higher
+// index (n1 >= n2) and there are more than one; the ray's wavelength, or the
+// d line where it is unset.  `side` is the row's side-buffer row.
+__device__ __forceinline__ StackIn coated_stack(const float* r, int coat, const float* side,
+                                                float n1, float n2, float cos_i, float wl) {
+  StackIn a;
+  a.coat = r + kCoatCol;
+  a.k = side + kSideK;
+  a.n = coat & kCoatCountMask;
+  a.rev = a.n > 1 && !(n1 < n2);
+  a.absorbing = (coat & kCoatAbsorbing) != 0;
+  a.metal = false;
+  a.n_in = n1;
+  a.n_out = n2;
+  a.k_out = 0.0f;
+  a.cos_i = cos_i;
+  a.lam = wl > 0.0f ? wl : kDLineUm;
+  return a;
+}
+
+// The stack of a metal mirror row (kCoat; core/static_dispatch.py::
+// mirror_reflectances_sp): ph = (n_metal, k_metal, n_ambient), the layers
+// outermost first, never reversed; a dispersive metal's (n, k) at the ray's
+// wavelength on its side-buffer knots.
+__device__ __forceinline__ StackIn metal_stack(const float* r, int coat, const float* side,
+                                               float cos_i, float wl) {
+  StackIn a;
+  a.coat = r + kCoatCol;
+  a.k = side + kSideK;
+  a.n = coat & kCoatCountMask;
+  a.rev = false;
+  a.absorbing = (coat & kCoatAbsorbing) != 0;
+  a.metal = true;
+  a.n_in = r[kPh + 2];
+  a.cos_i = cos_i;
+  a.lam = wl > 0.0f ? wl : kDLineUm;
+  if (coat & kCoatMetalNk) {
+    metal_nk(side, a.lam, a.n_out, a.k_out);
+  } else {
+    a.n_out = r[kPh];
+    a.k_out = r[kPh + 1];
+  }
+  return a;
+}
+
 // The Fresnel kinds' physics (kFresnel; core/static_dispatch.py::
 // apply_physics_one): the refraction's geometry as SNELL takes it, then
 // FRESNEL reflects where u < R (R = 1 under TIR), FRESNEL_W refracts (TIR
 // reflects at full power) with imod = clip(1 - R, 0, 1), REFLECT_W reflects
-// with imod = clip(R, 0, 1) (1 under TIR).
-template <bool kDispersion>
+// with imod = clip(R, 0, 1) (1 under TIR).  With kCoat a coated row (`coat`,
+// its side-buffer row `side`) takes R (and T) from its stack; an absorbing
+// stack weighs FRESNEL's transmitted branch by clip(T / max(1 - R, 1e-12),
+// 0, 1) and FRESNEL_W by clip(T, 0, 1).
+template <bool kDispersion, bool kCoat = false>
 __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3 nw, float wl,
                                                 int dispm, float u, V3& nd, float& imod,
-                                                PhysBranch* br) {
+                                                PhysBranch* br, int coat = 0,
+                                                const float* side = nullptr) {
   const float dn = dot3(d, nw);
   const bool from_in = dn < 0.0f;
   const float eff_sign = from_in ? 1.0f : -1.0f;
@@ -768,7 +838,14 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
   const float sin2_t = mu * mu * (1.0f - cos_i * cos_i);
   const bool tir = sin2_t > 1.0f;
   const float cos_t = tir ? 0.0f : sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-  const float R = fresnel_R(cos_i, cos_t, n1, n2);
+  float R, T = 0.0f;
+  if (kCoat && (coat & kCoatCountMask) != 0) {
+    const StackRT rt = stack_rt_unpolarized(coated_stack(r, coat, side, n1, n2, cos_i, wl));
+    R = rt.R;
+    T = rt.T;
+  } else {
+    R = fresnel_R(cos_i, cos_t, n1, n2);
+  }
   const bool reflect = ph == REFLECT_W || tir || (ph == FRESNEL && u < R);
   if (reflect) {
     nd = fma3(d, -2.0f * dn, nw);
@@ -777,6 +854,10 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
     nd = fma3(V3{d.x * mu, d.y * mu, d.z * mu}, coef, nw);
   }
   imod = ph == FRESNEL || tir ? 1.0f : fminf(fmaxf(ph == FRESNEL_W ? 1.0f - R : R, 0.0f), 1.0f);
+  if (kCoat && (coat & kCoatAbsorbing) && !tir) {
+    if (ph == FRESNEL_W) imod = fminf(fmaxf(T, 0.0f), 1.0f);
+    if (ph == FRESNEL && !reflect) imod = fminf(fmaxf(T / fmaxf(1.0f - R, 1e-12f), 0.0f), 1.0f);
+  }
   if (br != nullptr) {
     br->from_in = from_in;
     br->dn_pos = dn > 0.0f;
@@ -792,12 +873,17 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
 // PHASE_GRID row (kPlates only) reads map kd_map of `pl`; a dispersive row
 // (kDispersion only: `dispm`) refracts at the indices of the ray's wavelength
 // pl.wl; the Fresnel kinds (kFresnel only) take fresnel_physics, FRESNEL
-// with the ray's uniform u.
-template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false>
+// with the ray's uniform u.  With kCoat (which has kFresnel) a coated row's
+// stack (`coat`, the row's kinds; `side`, its side-buffer row) gives the
+// Fresnel kinds' R, and a metal REFLECT row reflects with imod =
+// (Rs + Rp) / 2 of its metal under its stack.
+template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false,
+          bool kCoat = false>
 __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, int kd_map, V3 d,
                                               V3 nw, V3 hs, const Plates& pl, V3& nd, float& imod,
                                               PhysBranch* br = nullptr, int dispm = 0,
-                                              float u = 0.0f) {
+                                              float u = 0.0f, int coat = 0,
+                                              const float* side = nullptr) {
   nd = d;
   imod = 1.0f;
   if (kPlates && ph == PHASE_GRID) {
@@ -838,6 +924,10 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
     imod = 0.0f;
   } else if (ph == REFLECT) {
     nd = fma3(d, -2.0f * dot3(d, nw), nw);
+    if constexpr (kCoat) {
+      if (coat & kCoatMetal)
+        imod = stack_rt_unpolarized(metal_stack(r, coat, side, fabsf(dot3(d, nw)), pl.wl)).R;
+    }
   } else if (ph == SNELL) {
     const float dn = dot3(d, nw);
     const bool from_in = dn < 0.0f;
@@ -868,7 +958,7 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
     imod = mod;
     if (br != nullptr) br->pass = mod != 0.0f;
   } else if (kFresnel && (ph == FRESNEL || ph == FRESNEL_W || ph == REFLECT_W)) {
-    fresnel_physics<kDispersion>(r, ph, d, nw, pl.wl, dispm, u, nd, imod, br);
+    fresnel_physics<kDispersion, kCoat>(r, ph, d, nw, pl.wl, dispm, u, nd, imod, br, coat, side);
   }
 }
 
@@ -935,17 +1025,21 @@ struct SensorRec {
 // FRESNEL winner draws philox_uniform at `rd`'s counter and its own row.
 // The extended kinds' instantiation (kExt) scans the flat rows and their
 // kinds rows instead: its kinds need fields (the asphere's terms, all 8 of
-// a volume bound's) that the packed record does not hold.
+// a volume bound's) that the packed record does not hold.  With kCoat
+// (which has kFresnel) a coated or metal winner reads its side-buffer row
+// of `cside` ([K][kCoatSide]).
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
-          bool kFresnel = false>
+          bool kFresnel = false, bool kCoat = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
                                              RowKinds& kw, bool* degen = nullptr,
                                              PhysBranch* br = nullptr, SensorRec* rec = nullptr,
-                                             const RayDraw* rd = nullptr) {
+                                             const RayDraw* rd = nullptr,
+                                             const float* cside = nullptr) {
   static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
   static_assert(kExt || !kFresnel, "the Fresnel kinds read the kinds rows of the flat scan");
+  static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -969,10 +1063,17 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   }
   if (k_win < 0) return -1;
   const float* r = tab + k_win * kRowWidth;
-  kw = read_row_kinds<kExt, kDispersion>(knd + k_win * kKindWidth);
+  kw = read_row_kinds<kExt, kDispersion, kCoat>(knd + k_win * kKindWidth);
   V3 nd;
   float imod;
-  if constexpr (kFresnel) {
+  if constexpr (kCoat) {
+    const float u = kw.ph == FRESNEL
+                        ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
+                        : 0.0f;
+    apply_physics<kPlates, kExt, kDispersion, true, true>(
+        r, kw.ph, kw.sb, kw.map, d, world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs,
+        pl, nd, imod, br, kw.dispm, u, kw.coat, cside + k_win * kCoatSide);
+  } else if constexpr (kFresnel) {
     const float u = kw.ph == FRESNEL
                         ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
                         : 0.0f;

@@ -5,10 +5,11 @@
 // main-path kinds, pixelated phase plates, the extended kinds of the
 // mixed-surface and asphere scenes and dispersive media, and the
 // deterministic streams of _chain_pure (the optical path length, path and
-// hit recording), and the Fresnel kinds of uncoated interfaces with their
-// pre-drawn uniforms (_chain_pure's u_vals), with every other optional
-// stream off (field, scatter draws, fuzzy apodization).  Its plain PyTorch version is ops/fused_trace.py::
-// trace_sequential_fused_plain, and the wrapper that launches it is
+// hit recording), the Fresnel kinds with their pre-drawn uniforms
+// (_chain_pure's u_vals), and thin-film coatings and metal mirrors
+// (apply_physics_one's coated and metal branches), with every other
+// optional stream off (field, scatter draws, fuzzy apodization).  Its plain
+// PyTorch version is ops/fused_trace.py::trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
 // trace_sequential_pallas, ops/fused_trace.py::trace_sequential_v1): the same
@@ -92,6 +93,16 @@
 // chain omits the kill (ROADMAP Queue 3), and this one follows the eager
 // chain, so a ghost table (utils/ghosts.py) runs here too.
 //
+// Thin-film coatings and metal mirrors (coated FRESNEL, FRESNEL_W and
+// REFLECT_W rows, metal REFLECT rows; trace_seq_common.cuh, thin_film.cuh)
+// run in one more instantiation, kCoat, an overload with one more argument
+// (CoatSide, the [K][20] side buffer of the rows' static coating data,
+// copied into shared memory after the moment partials), built on the one
+// with the Fresnel kinds, so every other instantiation keeps its code.  Per
+// coated row and ray it evaluates the stack twice (s and p): per layer a
+// sin, a cos and ~30 flops (an absorbing layer adds a complex square root,
+// two complex divisions and two exp).
+//
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
 // rely on (finite BIG sentinels for misses, +1e-24 under every sqrt, the
@@ -123,19 +134,21 @@ __host__ __device__ constexpr int seq_fwd_min_blocks() {
 }
 
 // The dynamic shared memory of a launch: the flat table, its kinds (16-byte
-// aligned after it) and the per-warp moment partials.
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles) {
+// aligned after it), the per-warp moment partials and, with `coat` (the
+// instantiation with the coatings), the side buffer.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool coat = false) {
   return sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
-                          static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments);
+                          static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
+                          (coat ? static_cast<size_t>(n_rows) * kCoatSide : 0));
 }
 
 // A row's kinds from its 8 ints in shared memory, 16-byte aligned: two
 // 128-bit loads (as read_row_kinds reads them).
-template <bool kExt>
+template <bool kExt, bool kCoat = false>
 __device__ __forceinline__ RowKinds read_row_kinds4(const int4* kd) {
   const int4 a = kd[0], b = kd[1];
   const int k[kKindWidth] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  return read_row_kinds<kExt>(k);
+  return read_row_kinds<kExt, kExt, kCoat>(k);
 }
 
 // The sums over the warp's 32 lanes of each lane's 8 values v: a transpose
@@ -167,6 +180,12 @@ struct SeqDraws {
   int n_draws;
 };
 
+// The coated rows' side buffer (kCoat): [K][kCoatSide] floats, the layers'
+// extinction and a dispersive metal's knots (ops/fused_trace.py::coat_side).
+struct CoatSide {
+  const float* side;
+};
+
 // The kernel's body, shared by its instantiations (the kernels below).  With
 // kStreams (the instantiation with the streams: plate code, the extended
 // kinds and dispersion) it also accumulates the optical path length n_cur t
@@ -176,8 +195,10 @@ struct SeqDraws {
 // intensity after the row as its weight where the row is active (0 else).
 // With kFresnel (which has kStreams) it also runs the Fresnel kinds, a
 // FRESNEL row reading the ray's uniform from the next stream of `dr`, and a
-// REFLECT_W row kills the rays it does not hold.
-template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false>
+// REFLECT_W row kills the rays it does not hold.  With kCoat (which has
+// kFresnel) coated and metal rows weigh by their stacks, reading their rows
+// of `cs`, copied into shared memory.
+template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false>
 __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -189,14 +210,16 @@ __device__ __forceinline__ void seq_fwd(
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, long long n, StreamOut so,
-    SeqDraws dr = {nullptr, 0}) {
+    SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}) {
   static_assert(kStreams || !kFresnel, "the Fresnel kinds run with the streams");
+  static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
   const int4* knd4 = reinterpret_cast<const int4*>(knd);
   float* warp_mom = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
+  float* cside = warp_mom + kWarps * n_mom;  // kCoat: the side buffer
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -230,12 +253,15 @@ __device__ __forceinline__ void seq_fwd(
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < kWarps * n_mom; j += kThreads) warp_mom[j] = 0.0f;
+  if constexpr (kCoat) {
+    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+  }
   __syncthreads();
 
   int f = 0;  // kFresnel: the next FRESNEL row's stream
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
-    const RowKinds kd = read_row_kinds4<kExt>(knd4 + 2 * k);
+    const RowKinds kd = read_row_kinds4<kExt, kCoat>(knd4 + 2 * k);
     const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
     const V3 nw = world_normal<kExt>(r, kd.plane, h.hs, nullptr, kd.asph);
     V3 nd;
@@ -247,8 +273,9 @@ __device__ __forceinline__ void seq_fwd(
         if (live && f < dr.n_draws) u = dr.u[static_cast<long long>(f) * n + i];
         ++f;
       }
-      apply_physics<kPlates, kExt, kExt, true>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod,
-                                               &br, kd.dispm, u);
+      apply_physics<kPlates, kExt, kExt, true, kCoat>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd,
+                                                      imod, &br, kd.dispm, u, kd.coat,
+                                                      cside + k * kCoatSide);
     } else if constexpr (kStreams)
       apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br,
                                    kd.dispm);
@@ -382,18 +409,30 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr) {
   seq_fwd<kPlates, kExt, true, true>(RTT_SEQ_FWD_ARGS, so, dr);
 }
 
-// The types of the three kernels.
+// The kernel with the streams, the Fresnel kinds and the coatings.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs) {
+  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
+  seq_fwd<kPlates, kExt, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs);
+}
+
+// The types of the four kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
+using FwdCoatKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
 // The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false>
+template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false>
 const void* kernel_fn() {
-  if constexpr (kFresnel)
+  if constexpr (kCoat)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdCoatKernel>(trace_seq_fwd_kernel<true, true>));
+  else if constexpr (kFresnel)
     return reinterpret_cast<const void*>(
         static_cast<FwdFresnelKernel>(trace_seq_fwd_kernel<true, true>));
   else if constexpr (kStreams)
@@ -405,10 +444,11 @@ const void* kernel_fn() {
 }
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false>
+template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
+          bool kCoat = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -430,8 +470,12 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
-// Fresnel kinds), its shared memory allowed.
+// Fresnel kinds, 6 the one with the coatings), its shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 6) {
+    *e = prepare<true, true, true, true, true>(smem);
+    return kernel_fn<true, true, true, true, true>();
+  }
   if (code == 5) {
     *e = prepare<true, true, true, true>(smem);
     return kernel_fn<true, true, true, true>();
@@ -506,7 +550,10 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
 // instantiation with the Fresnel kinds, which reads `uniforms`, the FRESNEL
 // rows' n_draws * n floats ([F][n], one stream per FRESNEL row in row order;
 // null with n_draws 0 when no row draws); without it both are ignored.
-// Returns a cudaError_t.
+// `coat_side`, when not null, selects the instantiation with the coatings
+// (which also takes the Fresnel kinds and reads `uniforms` so): the
+// n_rows * 20 floats of ops/fused_trace.py::coat_side.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_seq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -514,8 +561,10 @@ extern "C" int rtt_trace_seq_fwd_streams(
     float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, const float* uniforms, int n_draws, int fresnel, long long n, void* stream) {
+    float* hit_w, const float* uniforms, int n_draws, int fresnel, const float* coat_side,
+    long long n, void* stream) {
   if (n <= 0) return 0;
+  if (coat_side != nullptr) fresnel = 1;
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
@@ -524,12 +573,14 @@ extern "C" int rtt_trace_seq_fwd_streams(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, coat_side != nullptr);
   const StreamOut so = {opl, n_final, paths, hits, hit_w, nullptr};
-  // one launch for both instantiations: the Fresnel kernel's overload takes
-  // the draws as its last argument
+  // one launch for the three instantiations: the Fresnel kernel's overload
+  // takes the draws as its last argument, the coated one the draws and the
+  // side buffer
   auto go = [&](auto... draws) {
-    const cudaError_t e = prepare<true, true, true, sizeof...(draws) != 0>(smem);
+    const cudaError_t e =
+        prepare<true, true, true, sizeof...(draws) != 0, sizeof...(draws) == 2>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_seq_fwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -538,6 +589,7 @@ extern "C" int rtt_trace_seq_fwd_streams(
             maps, map_desc, wavelength, n, so, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
 
@@ -547,11 +599,12 @@ extern "C" int rtt_trace_seq_fwd_streams(
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without plate
 // code, 1 with it, 2 (or 3, as K2's code for a table with a dispersive row)
 // with it and the extended kinds, 4 the instantiation with the streams, 5
-// the one with the Fresnel kinds.  Returns a cudaError_t.
+// the one with the Fresnel kinds, 6 the one with the coatings.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int* blocks) {
   (void)n_bounces;
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code == 6);
   cudaError_t e;
   const void* fn = kernel_of(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);

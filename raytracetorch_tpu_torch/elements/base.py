@@ -59,7 +59,11 @@ class Element:
              'trans': torch.tensor(self._trans_init, dtype=dtype,
                                    device=device)}
         for k, v in self.extra_params().items():
-            p[k] = torch.tensor(v, dtype=dtype, device=device)
+            # a dict-valued parameter (a per-face coat_d {str(face): [L]})
+            # keeps its structure; its leaves become tensors
+            p[k] = ({kk: torch.tensor(vv, dtype=dtype, device=device)
+                     for kk, vv in v.items()} if isinstance(v, dict)
+                    else torch.tensor(v, dtype=dtype, device=device))
         return p
 
     def trainable(self):

@@ -23,11 +23,11 @@ import math
 
 import torch
 
-from ..constants import DispModel, PhysKind, SBKind, VBKind
-from ..core.static_dispatch import TODO_FEATURES
+from ..constants import MAX_COAT_LAYERS, DispModel, PhysKind, SBKind, VBKind
 from ..core.table import SurfaceRec
 from ..geom.surfaces import q_cylinder, q_plane, q_quadric, q_quadric_zy, sag_z
 from ..geom.transform import mm, rodrigues
+from ..utils.coatings import parse_coating_entries
 from .base import Element, compose_world, frame_params, zvec
 from .ideal import paraxial_refract_mat
 
@@ -64,12 +64,6 @@ def _disp_rec(dc, i_norm, i_far):
     m_out, c_out = dc[i_far]
     return (tuple(pad6(c_in) + pad6(c_out)),
             (int(m_in), int(m_out)), bool(m_in or m_out))
-
-
-def _refuse_unported(coating=None):
-    """Raise for the lens options the port does not trace yet."""
-    if coating:
-        raise NotImplementedError(f'coatings are {TODO_FEATURES}')
 
 
 def _fresnel_option(fresnel):
@@ -132,6 +126,61 @@ class _SphericLens(Element):
             return PhysKind.FRESNEL_W
         return PhysKind.FRESNEL if self.fresnel else PhysKind.SNELL
 
+    def _set_coating(self, coating, coating_grad):
+        """Thin-film stacks on the optical faces (JAX ``_set_coating``).
+
+        - a list ``[(index, thickness_um), ...]`` (outermost, air side
+          first) coats both external faces, which share one trainable
+          thickness vector ``coat_d``;
+        - a dict ``{face: [(n, d_um), ...]}`` coats each named face
+          (cemented interfaces included, such as a doublet's face 1), each
+          with its own thickness vector ``coat_d[str(face)]``.
+
+        Layers may absorb: ``(n, k, d_um)`` or a named metal film ``('Ag',
+        d_um)`` (utils/coatings.py::parse_coating_entries).  The indices are
+        static; the thicknesses are the trainable ``coat_d``.  A stack acts
+        on the intensity only through the Fresnel kinds (``fresnel=True``
+        or ``'weighted'``); under SNELL it is carried and ignored."""
+        if not coating:
+            return
+        if isinstance(coating, dict):
+            faces = {int(f): list(st) for f, st in coating.items()}
+            for f in faces:
+                if not 0 <= f < self.n_optical:
+                    raise ValueError(
+                        f"coating face index {f} out of range "
+                        f"(element has {self.n_optical} optical faces)")
+            self._coat_per_face = True
+        else:
+            faces = {f: list(coating) for f in {0, self.n_optical - 1}}
+            self._coat_per_face = False
+        for st in faces.values():
+            if len(st) > MAX_COAT_LAYERS:
+                raise ValueError(
+                    f"at most {MAX_COAT_LAYERS} coating layers per surface")
+        parsed = {f: parse_coating_entries(st) for f, st in faces.items()}
+        self.coating_n = {f: ns for f, (ns, _, _) in parsed.items()}
+        # static per-layer extinction (absorbing films; None: dielectric)
+        self.coating_k = {f: (ks if any(k != 0.0 for k in ks) else None)
+                          for f, (_, ks, _) in parsed.items()}
+        if self._coat_per_face:
+            self._init['coat_d'] = {str(f): ds
+                                    for f, (_, _, ds) in parsed.items()}
+        else:
+            self._init['coat_d'] = parsed[0][2]
+        self._grads['coat_d'] = coating_grad
+
+    def _face_coat(self, p, i):
+        """(coat interleave list, n_coat, coat_k) of optical face ``i``."""
+        coat_ns = getattr(self, 'coating_n', None)
+        if not coat_ns or i not in coat_ns:
+            return [], 0, None
+        ds = p['coat_d'][str(i)] if self._coat_per_face else p['coat_d']
+        coat = []
+        for li, nl in enumerate(coat_ns[i]):
+            coat += [nl, ds[li]]
+        return coat, len(coat_ns[i]), self.coating_k[i]
+
     def _edge_phys(self, p):
         iors = self._ior_chain(p)
         return PhysKind.BLOCK, (iors[0], iors[1])
@@ -180,12 +229,14 @@ class _SphericLens(Element):
             q, sign = q_quadric(c, 0.0)
             Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(zv))
             disp, dm, isd = _disp_rec(dc, i + 1, i)
+            coat, n_coat, coat_k = self._face_coat(p, i)
             recs.append(SurfaceRec(
                 q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
                 sb_kind=SBKind.HEMI, sb=(c,),
                 vb_kind=VBKind.APER_R2, vb=(r * r,),
                 ph_kind=kind, ph=(iors[i + 1], iors[i]),
-                disp=disp, disp_model=dm, is_dispersive=isd))
+                disp=disp, disp_model=dm, is_dispersive=isd,
+                coat=coat, n_coat=n_coat, coat_k=coat_k))
         edge_kind, edge_ph = self._edge_phys(p)
         for i in range(self.n_optical - 1):
             q, sign = q_cylinder(r)
@@ -226,7 +277,8 @@ class SingletLens(_SphericLens):
     ``sellmeier`` (``**glass(name, model)``).  ``fresnel=True`` makes the
     faces' physics the Monte-Carlo FRESNEL branch draw (a trace then needs a
     generator), ``fresnel='weighted'`` the deterministic FRESNEL_W.
-    Coatings are ROADMAP Queue 1 item 12 and raise NotImplementedError."""
+    ``coating`` puts thin-film stacks on its faces (``_set_coating``; their
+    thicknesses ``coat_d`` train with ``coating_grad``)."""
 
     _curv_names = ('c1', 'c2')
     _thick_names = ('t',)
@@ -238,7 +290,6 @@ class SingletLens(_SphericLens):
                  coating_grad=False, fresnel=False, inked=False,
                  name='singlet', **kw):
         super().__init__(name=name, **kw)
-        _refuse_unported(coating)
         self.fresnel = _fresnel_option(fresnel)
         self.abbe_vd = abbe_vd
         self.sellmeier = tuple(sellmeier) if sellmeier is not None else None
@@ -250,6 +301,7 @@ class SingletLens(_SphericLens):
         self._grads = dict(c1=c1_grad, c2=c2_grad, t=t_grad, radius=d_grad,
                            ior_glass=ior_glass_grad,
                            ior_media=ior_media_grad)
+        self._set_coating(coating, coating_grad)
         self.inked = inked
 
     def extra_params(self):
@@ -320,7 +372,6 @@ class DoubletLens(_SphericLens):
                  sellmeier1=None, sellmeier2=None, coating=None,
                  coating_grad=False, fresnel=False, name='doublet', **kw):
         super().__init__(name=name, **kw)
-        _refuse_unported(coating)
         self.fresnel = _fresnel_option(fresnel)
         self.abbe_vd1, self.abbe_vd2 = abbe_vd1, abbe_vd2
         self.sellmeier1 = (tuple(sellmeier1) if sellmeier1 is not None
@@ -341,6 +392,7 @@ class DoubletLens(_SphericLens):
                            ior_glass1=ior_glass1_grad,
                            ior_glass2=ior_glass2_grad,
                            ior_media=ior_media_grad)
+        self._set_coating(coating, coating_grad)
 
     def extra_params(self):
         return dict(self._init)
@@ -393,7 +445,6 @@ class TripletLens(_SphericLens):
                  sellmeier3=None, coating=None, coating_grad=False,
                  fresnel=False, name='triplet', **kw):
         super().__init__(name=name, **kw)
-        _refuse_unported(coating)
         self.fresnel = _fresnel_option(fresnel)
         sells = [sellmeier1, sellmeier2, sellmeier3]
         if any(sl is not None for sl in sells):
@@ -415,6 +466,7 @@ class TripletLens(_SphericLens):
                            ior_glass2=ior_glass2_grad,
                            ior_glass3=ior_glass3_grad,
                            ior_media=ior_media_grad)
+        self._set_coating(coating, coating_grad)
 
     def extra_params(self):
         return dict(self._init)
@@ -444,13 +496,20 @@ class CylSingletLens(SingletLens):
     """Cylindrical singlet: two faces curved in y only (QUADRIC_ZY, HEMI
     bound, rectangular volume bound) and four side planes bounded between
     the faces' y-dependent sags (CYL_EDGE).  ``height`` and ``width`` are the
-    full extents in y and x.  ``fresnel`` as for ``SingletLens``."""
+    full extents in y and x.  ``fresnel`` as for ``SingletLens``, and
+    ``coating=`` / ``coating_grad=`` as keywords: the JAX class takes no
+    ``coating``; a coated face here carries the columns a coated
+    ``SingletLens`` face carries."""
 
     def __init__(self, c1, c2, height, width, t, ior_glass, ior_media=1.0,
                  c1_grad=False, c2_grad=False, t_grad=False,
                  height_grad=False, width_grad=False, ior_glass_grad=False,
                  ior_media_grad=False, fresnel=False, inked=False,
                  name='cyl_singlet', **kw):
+        # coating= and coating_grad= ride the keywords: the JAX class has
+        # neither, and the positional signature stays the JAX one
+        coating = kw.pop('coating', None)
+        coating_grad = kw.pop('coating_grad', False)
         Element.__init__(self, name=name, **kw)
         self.fresnel = _fresnel_option(fresnel)
         if abs(0.5 * c1) > 1.0 / height or abs(0.5 * c2) > 1.0 / height:
@@ -465,6 +524,7 @@ class CylSingletLens(SingletLens):
                            half_w=width_grad, half_h=height_grad,
                            ior_glass=ior_glass_grad,
                            ior_media=ior_media_grad)
+        self._set_coating(coating, coating_grad)
         self.inked = inked
 
     @property
@@ -481,11 +541,13 @@ class CylSingletLens(SingletLens):
         for i, (c, zv) in enumerate(zip([p['c1'], p['c2']], zs)):
             q, sign = q_quadric_zy(c, 0.0)
             Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(zv))
+            coat, n_coat, coat_k = self._face_coat(p, i)
             recs.append(SurfaceRec(
                 q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
                 sb_kind=SBKind.HEMI, sb=(c,),
                 vb_kind=VBKind.RECT, vb=rect,
-                ph_kind=self._refract_kind(), ph=(iors[i + 1], iors[i])))
+                ph_kind=self._refract_kind(), ph=(iors[i + 1], iors[i]),
+                coat=coat, n_coat=n_coat, coat_k=coat_k))
         edge_kind, edge_ph = self._edge_phys(p)
         edge_vb = (p['c1'], zs[0], p['c2'], zs[1]) + rect
         zero = torch.zeros_like(hw)
@@ -528,8 +590,8 @@ class AsphericLens(SingletLens):
     zeros) per face, refined from the base conic's roots by 4 Halley steps
     (geom/surfaces.py::asph_refine) and differentiable in every one of them.
     Its glass disperses, ``fresnel`` selects the faces' physics and
-    coatings raise, as for ``SingletLens`` (whose keyword arguments it
-    passes on)."""
+    ``coating`` coats them, as for ``SingletLens`` (whose keyword arguments
+    it passes on)."""
 
     def __init__(self, c1, c2, d, t, ior_glass, ior_media=1.0,
                  k1=0.0, k2=0.0, a1=(), a2=(),
@@ -570,12 +632,14 @@ class AsphericLens(SingletLens):
             q, sign = q_quadric(p[cn], p[kn])
             Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(zv))
             disp, dm, isd = _disp_rec(dc, i + 1, i)
+            coat, n_coat, coat_k = self._face_coat(p, i)
             recs.append(SurfaceRec(
                 q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
                 sb_kind=SBKind.HEMI, sb=(p[cn],),
                 vb_kind=VBKind.APER_R2, vb=(r * r,),
                 ph_kind=self._refract_kind(), ph=(iors[i + 1], iors[i]),
                 disp=disp, disp_model=dm, is_dispersive=isd,
+                coat=coat, n_coat=n_coat, coat_k=coat_k,
                 asph=tuple(p[an][j] for j in range(4)), is_asphere=True))
         edge_kind, edge_ph = self._edge_phys(p)
         q, sign = q_cylinder(r)

@@ -47,6 +47,9 @@ The kernels' notes are in their sources.  In this module:
   alike, so K6 replays K5's branches by their counters.  As the
   reference's ``_fused_nonseq_bwd`` does, a recording run's backward
   raises on a drawing scene.
+- Coatings and metal mirrors run K5's and K6's instantiation with them
+  (``fused_trace.coating_kinds``, the side buffer ``fused_trace.coat_side``;
+  ``fused_trace.COAT_LAUNCHES``), as in ops/fused_trace.py.
 """
 
 from __future__ import annotations
@@ -61,8 +64,8 @@ from ..rays.draws import NonseqDraws, needs_draws, nonseq_draws
 from . import fused_trace
 from .fused_trace import (COMPS, NO_STREAMS, StreamFlags, THREADS,
                           backward_result, check_cotangents, check_inputs,
-                          check_streams, dispersive, dispersive_kinds,
-                          ext_kinds, ext_maps, flat_inputs,
+                          check_streams, coat_ptr, coat_side, dispersive,
+                          dispersive_kinds, ext_kinds, ext_maps, flat_inputs,
                           fresnel_kinds, fused_forward,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
@@ -122,7 +125,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
                                         n_bounces, maps, *flags, key=key)
     return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
                                  ext_kinds(static_meta), *flags,
-                                 fresnel=fresnel_kinds(static_meta), key=key)
+                                 fresnel=fresnel_kinds(static_meta), key=key,
+                                 coat=coat_side(static_meta, flat.device))
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -215,7 +219,7 @@ def _nonseq_backward(ctx, grads, need):
             disp=dispersive(ctx.meta), need_wavelength=need_wl,
             g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
             opl=ctx.flags.track_opl, fresnel=fresnel_kinds(ctx.meta),
-            key=ctx.draws)
+            key=ctx.draws, coat=coat_side(ctx.meta, flat.device))
     else:
         res = trace_nonseq_bwd_plain(
             flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
@@ -291,7 +295,7 @@ def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, maps=None, ext=False, track_opl=False,
                           record_paths=False, record_hits=False,
-                          fresnel=False, key=None):
+                          fresnel=False, key=None, coat=None):
     """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -303,13 +307,17 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     Fresnel kind, ``fused_trace.fresnel_kinds``) the one with the Fresnel
     kinds, which also takes the streams.  ``key`` is the FRESNEL draws' two
     Philox seed words, None when no row draws; its caller derives it from
-    the table's static metadata (``draw_key``)."""
+    the table's static metadata (``draw_key``).  ``coat``, the ``[K, 20]``
+    side buffer of ``fused_trace.coat_side`` (None: no row's coating acts),
+    runs the instantiation with the coatings, which also takes the Fresnel
+    kinds and the streams."""
     global NONSEQ_LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
     _check_bounces(n_bounces)
-    key_args = _key_args(fresnel, key)
+    fresnel = fresnel or coat is not None
+    key_args = _key_args(fresnel, key, coat, k, device)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -337,7 +345,9 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        if fresnel:
+        if coat is not None:
+            fused_trace.COAT_LAUNCHES += 1
+        elif fresnel:
             fused_trace.FRESNEL_LAUNCHES += 1
         elif flags.any:
             fused_trace.STREAM_LAUNCHES += 1
@@ -355,7 +365,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           need_rays=True, g_grid=None, replay=False,
                           maps=None, need_maps=True, ext=False, disp=None,
                           need_wavelength=False, g_opl=None, g_nfinal=None,
-                          opl=False, fresnel=False, key=None):
+                          opl=False, fresnel=False, key=None, coat=None):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
@@ -375,12 +385,15 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     instantiation with the optical path length, whatever ``ext``), and
     ``fresnel`` and ``key`` as for ``trace_nonseq_fwd_cuda``
     (the instantiation with the Fresnel kinds, which replays K5's draws by
-    their counters and also takes the path length)."""
+    their counters and also takes the path length), and ``coat`` too (the
+    one with the coatings, whose table cotangent adds the layer
+    thicknesses', ``fused_trace.COAT_GRAD_COLS``)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     _check_bounces(n_bounces)
-    key_args = _key_args(fresnel, key)
+    fresnel = fresnel or coat is not None
+    key_args = _key_args(fresnel, key, coat, k, device)
     ext = ext or need_wavelength or opl or fresnel
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
@@ -388,7 +401,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
     g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
-    cols = grad_cols(plates, ext, disp)
+    cols = grad_cols(plates, ext, disp, coat is not None)
 
     def streams(wanted):
         return ([torch.empty(n, dtype=torch.float32, device=device)
@@ -422,7 +435,9 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        if fresnel:
+        if coat is not None:
+            fused_trace.COAT_LAUNCHES += 1
+        elif fresnel:
             fused_trace.FRESNEL_LAUNCHES += 1
         elif opl:
             fused_trace.STREAM_LAUNCHES += 1
@@ -435,15 +450,18 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     return res
 
 
-def _key_args(fresnel, key):
-    """The Philox key and Fresnel C arguments of K5's and K6's
+def _key_args(fresnel, key, coat=None, k=0, device=None):
+    """The Philox key, Fresnel and coating C arguments of K5's and K6's
     instantiation with the streams: the key's two words (0 when no row
-    draws) and whether to run the instantiation with the Fresnel kinds."""
+    draws), whether to run the instantiation with the Fresnel kinds, and
+    the ``[K, 20]`` side buffer ``coat`` (null: not the one with the
+    coatings)."""
     if key is not None and not fresnel:
         raise ValueError('a Philox key is read only by the instantiation '
                          'with the Fresnel kinds')
     k0, k1 = key if key is not None else (0, 0)
-    return int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF, int(fresnel)
+    return (int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF, int(fresnel),
+            coat_ptr(coat, k, device))
 
 
 def _check_bounces(n_bounces):

@@ -85,6 +85,14 @@ module:
   derivative (the choice has none), and a recording run's eager recompute
   reuses them.  A scene with a drawing row runs ``FusedTraceStreams`` even
   without streams.
+- Thin-film coatings and metal mirrors (a stack on a Fresnel row, a metal
+  REFLECT row; ``coating_kinds``) run in one more instantiation of each of
+  K1, K2, K5 and K6, built on the one with the Fresnel kinds; their
+  launches count in ``COAT_LAUNCHES``, not in ``FRESNEL_LAUNCHES``.  A
+  row's layer count and flags ride its kinds row's physics column from bit
+  ``COAT_SHIFT`` on; the layers' extinction and a dispersive metal's knots
+  go in a ``[K, 20]`` side buffer (``coat_side``); K2 and K6 add the layer
+  thicknesses' cotangents (``COAT_GRAD_COLS``).
 - ``build`` compiles the six libraries (K1, K2, K3 in ops/grid.py, K4 in
   ops/phase_grid.py, K5 and K6 in ops/fused_nonseq.py), one nvcc each,
   started together.
@@ -101,7 +109,7 @@ from torch.autograd.function import once_differentiable
 
 from ..constants import PhysKind, SBKind, VBKind
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
-from ..core.static_dispatch import FRESNEL_KINDS, unsupported
+from ..core.static_dispatch import FRESNEL_KINDS, coat_acts, unsupported
 from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
 from ..core.trace import Streams, surface_chain
 from ..rays.draws import draws_per_ray, sequential_uniforms
@@ -123,6 +131,9 @@ RECORD_RECOMPUTES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with the Fresnel kinds
 FRESNEL_LAUNCHES = 0
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with the coatings
+COAT_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -133,6 +144,13 @@ SURF_QUADRIC, SURF_PLANE, SURF_ASPHERE = 0, 1, 2
 # in bits DISP_SHIFT and DISP_SHIFT + 1, the out side's in the two above
 # (only the instantiations that take dispersion read them).
 DISP_SHIFT = 8
+# A coated or metal row's static coating data rides the physics column
+# above the dispersion bits: its layer count from bit COAT_SHIFT (4 bits),
+# then whether it is a metal mirror, whose metal disperses (its knots in the
+# side buffer), and whose stack absorbs (csrc/thin_film.cuh).
+COAT_SHIFT = 12
+COAT_METAL, COAT_METAL_NK, COAT_ABSORBING = 1 << 4, 1 << 5, 1 << 6
+COAT_SIDE = 20        # side-buffer floats a row: extinction x 8, knots 6 + 6
 MAX_ROWS = 64
 MAX_SLOTS = 8
 MAX_BUNDLES = 8
@@ -156,6 +174,11 @@ EXT_GRAD_COLS = PLATE_GRAD_COLS + tuple(ROW_OFFSETS['asph'] + j
 # Cauchy B or the Sellmeier B1..C3 of each side (reduced by K2 and K6 after
 # the other columns, and only for dispersive rows).
 DISP_GRAD_COLS = tuple(ROW_OFFSETS['disp'] + j for j in range(12))
+# The instantiation with the coatings adds the 8 layer thicknesses (the
+# coat columns' odd entries; the layers' indices are static), after the
+# dispersion columns of a dispersive table.  A metal row's own index ph[0:2]
+# and ambient ph[2] are already among the columns.
+COAT_GRAD_COLS = tuple(ROW_OFFSETS['coat'] + 2 * j + 1 for j in range(8))
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
@@ -172,12 +195,14 @@ _STREAMS = [_P] * 5
 _OPL = [_P, _P]
 # the draws of the instantiations with the Fresnel kinds, then whether to
 # run that instantiation: K1's and K2's [F, N] uniform streams and their
-# count F; K5's and K6's two Philox seed words
-_UNIFORMS = [_P, _I, _I]
-_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I]
+# count F; K5's and K6's two Philox seed words; then the coated rows' side
+# buffer (null: not the instantiation with the coatings)
+_UNIFORMS = [_P, _I, _I, _P]
+_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
-# or the path length, 5 the Fresnel kinds), out: resident blocks per SM
+# or the path length, 5 the Fresnel kinds, 6 the coatings), out: resident
+# blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
@@ -245,8 +270,41 @@ def ext_kinds(static_meta):
 
 def fresnel_kinds(static_meta):
     """Whether a row has a Fresnel kind (FRESNEL, FRESNEL_W, REFLECT_W),
-    which only the kernels' instantiation with the Fresnel kinds takes."""
+    which only the kernels' instantiations with the Fresnel kinds take."""
     return any(m.ph in FRESNEL_KINDS for m in static_meta)
+
+
+def coating_kinds(static_meta):
+    """Whether a row's thin-film stack or metal substrate acts
+    (``coat_acts``), which only the kernels' instantiation with the
+    coatings takes."""
+    return any(coat_acts(m) for m in static_meta)
+
+
+def coat_bits(m):
+    """A row's coating data in its kinds row's physics column (shifted by
+    COAT_SHIFT): 0 unless its stack or metal acts."""
+    if not coat_acts(m):
+        return 0
+    return ((m.n_coat | (COAT_METAL if m.metal else 0)
+             | (COAT_METAL_NK if m.metal_nk is not None else 0)
+             | (COAT_ABSORBING if m.coat_k is not None else 0))
+            << COAT_SHIFT)
+
+
+def coat_side(static_meta, device):
+    """The ``[K, COAT_SIDE]`` float32 side buffer of the instantiation with
+    the coatings: per row its layers' extinction coefficients (8, zeros for
+    a dielectric stack) and a dispersive metal's 6 n and 6 k knots on
+    METAL_GRID_UM (zeros otherwise); None when no row's coating acts."""
+    if not coating_kinds(static_meta):
+        return None
+    rows = []
+    for m in static_meta:
+        ks = list(m.coat_k or ())
+        nk = m.metal_nk or ((0.0,) * 6, (0.0,) * 6)
+        rows.append(ks + [0.0] * (8 - len(ks)) + list(nk[0]) + list(nk[1]))
+    return torch.tensor(rows, dtype=torch.float32, device=device)
 
 
 def dispersive(static_meta):
@@ -265,8 +323,9 @@ def kind_rows(static_meta, cfg: SensorConfig):
     """[K, KIND_WIDTH] int rows the kernels read; raises NotImplementedError
     for anything the kernels do not take.  The surface column holds
     SURF_QUADRIC, SURF_PLANE or SURF_ASPHERE; a dispersive row's physics
-    column adds its two DispModels from bit DISP_SHIFT on; the last column
-    is a PHASE_GRID row's map index (0 for every other row)."""
+    column adds its two DispModels from bit DISP_SHIFT on and a coated or
+    metal row's coating data from bit COAT_SHIFT on (``coat_bits``); the
+    last column is a PHASE_GRID row's map index (0 for every other row)."""
     n_slots = _check_limits(len(static_meta), cfg)
     maps = {k: j for j, k in enumerate(plate_rows(static_meta))}
     rows = []
@@ -279,7 +338,7 @@ def kind_rows(static_meta, cfg: SensorConfig):
                              f'0..{n_slots - 1}')
         surf = (SURF_ASPHERE if m.asph
                 else SURF_PLANE if m.plane else SURF_QUADRIC)
-        ph = m.ph
+        ph = m.ph | coat_bits(m)
         if m.disp:
             ph |= (m.dispm[0] << DISP_SHIFT) | (m.dispm[1] << DISP_SHIFT + 2)
         rows.append([ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
@@ -292,16 +351,18 @@ def plate_maps(static_meta, grids):
     ``grids`` ({row: map}); raises if a plate row has none.
 
     None when no row has a plate's kinds (PHASE_GRID physics, the RECT
-    bound) or the extended kinds (``ext_kinds``): the kernels then run their
-    instantiation without plate code.  Such a scene without a plate gives
-    ``()``."""
+    bound), the extended kinds (``ext_kinds``) or a coating that acts
+    (``coating_kinds``: a stack reads the rays' wavelength): the kernels
+    then run their instantiation without plate code.  Such a scene without
+    a plate gives ``()``."""
     grids = grids or {}
     missing = [k for k in plate_rows(static_meta) if k not in grids]
     if missing:
         raise ValueError(f'PHASE_GRID rows {missing} have no phase map: '
                          f'pass grids={{row: map}} (Scene.side_grids)')
     if not (any(m.ph == PhysKind.PHASE_GRID or m.sb == SBKind.RECT
-                for m in static_meta) or ext_kinds(static_meta)):
+                for m in static_meta) or ext_kinds(static_meta)
+            or coating_kinds(static_meta)):
         return None
     return tuple(grids[k] for k in plate_rows(static_meta))
 
@@ -375,7 +436,8 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     Its contract is the TPU kernel's: no irradiance grid, no stochastic
     (FRESNEL), GRIN or phase-grid rows (``unsupported`` refuses GRIN), at
     most 8 sensor slots; FRESNEL_W and REFLECT_W take K1's instantiation
-    with the Fresnel kinds.  Its function is
+    with the Fresnel kinds, coated and metal rows the one with the
+    coatings.  Its function is
     K1's with the grid and the maps off, so on CUDA tensors it launches
     K1's kernel so (counted in ``V1_LAUNCHES``; a RECT bound takes its
     instantiation with plate code, with no map, and the extended kinds
@@ -401,7 +463,8 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
         out, sensors, launched = _seq_fwd_launch(
             flat, kinds_t, rays, cfg, plate_maps(static_meta, None),
             'trace_sequential_v1', ext_kinds(static_meta),
-            fresnel=fresnel_kinds(static_meta))
+            fresnel=fresnel_kinds(static_meta),
+            coat=coat_side(static_meta, flat.device))
         V1_LAUNCHES += launched
     return out, sensors, {}
 
@@ -473,7 +536,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
     return trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
                               ext_kinds(static_meta), *flags,
                               fresnel=fresnel_kinds(static_meta),
-                              uniforms=uniforms)
+                              uniforms=uniforms,
+                              coat=coat_side(static_meta, flat.device))
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -618,7 +682,8 @@ def _fused_backward(ctx, grads, need):
                                  g_nfinal=g_aux.get('n_final'),
                                  opl=ctx.flags.track_opl,
                                  fresnel=fresnel_kinds(ctx.meta),
-                                 uniforms=ctx.draws)
+                                 uniforms=ctx.draws,
+                                 coat=coat_side(ctx.meta, flat.device))
     else:
         res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                   g_moments, g_grid=g_grid, maps=maps,
@@ -784,7 +849,8 @@ def kernel(symbol):
 
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
-                  ext=False, disp=False, streams=False, fresnel=False):
+                  ext=False, disp=False, streams=False, fresnel=False,
+                  coat=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
@@ -794,12 +860,13 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     ``disp`` too, on a table with a dispersive row; with ``streams``, the
     instantiation with the streams, on a table with a dispersive row when
     ``disp``; with ``fresnel``, the instantiation with the Fresnel kinds,
-    likewise) runs, at that launch's dynamic shared memory
+    likewise; with ``coat``, the one with the coatings, likewise) runs, at
+    that launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (5 if fresnel else 4 if streams else (3 if disp else 2) if ext
-            else int(bool(plates)))
+    code = (6 if coat else 5 if fresnel else 4 if streams
+            else (3 if disp else 2) if ext else int(bool(plates)))
     rc = kernel(f'rtt_{library}_occupancy')(
         n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces), code,
         ctypes.byref(out))
@@ -918,18 +985,21 @@ def ext_maps(maps, ext):
     return () if ext and maps is None else maps
 
 
-def grad_cols(plates, ext, disp=False):
+def grad_cols(plates, ext, disp=False, coat=False):
     """The table columns whose cotangents K2 and K6 reduce (``disp``: the
-    table has a dispersive row, which only the extended kinds take)."""
+    table has a dispersive row, which only the extended kinds take;
+    ``coat``: the instantiation with the coatings, which adds the layer
+    thicknesses after them)."""
     if ext:
-        return EXT_GRAD_COLS + (DISP_GRAD_COLS if disp else ())
+        return (EXT_GRAD_COLS + (DISP_GRAD_COLS if disp else ())
+                + (COAT_GRAD_COLS if coat else ()))
     return PLATE_GRAD_COLS if plates is not None else GRAD_COLS
 
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                        maps=None, ext=False, track_opl=False,
                        record_paths=False, record_hits=False, fresnel=False,
-                       uniforms=None):
+                       uniforms=None, coat=None):
     """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -942,27 +1012,43 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     streams.  ``uniforms`` holds the table's FRESNEL rows' [F, N] draws, one
     stream per such row in row order (None: no row draws); its caller
     derives them from the table's static metadata
-    (rays/draws.py::sequential_uniforms)."""
+    (rays/draws.py::sequential_uniforms).  ``coat``, the ``[K, 20]`` side
+    buffer of ``coat_side`` (None: no row's coating acts), runs the
+    instantiation with the coatings, which also takes the Fresnel kinds
+    and the streams."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
-                          'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms)
+                          'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms,
+                          coat)
     LAUNCHES += res[-1]
     return res[:-1]
 
 
-def draw_args(fresnel, uniforms, n, device):
+def draw_args(fresnel, uniforms, n, device, coat=None, k=0):
     """The K1 and K2 wrappers' draw arguments: the [F, N] ``uniforms``
     (None: no row draws) checked to be a contiguous float32 tensor on
-    ``device`` -> the (pointer, F, ``fresnel``) C arguments."""
+    ``device``, and the ``[K, 20]`` side buffer ``coat`` (None: not the
+    instantiation with the coatings) -> the (pointer, F, ``fresnel``, side
+    pointer) C arguments."""
+    side = coat_ptr(coat, k, device)
     if uniforms is None or uniforms.shape[0] == 0:
-        return None, 0, int(fresnel)
+        return None, 0, int(fresnel), side
     if not fresnel:
         raise ValueError('uniforms are read only by the instantiation with '
                          'the Fresnel kinds')
     check(uniforms, 'uniforms', torch.float32, (uniforms.shape[0], n),
           device)
-    return uniforms.data_ptr(), uniforms.shape[0], 1
+    return uniforms.data_ptr(), uniforms.shape[0], 1, side
+
+
+def coat_ptr(coat, k, device):
+    """The side buffer's C argument (``coat`` checked to be a contiguous
+    float32 [K, COAT_SIDE] tensor on ``device``; null for None)."""
+    if coat is None:
+        return None
+    check(coat, 'coat side buffer', torch.float32, (k, COAT_SIDE), device)
+    return coat.data_ptr()
 
 
 def stream_buffers(flags, rows, n, device, nonseq=False):
@@ -1000,13 +1086,15 @@ def stream_aux(bufs):
 
 
 def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
-                    flags=NO_STREAMS, fresnel=False, uniforms=None):
+                    flags=NO_STREAMS, fresnel=False, uniforms=None,
+                    coat=None):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
-    global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
+    global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
-    draws = draw_args(fresnel, uniforms, n, device)
+    fresnel = fresnel or coat is not None
+    draws = draw_args(fresnel, uniforms, n, device, coat, k)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -1035,7 +1123,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if fresnel:
+        if coat is not None:
+            COAT_LAUNCHES += 1
+        elif fresnel:
             FRESNEL_LAUNCHES += 1
         elif flags.any:
             STREAM_LAUNCHES += 1
@@ -1053,7 +1143,7 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_grid=None, maps=None, need_maps=True, ext=False,
                        disp=None, need_wavelength=False, g_opl=None,
                        g_nfinal=None, opl=False, fresnel=False,
-                       uniforms=None):
+                       uniforms=None, coat=None):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
     kinds) their cotangents (or None) third, and with ``need_wavelength``
@@ -1073,19 +1163,23 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     ``g_opl`` and ``g_nfinal`` the cotangents of K1's ``opl`` and
     ``n_final`` (None for zero).  ``fresnel`` and ``uniforms`` as for
     ``trace_seq_fwd_cuda``: the instantiation with the Fresnel kinds
-    (which also takes the path length), reading K1's draws."""
+    (which also takes the path length), reading K1's draws; ``coat`` as
+    there: the one with the coatings, whose table cotangent adds the layer
+    thicknesses' (``COAT_GRAD_COLS``)."""
     global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
+    global COAT_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
+    fresnel = fresnel or coat is not None
     ext = ext or need_wavelength or opl or fresnel
-    draws = draw_args(fresnel, uniforms, n, device)
+    draws = draw_args(fresnel, uniforms, n, device, coat, k)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
     g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
-    cols = grad_cols(plates, ext, disp)
+    cols = grad_cols(plates, ext, disp, coat is not None)
     outs = ([torch.empty(n, dtype=torch.float32, device=device)
              for _ in COMPS] if need_rays else None)
     partials = (torch.empty(-(-n // THREADS), k, len(cols),
@@ -1116,7 +1210,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if fresnel:
+        if coat is not None:
+            COAT_LAUNCHES += 1
+        elif fresnel:
             FRESNEL_LAUNCHES += 1
         elif opl:
             STREAM_LAUNCHES += 1

@@ -19,9 +19,37 @@ import torch
 
 
 def _items(tree):
+    """(element, key, tensor) of every leaf; a dict-valued parameter (a
+    per-face ``coat_d``) gives one leaf per entry, keyed ``(key, entry)``."""
     for el, d in tree.items():
         for k, v in d.items():
-            yield el, k, v
+            if isinstance(v, dict):
+                for kk, vv in v.items():
+                    yield el, (k, kk), vv
+            else:
+                yield el, k, v
+
+
+def _lookup(tree, el, k):
+    """The entry of ``tree`` (a trainable mask or a scales tree) for leaf
+    ``(el, k)`` of ``_items``; a dict-valued parameter's mask may be one
+    flag for all its entries."""
+    if isinstance(k, tuple):
+        v = tree[el][k[0]]
+        return v[k[1]] if isinstance(v, dict) else v
+    return tree[el][k]
+
+
+def _nest(pairs):
+    """``{el: {key: tensor}}`` from ``_items``-style (el, key, tensor)."""
+    out = {}
+    for el, k, v in pairs:
+        d = out.setdefault(el, {})
+        if isinstance(k, tuple):
+            d.setdefault(k[0], {})[k[1]] = v
+        else:
+            d[k] = v
+    return out
 
 
 def _is_trainable(m):
@@ -40,7 +68,7 @@ def grad_mask_fn(trainable):
         for el, k, p in _items(params):
             if p.grad is None:
                 continue
-            m = trainable[el][k]
+            m = _lookup(trainable, el, k)
             if isinstance(m, bool):
                 if not m:
                     p.grad.zero_()
@@ -55,7 +83,8 @@ def trainable_leaves(params, trainable=None):
     leaf when ``trainable`` is None) and return them as a list, ready for a
     ``torch.optim`` optimizer."""
     leaves = [p for el, k, p in _items(params)
-              if trainable is None or _is_trainable(trainable[el][k])]
+              if trainable is None
+              or _is_trainable(_lookup(trainable, el, k))]
     for p in leaves:
         p.requires_grad_(True)
     return leaves
@@ -68,26 +97,26 @@ def _apply_scales(params, scales, trainable=None):
     leaves default to 1.  Returns ``(y, to_p)``: ``y`` holds each trainable
     leaf as a fresh leaf tensor p / s that requires grad, and each
     non-trainable leaf as the original tensor; ``to_p(y)`` maps back."""
-    y, s = {}, {}
+    ys, s = [], {}
     for el, k, p in _items(params):
-        y.setdefault(el, {})
-        if trainable is None or _is_trainable(trainable[el][k]):
-            s[(el, k)] = torch.as_tensor(
-                (scales or {}).get(el, {}).get(k, 1.0), dtype=p.dtype,
-                device=p.device)
-            y[el][k] = (p.detach() / s[(el, k)]).requires_grad_(True)
+        if trainable is None or _is_trainable(_lookup(trainable, el, k)):
+            sc = (_lookup(scales, el, k)
+                  if scales and el in scales and
+                  (k[0] if isinstance(k, tuple) else k) in scales[el]
+                  else 1.0)
+            s[(el, k)] = torch.as_tensor(sc, dtype=p.dtype, device=p.device)
+            ys.append((el, k, (p.detach() / s[(el, k)]).requires_grad_(True)))
         else:
-            y[el][k] = p
+            ys.append((el, k, p))
 
     def to_p(y_):
-        return {el: {k: v * s[(el, k)] if (el, k) in s else v
-                     for k, v in d.items()} for el, d in y_.items()}
-    return y, to_p
+        return _nest((el, k, v * s[(el, k)] if (el, k) in s else v)
+                     for el, k, v in _items(y_))
+    return _nest(ys), to_p
 
 
 def _detached(tree):
-    return {el: {k: v.detach() for k, v in d.items()}
-            for el, d in tree.items()}
+    return _nest((el, k, v.detach()) for el, k, v in _items(tree))
 
 
 def _setup(params, scales, trainable):
@@ -180,8 +209,10 @@ def fit_lm(residual_fn, params, trainable=None, steps=30, lam0=1e-3,
         def flat(v):
             return torch.as_tensor(v, dtype=torch.float64).broadcast_to(
                 p.shape).reshape(-1)
-        m = flat(True if trainable is None else trainable[el][k])
-        sc = flat((scales or {}).get(el, {}).get(k, 1.0))
+        m = flat(True if trainable is None else _lookup(trainable, el, k))
+        sc = flat(_lookup(scales, el, k) if scales and el in scales and
+                  (k[0] if isinstance(k, tuple) else k) in scales[el]
+                  else 1.0)
         pos += [(li, j, float(sc[j]))
                 for j in torch.nonzero(m != 0).reshape(-1).tolist()]
     if not pos:
@@ -193,10 +224,8 @@ def fit_lm(residual_fn, params, trainable=None, steps=30, lam0=1e-3,
         vals = [list(b.unbind()) for b in base]
         for n, (li, j, sc) in enumerate(pos):
             vals[li][j] = yt_[n] * sc
-        out = {}
-        for (el, k, p), v in zip(entries, vals):
-            out.setdefault(el, {})[k] = torch.stack(v).reshape(p.shape)
-        return out
+        return _nest((el, k, torch.stack(v).reshape(p.shape))
+                     for (el, k, p), v in zip(entries, vals))
 
     def res_flat(yt_):
         return residual_fn(embed(yt_)).reshape(-1)

@@ -160,7 +160,9 @@ class Scene:
                         r.ph_kind, r.sb_kind, r.vb_kind, r.is_sensor,
                         r.sb_invert, r.is_asphere, r.is_dispersive,
                         plane=r.is_plane, slot=slot if el.is_sensor else 0,
-                        dispm=r.disp_model))
+                        n_coat=r.n_coat, dispm=r.disp_model,
+                        metal=r.is_metal, metal_nk=r.metal_nk,
+                        coat_k=r.coat_k))
                 if el.is_sensor:
                     slot += 1
             self._static_meta = meta

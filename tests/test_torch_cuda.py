@@ -48,7 +48,11 @@ card against the CPU.  So are the instantiations with the Fresnel kinds
 the bench singlet with ``fresnel=True`` and ``'weighted'``, the window's
 and a Cooke triplet's ghost, the naive scene), the paths that launch them,
 their blocks per SM, the device generator's Philox known-answer vectors
-and the window ghost's closed-form flux.
+and the window ghost's closed-form flux.  So are the instantiations with
+the coatings (chip_smoke.py section 12's ``coating_kernels_vs_plain`` with
+its bounds: the coated bench singlet in FRESNEL_W and FRESNEL, example
+11's telescope, the stress rows), the paths that launch them and their
+blocks per SM.
 """
 
 import math
@@ -737,14 +741,23 @@ def _ext(name):
 def _streams(name):
     """Whether a mangled kernel name is an overload with the deterministic
     streams (a StreamOut or OplIn argument) and without the Fresnel kinds
-    (``_fresnel``), which take those arguments too."""
-    return ('StreamOut' in name or 'OplIn' in name) and not _fresnel(name)
+    or the coatings (``_fresnel``, ``_coat``), which take those arguments
+    too."""
+    return (('StreamOut' in name or 'OplIn' in name) and not _fresnel(name)
+            and not _coat(name))
 
 
 def _fresnel(name):
     """Whether a mangled kernel name is an overload with the Fresnel kinds
-    (a SeqDraws or PhiloxKey argument)."""
-    return 'SeqDraws' in name or 'PhiloxKey' in name
+    (a SeqDraws or PhiloxKey argument) and without the coatings
+    (``_coat``), which take those arguments too."""
+    return ('SeqDraws' in name or 'PhiloxKey' in name) and not _coat(name)
+
+
+def _coat(name):
+    """Whether a mangled kernel name is an overload with the coatings (a
+    CoatSide argument)."""
+    return 'CoatSide' in name
 
 
 @pytest.mark.cuda
@@ -1318,7 +1331,7 @@ def test_ext_instantiations_are_built(dev):
         usage = nvcc_build.ptxas_usage(logs[lib][0])
         ext = [k for k in usage
                if f'{lib}_kernel' in k and _ext(k) and not _streams(k)
-               and not _fresnel(k)]
+               and not _fresnel(k) and not _coat(k)]
         assert len(ext) == count, (lib, ext)
         assert all(usage[k]['registers'] for k in ext)
     for case in EXT_CASES:
@@ -1763,3 +1776,81 @@ def test_fresnel_instantiations_fit(dev):
         assert fused_trace.blocks_per_sm(
             lib, len(sc.static_meta()), sc.sensor_config(), True,
             sc.n_bounces, ext=True, fresnel=True) >= blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,nonseq', [(c, False)
+                                         for c in chip_smoke.COAT_SEQ_CASES]
+                         + [(c, True) for c in chip_smoke.COAT_NS_CASES],
+                         ids=[f'{c}-k1k2' for c in chip_smoke.COAT_SEQ_CASES]
+                         + [f'{c}-k5k6' for c in chip_smoke.COAT_NS_CASES])
+def test_coat_kernels_match_plain(name, nonseq, dev):
+    """K1 and K2 (K5 and K6) with the coatings against their plain versions
+    on the same draws: rays, moments and the ray, table (the coat
+    thicknesses' included) and wavelength cotangents (chip_smoke.py's
+    bounds); K6's replay against K5 (not on the rounding-chaotic
+    telescope)."""
+    res = chip_smoke.coating_kernels_vs_plain(trt, torch, name, N, dev, 61,
+                                              nonseq=nonseq)
+    assert res['bwd']['rays_differ'] <= res['bwd']['allowed']
+
+
+@pytest.mark.cuda
+def test_coat_paths_launch_their_instantiation(dev):
+    """``simulate_fused`` of a coated scene launches K1 (K5) once in the
+    instantiation with the coatings and, under grad, K2 (K6) in theirs;
+    a scene whose stack sits on SNELL faces takes the main path's."""
+    rays = chip_smoke.sample_rays(trt, torch, N, dev, 62)
+    for nb, mod, fwd, bwd in (
+            (None, fused_trace, 'LAUNCHES', 'BWD_LAUNCHES'),
+            (8, fused_nonseq, 'NONSEQ_LAUNCHES', 'NONSEQ_BWD_LAUNCHES')):
+        sc = chip_smoke.coated_scene(trt, 'weighted', nb)
+        p = sc.init_params(dev)
+        p['lens']['coat_d'].requires_grad_(True)
+        setattr(mod, fwd, 0)
+        setattr(mod, bwd, 0)
+        fused_trace.COAT_LAUNCHES = fused_trace.FRESNEL_LAUNCHES = 0
+        _, sens, _ = sc.simulate_fused(p, rays)
+        sens.moments[0, 0, 0].backward()
+        torch.cuda.synchronize()
+        assert (getattr(mod, fwd), getattr(mod, bwd)) == (1, 1)
+        assert fused_trace.COAT_LAUNCHES == 2
+        assert fused_trace.FRESNEL_LAUNCHES == 0
+        assert float(p['lens']['coat_d'].grad.abs().max()) > 0
+    fused_trace.COAT_LAUNCHES = 0
+    snell = chip_smoke.coated_scene(trt, False)
+    snell.simulate_fused(snell.init_params(dev), rays)
+    assert fused_trace.COAT_LAUNCHES == 0
+
+
+@pytest.mark.cuda
+def test_coat_instantiations_are_built(dev):
+    """K1 and K6 build one overload with the coatings, K2 one for each home
+    of its saved states and K5 one for each moment bucket; each has its
+    registers."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        found = [k for k in usage if f'{lib}_kernel' in k and _coat(k)]
+        assert len(found) == count, (lib, found)
+        assert all(usage[k]['registers'] for k in found)
+
+
+@pytest.mark.cuda
+def test_coat_instantiations_fit(dev):
+    """The coated instantiations keep at least one block resident on an SM
+    on the coated singlet and example 11's telescope, at their shared
+    memory."""
+    seq = chip_smoke.coated_scene(trt, 'weighted')
+    tel = chip_smoke.telescope_scene(trt, trt, trt.glass,
+                                     list(chip_smoke.TELESCOPE_PAIR))
+    want = {'trace_seq_fwd': seq, 'trace_seq_bwd': seq,
+            'trace_nonseq_fwd': tel, 'trace_nonseq_bwd': tel}
+    for lib, sc in want.items():
+        assert fused_trace.blocks_per_sm(
+            lib, len(sc.static_meta()), sc.sensor_config(), True,
+            sc.n_bounces, ext=True, disp=fused_trace.dispersive(
+                sc.static_meta()), coat=True) >= 1

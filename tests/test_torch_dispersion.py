@@ -189,12 +189,15 @@ def test_dispersive_iors_match_jax(dispm):
 
 
 def test_unsupported_lets_dispersion_through():
-    """``unsupported`` lets a dispersive row through; coatings and metals
-    still raise."""
+    """``unsupported`` lets a dispersive row through, and a coated one (a
+    stack on a SNELL row is carried and does not act); a metal on a row
+    that does not reflect, and SCATTER, still raise."""
     from raytracetorch_tpu_torch.core.static_dispatch import unsupported
     assert unsupported(StaticRowMeta(3, 4, 1, disp=True,
                                      dispm=(2, 0))) is None
-    assert 'coatings' in unsupported(StaticRowMeta(3, 4, 1, n_coat=1))
+    assert unsupported(StaticRowMeta(3, 4, 1, n_coat=1)) is None
+    assert 'metal' in unsupported(StaticRowMeta(3, 4, 1, metal=True))
+    assert 'SCATTER' in unsupported(StaticRowMeta(10, 4, 1))
 
 
 # ---- elements ----
@@ -280,7 +283,7 @@ def test_triplet_trace_converges():
                                   'AsphericLens', 'CylSingletLens'])
 def test_lens_constructors_take_the_jax_arguments(name):
     """Each lens takes the JAX package's constructor arguments, in order
-    (coatings and Fresnel physics are accepted and refused at run time)."""
+    (the cylindrical singlet's coating= rides its keywords)."""
     import inspect
     params = [list(inspect.signature(getattr(rt, name).__init__).parameters)
               for rt in (jrt, trt)]

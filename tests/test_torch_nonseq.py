@@ -331,7 +331,8 @@ def test_simulate_fused_under_grad_raises_k6():
 
 
 @pytest.mark.parametrize('make,match', [
-    (lambda: trt.SphericalMirror(c1=0.01, d=10.0, metal='Al'), 'item 12'),
+    (lambda: trt.SphericalMirror(c1=0.01, d=10.0, metal='Al',
+                                 roughness=0.1), 'not modeled'),
     (lambda: trt.SphericalMirror(c1=0.01, d=10.0, roughness=0.1),
      'item 14'),
 ])

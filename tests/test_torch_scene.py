@@ -145,18 +145,21 @@ def test_table_from_numpy_round_trip():
 
 
 def test_unsupported_elements_raise():
-    # the Fresnel kinds are ported: fresnel=True constructs; coatings raise
+    # the Fresnel kinds and coatings are ported: they construct; rough
+    # mirrors (a SCATTER row) raise
     trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
                     fresnel=True)
     with pytest.raises(ValueError, match='fresnel'):
         trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
                         fresnel='lossless')
+    trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                    coating=[(1.38, 0.1)])
+    trt.DoubletLens(c1=0.02, c2=-0.025, c3=-0.004, d=20.0, t1=4.0,
+                    t2=2.0, ior_glass1=1.5168, ior_glass2=1.6727,
+                    fresnel=True, coating=[(1.38, 0.1)])
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
-                        coating=[(1.38, 0.1)])
+        trt.SphericalMirror(c1=-0.02, d=20.0, roughness=0.01)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.DoubletLens(c1=0.02, c2=-0.025, c3=-0.004, d=20.0, t1=4.0,
-                        t2=2.0, ior_glass1=1.5168, ior_glass2=1.6727,
-                        fresnel=True, coating=[(1.38, 0.1)])
+        trt.ConicMirror(c1=-0.02, k=-1.0, d=20.0, roughness=0.01)
     with pytest.raises(ValueError, match='larger than D/2'):
         trt.SingletLens(c1=0.5, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5)
