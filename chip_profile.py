@@ -54,7 +54,12 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   K2 in their instantiations with the coatings on the coated bench singlet
   (``'weighted'``), K5 and K6 on example 11's telescope, the coated
   singlet's ``simulate_fused`` and grad step (c1, c2 and the coat), and
-  the telescope's ``Scene.simulate_fused``.
+  the telescope's ``Scene.simulate_fused``;
+- the diffractive and ideal elements (chip_smoke.py section 13): K1 and K2
+  in their instantiations with them on example 25's hybrid achromat and
+  example 05's nine-channel spectrometer, K5 and K6 on the Scene of every
+  new kind, the hybrid's ``simulate_fused`` and grad step (c1, c2 and the
+  DOE's phase) and the Scene's ``Scene.simulate_fused``.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -517,6 +522,62 @@ def main():
         'coat_grad_step_fused_weighted': (coat_step, 'trace_seq_bwd'),
         'coat_scene_simulate_fused_telescope': (lambda: tel.simulate_fused(
             tel_p, tel_rays), 'trace_nonseq_fwd_kernel')})
+    # the diffractive and ideal elements (chip_smoke.py section 13)
+    for name in cs.DIFF_CASES:
+        dsc, dp, dr, dcfg, dnonseq = cs.diffractive_case(
+            rt, torch, name, n, dev, cs.DIFF_SEED + 7)
+        dmeta = dsc.static_meta()
+        dflat = rt.flatten_table_rows(dsc.build_table(dp)).detach()
+        dkinds = torch.tensor(fused_trace.kind_rows(dmeta, dcfg),
+                              dtype=torch.int32, device=dev)
+        dmaps = fused_trace.plate_maps(dmeta, {})
+        dside = fused_trace.coat_side(dmeta, dev)
+        ddisp = fused_trace.dispersive(dmeta)
+        dgm = torch.ones(1, dcfg.n_bundles, 7, device=dev)
+        label = f'diff_{name}'
+        if dnonseq:
+            calls[f'{label}_k5'] = (
+                lambda f=dflat, k=dkinds, r=dr, c=dcfg, b=dsc.n_bounces,
+                m=dmaps, x=dside: fused_nonseq.trace_nonseq_fwd_cuda(
+                    f, k, r, c, b, m, True, coat=x, diff=True),
+                'trace_nonseq_fwd_kernel')
+            calls[f'{label}_k6'] = (
+                lambda f=dflat, k=dkinds, r=dr, c=dcfg, b=dsc.n_bounces,
+                m=dmaps, g=dgm, x=dside, y=ddisp:
+                fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, b, (None,) * 7, g, maps=m, disp=y, coat=x,
+                    diff=True),
+                'trace_nonseq_bwd_kernel')
+            d_ns, d_np, d_nr = dsc, dp, dr
+        else:
+            calls[f'{label}_k1'] = (
+                lambda f=dflat, k=dkinds, r=dr, c=dcfg, m=dmaps, x=dside:
+                fused_trace.trace_seq_fwd_cuda(f, k, r, c, m, True, coat=x,
+                                               diff=True),
+                'trace_seq_fwd_kernel')
+            calls[f'{label}_k2'] = (
+                lambda f=dflat, k=dkinds, r=dr, c=dcfg, m=dmaps, g=dgm,
+                x=dside, y=ddisp: fused_trace.trace_seq_bwd_cuda(
+                    f, k, r, c, (None,) * 7, g, maps=m, disp=y, coat=x,
+                    diff=True),
+                'trace_seq_bwd')
+    hyb = cs.hybrid_scene(rt)
+    h_sp = hyb.init_params(dev)
+    h_rays = cs.diffractive_case(rt, torch, 'hybrid', n, dev,
+                                 cs.DIFF_SEED + 13)[2]
+
+    def hybrid_step():
+        p = hyb.init_params(dev)
+        for el, k in (('lens', 'c1'), ('lens', 'c2'), ('doe', 'phase')):
+            p[el][k].requires_grad_(True)
+        _, s, _ = hyb.simulate_fused(p, h_rays, 3)
+        rt.spot_size_loss(s).backward()
+    calls.update({
+        'diff_simulate_fused_hybrid': (lambda: hyb.simulate_fused(
+            h_sp, h_rays, 3), 'trace_seq_fwd_kernel'),
+        'diff_grad_step_fused_hybrid': (hybrid_step, 'trace_seq_bwd'),
+        'diff_scene_simulate_fused': (lambda: d_ns.simulate_fused(
+            d_np, d_nr, 2), 'trace_nonseq_fwd_kernel')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

@@ -78,6 +78,19 @@ and K2 once per evaluation), and the stream instantiations' times, bounds
 (with the streams' bytes) and blocks per SM; the kernel summary line lists
 them beside the seven kernels.
 
+Section 13 drives the diffractive and ideal elements (the kinoform DOE,
+the grating, the ideal ABCD elements, the microlens array, the ELLIPSE
+bound) through the instantiations of K1, K2, K5 and K6 with them: each
+kernel against its plain version (example 25's hybrid achromat at 2,999
+and 1M rays, example 05's nine-channel spectrometer and a Scene of every
+new kind at 1M rays: moments slot by slot, the DOE's coefficient and the
+wavelength's cotangents, K6's replay against K5), the counted forward and
+grad steps (fused against eager gradients to 1e-3), examples 25's and
+05's designs as published on the reference's rays against the JAX
+package's (tests/diffractive_anchors.py: the shift cut over 15x, the DOE
+power within 25% of the thin-lens split, the dispersion and spot RMS),
+times, bounds and blocks per SM.
+
 The build phase prints each kernel's ptxas registers and spills, and the
 next K1's, K2's, K5's and K6's resident blocks per SM on their main paths'
 launches.  K4's scatter is checked on both of its paths: maps held in
@@ -525,15 +538,16 @@ def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
 
 
 def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False,
-                             ext=False, disp=False, coat=False):
+                             ext=False, disp=False, coat=False, diff=False):
     """Table cotangent [K, 160], kernel vs plain -> dict; raises on a
     breach.  Outside GRAD_COLS (PLATE_GRAD_COLS with phase plates,
     EXT_GRAD_COLS with the extended kinds, DISP_GRAD_COLS with a dispersive
-    row and, with ``coat``, COAT_GRAD_COLS) both must be exactly zero, but
-    the plain version's at the coat's layer indices (static: no parameter
-    reaches them, and the kernels do not compute them)."""
+    row, with ``coat`` COAT_GRAD_COLS and with ``diff`` FF_GRAD_COLS) both
+    must be exactly zero, but the plain version's at the coat's layer
+    indices (static: no parameter reaches them, and the kernels do not
+    compute them)."""
     offs = list(fused_trace.grad_cols(() if plates else None, ext, disp,
-                                      coat))
+                                      coat, diff))
     # the asphere's a4..a10 span r^4..r^10, the dispersion coefficients
     # B ~ 1 and C ~ 0.01-100 um^2: each column its own scale
     fields = (offs[0:5], offs[5:14], offs[14:17], offs[17:19]) + (
@@ -1014,6 +1028,16 @@ def compare_plate_bwd(rt, torch, scene, params, rays, seed, nonseq=False):
 # VB_RECT adds ~6 comparisons to a volume bound's, VB_CYL_EDGE two sags
 # and ~8 comparisons (~26).
 ASPH_REFINE_OPS = 2 * (4 * 83 + 75)
+# The diffractive and ideal kinds (csrc/diffractive.cuh): each rotates the
+# direction into the surface frame and back (30); LINEAR three divisions,
+# a square root and ~8 more; GRATING a division, a square root and ~10;
+# MLA two floors, a square root, four divisions and ~12; DOE the side, its
+# media, 4 a radial term, a square root, a division and ~14, its efficiency
+# a sine and ~8 more.  The ELLIPSE bound ~12 a root more than a disk's and
+# a cosine and a sine per row and block (ELLIPSE_ROW_OPS).
+DIFF_PHYS_OPS = {5: 42, 7: 42, 14: 48}
+DOE_OPS, DOE_TERM_OPS, DOE_EFF_OPS = 50, 4, 10
+ELLIPSE_OPS, ELLIPSE_ROW_OPS = 24, 2
 EXT_VB_OPS = {3: 6, 4: 26}
 # A dispersive row's indices: lambda^2 (~3 operations), then per side a
 # Cauchy index (~4) or a Sellmeier one (3 terms of ~7 and a square root,
@@ -1024,6 +1048,7 @@ DISP_SIDE_OPS = {0: 0, 1: 4, 2: 24}
 
 def intersect_ops(meta):
     return ((83 if meta.plane else 122) + (22 if meta.sb else 0)
+            + (ELLIPSE_OPS if meta.sb == 3 else 0)
             + (22 if meta.vb else 0) + EXT_VB_OPS.get(meta.vb, 0)
             + (ASPH_REFINE_OPS if meta.asph else 0))
 
@@ -1035,6 +1060,11 @@ def apply_ops(meta):
                PhysKind.FRESNEL: 26 + FRESNEL_OPS,
                PhysKind.FRESNEL_W: 26 + FRESNEL_OPS,
                PhysKind.REFLECT_W: 26 + FRESNEL_OPS}.get(meta.ph, 0)
+    if meta.ph in DIFF_PHYS_OPS:
+        physics = DIFF_PHYS_OPS[meta.ph]
+    elif meta.ph == PhysKind.DOE:
+        physics = (DOE_OPS + DOE_TERM_OPS * meta.doe[0]
+                   + (DOE_EFF_OPS if meta.doe[1] else 0))
     normal = 0 if meta.plane else 30 if meta.asph else 34
     disp = (DISP_L2_OPS + sum(DISP_SIDE_OPS[m] for m in meta.dispm)
             if meta.disp else 0)
@@ -3591,6 +3621,506 @@ def coating_phases(rt, torch, dev, reset_counters, counters, only):
                 anchors=anchors)
 
 
+# ---- section 13: the diffractive and ideal elements ----
+
+# examples/25_hybrid_achromat.py: a BK7 singlet (Abbe) and a weak DOE, the
+# F, d and C lines, the sensor at the target focal length
+HYB_LAMS = (0.4861, 0.5876, 0.6563)
+HYB_N_D, HYB_V_R, HYB_F = 1.5168, 64.17, 80.0
+HYB_V_D = 0.5876 / (0.4861 - 0.6563)
+HYB_C0 = 1.0 / (2 * (HYB_N_D - 1) * HYB_F)
+HYB_RAYS, HYB_STEPS = 2000, 600
+# the thin-lens power split's DOE power P V_d / (V_d - V_r), 1/mm
+HYB_POWER_SPLIT = HYB_V_D / (HYB_V_D - HYB_V_R) / HYB_F
+# examples/05_spectrometer.py: a 3 um transmissive grating ahead of a BK7
+# singlet, nine channels of 2,000 rays over 0.45-0.65 um
+SPEC_PERIOD, SPEC_F = 3.0, 80.0
+SPEC_RAYS, SPEC_STEPS = 2000, 400
+DIFF_SEED = SEED + 1401
+DIFF_BOUNCES = 8
+# The JAX package's examples 25 and 05 on the CPU (tests/diffractive_
+# anchors.py).  The port's designs on the CPU agree with them to ~2e-5 mm
+# in the chromatic shift, ~1e-9 /mm in the DOE power, ~1e-7 in the
+# curvatures and the sensor's z, 1.3e-6 in the dispersion and 2.6% in the
+# spectrometer's mean spot RMS (the same script): its spots sit ~16 mm off
+# axis, so their RMS from float32 moments cancels to a few percent, as the
+# JAX package's does, and each summation order gives another.  Section 13
+# holds the card's designs to JAX's within HYB_TOL (absolute) and SPEC_TOL
+# (relative), ~30-100x those.
+HYBRID_REF = {'shift0': -1.238189697265625, 'shift1': -0.055999755859375,
+              'rms0': 0.04583962710654024, 'rms1': 0.0033321641277916083,
+              'p_doe': 0.000634458964395523,
+              'p_doe_split': 0.0006381776738775675,
+              'c1': 0.011593355797231197, 'c2': -0.011432711966335773}
+SPECTROMETER_REF = {'dispersion0': 27.707755406697554,
+                    'rms_mean0': 0.07580044865608215,
+                    'rms_max0': 0.10020510107278824,
+                    'dispersion': 27.71729914347328,
+                    'rms_mean': 0.04446534812450409,
+                    'rms_max': 0.05961174517869949,
+                    'loss0': 0.05321425199508667,
+                    'loss': 0.017048228532075882,
+                    'sensor_z': 85.9959945678711,
+                    'c1': 0.010988770052790642, 'c2': -0.012514142319560051}
+HYB_TOL = {'shift0': 1e-3, 'shift1': 2e-3, 'rms1': 1e-4, 'p_doe': 1e-6}
+SPEC_TOL = {'dispersion': 1e-4, 'rms_mean': 0.08, 'c1': 1e-3, 'c2': 1e-3,
+            'sensor_z': 1e-5}
+
+
+def spec_channels():
+    """The spectrometer's nine wavelengths, as numpy.linspace(0.45, 0.65,
+    9) gives them."""
+    import numpy as np
+    return [float(w) for w in np.linspace(0.45, 0.65, 9)]
+
+
+def hybrid_scene(rt, bare=False, n_bounces=None):
+    """Example 25's scene: the singlet (curvatures trainable), with
+    ``bare=False`` the DOE of f = 5000 mm at z = 2 (its phase trainable),
+    and the sensor at z = 80; a Scene of ``n_bounces`` when given."""
+    els = [rt.SingletLens(c1=HYB_C0, c2=-HYB_C0, d=16.0, t=1.0,
+                          ior_glass=HYB_N_D, abbe_vd=HYB_V_R, c1_grad=True,
+                          c2_grad=True, name='lens')]
+    if not bare:
+        els.append(rt.DiffractiveLens(radius=8.0, f=5000.0, phase_grad=True,
+                                      translation=[0, 0, 2.0], name='doe'))
+    els.append(rt.SensorElement(radius=10.0, translation=[0, 0, HYB_F],
+                                name='s'))
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def hybrid_bundles(rt, n):
+    """The F, d and C bundles of ``n`` rays each over the 4 mm disk."""
+    return [(rt.CollimatedDisk.make(radius=4.0, translation=[0, 0, -10.0],
+                                    wavelength=lam, ray_id=j), n)
+            for j, lam in enumerate(HYB_LAMS)]
+
+
+def spectrometer_scene(rt, n_bounces=None):
+    """Example 05's scene: the grating, the singlet (curvatures trainable)
+    and the sensor, whose z alone is trainable."""
+    els = [rt.DiffractionGrating(period_um=SPEC_PERIOD, order=1,
+                                 diameter=30.0, name='grating'),
+           rt.SingletLens(c1=0.012, c2=-0.012, d=24.0, t=4.0,
+                          ior_glass=1.5168, abbe_vd=64.17, c1_grad=True,
+                          c2_grad=True, translation=[0, 0, 6.0],
+                          name='lens'),
+           rt.SensorElement(radius=30.0, translation=[0, 0, 6.0 + SPEC_F],
+                            trans_grad=True, trans_mask=[0, 0, 1],
+                            name='sensor')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def spectrometer_bundles(rt, n):
+    """The nine channels, ``n`` rays each over the 4 mm disk."""
+    return [(rt.CollimatedDisk.make(radius=4.0, ray_id=j, wavelength=wl,
+                                    translation=[0, 0, -5.0]), n)
+            for j, wl in enumerate(spec_channels())]
+
+
+def diffractive_ns_scene(rt, n_bounces=DIFF_BOUNCES):
+    """A non-sequential Scene of every new kind: an ideal thin lens, a
+    rotated elliptic stop (inverted: the plate outside the ellipse blocks),
+    a DOE with its efficiency, a transmissive grating, a microlens array and
+    a sensor; each ray meets at most six rows."""
+    return rt.Scene([
+        rt.IdealThinLens(focal=100.0, focal_grad=True, name='ideal'),
+        rt.EllipticAperture(r_major=2.4, r_minor=1.6, rot=0.6, invert=True,
+                            translation=[0, 0, 5.0], name='ellipse'),
+        rt.DiffractiveLens(radius=6.0, coeffs=[-2.0, 0.01],
+                           efficiency=True, phase_grad=True,
+                           translation=[0, 0, 10.0], name='doe'),
+        rt.DiffractionGrating(period_um=20.0, period_grad=True,
+                              translation=[0, 0, 15.0], name='grating'),
+        rt.MicrolensArray(half_x=5.0, half_y=5.0, pitch=1.0, f=20.0,
+                          pitch_grad=True, f_grad=True,
+                          translation=[0, 0, 20.0], name='mla'),
+        rt.SensorElement(radius=20.0, translation=[0, 0, 40.0], name='s'),
+    ], n_bounces=n_bounces)
+
+
+def diffractive_ns_bundles(rt, n):
+    """Two bundles over a 2.5 mm disk at 0.50 and 0.65 um."""
+    return [(rt.CollimatedDisk.make(radius=2.5, translation=[0, 0, -5.0],
+                                    wavelength=wl, ray_id=j), n // 2)
+            for j, wl in enumerate((0.50, 0.65))]
+
+
+DIFF_CASES = ('hybrid', 'spectrometer', 'scene')
+
+
+def diffractive_case(rt, torch, name, n, device, seed):
+    """(scene, params, rays, cfg, nonseq) of a section 13 case: 'hybrid'
+    (example 25's F, d, C bundles), 'spectrometer' (example 05's nine
+    channels) and 'scene' (``diffractive_ns_scene``); ``n`` rays in all."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if name == 'hybrid':
+        sc, b = hybrid_scene(rt), hybrid_bundles(rt, n // 3)
+    elif name == 'spectrometer':
+        sc, b = spectrometer_scene(rt), spectrometer_bundles(rt, n // 9)
+    else:
+        sc, b = diffractive_ns_scene(rt), diffractive_ns_bundles(rt, n)
+    rays = rt.sample_bundles(gen, b, device)
+    return (sc, sc.init_params(device), rays, sc.sensor_config(len(b)),
+            name == 'scene')
+
+
+def diffractive_kernels_vs_plain(rt, torch, name, n, device, seed):
+    """K1 and K2 (the Scene: K5 and K6) in their instantiation with the
+    diffractive kinds against their plain versions on a section 13 case:
+    the rays and moments (slot by slot: nine bundles on the spectrometer),
+    then the ray, table (a DOE row's coefficients included) and wavelength
+    cotangents under seeded cotangents on the rays both trace alike; K6's
+    replay against K5 bit for bit -> dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    sc, params, rays, cfg, nonseq = diffractive_case(rt, torch, name, n,
+                                                     device, seed)
+    meta = sc.static_meta()
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=device)
+    maps = fused_trace.plate_maps(meta, {})
+    ext, disp = fused_trace.ext_kinds(meta), fused_trace.dispersive(meta)
+    coat = fused_trace.coat_side(meta, device)
+    check(fused_trace.diffractive_kinds(meta), f'{name}: no diffractive row')
+    if nonseq:
+        nb = sc.n_bounces
+        out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, coat=coat, diff=True)
+        out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nb, maps)
+    else:
+        out_k, s_k = fused_trace.trace_seq_fwd_cuda(
+            flat, kinds, rays, cfg, maps, ext, coat=coat, diff=True)
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps)
+    torch.cuda.synchronize()
+    apart = traced_apart(torch, out_k, out_p, world=nonseq)[0]
+    res = compare(torch, out_k, s_k, out_p, s_p, world=nonseq)
+    res.update(rows=len(meta), bundles=cfg.n_bundles,
+               mean_intensity=float(out_k.intensity.double().mean()))
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, device,
+                                              seed + 2)
+    if nonseq:
+        g_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+            disp=disp, coat=coat, diff=True, replay=True,
+            need_wavelength=True)
+        g_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nb, g_rays, g_mom, maps=maps,
+            need_wavelength=True)
+    else:
+        g_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=ext,
+            disp=disp, coat=coat, diff=True, need_wavelength=True)
+        g_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, cfg, meta, g_rays, g_mom, maps=maps,
+            need_wavelength=True)
+    torch.cuda.synchronize()
+    if nonseq:
+        out_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, coat=coat, diff=True)[0]
+        res['replay_equal'] = all(torch.equal(getattr(g_k[-1], c),
+                                              getattr(out_k, c))
+                                  for c in fused_trace.COMPS)
+        check(res['replay_equal'], f'{name}: K6 replay differs from K5')
+    allowed = max(3, math.ceil(NS_MISMATCH_SHARE * rays.n)) if nonseq \
+        else None
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1], allowed=allowed,
+        tol=DISP_BWD_TOL if disp else BWD_TOL)
+    res['bwd'].update(compare_table_cotangents(
+        torch, fused_trace, g_k[0], g_p[0], plates=True, ext=True, disp=disp,
+        coat=True, diff=True))
+    res['bwd']['wavelength'] = compare_wavelength_cotangents(
+        torch, g_k[3], g_p[3], allowed)
+    return res
+
+
+def hybrid_chromatic_shift(rt, torch, scene, params):
+    """Example 25's marginal-ray axis crossings on the reference's 64 rays
+    of PRNGKey(1) over 1 mm: the median z at F minus that at C (the median
+    of an even count as numpy takes it), through ``simulate_fused``."""
+    import numpy as np
+    from raytracetorch_tpu_torch.rays import reference_prng
+    dev = params['lens']['c1'].device
+    zs = []
+    for lam in (HYB_LAMS[0], HYB_LAMS[2]):
+        r = reference_prng.collimated_disk(reference_prng.prng_key(1), 64,
+                                           1.0, (0.0, 0.0, -10.0), lam, dev)
+        with torch.no_grad():
+            out, _, _ = scene.simulate_fused(params, r)
+        t = -out.px / out.dx * out.dz
+        zs.append(float(np.median((out.pz + t).cpu().numpy())))
+    return zs[0] - zs[1]
+
+
+def hybrid_design(rt, torch, device, steps=HYB_STEPS):
+    """Example 25 through ``simulate_fused`` (K1, K2 in each step): the bare
+    singlet's chromatic shift, then Adam on the hybrid's curvatures and DOE
+    phase (its scales) over the reference's 3 x 2,000 rays, traced as one
+    3-bundle batch -> dict of its numbers (HYBRID_REF's keys)."""
+    from raytracetorch_tpu_torch.rays import reference_prng
+    bare = hybrid_scene(rt, bare=True)
+    shift0 = hybrid_chromatic_shift(rt, torch, bare, bare.init_params(device))
+    hyb = hybrid_scene(rt)
+    key = reference_prng.prng_key(0)
+    rays = reference_prng.collimated_bundles(
+        [key] * 3, HYB_RAYS, 4.0, (0.0, 0.0, -10.0), HYB_LAMS, device)
+
+    def loss(p):
+        _, sens, _ = hyb.simulate_fused(p, rays, 3)
+        return (sens.spot_rms(0) ** 2).mean()
+    t0 = time.perf_counter()
+    p, hist = rt.fit(loss, hyb.init_params(device), trainable=hyb.trainable(),
+                     steps=steps, lr=3e-2,
+                     scales={'lens': {'c1': HYB_C0, 'c2': HYB_C0},
+                             'doe': {'phase': 0.2}})
+    seconds = time.perf_counter() - t0
+    return dict(
+        shift0=shift0, shift1=hybrid_chromatic_shift(rt, torch, hyb, p),
+        rms0=math.sqrt(float(hist[0])), rms1=math.sqrt(float(hist[-1])),
+        p_doe=-2.0 * 0.5876e-3 * float(p['doe']['phase'][0]),
+        p_doe_split=HYB_POWER_SPLIT, c1=float(p['lens']['c1']),
+        c2=float(p['lens']['c2']), design_seconds=seconds)
+
+
+def spectrometer_stats(torch, scene, params, rays):
+    """(dispersion um/nm, mean spot RMS, worst spot RMS) of the nine
+    channels through ``simulate_fused``."""
+    import numpy as np
+    with torch.no_grad():
+        _, sens, _ = scene.simulate_fused(params, rays, 9)
+    cx = sens.centroid(0)[:, 0].cpu().numpy()
+    rms = sens.spot_rms(0).cpu().numpy()
+    lams = np.asarray(spec_channels()) * 1000.0
+    return (float(np.polyfit(lams, cx, 1)[0]) * 1e3, float(rms.mean()),
+            float(rms.max()))
+
+
+def spectrometer_design(rt, torch, device, steps=SPEC_STEPS):
+    """Example 05 through ``simulate_fused`` (K1, K2 in each step) on the
+    reference's nine channels of 2,000 rays: Adam on the singlet's
+    curvatures and the sensor's z -> dict of its numbers (SPECTROMETER_REF's
+    keys)."""
+    from raytracetorch_tpu_torch.rays import reference_prng
+    scene = spectrometer_scene(rt)
+    keys = reference_prng.split(reference_prng.prng_key(0), 9)
+    rays = reference_prng.collimated_bundles(
+        keys, SPEC_RAYS, 4.0, (0.0, 0.0, -5.0), spec_channels(), device)
+    p0 = scene.init_params(device)
+
+    def loss(p):
+        _, sens, _ = scene.simulate_fused(p, rays, 9)
+        return (sens.spot_rms(0) ** 2).sum()
+    t0 = time.perf_counter()
+    p, losses = rt.fit(loss, p0, trainable=scene.trainable(), steps=steps,
+                       lr=2e-3)
+    seconds = time.perf_counter() - t0
+    d0, m0, w0 = spectrometer_stats(torch, scene, p0, rays)
+    d1, m1, w1 = spectrometer_stats(torch, scene, p, rays)
+    return dict(dispersion0=d0, rms_mean0=m0, rms_max0=w0, dispersion=d1,
+                rms_mean=m1, rms_max=w1, loss0=float(losses[0]),
+                loss=float(losses[-1]),
+                sensor_z=float(p['sensor']['trans'][2]),
+                c1=float(p['lens']['c1']), c2=float(p['lens']['c2']),
+                design_seconds=seconds)
+
+
+def diffractive_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 13: the diffractive and ideal elements through K1, K2, K5 and
+    K6 in their instantiation with the diffractive kinds: each kernel
+    against its plain version (the hybrid achromat at 2,999 and 1M rays, the
+    nine-channel spectrometer and the Scene of every new kind at 1M); the
+    counted paths (the hybrid's and the spectrometer's ``simulate_fused``
+    and grad steps at 1M rays, the Scene's, against the eager gradients);
+    examples 25's and 05's designs as published on the reference's rays,
+    against the JAX package's (tests/diffractive_anchors.py); then times,
+    bounds (with the new kinds' operations) and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+
+    # 13a. each kernel against its plain version
+    kern = {}
+    for name, n in (('hybrid', N_SMALL), ('hybrid', N_MAIN),
+                    ('spectrometer', N_MAIN), ('scene', N_MAIN)):
+        kern[f'{name}_{n}'] = diffractive_kernels_vs_plain(
+            rt, torch, name, n, dev, DIFF_SEED + 11)
+    emit('diffractive_kernels_vs_plain', **kern)
+
+    # 13b. the counted paths at 1M rays: forward (K1 or K5 once), a grad
+    # step (K1 + K2, K5 + K6) against the eager gradients
+    paths = {}
+    for name, lib, trained in (
+            ('hybrid', 'seq', (('lens', 'c1'), ('lens', 'c2'),
+                               ('doe', 'phase'))),
+            ('spectrometer', 'seq', (('lens', 'c1'), ('lens', 'c2'),
+                                     ('grating', 'period_um'))),
+            ('scene', 'nonseq', (('ideal', 'P'), ('doe', 'phase'),
+                                 ('grating', 'period_um'), ('mla', 'pitch'),
+                                 ('mla', 'f')))):
+        sc, params, rays, cfg, _ = diffractive_case(rt, torch, name, N_MAIN,
+                                                    dev, DIFF_SEED + 13)
+        nb = cfg.n_bundles
+        fwd_lib = 'trace_nonseq_fwd' if lib == 'nonseq' else 'trace_seq_fwd'
+        bwd_lib = fwd_lib.replace('fwd', 'bwd')
+        reset_counters()
+        with torch.no_grad():
+            _, sens, _ = sc.simulate_fused(params, rays, nb)
+        torch.cuda.synchronize()
+        fl = counters()
+        check(only(fl, **{fwd_lib: 1, 'diff': 1}), f'{name} launched {fl}')
+
+        def grads(simulate):
+            p = sc.init_params(dev)
+            for el, k in trained:
+                p[el][k].requires_grad_(True)
+            _, s_, _ = simulate(p, rays, nb)
+            loss = (s_.spot_rms(0) ** 2).sum() + s_.moments[0, :, 0].sum() \
+                / rays.n
+            loss.backward()
+            return [p[el][k].grad.clone() for el, k in trained]
+        reset_counters()
+        g_f = grads(sc.simulate_fused)
+        torch.cuda.synchronize()
+        gl = counters()
+        check(only(gl, **{fwd_lib: 1, bwd_lib: 1, 'diff': 2}),
+              f'{name} grad step launched {gl}')
+        g_e = grads(sc.simulate)
+        rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                  for a, b in zip(g_f, g_e))
+        paths[name] = dict(
+            fwd_launches=fl, grad_launches=gl, rel_err=rel,
+            sensor_share=float(sens.moments[0, :, 0].sum()) / rays.n,
+            grads={f'{el}.{k}': [float(x) for x in g.reshape(-1)]
+                   for (el, k), g in zip(trained, g_f)})
+        check(rel < GRAD_RTOL, f'{name}: fused vs eager gradients {rel}')
+    emit('diffractive_main', n=N_MAIN, **paths)
+
+    # 13c. examples 25 and 05 as published, against the JAX package's
+    anchors = {}
+    reset_counters()
+    got = hybrid_design(rt, torch, dev)
+    torch.cuda.synchronize()
+    got['launches'] = counters()
+    anchors['hybrid'] = dict(got=got, ref=HYBRID_REF)
+    # the design's steps, the two chromatic shifts' 2 x 2 traces (the bare
+    # singlet's in the extended instantiation: it has no diffractive row)
+    check(only(got['launches'], trace_seq_fwd=HYB_STEPS + 4,
+               trace_seq_bwd=HYB_STEPS, diff=2 * HYB_STEPS + 2, ext=2),
+          f'hybrid design launched {got["launches"]}')
+    check(abs(got['shift1']) * 15.0 < abs(got['shift0']),
+          f'hybrid: the shift is not cut 15x: {got}')
+    check(abs(got['p_doe'] - HYB_POWER_SPLIT) < 0.25 * HYB_POWER_SPLIT,
+          f'hybrid: DOE power {got["p_doe"]} (split {HYB_POWER_SPLIT})')
+    for k, tol in HYB_TOL.items():
+        check(abs(got[k] - HYBRID_REF[k]) <= tol,
+              f'hybrid {k}: {got[k]} (JAX {HYBRID_REF[k]})')
+    reset_counters()
+    got = spectrometer_design(rt, torch, dev)
+    torch.cuda.synchronize()
+    got['launches'] = counters()
+    anchors['spectrometer'] = dict(got=got, ref=SPECTROMETER_REF)
+    check(only(got['launches'], trace_seq_fwd=SPEC_STEPS + 2,
+               trace_seq_bwd=SPEC_STEPS, diff=2 * SPEC_STEPS + 2),
+          f'spectrometer design launched {got["launches"]}')
+    for k, tol in SPEC_TOL.items():
+        check(abs(got[k] - SPECTROMETER_REF[k])
+              <= tol * abs(SPECTROMETER_REF[k]),
+              f'spectrometer {k}: {got[k]} (JAX {SPECTROMETER_REF[k]})')
+    emit('diffractive_anchors', **anchors)
+
+    # 13d. times at 1M rays against the plain versions, bounds (the new
+    # kinds' operations) and blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    for name, key in (('hybrid', 'k1'), ('spectrometer', 'k1_spec'),
+                      ('scene', 'k5')):
+        sc, params, r, cfg, nonseq = diffractive_case(rt, torch, name,
+                                                      N_MAIN, dev,
+                                                      DIFF_SEED + 7)
+        meta = sc.static_meta()
+        flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+        kinds = torch.tensor(fused_trace.kind_rows(meta, cfg),
+                             dtype=torch.int32, device=dev)
+        maps = fused_trace.plate_maps(meta, {})
+        ext, disp = fused_trace.ext_kinds(meta), fused_trace.dispersive(meta)
+        coat = fused_trace.coat_side(meta, dev)
+        g_rays, g_mom, _ = random_cotangents(torch, r.n, cfg, dev, SEED + 6)
+        io = (r.n * (36 + 28) + table_bytes(meta)
+              + len(meta) * fused_trace.COAT_SIDE * 4)
+        cols = len(fused_trace.grad_cols((), True, disp, True, True))
+        blocks = -(-r.n // fused_trace.THREADS)
+        setup = blocks * ELLIPSE_ROW_OPS * sum(m.sb == 3 for m in meta)
+        if nonseq:
+            nb = sc.n_bounces
+            kfn = (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, nb, maps, ext, coat=coat, diff=True))
+            pfn = (lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, nb, maps))
+            bk = (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                flat, kinds, r, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+                disp=disp, coat=coat, diff=True))
+            bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                flat, r, cfg, meta, nb, g_rays, g_mom, maps=maps))
+            reps = dict(reps=4, warmup=1)
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
+                                        segment_replays(lives))
+            bounds['k5'] = bound(io, k5_ops + setup)
+            bounds['k6'] = bound(io + r.n * 28 + len(meta) * cols * 4,
+                                 k6_ops + setup)
+        else:
+            kfn = (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, ext, coat=coat, diff=True))
+            pfn = (lambda: fused_trace.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps))
+            bk = (lambda: fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=ext,
+                disp=disp, coat=coat, diff=True))
+            bp = (lambda: fused_trace.trace_seq_bwd_plain(
+                flat, r, cfg, meta, g_rays, g_mom, maps=maps))
+            reps = dict(reps=10, warmup=2)
+            k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
+            bounds[key] = bound(io, k1_ops + setup)
+            bounds[key.replace('k1', 'k2')] = bound(
+                io + r.n * 28 + len(meta) * cols * 4, 3 * k1_ops + setup)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, kfn, pfn, **reps)
+        timing[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, bk, bp, **reps)
+        timing[key.replace('k1', 'k2').replace('k5', 'k6')] = dict(
+            kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        for lib in (('trace_nonseq_fwd', 'trace_nonseq_bwd') if nonseq
+                    else ('trace_seq_fwd', 'trace_seq_bwd')):
+            occ[f'{lib}_{name}'] = fused_trace.blocks_per_sm(
+                lib, len(meta), cfg, True, sc.n_bounces, ext=True,
+                disp=disp, diff=True)
+    hyb = hybrid_scene(rt)
+    h_rays = diffractive_case(rt, torch, 'hybrid', N_MAIN, dev,
+                              DIFF_SEED + 13)[2]
+    h_p = hyb.init_params(dev)
+
+    def h_step():
+        p = hyb.init_params(dev)
+        p['doe']['phase'].requires_grad_(True)
+        _, s_, _ = hyb.simulate_fused(p, h_rays, 3)
+        rt.spot_size_loss(s_).backward()
+    for label, fn in (
+            ('simulate_fused_hybrid',
+             lambda: hyb.simulate_fused(h_p, h_rays, 3)),
+            ('grad_step_fused_hybrid', h_step)):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{label}_ms'] = statistics.median(runs)
+        timing[f'{label}_runs'] = runs
+    emit('diffractive_timing', **timing)
+    emit('diffractive_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('diffractive_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds,
+                anchors=anchors)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3614,6 +4144,7 @@ def main():
         fused_trace.V1_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
         fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
         fused_trace.FRESNEL_LAUNCHES = fused_trace.COAT_LAUNCHES = 0
+        fused_trace.DIFF_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -3632,7 +4163,8 @@ def main():
                     streams=fused_trace.STREAM_LAUNCHES,
                     record_recomputes=fused_trace.RECORD_RECOMPUTES,
                     fresnel=fused_trace.FRESNEL_LAUNCHES,
-                    coat=fused_trace.COAT_LAUNCHES)
+                    coat=fused_trace.COAT_LAUNCHES,
+                    diff=fused_trace.DIFF_LAUNCHES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -4533,6 +5065,10 @@ def main():
     # 12. thin-film coatings and metal mirrors, the mirror family
     coating = coating_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 13. the diffractive and ideal elements
+    diffractive = diffractive_phases(rt, torch, dev, reset_counters,
+                                     counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -5063,6 +5599,31 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, co_t[key]['kernel_ms'],
             co_t[key]['plain_ms']))
+    # the instantiations with the diffractive kinds (section 13): launches on
+    # the counted paths of the hybrid achromat (K1, K2) and the Scene of
+    # every new kind (K5, K6), errors at 1M rays over the cases, times and
+    # bounds on those two
+    df_k, df_t, df_b = (diffractive['kernels'], diffractive['timing'],
+                        diffractive['bounds'])
+    df_p = diffractive['paths']
+    seq_cases = [k for k in df_k if not k.startswith('scene')]
+    for name, source, line, launches_, err, key in (
+            ('trace_seq_fwd_diff', 'trace_seq_fwd.cu', 489,
+             df_p['hybrid']['fwd_launches']['trace_seq_fwd'],
+             max(df_k[c]['max_abs_err'] for c in seq_cases), 'k1'),
+            ('trace_seq_bwd_diff', 'trace_seq_bwd.cu', 1712,
+             df_p['hybrid']['grad_launches']['trace_seq_bwd'],
+             max(df_k[c]['bwd']['max_abs_err'] for c in seq_cases), 'k2'),
+            ('trace_nonseq_fwd_diff', 'trace_nonseq_fwd.cu', 1029,
+             df_p['scene']['fwd_launches']['trace_nonseq_fwd'],
+             df_k[f'scene_{N_MAIN}']['max_abs_err'], 'k5'),
+            ('trace_nonseq_bwd_diff', 'trace_nonseq_bwd.cu', 2157,
+             df_p['scene']['grad_launches']['trace_nonseq_bwd'],
+             df_k[f'scene_{N_MAIN}']['bwd']['max_abs_err'], 'k6')):
+        bounds[name] = df_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, df_t[key]['kernel_ms'],
+            df_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -61,7 +61,14 @@ Hopper.  The port covers:
   ``ParabolicMirrorOffAxis`` beside ``SphericalMirror``) with ``metal=``,
   ``coating=`` and ``metal_dispersion=``, eager and through K1, K2, K5 and
   K6 (an instantiation of their own), with the pure thin-film functions of
-  ``utils/coatings.py``.
+  ``utils/coatings.py``;
+- the diffractive and ideal elements: the radial-phase kinoform
+  ``DiffractiveLens`` (trainable ``phase``, optional efficiency), the
+  ``DiffractionGrating``, the ideal ``LinearElement``, ``IdealThinLens``,
+  ``IdealCylThinLens`` and ``IdealMirror``, the ``MicrolensArray`` and the
+  rotated ``EllipticAperture``, eager and through K1, K2, K5 and K6 (an
+  instantiation of their own), with up to 18 bundles in the fused
+  kernels.
 
 ROADMAP.md lists what is still to be ported.
 
@@ -81,10 +88,13 @@ from .core.static_dispatch import StaticRowMeta  # noqa: E402
 from .core.table import (SurfaceRec, SurfaceTable, flatten_table_rows,  # noqa: E402
                          stack_records)
 from .core.trace import trace_nonsequential, trace_sequential  # noqa: E402
-from .elements.aperture import CircularAperture, RectangularAperture  # noqa: E402
+from .elements.aperture import (CircularAperture,  # noqa: E402
+                                EllipticAperture, RectangularAperture)
 from .elements.base import Element  # noqa: E402
-from .elements.diffractive import PhaseGridPlate  # noqa: E402
-from .elements.ideal import (paraxial_dist_mat, paraxial_lens_mat,  # noqa: E402
+from .elements.diffractive import DiffractiveLens, PhaseGridPlate  # noqa: E402
+from .elements.ideal import (DiffractionGrating, IdealCylThinLens,  # noqa: E402
+                             IdealMirror, IdealThinLens, LinearElement,
+                             paraxial_dist_mat, paraxial_lens_mat,
                              paraxial_mirror_mat, paraxial_refract_mat)
 from .elements.lens import (AsphericLens, CylSingletLens,  # noqa: E402
                             DoubletLens, SingletLens, TripletLens)
@@ -92,6 +102,7 @@ from .elements.mirror import (AsphericMirror, ConicMirror,  # noqa: E402
                               CylindricalMirror, ManginMirror,
                               ParabolicMirror, ParabolicMirrorOffAxis,
                               ParabolicMirrorXZ, SphericalMirror)
+from .elements.mla import MicrolensArray  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
 from .geom.zernike import noll_nm  # noqa: E402

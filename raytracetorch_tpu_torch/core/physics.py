@@ -2,13 +2,24 @@
 
 Counterpart of ``raytracetorch_tpu/core/physics.py`` (reflection, Snell
 refraction, the unpolarized Fresnel reflectance and its Monte-Carlo branch
-draw, and the pixelated phase plate; the grating, scatter and radial-phase
-models are ROADMAP Queue 1 items 12 and 14).  ``ph[0]`` is the index on
-the side the geometric normal points toward, ``ph[1]`` the far side.  Snell
-is the physical one: n1 = medium of incidence, mu = n1 / n2.
+draw, the pixelated phase plate, and the diffractive and ideal elements: the
+linear grating, the radial-phase kinoform and its efficiency, the
+microlens array and the ideal ABCD map; the scatter lobes are ROADMAP Queue
+1 item 14).  ``ph[0]`` is the index on the side the geometric normal points
+toward, ``ph[1]`` the far side.  Snell is the physical one: n1 = medium of
+incidence, mu = n1 / n2.
+
+The diffractive and ideal maps keep every clamp of the JAX package's: 1e-12
+on a grating's period and on |d_z|, 1e-9 on a lenslet pitch, the
+``where(ok, ..., 1)`` inside each square root, ``sign(where(|d_z| < 1e-12,
+1, d_z))`` and the efficiency's ``safe`` select.  An evanescent order
+(``ok`` false) keeps the incoming local d_z, so its direction is not of
+unit length; the trace zeroes its intensity.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -146,3 +157,109 @@ def phase_grid_dir(d, Rw, hit_local, grid, order, lam0_um, wavelength_um,
     inv = 1.0 / n2
     out_local = (tx * inv, ty * inv, torch.where(ok, tz * sign * inv, dl[2]))
     return v3.rot_t(out_local, Rw), ok
+
+
+def _sign_z(dz):
+    """sign(d_z) with |d_z| < 1e-12 taken as +1 (no derivative)."""
+    return torch.sign(torch.where(torch.abs(dz) < 1e-12, 1.0, dz))
+
+
+def grating_dir(d, Rw, period_um, order, reflective, wavelength_um):
+    """Linear diffraction grating: grooves along the surface-local y axis,
+    grating vector along local x with period ``period_um``.  The tangential
+    direction component picks up m lambda / period; the normal component
+    restores unit length (its sign kept, flipped for a reflective grating).
+    Unset wavelengths (0) diffract at the d line (0.5876 um).  Returns
+    ``(new direction tuple, ok mask)``; ``ok`` is false for an evanescent
+    order."""
+    dl = v3.rot(d, Rw)
+    wl = torch.where(wavelength_um > 0, wavelength_um, 0.5876)
+    shift = order * wl / torch.clamp(period_um, min=1e-12)
+    tx = dl[0] + shift
+    ty = dl[1]
+    t2 = tx * tx + ty * ty
+    ok = t2 < 1.0
+    tz2 = torch.clamp(1.0 - t2, min=0.0)
+    tz = torch.sqrt(torch.where(ok, tz2, 1.0))
+    tz = tz * _sign_z(dl[2]) * torch.where(reflective > 0.5, -1.0, 1.0)
+    out_local = (tx, ty, torch.where(ok, tz, dl[2]))
+    return v3.rot_t(out_local, Rw), ok
+
+
+def doe_dir(d, Rw, hit_local, coeffs, order, lam0_um, wavelength_um, n1, n2):
+    """Radial-phase diffractive surface (kinoform): phi(r) = sum_k c_k
+    r^(2k) in cycles, ``coeffs`` c_k in cycles/mm^(2k).  The vector grating
+    equation in optical-momentum form in the surface frame,
+
+        n2 d_out_t = n1 d_in_t + m lam_mm grad(phi),
+
+    with the normal component restored from |p| = n2.  Unset wavelengths
+    (0) diffract at the design wavelength ``lam0_um``.  Returns ``(new
+    direction tuple, ok mask)``."""
+    dl = v3.rot(d, Rw)
+    wl = torch.where(wavelength_um > 0, wavelength_um, lam0_um)
+    lam_mm = wl * 1e-3
+    x, y = hit_local[0], hit_local[1]
+    r2 = x * x + y * y
+    gscale = torch.zeros_like(r2)
+    rpow = torch.ones_like(r2)           # r^(2(k-1))
+    for k_i, c in enumerate(coeffs, start=1):
+        gscale = gscale + (2.0 * k_i) * c * rpow
+        rpow = rpow * r2
+    kick = order * lam_mm * gscale
+    tx = n1 * dl[0] + kick * x
+    ty = n1 * dl[1] + kick * y
+    t2 = tx * tx + ty * ty
+    n2sq = n2 * n2
+    ok = t2 < n2sq
+    tz = torch.sqrt(torch.where(ok, torch.clamp(n2sq - t2, min=0.0), 1.0))
+    inv = 1.0 / n2
+    out_local = (tx * inv, ty * inv,
+                 torch.where(ok, tz * _sign_z(dl[2]) * inv, dl[2]))
+    return v3.rot_t(out_local, Rw), ok
+
+
+def kinoform_efficiency(order, lam0_um, wavelength_um):
+    """Scalar diffraction efficiency of a kinoform blazed for order m at
+    lam0: sinc^2(alpha - m), alpha = lam0 / lam (1 at the design wavelength,
+    where ``safe`` selects the constant 1 and its zero derivative)."""
+    wl = torch.where(wavelength_um > 0, wavelength_um, lam0_um)
+    a = lam0_um / wl - order
+    safe = torch.abs(a) > 1e-9
+    x = torch.where(safe, a, 1.0) * math.pi
+    return torch.where(safe, (torch.sin(x) / x) ** 2, 1.0)
+
+
+def mla_dir(d, hit_local, Rw, pitch, f_lens):
+    """Microlens array: a square grid of ideal thin lenslets of ``pitch``
+    and focal length ``f_lens`` in the surface frame.  The hit's cell
+    center is pitch * floor(x / pitch + 0.5) (a choice without derivative);
+    within the cell the thin-lens slope map sx' = sx - (x - x_cell) / f
+    applies (the same in y)."""
+    dl = v3.rot(d, Rw)
+    dz = dl[2]
+    dz_safe = torch.where(torch.abs(dz) < 1e-12, 1e-12, dz)
+    x, y = hit_local[0], hit_local[1]
+    inv_p = 1.0 / torch.clamp(pitch, min=1e-9)
+    xc = pitch * torch.floor(x * inv_p + 0.5)
+    yc = pitch * torch.floor(y * inv_p + 0.5)
+    inv_f = 1.0 / f_lens
+    nx = dl[0] / dz_safe - (x - xc) * inv_f
+    ny = dl[1] / dz_safe - (y - yc) * inv_f
+    inv = 1.0 / torch.sqrt(nx * nx + ny * ny + 1.0)
+    sign = _sign_z(dz)
+    new_local = (nx * inv * sign, ny * inv * sign, inv * sign)
+    return v3.rot_t(new_local, Rw)
+
+
+def linear_dir(d, hit_local, Rw, Cx, Cy, Dx, Dy):
+    """Ideal ABCD optic: the direction in the surface frame, normalized to
+    d_z = 1, takes the per-axis linear map on (position, slope) and is
+    renormalized; the ray always leaves towards +z of the surface frame."""
+    dl = v3.rot(d, Rw)
+    dz = dl[2]
+    dz_safe = torch.where(torch.abs(dz) < 1e-12, 1e-12, dz)
+    nx = Cx * hit_local[0] + Dx * dl[0] / dz_safe
+    ny = Cy * hit_local[1] + Dy * dl[1] / dz_safe
+    inv = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + 1.0, min=1e-12))
+    return v3.rot_t((nx * inv, ny * inv, inv), Rw)

@@ -6,17 +6,21 @@ sequential trace every row's kinds are known before the trace runs
 one physics model.
 
 The port covers the kinds of the main path, of the mirror family, of the
-pixelated phase plate and of the mixed-surface and asphere scenes: surface
-bounds NONE/DISK/RECT/HEMI/HEMI_APER, volume bounds
-NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics TRANSMIT, BLOCK, REFLECT (the
-ideal mirror, and a metal one: ``mirror_reflectances_sp``), SNELL, APERTURE
-and PHASE_GRID, the Fresnel kinds FRESNEL (the Monte-Carlo branch draw: it
-reads the ray's uniform ``u``), FRESNEL_W (refract, intensity times 1 - R)
-and REFLECT_W (the ghost reflection, intensity times R) on bare or
-thin-film coated interfaces (``coated_rt_sp``, absorbing films included),
-even-asphere rows, and dispersive media (Cauchy and Sellmeier,
-``dispersive_iors``).  Every other kind (SCATTER, the polarized field's
-JONES among them) raises NotImplementedError naming the ROADMAP item that
+pixelated phase plate, of the mixed-surface and asphere scenes and of the
+diffractive and ideal elements: surface bounds NONE/DISK/RECT/ELLIPSE/HEMI/
+HEMI_APER, volume bounds NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics
+TRANSMIT, BLOCK, REFLECT (the ideal mirror, and a metal one:
+``mirror_reflectances_sp``), SNELL, APERTURE and PHASE_GRID, the ideal ABCD
+map LINEAR, the linear GRATING, the radial-phase kinoform DOE (its
+coefficients in the row's ``ff`` columns, its term count and efficiency
+flag on ``meta.doe``) and the microlens array MLA, the Fresnel kinds
+FRESNEL (the Monte-Carlo branch draw: it reads the ray's uniform ``u``),
+FRESNEL_W (refract, intensity times 1 - R) and REFLECT_W (the ghost
+reflection, intensity times R) on bare or thin-film coated interfaces
+(``coated_rt_sp``, absorbing films included), even-asphere rows, and
+dispersive media (Cauchy and Sellmeier, ``dispersive_iors``).  Every other
+kind (SCATTER, the polarized field's JONES, GRIN, CONE_NAPPE, HALFSPACES,
+freeform surfaces) raises NotImplementedError naming the ROADMAP item that
 brings it.  ``medium_after`` gives the index of the medium a ray travels in
 after a row, for the optical path length (``track_opl``).
 """
@@ -31,8 +35,10 @@ from ..geom import vec3 as v3
 from ..geom.surfaces import sag_z
 from ..utils.coatings import (D_LINE_UM, _max, coating_rt, metal_nk_at,
                               metal_reflectance)
-from .physics import (fresnel_dir, fresnel_reflectance, phase_grid_dir,
-                      reflect_dir, refract_components, snell_dir)
+from .physics import (doe_dir, fresnel_dir, fresnel_reflectance, grating_dir,
+                      kinoform_efficiency, linear_dir, mla_dir,
+                      phase_grid_dir, reflect_dir, refract_components,
+                      snell_dir)
 
 # ROADMAP.md "Queue 1" items that bring the rest of the feature matrix
 TODO_FEATURES = 'ROADMAP Queue 1 item 12 (remaining sequential features)'
@@ -40,6 +46,9 @@ TODO_ELEMENTS = 'ROADMAP Queue 1 item 14 (remaining elements)'
 # the Fresnel kinds: the Monte-Carlo branch draw, the weighted transmission
 # and the ghost reflection
 FRESNEL_KINDS = (PhysKind.FRESNEL, PhysKind.FRESNEL_W, PhysKind.REFLECT_W)
+# the diffractive and ideal elements: per-ray direction maps of a plane
+DIFFRACTIVE_KINDS = (PhysKind.LINEAR, PhysKind.GRATING, PhysKind.DOE,
+                     PhysKind.MLA)
 
 
 def sb_check_one(kind: int, sb, hit):
@@ -53,6 +62,12 @@ def sb_check_one(kind: int, sb, hit):
         return dx_ * dx_ + dy_ * dy_ <= sb[..., 0]
     if kind == SBKind.RECT:
         return (torch.abs(x) <= sb[..., 0]) & (torch.abs(y) <= sb[..., 1])
+    if kind == SBKind.ELLIPSE:
+        # [r_major, r_minor, rotation]
+        c, s = torch.cos(sb[..., 2]), torch.sin(sb[..., 2])
+        u = x * c - y * s
+        v = x * s + y * c
+        return (u / sb[..., 0]) ** 2 + (v / sb[..., 1]) ** 2 <= 1.0
     if kind == SBKind.HEMI:
         return torch.abs(z * sb[..., 0]) < 1.0 + INTERSECT_EPS
     if kind == SBKind.HEMI_APER:
@@ -150,15 +165,18 @@ def unsupported(meta: StaticRowMeta):
         return f'freeform surfaces are {TODO_FEATURES}'
     if meta.metal and meta.ph != PhysKind.REFLECT:
         return 'a metal substrate is a REFLECT row\'s'
-    if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN,
-                   PhysKind.DOE, PhysKind.MLA):
+    if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN):
         return f'physics {PhysKind(meta.ph).name} is {TODO_ELEMENTS}'
     if meta.ph not in (PhysKind.TRANSMIT, PhysKind.BLOCK, PhysKind.REFLECT,
                        PhysKind.SNELL, PhysKind.APERTURE,
-                       PhysKind.PHASE_GRID) + FRESNEL_KINDS:
+                       PhysKind.PHASE_GRID) + FRESNEL_KINDS + \
+            DIFFRACTIVE_KINDS:
         return f'physics {PhysKind(meta.ph).name} is {TODO_FEATURES}'
-    if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.RECT, SBKind.HEMI,
-                       SBKind.HEMI_APER):
+    if meta.ph == PhysKind.DOE and not (
+            meta.doe is not None and 1 <= meta.doe[0] <= 8):
+        return 'a DOE row needs its static (1..8 terms, efficiency) doe'
+    if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.RECT, SBKind.ELLIPSE,
+                       SBKind.HEMI, SBKind.HEMI_APER):
         return f'surface bound {SBKind(meta.sb).name} is {TODO_ELEMENTS}'
     if meta.vb not in (VBKind.NONE, VBKind.APER_R2, VBKind.Z_BETWEEN,
                        VBKind.RECT, VBKind.CYL_EDGE):
@@ -306,14 +324,15 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
     order is dead): ``n2``.  ``n1`` and ``n2`` come from
     ``refract_components``, so they follow the side the ray arrives from
     (the sign of ``d . n``); a dispersive row takes its indices at the rays'
-    ``wavelength`` (``dispersive_iors``).  Every other ported kind
-    (REFLECT_W and metal mirrors among them) returns None; the kinds the
+    ``wavelength`` (``dispersive_iors``).  A DOE row, like PHASE_GRID,
+    always transmits: ``n2``.  Every other ported kind (REFLECT_W, metal
+    mirrors, LINEAR, GRATING and MLA among them) returns None; the kinds the
     port lacks are refused by ``unsupported``, as everywhere."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
     if meta.ph not in (PhysKind.SNELL, PhysKind.PHASE_GRID, PhysKind.FRESNEL,
-                       PhysKind.FRESNEL_W):
+                       PhysKind.FRESNEL_W, PhysKind.DOE):
         return None
     if meta.disp and wavelength is not None:
         n_in, n_out = dispersive_iors(row, wavelength, meta)
@@ -321,7 +340,7 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
         n_in, n_out = row.ph[..., 0], row.ph[..., 1]
     _, cos_i, n1, n2, _, tir, cos_t, _ = refract_components(d, n, n_in,
                                                             n_out)
-    if meta.ph == PhysKind.PHASE_GRID:
+    if meta.ph in (PhysKind.PHASE_GRID, PhysKind.DOE):
         return n2
     if meta.ph == PhysKind.FRESNEL:
         if meta.n_coat:
@@ -366,7 +385,18 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     (the side channel of ``Scene.side_grids``) and the rays' ``wavelength``
     (None: all unset, the plate's design wavelength); its four corner reads
     are kernel K4 on CUDA tensors (ops/phase_grid.py), its plain version
-    with ``plain=True``."""
+    with ``plain=True``.
+
+    The diffractive and ideal elements read the rays' ``wavelength`` (None:
+    all unset) and the surface-frame hit: LINEAR maps (position, slope) by
+    ph[2:6] = (Cx, Cy, Dx, Dy); GRATING diffracts order ph[3] of period
+    ph[2] um (reflective where ph[4] > 0.5); MLA focuses by lenslets of
+    pitch ph[0] and focal length ph[1]; DOE kicks by its radial phase
+    (``meta.doe`` terms of the ``ff`` columns) at order ph[2] and design
+    wavelength ph[3], between the side-aware media (dispersive where
+    ``meta.disp``), with intensity factor ``ok`` times, with the efficiency
+    flag, ``kinoform_efficiency``.  An evanescent GRATING or DOE order has
+    intensity factor 0."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
@@ -437,6 +467,37 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
             n1, n2, row.ph[..., 4], row.ph[..., 5],
             corners_fn=grid_corners_plain if plain else grid_corners)
         return out, ok.to(d[0].dtype)
+    if kind in DIFFRACTIVE_KINDS:
+        return _diffractive(meta, row, hit_local, d, n, n_in, n_out,
+                            wavelength)
     # APERTURE: the filter re-checks its own RAW (non-inverted) bound
     mod = sb_check_one(meta.sb, row.sb, hit_local).to(d[0].dtype)
     return (d[0] * mod, d[1] * mod, d[2] * mod), mod
+
+
+def _diffractive(meta, row, hit_local, d, n, n_in, n_out, wavelength):
+    """``apply_physics_one`` of the diffractive and ideal kinds."""
+    kind = meta.ph
+    wl = torch.zeros_like(d[0]) if wavelength is None else wavelength
+    if kind == PhysKind.LINEAR:
+        return linear_dir(d, hit_local, row.Rw, row.ph[..., 2],
+                          row.ph[..., 3], row.ph[..., 4],
+                          row.ph[..., 5]), torch.ones_like(d[0])
+    if kind == PhysKind.MLA:
+        return mla_dir(d, hit_local, row.Rw, row.ph[..., 0],
+                       row.ph[..., 1]), torch.ones_like(d[0])
+    if kind == PhysKind.GRATING:
+        out, ok = grating_dir(d, row.Rw, row.ph[..., 2], row.ph[..., 3],
+                              row.ph[..., 4], wl)
+        return out, ok.to(d[0].dtype)
+    n_terms, use_eff = meta.doe
+    coeffs = [row.ff[..., i] for i in range(n_terms)]
+    from_in = v3.dot(d, n) < 0
+    n1 = torch.where(from_in, n_in, n_out)
+    n2 = torch.where(from_in, n_out, n_in)
+    out, ok = doe_dir(d, row.Rw, hit_local, coeffs, row.ph[..., 2],
+                      row.ph[..., 3], wl, n1, n2)
+    imod = ok.to(d[0].dtype)
+    if use_eff:
+        imod = imod * kinoform_efficiency(row.ph[..., 2], row.ph[..., 3], wl)
+    return out, imod

@@ -129,6 +129,11 @@ class SurfaceRec:
     metal_nk: Any = None         # static ((n knots), (k knots)) of the
                                  # metal's dispersion (utils/coatings.py::
                                  # METAL_NK), on StaticRowMeta
+    ff: Sequence = ()            # a DOE row's radial phase coefficients
+                                 # (the freeform lenses' powers are not
+                                 # ported: ROADMAP Queue 2 E)
+    doe: Any = None              # static (n_radial_terms, efficiency) of a
+                                 # DOE row, on StaticRowMeta
     is_sensor: bool = False
     sensor_slot: int = 0
     is_plane: bool = False       # static: row is a z=0 plane (fast path)
@@ -177,7 +182,8 @@ def stack_records(recs, elem_ids, surf_ids, dtype=torch.float32,
         ph_kind=ints(r.ph_kind for r in recs),
         ph=torch.stack([_pad_vec(r.ph, 6, dtype, device) for r in recs]),
         asph=torch.stack([_pad_vec(r.asph, 4, dtype, device) for r in recs]),
-        ff=torch.zeros(k, MAX_FF_TERMS, dtype=dtype, device=device),
+        ff=torch.stack([_pad_vec(r.ff, MAX_FF_TERMS, dtype, device)
+                        for r in recs]),
         disp=torch.stack([_pad_vec(r.disp, 12, dtype, device) for r in recs]),
         coat=torch.stack([_pad_vec(r.coat, 16, dtype, device)
                           for r in recs]),

@@ -128,8 +128,14 @@
 // is an estimate by count (chip_smoke.py computes the bound from a run's
 // rays); PERF.md holds the measured time.
 //
-// Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
-// bundles, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
+// The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows, the
+// ELLIPSE bound) run in one more instantiation, kDiff, built on the one with
+// the coatings (an overload with one more argument, DiffKinds): its replay
+// is K5's, its reverse sweep runs diffractive_backward (trace_seq_adjoint.cuh)
+// and reduces a DOE winner's 8 ff columns after the coat columns.
+//
+// Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..18
+// bundles and slots x bundles <= 64, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
 // 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
 // 111 KB for the cavity, 198 KB at 64 rows, so the launcher raises the
 // block's dynamic shared-memory limit above 48 KB.
@@ -165,9 +171,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // (medium_after, as K5's instantiation with the streams takes it).  With
 // kFresnel a FRESNEL winner draws at `rd`'s counter, as K5 drew; with
 // kCoat (which has kFresnel) a coated or metal winner reads its row of the
-// side buffer `cside`.
+// side buffer `cside`; with kDiff (which has kCoat) the diffractive kinds.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits, float* n_cur = nullptr,
@@ -177,13 +183,13 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat>(
+  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff>(
       recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd, cside);
   if (k >= 0) bits = branch_bits<kFresnel>(hw, degen, br) | kActive;
   if constexpr (kOpl) {
     if (k >= 0)
-      *n_cur = medium_after<kDispersion, kFresnel>(tab + k * kRowWidth, kw, br.from_in, br.tir,
-                                                   pl.wl, *n_cur, br.reflect);
+      *n_cur = medium_after<kDispersion, kFresnel, kDiff>(tab + k * kRowWidth, kw, br.from_in,
+                                                          br.tir, pl.wl, *n_cur, br.reflect);
   }
   return k;
 }
@@ -225,6 +231,11 @@ struct CoatSide {
   const float* side;
 };
 
+// The instantiation with the diffractive kinds (kDiff): its overload's tag.
+struct DiffKinds {
+  int unused;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the replays also carry the index of the
 // medium, each checkpoint keeps the one before its bounce as a ninth word
@@ -233,9 +244,11 @@ struct CoatSide {
 // With kFresnel (which has kOpl) every replayed bounce draws under `key` at
 // its own counter (ray, bounce).  With kCoat (which has kFresnel) coated and
 // metal winners read their rows of `cs`, and a row's 8 coat-thickness
-// columns follow its disp columns.
+// columns follow its disp columns.  With kDiff (which has kCoat) the
+// diffractive kinds, and a DOE winner's 8 ff columns follow the coat
+// columns.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -255,13 +268,15 @@ __device__ __forceinline__ void nonseq_bwd(
     OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
+  static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols, with kCoat the coat
-  // columns after those
-  const int n_cols =
-      kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) : kCols;
+  // columns after those, with kDiff a DOE row's ff columns after those
+  const int n_cols = kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) +
+                                       (kDiff ? kMaxDoeTerms : 0)
+                                 : kCols;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
   constexpr int kRecs = kExt ? 0 : kRec4;
@@ -285,6 +300,10 @@ __device__ __forceinline__ void nonseq_bwd(
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
+  if constexpr (kDiff) {
+    ellipse_rows(tab, knd, n_rows, tid, kThreads);
+    __syncthreads();
+  }
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
   const bool live = i < n;
@@ -320,7 +339,7 @@ __device__ __forceinline__ void nonseq_bwd(
     const float ib = inten, nb = n_cur;
     uint32_t bits = 0;
     rd.bounce = static_cast<uint32_t>(b);
-    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
+    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
         recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
@@ -368,16 +387,15 @@ __device__ __forceinline__ void nonseq_bwd(
 #pragma unroll 1
       for (int b = 0; b < s; ++b) {
         rd.bounce = static_cast<uint32_t>(b);
-        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(recs, tab, knd, n_rows, pl, p,
-                                                                  d, inten, bits, &n_cur, &rd,
-                                                                  cside);
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
+            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
       }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten, nb = n_cur;
         rd.bounce = static_cast<uint32_t>(s + j);
-        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
+        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
             recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
@@ -401,16 +419,22 @@ __device__ __forceinline__ void nonseq_bwd(
       if constexpr (kDispersion) {
         WaveCt wc = {0.0f, 0.0f, 0.0f};
         int dispm = 0, coated = 0;
+        bool doe = false;
         float tc[kCoat ? kMaxCoatLayers : 1];  // kCoat: the coat columns
 #pragma unroll
         for (int c = 0; c < (kCoat ? kMaxCoatLayers : 1); ++c) tc[c] = 0.0f;
+        float tf[kDiff ? kMaxDoeTerms : 1];  // kDiff: a DOE winner's ff columns
+#pragma unroll
+        for (int c = 0; c < (kDiff ? kMaxDoeTerms : 1); ++c) tf[c] = 0.0f;
         if (act) {
-          const RowKinds kd = read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
-          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
+          const RowKinds kd =
+              read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
+          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
               tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm, n_bundles, gg, pl,
-              gmaps, gp, gd, gi, tg, &wc, &oc, cside + k * kCoatSide, tc);
+              gmaps, gp, gd, gi, tg, &wc, &oc, cside + k * kCoatSide, tc, tf);
           dispm = kd.dispm;
           coated = kd.coat & kCoatCountMask;
+          doe = kDiff && kd.ph == DOE;
         }
         if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, n_cols, lane);
         // a dispersive winner: its media's cotangents on to the disp
@@ -427,6 +451,13 @@ __device__ __forceinline__ void nonseq_bwd(
           if (partials != nullptr)
             reduce_winners<kMaxCoatLayers>(coated != 0 ? k : -1, tc,
                                            slots + kCols + wo.disp_cols, n_cols, lane);
+        }
+        // a DOE winner: its coefficients' columns
+        if constexpr (kDiff) {
+          if (partials != nullptr)
+            reduce_winners<kMaxDoeTerms>(doe ? k : -1, tf,
+                                         slots + kCols + wo.disp_cols + kMaxCoatLayers, n_cols,
+                                         lane);
         }
       } else {
         if (act)
@@ -526,12 +557,23 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey k
   nonseq_bwd<kPlates, kExt, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs);
 }
 
-// The types of the five kernels.
+// The kernel with those and the diffractive kinds.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
+                        DiffKinds) {
+  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs);
+}
+
+// The types of the six kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
 using BwdFresnelKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey);
 using BwdCoatKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide);
+using BwdDiffKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
+                               DiffKinds);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
@@ -539,25 +581,29 @@ using BwdCoatKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey,
 // The dynamic shared memory of a launch: the packed scan records (not with
 // kExt), the table, its kinds, the moment cotangent, with kCoat the side
 // buffer, the warp slots (disp_cols more columns a row on a table with a
-// dispersive row, and with kCoat 8 more) and the checkpoints.  Without the
-// records the mixed-surface Scene's 11 rows and 12 checkpoints fit two
-// blocks an SM.
-template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false>
+// dispersive row, with kCoat 8 more, with kDiff 8 more again) and the
+// checkpoints.  Without the records the mixed-surface Scene's 11 rows and
+// 12 checkpoints fit two blocks an SM.
+template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols) {
   return sizeof(float) *
          (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth +
                                          (kCoat ? kCoatSide : 0)) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
           static_cast<size_t>(kWarps) * n_rows *
-              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0)) +
+              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
+               (kDiff ? kMaxDoeTerms : 0)) +
           static_cast<size_t>(checkpoints(n_bounces)) * state_words<kOpl>() * kThreads);
 }
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 const void* kernel_fn() {
-  if constexpr (kCoat)
+  if constexpr (kDiff)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdDiffKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kCoat)
     return reinterpret_cast<const void*>(
         static_cast<BwdCoatKernel>(trace_nonseq_bwd_kernel<true, true>));
   else if constexpr (kFresnel)
@@ -576,10 +622,10 @@ const void* kernel_fn() {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -684,7 +730,9 @@ extern "C" int rtt_trace_nonseq_bwd(
 // selects the instantiation with the coatings (which also takes the Fresnel
 // kinds and the key so): the n_rows * 20 floats of ops/fused_trace.py::
 // coat_side; its partials hold 8 more columns a row (the coat thicknesses,
-// after the disp columns).  Returns a cudaError_t.
+// after the disp columns).  With `coat_side`, `diff` nonzero selects the
+// instantiation with the diffractive kinds, whose partials hold 8 more (a
+// DOE row's coefficients, after the coat columns).  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -696,8 +744,9 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
     const float* g_nfinal, uint32_t key0, uint32_t key1, int fresnel, const float* coat_side,
-    int n_bounces, long long n, void* stream) {
+    int diff, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
+  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -706,16 +755,18 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const size_t smem =
-      coat_side != nullptr
+      diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                        wo.disp_cols)
+      : coat_side != nullptr
           ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                  wo.disp_cols)
           : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  // one launch for the three instantiations: the Fresnel kernel's overload
+  // one launch for the four instantiations: the Fresnel kernel's overload
   // takes the key as its last argument, the coated one the key and the side
-  // buffer
+  // buffer, the diffractive one those and its tag
   auto go = [&](auto... draws) {
-    const cudaError_t e =
-        prepare<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) == 2>(smem);
+    const cudaError_t e = prepare<true, true, true, true, sizeof...(draws) != 0,
+                                  sizeof...(draws) >= 2, sizeof...(draws) == 3>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_nonseq_bwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -726,6 +777,7 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
             n, wo, OplIn{g_opl, g_nfinal}, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (diff) return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
 }
@@ -736,8 +788,8 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
 // plate code, 1 with it, 2 with it and the extended kinds, 3 with those and
 // dispersion on a table with a dispersive row, 4 the instantiation with the
 // path length on such a table, 5 the one with the Fresnel kinds on such a
-// table, 6 the one with the coatings on such a table.  Returns a
-// cudaError_t.
+// table, 6 the one with the coatings on such a table, 7 the one with the
+// diffractive kinds on such a table.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
@@ -745,7 +797,12 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 6) {
+  if (code == 7) {
+    smem = shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                      kDispGradCols);
+    e = prepare<true, true, true, true, true, true, true>(smem);
+    fn = kernel_fn<true, true, true, true, true, true, true>();
+  } else if (code == 6) {
     smem = shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                 kDispGradCols);
     e = prepare<true, true, true, true, true, true>(smem);

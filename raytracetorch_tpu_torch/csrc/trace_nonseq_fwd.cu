@@ -67,8 +67,8 @@
 // compares that feed branches), so it gains from more warps an SM and from
 // fewer branches on that chain, not from fewer instructions.
 //
-// Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..8
-// bundles, any bounce budget >= 0.  It reads the wavelength only with plate
+// Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..18
+// bundles and slots x bundles <= 64, any bounce budget >= 0.  It reads the wavelength only with plate
 // code; a scene with neither a plate nor a RECT bound runs the
 // instantiation without plate code (kPlates = false).  A scene with the
 // extended kinds (the caller's `ext`) runs the instantiation with plate code
@@ -109,6 +109,13 @@
 // after the kinds), so every other instantiation keeps its code.  Only the
 // winner's physics reads it: the stack runs once per coated winner and
 // bounce (twice: s and p).
+//
+// The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows, the
+// ELLIPSE bound) run in one more instantiation, kDiff, of the streams' body
+// (an overload with one more argument after the side buffer, DiffKinds), so
+// every other instantiation keeps its code: the scan tests the ELLIPSE bound
+// with its rotation's cosine and sine, written once per row and block into
+// the shared table (ellipse_rows), and only the winner evaluates its map.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
@@ -153,6 +160,11 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext, bool coat 
 // (ops/fused_trace.py::coat_side).
 struct CoatSide {
   const float* side;
+};
+
+// The instantiation with the diffractive kinds (kDiff): its overload's tag.
+struct DiffKinds {
+  int unused;
 };
 
 template <int kMomBucket, bool kPlates, bool kExt>
@@ -291,8 +303,9 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // unchanged, zero hits, weights and slots.  With kFresnel it also runs the
 // Fresnel kinds, a FRESNEL winner drawing Philox under `key`; with kCoat
 // (which has kFresnel) the coated and metal winners weigh by their stacks,
-// reading their rows of `cs`.
-template <int kMomBucket, bool kFresnel = false, bool kCoat = false>
+// reading their rows of `cs`; with kDiff (which has kCoat) the diffractive
+// kinds and the ELLIPSE bound.
+template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -306,6 +319,7 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so,
     PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}) {
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
+  static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   constexpr bool kPlates = true, kExt = true;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -327,6 +341,10 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
   }
   __syncthreads();
+  if constexpr (kDiff) {
+    ellipse_rows(tab, knd, n_rows, tid, kThreads);
+    __syncthreads();
+  }
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
   const bool live = i < n;
@@ -371,15 +389,15 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     PhysBranch br = {};
     SensorRec rec;
     const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
-    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat>(
+    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff>(
         recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd, cside);
     if (k_win < 0) {
       b_end = b;
       break;
     }
     opl = opl + n_cur * hw.t;
-    n_cur = medium_after<kExt, kFresnel>(tab + k_win * kRowWidth, kd, br.from_in, br.tir, pl.wl,
-                                         n_cur, br.reflect);
+    n_cur = medium_after<kExt, kFresnel, kDiff>(tab + k_win * kRowWidth, kd, br.from_in, br.tir,
+                                                pl.wl, n_cur, br.reflect);
     if (live && so.paths != nullptr) {
       float* dst = so.paths + 3 * b * n + i;
       dst[0] = p.x;
@@ -503,6 +521,16 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, Coat
   nonseq_fwd_streams<kMomBucket, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs);
 }
 
+// The kernel with the streams, the Fresnel kinds, the coatings and the
+// diffractive kinds.
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
+                        DiffKinds) {
+  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
+  nonseq_fwd_streams<kMomBucket, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs);
+}
+
 // Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
 // one after the other), into 4 n words: the device generator's known-answer
 // check (tests/test_torch_cuda.py, chip_smoke.py).
@@ -515,20 +543,25 @@ __global__ void philox_kernel(const uint32_t* __restrict__ ctr, const uint32_t* 
   for (int w = 0; w < 4; ++w) out[4 * j + w] = c[w];
 }
 
-// The types of the four kernels.
+// The types of the five kernels.
 using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey);
 using FwdCoatKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide);
+using FwdDiffKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
+                               DiffKinds);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 const void* kernel_fn() {
-  if constexpr (kCoat)
+  if constexpr (kDiff)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdDiffKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else if constexpr (kCoat)
     return reinterpret_cast<const void*>(
         static_cast<FwdCoatKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
   else if constexpr (kFresnel)
@@ -552,10 +585,11 @@ struct PlateArgs {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat>(),
+  return cudaFuncSetAttribute(
+      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -594,10 +628,14 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
-// Fresnel kinds, 6 the one with the coatings) and moment bucket, its shared
-// memory allowed.
+// Fresnel kinds, 6 the one with the coatings, 7 the one with the
+// diffractive kinds) and moment bucket, its shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 7) {
+    *e = prepare<kMomBucket, true, true, true, true, true, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, true, true, true>();
+  }
   if (code == 6) {
     *e = prepare<kMomBucket, true, true, true, true, true>(smem);
     return kernel_fn<kMomBucket, true, true, true, true, true>();
@@ -625,7 +663,7 @@ const void* kernel_of(int code, size_t smem, cudaError_t* e) {
 // The instantiation with the streams, or with `draws` (the Philox key) the
 // one with the Fresnel kinds too: the Fresnel kernel's overload takes the
 // key as its last argument; with the key and the side buffer the one with
-// the coatings.
+// the coatings; with those and the tag the one with the diffractive kinds.
 template <int kMomBucket, class... Draws>
 int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const float* table,
                    const int32_t* kinds, int n_rows, const float* const* rays,
@@ -633,8 +671,8 @@ int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const flo
                    int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
                    const PlateArgs& pa, int n_bounces, long long n, const StreamOut& so,
                    Draws... draws) {
-  const cudaError_t e =
-      prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0, sizeof...(Draws) == 2>(smem);
+  const cudaError_t e = prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0,
+                                sizeof...(Draws) >= 2, sizeof...(Draws) == 3>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   trace_nonseq_fwd_kernel<kMomBucket, true, true>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
@@ -703,7 +741,8 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
 // without it the key is ignored.  `coat_side`, when not null, selects the
 // instantiation with the coatings (which also takes the Fresnel kinds and
 // reads the key so): the n_rows * 20 floats of ops/fused_trace.py::
-// coat_side.  Returns a cudaError_t.
+// coat_side; with it, `diff` nonzero selects the one with the diffractive
+// kinds.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -712,8 +751,9 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
     float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, int fresnel,
-    const float* coat_side, int n_bounces, long long n, void* stream) {
+    const float* coat_side, int diff, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
+  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -738,6 +778,7 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
                               n_bounces, n, so, draws...);
   };
+  if (diff) return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
 }
@@ -758,13 +799,14 @@ extern "C" int rtt_philox4x32(const uint32_t* ctr, const uint32_t* key, uint32_t
 // memory, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 // `code`: 0 without plate code, 1 with it, 2 (or 3, as K2's and K6's code
 // for a table with a dispersive row) with it and the extended kinds, 4 the
-// instantiation with the streams, 5 the one with the Fresnel kinds.
-// Returns a cudaError_t.
+// instantiation with the streams, 5 the one with the Fresnel kinds, 6 the
+// one with the coatings, 7 the one with the diffractive kinds.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code == 6);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code >= 6);
   cudaError_t e;
   const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
                                             : kernel_of<64>(code, smem, &e);

@@ -32,6 +32,19 @@
 // index: ph[0:2], or through a dispersive metal's knots the wavelength), the
 // wavelength, and the layers' thicknesses, whose cotangents a row's
 // adjoint adds into `tc` (the coat columns, reduced after the others).
+//
+// The diffractive and ideal elements (kDiff): a LINEAR, GRATING, MLA or DOE
+// row's direction map is reversed by diffractive.cuh's adjoints into the
+// direction, the surface-frame hit (so through the intersection into the
+// position, the direction and the table), the row's Rw and ph[0:6], the
+// ray's wavelength, a DOE row's media and its radial coefficients, which a
+// row's adjoint adds into `tf` (the ff columns, reduced after the coat
+// columns).  GRATING's and DOE's evanescence is the saved bit kPgOk (an
+// evanescent order passes its local d_z through and zeroes the intensity),
+// DOE's side the saved kFromIn; the lenslet cell and the sign of d_z are
+// recomputed from the replayed state, which reaches the forward's bit for
+// bit.  A DOE row's efficiency passes the intensity's cotangent through
+// sinc^2 (none where the `safe` select took the constant 1).
 
 #pragma once
 
@@ -73,7 +86,7 @@ constexpr uint32_t kDnPos = 1u << 6;    // d.n > 0
 constexpr uint32_t kTir = 1u << 7;      // total internal reflection
 constexpr uint32_t kN2Small = 1u << 8;  // |n2| < 1e-12
 constexpr uint32_t kMod = 1u << 9;      // APERTURE passes the ray
-constexpr uint32_t kPgOk = 1u << 10;    // PHASE_GRID: not evanescent
+constexpr uint32_t kPgOk = 1u << 10;    // PHASE_GRID, GRATING, DOE: not evanescent
 constexpr uint32_t kUClip = 1u << 11;   // PHASE_GRID: u clipped
 constexpr uint32_t kVClip = 1u << 12;   // PHASE_GRID: v clipped
 constexpr uint32_t kReflect = 1u << 13; // FRESNEL: the draw chose reflection
@@ -185,21 +198,22 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
 // One row of K1's chain: updates (p, d, inten) where the row is active and
 // returns the row's bits.  With kFresnel a FRESNEL row draws with the ray's
 // uniform u, and a REFLECT_W row zeroes the intensity of a ray it does not
-// hold.
+// hold.  With kDiff the diffractive kinds and the ELLIPSE bound.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
                                                 const Plates& pl, V3& p, V3& d, float& inten,
                                                 float u = 0.0f, const float* side = nullptr) {
-  const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
+  const RowHit h = intersect_row<kPlates, kExt, kDiff>(r, kd, p, d);
   bool degen = false;
-  const V3 nw = uses_normal<kFresnel>(kd.ph) || (kPlates && kd.ph == PHASE_GRID)
+  const V3 nw = uses_normal<kFresnel>(kd.ph) || (kPlates && kd.ph == PHASE_GRID) ||
+                        (kDiff && kd.ph == DOE)
                     ? world_normal<kExt>(r, kd.plane, h.hs, &degen, kd.asph)
                     : V3{0.0f, 0.0f, 1.0f};
   PhysBranch br = {};
   V3 nd;
   float imod;
-  apply_physics<kPlates, kExt, kDispersion, kFresnel, kCoat>(
+  apply_physics<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff>(
       r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br, kd.dispm, u, kd.coat, side);
   uint32_t bits = branch_bits<kFresnel>(h, degen, br);
   if (h.valid && inten > 0.0f) {
@@ -562,6 +576,65 @@ __device__ __forceinline__ void phase_grid_backward(const float* r, const RowKin
     for (int j = 0; j < 3; ++j) tg[kGRw + 3 * i + j] += dv[i] * gdl[j];
 }
 
+// Adjoint of diffractive_physics (kDiff) at surface-frame hit hs: g_nd, the
+// cotangent of the new direction, adds those of the incoming direction d
+// (g_d), of the hit's x and y (g_hs), of the row's Rw and ph[0:6] (tg), of a
+// DOE row's media (media_backward) and coefficients (tf[0:8]), and of the
+// ray's wavelength (wc->wl).  g_eta is the cotangent of a DOE row's
+// efficiency (0 where it has none or the order is evanescent), g_n2_medium
+// that of the medium after a DOE row (the path length's).  The side and the
+// evanescence come from the row's bits.
+template <bool kDispersion>
+__device__ __forceinline__ void diffractive_backward(const float* r, const RowKinds& kd,
+                                                     const Plates& pl, V3 d, V3 hs,
+                                                     uint32_t bits, V3 g_nd, float g_n2_medium,
+                                                     float g_eta, V3& g_d, V3& g_hs, float* tg,
+                                                     WaveCt* wc, float* tf) {
+  const float* Rw = r + kRw;
+  const V3 dv = rot(d, Rw);
+  const Loc dl = {dv.x, dv.y, dv.z};
+  const V3 gv = rot(g_nd, Rw);  // the cotangent of the surface-frame direction
+  const Loc g_ol = {gv.x, gv.y, gv.z};
+  Loc ol, g_dl = {0.0f, 0.0f, 0.0f};
+  bool ok;
+  if (kd.ph == LINEAR) {
+    ol = linear_local(dl, hs.x, hs.y, r + kPh + 2);
+    linear_local_ct(dl, hs.x, hs.y, r + kPh + 2, g_ol, g_dl, g_hs.x, g_hs.y, tg + kGPh + 2);
+  } else if (kd.ph == MLA) {
+    ol = mla_local(dl, hs.x, hs.y, r[kPh], r[kPh + 1]);
+    mla_local_ct(dl, hs.x, hs.y, r[kPh], r[kPh + 1], g_ol, g_dl, g_hs.x, g_hs.y, tg[kGPh],
+                 tg[kGPh + 1]);
+  } else if (kd.ph == GRATING) {
+    ol = grating_local(dl, r[kPh + 2], r[kPh + 3], r[kPh + 4], pl.wl, ok);
+    grating_local_ct(dl, r[kPh + 2], r[kPh + 3], r[kPh + 4], pl.wl, g_ol, g_dl, tg[kGPh + 2],
+                     tg[kGPh + 3], wc->wl);
+  } else {
+    const bool from_in = bits & kFromIn;
+    float n1, n2;
+    media_iors<kDispersion>(r, from_in, kd.dispm, pl.wl, n1, n2);
+    const int n_terms = doe_of(kd.coat) & kDoeTermsMask;
+    ol = doe_local(dl, hs.x, hs.y, r + kFf, n_terms, r[kPh + 2], r[kPh + 3], pl.wl, n1, n2, ok);
+    DoeCt dc = {};
+    doe_local_ct(dl, hs.x, hs.y, r + kFf, n_terms, r[kPh + 2], r[kPh + 3], pl.wl, n1, n2, g_ol,
+                 g_n2_medium, g_dl, g_hs.x, g_hs.y, dc);
+    if (doe_of(kd.coat) & kDoeEfficiency)
+      kinoform_eff_ct(r[kPh + 2], r[kPh + 3], pl.wl, g_eta, dc);
+    tg[kGPh + 2] += dc.order;
+    tg[kGPh + 3] += dc.lam0;
+    wc->wl += dc.wl;
+    media_backward<kDispersion>(kd.dispm, from_in, dc.n1, dc.n2, tg, wc);
+    for (int k = 0; k < n_terms; ++k) tf[k] += dc.c[k];
+  }
+  // ---- nd = ol @ Rw.T, dl = d @ Rw ----
+  const float gnd[3] = {g_nd.x, g_nd.y, g_nd.z}, olv[3] = {ol.x, ol.y, ol.z};
+  const float dvv[3] = {d.x, d.y, d.z}, gdl[3] = {g_dl.x, g_dl.y, g_dl.z};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tg[kGRw + 3 * i + j] += gnd[i] * olv[j] + dvv[i] * gdl[j];
+  g_d = fma3(g_d, 1.0f, rot_t(V3{g_dl.x, g_dl.y, g_dl.z}, Rw));
+}
+
 // ---- Adjoints of an even asphere (kExt) ----
 //
 // Like autograd of the plain version (and jax.vjp of the TPU kernel's
@@ -769,19 +842,22 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // With kCoat (which has kFresnel) a coated row's weight goes through its
 // stack (`side`, its side-buffer row) and a metal REFLECT row's through its
 // metal's (stack_weight_backward); the thicknesses' cotangents add into
-// tc[kMaxCoatLayers].
+// tc[kMaxCoatLayers].  With kDiff (which has kCoat) the diffractive kinds
+// (diffractive_backward); a DOE row's coefficients' cotangents add into
+// tf[kMaxDoeTerms].
 template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
                                              const Plates& pl, float* gmaps, V3& gp, V3& gd,
                                              float& gi, float* tg, WaveCt* wc = nullptr,
                                              OplCt* oc = nullptr, const float* side = nullptr,
-                                             float* tc = nullptr) {
+                                             float* tc = nullptr, float* tf = nullptr) {
   static_assert(kDispersion || !kOpl, "the path length runs with dispersion");
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
+  static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   if (!(bits & kActive)) {  // where(active, new, old) passes through
     if (kFresnel && kd.ph == REFLECT_W) gi = 0.0f;
     return;
@@ -852,6 +928,16 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
                        (kPlates && kd.ph == PHASE_GRID && !(bits & kPgOk))
                    ? 0.0f
                    : 1.0f;
+  // kDiff: an evanescent GRATING or DOE order's 0, a DOE row's efficiency
+  // and its cotangent g_eta
+  float g_eta = 0.0f;
+  if constexpr (kDiff) {
+    if ((kd.ph == GRATING || kd.ph == DOE) && !(bits & kPgOk)) imod = 0.0f;
+    if (kd.ph == DOE && (doe_of(kd.coat) & kDoeEfficiency) && (bits & kPgOk)) {
+      imod = kinoform_eff(r[kPh + 2], r[kPh + 3], pl.wl);
+      g_eta = gi * inten;
+    }
+  }
   // kFresnel: FRESNEL_W's clip(1 - R, 0, 1) and REFLECT_W's clip(R, 0, 1)
   // away from TIR, and R's cotangent g_R
   const bool weighted = kFresnel && (kd.ph == FRESNEL_W || kd.ph == REFLECT_W) &&
@@ -882,7 +968,8 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   float g_medium = 0.0f;  // the cotangent of the medium after a refracting row
   if constexpr (kOpl) {
     const bool refracts = kd.ph == SNELL || (kPlates && kd.ph == PHASE_GRID) ||
-                          (kFresnel && (kd.ph == FRESNEL || kd.ph == FRESNEL_W));
+                          (kFresnel && (kd.ph == FRESNEL || kd.ph == FRESNEL_W)) ||
+                          (kDiff && kd.ph == DOE);
     g_medium = refracts ? oc->g_n : 0.0f;
     g_t += oc->g_opl * oc->n_cur;
     oc->g_n = (refracts ? 0.0f : oc->g_n) + oc->g_opl * t;
@@ -964,6 +1051,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     media_backward<kDispersion>(kd.dispm, from_in, g_n1, g_n2, tg, wc);
     g_d = fma3(g_d, g_dn, nw);
     g_nw = fma3(g_nw, g_dn, d);
+  } else if (kDiff && (kd.ph == LINEAR || kd.ph == GRATING || kd.ph == MLA || kd.ph == DOE)) {
+    diffractive_backward<kDispersion>(r, kd, pl, d, hs, bits, g_nd, g_medium, g_eta, g_d, g_hs,
+                                      tg, wc, tf);
   }
   if constexpr (kFresnel) {
     if (weighted) fresnel_weight_backward<kDispersion>(kd, ff, d, nw, bits, g_R, g_d, g_nw, tg, wc);

@@ -114,6 +114,13 @@
 //   takes a coated or metal row's weight back through the row's stack
 //   (thin_film.cuh::stack_rt_ct, recomputed there: no saved state for it)
 //   and reduces the 8 coat-thickness columns after the others.
+// - The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows,
+//   the ELLIPSE bound): an eighth instantiation, kDiff, built on the
+//   seventh (an overload with one more argument, DiffKinds), so that the
+//   others keep their code.  Its reverse sweep runs diffractive_backward
+//   (trace_seq_adjoint.cuh, diffractive.cuh) and reduces a DOE row's 8 ff
+//   columns after the coat columns, only on DOE rows; GRATING and DOE rows
+//   add their share to the wavelength's cotangent.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -180,6 +187,11 @@ struct CoatSide {
   const float* side;
 };
 
+// The instantiation with the diffractive kinds (kDiff): its overload's tag.
+struct DiffKinds {
+  int unused;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the forward sweep also carries the
 // index of the medium and saves it before each row as a ninth state word
@@ -189,9 +201,11 @@ struct CoatSide {
 // (which has kOpl) a FRESNEL row of the forward sweep reads the ray's
 // uniform from the next stream of `dr`.  With kCoat (which has kFresnel)
 // coated and metal rows read their rows of `cs`, and a row's 8
-// coat-thickness columns follow its disp columns.
+// coat-thickness columns follow its disp columns.  With kDiff (which has
+// kCoat) the diffractive kinds, and a DOE row's 8 ff columns follow the coat
+// columns.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -208,14 +222,16 @@ __device__ __forceinline__ void seq_bwd(
     OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
+  static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kStride = kShared ? kThreads : 1;
   constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols, with kCoat the coat
-  // columns after those
-  const int n_cols =
-      kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) : kCols;
+  // columns after those, with kDiff a DOE row's ff columns after those
+  const int n_cols = kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) +
+                                       (kDiff ? kMaxDoeTerms : 0)
+                                 : kCols;
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
@@ -238,6 +254,10 @@ __device__ __forceinline__ void seq_bwd(
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
+  if constexpr (kDiff) {
+    ellipse_rows(tab, knd, n_rows, tid, kThreads);
+    __syncthreads();
+  }
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
   const bool live = i < n;
@@ -268,15 +288,15 @@ __device__ __forceinline__ void seq_bwd(
         ++f;
       }
     }
-    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat>(
+    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff>(
         tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide);
     put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
     if constexpr (kOpl) {
       put_medium<kStride>(saved + k * kWords * kStride, n_cur);
       if (bits & kActive)
-        n_cur = medium_after<kDispersion, kFresnel>(tab + k * kRowWidth, kd, bits & kFromIn,
-                                                    bits & kTir, pl.wl, n_cur,
-                                                    bits & kReflect);
+        n_cur = medium_after<kDispersion, kFresnel, kDiff>(tab + k * kRowWidth, kd,
+                                                           bits & kFromIn, bits & kTir, pl.wl,
+                                                           n_cur, bits & kReflect);
     }
   }
 
@@ -310,9 +330,12 @@ __device__ __forceinline__ void seq_bwd(
       float tc[kCoat ? kMaxCoatLayers : 1];  // kCoat: the coat columns
 #pragma unroll
       for (int c = 0; c < (kCoat ? kMaxCoatLayers : 1); ++c) tc[c] = 0.0f;
-      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(
+      float tf[kDiff ? kMaxDoeTerms : 1];  // kDiff: a DOE row's ff columns
+#pragma unroll
+      for (int c = 0; c < (kDiff ? kMaxDoeTerms : 1); ++c) tf[c] = 0.0f;
+      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
           r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc,
-          cside + k * kCoatSide, tc);
+          cside + k * kCoatSide, tc, tf);
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
       if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
@@ -330,6 +353,11 @@ __device__ __forceinline__ void seq_bwd(
       if constexpr (kCoat) {
         if (any && (kd.coat & kCoatCountMask) != 0)
           reduce_cols<kMaxCoatLayers>(tc, slot + kCols + wo.disp_cols, lane);
+      }
+      // a DOE row (warp-uniform): its coefficients' columns
+      if constexpr (kDiff) {
+        if (any && kd.ph == DOE)
+          reduce_cols<kMaxDoeTerms>(tf, slot + kCols + wo.disp_cols + kMaxCoatLayers, lane);
       }
     } else {
       row_backward<kPlates, kExt>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp,
@@ -422,12 +450,24 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, Coat
   seq_bwd<kShared, kPlates, kExt, true, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr, cs);
 }
 
-// The types of the five kernels.
+// The kernel with those and the diffractive kinds.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
+                     DiffKinds) {
+  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr,
+                                                                cs);
+}
+
+// The types of the six kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
 using BwdFresnelKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws);
 using BwdCoatKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide);
+using BwdDiffKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
+                               DiffKinds);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -443,25 +483,29 @@ struct PlateArgs {
 
 // The dynamic shared memory of a launch: the table, its kinds, the moment
 // cotangent, with kCoat the side buffer, the warp slots (disp_cols more
-// columns a row on a table with a dispersive row, and with kCoat 8 more)
-// and, for tables of up to kSharedRows rows, the saved states (a word more
-// a row with the path length).
-template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false>
+// columns a row on a table with a dispersive row, with kCoat 8 more, with
+// kDiff 8 more again) and, for tables of up to kSharedRows rows, the saved
+// states (a word more a row with the path length).
+template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols) {
   const size_t rows = static_cast<size_t>(n_rows);
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
           (kCoat ? rows * kCoatSide : 0) +
           static_cast<size_t>(kWarps) * rows *
-              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0)) +
+              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
+               (kDiff ? kMaxDoeTerms : 0)) +
           (n_rows <= kSharedRows ? rows * state_words<kOpl>() * kThreads : 0));
 }
 
 // The kernel of an instantiation.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
 const void* kernel_fn() {
-  if constexpr (kCoat)
+  if constexpr (kDiff)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdDiffKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kCoat)
     return reinterpret_cast<const void*>(
         static_cast<BwdCoatKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else if constexpr (kFresnel)
@@ -481,20 +525,20 @@ const void* kernel_fn() {
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>();
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
   return n_rows <= kSharedRows
-             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(smem, fn)
-             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat>(smem, fn);
+             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(smem, fn)
+             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(smem, fn);
 }
 
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
@@ -611,7 +655,10 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
 // when not null, selects the instantiation with the coatings (which also
 // takes the Fresnel kinds and reads `uniforms` so): the n_rows * 20 floats
 // of ops/fused_trace.py::coat_side; its partials hold 8 more columns a row
-// (the coat thicknesses, after the disp columns).  Returns a cudaError_t.
+// (the coat thicknesses, after the disp columns).  With `coat_side`, `diff`
+// nonzero selects the instantiation with the diffractive kinds, whose
+// partials hold 8 more (a DOE row's coefficients, after the coat columns).
+// Returns a cudaError_t.
 extern "C" int rtt_trace_seq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -622,8 +669,9 @@ extern "C" int rtt_trace_seq_bwd_opl(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
     const float* g_nfinal, const float* uniforms, int n_draws, int fresnel,
-    const float* coat_side, long long n, void* stream) {
+    const float* coat_side, int diff, long long n, void* stream) {
   if (n <= 0) return 0;
+  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (coat_side != nullptr) fresnel = 1;
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -635,18 +683,20 @@ extern "C" int rtt_trace_seq_bwd_opl(
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const OplIn oi = {g_opl, g_nfinal};
   const size_t smem =
-      coat_side != nullptr
+      diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols)
+      : coat_side != nullptr
           ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols)
           : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  // one launch per row layout for the three instantiations: the Fresnel
+  // one launch per row layout for the four instantiations: the Fresnel
   // kernel's overload takes the draws as its last argument, the coated one
-  // the draws and the side buffer
+  // the draws and the side buffer, the diffractive one those and its tag
   auto go = [&](auto... draws) {
     const void* fn;
-    const cudaError_t e = prepare_rows<true, true, true, true, sizeof...(draws) != 0,
-                                       sizeof...(draws) == 2>(n_rows, smem, &fn);
+    const cudaError_t e =
+        prepare_rows<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
+                     sizeof...(draws) == 3>(n_rows, smem, &fn);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (n_rows <= kSharedRows)
       trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
@@ -662,6 +712,7 @@ extern "C" int rtt_trace_seq_bwd_opl(
           gmaps, n, wo, oi, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (diff) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
@@ -673,19 +724,23 @@ extern "C" int rtt_trace_seq_bwd_opl(
 // it, 2 with it and the extended kinds, 3 with those and dispersion on a
 // table with a dispersive row, 4 the instantiation with the path length on
 // such a table, 5 the one with the Fresnel kinds on such a table, 6 the one
-// with the coatings on such a table.
+// with the coatings on such a table, 7 the one with the diffractive kinds
+// on such a table.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
   const size_t smem =
-      code == 6   ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      code == 7 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      : code == 6 ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code >= 4 ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code >= 2 ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 6   ? prepare_rows<true, true, true, true, true, true>(n_rows, smem, &fn)
+  const cudaError_t e = code == 7 ? prepare_rows<true, true, true, true, true, true, true>(
+                                        n_rows, smem, &fn)
+                        : code == 6 ? prepare_rows<true, true, true, true, true, true>(n_rows, smem, &fn)
                         : code == 5 ? prepare_rows<true, true, true, true, true>(n_rows, smem, &fn)
                         : code == 4 ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
                         : code == 3 ? prepare_rows<true, true, true>(n_rows, smem, &fn)

@@ -56,6 +56,20 @@
 // thin_film.cuh's.  One stack evaluation per ray and row serves both the
 // branch and medium_after (which reads the branch's bit), in the order the
 // ray meets the layers.
+//
+// The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows,
+// and the ELLIPSE surface bound) take one more compile-time flag, kDiff, set
+// only in one more instantiation of each kernel, built on the one with the
+// coatings (so that every combination the JAX kernels run runs here: a DOE
+// beside dispersive glass, a grating beside a coated lens, a DOE under the
+// path length): every other instantiation holds none of their code.  Their
+// maps are diffractive.cuh's.  A DOE row's term count and efficiency flag
+// ride its kinds row above the coating's bits (so in RowKinds::coat above
+// its masks: doe_of), its coefficients its flat row's ff columns (in shared
+// memory with the rest of the row).  The
+// ELLIPSE bound reads its rotation's cosine and sine, which each block
+// writes once per row over the rotation and the unused fourth bound word of
+// its shared copy of the table (ellipse_rows).
 
 #pragma once
 
@@ -63,6 +77,7 @@
 
 #include <cuda_runtime.h>
 
+#include "diffractive.cuh"
 #include "grid_corners.cuh"
 #include "thin_film.cuh"
 
@@ -78,6 +93,7 @@ constexpr int kMoments = 7;
 constexpr int kQ = 0, kNSign = 5, kRw = 6, kTw = 15, kRs = 18, kTs = 27;
 constexpr int kSb = 30, kVb = 34, kPh = 42, kAsph = 48, kDisp = 52;
 constexpr int kCoatCol = 104;  // the thin-film stack: (index, thickness) x 8
+constexpr int kFf = 120;       // a DOE row's radial phase coefficients
 
 // Columns of a kinds row (ops/fused_trace.py::kind_rows).
 constexpr int kPhCol = 0, kSbCol = 1, kVbCol = 2, kPlaneCol = 3;
@@ -106,12 +122,23 @@ enum PhysKind {
   REFLECT = 2,
   SNELL = 3,
   FRESNEL = 4,
+  LINEAR = 5,
   APERTURE = 6,
+  GRATING = 7,
   FRESNEL_W = 8,
   REFLECT_W = 9,
+  DOE = 13,
+  MLA = 14,
   PHASE_GRID = 15
 };
-enum SBKind { SB_NONE = 0, SB_DISK = 1, SB_RECT = 2, SB_HEMI = 4, SB_HEMI_APER = 5 };
+enum SBKind {
+  SB_NONE = 0,
+  SB_DISK = 1,
+  SB_RECT = 2,
+  SB_ELLIPSE = 3,
+  SB_HEMI = 4,
+  SB_HEMI_APER = 5
+};
 enum VBKind { VB_NONE = 0, VB_APER_R2 = 1, VB_Z_BETWEEN = 2, VB_RECT = 3, VB_CYL_EDGE = 4 };
 
 struct V3 {
@@ -146,8 +173,10 @@ __device__ __forceinline__ V3 rot_t(V3 v, const M& R) {
 // A surface bound of both roots' surface-frame hits a and b, under one
 // dispatch on the kind.  The RECT bound (a phase plate's or a rectangular
 // stop's) is plate code: only the kPlates instantiation tests it.  `sb` is
-// the row's bound parameters: a pointer into a flat row, or Vals<3>.
-template <bool kPlates, class S>
+// the row's bound parameters: a pointer into a flat row, or Vals<3>.  With
+// kDiff (which scans flat rows) the ELLIPSE bound reads its axes and its
+// rotation's cosine and sine (sb[2], sb[3]: ellipse_rows).
+template <bool kPlates, bool kDiff = false, class S>
 __device__ __forceinline__ void sb_check2(int kind, const S& sb, V3 a, V3 b, bool& ka,
                                           bool& kb) {
   if (kind == SB_DISK) {
@@ -164,6 +193,9 @@ __device__ __forceinline__ void sb_check2(int kind, const S& sb, V3 a, V3 b, boo
   } else if (kind == SB_HEMI_APER) {
     ka = fabsf(a.z * sb[0]) < 1.0f + kIntersectEps && a.x * a.x + a.y * a.y <= sb[1];
     kb = fabsf(b.z * sb[0]) < 1.0f + kIntersectEps && b.x * b.x + b.y * b.y <= sb[1];
+  } else if (kDiff && kind == SB_ELLIPSE) {
+    ka = ellipse_in(a.x, a.y, sb[0], sb[1], sb[2], sb[3]);
+    kb = ellipse_in(b.x, b.y, sb[0], sb[1], sb[2], sb[3]);
   } else {
     ka = true;
     kb = true;
@@ -171,11 +203,30 @@ __device__ __forceinline__ void sb_check2(int kind, const S& sb, V3 a, V3 b, boo
 }
 
 // The surface bound of one hit h.
-template <bool kPlates, class S>
+template <bool kPlates, bool kDiff = false, class S>
 __device__ __forceinline__ bool sb_check(int kind, const S& sb, V3 h) {
   bool k, unused;
-  sb_check2<kPlates>(kind, sb, h, h, k, unused);
+  sb_check2<kPlates, kDiff>(kind, sb, h, h, k, unused);
   return k;
+}
+
+// The row setup of the instantiation with the diffractive kinds: each
+// ELLIPSE row of the block's shared table `tab` (kinds `knd`) gets its
+// rotation's cosine and sine in place of the rotation and of the bound's
+// unused fourth word, once per row and block (the bound has no cotangent,
+// so nothing reads the rotation itself again).  Every thread of the block
+// calls it between a __syncthreads() that ends the table's copy and one
+// before the rows are read.
+__device__ __forceinline__ void ellipse_rows(float* tab, const int32_t* knd, int n_rows, int tid,
+                                             int n_threads) {
+  for (int k = tid; k < n_rows; k += n_threads) {
+    if (knd[k * kKindWidth + kSbCol] == SB_ELLIPSE) {
+      float* sb = tab + k * kRowWidth + kSb;
+      const float rotation = sb[2];
+      sb[2] = cosf(rotation);
+      sb[3] = sinf(rotation);
+    }
+  }
 }
 
 // Sag of a curvature-c surface at radius r (geom/surfaces.py::sag_z).
@@ -217,13 +268,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // The kinds of one table row, read from its int32 kinds row.  dispm holds a
 // dispersive row's two DispModels (disp_model; 0: not dispersive), coat a
-// coated or metal row's layer count and flags (thin_film.cuh; 0: none).
+// coated or metal row's layer count and flags (thin_film.cuh; 0: none) and,
+// above them, a DOE row's term count and efficiency flag (doe_of).
 struct RowKinds {
   int ph, sb, vb, slot, map;
   bool plane, sensor, invert, asph;
   int dispm;
   int coat;
 };
+
+// A DOE row's term count and efficiency flag (diffractive.cuh), from the
+// coat bits of its kinds (the column's bits from kDoeShift on).
+__device__ __forceinline__ int doe_of(int coat) { return coat >> (kDoeShift - kCoatShift); }
 
 // The row's kinds; without kExt the surface column is 0 or 1 and asph is
 // false; without kDispersion the physics column holds the kind alone and
@@ -590,8 +646,8 @@ struct RowHit {
 // sag), surface-local bound per root, the minimum positive root above the
 // world-scale epsilon, then the volume bound.  The row is a RecRow or a
 // FlatRowRef (a FlatRowRef only with kExt): the same arithmetic on the same
-// values.
-template <bool kPlates, bool kExt, class Row>
+// values.  kDiff adds the ELLIPSE bound.
+template <bool kPlates, bool kExt, bool kDiff = false, class Row>
 __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKinds& kd, V3 p,
                                                    V3 d) {
   const auto Rw = row.rw();
@@ -637,7 +693,7 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
   if (kd.sb != SB_NONE) {
     const auto sb = row.sb();
     bool keep1, keep2;
-    sb_check2<kPlates>(kd.sb, sb, fma3(o, t1, ds), fma3(o, t2, ds), keep1, keep2);
+    sb_check2<kPlates, kDiff>(kd.sb, sb, fma3(o, t1, ds), fma3(o, t2, ds), keep1, keep2);
     if (kd.invert) {
       keep1 = !keep1;
       keep2 = !keep2;
@@ -668,9 +724,9 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
 }
 
 // Intersect a ray with flat row r (K1, and the adjoints' recompute).
-template <bool kPlates, bool kExt = false>
+template <bool kPlates, bool kExt = false, bool kDiff = false>
 __device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& kd, V3 p, V3 d) {
-  return intersect_row_of<kPlates, kExt>(FlatRowRef{r}, kd, p, d);
+  return intersect_row_of<kPlates, kExt, kDiff>(FlatRowRef{r}, kd, p, d);
 }
 
 // World-frame unit normal at a surface-frame hit (core/intersect.py::
@@ -748,12 +804,12 @@ __device__ __forceinline__ PlatePatch plate_patch(const float* r, const Plates& 
 
 // The physics branches the adjoint needs (all false unless set below).
 struct PhysBranch {
-  bool from_in;   // SNELL, PHASE_GRID: d.n < 0
+  bool from_in;   // SNELL, PHASE_GRID, DOE: d.n < 0
   bool dn_pos;    // SNELL: d.n > 0
   bool tir;       // SNELL: total internal reflection
   bool n2_small;  // SNELL: |n2| < 1e-12
   bool pass;      // APERTURE: the filter passes the ray
-  bool pg_ok;     // PHASE_GRID: the kicked ray propagates (not evanescent)
+  bool pg_ok;     // PHASE_GRID, GRATING, DOE: the order propagates
   bool u_clip;    // PHASE_GRID: u was clipped
   bool v_clip;    // PHASE_GRID: v was clipped
   bool reflect;   // FRESNEL: the draw chose reflection (u < R; always under TIR)
@@ -867,6 +923,42 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
   }
 }
 
+// The diffractive and ideal kinds' physics (kDiff; core/static_dispatch.py::
+// apply_physics_one): LINEAR, GRATING, MLA and DOE map the direction in the
+// row's surface frame (diffractive.cuh) at the surface-frame hit hs; GRATING
+// and DOE read the ray's wavelength wl, and an evanescent order has imod =
+// 0; a DOE row (`doe`: its term count and efficiency flag, doe_of) kicks
+// between the side-aware media of media_iors (its from_in the side of d .
+// nw) and with its efficiency weighs by kinoform_eff.
+template <bool kDispersion>
+__device__ __forceinline__ void diffractive_physics(const float* r, int ph, V3 d, V3 nw, V3 hs,
+                                                    float wl, int dispm, int doe, V3& nd,
+                                                    float& imod, PhysBranch* br) {
+  const float* Rw = r + kRw;
+  const V3 dv = rot(d, Rw);
+  const Loc dl = {dv.x, dv.y, dv.z};
+  Loc ol;
+  bool ok = true;
+  if (ph == LINEAR) {
+    ol = linear_local(dl, hs.x, hs.y, r + kPh + 2);
+  } else if (ph == MLA) {
+    ol = mla_local(dl, hs.x, hs.y, r[kPh], r[kPh + 1]);
+  } else if (ph == GRATING) {
+    ol = grating_local(dl, r[kPh + 2], r[kPh + 3], r[kPh + 4], wl, ok);
+  } else {
+    const bool from_in = dot3(d, nw) < 0.0f;
+    float n1, n2;
+    media_iors<kDispersion>(r, from_in, dispm, wl, n1, n2);
+    ol = doe_local(dl, hs.x, hs.y, r + kFf, doe & kDoeTermsMask, r[kPh + 2], r[kPh + 3], wl, n1,
+                   n2, ok);
+    if (br != nullptr) br->from_in = from_in;
+  }
+  nd = rot_t(V3{ol.x, ol.y, ol.z}, Rw);
+  imod = ok ? 1.0f : 0.0f;
+  if (ph == DOE && (doe & kDoeEfficiency) && ok) imod = kinoform_eff(r[kPh + 2], r[kPh + 3], wl);
+  if (br != nullptr) br->pg_ok = ok;
+}
+
 // The row's physics (core/static_dispatch.py::apply_physics_one): the new
 // direction nd and the intensity factor imod of a ray d meeting normal nw at
 // surface-frame hit hs.  `br`, when given, receives the branches taken.  A
@@ -876,9 +968,12 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
 // with the ray's uniform u.  With kCoat (which has kFresnel) a coated row's
 // stack (`coat`, the row's kinds; `side`, its side-buffer row) gives the
 // Fresnel kinds' R, and a metal REFLECT row reflects with imod =
-// (Rs + Rp) / 2 of its metal under its stack.
+// (Rs + Rp) / 2 of its metal under its stack.  With kDiff (which has
+// kCoat) the diffractive and ideal kinds take diffractive_physics (a DOE
+// row's data above `coat`'s bits), and an APERTURE row's re-check takes the
+// ELLIPSE bound.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, int kd_map, V3 d,
                                               V3 nw, V3 hs, const Plates& pl, V3& nd, float& imod,
                                               PhysBranch* br = nullptr, int dispm = 0,
@@ -953,12 +1048,14 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
     }
   } else if (ph == APERTURE) {
     // the filter re-checks its own RAW (non-inverted) bound
-    const float mod = sb_check<kPlates>(sbk, r + kSb, hs) ? 1.0f : 0.0f;
+    const float mod = sb_check<kPlates, kDiff>(sbk, r + kSb, hs) ? 1.0f : 0.0f;
     nd = {d.x * mod, d.y * mod, d.z * mod};
     imod = mod;
     if (br != nullptr) br->pass = mod != 0.0f;
   } else if (kFresnel && (ph == FRESNEL || ph == FRESNEL_W || ph == REFLECT_W)) {
     fresnel_physics<kDispersion, kCoat>(r, ph, d, nw, pl.wl, dispm, u, nd, imod, br, coat, side);
+  } else if (kDiff && (ph == LINEAR || ph == GRATING || ph == MLA || ph == DOE)) {
+    diffractive_physics<kDispersion>(r, ph, d, nw, hs, pl.wl, dispm, doe_of(coat), nd, imod, br);
   }
 }
 
@@ -966,13 +1063,21 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
 // (core/static_dispatch.py::medium_after): a SNELL (or FRESNEL_W) row moves
 // it into the transmission-side medium unless total internal reflection
 // keeps it in the incidence medium, a FRESNEL row unless its draw reflected
-// it (`reflect`), a PHASE_GRID row always transmits; every other row leaves
-// n_cur.  from_in, tir and reflect are the physics' own decisions
-// (PhysBranch, or the adjoint's saved bits), the indices media_iors's.
-template <bool kDispersion, bool kFresnel = false>
+// it (`reflect`), a PHASE_GRID (or, with kDiff, a DOE) row always transmits;
+// every other row leaves n_cur.  from_in, tir and reflect are the physics'
+// own decisions (PhysBranch, or the adjoint's saved bits), the indices
+// media_iors's.
+template <bool kDispersion, bool kFresnel = false, bool kDiff = false>
 __device__ __forceinline__ float medium_after(const float* r, const RowKinds& kd, bool from_in,
                                               bool tir, float wl, float n_cur,
                                               bool reflect = false) {
+  if constexpr (kDiff) {
+    if (kd.ph == DOE) {
+      float n1, n2;
+      media_iors<kDispersion>(r, from_in, kd.dispm, wl, n1, n2);
+      return n2;
+    }
+  }
   if constexpr (kFresnel) {
     const bool snell_like = kd.ph == SNELL || kd.ph == FRESNEL_W;
     if (!snell_like && kd.ph != FRESNEL && kd.ph != PHASE_GRID) return n_cur;
@@ -1027,9 +1132,10 @@ struct SensorRec {
 // kinds rows instead: its kinds need fields (the asphere's terms, all 8 of
 // a volume bound's) that the packed record does not hold.  With kCoat
 // (which has kFresnel) a coated or metal winner reads its side-buffer row
-// of `cside` ([K][kCoatSide]).
+// of `cside` ([K][kCoatSide]); with kDiff (which has kCoat) the scan takes
+// the ELLIPSE bound and the winner the diffractive kinds.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
-          bool kFresnel = false, bool kCoat = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
@@ -1040,6 +1146,7 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
   static_assert(kExt || !kFresnel, "the Fresnel kinds read the kinds rows of the flat scan");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
+  static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -1047,7 +1154,7 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
     RowHit h;
     if constexpr (kExt) {
       const RowKinds kk = read_row_kinds<kExt>(knd + k * kKindWidth);
-      h = intersect_row<kPlates, kExt>(tab + k * kRowWidth, kk, p, d);
+      h = intersect_row<kPlates, kExt, kDiff>(tab + k * kRowWidth, kk, p, d);
       if constexpr (kRecord) {
         if (h.valid && h.t < best_t && kk.sensor) *rec = SensorRec{h.hs, kk.slot};
       }
@@ -1070,7 +1177,7 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
     const float u = kw.ph == FRESNEL
                         ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
                         : 0.0f;
-    apply_physics<kPlates, kExt, kDispersion, true, true>(
+    apply_physics<kPlates, kExt, kDispersion, true, true, kDiff>(
         r, kw.ph, kw.sb, kw.map, d, world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs,
         pl, nd, imod, br, kw.dispm, u, kw.coat, cside + k_win * kCoatSide);
   } else if constexpr (kFresnel) {

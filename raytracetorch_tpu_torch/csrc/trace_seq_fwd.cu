@@ -103,6 +103,15 @@
 // sin, a cos and ~30 flops (an absorbing layer adds a complex square root,
 // two complex divisions and two exp).
 //
+// The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows, the
+// ELLIPSE bound; trace_seq_common.cuh, diffractive.cuh) run in one more
+// instantiation, kDiff, an overload with one more argument (DiffKinds),
+// built on the one with the coatings (which it takes too, with its side
+// buffer), so every other instantiation keeps its code.  Each block writes
+// an ELLIPSE row's rotation's cosine and sine into its shared table once
+// (ellipse_rows); a DOE row's coefficients are read from the shared table,
+// its radial sum a loop of at most 8 terms.
+//
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
 // rely on (finite BIG sentinels for misses, +1e-24 under every sqrt, the
@@ -186,6 +195,12 @@ struct CoatSide {
   const float* side;
 };
 
+// The instantiation with the diffractive kinds (kDiff): its overload's tag
+// (its rows' data ride the table and the kinds).
+struct DiffKinds {
+  int unused;
+};
+
 // The kernel's body, shared by its instantiations (the kernels below).  With
 // kStreams (the instantiation with the streams: plate code, the extended
 // kinds and dispersion) it also accumulates the optical path length n_cur t
@@ -197,8 +212,10 @@ struct CoatSide {
 // FRESNEL row reading the ray's uniform from the next stream of `dr`, and a
 // REFLECT_W row kills the rays it does not hold.  With kCoat (which has
 // kFresnel) coated and metal rows weigh by their stacks, reading their rows
-// of `cs`, copied into shared memory.
-template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false>
+// of `cs`, copied into shared memory.  With kDiff (which has kCoat) the
+// diffractive and ideal kinds and the ELLIPSE bound.
+template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
+          bool kDiff = false>
 __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -213,6 +230,7 @@ __device__ __forceinline__ void seq_fwd(
     SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}) {
   static_assert(kStreams || !kFresnel, "the Fresnel kinds run with the streams");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
+  static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -257,12 +275,16 @@ __device__ __forceinline__ void seq_fwd(
     for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
   }
   __syncthreads();
+  if constexpr (kDiff) {
+    ellipse_rows(tab, knd, n_rows, tid, kThreads);
+    __syncthreads();
+  }
 
   int f = 0;  // kFresnel: the next FRESNEL row's stream
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
     const RowKinds kd = read_row_kinds4<kExt, kCoat>(knd4 + 2 * k);
-    const RowHit h = intersect_row<kPlates, kExt>(r, kd, p, d);
+    const RowHit h = intersect_row<kPlates, kExt, kDiff>(r, kd, p, d);
     const V3 nw = world_normal<kExt>(r, kd.plane, h.hs, nullptr, kd.asph);
     V3 nd;
     float imod;
@@ -273,9 +295,9 @@ __device__ __forceinline__ void seq_fwd(
         if (live && f < dr.n_draws) u = dr.u[static_cast<long long>(f) * n + i];
         ++f;
       }
-      apply_physics<kPlates, kExt, kExt, true, kCoat>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd,
-                                                      imod, &br, kd.dispm, u, kd.coat,
-                                                      cside + k * kCoatSide);
+      apply_physics<kPlates, kExt, kExt, true, kCoat, kDiff>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs,
+                                                             pl, nd, imod, &br, kd.dispm, u,
+                                                             kd.coat, cside + k * kCoatSide);
     } else if constexpr (kStreams)
       apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br,
                                    kd.dispm);
@@ -317,7 +339,8 @@ __device__ __forceinline__ void seq_fwd(
     if constexpr (kStreams) {
       if (active) {
         opl = opl + n_cur * t;
-        n_cur = medium_after<kExt, kFresnel>(r, kd, br.from_in, br.tir, pl.wl, n_cur, br.reflect);
+        n_cur = medium_after<kExt, kFresnel, kDiff>(r, kd, br.from_in, br.tir, pl.wl, n_cur,
+                                                    br.reflect);
       }
     }
     if (active) {
@@ -417,19 +440,33 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs)
   seq_fwd<kPlates, kExt, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs);
 }
 
-// The types of the four kernels.
+// The kernel with the streams, the Fresnel kinds, the coatings and the
+// diffractive kinds.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds) {
+  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
+  seq_fwd<kPlates, kExt, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs);
+}
+
+// The types of the five kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
 using FwdCoatKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide);
+using FwdDiffKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
 // The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false>
+template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
+          bool kDiff = false>
 const void* kernel_fn() {
-  if constexpr (kCoat)
+  if constexpr (kDiff)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdDiffKernel>(trace_seq_fwd_kernel<true, true>));
+  else if constexpr (kCoat)
     return reinterpret_cast<const void*>(
         static_cast<FwdCoatKernel>(trace_seq_fwd_kernel<true, true>));
   else if constexpr (kFresnel)
@@ -445,10 +482,10 @@ const void* kernel_fn() {
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false>
+          bool kCoat = false, bool kDiff = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -470,8 +507,13 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
-// Fresnel kinds, 6 the one with the coatings), its shared memory allowed.
+// Fresnel kinds, 6 the one with the coatings, 7 the one with the diffractive
+// kinds), its shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 7) {
+    *e = prepare<true, true, true, true, true, true>(smem);
+    return kernel_fn<true, true, true, true, true, true>();
+  }
   if (code == 6) {
     *e = prepare<true, true, true, true, true>(smem);
     return kernel_fn<true, true, true, true, true>();
@@ -552,7 +594,8 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
 // null with n_draws 0 when no row draws); without it both are ignored.
 // `coat_side`, when not null, selects the instantiation with the coatings
 // (which also takes the Fresnel kinds and reads `uniforms` so): the
-// n_rows * 20 floats of ops/fused_trace.py::coat_side.  Returns a
+// n_rows * 20 floats of ops/fused_trace.py::coat_side; with it, `diff`
+// nonzero selects the one with the diffractive kinds.  Returns a
 // cudaError_t.
 extern "C" int rtt_trace_seq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
@@ -562,8 +605,9 @@ extern "C" int rtt_trace_seq_fwd_streams(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
     float* hit_w, const float* uniforms, int n_draws, int fresnel, const float* coat_side,
-    long long n, void* stream) {
+    int diff, long long n, void* stream) {
   if (n <= 0) return 0;
+  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (coat_side != nullptr) fresnel = 1;
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -575,12 +619,12 @@ extern "C" int rtt_trace_seq_fwd_streams(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, coat_side != nullptr);
   const StreamOut so = {opl, n_final, paths, hits, hit_w, nullptr};
-  // one launch for the three instantiations: the Fresnel kernel's overload
+  // one launch for the four instantiations: the Fresnel kernel's overload
   // takes the draws as its last argument, the coated one the draws and the
-  // side buffer
+  // side buffer, the diffractive one those and its tag
   auto go = [&](auto... draws) {
-    const cudaError_t e =
-        prepare<true, true, true, sizeof...(draws) != 0, sizeof...(draws) == 2>(smem);
+    const cudaError_t e = prepare<true, true, true, sizeof...(draws) != 0,
+                                  sizeof...(draws) >= 2, sizeof...(draws) == 3>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_seq_fwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -589,6 +633,7 @@ extern "C" int rtt_trace_seq_fwd_streams(
             maps, map_desc, wavelength, n, so, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (diff) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
@@ -599,12 +644,12 @@ extern "C" int rtt_trace_seq_fwd_streams(
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without plate
 // code, 1 with it, 2 (or 3, as K2's code for a table with a dispersive row)
 // with it and the extended kinds, 4 the instantiation with the streams, 5
-// the one with the Fresnel kinds, 6 the one with the coatings.  Returns a
-// cudaError_t.
+// the one with the Fresnel kinds, 6 the one with the coatings, 7 the one
+// with the diffractive kinds.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int* blocks) {
   (void)n_bounces;
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code == 6);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 6);
   cudaError_t e;
   const void* fn = kernel_of(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,9 +1,9 @@
-"""Aperture elements: circular and rectangular.
+"""Aperture elements: circular, rectangular and elliptic.
 
-Counterpart of ``_ApertureBase``, ``CircularAperture`` and
-``RectangularAperture`` in ``raytracetorch_tpu/elements/aperture.py`` (the
-elliptic aperture and fuzzy apodization are ROADMAP Queue 1 items 12 and
-14).  The bounded plane only exists where its (possibly inverted) bound
+Counterpart of ``_ApertureBase``, ``CircularAperture``,
+``RectangularAperture`` and ``EllipticAperture`` in
+``raytracetorch_tpu/elements/aperture.py`` (fuzzy apodization and the
+obscured pupil are ROADMAP Queue 2 G).  The bounded plane only exists where its (possibly inverted) bound
 holds, so rays that miss fly by unchanged; rays that hit are re-checked
 against the RAW bound by the APERTURE physics.  ``invert=False`` transmits
 in-bounds hits; ``invert=True`` is a blocking iris.
@@ -106,3 +106,30 @@ class RectangularAperture(_ApertureBase):
 
     def _sb_params(self, p):
         return (p['half_x'], p['half_y'])
+
+
+class EllipticAperture(_ApertureBase):
+    """Rotated-ellipse-bounded plane: semi-axes ``r_major`` (along local x
+    before the rotation) and ``r_minor``, rotated by ``rot`` (radians; the
+    parameter ``ap_rot``)."""
+
+    sb_kind = SBKind.ELLIPSE
+
+    def __init__(self, r_major, r_minor, rot=0.0, invert=False,
+                 r_major_grad=False, r_minor_grad=False, rot_grad=False,
+                 name='ellipse_aperture', **kw):
+        super().__init__(name=name, **kw)
+        self._init = dict(r_major=float(r_major), r_minor=float(r_minor),
+                          ap_rot=float(rot))
+        self._grads = dict(r_major=r_major_grad, r_minor=r_minor_grad,
+                           ap_rot=rot_grad)
+        self.invert = invert
+
+    def extra_params(self):
+        return dict(self._init)
+
+    def extra_trainable(self):
+        return dict(self._grads)
+
+    def _sb_params(self, p):
+        return (p['r_major'], p['r_minor'], p['ap_rot'])

@@ -46,12 +46,14 @@ class Element:
     ``extra_trainable`` and implement ``build``."""
 
     def __init__(self, name='element', rotation=None, translation=None,
-                 rot_grad=False, trans_grad=False):
+                 rot_grad=False, trans_grad=False, rot_mask=None,
+                 trans_mask=None):
         self.name = name
         self._rot_init = [0.0, 0.0, 0.0] if rotation is None else list(rotation)
         self._trans_init = ([0.0, 0.0, 0.0] if translation is None
                             else list(translation))
         self.rot_grad, self.trans_grad = rot_grad, trans_grad
+        self.rot_mask, self.trans_mask = rot_mask, trans_mask
 
     def init_params(self, device, dtype=torch.float32):
         p = {'rot_vec': torch.tensor(self._rot_init, dtype=dtype,
@@ -68,8 +70,15 @@ class Element:
 
     def trainable(self):
         """Gradient mask: True where a parameter is meant to be optimized
-        (the caller sets ``requires_grad`` on those leaves)."""
-        t = {'rot_vec': bool(self.rot_grad), 'trans': bool(self.trans_grad)}
+        (the caller sets ``requires_grad`` on those leaves); a trainable pose
+        with ``rot_mask`` or ``trans_mask`` gives that per-component float
+        mask (optim/fit.py multiplies the leaf's gradient by it)."""
+        def mask(flag, mask3):
+            if not flag:
+                return False
+            return True if mask3 is None else [float(m) for m in mask3]
+        t = {'rot_vec': mask(self.rot_grad, self.rot_mask),
+             'trans': mask(self.trans_grad, self.trans_mask)}
         t.update(self.extra_trainable())
         return t
 

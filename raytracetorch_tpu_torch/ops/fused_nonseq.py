@@ -49,7 +49,14 @@ The kernels' notes are in their sources.  In this module:
   raises on a drawing scene.
 - Coatings and metal mirrors run K5's and K6's instantiation with them
   (``fused_trace.coating_kinds``, the side buffer ``fused_trace.coat_side``;
-  ``fused_trace.COAT_LAUNCHES``), as in ops/fused_trace.py.
+  ``fused_trace.COAT_LAUNCHES``), as in ops/fused_trace.py, and the
+  diffractive and ideal elements the one built on it
+  (``fused_trace.diffractive_kinds``; ``fused_trace.DIFF_LAUNCHES``).
+- K5 and K6 keep each thread's moment sums of at most ``MAX_MOMENT_PAIRS``
+  (64) (slot, bundle) pairs (in local memory, the bucket of 64 of
+  csrc/trace_nonseq_fwd.cu): a scene with more raises NotImplementedError
+  before anything runs, on either device, where K1 and K2 take every pair
+  of 8 slots and 18 bundles.
 """
 
 from __future__ import annotations
@@ -64,8 +71,9 @@ from ..rays.draws import NonseqDraws, needs_draws, nonseq_draws
 from . import fused_trace
 from .fused_trace import (COMPS, NO_STREAMS, StreamFlags, THREADS,
                           backward_result, check_cotangents, check_inputs,
-                          check_streams, coat_ptr, coat_side, dispersive,
-                          dispersive_kinds, ext_kinds, ext_maps, flat_inputs,
+                          check_streams, coat_ptr, coat_side,
+                          diffractive_kinds, dispersive, dispersive_kinds,
+                          ext_kinds, ext_maps, flat_inputs,
                           fresnel_kinds, fused_forward,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
@@ -75,6 +83,20 @@ from .fused_trace import (COMPS, NO_STREAMS, StreamFlags, THREADS,
 
 NONSEQ_LAUNCHES = 0       # kernel launches by trace_nonseq_fwd_cuda (K5)
 NONSEQ_BWD_LAUNCHES = 0   # kernel launches by trace_nonseq_bwd_cuda (K6)
+# the (slot, bundle) pairs whose moment sums a thread of K5 and K6 holds
+MAX_MOMENT_PAIRS = 64
+
+
+def check_moment_pairs(cfg: SensorConfig):
+    """Raise NotImplementedError when the scene's slots x bundles exceed
+    the MAX_MOMENT_PAIRS sums a thread of K5 and K6 holds."""
+    pairs = max(cfg.n_sensors, 1) * cfg.n_bundles
+    if pairs > MAX_MOMENT_PAIRS:
+        raise NotImplementedError(
+            f'the fused non-sequential kernels hold at most '
+            f'{MAX_MOMENT_PAIRS} (sensor slot, bundle) moment sums per ray; '
+            f'got {max(cfg.n_sensors, 1)} slots x {cfg.n_bundles} bundles '
+            f'= {pairs} (ROADMAP Queue 2 I): use Scene.simulate')
 
 
 def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
@@ -92,6 +114,7 @@ def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
     CPU tensors run the plain versions; CUDA tensors launch K5 and, in
     backward, K6 (or raise: there is no fallback)."""
     flags = StreamFlags(track_opl, record_paths, record_hits)
+    check_moment_pairs(cfg)
     flat, kinds = flat_inputs(table, rays, cfg, static_meta)
     key = draw_key(static_meta, generator)
     maps = plate_maps(static_meta, grids)
@@ -126,7 +149,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
     return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
                                  ext_kinds(static_meta), *flags,
                                  fresnel=fresnel_kinds(static_meta), key=key,
-                                 coat=coat_side(static_meta, flat.device))
+                                 coat=coat_side(static_meta, flat.device),
+                                 diff=diffractive_kinds(static_meta))
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -219,7 +243,8 @@ def _nonseq_backward(ctx, grads, need):
             disp=dispersive(ctx.meta), need_wavelength=need_wl,
             g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
             opl=ctx.flags.track_opl, fresnel=fresnel_kinds(ctx.meta),
-            key=ctx.draws, coat=coat_side(ctx.meta, flat.device))
+            key=ctx.draws, coat=coat_side(ctx.meta, flat.device),
+            diff=diffractive_kinds(ctx.meta))
     else:
         res = trace_nonseq_bwd_plain(
             flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
@@ -295,7 +320,7 @@ def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, maps=None, ext=False, track_opl=False,
                           record_paths=False, record_hits=False,
-                          fresnel=False, key=None, coat=None):
+                          fresnel=False, key=None, coat=None, diff=False):
     """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -310,14 +335,17 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     the table's static metadata (``draw_key``).  ``coat``, the ``[K, 20]``
     side buffer of ``fused_trace.coat_side`` (None: no row's coating acts),
     runs the instantiation with the coatings, which also takes the Fresnel
-    kinds and the streams."""
+    kinds and the streams; ``diff`` (``fused_trace.diffractive_kinds``) the
+    one with the diffractive kinds, built on it, which reads ``coat``.  More
+    than MAX_MOMENT_PAIRS slots x bundles raise NotImplementedError."""
     global NONSEQ_LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
+    check_moment_pairs(cfg)
     _check_bounces(n_bounces)
     fresnel = fresnel or coat is not None
-    key_args = _key_args(fresnel, key, coat, k, device)
+    key_args = _key_args(fresnel, key, coat, k, device, diff)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -345,7 +373,9 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        if coat is not None:
+        if diff:
+            fused_trace.DIFF_LAUNCHES += 1
+        elif coat is not None:
             fused_trace.COAT_LAUNCHES += 1
         elif fresnel:
             fused_trace.FRESNEL_LAUNCHES += 1
@@ -365,7 +395,8 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           need_rays=True, g_grid=None, replay=False,
                           maps=None, need_maps=True, ext=False, disp=None,
                           need_wavelength=False, g_opl=None, g_nfinal=None,
-                          opl=False, fresnel=False, key=None, coat=None):
+                          opl=False, fresnel=False, key=None, coat=None,
+                          diff=False):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
@@ -387,13 +418,16 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     (the instantiation with the Fresnel kinds, which replays K5's draws by
     their counters and also takes the path length), and ``coat`` too (the
     one with the coatings, whose table cotangent adds the layer
-    thicknesses', ``fused_trace.COAT_GRAD_COLS``)."""
+    thicknesses', ``fused_trace.COAT_GRAD_COLS``), and ``diff`` too (the
+    one with the diffractive kinds, which adds a DOE row's coefficients',
+    ``fused_trace.FF_GRAD_COLS``)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
+    check_moment_pairs(cfg)
     _check_bounces(n_bounces)
     fresnel = fresnel or coat is not None
-    key_args = _key_args(fresnel, key, coat, k, device)
+    key_args = _key_args(fresnel, key, coat, k, device, diff)
     ext = ext or need_wavelength or opl or fresnel
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
@@ -401,7 +435,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
     g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
-    cols = grad_cols(plates, ext, disp, coat is not None)
+    cols = grad_cols(plates, ext, disp, coat is not None, diff)
 
     def streams(wanted):
         return ([torch.empty(n, dtype=torch.float32, device=device)
@@ -435,7 +469,9 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        if coat is not None:
+        if diff:
+            fused_trace.DIFF_LAUNCHES += 1
+        elif coat is not None:
             fused_trace.COAT_LAUNCHES += 1
         elif fresnel:
             fused_trace.FRESNEL_LAUNCHES += 1
@@ -450,18 +486,18 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     return res
 
 
-def _key_args(fresnel, key, coat=None, k=0, device=None):
-    """The Philox key, Fresnel and coating C arguments of K5's and K6's
-    instantiation with the streams: the key's two words (0 when no row
-    draws), whether to run the instantiation with the Fresnel kinds, and
+def _key_args(fresnel, key, coat=None, k=0, device=None, diff=False):
+    """The Philox key, Fresnel, coating and diffractive C arguments of K5's
+    and K6's instantiation with the streams: the key's two words (0 when no
+    row draws), whether to run the instantiation with the Fresnel kinds,
     the ``[K, 20]`` side buffer ``coat`` (null: not the one with the
-    coatings)."""
+    coatings) and whether to run the one with the diffractive kinds."""
     if key is not None and not fresnel:
         raise ValueError('a Philox key is read only by the instantiation '
                          'with the Fresnel kinds')
     k0, k1 = key if key is not None else (0, 0)
     return (int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF, int(fresnel),
-            coat_ptr(coat, k, device))
+            coat_ptr(coat, k, device, diff), int(diff))
 
 
 def _check_bounces(n_bounces):

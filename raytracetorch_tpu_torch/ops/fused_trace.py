@@ -93,6 +93,20 @@ module:
   ``COAT_SHIFT`` on; the layers' extinction and a dispersive metal's knots
   go in a ``[K, 20]`` side buffer (``coat_side``); K2 and K6 add the layer
   thicknesses' cotangents (``COAT_GRAD_COLS``).
+- The diffractive and ideal elements (LINEAR, GRATING, DOE, MLA rows and
+  the ELLIPSE bound; ``diffractive_kinds``) run in one more instantiation
+  of each of K1, K2, K5 and K6, built on the one with the coatings, so
+  that every JAX combination runs (a DOE beside dispersive glass, a grating
+  beside a coated lens, a DOE under ``track_opl``); their launches count in
+  ``DIFF_LAUNCHES``, not in ``COAT_LAUNCHES``.  It reads the coatings' side
+  buffer (zeros on a table without a coating).  A DOE row's term count and
+  efficiency flag ride its kinds row's physics column from bit
+  ``DOE_SHIFT`` on; K2 and K6 add its 8 ``ff`` coefficients' cotangents
+  (``FF_GRAD_COLS``) after the coat columns.
+- The kernels take up to ``MAX_BUNDLES`` (18) bundles, the JAX kernels'
+  limit (n_bundles * 7 <= 128).  K5 and K6 keep per-thread moment sums of
+  at most 64 (slot, bundle) pairs: more raise NotImplementedError
+  (ops/fused_nonseq.py).
 - ``build`` compiles the six libraries (K1, K2, K3 in ops/grid.py, K4 in
   ops/phase_grid.py, K5 and K6 in ops/fused_nonseq.py), one nvcc each,
   started together.
@@ -109,7 +123,8 @@ from torch.autograd.function import once_differentiable
 
 from ..constants import PhysKind, SBKind, VBKind
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
-from ..core.static_dispatch import FRESNEL_KINDS, coat_acts, unsupported
+from ..core.static_dispatch import (DIFFRACTIVE_KINDS, FRESNEL_KINDS,
+                                    coat_acts, unsupported)
 from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
 from ..core.trace import Streams, surface_chain
 from ..rays.draws import draws_per_ray, sequential_uniforms
@@ -134,6 +149,9 @@ FRESNEL_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with the coatings
 COAT_LAUNCHES = 0
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with the diffractive kinds
+DIFF_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -151,9 +169,19 @@ DISP_SHIFT = 8
 COAT_SHIFT = 12
 COAT_METAL, COAT_METAL_NK, COAT_ABSORBING = 1 << 4, 1 << 5, 1 << 6
 COAT_SIDE = 20        # side-buffer floats a row: extinction x 8, knots 6 + 6
+# A DOE row's static data rides the physics column above the coating's bits:
+# its radial term count from bit DOE_SHIFT (4 bits), then its efficiency
+# flag.
+DOE_SHIFT = 20
+DOE_EFFICIENCY = 1 << 4
+# The rows hold their kinds in one block of shared memory and the kernels
+# loop over them: 64 rows fill K2's and K6's 128-register budget's shared
+# memory with their warp slots (ROADMAP Queue 2 I).
 MAX_ROWS = 64
 MAX_SLOTS = 8
-MAX_BUNDLES = 8
+# The JAX kernels' limit, n_bundles * 7 <= 128: K1's per-warp moment
+# partials in shared memory hold 8 x 8 x 18 x 7 floats (32 KB) then.
+MAX_BUNDLES = 18
 COMPS = ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity')
 # The flat-table columns whose cotangent can be nonzero for the kernels'
 # kinds: q[0:5], Rw[0:9], tw[0:3], ph[0:2].  Everything else (n_sign, Rs,
@@ -179,6 +207,11 @@ DISP_GRAD_COLS = tuple(ROW_OFFSETS['disp'] + j for j in range(12))
 # dispersion columns of a dispersive table.  A metal row's own index ph[0:2]
 # and ambient ph[2] are already among the columns.
 COAT_GRAD_COLS = tuple(ROW_OFFSETS['coat'] + 2 * j + 1 for j in range(8))
+# The instantiation with the diffractive kinds adds a DOE row's 8 radial
+# phase coefficients ff[0:8], after the coat columns (reduced only for DOE
+# rows).  LINEAR's, GRATING's and MLA's parameters ph[0:6] are already among
+# the columns.
+FF_GRAD_COLS = tuple(ROW_OFFSETS['ff'] + j for j in range(8))
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
@@ -196,13 +229,14 @@ _OPL = [_P, _P]
 # the draws of the instantiations with the Fresnel kinds, then whether to
 # run that instantiation: K1's and K2's [F, N] uniform streams and their
 # count F; K5's and K6's two Philox seed words; then the coated rows' side
-# buffer (null: not the instantiation with the coatings)
-_UNIFORMS = [_P, _I, _I, _P]
-_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P]
+# buffer (null: not the instantiation with the coatings) and whether to run
+# the instantiation with the diffractive kinds
+_UNIFORMS = [_P, _I, _I, _P, _I]
+_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
-# or the path length, 5 the Fresnel kinds, 6 the coatings), out: resident
-# blocks per SM
+# or the path length, 5 the Fresnel kinds, 6 the coatings, 7 the diffractive
+# kinds), out: resident blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
@@ -281,6 +315,23 @@ def coating_kinds(static_meta):
     return any(coat_acts(m) for m in static_meta)
 
 
+def diffractive_kinds(static_meta):
+    """Whether a row is a diffractive or ideal element (LINEAR, GRATING,
+    DOE, MLA) or has an ELLIPSE bound, which only the kernels' instantiation
+    with the diffractive kinds takes."""
+    return any(m.ph in DIFFRACTIVE_KINDS or m.sb == SBKind.ELLIPSE
+               for m in static_meta)
+
+
+def doe_bits(m):
+    """A DOE row's term count and efficiency flag in its kinds row's physics
+    column (shifted by DOE_SHIFT); 0 for every other row."""
+    if m.ph != PhysKind.DOE:
+        return 0
+    n_terms, efficiency = m.doe
+    return (n_terms | (DOE_EFFICIENCY if efficiency else 0)) << DOE_SHIFT
+
+
 def coat_bits(m):
     """A row's coating data in its kinds row's physics column (shifted by
     COAT_SHIFT): 0 unless its stack or metal acts."""
@@ -294,10 +345,12 @@ def coat_bits(m):
 
 def coat_side(static_meta, device):
     """The ``[K, COAT_SIDE]`` float32 side buffer of the instantiation with
-    the coatings: per row its layers' extinction coefficients (8, zeros for
-    a dielectric stack) and a dispersive metal's 6 n and 6 k knots on
-    METAL_GRID_UM (zeros otherwise); None when no row's coating acts."""
-    if not coating_kinds(static_meta):
+    the coatings (and of the one with the diffractive kinds, built on it):
+    per row its layers' extinction coefficients (8, zeros for a dielectric
+    stack) and a dispersive metal's 6 n and 6 k knots on METAL_GRID_UM
+    (zeros otherwise); None when no row's coating acts and no row is
+    diffractive."""
+    if not (coating_kinds(static_meta) or diffractive_kinds(static_meta)):
         return None
     rows = []
     for m in static_meta:
@@ -323,9 +376,11 @@ def kind_rows(static_meta, cfg: SensorConfig):
     """[K, KIND_WIDTH] int rows the kernels read; raises NotImplementedError
     for anything the kernels do not take.  The surface column holds
     SURF_QUADRIC, SURF_PLANE or SURF_ASPHERE; a dispersive row's physics
-    column adds its two DispModels from bit DISP_SHIFT on and a coated or
-    metal row's coating data from bit COAT_SHIFT on (``coat_bits``); the
-    last column is a PHASE_GRID row's map index (0 for every other row)."""
+    column adds its two DispModels from bit DISP_SHIFT on, a coated or
+    metal row's coating data from bit COAT_SHIFT on (``coat_bits``) and a
+    DOE row's term count and efficiency flag from bit DOE_SHIFT on
+    (``doe_bits``); the last column is a PHASE_GRID row's map index (0 for
+    every other row)."""
     n_slots = _check_limits(len(static_meta), cfg)
     maps = {k: j for j, k in enumerate(plate_rows(static_meta))}
     rows = []
@@ -338,7 +393,7 @@ def kind_rows(static_meta, cfg: SensorConfig):
                              f'0..{n_slots - 1}')
         surf = (SURF_ASPHERE if m.asph
                 else SURF_PLANE if m.plane else SURF_QUADRIC)
-        ph = m.ph | coat_bits(m)
+        ph = m.ph | coat_bits(m) | doe_bits(m)
         if m.disp:
             ph |= (m.dispm[0] << DISP_SHIFT) | (m.dispm[1] << DISP_SHIFT + 2)
         rows.append([ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
@@ -351,8 +406,9 @@ def plate_maps(static_meta, grids):
     ``grids`` ({row: map}); raises if a plate row has none.
 
     None when no row has a plate's kinds (PHASE_GRID physics, the RECT
-    bound), the extended kinds (``ext_kinds``) or a coating that acts
-    (``coating_kinds``: a stack reads the rays' wavelength): the kernels
+    bound), the extended kinds (``ext_kinds``), a coating that acts
+    (``coating_kinds``: a stack reads the rays' wavelength) or a diffractive
+    kind (``diffractive_kinds``: a grating and a DOE read it): the kernels
     then run their instantiation without plate code.  Such a scene without
     a plate gives ``()``."""
     grids = grids or {}
@@ -362,7 +418,8 @@ def plate_maps(static_meta, grids):
                          f'pass grids={{row: map}} (Scene.side_grids)')
     if not (any(m.ph == PhysKind.PHASE_GRID or m.sb == SBKind.RECT
                 for m in static_meta) or ext_kinds(static_meta)
-            or coating_kinds(static_meta)):
+            or coating_kinds(static_meta)
+            or diffractive_kinds(static_meta)):
         return None
     return tuple(grids[k] for k in plate_rows(static_meta))
 
@@ -437,7 +494,7 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     (FRESNEL), GRIN or phase-grid rows (``unsupported`` refuses GRIN), at
     most 8 sensor slots; FRESNEL_W and REFLECT_W take K1's instantiation
     with the Fresnel kinds, coated and metal rows the one with the
-    coatings.  Its function is
+    coatings, the diffractive and ideal elements theirs.  Its function is
     K1's with the grid and the maps off, so on CUDA tensors it launches
     K1's kernel so (counted in ``V1_LAUNCHES``; a RECT bound takes its
     instantiation with plate code, with no map, and the extended kinds
@@ -464,7 +521,8 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
             flat, kinds_t, rays, cfg, plate_maps(static_meta, None),
             'trace_sequential_v1', ext_kinds(static_meta),
             fresnel=fresnel_kinds(static_meta),
-            coat=coat_side(static_meta, flat.device))
+            coat=coat_side(static_meta, flat.device),
+            diff=diffractive_kinds(static_meta))
         V1_LAUNCHES += launched
     return out, sensors, {}
 
@@ -537,7 +595,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
                               ext_kinds(static_meta), *flags,
                               fresnel=fresnel_kinds(static_meta),
                               uniforms=uniforms,
-                              coat=coat_side(static_meta, flat.device))
+                              coat=coat_side(static_meta, flat.device),
+                              diff=diffractive_kinds(static_meta))
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -683,7 +742,8 @@ def _fused_backward(ctx, grads, need):
                                  opl=ctx.flags.track_opl,
                                  fresnel=fresnel_kinds(ctx.meta),
                                  uniforms=ctx.draws,
-                                 coat=coat_side(ctx.meta, flat.device))
+                                 coat=coat_side(ctx.meta, flat.device),
+                                 diff=diffractive_kinds(ctx.meta))
     else:
         res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                   g_moments, g_grid=g_grid, maps=maps,
@@ -850,7 +910,7 @@ def kernel(symbol):
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
                   ext=False, disp=False, streams=False, fresnel=False,
-                  coat=False):
+                  coat=False, diff=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
@@ -860,12 +920,13 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     ``disp`` too, on a table with a dispersive row; with ``streams``, the
     instantiation with the streams, on a table with a dispersive row when
     ``disp``; with ``fresnel``, the instantiation with the Fresnel kinds,
-    likewise; with ``coat``, the one with the coatings, likewise) runs, at
-    that launch's dynamic shared memory
+    likewise; with ``coat``, the one with the coatings, likewise; with
+    ``diff``, the one with the diffractive kinds, likewise) runs, at that
+    launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (6 if coat else 5 if fresnel else 4 if streams
+    code = (7 if diff else 6 if coat else 5 if fresnel else 4 if streams
             else (3 if disp else 2) if ext else int(bool(plates)))
     rc = kernel(f'rtt_{library}_occupancy')(
         n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces), code,
@@ -985,21 +1046,23 @@ def ext_maps(maps, ext):
     return () if ext and maps is None else maps
 
 
-def grad_cols(plates, ext, disp=False, coat=False):
+def grad_cols(plates, ext, disp=False, coat=False, diff=False):
     """The table columns whose cotangents K2 and K6 reduce (``disp``: the
     table has a dispersive row, which only the extended kinds take;
     ``coat``: the instantiation with the coatings, which adds the layer
-    thicknesses after them)."""
+    thicknesses after them; ``diff``: the one with the diffractive kinds,
+    built on it, which adds a DOE row's coefficients after those)."""
     if ext:
         return (EXT_GRAD_COLS + (DISP_GRAD_COLS if disp else ())
-                + (COAT_GRAD_COLS if coat else ()))
+                + (COAT_GRAD_COLS if coat or diff else ())
+                + (FF_GRAD_COLS if diff else ()))
     return PLATE_GRAD_COLS if plates is not None else GRAD_COLS
 
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                        maps=None, ext=False, track_opl=False,
                        record_paths=False, record_hits=False, fresnel=False,
-                       uniforms=None, coat=None):
+                       uniforms=None, coat=None, diff=False):
     """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -1015,37 +1078,45 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     (rays/draws.py::sequential_uniforms).  ``coat``, the ``[K, 20]`` side
     buffer of ``coat_side`` (None: no row's coating acts), runs the
     instantiation with the coatings, which also takes the Fresnel kinds
-    and the streams."""
+    and the streams; ``diff`` (the table has a diffractive kind,
+    ``diffractive_kinds``) the one with the diffractive kinds, built on it,
+    which reads ``coat`` (``coat_side`` gives it zeros on a table without
+    a coating)."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
                           'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms,
-                          coat)
+                          coat, diff)
     LAUNCHES += res[-1]
     return res[:-1]
 
 
-def draw_args(fresnel, uniforms, n, device, coat=None, k=0):
+def draw_args(fresnel, uniforms, n, device, coat=None, k=0, diff=False):
     """The K1 and K2 wrappers' draw arguments: the [F, N] ``uniforms``
     (None: no row draws) checked to be a contiguous float32 tensor on
-    ``device``, and the ``[K, 20]`` side buffer ``coat`` (None: not the
-    instantiation with the coatings) -> the (pointer, F, ``fresnel``, side
-    pointer) C arguments."""
-    side = coat_ptr(coat, k, device)
+    ``device``, the ``[K, 20]`` side buffer ``coat`` (None: not the
+    instantiation with the coatings) and ``diff`` -> the (pointer, F,
+    ``fresnel``, side pointer, ``diff``) C arguments."""
+    side = coat_ptr(coat, k, device, diff)
     if uniforms is None or uniforms.shape[0] == 0:
-        return None, 0, int(fresnel), side
+        return None, 0, int(fresnel), side, int(diff)
     if not fresnel:
         raise ValueError('uniforms are read only by the instantiation with '
                          'the Fresnel kinds')
     check(uniforms, 'uniforms', torch.float32, (uniforms.shape[0], n),
           device)
-    return uniforms.data_ptr(), uniforms.shape[0], 1, side
+    return uniforms.data_ptr(), uniforms.shape[0], 1, side, int(diff)
 
 
-def coat_ptr(coat, k, device):
+def coat_ptr(coat, k, device, diff=False):
     """The side buffer's C argument (``coat`` checked to be a contiguous
-    float32 [K, COAT_SIDE] tensor on ``device``; null for None)."""
+    float32 [K, COAT_SIDE] tensor on ``device``; null for None, which the
+    instantiation with the diffractive kinds, ``diff``, does not take)."""
     if coat is None:
+        if diff:
+            raise ValueError('the instantiation with the diffractive kinds '
+                             'reads the side buffer: pass coat=coat_side('
+                             'static_meta, device)')
         return None
     check(coat, 'coat side buffer', torch.float32, (k, COAT_SIDE), device)
     return coat.data_ptr()
@@ -1087,14 +1158,15 @@ def stream_aux(bufs):
 
 def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                     flags=NO_STREAMS, fresnel=False, uniforms=None,
-                    coat=None):
+                    coat=None, diff=False):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
     global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
+    global DIFF_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
     fresnel = fresnel or coat is not None
-    draws = draw_args(fresnel, uniforms, n, device, coat, k)
+    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -1123,7 +1195,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if coat is not None:
+        if diff:
+            DIFF_LAUNCHES += 1
+        elif coat is not None:
             COAT_LAUNCHES += 1
         elif fresnel:
             FRESNEL_LAUNCHES += 1
@@ -1143,7 +1217,7 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_grid=None, maps=None, need_maps=True, ext=False,
                        disp=None, need_wavelength=False, g_opl=None,
                        g_nfinal=None, opl=False, fresnel=False,
-                       uniforms=None, coat=None):
+                       uniforms=None, coat=None, diff=False):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
     kinds) their cotangents (or None) third, and with ``need_wavelength``
@@ -1165,21 +1239,23 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     ``trace_seq_fwd_cuda``: the instantiation with the Fresnel kinds
     (which also takes the path length), reading K1's draws; ``coat`` as
     there: the one with the coatings, whose table cotangent adds the layer
-    thicknesses' (``COAT_GRAD_COLS``)."""
+    thicknesses' (``COAT_GRAD_COLS``); ``diff`` as there: the one with the
+    diffractive kinds, which adds a DOE row's coefficients'
+    (``FF_GRAD_COLS``)."""
     global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
-    global COAT_LAUNCHES
+    global COAT_LAUNCHES, DIFF_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
     fresnel = fresnel or coat is not None
     ext = ext or need_wavelength or opl or fresnel
-    draws = draw_args(fresnel, uniforms, n, device, coat, k)
+    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
     g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
-    cols = grad_cols(plates, ext, disp, coat is not None)
+    cols = grad_cols(plates, ext, disp, coat is not None, diff)
     outs = ([torch.empty(n, dtype=torch.float32, device=device)
              for _ in COMPS] if need_rays else None)
     partials = (torch.empty(-(-n // THREADS), k, len(cols),
@@ -1210,7 +1286,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if coat is not None:
+        if diff:
+            DIFF_LAUNCHES += 1
+        elif coat is not None:
             COAT_LAUNCHES += 1
         elif fresnel:
             FRESNEL_LAUNCHES += 1

@@ -113,3 +113,16 @@ def collimated_disk(key, n, radius, translation=(0.0, 0.0, 0.0),
     return Rays.create(torch.from_numpy(pos.astype(np.float32)),
                        torch.from_numpy(direction), device=device,
                        wavelength=torch.full((n,), float(wavelength)))
+
+
+def collimated_bundles(keys, n, radius, translation, wavelengths,
+                       device=None):
+    """Collimated disks of ``n`` rays each, bundle j drawn under ``keys[j]``
+    at ``wavelengths[j]`` and tagged ray_id j, concatenated: the reference's
+    ``sample_bundles(key, ...)`` of such disks with ``keys = split(key,
+    len(wavelengths))``, or its separately sampled beams of one key."""
+    batches = []
+    for j, (k, wl) in enumerate(zip(keys, wavelengths)):
+        r = collimated_disk(k, n, radius, translation, wl, device)
+        batches.append(r.replace(ray_id=torch.full_like(r.ray_id, j)))
+    return Rays.concatenate(batches)

@@ -52,7 +52,11 @@ and the window ghost's closed-form flux.  So are the instantiations with
 the coatings (chip_smoke.py section 12's ``coating_kernels_vs_plain`` with
 its bounds: the coated bench singlet in FRESNEL_W and FRESNEL, example
 11's telescope, the stress rows), the paths that launch them and their
-blocks per SM.
+blocks per SM.  So are the instantiations with the diffractive and ideal
+elements (chip_smoke.py section 13's ``diffractive_kernels_vs_plain``:
+example 25's hybrid achromat, example 05's nine-channel spectrometer, the
+Scene of every new kind), the paths that launch them, their blocks per SM
+and K1 with 18 bundles.
 """
 
 import math
@@ -740,24 +744,33 @@ def _ext(name):
 
 def _streams(name):
     """Whether a mangled kernel name is an overload with the deterministic
-    streams (a StreamOut or OplIn argument) and without the Fresnel kinds
-    or the coatings (``_fresnel``, ``_coat``), which take those arguments
-    too."""
-    return (('StreamOut' in name or 'OplIn' in name) and not _fresnel(name)
-            and not _coat(name))
+    streams (a StreamOut or OplIn argument) and without the Fresnel kinds,
+    the coatings or the diffractive kinds (``_fresnel``, ``_coat``,
+    ``_diff``), which take those arguments too."""
+    return (('StreamOut' in name or 'OplIn' in name)
+            and not ('SeqDraws' in name or 'PhiloxKey' in name))
 
 
 def _fresnel(name):
     """Whether a mangled kernel name is an overload with the Fresnel kinds
-    (a SeqDraws or PhiloxKey argument) and without the coatings
-    (``_coat``), which take those arguments too."""
-    return ('SeqDraws' in name or 'PhiloxKey' in name) and not _coat(name)
+    (a SeqDraws or PhiloxKey argument) and without the coatings or the
+    diffractive kinds (``_coat``, ``_diff``), which take those arguments
+    too."""
+    return (('SeqDraws' in name or 'PhiloxKey' in name)
+            and 'CoatSide' not in name)
 
 
 def _coat(name):
     """Whether a mangled kernel name is an overload with the coatings (a
-    CoatSide argument)."""
-    return 'CoatSide' in name
+    CoatSide argument) and without the diffractive kinds (``_diff``), which
+    take that argument too."""
+    return 'CoatSide' in name and not _diff(name)
+
+
+def _diff(name):
+    """Whether a mangled kernel name is an overload with the diffractive
+    kinds (a DiffKinds argument)."""
+    return 'DiffKinds' in name
 
 
 @pytest.mark.cuda
@@ -1331,7 +1344,7 @@ def test_ext_instantiations_are_built(dev):
         usage = nvcc_build.ptxas_usage(logs[lib][0])
         ext = [k for k in usage
                if f'{lib}_kernel' in k and _ext(k) and not _streams(k)
-               and not _fresnel(k) and not _coat(k)]
+               and not _fresnel(k) and not _coat(k) and not _diff(k)]
         assert len(ext) == count, (lib, ext)
         assert all(usage[k]['registers'] for k in ext)
     for case in EXT_CASES:
@@ -1854,3 +1867,110 @@ def test_coat_instantiations_fit(dev):
             lib, len(sc.static_meta()), sc.sensor_config(), True,
             sc.n_bounces, ext=True, disp=fused_trace.dispersive(
                 sc.static_meta()), coat=True) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', chip_smoke.DIFF_CASES)
+def test_diff_kernels_match_plain(name, dev):
+    """K1 and K2 (the Scene: K5 and K6) with the diffractive kinds against
+    their plain versions: rays, moments slot by slot and the ray, table (a
+    DOE's coefficients included) and wavelength cotangents (chip_smoke.py's
+    bounds); K6's replay against K5."""
+    res = chip_smoke.diffractive_kernels_vs_plain(trt, torch, name, N, dev,
+                                                  71)
+    assert res['bwd']['rays_differ'] <= res['bwd']['allowed']
+
+
+@pytest.mark.cuda
+def test_diff_paths_launch_their_instantiation(dev):
+    """``simulate_fused`` of the hybrid achromat (as a SequentialScene and as
+    a Scene) launches K1 (K5) once in the instantiation with the diffractive
+    kinds and, under grad, K2 (K6) in theirs; the DOE's phase gets a
+    gradient."""
+    gen = torch.Generator(device=dev).manual_seed(72)
+    for nb, mod, fwd, bwd in (
+            (None, fused_trace, 'LAUNCHES', 'BWD_LAUNCHES'),
+            (4, fused_nonseq, 'NONSEQ_LAUNCHES', 'NONSEQ_BWD_LAUNCHES')):
+        sc = chip_smoke.hybrid_scene(trt, n_bounces=nb)
+        rays = trt.sample_bundles(gen, chip_smoke.hybrid_bundles(trt, 999),
+                                  dev)
+        p = sc.init_params(dev)
+        p['doe']['phase'].requires_grad_(True)
+        setattr(mod, fwd, 0)
+        setattr(mod, bwd, 0)
+        fused_trace.DIFF_LAUNCHES = fused_trace.COAT_LAUNCHES = 0
+        _, sens, _ = sc.simulate_fused(p, rays, 3)
+        trt.spot_size_loss(sens).backward()
+        torch.cuda.synchronize()
+        assert (getattr(mod, fwd), getattr(mod, bwd)) == (1, 1)
+        assert fused_trace.DIFF_LAUNCHES == 2
+        assert fused_trace.COAT_LAUNCHES == 0
+        assert float(p['doe']['phase'].grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_diff_instantiations_are_built(dev):
+    """K1 and K6 build one overload with the diffractive kinds, K2 one for
+    each home of its saved states and K5 one for each moment bucket; each
+    has its registers."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        found = [k for k in usage if f'{lib}_kernel' in k and _diff(k)]
+        assert len(found) == count, (lib, found)
+        assert all(usage[k]['registers'] for k in found)
+
+
+@pytest.mark.cuda
+def test_diff_instantiations_fit(dev):
+    """The diffractive instantiations keep at least one block resident on an
+    SM on the hybrid achromat, the spectrometer and the Scene of every new
+    kind, at their shared memory."""
+    for lib, make in (('trace_seq_fwd', chip_smoke.hybrid_scene),
+                      ('trace_seq_bwd', chip_smoke.spectrometer_scene),
+                      ('trace_nonseq_fwd', chip_smoke.diffractive_ns_scene),
+                      ('trace_nonseq_bwd', chip_smoke.diffractive_ns_scene)):
+        sc = make(trt)
+        meta = sc.static_meta()
+        assert fused_trace.blocks_per_sm(
+            lib, len(meta), sc.sensor_config(9), True, sc.n_bounces,
+            ext=True, disp=fused_trace.dispersive(meta), diff=True) >= 1
+
+
+@pytest.mark.cuda
+def test_k1_k2_take_eighteen_bundles(dev):
+    """K1 and K2 on the spectrometer with 18 bundles (the limit) against
+    their plain versions: the moments slot by slot, the ray cotangents."""
+    sc = chip_smoke.spectrometer_scene(trt)
+    meta = sc.static_meta()
+    bundles = [(trt.CollimatedDisk.make(radius=4.0, ray_id=j,
+                                        wavelength=0.45 + 0.012 * j,
+                                        translation=[0, 0, -5.0]), 167)
+               for j in range(18)]
+    rays = trt.sample_bundles(torch.Generator(device=dev).manual_seed(73),
+                              bundles, dev)
+    cfg = sc.sensor_config(18)
+    flat = trt.flatten_table_rows(sc.build_table(sc.init_params(dev)))
+    kinds = _kinds(meta, cfg, dev)
+    maps = fused_trace.plate_maps(meta, {})
+    coat = fused_trace.coat_side(meta, dev)
+    out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
+                                                True, coat=coat, diff=True)
+    out_p, s_p = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                          meta, maps)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(out_k, s_k, out_p, s_p)
+    assert s_k.moments.shape == (1, 18, 7)
+    assert float(s_k.moments[0, :, 0].min()) > 0
+    g_rays, g_mom, _ = chip_smoke.random_cotangents(torch, rays.n, cfg, dev,
+                                                    74)
+    g_k = fused_trace.trace_seq_bwd_cuda(flat, kinds, rays, cfg, g_rays,
+                                         g_mom, maps=maps, ext=True,
+                                         disp=True, coat=coat, diff=True)
+    g_p = fused_trace.trace_seq_bwd_plain(flat, rays, cfg, meta, g_rays,
+                                          g_mom, maps=maps)
+    chip_smoke.compare_ray_cotangents(torch, g_k[1], g_p[1],
+                                      tol=chip_smoke.DISP_BWD_TOL)

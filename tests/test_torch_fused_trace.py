@@ -149,8 +149,8 @@ def _freeform_scene():
 
 
 def _rect_scene():
-    # a rectangular (RECT-bound) microlens array: the bound is ported, the
-    # MLA physics is not
+    # a rectangular (RECT-bound) microlens array: the bound and the MLA
+    # physics are ported
     return jrt.SequentialScene([
         jrt.MicrolensArray(half_x=2.0, half_y=1.0, pitch=0.5, f=10.0,
                            name='mla'),
@@ -165,13 +165,52 @@ def _ellipse_scene():
                           name='sensor')])
 
 
+def _grin_scene():
+    # a GRIN row: its RK4 march is not ported
+    return jrt.SequentialScene([
+        ElementCustom(shapes.plane, 1, PhysKind.GRIN, ph=(1.5, 1.0),
+                      name='grin'),
+        jrt.SensorElement(radius=50.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+
+
+def _box_scene():
+    # a box's HALFSPACES volume bound: the solids are not ported
+    return jrt.SequentialScene([
+        jrt.BoxElement(length=4.0, width=6.0, height=8.0,
+                       translation=[0.0, 0.0, 10.0], name='box'),
+        jrt.SensorElement(radius=50.0, translation=[0, 0, 25.0],
+                          name='sensor')])
+
+
 @pytest.mark.parametrize('make', [_scatter_scene, _freeform_scene,
-                                  _rect_scene, _ellipse_scene])
+                                  _grin_scene, _box_scene])
 def test_dispatcher_raises_on_unsupported_rows(make):
     scene = make()
     table, rays, cfg, meta = _port_inputs(scene, _rays(64, 1, seed=0), 1)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         trt.trace_sequential_fused(table, rays, cfg, meta)
+
+
+@pytest.mark.parametrize('make', [_rect_scene, _ellipse_scene])
+def test_dispatcher_traces_diffractive_rows(make):
+    """The MLA physics and the ELLIPSE bound, refused before, trace through
+    the dispatcher (the plain version here) as the JAX package's trace
+    does."""
+    scene = make()
+    rays = _rays(N, 1, seed=3)
+    out_j, sens_j, _ = scene.simulate(scene.init_params(), rays,
+                                      jax.random.PRNGKey(0))
+    table, rays_t, cfg, meta = _port_inputs(scene, rays, 1)
+    out_t, sens_t = trt.trace_sequential_fused(table, rays_t, cfg, meta)
+    assert fused_trace.diffractive_kinds(meta)
+    np.testing.assert_allclose(out_t.pos.numpy(), np.asarray(out_j.pos),
+                               atol=1e-5)
+    np.testing.assert_allclose(out_t.dir.numpy(), np.asarray(out_j.dir),
+                               atol=1e-5)
+    np.testing.assert_allclose(sens_t.moments.numpy(),
+                               np.asarray(sens_j.moments), rtol=1e-5,
+                               atol=1e-3)
 
 
 def test_rect_bound_rows_trace():
@@ -291,7 +330,7 @@ def test_kernel_limits_raise():
     table, rays, cfg, meta = _port_inputs(_bench(), _rays(64, 1, seed=0), 1)
     with pytest.raises(NotImplementedError, match='bundles'):
         trt.trace_sequential_fused(table, rays,
-                                   trt.SensorConfig(1, n_bundles=9), meta)
+                                   trt.SensorConfig(1, n_bundles=19), meta)
     with pytest.raises(ValueError, match='CUDA'):
         fused_trace.trace_seq_fwd_cuda(
             trt.flatten_table_rows(table),
