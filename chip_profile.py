@@ -59,7 +59,12 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   in their instantiations with them on example 25's hybrid achromat and
   example 05's nine-channel spectrometer, K5 and K6 on the Scene of every
   new kind, the hybrid's ``simulate_fused`` and grad step (c1, c2 and the
-  DOE's phase) and the Scene's ``Scene.simulate_fused``.
+  DOE's phase) and the Scene's ``Scene.simulate_fused``;
+- fuzzy apodization (chip_smoke.py section 14): K1 and K2 in their
+  instantiations with fuzzy programs on the Gaussian apodizer and the
+  obscured pupil, K5 and K6 on the Lorentzian Scene and the pupil as a
+  Scene, the apodizer's ``simulate_fused`` and grad step (c1, c2) and the
+  pupil's ``simulate_fused``.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -578,6 +583,54 @@ def main():
         'diff_grad_step_fused_hybrid': (hybrid_step, 'trace_seq_bwd'),
         'diff_scene_simulate_fused': (lambda: d_ns.simulate_fused(
             d_np, d_nr, 2), 'trace_nonseq_fwd_kernel')})
+    # fuzzy apodization and the obscured pupil (chip_smoke.py section 14)
+    for name in cs.FUZZY_CASES:
+        fsc, fp, fr, fcfg, fnonseq = cs.fuzzy_case(rt, torch, name, n, dev,
+                                                   cs.FUZZY_SEED + 7)
+        _, fflat, fkinds, fmaps, fside, fprog = cs.fuzzy_inputs(
+            rt, torch, fsc, fp, fr, fcfg)
+        fgm = torch.ones(1, 1, 7, device=dev)
+        label = f'fuzzy_{name}'
+        if fnonseq:
+            calls[f'{label}_k5'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, b=fsc.n_bounces,
+                m=fmaps, x=fside, z=fprog: fused_nonseq.trace_nonseq_fwd_cuda(
+                    f, k, r, c, b, m, False, coat=x, fuzzy=z),
+                'trace_nonseq_fwd_kernel')
+            calls[f'{label}_k6'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, b=fsc.n_bounces,
+                m=fmaps, g=fgm, x=fside, z=fprog:
+                fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, b, (None,) * 7, g, maps=m, coat=x, fuzzy=z),
+                'trace_nonseq_bwd_kernel')
+        else:
+            calls[f'{label}_k1'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, x=fside,
+                z=fprog: fused_trace.trace_seq_fwd_cuda(
+                    f, k, r, c, m, False, coat=x, fuzzy=z),
+                'trace_seq_fwd_kernel')
+            calls[f'{label}_k2'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, g=fgm,
+                x=fside, z=fprog: fused_trace.trace_seq_bwd_cuda(
+                    f, k, r, c, (None,) * 7, g, maps=m, coat=x, fuzzy=z),
+                'trace_seq_bwd')
+    apsc, ap_p, ap_rays, _, _ = cs.fuzzy_case(rt, torch, 'gauss', n, dev,
+                                              cs.FUZZY_SEED + 13)
+    pusc, pu_p, pu_rays, _, _ = cs.fuzzy_case(rt, torch, 'pupil', n, dev,
+                                              cs.FUZZY_SEED + 13)
+
+    def apod_step():
+        p = apsc.init_params(dev)
+        for k in ('c1', 'c2'):
+            p['lens'][k].requires_grad_(True)
+        _, s, _ = apsc.simulate_fused(p, ap_rays)
+        s.spot_rms(0)[0].backward()
+    calls.update({
+        'fuzzy_simulate_fused_apodizer': (lambda: apsc.simulate_fused(
+            ap_p, ap_rays), 'trace_seq_fwd_kernel'),
+        'fuzzy_grad_step_fused_apodizer': (apod_step, 'trace_seq_bwd'),
+        'fuzzy_simulate_fused_pupil': (lambda: pusc.simulate_fused(
+            pu_p, pu_rays), 'trace_seq_fwd_kernel')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

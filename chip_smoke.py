@@ -392,7 +392,7 @@ def moment_scale(torch, m):
 
 
 def compare(torch, out_k, s_k, out_p, s_p, intensity_rtol=0.0, world=False,
-            pos_tol=POS_TOL):
+            pos_tol=POS_TOL, moment_atol=1e-6):
     """Kernel vs plain -> dict of worst errors; raises on a breach.  The
     intensities must be equal, or within ``intensity_rtol`` where rows
     weight them (FRESNEL_W, REFLECT_W: FRESNEL_I_RTOL).  With ``world``
@@ -400,7 +400,9 @@ def compare(torch, out_k, s_k, out_p, s_p, intensity_rtol=0.0, world=False,
     scale (its largest |coordinate|), as ``compare_streams`` holds records:
     a ghost path's two reflections turn the beam back and forth, so the
     rounding of a coordinate grows with the whole path's; ``pos_tol``
-    replaces POS_TOL (GHOST_POS_TOL on the 27-row Cooke ghost)."""
+    replaces POS_TOL (GHOST_POS_TOL on the 27-row Cooke ghost);
+    ``moment_atol`` is the moments' absolute floor (PUPIL_MOMENT_ATOL on a
+    spot focused to a point)."""
     n = out_k.px.shape[0]
     comps = ('px', 'py', 'pz', 'dx', 'dy', 'dz')
     bad, over, i_err = traced_apart(torch, out_k, out_p, intensity_rtol,
@@ -422,7 +424,7 @@ def compare(torch, out_k, s_k, out_p, s_p, intensity_rtol=0.0, world=False,
                        min=1e-30)).max()) if n else 0.0,
                max_err_over_tol=float(over[keep].max()) if n else 0.0)
     check(n_flip <= allowed, f'{n_flip} rays differ (allowed {allowed})')
-    check(bool((mom_err <= bound + 1e-6).all()),
+    check(bool((mom_err <= bound + moment_atol).all()),
           f'moments differ: {mk.tolist()} vs {mp.tolist()}')
     return res
 
@@ -4121,6 +4123,451 @@ def diffractive_phases(rt, torch, dev, reset_counters, counters, only):
                 anchors=anchors)
 
 
+
+# Section 14: fuzzy apodization and the obscured pupil.  The telescope
+# pupil of tests/test_obscuration.py:91-111 (an outer disk of 4 mm, a 30%
+# central obscuration and four vanes 0.12 mm wide, then an ideal thin lens
+# f = 50 at z = 2 and the sensor at its focus, z = 52), lit by a collimated
+# disk of the pupil's radius from z = -3; the Gaussian apodizer exp(-(x^2 +
+# y^2) / 8) at z = 6 in the bench singlet of tests/test_pallas.py:739-748
+# (sensor at z = 19, a disk of 4 mm from z = -10); the Lorentzian 1 / (1 +
+# (x^2 + y^2) / 4) in the same singlet as a Scene of 6 bounces
+# (tests/test_pallas.py:897-903, a disk of 3 mm); the pupil as a Scene of 4.
+# The transmitted share of the uniformly lit pupil is its open area's,
+# (1 - 0.3^2) - 4 * 0.12 * (4 - 1.2) / (16 pi) = 0.8833, within
+# PUPIL_SHARE_TOL (tests/test_obscuration.py::test_energy_fraction's); a
+# hit within an ulp of a vane edge may take the other side in the kernel,
+# whose hit contracts multiply-adds (FLIPS_PER_MILLION, as elsewhere; with
+# collimated light the pupil's hit is the launch's x, y exactly, so none
+# does).  The apodizer's spot RMS against the JAX package's at 1M rays
+# (tests/fuzzy_anchors.py: the mean over keys 0-3, within 6 of their
+# standard deviations).  The design: FUZZY_DESIGN_STEPS Adam steps on the
+# apodized singlet's c1 and c2 (lr FUZZY_DESIGN_LR) through K1 and K2, and
+# the same through the eager trace: the curvatures end within
+# FUZZY_DESIGN_RTOL of each other (per-step gradients agree to ~1e-6).
+FUZZY_SEED = SEED + 1501
+PUPIL_R, PUPIL_OBS, PUPIL_VANES, PUPIL_VANE_W = 4.0, 0.3, 4, 0.12
+PUPIL_SHARE = ((1 - PUPIL_OBS ** 2) - PUPIL_VANES * PUPIL_VANE_W
+               * (PUPIL_R - PUPIL_OBS * PUPIL_R) / (math.pi * PUPIL_R ** 2))
+PUPIL_SHARE_TOL = 0.004
+# The pupil's ideal lens focuses every ray onto the axis: its spot RMS is
+# ~1e-7 mm of rounding, so the first and second moments are sums of ~1M
+# rounding errors, which the kernel (contracted multiply-adds) and the plain
+# version make otherwise.  They are held to tests/test_obscuration.py::
+# test_fused_and_roundtrip's atol 1e-3 (its rtol 1e-4 is MOMENT_RTOL's).
+PUPIL_MOMENT_ATOL = 1e-3
+# A smooth apodizer's factor is a function of the hit, which the kernel
+# computes with contracted multiply-adds (positions within POS_TOL), and its
+# exp is expf against torch's (each within 2 ulps): the intensities after
+# it are held to FUZZY_I_RTOL (POS_TOL's 1e-5; the factors' slopes are
+# under 1 /mm), the mask's stay equal (0 or 1).
+FUZZY_I_RTOL = POS_TOL
+FUZZY_NS_BOUNCES, PUPIL_NS_BOUNCES = 6, 4
+APOD_RMS_REF, APOD_RMS_TOL = 0.16384639963507652, 0.00020998354343547778
+FUZZY_DESIGN_STEPS, FUZZY_DESIGN_LR, FUZZY_DESIGN_RTOL = 20, 2e-3, 1e-4
+FUZZY_CASES = ('pupil', 'gauss', 'lorentz_scene', 'pupil_scene')
+# The interpreter's cost (csrc/fuzzy.cuh): one float32 operation an
+# arithmetic operation of the program, its dispatch unpriced; K2's and K6's
+# reverse sweeps run the program again with three partials an operation.
+FUZZY_PARTIALS = 3
+
+
+def gauss_apodizer(torch):
+    """exp(-(x^2 + y^2) / 8), tests/test_pallas.py:735-736."""
+    def apod(x, y, z):
+        return torch.exp(-(x * x + y * y) / 8.0)
+    return apod
+
+
+def lorentz_apodizer(x, y, z):
+    """1 / (1 + (x^2 + y^2) / 4), tests/test_pallas.py:895-896."""
+    return 1.0 / (1.0 + (x * x + y * y) / 4.0)
+
+
+def pupil_scene(rt, n_bounces=None):
+    """The obscured pupil before an ideal thin lens focusing on the
+    sensor; a Scene of ``n_bounces`` when given."""
+    els = [rt.ObscuredAperture(radius=PUPIL_R, obscuration=PUPIL_OBS,
+                               n_vanes=PUPIL_VANES, vane_width=PUPIL_VANE_W,
+                               name='pupil'),
+           rt.IdealThinLens(focal=50.0, diameter=12.0,
+                            translation=[0, 0, 2.0], name='lens'),
+           rt.SensorElement(radius=6.0, translation=[0, 0, 52.0], name='s')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def apodizer_scene(rt, fn, n_bounces=None):
+    """The bench singlet (curvatures trainable) with the component-style
+    apodizer ``fn`` at z = 6 and the sensor at z = 19; a Scene of
+    ``n_bounces`` when given."""
+    els = [rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                          c1_grad=True, c2_grad=True, name='lens'),
+           rt.FuzzyAperture(fn, components=True, name='apod',
+                            translation=[0, 0, 6.0]),
+           rt.SensorElement(radius=6.0, translation=[0, 0, 19.0],
+                            name='sensor')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def fuzzy_case(rt, torch, name, n, device, seed):
+    """(scene, params, rays, cfg, nonseq) of a section 14 case: 'pupil',
+    'gauss', 'lorentz_scene' and 'pupil_scene'."""
+    if name.startswith('pupil'):
+        sc = pupil_scene(rt, PUPIL_NS_BOUNCES if name == 'pupil_scene'
+                         else None)
+        radius, z0 = PUPIL_R, -3.0
+    elif name == 'gauss':
+        sc, radius, z0 = apodizer_scene(rt, gauss_apodizer(torch)), 4.0, -10.0
+    else:
+        sc = apodizer_scene(rt, lorentz_apodizer, FUZZY_NS_BOUNCES)
+        radius, z0 = 3.0, -10.0
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rays = rt.CollimatedDisk.make(radius=radius,
+                                  translation=[0, 0, z0]).sample(gen, n,
+                                                                 device)
+    return (sc, sc.init_params(device), rays, sc.sensor_config(),
+            not sc.sequential)
+
+
+def fuzzy_inputs(rt, torch, sc, params, rays, cfg):
+    """The fused trace's inputs of a fuzzy scene: (TraceMeta, flat table,
+    kinds, maps, coat side buffer, program buffer)."""
+    from raytracetorch_tpu_torch.ops import fused_trace
+    dev = rays.px.device
+    meta = fused_trace.TraceMeta(sc.static_meta(), sc.fuzzy_fns())
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=dev)
+    return (meta, flat, kinds, fused_trace.plate_maps(meta, {}),
+            fused_trace.coat_side(meta, dev),
+            fused_trace.fuzzy_buffer(meta, dev))
+
+
+def fuzzy_kernels_vs_plain(rt, torch, name, n, device, seed):
+    """K1 and K2 (the Scenes: K5 and K6) in their instantiation with fuzzy
+    programs against their plain versions (which call the callables) on a
+    section 14 case: the rays and moments, then the ray and table cotangents
+    under seeded cotangents on the rays both trace alike; K6's replay
+    against K5 bit for bit -> dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    sc, params, rays, cfg, nonseq = fuzzy_case(rt, torch, name, n, device,
+                                               seed)
+    meta, flat, kinds, maps, coat, prog = fuzzy_inputs(rt, torch, sc, params,
+                                                       rays, cfg)
+    ext = fused_trace.ext_kinds(meta)
+    if nonseq:
+        nb = sc.n_bounces
+        kfwd = (lambda r: fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, r, cfg, nb, maps, ext, coat=coat, fuzzy=prog))
+        out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nb, maps)
+    else:
+        kfwd = (lambda r: fused_trace.trace_seq_fwd_cuda(
+            flat, kinds, r, cfg, maps, ext, coat=coat, fuzzy=prog))
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps)
+    out_k, s_k = kfwd(rays)
+    torch.cuda.synchronize()
+    pupil = name.startswith('pupil')
+    i_rtol = 0.0 if pupil else FUZZY_I_RTOL
+    apart = traced_apart(torch, out_k, out_p, i_rtol)[0]
+    res = compare(torch, out_k, s_k, out_p, s_p, intensity_rtol=i_rtol,
+                  moment_atol=PUPIL_MOMENT_ATOL if pupil else 1e-6)
+    res.update(rows=len(meta), program_words=int(prog.numel()),
+               transmitted=float(out_k.intensity.double().mean()))
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, _ = random_cotangents(torch, rays.n, cfg, device,
+                                         seed + 2)
+    if nonseq:
+        g_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+            coat=coat, fuzzy=prog, replay=True)
+        g_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nb, g_rays, g_mom, maps=maps)
+    else:
+        g_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=ext,
+            coat=coat, fuzzy=prog)
+        g_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, cfg, meta, g_rays, g_mom, maps=maps)
+    torch.cuda.synchronize()
+    if nonseq:
+        out_r = kfwd(rays)[0]
+        res['replay_equal'] = all(torch.equal(getattr(g_k[-1], c),
+                                              getattr(out_r, c))
+                                  for c in fused_trace.COMPS)
+        check(res['replay_equal'], f'{name}: K6 replay differs from K5')
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1],
+        allowed=max(3, math.ceil(NS_MISMATCH_SHARE * rays.n)) if nonseq
+        else None)
+    res['bwd'].update(compare_table_cotangents(
+        torch, fused_trace, g_k[0], g_p[0], plates=True, ext=True,
+        coat=True, diff=True))
+    # the apodizer's (or the pupil's) row carries a table cotangent
+    res['bwd']['fuzzy_row_grad'] = float(g_k[0][min(meta.fuzzy)].abs().max())
+    return res
+
+
+def fuzzy_program_ops(meta):
+    """The arithmetic operations of each row's program (0 without one)."""
+    from raytracetorch_tpu_torch.ops import fuzzy_program
+    return [sum(op[0] != fuzzy_program.CODE['const']
+                for op in fuzzy_program.trace(meta.fuzzy[k]).ops)
+            if k in meta.fuzzy else 0 for k in range(len(meta))]
+
+
+def fuzzy_design(rt, torch, device, simulate_name, rays):
+    """FUZZY_DESIGN_STEPS Adam steps on the Gaussian-apodized singlet's c1
+    and c2 through ``simulate_name`` (simulate_fused: K1, K2 each step) ->
+    dict of the losses and the curvatures."""
+    sc = apodizer_scene(rt, gauss_apodizer(torch))
+    simulate = getattr(sc, simulate_name)
+
+    def loss(p):
+        _, sens, _ = simulate(p, rays)
+        return sens.spot_rms(0)[0]
+    t0 = time.perf_counter()
+    p, hist = rt.fit(loss, sc.init_params(device), trainable=sc.trainable(),
+                     steps=FUZZY_DESIGN_STEPS, lr=FUZZY_DESIGN_LR)
+    torch.cuda.synchronize()
+    return dict(loss0=float(hist[0]), loss=float(hist[-1]),
+                c1=float(p['lens']['c1']), c2=float(p['lens']['c2']),
+                seconds=time.perf_counter() - t0)
+
+
+def fuzzy_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 14: fuzzy apodization and the obscured pupil through K1, K2,
+    K5 and K6 in their instantiation with fuzzy programs: each kernel
+    against its plain version (at 2,999 and 1M rays); the counted paths (the
+    pupil's ``simulate_fused`` against the eager trace and the open area,
+    the apodizer's forward and grad step against the eager gradients in the
+    curvatures and the ray streams, its spot RMS against the JAX package's,
+    the Scenes' forward and grad steps); a 20-step design through K1 and K2
+    against the eager one; then times, bounds (with the programs'
+    operations) and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+
+    # 14a. each kernel against its plain version
+    kern = {}
+    for name in FUZZY_CASES:
+        for n in (N_SMALL, N_MAIN):
+            kern[f'{name}_{n}'] = fuzzy_kernels_vs_plain(
+                rt, torch, name, n, dev, FUZZY_SEED + 11)
+    emit('fuzzy_kernels_vs_plain', **kern)
+
+    # 14b. the counted paths at 1M rays
+    paths = {}
+    sc, params, rays, cfg, _ = fuzzy_case(rt, torch, 'pupil', N_MAIN, dev,
+                                          FUZZY_SEED + 13)
+    reset_counters()
+    with torch.no_grad():
+        out_f, s_f, _ = sc.simulate_fused(params, rays)
+    torch.cuda.synchronize()
+    fl = counters()
+    check(only(fl, trace_seq_fwd=1, fuzzy=1), f'pupil launched {fl}')
+    out_e, s_e, _ = sc.simulate(params, rays)
+    share = float(out_f.intensity.double().sum()) / rays.n
+    flips = int(((out_f.intensity - out_e.intensity).abs() > 0.5).sum())
+    paths['pupil'] = dict(
+        fwd_launches=fl, transmitted_share=share, open_area=PUPIL_SHARE,
+        eager_flips=flips, flips_allowed=math.ceil(FLIPS_PER_MILLION
+                                                   * rays.n / 1e6),
+        spot_rms=float(s_f.spot_rms(0)[0]),
+        eager_spot_rms=float(s_e.spot_rms(0)[0]))
+    check(abs(share - PUPIL_SHARE) <= PUPIL_SHARE_TOL,
+          f'pupil share {share} (open area {PUPIL_SHARE})')
+    check(flips <= paths['pupil']['flips_allowed'],
+          f'pupil: {flips} rays differ from the eager trace')
+
+    sc, params, rays, cfg, _ = fuzzy_case(rt, torch, 'gauss', N_MAIN, dev,
+                                          FUZZY_SEED + 13)
+    reset_counters()
+    with torch.no_grad():
+        _, s_f, _ = sc.simulate_fused(params, rays)
+    torch.cuda.synchronize()
+    fl = counters()
+    check(only(fl, trace_seq_fwd=1, fuzzy=1), f'apodizer launched {fl}')
+
+    def grads(simulate):
+        p = sc.init_params(dev)
+        for k in ('c1', 'c2'):
+            p['lens'][k].requires_grad_(True)
+        comps = [getattr(rays, c).clone().requires_grad_(True)
+                 for c in fused_trace.COMPS]
+        r = rays.replace(**dict(zip(fused_trace.COMPS, comps)))
+        _, s_, _ = simulate(p, r)
+        s_.spot_rms(0)[0].backward()
+        return [p['lens']['c1'].grad, p['lens']['c2'].grad], \
+            [c.grad for c in comps]
+    reset_counters()
+    gp_f, gr_f = grads(sc.simulate_fused)
+    torch.cuda.synchronize()
+    gl = counters()
+    check(only(gl, trace_seq_fwd=1, trace_seq_bwd=1, fuzzy=2),
+          f'apodizer grad step launched {gl}')
+    gp_e, gr_e = grads(sc.simulate)
+    rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+              for a, b in zip(gp_f, gp_e))
+    # the spot RMS's cotangent of an incoming intensity is a sum of its
+    # moments' terms at the hit that nearly cancel (scaling every intensity
+    # leaves the RMS alone), so the hits' rounding in another order reads
+    # ~1e-4 of it: BWD_TOL's rule at DISP_BWD_TOL (without the apodizer
+    # 42,248 of 1M rays exceed BWD_TOL's bound on an H100)
+    ray_res = compare_ray_cotangents(torch, gr_f, gr_e, tol=DISP_BWD_TOL)
+    rms = float(s_f.spot_rms(0)[0])
+    paths['apodizer'] = dict(
+        fwd_launches=fl, grad_launches=gl, rel_err=rel,
+        grads=[float(g) for g in gp_f], ray_cotangents=ray_res,
+        spot_rms=rms, spot_rms_ref=APOD_RMS_REF, spot_rms_tol=APOD_RMS_TOL,
+        transmitted=float(s_f.moments[0, 0, 0]) / rays.n)
+    check(rel < GRAD_RTOL, f'apodizer: fused vs eager gradients {rel}')
+    check(abs(rms - APOD_RMS_REF) <= APOD_RMS_TOL,
+          f'apodizer spot RMS {rms} (JAX {APOD_RMS_REF})')
+
+    for name, trained in (('lorentz_scene', ('c1', 'c2')),
+                          ('pupil_scene', ())):
+        sc, params, rays, cfg, _ = fuzzy_case(rt, torch, name, N_MAIN, dev,
+                                              FUZZY_SEED + 13)
+        reset_counters()
+        with torch.no_grad():
+            out_f, s_f, _ = sc.simulate_fused(params, rays)
+        torch.cuda.synchronize()
+        fl = counters()
+        check(only(fl, trace_nonseq_fwd=1, fuzzy=1), f'{name} launched {fl}')
+        ent = dict(fwd_launches=fl,
+                   transmitted=float(out_f.intensity.double().mean()))
+        if trained:
+            def ns_grads(simulate):
+                p = sc.init_params(dev)
+                for k in trained:
+                    p['lens'][k].requires_grad_(True)
+                _, s_, _ = simulate(p, rays)
+                s_.spot_rms(0)[0].backward()
+                return [p['lens'][k].grad for k in trained]
+            reset_counters()
+            g_f = ns_grads(sc.simulate_fused)
+            torch.cuda.synchronize()
+            gl = counters()
+            check(only(gl, trace_nonseq_fwd=1, trace_nonseq_bwd=1, fuzzy=2),
+                  f'{name} grad step launched {gl}')
+            g_e = ns_grads(sc.simulate)
+            rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                      for a, b in zip(g_f, g_e))
+            ent.update(grad_launches=gl, rel_err=rel,
+                       grads=[float(g) for g in g_f])
+            check(rel < GRAD_RTOL, f'{name}: fused vs eager gradients {rel}')
+        else:
+            check(abs(ent['transmitted'] - PUPIL_SHARE) <= PUPIL_SHARE_TOL,
+                  f'{name}: share {ent["transmitted"]}')
+        paths[name] = ent
+    emit('fuzzy_main', n=N_MAIN, **paths)
+
+    # 14c. a design through K1 and K2 against the eager one
+    d_rays = fuzzy_case(rt, torch, 'gauss', N_MAIN, dev, FUZZY_SEED + 17)[2]
+    reset_counters()
+    fused = fuzzy_design(rt, torch, dev, 'simulate_fused', d_rays)
+    fused['launches'] = counters()
+    eager = fuzzy_design(rt, torch, dev, 'simulate', d_rays)
+    design = dict(fused=fused, eager=eager, steps=FUZZY_DESIGN_STEPS)
+    emit('fuzzy_design', **design)
+    check(only(fused['launches'], trace_seq_fwd=FUZZY_DESIGN_STEPS,
+               trace_seq_bwd=FUZZY_DESIGN_STEPS,
+               fuzzy=2 * FUZZY_DESIGN_STEPS),
+          f'fuzzy design launched {fused["launches"]}')
+    check(fused['loss'] < fused['loss0'], f'the design did not fall: {fused}')
+    for k in ('c1', 'c2'):
+        check(abs(fused[k] - eager[k]) <= FUZZY_DESIGN_RTOL * abs(eager[k]),
+              f'design {k}: fused {fused[k]} vs eager {eager[k]}')
+
+    # 14d. times at 1M rays against the plain versions, bounds (the
+    # programs' operations) and blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    for name, key in (('gauss', 'k1'), ('pupil', 'k1_pupil'),
+                      ('lorentz_scene', 'k5'), ('pupil_scene', 'k5_pupil')):
+        sc, params, r, cfg, nonseq = fuzzy_case(rt, torch, name, N_MAIN, dev,
+                                                FUZZY_SEED + 7)
+        meta, flat, kinds, maps, coat, prog = fuzzy_inputs(
+            rt, torch, sc, params, r, cfg)
+        ext = fused_trace.ext_kinds(meta)
+        g_rays, g_mom, _ = random_cotangents(torch, r.n, cfg, dev, SEED + 6)
+        io = (r.n * (36 + 28) + table_bytes(meta)
+              + len(meta) * fused_trace.COAT_SIDE * 4 + prog.numel() * 4)
+        cols = len(fused_trace.grad_cols((), True, False, True, True))
+        pops = fuzzy_program_ops(meta)
+        if nonseq:
+            nb = sc.n_bounces
+            kfn = (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, nb, maps, ext, coat=coat, fuzzy=prog))
+            pfn = (lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, nb, maps))
+            bk = (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                flat, kinds, r, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+                coat=coat, fuzzy=prog))
+            bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                flat, r, cfg, meta, nb, g_rays, g_mom, maps=maps))
+            reps = dict(reps=6, warmup=1)
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
+                                        segment_replays(lives))
+            prog_ops = sum(w * o for w, o in zip(wins, pops))
+            bounds[key] = bound(io, k5_ops + prog_ops)
+            bounds[key.replace('k5', 'k6')] = bound(
+                io + r.n * 28 + len(meta) * cols * 4,
+                k6_ops + (2 + 1 + FUZZY_PARTIALS) * prog_ops)
+        else:
+            kfn = (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, ext, coat=coat, fuzzy=prog))
+            pfn = (lambda: fused_trace.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps))
+            bk = (lambda: fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=ext,
+                coat=coat, fuzzy=prog))
+            bp = (lambda: fused_trace.trace_seq_bwd_plain(
+                flat, r, cfg, meta, g_rays, g_mom, maps=maps))
+            reps = dict(reps=10, warmup=2)
+            k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m) for m in meta)
+            prog_ops = r.n * sum(pops)
+            bounds[key] = bound(io, k1_ops + prog_ops)
+            bounds[key.replace('k1', 'k2')] = bound(
+                io + r.n * 28 + len(meta) * cols * 4,
+                3 * k1_ops + (2 + FUZZY_PARTIALS) * prog_ops)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, kfn, pfn, **reps)
+        timing[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs,
+                           program_ops=pops)
+        k_ms, p_ms, k_runs, _ = time_pair(torch, bk, bp, **reps)
+        timing[key.replace('k1', 'k2').replace('k5', 'k6')] = dict(
+            kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        for lib in (('trace_nonseq_fwd', 'trace_nonseq_bwd') if nonseq
+                    else ('trace_seq_fwd', 'trace_seq_bwd')):
+            occ[f'{lib}_{name}'] = fused_trace.blocks_per_sm(
+                lib, len(meta), cfg, True, sc.n_bounces, ext=True,
+                diff=True, fuzzy_words=int(prog.numel()))
+    sc, params, rays, _, _ = fuzzy_case(rt, torch, 'gauss', N_MAIN, dev,
+                                        FUZZY_SEED + 13)
+
+    def step():
+        p = sc.init_params(dev)
+        p['lens']['c1'].requires_grad_(True)
+        _, s_, _ = sc.simulate_fused(p, rays)
+        s_.spot_rms(0)[0].backward()
+    for label, fn in (
+            ('simulate_fused_apodizer',
+             lambda: sc.simulate_fused(params, rays)),
+            ('grad_step_fused_apodizer', step)):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{label}_ms'] = statistics.median(runs)
+        timing[f'{label}_runs'] = runs
+    emit('fuzzy_timing', **timing)
+    emit('fuzzy_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('fuzzy_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds,
+                design=design)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4144,7 +4591,7 @@ def main():
         fused_trace.V1_LAUNCHES = fused_trace.EXT_LAUNCHES = 0
         fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
         fused_trace.FRESNEL_LAUNCHES = fused_trace.COAT_LAUNCHES = 0
-        fused_trace.DIFF_LAUNCHES = 0
+        fused_trace.DIFF_LAUNCHES = fused_trace.FUZZY_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -4164,7 +4611,8 @@ def main():
                     record_recomputes=fused_trace.RECORD_RECOMPUTES,
                     fresnel=fused_trace.FRESNEL_LAUNCHES,
                     coat=fused_trace.COAT_LAUNCHES,
-                    diff=fused_trace.DIFF_LAUNCHES)
+                    diff=fused_trace.DIFF_LAUNCHES,
+                    fuzzy=fused_trace.FUZZY_LAUNCHES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -5069,6 +5517,9 @@ def main():
     diffractive = diffractive_phases(rt, torch, dev, reset_counters,
                                      counters, only)
 
+    # 14. fuzzy apodization and the obscured pupil
+    fuzzy = fuzzy_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -5624,6 +6075,31 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, df_t[key]['kernel_ms'],
             df_t[key]['plain_ms']))
+    # the instantiations with fuzzy programs (section 14): launches on the
+    # counted paths of the Gaussian apodizer (K1, K2) and the Lorentzian
+    # Scene (K5, K6), errors at 1M rays over the cases, times and bounds on
+    # those two
+    fz_k, fz_t, fz_b = fuzzy['kernels'], fuzzy['timing'], fuzzy['bounds']
+    fz_p = fuzzy['paths']
+    seq_cases = [k for k in fz_k if 'scene' not in k]
+    ns_cases = [k for k in fz_k if 'scene' in k]
+    for name, source, line, launches_, err, key in (
+            ('trace_seq_fwd_fuzzy', 'trace_seq_fwd.cu', 489,
+             fz_p['apodizer']['fwd_launches']['trace_seq_fwd'],
+             max(fz_k[c]['max_abs_err'] for c in seq_cases), 'k1'),
+            ('trace_seq_bwd_fuzzy', 'trace_seq_bwd.cu', 1712,
+             fz_p['apodizer']['grad_launches']['trace_seq_bwd'],
+             max(fz_k[c]['bwd']['max_abs_err'] for c in seq_cases), 'k2'),
+            ('trace_nonseq_fwd_fuzzy', 'trace_nonseq_fwd.cu', 1029,
+             fz_p['lorentz_scene']['fwd_launches']['trace_nonseq_fwd'],
+             max(fz_k[c]['max_abs_err'] for c in ns_cases), 'k5'),
+            ('trace_nonseq_bwd_fuzzy', 'trace_nonseq_bwd.cu', 2157,
+             fz_p['lorentz_scene']['grad_launches']['trace_nonseq_bwd'],
+             max(fz_k[c]['bwd']['max_abs_err'] for c in ns_cases), 'k6')):
+        bounds[name] = fz_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, fz_t[key]['kernel_ms'],
+            fz_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -68,7 +68,13 @@ Hopper.  The port covers:
   ``IdealCylThinLens`` and ``IdealMirror``, the ``MicrolensArray`` and the
   rotated ``EllipticAperture``, eager and through K1, K2, K5 and K6 (an
   instantiation of their own), with up to 18 bundles in the fused
-  kernels.
+  kernels;
+- fuzzy apodization and the obscured telescope pupil: ``FuzzyAperture``
+  (any callable of the surface-local hit, eagerly) and ``ObscuredAperture``
+  (outer disk, central obscuration, spider vanes), through K1, K2, K5 and
+  K6 (an instantiation of their own) for component-style callables, which
+  the fused path traces into programs that the kernels interpret
+  (ops/fuzzy_program.py).
 
 ROADMAP.md lists what is still to be ported.
 
@@ -89,7 +95,9 @@ from .core.table import (SurfaceRec, SurfaceTable, flatten_table_rows,  # noqa: 
                          stack_records)
 from .core.trace import trace_nonsequential, trace_sequential  # noqa: E402
 from .elements.aperture import (CircularAperture,  # noqa: E402
-                                EllipticAperture, RectangularAperture)
+                                ComponentFuzzy, EllipticAperture,
+                                FuzzyAperture, ObscuredAperture,
+                                RectangularAperture)
 from .elements.base import Element  # noqa: E402
 from .elements.diffractive import DiffractiveLens, PhaseGridPlate  # noqa: E402
 from .elements.ideal import (DiffractionGrating, IdealCylThinLens,  # noqa: E402

@@ -25,10 +25,13 @@ loops are ported (``Streams``): ``track_opl`` (the optical path length
 ``aux['opl']`` and the index of the final medium ``aux['n_final']``),
 ``record_paths`` (``aux['paths']``) and ``record_hits`` (``aux['hits']``,
 ``aux['hit_weights']`` and, non-sequentially, ``aux['hit_slots']``), with
-the JAX package's keys, shapes and meaning.  The field stream, ``E0`` and
-fuzzy apodization come with their elements (ROADMAP Queue 1 item 14:
-polarization, fuzzy apertures) and raise; so do rows of the kinds the port
-lacks (GRIN, HALFSPACES, coatings, metals, scatter), through
+the JAX package's keys, shapes and meaning.  Fuzzy apodization
+(``fuzzy_fns``, {row: callable}, ``Scene.fuzzy_fns``) multiplies a row's
+intensity factor by its callable of the surface-local hit after the row's
+physics (elements/aperture.py::call_fuzzy), in both loops, as the
+reference's do; any callable runs here.  The field stream and ``E0`` come
+with the polarization elements (ROADMAP Queue 1 item 14) and raise; so do
+rows of the kinds the port lacks (GRIN, HALFSPACES, scatter), through
 ``unsupported``.
 
 The Fresnel kinds FRESNEL_W and REFLECT_W are deterministic; FRESNEL draws
@@ -57,6 +60,7 @@ import torch
 from ..constants import BIG, PhysKind
 from ..geom import vec3 as v3
 from ..rays.draws import nonseq_draws, sequential_uniforms, stream_index
+from ..elements.aperture import call_fuzzy
 from ..rays.ray import Rays
 from .intersect import intersect, normal_world
 from .sensor import SensorConfig, SensorState
@@ -149,13 +153,15 @@ class Streams:
 
 
 def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
-                  static_meta, plain=False, grid=None, streams=None, u=None):
+                  static_meta, plain=False, grid=None, streams=None, u=None,
+                  fuzzy_fn=None):
     """Apply one surface interaction to the whole ray batch (masked).
 
     ``row`` is a SurfaceTable row or a FlatRow (a row of the fused kernel's
     flat table): only its float columns are read; the kinds come from
     ``static_meta``.  ``grid`` is the row's phase map (PHASE_GRID rows),
-    ``u`` its ``[N]`` uniforms (FRESNEL rows).  ``plain=True`` bins the grid
+    ``u`` its ``[N]`` uniforms (FRESNEL rows), ``fuzzy_fn`` its apodization
+    callable (None: none).  ``plain=True`` bins the grid
     and reads the map's corners with their plain versions on any device.
     ``streams`` (a ``Streams``) records the row.  A ray that misses a
     REFLECT_W row leaves the path: its intensity becomes 0."""
@@ -165,6 +171,8 @@ def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     new_dir, imod = apply_physics_one(static_meta, row, res['hit_s'],
                                       rays.dir_c, n_w, rays.wavelength,
                                       grid, plain, u)
+    if fuzzy_fn is not None:
+        imod = imod * call_fuzzy(fuzzy_fn, res['hit_s'])
     new_pos = v3.fma(rays.pos_c, res['t'], rays.dir_c)
     if static_meta.sensor:
         # sensors record the surface-local hit and the INCOMING intensity
@@ -180,24 +188,27 @@ def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
 
 
 def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
-                  plain=False, grids=None, streams=None, uniforms=None):
+                  plain=False, grids=None, streams=None, uniforms=None,
+                  fuzzy_fns=None):
     """The sequential chain over ``rows`` (one per static_meta entry) ->
     ``(rays, sensors)``; ``streams`` records every row; ``uniforms`` holds
-    the FRESNEL rows' ``[F, N]`` draws in row order (rays/draws.py)."""
+    the FRESNEL rows' ``[F, N]`` draws in row order (rays/draws.py);
+    ``fuzzy_fns`` maps a row to its apodization callable."""
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
     first = stream_index(static_meta)
     for k, meta in enumerate(static_meta):
         u = uniforms[first[k]] if k in first else None
         rays, sensors = _surface_step(rows[k], rays, cfg, sensors, meta,
                                       plain=plain, grid=(grids or {}).get(k),
-                                      streams=streams, u=u)
+                                      streams=streams, u=u,
+                                      fuzzy_fn=(fuzzy_fns or {}).get(k))
     return rays, sensors
 
 
-def _refuse_unported(track_field=False, E0=None, fuzzy_fns=None):
-    if track_field or E0 is not None or fuzzy_fns:
+def _refuse_unported(track_field=False, E0=None):
+    if track_field or E0 is not None:
         raise NotImplementedError(
-            f'track_field, E0 and fuzzy apodization are {TODO_ELEMENTS}')
+            f'track_field and E0 are {TODO_ELEMENTS}')
 
 
 def trace_sequential(table, rays: Rays, cfg: SensorConfig = SensorConfig(),
@@ -209,21 +220,23 @@ def trace_sequential(table, rays: Rays, cfg: SensorConfig = SensorConfig(),
     map.  A table with FRESNEL rows reads one ``[N]`` uniform stream per
     such row, in row order: ``uniforms`` (``[F, N]``) when given, else drawn
     from ``generator`` (a ``torch.Generator``; rays/draws.py::row_uniforms);
-    with neither it raises ValueError.  ``aux`` holds the streams asked for
-    (``Streams``): ``paths [K+1, N, 3]`` (the launch position, then the
+    with neither it raises ValueError.  ``fuzzy_fns`` maps a row to its
+    apodization callable (either calling style).  ``aux`` holds the streams
+    asked for (``Streams``): ``paths [K+1, N, 3]`` (the launch position, then the
     position after each row), ``hits [K, N, 3]`` and ``hit_weights [K, N]``,
     ``opl`` and ``n_final`` ``[N]``."""
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_sequential needs one StaticRowMeta per row '
                          '(SequentialScene.static_meta())')
-    _refuse_unported(track_field, E0, fuzzy_fns)
+    _refuse_unported(track_field, E0)
     u = sequential_uniforms(static_meta, rays.n, rays.px.device, generator,
                             uniforms)
     dtype = torch.promote_types(rays.px.dtype, table.tw.dtype)
     streams = Streams.of(rays, record_paths, record_hits, track_opl)
     rows = [table.row(k) for k in range(table.n_surfaces)]
     rays, sensors = surface_chain(rows, rays, cfg, static_meta, dtype,
-                                  grids=grids, streams=streams, uniforms=u)
+                                  grids=grids, streams=streams, uniforms=u,
+                                  fuzzy_fns=fuzzy_fns)
     return rays, sensors, streams.aux() if streams is not None else {}
 
 
@@ -244,7 +257,7 @@ def nearest_hit(table, pos, direction, static_meta):
 
 def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
                 static_meta, plain=False, grids=None, streams=None,
-                draws=None, bounce=0):
+                draws=None, bounce=0, fuzzy_fns=None):
     """One non-sequential bounce -> ``(rays, sensors, active [N])``.
 
     ``rows`` holds one row per table row (SurfaceTable rows or FlatRows);
@@ -258,7 +271,9 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     A nearer non-sensor winner zeroes an earlier sensor crossing.
     ``streams`` records the bounce: the winner's medium is written for
     every winner (a non-refracting one keeps ``n_cur``), so a nearer mirror
-    overtaking a refracting candidate leaves no stale medium."""
+    overtaking a refracting candidate leaves no stale medium.
+    ``fuzzy_fns`` maps a row to its apodization callable, which multiplies
+    that row's factor before the merge."""
     pos, d = rays.pos_c, rays.dir_c
     best_t = torch.full_like(rays.intensity, BIG)
     new_pos, new_dir = pos, d
@@ -280,6 +295,8 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
         dir_k, imod_k = apply_physics_one(meta, row, res['hit_s'], d, n_w,
                                           rays.wavelength,
                                           (grids or {}).get(k), plain, u)
+        if k in (fuzzy_fns or {}):
+            imod_k = imod_k * call_fuzzy(fuzzy_fns[k], res['hit_s'])
         new_pos = v3.where(mask, v3.fma(pos, res['t'], d), new_pos)
         new_dir = v3.where(mask, dir_k, new_dir)
         imod_all = torch.where(mask, imod_k, imod_all)
@@ -305,19 +322,20 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
 
 def bounce_loop(rows, rays: Rays, n_bounces: int, cfg: SensorConfig,
                 static_meta, dtype, plain=False, grids=None, streams=None,
-                draws=None):
+                draws=None, fuzzy_fns=None):
     """Up to ``n_bounces`` bounce steps, stopping after the first bounce in
     which no ray interacted -> ``(rays, sensors)``.  ``streams`` records
     every bounce of the full budget: the bounces after the stop as settled
     (``Streams.settled``).  ``draws`` as for ``bounce_step`` (None: no row
     draws); the stop changes no draw, each being a function of its
-    bounce."""
+    bounce.  ``fuzzy_fns`` as for ``bounce_step``."""
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
     for b in range(n_bounces):
         rays, sensors, act = bounce_step(rows, rays, cfg, sensors,
                                          static_meta, plain=plain,
                                          grids=grids, streams=streams,
-                                         draws=draws, bounce=b)
+                                         draws=draws, bounce=b,
+                                         fuzzy_fns=fuzzy_fns)
         if not bool(act.any()):
             if streams is not None:
                 for _ in range(b + 1, n_bounces):
@@ -338,7 +356,8 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
     rows draws from ``generator`` (two Philox seed words, drawn once) or
     from ``draws(bounce, row) -> [N]`` (injected;
     rays/draws.py::nonseq_draws); with neither it raises ValueError.
-    ``aux`` holds the streams asked for: ``paths [B, N, 3]`` (the position
+    ``fuzzy_fns`` as for ``trace_sequential``.  ``aux`` holds the streams
+    asked for: ``paths [B, N, 3]`` (the position
     after each bounce of the full budget B), ``hits [B, N, 3]``,
     ``hit_weights [B, N]`` and ``hit_slots [B, N]`` int32 (the winning
     sensor's local hit, the incoming intensity and the slot; a nearer
@@ -347,7 +366,7 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_nonsequential needs one StaticRowMeta per '
                          'row (Scene.static_meta())')
-    _refuse_unported(track_field, E0, fuzzy_fns)
+    _refuse_unported(track_field, E0)
     for k, meta in enumerate(static_meta):
         why = unsupported(meta)
         if why:
@@ -359,5 +378,5 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
                          launch=False)
     rays, sensors = bounce_loop(rows, rays, n_bounces, cfg, static_meta,
                                 dtype, grids=grids, streams=streams,
-                                draws=rng)
+                                draws=rng, fuzzy_fns=fuzzy_fns)
     return rays, sensors, streams.aux() if streams is not None else {}

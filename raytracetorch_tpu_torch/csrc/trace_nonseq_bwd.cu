@@ -9,8 +9,9 @@
 // test_nonseq_bwd_scan_matches_unrolled holds them equal), so this one kernel
 // is the counterpart of both, for K5's kinds (pixelated phase plates and the
 // extended kinds included), the optical path length, the Fresnel kinds
-// with their draws, and thin-film coatings and metal mirrors, with every
-// other optional stream off.
+// with their draws, thin-film coatings and metal mirrors, the diffractive
+// and ideal elements, and component-style fuzzy apodization (the TPU
+// kernel's fuzzy_fns, :2292), with every other optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -134,6 +135,14 @@
 // is K5's, its reverse sweep runs diffractive_backward (trace_seq_adjoint.cuh)
 // and reduces a DOE winner's 8 ff columns after the coat columns.
 //
+// Fuzzy apodization runs in one more instantiation, kFuzzy, built on kDiff
+// (an overload with one more argument, FuzzyProgs: the traced programs'
+// int32 buffer, in shared memory after the side buffer): its replays run
+// K5's bounce with the programs (nonseq_bounce), so they reach K5's state
+// bit for bit, and its reverse sweep re-runs a fuzzy winner's program at the
+// replayed hit with forward-mode partials (fuzzy.cuh) and adds g I imod
+// dw/d(hit) to the hit's cotangent (row_backward).
+//
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..18
 // bundles and slots x bundles <= 64, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
 // 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
@@ -171,20 +180,23 @@ constexpr unsigned kFull = 0xffffffffu;
 // (medium_after, as K5's instantiation with the streams takes it).  With
 // kFresnel a FRESNEL winner draws at `rd`'s counter, as K5 drew; with
 // kCoat (which has kFresnel) a coated or metal winner reads its row of the
-// side buffer `cside`; with kDiff (which has kCoat) the diffractive kinds.
+// side buffer `cside`; with kDiff (which has kCoat) the diffractive kinds;
+// with kFuzzy (which has kDiff) a winner with a program in `fz` weighs by
+// it.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits, float* n_cur = nullptr,
                                       const RayDraw* rd = nullptr,
-                                      const float* cside = nullptr) {
+                                      const float* cside = nullptr,
+                                      const int32_t* fz = nullptr) {
   RowHit hw = {};
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff>(
-      recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd, cside);
+  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy>(
+      recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd, cside, fz);
   if (k >= 0) bits = branch_bits<kFresnel>(hw, degen, br) | kActive;
   if constexpr (kOpl) {
     if (k >= 0)
@@ -236,6 +248,13 @@ struct DiffKinds {
   int unused;
 };
 
+// What only the instantiation with the fuzzy programs takes: their n_words
+// int32 words (fuzzy.cuh's layout).
+struct FuzzyProgs {
+  const int32_t* words;
+  int n_words;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the replays also carry the index of the
 // medium, each checkpoint keeps the one before its bounce as a ninth word
@@ -246,9 +265,10 @@ struct DiffKinds {
 // metal winners read their rows of `cs`, and a row's 8 coat-thickness
 // columns follow its disp columns.  With kDiff (which has kCoat) the
 // diffractive kinds, and a DOE winner's 8 ff columns follow the coat
-// columns.
+// columns.  With kFuzzy (which has kDiff) the winners with a program in `fp`
+// (copied into shared memory after the side buffer) weigh by it.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -265,10 +285,12 @@ __device__ __forceinline__ void nonseq_bwd(
     int n_slots, int n_bundles, GridCt gg, const float* __restrict__ maps,
     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
     float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}) {
+    OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr},
+    FuzzyProgs fp = {nullptr, 0}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
+  static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
@@ -286,7 +308,10 @@ __device__ __forceinline__ void nonseq_bwd(
   float* gm = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
   float* cside = gm + n_mom;  // kCoat: the side buffer
-  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0);  // [kWarps, n_rows, n_cols]
+  // kFuzzy: the programs, after the side buffer
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
+  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) +
+                    (kFuzzy ? fp.n_words : 0);  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -297,6 +322,9 @@ __device__ __forceinline__ void nonseq_bwd(
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
   if constexpr (kCoat) {
     for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+  }
+  if constexpr (kFuzzy) {
+    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
@@ -339,8 +367,8 @@ __device__ __forceinline__ void nonseq_bwd(
     const float ib = inten, nb = n_cur;
     uint32_t bits = 0;
     rd.bounce = static_cast<uint32_t>(b);
-    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
-        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
+    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
+        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -387,16 +415,16 @@ __device__ __forceinline__ void nonseq_bwd(
 #pragma unroll 1
       for (int b = 0; b < s; ++b) {
         rd.bounce = static_cast<uint32_t>(b);
-        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
-            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
+            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs);
       }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten, nb = n_cur;
         rd.bounce = static_cast<uint32_t>(s + j);
-        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
-            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside);
+        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
+            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
       }
@@ -429,9 +457,10 @@ __device__ __forceinline__ void nonseq_bwd(
         if (act) {
           const RowKinds kd =
               read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
-          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
+          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
               tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm, n_bundles, gg, pl,
-              gmaps, gp, gd, gi, tg, &wc, &oc, cside + k * kCoatSide, tc, tf);
+              gmaps, gp, gd, gi, tg, &wc, &oc, cside + k * kCoatSide, tc, tf,
+              kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr);
           dispm = kd.dispm;
           coated = kd.coat & kCoatCountMask;
           doe = kDiff && kd.ph == DOE;
@@ -566,7 +595,17 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey k
   nonseq_bwd<kPlates, kExt, true, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs);
 }
 
-// The types of the six kernels.
+// The kernel with those and the fuzzy programs.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
+                        DiffKinds, FuzzyProgs fp) {
+  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key,
+                                                                cs, fp);
+}
+
+// The types of the seven kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -574,6 +613,8 @@ using BwdFresnelKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxK
 using BwdCoatKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide);
 using BwdDiffKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
                                DiffKinds);
+using BwdFuzzyKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
+                                DiffKinds, FuzzyProgs);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
@@ -581,14 +622,16 @@ using BwdDiffKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey,
 // The dynamic shared memory of a launch: the packed scan records (not with
 // kExt), the table, its kinds, the moment cotangent, with kCoat the side
 // buffer, the warp slots (disp_cols more columns a row on a table with a
-// dispersive row, with kCoat 8 more, with kDiff 8 more again) and the
-// checkpoints.  Without the records the mixed-surface Scene's 11 rows and
-// 12 checkpoints fit two blocks an SM.
+// dispersive row, with kCoat 8 more, with kDiff 8 more again), the fuzzy
+// programs' `fuzzy_words` and the checkpoints.  Without the records the
+// mixed-surface Scene's 11 rows and 12 checkpoints fit two blocks an SM.
 template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false>
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols) {
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols,
+                    int fuzzy_words = 0) {
   return sizeof(float) *
          (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth +
                                          (kCoat ? kCoatSide : 0)) +
+          static_cast<size_t>(fuzzy_words) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
           static_cast<size_t>(kWarps) * n_rows *
               (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
@@ -598,9 +641,12 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int d
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 const void* kernel_fn() {
-  if constexpr (kDiff)
+  if constexpr (kFuzzy)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFuzzyKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kDiff)
     return reinterpret_cast<const void*>(
         static_cast<BwdDiffKernel>(trace_nonseq_bwd_kernel<true, true>));
   else if constexpr (kCoat)
@@ -622,10 +668,11 @@ const void* kernel_fn() {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(),
+  return cudaFuncSetAttribute(
+      kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -732,7 +779,9 @@ extern "C" int rtt_trace_nonseq_bwd(
 // coat_side; its partials hold 8 more columns a row (the coat thicknesses,
 // after the disp columns).  With `coat_side`, `diff` nonzero selects the
 // instantiation with the diffractive kinds, whose partials hold 8 more (a
-// DOE row's coefficients, after the coat columns).  Returns a cudaError_t.
+// DOE row's coefficients, after the coat columns), and with it `fuzzy`,
+// when not null, the one with the fuzzy programs: K5's `fuzzy_words` int32
+// words.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -744,9 +793,12 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
     const float* g_nfinal, uint32_t key0, uint32_t key1, int fresnel, const float* coat_side,
-    int diff, int n_bounces, long long n, void* stream) {
+    int diff, const int32_t* fuzzy, int fuzzy_words, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy == nullptr) fuzzy_words = 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -756,17 +808,19 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const size_t smem =
       diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                        wo.disp_cols)
+                                                        wo.disp_cols, fuzzy_words)
       : coat_side != nullptr
           ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                  wo.disp_cols)
           : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  // one launch for the four instantiations: the Fresnel kernel's overload
+  // one launch for the five instantiations: the Fresnel kernel's overload
   // takes the key as its last argument, the coated one the key and the side
-  // buffer, the diffractive one those and its tag
+  // buffer, the diffractive one those and its tag, the fuzzy one those and
+  // the programs
   auto go = [&](auto... draws) {
-    const cudaError_t e = prepare<true, true, true, true, sizeof...(draws) != 0,
-                                  sizeof...(draws) >= 2, sizeof...(draws) == 3>(smem);
+    const cudaError_t e =
+        prepare<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
+                sizeof...(draws) >= 3, sizeof...(draws) == 4>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_nonseq_bwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -777,6 +831,9 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
             n, wo, OplIn{g_opl, g_nfinal}, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (fuzzy != nullptr)
+    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words});
   if (diff) return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
@@ -789,15 +846,22 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
 // dispersion on a table with a dispersive row, 4 the instantiation with the
 // path length on such a table, 5 the one with the Fresnel kinds on such a
 // table, 6 the one with the coatings on such a table, 7 the one with the
-// diffractive kinds on such a table.  Returns a cudaError_t.
+// diffractive kinds on such a table, 8 the one with the fuzzy programs (of
+// `fuzzy_words` words) on such a table.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                              int n_bounces, int code, int* blocks) {
+                                              int n_bounces, int code, int fuzzy_words,
+                                              int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 7) {
+  if (code == 8) {
+    smem = shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                      kDispGradCols, fuzzy_words);
+    e = prepare<true, true, true, true, true, true, true, true>(smem);
+    fn = kernel_fn<true, true, true, true, true, true, true, true>();
+  } else if (code == 7) {
     smem = shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                       kDispGradCols);
     e = prepare<true, true, true, true, true, true, true>(smem);

@@ -8,9 +8,11 @@
 // mixed-surface and asphere scenes and dispersive media, with every other
 // optional stream off but the deterministic ones (the optical path length,
 // path and hit recording, in an instantiation of their own, below), the
-// Fresnel kinds with their draws (one more instantiation) and thin-film
-// coatings and metal mirrors (one more): no scatter draws, field, fuzzy
-// apodization, GRIN or HALFSPACES rows.
+// Fresnel kinds with their draws (one more instantiation), thin-film
+// coatings and metal mirrors (one more), the diffractive and ideal elements
+// (one more) and component-style fuzzy apodization (one more;
+// _nonseq_bounce_core :967-968): no scatter draws, field, GRIN or
+// HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -117,6 +119,13 @@
 // with its rotation's cosine and sine, written once per row and block into
 // the shared table (ellipse_rows), and only the winner evaluates its map.
 //
+// Fuzzy apodization runs in one more instantiation, kFuzzy, of the streams'
+// body (an overload with one more argument after the tag, FuzzyProgs: the
+// traced programs' int32 buffer, copied into shared memory after the side
+// buffer), built on kDiff: a winner with a program multiplies its factor by
+// the program's value at its surface-frame hit (fuzzy.cuh's interpreter,
+// in nonseq_bounce, which K6's replay runs too).
+//
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
 
@@ -146,12 +155,15 @@ __host__ __device__ constexpr int fwd_min_blocks() {
 
 // The dynamic shared memory of a launch: the packed scan records (not with
 // the extended kinds), the flat table, its kinds, with `coat` (the
-// instantiation with the coatings) the side buffer, the per-warp moment
-// partials and bucket 1's per-thread moment sums.
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext, bool coat = false) {
+// instantiation with the coatings) the side buffer, the fuzzy programs'
+// `fuzzy_words`, the per-warp moment partials and bucket 1's per-thread
+// moment sums.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext, bool coat = false,
+                    int fuzzy_words = 0) {
   return sizeof(float) * (static_cast<size_t>(n_rows) *
                               ((ext ? 0 : kRecWords) + kRowWidth + kKindWidth +
                                (coat ? kCoatSide : 0)) +
+                          static_cast<size_t>(fuzzy_words) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
                           static_cast<size_t>(kMoments) * kThreads);
 }
@@ -165,6 +177,12 @@ struct CoatSide {
 // The instantiation with the diffractive kinds (kDiff): its overload's tag.
 struct DiffKinds {
   int unused;
+};
+
+// The fuzzy programs (kFuzzy): n_words int32 words (fuzzy.cuh's layout).
+struct FuzzyProgs {
+  const int32_t* words;
+  int n_words;
 };
 
 template <int kMomBucket, bool kPlates, bool kExt>
@@ -304,8 +322,11 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // Fresnel kinds, a FRESNEL winner drawing Philox under `key`; with kCoat
 // (which has kFresnel) the coated and metal winners weigh by their stacks,
 // reading their rows of `cs`; with kDiff (which has kCoat) the diffractive
-// kinds and the ELLIPSE bound.
-template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false>
+// kinds and the ELLIPSE bound; with kFuzzy (which has kDiff) the winners
+// with a program in `fp` (copied into shared memory after the side buffer)
+// weigh by it.
+template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false,
+          bool kFuzzy = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -317,9 +338,10 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so,
-    PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}) {
+    PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0}) {
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
+  static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   constexpr bool kPlates = true, kExt = true;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -328,7 +350,9 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   float* tab = reinterpret_cast<float*>(smem4 + n_rows * kRecs);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
   float* cside = tab + n_rows * (kRowWidth + kKindWidth);  // kCoat: the side buffer
-  float* warp_mom = cside + (kCoat ? n_rows * kCoatSide : 0);
+  // kFuzzy: the programs, after the side buffer
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
+  float* warp_mom = reinterpret_cast<float*>(fzs) + (kFuzzy ? fp.n_words : 0);
   const int n_mom = n_slots * n_bundles * kMoments;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -339,6 +363,9 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   if constexpr (kCoat) {
     for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+  }
+  if constexpr (kFuzzy) {
+    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
   }
   __syncthreads();
   if constexpr (kDiff) {
@@ -389,8 +416,8 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     PhysBranch br = {};
     SensorRec rec;
     const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
-    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff>(
-        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd, cside);
+    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff, kFuzzy>(
+        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd, cside, fzs);
     if (k_win < 0) {
       b_end = b;
       break;
@@ -531,6 +558,16 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, Coat
   nonseq_fwd_streams<kMomBucket, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs);
 }
 
+// The kernel with the streams, the Fresnel kinds, the coatings, the
+// diffractive kinds and the fuzzy programs.
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
+                        DiffKinds, FuzzyProgs fp) {
+  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
+  nonseq_fwd_streams<kMomBucket, true, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs, fp);
+}
+
 // Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
 // one after the other), into 4 n words: the device generator's known-answer
 // check (tests/test_torch_cuda.py, chip_smoke.py).
@@ -543,22 +580,27 @@ __global__ void philox_kernel(const uint32_t* __restrict__ ctr, const uint32_t* 
   for (int w = 0; w < 4; ++w) out[4 * j + w] = c[w];
 }
 
-// The types of the five kernels.
+// The types of the six kernels.
 using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey);
 using FwdCoatKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide);
 using FwdDiffKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
                                DiffKinds);
+using FwdFuzzyKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
+                                DiffKinds, FuzzyProgs);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 const void* kernel_fn() {
-  if constexpr (kDiff)
+  if constexpr (kFuzzy)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFuzzyKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else if constexpr (kDiff)
     return reinterpret_cast<const void*>(
         static_cast<FwdDiffKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
   else if constexpr (kCoat)
@@ -585,11 +627,11 @@ struct PlateArgs {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
-      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff>(),
+      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -629,9 +671,14 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the
-// diffractive kinds) and moment bucket, its shared memory allowed.
+// diffractive kinds, 8 the one with the fuzzy programs) and moment bucket,
+// its shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 8) {
+    *e = prepare<kMomBucket, true, true, true, true, true, true, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, true, true, true, true>();
+  }
   if (code == 7) {
     *e = prepare<kMomBucket, true, true, true, true, true, true>(smem);
     return kernel_fn<kMomBucket, true, true, true, true, true, true>();
@@ -663,7 +710,8 @@ const void* kernel_of(int code, size_t smem, cudaError_t* e) {
 // The instantiation with the streams, or with `draws` (the Philox key) the
 // one with the Fresnel kinds too: the Fresnel kernel's overload takes the
 // key as its last argument; with the key and the side buffer the one with
-// the coatings; with those and the tag the one with the diffractive kinds.
+// the coatings; with those and the tag the one with the diffractive kinds;
+// with those and the programs the one with the fuzzy programs.
 template <int kMomBucket, class... Draws>
 int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const float* table,
                    const int32_t* kinds, int n_rows, const float* const* rays,
@@ -671,8 +719,9 @@ int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const flo
                    int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
                    const PlateArgs& pa, int n_bounces, long long n, const StreamOut& so,
                    Draws... draws) {
-  const cudaError_t e = prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0,
-                                sizeof...(Draws) >= 2, sizeof...(Draws) == 3>(smem);
+  const cudaError_t e =
+      prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0, sizeof...(Draws) >= 2,
+              sizeof...(Draws) >= 3, sizeof...(Draws) == 4>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   trace_nonseq_fwd_kernel<kMomBucket, true, true>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
@@ -742,7 +791,9 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
 // instantiation with the coatings (which also takes the Fresnel kinds and
 // reads the key so): the n_rows * 20 floats of ops/fused_trace.py::
 // coat_side; with it, `diff` nonzero selects the one with the diffractive
-// kinds.  Returns a cudaError_t.
+// kinds, and with that `fuzzy`, when not null, the one with the fuzzy
+// programs: its `fuzzy_words` int32 words (n_rows to kFuzzyMaxWords;
+// fuzzy.cuh).  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -751,9 +802,13 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
     float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, int fresnel,
-    const float* coat_side, int diff, int n_bounces, long long n, void* stream) {
+    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words, int n_bounces,
+    long long n, void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy == nullptr) fuzzy_words = 0;
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -763,7 +818,8 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, coat_side != nullptr);
+  const size_t smem =
+      shared_bytes(n_rows, n_slots, n_bundles, true, coat_side != nullptr, fuzzy_words);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -778,6 +834,9 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
                               n_bounces, n, so, draws...);
   };
+  if (fuzzy != nullptr)
+    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words});
   if (diff) return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
@@ -800,13 +859,15 @@ extern "C" int rtt_philox4x32(const uint32_t* ctr, const uint32_t* key, uint32_t
 // `code`: 0 without plate code, 1 with it, 2 (or 3, as K2's and K6's code
 // for a table with a dispersive row) with it and the extended kinds, 4 the
 // instantiation with the streams, 5 the one with the Fresnel kinds, 6 the
-// one with the coatings, 7 the one with the diffractive kinds.  Returns a
-// cudaError_t.
+// one with the coatings, 7 the one with the diffractive kinds, 8 the one
+// with the fuzzy programs (of `fuzzy_words` words).  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                              int n_bounces, int code, int* blocks) {
+                                              int n_bounces, int code, int fuzzy_words,
+                                              int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code >= 6);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code >= 6,
+                                   code == 8 ? fuzzy_words : 0);
   cudaError_t e;
   const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
                                             : kernel_of<64>(code, smem, &e);

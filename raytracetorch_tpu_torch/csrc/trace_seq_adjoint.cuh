@@ -198,12 +198,15 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
 // One row of K1's chain: updates (p, d, inten) where the row is active and
 // returns the row's bits.  With kFresnel a FRESNEL row draws with the ray's
 // uniform u, and a REFLECT_W row zeroes the intensity of a ray it does not
-// hold.  With kDiff the diffractive kinds and the ELLIPSE bound.
+// hold.  With kDiff the diffractive kinds and the ELLIPSE bound.  With
+// kFuzzy (which has kDiff) a row with a fuzzy program `prog` (fuzzy.cuh;
+// null: none) multiplies its factor by the program's value at the hit.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
                                                 const Plates& pl, V3& p, V3& d, float& inten,
-                                                float u = 0.0f, const float* side = nullptr) {
+                                                float u = 0.0f, const float* side = nullptr,
+                                                const int32_t* prog = nullptr) {
   const RowHit h = intersect_row<kPlates, kExt, kDiff>(r, kd, p, d);
   bool degen = false;
   const V3 nw = uses_normal<kFresnel>(kd.ph) || (kPlates && kd.ph == PHASE_GRID) ||
@@ -215,6 +218,9 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   float imod;
   apply_physics<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff>(
       r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br, kd.dispm, u, kd.coat, side);
+  if constexpr (kFuzzy) {
+    if (prog != nullptr) imod = imod * fuzzy_eval<false>(prog, h.hs.x, h.hs.y, h.hs.z).w;
+  }
   uint32_t bits = branch_bits<kFresnel>(h, degen, br);
   if (h.valid && inten > 0.0f) {
     bits |= kActive;
@@ -844,20 +850,26 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // metal's (stack_weight_backward); the thicknesses' cotangents add into
 // tc[kMaxCoatLayers].  With kDiff (which has kCoat) the diffractive kinds
 // (diffractive_backward); a DOE row's coefficients' cotangents add into
-// tf[kMaxDoeTerms].
+// tf[kMaxDoeTerms].  With kFuzzy (which has kDiff) a row with a fuzzy
+// program `prog` (null: none) weighs I' = I (imod w) with w the program's
+// value at hs: w's cotangent g I imod goes through the program's
+// forward-mode partials into the hit's cotangent, and imod's and I's take
+// w as a factor.
 template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
                                              const Plates& pl, float* gmaps, V3& gp, V3& gd,
                                              float& gi, float* tg, WaveCt* wc = nullptr,
                                              OplCt* oc = nullptr, const float* side = nullptr,
-                                             float* tc = nullptr, float* tf = nullptr) {
+                                             float* tc = nullptr, float* tf = nullptr,
+                                             const int32_t* prog = nullptr) {
   static_assert(kDispersion || !kOpl, "the path length runs with dispersion");
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
+  static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   if (!(bits & kActive)) {  // where(active, new, old) passes through
     if (kFresnel && kd.ph == REFLECT_W) gi = 0.0f;
     return;
@@ -923,6 +935,13 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     }
   }
 
+  // kFuzzy: the program's value w and partials at hs; the cotangent of the
+  // row's own factor imod is then g I w (g I without a program)
+  FuzzyDual fw = {1.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (kFuzzy) {
+    if (prog != nullptr) fw = fuzzy_eval<true>(prog, hs.x, hs.y, hs.z);
+  }
+
   // ---- masked update: p' = p + t d, d' = nd, I' = I * imod ----
   float imod = kd.ph == BLOCK || (kd.ph == APERTURE && !(bits & kMod)) ||
                        (kPlates && kd.ph == PHASE_GRID && !(bits & kPgOk))
@@ -935,7 +954,7 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     if ((kd.ph == GRATING || kd.ph == DOE) && !(bits & kPgOk)) imod = 0.0f;
     if (kd.ph == DOE && (doe_of(kd.coat) & kDoeEfficiency) && (bits & kPgOk)) {
       imod = kinoform_eff(r[kPh + 2], r[kPh + 3], pl.wl);
-      g_eta = gi * inten;
+      g_eta = kFuzzy ? gi * inten * fw.w : gi * inten;
     }
   }
   // kFresnel: FRESNEL_W's clip(1 - R, 0, 1) and REFLECT_W's clip(R, 0, 1)
@@ -949,7 +968,8 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   StackIn sa = {};
   float g_sr = 0.0f, g_st = 0.0f;
   if constexpr (kCoat) {
-    stacked = stack_weight(r, kd, pl, d, nw, bits, side, gi * inten, sa, imod, g_sr, g_st);
+    stacked = stack_weight(r, kd, pl, d, nw, bits, side,
+                           kFuzzy ? gi * inten * fw.w : gi * inten, sa, imod, g_sr, g_st);
   }
   if constexpr (kFresnel) {
     if (weighted) {
@@ -957,7 +977,8 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
       const float R = fresnel_R(ff.cos_i, ff.cos_t, ff.n1, ff.n2);
       const float x = kd.ph == FRESNEL_W ? 1.0f - R : R;
       imod = fminf(fmaxf(x, 0.0f), 1.0f);
-      const float g_x = x >= 0.0f && x <= 1.0f ? gi * inten : 0.0f;
+      const float g_x =
+          x >= 0.0f && x <= 1.0f ? (kFuzzy ? gi * inten * fw.w : gi * inten) : 0.0f;
       g_R = kd.ph == FRESNEL_W ? -g_x : g_x;
     }
   }
@@ -974,8 +995,13 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     g_t += oc->g_opl * oc->n_cur;
     oc->g_n = (refracts ? 0.0f : oc->g_n) + oc->g_opl * t;
   }
-  float g_i = gi * imod;
+  float g_i = gi * (kFuzzy ? imod * fw.w : imod);
   V3 g_hs = {0.0f, 0.0f, 0.0f};
+  if constexpr (kFuzzy) {
+    // I' = I (imod w): w's cotangent g I imod, through w's partials into hs
+    const float g_w = gi * inten * imod;
+    g_hs = {g_w * fw.gx, g_w * fw.gy, g_w * fw.gz};
+  }
 
   // ---- sensor moments of the incoming intensity (w = I) ----
   if (kd.sensor && rid >= 0 && rid < n_bundles) {

@@ -7,8 +7,10 @@
 // pixelated phase plates, the extended kinds of the mixed-surface and
 // asphere scenes and dispersive media, the optical path length (g_opl,
 // g_nfinal), the Fresnel kinds with K1's pre-drawn uniforms (the TPU
-// kernel's u_vals, :1883-1891), and thin-film coatings and metal mirrors,
-// with every other optional stream off.  Its plain
+// kernel's u_vals, :1883-1891), thin-film coatings and metal mirrors, the
+// diffractive and ideal elements, and component-style fuzzy apodization
+// (the TPU kernel's fuzzy_fns, :1775), with every other optional stream
+// off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_bwd_cuda.
@@ -121,6 +123,15 @@
 //   (trace_seq_adjoint.cuh, diffractive.cuh) and reduces a DOE row's 8 ff
 //   columns after the coat columns, only on DOE rows; GRATING and DOE rows
 //   add their share to the wavelength's cotangent.
+// - Fuzzy apodization: a ninth instantiation, kFuzzy, built on the eighth
+//   (an overload with one more argument, FuzzyProgs: the traced programs'
+//   int32 buffer, copied into shared memory after the side buffer), so that
+//   the others keep their code.  Its forward sweep multiplies a row's
+//   factor by its program's value at the hit, as K1 does; its reverse sweep
+//   re-runs the program at the replayed hit with forward-mode partials
+//   (fuzzy.cuh: 4 floats a register, no stored tape) and adds g I imod
+//   dw/d(hit) to the hit's cotangent (row_backward).  The programs have no
+//   parameters of the table: the table's columns are unchanged.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -192,6 +203,13 @@ struct DiffKinds {
   int unused;
 };
 
+// What only the instantiation with the fuzzy programs takes: their n_words
+// int32 words (fuzzy.cuh's layout).
+struct FuzzyProgs {
+  const int32_t* words;
+  int n_words;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the forward sweep also carries the
 // index of the medium and saves it before each row as a ninth state word
@@ -203,9 +221,10 @@ struct DiffKinds {
 // coated and metal rows read their rows of `cs`, and a row's 8
 // coat-thickness columns follow its disp columns.  With kDiff (which has
 // kCoat) the diffractive kinds, and a DOE row's 8 ff columns follow the coat
-// columns.
+// columns.  With kFuzzy (which has kDiff) the rows with a program in `fp`
+// (copied into shared memory after the side buffer) weigh by it.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -219,10 +238,12 @@ __device__ __forceinline__ void seq_bwd(
     float* __restrict__ cintensity, float* __restrict__ partials, int n_slots, int n_bundles,
     GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}) {
+    OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr},
+    FuzzyProgs fp = {nullptr, 0}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
+  static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kStride = kShared ? kThreads : 1;
   constexpr int kWords = state_words<kOpl>();
@@ -238,7 +259,10 @@ __device__ __forceinline__ void seq_bwd(
   float* gm = smem + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
   float* cside = gm + n_mom;  // kCoat: the side buffer
-  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0);  // [kWarps, n_rows, n_cols]
+  // kFuzzy: the programs, after the side buffer
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
+  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) +
+                    (kFuzzy ? fp.n_words : 0);  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   // each row's saved state: [n_rows][kStateWords][kThreads] after the
@@ -251,6 +275,9 @@ __device__ __forceinline__ void seq_bwd(
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
   if constexpr (kCoat) {
     for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+  }
+  if constexpr (kFuzzy) {
+    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
@@ -288,8 +315,9 @@ __device__ __forceinline__ void seq_bwd(
         ++f;
       }
     }
-    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff>(
-        tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide);
+    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff, kFuzzy>(
+        tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide,
+        kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr);
     put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
     if constexpr (kOpl) {
       put_medium<kStride>(saved + k * kWords * kStride, n_cur);
@@ -333,9 +361,9 @@ __device__ __forceinline__ void seq_bwd(
       float tf[kDiff ? kMaxDoeTerms : 1];  // kDiff: a DOE row's ff columns
 #pragma unroll
       for (int c = 0; c < (kDiff ? kMaxDoeTerms : 1); ++c) tf[c] = 0.0f;
-      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(
+      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
           r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc,
-          cside + k * kCoatSide, tc, tf);
+          cside + k * kCoatSide, tc, tf, kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr);
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
       if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
@@ -460,7 +488,17 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, Coat
                                                                 cs);
 }
 
-// The types of the six kernels.
+// The kernel with those and the fuzzy programs.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
+                     DiffKinds, FuzzyProgs fp) {
+  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi,
+                                                                      dr, cs, fp);
+}
+
+// The types of the seven kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -468,6 +506,8 @@ using BwdFresnelKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws);
 using BwdCoatKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide);
 using BwdDiffKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
                                DiffKinds);
+using BwdFuzzyKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
+                                DiffKinds, FuzzyProgs);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -484,14 +524,16 @@ struct PlateArgs {
 // The dynamic shared memory of a launch: the table, its kinds, the moment
 // cotangent, with kCoat the side buffer, the warp slots (disp_cols more
 // columns a row on a table with a dispersive row, with kCoat 8 more, with
-// kDiff 8 more again) and, for tables of up to kSharedRows rows, the saved
-// states (a word more a row with the path length).
+// kDiff 8 more again), the fuzzy programs' `fuzzy_words` and, for tables
+// of up to kSharedRows rows, the saved states (a word more a row with the
+// path length).
 template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false>
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols) {
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols,
+                    int fuzzy_words = 0) {
   const size_t rows = static_cast<size_t>(n_rows);
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          (kCoat ? rows * kCoatSide : 0) +
+          (kCoat ? rows * kCoatSide : 0) + static_cast<size_t>(fuzzy_words) +
           static_cast<size_t>(kWarps) * rows *
               (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
                (kDiff ? kMaxDoeTerms : 0)) +
@@ -500,9 +542,12 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols) {
 
 // The kernel of an instantiation.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 const void* kernel_fn() {
-  if constexpr (kDiff)
+  if constexpr (kFuzzy)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFuzzyKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kDiff)
     return reinterpret_cast<const void*>(
         static_cast<BwdDiffKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else if constexpr (kCoat)
@@ -525,20 +570,22 @@ const void* kernel_fn() {
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>();
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
   return n_rows <= kSharedRows
-             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(smem, fn)
-             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff>(smem, fn);
+             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
+                   smem, fn)
+             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
+                   smem, fn);
 }
 
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
@@ -657,8 +704,9 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
 // of ops/fused_trace.py::coat_side; its partials hold 8 more columns a row
 // (the coat thicknesses, after the disp columns).  With `coat_side`, `diff`
 // nonzero selects the instantiation with the diffractive kinds, whose
-// partials hold 8 more (a DOE row's coefficients, after the coat columns).
-// Returns a cudaError_t.
+// partials hold 8 more (a DOE row's coefficients, after the coat columns),
+// and with it `fuzzy`, when not null, the one with the fuzzy programs: K1's
+// `fuzzy_words` int32 words.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -669,9 +717,13 @@ extern "C" int rtt_trace_seq_bwd_opl(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
     const float* g_nfinal, const float* uniforms, int n_draws, int fresnel,
-    const float* coat_side, int diff, long long n, void* stream) {
+    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words, long long n,
+    void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy == nullptr) fuzzy_words = 0;
   if (coat_side != nullptr) fresnel = 1;
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -683,20 +735,22 @@ extern "C" int rtt_trace_seq_bwd_opl(
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const OplIn oi = {g_opl, g_nfinal};
   const size_t smem =
-      diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols)
+      diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols,
+                                                        fuzzy_words)
       : coat_side != nullptr
           ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols)
           : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  // one launch per row layout for the four instantiations: the Fresnel
+  // one launch per row layout for the five instantiations: the Fresnel
   // kernel's overload takes the draws as its last argument, the coated one
-  // the draws and the side buffer, the diffractive one those and its tag
+  // the draws and the side buffer, the diffractive one those and its tag,
+  // the fuzzy one those and the programs
   auto go = [&](auto... draws) {
     const void* fn;
     const cudaError_t e =
         prepare_rows<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
-                     sizeof...(draws) == 3>(n_rows, smem, &fn);
+                     sizeof...(draws) >= 3, sizeof...(draws) == 4>(n_rows, smem, &fn);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (n_rows <= kSharedRows)
       trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
@@ -712,6 +766,9 @@ extern "C" int rtt_trace_seq_bwd_opl(
           gmaps, n, wo, oi, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (fuzzy != nullptr)
+    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words});
   if (diff) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
@@ -725,20 +782,26 @@ extern "C" int rtt_trace_seq_bwd_opl(
 // table with a dispersive row, 4 the instantiation with the path length on
 // such a table, 5 the one with the Fresnel kinds on such a table, 6 the one
 // with the coatings on such a table, 7 the one with the diffractive kinds
-// on such a table.
+// on such a table, 8 the one with the fuzzy programs (of `fuzzy_words`
+// words) on such a table.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                           int /*n_bounces*/, int code, int* blocks) {
+                                           int /*n_bounces*/, int code, int fuzzy_words,
+                                           int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
   const size_t smem =
-      code == 7 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      code == 8 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols,
+                                                             fuzzy_words)
+      : code == 7 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code == 6 ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code >= 4 ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code >= 2 ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 7 ? prepare_rows<true, true, true, true, true, true, true>(
+  const cudaError_t e = code == 8 ? prepare_rows<true, true, true, true, true, true, true, true>(
+                                        n_rows, smem, &fn)
+                        : code == 7 ? prepare_rows<true, true, true, true, true, true, true>(
                                         n_rows, smem, &fn)
                         : code == 6 ? prepare_rows<true, true, true, true, true, true>(n_rows, smem, &fn)
                         : code == 5 ? prepare_rows<true, true, true, true, true>(n_rows, smem, &fn)

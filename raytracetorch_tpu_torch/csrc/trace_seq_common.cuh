@@ -78,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include "diffractive.cuh"
+#include "fuzzy.cuh"
 #include "grid_corners.cuh"
 #include "thin_film.cuh"
 
@@ -1133,20 +1134,24 @@ struct SensorRec {
 // a volume bound's) that the packed record does not hold.  With kCoat
 // (which has kFresnel) a coated or metal winner reads its side-buffer row
 // of `cside` ([K][kCoatSide]); with kDiff (which has kCoat) the scan takes
-// the ELLIPSE bound and the winner the diffractive kinds.
+// the ELLIPSE bound and the winner the diffractive kinds; with kFuzzy (which
+// has kDiff) a winner with a fuzzy program in `fz` (fuzzy.cuh) multiplies
+// its factor by the program's value at its surface-frame hit.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
                                              RowKinds& kw, bool* degen = nullptr,
                                              PhysBranch* br = nullptr, SensorRec* rec = nullptr,
                                              const RayDraw* rd = nullptr,
-                                             const float* cside = nullptr) {
+                                             const float* cside = nullptr,
+                                             const int32_t* fz = nullptr) {
   static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
   static_assert(kExt || !kFresnel, "the Fresnel kinds read the kinds rows of the flat scan");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
+  static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -1192,6 +1197,7 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
                                  world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs, pl,
                                  nd, imod, br, kw.dispm);
   }
+  if constexpr (kFuzzy) imod = imod * fuzzy_factor(fz, k_win, hw.hs.x, hw.hs.y, hw.hs.z);
   p = fma3(p, best_t, d);
   d = nd;
   inten = inten * imod;

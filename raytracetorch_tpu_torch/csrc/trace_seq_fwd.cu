@@ -6,9 +6,10 @@
 // mixed-surface and asphere scenes and dispersive media, and the
 // deterministic streams of _chain_pure (the optical path length, path and
 // hit recording), the Fresnel kinds with their pre-drawn uniforms
-// (_chain_pure's u_vals), and thin-film coatings and metal mirrors
-// (apply_physics_one's coated and metal branches), with every other
-// optional stream off (field, scatter draws, fuzzy apodization).  Its plain
+// (_chain_pure's u_vals), thin-film coatings and metal mirrors
+// (apply_physics_one's coated and metal branches), the diffractive and
+// ideal elements, and component-style fuzzy apodization (_chain_pure
+// :1623-1625), with every other optional stream off (field, scatter draws).  Its plain
 // PyTorch version is ops/fused_trace.py::trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
@@ -112,6 +113,16 @@
 // (ellipse_rows); a DOE row's coefficients are read from the shared table,
 // its radial sum a loop of at most 8 terms.
 //
+// Fuzzy apodization runs in one more instantiation, kFuzzy, an overload
+// with one more argument (FuzzyProgs: the traced programs' int32 buffer,
+// ops/fuzzy_program.py::pack), built on the one with the diffractive kinds,
+// so every other instantiation keeps its code.  Each block copies the
+// buffer into shared memory after the side buffer; a row with a program
+// multiplies its factor by the program's value at the surface-frame hit
+// after its physics (fuzzy.cuh's interpreter: one dispatch an operation,
+// its register file in local memory), as _chain_pure multiplies imod by the
+// callable's value.
+//
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
 // rely on (finite BIG sentinels for misses, +1e-24 under every sqrt, the
@@ -143,12 +154,15 @@ __host__ __device__ constexpr int seq_fwd_min_blocks() {
 }
 
 // The dynamic shared memory of a launch: the flat table, its kinds (16-byte
-// aligned after it), the per-warp moment partials and, with `coat` (the
-// instantiation with the coatings), the side buffer.
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool coat = false) {
+// aligned after it), the per-warp moment partials, with `coat` (the
+// instantiation with the coatings) the side buffer, and with the fuzzy
+// programs their `fuzzy_words` words.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool coat = false,
+                    int fuzzy_words = 0) {
   return sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
-                          (coat ? static_cast<size_t>(n_rows) * kCoatSide : 0));
+                          (coat ? static_cast<size_t>(n_rows) * kCoatSide : 0) +
+                          static_cast<size_t>(fuzzy_words));
 }
 
 // A row's kinds from its 8 ints in shared memory, 16-byte aligned: two
@@ -201,6 +215,12 @@ struct DiffKinds {
   int unused;
 };
 
+// The fuzzy programs (kFuzzy): n_words int32 words (fuzzy.cuh's layout).
+struct FuzzyProgs {
+  const int32_t* words;
+  int n_words;
+};
+
 // The kernel's body, shared by its instantiations (the kernels below).  With
 // kStreams (the instantiation with the streams: plate code, the extended
 // kinds and dispersion) it also accumulates the optical path length n_cur t
@@ -213,9 +233,11 @@ struct DiffKinds {
 // REFLECT_W row kills the rays it does not hold.  With kCoat (which has
 // kFresnel) coated and metal rows weigh by their stacks, reading their rows
 // of `cs`, copied into shared memory.  With kDiff (which has kCoat) the
-// diffractive and ideal kinds and the ELLIPSE bound.
+// diffractive and ideal kinds and the ELLIPSE bound.  With kFuzzy (which has
+// kDiff) the rows with a program in `fp` (copied into shared memory after
+// the side buffer) multiply their factor by its value at the hit.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false>
+          bool kDiff = false, bool kFuzzy = false>
 __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -227,10 +249,11 @@ __device__ __forceinline__ void seq_fwd(
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, long long n, StreamOut so,
-    SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}) {
+    SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0}) {
   static_assert(kStreams || !kFresnel, "the Fresnel kinds run with the streams");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
+  static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -238,6 +261,8 @@ __device__ __forceinline__ void seq_fwd(
   float* warp_mom = tab + n_rows * (kRowWidth + kKindWidth);
   const int n_mom = n_slots * n_bundles * kMoments;
   float* cside = warp_mom + kWarps * n_mom;  // kCoat: the side buffer
+  // kFuzzy: the programs, after the side buffer
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -274,6 +299,9 @@ __device__ __forceinline__ void seq_fwd(
   if constexpr (kCoat) {
     for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
   }
+  if constexpr (kFuzzy) {
+    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+  }
   __syncthreads();
   if constexpr (kDiff) {
     ellipse_rows(tab, knd, n_rows, tid, kThreads);
@@ -298,6 +326,7 @@ __device__ __forceinline__ void seq_fwd(
       apply_physics<kPlates, kExt, kExt, true, kCoat, kDiff>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs,
                                                              pl, nd, imod, &br, kd.dispm, u,
                                                              kd.coat, cside + k * kCoatSide);
+      if constexpr (kFuzzy) imod = imod * fuzzy_factor(fzs, k, h.hs.x, h.hs.y, h.hs.z);
     } else if constexpr (kStreams)
       apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br,
                                    kd.dispm);
@@ -449,21 +478,36 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs,
   seq_fwd<kPlates, kExt, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs);
 }
 
-// The types of the five kernels.
+// The kernel with the streams, the Fresnel kinds, the coatings, the
+// diffractive kinds and the fuzzy programs.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds,
+                     FuzzyProgs fp) {
+  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
+  seq_fwd<kPlates, kExt, true, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs, fp);
+}
+
+// The types of the six kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
 using FwdCoatKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide);
 using FwdDiffKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds);
+using FwdFuzzyKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
+                                FuzzyProgs);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false>
+          bool kDiff = false, bool kFuzzy = false>
 const void* kernel_fn() {
-  if constexpr (kDiff)
+  if constexpr (kFuzzy)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFuzzyKernel>(trace_seq_fwd_kernel<true, true>));
+  else if constexpr (kDiff)
     return reinterpret_cast<const void*>(
         static_cast<FwdDiffKernel>(trace_seq_fwd_kernel<true, true>));
   else if constexpr (kCoat)
@@ -482,10 +526,10 @@ const void* kernel_fn() {
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -508,8 +552,12 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the diffractive
-// kinds), its shared memory allowed.
+// kinds, 8 the one with the fuzzy programs), its shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 8) {
+    *e = prepare<true, true, true, true, true, true, true>(smem);
+    return kernel_fn<true, true, true, true, true, true, true>();
+  }
   if (code == 7) {
     *e = prepare<true, true, true, true, true, true>(smem);
     return kernel_fn<true, true, true, true, true, true>();
@@ -595,8 +643,9 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
 // `coat_side`, when not null, selects the instantiation with the coatings
 // (which also takes the Fresnel kinds and reads `uniforms` so): the
 // n_rows * 20 floats of ops/fused_trace.py::coat_side; with it, `diff`
-// nonzero selects the one with the diffractive kinds.  Returns a
-// cudaError_t.
+// nonzero selects the one with the diffractive kinds, and with that `fuzzy`,
+// when not null, the one with the fuzzy programs: its `fuzzy_words` int32
+// words (n_rows to kFuzzyMaxWords; fuzzy.cuh).  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -605,9 +654,12 @@ extern "C" int rtt_trace_seq_fwd_streams(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
     float* hit_w, const float* uniforms, int n_draws, int fresnel, const float* coat_side,
-    int diff, long long n, void* stream) {
+    int diff, const int32_t* fuzzy, int fuzzy_words, long long n, void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy == nullptr) fuzzy_words = 0;
   if (coat_side != nullptr) fresnel = 1;
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -617,14 +669,17 @@ extern "C" int rtt_trace_seq_fwd_streams(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, coat_side != nullptr);
+  const size_t smem =
+      shared_bytes(n_rows, n_slots, n_bundles, coat_side != nullptr, fuzzy_words);
   const StreamOut so = {opl, n_final, paths, hits, hit_w, nullptr};
-  // one launch for the four instantiations: the Fresnel kernel's overload
+  // one launch for the five instantiations: the Fresnel kernel's overload
   // takes the draws as its last argument, the coated one the draws and the
-  // side buffer, the diffractive one those and its tag
+  // side buffer, the diffractive one those and its tag, the fuzzy one those
+  // and the programs
   auto go = [&](auto... draws) {
-    const cudaError_t e = prepare<true, true, true, sizeof...(draws) != 0,
-                                  sizeof...(draws) >= 2, sizeof...(draws) == 3>(smem);
+    const cudaError_t e =
+        prepare<true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
+                sizeof...(draws) >= 3, sizeof...(draws) == 4>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_seq_fwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -633,6 +688,9 @@ extern "C" int rtt_trace_seq_fwd_streams(
             maps, map_desc, wavelength, n, so, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (fuzzy != nullptr)
+    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words});
   if (diff) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0});
   if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
@@ -645,11 +703,14 @@ extern "C" int rtt_trace_seq_fwd_streams(
 // code, 1 with it, 2 (or 3, as K2's code for a table with a dispersive row)
 // with it and the extended kinds, 4 the instantiation with the streams, 5
 // the one with the Fresnel kinds, 6 the one with the coatings, 7 the one
-// with the diffractive kinds.  Returns a cudaError_t.
+// with the diffractive kinds, 8 the one with the fuzzy programs (of
+// `fuzzy_words` words).  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
-                                           int n_bounces, int code, int* blocks) {
+                                           int n_bounces, int code, int fuzzy_words,
+                                           int* blocks) {
   (void)n_bounces;
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 6);
+  const size_t smem =
+      shared_bytes(n_rows, n_slots, n_bundles, code >= 6, code == 8 ? fuzzy_words : 0);
   cudaError_t e;
   const void* fn = kernel_of(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,15 +1,27 @@
-"""Aperture elements: circular, rectangular and elliptic.
+"""Aperture elements: circular, rectangular and elliptic stops, fuzzy
+apodization and the obscured telescope pupil.
 
-Counterpart of ``_ApertureBase``, ``CircularAperture``,
-``RectangularAperture`` and ``EllipticAperture`` in
-``raytracetorch_tpu/elements/aperture.py`` (fuzzy apodization and the
-obscured pupil are ROADMAP Queue 2 G).  The bounded plane only exists where its (possibly inverted) bound
-holds, so rays that miss fly by unchanged; rays that hit are re-checked
-against the RAW bound by the APERTURE physics.  ``invert=False`` transmits
-in-bounds hits; ``invert=True`` is a blocking iris.
+Counterpart of ``raytracetorch_tpu/elements/aperture.py``.  The bounded
+plane of a stop only exists where its (possibly inverted) bound holds, so
+rays that miss fly by unchanged; rays that hit are re-checked against the
+RAW bound by the APERTURE physics.  ``invert=False`` transmits in-bounds
+hits; ``invert=True`` is a blocking iris.
+
+A ``FuzzyAperture`` is an unbounded TRANSMIT plane whose callable
+multiplies the intensity of each ray by a factor of its surface-local hit
+(the trace loops apply it after the row's physics: ``call_fuzzy``).  The
+eager traces run any callable; the fused kernels run a component-style one
+(``fn(x, y, z)``, ``ComponentFuzzy``) traced into a program that they
+interpret (ops/fuzzy_program.py), and refuse a legacy ``[N, 3]`` one.  The
+``ObscuredAperture`` is such a plane with the telescope pupil's mask, a
+component-style callable built from its constructor's scalars.
 """
 
 from __future__ import annotations
+
+import math
+
+import torch
 
 from ..constants import PhysKind, SBKind, VBKind
 from ..core.table import SurfaceRec
@@ -133,3 +145,100 @@ class EllipticAperture(_ApertureBase):
 
     def _sb_params(self, p):
         return (p['r_major'], p['r_minor'], p['ap_rot'])
+
+
+class ComponentFuzzy:
+    """Marks an apodization callable as component-style: it is called as
+    ``fn(x, y, z)`` on the three planar ``[N]`` components of the
+    surface-local hit, instead of on one stacked ``[N, 3]`` tensor.  Only
+    such callables run in the fused kernels, and only when their body is
+    elementwise arithmetic within ops/fuzzy_program.py's op set."""
+
+    components = True
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, x, y, z):
+        return self.fn(x, y, z)
+
+
+def call_fuzzy(fn, hit_c):
+    """A fuzzy callable's factor at the component-tuple hit ``hit_c``:
+    component-style callables (``fn.components``) take the components, a
+    legacy one the stacked ``[N, 3]`` tensor."""
+    if getattr(fn, 'components', False):
+        return fn(*hit_c)
+    return fn(torch.stack(hit_c, dim=-1))
+
+
+class FuzzyAperture(Element):
+    """Arbitrary-apodization plane: transmits, and multiplies each ray's
+    intensity by ``intensity_fn`` of its surface-local hit.
+
+    - ``intensity_fn(hit [N, 3]) -> [N]`` (the default) runs in the eager
+      traces (``simulate``) only;
+    - ``components=True``: ``intensity_fn(x, y, z) -> [N]`` on the planar
+      components, which the fused traces (``simulate_fused``) also run when
+      the callable stays within the fused kernels' op set
+      (ops/fuzzy_program.py)."""
+
+    def __init__(self, intensity_fn, components=False, name='fuzzy', **kw):
+        super().__init__(name=name, **kw)
+        self.intensity_fn = (ComponentFuzzy(intensity_fn) if components
+                             else intensity_fn)
+
+    @property
+    def n_surfaces(self):
+        return 1
+
+    @property
+    def is_aperture(self):
+        return True
+
+    def build(self, p):
+        Re, te = frame_params(p)
+        q, sign = q_plane(te.dtype, te.device)
+        Rw, tw, Rs, ts = compose_world(Re, te)
+        return [SurfaceRec(q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
+                           is_plane=True, ph_kind=PhysKind.TRANSMIT)]
+
+
+class ObscuredAperture(FuzzyAperture):
+    """Telescope pupil mask: an outer disk of ``radius``, minus a central
+    obscuration and ``n_vanes`` radial spider vanes.
+
+    ``obscuration`` is the LINEAR fraction (0.3 = 30% of the diameter);
+    ``vane_width`` is the full width of a vane in lens units, and the first
+    vane points along +x rotated by ``vane_angle`` (radians).  The mask is a
+    component-style callable built from these scalars (0 or 1 per ray), so
+    the fused kernels run it."""
+
+    def __init__(self, radius, obscuration=0.3, n_vanes=4, vane_width=0.0,
+                 vane_angle=0.0, name='obscured', **kw):
+        if not 0.0 <= float(obscuration) < 1.0:
+            raise ValueError(
+                f'obscuration is a linear fraction in [0, 1), got '
+                f'{obscuration}')
+        if float(vane_width) < 0 or int(n_vanes) < 0:
+            raise ValueError('vane_width and n_vanes must be >= 0')
+        r_out = float(radius)
+        r_in = float(obscuration) * r_out
+        nv, w2 = int(n_vanes), 0.5 * float(vane_width)
+        a0 = float(vane_angle)
+        angles = [(math.cos(a0 + 2 * math.pi * k / nv),
+                   math.sin(a0 + 2 * math.pi * k / nv))
+                  for k in range(nv)] if nv and w2 > 0 else []
+
+        def mask(x, y, z):
+            r2 = x * x + y * y
+            ok = (r2 <= r_out * r_out) & (r2 >= r_in * r_in)
+            for c, s in angles:
+                along = x * c + y * s
+                across = -x * s + y * c
+                ok = ok & ~((along > 0.0) & (torch.abs(across) <= w2))
+            return ok.to(x.dtype)
+
+        super().__init__(mask, components=True, name=name, **kw)
+        self.radius = r_out
+        self.obscuration = float(obscuration)

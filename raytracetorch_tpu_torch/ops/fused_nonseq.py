@@ -51,7 +51,12 @@ The kernels' notes are in their sources.  In this module:
   (``fused_trace.coating_kinds``, the side buffer ``fused_trace.coat_side``;
   ``fused_trace.COAT_LAUNCHES``), as in ops/fused_trace.py, and the
   diffractive and ideal elements the one built on it
-  (``fused_trace.diffractive_kinds``; ``fused_trace.DIFF_LAUNCHES``).
+  (``fused_trace.diffractive_kinds``; ``fused_trace.DIFF_LAUNCHES``), and
+  fuzzy apodization the one built on that (``fused_trace.fuzzy_kinds``,
+  the callables in a ``fused_trace.TraceMeta``, their programs' buffer
+  ``fused_trace.fuzzy_buffer``; ``fused_trace.FUZZY_LAUNCHES``): a fuzzy
+  winner's factor is multiplied by its program's value, in K5 and K6's
+  replay alike.
 - K5 and K6 keep each thread's moment sums of at most ``MAX_MOMENT_PAIRS``
   (64) (slot, bundle) pairs (in local memory, the bucket of 64 of
   csrc/trace_nonseq_fwd.cu): a scene with more raises NotImplementedError
@@ -74,7 +79,8 @@ from .fused_trace import (COMPS, NO_STREAMS, StreamFlags, THREADS,
                           check_streams, coat_ptr, coat_side,
                           diffractive_kinds, dispersive, dispersive_kinds,
                           ext_kinds, ext_maps, flat_inputs,
-                          fresnel_kinds, fused_forward,
+                          fresnel_kinds, fused_forward, fuzzy_args,
+                          fuzzy_buffer, TraceMeta,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
                           plate_maps, plate_rows, ptr, saved_inputs, stream,
@@ -101,7 +107,8 @@ def check_moment_pairs(cfg: SensorConfig):
 
 def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
                        n_bounces, grids=None, track_opl=False,
-                       record_paths=False, record_hits=False, generator=None):
+                       record_paths=False, record_hits=False, generator=None,
+                       fuzzy_fns=None):
     """Fused bounce loop within ``n_bounces`` -> ``(rays, SensorState)``,
     differentiable with respect to the table, the 7 ray streams
     px..intensity and the phase maps of ``grids`` ({PHASE_GRID row:
@@ -109,12 +116,14 @@ def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
     ``record_paths`` and ``record_hits`` -> ``(rays, SensorState, aux)``
     (core/trace.py::trace_nonsequential's ``aux``).  A table with FRESNEL
     rows draws under two Philox seed words drawn once from ``generator``;
-    without it it raises ValueError.
+    without it it raises ValueError.  ``fuzzy_fns`` as for
+    ``fused_trace.trace_sequential_fused``.
 
     CPU tensors run the plain versions; CUDA tensors launch K5 and, in
     backward, K6 (or raise: there is no fallback)."""
     flags = StreamFlags(track_opl, record_paths, record_hits)
     check_moment_pairs(cfg)
+    static_meta = TraceMeta(static_meta, fuzzy_fns)
     flat, kinds = flat_inputs(table, rays, cfg, static_meta)
     key = draw_key(static_meta, generator)
     maps = plate_maps(static_meta, grids)
@@ -122,10 +131,10 @@ def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
     if needs_grad(flat, rays, maps):
         if flags.any or key is not None:
             outs = FusedNonseqStreams.apply(
-                flat, kinds, cfg, tuple(static_meta), flags, n_bounces, key,
+                flat, kinds, cfg, static_meta, flags, n_bounces, key,
                 *comps, rays.ray_id, *plate_inputs(rays, maps))
             return unpack(outs, rays, cfg, flags, nonseq=True)
-        return unpack(FusedNonseq.apply(flat, kinds, cfg, tuple(static_meta),
+        return unpack(FusedNonseq.apply(flat, kinds, cfg, static_meta,
                                         n_bounces, *comps, rays.ray_id,
                                         *plate_inputs(rays, maps)),
                       rays, cfg)
@@ -150,7 +159,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
                                  ext_kinds(static_meta), *flags,
                                  fresnel=fresnel_kinds(static_meta), key=key,
                                  coat=coat_side(static_meta, flat.device),
-                                 diff=diffractive_kinds(static_meta))
+                                 diff=diffractive_kinds(static_meta),
+                                 fuzzy=fuzzy_buffer(static_meta, flat.device))
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -244,7 +254,8 @@ def _nonseq_backward(ctx, grads, need):
             g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
             opl=ctx.flags.track_opl, fresnel=fresnel_kinds(ctx.meta),
             key=ctx.draws, coat=coat_side(ctx.meta, flat.device),
-            diff=diffractive_kinds(ctx.meta))
+            diff=diffractive_kinds(ctx.meta),
+            fuzzy=fuzzy_buffer(ctx.meta, flat.device))
     else:
         res = trace_nonseq_bwd_plain(
             flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
@@ -259,7 +270,8 @@ def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
     """The eager bounce loop of core/trace.py over the rows of the flat
     table -> ``(rays, SensorState)``, with ``flags``' streams ``(rays,
     SensorState, aux)``; FRESNEL rows draw Philox under ``key``, or from
-    ``draws(bounce, row)`` when given.  ``plain=False`` runs K3's and K4's
+    ``draws(bounce, row)`` when given; a ``TraceMeta``'s callables apodize
+    their rows.  ``plain=False`` runs K3's and K4's
     kernels on CUDA tensors, as the eager ``Scene.simulate`` does."""
     streams = Streams.of(rays, **flags._asdict(), launch=False)
     rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
@@ -272,7 +284,7 @@ def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
     out, sensors = bounce_loop(
         rows, rays, n_bounces, cfg, static_meta, torch.float32, plain=plain,
         grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams,
-        draws=rng)
+        draws=rng, fuzzy_fns=getattr(static_meta, 'fuzzy', None))
     return (out, sensors) if streams is None else (out, sensors,
                                                    streams.aux())
 
@@ -286,7 +298,8 @@ def trace_nonseq_fused_plain(flat_table, rays, cfg: SensorConfig,
     PHASE_GRID rows (in row order) and the FRESNEL draws' Philox ``key`` ->
     ``(rays, SensorState)``, with any stream ``(rays, SensorState, aux)``.
     ``draws(bounce, row) -> [N]`` replaces the Philox draws (the tests feed
-    the JAX package's; K5 itself draws by counter only)."""
+    the JAX package's; K5 itself draws by counter only).  A ``TraceMeta``
+    ``static_meta`` applies its fuzzy callables themselves."""
     return _loop(flat_table, rays, cfg, static_meta, n_bounces, maps,
                  StreamFlags(track_opl, record_paths, record_hits), key=key,
                  draws=draws)
@@ -306,7 +319,8 @@ def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
     Returns ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps
     their cotangents third, and with ``need_wavelength`` the wavelength's
     cotangent fourth (the maps' then ``()`` without maps).  ``key``: the
-    forward's Philox key."""
+    forward's Philox key.  A ``TraceMeta`` ``static_meta`` applies its fuzzy
+    callables themselves."""
     g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
              if g is not None}
     flags = StreamFlags(bool(g_aux), False, False)
@@ -320,7 +334,8 @@ def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, maps=None, ext=False, track_opl=False,
                           record_paths=False, record_hits=False,
-                          fresnel=False, key=None, coat=None, diff=False):
+                          fresnel=False, key=None, coat=None, diff=False,
+                          fuzzy=None):
     """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -336,8 +351,10 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     side buffer of ``fused_trace.coat_side`` (None: no row's coating acts),
     runs the instantiation with the coatings, which also takes the Fresnel
     kinds and the streams; ``diff`` (``fused_trace.diffractive_kinds``) the
-    one with the diffractive kinds, built on it, which reads ``coat``.  More
-    than MAX_MOMENT_PAIRS slots x bundles raise NotImplementedError."""
+    one with the diffractive kinds, built on it, which reads ``coat``;
+    ``fuzzy`` as for ``fused_trace.trace_seq_fwd_cuda`` (the one with fuzzy
+    programs).  More than MAX_MOMENT_PAIRS slots x bundles raise
+    NotImplementedError."""
     global NONSEQ_LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     device, k, n, n_slots, n_bundles = check_inputs(
@@ -345,7 +362,8 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
     fresnel = fresnel or coat is not None
-    key_args = _key_args(fresnel, key, coat, k, device, diff)
+    diff = diff or fuzzy is not None
+    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -373,7 +391,9 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        if diff:
+        if fuzzy is not None:
+            fused_trace.FUZZY_LAUNCHES += 1
+        elif diff:
             fused_trace.DIFF_LAUNCHES += 1
         elif coat is not None:
             fused_trace.COAT_LAUNCHES += 1
@@ -396,7 +416,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           maps=None, need_maps=True, ext=False, disp=None,
                           need_wavelength=False, g_opl=None, g_nfinal=None,
                           opl=False, fresnel=False, key=None, coat=None,
-                          diff=False):
+                          diff=False, fuzzy=None):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
@@ -420,14 +440,16 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     one with the coatings, whose table cotangent adds the layer
     thicknesses', ``fused_trace.COAT_GRAD_COLS``), and ``diff`` too (the
     one with the diffractive kinds, which adds a DOE row's coefficients',
-    ``fused_trace.FF_GRAD_COLS``)."""
+    ``fused_trace.FF_GRAD_COLS``), and ``fuzzy`` too (the one with fuzzy
+    programs)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
     fresnel = fresnel or coat is not None
-    key_args = _key_args(fresnel, key, coat, k, device, diff)
+    diff = diff or fuzzy is not None
+    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy)
     ext = ext or need_wavelength or opl or fresnel
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
@@ -469,7 +491,9 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        if diff:
+        if fuzzy is not None:
+            fused_trace.FUZZY_LAUNCHES += 1
+        elif diff:
             fused_trace.DIFF_LAUNCHES += 1
         elif coat is not None:
             fused_trace.COAT_LAUNCHES += 1
@@ -486,18 +510,21 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     return res
 
 
-def _key_args(fresnel, key, coat=None, k=0, device=None, diff=False):
-    """The Philox key, Fresnel, coating and diffractive C arguments of K5's
-    and K6's instantiation with the streams: the key's two words (0 when no
-    row draws), whether to run the instantiation with the Fresnel kinds,
-    the ``[K, 20]`` side buffer ``coat`` (null: not the one with the
-    coatings) and whether to run the one with the diffractive kinds."""
+def _key_args(fresnel, key, coat=None, k=0, device=None, diff=False,
+              fuzzy=None):
+    """The Philox key, Fresnel, coating, diffractive and fuzzy C arguments
+    of K5's and K6's instantiation with the streams: the key's two words (0
+    when no row draws), whether to run the instantiation with the Fresnel
+    kinds, the ``[K, 20]`` side buffer ``coat`` (null: not the one with the
+    coatings), whether to run the one with the diffractive kinds, and the
+    program buffer ``fuzzy`` and its words (null, 0: not the one with fuzzy
+    programs)."""
     if key is not None and not fresnel:
         raise ValueError('a Philox key is read only by the instantiation '
                          'with the Fresnel kinds')
     k0, k1 = key if key is not None else (0, 0)
     return (int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF, int(fresnel),
-            coat_ptr(coat, k, device, diff), int(diff))
+            *coat_ptr(coat, k, device, diff), *fuzzy_args(fuzzy, k, device))
 
 
 def _check_bounces(n_bounces):

@@ -103,6 +103,19 @@ module:
   efficiency flag ride its kinds row's physics column from bit
   ``DOE_SHIFT`` on; K2 and K6 add its 8 ``ff`` coefficients' cotangents
   (``FF_GRAD_COLS``) after the coat columns.
+- Fuzzy apodization (``fuzzy_fns``, {row: component-style callable};
+  ``fuzzy_kinds``) runs in one more instantiation of each of K1, K2, K5 and
+  K6, built on the one with the diffractive kinds (so it takes every kind
+  and stream that one takes; its side buffer is zeros on a table without a
+  coating); its launches count in ``FUZZY_LAUNCHES``, not in
+  ``DIFF_LAUNCHES``.  ``TraceMeta`` carries the callables beside the rows'
+  static metadata and traces them into programs (ops/fuzzy_program.py),
+  which the kernels take as one int32 buffer and interpret per ray: K1 and
+  K5 multiply a row's factor by the program's value at the surface-local
+  hit, K2 and K6 add the adjoint of that multiply to the hit's cotangent
+  with the program's forward-mode partials.  The plain versions call the
+  callables themselves.  A callable outside the op set or its limits, or a
+  legacy ``[N, 3]`` one, raises NotImplementedError on either device.
 - The kernels take up to ``MAX_BUNDLES`` (18) bundles, the JAX kernels'
   limit (n_bundles * 7 <= 128).  K5 and K6 keep per-thread moment sums of
   at most 64 (slot, bundle) pairs: more raise NotImplementedError
@@ -129,7 +142,7 @@ from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
 from ..core.trace import Streams, surface_chain
 from ..rays.draws import draws_per_ray, sequential_uniforms
 from ..rays.ray import Rays
-from . import nvcc_build
+from . import fuzzy_program, nvcc_build
 
 LAUNCHES = 0          # kernel launches by trace_seq_fwd_cuda (K1)
 BWD_LAUNCHES = 0      # kernel launches by trace_seq_bwd_cuda (K2)
@@ -152,6 +165,9 @@ COAT_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with the diffractive kinds
 DIFF_LAUNCHES = 0
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with fuzzy programs
+FUZZY_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -229,15 +245,17 @@ _OPL = [_P, _P]
 # the draws of the instantiations with the Fresnel kinds, then whether to
 # run that instantiation: K1's and K2's [F, N] uniform streams and their
 # count F; K5's and K6's two Philox seed words; then the coated rows' side
-# buffer (null: not the instantiation with the coatings) and whether to run
-# the instantiation with the diffractive kinds
-_UNIFORMS = [_P, _I, _I, _P, _I]
-_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I]
+# buffer (null: not the instantiation with the coatings), whether to run
+# the instantiation with the diffractive kinds, and the fuzzy programs'
+# buffer and its words (null, 0: not the instantiation with them)
+_UNIFORMS = [_P, _I, _I, _P, _I, _P, _I]
+_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I, _P, _I]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
 # or the path length, 5 the Fresnel kinds, 6 the coatings, 7 the diffractive
-# kinds), out: resident blocks per SM
-_OCCUPANCY = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+# kinds, 8 the fuzzy programs), the programs' words, out: resident blocks
+# per SM
+_OCCUPANCY = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
     'trace_seq_fwd': ('trace_seq_fwd.cu', {
@@ -323,6 +341,33 @@ def diffractive_kinds(static_meta):
                for m in static_meta)
 
 
+def fuzzy_kinds(static_meta):
+    """Whether the trace applies fuzzy apodization (a ``TraceMeta`` with
+    callables), which only the kernels' instantiation with fuzzy programs
+    takes."""
+    return bool(getattr(static_meta, 'fuzzy', None))
+
+
+class TraceMeta(tuple):
+    """A fused trace's static row metadata (one StaticRowMeta a row) with
+    its fuzzy apodization: ``fuzzy``, {row: component-style callable}, and
+    ``words``, their packed programs (ops/fuzzy_program.py::pack; None
+    without a callable).  Building it traces the callables, so one that the
+    kernels cannot run raises NotImplementedError on either device."""
+
+    def __new__(cls, static_meta, fuzzy_fns=None):
+        self = super().__new__(cls, static_meta)
+        self.fuzzy = dict(fuzzy_fns or {})
+        self.words = fuzzy_program.pack(self.fuzzy, len(self))
+        return self
+
+
+def fuzzy_buffer(static_meta, device):
+    """The int32 program buffer of a ``TraceMeta``'s callables on
+    ``device`` (None without one)."""
+    return fuzzy_program.buffer(getattr(static_meta, 'words', None), device)
+
+
 def doe_bits(m):
     """A DOE row's term count and efficiency flag in its kinds row's physics
     column (shifted by DOE_SHIFT); 0 for every other row."""
@@ -348,9 +393,11 @@ def coat_side(static_meta, device):
     the coatings (and of the one with the diffractive kinds, built on it):
     per row its layers' extinction coefficients (8, zeros for a dielectric
     stack) and a dispersive metal's 6 n and 6 k knots on METAL_GRID_UM
-    (zeros otherwise); None when no row's coating acts and no row is
-    diffractive."""
-    if not (coating_kinds(static_meta) or diffractive_kinds(static_meta)):
+    (zeros otherwise); None when no row's coating acts, no row is
+    diffractive and no row is fuzzy (the instantiations with the diffractive
+    kinds and with fuzzy programs read it)."""
+    if not (coating_kinds(static_meta) or diffractive_kinds(static_meta)
+            or fuzzy_kinds(static_meta)):
         return None
     rows = []
     for m in static_meta:
@@ -407,10 +454,11 @@ def plate_maps(static_meta, grids):
 
     None when no row has a plate's kinds (PHASE_GRID physics, the RECT
     bound), the extended kinds (``ext_kinds``), a coating that acts
-    (``coating_kinds``: a stack reads the rays' wavelength) or a diffractive
-    kind (``diffractive_kinds``: a grating and a DOE read it): the kernels
-    then run their instantiation without plate code.  Such a scene without
-    a plate gives ``()``."""
+    (``coating_kinds``: a stack reads the rays' wavelength), a diffractive
+    kind (``diffractive_kinds``: a grating and a DOE read it) or fuzzy
+    apodization (``fuzzy_kinds``, whose instantiation is built on theirs):
+    the kernels then run their instantiation without plate code.  Such a
+    scene without a plate gives ``()``."""
     grids = grids or {}
     missing = [k for k in plate_rows(static_meta) if k not in grids]
     if missing:
@@ -419,7 +467,7 @@ def plate_maps(static_meta, grids):
     if not (any(m.ph == PhysKind.PHASE_GRID or m.sb == SBKind.RECT
                 for m in static_meta) or ext_kinds(static_meta)
             or coating_kinds(static_meta)
-            or diffractive_kinds(static_meta)):
+            or diffractive_kinds(static_meta) or fuzzy_kinds(static_meta)):
         return None
     return tuple(grids[k] for k in plate_rows(static_meta))
 
@@ -451,7 +499,8 @@ NO_STREAMS = StreamFlags(False, False, False)
 
 def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
                            grids=None, track_opl=False, record_paths=False,
-                           record_hits=False, generator=None, uniforms=None):
+                           record_hits=False, generator=None, uniforms=None,
+                           fuzzy_fns=None):
     """Fused trace -> ``(rays, SensorState)``, differentiable with respect
     to the table, the 7 ray streams px..intensity and the phase maps of
     ``grids`` ({PHASE_GRID row: [H, W] map}).  With any of ``track_opl``,
@@ -460,10 +509,13 @@ def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
     reads ``uniforms`` ([F, N], one stream per such row in row order) or
     streams drawn from ``generator`` (rays/draws.py), as the eager
     ``trace_sequential`` does; with neither it raises ValueError.
+    ``fuzzy_fns`` ({row: callable}) must hold component-style callables
+    within the kernels' op set (``TraceMeta``).
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels (or
     raise: there is no fallback)."""
     flags = StreamFlags(track_opl, record_paths, record_hits)
+    static_meta = TraceMeta(static_meta, fuzzy_fns)
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
     u = sequential_uniforms(static_meta, rays.n, rays.px.device, generator,
                             uniforms)
@@ -472,12 +524,12 @@ def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
     comps = [getattr(rays, c) for c in COMPS]
     if needs_grad(flat, rays, maps):
         if flags.any or draws is not None:
-            outs = FusedTraceStreams.apply(flat, kinds_t, cfg,
-                                           tuple(static_meta), flags, draws,
+            outs = FusedTraceStreams.apply(flat, kinds_t, cfg, static_meta,
+                                           flags, draws,
                                            *comps, rays.ray_id,
                                            *plate_inputs(rays, maps))
             return unpack(outs, rays, cfg, flags)
-        return unpack(FusedTrace.apply(flat, kinds_t, cfg, tuple(static_meta),
+        return unpack(FusedTrace.apply(flat, kinds_t, cfg, static_meta,
                                        *comps, rays.ray_id,
                                        *plate_inputs(rays, maps)),
                       rays, cfg)
@@ -596,7 +648,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
                               fresnel=fresnel_kinds(static_meta),
                               uniforms=uniforms,
                               coat=coat_side(static_meta, flat.device),
-                              diff=diffractive_kinds(static_meta))
+                              diff=diffractive_kinds(static_meta),
+                              fuzzy=fuzzy_buffer(static_meta, flat.device))
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -743,7 +796,8 @@ def _fused_backward(ctx, grads, need):
                                  fresnel=fresnel_kinds(ctx.meta),
                                  uniforms=ctx.draws,
                                  coat=coat_side(ctx.meta, flat.device),
-                                 diff=diffractive_kinds(ctx.meta))
+                                 diff=diffractive_kinds(ctx.meta),
+                                 fuzzy=fuzzy_buffer(ctx.meta, flat.device))
     else:
         res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                   g_moments, g_grid=g_grid, maps=maps,
@@ -781,7 +835,8 @@ def _chain(flat_table, rays, cfg, static_meta, maps=None, flags=NO_STREAMS,
            plain=True, uniforms=None):
     """The eager chain of core/trace.py over the rows of the flat table ->
     ``(rays, SensorState)``, with ``flags``' streams ``(rays, SensorState,
-    aux)``; ``uniforms`` holds the FRESNEL rows' ``[F, N]`` draws.
+    aux)``; ``uniforms`` holds the FRESNEL rows' ``[F, N]`` draws; a
+    ``TraceMeta``'s callables apodize their rows.
     ``plain=False`` runs K3's and K4's kernels on CUDA tensors, as the eager
     ``simulate`` does."""
     streams = Streams.of(rays, **flags._asdict())
@@ -791,7 +846,7 @@ def _chain(flat_table, rays, cfg, static_meta, maps=None, flags=NO_STREAMS,
     out, sensors = surface_chain(
         rows, rays, cfg, static_meta, torch.float32, plain=plain,
         grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams,
-        uniforms=uniforms)
+        uniforms=uniforms, fuzzy_fns=getattr(static_meta, 'fuzzy', None))
     return (out, sensors) if streams is None else (out, sensors,
                                                    streams.aux())
 
@@ -804,7 +859,8 @@ def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
     the rows of the flat table the kernel reads, with the phase maps
     ``maps`` of its PHASE_GRID rows (in row order) and the FRESNEL rows'
     ``[F, N]`` ``uniforms`` -> ``(rays, SensorState)``, with any stream
-    ``(rays, SensorState, aux)``."""
+    ``(rays, SensorState, aux)``.  A ``TraceMeta`` ``static_meta`` applies
+    its fuzzy callables themselves."""
     return _chain(flat_table, rays, cfg, static_meta, maps,
                   StreamFlags(track_opl, record_paths, record_hits),
                   uniforms=uniforms)
@@ -825,7 +881,8 @@ def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
     7 input-ray cotangents)``, with phase maps their cotangents third, and
     with ``need_wavelength`` the wavelength's cotangent fourth (the maps'
     then ``()`` without maps).  ``uniforms``: the forward's FRESNEL
-    draws."""
+    draws.  A ``TraceMeta`` ``static_meta`` applies its fuzzy callables
+    themselves."""
     g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
              if g is not None}
     flags = StreamFlags(bool(g_aux), False, False)
@@ -910,7 +967,7 @@ def kernel(symbol):
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
                   ext=False, disp=False, streams=False, fresnel=False,
-                  coat=False, diff=False):
+                  coat=False, diff=False, fuzzy_words=0):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
@@ -921,16 +978,18 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     instantiation with the streams, on a table with a dispersive row when
     ``disp``; with ``fresnel``, the instantiation with the Fresnel kinds,
     likewise; with ``coat``, the one with the coatings, likewise; with
-    ``diff``, the one with the diffractive kinds, likewise) runs, at that
-    launch's dynamic shared memory
+    ``diff``, the one with the diffractive kinds, likewise; with
+    ``fuzzy_words``, the one with fuzzy programs of that many words,
+    likewise) runs, at that launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (7 if diff else 6 if coat else 5 if fresnel else 4 if streams
-            else (3 if disp else 2) if ext else int(bool(plates)))
+    code = (8 if fuzzy_words else 7 if diff else 6 if coat else 5 if fresnel
+            else 4 if streams else (3 if disp else 2) if ext
+            else int(bool(plates)))
     rc = kernel(f'rtt_{library}_occupancy')(
         n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces), code,
-        ctypes.byref(out))
+        int(fuzzy_words), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f'{library} occupancy query failed with CUDA '
                            f'error {rc}')
@@ -1062,7 +1121,7 @@ def grad_cols(plates, ext, disp=False, coat=False, diff=False):
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                        maps=None, ext=False, track_opl=False,
                        record_paths=False, record_hits=False, fresnel=False,
-                       uniforms=None, coat=None, diff=False):
+                       uniforms=None, coat=None, diff=False, fuzzy=None):
     """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -1081,45 +1140,66 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     and the streams; ``diff`` (the table has a diffractive kind,
     ``diffractive_kinds``) the one with the diffractive kinds, built on it,
     which reads ``coat`` (``coat_side`` gives it zeros on a table without
-    a coating)."""
+    a coating).  ``fuzzy``, the int32 program buffer of ``fuzzy_buffer``
+    (None: no row is fuzzy), runs the instantiation with fuzzy programs,
+    built on the one with the diffractive kinds (whatever ``diff``), which
+    reads ``coat`` so."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
                           'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms,
-                          coat, diff)
+                          coat, diff, fuzzy)
     LAUNCHES += res[-1]
     return res[:-1]
 
 
-def draw_args(fresnel, uniforms, n, device, coat=None, k=0, diff=False):
+def draw_args(fresnel, uniforms, n, device, coat=None, k=0, diff=False,
+              fuzzy=None):
     """The K1 and K2 wrappers' draw arguments: the [F, N] ``uniforms``
     (None: no row draws) checked to be a contiguous float32 tensor on
     ``device``, the ``[K, 20]`` side buffer ``coat`` (None: not the
-    instantiation with the coatings) and ``diff`` -> the (pointer, F,
-    ``fresnel``, side pointer, ``diff``) C arguments."""
-    side = coat_ptr(coat, k, device, diff)
+    instantiation with the coatings), ``diff`` and the program buffer
+    ``fuzzy`` -> the (pointer, F, ``fresnel``, side pointer, ``diff``,
+    program pointer, words) C arguments."""
+    side = coat_ptr(coat, k, device, diff) + fuzzy_args(fuzzy, k, device)
     if uniforms is None or uniforms.shape[0] == 0:
-        return None, 0, int(fresnel), side, int(diff)
+        return None, 0, int(fresnel), *side
     if not fresnel:
         raise ValueError('uniforms are read only by the instantiation with '
                          'the Fresnel kinds')
     check(uniforms, 'uniforms', torch.float32, (uniforms.shape[0], n),
           device)
-    return uniforms.data_ptr(), uniforms.shape[0], 1, side, int(diff)
+    return uniforms.data_ptr(), uniforms.shape[0], 1, *side
 
 
 def coat_ptr(coat, k, device, diff=False):
-    """The side buffer's C argument (``coat`` checked to be a contiguous
-    float32 [K, COAT_SIDE] tensor on ``device``; null for None, which the
-    instantiation with the diffractive kinds, ``diff``, does not take)."""
+    """The side buffer's and ``diff``'s C arguments (``coat`` checked to be
+    a contiguous float32 [K, COAT_SIDE] tensor on ``device``; null for None,
+    which the instantiation with the diffractive kinds, ``diff``, does not
+    take)."""
     if coat is None:
         if diff:
             raise ValueError('the instantiation with the diffractive kinds '
                              'reads the side buffer: pass coat=coat_side('
                              'static_meta, device)')
-        return None
+        return None, int(diff)
     check(coat, 'coat side buffer', torch.float32, (k, COAT_SIDE), device)
-    return coat.data_ptr()
+    return coat.data_ptr(), int(diff)
+
+
+def fuzzy_args(fuzzy, k, device):
+    """The program buffer's C arguments (pointer, words): ``fuzzy`` checked
+    to be a contiguous int32 tensor on ``device`` of K to MAX_WORDS words;
+    (null, 0) for None."""
+    if fuzzy is None:
+        return None, 0
+    words = fuzzy.shape[0] if fuzzy.dim() == 1 else -1
+    if not k <= words <= fuzzy_program.MAX_WORDS:
+        raise ValueError(f'the fuzzy program buffer holds {k} to '
+                         f'{fuzzy_program.MAX_WORDS} words, got shape '
+                         f'{tuple(fuzzy.shape)}')
+    check(fuzzy, 'fuzzy programs', torch.int32, (words,), device)
+    return fuzzy.data_ptr(), words
 
 
 def stream_buffers(flags, rows, n, device, nonseq=False):
@@ -1158,15 +1238,16 @@ def stream_aux(bufs):
 
 def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                     flags=NO_STREAMS, fresnel=False, uniforms=None,
-                    coat=None, diff=False):
+                    coat=None, diff=False, fuzzy=None):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
     global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
-    global DIFF_LAUNCHES
+    global DIFF_LAUNCHES, FUZZY_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
     fresnel = fresnel or coat is not None
-    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff)
+    diff = diff or fuzzy is not None
+    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -1195,7 +1276,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if diff:
+        if fuzzy is not None:
+            FUZZY_LAUNCHES += 1
+        elif diff:
             DIFF_LAUNCHES += 1
         elif coat is not None:
             COAT_LAUNCHES += 1
@@ -1217,7 +1300,7 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_grid=None, maps=None, need_maps=True, ext=False,
                        disp=None, need_wavelength=False, g_opl=None,
                        g_nfinal=None, opl=False, fresnel=False,
-                       uniforms=None, coat=None, diff=False):
+                       uniforms=None, coat=None, diff=False, fuzzy=None):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
     kinds) their cotangents (or None) third, and with ``need_wavelength``
@@ -1241,14 +1324,16 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     there: the one with the coatings, whose table cotangent adds the layer
     thicknesses' (``COAT_GRAD_COLS``); ``diff`` as there: the one with the
     diffractive kinds, which adds a DOE row's coefficients'
-    (``FF_GRAD_COLS``)."""
+    (``FF_GRAD_COLS``); ``fuzzy`` as there: the one with fuzzy programs,
+    whose hits' cotangents add the adjoint of each program's factor."""
     global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
-    global COAT_LAUNCHES, DIFF_LAUNCHES
+    global COAT_LAUNCHES, DIFF_LAUNCHES, FUZZY_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
     fresnel = fresnel or coat is not None
+    diff = diff or fuzzy is not None
     ext = ext or need_wavelength or opl or fresnel
-    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff)
+    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
@@ -1286,7 +1371,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if diff:
+        if fuzzy is not None:
+            FUZZY_LAUNCHES += 1
+        elif diff:
             DIFF_LAUNCHES += 1
         elif coat is not None:
             COAT_LAUNCHES += 1

@@ -18,6 +18,13 @@ aux)``:
   package's auto-dispatch below a crossover N was measured on a TPU and is
   not carried over.
 
+Both scene types apply fuzzy apodization (``FuzzyAperture``,
+``ObscuredAperture``): ``fuzzy_fns()`` maps each such row to its callable,
+and every trace takes that map by default (``fuzzy_fns=``).  ``simulate``
+runs any callable; ``simulate_fused`` runs component-style ones within the
+kernels' op set, which K1, K2, K5 and K6 interpret as traced programs
+(ops/fuzzy_program.py), and raises NotImplementedError on any other.
+
 Both ``simulate`` and ``simulate_fused`` take the deterministic streams
 ``track_opl``, ``record_paths`` and ``record_hits`` and return them in
 ``aux`` with the JAX package's keys and shapes (core/trace.py); the fused
@@ -200,14 +207,27 @@ class Scene:
             k += el.n_surfaces
         return out
 
+    def fuzzy_fns(self):
+        """{flat row: callable} of the fuzzy apodization rows (every row of
+        an element with an ``intensity_fn``)."""
+        out, k = {}, 0
+        for el in self.elements:
+            fn = getattr(el, 'intensity_fn', None)
+            if fn is not None:
+                for j in range(el.n_surfaces):
+                    out[k + j] = fn
+            k += el.n_surfaces
+        return out
+
     def simulate(self, params, rays, n_bundles=None, **kw):
         """Eager differentiable bounce loop -> (rays, sensors, aux).  ``kw``
         goes to core/trace.py::trace_nonsequential: the streams
         ``track_opl``, ``record_paths`` and ``record_hits``; the FRESNEL
-        draws' ``generator`` or injected ``draws``; the field,
-        ``E0`` and fuzzy apodization raise NotImplementedError naming their
-        ROADMAP item."""
+        draws' ``generator`` or injected ``draws``; ``fuzzy_fns`` (default
+        ``self.fuzzy_fns()``); the field and ``E0`` raise
+        NotImplementedError naming their ROADMAP item."""
         kw.setdefault('grids', self.side_grids(params))
+        kw.setdefault('fuzzy_fns', self.fuzzy_fns())
         return trace_nonsequential(self.build_table(params), rays,
                                    self.n_bounces,
                                    self.sensor_config(n_bundles),
@@ -224,13 +244,15 @@ class Scene:
         ``simulate``'s; the records cover the full budget.  FRESNEL rows
         draw under two Philox seed words drawn once from ``generator``: the
         kernel draws by counter, so an injected ``draws`` function is
-        ``simulate``'s alone."""
+        ``simulate``'s alone.  The scene's fuzzy callables (``fuzzy_fns()``)
+        must be component-style and within the kernels' op set
+        (ops/fuzzy_program.py); any other raises NotImplementedError."""
         res = trace_nonseq_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), self.n_bounces,
             grids=self.side_grids(params), track_opl=track_opl,
             record_paths=record_paths, record_hits=record_hits,
-            generator=generator)
+            generator=generator, fuzzy_fns=self.fuzzy_fns())
         return res if len(res) == 3 else (*res, {})
 
     # -- conversions -------------------------------------------------------
@@ -255,11 +277,12 @@ class SequentialScene(Scene):
 
     def simulate(self, params, rays, n_bundles=None, track_opl=False,
                  record_paths=False, record_hits=False, generator=None,
-                 uniforms=None):
+                 uniforms=None, fuzzy_fns=None):
         """Eager differentiable trace -> (rays, sensors, aux); ``aux`` holds
         the streams asked for (core/trace.py::trace_sequential).  FRESNEL
         rows read ``uniforms`` ([F, N]) or streams drawn from
-        ``generator``."""
+        ``generator``.  ``fuzzy_fns`` (None: ``self.fuzzy_fns()``) takes
+        callables of either style."""
         return trace_sequential(self.build_table(params), rays,
                                 self.sensor_config(n_bundles),
                                 self.static_meta(),
@@ -267,7 +290,9 @@ class SequentialScene(Scene):
                                 track_opl=track_opl,
                                 record_paths=record_paths,
                                 record_hits=record_hits, generator=generator,
-                                uniforms=uniforms)
+                                uniforms=uniforms,
+                                fuzzy_fns=(self.fuzzy_fns() if fuzzy_fns is None
+                                           else fuzzy_fns))
 
     def simulate_fused(self, params, rays, n_bundles=None, track_opl=False,
                        record_paths=False, record_hits=False, generator=None,
@@ -281,12 +306,13 @@ class SequentialScene(Scene):
         recomputes its backward through the eager chain, as the JAX
         package's does.  FRESNEL rows read ``uniforms`` or streams drawn
         from ``generator``, the same that ``simulate`` draws from the same
-        generator state."""
+        generator state.  Fuzzy callables as for ``Scene.simulate_fused``."""
         res = trace_sequential_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), grids=self.side_grids(params),
             track_opl=track_opl, record_paths=record_paths,
-            record_hits=record_hits, generator=generator, uniforms=uniforms)
+            record_hits=record_hits, generator=generator, uniforms=uniforms,
+            fuzzy_fns=self.fuzzy_fns())
         return res if len(res) == 3 else (*res, {})
 
     def to_base(self):

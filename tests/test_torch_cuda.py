@@ -56,7 +56,11 @@ blocks per SM.  So are the instantiations with the diffractive and ideal
 elements (chip_smoke.py section 13's ``diffractive_kernels_vs_plain``:
 example 25's hybrid achromat, example 05's nine-channel spectrometer, the
 Scene of every new kind), the paths that launch them, their blocks per SM
-and K1 with 18 bundles.
+and K1 with 18 bundles.  So are the instantiations with fuzzy programs
+(chip_smoke.py section 14's ``fuzzy_kernels_vs_plain``: the obscured pupil
+and the Gaussian apodizer, the Lorentzian and the pupil as Scenes), the
+paths that launch them, their blocks per SM and the refusal of a legacy
+callable on CUDA tensors.
 """
 
 import math
@@ -762,15 +766,22 @@ def _fresnel(name):
 
 def _coat(name):
     """Whether a mangled kernel name is an overload with the coatings (a
-    CoatSide argument) and without the diffractive kinds (``_diff``), which
-    take that argument too."""
-    return 'CoatSide' in name and not _diff(name)
+    CoatSide argument) and without the diffractive kinds (a DiffKinds
+    argument: ``_diff``, ``_fuzzy``), which take that argument too."""
+    return 'CoatSide' in name and 'DiffKinds' not in name
 
 
 def _diff(name):
     """Whether a mangled kernel name is an overload with the diffractive
-    kinds (a DiffKinds argument)."""
-    return 'DiffKinds' in name
+    kinds (a DiffKinds argument) and without the fuzzy programs
+    (``_fuzzy``), which take that argument too."""
+    return 'DiffKinds' in name and not _fuzzy(name)
+
+
+def _fuzzy(name):
+    """Whether a mangled kernel name is an overload with the fuzzy programs
+    (a FuzzyProgs argument)."""
+    return 'FuzzyProgs' in name
 
 
 @pytest.mark.cuda
@@ -1344,7 +1355,8 @@ def test_ext_instantiations_are_built(dev):
         usage = nvcc_build.ptxas_usage(logs[lib][0])
         ext = [k for k in usage
                if f'{lib}_kernel' in k and _ext(k) and not _streams(k)
-               and not _fresnel(k) and not _coat(k) and not _diff(k)]
+               and not _fresnel(k) and not _coat(k) and not _diff(k)
+               and not _fuzzy(k)]
         assert len(ext) == count, (lib, ext)
         assert all(usage[k]['registers'] for k in ext)
     for case in EXT_CASES:
@@ -1974,3 +1986,106 @@ def test_k1_k2_take_eighteen_bundles(dev):
                                           g_mom, maps=maps)
     chip_smoke.compare_ray_cotangents(torch, g_k[1], g_p[1],
                                       tol=chip_smoke.DISP_BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', chip_smoke.FUZZY_CASES)
+def test_fuzzy_kernels_match_plain(name, dev):
+    """K1 and K2 (the Scenes: K5 and K6) with fuzzy programs against their
+    plain versions, which call the callables: rays, moments and the ray and
+    table cotangents (chip_smoke.py's bounds); K6's replay against K5."""
+    res = chip_smoke.fuzzy_kernels_vs_plain(trt, torch, name, N, dev, 81)
+    assert res['bwd']['rays_differ'] <= res['bwd']['allowed']
+    assert res['bwd']['fuzzy_row_grad'] > 0
+
+
+@pytest.mark.cuda
+def test_fuzzy_paths_launch_their_instantiation(dev):
+    """``simulate_fused`` of the obscured pupil launches K1 (as a Scene K5)
+    once in the instantiation with fuzzy programs; a grad step of the
+    Gaussian apodizer K1 and K2 in theirs, and its curvatures get the eager
+    trace's gradients."""
+    for name, mod, fwd in (('pupil', fused_trace, 'LAUNCHES'),
+                           ('pupil_scene', fused_nonseq, 'NONSEQ_LAUNCHES')):
+        sc, p, rays, _, _ = chip_smoke.fuzzy_case(trt, torch, name, 999, dev,
+                                                  82)
+        setattr(mod, fwd, 0)
+        fused_trace.FUZZY_LAUNCHES = fused_trace.DIFF_LAUNCHES = 0
+        with torch.no_grad():
+            out, _, _ = sc.simulate_fused(p, rays)
+        torch.cuda.synchronize()
+        assert getattr(mod, fwd) == 1 and fused_trace.FUZZY_LAUNCHES == 1
+        assert fused_trace.DIFF_LAUNCHES == 0
+        ref, _, _ = sc.simulate(p, rays)
+        torch.testing.assert_close(out.intensity, ref.intensity, rtol=0,
+                                   atol=0)
+    sc, _, rays, _, _ = chip_smoke.fuzzy_case(trt, torch, 'gauss', 999, dev,
+                                              83)
+    grads = []
+    for simulate in ('simulate_fused', 'simulate'):
+        p = sc.init_params(dev)
+        p['lens']['c1'].requires_grad_(True)
+        fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+        fused_trace.FUZZY_LAUNCHES = 0
+        _, sens, _ = getattr(sc, simulate)(p, rays)
+        sens.spot_rms(0)[0].backward()
+        torch.cuda.synchronize()
+        grads.append(p['lens']['c1'].grad)
+        if simulate == 'simulate_fused':
+            assert (fused_trace.LAUNCHES, fused_trace.BWD_LAUNCHES,
+                    fused_trace.FUZZY_LAUNCHES) == (1, 1, 2)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_fuzzy_instantiations_are_built(dev):
+    """K1 and K6 build one overload with fuzzy programs, K2 one for each
+    home of its saved states and K5 one for each moment bucket; each has
+    its registers."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        found = [k for k in usage if f'{lib}_kernel' in k and _fuzzy(k)]
+        assert len(found) == count, (lib, found)
+        assert all(usage[k]['registers'] for k in found)
+
+
+@pytest.mark.cuda
+def test_fuzzy_instantiations_fit(dev):
+    """The instantiations with fuzzy programs keep at least one block
+    resident on an SM on the section 14 scenes, at their shared memory (the
+    programs' words included), and at the largest buffer."""
+    from raytracetorch_tpu_torch.ops import fuzzy_program
+    for name, libs in (('gauss', ('trace_seq_fwd', 'trace_seq_bwd')),
+                       ('lorentz_scene', ('trace_nonseq_fwd',
+                                          'trace_nonseq_bwd'))):
+        sc, _, _, cfg, _ = chip_smoke.fuzzy_case(trt, torch, name, 8, dev, 84)
+        meta = fused_trace.TraceMeta(sc.static_meta(), sc.fuzzy_fns())
+        for lib in libs:
+            for words in (len(meta.words), fuzzy_program.MAX_WORDS):
+                assert fused_trace.blocks_per_sm(
+                    lib, len(meta), cfg, True, sc.n_bounces, ext=True,
+                    diff=True, fuzzy_words=words) >= 1, (lib, words)
+
+
+@pytest.mark.cuda
+def test_fuzzy_refusals_on_the_card(dev):
+    """A legacy [N, 3] callable and an op outside the set raise on CUDA
+    tensors as on the CPU, before anything launches."""
+    for fn, components, match in (
+            (lambda h: torch.exp(-h[:, 0] ** 2), False, 'component-style'),
+            (lambda x, y, z: torch.sin(x), True, 'op sin')):
+        sc = trt.SequentialScene([
+            trt.FuzzyAperture(fn, components=components, name='apod'),
+            trt.SensorElement(radius=6.0, translation=[0, 0, 10.0],
+                              name='s')])
+        rays = trt.CollimatedDisk.make(radius=2.0, translation=[
+            0, 0, -5.0]).sample(torch.Generator(device=dev).manual_seed(85),
+                                64, dev)
+        fused_trace.LAUNCHES = 0
+        with pytest.raises(NotImplementedError, match=match):
+            sc.simulate_fused(sc.init_params(dev), rays)
+        assert fused_trace.LAUNCHES == 0

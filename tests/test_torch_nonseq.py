@@ -346,7 +346,21 @@ def test_unported_streams_raise():
     p = scene.init_params('cpu')
     rays = trt.CollimatedDisk.make(radius=4.0, translation=[0, 0, -10.0]) \
         .sample(torch.Generator().manual_seed(0), 64, 'cpu')
-    for kw in ({'track_field': True}, {'E0': torch.ones(1, 3)},
-               {'fuzzy_fns': {0: lambda x, y, z: x}}):
+    for kw in ({'track_field': True}, {'E0': torch.ones(1, 3)}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             scene.simulate(p, rays, **kw)
+
+
+def test_fuzzy_fns_run():
+    """The call that test_unported_streams_raise refused before fuzzy
+    apodization was ported: a legacy [N, 3] callable on the stop's row
+    scales the intensity of the rays that pass it, eagerly."""
+    scene = _naive(trt)
+    p = scene.init_params('cpu')
+    rays = trt.CollimatedDisk.make(radius=4.0, translation=[0, 0, -10.0]) \
+        .sample(torch.Generator().manual_seed(0), 64, 'cpu')
+    stop = scene.elements[0].n_surfaces          # the stop's row
+    half = {stop: lambda h: torch.full_like(h[:, 0], 0.5)}
+    out, _, _ = scene.simulate(p, rays, fuzzy_fns=half)
+    ref, _, _ = scene.simulate(p, rays)
+    torch.testing.assert_close(out.intensity, 0.5 * ref.intensity)
