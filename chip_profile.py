@@ -64,7 +64,12 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   instantiations with fuzzy programs on the Gaussian apodizer and the
   obscured pupil, K5 and K6 on the Lorentzian Scene and the pupil as a
   Scene, the apodizer's ``simulate_fused`` and grad step (c1, c2) and the
-  pupil's ``simulate_fused``.
+  pupil's ``simulate_fused``;
+- freeform surfaces (chip_smoke.py section 15): K1 and K2 in their
+  instantiations with them on example 19's corrector, example 20's Zernike
+  corrector (with the path length) and example 26's Shack-Hartmann sensor,
+  K5 and K6 on example 19's corrector as a Scene, and example 19's
+  ``simulate_fused`` and grad step (its freeform coefficients).
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -631,6 +636,54 @@ def main():
         'fuzzy_grad_step_fused_apodizer': (apod_step, 'trace_seq_bwd'),
         'fuzzy_simulate_fused_pupil': (lambda: pusc.simulate_fused(
             pu_p, pu_rays), 'trace_seq_fwd_kernel')})
+    # freeform, Zernike and wedge lenses (chip_smoke.py section 15)
+    ex20_terms = cs.ex20_prescription(rt, torch, dev)[0]
+    for name in cs.FREEFORM_CASES:
+        fsc, fp, fr, fcfg, fnonseq = cs.freeform_case(
+            rt, torch, name, n, dev, cs.FREEFORM_SEED + 7, ex20_terms)
+        _, fflat, fkinds, fmaps, fside, fprog, fpw = cs.freeform_inputs(
+            rt, torch, fsc, fp, fr, fcfg)
+        fgm = torch.ones(1, 1, 7, device=dev)
+        label = f'freeform_{name}'
+        if fnonseq:
+            calls[f'{label}_k5'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, b=fsc.n_bounces,
+                m=fmaps, x=fside, z=fprog, w=fpw:
+                fused_nonseq.trace_nonseq_fwd_cuda(
+                    f, k, r, c, b, m, True, coat=x, fuzzy=z, ff=w),
+                'trace_nonseq_fwd_kernel')
+            calls[f'{label}_k6'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, b=fsc.n_bounces,
+                m=fmaps, g=fgm, x=fside, z=fprog, w=fpw:
+                fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, b, (None,) * 7, g, maps=m, ext=True, coat=x,
+                    fuzzy=z, ff=w),
+                'trace_nonseq_bwd_kernel')
+        else:
+            opl = name == 'ex20'
+            calls[f'{label}_k1'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, x=fside,
+                z=fprog, w=fpw, o=opl: fused_trace.trace_seq_fwd_cuda(
+                    f, k, r, c, m, True, track_opl=o, coat=x, fuzzy=z, ff=w),
+                'trace_seq_fwd_kernel')
+            calls[f'{label}_k2'] = (
+                lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, g=fgm,
+                x=fside, z=fprog, w=fpw, o=opl: fused_trace.trace_seq_bwd_cuda(
+                    f, k, r, c, (None,) * 7, g, maps=m, ext=True, opl=o,
+                    coat=x, fuzzy=z, ff=w),
+                'trace_seq_bwd')
+    ffsc, ff_p, ff_rays, _, _ = cs.freeform_case(rt, torch, 'ex19', n, dev,
+                                                 cs.FREEFORM_SEED + 13)
+
+    def ff_step():
+        p = ffsc.init_params(dev)
+        p['corrector']['xy1'].requires_grad_(True)
+        _, s, _ = ffsc.simulate_fused(p, ff_rays)
+        (s.spot_rms(0)[0] ** 2).backward()
+    calls.update({
+        'freeform_simulate_fused_ex19': (lambda: ffsc.simulate_fused(
+            ff_p, ff_rays), 'trace_seq_fwd_kernel'),
+        'freeform_grad_step_fused_ex19': (ff_step, 'trace_seq_bwd')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

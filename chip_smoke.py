@@ -540,16 +540,17 @@ def compare_ray_cotangents(torch, g_k, g_p, intensity_allowed=0,
 
 
 def compare_table_cotangents(torch, fused_trace, g_k, g_p, plates=False,
-                             ext=False, disp=False, coat=False, diff=False):
+                             ext=False, disp=False, coat=False, diff=False,
+                             freeform=False):
     """Table cotangent [K, 160], kernel vs plain -> dict; raises on a
     breach.  Outside GRAD_COLS (PLATE_GRAD_COLS with phase plates,
     EXT_GRAD_COLS with the extended kinds, DISP_GRAD_COLS with a dispersive
-    row, with ``coat`` COAT_GRAD_COLS and with ``diff`` FF_GRAD_COLS) both
-    must be exactly zero, but the plain version's at the coat's layer
-    indices (static: no parameter reaches them, and the kernels do not
-    compute them)."""
+    row, with ``coat`` COAT_GRAD_COLS, with ``diff`` FF_GRAD_COLS and with
+    ``freeform`` FF_TERM_COLS) both must be exactly zero, but the plain
+    version's at the coat's layer indices (static: no parameter reaches
+    them, and the kernels do not compute them)."""
     offs = list(fused_trace.grad_cols(() if plates else None, ext, disp,
-                                      coat, diff))
+                                      coat, diff, freeform))
     # the asphere's a4..a10 span r^4..r^10, the dispersion coefficients
     # B ~ 1 and C ~ 0.01-100 um^2: each column its own scale
     fields = (offs[0:5], offs[5:14], offs[14:17], offs[17:19]) + (
@@ -1049,10 +1050,13 @@ DISP_SIDE_OPS = {0: 0, 1: 4, 2: 24}
 
 
 def intersect_ops(meta):
+    """A row's intersection operations (a freeform row's Newton steps over
+    its terms and its normal's evaluation: freeform_ops)."""
     return ((83 if meta.plane else 122) + (22 if meta.sb else 0)
             + (ELLIPSE_OPS if meta.sb == 3 else 0)
             + (22 if meta.vb else 0) + EXT_VB_OPS.get(meta.vb, 0)
-            + (ASPH_REFINE_OPS if meta.asph else 0))
+            + (ASPH_REFINE_OPS if meta.asph and not meta.ff else 0)
+            + freeform_ops(meta)[0])
 
 
 def apply_ops(meta):
@@ -4165,7 +4169,10 @@ FUZZY_I_RTOL = POS_TOL
 FUZZY_NS_BOUNCES, PUPIL_NS_BOUNCES = 6, 4
 APOD_RMS_REF, APOD_RMS_TOL = 0.16384639963507652, 0.00020998354343547778
 FUZZY_DESIGN_STEPS, FUZZY_DESIGN_LR, FUZZY_DESIGN_RTOL = 20, 2e-3, 1e-4
-FUZZY_CASES = ('pupil', 'gauss', 'lorentz_scene', 'pupil_scene')
+# 'clamp': the Gaussian's singlet with an apodizer written with **, clamp,
+# == and != (ops/fuzzy_program.py lowers them into the op set), as the JAX
+# kernels run such a callable
+FUZZY_CASES = ('pupil', 'gauss', 'lorentz_scene', 'pupil_scene', 'clamp')
 # The interpreter's cost (csrc/fuzzy.cuh): one float32 operation an
 # arithmetic operation of the program, its dispatch unpriced; K2's and K6's
 # reverse sweeps run the program again with three partials an operation.
@@ -4176,6 +4183,15 @@ def gauss_apodizer(torch):
     """exp(-(x^2 + y^2) / 8), tests/test_pallas.py:735-736."""
     def apod(x, y, z):
         return torch.exp(-(x * x + y * y) / 8.0)
+    return apod
+
+
+def clamp_apodizer(torch):
+    """clamp(1 - (x^2 + y^2) / 20, 0.05, 1)^2, zero where x == 0 or y !=
+    y: the lowered operations of ops/fuzzy_program.py."""
+    def apod(x, y, z):
+        w = torch.clamp(1.0 - (x ** 2 + y ** 2) / 20.0, 0.05, 1.0) ** 2
+        return torch.where((x == 0.0) | (y != y), 0.0, w)
     return apod
 
 
@@ -4213,13 +4229,15 @@ def apodizer_scene(rt, fn, n_bounces=None):
 
 def fuzzy_case(rt, torch, name, n, device, seed):
     """(scene, params, rays, cfg, nonseq) of a section 14 case: 'pupil',
-    'gauss', 'lorentz_scene' and 'pupil_scene'."""
+    'gauss', 'lorentz_scene', 'pupil_scene' and 'clamp'."""
     if name.startswith('pupil'):
         sc = pupil_scene(rt, PUPIL_NS_BOUNCES if name == 'pupil_scene'
                          else None)
         radius, z0 = PUPIL_R, -3.0
     elif name == 'gauss':
         sc, radius, z0 = apodizer_scene(rt, gauss_apodizer(torch)), 4.0, -10.0
+    elif name == 'clamp':
+        sc, radius, z0 = apodizer_scene(rt, clamp_apodizer(torch)), 4.0, -10.0
     else:
         sc = apodizer_scene(rt, lorentz_apodizer, FUZZY_NS_BOUNCES)
         radius, z0 = 3.0, -10.0
@@ -4568,6 +4586,651 @@ def fuzzy_phases(rt, torch, dev, reset_counters, counters, only):
                 design=design)
 
 
+# Section 15: freeform, Zernike and wedge lenses.  Example 19's freeform
+# astigmatism corrector (examples/19_freeform_corrector.py: a flat window of
+# N-BK7 at z = 20 whose front face carries the XY terms x^2, y^2, x^2 y,
+# y^3, xy, before a spherical mirror R = 100 tilted 8 degrees at z = 50, the
+# sensor at the medial focus), lit by its beam (a uniform 16 mm square of
+# collimated rays from z = -10, those outside the 8 mm disk at intensity 0,
+# rays/reference_prng.py's draws of jax.random.uniform); in the kernel
+# comparisons its terms carry EX19_COEFFS (near its design's) and it runs as
+# a sequence and as a Scene of FF_NS_BOUNCES (the folded beam crosses the
+# window again).  Example 20's Zernike corrector
+# (examples/20_zernike_corrector.py): the tilted plano-convex singlet is
+# measured through K1 with track_opl (the OPD about best focus fitted to 28
+# Noll terms), and every term from 4 on above EX20_MIN_WAVES becomes the
+# plate's prescription z_j = W_j / (n - 1); then its wavefront RMS and its
+# grad step in z1.  Example 26's Shack-Hartmann sensor
+# (examples/26_shack_hartmann.py: a Zernike plate with a hidden
+# astigmatism and coma before a 0.8 mm microlens array of f = 25 and the
+# detector at its focus), lit by uniform rays in the middle of each lenslet
+# cell of the sampled pupil, as its sub-grid is: the per-cell centroids'
+# slopes reconstruct the hidden coefficients within EX26_ATOL (the
+# example's own check).  Example 19's design as published:
+# Adam, EX19_DESIGN_STEPS steps at EX19_DESIGN_LR on the spot RMS^2 of
+# EX19_DESIGN_RAYS rays, through K1 and K2 and through the eager trace; the
+# two designs' spot RMS agree within EX19_DESIGN_RTOL and both land on the
+# JAX package's anchors (tests/freeform_anchors.py): the uncorrected RMS
+# within EX19_RMS0_RTOL, the corrected within EX19_RMS1_RTOL, and the x^2
+# and y^2 coefficients of opposite signs.
+FREEFORM_SEED = SEED + 1601
+EX19_R, EX19_THETA, EX19_GLASS = 100.0, math.radians(8.0), 1.5168
+EX19_TERMS = ((2, 0), (0, 2), (2, 1), (0, 3), (1, 1))
+EX19_COEFFS = (2.0e-4, -2.2e-4, 1.0e-6, -1.5e-6, 1.0e-5)
+EX19_BEAM = 8.0
+EX19_DESIGN_RAYS, EX19_DESIGN_STEPS, EX19_DESIGN_LR = 20_000, 400, 2e-4
+FF_NS_BOUNCES = 12
+EX20_BEAM_R, EX20_TILT, EX20_WAVELEN = 6.0, 0.03, 0.587e-3
+EX20_N_TERMS, EX20_MIN_WAVES = 28, 0.05
+EX26_PITCH, EX26_F, EX26_R, EX26_GLASS = 0.8, 25.0, 4.0, 1.5
+EX26_HIDDEN = {6: 4e-4, 8: 3e-4}
+EX26_CONTROLS = (4, 7, 11)
+EX26_ATOL = 3e-5
+# 'ex20_wide': example 20's plate with every Noll term 4..28 (small
+# alternating coefficients): 28 monomials of degree <= 6, the widest
+# Zernike set a MAX_FF_TERMS face takes from that range
+EX20_WIDE_TERMS = tuple((j, 2e-5 * (-1) ** j) for j in range(4, 29))
+FREEFORM_CASES = ('ex19', 'ex19_scene', 'ex20', 'ex20_wide', 'ex26')
+# Example 20's corrected wavefront is ~0.07 waves RMS, near the float32
+# rounding of its path lengths (ulp(64 mm) = 7.6e-6 mm = 0.013 waves a
+# ray): the kernel's contracted multiply-adds and the eager trace round
+# them otherwise, so their RMS is held to EX20_RMS_ATOL waves and the
+# gradient of its square in z1 to EX20_GRAD_RTOL (an H100 80GB HBM3 read
+# 0.0743 against 0.0737 waves, the gradients 2.7% apart).
+EX20_RMS_ATOL, EX20_GRAD_RTOL = 2e-3, 0.05
+# Example 19's anchors from the JAX package (tests/freeform_anchors.py, on
+# the same rays: rays/reference_prng.py's draws), and their tolerances: the
+# port's eager design on the CPU starts within 6.4e-10 and ends within
+# 1.0e-6 of the JAX package's; the card contracts multiply-adds and rounds
+# each of the 400 Adam steps otherwise, so the uncorrected RMS is held to
+# EX19_RMS0_RTOL and the corrected to EX19_RMS1_RTOL, and the fused design to
+# EX19_DESIGN_RTOL of the eager one.
+EX19_RMS0_REF, EX19_RMS1_REF = 0.08329896628856659, 0.004943932872265577
+EX19_RMS0_RTOL, EX19_RMS1_RTOL = 1e-4, 0.01
+EX19_DESIGN_RTOL = 1e-3
+# A freeform root converges when its final |G| < 1e-4 after 8 Newton steps;
+# a ray whose |G| lies within rounding of that threshold, or whose hit lies
+# within an ulp of a bound's rim, can take the other branch in the kernel
+# (contracted multiply-adds) than in the plain version.  Such rays are
+# counted against FF_FLIPS_PER_MILLION: an H100 80GB HBM3 read none at
+# 2,999 and 1M rays on every section 15 case, so the allowance stays every
+# other kind's, FLIPS_PER_MILLION.
+FF_FLIPS_PER_MILLION = FLIPS_PER_MILLION
+# The operations of a freeform row's intersection (csrc/freeform.cuh): per
+# root 9 evaluations of G (8 steps and the final test), each the radial
+# sag and slope (FF_RADIAL_OPS), the step (FF_STEP_OPS) and per term its
+# powers and products (freeform_term_ops); the normal one more evaluation;
+# K2 and K6 reverse each evaluation at FF_BWD_FACTOR times its cost (the
+# second partials, the terms' cotangents).  Every section 15 freeform row
+# has a plane base (c = 0), whose two roots are one t on the solver's
+# linear path: the kernels refine it once (FF_ROOTS).
+FF_RADIAL_OPS, FF_STEP_OPS, FF_EVALS = 40, 12, 9
+FF_BWD_FACTOR, FF_ROOTS = 3, 1
+
+
+def freeform_term_ops(i, j):
+    """The multiplies and adds of one term's sag and partials."""
+    return max(i - 1, 0) + max(j - 1, 0) + max(i - 2, 0) + max(j - 2, 0) + 9
+
+
+def freeform_ops(meta):
+    """(forward, reverse) operations of a freeform row (0, 0 for another):
+    FF_ROOTS x FF_EVALS evaluations + the normal's, each the radial part
+    and every term."""
+    if not meta.ff:
+        return 0, 0
+    per_eval = FF_RADIAL_OPS + FF_STEP_OPS + sum(freeform_term_ops(i, j)
+                                                for i, j in meta.ff)
+    fwd = (FF_ROOTS * FF_EVALS + 1) * per_eval
+    return fwd, FF_BWD_FACTOR * fwd
+
+
+def ex19_scene(rt, coeffs=(0.0,) * 5, n_bounces=None):
+    """Example 19's scene: the freeform window (its terms trainable), the
+    tilted mirror and the sensor at the medial focus; a Scene of
+    ``n_bounces`` when given."""
+    d_beam = [0.0, math.sin(2 * EX19_THETA), -math.cos(2 * EX19_THETA)]
+    sens = [50.0 * d_beam[0], 50.0 * d_beam[1], 50.0 + 50.0 * d_beam[2]]
+    els = [rt.FreeformLens(c1=0.0, c2=0.0, d=24.0, t=2.0,
+                           ior_glass=EX19_GLASS, translation=[0, 0, 20.0],
+                           xy1=[(i, j, c) for (i, j), c in zip(EX19_TERMS,
+                                                                coeffs)],
+                           xy1_grad=True, name='corrector'),
+           rt.SphericalMirror(c1=-1.0 / EX19_R, d=30.0,
+                              translation=[0, 0, 50.0],
+                              rotation=[EX19_THETA, 0, 0], name='mirror'),
+           rt.SensorElement(radius=6.0, translation=sens,
+                            rotation=[math.pi - 2 * EX19_THETA, 0, 0],
+                            name='sensor')]
+    return (rt.SequentialScene(els) if n_bounces is None
+            else rt.Scene(els, n_bounces=n_bounces))
+
+
+def square_beam(rt, torch, n, half, device, seed=0):
+    """Example 19's and 20's beam: x, y uniform on [-half, half]^2 (the
+    reference's jax.random.uniform(PRNGKey(seed), (2, n)) draws), from z =
+    -10 along z, at intensity 1 inside the disk of radius ``half`` and 0
+    outside it."""
+    from raytracetorch_tpu_torch.rays import reference_prng
+    import numpy as np
+    xy = reference_prng.uniform(reference_prng.prng_key(seed), 2 * n,
+                                -half, half).reshape(2, n)
+    pos = np.stack([xy[0], xy[1], np.full(n, -10.0, np.float32)], -1)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = 1.0
+    ok = (xy[0] ** 2 + xy[1] ** 2 <= np.float32(half * half))
+    return rt.Rays.create(torch.from_numpy(pos), torch.from_numpy(d),
+                          intensity=torch.from_numpy(ok.astype(np.float32)),
+                          device=device, wavelength=torch.zeros(n))
+
+
+def ex20_scene(rt, z_terms=None):
+    """Example 20's scene: the Zernike plate with ``z_terms`` (trainable;
+    none: the bare system), the tilted plano-convex singlet and the
+    sensor."""
+    els = []
+    if z_terms:
+        els.append(rt.ZernikeLens(c1=0.0, c2=0.0, d=2.2 * EX20_BEAM_R, t=2.0,
+                                  ior_glass=EX19_GLASS, z1=z_terms,
+                                  z1_grad=True, norm_radius=EX20_BEAM_R,
+                                  translation=[0, 0, -5.0],
+                                  name='corrector'))
+    els += [rt.SingletLens(c1=0.0, c2=-1.0 / (50.0 * (EX19_GLASS - 1.0)),
+                           d=16.0, t=3.0, ior_glass=EX19_GLASS,
+                           rotation=[EX20_TILT, 0.0, 0.0], name='lens'),
+            rt.SensorElement(radius=10.0, translation=[0, 0, 52.0],
+                             name='sensor')]
+    return rt.SequentialScene(els)
+
+
+def ex20_wavefront(rt, torch, scene, params, rays):
+    """The traced wavefront through ``simulate_fused(track_opl=True)`` ->
+    (RMS in waves about the refocused point, the 28 Noll coefficients of
+    the OPD about best focus, in lens units)."""
+    from raytracetorch_tpu_torch.utils import wavefront
+    out, _, aux = scene.simulate_fused(params, rays, track_opl=True)
+    w = out.intensity
+    rms = wavefront.wavefront_rms(out, aux['opl'], weights=w,
+                                  refocus=True) / EX20_WAVELEN
+    focus = wavefront.best_focus(out)
+    opd = wavefront.opl_to_point(out, aux['opl'], focus)
+    pupil = torch.stack([rays.px, rays.py], 1)
+    coef = wavefront.zernike_fit(pupil, opd, EX20_BEAM_R, weights=w,
+                                 n_terms=EX20_N_TERMS)
+    return rms, coef
+
+
+def ex20_prescription(rt, torch, device):
+    """Example 20's steps 1 and 2: the bare system's measured Noll terms
+    from 4 on above EX20_MIN_WAVES, as plate coefficients W_j / (n - 1) ->
+    (terms, the bare RMS in waves)."""
+    rays = square_beam(rt, torch, 20_000, EX20_BEAM_R, device)
+    bare = ex20_scene(rt)
+    with torch.no_grad():
+        rms, coef = ex20_wavefront(rt, torch, bare, bare.init_params(device),
+                                   rays)
+    terms = [(i + 1, float(c) / (EX19_GLASS - 1.0))
+             for i, c in enumerate(coef.tolist())
+             if i >= 3 and abs(c) / EX20_WAVELEN > EX20_MIN_WAVES]
+    return terms, float(rms)
+
+
+def ex26_scene(rt):
+    """Example 26's Shack-Hartmann sensor: the hidden Zernike plate, the
+    microlens array and the detector at its focal plane."""
+    return rt.SequentialScene([
+        rt.ZernikeLens(c1=0.0, c2=0.0, d=2 * EX26_R + 2, t=1.0,
+                       ior_glass=EX26_GLASS, z1=sorted(EX26_HIDDEN.items()),
+                       norm_radius=EX26_R, name='plate'),
+        rt.MicrolensArray(half_x=EX26_R, half_y=EX26_R, pitch=EX26_PITCH,
+                          f=EX26_F, translation=[0, 0, 4.0], name='mla'),
+        rt.SensorElement(radius=2 * EX26_R, translation=[0, 0, 4.0 + EX26_F],
+                         name='det')])
+
+
+def ex26_rays(rt, torch, n, device, seed):
+    """Collimated rays from z = -5 over the pupil's lenslet cells, each
+    inside the middle of its cell as the example's 11 x 11 sub-grid is
+    (within 5/11 of 0.8 pitch of the centre, so that no ray crosses into
+    the neighbour lenslet), kept within radius R - pitch (numpy, seeded)
+    -> (Rays, x, y)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    half = 5.0 / 11.0 * 0.8 * EX26_PITCH
+    m = 2 * n + 1024
+    cells = rng.integers(-4, 5, size=(2, m)) * EX26_PITCH
+    xy = cells + rng.uniform(-half, half, size=(2, m))
+    keep = np.hypot(xy[0], xy[1]) <= EX26_R - EX26_PITCH
+    x, y = (xy[0][keep][:n].astype(np.float32),
+            xy[1][keep][:n].astype(np.float32))
+    pos = np.stack([x, y, np.full(n, -5.0, np.float32)], -1)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = 1.0
+    return (rt.Rays.create(torch.from_numpy(pos), torch.from_numpy(d),
+                           device=device, wavelength=torch.zeros(n)), x, y)
+
+
+def ex26_reconstruct(rt, out, x0, y0):
+    """Example 26's modal least squares: per-cell centroid slopes of the
+    detector hits against the Zernike slope basis averaged over the same
+    rays -> {Noll j: recovered coefficient}."""
+    import numpy as np
+    from raytracetorch_tpu_torch.geom.zernike import noll_nm, zernike_xy_poly
+    alive = out.intensity.cpu().numpy() > 0
+    px, py = out.px.cpu().numpy(), out.py.cpu().numpy()
+    cx = EX26_PITCH * np.floor(x0 / EX26_PITCH + 0.5)
+    cy = EX26_PITCH * np.floor(y0 / EX26_PITCH + 0.5)
+    cells = np.round(cx / EX26_PITCH).astype(np.int64) * 1000 + np.round(
+        cy / EX26_PITCH).astype(np.int64)
+    keys, inv = np.unique(cells[alive], return_inverse=True)
+    count = np.bincount(inv).astype(np.float64)
+
+    def cell_mean(v):
+        return np.bincount(inv, weights=v[alive].astype(np.float64)) / count
+    s_meas = np.concatenate([(cell_mean(px) - cell_mean(cx)) / EX26_F,
+                             (cell_mean(py) - cell_mean(cy)) / EX26_F])
+    js = sorted(EX26_HIDDEN) + list(EX26_CONTROLS)
+    u, v = x0.astype(np.float64) / EX26_R, y0.astype(np.float64) / EX26_R
+    scale = -(EX26_GLASS - 1.0) / EX26_R
+    cols = []
+    for j in js:
+        dzdx, dzdy = np.zeros_like(u), np.zeros_like(u)
+        for (i, k), c in zernike_xy_poly(*noll_nm(j)).items():
+            c = float(c)
+            if i > 0:
+                dzdx += c * i * u ** (i - 1) * v ** k
+            if k > 0:
+                dzdy += c * k * u ** i * v ** (k - 1)
+        cols.append(np.concatenate([cell_mean(dzdx) * scale,
+                                    cell_mean(dzdy) * scale]))
+    coef = np.linalg.lstsq(np.stack(cols, -1), s_meas, rcond=None)[0]
+    return {j: float(c) for j, c in zip(js, coef)}, len(keys)
+
+
+def freeform_case(rt, torch, name, n, device, seed, ex20_terms=None):
+    """(scene, params, rays, cfg, nonseq) of a section 15 case: 'ex19',
+    'ex19_scene', 'ex20' (the plate of ``ex20_terms``), 'ex20_wide' (of
+    EX20_WIDE_TERMS) and 'ex26'."""
+    if name.startswith('ex19'):
+        sc = ex19_scene(rt, EX19_COEFFS, FF_NS_BOUNCES if name == 'ex19_scene'
+                        else None)
+        rays = square_beam(rt, torch, n, EX19_BEAM, device, seed)
+    elif name.startswith('ex20'):
+        sc = ex20_scene(rt, EX20_WIDE_TERMS if name == 'ex20_wide'
+                        else ex20_terms)
+        rays = square_beam(rt, torch, n, EX20_BEAM_R, device, seed)
+    else:
+        sc = ex26_scene(rt)
+        rays = ex26_rays(rt, torch, n, device, seed)[0]
+    return (sc, sc.init_params(device), rays, sc.sensor_config(),
+            not sc.sequential)
+
+
+def freeform_inputs(rt, torch, sc, params, rays, cfg):
+    """The fused trace's inputs of a freeform scene: (TraceMeta, flat
+    table, kinds, maps, coat side buffer, program buffer, exponent
+    pairs)."""
+    from raytracetorch_tpu_torch.ops import fused_trace
+    dev = rays.px.device
+    meta = fused_trace.TraceMeta(sc.static_meta(), sc.fuzzy_fns())
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=dev)
+    return (meta, flat, kinds, fused_trace.plate_maps(meta, {}),
+            fused_trace.coat_side(meta, dev),
+            fused_trace.fuzzy_buffer(meta, dev),
+            fused_trace.ff_side(meta, dev))
+
+
+def freeform_kernels_vs_plain(rt, torch, name, n, device, seed,
+                              ex20_terms=None):
+    """K1 and K2 (the Scene: K5 and K6) in their instantiation with freeform
+    surfaces against their plain versions on a section 15 case: the rays
+    and moments (example 20's with the path length), then the ray and table
+    cotangents under seeded cotangents on the rays both trace alike; K6's
+    replay against K5 bit for bit -> dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    sc, params, rays, cfg, nonseq = freeform_case(rt, torch, name, n, device,
+                                                  seed, ex20_terms)
+    meta, flat, kinds, maps, coat, prog, ff = freeform_inputs(
+        rt, torch, sc, params, rays, cfg)
+    ext = fused_trace.ext_kinds(meta)
+    opl = name.startswith('ex20')
+    if nonseq:
+        nb = sc.n_bounces
+        kfwd = (lambda r: fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, r, cfg, nb, maps, ext, coat=coat, fuzzy=prog, ff=ff))
+        res_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nb, maps)
+    else:
+        kfwd = (lambda r: fused_trace.trace_seq_fwd_cuda(
+            flat, kinds, r, cfg, maps, ext, track_opl=opl, coat=coat,
+            fuzzy=prog, ff=ff))
+        res_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps, track_opl=opl)
+    res_k = kfwd(rays)
+    torch.cuda.synchronize()
+    out_k, s_k, out_p, s_p = res_k[0], res_k[1], res_p[0], res_p[1]
+    apart = traced_apart(torch, out_k, out_p)[0]
+    n_apart = int(apart.sum())
+    allowed = math.ceil(FF_FLIPS_PER_MILLION * rays.n / 1e6)
+    res = compare(torch, out_k, s_k, out_p, s_p) if n_apart <= allowed \
+        else dict(flipped=n_apart)
+    res.update(rows=len(meta), flipped=n_apart, flips_allowed=allowed,
+               ff_terms=[len(m.ff or ()) for m in meta],
+               transmitted=float(out_k.intensity.double().mean()))
+    check(n_apart <= allowed, f'{name}: {n_apart} rays apart (allowed '
+          f'{allowed})')
+    if opl:
+        keep = ~apart
+        res['opl_max_abs_err'] = float(
+            (res_k[2]['opl'] - res_p[2]['opl'])[keep].abs().max())
+        res['n_final_equal'] = bool(torch.equal(res_k[2]['n_final'][keep],
+                                                res_p[2]['n_final'][keep]))
+        check(res['opl_max_abs_err'] <= POS_TOL * (1.0 + float(
+            res_p[2]['opl'].abs().max())), f'{name}: opl {res}')
+        check(res['n_final_equal'], f'{name}: n_final differs')
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, _ = random_cotangents(torch, rays.n, cfg, device,
+                                         seed + 2)
+    g_opl = (torch.randn(rays.n, generator=torch.Generator(
+        device=device).manual_seed(seed + 3), device=device) if opl
+        else None)
+    if nonseq:
+        g_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+            coat=coat, fuzzy=prog, ff=ff, replay=True)
+        g_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nb, g_rays, g_mom, maps=maps)
+    else:
+        g_k = fused_trace.trace_seq_bwd_cuda(
+            flat, kinds, rays, cfg, g_rays, g_mom, maps=maps, ext=ext,
+            g_opl=g_opl, opl=opl, coat=coat, fuzzy=prog, ff=ff)
+        g_p = fused_trace.trace_seq_bwd_plain(
+            flat, rays, cfg, meta, g_rays, g_mom, maps=maps, g_opl=g_opl)
+    torch.cuda.synchronize()
+    if nonseq:
+        out_r = kfwd(rays)[0]
+        res['replay_equal'] = all(torch.equal(getattr(g_k[-1], c),
+                                              getattr(out_r, c))
+                                  for c in fused_trace.COMPS)
+        check(res['replay_equal'], f'{name}: K6 replay differs from K5')
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1], tol=DISP_BWD_TOL,
+        allowed=max(3, math.ceil(NS_MISMATCH_SHARE * rays.n)) if nonseq
+        else None)
+    res['bwd'].update(compare_table_cotangents(
+        torch, fused_trace, g_k[0], g_p[0], plates=True, ext=True,
+        coat=True, diff=True, freeform=True))
+    ffc = list(fused_trace.FF_TERM_COLS)
+    res['bwd']['ff_columns_used'] = int((g_p[0][:, ffc].abs().sum(0) > 0)
+                                        .sum())
+    return res
+
+
+def ex19_design(rt, torch, device, simulate_name, rays):
+    """Example 19's design as published: Adam, EX19_DESIGN_STEPS steps at
+    EX19_DESIGN_LR on the spot RMS^2 through ``simulate_name``
+    (simulate_fused: K1 and K2 each step) -> dict of the spot RMS before
+    and after, the coefficients and the seconds."""
+    sc = ex19_scene(rt)
+    simulate = getattr(sc, simulate_name)
+
+    def rms(p):
+        _, sens, _ = simulate(p, rays)
+        return sens.spot_rms(0)[0]
+    p0 = sc.init_params(device)
+    with torch.no_grad():
+        rms0 = float(rms(p0))
+    t0 = time.perf_counter()
+    p, hist = rt.fit(lambda p: rms(p) ** 2, p0, trainable=sc.trainable(),
+                     steps=EX19_DESIGN_STEPS, lr=EX19_DESIGN_LR)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        rms1 = float(rms(p))
+    return dict(rms0=rms0, rms1=rms1, loss0=float(hist[0]),
+                loss=float(hist[-1]), seconds=seconds,
+                coeffs=[float(v) for v in p['corrector']['xy1']])
+
+
+def freeform_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 15: freeform, Zernike and wedge lenses through K1, K2, K5 and
+    K6 in their instantiation with freeform surfaces: each kernel against
+    its plain version (at 2,999 and 1M rays) on examples 19 (also as a
+    Scene), 20 and 26; the counted paths (forward and grad steps against
+    the eager trace, example 20's measured prescription and wavefront,
+    example 26's reconstruction); example 19's design as published against
+    the eager one and the JAX package's anchors; then times, bounds (with
+    the Newton steps' operations) and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    from raytracetorch_tpu_torch.utils import wavefront
+
+    # example 20's prescription, measured through K1 with track_opl
+    terms, bare_rms = ex20_prescription(rt, torch, dev)
+    emit('freeform_prescription', n_terms=len(terms), bare_rms_waves=bare_rms,
+         terms=terms)
+
+    # 15a. each kernel against its plain version
+    kern = {}
+    for name in FREEFORM_CASES:
+        for n in (N_SMALL, N_MAIN):
+            kern[f'{name}_{n}'] = freeform_kernels_vs_plain(
+                rt, torch, name, n, dev, FREEFORM_SEED + 11, terms)
+    emit('freeform_kernels_vs_plain', **kern)
+
+    # 15b. the counted paths at 1M rays
+    paths = {}
+
+    def rel_err(a, b):
+        return max(float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
+                   for x, y in zip(a, b))
+
+    for name, leaf in (('ex19', 'xy1'), ('ex19_scene', 'xy1'),
+                       ('ex20', 'z1')):
+        sc, params, rays, cfg, nonseq = freeform_case(
+            rt, torch, name, N_MAIN, dev, FREEFORM_SEED + 13, terms)
+        fwd, bwd = (('trace_nonseq_fwd', 'trace_nonseq_bwd') if nonseq
+                    else ('trace_seq_fwd', 'trace_seq_bwd'))
+        opl = name == 'ex20'
+
+        def loss_of(simulate, p):
+            if opl:
+                out, _, aux = simulate(p, rays, track_opl=True)
+                return (wavefront.wavefront_rms(
+                    out, aux['opl'], weights=out.intensity, refocus=True)
+                    / EX20_WAVELEN) ** 2
+            return simulate(p, rays)[1].spot_rms(0)[0] ** 2
+        reset_counters()
+        with torch.no_grad():
+            l_f = float(loss_of(sc.simulate_fused, params))
+        torch.cuda.synchronize()
+        fl = counters()
+        check(only(fl, **{fwd: 1}, freeform=1), f'{name} launched {fl}')
+        with torch.no_grad():
+            l_e = float(loss_of(sc.simulate, params))
+        if opl:
+            check(abs(l_f ** 0.5 - l_e ** 0.5) <= EX20_RMS_ATOL,
+                  f'{name}: fused RMS {l_f ** 0.5} vs eager {l_e ** 0.5} '
+                  f'waves')
+        else:
+            check(abs(l_f - l_e) <= 1e-3 * abs(l_e),
+                  f'{name}: fused loss {l_f} vs eager {l_e}')
+
+        def grads(simulate):
+            p = sc.init_params(dev)
+            p['corrector'][leaf].requires_grad_(True)
+            loss_of(simulate, p).backward()
+            return [p['corrector'][leaf].grad]
+        reset_counters()
+        g_f = grads(sc.simulate_fused)
+        torch.cuda.synchronize()
+        gl = counters()
+        check(only(gl, **{fwd: 1, bwd: 1}, freeform=2),
+              f'{name} grad step launched {gl}')
+        g_e = grads(sc.simulate)
+        rel = rel_err(g_f, g_e)
+        paths[name] = dict(fwd_launches=fl, grad_launches=gl, loss=l_f,
+                           eager_loss=l_e, rel_err=rel,
+                           grads=g_f[0].tolist(),
+                           eager_grads=g_e[0].tolist())
+        check(rel < (EX20_GRAD_RTOL if opl else GRAD_RTOL),
+              f'{name}: fused vs eager gradients {rel}')
+    sc = ex26_scene(rt)
+    rays, x0, y0 = ex26_rays(rt, torch, N_MAIN, dev, FREEFORM_SEED + 13)
+    reset_counters()
+    with torch.no_grad():
+        out, _, _ = sc.simulate_fused(sc.init_params(dev), rays)
+    torch.cuda.synchronize()
+    fl = counters()
+    check(only(fl, trace_seq_fwd=1, freeform=1), f'ex26 launched {fl}')
+    coef, n_cells = ex26_reconstruct(rt, out, x0, y0)
+    errs = {j: abs(c - EX26_HIDDEN.get(j, 0.0)) for j, c in coef.items()}
+    paths['ex26'] = dict(fwd_launches=fl, recovered=coef, cells=n_cells,
+                         max_abs_err=max(errs.values()), atol=EX26_ATOL,
+                         transmitted=float(out.intensity.double().mean()))
+    check(max(errs.values()) <= EX26_ATOL,
+          f'ex26: reconstruction {coef} (hidden {EX26_HIDDEN})')
+    # K0's counterpart, trace_sequential_v1, on example 19's corrector: K1's
+    # kernel in its instantiation with freeform surfaces, every stream off
+    sc, params, rays, cfg, _ = freeform_case(rt, torch, 'ex19', N_MAIN, dev,
+                                             FREEFORM_SEED + 13)
+    meta, flat, kinds, maps, coat, prog, ff = freeform_inputs(
+        rt, torch, sc, params, rays, cfg)
+    reset_counters()
+    with torch.no_grad():
+        v1_out, v1_sens, _ = rt.trace_sequential_v1(
+            sc.build_table(params), rays, cfg, sc.static_meta())
+    torch.cuda.synchronize()
+    v1l = counters()
+    check(only(v1l, trace_seq_v1=1, freeform=1), f'ex19 v1 launched {v1l}')
+    v1_p, v1_sp = fused_trace.trace_sequential_fused_plain(flat, rays, cfg,
+                                                           meta, maps)
+    paths['v1'] = compare(torch, v1_out, v1_sens, v1_p, v1_sp)
+    paths['v1']['launches'] = v1l
+    emit('freeform_main', n=N_MAIN, **paths)
+
+    # 15c. example 19's design through K1 and K2 against the eager one and
+    # the JAX package's anchors
+    d_rays = square_beam(rt, torch, EX19_DESIGN_RAYS, EX19_BEAM, dev)
+    reset_counters()
+    fused = ex19_design(rt, torch, dev, 'simulate_fused', d_rays)
+    fused['launches'] = counters()
+    eager = ex19_design(rt, torch, dev, 'simulate', d_rays)
+    design = dict(fused=fused, eager=eager, steps=EX19_DESIGN_STEPS,
+                  rms0_ref=EX19_RMS0_REF, rms1_ref=EX19_RMS1_REF)
+    emit('freeform_design', **design)
+    check(only(fused['launches'], trace_seq_fwd=EX19_DESIGN_STEPS + 2,
+               trace_seq_bwd=EX19_DESIGN_STEPS,
+               freeform=2 * EX19_DESIGN_STEPS + 2),
+          f'ex19 design launched {fused["launches"]}')
+    for run in (fused, eager):
+        check(abs(run['rms0'] - EX19_RMS0_REF) <= EX19_RMS0_RTOL
+              * EX19_RMS0_REF, f'ex19 uncorrected RMS {run["rms0"]}')
+        check(abs(run['rms1'] - EX19_RMS1_REF) <= EX19_RMS1_RTOL
+              * EX19_RMS1_REF, f'ex19 corrected RMS {run["rms1"]}')
+        check(run['coeffs'][0] * run['coeffs'][1] < 0,
+              f'ex19: x^2 and y^2 of one sign {run["coeffs"]}')
+    check(abs(fused['rms1'] - eager['rms1']) <= EX19_DESIGN_RTOL
+          * eager['rms1'], f'ex19 design: fused {fused["rms1"]} vs eager '
+          f'{eager["rms1"]}')
+
+    # 15d. times at 1M rays against the plain versions, bounds (the Newton
+    # steps' operations) and blocks per SM
+    timing, bounds, occ = {}, {}, {}
+    for name, key in (('ex19', 'k1'), ('ex20', 'k1_ex20'), ('ex26', 'k1_ex26'),
+                      ('ex19_scene', 'k5')):
+        sc, params, r, cfg, nonseq = freeform_case(
+            rt, torch, name, N_MAIN, dev, FREEFORM_SEED + 7, terms)
+        meta, flat, kinds, maps, coat, prog, ff = freeform_inputs(
+            rt, torch, sc, params, r, cfg)
+        ext = fused_trace.ext_kinds(meta)
+        opl = name == 'ex20'
+        g_rays, g_mom, _ = random_cotangents(torch, r.n, cfg, dev, SEED + 6)
+        io = (r.n * (36 + 28) + table_bytes(meta)
+              + len(meta) * (fused_trace.COAT_SIDE + fused_trace.FF_SIDE) * 4
+              + prog.numel() * 4 + (r.n * 8 if opl else 0))
+        cols = len(fused_trace.grad_cols((), True, False, True, True, True))
+        ff_f = [freeform_ops(m) for m in meta]
+        if nonseq:
+            nb = sc.n_bounces
+            kfn = (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, nb, maps, ext, coat=coat, fuzzy=prog,
+                ff=ff))
+            pfn = (lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, nb, maps))
+            bk = (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                flat, kinds, r, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+                coat=coat, fuzzy=prog, ff=ff))
+            bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                flat, r, cfg, meta, nb, g_rays, g_mom, maps=maps))
+            reps = dict(reps=6, warmup=1)
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
+            # every scan intersects every freeform row (intersect_ops); K6
+            # replays the scans and reverses the winners' steps, whose
+            # adjoint nonseq_ops counts at the forward's size: the rest of
+            # FF_BWD_FACTOR is added
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
+                                        segment_replays(lives))
+            bounds[key] = bound(io, k5_ops)
+            bounds['k6'] = bound(io + r.n * 28 + len(meta) * cols * 4,
+                                 k6_ops + sum(w * (b - f) for w, (f, b)
+                                              in zip(wins, ff_f)))
+        else:
+            g_opl = torch.ones(r.n, device=dev) if opl else None
+            kfn = (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, ext, track_opl=opl, coat=coat,
+                fuzzy=prog, ff=ff))
+            pfn = (lambda: fused_trace.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps, track_opl=opl))
+            bk = (lambda: fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=ext,
+                g_opl=g_opl, opl=opl, coat=coat, fuzzy=prog, ff=ff))
+            bp = (lambda: fused_trace.trace_seq_bwd_plain(
+                flat, r, cfg, meta, g_rays, g_mom, maps=maps, g_opl=g_opl))
+            reps = dict(reps=10, warmup=2)
+            # intersect_ops counts the freeform rows' steps; K2 replays the
+            # chain, recomputes each row and reverses it (3 forwards, the
+            # freeform steps' reverse at FF_BWD_FACTOR of theirs)
+            k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m)
+                               for m in meta)
+            bounds[key] = bound(io, k1_ops)
+            bounds[key.replace('k1', 'k2')] = bound(
+                io + r.n * 28 + len(meta) * cols * 4,
+                3 * k1_ops + r.n * sum(b - f for f, b in ff_f))
+        k_ms, p_ms, k_runs, _ = time_pair(torch, kfn, pfn, **reps)
+        timing[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs,
+                           ff_terms=[len(m.ff or ()) for m in meta])
+        k_ms, p_ms, k_runs, _ = time_pair(torch, bk, bp, **reps)
+        timing[key.replace('k1', 'k2').replace('k5', 'k6')] = dict(
+            kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs)
+        for lib in (('trace_nonseq_fwd', 'trace_nonseq_bwd') if nonseq
+                    else ('trace_seq_fwd', 'trace_seq_bwd')):
+            occ[f'{lib}_{name}'] = fused_trace.blocks_per_sm(
+                lib, len(meta), cfg, True, sc.n_bounces, ext=True,
+                diff=True, fuzzy_words=int(prog.numel()), freeform=True)
+    sc, params, rays, _, _ = freeform_case(rt, torch, 'ex19', N_MAIN, dev,
+                                           FREEFORM_SEED + 13)
+
+    def step():
+        p = sc.init_params(dev)
+        p['corrector']['xy1'].requires_grad_(True)
+        _, s_, _ = sc.simulate_fused(p, rays)
+        (s_.spot_rms(0)[0] ** 2).backward()
+    for label, fn in (
+            ('simulate_fused_ex19', lambda: sc.simulate_fused(params, rays)),
+            ('grad_step_fused_ex19', step)):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{label}_ms'] = statistics.median(runs)
+        timing[f'{label}_runs'] = runs
+    emit('freeform_timing', **timing)
+    emit('freeform_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('freeform_occupancy', blocks_per_sm=occ)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds,
+                design=design)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4592,6 +5255,7 @@ def main():
         fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
         fused_trace.FRESNEL_LAUNCHES = fused_trace.COAT_LAUNCHES = 0
         fused_trace.DIFF_LAUNCHES = fused_trace.FUZZY_LAUNCHES = 0
+        fused_trace.FREEFORM_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -4612,7 +5276,8 @@ def main():
                     fresnel=fused_trace.FRESNEL_LAUNCHES,
                     coat=fused_trace.COAT_LAUNCHES,
                     diff=fused_trace.DIFF_LAUNCHES,
-                    fuzzy=fused_trace.FUZZY_LAUNCHES)
+                    fuzzy=fused_trace.FUZZY_LAUNCHES,
+                    freeform=fused_trace.FREEFORM_LAUNCHES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -5520,6 +6185,9 @@ def main():
     # 14. fuzzy apodization and the obscured pupil
     fuzzy = fuzzy_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 15. freeform, Zernike and wedge lenses
+    freeform = freeform_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -6100,6 +6768,32 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, fz_t[key]['kernel_ms'],
             fz_t[key]['plain_ms']))
+    # the instantiations with freeform surfaces (section 15): launches on
+    # the counted paths of example 19's corrector (K1, K2) and its Scene
+    # (K5, K6), errors at 1M rays over the cases, times and bounds on those
+    # two
+    ff_k, ff_t, ff_b = (freeform['kernels'], freeform['timing'],
+                        freeform['bounds'])
+    ff_p = freeform['paths']
+    seq_cases = [k for k in ff_k if 'scene' not in k]
+    ns_cases = [k for k in ff_k if 'scene' in k]
+    for name, source, line, launches_, err, key in (
+            ('trace_seq_fwd_freeform', 'trace_seq_fwd.cu', 489,
+             ff_p['ex19']['fwd_launches']['trace_seq_fwd'],
+             max(ff_k[c]['max_abs_err'] for c in seq_cases), 'k1'),
+            ('trace_seq_bwd_freeform', 'trace_seq_bwd.cu', 1712,
+             ff_p['ex19']['grad_launches']['trace_seq_bwd'],
+             max(ff_k[c]['bwd']['max_abs_err'] for c in seq_cases), 'k2'),
+            ('trace_nonseq_fwd_freeform', 'trace_nonseq_fwd.cu', 1029,
+             ff_p['ex19_scene']['fwd_launches']['trace_nonseq_fwd'],
+             max(ff_k[c]['max_abs_err'] for c in ns_cases), 'k5'),
+            ('trace_nonseq_bwd_freeform', 'trace_nonseq_bwd.cu', 2157,
+             ff_p['ex19_scene']['grad_launches']['trace_nonseq_bwd'],
+             max(ff_k[c]['bwd']['max_abs_err'] for c in ns_cases), 'k6')):
+        bounds[name] = ff_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, ff_t[key]['kernel_ms'],
+            ff_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -74,7 +74,13 @@ Hopper.  The port covers:
   (outer disk, central obscuration, spider vanes), through K1, K2, K5 and
   K6 (an instantiation of their own) for component-style callables, which
   the fused path traces into programs that the kernels interpret
-  (ops/fuzzy_program.py).
+  (ops/fuzzy_program.py);
+- freeform, Zernike and wedge lenses: ``FreeformLens`` (XY-polynomial
+  faces, trainable coefficients ``xy1``/``xy2``), ``ZernikeLens`` (Noll
+  terms ``z1``/``z2``, expanded exactly into monomials on the host:
+  geom/zernike.py) and ``WedgePrism``, eager and through K1, K2, K5 and K6
+  (an instantiation of their own, which runs the Newton refinement of the
+  freeform roots and, in K2 and K6, its reverse).
 
 ROADMAP.md lists what is still to be ported.
 
@@ -105,7 +111,8 @@ from .elements.ideal import (DiffractionGrating, IdealCylThinLens,  # noqa: E402
                              paraxial_dist_mat, paraxial_lens_mat,
                              paraxial_mirror_mat, paraxial_refract_mat)
 from .elements.lens import (AsphericLens, CylSingletLens,  # noqa: E402
-                            DoubletLens, SingletLens, TripletLens)
+                            DoubletLens, FreeformLens, SingletLens,
+                            TripletLens, WedgePrism, ZernikeLens)
 from .elements.mirror import (AsphericMirror, ConicMirror,  # noqa: E402
                               CylindricalMirror, ManginMirror,
                               ParabolicMirror, ParabolicMirrorOffAxis,
@@ -113,7 +120,8 @@ from .elements.mirror import (AsphericMirror, ConicMirror,  # noqa: E402
 from .elements.mla import MicrolensArray  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
 from .geom.transform import Frame, rodrigues  # noqa: E402
-from .geom.zernike import noll_nm  # noqa: E402
+from .geom.zernike import (noll_nm, zernike_monomial_map,  # noqa: E402
+                           zernike_xy_poly)
 from .ops.fused_nonseq import (FusedNonseq, FusedNonseqStreams,  # noqa: E402
                                trace_nonseq_fused)
 from .ops.fused_trace import (FusedTrace, FusedTraceStreams,  # noqa: E402

@@ -3,8 +3,8 @@
 Counterpart of ``raytracetorch_tpu/core/intersect.py`` for the sequential
 trace (the row's kinds are static; the dense per-ray kind dispatch of the
 non-sequential trace is ROADMAP Queue 1 item 13).  Protocol: the quadric's
-roots (an even asphere's refined onto its sag), per-root surface-local
-bounds, the minimum positive root with the world-scale
+roots (an even asphere's or a freeform's refined onto its sag), per-root
+surface-local bounds, the minimum positive root with the world-scale
 epsilon, then the element-volume bound on the chosen hit.
 """
 
@@ -14,9 +14,9 @@ import torch
 
 from ..constants import SOLVER_EPS, SBKind, VBKind
 from ..geom import vec3 as v3
-from ..geom.surfaces import (asph_normal, asph_refine, min_positive,
-                             solve_roots, surface_normal)
-from .static_dispatch import TODO_FEATURES, sb_check_one, vb_check_one
+from ..geom.surfaces import (asph_normal, asph_refine, ff_normal, ff_refine,
+                             min_positive, solve_roots, surface_normal)
+from .static_dispatch import sb_check_one, vb_check_one
 
 
 def intersect(row, pos, direction, static_meta):
@@ -27,8 +27,6 @@ def intersect(row, pos, direction, static_meta):
     (0 where invalid), ``valid``, the hit in the surface (``hit_s``) and
     element (``hit_e``) frames, and the ray in the surface frame
     (``o_s``, ``d_s``)."""
-    if static_meta.ff:
-        raise NotImplementedError(f'freeform surfaces are {TODO_FEATURES}')
     o_s = v3.rot(v3.sub(pos, v3.from_array(row.tw)), row.Rw)
     d_s = v3.rot(direction, row.Rw)
 
@@ -43,7 +41,17 @@ def intersect(row, pos, direction, static_meta):
     else:
         (t1, v1), (t2, v2) = solve_roots(row.q, o_s, d_s)
 
-    if static_meta.asph:
+    if static_meta.ff:
+        # freeform XY polynomial: Newton-refine both base-conic roots onto
+        # S(x, y); the exponent pairs are static, the coefficients the
+        # row's ff columns (a freeform row is never a DOE row, whose
+        # coefficients share those columns)
+        c, kc2, acoef, fcoef = _ff_coeffs(row, static_meta)
+        t1, v1 = ff_refine(c, kc2, acoef, static_meta.ff, fcoef, o_s, d_s,
+                           t1, v1)
+        t2, v2 = ff_refine(c, kc2, acoef, static_meta.ff, fcoef, o_s, d_s,
+                           t2, v2)
+    elif static_meta.asph:
         # even asphere: refine both base-conic roots onto the sag before
         # the surface bound
         c, kc2, coeffs = _asph_coeffs(row)
@@ -77,8 +85,18 @@ def _asph_coeffs(row):
     return c, row.q[..., 2] * c, [row.asph[..., i] for i in range(4)]
 
 
+def _ff_coeffs(row, static_meta):
+    """(c, (1 + k) c^2, [a4..a10], [c_m]) of a freeform row."""
+    c, kc2, acoef = _asph_coeffs(row)
+    return c, kc2, acoef, [row.ff[..., m] for m in range(len(static_meta.ff))]
+
+
 def normal_world(row, hit_s, static_meta):
     """World-frame unit normal at a surface-frame hit: n_local @ Rw.T."""
+    if static_meta.ff:
+        c, kc2, acoef, fcoef = _ff_coeffs(row, static_meta)
+        return v3.rot_t(ff_normal(c, kc2, acoef, static_meta.ff, fcoef,
+                                  hit_s), row.Rw)
     if static_meta.asph:
         return v3.rot_t(asph_normal(*_asph_coeffs(row), hit_s), row.Rw)
     if static_meta.plane:

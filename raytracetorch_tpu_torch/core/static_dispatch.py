@@ -17,11 +17,11 @@ flag on ``meta.doe``) and the microlens array MLA, the Fresnel kinds
 FRESNEL (the Monte-Carlo branch draw: it reads the ray's uniform ``u``),
 FRESNEL_W (refract, intensity times 1 - R) and REFLECT_W (the ghost
 reflection, intensity times R) on bare or thin-film coated interfaces
-(``coated_rt_sp``, absorbing films included), even-asphere rows, and
-dispersive media (Cauchy and Sellmeier, ``dispersive_iors``).  Every other
-kind (SCATTER, the polarized field's JONES, GRIN, CONE_NAPPE, HALFSPACES,
-freeform surfaces) raises NotImplementedError naming the ROADMAP item that
-brings it.  ``medium_after`` gives the index of the medium a ray travels in
+(``coated_rt_sp``, absorbing films included), even-asphere and freeform
+rows (``meta.ff``, the static exponent pairs), and dispersive media (Cauchy
+and Sellmeier, ``dispersive_iors``).  Every other kind (SCATTER, the
+polarized field's JONES, GRIN, CONE_NAPPE, HALFSPACES) raises
+NotImplementedError naming the ROADMAP item that brings it.  ``medium_after`` gives the index of the medium a ray travels in
 after a row, for the optical path length (``track_opl``).
 """
 
@@ -161,8 +161,6 @@ def coat_acts(meta: StaticRowMeta):
 
 def unsupported(meta: StaticRowMeta):
     """Why the port cannot trace this row yet (None when it can)."""
-    if meta.ff:
-        return f'freeform surfaces are {TODO_FEATURES}'
     if meta.metal and meta.ph != PhysKind.REFLECT:
         return 'a metal substrate is a REFLECT row\'s'
     if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN):

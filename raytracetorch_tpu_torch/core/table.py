@@ -129,9 +129,11 @@ class SurfaceRec:
     metal_nk: Any = None         # static ((n knots), (k knots)) of the
                                  # metal's dispersion (utils/coatings.py::
                                  # METAL_NK), on StaticRowMeta
-    ff: Sequence = ()            # a DOE row's radial phase coefficients
-                                 # (the freeform lenses' powers are not
-                                 # ported: ROADMAP Queue 2 E)
+    ff: Sequence = ()            # a freeform row's monomial coefficients
+                                 # or a DOE row's radial phase ones (a row
+                                 # is one or the other, never both)
+    ff_powers: tuple = ()        # static (i, j) exponent pairs of a freeform
+                                 # row's terms, on StaticRowMeta.ff
     doe: Any = None              # static (n_radial_terms, efficiency) of a
                                  # DOE row, on StaticRowMeta
     is_sensor: bool = False

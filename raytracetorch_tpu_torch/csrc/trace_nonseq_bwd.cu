@@ -10,8 +10,9 @@
 // is the counterpart of both, for K5's kinds (pixelated phase plates and the
 // extended kinds included), the optical path length, the Fresnel kinds
 // with their draws, thin-film coatings and metal mirrors, the diffractive
-// and ideal elements, and component-style fuzzy apodization (the TPU
-// kernel's fuzzy_fns, :2292), with every other optional stream off.
+// and ideal elements, component-style fuzzy apodization (the TPU kernel's
+// fuzzy_fns, :2292) and freeform surfaces, with every other optional
+// stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -143,6 +144,13 @@
 // replayed hit with forward-mode partials (fuzzy.cuh) and adds g I imod
 // dw/d(hit) to the hit's cotangent (row_backward).
 //
+// Freeform surfaces run in one more instantiation, kFreeform, built on
+// kFuzzy (an overload with one more argument, FfSide: the rows' exponent
+// pairs, in shared memory after the programs): its replays run K5's bounce
+// with them (nonseq_bounce), and its reverse sweep reverses a freeform
+// winner's normal and 8 Newton steps (freeform.cuh, through row_backward);
+// its warp slots hold 32 ff columns a row in place of a DOE winner's 8.
+//
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..18
 // bundles and slots x bundles <= 64, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
 // 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
@@ -182,21 +190,24 @@ constexpr unsigned kFull = 0xffffffffu;
 // kCoat (which has kFresnel) a coated or metal winner reads its row of the
 // side buffer `cside`; with kDiff (which has kCoat) the diffractive kinds;
 // with kFuzzy (which has kDiff) a winner with a program in `fz` weighs by
-// it.
+// it; with kFreeform (which has kFuzzy) the freeform rows of `ffs`.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits, float* n_cur = nullptr,
                                       const RayDraw* rd = nullptr,
                                       const float* cside = nullptr,
-                                      const int32_t* fz = nullptr) {
+                                      const int32_t* fz = nullptr,
+                                      const int32_t* ffs = nullptr) {
   RowHit hw = {};
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy>(
-      recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd, cside, fz);
+  const int k =
+      nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
+          recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd, cside, fz,
+          ffs);
   if (k >= 0) bits = branch_bits<kFresnel>(hw, degen, br) | kActive;
   if constexpr (kOpl) {
     if (k >= 0)
@@ -255,6 +266,12 @@ struct FuzzyProgs {
   int n_words;
 };
 
+// What only the instantiation with the freeform surfaces takes: the rows'
+// exponent pairs, [K][kFfSide] int32 words (freeform.cuh's layout).
+struct FfSide {
+  const int32_t* pw;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the replays also carry the index of the
 // medium, each checkpoint keeps the one before its bounce as a ninth word
@@ -266,9 +283,11 @@ struct FuzzyProgs {
 // columns follow its disp columns.  With kDiff (which has kCoat) the
 // diffractive kinds, and a DOE winner's 8 ff columns follow the coat
 // columns.  With kFuzzy (which has kDiff) the winners with a program in `fp`
-// (copied into shared memory after the side buffer) weigh by it.
+// (copied into shared memory after the side buffer) weigh by it.  With
+// kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
+// memory after the programs), and 32 ff columns a row.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -286,18 +305,20 @@ __device__ __forceinline__ void nonseq_bwd(
     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
     float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo,
     OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr},
-    FuzzyProgs fp = {nullptr, 0}) {
+    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
+  static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl>();
+  constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols, with kCoat the coat
   // columns after those, with kDiff a DOE row's ff columns after those
   const int n_cols = kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-                                       (kDiff ? kMaxDoeTerms : 0)
+                                       (kDiff ? kFfCols : 0)
                                  : kCols;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -310,8 +331,9 @@ __device__ __forceinline__ void nonseq_bwd(
   float* cside = gm + n_mom;  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
   int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
-  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) +
-                    (kFuzzy ? fp.n_words : 0);  // [kWarps, n_rows, n_cols]
+  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
+  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) + (kFuzzy ? fp.n_words : 0) +
+                    (kFreeform ? n_rows * kFfSide : 0);  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -325,6 +347,9 @@ __device__ __forceinline__ void nonseq_bwd(
   }
   if constexpr (kFuzzy) {
     for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+  }
+  if constexpr (kFreeform) {
+    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
@@ -367,8 +392,8 @@ __device__ __forceinline__ void nonseq_bwd(
     const float ib = inten, nb = n_cur;
     uint32_t bits = 0;
     rd.bounce = static_cast<uint32_t>(b);
-    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
-        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs);
+    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
+        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -415,16 +440,17 @@ __device__ __forceinline__ void nonseq_bwd(
 #pragma unroll 1
       for (int b = 0; b < s; ++b) {
         rd.bounce = static_cast<uint32_t>(b);
-        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
-            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs);
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
+            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs);
       }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten, nb = n_cur;
         rd.bounce = static_cast<uint32_t>(s + j);
-        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
-            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs);
+        const int k =
+            bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
+                recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
       }
@@ -451,19 +477,22 @@ __device__ __forceinline__ void nonseq_bwd(
         float tc[kCoat ? kMaxCoatLayers : 1];  // kCoat: the coat columns
 #pragma unroll
         for (int c = 0; c < (kCoat ? kMaxCoatLayers : 1); ++c) tc[c] = 0.0f;
-        float tf[kDiff ? kMaxDoeTerms : 1];  // kDiff: a DOE winner's ff columns
+        // kDiff: a DOE winner's ff columns (kFreeform: a freeform winner's too)
+        float tf[kDiff ? kFfCols : 1];
 #pragma unroll
-        for (int c = 0; c < (kDiff ? kMaxDoeTerms : 1); ++c) tf[c] = 0.0f;
+        for (int c = 0; c < (kDiff ? kFfCols : 1); ++c) tf[c] = 0.0f;
         if (act) {
           const RowKinds kd =
               read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
-          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
-              tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm, n_bundles, gg, pl,
-              gmaps, gp, gd, gi, tg, &wc, &oc, cside + k * kCoatSide, tc, tf,
-              kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr);
+          const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
+          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
+                       kFreeform>(tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm,
+                                  n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc,
+                                  cside + k * kCoatSide, tc, tf,
+                                  kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp);
           dispm = kd.dispm;
           coated = kd.coat & kCoatCountMask;
-          doe = kDiff && kd.ph == DOE;
+          doe = kDiff && (kd.ph == DOE || (kFreeform && ffp != nullptr));
         }
         if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, n_cols, lane);
         // a dispersive winner: its media's cotangents on to the disp
@@ -481,10 +510,10 @@ __device__ __forceinline__ void nonseq_bwd(
             reduce_winners<kMaxCoatLayers>(coated != 0 ? k : -1, tc,
                                            slots + kCols + wo.disp_cols, n_cols, lane);
         }
-        // a DOE winner: its coefficients' columns
+        // a DOE or freeform winner: its coefficients' columns
         if constexpr (kDiff) {
           if (partials != nullptr)
-            reduce_winners<kMaxDoeTerms>(doe ? k : -1, tf,
+            reduce_winners<kFfCols>(doe ? k : -1, tf,
                                          slots + kCols + wo.disp_cols + kMaxCoatLayers, n_cols,
                                          lane);
         }
@@ -605,7 +634,17 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey k
                                                                 cs, fp);
 }
 
-// The types of the seven kernels.
+// The kernel with those and the freeform surfaces.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
+                        DiffKinds, FuzzyProgs fp, FfSide ff) {
+  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true, true, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi,
+                                                                      key, cs, fp, ff);
+}
+
+// The types of the eight kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -615,6 +654,8 @@ using BwdDiffKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey,
                                DiffKinds);
 using BwdFuzzyKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
                                 DiffKinds, FuzzyProgs);
+using BwdFreeformKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
+                                   DiffKinds, FuzzyProgs, FfSide);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
@@ -622,28 +663,34 @@ using BwdFuzzyKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey
 // The dynamic shared memory of a launch: the packed scan records (not with
 // kExt), the table, its kinds, the moment cotangent, with kCoat the side
 // buffer, the warp slots (disp_cols more columns a row on a table with a
-// dispersive row, with kCoat 8 more, with kDiff 8 more again), the fuzzy
-// programs' `fuzzy_words` and the checkpoints.  Without the records the
-// mixed-surface Scene's 11 rows and 12 checkpoints fit two blocks an SM.
-template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false>
+// dispersive row, with kCoat 8 more, with kDiff 8 more again, with
+// kFreeform 32 in their place), the fuzzy programs' `fuzzy_words`, with
+// kFreeform the rows' exponent pairs, and the checkpoints.  Without the
+// records the mixed-surface Scene's 11 rows and 12 checkpoints fit two
+// blocks an SM.
+template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false,
+          bool kFreeform = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols,
                     int fuzzy_words = 0) {
   return sizeof(float) *
          (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth +
-                                         (kCoat ? kCoatSide : 0)) +
+                                         (kCoat ? kCoatSide : 0) + (kFreeform ? kFfSide : 0)) +
           static_cast<size_t>(fuzzy_words) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
           static_cast<size_t>(kWarps) * n_rows *
               (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-               (kDiff ? kMaxDoeTerms : 0)) +
+               (kDiff ? (kFreeform ? kMaxFfTerms : kMaxDoeTerms) : 0)) +
           static_cast<size_t>(checkpoints(n_bounces)) * state_words<kOpl>() * kThreads);
 }
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 const void* kernel_fn() {
-  if constexpr (kFuzzy)
+  if constexpr (kFreeform)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFreeformKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kFuzzy)
     return reinterpret_cast<const void*>(
         static_cast<BwdFuzzyKernel>(trace_nonseq_bwd_kernel<true, true>));
   else if constexpr (kDiff)
@@ -668,11 +715,11 @@ const void* kernel_fn() {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
-      kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(),
+      kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -781,7 +828,9 @@ extern "C" int rtt_trace_nonseq_bwd(
 // instantiation with the diffractive kinds, whose partials hold 8 more (a
 // DOE row's coefficients, after the coat columns), and with it `fuzzy`,
 // when not null, the one with the fuzzy programs: K5's `fuzzy_words` int32
-// words.  Returns a cudaError_t.
+// words; with that `ff_side`, when not null, the one with the freeform
+// surfaces: K5's exponent pairs, whose partials hold 32 ff columns a row in
+// place of the 8.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -793,9 +842,11 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
     const float* g_nfinal, uint32_t key0, uint32_t key1, int fresnel, const float* coat_side,
-    int diff, const int32_t* fuzzy, int fuzzy_words, int n_bounces, long long n, void* stream) {
+    int diff, const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, int n_bounces,
+    long long n, void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
     return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy == nullptr) fuzzy_words = 0;
@@ -807,20 +858,23 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const size_t smem =
-      diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                        wo.disp_cols, fuzzy_words)
+      ff_side != nullptr
+          ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                             wo.disp_cols, fuzzy_words)
+      : diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                          wo.disp_cols, fuzzy_words)
       : coat_side != nullptr
           ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                  wo.disp_cols)
           : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  // one launch for the five instantiations: the Fresnel kernel's overload
+  // one launch for the six instantiations: the Fresnel kernel's overload
   // takes the key as its last argument, the coated one the key and the side
   // buffer, the diffractive one those and its tag, the fuzzy one those and
-  // the programs
+  // the programs, the freeform one those and the exponent pairs
   auto go = [&](auto... draws) {
     const cudaError_t e =
         prepare<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
-                sizeof...(draws) >= 3, sizeof...(draws) == 4>(smem);
+                sizeof...(draws) >= 3, sizeof...(draws) >= 4, sizeof...(draws) == 5>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_nonseq_bwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -831,6 +885,9 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
             n, wo, OplIn{g_opl, g_nfinal}, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (ff_side != nullptr)
+    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
   if (fuzzy != nullptr)
     return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
               FuzzyProgs{fuzzy, fuzzy_words});
@@ -847,7 +904,9 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
 // path length on such a table, 5 the one with the Fresnel kinds on such a
 // table, 6 the one with the coatings on such a table, 7 the one with the
 // diffractive kinds on such a table, 8 the one with the fuzzy programs (of
-// `fuzzy_words` words) on such a table.  Returns a cudaError_t.
+// `fuzzy_words` words) on such a table, 9 the one with the freeform surfaces
+// (and programs of `fuzzy_words` words) on such a table.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
                                               int* blocks) {
@@ -856,7 +915,12 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 8) {
+  if (code == 9) {
+    smem = shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                            kDispGradCols, fuzzy_words);
+    e = prepare<true, true, true, true, true, true, true, true, true>(smem);
+    fn = kernel_fn<true, true, true, true, true, true, true, true, true>();
+  } else if (code == 8) {
     smem = shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                       kDispGradCols, fuzzy_words);
     e = prepare<true, true, true, true, true, true, true, true>(smem);

@@ -10,8 +10,9 @@
 // path and hit recording, in an instantiation of their own, below), the
 // Fresnel kinds with their draws (one more instantiation), thin-film
 // coatings and metal mirrors (one more), the diffractive and ideal elements
-// (one more) and component-style fuzzy apodization (one more;
-// _nonseq_bounce_core :967-968): no scatter draws, field, GRIN or
+// (one more), component-style fuzzy apodization (one more;
+// _nonseq_bounce_core :967-968) and freeform surfaces (one more; its
+// intersect :879 and normal_world :942): no scatter draws, field, GRIN or
 // HALFSPACES rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
@@ -126,6 +127,14 @@
 // the program's value at its surface-frame hit (fuzzy.cuh's interpreter,
 // in nonseq_bounce, which K6's replay runs too).
 //
+// Freeform surfaces run in one more instantiation, kFreeform, of the
+// streams' body (an overload with one more argument after the programs,
+// FfSide: the rows' exponent pairs, copied into shared memory after them),
+// built on kFuzzy: the scan refines a freeform row's base-conic roots onto
+// its sag by 8 Newton steps, and a freeform winner takes its sag's normal
+// (freeform.cuh, in nonseq_bounce), as _nonseq_bounce_core's intersect
+// (:879) and normal_world (:942) do.
+//
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
 
@@ -156,13 +165,13 @@ __host__ __device__ constexpr int fwd_min_blocks() {
 // The dynamic shared memory of a launch: the packed scan records (not with
 // the extended kinds), the flat table, its kinds, with `coat` (the
 // instantiation with the coatings) the side buffer, the fuzzy programs'
-// `fuzzy_words`, the per-warp moment partials and bucket 1's per-thread
-// moment sums.
+// `fuzzy_words`, with `freeform` the rows' exponent pairs, the per-warp
+// moment partials and bucket 1's per-thread moment sums.
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext, bool coat = false,
-                    int fuzzy_words = 0) {
+                    int fuzzy_words = 0, bool freeform = false) {
   return sizeof(float) * (static_cast<size_t>(n_rows) *
                               ((ext ? 0 : kRecWords) + kRowWidth + kKindWidth +
-                               (coat ? kCoatSide : 0)) +
+                               (coat ? kCoatSide : 0) + (freeform ? kFfSide : 0)) +
                           static_cast<size_t>(fuzzy_words) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
                           static_cast<size_t>(kMoments) * kThreads);
@@ -183,6 +192,12 @@ struct DiffKinds {
 struct FuzzyProgs {
   const int32_t* words;
   int n_words;
+};
+
+// The freeform rows' exponent pairs (kFreeform): [K][kFfSide] int32 words
+// (freeform.cuh's layout).
+struct FfSide {
+  const int32_t* pw;
 };
 
 template <int kMomBucket, bool kPlates, bool kExt>
@@ -324,9 +339,10 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // reading their rows of `cs`; with kDiff (which has kCoat) the diffractive
 // kinds and the ELLIPSE bound; with kFuzzy (which has kDiff) the winners
 // with a program in `fp` (copied into shared memory after the side buffer)
-// weigh by it.
+// weigh by it; with kFreeform (which has kFuzzy) the freeform rows of `ff`
+// (copied into shared memory after the programs) are freeform surfaces.
 template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false,
-          bool kFuzzy = false>
+          bool kFuzzy = false, bool kFreeform = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -338,10 +354,12 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so,
-    PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0}) {
+    PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0},
+    FfSide ff = {nullptr}) {
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
+  static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   constexpr bool kPlates = true, kExt = true;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -352,7 +370,9 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   float* cside = tab + n_rows * (kRowWidth + kKindWidth);  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
   int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
-  float* warp_mom = reinterpret_cast<float*>(fzs) + (kFuzzy ? fp.n_words : 0);
+  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
+  float* warp_mom =
+      reinterpret_cast<float*>(ffs) + (kFreeform ? n_rows * kFfSide : 0);
   const int n_mom = n_slots * n_bundles * kMoments;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -366,6 +386,9 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   }
   if constexpr (kFuzzy) {
     for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+  }
+  if constexpr (kFreeform) {
+    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
   }
   __syncthreads();
   if constexpr (kDiff) {
@@ -416,8 +439,10 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     PhysBranch br = {};
     SensorRec rec;
     const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
-    const int k_win = nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff, kFuzzy>(
-        recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd, cside, fzs);
+    const int k_win =
+        nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
+            recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd, cside, fzs,
+            ffs);
     if (k_win < 0) {
       b_end = b;
       break;
@@ -568,6 +593,17 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, Coat
   nonseq_fwd_streams<kMomBucket, true, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs, fp);
 }
 
+// The kernel with the streams, the Fresnel kinds, the coatings, the
+// diffractive kinds, the fuzzy programs and the freeform surfaces.
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
+                        DiffKinds, FuzzyProgs fp, FfSide ff) {
+  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
+  nonseq_fwd_streams<kMomBucket, true, true, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs,
+                                                               fp, ff);
+}
+
 // Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
 // one after the other), into 4 n words: the device generator's known-answer
 // check (tests/test_torch_cuda.py, chip_smoke.py).
@@ -580,7 +616,7 @@ __global__ void philox_kernel(const uint32_t* __restrict__ ctr, const uint32_t* 
   for (int w = 0; w < 4; ++w) out[4 * j + w] = c[w];
 }
 
-// The types of the six kernels.
+// The types of the seven kernels.
 using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey);
@@ -589,15 +625,20 @@ using FwdDiffKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, Coat
                                DiffKinds);
 using FwdFuzzyKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
                                 DiffKinds, FuzzyProgs);
+using FwdFreeformKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
+                                   DiffKinds, FuzzyProgs, FfSide);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 const void* kernel_fn() {
-  if constexpr (kFuzzy)
+  if constexpr (kFreeform)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFreeformKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else if constexpr (kFuzzy)
     return reinterpret_cast<const void*>(
         static_cast<FwdFuzzyKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
   else if constexpr (kDiff)
@@ -627,11 +668,11 @@ struct PlateArgs {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
-      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy>(),
+      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -671,10 +712,14 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the
-// diffractive kinds, 8 the one with the fuzzy programs) and moment bucket,
-// its shared memory allowed.
+// diffractive kinds, 8 the one with the fuzzy programs, 9 the one with the
+// freeform surfaces) and moment bucket, its shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 9) {
+    *e = prepare<kMomBucket, true, true, true, true, true, true, true, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, true, true, true, true, true>();
+  }
   if (code == 8) {
     *e = prepare<kMomBucket, true, true, true, true, true, true, true>(smem);
     return kernel_fn<kMomBucket, true, true, true, true, true, true, true>();
@@ -711,7 +756,8 @@ const void* kernel_of(int code, size_t smem, cudaError_t* e) {
 // one with the Fresnel kinds too: the Fresnel kernel's overload takes the
 // key as its last argument; with the key and the side buffer the one with
 // the coatings; with those and the tag the one with the diffractive kinds;
-// with those and the programs the one with the fuzzy programs.
+// with those and the programs the one with the fuzzy programs; with those
+// and the exponent pairs the one with the freeform surfaces.
 template <int kMomBucket, class... Draws>
 int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const float* table,
                    const int32_t* kinds, int n_rows, const float* const* rays,
@@ -721,7 +767,7 @@ int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const flo
                    Draws... draws) {
   const cudaError_t e =
       prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0, sizeof...(Draws) >= 2,
-              sizeof...(Draws) >= 3, sizeof...(Draws) == 4>(smem);
+              sizeof...(Draws) >= 3, sizeof...(Draws) >= 4, sizeof...(Draws) == 5>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   trace_nonseq_fwd_kernel<kMomBucket, true, true>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
@@ -793,7 +839,9 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
 // coat_side; with it, `diff` nonzero selects the one with the diffractive
 // kinds, and with that `fuzzy`, when not null, the one with the fuzzy
 // programs: its `fuzzy_words` int32 words (n_rows to kFuzzyMaxWords;
-// fuzzy.cuh).  Returns a cudaError_t.
+// fuzzy.cuh); with that `ff_side`, when not null, the one with the freeform
+// surfaces: the rows' n_rows * kFfSide int32 words of exponent pairs
+// (freeform.cuh).  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -802,10 +850,11 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
     float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, int fresnel,
-    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words, int n_bounces,
-    long long n, void* stream) {
+    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words,
+    const int32_t* ff_side, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
     return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy == nullptr) fuzzy_words = 0;
@@ -818,8 +867,8 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem =
-      shared_bytes(n_rows, n_slots, n_bundles, true, coat_side != nullptr, fuzzy_words);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, coat_side != nullptr,
+                                  fuzzy_words, ff_side != nullptr);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -834,6 +883,9 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
                               n_bounces, n, so, draws...);
   };
+  if (ff_side != nullptr)
+    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
   if (fuzzy != nullptr)
     return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
               FuzzyProgs{fuzzy, fuzzy_words});
@@ -860,14 +912,16 @@ extern "C" int rtt_philox4x32(const uint32_t* ctr, const uint32_t* key, uint32_t
 // for a table with a dispersive row) with it and the extended kinds, 4 the
 // instantiation with the streams, 5 the one with the Fresnel kinds, 6 the
 // one with the coatings, 7 the one with the diffractive kinds, 8 the one
-// with the fuzzy programs (of `fuzzy_words` words).  Returns a cudaError_t.
+// with the fuzzy programs (of `fuzzy_words` words), 9 the one with the
+// freeform surfaces (and programs of `fuzzy_words` words).  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
                                               int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code >= 6,
-                                   code == 8 ? fuzzy_words : 0);
+                                   code >= 8 ? fuzzy_words : 0, code == 9);
   cudaError_t e;
   const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
                                             : kernel_of<64>(code, smem, &e);

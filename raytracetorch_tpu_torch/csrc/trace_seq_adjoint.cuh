@@ -45,6 +45,16 @@
 // recomputed from the replayed state, which reaches the forward's bit for
 // bit.  A DOE row's efficiency passes the intensity's cotangent through
 // sinc^2 (none where the `safe` select took the constant 1).
+//
+// Freeform surfaces (kFreeform): a freeform row's root is the base conic's
+// refined by 8 Newton steps and its normal the sag's; the adjoint reverses
+// both (freeform.cuh::ff_refine_backward, ff_normal_backward), the steps'
+// inputs recomputed from the saved state, as jax.vjp of the TPU kernel's
+// chain differentiates the unrolled steps.  The cotangents of the base
+// conic and the even-asphere terms go to q[0], q[2] and asph[0:4], those of
+// the coefficients into `tf` (the 32 ff columns of the instantiation with
+// freeform surfaces, reduced after the coat columns; a DOE row's 8 are its
+// first 8).
 
 #pragma once
 
@@ -201,17 +211,20 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
 // hold.  With kDiff the diffractive kinds and the ELLIPSE bound.  With
 // kFuzzy (which has kDiff) a row with a fuzzy program `prog` (fuzzy.cuh;
 // null: none) multiplies its factor by the program's value at the hit.
+// With kFreeform (which has kFuzzy) a row with exponent pairs `ffp` (null:
+// not freeform) is a freeform surface.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
                                                 const Plates& pl, V3& p, V3& d, float& inten,
                                                 float u = 0.0f, const float* side = nullptr,
-                                                const int32_t* prog = nullptr) {
-  const RowHit h = intersect_row<kPlates, kExt, kDiff>(r, kd, p, d);
+                                                const int32_t* prog = nullptr,
+                                                const int32_t* ffp = nullptr) {
+  const RowHit h = intersect_row<kPlates, kExt, kDiff, kFreeform>(r, kd, p, d, ffp);
   bool degen = false;
   const V3 nw = uses_normal<kFresnel>(kd.ph) || (kPlates && kd.ph == PHASE_GRID) ||
                         (kDiff && kd.ph == DOE)
-                    ? world_normal<kExt>(r, kd.plane, h.hs, &degen, kd.asph)
+                    ? world_normal<kExt, kFreeform>(r, kd.plane, h.hs, &degen, kd.asph, ffp)
                     : V3{0.0f, 0.0f, 1.0f};
   PhysBranch br = {};
   V3 nd;
@@ -854,9 +867,14 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // program `prog` (null: none) weighs I' = I (imod w) with w the program's
 // value at hs: w's cotangent g I imod goes through the program's
 // forward-mode partials into the hit's cotangent, and imod's and I's take
-// w as a factor.
+// w as a factor.  With kFreeform (which has kFuzzy) a freeform row (`ffp`,
+// its exponent pairs; null: none) refines its root and takes its normal as
+// the forward did and reverses both (ff_refine_backward,
+// ff_normal_backward); its coefficients' cotangents add into
+// tf[kMaxFfTerms] (a DOE row's into its first kMaxDoeTerms).
 template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
+          bool kFreeform = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
@@ -864,12 +882,14 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
                                              float& gi, float* tg, WaveCt* wc = nullptr,
                                              OplCt* oc = nullptr, const float* side = nullptr,
                                              float* tc = nullptr, float* tf = nullptr,
-                                             const int32_t* prog = nullptr) {
+                                             const int32_t* prog = nullptr,
+                                             const int32_t* ffp = nullptr) {
   static_assert(kDispersion || !kOpl, "the path length runs with dispersion");
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
+  static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   if (!(bits & kActive)) {  // where(active, new, old) passes through
     if (kFresnel && kd.ph == REFLECT_W) gi = 0.0f;
     return;
@@ -908,9 +928,15 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   const bool asph = kExt && kd.asph;
   const Asph as = asph_of(q, r + kAsph);
   AsphCt ac = {};
-  // an asphere's chosen root, refined as the forward refined it (both roots
-  // refine to the same t on a tie)
-  const float t = asph ? asph_steps(as, o, ds, r1 ? t1 : t2) : (r1 ? t1 : t2);
+  // kFreeform: a freeform row, its surface and its terms' cotangents
+  const bool ffrow = kFreeform && ffp != nullptr;
+  const Freeform fs = kFreeform ? freeform_of(q, r + kAsph, r + kFf, ffp) : Freeform{};
+  FfCt fct = {};
+  // an asphere's or a freeform's chosen root, refined as the forward refined
+  // it (both roots refine to the same t on a tie)
+  const float t = ffrow  ? ff_steps(fs, o.x, o.y, o.z, ds.x, ds.y, ds.z, r1 ? t1 : t2)
+                  : asph ? asph_steps(as, o, ds, r1 ? t1 : t2)
+                         : (r1 ? t1 : t2);
   const V3 hs = fma3(o, t, ds);
 
   const bool need_normal = uses_normal<kFresnel>(kd.ph);
@@ -922,6 +948,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
       nw = {Rw[2], Rw[5], Rw[8]};
     } else if (asph) {
       nl = asph_normal(as, hs);
+      nw = rot_t(nl, Rw);
+    } else if (ffrow) {
+      ff_normal(fs, hs.x, hs.y, nl.x, nl.y, nl.z);
       nw = rot_t(nl, Rw);
     } else {
       gv = {2.0f * q[0] * hs.x, 2.0f * q[1] * hs.y, 2.0f * q[2] * hs.z + q[3]};
@@ -1107,6 +1136,8 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
         for (int j = 0; j < 3; ++j) tg[kGRw + 3 * i + j] += gnw[i] * nlv[j];
       if (asph) {
         asph_normal_backward(as, hs, g_nl, g_hs, ac);
+      } else if (ffrow) {
+        ff_normal_backward(fs, hs.x, hs.y, g_nl.x, g_nl.y, g_nl.z, g_hs.x, g_hs.y, fct, tf);
       } else if (!degen) {
         // nl = gv * inv, inv = sign / (sqrt(|gv|^2) + NORMAL_EPS)
         const float g_inv = dot3(g_nl, gv);
@@ -1142,6 +1173,22 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
       // through the Halley steps back to the base conic's roots t1, t2
       if (r1) g_t1 = asph_refine_backward(as, o, ds, t1, g_t1, g_o, g_ds, ac);
       if (r2) g_t2 = asph_refine_backward(as, o, ds, t2, g_t2, g_o, g_ds, ac);
+    } else if (ffrow) {
+      // through the Newton steps back to the base conic's roots; on the
+      // linear path both roots are the same t, so one reverse of the steps
+      // carries both halves (the adjoint is linear in its cotangent)
+      if (linear && r1 && r2) {
+        g_t1 = ff_refine_backward(fs, o.x, o.y, o.z, ds.x, ds.y, ds.z, t1, g_t1 + g_t2, g_o.x,
+                                  g_o.y, g_o.z, g_ds.x, g_ds.y, g_ds.z, fct, tf);
+        g_t2 = 0.0f;
+      } else {
+        if (r1)
+          g_t1 = ff_refine_backward(fs, o.x, o.y, o.z, ds.x, ds.y, ds.z, t1, g_t1, g_o.x, g_o.y,
+                                    g_o.z, g_ds.x, g_ds.y, g_ds.z, fct, tf);
+        if (r2)
+          g_t2 = ff_refine_backward(fs, o.x, o.y, o.z, ds.x, ds.y, ds.z, t2, g_t2, g_o.x, g_o.y,
+                                    g_o.z, g_ds.x, g_ds.y, g_ds.z, fct, tf);
+      }
     }
     float g_A = 0.0f, g_B, g_C = 0.0f;
     if (linear) {
@@ -1178,6 +1225,13 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     tg[kGQ + 2] += ac.kc2 * q[0];
 #pragma unroll
     for (int j = 0; j < 4; ++j) tg[kGAsph + j] += ac.a[j];
+  }
+  if (ffrow) {
+    // the same columns for a freeform row's base and even-asphere terms
+    tg[kGQ + 0] += fct.c + fct.kc2 * q[2];
+    tg[kGQ + 2] += fct.kc2 * q[0];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tg[kGAsph + j] += fct.a[j];
   }
 
   // ---- world -> surface frame: o = (p - tw) @ Rw, ds = d @ Rw ----

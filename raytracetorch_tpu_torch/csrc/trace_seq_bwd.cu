@@ -8,9 +8,9 @@
 // asphere scenes and dispersive media, the optical path length (g_opl,
 // g_nfinal), the Fresnel kinds with K1's pre-drawn uniforms (the TPU
 // kernel's u_vals, :1883-1891), thin-film coatings and metal mirrors, the
-// diffractive and ideal elements, and component-style fuzzy apodization
-// (the TPU kernel's fuzzy_fns, :1775), with every other optional stream
-// off.  Its plain
+// diffractive and ideal elements, component-style fuzzy apodization (the
+// TPU kernel's fuzzy_fns, :1775) and freeform surfaces, with every other
+// optional stream off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_bwd_cuda.
@@ -132,6 +132,16 @@
 //   (fuzzy.cuh: 4 floats a register, no stored tape) and adds g I imod
 //   dw/d(hit) to the hit's cotangent (row_backward).  The programs have no
 //   parameters of the table: the table's columns are unchanged.
+// - Freeform surfaces: a tenth instantiation, kFreeform, built on the ninth
+//   (an overload with one more argument, FfSide: the rows' exponent pairs,
+//   copied into shared memory after the programs), so that the others keep
+//   their code.  Its forward sweep refines a freeform row's roots as K1
+//   does; its reverse sweep reverses the row's normal and its 8 Newton
+//   steps (freeform.cuh, recomputed from the saved state: the saved state
+//   stays 9 words), and its warp slots hold 32 ff columns a row in place of
+//   a DOE row's 8: the coefficients of up to MAX_FF_TERMS monomials, after
+//   the coat columns (67 columns a row, 79 on a table with a dispersive
+//   row: 2.5 KB a row of shared memory beside the 9 KB of saved state).
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -210,6 +220,12 @@ struct FuzzyProgs {
   int n_words;
 };
 
+// What only the instantiation with the freeform surfaces takes: the rows'
+// exponent pairs, [K][kFfSide] int32 words (freeform.cuh's layout).
+struct FfSide {
+  const int32_t* pw;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the forward sweep also carries the
 // index of the medium and saves it before each row as a ninth state word
@@ -222,9 +238,14 @@ struct FuzzyProgs {
 // coat-thickness columns follow its disp columns.  With kDiff (which has
 // kCoat) the diffractive kinds, and a DOE row's 8 ff columns follow the coat
 // columns.  With kFuzzy (which has kDiff) the rows with a program in `fp`
-// (copied into shared memory after the side buffer) weigh by it.
+// (copied into shared memory after the side buffer) weigh by it.  With
+// kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
+// memory after the programs) refine their roots onto their sags, and the ff
+// columns are 32 a row (a freeform row's coefficients, or a DOE row's in
+// the first 8).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
+          bool kFreeform = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -239,19 +260,21 @@ __device__ __forceinline__ void seq_bwd(
     GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo,
     OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr},
-    FuzzyProgs fp = {nullptr, 0}) {
+    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
+  static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   constexpr int kCols = grad_cols<kPlates, kExt>();
+  constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
   constexpr int kStride = kShared ? kThreads : 1;
   constexpr int kWords = state_words<kOpl>();
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols, with kCoat the coat
   // columns after those, with kDiff a DOE row's ff columns after those
   const int n_cols = kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-                                       (kDiff ? kMaxDoeTerms : 0)
+                                       (kDiff ? kFfCols : 0)
                                  : kCols;
   extern __shared__ float smem[];
   float* tab = smem;
@@ -261,8 +284,9 @@ __device__ __forceinline__ void seq_bwd(
   float* cside = gm + n_mom;  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
   int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
-  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) +
-                    (kFuzzy ? fp.n_words : 0);  // [kWarps, n_rows, n_cols]
+  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
+  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) + (kFuzzy ? fp.n_words : 0) +
+                    (kFreeform ? n_rows * kFfSide : 0);  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   // each row's saved state: [n_rows][kStateWords][kThreads] after the
@@ -278,6 +302,9 @@ __device__ __forceinline__ void seq_bwd(
   }
   if constexpr (kFuzzy) {
     for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+  }
+  if constexpr (kFreeform) {
+    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
@@ -315,9 +342,11 @@ __device__ __forceinline__ void seq_bwd(
         ++f;
       }
     }
-    const uint32_t bits = row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff, kFuzzy>(
-        tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide,
-        kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr);
+    const uint32_t bits =
+        row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
+            tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide,
+            kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr,
+            kFreeform ? ff_row_of(ffs, k) : nullptr);
     put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
     if constexpr (kOpl) {
       put_medium<kStride>(saved + k * kWords * kStride, n_cur);
@@ -358,12 +387,14 @@ __device__ __forceinline__ void seq_bwd(
       float tc[kCoat ? kMaxCoatLayers : 1];  // kCoat: the coat columns
 #pragma unroll
       for (int c = 0; c < (kCoat ? kMaxCoatLayers : 1); ++c) tc[c] = 0.0f;
-      float tf[kDiff ? kMaxDoeTerms : 1];  // kDiff: a DOE row's ff columns
+      // kDiff: a DOE row's ff columns (kFreeform: a freeform row's too)
+      float tf[kDiff ? kFfCols : 1];
 #pragma unroll
-      for (int c = 0; c < (kDiff ? kMaxDoeTerms : 1); ++c) tf[c] = 0.0f;
-      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
+      for (int c = 0; c < (kDiff ? kFfCols : 1); ++c) tf[c] = 0.0f;
+      const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
+      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
           r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc,
-          cside + k * kCoatSide, tc, tf, kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr);
+          cside + k * kCoatSide, tc, tf, kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp);
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
       if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
@@ -382,10 +413,10 @@ __device__ __forceinline__ void seq_bwd(
         if (any && (kd.coat & kCoatCountMask) != 0)
           reduce_cols<kMaxCoatLayers>(tc, slot + kCols + wo.disp_cols, lane);
       }
-      // a DOE row (warp-uniform): its coefficients' columns
+      // a DOE or freeform row (warp-uniform): its coefficients' columns
       if constexpr (kDiff) {
-        if (any && kd.ph == DOE)
-          reduce_cols<kMaxDoeTerms>(tf, slot + kCols + wo.disp_cols + kMaxCoatLayers, lane);
+        if (any && (kd.ph == DOE || (kFreeform && ffp != nullptr)))
+          reduce_cols<kFfCols>(tf, slot + kCols + wo.disp_cols + kMaxCoatLayers, lane);
       }
     } else {
       row_backward<kPlates, kExt>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp,
@@ -498,7 +529,17 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, Coat
                                                                       dr, cs, fp);
 }
 
-// The types of the seven kernels.
+// The kernel with those and the freeform surfaces.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
+                     DiffKinds, FuzzyProgs fp, FfSide ff) {
+  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true, true, true>(
+      RTT_SEQ_BWD_ARGS, wo, oi, dr, cs, fp, ff);
+}
+
+// The types of the eight kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -508,6 +549,8 @@ using BwdDiffKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, Coa
                                DiffKinds);
 using BwdFuzzyKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
                                 DiffKinds, FuzzyProgs);
+using BwdFreeformKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
+                                   DiffKinds, FuzzyProgs, FfSide);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -524,27 +567,34 @@ struct PlateArgs {
 // The dynamic shared memory of a launch: the table, its kinds, the moment
 // cotangent, with kCoat the side buffer, the warp slots (disp_cols more
 // columns a row on a table with a dispersive row, with kCoat 8 more, with
-// kDiff 8 more again), the fuzzy programs' `fuzzy_words` and, for tables
-// of up to kSharedRows rows, the saved states (a word more a row with the
-// path length).
-template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false>
+// kDiff 8 more again, with kFreeform 32 in their place), the fuzzy
+// programs' `fuzzy_words`, with kFreeform the rows' exponent pairs and, for
+// tables of up to kSharedRows rows, the saved states (a word more a row
+// with the path length).
+template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false,
+          bool kFreeform = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols,
                     int fuzzy_words = 0) {
   const size_t rows = static_cast<size_t>(n_rows);
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
           (kCoat ? rows * kCoatSide : 0) + static_cast<size_t>(fuzzy_words) +
+          (kFreeform ? rows * kFfSide : 0) +
           static_cast<size_t>(kWarps) * rows *
               (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-               (kDiff ? kMaxDoeTerms : 0)) +
+               (kDiff ? (kFreeform ? kMaxFfTerms : kMaxDoeTerms) : 0)) +
           (n_rows <= kSharedRows ? rows * state_words<kOpl>() * kThreads : 0));
 }
 
 // The kernel of an instantiation.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
+          bool kFreeform = false>
 const void* kernel_fn() {
-  if constexpr (kFuzzy)
+  if constexpr (kFreeform)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFreeformKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kFuzzy)
     return reinterpret_cast<const void*>(
         static_cast<BwdFuzzyKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else if constexpr (kDiff)
@@ -570,22 +620,24 @@ const void* kernel_fn() {
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
+          bool kFreeform = false>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>();
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
+                  kFreeform>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
   return n_rows <= kSharedRows
-             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
-                   smem, fn)
-             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy>(
-                   smem, fn);
+             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
+                       kFreeform>(smem, fn)
+             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
+                       kFreeform>(smem, fn);
 }
 
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
@@ -706,7 +758,9 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
 // nonzero selects the instantiation with the diffractive kinds, whose
 // partials hold 8 more (a DOE row's coefficients, after the coat columns),
 // and with it `fuzzy`, when not null, the one with the fuzzy programs: K1's
-// `fuzzy_words` int32 words.  Returns a cudaError_t.
+// `fuzzy_words` int32 words; with that `ff_side`, when not null, the one
+// with the freeform surfaces: K1's exponent pairs, whose partials hold 32
+// ff columns a row in place of the 8.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -717,10 +771,11 @@ extern "C" int rtt_trace_seq_bwd_opl(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
     const float* g_nfinal, const float* uniforms, int n_draws, int fresnel,
-    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words, long long n,
-    void* stream) {
+    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words,
+    const int32_t* ff_side, long long n, void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
     return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy == nullptr) fuzzy_words = 0;
@@ -735,22 +790,27 @@ extern "C" int rtt_trace_seq_bwd_opl(
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const OplIn oi = {g_opl, g_nfinal};
   const size_t smem =
-      diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols,
-                                                        fuzzy_words)
+      ff_side != nullptr
+          ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles,
+                                                             wo.disp_cols, fuzzy_words)
+      : diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols,
+                                                          fuzzy_words)
       : coat_side != nullptr
           ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols)
           : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  // one launch per row layout for the five instantiations: the Fresnel
+  // one launch per row layout for the six instantiations: the Fresnel
   // kernel's overload takes the draws as its last argument, the coated one
   // the draws and the side buffer, the diffractive one those and its tag,
-  // the fuzzy one those and the programs
+  // the fuzzy one those and the programs, the freeform one those and the
+  // exponent pairs
   auto go = [&](auto... draws) {
     const void* fn;
     const cudaError_t e =
         prepare_rows<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
-                     sizeof...(draws) >= 3, sizeof...(draws) == 4>(n_rows, smem, &fn);
+                     sizeof...(draws) >= 3, sizeof...(draws) >= 4, sizeof...(draws) == 5>(
+            n_rows, smem, &fn);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (n_rows <= kSharedRows)
       trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
@@ -766,6 +826,9 @@ extern "C" int rtt_trace_seq_bwd_opl(
           gmaps, n, wo, oi, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (ff_side != nullptr)
+    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
   if (fuzzy != nullptr)
     return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
               FuzzyProgs{fuzzy, fuzzy_words});
@@ -783,15 +846,18 @@ extern "C" int rtt_trace_seq_bwd_opl(
 // such a table, 5 the one with the Fresnel kinds on such a table, 6 the one
 // with the coatings on such a table, 7 the one with the diffractive kinds
 // on such a table, 8 the one with the fuzzy programs (of `fuzzy_words`
-// words) on such a table.
+// words) on such a table, 9 the one with the freeform surfaces (and
+// programs of `fuzzy_words` words) on such a table.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int fuzzy_words,
                                            int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
   const size_t smem =
-      code == 8 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols,
-                                                             fuzzy_words)
+      code == 9 ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles,
+                                                                   disp_cols, fuzzy_words)
+      : code == 8 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles,
+                                                               disp_cols, fuzzy_words)
       : code == 7 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code == 6 ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code >= 4 ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
@@ -799,7 +865,9 @@ extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundle
       : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 8 ? prepare_rows<true, true, true, true, true, true, true, true>(
+  const cudaError_t e = code == 9 ? prepare_rows<true, true, true, true, true, true, true, true,
+                                                 true>(n_rows, smem, &fn)
+                        : code == 8 ? prepare_rows<true, true, true, true, true, true, true, true>(
                                         n_rows, smem, &fn)
                         : code == 7 ? prepare_rows<true, true, true, true, true, true, true>(
                                         n_rows, smem, &fn)

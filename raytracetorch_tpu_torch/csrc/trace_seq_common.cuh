@@ -70,6 +70,17 @@
 // ELLIPSE bound reads its rotation's cosine and sine, which each block
 // writes once per row over the rotation and the unused fourth bound word of
 // its shared copy of the table (ellipse_rows).
+//
+// Freeform surfaces (an XY polynomial on a conic and even-asphere base: the
+// FreeformLens and ZernikeLens faces) take one more compile-time flag,
+// kFreeform, set only in one more instantiation of each kernel, built on the
+// one with the fuzzy programs: every other instantiation holds none of their
+// code.  A freeform row's kinds row has surface kSurfFreeform; its exponent
+// pairs ride a side buffer of kFfSide int32 words a row (freeform.cuh), in
+// shared memory, and its coefficients its flat row's ff columns.  The
+// intersection refines both base-conic roots by 8 Newton steps, the normal
+// is the sag's (freeform.cuh).  A row is freeform or DOE, never both (the
+// elements build no such row): both read the ff columns.
 
 #pragma once
 
@@ -78,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include "diffractive.cuh"
+#include "freeform.cuh"
 #include "fuzzy.cuh"
 #include "grid_corners.cuh"
 #include "thin_film.cuh"
@@ -102,7 +114,7 @@ constexpr int kSensorCol = 4, kSlotCol = 5, kInvertCol = 6;
 constexpr int kMapCol = 7;  // a PHASE_GRID row's map (plate) index
 // The surface column (kPlaneCol): the quadric solver, the plane fast path,
 // or (kExt only) the quadric's roots refined onto an even asphere.
-constexpr int kSurfPlane = 1, kSurfAsph = 2;
+constexpr int kSurfPlane = 1, kSurfAsph = 2, kSurfFreeform = 3;
 // A dispersive row's two DispModels ride the physics column from bit
 // kDispShift on, two bits a side, in then out (ops/fused_trace.py
 // DISP_SHIFT); only read_row_kinds<true> decodes them.
@@ -466,7 +478,14 @@ struct FlatRowRef {
   __device__ __forceinline__ V3 ts() const { return {r[kTs], r[kTs + 1], r[kTs + 2]}; }
   __device__ __forceinline__ const float* rs() const { return r + kRs; }
   __device__ __forceinline__ const float* asph() const { return r + kAsph; }
+  __device__ __forceinline__ const float* ff() const { return r + kFf; }
 };
+
+// A row's exponent pairs in the freeform side buffer `ffs` ([K][kFfSide]),
+// or null for a row that is not freeform (term count 0).
+__device__ __forceinline__ const int32_t* ff_row_of(const int32_t* ffs, int k) {
+  return ffs[k * kFfSide] > 0 ? ffs + k * kFfSide : nullptr;
+}
 
 // ---- Even aspheres (kExt): geom/surfaces.py::asph_sag, asph_refine,
 // asph_normal.  An asphere row's q holds its base conic (c, c, (1 + k) c,
@@ -647,10 +666,12 @@ struct RowHit {
 // sag), surface-local bound per root, the minimum positive root above the
 // world-scale epsilon, then the volume bound.  The row is a RecRow or a
 // FlatRowRef (a FlatRowRef only with kExt): the same arithmetic on the same
-// values.  kDiff adds the ELLIPSE bound.
-template <bool kPlates, bool kExt, bool kDiff = false, class Row>
+// values.  kDiff adds the ELLIPSE bound.  With kFreeform (which has kExt) a
+// row with exponent pairs `ffp` (ff_row_of; null: not freeform) refines its
+// roots onto its sag (freeform.cuh::ff_refine).
+template <bool kPlates, bool kExt, bool kDiff = false, bool kFreeform = false, class Row>
 __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKinds& kd, V3 p,
-                                                   V3 d) {
+                                                   V3 d, const int32_t* ffp = nullptr) {
   const auto Rw = row.rw();
   const V3 tw = row.tw();
   const V3 o = rot(V3{p.x - tw.x, p.y - tw.y, p.z - tw.z}, Rw);
@@ -684,7 +705,24 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
     v1 = (linear && fabsf(B) >= kSolverEps) || (!linear && hit);
     v2 = v1;
     if constexpr (kExt) {
-      if (kd.asph) {
+      bool ff_row = false;
+      if constexpr (kFreeform) {
+        if (ffp != nullptr) {
+          ff_row = true;
+          const Freeform s = freeform_of(row.q(), row.asph(), row.ff(), ffp);
+          t1 = ff_refine(s, o.x, o.y, o.z, ds.x, ds.y, ds.z, t1, v1, kIntersectEps);
+          // on the solver's linear path (a plane base: every example's
+          // window and plate) both roots are one t with one validity, so
+          // the second refinement would repeat the first bit for bit
+          if (linear) {
+            t2 = t1;
+            v2 = v1;
+          } else {
+            t2 = ff_refine(s, o.x, o.y, o.z, ds.x, ds.y, ds.z, t2, v2, kIntersectEps);
+          }
+        }
+      }
+      if (!ff_row && kd.asph) {
         const Asph s = asph_of(row.q(), row.asph());
         t1 = asph_refine(s, o, ds, t1, v1);
         t2 = asph_refine(s, o, ds, t2, v2);
@@ -725,21 +763,31 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
 }
 
 // Intersect a ray with flat row r (K1, and the adjoints' recompute).
-template <bool kPlates, bool kExt = false, bool kDiff = false>
-__device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& kd, V3 p, V3 d) {
-  return intersect_row_of<kPlates, kExt, kDiff>(FlatRowRef{r}, kd, p, d);
+template <bool kPlates, bool kExt = false, bool kDiff = false, bool kFreeform = false>
+__device__ __forceinline__ RowHit intersect_row(const float* r, const RowKinds& kd, V3 p, V3 d,
+                                                const int32_t* ffp = nullptr) {
+  return intersect_row_of<kPlates, kExt, kDiff, kFreeform>(FlatRowRef{r}, kd, p, d, ffp);
 }
 
 // World-frame unit normal at a surface-frame hit (core/intersect.py::
 // normal_world).  `degen_out`, when given, receives whether the quadric's
 // gradient was degenerate (the normal then defaults to +z).  With kExt an
-// asphere row (`asph`) takes the sag's normal, never degenerate.
-template <bool kExt = false>
+// asphere row (`asph`) takes the sag's normal, never degenerate; with
+// kFreeform a freeform row (`ffp`, its exponent pairs) its sag's.
+template <bool kExt = false, bool kFreeform = false>
 __device__ __forceinline__ V3 world_normal(const float* r, bool plane, V3 hs,
-                                           bool* degen_out = nullptr, bool asph = false) {
+                                           bool* degen_out = nullptr, bool asph = false,
+                                           const int32_t* ffp = nullptr) {
   const float* q = r + kQ;
   const float* Rw = r + kRw;
   if (plane) return {Rw[2], Rw[5], Rw[8]};
+  if constexpr (kFreeform) {
+    if (ffp != nullptr) {
+      V3 nl;
+      ff_normal(freeform_of(q, r + kAsph, r + kFf, ffp), hs.x, hs.y, nl.x, nl.y, nl.z);
+      return rot_t(nl, Rw);
+    }
+  }
   if constexpr (kExt) {
     if (asph) return rot_t(asph_normal(asph_of(q, r + kAsph), hs), Rw);
   }
@@ -1136,9 +1184,12 @@ struct SensorRec {
 // of `cside` ([K][kCoatSide]); with kDiff (which has kCoat) the scan takes
 // the ELLIPSE bound and the winner the diffractive kinds; with kFuzzy (which
 // has kDiff) a winner with a fuzzy program in `fz` (fuzzy.cuh) multiplies
-// its factor by the program's value at its surface-frame hit.
+// its factor by the program's value at its surface-frame hit; with
+// kFreeform (which has kFuzzy) the freeform rows of the side buffer `ffs`
+// ([K][kFfSide]) intersect and take their normals as freeform surfaces.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
+          bool kFreeform = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
@@ -1146,12 +1197,14 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
                                              PhysBranch* br = nullptr, SensorRec* rec = nullptr,
                                              const RayDraw* rd = nullptr,
                                              const float* cside = nullptr,
-                                             const int32_t* fz = nullptr) {
+                                             const int32_t* fz = nullptr,
+                                             const int32_t* ffs = nullptr) {
   static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
   static_assert(kExt || !kFresnel, "the Fresnel kinds read the kinds rows of the flat scan");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
+  static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -1159,7 +1212,8 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
     RowHit h;
     if constexpr (kExt) {
       const RowKinds kk = read_row_kinds<kExt>(knd + k * kKindWidth);
-      h = intersect_row<kPlates, kExt, kDiff>(tab + k * kRowWidth, kk, p, d);
+      h = intersect_row<kPlates, kExt, kDiff, kFreeform>(tab + k * kRowWidth, kk, p, d,
+                                                         kFreeform ? ff_row_of(ffs, k) : nullptr);
       if constexpr (kRecord) {
         if (h.valid && h.t < best_t && kk.sensor) *rec = SensorRec{h.hs, kk.slot};
       }
@@ -1178,7 +1232,15 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   kw = read_row_kinds<kExt, kDispersion, kCoat>(knd + k_win * kKindWidth);
   V3 nd;
   float imod;
-  if constexpr (kCoat) {
+  if constexpr (kFreeform) {
+    const float u = kw.ph == FRESNEL
+                        ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
+                        : 0.0f;
+    apply_physics<kPlates, kExt, kDispersion, true, true, kDiff>(
+        r, kw.ph, kw.sb, kw.map, d,
+        world_normal<kExt, true>(r, kw.plane, hw.hs, degen, kw.asph, ff_row_of(ffs, k_win)),
+        hw.hs, pl, nd, imod, br, kw.dispm, u, kw.coat, cside + k_win * kCoatSide);
+  } else if constexpr (kCoat) {
     const float u = kw.ph == FRESNEL
                         ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
                         : 0.0f;

@@ -8,8 +8,9 @@
 // hit recording), the Fresnel kinds with their pre-drawn uniforms
 // (_chain_pure's u_vals), thin-film coatings and metal mirrors
 // (apply_physics_one's coated and metal branches), the diffractive and
-// ideal elements, and component-style fuzzy apodization (_chain_pure
-// :1623-1625), with every other optional stream off (field, scatter draws).  Its plain
+// ideal elements, component-style fuzzy apodization (_chain_pure
+// :1623-1625) and freeform surfaces (its intersect :1567), with every other
+// optional stream off (field, scatter draws).  Its plain
 // PyTorch version is ops/fused_trace.py::trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
@@ -123,6 +124,16 @@
 // its register file in local memory), as _chain_pure multiplies imod by the
 // callable's value.
 //
+// Freeform surfaces (FreeformLens and ZernikeLens faces) run in one more
+// instantiation, kFreeform, an overload with one more argument (FfSide: the
+// rows' exponent pairs, ops/fused_trace.py::ff_side), built on the one with
+// the fuzzy programs, so every other instantiation keeps its code.  Each
+// block copies the side buffer into shared memory after the programs; a
+// freeform row refines both base-conic roots onto its sag by 8 Newton steps
+// and takes its normal from the sag's gradient (freeform.cuh), as
+// _chain_pure's intersect (:1567) does through raytracetorch_tpu/core/
+// intersect.py:69-79 and :149-156.
+//
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
 // rely on (finite BIG sentinels for misses, +1e-24 under every sqrt, the
@@ -155,14 +166,16 @@ __host__ __device__ constexpr int seq_fwd_min_blocks() {
 
 // The dynamic shared memory of a launch: the flat table, its kinds (16-byte
 // aligned after it), the per-warp moment partials, with `coat` (the
-// instantiation with the coatings) the side buffer, and with the fuzzy
-// programs their `fuzzy_words` words.
+// instantiation with the coatings) the side buffer, with the fuzzy
+// programs their `fuzzy_words` words, and with `freeform` the rows'
+// exponent pairs.
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool coat = false,
-                    int fuzzy_words = 0) {
+                    int fuzzy_words = 0, bool freeform = false) {
   return sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
                           (coat ? static_cast<size_t>(n_rows) * kCoatSide : 0) +
-                          static_cast<size_t>(fuzzy_words));
+                          static_cast<size_t>(fuzzy_words) +
+                          (freeform ? static_cast<size_t>(n_rows) * kFfSide : 0));
 }
 
 // A row's kinds from its 8 ints in shared memory, 16-byte aligned: two
@@ -221,6 +234,12 @@ struct FuzzyProgs {
   int n_words;
 };
 
+// The freeform rows' exponent pairs (kFreeform): [K][kFfSide] int32 words
+// (freeform.cuh's layout).
+struct FfSide {
+  const int32_t* pw;
+};
+
 // The kernel's body, shared by its instantiations (the kernels below).  With
 // kStreams (the instantiation with the streams: plate code, the extended
 // kinds and dispersion) it also accumulates the optical path length n_cur t
@@ -235,9 +254,11 @@ struct FuzzyProgs {
 // of `cs`, copied into shared memory.  With kDiff (which has kCoat) the
 // diffractive and ideal kinds and the ELLIPSE bound.  With kFuzzy (which has
 // kDiff) the rows with a program in `fp` (copied into shared memory after
-// the side buffer) multiply their factor by its value at the hit.
+// the side buffer) multiply their factor by its value at the hit.  With
+// kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
+// memory after the programs) refine their roots onto their sags.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false, bool kFuzzy = false>
+          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -249,11 +270,13 @@ __device__ __forceinline__ void seq_fwd(
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, long long n, StreamOut so,
-    SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0}) {
+    SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0},
+    FfSide ff = {nullptr}) {
   static_assert(kStreams || !kFresnel, "the Fresnel kinds run with the streams");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
+  static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -263,6 +286,7 @@ __device__ __forceinline__ void seq_fwd(
   float* cside = warp_mom + kWarps * n_mom;  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
   int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
+  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -302,6 +326,9 @@ __device__ __forceinline__ void seq_fwd(
   if constexpr (kFuzzy) {
     for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
   }
+  if constexpr (kFreeform) {
+    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
+  }
   __syncthreads();
   if constexpr (kDiff) {
     ellipse_rows(tab, knd, n_rows, tid, kThreads);
@@ -312,8 +339,9 @@ __device__ __forceinline__ void seq_fwd(
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
     const RowKinds kd = read_row_kinds4<kExt, kCoat>(knd4 + 2 * k);
-    const RowHit h = intersect_row<kPlates, kExt, kDiff>(r, kd, p, d);
-    const V3 nw = world_normal<kExt>(r, kd.plane, h.hs, nullptr, kd.asph);
+    const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
+    const RowHit h = intersect_row<kPlates, kExt, kDiff, kFreeform>(r, kd, p, d, ffp);
+    const V3 nw = world_normal<kExt, kFreeform>(r, kd.plane, h.hs, nullptr, kd.asph, ffp);
     V3 nd;
     float imod;
     PhysBranch br = {};
@@ -488,7 +516,18 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs,
   seq_fwd<kPlates, kExt, true, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs, fp);
 }
 
-// The types of the six kernels.
+// The kernel with the streams, the Fresnel kinds, the coatings, the
+// diffractive kinds, the fuzzy programs and the freeform surfaces.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds,
+                     FuzzyProgs fp, FfSide ff) {
+  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
+  seq_fwd<kPlates, kExt, true, true, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs, fp,
+                                                             ff);
+}
+
+// The types of the seven kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
@@ -496,15 +535,20 @@ using FwdCoatKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide
 using FwdDiffKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds);
 using FwdFuzzyKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
                                 FuzzyProgs);
+using FwdFreeformKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
+                                   FuzzyProgs, FfSide);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false, bool kFuzzy = false>
+          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 const void* kernel_fn() {
-  if constexpr (kFuzzy)
+  if constexpr (kFreeform)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFreeformKernel>(trace_seq_fwd_kernel<true, true>));
+  else if constexpr (kFuzzy)
     return reinterpret_cast<const void*>(
         static_cast<FwdFuzzyKernel>(trace_seq_fwd_kernel<true, true>));
   else if constexpr (kDiff)
@@ -526,10 +570,11 @@ const void* kernel_fn() {
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy,
+                                        kFreeform>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -552,8 +597,13 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the diffractive
-// kinds, 8 the one with the fuzzy programs), its shared memory allowed.
+// kinds, 8 the one with the fuzzy programs, 9 the one with the freeform
+// surfaces), its shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 9) {
+    *e = prepare<true, true, true, true, true, true, true, true>(smem);
+    return kernel_fn<true, true, true, true, true, true, true, true>();
+  }
   if (code == 8) {
     *e = prepare<true, true, true, true, true, true, true>(smem);
     return kernel_fn<true, true, true, true, true, true, true>();
@@ -645,7 +695,9 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
 // n_rows * 20 floats of ops/fused_trace.py::coat_side; with it, `diff`
 // nonzero selects the one with the diffractive kinds, and with that `fuzzy`,
 // when not null, the one with the fuzzy programs: its `fuzzy_words` int32
-// words (n_rows to kFuzzyMaxWords; fuzzy.cuh).  Returns a cudaError_t.
+// words (n_rows to kFuzzyMaxWords; fuzzy.cuh); with that `ff_side`, when not
+// null, the one with the freeform surfaces: the rows' n_rows * kFfSide
+// int32 words of exponent pairs (freeform.cuh).  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -654,9 +706,11 @@ extern "C" int rtt_trace_seq_fwd_streams(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
     float* hit_w, const float* uniforms, int n_draws, int fresnel, const float* coat_side,
-    int diff, const int32_t* fuzzy, int fuzzy_words, long long n, void* stream) {
+    int diff, const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, long long n,
+    void* stream) {
   if (n <= 0) return 0;
   if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
     return static_cast<int>(cudaErrorInvalidValue);
   if (fuzzy == nullptr) fuzzy_words = 0;
@@ -669,17 +723,17 @@ extern "C" int rtt_trace_seq_fwd_streams(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem =
-      shared_bytes(n_rows, n_slots, n_bundles, coat_side != nullptr, fuzzy_words);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, coat_side != nullptr,
+                                  fuzzy_words, ff_side != nullptr);
   const StreamOut so = {opl, n_final, paths, hits, hit_w, nullptr};
-  // one launch for the five instantiations: the Fresnel kernel's overload
+  // one launch for the six instantiations: the Fresnel kernel's overload
   // takes the draws as its last argument, the coated one the draws and the
   // side buffer, the diffractive one those and its tag, the fuzzy one those
-  // and the programs
+  // and the programs, the freeform one those and the exponent pairs
   auto go = [&](auto... draws) {
     const cudaError_t e =
         prepare<true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
-                sizeof...(draws) >= 3, sizeof...(draws) == 4>(smem);
+                sizeof...(draws) >= 3, sizeof...(draws) >= 4, sizeof...(draws) == 5>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     trace_seq_fwd_kernel<true, true>
         <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -688,6 +742,9 @@ extern "C" int rtt_trace_seq_fwd_streams(
             maps, map_desc, wavelength, n, so, draws...);
     return static_cast<int>(cudaGetLastError());
   };
+  if (ff_side != nullptr)
+    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
+              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
   if (fuzzy != nullptr)
     return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
               FuzzyProgs{fuzzy, fuzzy_words});
@@ -704,13 +761,14 @@ extern "C" int rtt_trace_seq_fwd_streams(
 // with it and the extended kinds, 4 the instantiation with the streams, 5
 // the one with the Fresnel kinds, 6 the one with the coatings, 7 the one
 // with the diffractive kinds, 8 the one with the fuzzy programs (of
-// `fuzzy_words` words).  Returns a cudaError_t.
+// `fuzzy_words` words), 9 the one with the freeform surfaces (and programs
+// of `fuzzy_words` words).  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int fuzzy_words,
                                            int* blocks) {
   (void)n_bounces;
-  const size_t smem =
-      shared_bytes(n_rows, n_slots, n_bundles, code >= 6, code == 8 ? fuzzy_words : 0);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 6,
+                                   code >= 8 ? fuzzy_words : 0, code == 9);
   cudaError_t e;
   const void* fn = kernel_of(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);

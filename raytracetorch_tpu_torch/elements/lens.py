@@ -1,9 +1,11 @@
 """Thick lenses: the spherical singlet, doublet and triplet, the cylindrical
-singlet and the even-asphere singlet.
+singlet, the even-asphere singlet, the freeform and Zernike singlets, and
+the wedge prism.
 
 Counterpart of ``raytracetorch_tpu/elements/lens.py`` (``_SphericLens``,
-``SingletLens``, ``DoubletLens``, ``TripletLens``, ``CylSingletLens`` and
-``AsphericLens``; freeform lenses are ROADMAP Queue 1 item 14).  Optical
+``SingletLens``, ``DoubletLens``, ``TripletLens``, ``CylSingletLens``,
+``AsphericLens``, ``FreeformLens``, ``ZernikeLens`` and ``WedgePrism``).
+Optical
 faces are hemisphere-clipped quadrics bounded by the lens aperture; the edges
 are cylinders bounded between the adjacent faces' sag heights (a cylindrical
 lens: four side planes bounded between the faces' y-dependent sags).  Each
@@ -23,10 +25,12 @@ import math
 
 import torch
 
-from ..constants import MAX_COAT_LAYERS, DispModel, PhysKind, SBKind, VBKind
+from ..constants import (MAX_COAT_LAYERS, MAX_FF_TERMS, DispModel, PhysKind,
+                         SBKind, VBKind)
 from ..core.table import SurfaceRec
 from ..geom.surfaces import q_cylinder, q_plane, q_quadric, q_quadric_zy, sag_z
 from ..geom.transform import mm, rodrigues
+from ..geom.zernike import zernike_monomial_map
 from ..utils.coatings import parse_coating_entries
 from .base import Element, compose_world, frame_params, zvec
 from .ideal import paraxial_refract_mat
@@ -650,4 +654,197 @@ class AsphericLens(SingletLens):
             q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
             vb_kind=VBKind.Z_BETWEEN, vb=(z_lo, z_hi),
             ph_kind=edge_kind, ph=edge_ph))
+        return recs
+
+
+class FreeformLens(AsphericLens):
+    """Singlet whose faces add an XY-polynomial freeform sag to the conic and
+    even-asphere base: S(x, y) = conic(r^2) + sum a_k r^(2k+4) + sum_m c_m
+    x^i y^j.  ``xy1`` / ``xy2`` give each face's terms as (i, j, coeff)
+    triples: the exponent pairs are static (they pick the polynomial), the
+    coefficients parameters (``xy1_grad=True`` trains the face's whole
+    coefficient vector).  The intersection is 8 Newton steps from the base
+    conic's root (geom/surfaces.py::ff_refine) and the normal the sag's
+    gradient's, so refraction differentiates in every coefficient."""
+
+    def __init__(self, c1, c2, d, t, ior_glass, ior_media=1.0,
+                 k1=0.0, k2=0.0, a1=(), a2=(), xy1=(), xy2=(),
+                 xy1_grad=False, xy2_grad=False, name='freeform', **kw):
+        super().__init__(c1, c2, d, t, ior_glass, ior_media=ior_media,
+                         k1=k1, k2=k2, a1=a1, a2=a2, name=name, **kw)
+
+        def split(xy, label):
+            terms = [(int(i), int(j), float(v)) for i, j, v in xy]
+            if len(terms) > MAX_FF_TERMS:
+                raise ValueError(
+                    f"{label}: at most {MAX_FF_TERMS} freeform terms "
+                    f"per face (got {len(terms)})")
+            for i, j, _ in terms:
+                if i < 0 or j < 0 or i + j < 1:
+                    raise ValueError(
+                        f"{label}: exponents must be >= 0 with i+j >= 1 "
+                        f"(got ({i}, {j}); piston belongs in translation)")
+            return (tuple((i, j) for i, j, _ in terms),
+                    [v for _, _, v in terms])
+
+        pw1, v1 = split(xy1, 'xy1')
+        pw2, v2 = split(xy2, 'xy2')
+        self._ff_powers = (pw1, pw2)
+        if pw1:
+            self._init.update(xy1=v1)
+            self._grads.update(xy1=xy1_grad)
+        if pw2:
+            self._init.update(xy2=v2)
+            self._grads.update(xy2=xy2_grad)
+
+    def param_scales(self):
+        """``AsphericLens.param_scales`` and r_aperture^-(i+j) for each
+        freeform term."""
+        scales = super().param_scales()
+        r = self._init['radius']
+        for key, pw in zip(('xy1', 'xy2'), self._ff_powers):
+            if pw:
+                scales[key] = [r ** -(i + j) for i, j in pw]
+        return scales
+
+    def build(self, p):
+        recs = super().build(p)
+        for face, (key, pw) in enumerate(zip(('xy1', 'xy2'),
+                                             self._ff_powers)):
+            if pw:
+                recs[face].ff = tuple(p[key][m] for m in range(len(pw)))
+                recs[face].ff_powers = pw
+        return recs
+
+
+class ZernikeLens(AsphericLens):
+    """Singlet whose faces add a Zernike sag to the conic and even-asphere
+    base: S(x, y) = conic(r^2) + sum a_k r^(2k+4) + sum z_j Z_j(x/R_n,
+    y/R_n).  ``z1`` / ``z2`` give each face's terms as (j, coeff) pairs in
+    Noll indexing (as utils/wavefront.py::zernike_fit), unnormalized sag
+    amplitudes over ``norm_radius`` (default: the semi-diameter).  Each term
+    is expanded on the host into exact monomials (geom/zernike.py), so the
+    surface traces as a freeform, while the parameters stay in the Zernike
+    basis: ``build`` applies the static basis change."""
+
+    def __init__(self, c1, c2, d, t, ior_glass, ior_media=1.0,
+                 k1=0.0, k2=0.0, a1=(), a2=(), z1=(), z2=(),
+                 z1_grad=False, z2_grad=False, norm_radius=None,
+                 name='zernike', **kw):
+        super().__init__(c1, c2, d, t, ior_glass, ior_media=ior_media,
+                         k1=k1, k2=k2, a1=a1, a2=a2, name=name, **kw)
+        rn = float(d) / 2.0 if norm_radius is None else float(norm_radius)
+        if rn <= 0.0:
+            raise ValueError(f"norm_radius must be positive, got {rn}")
+        self._norm_radius = rn
+
+        def split(terms, label):
+            idx, vals = [], []
+            for j, v in terms:
+                j = int(j)
+                if j < 2:
+                    raise ValueError(
+                        f"{label}: piston (Noll j=1) is a pure z offset, "
+                        "not a surface shape — use translation")
+                if j in idx:
+                    raise ValueError(f"{label}: duplicate Noll index {j}")
+                idx.append(j)
+                vals.append(float(v))
+            if not idx:
+                return [], None
+            powers, M = zernike_monomial_map(tuple(idx), rn)
+            if len(powers) > MAX_FF_TERMS:
+                raise ValueError(
+                    f"{label}: Zernike set spans {len(powers)} monomials "
+                    f"(> MAX_FF_TERMS={MAX_FF_TERMS}); use fewer / "
+                    "lower-order terms")
+            return vals, (powers, M)
+
+        v1, m1 = split(z1, 'z1')
+        v2, m2 = split(z2, 'z2')
+        self._zern_maps = (m1, m2)
+        if m1:
+            self._init.update(z1=v1)
+            self._grads.update(z1=z1_grad)
+        if m2:
+            self._init.update(z2=v2)
+            self._grads.update(z2=z2_grad)
+
+    def param_scales(self):
+        """``AsphericLens.param_scales`` and 1 for each Zernike coefficient
+        (already a rim-sag amplitude in length units)."""
+        scales = super().param_scales()
+        for key in ('z1', 'z2'):
+            if key in self._init:
+                scales[key] = [1.0] * len(self._init[key])
+        return scales
+
+    def build(self, p):
+        recs = super().build(p)
+        for face, (key, zm) in enumerate(zip(('z1', 'z2'),
+                                             self._zern_maps)):
+            if zm:
+                powers, M = zm
+                z = p[key]
+                ff = []
+                # the static basis change as unrolled scalar multiply-adds
+                # in the JAX package's order; autograd carries z's gradient
+                # into the row's ff columns
+                for row in M:
+                    acc = None
+                    for k, w in enumerate(row):
+                        if w != 0.0:
+                            term = w * z[k]
+                            acc = term if acc is None else acc + term
+                    ff.append(acc if acc is not None else 0.0 * z[0])
+                recs[face].ff = tuple(ff)
+                recs[face].ff_powers = powers
+        return recs
+
+
+class WedgePrism(Element):
+    """Thin wedge prism: a flat entrance face and an exit face tilted by
+    ``wedge_angle`` about x, refracting with the glass index: two SNELL
+    planes.  The small-angle deviation is (n - 1) * wedge_angle."""
+
+    def __init__(self, wedge_angle, d, t, ior_glass, ior_media=1.0,
+                 wedge_angle_grad=False, ior_glass_grad=False,
+                 name='wedge', **kw):
+        super().__init__(name=name, **kw)
+        self._init = dict(wedge_angle=float(wedge_angle), radius=d / 2.0,
+                          t=float(t), ior_glass=float(ior_glass),
+                          ior_media=float(ior_media))
+        self._grads = dict(wedge_angle=wedge_angle_grad, radius=False,
+                           t=False, ior_glass=ior_glass_grad,
+                           ior_media=False)
+
+    @property
+    def n_surfaces(self):
+        return 2
+
+    def extra_params(self):
+        return dict(self._init)
+
+    def extra_trainable(self):
+        return dict(self._grads)
+
+    def build(self, p):
+        Re, te = frame_params(p)
+        r2 = p['radius'] ** 2
+        zero = p['t'] * 0.0
+        q, sign = q_plane(dtype=te.dtype, device=te.device)
+        recs = []
+        # entrance face: the plane at -t/2, normal +z (into the glass)
+        Rw, tw, Rs, ts = compose_world(Re, te, None, zvec(-p['t'] / 2.0))
+        recs.append(SurfaceRec(
+            q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
+            sb_kind=SBKind.DISK, sb=(r2,), is_plane=True,
+            ph_kind=PhysKind.SNELL, ph=(p['ior_glass'], p['ior_media'])))
+        # exit face: the plane at +t/2 tilted about x by the wedge angle
+        Rt = rodrigues(torch.stack([p['wedge_angle'], zero, zero]))
+        Rw, tw, Rs, ts = compose_world(Re, te, Rt, zvec(p['t'] / 2.0))
+        recs.append(SurfaceRec(
+            q=q, n_sign=sign, Rw=Rw, tw=tw, Rs=Rs, ts=ts,
+            sb_kind=SBKind.DISK, sb=(r2,), is_plane=True,
+            ph_kind=PhysKind.SNELL, ph=(p['ior_media'], p['ior_glass'])))
         return recs

@@ -1,8 +1,8 @@
 """Quadric surface coefficients and the branchless intersection solver.
 
 Counterpart of ``raytracetorch_tpu/geom/surfaces.py`` (the quadric
-families and the even asphere; the freeform refinement is ROADMAP Queue 1
-item 12).  Every family is a diagonal implicit quadric
+families, the even asphere and the XY-polynomial freeform).  Every family is
+a diagonal implicit quadric
 
     F(p) = qx*x^2 + qy*y^2 + qz*z^2 + lz*z + q0 = 0
 
@@ -10,7 +10,9 @@ with the encodings PLANE (0, 0, 0, -2, 0) n_sign -1, CYLINDER(R)
 (1, 1, 0, 0, -R^2) n_sign +1, QUADRIC(c, k) (c, c, c(1+k), -2, 0) n_sign -1,
 QUADRIC_ZY(c, k) (0, c, c(1+k), -2, 0) n_sign -1 (curvature in y only: a
 cylindrical lens face).  An even asphere starts from its base conic's roots
-and refines each onto the sag ``asph_sag`` (``asph_refine``).
+and refines each onto the sag ``asph_sag`` (``asph_refine``); a freeform
+surface, conic + even asphere + sum_m c_m x^i y^j, onto its sag by 8 Newton
+steps (``ff_refine``), its normal from the sag's gradient (``ff_normal``).
 
 Misses carry finite ``(t, valid)`` sentinels, never inf, and every sqrt is
 double-where'd with ``+1e-24`` inside, so forward and backward stay NaN-free.
@@ -208,3 +210,88 @@ def asph_normal(c, kc2, coeffs, p_local):
     gz = torch.ones_like(z)
     inv = 1.0 / torch.sqrt(gx * gx + gy * gy + gz * gz + 1e-24)
     return gx * inv, gy * inv, gz * inv
+
+
+# ---------------------------------------------------------------------------
+# Freeform (XY-polynomial) surfaces
+# ---------------------------------------------------------------------------
+
+FF_STEPS = 8          # Newton steps of ff_refine
+
+
+def _ipow(v, n):
+    """v**n for a small static integer n, as the multiply chain ``out = out
+    * v`` from the left (the kernels keep the same chain: csrc/freeform.cuh);
+    ones for n = 0."""
+    out = None
+    for _ in range(int(n)):
+        out = v if out is None else out * v
+    return out if out is not None else torch.ones_like(v)
+
+
+def ff_sag_grad(c, kc2, asph_coeffs, powers, ff_coeffs, x, y):
+    """Freeform sag and its partials ``(S, dS/dx, dS/dy)``.
+
+    S(x, y) = conic(r^2) + even asphere(r^2) + sum_m c_m x^i_m y^j_m, with
+    ``powers`` the static (i, j) exponent pairs and ``ff_coeffs`` their
+    coefficients, summed in ``powers`` order after the radial part (another
+    order is another float32 result)."""
+    r2 = x * x + y * y
+    term = torch.clamp(1.0 - kc2 * r2, min=0.0)
+    sq = torch.sqrt(term + 1e-24)
+    den1 = 1.0 + sq
+    sag = c * r2 / den1
+    dsag = c / den1 + c * r2 * kc2 / (2.0 * sq * (den1 * den1))
+    rp, i = r2 * r2, 2.0
+    drp = r2
+    for a in asph_coeffs:
+        sag = sag + a * rp
+        dsag = dsag + i * a * drp
+        rp = rp * r2
+        drp = drp * r2
+        i = i + 1.0
+    gx = 2.0 * x * dsag
+    gy = 2.0 * y * dsag
+    for (pi, pj), cm in zip(powers, ff_coeffs):
+        xi = _ipow(x, pi)
+        yj = _ipow(y, pj)
+        sag = sag + cm * xi * yj
+        if pi > 0:
+            gx = gx + cm * float(pi) * _ipow(x, pi - 1) * yj
+        if pj > 0:
+            gy = gy + cm * float(pj) * xi * _ipow(y, pj - 1)
+    return sag, gx, gy
+
+
+def ff_refine(c, kc2, asph_coeffs, powers, ff_coeffs, o, d, t0, valid,
+              n_iter=FF_STEPS):
+    """Refine a base-conic root ``t0`` onto the freeform surface:
+    ``n_iter`` Newton steps ``t -= G / G'`` with G = z - S(x, y) and G' =
+    d_z - S_x d_x - S_y d_y (held off zero at 1e-12, keeping its sign),
+    differentiable through every step.  Returns ``(t, valid)``: a root
+    stays valid where |G| < 1e-4 after the steps and t > INTERSECT_EPS."""
+    def g_dg(t):
+        x = o[0] + t * d[0]
+        y = o[1] + t * d[1]
+        z = o[2] + t * d[2]
+        sag, gx, gy = ff_sag_grad(c, kc2, asph_coeffs, powers, ff_coeffs,
+                                  x, y)
+        return z - sag, d[2] - gx * d[0] - gy * d[1]
+
+    t = t0
+    for _ in range(n_iter):
+        g, dg = g_dg(t)
+        dg = torch.where(torch.abs(dg) < 1e-12,
+                         torch.where(dg < 0, -1e-12, 1e-12), dg)
+        t = t - g / dg
+    g, _ = g_dg(t)
+    return t, valid & (torch.abs(g) < 1e-4) & (t > INTERSECT_EPS)
+
+
+def ff_normal(c, kc2, asph_coeffs, powers, ff_coeffs, p_local):
+    """Unit normal of the freeform surface at a surface-frame point, +z at
+    the vertex: (-S_x, -S_y, 1) / |.|."""
+    x, y, _ = p_local
+    _, gx, gy = ff_sag_grad(c, kc2, asph_coeffs, powers, ff_coeffs, x, y)
+    inv = 1.0 / torch.sqrt(gx * gx + gy * gy + 1.0 + 1e-24)
+    return -gx * inv, -gy * inv, torch.ones_like(x) * inv

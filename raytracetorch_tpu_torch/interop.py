@@ -8,7 +8,10 @@ The parity tests build inputs once (with numpy, or with the JAX package and
 - ``table_from_numpy``: a SurfaceTable with array leaves (or a dict of its
   fields) -> the port's SurfaceTable;
 - ``rays_from_numpy``: a Rays batch with array leaves (or a dict) -> Rays;
-- ``meta_from_slots``: the JAX package's StaticRowMeta list -> the port's.
+- ``meta_from_slots``: the JAX package's StaticRowMeta list -> the port's,
+  slot by slot (a freeform row's exponent pairs ride ``ff``; the freeform
+  and Zernike lenses' ``xy1``/``xy2``/``z1``/``z2`` leaves are arrays of
+  ``params_from_numpy`` like any other).
 
 This module never imports jax: it reads attributes and arrays only.
 """

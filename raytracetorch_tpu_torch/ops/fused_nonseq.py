@@ -56,7 +56,15 @@ The kernels' notes are in their sources.  In this module:
   the callables in a ``fused_trace.TraceMeta``, their programs' buffer
   ``fused_trace.fuzzy_buffer``; ``fused_trace.FUZZY_LAUNCHES``): a fuzzy
   winner's factor is multiplied by its program's value, in K5 and K6's
-  replay alike.
+  replay alike; and freeform surfaces the one built on that
+  (``fused_trace.freeform_kinds``, the exponent pairs
+  ``fused_trace.ff_side``; ``fused_trace.FREEFORM_LAUNCHES``): the scan
+  refines a freeform row's roots onto its sag, in K5 and K6's replay alike.
+- K6's instantiation with freeform surfaces keeps 32 ff columns a row in
+  its warp slots beside its checkpoints, in at most ``MAX_SHARED_BYTES``
+  of shared memory a block: a freeform table that needs more (about 32
+  rows at 13 checkpoints) raises NotImplementedError when it would run
+  backward (``check_freeform_shared``), on either device.
 - K5 and K6 keep each thread's moment sums of at most ``MAX_MOMENT_PAIRS``
   (64) (slot, bundle) pairs (in local memory, the bucket of 64 of
   csrc/trace_nonseq_fwd.cu): a scene with more raises NotImplementedError
@@ -74,11 +82,13 @@ from ..core.table import FlatRow
 from ..core.trace import Streams, bounce_loop
 from ..rays.draws import NonseqDraws, needs_draws, nonseq_draws
 from . import fused_trace
-from .fused_trace import (COMPS, NO_STREAMS, StreamFlags, THREADS,
+from .fused_trace import (COAT_SIDE, COMPS, FF_SIDE, NO_STREAMS,
+                          StreamFlags, THREADS,
                           backward_result, check_cotangents, check_inputs,
                           check_streams, coat_ptr, coat_side,
                           diffractive_kinds, dispersive, dispersive_kinds,
-                          ext_kinds, ext_maps, flat_inputs,
+                          ext_kinds, ext_maps, ff_ptr, ff_side,
+                          flat_inputs, freeform_kinds,
                           fresnel_kinds, fused_forward, fuzzy_args,
                           fuzzy_buffer, TraceMeta,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
@@ -91,6 +101,10 @@ NONSEQ_LAUNCHES = 0       # kernel launches by trace_nonseq_fwd_cuda (K5)
 NONSEQ_BWD_LAUNCHES = 0   # kernel launches by trace_nonseq_bwd_cuda (K6)
 # the (slot, bundle) pairs whose moment sums a thread of K5 and K6 holds
 MAX_MOMENT_PAIRS = 64
+# the shared memory a block may take on an H100 (227 KB), and K6's
+# checkpointed bounces (kCkpt) of 9 words (the path length's instantiations)
+MAX_SHARED_BYTES = 227 * 1024
+K6_CHECKPOINTS, K6_STATE_WORDS = 13, 9
 
 
 def check_moment_pairs(cfg: SensorConfig):
@@ -103,6 +117,33 @@ def check_moment_pairs(cfg: SensorConfig):
             f'{MAX_MOMENT_PAIRS} (sensor slot, bundle) moment sums per ray; '
             f'got {max(cfg.n_sensors, 1)} slots x {cfg.n_bundles} bundles '
             f'= {pairs} (ROADMAP Queue 2 I): use Scene.simulate')
+
+
+def freeform_k6_shared_bytes(static_meta, cfg: SensorConfig, n_bounces):
+    """The shared memory of K6's instantiation with freeform surfaces
+    (csrc/trace_nonseq_bwd.cu::shared_bytes): per row its table, kinds, side
+    buffer and exponent pairs and its warp slots of the 32 ff columns
+    (``grad_cols``), the programs' words, the moment cotangent and the
+    checkpoints."""
+    k = len(static_meta)
+    cols = len(grad_cols((), True, dispersive(static_meta), True, True, True))
+    ck = min(max(n_bounces, 1), K6_CHECKPOINTS)
+    words = len(getattr(static_meta, 'words', None) or ()) or k
+    return 4 * (k * (160 + 8 + COAT_SIDE + FF_SIDE) + words
+                + max(cfg.n_sensors, 1) * cfg.n_bundles * N_MOMENTS
+                + 8 * k * cols + ck * K6_STATE_WORDS * THREADS)
+
+
+def check_freeform_shared(static_meta, cfg: SensorConfig, n_bounces):
+    """Raise NotImplementedError when K6's instantiation with freeform
+    surfaces would need more than MAX_SHARED_BYTES a block."""
+    need = freeform_k6_shared_bytes(static_meta, cfg, n_bounces)
+    if need > MAX_SHARED_BYTES:
+        raise NotImplementedError(
+            f'the fused non-sequential backward (K6) with freeform surfaces '
+            f'takes at most MAX_SHARED_BYTES = {MAX_SHARED_BYTES} bytes of '
+            f'shared memory a block; this table of {len(static_meta)} rows '
+            f'at {n_bounces} bounces needs {need}')
 
 
 def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
@@ -129,6 +170,8 @@ def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
     maps = plate_maps(static_meta, grids)
     comps = [getattr(rays, c) for c in COMPS]
     if needs_grad(flat, rays, maps):
+        if freeform_kinds(static_meta):
+            check_freeform_shared(static_meta, cfg, n_bounces)
         if flags.any or key is not None:
             outs = FusedNonseqStreams.apply(
                 flat, kinds, cfg, static_meta, flags, n_bounces, key,
@@ -160,7 +203,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
                                  fresnel=fresnel_kinds(static_meta), key=key,
                                  coat=coat_side(static_meta, flat.device),
                                  diff=diffractive_kinds(static_meta),
-                                 fuzzy=fuzzy_buffer(static_meta, flat.device))
+                                 fuzzy=fuzzy_buffer(static_meta, flat.device),
+                                 ff=ff_side(static_meta, flat.device))
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -255,7 +299,8 @@ def _nonseq_backward(ctx, grads, need):
             opl=ctx.flags.track_opl, fresnel=fresnel_kinds(ctx.meta),
             key=ctx.draws, coat=coat_side(ctx.meta, flat.device),
             diff=diffractive_kinds(ctx.meta),
-            fuzzy=fuzzy_buffer(ctx.meta, flat.device))
+            fuzzy=fuzzy_buffer(ctx.meta, flat.device),
+            ff=ff_side(ctx.meta, flat.device))
     else:
         res = trace_nonseq_bwd_plain(
             flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
@@ -335,7 +380,7 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, maps=None, ext=False, track_opl=False,
                           record_paths=False, record_hits=False,
                           fresnel=False, key=None, coat=None, diff=False,
-                          fuzzy=None):
+                          fuzzy=None, ff=None):
     """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -353,8 +398,8 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     kinds and the streams; ``diff`` (``fused_trace.diffractive_kinds``) the
     one with the diffractive kinds, built on it, which reads ``coat``;
     ``fuzzy`` as for ``fused_trace.trace_seq_fwd_cuda`` (the one with fuzzy
-    programs).  More than MAX_MOMENT_PAIRS slots x bundles raise
-    NotImplementedError."""
+    programs), and ``ff`` too (the one with freeform surfaces).  More than
+    MAX_MOMENT_PAIRS slots x bundles raise NotImplementedError."""
     global NONSEQ_LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     device, k, n, n_slots, n_bundles = check_inputs(
@@ -363,7 +408,7 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     _check_bounces(n_bounces)
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
-    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy)
+    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -391,7 +436,9 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        if fuzzy is not None:
+        if ff is not None:
+            fused_trace.FREEFORM_LAUNCHES += 1
+        elif fuzzy is not None:
             fused_trace.FUZZY_LAUNCHES += 1
         elif diff:
             fused_trace.DIFF_LAUNCHES += 1
@@ -416,7 +463,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           maps=None, need_maps=True, ext=False, disp=None,
                           need_wavelength=False, g_opl=None, g_nfinal=None,
                           opl=False, fresnel=False, key=None, coat=None,
-                          diff=False, fuzzy=None):
+                          diff=False, fuzzy=None, ff=None):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
@@ -441,7 +488,8 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     thicknesses', ``fused_trace.COAT_GRAD_COLS``), and ``diff`` too (the
     one with the diffractive kinds, which adds a DOE row's coefficients',
     ``fused_trace.FF_GRAD_COLS``), and ``fuzzy`` too (the one with fuzzy
-    programs)."""
+    programs), and ``ff`` too (the one with freeform surfaces, which adds
+    all 32 ff columns' cotangents, ``fused_trace.FF_TERM_COLS``)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
@@ -449,7 +497,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     _check_bounces(n_bounces)
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
-    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy)
+    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
     ext = ext or need_wavelength or opl or fresnel
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
@@ -457,7 +505,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
     g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
-    cols = grad_cols(plates, ext, disp, coat is not None, diff)
+    cols = grad_cols(plates, ext, disp, coat is not None, diff, ff is not None)
 
     def streams(wanted):
         return ([torch.empty(n, dtype=torch.float32, device=device)
@@ -491,7 +539,9 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        if fuzzy is not None:
+        if ff is not None:
+            fused_trace.FREEFORM_LAUNCHES += 1
+        elif fuzzy is not None:
             fused_trace.FUZZY_LAUNCHES += 1
         elif diff:
             fused_trace.DIFF_LAUNCHES += 1
@@ -511,20 +561,22 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
 
 
 def _key_args(fresnel, key, coat=None, k=0, device=None, diff=False,
-              fuzzy=None):
-    """The Philox key, Fresnel, coating, diffractive and fuzzy C arguments
-    of K5's and K6's instantiation with the streams: the key's two words (0
-    when no row draws), whether to run the instantiation with the Fresnel
-    kinds, the ``[K, 20]`` side buffer ``coat`` (null: not the one with the
-    coatings), whether to run the one with the diffractive kinds, and the
-    program buffer ``fuzzy`` and its words (null, 0: not the one with fuzzy
-    programs)."""
+              fuzzy=None, ff=None):
+    """The Philox key, Fresnel, coating, diffractive, fuzzy and freeform C
+    arguments of K5's and K6's instantiation with the streams: the key's two
+    words (0 when no row draws), whether to run the instantiation with the
+    Fresnel kinds, the ``[K, 20]`` side buffer ``coat`` (null: not the one
+    with the coatings), whether to run the one with the diffractive kinds,
+    the program buffer ``fuzzy`` and its words (null, 0: not the one with
+    fuzzy programs) and the exponent pairs ``ff`` (null: not the one with
+    freeform surfaces)."""
     if key is not None and not fresnel:
         raise ValueError('a Philox key is read only by the instantiation '
                          'with the Fresnel kinds')
     k0, k1 = key if key is not None else (0, 0)
     return (int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF, int(fresnel),
-            *coat_ptr(coat, k, device, diff), *fuzzy_args(fuzzy, k, device))
+            *coat_ptr(coat, k, device, diff), *fuzzy_args(fuzzy, k, device),
+            ff_ptr(ff, k, device, fuzzy))
 
 
 def _check_bounces(n_bounces):

@@ -116,6 +116,17 @@ module:
   with the program's forward-mode partials.  The plain versions call the
   callables themselves.  A callable outside the op set or its limits, or a
   legacy ``[N, 3]`` one, raises NotImplementedError on either device.
+- Freeform surfaces (``FreeformLens`` and ``ZernikeLens`` faces, a row
+  with ``meta.ff``; ``freeform_kinds``) run in one more instantiation of
+  each of K1, K2, K5 and K6, built on the one with fuzzy programs (so it
+  takes every kind and stream that one takes; its program buffer holds a
+  -1 per row on a table without a callable, its side buffer zeros on a
+  table without a coating); its launches count in ``FREEFORM_LAUNCHES``,
+  not in ``FUZZY_LAUNCHES``.  A freeform row's kinds row has the surface
+  ``SURF_FREEFORM``, its exponent pairs ride a ``[K, FF_SIDE]`` int32 side
+  buffer (``ff_side``) and its coefficients its ``ff`` columns; K2 and K6
+  reduce 32 ``ff`` columns a row (``FF_TERM_COLS``) in place of a DOE
+  row's 8.  ``trace_sequential_v1`` routes a freeform table there too.
 - The kernels take up to ``MAX_BUNDLES`` (18) bundles, the JAX kernels'
   limit (n_bundles * 7 <= 128).  K5 and K6 keep per-thread moment sums of
   at most 64 (slot, bundle) pairs: more raise NotImplementedError
@@ -134,7 +145,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..constants import PhysKind, SBKind, VBKind
+from ..constants import MAX_FF_TERMS, PhysKind, SBKind, VBKind
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.static_dispatch import (DIFFRACTIVE_KINDS, FRESNEL_KINDS,
                                     coat_acts, unsupported)
@@ -168,12 +179,20 @@ DIFF_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with fuzzy programs
 FUZZY_LAUNCHES = 0
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with freeform surfaces
+FREEFORM_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
 # the surface column: the quadric solver, the plane fast path, or the
-# quadric's roots refined onto an even asphere
-SURF_QUADRIC, SURF_PLANE, SURF_ASPHERE = 0, 1, 2
+# quadric's roots refined onto an even asphere or a freeform sag
+SURF_QUADRIC, SURF_PLANE, SURF_ASPHERE, SURF_FREEFORM = 0, 1, 2, 3
+# A freeform row's exponent pairs, in a side buffer of FF_SIDE int32 words a
+# row (csrc/freeform.cuh): the term count (0: not a freeform row), then each
+# pair packed as i | j << 16, so an exponent is at most FF_MAX_EXPONENT.
+FF_SIDE = 1 + MAX_FF_TERMS
+FF_MAX_EXPONENT = 0xffff
 # A dispersive row's two DispModels ride the physics column: the in side's
 # in bits DISP_SHIFT and DISP_SHIFT + 1, the out side's in the two above
 # (only the instantiations that take dispersion read them).
@@ -228,6 +247,12 @@ COAT_GRAD_COLS = tuple(ROW_OFFSETS['coat'] + 2 * j + 1 for j in range(8))
 # rows).  LINEAR's, GRATING's and MLA's parameters ph[0:6] are already among
 # the columns.
 FF_GRAD_COLS = tuple(ROW_OFFSETS['ff'] + j for j in range(8))
+# The instantiation with freeform surfaces reduces all MAX_FF_TERMS ff
+# columns in their place (a freeform row's coefficients, a DOE row's in the
+# first 8): a Zernike plate of Noll terms 4..28 spans 28 monomials.  Its
+# base conic and even-asphere terms reach q[0], q[2] and asph[0:4], already
+# among the columns.
+FF_TERM_COLS = tuple(ROW_OFFSETS['ff'] + j for j in range(MAX_FF_TERMS))
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
@@ -246,15 +271,16 @@ _OPL = [_P, _P]
 # run that instantiation: K1's and K2's [F, N] uniform streams and their
 # count F; K5's and K6's two Philox seed words; then the coated rows' side
 # buffer (null: not the instantiation with the coatings), whether to run
-# the instantiation with the diffractive kinds, and the fuzzy programs'
-# buffer and its words (null, 0: not the instantiation with them)
-_UNIFORMS = [_P, _I, _I, _P, _I, _P, _I]
-_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I, _P, _I]
+# the instantiation with the diffractive kinds, the fuzzy programs' buffer
+# and its words (null, 0: not the instantiation with them) and the freeform
+# rows' exponent pairs (null: not the instantiation with them)
+_UNIFORMS = [_P, _I, _I, _P, _I, _P, _I, _P]
+_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I, _P, _I, _P]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
 # or the path length, 5 the Fresnel kinds, 6 the coatings, 7 the diffractive
-# kinds, 8 the fuzzy programs), the programs' words, out: resident blocks
-# per SM
+# kinds, 8 the fuzzy programs, 9 the freeform surfaces), the programs'
+# words, out: resident blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
@@ -348,6 +374,37 @@ def fuzzy_kinds(static_meta):
     return bool(getattr(static_meta, 'fuzzy', None))
 
 
+def freeform_kinds(static_meta):
+    """Whether a row is a freeform surface (``meta.ff``), which only the
+    kernels' instantiation with freeform surfaces takes."""
+    return any(m.ff for m in static_meta)
+
+
+def ff_side(static_meta, device):
+    """The ``[K, FF_SIDE]`` int32 side buffer of the instantiation with
+    freeform surfaces: per row its term count and its exponent pairs packed
+    as ``i | j << 16`` (zeros for a row that is not freeform); None when no
+    row is freeform.  An exponent above FF_MAX_EXPONENT raises
+    NotImplementedError."""
+    if not freeform_kinds(static_meta):
+        return None
+    rows = []
+    for k, m in enumerate(static_meta):
+        pw = m.ff or ()
+        if len(pw) > MAX_FF_TERMS:
+            raise NotImplementedError(
+                f'row {k}: {len(pw)} freeform terms, over MAX_FF_TERMS = '
+                f'{MAX_FF_TERMS}')
+        if any(not 0 <= e <= FF_MAX_EXPONENT for ij in pw for e in ij):
+            raise NotImplementedError(
+                f'row {k}: a freeform exponent outside 0..FF_MAX_EXPONENT '
+                f'= {FF_MAX_EXPONENT} (the side buffer packs each pair '
+                f'into one int32 word)')
+        words = [len(pw)] + [i | j << 16 for i, j in pw]
+        rows.append(words + [0] * (FF_SIDE - len(words)))
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
 class TraceMeta(tuple):
     """A fused trace's static row metadata (one StaticRowMeta a row) with
     its fuzzy apodization: ``fuzzy``, {row: component-style callable}, and
@@ -364,8 +421,13 @@ class TraceMeta(tuple):
 
 def fuzzy_buffer(static_meta, device):
     """The int32 program buffer of a ``TraceMeta``'s callables on
-    ``device`` (None without one)."""
-    return fuzzy_program.buffer(getattr(static_meta, 'words', None), device)
+    ``device``: without a callable None, or on a table with a freeform row
+    (whose instantiation is built on the one with fuzzy programs) a -1 per
+    row."""
+    words = getattr(static_meta, 'words', None)
+    if words is None and freeform_kinds(static_meta):
+        words = (-1,) * len(static_meta)
+    return fuzzy_program.buffer(words, device)
 
 
 def doe_bits(m):
@@ -394,10 +456,10 @@ def coat_side(static_meta, device):
     per row its layers' extinction coefficients (8, zeros for a dielectric
     stack) and a dispersive metal's 6 n and 6 k knots on METAL_GRID_UM
     (zeros otherwise); None when no row's coating acts, no row is
-    diffractive and no row is fuzzy (the instantiations with the diffractive
-    kinds and with fuzzy programs read it)."""
+    diffractive, fuzzy or freeform (the instantiations with the diffractive
+    kinds, fuzzy programs and freeform surfaces read it)."""
     if not (coating_kinds(static_meta) or diffractive_kinds(static_meta)
-            or fuzzy_kinds(static_meta)):
+            or fuzzy_kinds(static_meta) or freeform_kinds(static_meta)):
         return None
     rows = []
     for m in static_meta:
@@ -422,7 +484,8 @@ def dispersive_kinds(kinds):
 def kind_rows(static_meta, cfg: SensorConfig):
     """[K, KIND_WIDTH] int rows the kernels read; raises NotImplementedError
     for anything the kernels do not take.  The surface column holds
-    SURF_QUADRIC, SURF_PLANE or SURF_ASPHERE; a dispersive row's physics
+    SURF_QUADRIC, SURF_PLANE, SURF_ASPHERE or SURF_FREEFORM (a freeform
+    row, whose base is an asphere's); a dispersive row's physics
     column adds its two DispModels from bit DISP_SHIFT on, a coated or
     metal row's coating data from bit COAT_SHIFT on (``coat_bits``) and a
     DOE row's term count and efficiency flag from bit DOE_SHIFT on
@@ -438,7 +501,9 @@ def kind_rows(static_meta, cfg: SensorConfig):
         if m.sensor and not 0 <= m.slot < n_slots:
             raise ValueError(f'row {k}: sensor slot {m.slot} outside '
                              f'0..{n_slots - 1}')
-        surf = (SURF_ASPHERE if m.asph
+        # a row is freeform (its ff columns the monomials' coefficients) or
+        # DOE (its ff columns the radial phase's), never both
+        surf = (SURF_FREEFORM if m.ff else SURF_ASPHERE if m.asph
                 else SURF_PLANE if m.plane else SURF_QUADRIC)
         ph = m.ph | coat_bits(m) | doe_bits(m)
         if m.disp:
@@ -456,9 +521,10 @@ def plate_maps(static_meta, grids):
     bound), the extended kinds (``ext_kinds``), a coating that acts
     (``coating_kinds``: a stack reads the rays' wavelength), a diffractive
     kind (``diffractive_kinds``: a grating and a DOE read it) or fuzzy
-    apodization (``fuzzy_kinds``, whose instantiation is built on theirs):
-    the kernels then run their instantiation without plate code.  Such a
-    scene without a plate gives ``()``."""
+    apodization (``fuzzy_kinds``, whose instantiation is built on theirs)
+    or a freeform surface (``freeform_kinds``, built on that one): the
+    kernels then run their instantiation without plate code.  Such a scene
+    without a plate gives ``()``."""
     grids = grids or {}
     missing = [k for k in plate_rows(static_meta) if k not in grids]
     if missing:
@@ -467,7 +533,8 @@ def plate_maps(static_meta, grids):
     if not (any(m.ph == PhysKind.PHASE_GRID or m.sb == SBKind.RECT
                 for m in static_meta) or ext_kinds(static_meta)
             or coating_kinds(static_meta)
-            or diffractive_kinds(static_meta) or fuzzy_kinds(static_meta)):
+            or diffractive_kinds(static_meta) or fuzzy_kinds(static_meta)
+            or freeform_kinds(static_meta)):
         return None
     return tuple(grids[k] for k in plate_rows(static_meta))
 
@@ -546,7 +613,8 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     (FRESNEL), GRIN or phase-grid rows (``unsupported`` refuses GRIN), at
     most 8 sensor slots; FRESNEL_W and REFLECT_W take K1's instantiation
     with the Fresnel kinds, coated and metal rows the one with the
-    coatings, the diffractive and ideal elements theirs.  Its function is
+    coatings, the diffractive and ideal elements theirs, freeform surfaces
+    theirs.  Its function is
     K1's with the grid and the maps off, so on CUDA tensors it launches
     K1's kernel so (counted in ``V1_LAUNCHES``; a RECT bound takes its
     instantiation with plate code, with no map, and the extended kinds
@@ -574,7 +642,9 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
             'trace_sequential_v1', ext_kinds(static_meta),
             fresnel=fresnel_kinds(static_meta),
             coat=coat_side(static_meta, flat.device),
-            diff=diffractive_kinds(static_meta))
+            diff=diffractive_kinds(static_meta),
+            fuzzy=fuzzy_buffer(static_meta, flat.device),
+            ff=ff_side(static_meta, flat.device))
         V1_LAUNCHES += launched
     return out, sensors, {}
 
@@ -649,7 +719,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
                               uniforms=uniforms,
                               coat=coat_side(static_meta, flat.device),
                               diff=diffractive_kinds(static_meta),
-                              fuzzy=fuzzy_buffer(static_meta, flat.device))
+                              fuzzy=fuzzy_buffer(static_meta, flat.device),
+                              ff=ff_side(static_meta, flat.device))
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -797,7 +868,8 @@ def _fused_backward(ctx, grads, need):
                                  uniforms=ctx.draws,
                                  coat=coat_side(ctx.meta, flat.device),
                                  diff=diffractive_kinds(ctx.meta),
-                                 fuzzy=fuzzy_buffer(ctx.meta, flat.device))
+                                 fuzzy=fuzzy_buffer(ctx.meta, flat.device),
+                                 ff=ff_side(ctx.meta, flat.device))
     else:
         res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                   g_moments, g_grid=g_grid, maps=maps,
@@ -967,7 +1039,7 @@ def kernel(symbol):
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
                   ext=False, disp=False, streams=False, fresnel=False,
-                  coat=False, diff=False, fuzzy_words=0):
+                  coat=False, diff=False, fuzzy_words=0, freeform=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
@@ -980,11 +1052,14 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     likewise; with ``coat``, the one with the coatings, likewise; with
     ``diff``, the one with the diffractive kinds, likewise; with
     ``fuzzy_words``, the one with fuzzy programs of that many words,
-    likewise) runs, at that launch's dynamic shared memory
+    likewise; with ``freeform``, the one with freeform surfaces, whose
+    program buffer has ``fuzzy_words`` words, likewise) runs, at that
+    launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (8 if fuzzy_words else 7 if diff else 6 if coat else 5 if fresnel
+    code = (9 if freeform else 8 if fuzzy_words else 7 if diff else 6 if coat
+            else 5 if fresnel
             else 4 if streams else (3 if disp else 2) if ext
             else int(bool(plates)))
     rc = kernel(f'rtt_{library}_occupancy')(
@@ -1105,23 +1180,28 @@ def ext_maps(maps, ext):
     return () if ext and maps is None else maps
 
 
-def grad_cols(plates, ext, disp=False, coat=False, diff=False):
+def grad_cols(plates, ext, disp=False, coat=False, diff=False,
+              freeform=False):
     """The table columns whose cotangents K2 and K6 reduce (``disp``: the
     table has a dispersive row, which only the extended kinds take;
     ``coat``: the instantiation with the coatings, which adds the layer
     thicknesses after them; ``diff``: the one with the diffractive kinds,
-    built on it, which adds a DOE row's coefficients after those)."""
+    built on it, which adds a DOE row's coefficients after those;
+    ``freeform``: the one with freeform surfaces, built on those, which
+    adds all 32 ff columns in their place)."""
     if ext:
         return (EXT_GRAD_COLS + (DISP_GRAD_COLS if disp else ())
-                + (COAT_GRAD_COLS if coat or diff else ())
-                + (FF_GRAD_COLS if diff else ()))
+                + (COAT_GRAD_COLS if coat or diff or freeform else ())
+                + (FF_TERM_COLS if freeform
+                   else FF_GRAD_COLS if diff else ()))
     return PLATE_GRAD_COLS if plates is not None else GRAD_COLS
 
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                        maps=None, ext=False, track_opl=False,
                        record_paths=False, record_hits=False, fresnel=False,
-                       uniforms=None, coat=None, diff=False, fuzzy=None):
+                       uniforms=None, coat=None, diff=False, fuzzy=None,
+                       ff=None):
     """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -1143,25 +1223,30 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     a coating).  ``fuzzy``, the int32 program buffer of ``fuzzy_buffer``
     (None: no row is fuzzy), runs the instantiation with fuzzy programs,
     built on the one with the diffractive kinds (whatever ``diff``), which
-    reads ``coat`` so."""
+    reads ``coat`` so.  ``ff``, the int32 exponent pairs of ``ff_side``
+    (None: no row is freeform), runs the instantiation with freeform
+    surfaces, built on the one with fuzzy programs, which reads ``fuzzy`` so
+    (``fuzzy_buffer`` gives it a -1 a row on a table without a callable)."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits)
     res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
                           'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms,
-                          coat, diff, fuzzy)
+                          coat, diff, fuzzy, ff)
     LAUNCHES += res[-1]
     return res[:-1]
 
 
 def draw_args(fresnel, uniforms, n, device, coat=None, k=0, diff=False,
-              fuzzy=None):
+              fuzzy=None, ff=None):
     """The K1 and K2 wrappers' draw arguments: the [F, N] ``uniforms``
     (None: no row draws) checked to be a contiguous float32 tensor on
     ``device``, the ``[K, 20]`` side buffer ``coat`` (None: not the
-    instantiation with the coatings), ``diff`` and the program buffer
-    ``fuzzy`` -> the (pointer, F, ``fresnel``, side pointer, ``diff``,
-    program pointer, words) C arguments."""
-    side = coat_ptr(coat, k, device, diff) + fuzzy_args(fuzzy, k, device)
+    instantiation with the coatings), ``diff``, the program buffer
+    ``fuzzy`` and the exponent pairs ``ff`` -> the (pointer, F,
+    ``fresnel``, side pointer, ``diff``, program pointer, words, pairs
+    pointer) C arguments."""
+    side = (coat_ptr(coat, k, device, diff) + fuzzy_args(fuzzy, k, device)
+            + (ff_ptr(ff, k, device, fuzzy),))
     if uniforms is None or uniforms.shape[0] == 0:
         return None, 0, int(fresnel), *side
     if not fresnel:
@@ -1185,6 +1270,21 @@ def coat_ptr(coat, k, device, diff=False):
         return None, int(diff)
     check(coat, 'coat side buffer', torch.float32, (k, COAT_SIDE), device)
     return coat.data_ptr(), int(diff)
+
+
+def ff_ptr(ff, k, device, fuzzy=None):
+    """The exponent pairs' C argument: ``ff`` checked to be a contiguous
+    int32 ``[K, FF_SIDE]`` tensor on ``device`` beside a program buffer
+    ``fuzzy`` (the instantiation with freeform surfaces is built on the one
+    with fuzzy programs); null for None."""
+    if ff is None:
+        return None
+    if fuzzy is None:
+        raise ValueError('the instantiation with freeform surfaces reads the '
+                         'program buffer: pass fuzzy=fuzzy_buffer('
+                         'static_meta, device)')
+    check(ff, 'freeform exponent pairs', torch.int32, (k, FF_SIDE), device)
+    return ff.data_ptr()
 
 
 def fuzzy_args(fuzzy, k, device):
@@ -1238,16 +1338,16 @@ def stream_aux(bufs):
 
 def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                     flags=NO_STREAMS, fresnel=False, uniforms=None,
-                    coat=None, diff=False, fuzzy=None):
+                    coat=None, diff=False, fuzzy=None, ff=None):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
     global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
-    global DIFF_LAUNCHES, FUZZY_LAUNCHES
+    global DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
-    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy)
+    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy, ff)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
                            device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
@@ -1276,7 +1376,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if fuzzy is not None:
+        if ff is not None:
+            FREEFORM_LAUNCHES += 1
+        elif fuzzy is not None:
             FUZZY_LAUNCHES += 1
         elif diff:
             DIFF_LAUNCHES += 1
@@ -1300,7 +1402,8 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        g_grid=None, maps=None, need_maps=True, ext=False,
                        disp=None, need_wavelength=False, g_opl=None,
                        g_nfinal=None, opl=False, fresnel=False,
-                       uniforms=None, coat=None, diff=False, fuzzy=None):
+                       uniforms=None, coat=None, diff=False, fuzzy=None,
+                       ff=None):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
     kinds) their cotangents (or None) third, and with ``need_wavelength``
@@ -1325,22 +1428,24 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     thicknesses' (``COAT_GRAD_COLS``); ``diff`` as there: the one with the
     diffractive kinds, which adds a DOE row's coefficients'
     (``FF_GRAD_COLS``); ``fuzzy`` as there: the one with fuzzy programs,
-    whose hits' cotangents add the adjoint of each program's factor."""
+    whose hits' cotangents add the adjoint of each program's factor; ``ff``
+    as there: the one with freeform surfaces, which reverses the freeform
+    rows' Newton steps and reduces all 32 ff columns (``FF_TERM_COLS``)."""
     global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
-    global COAT_LAUNCHES, DIFF_LAUNCHES, FUZZY_LAUNCHES
+    global COAT_LAUNCHES, DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     ext = ext or need_wavelength or opl or fresnel
-    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy)
+    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy, ff)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
     g_rays, g_mom, g_grid = check_cotangents(g_rays, g_moments, g_grid, cfg,
                                              n, device)
     g_opl, g_nfinal = check_streams((g_opl, g_nfinal), n, device)
-    cols = grad_cols(plates, ext, disp, coat is not None, diff)
+    cols = grad_cols(plates, ext, disp, coat is not None, diff, ff is not None)
     outs = ([torch.empty(n, dtype=torch.float32, device=device)
              for _ in COMPS] if need_rays else None)
     partials = (torch.empty(-(-n // THREADS), k, len(cols),
@@ -1371,7 +1476,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if fuzzy is not None:
+        if ff is not None:
+            FREEFORM_LAUNCHES += 1
+        elif fuzzy is not None:
             FUZZY_LAUNCHES += 1
         elif diff:
             DIFF_LAUNCHES += 1

@@ -15,10 +15,20 @@ the kernels' arguments as one more side buffer:
   torch's ``__torch_function__`` protocol) and keeps what the result needs.
   Python numbers of the closure become constants, each rounded once to
   float32, as torch and JAX round a Python scalar against a float32 tensor;
-  Python loops over them unroll.  A value tested by Python (``if``,
-  ``bool``, ``float``), an operation outside ``OPS`` and a program over
-  ``MAX_OPS`` operations or ``MAX_REGS`` registers raise
-  NotImplementedError naming the callable and what it met.
+  Python loops over them unroll.  A few operations are lowered into
+  ``OPS`` as they are traced, so the kernels need no code for them: ``x **
+  k`` for an integer constant k becomes the multiply chain x * x * ... from
+  the left (1 / the chain for k < 0, the constant 1 for k = 0); ``a == b``
+  becomes ``(a <= b) & (a >= b)`` and ``a != b`` its negation;
+  ``torch.minimum(a, b)`` becomes ``where(a <= b, a, b)``,
+  ``torch.maximum(a, b)`` ``where(a >= b, a, b)`` and ``torch.clamp(x, lo,
+  hi)`` (or ``clip``, either bound optional) the maximum with lo and then
+  the minimum with hi (both bounds pass the gradient, as torch.clamp's
+  do).  A value tested by Python (``if``, ``bool``, ``float``), an
+  operation outside ``OPS`` and those (``sin``, ``cos``, ``log``, a
+  non-integer or traced exponent), and a program over ``MAX_OPS``
+  operations or ``MAX_REGS`` registers raise NotImplementedError naming
+  the callable and what it met.
 - Registers are assigned by liveness: a value's register is free again
   after its last use, so the 4-vane telescope pupil (~85 operations) needs
   a handful.  The registers 0, 1 and 2 start with x, y and z.
@@ -67,6 +77,11 @@ _TORCH = {torch.exp: 'exp', torch.sqrt: 'sqrt', torch.abs: 'abs',
           torch.add: 'add', torch.sub: 'sub', torch.mul: 'mul',
           torch.div: 'div', torch.lt: 'lt', torch.le: 'le', torch.gt: 'gt',
           torch.ge: 'ge'}
+# torch functions lowered into the op set as they are traced (_Value's
+# methods of the same names)
+_LOWERED = {torch.pow: 'pow', torch.eq: 'eq', torch.ne: 'ne',
+            torch.minimum: 'minimum', torch.maximum: 'maximum',
+            torch.clamp: 'clamp', torch.clip: 'clamp'}
 
 
 def f32(c):
@@ -158,6 +173,12 @@ class _Value:
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         trace = next(a.trace for a in args if isinstance(a, _Value))
+        if func in _LOWERED:
+            if not isinstance(args[0], _Value):
+                trace.refuse(f'op {_LOWERED[func]} of a constant first '
+                             f'operand')
+            return getattr(args[0], _LOWERED[func])(*args[1:],
+                                                    **(kwargs or {}))
         op = _TORCH.get(func)
         if op is None or kwargs:
             trace.refuse(f'op {getattr(func, "__name__", func)}'
@@ -248,10 +269,28 @@ class _Value:
         return self._op('cast') if self.trace.nodes[self.node].mask else self
 
     def __eq__(self, o):
-        return self.trace.refuse('op eq')
+        return (self <= o) & (self >= o)
 
     def __ne__(self, o):
-        return self.trace.refuse('op ne')
+        return ~(self == o)
+
+    def eq(self, o):
+        return self == o
+
+    def ne(self, o):
+        return self != o
+
+    def minimum(self, o):
+        return self.trace.op('where', self <= o, self, o)
+
+    def maximum(self, o):
+        return self.trace.op('where', self >= o, self, o)
+
+    def clamp(self, min=None, max=None):
+        out = self if min is None else self.maximum(min)
+        return out if max is None else out.minimum(max)
+
+    clip = clamp
 
     def __bool__(self):
         return self.trace.refuse('a Python if (or bool()) on a traced value '
@@ -267,7 +306,25 @@ class _Value:
         return self.trace.refuse('an index from a traced value')
 
     def __pow__(self, o):
-        return self.trace.refuse('op pow')
+        if isinstance(o, torch.Tensor) and o.dim() == 0:
+            o = o.item()
+        if isinstance(o, bool) or not isinstance(o, (int, float)) \
+                or o != int(o):
+            return self.trace.refuse(f'op pow with exponent {o!r} (an '
+                                     f'integer constant unrolls into '
+                                     f'multiplies)')
+        k = int(o)
+        if k == 0:
+            return _Value(self.trace, self.trace.operand(1.0))
+        out = self
+        for _ in range(abs(k) - 1):
+            out = out * self
+        return out if k > 0 else 1.0 / out
+
+    def __rpow__(self, o):
+        return self.trace.refuse('op pow with a traced exponent')
+
+    pow = __pow__
 
     def __getattr__(self, name):
         if name.startswith('__'):

@@ -169,7 +169,8 @@ class Scene:
                         plane=r.is_plane, slot=slot if el.is_sensor else 0,
                         n_coat=r.n_coat, dispm=r.disp_model,
                         metal=r.is_metal, metal_nk=r.metal_nk,
-                        coat_k=r.coat_k, doe=r.doe))
+                        coat_k=r.coat_k, ff=r.ff_powers or None,
+                        doe=r.doe))
                 if el.is_sensor:
                     slot += 1
             self._static_meta = meta

@@ -773,15 +773,23 @@ def _coat(name):
 
 def _diff(name):
     """Whether a mangled kernel name is an overload with the diffractive
-    kinds (a DiffKinds argument) and without the fuzzy programs
-    (``_fuzzy``), which take that argument too."""
-    return 'DiffKinds' in name and not _fuzzy(name)
+    kinds (a DiffKinds argument) and without the fuzzy programs (a
+    FuzzyProgs argument: ``_fuzzy``, ``_freeform``), which take that
+    argument too."""
+    return 'DiffKinds' in name and 'FuzzyProgs' not in name
 
 
 def _fuzzy(name):
     """Whether a mangled kernel name is an overload with the fuzzy programs
-    (a FuzzyProgs argument)."""
-    return 'FuzzyProgs' in name
+    (a FuzzyProgs argument) and without the freeform surfaces
+    (``_freeform``), which take that argument too."""
+    return 'FuzzyProgs' in name and not _freeform(name)
+
+
+def _freeform(name):
+    """Whether a mangled kernel name is an overload with the freeform
+    surfaces (an FfSide argument)."""
+    return 'FfSide' in name
 
 
 @pytest.mark.cuda
@@ -1356,7 +1364,7 @@ def test_ext_instantiations_are_built(dev):
         ext = [k for k in usage
                if f'{lib}_kernel' in k and _ext(k) and not _streams(k)
                and not _fresnel(k) and not _coat(k) and not _diff(k)
-               and not _fuzzy(k)]
+               and not _fuzzy(k) and not _freeform(k)]
         assert len(ext) == count, (lib, ext)
         assert all(usage[k]['registers'] for k in ext)
     for case in EXT_CASES:
@@ -2089,3 +2097,102 @@ def test_fuzzy_refusals_on_the_card(dev):
         with pytest.raises(NotImplementedError, match=match):
             sc.simulate_fused(sc.init_params(dev), rays)
         assert fused_trace.LAUNCHES == 0
+
+
+_EX20_TERMS = []
+
+
+@pytest.fixture
+def ex20_terms(dev):
+    """Example 20's prescription, measured through K1 with track_opl (once
+    a test run)."""
+    if not _EX20_TERMS:
+        _EX20_TERMS.append(chip_smoke.ex20_prescription(trt, torch, dev)[0])
+    return _EX20_TERMS[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', chip_smoke.FREEFORM_CASES)
+def test_freeform_kernels_match_plain(name, dev, ex20_terms):
+    """K1 and K2 (the Scene: K5 and K6) with freeform surfaces against their
+    plain versions on examples 19, 20 (with the path length) and 26: rays,
+    moments and the ray and table cotangents (chip_smoke.py's bounds); K6's
+    replay against K5; the freeform rows' ff columns carry cotangents."""
+    res = chip_smoke.freeform_kernels_vs_plain(trt, torch, name, N, dev, 91,
+                                               ex20_terms)
+    assert res['bwd']['rays_differ'] <= res['bwd']['allowed']
+    assert res['bwd']['ff_columns_used'] >= 2
+
+
+@pytest.mark.cuda
+def test_freeform_paths_launch_their_instantiation(dev):
+    """``simulate_fused`` of example 19's corrector launches K1 (as a Scene
+    K5) once in the instantiation with freeform surfaces, and
+    ``trace_sequential_v1`` K1's kernel there; a grad step in the freeform
+    coefficients K1 and K2 in theirs, with the eager trace's gradients."""
+    for name, mod, fwd in (('ex19', fused_trace, 'LAUNCHES'),
+                           ('ex19_scene', fused_nonseq, 'NONSEQ_LAUNCHES')):
+        sc, p, rays, _, _ = chip_smoke.freeform_case(trt, torch, name, 999,
+                                                     dev, 92)
+        setattr(mod, fwd, 0)
+        fused_trace.FREEFORM_LAUNCHES = fused_trace.FUZZY_LAUNCHES = 0
+        with torch.no_grad():
+            out, _, _ = sc.simulate_fused(p, rays)
+        torch.cuda.synchronize()
+        assert getattr(mod, fwd) == 1 and fused_trace.FREEFORM_LAUNCHES == 1
+        assert fused_trace.FUZZY_LAUNCHES == 0
+        ref, _, _ = sc.simulate(p, rays)
+        torch.testing.assert_close(out.px, ref.px, rtol=1e-5, atol=1e-4)
+    sc, p, rays, cfg, _ = chip_smoke.freeform_case(trt, torch, 'ex19', 999,
+                                                   dev, 93)
+    fused_trace.V1_LAUNCHES = fused_trace.FREEFORM_LAUNCHES = 0
+    trt.trace_sequential_v1(sc.build_table(p), rays, cfg, sc.static_meta())
+    assert (fused_trace.V1_LAUNCHES, fused_trace.FREEFORM_LAUNCHES) == (1, 1)
+    grads = []
+    for simulate in ('simulate_fused', 'simulate'):
+        p = sc.init_params(dev)
+        p['corrector']['xy1'].requires_grad_(True)
+        fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+        fused_trace.FREEFORM_LAUNCHES = 0
+        _, sens, _ = getattr(sc, simulate)(p, rays)
+        sens.spot_rms(0)[0].backward()
+        torch.cuda.synchronize()
+        grads.append(p['corrector']['xy1'].grad)
+        if simulate == 'simulate_fused':
+            assert (fused_trace.LAUNCHES, fused_trace.BWD_LAUNCHES,
+                    fused_trace.FREEFORM_LAUNCHES) == (1, 1, 2)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_freeform_instantiations_are_built(dev):
+    """K1 and K6 build one overload with freeform surfaces, K2 one for each
+    home of its saved states and K5 one for each moment bucket; each has
+    its registers."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        found = [k for k in usage if f'{lib}_kernel' in k and _freeform(k)]
+        assert len(found) == count, (lib, found)
+        assert all(usage[k]['registers'] for k in found)
+
+
+@pytest.mark.cuda
+def test_freeform_instantiations_fit(dev):
+    """The instantiations with freeform surfaces keep at least one block
+    resident on an SM on the section 15 scenes, at their shared memory (the
+    exponent pairs and the 32 ff columns' warp slots included)."""
+    for name, libs in (('ex19', ('trace_seq_fwd', 'trace_seq_bwd')),
+                       ('ex19_scene', ('trace_nonseq_fwd',
+                                       'trace_nonseq_bwd')),
+                       ('ex26', ('trace_seq_fwd', 'trace_seq_bwd'))):
+        sc, _, _, cfg, _ = chip_smoke.freeform_case(trt, torch, name, 8, dev,
+                                                    94)
+        meta = sc.static_meta()
+        for lib in libs:
+            assert fused_trace.blocks_per_sm(
+                lib, len(meta), cfg, True, sc.n_bounces, ext=True,
+                diff=True, fuzzy_words=len(meta), freeform=True) >= 1, lib

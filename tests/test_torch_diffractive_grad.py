@@ -417,12 +417,13 @@ def test_bundle_limits():
     dict(ph=12, sb=0, vb=0),                   # GRIN
     dict(ph=3, sb=6, vb=0),                    # CONE_NAPPE
     dict(ph=3, sb=0, vb=5),                    # HALFSPACES
-    dict(ph=3, sb=0, vb=0, ff=((2, 0),)),      # a freeform face
+    dict(ph=11, sb=0, vb=0),                   # JONES
 ])
 def test_refused_kinds_name_their_item(meta):
-    """GRIN, CONE_NAPPE, HALFSPACES and freeform rows still raise
+    """GRIN, CONE_NAPPE, HALFSPACES and JONES rows still raise
     NotImplementedError naming their ROADMAP item, eagerly and in the
-    fused traces (SCATTER and JONES: tests/test_torch_coated_trace.py)."""
+    fused traces (SCATTER and JONES scenes: tests/test_torch_coated_trace.py;
+    freeform faces trace now: tests/test_torch_freeform.py)."""
     m = StaticRowMeta(**meta)
     why = unsupported(m)
     assert why is not None and 'ROADMAP' in why

@@ -138,13 +138,13 @@ def _scatter_scene():
                           name='sensor')])
 
 
-def _freeform_scene():
-    # an XY-polynomial freeform face: the asphere under it is ported, the
-    # freeform refinement is not
+def _jones_scene():
+    # a JONES row: the polarization field is not ported (freeform faces,
+    # refused here before, trace now: tests/test_torch_freeform.py)
     return jrt.SequentialScene([
-        jrt.FreeformLens(c1=0.03, c2=-0.01, d=12.0, t=2.0, ior_glass=1.6,
-                         xy1=[(2, 0, 1e-4)], name='ff'),
-        jrt.SensorElement(radius=10.0, translation=[0, 0, 25.0],
+        ElementCustom(shapes.plane, 1, PhysKind.JONES, ph=(0.0, 0.0),
+                      name='plate'),
+        jrt.SensorElement(radius=50.0, translation=[0, 0, 25.0],
                           name='sensor')])
 
 
@@ -183,7 +183,7 @@ def _box_scene():
                           name='sensor')])
 
 
-@pytest.mark.parametrize('make', [_scatter_scene, _freeform_scene,
+@pytest.mark.parametrize('make', [_scatter_scene, _jones_scene,
                                   _grin_scene, _box_scene])
 def test_dispatcher_raises_on_unsupported_rows(make):
     scene = make()

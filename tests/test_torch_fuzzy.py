@@ -355,8 +355,8 @@ def _branchy(x, y, z):
 
 REFUSALS = {
     'sin': (lambda x, y, z: torch.sin(x), 'op sin'),
-    'pow': (lambda x, y, z: x ** 2, 'op pow'),
-    'eq': (lambda x, y, z: (x == 0.0).float(), 'op eq'),
+    'pow': (lambda x, y, z: x ** 0.5, 'op pow with exponent 0.5'),
+    'log': (lambda x, y, z: torch.log(x * x + 1.0), 'op log'),
     'python_if': (_branchy, 'Python if'),
     'float': (lambda x, y, z: x * math.exp(float(y)), r'float\(\)'),
     'kwargs': (lambda x, y, z: torch.div(x, y, rounding_mode='floor'),
