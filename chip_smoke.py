@@ -210,9 +210,6 @@ NS_SPOT_RTOL = 1e-3
 # re-hits the mirror): about a third of its rays end elsewhere under another
 # rounding (tests/test_torch_nonseq_grad.py), so there the count of such
 # rays is reported, not bounded.
-# K6's most checkpointed bounces per thread (kCkpt in
-# csrc/trace_nonseq_bwd.cu), the length of the segments it replays.
-K6_CHECKPOINTS = 13
 # Deep optics: the ring former of examples/28_deep_optics_plate.py, a
 # PhaseGridPlate (half extents 4) and a sensor (radius 10) at z = 40, lit by
 # a collimated disk of radius 3 at z = -3, lam 0.5876 um; every ray should
@@ -1129,11 +1126,15 @@ def nonseq_work(rt, torch, scene, params, rays, key=None):
     return scans, wins, lives
 
 
-def segment_replays(lives, checkpoints=K6_CHECKPOINTS):
+def segment_replays(lives, checkpoints=None):
     """The bounces K6 replays for the earlier segments of rays that live
-    ``lives`` bounces, with ``checkpoints`` bounces a segment: a ray of m
-    earlier segments replays K + 2K + ... + mK, K = checkpoints (K6 keeps
-    min(budget, K6_CHECKPOINTS), and no ray outlives a budget below it)."""
+    ``lives`` bounces, with ``checkpoints`` bounces a segment (by default
+    the kernel's, fused_nonseq.K6_CHECKPOINTS): a ray of m earlier segments
+    replays K + 2K + ... + mK, K = checkpoints (K6 keeps min(budget,
+    K6_CHECKPOINTS), and no ray outlives a budget below it)."""
+    if checkpoints is None:
+        from raytracetorch_tpu_torch.ops.fused_nonseq import K6_CHECKPOINTS
+        checkpoints = K6_CHECKPOINTS
     m = (lives - 1).clamp(min=0) // checkpoints
     return int((checkpoints * m * (m + 1) // 2).sum())
 
@@ -4631,13 +4632,23 @@ EX26_ATOL = 3e-5
 # Zernike set a MAX_FF_TERMS face takes from that range
 EX20_WIDE_TERMS = tuple((j, 2e-5 * (-1) ** j) for j in range(4, 29))
 FREEFORM_CASES = ('ex19', 'ex19_scene', 'ex20', 'ex20_wide', 'ex26')
+# A path length is a running float32 sum of one segment a row: each row
+# rounds the sum (half an ulp of the path) and the segment's length, whose
+# end points the kernel's contracted multiply-adds round otherwise than the
+# plain version or the eager trace (about an ulp of the path), so a ray's
+# path lengths are held within OPL_ULPS_PER_ROW ulps of the largest path a
+# row (opl_tol; an H100 80GB HBM3 read at most 5 ulps over example 20's 7
+# rows at 1M rays).
+OPL_ULPS_PER_ROW = 2
 # Example 20's corrected wavefront is ~0.07 waves RMS, near the float32
 # rounding of its path lengths (ulp(64 mm) = 7.6e-6 mm = 0.013 waves a
-# ray): the kernel's contracted multiply-adds and the eager trace round
-# them otherwise, so their RMS is held to EX20_RMS_ATOL waves and the
-# gradient of its square in z1 to EX20_GRAD_RTOL (an H100 80GB HBM3 read
-# 0.0743 against 0.0737 waves, the gradients 2.7% apart).
-EX20_RMS_ATOL, EX20_GRAD_RTOL = 2e-3, 0.05
+# ray), so the fused and eager RMS differ by the spread of those roundings
+# (0.0743 against 0.0737 waves on an H100 80GB HBM3, their z1 gradients
+# 1.8% apart in norm; chip_fmad.py shows the gap close with -fmad=false).
+# The fused run is therefore held to the eager one ray by ray (opl_tol,
+# POS_TOL), its RMS to the eager one's within the RMS of the path lengths'
+# differences, and its gradient to the eager adjoint taken at the fused
+# run's values (GRAD_RTOL in norm); the gradients' gap is reported.
 # Example 19's anchors from the JAX package (tests/freeform_anchors.py, on
 # the same rays: rays/reference_prng.py's draws), and their tolerances: the
 # port's eager design on the CPU starts within 6.4e-10 and ends within
@@ -4666,6 +4677,13 @@ FF_FLIPS_PER_MILLION = FLIPS_PER_MILLION
 # linear path: the kernels refine it once (FF_ROOTS).
 FF_RADIAL_OPS, FF_STEP_OPS, FF_EVALS = 40, 12, 9
 FF_BWD_FACTOR, FF_ROOTS = 3, 1
+
+
+def opl_tol(torch, opl, rows):
+    """OPL_ULPS_PER_ROW float32 ulps of the largest |opl| per row."""
+    m = opl.abs().max().float()
+    return OPL_ULPS_PER_ROW * rows * float(
+        torch.nextafter(m, m.new_tensor(math.inf)) - m)
 
 
 def freeform_term_ops(i, j):
@@ -4927,8 +4945,8 @@ def freeform_kernels_vs_plain(rt, torch, name, n, device, seed,
             (res_k[2]['opl'] - res_p[2]['opl'])[keep].abs().max())
         res['n_final_equal'] = bool(torch.equal(res_k[2]['n_final'][keep],
                                                 res_p[2]['n_final'][keep]))
-        check(res['opl_max_abs_err'] <= POS_TOL * (1.0 + float(
-            res_p[2]['opl'].abs().max())), f'{name}: opl {res}')
+        res['opl_tol'] = opl_tol(torch, res_p[2]['opl'][keep], len(meta))
+        check(res['opl_max_abs_err'] <= res['opl_tol'], f'{name}: opl {res}')
         check(res['n_final_equal'], f'{name}: n_final differs')
     rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
     g_rays, g_mom, _ = random_cotangents(torch, rays.n, cfg, device,
@@ -4994,6 +5012,94 @@ def ex19_design(rt, torch, device, simulate_name, rays):
                 coeffs=[float(v) for v in p['corrector']['xy1']])
 
 
+def fused_vs_eager(rt, torch, sc, params, rays, leaf, opl, counted=None):
+    """A section 15 scene's loss (example 20's wavefront RMS^2 in waves with
+    ``opl``, else the spot RMS^2) and its gradient in the corrector's
+    ``leaf`` through simulate_fused against the eager trace -> dict; with
+    ``opl`` also the rays the two trace apart, the path lengths' largest
+    difference on the others against opl_tol, and the gradient of the eager
+    trace taken at the fused run's values.  ``counted``: (reset_counters,
+    counters), which then record the fused forward's and grad step's
+    launches."""
+    from raytracetorch_tpu_torch.ops import fused_trace
+    from raytracetorch_tpu_torch.utils import wavefront
+    dev = rays.px.device
+
+    def run(simulate, p):
+        if opl:
+            out, _, aux = simulate(p, rays, track_opl=True)
+            return out, aux['opl']
+        return simulate(p, rays)[1], None
+
+    def loss_of(res):
+        if opl:
+            return (wavefront.wavefront_rms(
+                res[0], res[1], weights=res[0].intensity, refocus=True)
+                / EX20_WAVELEN) ** 2
+        return res[0].spot_rms(0)[0] ** 2
+
+    def at_values(res, values):
+        """The eager trace's (rays, opl) carrying the fused run's values
+        (b - a is exact for float32 a, b within a factor 2 of each other,
+        so a + (b - a) is b) and the eager trace's gradients."""
+        (out, o), (out_v, o_v) = res, values
+        return (out.replace(**{c: getattr(out, c) + (getattr(out_v, c)
+                                                     - getattr(out, c))
+                               .detach() for c in fused_trace.COMPS}),
+                o + (o_v - o).detach())
+
+    def grads(simulate, values=None):
+        p = sc.init_params(dev)
+        p['corrector'][leaf].requires_grad_(True)
+        res = run(simulate, p)
+        loss_of(res if values is None else at_values(res, values)).backward()
+        return p['corrector'][leaf].grad
+
+    def norm_err(a, b):
+        return float((a - b).norm() / b.norm())
+    reset, counters = counted or (lambda: None, lambda: None)
+    reset()
+    with torch.no_grad():
+        res_f = run(sc.simulate_fused, params)
+        l_f = float(loss_of(res_f))
+    torch.cuda.synchronize()
+    fl = counters()
+    with torch.no_grad():
+        res_e = run(sc.simulate, params)
+        l_e = float(loss_of(res_e))
+    reset()
+    g_f = grads(sc.simulate_fused)
+    torch.cuda.synchronize()
+    gl = counters()
+    g_e = grads(sc.simulate)
+    out = dict(fwd_launches=fl, grad_launches=gl, loss=l_f, eager_loss=l_e,
+               rel_err=float(((g_f - g_e).abs()
+                              / g_e.abs().clamp(min=1e-30)).max()),
+               norm_err=norm_err(g_f, g_e), grads=g_f.tolist(),
+               eager_grads=g_e.tolist())
+    if opl:
+        # ray by ray: the rays both trace alike, their path lengths; the
+        # weighted RMS of the path lengths' differences about their mean,
+        # which bounds the two wavefront RMS's difference (the triangle
+        # inequality: both remove the same piston, tilt and defocus)
+        apart = traced_apart(torch, res_f[0], res_e[0])[0]
+        keep = ~apart
+        w = res_e[0].intensity.double()
+        d = (res_f[1] - res_e[1]).double()
+        d = d - (w * d).sum() / w.sum()
+        g_x = grads(sc.simulate, res_f)
+        out.update(
+            apart=int(apart.sum()),
+            allowed=math.ceil(FF_FLIPS_PER_MILLION * rays.n / 1e6),
+            opl_max_abs_err=float((res_f[1] - res_e[1])[keep].abs().max()),
+            opl_tol=opl_tol(torch, res_e[1][keep], len(sc.static_meta())),
+            opl_rms_err=float(((w * d * d).sum() / w.sum()).sqrt()),
+            rms_waves=l_f ** 0.5, eager_rms_waves=l_e ** 0.5,
+            at_fused_values_norm_err=norm_err(g_f, g_x),
+            at_fused_values_grads=g_x.tolist())
+    return out
+
+
 def freeform_phases(rt, torch, dev, reset_counters, counters, only):
     """Section 15: freeform, Zernike and wedge lenses through K1, K2, K5 and
     K6 in their instantiation with freeform surfaces: each kernel against
@@ -5004,7 +5110,6 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
     the eager one and the JAX package's anchors; then times, bounds (with
     the Newton steps' operations) and blocks per SM."""
     from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
-    from raytracetorch_tpu_torch.utils import wavefront
 
     # example 20's prescription, measured through K1 with track_opl
     terms, bare_rms = ex20_prescription(rt, torch, dev)
@@ -5021,61 +5126,36 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
 
     # 15b. the counted paths at 1M rays
     paths = {}
-
-    def rel_err(a, b):
-        return max(float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
-                   for x, y in zip(a, b))
-
     for name, leaf in (('ex19', 'xy1'), ('ex19_scene', 'xy1'),
                        ('ex20', 'z1')):
         sc, params, rays, cfg, nonseq = freeform_case(
             rt, torch, name, N_MAIN, dev, FREEFORM_SEED + 13, terms)
         fwd, bwd = (('trace_nonseq_fwd', 'trace_nonseq_bwd') if nonseq
                     else ('trace_seq_fwd', 'trace_seq_bwd'))
-        opl = name == 'ex20'
-
-        def loss_of(simulate, p):
-            if opl:
-                out, _, aux = simulate(p, rays, track_opl=True)
-                return (wavefront.wavefront_rms(
-                    out, aux['opl'], weights=out.intensity, refocus=True)
-                    / EX20_WAVELEN) ** 2
-            return simulate(p, rays)[1].spot_rms(0)[0] ** 2
-        reset_counters()
-        with torch.no_grad():
-            l_f = float(loss_of(sc.simulate_fused, params))
-        torch.cuda.synchronize()
-        fl = counters()
-        check(only(fl, **{fwd: 1}, freeform=1), f'{name} launched {fl}')
-        with torch.no_grad():
-            l_e = float(loss_of(sc.simulate, params))
-        if opl:
-            check(abs(l_f ** 0.5 - l_e ** 0.5) <= EX20_RMS_ATOL,
-                  f'{name}: fused RMS {l_f ** 0.5} vs eager {l_e ** 0.5} '
-                  f'waves')
+        paths[name] = res = fused_vs_eager(
+            rt, torch, sc, params, rays, leaf, name == 'ex20',
+            (reset_counters, counters))
+        check(only(res['fwd_launches'], **{fwd: 1}, freeform=1),
+              f'{name} launched {res["fwd_launches"]}')
+        check(only(res['grad_launches'], **{fwd: 1, bwd: 1}, freeform=2),
+              f'{name} grad step launched {res["grad_launches"]}')
+        if name == 'ex20':
+            check(res['apart'] <= res['allowed']
+                  and res['opl_max_abs_err'] <= res['opl_tol'],
+                  f'{name}: fused vs eager rays {res}')
+            check(abs(res['rms_waves'] - res['eager_rms_waves'])
+                  <= res['opl_rms_err'] / EX20_WAVELEN,
+                  f'{name}: fused vs eager wavefront RMS {res}')
+            check(res['at_fused_values_norm_err'] < GRAD_RTOL,
+                  f'{name}: fused gradients vs eager at the fused values '
+                  f'{res["at_fused_values_norm_err"]}')
         else:
-            check(abs(l_f - l_e) <= 1e-3 * abs(l_e),
-                  f'{name}: fused loss {l_f} vs eager {l_e}')
-
-        def grads(simulate):
-            p = sc.init_params(dev)
-            p['corrector'][leaf].requires_grad_(True)
-            loss_of(simulate, p).backward()
-            return [p['corrector'][leaf].grad]
-        reset_counters()
-        g_f = grads(sc.simulate_fused)
-        torch.cuda.synchronize()
-        gl = counters()
-        check(only(gl, **{fwd: 1, bwd: 1}, freeform=2),
-              f'{name} grad step launched {gl}')
-        g_e = grads(sc.simulate)
-        rel = rel_err(g_f, g_e)
-        paths[name] = dict(fwd_launches=fl, grad_launches=gl, loss=l_f,
-                           eager_loss=l_e, rel_err=rel,
-                           grads=g_f[0].tolist(),
-                           eager_grads=g_e[0].tolist())
-        check(rel < (EX20_GRAD_RTOL if opl else GRAD_RTOL),
-              f'{name}: fused vs eager gradients {rel}')
+            check(abs(res['loss'] - res['eager_loss'])
+                  <= 1e-3 * abs(res['eager_loss']),
+                  f'{name}: fused loss {res["loss"]} vs eager '
+                  f'{res["eager_loss"]}')
+            check(res['rel_err'] < GRAD_RTOL,
+                  f'{name}: fused vs eager gradients {res["rel_err"]}')
     sc = ex26_scene(rt)
     rays, x0, y0 = ex26_rays(rt, torch, N_MAIN, dev, FREEFORM_SEED + 13)
     reset_counters()
@@ -5168,13 +5248,13 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
             scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
             # every scan intersects every freeform row (intersect_ops); K6
             # replays the scans and reverses the winners' steps, whose
-            # adjoint nonseq_ops counts at the forward's size: the rest of
-            # FF_BWD_FACTOR is added
+            # adjoint nonseq_ops counts at twice the forward's size: the
+            # rest of FF_BWD_FACTOR is added
             k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
                                         segment_replays(lives))
             bounds[key] = bound(io, k5_ops)
             bounds['k6'] = bound(io + r.n * 28 + len(meta) * cols * 4,
-                                 k6_ops + sum(w * (b - f) for w, (f, b)
+                                 k6_ops + sum(w * (b - 2 * f) for w, (f, b)
                                               in zip(wins, ff_f)))
         else:
             g_opl = torch.ones(r.n, device=dev) if opl else None
@@ -5189,15 +5269,16 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
             bp = (lambda: fused_trace.trace_seq_bwd_plain(
                 flat, r, cfg, meta, g_rays, g_mom, maps=maps, g_opl=g_opl))
             reps = dict(reps=10, warmup=2)
-            # intersect_ops counts the freeform rows' steps; K2 replays the
-            # chain, recomputes each row and reverses it (3 forwards, the
-            # freeform steps' reverse at FF_BWD_FACTOR of theirs)
+            # intersect_ops counts the freeform rows' steps; K2 runs the
+            # forward and an adjoint of twice its size (3 forwards), the
+            # freeform steps' reverse at FF_BWD_FACTOR of theirs: the rest
+            # of it is added
             k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m)
                                for m in meta)
             bounds[key] = bound(io, k1_ops)
             bounds[key.replace('k1', 'k2')] = bound(
                 io + r.n * 28 + len(meta) * cols * 4,
-                3 * k1_ops + r.n * sum(b - f for f, b in ff_f))
+                3 * k1_ops + r.n * sum(b - 2 * f for f, b in ff_f))
         k_ms, p_ms, k_runs, _ = time_pair(torch, kfn, pfn, **reps)
         timing[key] = dict(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs=k_runs,
                            ff_terms=[len(m.ff or ()) for m in meta])
@@ -5793,16 +5874,16 @@ def main():
                 c_scans, c_wins, lives = nonseq_work(
                     rt, torch, nsc, nsc.init_params(dev), rays)
                 res['max_live_bounces'] = int(lives.max())
-                for ck in sorted({K6_CHECKPOINTS, 8}):
+                ckpt = fused_nonseq.K6_CHECKPOINTS
+                for ck in sorted({ckpt, 8}):
                     rep = segment_replays(lives, ck)
                     res[f'replayed_bounces_{ck}'] = rep
                     res[f'bound_{ck}'] = dict(zip(('ms', 'by'), bound(
                         n * (32 + 28) + table_bytes(cmeta)
                         + len(cmeta) * 19 * 4,
                         nonseq_ops(cmeta, c_scans, c_wins, rep)[1])))
-                check(res['max_live_bounces'] > K6_CHECKPOINTS,
-                      f'no cavity ray lives beyond the {K6_CHECKPOINTS} '
-                      f'checkpoints')
+                check(res['max_live_bounces'] > ckpt,
+                      f'no cavity ray lives beyond the {ckpt} checkpoints')
             ns_bwd[f'{case}_{n}'] = res
     emit('nonseq_bwd', **ns_bwd)
 

@@ -963,3 +963,18 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
 }
+
+// The dynamic shared memory that a launch of the instantiation with freeform
+// surfaces takes, into *bytes: `disp` whether the table has a dispersive row,
+// `fuzzy_words` the program buffer's words.  The host's limit
+// (ops/fused_nonseq.py::freeform_k6_shared_bytes) is held to it.  Returns a
+// cudaError_t.
+extern "C" int rtt_trace_nonseq_bwd_freeform_smem(int n_rows, int n_slots, int n_bundles,
+                                                  int n_bounces, int disp, int fuzzy_words,
+                                                  long long* bytes) {
+  if (n_rows <= 0 || n_rows > 64 || n_bounces < 0 || bytes == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *bytes = static_cast<long long>(shared_bytes<true, true, true, true, true, true>(
+      n_rows, n_slots, n_bundles, n_bounces, disp ? kDispGradCols : 0, fuzzy_words));
+  return 0;
+}

@@ -316,7 +316,9 @@ _LIBRARIES = {
         + _PLATES + [_P] + _WAVE + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_opl': [_P, _P, _I] + [_P] * 31 + [_I, _I]
         + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY + [_I, _L, _P],
-        'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY}),
+        'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY,
+        'rtt_trace_nonseq_bwd_freeform_smem': [_I] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong)]}),
 }
 _fns = {}
 

@@ -111,11 +111,17 @@ def test_ptxas_usage_reads_each_kernel():
 
 
 def test_smoke_counts_replays_with_the_kernels_checkpoints():
-    """chip_smoke.K6_CHECKPOINTS, with which the bound counts K6's segment
-    replays, is the kernel's kCkpt; the widest table cotangent fits the
-    lanes of one warp (reduce_row's transpose reduce-scatter)."""
+    """chip_smoke.segment_replays, with which the bound counts K6's segment
+    replays, takes by default the kernel's kCkpt (fused_nonseq's copy); the
+    widest table cotangent fits the lanes of one warp (reduce_row's
+    transpose reduce-scatter)."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq
     src = (CSRC / 'trace_nonseq_bwd.cu').read_text()
     m = re.search(r'constexpr int kCkpt = (\d+);', src)
-    assert m and int(m.group(1)) == chip_smoke.K6_CHECKPOINTS
+    assert m and int(m.group(1)) == fused_nonseq.K6_CHECKPOINTS
+    k = int(m.group(1))
+    lives = torch.tensor([0, 1, k, k + 1, 2 * k, 2 * k + 1, 3 * k + 2])
+    # earlier segments m = (lives - 1) // k: 0, 0, 0, 1, 1, 2, 3
+    assert chip_smoke.segment_replays(lives) == k * (1 + 1 + 3 + 6)
     assert len(fused_trace.PLATE_GRAD_COLS) <= 32
 

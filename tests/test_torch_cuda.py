@@ -2196,3 +2196,41 @@ def test_freeform_instantiations_fit(dev):
             assert fused_trace.blocks_per_sm(
                 lib, len(meta), cfg, True, sc.n_bounces, ext=True,
                 diff=True, fuzzy_words=len(meta), freeform=True) >= 1, lib
+
+
+def _freeform_smem_scenes():
+    """Section 15's freeform Scene, alone, with a dispersive singlet and
+    with a fuzzy apodizer (whose programs fill the buffer) -> [Scene]."""
+    base = chip_smoke.ex19_scene(trt, chip_smoke.EX19_COEFFS,
+                                 chip_smoke.FF_NS_BOUNCES).elements
+    disp = trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                           abbe_vd=60.0, translation=[0, 0, 5.0],
+                           name='disp')
+    apod = trt.FuzzyAperture(lambda x, y, z: torch.exp(-(x * x + y * y) / 8.0),
+                             components=True, name='apod',
+                             translation=[0, 0, 10.0])
+    return [trt.Scene(base + extra, n_bounces=chip_smoke.FF_NS_BOUNCES)
+            for extra in ([], [disp], [apod])]
+
+
+@pytest.mark.cuda
+def test_freeform_shared_limit_is_the_kernels(dev):
+    """``fused_nonseq.freeform_k6_shared_bytes``, the host's limit of K6 with
+    freeform surfaces, equals the shared memory K6's launch takes
+    (``rtt_trace_nonseq_bwd_freeform_smem``) on the freeform Scene, with a
+    dispersive row and with fuzzy programs, at bounce budgets below, at and
+    above the checkpoints and at 1 and 3 bundles."""
+    import ctypes
+    query = fused_trace.kernel('rtt_trace_nonseq_bwd_freeform_smem')
+    for sc in _freeform_smem_scenes():
+        meta = fused_trace.TraceMeta(sc.static_meta(), sc.fuzzy_fns())
+        words = int(fused_trace.fuzzy_buffer(meta, dev).numel())
+        for bundles in (1, 3):
+            cfg = sc.sensor_config(bundles)
+            for bounces in (1, 8, fused_nonseq.K6_CHECKPOINTS, 25):
+                out = ctypes.c_longlong(0)
+                assert query(len(meta), max(cfg.n_sensors, 1), cfg.n_bundles,
+                             bounces, int(fused_trace.dispersive(meta)),
+                             words, ctypes.byref(out)) == 0
+                assert out.value == fused_nonseq.freeform_k6_shared_bytes(
+                    meta, cfg, bounces), (len(meta), bundles, bounces)

@@ -3,11 +3,8 @@ the JAX package on the CPU: K1/K2's against the JAX fused kernels in
 interpret mode on example 19's freeform corrector (its freeform rows
 traced into the TPU kernel there, the 8 Newton steps differentiated by
 ``jax.vjp``), K5/K6's against the JAX bounce loop and ``jax.grad`` through
-it on the same scene as a ``Scene``; and the fuzzy programs' lowered
-operations (``**``, ``clamp``, ``==``, ``!=``, ``minimum``, ``maximum``:
-ops/fuzzy_program.py) on an apodizer through the port's fused path against
-the JAX fused kernel in interpret mode on the same callable written with
-``jnp``.
+it on the same scene as a ``Scene``.  The fuzzy programs' lowered
+operations: tests/test_torch_fuzzy_ops.py.
 
 Tolerances as tests/test_torch_fuzzy_kernels.py's: per ray rtol 2e-4 /
 atol 1e-5 and the table rtol 1e-4 / atol 1e-5 of the stream's or field's
@@ -16,7 +13,6 @@ positions atol 1e-7 of the scene's depth (tests/test_torch_freeform.py).
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -28,7 +24,6 @@ from raytracetorch_tpu.rays.ray import Rays as JaxRays
 from raytracetorch_tpu_torch import interop
 from raytracetorch_tpu_torch.core.table import ROW_FIELDS, ROW_OFFSETS
 from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
-from raytracetorch_tpu_torch.ops import fuzzy_program as fp
 from test_torch_freeform import (EX19_TERMS, KEY, _close, _disk, _np,
                                  _pair)
 
@@ -150,65 +145,3 @@ def test_plain_k5_k6_match_jax_bounce_loop():
     got = pt['corrector']['xy1'].grad.numpy()
     assert np.abs(np.asarray(g)).min() > 0
     _close(got, np.asarray(g), rtol=1e-4, atol=1e-4 * np.abs(g).max())
-
-
-# ---- the fuzzy programs' lowered operations ----
-
-def apod_j(x, y, z):
-    r2 = x ** 2 + y ** 2
-    w = jnp.clip(1.0 - r2 / 20.0, 0.0, 1.0) ** 2
-    w = jnp.maximum(w, 0.05) * jnp.minimum(1.0 + 0.1 * x, 1.2)
-    return jnp.where((x == 0.0) | (y != y), 0.0, w)
-
-
-def apod_t(x, y, z):
-    r2 = x ** 2 + y ** 2
-    w = torch.clamp(1.0 - r2 / 20.0, 0.0, 1.0) ** 2
-    w = torch.maximum(w, torch.tensor(0.05)) * torch.minimum(
-        1.0 + 0.1 * x, torch.tensor(1.2))
-    return torch.where((x == 0.0) | (y != y), 0.0, w)
-
-
-def powers_t(x, y, z):
-    # a negative and a zero exponent beside the positive ones
-    return 1.0 / (4.0 + x ** 2) + (1.0 + y * y) ** -3 + z ** 0
-
-
-def test_lowered_fuzzy_ops_match_jax_kernel():
-    """An apodizer written with ``**``, ``clamp``, ``minimum``,
-    ``maximum``, ``==`` and ``!=`` traces into a program of the existing op
-    set (no new op code), whose value and partials equal the callable's and
-    autograd's, and goes through the port's fused path (K1's and K2's plain
-    versions) as the JAX fused kernel in interpret mode runs the ``jnp``
-    callable: intensities, moments and cotangents with the tolerances of
-    tests/test_torch_fuzzy.py."""
-    def scene(rt, fn):
-        return rt.SequentialScene([
-            rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
-                           name='lens'),
-            rt.FuzzyAperture(fn, components=True, name='apod',
-                             translation=[0, 0, 6.0]),
-            rt.SensorElement(radius=6.0, translation=[0, 0, 19.0],
-                             name='sensor')])
-    js, ts = scene(jrt, apod_j), scene(trt, apod_t)
-    prog = fp.trace(ts.fuzzy_fns()[min(ts.fuzzy_fns())])
-    assert max(code for code, *_ in prog.ops) < len(fp.OPS)
-    rng = np.random.default_rng(3)
-    x = torch.tensor(rng.uniform(-4, 4, 300), dtype=torch.float32)
-    y = torch.tensor(rng.uniform(-4, 4, 300), dtype=torch.float32)
-    z = torch.zeros(300)
-    for fn, p_ in ((apod_t, prog),
-                   (powers_t, fp.trace(trt.ComponentFuzzy(powers_t)))):
-        xg = x.clone().requires_grad_(True)
-        yg = y.clone().requires_grad_(True)
-        ref = fn(xg, yg, z)
-        w, (gx, gy, _) = fp.evaluate(p_, x, y, z, partials=True)
-        _close(w, ref.detach(), rtol=1e-6, atol=1e-7)
-        ax, ay = torch.autograd.grad(ref.sum(), (xg, yg))
-        _close(gx, ax, rtol=1e-5, atol=1e-6)
-        _close(gy, ay, rtol=1e-5, atol=1e-6)
-    rays_j, rays_t = _disk(128, 4.0, -10.0)
-    _kernels_vs_plain(js, ts, rays_j, rays_t, 19.0, js.fuzzy_fns(),
-                      ts.fuzzy_fns())
-    out = ts.simulate_fused(ts.init_params('cpu'), rays_t)[0]
-    assert 0.0 < float(out.intensity.sum()) < rays_t.n
