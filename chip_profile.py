@@ -69,7 +69,11 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   instantiations with them on example 19's corrector, example 20's Zernike
   corrector (with the path length) and example 26's Shack-Hartmann sensor,
   K5 and K6 on example 19's corrector as a Scene, and example 19's
-  ``simulate_fused`` and grad step (its freeform coefficients).
+  ``simulate_fused`` and grad step (its freeform coefficients);
+- convex solids, custom shapes and the point source (chip_smoke.py section
+  16): K1 and K2 on the bounds table, K5 and K6 on example 27's lightpipe,
+  the wedge and the axicon, the lightpipe's ``Scene.simulate_fused`` and
+  design step (its width and height).
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -684,6 +688,51 @@ def main():
         'freeform_simulate_fused_ex19': (lambda: ffsc.simulate_fused(
             ff_p, ff_rays), 'trace_seq_fwd_kernel'),
         'freeform_grad_step_fused_ex19': (ff_step, 'trace_seq_bwd')})
+    # convex solids, custom shapes and the point source (section 16)
+    for name in ('bounds', 'lightpipe', 'wedge', 'axicon'):
+        ssc, sp, sr, _ = cs.solid_case(rt, torch, name, n, dev,
+                                       cs.SOLID_SEED + 7)
+        smeta, scfg = ssc.static_meta(), ssc.sensor_config()
+        sflat = rt.flatten_table_rows(ssc.build_table(sp)).detach()
+        skinds = torch.tensor(fused_trace.kind_rows(smeta, scfg),
+                              dtype=torch.int32, device=dev)
+        smaps = fused_trace.plate_maps(smeta, {})
+        sgm = torch.ones(1, 1, 7, device=dev)
+        label = f'solid_{name}'
+        if ssc.sequential:
+            calls[f'{label}_k1'] = (
+                lambda f=sflat, k=skinds, r=sr, c=scfg, m=smaps:
+                fused_trace.trace_seq_fwd_cuda(f, k, r, c, m, True),
+                'trace_seq_fwd_kernel')
+            calls[f'{label}_k2'] = (
+                lambda f=sflat, k=skinds, r=sr, c=scfg, m=smaps, g=sgm:
+                fused_trace.trace_seq_bwd_cuda(f, k, r, c, (None,) * 7, g,
+                                               maps=m, ext=True),
+                'trace_seq_bwd')
+        else:
+            calls[f'{label}_k5'] = (
+                lambda f=sflat, k=skinds, r=sr, c=scfg, b=ssc.n_bounces,
+                m=smaps: fused_nonseq.trace_nonseq_fwd_cuda(f, k, r, c, b, m,
+                                                             True),
+                'trace_nonseq_fwd_kernel')
+            calls[f'{label}_k6'] = (
+                lambda f=sflat, k=skinds, r=sr, c=scfg, b=ssc.n_bounces,
+                m=smaps, g=sgm: fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, b, (None,) * 7, g, maps=m, ext=True),
+                'trace_nonseq_bwd_kernel')
+    lpsc = cs.lightpipe_scene(rt, grad=True)
+    lp_p, lp_rays = lpsc.init_params(dev), cs.lightpipe_rays(torch, n, dev)
+
+    def lp_step():
+        p = {k: dict(v) for k, v in lp_p.items()}
+        p['pipe']['width'] = lp_p['pipe']['width'].clone().requires_grad_(
+            True)
+        lpsc.simulate_fused(p, lp_rays)[1].spot_rms(0)[0].backward()
+    calls.update({
+        'solid_simulate_fused_lightpipe': (lambda: lpsc.simulate_fused(
+            lp_p, lp_rays), 'trace_nonseq_fwd_kernel'),
+        'solid_grad_step_fused_lightpipe': (lp_step,
+                                            'trace_nonseq_bwd_kernel')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

@@ -826,15 +826,21 @@ def compare_grid(torch, g_k, g_p, total_rtol):
     return res
 
 
-def compare_nonseq(torch, out_k, s_k, out_p, s_p):
+def compare_nonseq(torch, out_k, s_k, out_p, s_p, world=False):
     """K5 (or the eager bounce loop) vs the plain bounce loop -> dict;
-    raises on a breach (module notes: NS_*)."""
+    raises on a breach (module notes: NS_*).  ``world``: each ray's
+    positions and directions are held by ``traced_apart``'s world rule
+    (within POS_TOL of 1 + its world scale) in place of NS_POS_TOL, for rays
+    that run far from the origin (section 16's uncapped lightpipe)."""
     n = out_p.px.shape[0]
     comps = ('px', 'py', 'pz', 'dx', 'dy', 'dz')
-    dpos = torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
-                        for c in comps[:3]]).amax(0)
-    bad = ((dpos > NS_POS_TOL)
-           | ((out_k.intensity - out_p.intensity).abs() > NS_INT_TOL))
+    if world:
+        bad = traced_apart(torch, out_k, out_p, NS_INT_TOL, world=True)[0]
+    else:
+        dpos = torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
+                            for c in comps[:3]]).amax(0)
+        bad = ((dpos > NS_POS_TOL)
+               | ((out_k.intensity - out_p.intensity).abs() > NS_INT_TOL))
     for c in comps + ('intensity',):
         bad |= ~torch.isfinite(getattr(out_k, c))
     n_bad = int(bad.sum())
@@ -4071,7 +4077,9 @@ def diffractive_phases(rt, torch, dev, reset_counters, counters, only):
                 disp=disp, coat=coat, diff=True))
             bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
                 flat, r, cfg, meta, nb, g_rays, g_mom, maps=maps))
-            reps = dict(reps=4, warmup=1)
+            # the lightpipe's plain loop runs all 50 bounces of 1M rays
+            # eagerly (~5 s forward, ~6 s with autograd): timed once
+            plain_reps = (1, 0) if name == 'lightpipe' else (4, 1)
             scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
             k5_ops, k6_ops = nonseq_ops(meta, scans, wins,
                                         segment_replays(lives))
@@ -5312,6 +5320,661 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
                 design=design)
 
 
+# ---- Section 16: convex solids, custom shapes and the point source ----
+#
+# The HALFSPACES volume bound (a convex solid's face: the AND of its other
+# faces' outward half-spaces, which ride the row's hp columns) and the
+# CONE_NAPPE surface bound (a single cone's nappe) run in the instantiation
+# of the extended kinds of K1, K2, K5 and K6, and in every one built on it
+# (the wedge with fresnel=True: the Fresnel instantiation).  The scenes, at
+# N_MAIN rays: example 27's lightpipe homogenizer as published
+# (examples/27_lightpipe_homogenizer.py:31-49: a mirrored 4 x 4
+# Box4SideElement, the exit sensor at z = 40 with a 64^2 grid over +-2, 50
+# bounces, PointSource(na=0.35) at (0.9, 0.5, 0) drawn from key 0 as the
+# reference draws it, rays/reference_prng.py::point_source), also without
+# the pipe and at LP_RAYS; the glass wedge polyhedron and the box absorber
+# of tests/test_pallas.py:225-254 (6 bounces, the reference's collimated
+# disk of key 0), also with fresnel=True; the axicon of
+# tests/test_custom_elements.py:14-44 (a REFLECT single cone, slope 1,
+# lit by a collimated annulus, axicon_rays); and a sequential table in
+# which rays meet each bound (``bounds_scene``: the bench singlet, a box
+# face as a rectangular obscuration, a refracting single cone, a sensor),
+# for K1 and K2.  The design step: the lightpipe's width and height
+# trainable, the exit spot's RMS from the moments as the loss (the grid's
+# bins are flat in the hit positions and the mirrors keep the intensity, so
+# the grid gives no useful gradient), backward() through K5 and K6.
+SOLID_SEED = SEED + 1701
+LP_WIDTH, LP_LENGTH, LP_NA, LP_SOURCE = 4.0, 40.0, 0.35, (0.9, 0.5, 0.0)
+LP_RAYS, LP_BOUNCES, LP_GRID = 400_000, 50, (64, 64)
+WEDGE_ALPHA, WEDGE_GLASS, WEDGE_BOUNCES = 0.2, 1.5, 6
+AXICON_BOUNCES = 2
+SOLID_CASES = ('bounds', 'lightpipe', 'wedge', 'wedge_fresnel', 'axicon')
+# The central ~80% of the exit grid whose relative std the example checks
+LP_CENTRAL = slice(12, 52)
+# Example 27's anchors from the JAX package (tests/solid_anchors.py, on the
+# same key's rays): flux, the central relative std and the exit moments
+# (sum w, w x, w y, w x^2, w y^2, w x y, count) with and without the pipe at
+# LP_RAYS and N_MAIN rays; the wedge scene's moments at N_MAIN.
+LP_REF = {
+    'pipe_400000': dict(
+        flux=399973.0, rel_std=0.10219928330383267,
+        moments=(399973.0, -15003.498046875, -8632.8349609375, 533925.5,
+                 538592.5625, 1127.642822265625, 399973.0)),
+    'bare_400000': dict(
+        flux=10119.0, rel_std=0.6256432753757089,
+        moments=(10119.0, -38.41034698486328, 154.45582580566406,
+                 13442.572265625, 13322.3486328125, 113.84344482421875,
+                 10119.0)),
+    'pipe_1000000': dict(
+        flux=999937.0, rel_std=0.07161883187621654,
+        moments=(999937.0, -38185.96484375, -22008.609375, 1333472.875,
+                 1346008.125, -1389.06103515625, 999937.0)),
+    'bare_1000000': dict(
+        flux=25303.0, rel_std=0.3908695053697903,
+        moments=(25303.0, 161.34371948242188, 347.5049743652344,
+                 33637.56640625, 33629.8125, 175.82382202148438, 25303.0)),
+}
+WEDGE_MOMENTS_REF = (1000000.0, -2879329.0, 383.2080383300781, 9248790.0,
+                     1001488.875, -2530.645751953125, 1000000.0)
+# Tolerances against the JAX anchors.  The port draws the source's
+# directions with numpy's float32 cos, sin and arccos, the reference with
+# XLA's (an ulp apart), and K5 contracts multiply-adds: a ray whose exit
+# hit lies within rounding of the exit square's edge (the sensor's RECT
+# bound, at the pipe's walls) or that meets a wall within rounding of a
+# corner can end on the other side.  LP_FLIPS_PER_MILLION of them may flip,
+# each moving the flux by 1 and a moment by at most its extreme (2 for x,
+# 4 for x^2 on the 4 x 4 exit); the relative std moves by the bins'
+# reshuffle of rays an ulp from a bin edge (LP_STD_ATOL).  The port's
+# eager loop on the CPU on the same rays (tests/solid_anchors.py) reads 1
+# ray flipped at 400,000 and at 1M rays (flux 1 apart, moments within 2 / 4
+# of JAX's), its relative std 1.1e-5 and 2.7e-7 apart.
+LP_FLIPS_PER_MILLION = 30
+LP_STD_ATOL = 1e-3
+# LP_WORLD notes: a Box4Side has no caps, so a ray that has crossed the
+# exit sensor goes on reflecting down the pipe for the whole budget of 50
+# bounces (as in the JAX package), to z ~ 400-1200 mm; float32 rounds each
+# bounce's t and position to ~1e-7 of the coordinate, so K5 and the plain
+# loop (or float32 and float64) part by up to ~3e-3 mm there.  Section 16
+# therefore holds K5 and K6 to their plain versions by traced_apart's world
+# rule (POS_TOL of 1 + the ray's largest coordinate: the plain loop in
+# float32 against float64 reads 0 of 100,000 rays past 3e-6 of it); the
+# exit statistics (grid, moments, flux) come from the first ~10 bounces.
+# The HALFSPACES bound's operations: per active plane of a face, 3 products
+# (2 contracted), the offset, a compare and the mask's (K1 and K5 stop at
+# the first plane that rejects; the count is every active plane, an
+# accepted hit's work); CONE_NAPPE a product and a compare a root.
+HALFSPACE_PLANE_OPS, CONE_NAPPE_OPS = 7, 4
+
+
+# The SASS of every instantiation without the extended kinds (kExt = false:
+# the main path's and the plates-only ones), which this slice must not
+# change: sha256 (first 16 hex digits) of each kernel's `cuobjdump -sass`
+# listing with addresses, encodings, whitespace and the anonymous
+# namespace's hash stripped (sass_digests), read from the parent commit's
+# build on an NVIDIA H100 80GB HBM3 (the A/B of PR 17's first call, which
+# found this tree's equal) -> {library: {template arguments: digest}}.
+SASS_NO_EXT = {
+    'trace_seq_fwd': {'0,0': '4dcffb06ba91d2c7', '1,0': 'abea182f20a732c1'},
+    'trace_seq_bwd': {'0,0,0': '32d8c1114a5dcce5', '1,0,0': 'd4967b555f6bc35c',
+                      '0,1,0': '0f698b264124fd4e',
+                      '1,1,0': 'afd3ff09b28616af'},
+    'trace_nonseq_fwd': {'64,0,0': '2b72c16e13a3c5dd',
+                         '1,0,0': 'a3dd8a66842f008d',
+                         '64,1,0': 'a0517998fbf76f95',
+                         '1,1,0': '743dfdc6af310d8b'},
+    'trace_nonseq_bwd': {'0,0': '19e6d69b132f9fb7', '1,0': 'a78d2d8c8d9b5f2a'},
+}
+_NS_HASH = r'_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}'
+
+
+def sass_digests(path):
+    """{mangled kernel (namespace hash stripped): sha256 hex} of a library's
+    SASS, each listing with its addresses, encodings and spacing stripped
+    (the lines up to the next function's header belong to the listing)."""
+    import hashlib
+    import re
+    from raytracetorch_tpu_torch.ops.nvcc_build import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), 'cuobjdump')
+    out = subprocess.run([tool, '-sass', str(path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            cur = re.sub(_NS_HASH, 'NS', m.group(1))
+            funcs[cur] = []
+            continue
+        if cur is None:
+            continue
+        line = re.sub(r'/\*[0-9a-f]{4,}\*/', '', line)
+        line = re.sub(r'/\* 0x[0-9a-f]+ \*/', '', line)
+        line = re.sub(r'\s+', ' ', re.sub(_NS_HASH, 'NS', line)).strip()
+        if line:
+            funcs[cur].append(line)
+    return {k: hashlib.sha256('\n'.join(v).encode()).hexdigest()
+            for k, v in funcs.items()}
+
+
+def check_sass_no_ext():
+    """The SASS of the kernels without the extended kinds in the four trace
+    libraries as built here against SASS_NO_EXT -> dict; raises on a
+    difference or a missing kernel."""
+    import re
+    from raytracetorch_tpu_torch.ops import fused_trace, nvcc_build
+    res = {}
+    for lib, want in SASS_NO_EXT.items():
+        path = nvcc_build.library_path(lib, [fused_trace._LIBRARIES[lib][0]])
+        got = {}
+        for fn, digest in sass_digests(path).items():
+            m = re.search(r'_kernelI(\w+?)EEv', fn)
+            if m:
+                args = re.findall(r'L[ib](\d+)E', m.group(1) + 'E')
+                if args[-1] == '0':
+                    got[','.join(args)] = digest[:16]
+        res[lib] = dict(kernels=len(got), equal=got == want)
+        check(got == want, f'{lib}: the SASS of the kernels without the '
+              f'extended kinds changed: {got} vs {want}')
+    return res
+
+
+def lightpipe_scene(rt, with_pipe=True, grad=False, n_bounces=LP_BOUNCES):
+    """Example 27's scene (both packages: ``rt``): the mirrored pipe
+    (``grad``: its width and height trainable) and the exit sensor."""
+    els = []
+    if with_pipe:
+        els.append(rt.Box4SideElement(width=LP_WIDTH, height=LP_WIDTH,
+                                      ph_kind=rt.PhysKind.REFLECT,
+                                      w_grad=grad, h_grad=grad, name='pipe'))
+    els.append(rt.SensorElement(half_x=LP_WIDTH / 2, half_y=LP_WIDTH / 2,
+                                translation=[0, 0, LP_LENGTH], name='exit'))
+    sc = rt.Scene(els, n_bounces=n_bounces)
+    sc.grid_shape = LP_GRID
+    sc.grid_half_extent = LP_WIDTH / 2
+    return sc
+
+
+def lightpipe_rays(torch, n, device):
+    """The reference's PointSource(na=0.35) rays of key 0 at LP_SOURCE."""
+    from raytracetorch_tpu_torch.rays import reference_prng
+    return reference_prng.point_source(reference_prng.prng_key(0), n, LP_NA,
+                                       LP_SOURCE, device=device)
+
+
+def lightpipe_stats(grid, moments):
+    """(flux, central relative std) of an exit grid [H, W] and its slot's
+    moments [B, 7] (numpy or torch)."""
+    c = grid[LP_CENTRAL, LP_CENTRAL]
+    return (float(moments[0, 0]),
+            float(c.std() / max(float(c.mean()), 1e-12)))
+
+
+def wedge_scene(rt, fresnel=False, offsets_grad=False):
+    """tests/test_pallas.py:225-254 (both packages): the glass wedge
+    polyhedron (an entrance plane, a face tilted by WEDGE_ALPHA, four side
+    planes), a box absorber beside its beam and a sensor, 6 bounces."""
+    sa, ca = math.sin(WEDGE_ALPHA), math.cos(WEDGE_ALPHA)
+    prism = rt.CvxPolyhedronElement(
+        normals=[(0, 0, -1), (sa, 0, ca), (0, 1, 0), (0, -1, 0), (1, 0, 0),
+                 (-1, 0, 0)],
+        offsets=[0.0, 2.0, 5.0, 5.0, 8.0, 8.0], ior_glass=WEDGE_GLASS,
+        fresnel=fresnel, offsets_grad=offsets_grad, name='wedge')
+    return rt.Scene([prism,
+                     rt.BoxElement(length=2.0, width=2.0, height=2.0,
+                                   name='blocker',
+                                   translation=[6.0, 0.0, 15.0]),
+                     rt.SensorElement(radius=50.0, translation=[0, 0, 30.0],
+                                      name='s')], n_bounces=WEDGE_BOUNCES)
+
+
+def wedge_rays(torch, n, device):
+    """The reference's CollimatedDisk(radius 2) rays of key 0 at z = -5."""
+    from raytracetorch_tpu_torch.rays import reference_prng
+    return reference_prng.collimated_disk(reference_prng.prng_key(0), n, 2.0,
+                                          (0.0, 0.0, -5.0), device=device)
+
+
+def axicon_scene(rt):
+    """tests/test_custom_elements.py:14-44's 45-degree axicon mirror: a
+    REFLECT single cone (slope 1, its upper nappe) at z = 10."""
+    return rt.Scene([rt.ElementCustom(
+        rt.single_cone, 1, rt.PhysKind.REFLECT, extra={'slope': 1.0},
+        translation=[0.0, 0.0, 10.0], name='axicon')],
+        n_bounces=AXICON_BOUNCES)
+
+
+def axicon_rays(rt, torch, n, device, seed):
+    """+z rays over the annulus 0.5 <= r <= 3 at z = 0: the cone's apex is
+    a singular point (its normal and its hit's derivatives blow up as
+    1 / r; float32 against float64 reads a third of the table cotangent's
+    scale apart on a beam through it), so the beam leaves it out, as the
+    JAX test's ray at r = 2 does."""
+    from raytracetorch_tpu_torch.rays.sources import disk_sample
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pos = disk_sample(gen, n, 0.25, 9.0, torch.float32, torch.device(device))
+    return rt.Rays.create(pos, torch.tensor([[0.0, 0.0, 1.0]],
+                                            device=device).expand(n, 3))
+
+
+def obscuration_face(p, Re, te):
+    """A box face as an ElementCustom shape: a -z plane bounded by
+    |x| <= 1.5 and |y| <= 1.0 (its four neighbours' half-spaces)."""
+    from raytracetorch_tpu_torch.elements.base import compose_world
+    from raytracetorch_tpu_torch.elements.solids import box_face_recs
+    rec = box_face_recs([('-z', 0.0), ('+x', 1.5), ('-x', 1.5), ('+y', 1.0),
+                         ('-y', 1.0)], dtype=te.dtype, device=te.device)[0]
+    rec.Rw, rec.tw, _, _ = compose_world(Re, te, rec.Rs, rec.ts)
+    return [rec]
+
+
+def bounds_scene(rt):
+    """A sequential table in which rays meet both bounds (tests/
+    test_torch_solid_kernels.py::bounds_table): the bench singlet, the box
+    face's obscuration at z = 4 (BLOCK inside its rectangle), a refracting
+    single cone (slope 2, its slope trainable, apex at z = 7: every ray
+    crosses the lower nappe's root first, which CONE_NAPPE rejects) and a
+    sensor at z = 20."""
+    return rt.SequentialScene([
+        rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                       name='lens'),
+        rt.ElementCustom(obscuration_face, 1, rt.PhysKind.BLOCK,
+                         translation=[0, 0, 4.0], name='stop'),
+        rt.ElementCustom(rt.single_cone, 1, rt.PhysKind.SNELL,
+                         ph=(1.0, 1.3), extra={'slope': 2.0},
+                         extra_grad={'slope': True},
+                         translation=[0, 0, 7.0], name='cone'),
+        rt.SensorElement(radius=50.0, translation=[0, 0, 20.0],
+                         name='sensor')])
+
+
+def solid_case(rt, torch, name, n, device, seed):
+    """(scene, params, rays, key) of a section 16 case; ``key`` the Philox
+    key of the FRESNEL wedge (else None)."""
+    if name == 'bounds':
+        sc = bounds_scene(rt)
+        rays = sample_rays(rt, torch, n, device, seed)
+    elif name == 'lightpipe':
+        sc, rays = lightpipe_scene(rt), lightpipe_rays(torch, n, device)
+    elif name.startswith('wedge'):
+        sc = wedge_scene(rt, fresnel=name == 'wedge_fresnel')
+        rays = wedge_rays(torch, n, device)
+    else:
+        sc, rays = axicon_scene(rt), axicon_rays(rt, torch, n, device, seed)
+    return (sc, sc.init_params(device), rays,
+            FRESNEL_KEY if name == 'wedge_fresnel' else None)
+
+
+def halfspace_ops(table):
+    """Per row, the HALFSPACES bound's operations over its active planes
+    ([K] list)."""
+    return [HALFSPACE_PLANE_OPS * int(m) for m in
+            table.hp_mask.sum(1).tolist()]
+
+
+def solid_row_ops(meta, planes):
+    """A row's intersection operations with its bounds' (intersect_ops plus
+    its half-spaces' planes and a nappe's two roots)."""
+    return (intersect_ops(meta) + planes
+            + (2 * CONE_NAPPE_OPS if meta.sb == 6 else 0))
+
+
+def solid_kernels_vs_plain(rt, torch, name, n, device, seed):
+    """K1 and K2 (the Scenes: K5 and K6) in the instantiation with the
+    extended kinds (the FRESNEL wedge: with the Fresnel kinds) against their
+    plain versions on a section 16 case: the rays, moments and grid, then
+    the ray and table cotangents under seeded cotangents on the rays both
+    trace alike; K6's replay against K5 bit for bit -> dict; raises on a
+    breach."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    sc, params, rays, key = solid_case(rt, torch, name, n, device, seed)
+    meta, cfg = sc.static_meta(), sc.sensor_config()
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(fused_trace.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=device)
+    maps = fused_trace.plate_maps(meta, {})
+    ext, fresnel = fused_trace.ext_kinds(meta), key is not None
+    check(ext, f'{name}: the table has no extended kind')
+    nonseq = not sc.sequential
+    if nonseq:
+        nb = sc.n_bounces
+        out_k, s_k = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, fresnel=fresnel, key=key)
+        out_p, s_p = fused_nonseq.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nb, maps, key=key)
+        torch.cuda.synchronize()
+        # world rule: the lightpipe's rays run the whole budget down the
+        # uncapped pipe, to z ~ 400-1200 mm after 50 reflections, where
+        # float32 rounds a coordinate to 3-12e-5 (LP_WORLD notes)
+        res = compare_nonseq(torch, out_k, s_k, out_p, s_p, world=True)
+        apart = traced_apart(torch, out_k, out_p, NS_INT_TOL, world=True)[0]
+    else:
+        out_k, s_k = fused_trace.trace_seq_fwd_cuda(flat, kinds, rays, cfg,
+                                                    maps, ext)
+        out_p, s_p = fused_trace.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps)
+        torch.cuda.synchronize()
+        res = compare(torch, out_k, s_k, out_p, s_p)
+        apart = traced_apart(torch, out_k, out_p)[0]
+    res.update(rows=len(meta), apart=int(apart.sum()),
+               blocked=int((out_k.intensity == 0).sum()),
+               sensor_weight=s_k.moments[..., 0].sum().item())
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, device,
+                                              seed + 2)
+    if nonseq:
+        g_k = fused_nonseq.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, ext=ext, fresnel=fresnel, key=key, replay=True)
+        g_p = fused_nonseq.trace_nonseq_bwd_plain(
+            flat, rays, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+            maps=maps, key=key)
+    else:
+        g_k = fused_trace.trace_seq_bwd_cuda(flat, kinds, rays, cfg, g_rays,
+                                             g_mom, maps=maps, ext=ext)
+        g_p = fused_trace.trace_seq_bwd_plain(flat, rays, cfg, meta, g_rays,
+                                              g_mom, maps=maps)
+    torch.cuda.synchronize()
+    if nonseq:
+        out_r = fused_nonseq.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, fresnel=fresnel,
+            key=key)[0]
+        res['replay_equal'] = all(torch.equal(getattr(g_k[-1], c),
+                                              getattr(out_r, c))
+                                  for c in fused_trace.COMPS)
+        check(res['replay_equal'], f'{name}: K6 replay differs from K5')
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1],
+        allowed=max(3, math.ceil(NS_MISMATCH_SHARE * rays.n)) if nonseq
+        else None,
+        intensity_allowed=(math.ceil(GRID_SHARE * rays.n)
+                           if nonseq and cfg.grid_shape else 0))
+    res['bwd'].update(compare_table_cotangents(
+        torch, fused_trace, g_k[0], g_p[0], plates=True, ext=True))
+    return res
+
+
+def lightpipe_run(rt, torch, with_pipe, n, device, simulate='simulate_fused'):
+    """Example 27 at ``n`` rays through ``simulate`` -> dict of the flux,
+    the central relative std and the exit moments."""
+    sc = lightpipe_scene(rt, with_pipe)
+    rays = lightpipe_rays(torch, n, device)
+    with torch.no_grad():
+        _, sens, _ = getattr(sc, simulate)(sc.init_params(device), rays)
+    torch.cuda.synchronize()
+    flux, std = lightpipe_stats(sens.grid[0].double(),
+                                sens.moments[0].double())
+    return dict(flux=flux, rel_std=std, n=n,
+                moments=sens.moments[0, 0].double().tolist())
+
+
+def check_lightpipe_anchors(runs, n):
+    """Example 27's own checks and the JAX anchors (LP_REF) on the runs
+    {'pipe': ..., 'bare': ...} at ``n`` rays -> dict of the differences."""
+    pipe, bare = runs['pipe'], runs['bare']
+    check(pipe['flux'] > bare['flux'], f'{n}: pipe flux {pipe["flux"]} not '
+          f'above bare {bare["flux"]}')
+    check(pipe['flux'] > 0.999 * n, f'{n}: pipe flux {pipe["flux"]}')
+    check(bare['rel_std'] > 3 * pipe['rel_std'],
+          f'{n}: bare std {bare["rel_std"]} vs pipe {pipe["rel_std"]}')
+    check(pipe['rel_std'] < 0.12, f'{n}: pipe std {pipe["rel_std"]}')
+    flips = math.ceil(LP_FLIPS_PER_MILLION * n / 1e6)
+    out = {}
+    for label, run in runs.items():
+        ref = LP_REF[f'{label}_{n}']
+        d_mom = [abs(a - b) for a, b in zip(run['moments'], ref['moments'])]
+        limits = [flips, 2 * flips, 2 * flips, 4 * flips, 4 * flips,
+                  4 * flips, flips]
+        out[label] = dict(flux_err=abs(run['flux'] - ref['flux']),
+                          rel_std_err=abs(run['rel_std'] - ref['rel_std']),
+                          moment_errs=d_mom, moment_limits=limits)
+        check(abs(run['flux'] - ref['flux']) <= flips,
+              f'{label} {n}: flux {run["flux"]} vs JAX {ref["flux"]}')
+        check(abs(run['rel_std'] - ref['rel_std']) <= LP_STD_ATOL,
+              f'{label} {n}: std {run["rel_std"]} vs JAX {ref["rel_std"]}')
+        check(all(d <= m for d, m in zip(d_mom, limits)),
+              f'{label} {n}: moments {run["moments"]} vs JAX '
+              f'{ref["moments"]}')
+    return out
+
+
+def solid_grads(rt, torch, sc, params, rays, element, leaves, loss_fn):
+    """The loss and gradient in ``element``'s ``leaves`` through
+    simulate_fused and through the eager trace -> (loss_f, loss_e, {leaf:
+    (fused, eager)})."""
+    out = {}
+    losses = []
+    for simulate in (sc.simulate_fused, sc.simulate):
+        p = {k: dict(v) for k, v in params.items()}
+        for leaf in leaves:
+            p[element][leaf] = params[element][leaf].detach().clone() \
+                .requires_grad_(True)
+        res = simulate(p, rays)
+        loss = loss_fn(res)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        for leaf in leaves:
+            out.setdefault(leaf, []).append(p[element][leaf].grad.clone())
+    torch.cuda.synchronize()
+    return losses[0], losses[1], out
+
+
+def solid_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 16: the HALFSPACES and CONE_NAPPE bounds through K1, K2, K5
+    and K6: each kernel against its plain version at N_MAIN rays on the
+    lightpipe, the wedge (also with fresnel=True), the axicon and the
+    bounds table; the counted paths (example 27 with and without the pipe
+    at LP_RAYS and N_MAIN against its own checks and the JAX anchors, the
+    eager loop, the lightpipe's design step and the wedge's and the bounds
+    table's grad steps against the eager gradients); then times, bounds
+    (the half-spaces' planes counted) and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq, fused_trace
+    t0 = time.perf_counter()
+
+    # 16a. each kernel against its plain version
+    kern = {name: solid_kernels_vs_plain(rt, torch, name, N_MAIN, dev,
+                                         SOLID_SEED + 11)
+            for name in SOLID_CASES}
+    emit('solid_kernels_vs_plain', n=N_MAIN, **kern)
+
+    # 16b. example 27: simulate_fused (K5 once) with and without the pipe,
+    # at LP_RAYS and N_MAIN, against the example's checks and JAX's
+    paths = {}
+    for n in (LP_RAYS, N_MAIN):
+        runs = {}
+        for label in ('pipe', 'bare'):
+            reset_counters()
+            runs[label] = lightpipe_run(rt, torch, label == 'pipe', n, dev)
+            runs[label]['launches'] = fl = counters()
+            want = dict(trace_nonseq_fwd=1, ext=1) if label == 'pipe' \
+                else dict(trace_nonseq_fwd=1)
+            check(only(fl, **want), f'lightpipe {label} launched {fl}')
+        runs['anchors'] = check_lightpipe_anchors(
+            {k: runs[k] for k in ('pipe', 'bare')}, n)
+        paths[f'ex27_{n}'] = runs
+    # the eager loop (K3 per bounce) on the pipe at LP_RAYS
+    reset_counters()
+    eager = lightpipe_run(rt, torch, True, LP_RAYS, dev, 'simulate')
+    eager['launches'] = el = counters()
+    check(el['grid_bin'] >= 1 and only(el, grid_bin=el['grid_bin']),
+          f'eager lightpipe launched {el}')
+    fused = paths[f'ex27_{LP_RAYS}']['pipe']
+    check(abs(eager['flux'] - fused['flux'])
+          <= math.ceil(LP_FLIPS_PER_MILLION * LP_RAYS / 1e6)
+          and abs(eager['rel_std'] - fused['rel_std']) <= LP_STD_ATOL,
+          f'eager lightpipe {eager} vs fused {fused}')
+    paths['ex27_eager'] = eager
+
+    # the design step: the exit spot's RMS in the pipe's width and height
+    sc = lightpipe_scene(rt, grad=True)
+    rays = lightpipe_rays(torch, N_MAIN, dev)
+    params = sc.init_params(dev)
+    reset_counters()
+    with torch.no_grad():
+        sc.simulate_fused(params, rays)
+    torch.cuda.synchronize()
+    fl = counters()
+    check(only(fl, trace_nonseq_fwd=1, ext=1), f'design fwd launched {fl}')
+    reset_counters()
+    p = {k: dict(v) for k, v in params.items()}
+    for leaf in ('width', 'height'):
+        p['pipe'][leaf] = params['pipe'][leaf].clone().requires_grad_(True)
+    sc.simulate_fused(p, rays)[1].spot_rms(0)[0].backward()
+    torch.cuda.synchronize()
+    gl = counters()
+    check(only(gl, trace_nonseq_fwd=1, trace_nonseq_bwd=1, ext=2),
+          f'design step launched {gl}')
+    lf, le, g = solid_grads(rt, torch, sc, params, rays, 'pipe',
+                            ('width', 'height'),
+                            lambda res: res[1].spot_rms(0)[0])
+    design = dict(fwd_launches=fl, grad_launches=gl, loss=lf, eager_loss=le,
+                  grads={k: [float(v[0]), float(v[1])] for k, v in g.items()})
+    for leaf, (gf, ge) in g.items():
+        check(abs(float(gf) - float(ge)) <= GRAD_RTOL * abs(float(ge)),
+              f'design step: {leaf} gradient {float(gf)} vs eager '
+              f'{float(ge)}')
+    check(abs(lf - le) <= 1e-3 * abs(le), f'design loss {lf} vs {le}')
+    paths['lightpipe_design'] = design
+
+    # the wedge's grad step in its offsets (K5 + K6) and the bounds table's
+    # in the cone's slope (K1 + K2), against the eager gradients
+    for name, element, leaf, sc, rays, fwd, bwd in (
+            ('wedge', 'wedge', 'offsets', wedge_scene(rt, offsets_grad=True),
+             wedge_rays(torch, N_MAIN, dev), 'trace_nonseq_fwd',
+             'trace_nonseq_bwd'),
+            ('bounds', 'cone', 'slope', bounds_scene(rt),
+             sample_rays(rt, torch, N_MAIN, dev, SOLID_SEED + 13),
+             'trace_seq_fwd', 'trace_seq_bwd')):
+        params = sc.init_params(dev)
+        reset_counters()
+        with torch.no_grad():
+            sc.simulate_fused(params, rays)
+        torch.cuda.synchronize()
+        fl = counters()
+        check(only(fl, **{fwd: 1}, ext=1), f'{name} launched {fl}')
+        reset_counters()
+        lf, le, g = solid_grads(
+            rt, torch, sc, params, rays, element, (leaf,),
+            lambda res: res[1].spot_rms(0)[0] + res[1].centroid(0)[0][0])
+        gl = counters()
+        check(only(gl, **{fwd: 1, bwd: 1}, ext=2),
+              f'{name} grad step launched {gl}')
+        gf, ge = g[leaf]
+        err = float((gf - ge).norm() / ge.norm())
+        paths[f'{name}_grad'] = dict(fwd_launches=fl, grad_launches=gl,
+                                     loss=lf, eager_loss=le, norm_err=err,
+                                     grads=gf.tolist(), eager=ge.tolist())
+        check(err < GRAD_RTOL, f'{name}: fused vs eager gradients {err}')
+        check(abs(lf - le) <= 1e-3 * abs(le), f'{name} loss {lf} vs {le}')
+    # the wedge's moments against the JAX anchor
+    sc = wedge_scene(rt)
+    with torch.no_grad():
+        _, s_w, _ = sc.simulate_fused(sc.init_params(dev),
+                                      wedge_rays(torch, N_MAIN, dev))
+    wm = s_w.moments[0, 0].double().tolist()
+    paths['wedge_moments'] = dict(moments=wm, ref=list(WEDGE_MOMENTS_REF))
+    scale = moment_scale(torch, torch.tensor(WEDGE_MOMENTS_REF))
+    check(all(abs(a - b) <= NS_MOMENT_RTOL * max(float(s), abs(b)) + 1e-6
+              for a, b, s in zip(wm, WEDGE_MOMENTS_REF, scale)),
+          f'wedge moments {wm} vs JAX {WEDGE_MOMENTS_REF}')
+    emit('solid_main', n=N_MAIN, **paths)
+
+    # 16c. times at N_MAIN against the plain versions, bounds and blocks
+    timing, bounds, occ = {}, {}, {}
+    for name, key1, key2 in (('bounds', 'k1', 'k2'), ('lightpipe', 'k5', 'k6'),
+                             ('wedge', 'k5_wedge', 'k6_wedge')):
+        sc, params, r, key = solid_case(rt, torch, name, N_MAIN, dev,
+                                        SOLID_SEED + 7)
+        meta, cfg = sc.static_meta(), sc.sensor_config()
+        table = sc.build_table(params)
+        flat = rt.flatten_table_rows(table).detach()
+        kinds = torch.tensor(fused_trace.kind_rows(meta, cfg),
+                             dtype=torch.int32, device=dev)
+        maps = fused_trace.plate_maps(meta, {})
+        g_rays, g_mom, g_grid = random_cotangents(torch, r.n, cfg, dev,
+                                                  SEED + 6)
+        planes = halfspace_ops(table)
+        io = r.n * (36 + 28) + table_bytes(meta) + grid_bytes(cfg)
+        cols = len(fused_trace.grad_cols((), True))
+        if sc.sequential:
+            kfn = (lambda: fused_trace.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, True))
+            pfn = (lambda: fused_trace.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps))
+            bk = (lambda: fused_trace.trace_seq_bwd_cuda(
+                flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=True))
+            bp = (lambda: fused_trace.trace_seq_bwd_plain(
+                flat, r, cfg, meta, g_rays, g_mom, maps=maps))
+            plain_reps = (4, 1)
+            k1_ops = r.n * sum(solid_row_ops(m, h) + apply_ops(m)
+                               for m, h in zip(meta, planes))
+            bounds[key1] = bound(io, k1_ops)
+            bounds[key2] = bound(io + r.n * 28 + len(meta) * cols * 4,
+                                 3 * k1_ops)
+        else:
+            nb = sc.n_bounces
+            kfn = (lambda: fused_nonseq.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, nb, maps, True))
+            pfn = (lambda: fused_nonseq.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, nb, maps))
+            bk = (lambda: fused_nonseq.trace_nonseq_bwd_cuda(
+                flat, kinds, r, cfg, nb, g_rays, g_mom, g_grid=g_grid,
+                maps=maps, ext=True))
+            bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
+                flat, r, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
+                maps=maps))
+            reps = dict(reps=4, warmup=1)
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
+            replayed = segment_replays(lives)
+            # nonseq_ops with every row's scan counting its planes
+            scan_extra = sum(h + (2 * CONE_NAPPE_OPS if m.sb == 6 else 0)
+                             for m, h in zip(meta, planes))
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins, replayed)
+            k5_ops += scans * scan_extra
+            k6_ops += (scans + replayed) * scan_extra + 3 * sum(
+                w * h for w, h in zip(wins, planes))
+            bounds[key1] = bound(io, k5_ops)
+            bounds[key2] = bound(io + r.n * 28 + len(meta) * cols * 4,
+                                 k6_ops)
+            timing[f'{name}_work'] = dict(scans=scans, wins=wins,
+                                          replayed=replayed,
+                                          max_bounces=int(lives.max()))
+        # each kernel: 10 events after 2 warm-ups; its plain version, a
+        # reference only, plain_reps events after as many warm-ups
+        for key, kf, pf in ((key1, kfn, pfn), (key2, bk, bp)):
+            k_runs = time_ms(torch, kf, warmup=2, reps=10)
+            p_runs = time_ms(torch, pf, warmup=plain_reps[1],
+                             reps=plain_reps[0])
+            timing[key] = dict(kernel_ms=statistics.median(k_runs),
+                               plain_ms=statistics.median(p_runs),
+                               kernel_runs=k_runs)
+        for lib in (('trace_seq_fwd', 'trace_seq_bwd') if sc.sequential
+                    else ('trace_nonseq_fwd', 'trace_nonseq_bwd')):
+            occ[f'{lib}_{name}'] = fused_trace.blocks_per_sm(
+                lib, len(meta), cfg, True, sc.n_bounces, ext=True)
+    sc = lightpipe_scene(rt, grad=True)
+    params, rays = sc.init_params(dev), lightpipe_rays(torch, N_MAIN, dev)
+
+    def step():
+        p = {k: dict(v) for k, v in params.items()}
+        p['pipe']['width'] = params['pipe']['width'].clone() \
+            .requires_grad_(True)
+        sc.simulate_fused(p, rays)[1].spot_rms(0)[0].backward()
+    for label, fn in (
+            ('simulate_fused_lightpipe', lambda: sc.simulate_fused(params,
+                                                                   rays)),
+            ('grad_step_fused_lightpipe', step)):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{label}_ms'] = statistics.median(runs)
+        timing[f'{label}_runs'] = runs
+    emit('solid_timing', **timing)
+    emit('solid_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('solid_occupancy', blocks_per_sm=occ)
+    # 16d. the kernels without the extended kinds keep their SASS
+    emit('solid_sass_no_ext', **check_sass_no_ext())
+    emit('solid_seconds', seconds=time.perf_counter() - t0)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -6269,6 +6932,9 @@ def main():
     # 15. freeform, Zernike and wedge lenses
     freeform = freeform_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 16. convex solids, custom shapes and the point source
+    solid = solid_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -6875,6 +7541,30 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, ff_t[key]['kernel_ms'],
             ff_t[key]['plain_ms']))
+    # the extended kinds' instantiation with the solids' and cones' bounds
+    # (section 16): launches on the counted paths of the bounds table (K1,
+    # K2) and example 27's lightpipe (K5, K6), errors at 1M rays over the
+    # cases, times and bounds on those two
+    so_k, so_t, so_b = solid['kernels'], solid['timing'], solid['bounds']
+    so_p = solid['paths']
+    ns_cases = [c for c in SOLID_CASES if c != 'bounds']
+    for name, source, line, launches_, err, key in (
+            ('trace_seq_fwd_solids', 'trace_seq_fwd.cu', 489,
+             so_p['bounds_grad']['fwd_launches']['trace_seq_fwd'],
+             so_k['bounds']['max_abs_err'], 'k1'),
+            ('trace_seq_bwd_solids', 'trace_seq_bwd.cu', 1712,
+             so_p['bounds_grad']['grad_launches']['trace_seq_bwd'],
+             so_k['bounds']['bwd']['max_abs_err'], 'k2'),
+            ('trace_nonseq_fwd_solids', 'trace_nonseq_fwd.cu', 1029,
+             so_p['lightpipe_design']['fwd_launches']['trace_nonseq_fwd'],
+             max(so_k[c]['max_abs_err'] for c in ns_cases), 'k5'),
+            ('trace_nonseq_bwd_solids', 'trace_nonseq_bwd.cu', 2157,
+             so_p['lightpipe_design']['grad_launches']['trace_nonseq_bwd'],
+             max(so_k[c]['bwd']['max_abs_err'] for c in ns_cases), 'k6')):
+        bounds[name] = so_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, so_t[key]['kernel_ms'],
+            so_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -80,7 +80,14 @@ Hopper.  The port covers:
   terms ``z1``/``z2``, expanded exactly into monomials on the host:
   geom/zernike.py) and ``WedgePrism``, eager and through K1, K2, K5 and K6
   (an instantiation of their own, which runs the Newton refinement of the
-  freeform roots and, in K2 and K6, its reverse).
+  freeform roots and, in K2 and K6, its reverse);
+- convex solids, custom shapes and the point source: ``BoxElement``,
+  ``Box4SideElement`` and ``CvxPolyhedronElement`` (faces bounded by each
+  other's half-spaces, HALFSPACES), ``ElementCustom`` on the shape builders
+  of elements/shapes.py (``plane`` to ``single_cone``, whose one nappe is
+  the CONE_NAPPE bound) with an optional coating, and ``PointSource``, eager
+  and through K1, K2, K5 and K6 (the two bounds run in the instantiation
+  of the extended kinds and every one built on it).
 
 ROADMAP.md lists what is still to be ported.
 
@@ -104,7 +111,8 @@ from .elements.aperture import (CircularAperture,  # noqa: E402
                                 ComponentFuzzy, EllipticAperture,
                                 FuzzyAperture, ObscuredAperture,
                                 RectangularAperture)
-from .elements.base import Element  # noqa: E402
+from .elements import shapes  # noqa: E402
+from .elements.base import Element, ElementCustom  # noqa: E402
 from .elements.diffractive import DiffractiveLens, PhaseGridPlate  # noqa: E402
 from .elements.ideal import (DiffractionGrating, IdealCylThinLens,  # noqa: E402
                              IdealMirror, IdealThinLens, LinearElement,
@@ -119,6 +127,11 @@ from .elements.mirror import (AsphericMirror, ConicMirror,  # noqa: E402
                               ParabolicMirrorXZ, SphericalMirror)
 from .elements.mla import MicrolensArray  # noqa: E402
 from .elements.sensor import SensorElement  # noqa: E402
+from .elements.shapes import (cone, cylinder, disk, ellipse,  # noqa: E402
+                              half_cyl, half_sphere, plane, quadric,
+                              quadric_zy, rectangle, single_cone, sphere)
+from .elements.solids import (Box4SideElement, BoxElement,  # noqa: E402
+                              CvxPolyhedronElement, box_face_recs)
 from .geom.transform import Frame, rodrigues  # noqa: E402
 from .geom.zernike import (noll_nm, zernike_monomial_map,  # noqa: E402
                            zernike_xy_poly)
@@ -136,7 +149,8 @@ from .optim.fit import (fit, fit_lbfgs, fit_lm, grad_mask_fn,  # noqa: E402
 from .optim.goals import (focal_length_loss, spot_size_loss,  # noqa: E402
                           spot_target_loss)
 from .rays.ray import Rays  # noqa: E402
-from .rays.sources import Bundle, CollimatedDisk, sample_bundles  # noqa: E402
+from .rays.sources import (Bundle, CollimatedDisk, PointSource,  # noqa: E402
+                           cdf_phi, sample_bundles, solid_angle_dirs)
 from .scene.scene import Scene, SequentialScene  # noqa: E402
 from .utils.coatings import (METAL_GRID_UM, METAL_NK, METALS,  # noqa: E402
                               coating_rt, metal_nk_at, metal_reflectance,

@@ -74,7 +74,8 @@ def intersect(row, pos, direction, static_meta):
     hit_s = v3.fma(o_s, t, d_s)
     hit_e = v3.add(v3.rot_t(hit_s, row.Rs), v3.from_array(row.ts))
     if static_meta.vb != VBKind.NONE:
-        valid = valid & vb_check_one(static_meta.vb, row.vb, hit_e)
+        valid = valid & vb_check_one(static_meta.vb, row.vb, hit_e,
+                                     (row.hp_n, row.hp_d, row.hp_mask))
     return dict(t=t, valid=valid, hit_s=hit_s, hit_e=hit_e, o_s=o_s,
                 d_s=d_s)
 

@@ -6,9 +6,11 @@ sequential trace every row's kinds are known before the trace runs
 one physics model.
 
 The port covers the kinds of the main path, of the mirror family, of the
-pixelated phase plate, of the mixed-surface and asphere scenes and of the
-diffractive and ideal elements: surface bounds NONE/DISK/RECT/ELLIPSE/HEMI/
-HEMI_APER, volume bounds NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE, physics
+pixelated phase plate, of the mixed-surface and asphere scenes, of the
+diffractive and ideal elements and of the convex solids and custom shapes:
+surface bounds NONE/DISK/RECT/ELLIPSE/HEMI/HEMI_APER/CONE_NAPPE (one nappe
+of a cone), volume bounds NONE/APER_R2/Z_BETWEEN/RECT/CYL_EDGE/HALFSPACES
+(the AND of a solid's other faces' outward half-spaces), physics
 TRANSMIT, BLOCK, REFLECT (the ideal mirror, and a metal one:
 ``mirror_reflectances_sp``), SNELL, APERTURE and PHASE_GRID, the ideal ABCD
 map LINEAR, the linear GRATING, the radial-phase kinoform DOE (its
@@ -20,16 +22,17 @@ reflection, intensity times R) on bare or thin-film coated interfaces
 (``coated_rt_sp``, absorbing films included), even-asphere and freeform
 rows (``meta.ff``, the static exponent pairs), and dispersive media (Cauchy
 and Sellmeier, ``dispersive_iors``).  Every other kind (SCATTER, the
-polarized field's JONES, GRIN, CONE_NAPPE, HALFSPACES) raises
-NotImplementedError naming the ROADMAP item that brings it.  ``medium_after`` gives the index of the medium a ray travels in
-after a row, for the optical path length (``track_opl``).
+polarized field's JONES, GRIN) raises NotImplementedError naming the
+ROADMAP item that brings it.  ``medium_after`` gives the index of the
+medium a ray travels in after a row, for the optical path length
+(``track_opl``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..constants import (CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS,
+from ..constants import (CVX_EPS, CYL_EDGE_EPS, CYL_RECT_EPS, INTERSECT_EPS,
                          DispModel, PhysKind, SBKind, VBKind)
 from ..geom import vec3 as v3
 from ..geom.surfaces import sag_z
@@ -73,12 +76,17 @@ def sb_check_one(kind: int, sb, hit):
     if kind == SBKind.HEMI_APER:
         return ((torch.abs(z * sb[..., 0]) < 1.0 + INTERSECT_EPS)
                 & (x * x + y * y <= sb[..., 1]))
+    if kind == SBKind.CONE_NAPPE:
+        # [slope]: the nappe on the slope's side of z = 0
+        return z * sb[..., 0] >= -INTERSECT_EPS
     raise NotImplementedError(
         f'surface bound {SBKind(kind).name} is {TODO_ELEMENTS}')
 
 
-def vb_check_one(kind: int, vb, hit):
-    """Single-kind volume bound on the element-frame hit."""
+def vb_check_one(kind: int, vb, hit, hp=None):
+    """Single-kind volume bound on the element-frame hit.  ``hp`` is the
+    row's ``(hp_n [P, 3], hp_d [P], hp_mask [P])`` for HALFSPACES (the mask
+    bool, or float 0/1 as a flat row carries it)."""
     x, y, z = hit
     if kind == VBKind.NONE:
         return torch.ones(x.shape, dtype=torch.bool, device=x.device)
@@ -96,6 +104,14 @@ def vb_check_one(kind: int, vb, hit):
         z_back = sag_z(vb[..., 2], y) + vb[..., 3]
         return (_in_rect(vb, 4, x, y) & (z >= z_front + CYL_EDGE_EPS)
                 & (z <= z_back - CYL_EDGE_EPS))
+    if kind == VBKind.HALFSPACES:
+        # inside every active plane n . h - d < CVX_EPS (a solid's face
+        # omits its own plane)
+        hp_n, hp_d, hp_mask = hp
+        active = hp_mask if hp_mask.dtype == torch.bool else hp_mask > 0.5
+        signed = (hp_n[..., 0] * x[..., None] + hp_n[..., 1] * y[..., None]
+                  + hp_n[..., 2] * z[..., None]) - hp_d
+        return torch.all((signed < CVX_EPS) | ~active, dim=-1)
     raise NotImplementedError(
         f'volume bound {VBKind(kind).name} is {TODO_ELEMENTS}')
 
@@ -174,10 +190,10 @@ def unsupported(meta: StaticRowMeta):
             meta.doe is not None and 1 <= meta.doe[0] <= 8):
         return 'a DOE row needs its static (1..8 terms, efficiency) doe'
     if meta.sb not in (SBKind.NONE, SBKind.DISK, SBKind.RECT, SBKind.ELLIPSE,
-                       SBKind.HEMI, SBKind.HEMI_APER):
+                       SBKind.HEMI, SBKind.HEMI_APER, SBKind.CONE_NAPPE):
         return f'surface bound {SBKind(meta.sb).name} is {TODO_ELEMENTS}'
     if meta.vb not in (VBKind.NONE, VBKind.APER_R2, VBKind.Z_BETWEEN,
-                       VBKind.RECT, VBKind.CYL_EDGE):
+                       VBKind.RECT, VBKind.CYL_EDGE, VBKind.HALFSPACES):
         return f'volume bound {VBKind(meta.vb).name} is {TODO_ELEMENTS}'
     return None
 

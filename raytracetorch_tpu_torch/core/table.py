@@ -113,6 +113,8 @@ class SurfaceRec:
     sb_invert: bool = False
     vb_kind: int = VBKind.NONE
     vb: Sequence = ()
+    halfspaces: Sequence = ()    # (normal [3], offset) pairs of a HALFSPACES
+                                 # row, element frame, up to MAX_HALFSPACES
     ph_kind: int = PhysKind.TRANSMIT
     ph: Sequence = ()            # up to 6: ior_in, ior_out, ...
     asph: Sequence = ()          # even-asphere a4..a10 (is_asphere marks use)
@@ -147,12 +149,38 @@ def _pad_vec(values, width, dtype, device):
     return torch.stack(vals[:width])
 
 
+def _hp_columns(recs, dtype, device):
+    """``hp_n [K, P, 3]``, ``hp_d [K, P]`` and ``hp_mask [K, P]`` of the
+    records' half-spaces, padded to P = MAX_HALFSPACES (zeros and False
+    past a row's own; all zeros when no row has any)."""
+    k = len(recs)
+    hp_n = torch.zeros(k, MAX_HALFSPACES, 3, dtype=dtype, device=device)
+    hp_d = torch.zeros(k, MAX_HALFSPACES, dtype=dtype, device=device)
+    mask = torch.zeros(k, MAX_HALFSPACES, dtype=torch.bool, device=device)
+    if not any(r.halfspaces for r in recs):
+        return hp_n, hp_d, mask
+    zero3, zero = hp_n[0, 0], hp_d[0, 0]
+    ns, ds, ms = [], [], []
+    for r in recs:
+        if len(r.halfspaces) > MAX_HALFSPACES:
+            raise ValueError(f'a row takes at most {MAX_HALFSPACES} '
+                             f'half-spaces, got {len(r.halfspaces)}')
+        pad = MAX_HALFSPACES - len(r.halfspaces)
+        ns.append(torch.stack([torch.as_tensor(n, dtype=dtype, device=device)
+                               for n, _ in r.halfspaces] + [zero3] * pad))
+        ds.append(torch.stack([torch.as_tensor(d, dtype=dtype, device=device)
+                               for _, d in r.halfspaces] + [zero] * pad))
+        ms.append([True] * len(r.halfspaces) + [False] * pad)
+    return (torch.stack(ns), torch.stack(ds),
+            torch.tensor(ms, dtype=torch.bool, device=device))
+
+
 def stack_records(recs, elem_ids, surf_ids, dtype=torch.float32,
                   device=None):
     """Pack SurfaceRecs into a SurfaceTable on ``device``."""
-    k = len(recs)
     eye = torch.eye(3, dtype=dtype, device=device)
     zero3 = torch.zeros(3, dtype=dtype, device=device)
+    hp_n, hp_d, hp_mask = _hp_columns(recs, dtype, device)
 
     def t(v):
         return torch.as_tensor(v, dtype=dtype, device=device)
@@ -177,10 +205,7 @@ def stack_records(recs, elem_ids, surf_ids, dtype=torch.float32,
         sb_invert=bools(r.sb_invert for r in recs),
         vb_kind=ints(r.vb_kind for r in recs),
         vb=torch.stack([_pad_vec(r.vb, 8, dtype, device) for r in recs]),
-        hp_n=torch.zeros(k, MAX_HALFSPACES, 3, dtype=dtype, device=device),
-        hp_d=torch.zeros(k, MAX_HALFSPACES, dtype=dtype, device=device),
-        hp_mask=torch.zeros(k, MAX_HALFSPACES, dtype=torch.bool,
-                            device=device),
+        hp_n=hp_n, hp_d=hp_d, hp_mask=hp_mask,
         ph_kind=ints(r.ph_kind for r in recs),
         ph=torch.stack([_pad_vec(r.ph, 6, dtype, device) for r in recs]),
         asph=torch.stack([_pad_vec(r.asph, 4, dtype, device) for r in recs]),

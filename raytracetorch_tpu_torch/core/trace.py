@@ -31,8 +31,9 @@ intensity factor by its callable of the surface-local hit after the row's
 physics (elements/aperture.py::call_fuzzy), in both loops, as the
 reference's do; any callable runs here.  The field stream and ``E0`` come
 with the polarization elements (ROADMAP Queue 1 item 14) and raise; so do
-rows of the kinds the port lacks (GRIN, HALFSPACES, scatter), through
-``unsupported``.
+rows of the kinds the port lacks (GRIN, JONES, scatter), through
+``unsupported``.  A solid's faces (HALFSPACES) read their row's half-space
+columns in both loops, a flat row's mask as float 0/1.
 
 The Fresnel kinds FRESNEL_W and REFLECT_W are deterministic; FRESNEL draws
 one uniform per ray (rays/draws.py).  ``trace_sequential`` takes the

@@ -11,8 +11,9 @@
 // extended kinds included), the optical path length, the Fresnel kinds
 // with their draws, thin-film coatings and metal mirrors, the diffractive
 // and ideal elements, component-style fuzzy apodization (the TPU kernel's
-// fuzzy_fns, :2292) and freeform surfaces, with every other optional
-// stream off.
+// fuzzy_fns, :2292), freeform surfaces and the solids' and cones' bounds
+// (HALFSPACES, CONE_NAPPE: decisions without a cotangent, which the replay
+// takes through K5's nonseq_bounce), with every other optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.

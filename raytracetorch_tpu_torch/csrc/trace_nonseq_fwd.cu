@@ -12,8 +12,10 @@
 // coatings and metal mirrors (one more), the diffractive and ideal elements
 // (one more), component-style fuzzy apodization (one more;
 // _nonseq_bounce_core :967-968) and freeform surfaces (one more; its
-// intersect :879 and normal_world :942): no scatter draws, field, GRIN or
-// HALFSPACES rows.
+// intersect :879 and normal_world :942); a convex solid's HALFSPACES bound
+// (the TPU kernel's scalar plane reads, :821, :1249) and a single cone's
+// CONE_NAPPE bound run in the extended kinds' instantiation and every one
+// built on it: no scatter draws, field or GRIN rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.

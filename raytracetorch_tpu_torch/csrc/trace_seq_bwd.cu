@@ -9,7 +9,9 @@
 // g_nfinal), the Fresnel kinds with K1's pre-drawn uniforms (the TPU
 // kernel's u_vals, :1883-1891), thin-film coatings and metal mirrors, the
 // diffractive and ideal elements, component-style fuzzy apodization (the
-// TPU kernel's fuzzy_fns, :1775) and freeform surfaces, with every other
+// TPU kernel's fuzzy_fns, :1775), freeform surfaces and the solids' and
+// cones' bounds (HALFSPACES, CONE_NAPPE: decisions without a cotangent,
+// which the row replay takes through K1's intersect_row), with every other
 // optional stream off.  Its plain
 // PyTorch version is ops/fused_trace.py::trace_seq_bwd_plain (autograd of
 // the eager chain), and the wrapper that launches it is

@@ -16,7 +16,9 @@
 // The kinds of the mixed-surface and asphere scenes, the "extended kinds"
 // (the rectangular volume bound VB_RECT, a cylindrical lens's edge bound
 // VB_CYL_EDGE, and even aspheres, whose base-conic roots are refined onto
-// the sag by Halley steps and whose normal is the sag's), and dispersive
+// the sag by Halley steps and whose normal is the sag's), a convex solid's
+// face bound VB_HALFSPACES (its other faces' planes, which ride the row's
+// hp columns) and a single cone's nappe SB_CONE_NAPPE, and dispersive
 // media (a SNELL or PHASE_GRID row whose indices depend on the ray's
 // wavelength: Cauchy or Sellmeier glasses), take a second compile-time
 // flag, kExt, set only in an instantiation that also has plate code (and so
@@ -105,6 +107,10 @@ constexpr int kMoments = 7;
 // Offsets of the float columns in a flat row (core/table.py ROW_FIELDS).
 constexpr int kQ = 0, kNSign = 5, kRw = 6, kTw = 15, kRs = 18, kTs = 27;
 constexpr int kSb = 30, kVb = 34, kPh = 42, kAsph = 48, kDisp = 52;
+// A solid's half-spaces (VB_HALFSPACES): kMaxHalfspaces outward normals, their
+// offsets and their mask (float 0/1: a row's own face and the padding 0).
+constexpr int kHpN = 64, kHpD = 88, kHpMask = 96;
+constexpr int kMaxHalfspaces = 8;
 constexpr int kCoatCol = 104;  // the thin-film stack: (index, thickness) x 8
 constexpr int kFf = 120;       // a DOE row's radial phase coefficients
 
@@ -128,6 +134,7 @@ constexpr float kNormalEps = 1e-8f;
 constexpr float kRelEps = 1e-5f;
 constexpr float kCylRectEps = 1e-5f;
 constexpr float kCylEdgeEps = 1e-4f;
+constexpr float kCvxEps = 1e-4f;
 
 enum PhysKind {
   TRANSMIT = 0,
@@ -150,9 +157,17 @@ enum SBKind {
   SB_RECT = 2,
   SB_ELLIPSE = 3,
   SB_HEMI = 4,
-  SB_HEMI_APER = 5
+  SB_HEMI_APER = 5,
+  SB_CONE_NAPPE = 6
 };
-enum VBKind { VB_NONE = 0, VB_APER_R2 = 1, VB_Z_BETWEEN = 2, VB_RECT = 3, VB_CYL_EDGE = 4 };
+enum VBKind {
+  VB_NONE = 0,
+  VB_APER_R2 = 1,
+  VB_Z_BETWEEN = 2,
+  VB_RECT = 3,
+  VB_CYL_EDGE = 4,
+  VB_HALFSPACES = 5
+};
 
 struct V3 {
   float x, y, z;
@@ -188,8 +203,10 @@ __device__ __forceinline__ V3 rot_t(V3 v, const M& R) {
 // stop's) is plate code: only the kPlates instantiation tests it.  `sb` is
 // the row's bound parameters: a pointer into a flat row, or Vals<3>.  With
 // kDiff (which scans flat rows) the ELLIPSE bound reads its axes and its
-// rotation's cosine and sine (sb[2], sb[3]: ellipse_rows).
-template <bool kPlates, bool kDiff = false, class S>
+// rotation's cosine and sine (sb[2], sb[3]: ellipse_rows).  A single cone's
+// nappe (CONE_NAPPE, [slope]) is an extended kind: only the instantiations
+// with kExt test it.
+template <bool kPlates, bool kDiff = false, bool kExt = false, class S>
 __device__ __forceinline__ void sb_check2(int kind, const S& sb, V3 a, V3 b, bool& ka,
                                           bool& kb) {
   if (kind == SB_DISK) {
@@ -209,6 +226,9 @@ __device__ __forceinline__ void sb_check2(int kind, const S& sb, V3 a, V3 b, boo
   } else if (kDiff && kind == SB_ELLIPSE) {
     ka = ellipse_in(a.x, a.y, sb[0], sb[1], sb[2], sb[3]);
     kb = ellipse_in(b.x, b.y, sb[0], sb[1], sb[2], sb[3]);
+  } else if (kExt && kind == SB_CONE_NAPPE) {
+    ka = a.z * sb[0] >= -kIntersectEps;
+    kb = b.z * sb[0] >= -kIntersectEps;
   } else {
     ka = true;
     kb = true;
@@ -216,10 +236,10 @@ __device__ __forceinline__ void sb_check2(int kind, const S& sb, V3 a, V3 b, boo
 }
 
 // The surface bound of one hit h.
-template <bool kPlates, bool kDiff = false, class S>
+template <bool kPlates, bool kDiff = false, bool kExt = false, class S>
 __device__ __forceinline__ bool sb_check(int kind, const S& sb, V3 h) {
   bool k, unused;
-  sb_check2<kPlates, kDiff>(kind, sb, h, h, k, unused);
+  sb_check2<kPlates, kDiff, kExt>(kind, sb, h, h, k, unused);
   return k;
 }
 
@@ -256,10 +276,29 @@ __device__ __forceinline__ bool in_rect(const S& v, int i, float x, float y) {
          y >= v[i + 2] - kCylRectEps;
 }
 
+// Inside every active half-space of a solid's face: n . h - d < kCvxEps for
+// each plane whose mask is set (core/static_dispatch.py::vb_check_one,
+// HALFSPACES).  `r` is the row's flat row.  The AND of the planes does not
+// depend on their order, so the loop visits the active planes alone and
+// leaves at the first that rejects the hit.
+__device__ __forceinline__ bool in_halfspaces(const float* r, V3 h) {
+#pragma unroll 1
+  for (int j = 0; j < kMaxHalfspaces; ++j) {
+    if (r[kHpMask + j] > 0.5f) {
+      const float* n = r + kHpN + 3 * j;
+      if (!(n[0] * h.x + n[1] * h.y + n[2] * h.z - r[kHpD + j] < kCvxEps)) return false;
+    }
+  }
+  return true;
+}
+
 // The volume bound of an element-frame hit h (core/static_dispatch.py::
-// vb_check_one).  VB_RECT and VB_CYL_EDGE are the extended kinds' (kExt).
+// vb_check_one).  VB_RECT, VB_CYL_EDGE and VB_HALFSPACES are the extended
+// kinds' (kExt), whose rows are flat rows: `r`, the row, gives the
+// half-spaces.
 template <bool kExt, class S>
-__device__ __forceinline__ bool vb_check(int kind, const S& vb, V3 h) {
+__device__ __forceinline__ bool vb_check(int kind, const S& vb, V3 h,
+                                         const float* r = nullptr) {
   if (kind == VB_APER_R2) return h.x * h.x + h.y * h.y <= vb[0];
   if (kind == VB_Z_BETWEEN) return h.z >= vb[0] && h.z <= vb[1];
   if constexpr (kExt) {
@@ -269,6 +308,7 @@ __device__ __forceinline__ bool vb_check(int kind, const S& vb, V3 h) {
       // sags of a cylindrical lens's faces
       return in_rect(vb, 4, h.x, h.y) && h.z >= sag_z(vb[0], h.y) + vb[1] + kCylEdgeEps &&
              h.z <= sag_z(vb[2], h.y) + vb[3] - kCylEdgeEps;
+    if (kind == VB_HALFSPACES) return in_halfspaces(r, h);
   }
   return true;
 }
@@ -479,6 +519,7 @@ struct FlatRowRef {
   __device__ __forceinline__ const float* rs() const { return r + kRs; }
   __device__ __forceinline__ const float* asph() const { return r + kAsph; }
   __device__ __forceinline__ const float* ff() const { return r + kFf; }
+  __device__ __forceinline__ const float* row() const { return r; }
 };
 
 // A row's exponent pairs in the freeform side buffer `ffs` ([K][kFfSide]),
@@ -732,7 +773,7 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
   if (kd.sb != SB_NONE) {
     const auto sb = row.sb();
     bool keep1, keep2;
-    sb_check2<kPlates, kDiff>(kd.sb, sb, fma3(o, t1, ds), fma3(o, t2, ds), keep1, keep2);
+    sb_check2<kPlates, kDiff, kExt>(kd.sb, sb, fma3(o, t1, ds), fma3(o, t2, ds), keep1, keep2);
     if (kd.invert) {
       keep1 = !keep1;
       keep2 = !keep2;
@@ -757,7 +798,11 @@ __device__ __forceinline__ RowHit intersect_row_of(const Row& row, const RowKind
     const V3 e = rot_t(h.hs, row.rs());
     const V3 ts = row.ts();
     const V3 he = {e.x + ts.x, e.y + ts.y, e.z + ts.z};
-    h.valid = h.valid && vb_check<kExt>(kd.vb, row.vb(), he);
+    if constexpr (kExt) {
+      h.valid = h.valid && vb_check<kExt>(kd.vb, row.vb(), he, row.row());
+    } else {
+      h.valid = h.valid && vb_check<kExt>(kd.vb, row.vb(), he);
+    }
   }
   return h;
 }
@@ -1097,7 +1142,7 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
     }
   } else if (ph == APERTURE) {
     // the filter re-checks its own RAW (non-inverted) bound
-    const float mod = sb_check<kPlates, kDiff>(sbk, r + kSb, hs) ? 1.0f : 0.0f;
+    const float mod = sb_check<kPlates, kDiff, kExt>(sbk, r + kSb, hs) ? 1.0f : 0.0f;
     nd = {d.x * mod, d.y * mod, d.z * mod};
     imod = mod;
     if (br != nullptr) br->pass = mod != 0.0f;

@@ -48,10 +48,12 @@
 // code too: trace_seq_common.cuh) their pointer is null and the kernel
 // instantiated without plate code (kPlates = false) runs, so such a scene
 // runs the instructions it ran before plates existed.  A scene with the
-// extended kinds (an even asphere, VB_RECT, VB_CYL_EDGE, a dispersive
-// medium; the caller's `ext`) runs a third instantiation, with plate code
-// and kExt: the asphere's Halley refinement in the intersection and its
-// normal, and a dispersive row's indices at the ray's wavelength
+// extended kinds (an even asphere, VB_RECT, VB_CYL_EDGE, VB_HALFSPACES,
+// SB_CONE_NAPPE, a dispersive medium; the caller's `ext`) runs a third
+// instantiation, with plate code and kExt: the asphere's Halley refinement
+// in the intersection and its normal, a solid's half-spaces (the TPU
+// kernel's scalar plane reads, :613-614) and a cone's nappe in the bounds,
+// and a dispersive row's indices at the ray's wavelength
 // (trace_seq_common.cuh).  It has registers of its own
 // (kSeqFwdExtMinBlocks).
 //

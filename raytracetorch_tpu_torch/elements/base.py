@@ -9,13 +9,18 @@ plain Python description that owns no tensors.  It
   so gradients flow from traced rays back to every scalar;
 - exposes its paraxial surface matrices (``paraxial``) and the global z of
   its optical surfaces (``optical_zs``, the hook of optim/constraints.py).
+
+``ElementCustom`` assembles an element from shape parts
+(elements/shapes.py) and one physics spec.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..constants import MAX_COAT_LAYERS
 from ..geom.transform import Frame, mm, rodrigues
+from ..utils.coatings import parse_coating_entries
 
 
 def frame_params(p):
@@ -119,3 +124,61 @@ class Element:
     def optical_zs(self, p):
         """Global z of each optical surface, differentiable."""
         return [p['trans'][2]]
+
+
+class ElementCustom(Element):
+    """Arbitrary shape parts with one physics spec replicated across their
+    surfaces (elements/shapes.py holds the builders)."""
+
+    def __init__(self, shape_fn, n_surfaces, ph_kind, ph=(), name='custom',
+                 extra=None, extra_grad=None, coating=None,
+                 coating_grad=False, **kw):
+        """``shape_fn(p, Re, te) -> list[SurfaceRec]`` supplies the geometry;
+        the physics fields are overwritten uniformly.  ``extra`` holds the
+        shape's parameters ({name: initial value}), ``extra_grad`` which of
+        them train.  ``coating`` puts one thin-film stack ``[(n, d_um),
+        ...]`` (outermost first; utils/coatings.py::parse_coating_entries;
+        trainable thicknesses 'coat_d' with ``coating_grad``) on every
+        face; it acts through FRESNEL and FRESNEL_W physics."""
+        super().__init__(name=name, **kw)
+        self._shape_fn = shape_fn
+        self._n = n_surfaces
+        self._ph_kind = ph_kind
+        self._ph = tuple(ph)
+        self._extra = dict(extra or {})
+        self._extra_grad = dict(extra_grad or {})
+        if coating:
+            if len(coating) > MAX_COAT_LAYERS:
+                raise ValueError(
+                    f"at most {MAX_COAT_LAYERS} coating layers per surface")
+            ns, ks, ds = parse_coating_entries(coating)
+            self.coating_n = ns
+            self.coating_k = ks if any(k != 0.0 for k in ks) else None
+            self._extra['coat_d'] = ds
+            self._extra_grad['coat_d'] = coating_grad
+
+    @property
+    def n_surfaces(self):
+        return self._n
+
+    def extra_params(self):
+        return dict(self._extra)
+
+    def extra_trainable(self):
+        return {k: self._extra_grad.get(k, False) for k in self._extra}
+
+    def build(self, p):
+        Re, te = frame_params(p)
+        recs = self._shape_fn(p, Re, te)
+        coat_ns = getattr(self, 'coating_n', None)
+        for r in recs:
+            r.ph_kind = self._ph_kind
+            r.ph = self._ph
+            if coat_ns:
+                coat = []
+                for li, nl in enumerate(coat_ns):
+                    coat += [nl, p['coat_d'][li]]
+                r.coat = coat
+                r.n_coat = len(coat_ns)
+                r.coat_k = getattr(self, 'coating_k', None)
+        return recs

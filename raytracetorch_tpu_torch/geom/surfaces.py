@@ -9,10 +9,13 @@ a diagonal implicit quadric
 with the encodings PLANE (0, 0, 0, -2, 0) n_sign -1, CYLINDER(R)
 (1, 1, 0, 0, -R^2) n_sign +1, QUADRIC(c, k) (c, c, c(1+k), -2, 0) n_sign -1,
 QUADRIC_ZY(c, k) (0, c, c(1+k), -2, 0) n_sign -1 (curvature in y only: a
-cylindrical lens face).  An even asphere starts from its base conic's roots
-and refines each onto the sag ``asph_sag`` (``asph_refine``); a freeform
-surface, conic + even asphere + sum_m c_m x^i y^j, onto its sag by 8 Newton
-steps (``ff_refine``), its normal from the sag's gradient (``ff_normal``).
+cylindrical lens face), SPHERE(R) (1, 1, 1, 0, -R^2) n_sign +1 (a full
+sphere about the origin) and CONE(s) (-s^2, -s^2, 1, 0, 0) n_sign +1 (the
+double cone z^2 = s^2 (x^2 + y^2)).  An even asphere starts from its base
+conic's roots and refines each onto the sag ``asph_sag`` (``asph_refine``);
+a freeform surface, conic + even asphere + sum_m c_m x^i y^j, onto its sag
+by 8 Newton steps (``ff_refine``), its normal from the sag's gradient
+(``ff_normal``).
 
 Misses carry finite ``(t, valid)`` sentinels, never inf, and every sqrt is
 double-where'd with ``+1e-24`` inside, so forward and backward stay NaN-free.
@@ -28,6 +31,13 @@ from ..constants import BIG, INTERSECT_EPS, NORMAL_EPS, SOLVER_EPS
 def q_plane(dtype=torch.float32, device=None):
     return torch.tensor([0.0, 0.0, 0.0, -2.0, 0.0], dtype=dtype,
                         device=device), -1.0
+
+
+def q_sphere(radius):
+    r2 = radius * radius
+    one = torch.ones_like(r2)
+    zero = torch.zeros_like(r2)
+    return torch.stack([one, one, one, zero, -r2]), 1.0
 
 
 def q_cylinder(radius):
@@ -47,6 +57,13 @@ def q_quadric_zy(c, k):
     k = torch.as_tensor(k, dtype=c.dtype, device=c.device)
     return torch.stack([torch.zeros_like(c), c, c * (1.0 + k),
                         torch.full_like(c, -2.0), torch.zeros_like(c)]), -1.0
+
+
+def q_cone(slope):
+    s2 = slope * slope
+    one = torch.ones_like(s2)
+    zero = torch.zeros_like(s2)
+    return torch.stack([-s2, -s2, one, zero, zero]), 1.0
 
 
 def ray_coeffs(q, o, d):

@@ -107,3 +107,13 @@ class Frame:
         left = torch.eye(5, dtype=self.trans.dtype,
                          device=self.trans.device)[:, :4]
         return torch.cat([left, affine], dim=1)
+
+
+def compose(R_outer, t_outer, R_inner, t_inner):
+    """Compose nested frames into one world->inner map: with world->outer
+    ``(p - t_o) @ R_o`` and outer->inner ``(e - t_i) @ R_i`` the composition
+    is ``(p - t_c) @ R_c`` with ``R_c = R_o @ R_i`` and ``t_c = t_o + t_i @
+    R_o.T`` (one rotate and translate per surface)."""
+    R_c = mm(R_outer, R_inner)
+    t_c = t_outer + mm(t_inner, torch.swapaxes(R_outer, -1, -2))
+    return R_c, t_c

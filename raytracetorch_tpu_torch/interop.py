@@ -4,9 +4,13 @@ The parity tests build inputs once (with numpy, or with the JAX package and
 ``np.asarray``) and hand the same numbers to both packages:
 
 - ``params_from_numpy``: a params tree (nested dicts of arrays, e.g.
-  ``jax.tree_util.tree_map(np.asarray, params)``) -> dicts of tensors;
+  ``jax.tree_util.tree_map(np.asarray, params)``) -> dicts of tensors (a
+  solid's ``length``, ``width``, ``height`` or ``offsets``, a polyhedron's
+  ``ior_glass`` and ``ior_media``, a custom element's ``extra`` leaves and
+  ``coat_d`` are leaves like any other);
 - ``table_from_numpy``: a SurfaceTable with array leaves (or a dict of its
-  fields) -> the port's SurfaceTable;
+  fields) -> the port's SurfaceTable (the half-space columns ``hp_n``,
+  ``hp_d`` and the bool ``hp_mask`` included);
 - ``rays_from_numpy``: a Rays batch with array leaves (or a dict) -> Rays;
 - ``meta_from_slots``: the JAX package's StaticRowMeta list -> the port's,
   slot by slot (a freeform row's exponent pairs ride ``ff``; the freeform

@@ -41,8 +41,11 @@ module:
   Without a plate none of these is passed and the kernels run their
   instantiation without plate code.
 - A scene with a kind of the mixed-surface and asphere scenes (an even
-  asphere, a rectangular volume bound, a cylindrical lens's edge bound) or
-  a dispersive medium (``ext_kinds``) runs a third instantiation, with
+  asphere, a rectangular volume bound, a cylindrical lens's edge bound), a
+  convex solid's half-spaces (HALFSPACES: the planes ride the row's
+  ``hp_n``, ``hp_d`` and ``hp_mask`` columns, the mask as float 0/1), a
+  single cone's nappe (CONE_NAPPE) or a dispersive medium (``ext_kinds``)
+  runs a third instantiation, with
   plate code and those kinds (``ext=True`` at the wrappers; maps as with
   plates, possibly none, and always the rays' wavelength).  Its K2 and K6
   add the asphere coefficients' cotangents (``EXT_GRAD_COLS``).  K2 and K6
@@ -342,10 +345,12 @@ def plate_rows(static_meta):
 
 def ext_kinds(static_meta):
     """Whether a row has a kind that only the kernels' instantiation with
-    the extended kinds takes: an even asphere, a rectangular volume bound, a
-    cylindrical lens's edge bound or a dispersive medium."""
-    return any(m.asph or m.disp or m.vb in (VBKind.RECT, VBKind.CYL_EDGE)
-               for m in static_meta)
+    the extended kinds (and those built on it) takes: an even asphere, a
+    rectangular volume bound, a cylindrical lens's edge bound, a solid's
+    half-spaces, a cone's nappe or a dispersive medium."""
+    return any(m.asph or m.disp or m.vb in (VBKind.RECT, VBKind.CYL_EDGE,
+                                            VBKind.HALFSPACES)
+               or m.sb == SBKind.CONE_NAPPE for m in static_meta)
 
 
 def fresnel_kinds(static_meta):

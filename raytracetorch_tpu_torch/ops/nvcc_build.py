@@ -36,18 +36,24 @@ def nvcc_path():
     return path
 
 
+def library_path(name, sources):
+    """``_build/lib<name>-<hash>.so``, the library of ``csrc/<sources>``
+    under NVCC_FLAGS (built or not)."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for s in [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(s.read_bytes())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
+
+
 def build_library(name, sources):
-    """Compile ``csrc/<sources>`` into ``_build/lib<name>-<hash>.so``.
+    """Compile ``csrc/<sources>`` into ``library_path(name, sources)``.
 
     Returns ``(path, log, seconds)``: ``log`` is nvcc's output (ptxas
     register and spill counts), ``seconds`` the compile time (0.0 when the
     library was already built)."""
     srcs = [CSRC_DIR / s for s in sources]
     flags = NVCC_FLAGS
-    h = hashlib.sha256(' '.join(flags).encode())
-    for s in srcs + sorted(CSRC_DIR.glob('*.cuh')):
-        h.update(s.read_bytes())
-    out = BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
+    out = library_path(name, sources)
     log_path = out.with_suffix('.log')
     if out.exists() and log_path.exists():
         return out, log_path.read_text(), 0.0

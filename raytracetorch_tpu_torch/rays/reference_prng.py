@@ -8,10 +8,13 @@ published setting), this module reproduces those draws bit for bit:
 ``prng_key``, ``split``, ``fold_in`` and ``uniform`` follow
 ``jax.random.PRNGKey``, ``split``, ``fold_in`` and ``uniform``,
 ``collimated_disk`` follows ``CollimatedDisk.make(radius,
-translation).sample(key, n)``, and ``fresnel_uniforms`` rebuilds the
-uniform streams that the JAX package's ``trace_sequential`` (and its fused
-kernel) draws for the FRESNEL rows of a table under a key, so that a run
-can realize the reference's very Fresnel branches.
+translation).sample(key, n)``, ``point_source`` follows
+``PointSource.make(na, translation).sample(key, n)`` (its directions, and a
+disk's positions, to an ulp: numpy's float32 cos, sin and arccos against
+XLA's), and ``fresnel_uniforms`` rebuilds the uniform streams that the JAX
+package's ``trace_sequential`` (and its fused kernel) draws for the FRESNEL
+rows of a table under a key, so that a run can realize the reference's very
+Fresnel branches.
 tests/test_torch_phase_grid.py and tests/test_torch_fresnel.py hold them
 equal to ``jax.random``.
 """
@@ -112,6 +115,31 @@ def collimated_disk(key, n, radius, translation=(0.0, 0.0, 0.0),
     direction[:, 2] = 1.0
     return Rays.create(torch.from_numpy(pos.astype(np.float32)),
                        torch.from_numpy(direction), device=device,
+                       wavelength=torch.full((n,), float(wavelength)))
+
+
+def point_source(key, n, na, translation=(0.0, 0.0, 0.0), wavelength=0.0,
+                 device=None):
+    """The rays of the reference's ``PointSource.make(na,
+    translation).sample(key, n)`` (no rotation): a cone of half angle
+    asin(na) from ``translation``, its directions drawn as
+    ``solid_angle_dirs`` draws them (F ~ U(0, cdf_phi(asin(na))), phi =
+    acos(1 - 2F), theta ~ U(0, 2 pi)), in float32 -> Rays on ``device``."""
+    _, kd = split(key)
+    kf, kt = split(kd)
+    na = np.float32(na)
+    cap = (np.float32(1.0) - np.cos(np.arcsin(na))) / np.float32(2.0)
+    F = uniform(kf, n, 0.0, cap)
+    phi = np.arccos(np.clip(np.float32(1.0) - np.float32(2.0) * F,
+                            np.float32(-1.0), np.float32(1.0)))
+    theta = uniform(kt, n, 0.0, 2.0 * np.pi)
+    dr = np.sin(phi)
+    direction = np.stack([np.cos(theta) * dr, np.sin(theta) * dr,
+                          np.cos(phi)], -1)
+    pos = np.zeros((n, 3), np.float32) + np.float32(translation)
+    return Rays.create(torch.from_numpy(pos.astype(np.float32)),
+                       torch.from_numpy(direction.astype(np.float32)),
+                       device=device,
                        wavelength=torch.full((n,), float(wavelength)))
 
 

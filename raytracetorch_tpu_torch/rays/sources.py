@@ -1,10 +1,13 @@
 """Ray sources (bundles) sampled from an explicit ``torch.Generator``.
 
-Counterpart of ``raytracetorch_tpu/rays/sources.py`` (``Bundle`` and
-``CollimatedDisk``; the other sources are ROADMAP Queue 1 item 14).  The
-JAX package threads PRNG keys; here the caller passes a generator that
-lives on the device the rays are drawn on.  The two give different numbers
-for the same seed, so parity tests feed both packages the same rays.
+Counterpart of ``raytracetorch_tpu/rays/sources.py`` (``Bundle``,
+``CollimatedDisk`` and ``PointSource`` with ``solid_angle_dirs`` and
+``cdf_phi``; the other sources are ROADMAP Queue 1 item 14).  The JAX
+package threads PRNG keys; here the caller passes a generator that lives on
+the device the rays are drawn on.  The two give different numbers for the
+same seed, so parity tests feed both packages the same rays; where a run
+must trace a reference example's very rays, rays/reference_prng.py draws
+them from the reference's key (``collimated_disk``, ``point_source``).
 """
 
 from __future__ import annotations
@@ -81,6 +84,36 @@ class CollimatedDisk(Bundle):
     def sample_pos(self, generator, n, dtype, device):
         r = float(self.radius)
         return disk_sample(generator, n, 0.0, r * r, dtype, device)
+
+
+def solid_angle_dirs(generator, n, cos_cap_F, dtype, device):
+    """Uniform directions in a cone about +z: the polar angle from the
+    inverse CDF acos(1 - 2F) with F ~ U(0, cos_cap_F), the azimuth
+    uniform."""
+    F = _uniform(generator, n, 0.0, cos_cap_F, dtype, device)
+    phi = torch.arccos(torch.clamp(1.0 - 2.0 * F, -1.0, 1.0))
+    theta = _uniform(generator, n, 0.0, TWO_PI, dtype, device)
+    dr = torch.sin(phi)
+    return torch.stack([torch.cos(theta) * dr, torch.sin(theta) * dr,
+                        torch.cos(phi)], dim=1)
+
+
+def cdf_phi(phi):
+    """The solid-angle CDF of the polar angle phi, (1 - cos phi) / 2."""
+    return (1.0 - math.cos(phi)) / 2.0
+
+
+@dataclasses.dataclass
+class PointSource(Bundle):
+    """A diverging cone from the bundle origin about +z, its half angle
+    asin(``na``), uniform in solid angle."""
+
+    na: float = 0.1
+
+    def sample_dir(self, generator, n, dtype, device):
+        return solid_angle_dirs(generator, n,
+                                cdf_phi(math.asin(float(self.na))), dtype,
+                                device)
 
 
 def sample_bundles(generator, bundles_with_counts, device,

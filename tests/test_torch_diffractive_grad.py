@@ -415,15 +415,16 @@ def test_bundle_limits():
 
 @pytest.mark.parametrize('meta', [
     dict(ph=12, sb=0, vb=0),                   # GRIN
-    dict(ph=3, sb=6, vb=0),                    # CONE_NAPPE
-    dict(ph=3, sb=0, vb=5),                    # HALFSPACES
+    dict(ph=10, sb=0, vb=0),                   # SCATTER
+    dict(ph=10, sb=6, vb=5),                   # SCATTER on a solid cone
     dict(ph=11, sb=0, vb=0),                   # JONES
 ])
 def test_refused_kinds_name_their_item(meta):
-    """GRIN, CONE_NAPPE, HALFSPACES and JONES rows still raise
-    NotImplementedError naming their ROADMAP item, eagerly and in the
-    fused traces (SCATTER and JONES scenes: tests/test_torch_coated_trace.py;
-    freeform faces trace now: tests/test_torch_freeform.py)."""
+    """GRIN, SCATTER and JONES rows still raise NotImplementedError naming
+    their ROADMAP item, eagerly and in the fused traces, whatever their
+    bounds (SCATTER and JONES scenes: tests/test_torch_coated_trace.py;
+    freeform faces trace now: tests/test_torch_freeform.py; the CONE_NAPPE
+    and HALFSPACES bounds: tests/test_torch_solids.py)."""
     m = StaticRowMeta(**meta)
     why = unsupported(m)
     assert why is not None and 'ROADMAP' in why

@@ -175,9 +175,11 @@ def _grin_scene():
 
 
 def _box_scene():
-    # a box's HALFSPACES volume bound: the solids are not ported
+    # a box with SCATTER faces: its HALFSPACES bound is ported
+    # (tests/test_torch_solids.py), scattering is not
     return jrt.SequentialScene([
         jrt.BoxElement(length=4.0, width=6.0, height=8.0,
+                       ph_kind=PhysKind.SCATTER,
                        translation=[0.0, 0.0, 10.0], name='box'),
         jrt.SensorElement(radius=50.0, translation=[0, 0, 25.0],
                           name='sensor')])
