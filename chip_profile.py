@@ -73,7 +73,11 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 - convex solids, custom shapes and the point source (chip_smoke.py section
   16): K1 and K2 on the bounds table, K5 and K6 on example 27's lightpipe,
   the wedge and the axicon, the lightpipe's ``Scene.simulate_fused`` and
-  design step (its width and height).
+  design step (its width and height);
+- the polarized field (chip_smoke.py section 17): K1 and K2 in their
+  instantiation with the field on example 22's analyzer scene and example
+  07's Brewster plane (circular E0, its grid), and example 22's
+  ``simulate_fused`` and design step (the analyzer's angle).
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -733,6 +737,38 @@ def main():
             lp_p, lp_rays), 'trace_nonseq_fwd_kernel'),
         'solid_grad_step_fused_lightpipe': (lp_step,
                                             'trace_nonseq_bwd_kernel')})
+    # the polarized field (section 17)
+    for name in ('analyzer', 'ex07_circ'):
+        fsc, fp, fr, fe0, _ = cs.field_case(rt, torch, name, n, dev,
+                                            cs.FIELD_SEED + 7)
+        fmeta, fcfg, fflat, fkinds, fmaps, ffield, fside = cs.field_inputs(
+            rt, torch, fsc, fp, fr, fe0, dev)
+        fgm = torch.ones(1, 1, 7, device=dev)
+        label = f'field_{name}'
+        calls[f'{label}_k1'] = (
+            lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
+            sd=fside: fused_trace.trace_seq_fwd_cuda(
+                f, k, r, c, m, True, fresnel=True, diff=True, field=e, **sd),
+            'trace_seq_fwd_kernel')
+        calls[f'{label}_k2'] = (
+            lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
+            sd=fside, g=fgm: fused_trace.trace_seq_bwd_cuda(
+                f, k, r, c, (None,) * 7, g, maps=m, ext=True, fresnel=True,
+                diff=True, field=e, g_field=[r.px] * 6, **sd),
+            'trace_seq_bwd')
+    dsc = cs.ex22_scene(rt, 'design')
+    d_p, d_rays = dsc.init_params(dev), cs.ref_disk(rt, n, 2.0, -5.0, dev)
+
+    def field_step():
+        p = {k: dict(v) for k, v in d_p.items()}
+        p['analyzer']['angle'] = d_p['analyzer']['angle'].clone() \
+            .requires_grad_(True)
+        dsc.simulate_fused(p, d_rays, track_field=True)[2][
+            'field_power'].mean().backward()
+    calls.update({
+        'field_simulate_fused_analyzer': (lambda: dsc.simulate_fused(
+            d_p, d_rays, track_field=True), 'trace_seq_fwd_kernel'),
+        'field_grad_step_fused_analyzer': (field_step, 'trace_seq_bwd')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

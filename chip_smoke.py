@@ -100,8 +100,8 @@ launches in the eager bounce loop on its own, and the one-call library
 yardsticks: ``index_add_`` (and ``index_put_``) for K3 on the bench spot
 and on random hits over one 256 x 256 slot, ``torch.take`` for K4's
 gather and ``index_add_`` (and four ``index_put_``) for its scatter.
-Each phase prints one JSON line; any failed check raises, so the script
-exits non-zero.  Then come the kernel summary line (each kernel's launches
+Each phase prints one JSON line (its 'clock_s': the seconds since the
+script started); any failed check raises, so the script exits non-zero.  Then come the kernel summary line (each kernel's launches
 on its main path, error, time, plain time, the bound of its work on this
 card and, for K3 and K4's gather and scatter, a library call's time), the
 card's name and power limit as nvidia-smi reports them, and last
@@ -118,6 +118,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()  # each emitted line's 'clock_s' counts from here
 SEED = 1234
 N_MAIN = 1_000_000
 N_SMALL = 2_999
@@ -288,7 +289,9 @@ def check(cond, what):
 
 
 def emit(phase, **kw):
-    print(json.dumps({'phase': phase, **kw}), flush=True)
+    print(json.dumps({'phase': phase, 'clock_s': time.perf_counter() - T0,
+                      **kw}),
+          flush=True)
 
 
 def nvidia_smi_line():
@@ -5921,7 +5924,10 @@ def solid_phases(rt, torch, dev, reset_counters, counters, only):
             bp = (lambda: fused_nonseq.trace_nonseq_bwd_plain(
                 flat, r, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid,
                 maps=maps))
-            reps = dict(reps=4, warmup=1)
+            # the lightpipe's plain K5 and K6 take ~5-6 s a call at 1M rays
+            # and 50 bounces: one call each, without a warm-up, keeps the
+            # smoke well inside its time (a reference only)
+            plain_reps = (1, 0) if name == 'lightpipe' else (4, 1)
             scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
             replayed = segment_replays(lives)
             # nonseq_ops with every row's scan counting its planes
@@ -5975,6 +5981,928 @@ def solid_phases(rt, torch, dev, reset_counters, counters, only):
     return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds)
 
 
+
+# ---- Section 17: the polarized field on the sequential path (K1's and
+# K2's instantiation with the field; examples 07, 22, 33 and 06(c)) ----
+#
+# Tolerances, each with its reason: the six field streams of the rays both
+# trace alike within FIELD_TOL of |E| <= 1 (each component a few contracted
+# multiply-adds and a square root per row: the kernel's FMA contraction
+# against the plain version's separate roundings moves the last bits, ~1e-7
+# a row); |E|^2 within FIELD_POWER_TOL; the launch field's cotangents under
+# BWD_TOL's rule; the anchors against the JAX package's numbers on the
+# reference's own rays (rays/reference_prng.py, each ray within an ulp of
+# JAX's) within FIELD_REF_ATOL of a mean, the examples' own checks at the
+# examples' own tolerances (Malus < 1e-5, Stokes atol 1e-5, the design's
+# angle within 1e-3 of the analytic one and leakage < 1e-6, chi within
+# 0.05 degrees), the design's final angle within FIELD_DESIGN_ATOL of
+# JAX's (60 steps of lr 0.5 converge; float32 gradients move the last
+# digits), and the grad loss of tests/test_pallas.py:628-665 fused against
+# eager: E0's cotangent within rtol 1e-3 and c1's within 3e-2, the JAX
+# test's own tolerances (c1's gradient sums cancelling per-ray terms); the
+# lens cases' per-ray cotangents off their axis (FIELD_AXIS_R,
+# FIELD_F64_RATIO).
+FIELD_SEED = SEED + 1801
+FIELD_CASES = ('ex07_s', 'ex07_p', 'ex07_circ', 'brewster_mc',
+               'brewster_w', 'singlet', 'analyzer', 'qwp', 'quartz',
+               'stack', 'window')
+# the cases with a lens, whose faces meet the rays near the axis at near
+# normal incidence
+FIELD_LENS_CASES = ('singlet', 'stack')
+FIELD_TOL = 1e-5
+FIELD_POWER_TOL = 1e-5
+FIELD_REF_ATOL = 1e-5
+FIELD_DESIGN_ATOL = 1e-4
+FIELD_DESIGN_STEPS = 60
+# The lens cases: their rays within FIELD_AXIS_R mm of the axis are left out
+# of the per-ray kernel-vs-plain rule (field_kernels_vs_plain says why; on
+# an NVIDIA H100 80GB HBM3 every differing ray of the singlet's 1M lay
+# within 0.61 mm of it), and on every ray the kernel may break BWD_TOL's
+# rule against the plain version's float64 cotangents, the rays' and the
+# launch field's, on at most FIELD_F64_RATIO times the rays the plain
+# version itself does (the singlet's ray cotangents: 750 and 789 of 1M
+# there)
+FIELD_AXIS_R = 0.75
+FIELD_F64_RATIO = 1.25
+FIELD_LAM0 = 0.5876
+# The field's operations a row (csrc/field.cuh), counted as in intersect_ops:
+# the Fresnel kinds' transport (two s/p bases ~30 each, the amplitudes ~45,
+# the projections and the rebuild ~50, the renormalization ~20), a JONES
+# row's (its axes ~45, two sincos ~40, the products ~60, a chromatic
+# plate's crystal ~30), the s/p rebuild of DOE and PHASE_GRID (~110), a
+# scale (~8); a FRESNEL_W or REFLECT_W row's polarized R (a basis and its
+# projections, ~50); the sensor's |E|^2 (6).
+FIELD_OPS = {'fresnel': 175, 'jones': 145, 'crystal': 30, 'sp': 110,
+             'scale': 8, 'pol_r': 50, 'sensor': 6}
+# The JAX package's numbers (JAX_PLATFORMS=cpu python tests/field_anchors.py)
+FIELD_REF = {'ex07': {'200000': {'s': {'T': 0.8520716428756714,
+                                       'dop': 1.0,
+                                       's3': 0.0,
+                                       'grid': 47283.05859375},
+                                 'p': {'T': 0.9999998807907104,
+                                       'dop': 1.0,
+                                       's3': 0.0,
+                                       'grid': 55491.99609375},
+                                 'circular': {'T': 0.9260349869728088,
+                                              'dop': 1.0,
+                                              's3': 0.9968051314353943,
+                                              'grid': 51387.5390625}},
+                      '1000000': {'s': {'T': 0.8520717024803162,
+                                        'dop': 1.0,
+                                        's3': 0.0,
+                                        'grid': 235664.375},
+                                  'p': {'T': 0.9999999403953552,
+                                        'dop': 1.0,
+                                        's3': 0.0,
+                                        'grid': 276579.0},
+                                  'circular': {'T': 0.9260349273681641,
+                                               'dop': 1.0000001192092896,
+                                               's3': 0.9968051314353943,
+                                               'grid': 256121.875}}},
+             'ex22': {'20000': {'malus': [1.0,
+                                          0.9698466658592224,
+                                          0.883022129535675,
+                                          0.75,
+                                          0.586824357509613,
+                                          0.4131756126880646,
+                                          0.2499999701976776,
+                                          0.11697769165039062,
+                                          0.030153688043355942,
+                                          1.9106858886811786e-15,
+                                          0.030153749510645866,
+                                          0.11697793006896973,
+                                          0.2500000298023224,
+                                          0.4131757318973541,
+                                          0.5868244171142578,
+                                          0.7500000596046448,
+                                          0.8830222487449646,
+                                          0.9698466658592224,
+                                          1.0],
+                                'stokes': {'none': [1.0, 0.0, 0.0],
+                                           'qwp45': [0.0, 0.0, -1.0],
+                                           'hwp22': [-1.4901161193847656e-07,
+                                                     0.9999998807907104,
+                                                     6.181721801112872e-08]},
+                                'design_angle': -0.8967962861061096,
+                                'design_leakage': 9.327932332187853e-16},
+                      '1000000': {'malus': [1.0,
+                                            0.9698466658592224,
+                                            0.8830223083496094,
+                                            0.75,
+                                            0.5868244171142578,
+                                            0.4131755828857422,
+                                            0.2499999850988388,
+                                            0.11697769165039062,
+                                            0.03015369176864624,
+                                            1.9106861004394154e-15,
+                                            0.030153749510645866,
+                                            0.11697793006896973,
+                                            0.2500000298023224,
+                                            0.4131756126880646,
+                                            0.5868244171142578,
+                                            0.7500000596046448,
+                                            0.8830223083496094,
+                                            0.9698466658592224,
+                                            1.0],
+                                  'stokes': {'none': [1.0, 0.0, 0.0],
+                                             'qwp45': [0.0, 0.0, -1.0],
+                                             'hwp22': [-1.4901161193847656e-07,
+                                                       0.9999999403953552,
+                                                       6.181721801112872e-08]},
+                                  'design_angle': -0.8967962861061096,
+                                  'design_leakage': 9.327932332187853e-16}},
+             'ex33': {'512': {'0.5376': {'chi_deg': -40.39021303135766,
+                                         'modulation': 0.16021773219108582},
+                              '0.5876': {'chi_deg': -45.0, 'modulation': 0.0},
+                              '0.6376': {'chi_deg': -41.184368084604806,
+                                         'modulation': 0.1327971299169737}},
+                      '1000000': {
+                          '0.5376': {'chi_deg': -40.39045816312569,
+                                     'modulation': 0.16021746397018433},
+                          '0.5876': {'chi_deg': -45.0, 'modulation': 0.0},
+                          '0.6376': {'chi_deg': -41.184200930273974,
+                                     'modulation': 0.1327972193239462}}},
+             'ex06': {'rays': 7080,
+                      'alive': 7080,
+                      'mean': 0.9174299240112305,
+                      'edge_min': 0.9136030673980713}}
+
+
+def ex07_scene(rt, kind=None, grid=True):
+    """Example 07's Brewster plane (n = 1.5 at Brewster incidence to the
+    +z beam) and sensor, with its 96^2 grid; ``kind`` another physics for
+    the plane (None: SNELL)."""
+    from raytracetorch_tpu_torch.constants import PhysKind
+    theta_b = math.atan(1.5)
+    sc = rt.SequentialScene([
+        rt.ElementCustom(rt.shapes.plane, 1,
+                         PhysKind.SNELL if kind is None else kind,
+                         ph=(1.5, 1.0), name='brewster',
+                         rotation=[theta_b, 0.0, 0.0],
+                         translation=[0.0, 0.0, 10.0]),
+        rt.SensorElement(half_x=6.0, half_y=6.0, translation=[0, 0, 30.0],
+                         name='sensor')])
+    if grid:
+        sc.grid_shape, sc.grid_half_extent = (96, 96), 6.0
+    return sc
+
+
+def field_singlet(rt, grad=False):
+    """tests/test_pallas.py:343-376's singlet and sensor (c1 trainable with
+    ``grad``: :628-665)."""
+    return rt.SequentialScene([
+        rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5168,
+                       c1_grad=grad, name='lens'),
+        rt.SensorElement(radius=8.0, translation=[0, 0, 19.0],
+                         name='sensor')])
+
+
+def field_stack(rt):
+    """field_singlet's lens with a polarizer, a quarter-wave plate and an
+    analyzer between it and its sensor: six rows."""
+    return rt.SequentialScene([
+        rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5168,
+                       name='lens'),
+        rt.LinearPolarizer(radius=8.0, angle=0.3, translation=[0, 0, 14.0],
+                           name='pol'),
+        rt.QuarterWaveplate(radius=8.0, angle=math.pi / 4,
+                            translation=[0, 0, 15.0], name='qwp'),
+        rt.LinearPolarizer(radius=8.0, angle=1.2, translation=[0, 0, 16.0],
+                           name='analyzer'),
+        rt.SensorElement(radius=8.0, translation=[0, 0, 19.0],
+                         name='sensor')])
+
+
+def field_window(rt):
+    """A flat window of n = 1.5, 5 mm thick, and a sensor: its entry face
+    at z = 0 and its exit face at z = 5 turned over, so that a ray along z
+    meets the first from outside and the second from inside."""
+    from raytracetorch_tpu_torch.constants import PhysKind
+    return rt.SequentialScene([
+        rt.ElementCustom(rt.shapes.plane, 1, PhysKind.SNELL, ph=(1.5, 1.0),
+                         name='entry'),
+        rt.ElementCustom(rt.shapes.plane, 1, PhysKind.SNELL, ph=(1.5, 1.0),
+                         rotation=[math.pi, 0.0, 0.0],
+                         translation=[0.0, 0.0, 5.0], name='exit'),
+        rt.SensorElement(radius=8.0, translation=[0, 0, 10.0],
+                         name='sensor')])
+
+
+def ex22_scene(rt, label):
+    """Example 22's scenes: 'malus' (the analyzer alone), 'none', 'qwp45',
+    'hwp22' (the Stokes cases) and 'design' (the hidden HWP and the
+    analyzer)."""
+    if label == 'malus':
+        return rt.SequentialScene([
+            rt.LinearPolarizer(radius=8.0, angle=0.0, angle_grad=True,
+                               name='analyzer'),
+            rt.SensorElement(radius=20.0, translation=[0, 0, 20.0],
+                             name='s')])
+    if label == 'design':
+        return rt.SequentialScene([
+            rt.HalfWaveplate(radius=8.0, angle=0.337, name='rot'),
+            rt.LinearPolarizer(radius=8.0, angle=0.2, angle_grad=True,
+                               translation=[0, 0, 5.0], name='analyzer'),
+            rt.SensorElement(radius=20.0, translation=[0, 0, 20.0],
+                             name='s')])
+    els = {'none': [],
+           'qwp45': [rt.QuarterWaveplate(radius=8.0, angle=math.pi / 4,
+                                         name='q')],
+           'hwp22': [rt.HalfWaveplate(radius=8.0, angle=math.pi / 8,
+                                      name='h')]}[label]
+    return rt.SequentialScene(els + [rt.SensorElement(
+        radius=20.0, translation=[0, 0, 30.0], name='s')])
+
+
+def ex33_scene(rt):
+    """Example 33's polarizer, quartz QWP at 45 degrees and sensor."""
+    return rt.SequentialScene([
+        rt.LinearPolarizer(radius=10.0, angle=0.0, name='pol'),
+        rt.Waveplate(radius=10.0, retardance=0.25, angle=math.pi / 4,
+                     material='quartz', design_wavelength=FIELD_LAM0,
+                     translation=[0, 0, 5.0], name='qwp'),
+        rt.SensorElement(radius=50.0, translation=[0, 0, 30.0],
+                         name='sens')])
+
+
+def ex06_rays(rt, torch, device):
+    """Example 06's 96^2 pupil grid of collimated rays (radius 6 at z =
+    -10, the d line)."""
+    import numpy as np
+    n, r = 96, 6.0
+    gx, gy = np.meshgrid(np.linspace(-r, r, n), np.linspace(-r, r, n))
+    keep = gx ** 2 + gy ** 2 <= r ** 2
+    px, py = gx[keep], gy[keep]
+    pos = np.stack([px, py, np.full_like(px, -10.0)], axis=1)
+    d = np.tile([0.0, 0.0, 1.0], (len(px), 1))
+    return rt.Rays.create(torch.tensor(pos, dtype=torch.float32),
+                          torch.tensor(d, dtype=torch.float32),
+                          wavelength=torch.full((len(px),), 0.5876),
+                          device=device)
+
+
+def ref_disk(rt, n, radius, z, device, wavelength=0.0):
+    """The reference's CollimatedDisk rays of PRNGKey(0)."""
+    from raytracetorch_tpu_torch.rays import reference_prng as rp
+    return rp.collimated_disk(rp.prng_key(0), n, radius, (0.0, 0.0, z),
+                              wavelength, device)
+
+
+def field_case(rt, torch, name, n, device, seed):
+    """(scene, params, rays, E0, uniforms) of a section 17 case: example
+    07's plane with s, p and circular E0; the Brewster plane as FRESNEL
+    (uniforms drawn from ``seed``) and FRESNEL_W, lit at Brewster by a
+    tilted beam of tests/test_pallas.py:379-414 and
+    tests/test_polarization.py:264-290; the singlet of :343-376 with E0 at
+    45 degrees; example 22's design and QWP scenes; example 33's quartz QWP
+    at lam0 - 0.05 um; 'stack', the singlet with a polarizer, a QWP and an
+    analyzer behind it (six rows: K2 keeps their saved fields in local
+    memory); 'window', a flat SNELL window (its exit face turned over) lit
+    along z, every ray at normal incidence (the s/p basis's fallback),
+    with an elliptical E0."""
+    import numpy as np
+    from raytracetorch_tpu_torch.constants import PhysKind
+    gen = torch.Generator(device=device).manual_seed(seed)
+    uniforms, E0 = None, None
+    if name.startswith('ex07'):
+        sc = ex07_scene(rt)
+        rays = rt.CollimatedDisk.make(radius=4.0, translation=[0, 0, -10.0]) \
+            .sample(gen, n, device)
+        E0 = {'ex07_s': [[1.0, 0.0, 0.0]], 'ex07_p': [[0.0, 1.0, 0.0]],
+              'ex07_circ': np.array([[1.0, 1.0j, 0.0]]) / np.sqrt(2)}[name]
+    elif name.startswith('brewster'):
+        th_b = math.atan(1.5168)
+        kind = PhysKind.FRESNEL if name == 'brewster_mc' \
+            else PhysKind.FRESNEL_W
+        sc = rt.SequentialScene([
+            rt.ElementCustom(rt.shapes.plane, 1, kind, ph=(1.5168, 1.0),
+                             name='iface'),
+            rt.SensorElement(radius=100.0, translation=[0, 0, 25.0],
+                             name='sensor')])
+        rays = rt.CollimatedDisk.make(
+            radius=2.0, translation=[0, 0, -10.0],
+            rotation=[th_b, 0.0, 0.0]).sample(gen, n, device)
+        E0 = [[math.sqrt(0.5), math.cos(th_b) * math.sqrt(0.5),
+               math.sin(th_b) * math.sqrt(0.5)]]
+        if kind == PhysKind.FRESNEL:
+            uniforms = torch.rand(1, n, generator=gen, device=device)
+    elif name in ('singlet', 'stack'):
+        sc = field_singlet(rt) if name == 'singlet' else field_stack(rt)
+        rays = rt.CollimatedDisk.make(radius=3.0, translation=[0, 0, -10.0]) \
+            .sample(gen, n, device)
+        E0 = [[math.sqrt(0.5), math.sqrt(0.5), 0.0]]
+    elif name == 'window':
+        sc = field_window(rt)
+        rays = rt.CollimatedDisk.make(radius=3.0, translation=[0, 0, -10.0]) \
+            .sample(gen, n, device)
+        E0 = np.array([[0.8, 0.6j, 0.0]])
+    elif name in ('analyzer', 'qwp'):
+        sc = ex22_scene(rt, 'design' if name == 'analyzer' else 'qwp45')
+        rays = rt.CollimatedDisk.make(radius=2.0, translation=[0, 0, -5.0]) \
+            .sample(gen, n, device)
+    else:
+        sc = ex33_scene(rt)
+        rays = rt.CollimatedDisk.make(radius=1.0, translation=[0, 0, -5.0]) \
+            .sample(gen, n, device)
+        rays = rays.replace(wavelength=torch.full_like(rays.px,
+                                                       FIELD_LAM0 - 0.05))
+    return sc, sc.init_params(device), rays, E0, uniforms
+
+
+def compare_field(torch, aux_k, aux_p, keep):
+    """The final field's six streams and |E|^2, kernel vs plain, on the
+    rays ``keep`` that both trace alike -> dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops.fused_trace import FIELD_KEYS
+    errs = {k: float((aux_k[k] - aux_p[k])[keep].abs().max())
+            for k in FIELD_KEYS}
+    pk = sum(aux_k[k] * aux_k[k] for k in FIELD_KEYS)
+    pp = sum(aux_p[k] * aux_p[k] for k in FIELD_KEYS)
+    p_err = float((pk - pp)[keep].abs().max())
+    finite = all(bool(torch.isfinite(aux_k[k]).all()) for k in FIELD_KEYS)
+    res = dict(field_max_abs_err=max(errs.values()),
+               field_power_max_abs_err=p_err,
+               field_power_mean=float(pp.mean()))
+    check(finite, 'the kernel\'s field is not finite')
+    check(res['field_max_abs_err'] <= FIELD_TOL,
+          f'field streams differ: {errs}')
+    check(p_err <= FIELD_POWER_TOL, f'field power differs by {p_err}')
+    return res
+
+
+def field_inputs(rt, torch, sc, params, rays, E0, device):
+    """(meta, cfg, flat, kinds, maps, launch field, side buffers) of a
+    field trace: the ``TraceMeta`` with ``field``."""
+    from raytracetorch_tpu_torch.core.field import FieldState
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    meta = ft.TraceMeta(sc.static_meta(), None, field=True)
+    cfg = sc.sensor_config()
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(ft.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=device)
+    side = dict(coat=ft.coat_side(meta, device),
+                fuzzy=ft.fuzzy_buffer(meta, device),
+                ff=ft.ff_side(meta, device))
+    field = FieldState.init(rays, E0).streams()
+    return meta, cfg, flat, kinds, ft.plate_maps(meta, {}), field, side
+
+
+def field_kernels_vs_plain(rt, torch, name, n, device, seed):
+    """K1 and K2 in their instantiation with the field against their plain
+    versions on a section 17 case: the rays, moments, grid and the final
+    field's six streams and |E|^2; on the FRESNEL plane the branch of every
+    ray; then the ray, table and launch-field cotangents under seeded
+    cotangents (the final field's too) on the rays both trace alike ->
+    dict; raises on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    sc, params, rays, E0, uniforms = field_case(rt, torch, name, n, device,
+                                                seed)
+    meta, cfg, flat, kinds, maps, field, side = field_inputs(
+        rt, torch, sc, params, rays, E0, device)
+    fresnel = ft.fresnel_kinds(meta)
+    out_k, s_k, aux_k = ft.trace_seq_fwd_cuda(
+        flat, kinds, rays, cfg, maps, True, fresnel=fresnel,
+        uniforms=uniforms, diff=True, field=field, **side)
+    out_p, s_p, aux_p = ft.trace_sequential_fused_plain(
+        flat, rays, cfg, meta, maps, uniforms=uniforms, field=field)
+    torch.cuda.synchronize()
+    res = compare(torch, out_k, s_k, out_p, s_p, FRESNEL_I_RTOL)
+    apart = traced_apart(torch, out_k, out_p, FRESNEL_I_RTOL)[0]
+    res.update(compare_field(torch, aux_k, aux_p, ~apart))
+    if cfg.grid_shape:
+        res.update(compare_grid(torch, s_k.grid, s_p.grid, GRID_TOTAL_RTOL))
+    if uniforms is not None:
+        res['branches_differ'] = int(((out_k.dz < 0) != (out_p.dz < 0))
+                                     .sum())
+        res['reflected'] = int((out_p.dz < 0).sum())
+        check(res['branches_differ'] == 0,
+              f'{name}: {res["branches_differ"]} FRESNEL branches differ')
+    res.update(rows=len(meta), apart=int(apart.sum()))
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, device,
+                                              seed + 2)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    g_field = [torch.randn(rays.n, generator=gen, device=device)
+               for _ in range(6)]
+    g_k = ft.trace_seq_bwd_cuda(
+        flat, kinds, rays, cfg, g_rays, g_mom, g_grid=g_grid, maps=maps,
+        ext=True, fresnel=fresnel, uniforms=uniforms, diff=True,
+        field=field, g_field=g_field, **side)
+    g_p = ft.trace_seq_bwd_plain(flat, rays, cfg, meta, g_rays, g_mom,
+                                 g_grid=g_grid, maps=maps, uniforms=uniforms,
+                                 field=field, g_field=g_field)
+    torch.cuda.synchronize()
+    # a lens's rays near its axis meet its faces near normal incidence,
+    # where s = normalize(d x n) of a short d x n amplifies float32
+    # rounding into their position cotangents: the rays within FIELD_AXIS_R
+    # of the axis are left out of the kernel-vs-plain rule, and on every
+    # ray the kernel's ray and launch-field cotangents must be as close to
+    # the plain version's float64 run as the plain version's own are
+    # (FIELD_F64_RATIO)
+    keep = torch.ones_like(rays.px, dtype=torch.bool)
+    if name in FIELD_LENS_CASES:
+        keep = (rays.px ** 2 + rays.py ** 2).sqrt() >= FIELD_AXIS_R
+        g64, g64_field = plain_float64_cotangents(
+            torch, ft, flat, rays, cfg, meta, maps, field, g_rays, g_mom,
+            g_grid, g_field)
+        res['near_axis'] = int((~keep).sum())
+        allowed = math.ceil(BWD_FLIPS_PER_MILLION * rays.n / 1e6)
+        for label, gk, gp, g64_, groups in (
+                ('rays', g_k[1], g_p[1], g64, ((0, 1, 2), (3, 4, 5), (6,))),
+                ('field', g_k[-1], g_p[-1], g64_field, (tuple(range(6)),))):
+            off_k = rays_off_float64(torch, gk, g64_, groups)
+            off_p = rays_off_float64(torch, gp, g64_, groups)
+            res[f'{label}_off_f64'] = dict(kernel=off_k, plain=off_p)
+            check(off_k <= FIELD_F64_RATIO * off_p + allowed,
+                  f'{name}: the kernel departs from the float64 {label} '
+                  f'cotangents on {off_k} rays, the plain version on {off_p}')
+    res['bwd'] = compare_ray_cotangents(
+        torch, [g[keep] for g in g_k[1]], [g[keep] for g in g_p[1]])
+    res['bwd'].update(compare_table_cotangents(
+        torch, ft, g_k[0], g_p[0], plates=True, ext=True, coat=True,
+        diff=True, freeform=True))
+    res['bwd']['field'] = compare_field_cotangents(
+        torch, [g[keep] for g in g_k[-1]], [g[keep] for g in g_p[-1]])
+    return res
+
+
+def plain_float64_cotangents(torch, ft, flat, rays, cfg, meta, maps, field,
+                             g_rays, g_mom, g_grid, g_field):
+    """The plain version's 7 input-ray and 6 launch-field cotangents in
+    float64 (table, rays, field and cotangents widened): the reference of
+    the plain version's own float32 rounding."""
+    from raytracetorch_tpu_torch.core.field import FieldState
+    d = torch.float64
+    r64 = rays.replace(**{c: getattr(rays, c).to(d) for c in ft.COMPS},
+                       wavelength=rays.wavelength.to(d))
+    f64 = FieldState(*(f.to(d) for f in field)).streams()
+    flags = ft.StreamFlags(False, False, False, True)
+    res = ft.plain_vjp(
+        lambda f, r, m, fld=None: ft._chain(f, r, cfg, meta, m, flags,
+                                            field=fld),
+        flat.to(d), r64, [g.to(d) for g in g_rays], g_mom.to(d),
+        None if g_grid is None else g_grid.to(d), maps, False,
+        dict(zip(ft.FIELD_KEYS, (g.to(d) for g in g_field))), field=f64)
+    return res[1], res[-1]
+
+
+def rays_off_float64(torch, g, g64, groups):
+    """The rays whose cotangents ``g`` break BWD_TOL's rule against the
+    float64 ones ``g64``, each against the largest |float64| of its group
+    in ``groups`` (compare_ray_cotangents's groups and scales for the rays'
+    7, compare_field_cotangents's one group for the field's 6)."""
+    bad = torch.zeros_like(g64[0], dtype=torch.bool)
+    for grp in groups:
+        scale = max(float(g64[j].abs().max()) for j in grp)
+        for j in grp:
+            bad |= (g[j].double() - g64[j]).abs() > BWD_TOL * (
+                g64[j].abs() + scale)
+    return int(bad.sum())
+
+
+def compare_field_cotangents(torch, g_k, g_p):
+    """The launch field's six cotangents, kernel vs plain -> dict; raises
+    unless every ray's are within BWD_TOL of |plain| + the largest |plain|
+    (BWD_FLIPS_PER_MILLION rays may differ, as compare_ray_cotangents
+    allows)."""
+    n = g_p[0].shape[0]
+    scale = max(float(g.abs().max()) for g in g_p)
+    bad = torch.zeros(n, dtype=torch.bool, device=g_p[0].device)
+    err = 0.0
+    for a, b in zip(g_k, g_p):
+        e = (a - b).abs()
+        err = max(err, float(e.max()))
+        bad |= (e > BWD_TOL * (b.abs() + scale)) | ~torch.isfinite(a)
+    allowed = math.ceil(BWD_FLIPS_PER_MILLION * n / 1e6)
+    res = dict(scale=scale, max_abs_err=err,
+               max_err_over_scale=err / max(scale, 1e-30),
+               rays_differ=int(bad.sum()), allowed=allowed)
+    check(res['rays_differ'] <= allowed,
+          f'{res["rays_differ"]} rays have other field cotangents')
+    return res
+
+
+def stokes_means(torch, aux, out):
+    """Mean normalized Stokes (S1, S2, S3) / S0, the mean degree of
+    polarization and mean |E|^2 of a field trace."""
+    from raytracetorch_tpu_torch.utils.polarization import (
+        degree_of_polarization, stokes_parameters)
+    s0, s1, s2, s3 = stokes_parameters(aux['field'], out.dir_c)
+    s0c = s0.clamp(min=1e-12)
+    return dict(T=float(aux['field_power'].mean()),
+                dop=float(degree_of_polarization(s0, s1, s2, s3).mean()),
+                s1=float((s1 / s0c).mean()), s2=float((s2 / s0c).mean()),
+                s3=float((s3 / s0c).mean()), raw=[float(x.double().mean())
+                                                for x in (s0, s1, s2, s3)])
+
+
+def field_examples(rt, torch, dev, reset_counters, counters, only):
+    """Examples 07, 22, 33 and 06(c) through simulate_fused on the
+    reference's own rays at their published sizes and N_MAIN, against the
+    examples' own checks and FIELD_REF (the JAX package's numbers), with
+    the launches of each run counted -> dict; raises on a breach."""
+    import numpy as np
+    res = {}
+    ref07, ref22, ref33 = (FIELD_REF['ex07'], FIELD_REF['ex22'],
+                           FIELD_REF['ex33'])
+    sc = ex07_scene(rt)
+    params = sc.init_params(dev)
+    for n in (200_000, N_MAIN):
+        rays = ref_disk(rt, n, 4.0, -10.0, dev)
+        runs = {}
+        for label, E0 in (('s', [[1.0, 0.0, 0.0]]), ('p', [[0.0, 1.0, 0.0]]),
+                          ('circular', np.array([[1.0, 1.0j, 0.0]])
+                           / np.sqrt(2))):
+            reset_counters()
+            with torch.no_grad():
+                out, sens, aux = sc.simulate_fused(params, rays,
+                                                   track_field=True, E0=E0)
+            torch.cuda.synchronize()
+            fl = counters()
+            check(only(fl, trace_seq_fwd=1, field=1),
+                  f'example 07 launched {fl}')
+            st = stokes_means(torch, aux, out)
+            st['grid'] = float(sens.grid.sum())
+            ref = ref07[str(n)][label]
+            for k in ('T', 'dop', 's3'):
+                check(abs(st[k] - ref[k]) <= FIELD_REF_ATOL,
+                      f'example 07 {label} {k} {st[k]} vs JAX {ref[k]}')
+            check(abs(st['grid'] - ref['grid']) <= 1e-5 * ref['grid'],
+                  f'example 07 {label} grid {st["grid"]} vs {ref["grid"]}')
+            runs[label] = dict(st, launches=fl)
+        check(runs['p']['T'] > 0.99 and runs['s']['T'] < 0.90,
+              f'example 07 T_p {runs["p"]["T"]}, T_s {runs["s"]["T"]}')
+        res[f'ex07_{n}'] = runs
+    thetas = [math.pi * j / 18 for j in range(19)]
+    for n in (20_000, N_MAIN):
+        rays = ref_disk(rt, n, 2.0, -5.0, dev)
+        ref = ref22[str(n)]
+        sc = ex22_scene(rt, 'malus')
+        params = sc.init_params(dev)
+        malus = []
+        for th in thetas:
+            params['analyzer']['angle'] = torch.tensor(th, device=dev)
+            with torch.no_grad():
+                aux = sc.simulate_fused(params, rays, track_field=True)[2]
+            malus.append(float(aux['field_power'].mean()))
+        worst = max(abs(t - math.cos(th) ** 2) for t, th in zip(malus, thetas))
+        vs_jax = max(abs(a - b) for a, b in zip(malus, ref['malus']))
+        check(worst < 1e-5, f'Malus curve off by {worst}')
+        check(vs_jax <= FIELD_REF_ATOL, f'Malus vs JAX off by {vs_jax}')
+        stokes = {}
+        for label, expect in (('none', (1, 0, 0)), ('qwp45', (0, 0, -1)),
+                              ('hwp22', (0, -1, 0))):
+            s = ex22_scene(rt, label)
+            with torch.no_grad():
+                out, _, aux = s.simulate_fused(s.init_params(dev), rays,
+                                               track_field=True)
+            st = stokes_means(torch, aux, out)
+            got = [st['s1'], st['s2'], st['s3']]
+            check(all(abs(abs(a) - abs(b)) <= 1e-5
+                      for a, b in zip(got, expect)),
+                  f'Stokes {label}: {got} vs {expect}')
+            check(all(abs(a - b) <= FIELD_REF_ATOL
+                      for a, b in zip(got, ref['stokes'][label])),
+                  f'Stokes {label}: {got} vs JAX {ref["stokes"][label]}')
+            stokes[label] = got
+        design = field_design(rt, torch, dev, rays, reset_counters, counters,
+                              only)
+        check(abs(design['angle'] - ref['design_angle'])
+              <= FIELD_DESIGN_ATOL,
+              f'design angle {design["angle"]} vs JAX '
+              f'{ref["design_angle"]}')
+        res[f'ex22_{n}'] = dict(malus_worst=worst, malus_vs_jax=vs_jax,
+                                stokes=stokes, design=design)
+    for n in (512, N_MAIN):
+        sc = ex33_scene(rt)
+        params = sc.init_params(dev)
+        rows = {}
+        for lam in (FIELD_LAM0 - 0.05, FIELD_LAM0, FIELD_LAM0 + 0.05):
+            rays = ref_disk(rt, n, 1.0, -5.0, dev, lam)
+            with torch.no_grad():
+                out, _, aux = sc.simulate_fused(params, rays,
+                                                track_field=True)
+            s0, s1, s2, s3 = stokes_means(torch, aux, out)['raw']
+            chi = math.degrees(0.5 * math.asin(max(-1.0, min(1.0, s3 / s0))))
+            mod = math.hypot(s1, s2) / s0
+            from raytracetorch_tpu_torch.utils.birefringence import \
+                birefringence
+            d = (math.pi / 2) * (FIELD_LAM0 / lam) \
+                * birefringence('quartz', lam) \
+                / birefringence('quartz', FIELD_LAM0)
+            chi_ana = math.degrees(-0.5 * math.asin(math.sin(d)))
+            ref = ref33[str(n)][f'{lam:.4f}']
+            check(abs(chi - chi_ana) < 0.05,
+                  f'example 33 chi {chi} vs analytic {chi_ana} at {lam}')
+            check(abs(chi - ref['chi_deg']) <= 1e-3
+                  and abs(mod - ref['modulation']) <= 1e-4,
+                  f'example 33 at {lam}: {chi}, {mod} vs JAX {ref}')
+            rows[f'{lam:.4f}'] = dict(chi_deg=chi, chi_analytic=chi_ana,
+                                      modulation=mod)
+        lams = sorted(rows)
+        check(abs(rows[lams[1]]['chi_deg'] + 45.0) < 0.05
+              and rows[lams[1]]['modulation'] < 1e-3,
+              f'example 33 at the design wavelength: {rows[lams[1]]}')
+        for k in (0, 2):
+            err = abs(rows[lams[k]]['chi_deg'] + 45.0)
+            check(1.0 < err < 6.0 and rows[lams[k]]['modulation'] > 0.05,
+                  f'example 33 off design: {rows[lams[k]]}')
+        res[f'ex33_{n}'] = rows
+    sc = rt.SequentialScene([rt.SingletLens(
+        c1=0.02, c2=-0.02, d=16.0, t=4.0, ior_glass=1.5168, name='lens')])
+    rays = ex06_rays(rt, torch, dev)
+    from raytracetorch_tpu_torch.utils.polarization import \
+        polarized_sequential_trace
+    with torch.no_grad():
+        out, power, _ = polarized_sequential_trace(
+            sc, sc.init_params(dev), rays, [[1.0, 0.0, 0.0]], fused=True)
+    alive = out.intensity > 0
+    ex06 = dict(rays=rays.n, alive=int(alive.sum()),
+                mean=float(power[alive].mean()),
+                edge_min=float(power[alive].min()))
+    ref = FIELD_REF['ex06']
+    check(ex06['alive'] == ref['alive']
+          and abs(ex06['mean'] - ref['mean']) <= FIELD_REF_ATOL
+          and abs(ex06['edge_min'] - ref['edge_min']) <= FIELD_REF_ATOL,
+          f'example 06(c) {ex06} vs JAX {ref}')
+    res['ex06'] = ex06
+    return res
+
+
+def field_design(rt, torch, dev, rays, reset_counters=None, counters=None,
+                 only=None, steps=FIELD_DESIGN_STEPS):
+    """Example 22's analyzer design through simulate_fused: ``steps``
+    gradient steps of lr 0.5 on the transmitted power in the analyzer's
+    angle (K1 and K2 once each a step) -> dict; raises unless it lands
+    within 1e-3 of the analytic angle with leakage < 1e-6."""
+    sc = ex22_scene(rt, 'design')
+    params = sc.init_params(dev)
+    angle = params['analyzer']['angle'].clone()
+    if reset_counters is not None:
+        reset_counters()
+    for _ in range(steps):
+        p = {k: dict(v) for k, v in params.items()}
+        p['analyzer']['angle'] = angle.clone().requires_grad_(True)
+        power = sc.simulate_fused(p, rays, track_field=True)[2][
+            'field_power'].mean()
+        g, = torch.autograd.grad(power, p['analyzer']['angle'])
+        angle = angle - 0.5 * g
+    torch.cuda.synchronize()
+    res = dict(angle=float(angle))
+    if counters is not None:
+        res['launches'] = fl = counters()
+        check(only(fl, trace_seq_fwd=steps, trace_seq_bwd=steps,
+                   field=2 * steps), f'the design launched {fl}')
+    params['analyzer']['angle'] = angle
+    with torch.no_grad():
+        res['leakage'] = float(sc.simulate_fused(
+            params, rays, track_field=True)[2]['field_power'].mean())
+    found = res['angle'] % math.pi
+    target = (2 * 0.337 + math.pi / 2) % math.pi
+    res.update(target=target, off=abs(found - target))
+    check(res['leakage'] < 1e-6 and res['off'] < 1e-3,
+          f'the analyzer design: {res}')
+    return res
+
+
+def field_grad_loss(rt, torch, dev):
+    """tests/test_pallas.py:628-665's loss, total weight plus sum of
+    |E|^2 squared, on the singlet at N_MAIN rays: c1's and E0's gradients
+    through simulate_fused (K1 + K2) against the eager trace's -> dict."""
+    sc = field_singlet(rt, grad=True)
+    params = sc.init_params(dev)
+    gen = torch.Generator(device=dev).manual_seed(FIELD_SEED + 5)
+    rays = rt.CollimatedDisk.make(radius=3.0, translation=[0, 0, -10.0]) \
+        .sample(gen, N_MAIN, dev)
+    grads = {}
+    for name in ('simulate_fused', 'simulate'):
+        p = {k: dict(v) for k, v in params.items()}
+        p['lens']['c1'] = params['lens']['c1'].clone().requires_grad_(True)
+        E0 = torch.tensor([[math.sqrt(0.5), math.sqrt(0.5), 0.0]],
+                          device=dev, requires_grad=True)
+        _, sens, aux = getattr(sc, name)(p, rays, track_field=True, E0=E0)
+        loss = sens.total_weight(0)[0] + (aux['field_power'] ** 2).sum()
+        g_c1, g_e0 = torch.autograd.grad(loss, [p['lens']['c1'], E0])
+        grads[name] = dict(loss=float(loss), c1=float(g_c1),
+                           E0=g_e0[0].tolist())
+    f, e = grads['simulate_fused'], grads['simulate']
+    check(abs(f['loss'] - e['loss']) <= 1e-5 * abs(e['loss']),
+          f'grad loss {f["loss"]} vs eager {e["loss"]}')
+    check(abs(f['c1'] - e['c1']) <= 3e-2 * abs(e['c1']),
+          f'c1 gradient {f["c1"]} vs eager {e["c1"]}')
+    check(all(abs(a - b) <= 1e-3 * abs(b) + 1e-5
+              for a, b in zip(f['E0'], e['E0'])),
+          f'E0 gradient {f["E0"]} vs eager {e["E0"]}')
+    return grads
+
+
+def field_row_ops(meta):
+    """A row's field operations (FIELD_OPS) beside its intersect_ops and
+    apply_ops."""
+    from raytracetorch_tpu_torch.constants import PhysKind
+    ops = FIELD_OPS['sensor'] if meta.sensor else 0
+    if meta.ph in (PhysKind.SNELL, PhysKind.FRESNEL, PhysKind.FRESNEL_W,
+                   PhysKind.REFLECT_W):
+        ops += FIELD_OPS['fresnel']
+        if meta.ph in (PhysKind.FRESNEL, PhysKind.FRESNEL_W,
+                       PhysKind.REFLECT_W):
+            ops += FIELD_OPS['pol_r']
+    elif meta.ph == PhysKind.JONES:
+        ops += FIELD_OPS['jones'] + (FIELD_OPS['crystal']
+                                     if meta.jones_bire else 0)
+    elif meta.ph in (PhysKind.DOE, PhysKind.PHASE_GRID):
+        ops += FIELD_OPS['sp']
+    else:
+        ops += FIELD_OPS['scale']
+    return ops
+
+
+def field_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 17: the polarized field through K1 and K2 (their
+    instantiation with the field): each against its plain version at
+    N_MAIN rays on FIELD_CASES (the Brewster FRESNEL plane's branches ray
+    for ray); examples 07, 22, 33 and 06(c) through simulate_fused at their
+    published sizes and N_MAIN against their own checks and the JAX
+    package's numbers, example 22's design through K2 and the grad loss of
+    tests/test_pallas.py:628-665; times, bounds (the field's work counted),
+    blocks per SM; the SASS of every earlier instantiation."""
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    t0 = time.perf_counter()
+
+    # 17a. each kernel against its plain version
+    kern = {name: field_kernels_vs_plain(rt, torch, name, N_MAIN, dev,
+                                         FIELD_SEED + 11)
+            for name in FIELD_CASES}
+    emit('field_kernels_vs_plain', n=N_MAIN, **kern)
+
+    # 17b. the examples on the reference's rays, the design, the grad loss
+    paths = field_examples(rt, torch, dev, reset_counters, counters, only)
+    reset_counters()
+    paths['grad_loss'] = field_grad_loss(rt, torch, dev)
+    gl = counters()
+    check(only(gl, trace_seq_fwd=1, trace_seq_bwd=1, field=2),
+          f'the grad loss launched {gl}')
+    paths['grad_loss']['launches'] = gl
+    emit('field_main', **paths)
+
+    # 17c. times at N_MAIN against the plain versions, bounds and blocks
+    timing, bounds, occ = {}, {}, {}
+    for name in ('analyzer', 'ex07_circ'):
+        sc, params, r, E0, _ = field_case(rt, torch, name, N_MAIN, dev,
+                                          FIELD_SEED + 7)
+        meta, cfg, flat, kinds, maps, field, side = field_inputs(
+            rt, torch, sc, params, r, E0, dev)
+        g_rays, g_mom, g_grid = random_cotangents(torch, r.n, cfg, dev,
+                                                  SEED + 6)
+        g_field = [g_rays[0]] * 6
+        kfn = (lambda: ft.trace_seq_fwd_cuda(
+            flat, kinds, r, cfg, maps, True, fresnel=True, diff=True,
+            field=field, **side))
+        pfn = (lambda: ft.trace_sequential_fused_plain(
+            flat, r, cfg, meta, maps, field=field))
+        bk = (lambda: ft.trace_seq_bwd_cuda(
+            flat, kinds, r, cfg, g_rays, g_mom, g_grid=g_grid, maps=maps,
+            ext=True, fresnel=True, diff=True, field=field, g_field=g_field,
+            **side))
+        bp = (lambda: ft.trace_seq_bwd_plain(
+            flat, r, cfg, meta, g_rays, g_mom, g_grid=g_grid, maps=maps,
+            field=field, g_field=g_field))
+        cols = len(ft.grad_cols((), True, coat=True, diff=True,
+                                freeform=True))
+        io = r.n * (36 + 28 + 48) + table_bytes(meta) + grid_bytes(cfg)
+        k1_ops = r.n * sum(intersect_ops(m) + apply_ops(m)
+                           + field_row_ops(m) for m in meta)
+        bounds[f'k1_{name}'] = bound(io, k1_ops)
+        # K2 reads the final field's cotangent (24 B) and writes the launch
+        # field's (the 24 B K1 reads and writes more are in io)
+        bounds[f'k2_{name}'] = bound(io + r.n * (28 + 24)
+                                     + len(meta) * cols * 4, 3 * k1_ops)
+        for key, kf, pf in ((f'k1_{name}', kfn, pfn),
+                            (f'k2_{name}', bk, bp)):
+            k_runs = time_ms(torch, kf, warmup=2, reps=10)
+            p_runs = time_ms(torch, pf, warmup=1, reps=3)
+            timing[key] = dict(kernel_ms=statistics.median(k_runs),
+                               plain_ms=statistics.median(p_runs),
+                               kernel_runs=k_runs)
+        for lib in ('trace_seq_fwd', 'trace_seq_bwd'):
+            occ[f'{lib}_{name}'] = ft.blocks_per_sm(
+                lib, len(meta), cfg, True, ext=True, disp=False,
+                fuzzy_words=len(meta), field=True)
+    sc = ex22_scene(rt, 'design')
+    params = sc.init_params(dev)
+    rays = ref_disk(rt, N_MAIN, 2.0, -5.0, dev)
+
+    def step():
+        p = {k: dict(v) for k, v in params.items()}
+        p['analyzer']['angle'] = params['analyzer']['angle'].clone() \
+            .requires_grad_(True)
+        sc.simulate_fused(p, rays, track_field=True)[2][
+            'field_power'].mean().backward()
+    for label, fn in (
+            ('simulate_fused_analyzer', lambda: sc.simulate_fused(
+                params, rays, track_field=True)),
+            ('grad_step_fused_analyzer', step)):
+        runs = time_ms(torch, fn, warmup=2, reps=10)
+        timing[f'{label}_ms'] = statistics.median(runs)
+        timing[f'{label}_runs'] = runs
+    emit('field_timing', **timing)
+    emit('field_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('field_occupancy', blocks_per_sm=occ)
+    # 17d. every earlier instantiation keeps its SASS
+    emit('field_sass', **check_sass_all())
+    emit('field_seconds', seconds=time.perf_counter() - t0)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds)
+
+
+# The SASS of every kernel of the four trace libraries built before the
+# field (58: K1's 9, K2's 20, K5's 19, K6's 10), which this slice must not
+# change: sha256 (first 16 hex digits) of each kernel's normalized `cuobjdump
+# -sass` listing (sass_digests), keyed by the first 12 hex digits of the
+# sha256 of its mangled name (the anonymous namespace's hash stripped), read
+# from the parent commit's build on an NVIDIA H100 80GB HBM3 ->
+# {library: {name key: digest}}.
+SASS_ALL = {'trace_nonseq_bwd': {'03df43c7e5e9': '92e972321c93b1b8',
+                                 '08244a1bf7e2': '19e6d69b132f9fb7',
+                                 '1a141c888635': '144e7df402ce66e5',
+                                 '1c73ee0c1106': '911fb5ab5914eda9',
+                                 '40ff669ffc99': '377a9f183a44a24e',
+                                 '7b291c5d10e6': '787c894f94c7f330',
+                                 'a67af5124e4e': 'ae8e2808ef9f57e8',
+                                 'd098edf12ff4': '291adac1a8fed8d6',
+                                 'ef1210f8502a': '8def0959880507a7',
+                                 'efd221452f49': 'a78d2d8c8d9b5f2a'},
+            'trace_nonseq_fwd': {'06536acb2714': '43426f973e980015',
+                                 '077f607dc967': '2b3366748168cc07',
+                                 '167dc62ca7ba': 'a0517998fbf76f95',
+                                 '2d5647b05d53': '118a424363bbc31c',
+                                 '409ca9948ad0': 'a3dd8a66842f008d',
+                                 '4f9725044bc5': 'cf734ce216a28839',
+                                 '63b98f7c3418': '743dfdc6af310d8b',
+                                 '767a104e8821': 'ada485bbf3674cca',
+                                 '8377483e155c': '46bbc2564a911c69',
+                                 '8ece81f19a33': '5006a8ebac560e71',
+                                 'a4dbec718c61': 'f9d90741f25b6cb2',
+                                 'a81982b16b90': '8526c3bfac0542da',
+                                 'a95f8af70d7d': 'cf478798b278ed3e',
+                                 'ab38a4774321': '83c7afd665093f06',
+                                 'bf2fb8301d57': 'cc6600d8603c2591',
+                                 'ee90de7b0fef': '7056114a9e57dd56',
+                                 'ef63c80cdf39': '6ac47e1fc1f49aff',
+                                 'fa6ede60da44': '2b72c16e13a3c5dd',
+                                 'fe1a1d9473e3': '87d8d25dbc360977'},
+            'trace_seq_bwd': {'0d2846390bbb': 'dc7874fb8066daf8',
+                              '1b1c8ca95e5f': 'c3dec1901cbbec0e',
+                              '388a1f6be95b': '173a212ed7f8ce76',
+                              '3eedf1deee4b': 'd4967b555f6bc35c',
+                              '42d3b9e6215c': '24e563443a3b5bd8',
+                              '4d733f812142': 'ab659b7c23503212',
+                              '5518a8bebb18': 'f7b4a21642b937bd',
+                              '63e51899a554': 'f93c0e3de9fa3c29',
+                              '642e70824648': 'c1c113682e92a126',
+                              '6d9f41f2d2d7': 'ca096d846b6e88b2',
+                              '77b0c422bac6': 'e91c2402210dc34d',
+                              '79a5222d8b70': '50dac8ca0f9949cf',
+                              '838e6a6d04c7': '0f698b264124fd4e',
+                              'a07eb81f1edd': 'afd3ff09b28616af',
+                              'ab9231e34ce7': '80117d2d8a000e59',
+                              'd7fdbaed4743': '31c6adc31a02bbc8',
+                              'e10faef7dd52': 'af344ce0f36349b7',
+                              'ea678026567c': '32d8c1114a5dcce5',
+                              'fcfcf7083be2': '406ad68e10ffb3a5',
+                              'fd94565fe71d': 'e856cfef69d710c6'},
+            'trace_seq_fwd': {'49ccce64c5da': '7908e35cdb5af917',
+                              '58f790fd9dac': 'e2a054b1252e678c',
+                              '6a7fef6cd344': 'd744510beb7a1926',
+                              '7f24aa638f84': '53a3de2d10a62d95',
+                              '917bcc14d516': '8d3e966f838356d6',
+                              'ae165d077666': '3518c58d21cd8015',
+                              'bc46f50c42b3': '1c13bcdf573d1199',
+                              'dfddf45ad8d0': 'abea182f20a732c1',
+                              'fbe38a674d17': '4dcffb06ba91d2c7'}}
+
+
+def sass_keyed(path):
+    """{sha256(name)[:12]: sha256(listing)[:16]} of a library's kernels."""
+    import hashlib
+    return {hashlib.sha256(k.encode()).hexdigest()[:12]: v[:16]
+            for k, v in sass_digests(path).items()}
+
+
+def check_sass_all():
+    """The SASS of every kernel in SASS_ALL as built here -> dict; raises on
+    a difference or a missing kernel."""
+    from raytracetorch_tpu_torch.ops import fused_trace, nvcc_build
+    res = {}
+    for lib, want in SASS_ALL.items():
+        path = nvcc_build.library_path(lib, [fused_trace._LIBRARIES[lib][0]])
+        got = sass_keyed(path)
+        differ = [k for k, v in want.items() if got.get(k) != v]
+        res[lib] = dict(kernels=len(want), built=len(got), differ=differ)
+        check(not differ, f'{lib}: the SASS of {len(differ)} earlier '
+              f'kernels changed: {differ}')
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5999,7 +6927,7 @@ def main():
         fused_trace.STREAM_LAUNCHES = fused_trace.RECORD_RECOMPUTES = 0
         fused_trace.FRESNEL_LAUNCHES = fused_trace.COAT_LAUNCHES = 0
         fused_trace.DIFF_LAUNCHES = fused_trace.FUZZY_LAUNCHES = 0
-        fused_trace.FREEFORM_LAUNCHES = 0
+        fused_trace.FREEFORM_LAUNCHES = fused_trace.FIELD_LAUNCHES = 0
         fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
         grid.GRID_LAUNCHES = grid.GATHER_LAUNCHES = 0
         phase_grid.CORNER_LAUNCHES = phase_grid.CORNER_BWD_LAUNCHES = 0
@@ -6021,7 +6949,8 @@ def main():
                     coat=fused_trace.COAT_LAUNCHES,
                     diff=fused_trace.DIFF_LAUNCHES,
                     fuzzy=fused_trace.FUZZY_LAUNCHES,
-                    freeform=fused_trace.FREEFORM_LAUNCHES)
+                    freeform=fused_trace.FREEFORM_LAUNCHES,
+                    field=fused_trace.FIELD_LAUNCHES)
 
     def only(launched, **want):
         """Whether exactly the counters in ``want`` moved, by those
@@ -6935,6 +7864,9 @@ def main():
     # 16. convex solids, custom shapes and the point source
     solid = solid_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 17. the polarized field: polarizers, waveplates, E0
+    field = field_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -7565,6 +8497,24 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, so_t[key]['kernel_ms'],
             so_t[key]['plain_ms']))
+    # the instantiations with the field (section 17): launches on the
+    # counted path of example 22's design (K1, K2), errors at 1M rays over
+    # the cases (rays and field), times and bounds on its analyzer scene
+    fd_k, fd_t, fd_b = field['kernels'], field['timing'], field['bounds']
+    fd_l = field['paths'][f'ex22_{N_MAIN}']['design']['launches']
+    for name, line, launches_, err, key in (
+            ('trace_seq_fwd_field', 489, fd_l['trace_seq_fwd'],
+             max(max(c['max_abs_err'], c['field_max_abs_err'])
+                 for c in fd_k.values()), 'k1_analyzer'),
+            ('trace_seq_bwd_field', 1712, fd_l['trace_seq_bwd'],
+             max(max(c['bwd']['max_abs_err'],
+                     c['bwd']['field']['max_abs_err'])
+                 for c in fd_k.values()), 'k2_analyzer')):
+        bounds[name] = fd_b[key]
+        summary['kernels'].append(entry(
+            name, 'trace_seq_fwd.cu' if 'fwd' in name else 'trace_seq_bwd.cu',
+            line, launches_, err, fd_t[key]['kernel_ms'],
+            fd_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

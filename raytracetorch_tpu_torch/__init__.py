@@ -87,7 +87,13 @@ Hopper.  The port covers:
   of elements/shapes.py (``plane`` to ``single_cone``, whose one nappe is
   the CONE_NAPPE bound) with an optional coating, and ``PointSource``, eager
   and through K1, K2, K5 and K6 (the two bounds run in the instantiation
-  of the extended kinds and every one built on it).
+  of the extended kinds and every one built on it);
+- the polarized field on the sequential path: ``track_field`` and ``E0`` in
+  ``SequentialScene.simulate`` and ``simulate_fused`` (core/field.py), the
+  ``LinearPolarizer``, ``Waveplate`` (chromatic, or of a crystal:
+  utils/birefringence.py), ``QuarterWaveplate`` and ``HalfWaveplate``
+  (JONES), and the Stokes analysis of utils/polarization.py, eager and
+  through K1 and K2 (an instantiation of their own).
 
 ROADMAP.md lists what is still to be ported.
 
@@ -126,6 +132,9 @@ from .elements.mirror import (AsphericMirror, ConicMirror,  # noqa: E402
                               ParabolicMirror, ParabolicMirrorOffAxis,
                               ParabolicMirrorXZ, SphericalMirror)
 from .elements.mla import MicrolensArray  # noqa: E402
+from .elements.polarization import (HalfWaveplate,  # noqa: E402
+                                    LinearPolarizer, QuarterWaveplate,
+                                    Waveplate)
 from .elements.sensor import SensorElement  # noqa: E402
 from .elements.shapes import (cone, cylinder, disk, ellipse,  # noqa: E402
                               half_cyl, half_sphere, plane, quadric,

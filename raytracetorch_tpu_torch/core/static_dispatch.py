@@ -20,12 +20,17 @@ FRESNEL (the Monte-Carlo branch draw: it reads the ray's uniform ``u``),
 FRESNEL_W (refract, intensity times 1 - R) and REFLECT_W (the ghost
 reflection, intensity times R) on bare or thin-film coated interfaces
 (``coated_rt_sp``, absorbing films included), even-asphere and freeform
-rows (``meta.ff``, the static exponent pairs), and dispersive media (Cauchy
-and Sellmeier, ``dispersive_iors``).  Every other kind (SCATTER, the
-polarized field's JONES, GRIN) raises NotImplementedError naming the
-ROADMAP item that brings it.  ``medium_after`` gives the index of the
-medium a ray travels in after a row, for the optical path length
-(``track_opl``).
+rows (``meta.ff``, the static exponent pairs), dispersive media (Cauchy
+and Sellmeier, ``dispersive_iors``) and the polarizers' and waveplates'
+JONES, a geometric pass-through whose action is on the tracked field
+(core/field.py), which raises without one.  Under ``track_field`` (a
+``field``, core/field.py::FieldState) the Fresnel kinds of bare interfaces
+take the polarized reflectance of the rays' field state
+(``polarized_R``): FRESNEL's draw compares the same ``u`` with it,
+FRESNEL_W weighs by 1 - R_pol and REFLECT_W by R_pol.  Every other kind
+(SCATTER, GRIN) raises NotImplementedError naming the ROADMAP item that
+brings it.  ``medium_after`` gives the index of the medium a ray travels in
+after a row, for the optical path length (``track_opl``).
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from ..geom import vec3 as v3
 from ..geom.surfaces import sag_z
 from ..utils.coatings import (D_LINE_UM, _max, coating_rt, metal_nk_at,
                               metal_reflectance)
-from .physics import (doe_dir, fresnel_dir, fresnel_reflectance, grating_dir,
+from .physics import (doe_dir, fresnel_dir, fresnel_reflectance,
+                      fresnel_rs_rp, grating_dir,
                       kinoform_efficiency, linear_dir, mla_dir,
                       phase_grid_dir, reflect_dir, refract_components,
                       snell_dir)
@@ -171,7 +177,7 @@ def coat_acts(meta: StaticRowMeta):
     """Whether the row's thin-film stack or metal substrate changes the
     trace: a metal mirror, or a stack on a Fresnel kind (on a SNELL row a
     stack has no intensity to act on: it only enters the polarized field's
-    amplitudes, which the port does not trace yet)."""
+    amplitudes, which raise under the field: core/field.py::field_acts)."""
     return meta.metal or bool(meta.n_coat and meta.ph in FRESNEL_KINDS)
 
 
@@ -179,12 +185,12 @@ def unsupported(meta: StaticRowMeta):
     """Why the port cannot trace this row yet (None when it can)."""
     if meta.metal and meta.ph != PhysKind.REFLECT:
         return 'a metal substrate is a REFLECT row\'s'
-    if meta.ph in (PhysKind.SCATTER, PhysKind.JONES, PhysKind.GRIN):
+    if meta.ph in (PhysKind.SCATTER, PhysKind.GRIN):
         return f'physics {PhysKind(meta.ph).name} is {TODO_ELEMENTS}'
     if meta.ph not in (PhysKind.TRANSMIT, PhysKind.BLOCK, PhysKind.REFLECT,
                        PhysKind.SNELL, PhysKind.APERTURE,
-                       PhysKind.PHASE_GRID) + FRESNEL_KINDS + \
-            DIFFRACTIVE_KINDS:
+                       PhysKind.PHASE_GRID, PhysKind.JONES) + \
+            FRESNEL_KINDS + DIFFRACTIVE_KINDS:
         return f'physics {PhysKind(meta.ph).name} is {TODO_FEATURES}'
     if meta.ph == PhysKind.DOE and not (
             meta.doe is not None and 1 <= meta.doe[0] <= 8):
@@ -325,7 +331,35 @@ def mirror_reflectances_sp(meta: StaticRowMeta, row, d, n, wavelength=None):
     return rs, rp
 
 
-def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
+def polarized_R(meta: StaticRowMeta, row, d, n, n_in, n_out, field):
+    """The polarization-weighted reflectance R_pol = (Rs |Es|^2 + Rp
+    |Ep|^2) / |E|^2 of a bare interface for the rays' field state: the
+    branch probability of the polarized FRESNEL draw and the weighted
+    kinds' loss, so that intensity * |E|^2 is energy-exact."""
+    return polarized_RT(meta, row, d, n, n_in, n_out, field)[0]
+
+
+def polarized_RT(meta: StaticRowMeta, row, d, n, n_in, n_out, field):
+    """Polarization-weighted ``(R_pol, T_pol)`` of a bare interface for
+    the rays' field state (``field``, a core/field.py::FieldState): T_pol =
+    1 - R_pol, and ``(1, 0)`` under TIR.  A coated row raises (its stack's
+    amplitudes under the field are ROADMAP Queue 1 position 3b)."""
+    from .field import TODO_FIELD, sp_power_fractions
+    if meta.n_coat or meta.metal:
+        raise NotImplementedError(
+            f'the polarized reflectance of a coated row is {TODO_FIELD}')
+    _, cos_i, n1, n2, _, tir, cos_t, _ = refract_components(d, n, n_in,
+                                                            n_out)
+    Rs, Rp = fresnel_rs_rp(cos_i, cos_t, n1, n2)
+    fs, fp = sp_power_fractions(field.r_c, field.i_c, d, n)
+    frac = torch.clamp(fs + fp, min=1e-20)
+    R = (Rs * fs + Rp * fp) / frac
+    T = ((1.0 - Rs) * fs + (1.0 - Rp) * fp) / frac
+    return torch.where(tir, 1.0, R), torch.where(tir, 0.0, T)
+
+
+def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None,
+                 field=None):
     """Index of the medium a ray travels in AFTER this row, for the optical
     path length; None where the row leaves the medium unchanged.
 
@@ -341,7 +375,9 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
     ``wavelength`` (``dispersive_iors``).  A DOE row, like PHASE_GRID,
     always transmits: ``n2``.  Every other ported kind (REFLECT_W, metal
     mirrors, LINEAR, GRATING and MLA among them) returns None; the kinds the
-    port lacks are refused by ``unsupported``, as everywhere."""
+    port lacks are refused by ``unsupported``, as everywhere.  With
+    ``field`` (track_field) FRESNEL's R is the polarized one
+    (``polarized_R``), as its physics draws with."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
@@ -357,6 +393,9 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None):
     if meta.ph in (PhysKind.PHASE_GRID, PhysKind.DOE):
         return n2
     if meta.ph == PhysKind.FRESNEL:
+        if field is not None:
+            R = polarized_R(meta, row, d, n, n_in, n_out, field)
+            return torch.where(_draw(u) < R, n1, n2)
         if meta.n_coat:
             r_raw = coated_reflectance(meta, row, d, n, n_in, n_out,
                                        wavelength)
@@ -376,7 +415,8 @@ def _draw(u):
 
 
 def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
-                      wavelength=None, grid=None, plain=False, u=None):
+                      wavelength=None, grid=None, plain=False, u=None,
+                      field=None):
     """Single-kind physics -> (new direction tuple, intensity factor).
 
     FRESNEL reflects where the row's uniform ``u`` < R (``fresnel_dir``;
@@ -410,7 +450,13 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     wavelength ph[3], between the side-aware media (dispersive where
     ``meta.disp``), with intensity factor ``ok`` times, with the efficiency
     flag, ``kinoform_efficiency``.  An evanescent GRATING or DOE order has
-    intensity factor 0."""
+    intensity factor 0.
+
+    ``field`` (a core/field.py::FieldState, under ``track_field``) gives the
+    Fresnel kinds of bare interfaces the polarized reflectance of the rays'
+    field state (``polarized_RT``); a JONES row passes the ray through
+    (its action is core/field.py::transport_field's) and raises without
+    a field."""
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
@@ -432,6 +478,15 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
         return reflect_dir(d, n), ones
     if kind == PhysKind.SNELL:
         return snell_dir(d, n, n_in, n_out), ones
+    if kind == PhysKind.JONES:
+        if field is None:
+            raise NotImplementedError(
+                'polarizer/waveplate (JONES) surfaces act on the tracked '
+                'E-field: trace with track_field=True (an unpolarized '
+                'ensemble has no per-ray Jones action)')
+        return d, ones
+    if field is not None and kind in FRESNEL_KINDS:
+        return _polarized_fresnel(meta, row, d, n, n_in, n_out, u, field)
     if kind == PhysKind.FRESNEL:
         if not meta.n_coat:
             return fresnel_dir(d, n, n_in, n_out, _draw(u)), ones
@@ -487,6 +542,24 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     # APERTURE: the filter re-checks its own RAW (non-inverted) bound
     mod = sb_check_one(meta.sb, row.sb, hit_local).to(d[0].dtype)
     return (d[0] * mod, d[1] * mod, d[2] * mod), mod
+
+
+def _polarized_fresnel(meta, row, d, n, n_in, n_out, u, field):
+    """``apply_physics_one`` of the Fresnel kinds of a bare interface
+    under the field: FRESNEL reflects where ``u`` < R_pol, FRESNEL_W
+    refracts with factor clip(1 - R_pol, 0, 1), REFLECT_W reflects with
+    clip(R_pol, 0, 1); TIR reflects at full power."""
+    ones = torch.ones_like(d[0])
+    R, _ = polarized_RT(meta, row, d, n, n_in, n_out, field)
+    if meta.ph == PhysKind.FRESNEL:
+        return fresnel_dir(d, n, n_in, n_out, _draw(u), R_override=R), ones
+    tir = refract_components(d, n, n_in, n_out)[5]
+    if meta.ph == PhysKind.FRESNEL_W:
+        R = torch.where(tir, 0.0, R)
+        return snell_dir(d, n, n_in, n_out), torch.where(
+            tir, 1.0, torch.clamp(1.0 - R, 0.0, 1.0))
+    return reflect_dir(d, n), torch.where(tir, 1.0,
+                                          torch.clamp(R, 0.0, 1.0))
 
 
 def _diffractive(meta, row, hit_local, d, n, n_in, n_out, wavelength):

@@ -138,6 +138,11 @@ class SurfaceRec:
                                  # row's terms, on StaticRowMeta.ff
     doe: Any = None              # static (n_radial_terms, efficiency) of a
                                  # DOE row, on StaticRowMeta
+    jones_chrom: bool = False    # static: a JONES row's retardance scales
+                                 # as lam0 / lam (a true zero-order plate)
+    jones_bire: Any = None       # static: its crystal ('QUARTZ', 'MGF2',
+                                 # 'CALCITE'; utils/birefringence.py), whose
+                                 # dn(lam) / dn(lam0) scales it too
     is_sensor: bool = False
     sensor_slot: int = 0
     is_plane: bool = False       # static: row is a z=0 plane (fast path)

@@ -29,11 +29,17 @@ the JAX package's keys, shapes and meaning.  Fuzzy apodization
 (``fuzzy_fns``, {row: callable}, ``Scene.fuzzy_fns``) multiplies a row's
 intensity factor by its callable of the surface-local hit after the row's
 physics (elements/aperture.py::call_fuzzy), in both loops, as the
-reference's do; any callable runs here.  The field stream and ``E0`` come
-with the polarization elements (ROADMAP Queue 1 item 14) and raise; so do
-rows of the kinds the port lacks (GRIN, JONES, scatter), through
-``unsupported``.  A solid's faces (HALFSPACES) read their row's half-space
-columns in both loops, a flat row's mask as float 0/1.
+reference's do; any callable runs here.  ``trace_sequential`` carries the
+polarized field (``track_field``, the launch field ``E0``;
+core/field.py): each row's physics sees the incoming field (the polarized
+Fresnel reflectance), its sensor weight is ``intensity * |E|^2``, and the
+field is transported after the row where it is active; ``aux['field']``
+and ``aux['field_power']`` hold the final state.  A row whose coating or
+metal acts raises under the field, and the non-sequential loop refuses the
+field (core/field.py::TODO_FIELD); rows of the kinds the port lacks
+(GRIN, scatter) raise through ``unsupported``.  A solid's faces
+(HALFSPACES) read their row's half-space columns in both loops, a flat
+row's mask as float 0/1.
 
 The Fresnel kinds FRESNEL_W and REFLECT_W are deterministic; FRESNEL draws
 one uniform per ray (rays/draws.py).  ``trace_sequential`` takes the
@@ -63,10 +69,10 @@ from ..geom import vec3 as v3
 from ..rays.draws import nonseq_draws, sequential_uniforms, stream_index
 from ..elements.aperture import call_fuzzy
 from ..rays.ray import Rays
+from .field import TODO_FIELD, FieldState, field_acts, transport_field
 from .intersect import intersect, normal_world
 from .sensor import SensorConfig, SensorState
-from .static_dispatch import (TODO_ELEMENTS, apply_physics_one, medium_after,
-                              unsupported)
+from .static_dispatch import apply_physics_one, medium_after, unsupported
 
 
 class Streams:
@@ -94,17 +100,18 @@ class Streams:
         return None
 
     def surface(self, meta, row, prev: Rays, out: Rays, res, n_w, active,
-                u=None):
+                u=None, field=None):
         """A sequential row: opl += n_cur t where active, then the medium
         after the row (``medium_after``, a FRESNEL row's with its draw
-        ``u``); the position after the row; the RAW surface-local hit of
-        every ray and, as its weight, the intensity after the row where
-        active (0 elsewhere), on every row."""
+        ``u`` and, under the field, the incoming ``field``); the position
+        after the row; the RAW surface-local hit of every ray and, as its
+        weight, the intensity after the row where active (0 elsewhere), on
+        every row."""
         if self.opl is not None:
             self.opl = self.opl + torch.where(active, self.n_cur * res['t'],
                                               0.0)
             n_next = medium_after(meta, row, prev.dir_c, n_w,
-                                  prev.wavelength, u)
+                                  prev.wavelength, u, field)
             if n_next is not None:
                 self.n_cur = torch.where(active, n_next, self.n_cur)
         if self.paths is not None:
@@ -155,8 +162,9 @@ class Streams:
 
 def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
                   static_meta, plain=False, grid=None, streams=None, u=None,
-                  fuzzy_fn=None):
-    """Apply one surface interaction to the whole ray batch (masked).
+                  fuzzy_fn=None, field=None):
+    """Apply one surface interaction to the whole ray batch (masked) ->
+    ``(rays, sensors, field)``.
 
     ``row`` is a SurfaceTable row or a FlatRow (a row of the fused kernel's
     flat table): only its float columns are read; the kinds come from
@@ -165,51 +173,76 @@ def _surface_step(row, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     callable (None: none).  ``plain=True`` bins the grid
     and reads the map's corners with their plain versions on any device.
     ``streams`` (a ``Streams``) records the row.  A ray that misses a
-    REFLECT_W row leaves the path: its intensity becomes 0."""
+    REFLECT_W row leaves the path: its intensity becomes 0.  ``field`` (a
+    FieldState; None: no field) drives the polarized Fresnel reflectance,
+    weighs the sensor record by |E|^2 and is transported where the row is
+    active."""
     res = intersect(row, rays.pos_c, rays.dir_c, static_meta)
     active = res['valid'] & (rays.intensity > 0)
     n_w = normal_world(row, res['hit_s'], static_meta)
     new_dir, imod = apply_physics_one(static_meta, row, res['hit_s'],
                                       rays.dir_c, n_w, rays.wavelength,
-                                      grid, plain, u)
+                                      grid, plain, u, field)
     if fuzzy_fn is not None:
         imod = imod * call_fuzzy(fuzzy_fn, res['hit_s'])
     new_pos = v3.fma(rays.pos_c, res['t'], rays.dir_c)
     if static_meta.sensor:
         # sensors record the surface-local hit and the INCOMING intensity
+        # (times the incoming |E|^2 under the field)
         w = torch.where(active, rays.intensity, 0.0)
+        if field is not None:
+            w = w * field.power()
         sensors = sensors.record(cfg, static_meta.slot, rays.ray_id,
                                  res['hit_s'], w, plain=plain)
     out = rays.masked_update(active, new_pos, new_dir, imod)
     if static_meta.ph == PhysKind.REFLECT_W:
         out = out.replace(intensity=torch.where(active, out.intensity, 0.0))
     if streams is not None:
-        streams.surface(static_meta, row, rays, out, res, n_w, active, u)
-    return out, sensors
+        streams.surface(static_meta, row, rays, out, res, n_w, active, u,
+                        field)
+    if field is not None:
+        field = field.masked(active, *transport_field(
+            static_meta, row, rays.dir_c, new_dir, n_w, imod, field.r_c,
+            field.i_c, rays.wavelength))
+    return out, sensors, field
 
 
 def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
                   plain=False, grids=None, streams=None, uniforms=None,
-                  fuzzy_fns=None):
+                  fuzzy_fns=None, field=None):
     """The sequential chain over ``rows`` (one per static_meta entry) ->
-    ``(rays, sensors)``; ``streams`` records every row; ``uniforms`` holds
+    ``(rays, sensors)``, with a launch ``field`` (a FieldState) ``(rays,
+    sensors, field)``; ``streams`` records every row; ``uniforms`` holds
     the FRESNEL rows' ``[F, N]`` draws in row order (rays/draws.py);
     ``fuzzy_fns`` maps a row to its apodization callable."""
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
     first = stream_index(static_meta)
+    traced = field is not None
+    if traced:
+        check_field_rows(static_meta)
     for k, meta in enumerate(static_meta):
         u = uniforms[first[k]] if k in first else None
-        rays, sensors = _surface_step(rows[k], rays, cfg, sensors, meta,
-                                      plain=plain, grid=(grids or {}).get(k),
-                                      streams=streams, u=u,
-                                      fuzzy_fn=(fuzzy_fns or {}).get(k))
-    return rays, sensors
+        rays, sensors, field = _surface_step(
+            rows[k], rays, cfg, sensors, meta, plain=plain,
+            grid=(grids or {}).get(k), streams=streams, u=u,
+            fuzzy_fn=(fuzzy_fns or {}).get(k), field=field)
+    return (rays, sensors, field) if traced else (rays, sensors)
 
 
-def _refuse_unported(track_field=False, E0=None):
+def check_field_rows(static_meta):
+    """Raise NotImplementedError on a row the field cannot pass yet (a
+    coated or metal row: core/field.py::field_acts)."""
+    for k, meta in enumerate(static_meta):
+        why = field_acts(meta)
+        if why:
+            raise NotImplementedError(f'row {k}: {why}')
+
+
+def _refuse_field(track_field=False, E0=None):
     if track_field or E0 is not None:
         raise NotImplementedError(
-            f'track_field and E0 are {TODO_ELEMENTS}')
+            f'track_field and E0 in the non-sequential trace are '
+            f'{TODO_FIELD}')
 
 
 def trace_sequential(table, rays: Rays, cfg: SensorConfig = SensorConfig(),
@@ -225,20 +258,29 @@ def trace_sequential(table, rays: Rays, cfg: SensorConfig = SensorConfig(),
     apodization callable (either calling style).  ``aux`` holds the streams
     asked for (``Streams``): ``paths [K+1, N, 3]`` (the launch position, then the
     position after each row), ``hits [K, N, 3]`` and ``hit_weights [K, N]``,
-    ``opl`` and ``n_final`` ``[N]``."""
+    ``opl`` and ``n_final`` ``[N]``.  ``track_field=True`` carries the
+    polarized field from ``E0`` (core/field.py::FieldState.init; None:
+    x-linear): the sensor moments and grids weigh by ``intensity * |E|^2``
+    and ``aux`` holds ``field`` (the final FieldState) and ``field_power``
+    (its |E|^2); ``E0`` without ``track_field`` is ignored, as in the JAX
+    package."""
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_sequential needs one StaticRowMeta per row '
                          '(SequentialScene.static_meta())')
-    _refuse_unported(track_field, E0)
     u = sequential_uniforms(static_meta, rays.n, rays.px.device, generator,
                             uniforms)
     dtype = torch.promote_types(rays.px.dtype, table.tw.dtype)
     streams = Streams.of(rays, record_paths, record_hits, track_opl)
     rows = [table.row(k) for k in range(table.n_surfaces)]
-    rays, sensors = surface_chain(rows, rays, cfg, static_meta, dtype,
-                                  grids=grids, streams=streams, uniforms=u,
-                                  fuzzy_fns=fuzzy_fns)
-    return rays, sensors, streams.aux() if streams is not None else {}
+    res = surface_chain(rows, rays, cfg, static_meta, dtype, grids=grids,
+                        streams=streams, uniforms=u, fuzzy_fns=fuzzy_fns,
+                        field=(FieldState.init(rays, E0) if track_field
+                               else None))
+    aux = streams.aux() if streams is not None else {}
+    if track_field:
+        aux['field'] = res[2]
+        aux['field_power'] = res[2].power()
+    return res[0], res[1], aux
 
 
 def nearest_hit(table, pos, direction, static_meta):
@@ -367,7 +409,7 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_nonsequential needs one StaticRowMeta per '
                          'row (Scene.static_meta())')
-    _refuse_unported(track_field, E0)
+    _refuse_field(track_field, E0)
     for k, meta in enumerate(static_meta):
         why = unsupported(meta)
         if why:

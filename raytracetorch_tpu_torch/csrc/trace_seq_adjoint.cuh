@@ -55,6 +55,18 @@
 // the coefficients into `tf` (the 32 ff columns of the instantiation with
 // freeform surfaces, reduced after the coat columns; a DOE row's 8 are its
 // first 8).
+//
+// The polarized field (kField): the forward replay carries each ray's field
+// (field.cuh) and saves it before each row, six words more a row; the
+// reverse sweep carries its cotangent.  A row's adjoint reverses the
+// transport (field.cuh::field_transport_ct) into the incoming field, the
+// directions, the normal, the media, a JONES row's ph[0:5] and Rw columns
+// 0 and 1 and the wavelength; the sensor weight w |E|^2 sends its share to
+// the incoming field, and a FRESNEL_W or REFLECT_W row's polarized
+// reflectance its share through field.cuh::polarized_r_ct
+// (fresnel_weight_backward with kSP).  The new direction the transport
+// reads is the next row's saved direction (the ray's final one after the
+// last row), the value the forward moved the ray to.
 
 #pragma once
 
@@ -113,10 +125,38 @@ constexpr int kStateWords = 8;
 // The instantiations with the optical path length (kOpl) save one word more
 // per row or bounce, the index of the medium the ray travels in before it
 // (opl itself needs none: its cotangent is the same at every row).
-template <bool kOpl>
+template <bool kOpl, bool kField = false>
 __host__ __device__ constexpr int state_words() {
-  return kStateWords + (kOpl ? 1 : 0);
+  return kStateWords + (kOpl ? 1 : 0) + (kField ? 6 : 0);
 }
+
+// The instantiation with the field (kField, which has kOpl) saves the
+// incoming field after the medium: six words, Er x, y, z, then Ei x, y, z.
+template <int kStride>
+__device__ __forceinline__ void put_field(float* s, const Fld& e) {
+  float* f = s + (kStateWords + 1) * kStride;
+  f[0] = e.r.x;
+  f[kStride] = e.r.y;
+  f[2 * kStride] = e.r.z;
+  f[3 * kStride] = e.i.x;
+  f[4 * kStride] = e.i.y;
+  f[5 * kStride] = e.i.z;
+}
+
+template <int kStride>
+__device__ __forceinline__ Fld get_field(const float* s) {
+  const float* f = s + (kStateWords + 1) * kStride;
+  return {{f[0], f[kStride], f[2 * kStride]}, {f[3 * kStride], f[4 * kStride], f[5 * kStride]}};
+}
+
+// A row's field in the reverse sweep (kField): its incoming field e (saved),
+// g, the cotangent of the field after the row (which row_backward replaces
+// by the one before it), and nd, the direction the row moved the ray to.
+struct FieldCt {
+  Fld e;
+  Fld g;
+  V3 nd;
+};
 
 template <int kStride>
 __device__ __forceinline__ void put_medium(float* s, float n_cur) {
@@ -212,14 +252,18 @@ __device__ __forceinline__ uint32_t branch_bits(const RowHit& h, bool degen,
 // kFuzzy (which has kDiff) a row with a fuzzy program `prog` (fuzzy.cuh;
 // null: none) multiplies its factor by the program's value at the hit.
 // With kFreeform (which has kFuzzy) a row with exponent pairs `ffp` (null:
-// not freeform) is a freeform surface.
+// not freeform) is a freeform surface.  With kField (which has kFreeform)
+// the row's physics sees the ray's field `fe` (field_physics) and an active
+// row transports it.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& kd,
                                                 const Plates& pl, V3& p, V3& d, float& inten,
                                                 float u = 0.0f, const float* side = nullptr,
                                                 const int32_t* prog = nullptr,
-                                                const int32_t* ffp = nullptr) {
+                                                const int32_t* ffp = nullptr,
+                                                Fld* fe = nullptr) {
   const RowHit h = intersect_row<kPlates, kExt, kDiff, kFreeform>(r, kd, p, d, ffp);
   bool degen = false;
   const V3 nw = uses_normal<kFresnel>(kd.ph) || (kPlates && kd.ph == PHASE_GRID) ||
@@ -229,14 +273,19 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   PhysBranch br = {};
   V3 nd;
   float imod;
-  apply_physics<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff>(
-      r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br, kd.dispm, u, kd.coat, side);
+  if constexpr (kField)
+    field_physics<kDispersion, kDiff>(r, kd, d, nw, h.hs, pl, u, *fe, side, nd, imod, &br);
+  else
+    apply_physics<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff>(
+        r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br, kd.dispm, u, kd.coat, side);
   if constexpr (kFuzzy) {
     if (prog != nullptr) imod = imod * fuzzy_eval<false>(prog, h.hs.x, h.hs.y, h.hs.z).w;
   }
   uint32_t bits = branch_bits<kFresnel>(h, degen, br);
   if (h.valid && inten > 0.0f) {
     bits |= kActive;
+    if constexpr (kField)
+      *fe = field_transport(field_row<kDispersion>(r, kd, d, nd, nw, imod, pl.wl), *fe);
     p = fma3(p, h.t, d);
     d = nd;
     inten = inten * imod;
@@ -305,18 +354,21 @@ __device__ __forceinline__ FresnelFwd fresnel_forward(const float* r, const RowK
 // cotangent, adds the cotangents of the direction (g_d), of the normal
 // (g_nw) and of the media's indices (media_backward: ph[0:2], or on a
 // dispersive row wc).  Each line reverses a line of fresnel_R or of
-// refract_components.
-template <bool kDispersion>
+// refract_components.  With kSP (kField: the polarized reflectance's,
+// field.cuh::polarized_r) g_R and g_rp are the cotangents of a bare
+// interface's Rs = xs^2 and Rp = xp^2 in place of R's.
+template <bool kDispersion, bool kSP = false>
 __device__ __forceinline__ void fresnel_weight_backward(const RowKinds& kd, const FresnelFwd& f,
                                                         V3 d, V3 nw, uint32_t bits, float g_R,
                                                         V3& g_d, V3& g_nw, float* tg,
-                                                        WaveCt* wc) {
+                                                        WaveCt* wc, float g_rp = 0.0f) {
   const float ci = f.cos_i, ct = f.cos_t, n1 = f.n1, n2 = f.n2;
   // ---- R = (xs^2 + xp^2) / 2, xs = as / bs, xp = ap / bp ----
   const float as = n1 * ci - n2 * ct, bs = n1 * ci + n2 * ct + 1e-8f;
   const float ap = n1 * ct - n2 * ci, bp = n1 * ct + n2 * ci + 1e-8f;
   const float xs = as / bs, xp = ap / bp;
-  const float g_xs = g_R * xs, g_xp = g_R * xp;  // 0.5 g_R 2 x
+  const float g_xs = kSP ? 2.0f * g_R * xs : g_R * xs;  // 0.5 g_R 2 x
+  const float g_xp = kSP ? 2.0f * g_rp * xp : g_R * xp;
   const float g_as = g_xs / bs, g_bs = -(g_xs * xs / bs);
   const float g_ap = g_xp / bp, g_bp = -(g_xp * xp / bp);
   float g_n1 = (g_as + g_bs) * ci + (g_ap + g_bp) * ct;
@@ -871,10 +923,14 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // its exponent pairs; null: none) refines its root and takes its normal as
 // the forward did and reverses both (ff_refine_backward,
 // ff_normal_backward); its coefficients' cotangents add into
-// tf[kMaxFfTerms] (a DOE row's into its first kMaxDoeTerms).
+// tf[kMaxFfTerms] (a DOE row's into its first kMaxDoeTerms).  With kField
+// (which has kFreeform) `fc` carries the row's field (FieldCt): the
+// transport's adjoint, the sensor weight w |E|^2 and a weighted Fresnel
+// row's polarized reflectance, and fc->g becomes the cotangent of the
+// incoming field; a JONES row passes the direction's cotangent through.
 template <bool kPlates, bool kExt = false, bool kDispersion = false, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false>
+          bool kFreeform = false, bool kField = false>
 __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                              float inten, uint32_t bits, int rid,
                                              const float* gm, int n_bundles, const GridCt& gg,
@@ -883,13 +939,15 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
                                              OplCt* oc = nullptr, const float* side = nullptr,
                                              float* tc = nullptr, float* tf = nullptr,
                                              const int32_t* prog = nullptr,
-                                             const int32_t* ffp = nullptr) {
+                                             const int32_t* ffp = nullptr,
+                                             FieldCt* fc = nullptr) {
   static_assert(kDispersion || !kOpl, "the path length runs with dispersion");
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
+  static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
   if (!(bits & kActive)) {  // where(active, new, old) passes through
     if (kFresnel && kd.ph == REFLECT_W) gi = 0.0f;
     return;
@@ -939,7 +997,9 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
                          : (r1 ? t1 : t2);
   const V3 hs = fma3(o, t, ds);
 
-  const bool need_normal = uses_normal<kFresnel>(kd.ph);
+  // kField: the field's s/p bases read the normal of a DOE or PHASE_GRID row
+  const bool need_normal = uses_normal<kFresnel>(kd.ph) ||
+                           (kField && (kd.ph == DOE || (kPlates && kd.ph == PHASE_GRID)));
   const bool degen = bits & kDegen;
   V3 nw = {0.0f, 0.0f, 1.0f}, nl = {0.0f, 0.0f, 1.0f}, gv = {0.0f, 0.0f, 0.0f};
   float root_g2 = 1.0f, den = 1.0f, inv = 0.0f;
@@ -992,6 +1052,12 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
                         !(bits & kTir) && !(kCoat && (kd.coat & kCoatCountMask) != 0);
   FresnelFwd ff = {};
   float g_R = 0.0f;
+  // kField: the cotangent of the incoming field from the weights (the
+  // sensor's |E|^2, a weighted row's polarized R), the polarized R's
+  // forward values and basis
+  Fld g_ein = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  PolR pr = {};
+  SpBasis pb = {};
   // kCoat: a stack's weight, its inputs and the cotangents of its R and T
   bool stacked = false;
   StackIn sa = {};
@@ -1003,7 +1069,14 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   if constexpr (kFresnel) {
     if (weighted) {
       ff = fresnel_forward<kDispersion>(r, kd, pl, d, nw, bits);
-      const float R = fresnel_R(ff.cos_i, ff.cos_t, ff.n1, ff.n2);
+      float R;
+      if constexpr (kField) {
+        pb = sp_basis(F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z});
+        pr = polarized_r(fc->e, pb, ff.cos_i, ff.cos_t, ff.n1, ff.n2);
+        R = pr.R;
+      } else {
+        R = fresnel_R(ff.cos_i, ff.cos_t, ff.n1, ff.n2);
+      }
       const float x = kd.ph == FRESNEL_W ? 1.0f - R : R;
       imod = fminf(fmaxf(x, 0.0f), 1.0f);
       const float g_x =
@@ -1011,9 +1084,27 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
       g_R = kd.ph == FRESNEL_W ? -g_x : g_x;
     }
   }
+  // kField: the transport's adjoint (field.cuh::field_transport_ct) of the
+  // field after the row, with the row's total factor imod w
+  FieldRowCt fld_ct = {};
+  Fld g_etr = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  if constexpr (kField) {
+    g_etr = field_transport_ct(
+        field_row<kDispersion>(r, kd, d, fc->nd, nw, kFuzzy ? imod * fw.w : imod, pl.wl), fc->e,
+        fc->g, fld_ct);
+    // the factor's cotangent: a DOE row's efficiency's share (its own imod)
+    if constexpr (kDiff) {
+      if (kd.ph == DOE && (doe_of(kd.coat) & kDoeEfficiency) && (bits & kPgOk))
+        g_eta += kFuzzy ? fld_ct.imod * fw.w : fld_ct.imod;
+    }
+  }
   float g_t = dot3(gp, d);
   V3 g_d = {t * gp.x, t * gp.y, t * gp.z};
-  const V3 g_nd = gd;
+  V3 g_nd = gd;
+  if constexpr (kField) {
+    g_d = {g_d.x + fld_ct.d.x, g_d.y + fld_ct.d.y, g_d.z + fld_ct.d.z};
+    g_nd = {g_nd.x + fld_ct.nd.x, g_nd.y + fld_ct.nd.y, g_nd.z + fld_ct.nd.z};
+  }
   // ---- opl += n_cur t; n_cur' = medium_after (a refracting row), else n_cur ----
   float g_medium = 0.0f;  // the cotangent of the medium after a refracting row
   if constexpr (kOpl) {
@@ -1028,10 +1119,33 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   V3 g_hs = {0.0f, 0.0f, 0.0f};
   if constexpr (kFuzzy) {
     // I' = I (imod w): w's cotangent g I imod, through w's partials into hs
-    const float g_w = gi * inten * imod;
+    // (kField: and the field's share of the factor)
+    const float g_w = kField ? gi * inten * imod + fld_ct.imod * imod : gi * inten * imod;
     g_hs = {g_w * fw.gx, g_w * fw.gy, g_w * fw.gz};
   }
 
+  if constexpr (kField) {
+    // ---- sensor moments and grid of w = I |E|^2: w's cotangent goes to I
+    // (times |E|^2) and to the incoming field (times I) ----
+    if (kd.sensor) {
+      const float pw = fpower(fc->e);
+      float g_w = 0.0f;
+      if (rid >= 0 && rid < n_bundles) {
+        const float* g = gm + (kd.slot * n_bundles + rid) * kMoments;
+        const float w = inten * pw, x = hs.x, y = hs.y;
+        g_w += g[0] + g[1] * x + g[2] * y + g[3] * x * x + g[4] * y * y + g[5] * x * y;
+        g_hs.x += g[1] * w + 2.0f * g[3] * w * x + g[5] * w * y;
+        g_hs.y += g[2] * w + 2.0f * g[4] * w * y + g[5] * w * x;
+      }
+      if (gg.g != nullptr)
+        g_w += gg.g[static_cast<size_t>(kd.slot) * gg.h * gg.w +
+                    grid_cell(hs.x, hs.y, gg.h, gg.w, gg.e)];
+      g_i += g_w * pw;
+      const float g_p = 2.0f * g_w * inten;
+      g_ein.r = faxpy(g_ein.r, g_p, fc->e.r);
+      g_ein.i = faxpy(g_ein.i, g_p, fc->e.i);
+    }
+  } else {
   // ---- sensor moments of the incoming intensity (w = I) ----
   if (kd.sensor && rid >= 0 && rid < n_bundles) {
     const float* g = gm + (kd.slot * n_bundles + rid) * kMoments;
@@ -1045,13 +1159,15 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   if (kd.sensor && gg.g != nullptr)
     g_i += gg.g[static_cast<size_t>(kd.slot) * gg.h * gg.w +
                 grid_cell(hs.x, hs.y, gg.h, gg.w, gg.e)];
+  }
 
   // ---- physics ----
   V3 g_nw = {0.0f, 0.0f, 0.0f};
+  if constexpr (kField) g_nw = {fld_ct.nw.x, fld_ct.nw.y, fld_ct.nw.z};
   if (kPlates && kd.ph == PHASE_GRID) {
     phase_grid_backward<kDispersion, kOpl>(r, kd, pl, gmaps, d, hs, bits, g_nd, g_d, g_hs, tg,
                                            wc, g_medium);
-  } else if (kd.ph == TRANSMIT) {
+  } else if (kd.ph == TRANSMIT || (kField && kd.ph == JONES)) {
     g_d = fma3(g_d, 1.0f, g_nd);
   } else if (kd.ph == APERTURE) {
     if (bits & kMod) g_d = fma3(g_d, 1.0f, g_nd);
@@ -1110,7 +1226,41 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
     diffractive_backward<kDispersion>(r, kd, pl, d, hs, bits, g_nd, g_medium, g_eta, g_d, g_hs,
                                       tg, wc, tf);
   }
-  if constexpr (kFresnel) {
+  if constexpr (kField) {
+    // the weighted row's polarized reflectance: into the field, the basis
+    // (so d and nw) and (Rs, Rp)
+    if (weighted) {
+      F3 g_s = {0.0f, 0.0f, 0.0f}, g_p = {0.0f, 0.0f, 0.0f};
+      float g_rs = 0.0f, g_rp = 0.0f;
+      polarized_r_ct(fc->e, pb, pr, g_R, g_ein, g_s, g_p, g_rs, g_rp);
+      F3 gd3 = {0.0f, 0.0f, 0.0f}, gn3 = {0.0f, 0.0f, 0.0f};
+      sp_basis_ct(pb, F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z}, g_s, g_p, gd3, gn3);
+      g_d = {g_d.x + gd3.x, g_d.y + gd3.y, g_d.z + gd3.z};
+      g_nw = {g_nw.x + gn3.x, g_nw.y + gn3.y, g_nw.z + gn3.z};
+      fresnel_weight_backward<kDispersion, true>(kd, ff, d, nw, bits, g_rs, g_d, g_nw, tg, wc,
+                                                  g_rp);
+    }
+    // the transport's media, a JONES row's parameters, Rw columns and the
+    // wavelength's share of its retardance
+    if (field_fresnel_kind(kd.ph))
+      media_backward<kDispersion, true>(kd.dispm, dot3(d, nw) < 0.0f, fld_ct.n1, fld_ct.n2, tg, wc);
+    if (kd.ph == JONES) {
+      tg[kGPh] += fld_ct.theta;
+      tg[kGPh + 1] += fld_ct.a1;
+      tg[kGPh + 2] += fld_ct.a2;
+      float g_wl = 0.0f;
+      jones_delta(kd.coat, r[kPh + 3], r[kPh + 4], pl.wl, fld_ct.delta, &tg[kGPh + 3],
+                  &tg[kGPh + 4], &g_wl);
+      wc->wl += g_wl;
+      tg[kGRw] += fld_ct.xw.x;
+      tg[kGRw + 3] += fld_ct.xw.y;
+      tg[kGRw + 6] += fld_ct.xw.z;
+      tg[kGRw + 1] += fld_ct.yw.x;
+      tg[kGRw + 4] += fld_ct.yw.y;
+      tg[kGRw + 7] += fld_ct.yw.z;
+    }
+    fc->g = {fadd(g_etr.r, g_ein.r), fadd(g_etr.i, g_ein.i)};
+  } else if constexpr (kFresnel) {
     if (weighted) fresnel_weight_backward<kDispersion>(kd, ff, d, nw, bits, g_R, g_d, g_nw, tg, wc);
   }
   if constexpr (kCoat) {

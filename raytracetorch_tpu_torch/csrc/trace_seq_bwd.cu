@@ -144,6 +144,18 @@
 //   a DOE row's 8: the coefficients of up to MAX_FF_TERMS monomials, after
 //   the coat columns (67 columns a row, 79 on a table with a dispersive
 //   row: 2.5 KB a row of shared memory beside the 9 KB of saved state).
+// - The polarized field: an eleventh instantiation, kField, built on the
+//   tenth (an overload with one more argument, FieldIn: K1's launch field,
+//   the cotangent of its final field and the launch field's cotangent, each
+//   [6][N] planar), so that the others keep their code.  Its forward sweep
+//   carries the field as K1 does and saves the incoming field as six more
+//   state words a row (15 in all: 15 KB a row of shared memory, so tables
+//   of up to kFieldSharedRows rows keep them there, longer ones in local
+//   memory); its reverse sweep carries the field's cotangent through
+//   row_backward's field adjoint (trace_seq_adjoint.cuh, field.cuh), which
+//   adds the cotangents of the directions, the normals, the media, a JONES
+//   row's ph[0:5] and Rw columns and the wavelength.  A JONES row's
+//   cotangents land in columns the table already reduces (Rw, ph[0:6]).
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -183,6 +195,9 @@ namespace {
 // memory.
 constexpr int kSharedRows = 8;
 constexpr int kMaxRows = 64;
+// With the field (kField) a row saves 15 words: up to 5 rows in shared
+// memory keep two blocks an SM.
+constexpr int kFieldSharedRows = 5;
 
 // What only the instantiation with dispersion takes.
 struct WaveOut {
@@ -228,6 +243,16 @@ struct FfSide {
   const int32_t* pw;
 };
 
+// What only the instantiation with the field takes, [6][n] floats each (Er
+// x, y, z, then Ei x, y, z): K1's launch field `in`, the cotangent of K1's
+// final field `g_out` (null: zero) and the launch field's cotangent `c_in`
+// (null: not wanted).
+struct FieldIn {
+  const float* in;
+  const float* g_out;
+  float* c_in;
+};
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the forward sweep also carries the
 // index of the medium and saves it before each row as a ninth state word
@@ -247,7 +272,7 @@ struct FfSide {
 // the first 8).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false>
+          bool kFreeform = false, bool kField = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -262,16 +287,18 @@ __device__ __forceinline__ void seq_bwd(
     GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo,
     OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr},
-    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr}) {
+    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr},
+    FieldIn fi = {nullptr, nullptr, nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
+  static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
   constexpr int kStride = kShared ? kThreads : 1;
-  constexpr int kWords = state_words<kOpl>();
+  constexpr int kWords = state_words<kOpl, kField>();
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols, with kCoat the coat
   // columns after those, with kDiff a DOE row's ff columns after those
@@ -329,6 +356,15 @@ __device__ __forceinline__ void seq_bwd(
     if (kPlates) pl.wl = wavelength[i];
   }
 
+  // kField: the ray's field (zero past the ragged edge)
+  Fld fe = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  if constexpr (kField) {
+    if (live) {
+      fe.r = {fi.in[i], fi.in[n + i], fi.in[2 * n + i]};
+      fe.i = {fi.in[3 * n + i], fi.in[4 * n + i], fi.in[5 * n + i]};
+    }
+  }
+
   // ---- forward sweep: save each row's input state and branch bits ----
   float n_cur = 1.0f;  // kOpl: the medium (index 1 at launch)
   int f = 0;           // kFresnel: the next FRESNEL row's stream
@@ -344,11 +380,12 @@ __device__ __forceinline__ void seq_bwd(
         ++f;
       }
     }
+    if constexpr (kField) put_field<kStride>(saved + k * kWords * kStride, fe);
     const uint32_t bits =
-        row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
+        row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff, kFuzzy, kFreeform, kField>(
             tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide,
             kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr,
-            kFreeform ? ff_row_of(ffs, k) : nullptr);
+            kFreeform ? ff_row_of(ffs, k) : nullptr, kField ? &fe : nullptr);
     put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
     if constexpr (kOpl) {
       put_medium<kStride>(saved + k * kWords * kStride, n_cur);
@@ -363,6 +400,17 @@ __device__ __forceinline__ void seq_bwd(
   V3 gp = {0.0f, 0.0f, 0.0f}, gd = {0.0f, 0.0f, 0.0f};
   float gi = 0.0f, gwl = 0.0f;
   OplCt oc = {0.0f, 1.0f, 0.0f};  // kOpl: the path length's adjoint
+  // kField: the field's cotangent, and the direction after the row (the
+  // ray's final one after the last row)
+  FieldCt fc = {{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}},
+                {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}},
+                d};
+  if constexpr (kField) {
+    if (live && fi.g_out != nullptr) {
+      fc.g.r = {fi.g_out[i], fi.g_out[n + i], fi.g_out[2 * n + i]};
+      fc.g.i = {fi.g_out[3 * n + i], fi.g_out[4 * n + i], fi.g_out[5 * n + i]};
+    }
+  }
   if (live) {
     gp = {gpx ? gpx[i] : 0.0f, gpy ? gpy[i] : 0.0f, gpz ? gpz[i] : 0.0f};
     gd = {gdx ? gdx[i] : 0.0f, gdy ? gdy[i] : 0.0f, gdz ? gdz[i] : 0.0f};
@@ -381,6 +429,7 @@ __device__ __forceinline__ void seq_bwd(
     uint32_t bits;
     get_state<kStride>(saved + k * kWords * kStride, sp, sd, si, bits);
     if constexpr (kOpl) oc.n_cur = get_medium<kStride>(saved + k * kWords * kStride);
+    if constexpr (kField) fc.e = get_field<kStride>(saved + k * kWords * kStride);
     float tg[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) tg[c] = 0.0f;
@@ -394,9 +443,12 @@ __device__ __forceinline__ void seq_bwd(
 #pragma unroll
       for (int c = 0; c < (kDiff ? kFfCols : 1); ++c) tf[c] = 0.0f;
       const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
-      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
-          r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc,
-          cside + k * kCoatSide, tc, tf, kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp);
+      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
+                   kField>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi,
+                           tg, &wc, &oc, cside + k * kCoatSide, tc, tf,
+                           kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
+                           kField ? &fc : nullptr);
+      if constexpr (kField) fc.nd = sd;
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
       if (any) reduce_row<kPlates, kExt>(tg, slot, lane);
@@ -439,6 +491,13 @@ __device__ __forceinline__ void seq_bwd(
   }
   if constexpr (kDispersion) {
     if (live && wo.cwl != nullptr) wo.cwl[i] = gwl;
+  }
+  if constexpr (kField) {
+    if (live && fi.c_in != nullptr) {
+      const float v[6] = {fc.g.r.x, fc.g.r.y, fc.g.r.z, fc.g.i.x, fc.g.i.y, fc.g.i.z};
+#pragma unroll
+      for (int j = 0; j < 6; ++j) fi.c_in[j * n + i] = v[j];
+    }
   }
 
   if (partials == nullptr) return;
@@ -541,7 +600,17 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, Coat
       RTT_SEQ_BWD_ARGS, wo, oi, dr, cs, fp, ff);
 }
 
-// The types of the eight kernels.
+// The kernel with those and the field.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
+                     DiffKinds, FuzzyProgs fp, FfSide ff, FieldIn fi) {
+  static_assert(kPlates && kExt, "the field runs with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true, true, true, true>(
+      RTT_SEQ_BWD_ARGS, wo, oi, dr, cs, fp, ff, fi);
+}
+
+// The types of the nine kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -553,6 +622,8 @@ using BwdFuzzyKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, Co
                                 DiffKinds, FuzzyProgs);
 using BwdFreeformKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
                                    DiffKinds, FuzzyProgs, FfSide);
+using BwdFieldKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide, DiffKinds,
+                                FuzzyProgs, FfSide, FieldIn);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -574,7 +645,7 @@ struct PlateArgs {
 // tables of up to kSharedRows rows, the saved states (a word more a row
 // with the path length).
 template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false,
-          bool kFreeform = false>
+          bool kFreeform = false, bool kField = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols,
                     int fuzzy_words = 0) {
   const size_t rows = static_cast<size_t>(n_rows);
@@ -585,15 +656,20 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols,
           static_cast<size_t>(kWarps) * rows *
               (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
                (kDiff ? (kFreeform ? kMaxFfTerms : kMaxDoeTerms) : 0)) +
-          (n_rows <= kSharedRows ? rows * state_words<kOpl>() * kThreads : 0));
+          (n_rows <= (kField ? kFieldSharedRows : kSharedRows)
+               ? rows * state_words<kOpl, kField>() * kThreads
+               : 0));
 }
 
 // The kernel of an instantiation.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false>
+          bool kFreeform = false, bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kFreeform)
+  if constexpr (kField)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFieldKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kFreeform)
     return reinterpret_cast<const void*>(
         static_cast<BwdFreeformKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else if constexpr (kFuzzy)
@@ -623,10 +699,10 @@ const void* kernel_fn() {
 // only on request) -> (cudaError_t, the kernel).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false>
+          bool kFreeform = false, bool kField = false>
 cudaError_t prepare(size_t smem, const void** fn) {
   *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                  kFreeform>();
+                  kFreeform, kField>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -839,6 +915,73 @@ extern "C" int rtt_trace_seq_bwd_opl(
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
 
+// Launches the instantiation with the field on `stream`: the arguments of
+// rtt_trace_seq_bwd_opl, whose `coat_side`, `diff`, `fuzzy` and `ff_side`
+// must all be given (the field runs with the freeform surfaces), then
+// `field_in`, K1's launch field, `g_field`, the cotangent of K1's final
+// field (null: zero), and `c_field`, which receives the launch field's
+// cotangent (null: not wanted), 6 * n floats each ([6][n]: Er x, y, z, then
+// Ei x, y, z).  Tables of up to kFieldSharedRows rows keep their saved
+// states in shared memory.  Returns a cudaError_t.
+extern "C" int rtt_trace_seq_bwd_field(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
+    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
+    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
+    float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
+    const float* g_nfinal, const float* uniforms, int n_draws, int fresnel,
+    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words,
+    const int32_t* ff_side, const float* field_in, const float* g_field, float* c_field,
+    long long n, void* stream) {
+  (void)fresnel;
+  if (n <= 0) return 0;
+  if (coat_side == nullptr || !diff || fuzzy == nullptr || ff_side == nullptr ||
+      field_in == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_draws < 0 || (n_draws > 0 && uniforms == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
+  const OplIn oi = {g_opl, g_nfinal};
+  const size_t smem = shared_bytes<true, true, true, true, true, true, true>(
+      n_rows, n_slots, n_bundles, wo.disp_cols, fuzzy_words);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(blocks);
+  const bool shared = n_rows <= kFieldSharedRows;
+  const void* fn;
+  const cudaError_t e =
+      shared ? prepare<true, true, true, true, true, true, true, true, true, true, true>(smem, &fn)
+             : prepare<false, true, true, true, true, true, true, true, true, true, true>(smem,
+                                                                                          &fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
+  const SeqDraws dr = {uniforms, n_draws};
+  const FuzzyProgs fp = {fuzzy, fuzzy_words};
+  const FieldIn fi = {field_in, g_field, c_field};
+  if (shared)
+    trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
+        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, dr, CoatSide{coat_side},
+        DiffKinds{0}, fp, FfSide{ff_side}, fi);
+  else
+    trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
+        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, dr, CoatSide{coat_side},
+        DiffKinds{0}, fp, FfSide{ff_side}, fi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
@@ -849,14 +992,17 @@ extern "C" int rtt_trace_seq_bwd_opl(
 // with the coatings on such a table, 7 the one with the diffractive kinds
 // on such a table, 8 the one with the fuzzy programs (of `fuzzy_words`
 // words) on such a table, 9 the one with the freeform surfaces (and
-// programs of `fuzzy_words` words) on such a table.
+// programs of `fuzzy_words` words) on such a table, 10 the one with the
+// field (likewise).
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int fuzzy_words,
                                            int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
   const size_t smem =
-      code == 9 ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles,
+      code == 10 ? shared_bytes<true, true, true, true, true, true, true>(
+                       n_rows, n_slots, n_bundles, disp_cols, fuzzy_words)
+      : code == 9 ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles,
                                                                    disp_cols, fuzzy_words)
       : code == 8 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles,
                                                                disp_cols, fuzzy_words)
@@ -867,7 +1013,13 @@ extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundle
       : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
-  const cudaError_t e = code == 9 ? prepare_rows<true, true, true, true, true, true, true, true,
+  const cudaError_t e =
+      code == 10 ? (n_rows <= kFieldSharedRows
+                        ? prepare<true, true, true, true, true, true, true, true, true, true, true>(
+                              smem, &fn)
+                        : prepare<false, true, true, true, true, true, true, true, true, true,
+                                  true>(smem, &fn))
+                        : code == 9 ? prepare_rows<true, true, true, true, true, true, true, true,
                                                  true>(n_rows, smem, &fn)
                         : code == 8 ? prepare_rows<true, true, true, true, true, true, true, true>(
                                         n_rows, smem, &fn)

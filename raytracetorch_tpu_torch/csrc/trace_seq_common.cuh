@@ -83,6 +83,16 @@
 // intersection refines both base-conic roots by 8 Newton steps, the normal
 // is the sag's (freeform.cuh).  A row is freeform or DOE, never both (the
 // elements build no such row): both read the ff columns.
+//
+// The polarized field (track_field: a complex E-vector per ray, field.cuh)
+// takes one more compile-time flag, kField, set only in one more
+// instantiation of K1 and K2, built on the one with freeform surfaces:
+// every other instantiation holds none of its code.  Under it the Fresnel
+// kinds of bare interfaces draw and weigh with the polarized reflectance of
+// the ray's field (fresnel_physics with kField), a JONES row (a polarizer
+// or a waveplate) passes the ray through, and field_row gathers what a row's
+// transport reads; a JONES row's static bits (chromatic, crystal) ride its
+// kinds row where a coated row's coating bits ride theirs.
 
 #pragma once
 
@@ -91,6 +101,7 @@
 #include <cuda_runtime.h>
 
 #include "diffractive.cuh"
+#include "field.cuh"
 #include "freeform.cuh"
 #include "fuzzy.cuh"
 #include "grid_corners.cuh"
@@ -147,6 +158,7 @@ enum PhysKind {
   GRATING = 7,
   FRESNEL_W = 8,
   REFLECT_W = 9,
+  JONES = 11,
   DOE = 13,
   MLA = 14,
   PHASE_GRID = 15
@@ -971,12 +983,15 @@ __device__ __forceinline__ StackIn metal_stack(const float* r, int coat, const f
 // with imod = clip(R, 0, 1) (1 under TIR).  With kCoat a coated row (`coat`,
 // its side-buffer row `side`) takes R (and T) from its stack; an absorbing
 // stack weighs FRESNEL's transmitted branch by clip(T / max(1 - R, 1e-12),
-// 0, 1) and FRESNEL_W by clip(T, 0, 1).
-template <bool kDispersion, bool kCoat = false>
+// 0, 1) and FRESNEL_W by clip(T, 0, 1).  With kField (core/static_dispatch.py
+// ::_polarized_fresnel; a bare interface) R is the polarized reflectance of
+// the ray's field *e (field.cuh::polarized_r).
+template <bool kDispersion, bool kCoat = false, bool kField = false>
 __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3 nw, float wl,
                                                 int dispm, float u, V3& nd, float& imod,
                                                 PhysBranch* br, int coat = 0,
-                                                const float* side = nullptr) {
+                                                const float* side = nullptr,
+                                                const Fld* e = nullptr) {
   const float dn = dot3(d, nw);
   const bool from_in = dn < 0.0f;
   const float eff_sign = from_in ? 1.0f : -1.0f;
@@ -989,7 +1004,9 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
   const bool tir = sin2_t > 1.0f;
   const float cos_t = tir ? 0.0f : sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
   float R, T = 0.0f;
-  if (kCoat && (coat & kCoatCountMask) != 0) {
+  if constexpr (kField) {
+    R = polarized_r(*e, sp_basis(F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z}), cos_i, cos_t, n1, n2).R;
+  } else if (kCoat && (coat & kCoatCountMask) != 0) {
     const StackRT rt = stack_rt_unpolarized(coated_stack(r, coat, side, n1, n2, cos_i, wl));
     R = rt.R;
     T = rt.T;
@@ -1015,6 +1032,38 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
     br->n2_small = n2_small;
     br->reflect = ph == FRESNEL && reflect;
   }
+}
+
+// What a row's field transport reads (field.cuh::FieldRow): the incoming
+// direction d, the new one nd, the normal nw, the media by the side of
+// d . nw (the transport kinds of field.cuh's Fresnel branch), the row's
+// factor imod (after a fuzzy program's), and a JONES row's angle,
+// amplitudes, retardance at the ray's wavelength wl (its static bits in
+// kd.coat: field.cuh::jones_delta) and Rw columns 0 and 1.
+template <bool kDispersion>
+__device__ __forceinline__ FieldRow field_row(const float* r, const RowKinds& kd, V3 d, V3 nd,
+                                              V3 nw, float imod, float wl) {
+  FieldRow fr;
+  fr.ph = kd.ph;
+  fr.d = F3{d.x, d.y, d.z};
+  fr.nd = F3{nd.x, nd.y, nd.z};
+  fr.nw = F3{nw.x, nw.y, nw.z};
+  fr.imod = imod;
+  fr.n1 = 1.0f;
+  fr.n2 = 1.0f;
+  fr.theta = fr.a1 = fr.a2 = fr.delta = 0.0f;
+  fr.xw = fr.yw = F3{0.0f, 0.0f, 0.0f};
+  if (field_fresnel_kind(kd.ph))
+    media_iors<kDispersion>(r, dot3(d, nw) < 0.0f, kd.dispm, wl, fr.n1, fr.n2);
+  if (kd.ph == JONES) {
+    fr.theta = r[kPh];
+    fr.a1 = r[kPh + 1];
+    fr.a2 = r[kPh + 2];
+    fr.delta = jones_delta(kd.coat, r[kPh + 3], r[kPh + 4], wl);
+    fr.xw = F3{r[kRw], r[kRw + 3], r[kRw + 6]};
+    fr.yw = F3{r[kRw + 1], r[kRw + 4], r[kRw + 7]};
+  }
+  return fr;
 }
 
 // The diffractive and ideal kinds' physics (kDiff; core/static_dispatch.py::
@@ -1151,6 +1200,22 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
   } else if (kDiff && (ph == LINEAR || ph == GRATING || ph == MLA || ph == DOE)) {
     diffractive_physics<kDispersion>(r, ph, d, nw, hs, pl.wl, dispm, doe_of(coat), nd, imod, br);
   }
+}
+
+// A row's physics under the field (kField): the Fresnel kinds by
+// fresnel_physics with the field, every other kind by apply_physics (a JONES row
+// falls through it: nd = d, imod = 1).
+template <bool kDispersion, bool kDiff>
+__device__ __forceinline__ void field_physics(const float* r, const RowKinds& kd, V3 d, V3 nw,
+                                              V3 hs, const Plates& pl, float u, const Fld& e,
+                                              const float* side, V3& nd, float& imod,
+                                              PhysBranch* br) {
+  if (kd.ph == FRESNEL || kd.ph == FRESNEL_W || kd.ph == REFLECT_W)
+    fresnel_physics<kDispersion, false, true>(r, kd.ph, d, nw, pl.wl, kd.dispm, u, nd, imod, br,
+                                              0, nullptr, &e);
+  else
+    apply_physics<true, true, kDispersion, true, true, kDiff>(
+        r, kd.ph, kd.sb, kd.map, d, nw, hs, pl, nd, imod, br, kd.dispm, u, kd.coat, side);
 }
 
 // The index of the medium a ray travels in after an active row

@@ -9,8 +9,10 @@
 // (_chain_pure's u_vals), thin-film coatings and metal mirrors
 // (apply_physics_one's coated and metal branches), the diffractive and
 // ideal elements, component-style fuzzy apodization (_chain_pure
-// :1623-1625) and freeform surfaces (its intersect :1567), with every other
-// optional stream off (field, scatter draws).  Its plain
+// :1623-1625), freeform surfaces (its intersect :1567) and the polarized
+// field of bare interfaces and polarizers (its field streams :544-567, the
+// transport :1653-1661, the |E|^2 weights :1632-1633), with every other
+// optional stream off (scatter draws).  Its plain
 // PyTorch version is ops/fused_trace.py::trace_sequential_fused_plain, and the wrapper that launches it is
 // ops/fused_trace.py::trace_seq_fwd_cuda.  With no grid and no plate it is
 // also the counterpart of the first TPU kernel, _kernel (launched by
@@ -136,6 +138,17 @@
 // _chain_pure's intersect (:1567) does through raytracetorch_tpu/core/
 // intersect.py:69-79 and :149-156.
 //
+// The polarized field (track_field) runs in one more instantiation, kField,
+// an overload with one more argument (FieldIO: the launch field and the
+// final field, [6][N] planar: the real parts of x, y, z, then the imaginary
+// ones), built on the one with freeform surfaces, so every other
+// instantiation keeps its code.  Each thread carries its ray's six field
+// floats through the rows: the Fresnel kinds draw and weigh with the
+// polarized reflectance of the incoming field (trace_seq_common.cuh::
+// fresnel_physics with kField), a sensor row's moments and grid take w * |E|^2,
+// and an active row transports the field (field.cuh::field_transport).  It
+// reads and writes 48 B a ray more than the instantiation below it.
+//
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
 // rely on (finite BIG sentinels for misses, +1e-24 under every sqrt, the
@@ -242,6 +255,13 @@ struct FfSide {
   const int32_t* pw;
 };
 
+// The field (kField): the launch field `in` and the final field `out`,
+// [6][n] floats each (Er x, y, z, then Ei x, y, z).
+struct FieldIO {
+  const float* in;
+  float* out;
+};
+
 // The kernel's body, shared by its instantiations (the kernels below).  With
 // kStreams (the instantiation with the streams: plate code, the extended
 // kinds and dispersion) it also accumulates the optical path length n_cur t
@@ -258,9 +278,11 @@ struct FfSide {
 // kDiff) the rows with a program in `fp` (copied into shared memory after
 // the side buffer) multiply their factor by its value at the hit.  With
 // kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
-// memory after the programs) refine their roots onto their sags.
+// memory after the programs) refine their roots onto their sags.  With
+// kField (which has kFreeform) each ray carries its field from `fio.in`
+// (field_physics, the |E|^2 weights, field_transport) to `fio.out`.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false>
 __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -273,12 +295,13 @@ __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, long long n, StreamOut so,
     SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0},
-    FfSide ff = {nullptr}) {
+    FfSide ff = {nullptr}, FieldIO fio = {nullptr, nullptr}) {
   static_assert(kStreams || !kFresnel, "the Fresnel kinds run with the streams");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
+  static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -308,6 +331,14 @@ __device__ __forceinline__ void seq_fwd(
     inten = intensity[i];
     rid = ray_id[i];
     if (kPlates) pl.wl = wavelength[i];
+  }
+  // kField: the ray's field (zero past the ragged edge)
+  Fld fe = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  if constexpr (kField) {
+    if (live) {
+      fe.r = {fio.in[i], fio.in[n + i], fio.in[2 * n + i]};
+      fe.i = {fio.in[3 * n + i], fio.in[4 * n + i], fio.in[5 * n + i]};
+    }
   }
   // the streams: the path length, the medium (index 1 at launch)
   float opl = 0.0f, n_cur = 1.0f;
@@ -353,9 +384,14 @@ __device__ __forceinline__ void seq_fwd(
         if (live && f < dr.n_draws) u = dr.u[static_cast<long long>(f) * n + i];
         ++f;
       }
-      apply_physics<kPlates, kExt, kExt, true, kCoat, kDiff>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs,
-                                                             pl, nd, imod, &br, kd.dispm, u,
-                                                             kd.coat, cside + k * kCoatSide);
+      if constexpr (kField)
+        field_physics<kExt, kDiff>(r, kd, d, nw, h.hs, pl, u, fe, cside + k * kCoatSide, nd, imod,
+                                   &br);
+      else
+        apply_physics<kPlates, kExt, kExt, true, kCoat, kDiff>(r, kd.ph, kd.sb, kd.map, d, nw,
+                                                               h.hs, pl, nd, imod, &br, kd.dispm,
+                                                               u, kd.coat,
+                                                               cside + k * kCoatSide);
       if constexpr (kFuzzy) imod = imod * fuzzy_factor(fzs, k, h.hs.x, h.hs.y, h.hs.z);
     } else if constexpr (kStreams)
       apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br,
@@ -368,7 +404,8 @@ __device__ __forceinline__ void seq_fwd(
 
     // ---- sensor moments and grid of the incoming intensity ----
     if (kd.sensor) {
-      const float w = active ? inten : 0.0f;
+      float w = active ? inten : 0.0f;
+      if constexpr (kField) w = w * fpower(fe);
       const float x = h.hs.x, y = h.hs.y;
       const float terms[kMoments] = {w,         w * x,     w * y, w * x * x,
                                      w * y * y, w * x * y, w > 0.0f ? 1.0f : 0.0f};
@@ -403,6 +440,7 @@ __device__ __forceinline__ void seq_fwd(
       }
     }
     if (active) {
+      if constexpr (kField) fe = field_transport(field_row<kExt>(r, kd, d, nd, nw, imod, pl.wl), fe);
       p = fma3(p, t, d);
       d = nd;
       inten = inten * imod;
@@ -439,6 +477,11 @@ __device__ __forceinline__ void seq_fwd(
         so.opl[i] = opl;
         so.n_final[i] = n_cur;
       }
+    }
+    if constexpr (kField) {
+      const float v[6] = {fe.r.x, fe.r.y, fe.r.z, fe.i.x, fe.i.y, fe.i.z};
+#pragma unroll
+      for (int j = 0; j < 6; ++j) fio.out[j * n + i] = v[j];
     }
   }
 
@@ -529,7 +572,18 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs,
                                                              ff);
 }
 
-// The types of the seven kernels.
+// The kernel with the streams, the Fresnel kinds, the coatings, the
+// diffractive kinds, the fuzzy programs, the freeform surfaces and the field.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds,
+                     FuzzyProgs fp, FfSide ff, FieldIO fio) {
+  static_assert(kPlates && kExt, "the field runs with the extended kinds");
+  seq_fwd<kPlates, kExt, true, true, true, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs,
+                                                                   fp, ff, fio);
+}
+
+// The types of the eight kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
@@ -539,15 +593,20 @@ using FwdFuzzyKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSid
                                 FuzzyProgs);
 using FwdFreeformKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
                                    FuzzyProgs, FfSide);
+using FwdFieldKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
+                                FuzzyProgs, FfSide, FieldIO);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kFreeform)
+  if constexpr (kField)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFieldKernel>(trace_seq_fwd_kernel<true, true>));
+  else if constexpr (kFreeform)
     return reinterpret_cast<const void*>(
         static_cast<FwdFreeformKernel>(trace_seq_fwd_kernel<true, true>));
   else if constexpr (kFuzzy)
@@ -572,11 +631,12 @@ const void* kernel_fn() {
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy,
-                                        kFreeform>(),
+                                        kFreeform, kField>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -600,8 +660,12 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the diffractive
 // kinds, 8 the one with the fuzzy programs, 9 the one with the freeform
-// surfaces), its shared memory allowed.
+// surfaces, 10 the one with the field), its shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 10) {
+    *e = prepare<true, true, true, true, true, true, true, true, true>(smem);
+    return kernel_fn<true, true, true, true, true, true, true, true, true>();
+  }
   if (code == 9) {
     *e = prepare<true, true, true, true, true, true, true, true>(smem);
     return kernel_fn<true, true, true, true, true, true, true, true>();
@@ -755,6 +819,50 @@ extern "C" int rtt_trace_seq_fwd_streams(
   return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
 }
 
+// Launches the instantiation with the field on `stream`: the arguments of
+// rtt_trace_seq_fwd_streams, whose `coat_side`, `diff`, `fuzzy` and
+// `ff_side` must all be given (the field runs with the freeform surfaces),
+// then `field_in`, the launch field, and `field_out`, the final field (6 * n
+// floats each, [6][n]: Er x, y, z, then Ei x, y, z).  Returns a
+// cudaError_t.
+extern "C" int rtt_trace_seq_fwd_field(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
+    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
+    float* hit_w, const float* uniforms, int n_draws, int fresnel, const float* coat_side,
+    int diff, const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side,
+    const float* field_in, float* field_out, long long n, void* stream) {
+  (void)fresnel;
+  if (n <= 0) return 0;
+  if (coat_side == nullptr || !diff || fuzzy == nullptr || ff_side == nullptr ||
+      field_in == nullptr || field_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_draws < 0 || (n_draws > 0 && uniforms == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, fuzzy_words, true);
+  const cudaError_t e = prepare<true, true, true, true, true, true, true, true, true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trace_seq_fwd_kernel<true, true>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
+          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+          map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr},
+          SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
+          FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side}, FieldIO{field_in, field_out});
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs (K1 has no bounces: the argument keeps the other kernels'
 // signature), at its dynamic shared memory, into *blocks
@@ -764,13 +872,14 @@ extern "C" int rtt_trace_seq_fwd_streams(
 // the one with the Fresnel kinds, 6 the one with the coatings, 7 the one
 // with the diffractive kinds, 8 the one with the fuzzy programs (of
 // `fuzzy_words` words), 9 the one with the freeform surfaces (and programs
-// of `fuzzy_words` words).  Returns a cudaError_t.
+// of `fuzzy_words` words), 10 the one with the field (likewise).  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int fuzzy_words,
                                            int* blocks) {
   (void)n_bounces;
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 6,
-                                   code >= 8 ? fuzzy_words : 0, code == 9);
+                                   code >= 8 ? fuzzy_words : 0, code >= 9);
   cudaError_t e;
   const void* fn = kernel_of(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);

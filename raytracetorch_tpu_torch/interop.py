@@ -15,6 +15,12 @@ The parity tests build inputs once (with numpy, or with the JAX package and
 - ``meta_from_slots``: the JAX package's StaticRowMeta list -> the port's,
   slot by slot (a freeform row's exponent pairs ride ``ff``; the freeform
   and Zernike lenses' ``xy1``/``xy2``/``z1``/``z2`` leaves are arrays of
+  ``params_from_numpy`` like any other; a JONES row's ``jones_chrom`` and
+  ``jones_bire`` are slots too);
+- ``jones_plate_from``: a JAX package's polarizer or waveplate -> the
+  port's, with its radius, angle, retardance, amplitudes, design
+  wavelength, material and trainable flags (its params ``radius``,
+  ``angle``, ``retardance``, ``amp1``, ``amp2`` are leaves of
   ``params_from_numpy`` like any other).
 
 This module never imports jax: it reads attributes and arrays only.
@@ -70,3 +76,23 @@ def meta_from_slots(metas):
         fields = {s: getattr(m, s) for s in StaticRowMeta.__slots__}
         out.append(StaticRowMeta(**fields))
     return out
+
+
+def jones_plate_from(el):
+    """The port's ``LinearPolarizer`` or ``Waveplate`` of the JAX package's
+    element ``el`` (a polarizer, or a waveplate of any retardance), read by
+    attribute: name, pose, radius, angle, retardance, amplitudes, design
+    wavelength, chromatic flag, material and trainable flags."""
+    from .elements import polarization as pol
+    kw = dict(name=el.name, rotation=list(el._rot_init),
+              translation=list(el._trans_init), angle_grad=el._angle_grad)
+    if type(el).__name__ == 'LinearPolarizer':
+        return pol.LinearPolarizer(el._r_init, angle=el._angle_init,
+                                   extinction=el._amp2_init ** 2, **kw)
+    plate = pol.Waveplate(el._r_init, retardance=el._ret_init,
+                          angle=el._angle_init, chromatic=el.chromatic,
+                          material=el.material,
+                          design_wavelength=el._lam0,
+                          retardance_grad=el._ret_grad, **kw)
+    plate._amp1_init, plate._amp2_init = el._amp1_init, el._amp2_init
+    return plate

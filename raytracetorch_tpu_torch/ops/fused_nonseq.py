@@ -197,9 +197,10 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
              flags=NO_STREAMS, key=None):
     if flat.device.type == 'cpu':
         return trace_nonseq_fused_plain(flat, rays, cfg, static_meta,
-                                        n_bounces, maps, *flags, key=key)
+                                        n_bounces, maps, **flags.stream_kw(),
+                                        key=key)
     return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
-                                 ext_kinds(static_meta), *flags,
+                                 ext_kinds(static_meta), **flags.stream_kw(),
                                  fresnel=fresnel_kinds(static_meta), key=key,
                                  coat=coat_side(static_meta, flat.device),
                                  diff=diffractive_kinds(static_meta),
@@ -318,7 +319,7 @@ def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
     ``draws(bounce, row)`` when given; a ``TraceMeta``'s callables apodize
     their rows.  ``plain=False`` runs K3's and K4's
     kernels on CUDA tensors, as the eager ``Scene.simulate`` does."""
-    streams = Streams.of(rays, **flags._asdict(), launch=False)
+    streams = Streams.of(rays, **flags.stream_kw(), launch=False)
     rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
     rng = None
     if needs_draws(static_meta):

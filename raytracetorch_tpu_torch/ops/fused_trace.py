@@ -130,6 +130,19 @@ module:
   buffer (``ff_side``) and its coefficients its ``ff`` columns; K2 and K6
   reduce 32 ``ff`` columns a row (``FF_TERM_COLS``) in place of a DOE
   row's 8.  ``trace_sequential_v1`` routes a freeform table there too.
+- The polarized field (``track_field``, ``E0``; core/field.py) runs in one
+  more instantiation of K1 and K2, built on the one with freeform surfaces
+  (so it takes every kind and stream that one takes, with its side buffers
+  as zeros and -1s where the table has none); its launches count in
+  ``FIELD_LAUNCHES``, not in ``FREEFORM_LAUNCHES``.  The launch field is
+  made in torch (``FieldState.init``, so ``E0``'s cotangent flows there) and
+  enters the kernels as six planar streams; K1 returns the six of the final
+  field (``aux['field']``, ``aux['field_power']``) and K2 takes their
+  cotangents and returns the launch field's.  A JONES row's static bits
+  (chromatic, crystal) ride its kinds row's physics column from bit
+  ``COAT_SHIFT`` on (``jones_bits``); its cotangents land in ph[0:5] and Rw,
+  columns the kernels already reduce.  Coated and metal rows under the field
+  raise NotImplementedError (ROADMAP Queue 1 position 3b).
 - The kernels take up to ``MAX_BUNDLES`` (18) bundles, the JAX kernels'
   limit (n_bundles * 7 <= 128).  K5 and K6 keep per-thread moment sums of
   at most 64 (slot, bundle) pairs: more raise NotImplementedError
@@ -149,11 +162,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..constants import MAX_FF_TERMS, PhysKind, SBKind, VBKind
+from ..core.field import FieldState
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.static_dispatch import (DIFFRACTIVE_KINDS, FRESNEL_KINDS,
                                     coat_acts, unsupported)
 from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
-from ..core.trace import Streams, surface_chain
+from ..core.trace import Streams, check_field_rows, surface_chain
 from ..rays.draws import draws_per_ray, sequential_uniforms
 from ..rays.ray import Rays
 from . import fuzzy_program, nvcc_build
@@ -185,6 +199,9 @@ FUZZY_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with freeform surfaces
 FREEFORM_LAUNCHES = 0
+# launches of K1 and K2 (each also counted above) in their instantiation with
+# the field
+FIELD_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -212,6 +229,14 @@ COAT_SIDE = 20        # side-buffer floats a row: extinction x 8, knots 6 + 6
 # flag.
 DOE_SHIFT = 20
 DOE_EFFICIENCY = 1 << 4
+# A JONES row's static bits ride the physics column where a coated row's
+# coating bits ride theirs (a JONES row has no coating): bit 0 chromatic,
+# bits 1-2 its crystal, 1 + its index in JONES_CRYSTALS (0: none;
+# csrc/field.cuh::jones_delta).
+JONES_CRYSTALS = ('QUARTZ', 'MGF2', 'CALCITE')
+# The six planar streams of the field (core/field.py::FieldState), as the
+# autograd Functions' outputs and the kernels' [6, N] buffers name them.
+FIELD_KEYS = tuple('field_' + f for f in FieldState.FIELDS)
 # The rows hold their kinds in one block of shared memory and the kernels
 # loop over them: 64 rows fill K2's and K6's 128-register budget's shared
 # memory with their warp slots (ROADMAP Queue 2 I).
@@ -278,12 +303,16 @@ _OPL = [_P, _P]
 # and its words (null, 0: not the instantiation with them) and the freeform
 # rows' exponent pairs (null: not the instantiation with them)
 _UNIFORMS = [_P, _I, _I, _P, _I, _P, _I, _P]
+# the field's buffers: K1's launch and final field; K2's launch field, the
+# final field's cotangent and the launch field's ([6, N] each)
+_FIELD_FWD = [_P, _P]
+_FIELD_BWD = [_P, _P, _P]
 _KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I, _P, _I, _P]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
 # or the path length, 5 the Fresnel kinds, 6 the coatings, 7 the diffractive
-# kinds, 8 the fuzzy programs, 9 the freeform surfaces), the programs'
-# words, out: resident blocks per SM
+# kinds, 8 the fuzzy programs, 9 the freeform surfaces, 10 the field), the
+# programs' words, out: resident blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
@@ -292,12 +321,17 @@ _LIBRARIES = {
         + _PLATES + _EXT + [_L, _P],
         'rtt_trace_seq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
         + _GRID + _PLATES + _STREAMS + _UNIFORMS + [_L, _P],
+        'rtt_trace_seq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I]
+        + _GRID + _PLATES + _STREAMS + _UNIFORMS + _FIELD_FWD + [_L, _P],
         'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
         + _PLATES + [_P] + _WAVE + _EXT + [_L, _P],
         'rtt_trace_seq_bwd_opl': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
         + _PLATES + [_P] + _WAVE + _OPL + _UNIFORMS + [_L, _P],
+        'rtt_trace_seq_bwd_field': [_P, _P, _I] + [_P] * 24 + [_I, _I]
+        + _GRID + _PLATES + [_P] + _WAVE + _OPL + _UNIFORMS + _FIELD_BWD
+        + [_L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
@@ -387,13 +421,21 @@ def freeform_kinds(static_meta):
     return any(m.ff for m in static_meta)
 
 
+def field_kinds(static_meta):
+    """Whether the trace carries the polarized field (a ``TraceMeta`` with
+    ``field``), which only the kernels' instantiation with the field
+    takes."""
+    return bool(getattr(static_meta, 'field', False))
+
+
 def ff_side(static_meta, device):
     """The ``[K, FF_SIDE]`` int32 side buffer of the instantiation with
-    freeform surfaces: per row its term count and its exponent pairs packed
-    as ``i | j << 16`` (zeros for a row that is not freeform); None when no
-    row is freeform.  An exponent above FF_MAX_EXPONENT raises
+    freeform surfaces (and of the one with the field, built on it): per row
+    its term count and its exponent pairs packed as ``i | j << 16`` (zeros
+    for a row that is not freeform); None when no row is freeform and the
+    field is off.  An exponent above FF_MAX_EXPONENT raises
     NotImplementedError."""
-    if not freeform_kinds(static_meta):
+    if not (freeform_kinds(static_meta) or field_kinds(static_meta)):
         return None
     rows = []
     for k, m in enumerate(static_meta):
@@ -416,13 +458,15 @@ class TraceMeta(tuple):
     """A fused trace's static row metadata (one StaticRowMeta a row) with
     its fuzzy apodization: ``fuzzy``, {row: component-style callable}, and
     ``words``, their packed programs (ops/fuzzy_program.py::pack; None
-    without a callable).  Building it traces the callables, so one that the
-    kernels cannot run raises NotImplementedError on either device."""
+    without a callable); ``field``, whether the trace carries the polarized
+    field.  Building it traces the callables, so one that the kernels cannot
+    run raises NotImplementedError on either device."""
 
-    def __new__(cls, static_meta, fuzzy_fns=None):
+    def __new__(cls, static_meta, fuzzy_fns=None, field=False):
         self = super().__new__(cls, static_meta)
         self.fuzzy = dict(fuzzy_fns or {})
         self.words = fuzzy_program.pack(self.fuzzy, len(self))
+        self.field = bool(field)
         return self
 
 
@@ -432,7 +476,8 @@ def fuzzy_buffer(static_meta, device):
     (whose instantiation is built on the one with fuzzy programs) a -1 per
     row."""
     words = getattr(static_meta, 'words', None)
-    if words is None and freeform_kinds(static_meta):
+    if words is None and (freeform_kinds(static_meta)
+                          or field_kinds(static_meta)):
         words = (-1,) * len(static_meta)
     return fuzzy_program.buffer(words, device)
 
@@ -444,6 +489,17 @@ def doe_bits(m):
         return 0
     n_terms, efficiency = m.doe
     return (n_terms | (DOE_EFFICIENCY if efficiency else 0)) << DOE_SHIFT
+
+
+def jones_bits(m):
+    """A JONES row's static bits in its kinds row's physics column (shifted
+    by COAT_SHIFT): chromatic in bit 0, its crystal (1 + its index in
+    JONES_CRYSTALS) in bits 1-2; 0 for every other row."""
+    if m.ph != PhysKind.JONES:
+        return 0
+    crystal = (JONES_CRYSTALS.index(m.jones_bire) + 1
+               if m.jones_bire is not None else 0)
+    return (int(m.jones_chrom) | crystal << 1) << COAT_SHIFT
 
 
 def coat_bits(m):
@@ -466,7 +522,8 @@ def coat_side(static_meta, device):
     diffractive, fuzzy or freeform (the instantiations with the diffractive
     kinds, fuzzy programs and freeform surfaces read it)."""
     if not (coating_kinds(static_meta) or diffractive_kinds(static_meta)
-            or fuzzy_kinds(static_meta) or freeform_kinds(static_meta)):
+            or fuzzy_kinds(static_meta) or freeform_kinds(static_meta)
+            or field_kinds(static_meta)):
         return None
     rows = []
     for m in static_meta:
@@ -512,7 +569,7 @@ def kind_rows(static_meta, cfg: SensorConfig):
         # DOE (its ff columns the radial phase's), never both
         surf = (SURF_FREEFORM if m.ff else SURF_ASPHERE if m.asph
                 else SURF_PLANE if m.plane else SURF_QUADRIC)
-        ph = m.ph | coat_bits(m) | doe_bits(m)
+        ph = m.ph | coat_bits(m) | doe_bits(m) | jones_bits(m)
         if m.disp:
             ph |= (m.dispm[0] << DISP_SHIFT) | (m.dispm[1] << DISP_SHIFT + 2)
         rows.append([ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
@@ -541,40 +598,62 @@ def plate_maps(static_meta, grids):
                 for m in static_meta) or ext_kinds(static_meta)
             or coating_kinds(static_meta)
             or diffractive_kinds(static_meta) or fuzzy_kinds(static_meta)
-            or freeform_kinds(static_meta)):
+            or freeform_kinds(static_meta) or field_kinds(static_meta)):
         return None
     return tuple(grids[k] for k in plate_rows(static_meta))
 
 
 class StreamFlags(collections.namedtuple(
-        'StreamFlags', ('track_opl', 'record_paths', 'record_hits'))):
-    """Which deterministic streams a fused trace computes."""
+        'StreamFlags', ('track_opl', 'record_paths', 'record_hits',
+                        'track_field'), defaults=(False,))):
+    """Which optional streams a fused trace computes: the deterministic
+    ones and (sequential only) the polarized field."""
 
     @property
     def any(self):
-        return self.track_opl or self.record_paths or self.record_hits
+        return (self.track_opl or self.record_paths or self.record_hits
+                or self.track_field)
 
     @property
     def records(self):
         return self.record_paths or self.record_hits
 
+    def stream_kw(self):
+        """The deterministic streams' flags by name."""
+        return dict(track_opl=self.track_opl, record_paths=self.record_paths,
+                    record_hits=self.record_hits)
+
     def keys(self, nonseq=False):
-        """The ``aux`` keys of the streams, in the order of the autograd
-        Functions' outputs."""
+        """The keys of the streams' outputs, in the order of the autograd
+        Functions' outputs (the field's six as ``FIELD_KEYS``, which
+        ``field_aux`` gathers into ``aux['field']``)."""
         return ((('opl', 'n_final') if self.track_opl else ())
                 + (('paths',) if self.record_paths else ())
                 + ((('hits', 'hit_weights')
                     + (('hit_slots',) if nonseq else ()))
-                   if self.record_hits else ()))
+                   if self.record_hits else ())
+                + (FIELD_KEYS if self.track_field else ()))
 
 
 NO_STREAMS = StreamFlags(False, False, False)
 
 
+def field_aux(aux):
+    """``aux`` with the field's six ``FIELD_KEYS`` streams gathered into
+    ``aux['field']`` (a FieldState) and ``aux['field_power']`` (its
+    |E|^2), as core/trace.py::trace_sequential returns them."""
+    if FIELD_KEYS[0] not in aux:
+        return aux
+    aux = dict(aux)
+    field = FieldState(*(aux.pop(k) for k in FIELD_KEYS))
+    aux['field'], aux['field_power'] = field, field.power()
+    return aux
+
+
 def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
                            grids=None, track_opl=False, record_paths=False,
                            record_hits=False, generator=None, uniforms=None,
-                           fuzzy_fns=None):
+                           fuzzy_fns=None, track_field=False, E0=None):
     """Fused trace -> ``(rays, SensorState)``, differentiable with respect
     to the table, the 7 ray streams px..intensity and the phase maps of
     ``grids`` ({PHASE_GRID row: [H, W] map}).  With any of ``track_opl``,
@@ -584,31 +663,39 @@ def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
     streams drawn from ``generator`` (rays/draws.py), as the eager
     ``trace_sequential`` does; with neither it raises ValueError.
     ``fuzzy_fns`` ({row: callable}) must hold component-style callables
-    within the kernels' op set (``TraceMeta``).
+    within the kernels' op set (``TraceMeta``).  ``track_field=True`` carries
+    the polarized field from ``E0`` (core/field.py::FieldState.init, made
+    here in torch, so E0 and the launch directions get its cotangent):
+    ``aux`` then holds ``field`` and ``field_power``, and the sensors weigh
+    by |E|^2; a coated or metal row raises NotImplementedError.
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels (or
     raise: there is no fallback)."""
-    flags = StreamFlags(track_opl, record_paths, record_hits)
-    static_meta = TraceMeta(static_meta, fuzzy_fns)
+    flags = StreamFlags(track_opl, record_paths, record_hits, track_field)
+    if track_field:
+        check_field_rows(static_meta)
+    static_meta = TraceMeta(static_meta, fuzzy_fns, track_field)
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
     u = sequential_uniforms(static_meta, rays.n, rays.px.device, generator,
                             uniforms)
     draws = u if u.shape[0] else None
     maps = plate_maps(static_meta, grids)
     comps = [getattr(rays, c) for c in COMPS]
-    if needs_grad(flat, rays, maps):
+    field = FieldState.init(rays, E0).streams() if track_field else ()
+    if needs_grad(flat, rays, maps) or any(f.requires_grad for f in field):
         if flags.any or draws is not None:
             outs = FusedTraceStreams.apply(flat, kinds_t, cfg, static_meta,
                                            flags, draws,
                                            *comps, rays.ray_id,
-                                           *plate_inputs(rays, maps))
+                                           *plate_inputs(rays, maps), *field)
             return unpack(outs, rays, cfg, flags)
         return unpack(FusedTrace.apply(flat, kinds_t, cfg, static_meta,
                                        *comps, rays.ray_id,
                                        *plate_inputs(rays, maps)),
                       rays, cfg)
-    return _forward(flat, kinds_t, rays, cfg, static_meta, maps, flags,
-                    draws)
+    res = _forward(flat, kinds_t, rays, cfg, static_meta, maps, flags, draws,
+                   field or None)
+    return (*res[:2], field_aux(res[2])) if flags.any else res
 
 
 def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
@@ -667,14 +754,21 @@ def unpack(outs, rays, cfg, flags=NO_STREAMS, nonseq=False):
     if not flags.any:
         return res
     first = 9 if cfg.grid_shape else 8
-    return res + (dict(zip(flags.keys(nonseq), outs[first:])),)
+    return res + (field_aux(dict(zip(flags.keys(nonseq), outs[first:]))),)
 
 
 def flat_inputs(table, rays, cfg, static_meta):
     """The flat [K, 160] table and the [K, 8] int32 kinds on the rays'
     device, for K1 and K5; raises before anything runs on rows or limits
-    the kernels do not take."""
+    the kernels do not take (a JONES row outside a trace with the field
+    among them)."""
     kinds = kind_rows(static_meta, cfg)
+    if not field_kinds(static_meta) and any(m.ph == PhysKind.JONES
+                                            for m in static_meta):
+        raise NotImplementedError(
+            'polarizer/waveplate (JONES) surfaces act on the tracked '
+            'E-field: trace with track_field=True (an unpolarized ensemble '
+            'has no per-ray Jones action)')
     device = rays.px.device
     if device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no fused trace for device {device}')
@@ -716,18 +810,20 @@ def wavelength_of(rays):
 
 
 def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
-             flags=NO_STREAMS, uniforms=None):
+             flags=NO_STREAMS, uniforms=None, field=None):
     if flat.device.type == 'cpu':
         return trace_sequential_fused_plain(flat, rays, cfg, static_meta,
-                                            maps, *flags, uniforms=uniforms)
+                                            maps, **flags.stream_kw(),
+                                            uniforms=uniforms, field=field)
     return trace_seq_fwd_cuda(flat, kinds, rays, cfg, maps,
-                              ext_kinds(static_meta), *flags,
+                              ext_kinds(static_meta), **flags.stream_kw(),
                               fresnel=fresnel_kinds(static_meta),
                               uniforms=uniforms,
                               coat=coat_side(static_meta, flat.device),
                               diff=diffractive_kinds(static_meta),
                               fuzzy=fuzzy_buffer(static_meta, flat.device),
-                              ff=ff_side(static_meta, flat.device))
+                              ff=ff_side(static_meta, flat.device),
+                              field=field)
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -781,11 +877,14 @@ class FusedTraceStreams(torch.autograd.Function):
     [N], ``paths`` [K + 1, N, 3], ``hits`` [K, N, 3] and ``hit_weights``
     [K, N] (each when asked for), and with ``uniforms``, the FRESNEL rows'
     ``[F, N]`` draws (None: no row draws; no derivative), which forward and
-    backward both read.
+    backward both read.  With ``flags.track_field`` the launch field's six
+    streams follow the plates as inputs and the final field's six
+    (``FIELD_KEYS``) follow the other streams as outputs.
 
     ``apply(flat_table, kinds, cfg, meta, flags, uniforms, px, ..., ray_id,
-    *plates)``.  Backward: with ``track_opl`` alone (or no stream), K2 (or
-    its plain version) with the cotangents of ``opl`` and ``n_final``; a
+    *plates, *field)``.  Backward: with ``track_opl`` alone (or no stream),
+    K2 (or its plain version) with the cotangents of ``opl`` and
+    ``n_final``; a
     recording run recomputes through the eager chain with autograd, on the
     same draws, as the reference's ``_fused_bwd`` does through its XLA trace
     (``plain_vjp``, ``RECORD_RECOMPUTES``)."""
@@ -793,10 +892,12 @@ class FusedTraceStreams(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flat_table, kinds, cfg, meta, flags, uniforms, px, py,
                 pz, dx, dy, dz, intensity, ray_id, *plates):
+        n_field = 6 if flags.track_field else 0
         return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
                              flags, uniforms,
                              (px, py, pz, dx, dy, dz, intensity), ray_id,
-                             plates)
+                             plates[:len(plates) - n_field],
+                             field=plates[len(plates) - n_field:])
 
     @staticmethod
     @once_differentiable
@@ -805,18 +906,22 @@ class FusedTraceStreams(torch.autograd.Function):
 
 
 def fused_forward(ctx, forward, flat_table, kinds, cfg, meta, flags, draws,
-                  comps, ray_id, plates, *extra):
+                  comps, ray_id, plates, *extra, field=()):
     """The shared forward of the fused autograd Functions: runs ``forward``
     (``_forward`` here, ops/fused_nonseq.py's there, ``extra`` its bounce
     budget) with the trace's ``draws`` (the sequential ``[F, N]`` uniforms,
-    the non-sequential Philox key, or None), saves the inputs and returns
-    the outputs: the 7 ray streams, the moments, the grid (when
+    the non-sequential Philox key, or None) and the launch ``field`` (six
+    streams; none without the field), saves the inputs and returns the
+    outputs: the 7 ray streams, the moments, the grid (when
     ``cfg.grid_shape`` is set) and the streams of ``flags``."""
     wavelength, maps = split_plates(plates)
     res = forward(flat_table, kinds, _rays_of(comps, ray_id, wavelength),
-                  cfg, meta, *extra, maps, flags, draws)
+                  cfg, meta, *extra, maps, flags, draws,
+                  **({'field': tuple(field)} if field else {}))
     out, sensors = res[:2]
-    ctx.save_for_backward(flat_table, kinds, *comps, ray_id, *plates)
+    ctx.save_for_backward(flat_table, kinds, *comps, ray_id, *plates,
+                          *field)
+    ctx.n_field = len(field)
     ctx.cfg, ctx.meta, ctx.flags, ctx.draws = cfg, meta, flags, draws
     ctx.set_materialize_grads(False)
     grid = (sensors.grid,) if cfg.grid_shape else ()
@@ -830,10 +935,18 @@ def fused_forward(ctx, forward, flat_table, kinds, cfg, meta, flags, draws,
 
 def saved_inputs(ctx):
     """The saved inputs of a fused autograd Function -> ``(flat, kinds,
-    rays, maps)``."""
-    flat, kinds, *comps, ray_id = ctx.saved_tensors[:10]
-    wavelength, maps = split_plates(ctx.saved_tensors[10:])
+    rays, maps)`` (the launch field, saved after them: ``saved_field``)."""
+    saved = ctx.saved_tensors
+    flat, kinds, *comps, ray_id = saved[:10]
+    wavelength, maps = split_plates(saved[10:len(saved) - ctx.n_field])
     return flat, kinds, _rays_of(comps, ray_id, wavelength), maps
+
+
+def saved_field(ctx):
+    """The saved launch field of a fused autograd Function (six streams), or
+    None without the field."""
+    n = ctx.n_field
+    return tuple(ctx.saved_tensors[-n:]) if n else None
 
 
 def stream_cotangents(ctx, grads):
@@ -851,15 +964,21 @@ def _fused_backward(ctx, grads, need):
     holding False for the flags) -> the cotangents of its inputs."""
     global RECORD_RECOMPUTES
     flat, kinds, rays, maps = saved_inputs(ctx)
+    field = saved_field(ctx)
     g_rays, g_moments, g_grid, g_aux = stream_cotangents(ctx, grads)
+    # the launch field's inputs come last: the plates' need before them
+    need_field = need[len(need) - ctx.n_field:] if field else ()
+    need = need[:len(need) - ctx.n_field]
     need_table, need_rays = need[0], any(need[6:13])
     need_maps, need_wl = any(need[15:]), len(need) > 14 and need[14]
     if ctx.flags.records:
         RECORD_RECOMPUTES += 1
         res = plain_vjp(
-            lambda f, r, m: _chain(f, r, ctx.cfg, ctx.meta, m, ctx.flags,
-                                   plain=False, uniforms=ctx.draws),
-            flat, rays, g_rays, g_moments, g_grid, maps, need_wl, g_aux)
+            lambda f, r, m, fld=None: _chain(f, r, ctx.cfg, ctx.meta, m,
+                                             ctx.flags, plain=False,
+                                             uniforms=ctx.draws, field=fld),
+            flat, rays, g_rays, g_moments, g_grid, maps, need_wl, g_aux,
+            field=field)
     elif flat.device.type == 'cuda':
         res = trace_seq_bwd_cuda(flat, kinds, rays, ctx.cfg, g_rays,
                                  g_moments, need_table, need_rays,
@@ -876,15 +995,22 @@ def _fused_backward(ctx, grads, need):
                                  coat=coat_side(ctx.meta, flat.device),
                                  diff=diffractive_kinds(ctx.meta),
                                  fuzzy=fuzzy_buffer(ctx.meta, flat.device),
-                                 ff=ff_side(ctx.meta, flat.device))
+                                 ff=ff_side(ctx.meta, flat.device),
+                                 field=field,
+                                 g_field=[g_aux.get(k) for k in FIELD_KEYS])
     else:
         res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                   g_moments, g_grid=g_grid, maps=maps,
                                   need_wavelength=need_wl,
                                   g_opl=g_aux.get('opl'),
                                   g_nfinal=g_aux.get('n_final'),
-                                  uniforms=ctx.draws)
-    return backward_result(res, maps, need, 6)
+                                  uniforms=ctx.draws, field=field,
+                                  g_field=[g_aux.get(k) for k in FIELD_KEYS])
+    if field is None:
+        return backward_result(res, maps, need, 6)
+    g_field = res[-1]
+    return backward_result(res[:-1], maps, need, 6) + tuple(
+        g if n else None for g, n in zip(g_field, need_field))
 
 
 def backward_result(res, maps, need, first):
@@ -911,44 +1037,53 @@ def plate_cotangents(res, maps, need):
 
 
 def _chain(flat_table, rays, cfg, static_meta, maps=None, flags=NO_STREAMS,
-           plain=True, uniforms=None):
+           plain=True, uniforms=None, field=None):
     """The eager chain of core/trace.py over the rows of the flat table ->
     ``(rays, SensorState)``, with ``flags``' streams ``(rays, SensorState,
     aux)``; ``uniforms`` holds the FRESNEL rows' ``[F, N]`` draws; a
-    ``TraceMeta``'s callables apodize their rows.
-    ``plain=False`` runs K3's and K4's kernels on CUDA tensors, as the eager
-    ``simulate`` does."""
-    streams = Streams.of(rays, **flags._asdict())
+    ``TraceMeta``'s callables apodize their rows; ``field`` (six streams,
+    with ``flags.track_field``) is the launch field, and ``aux`` holds the
+    final one's as ``FIELD_KEYS``.  ``plain=False`` runs K3's and K4's
+    kernels on CUDA tensors, as the eager ``simulate`` does."""
+    streams = Streams.of(rays, **flags.stream_kw())
     rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
     uniforms = sequential_uniforms(static_meta, rays.n, rays.px.device,
                                    uniforms=uniforms)
-    out, sensors = surface_chain(
+    res = surface_chain(
         rows, rays, cfg, static_meta, torch.float32, plain=plain,
         grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams,
-        uniforms=uniforms, fuzzy_fns=getattr(static_meta, 'fuzzy', None))
-    return (out, sensors) if streams is None else (out, sensors,
-                                                   streams.aux())
+        uniforms=uniforms, fuzzy_fns=getattr(static_meta, 'fuzzy', None),
+        field=FieldState(*field) if flags.track_field else None)
+    if not flags.any:
+        return res
+    aux = streams.aux() if streams is not None else {}
+    if flags.track_field:
+        aux.update(zip(FIELD_KEYS, res[2].streams()))
+    return res[0], res[1], aux
 
 
 def trace_sequential_fused_plain(flat_table, rays, cfg: SensorConfig,
                                  static_meta, maps=None, track_opl=False,
                                  record_paths=False, record_hits=False,
-                                 uniforms=None):
+                                 uniforms=None, field=None):
     """K1's function in plain torch: the eager chain of core/trace.py over
     the rows of the flat table the kernel reads, with the phase maps
     ``maps`` of its PHASE_GRID rows (in row order) and the FRESNEL rows'
     ``[F, N]`` ``uniforms`` -> ``(rays, SensorState)``, with any stream
     ``(rays, SensorState, aux)``.  A ``TraceMeta`` ``static_meta`` applies
-    its fuzzy callables themselves."""
+    its fuzzy callables themselves.  ``field``, the launch field's six
+    streams (None: no field), traces the field: ``aux`` then holds the
+    final field's six as ``FIELD_KEYS``."""
     return _chain(flat_table, rays, cfg, static_meta, maps,
-                  StreamFlags(track_opl, record_paths, record_hits),
-                  uniforms=uniforms)
+                  StreamFlags(track_opl, record_paths, record_hits,
+                              field is not None),
+                  uniforms=uniforms, field=field)
 
 
 def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
                         g_rays, g_moments, g_grid=None, maps=None,
                         need_wavelength=False, g_opl=None, g_nfinal=None,
-                        uniforms=None):
+                        uniforms=None, field=None, g_field=None):
     """K2's function in plain torch: re-run ``trace_sequential_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
@@ -961,19 +1096,24 @@ def trace_seq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
     with ``need_wavelength`` the wavelength's cotangent fourth (the maps'
     then ``()`` without maps).  ``uniforms``: the forward's FRESNEL
     draws.  A ``TraceMeta`` ``static_meta`` applies its fuzzy callables
-    themselves."""
+    themselves.  With ``field``, the launch field's six streams, ``g_field``
+    holds the final field's six cotangents (each None for zero), and the
+    launch field's six cotangents come last."""
     g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
              if g is not None}
-    flags = StreamFlags(bool(g_aux), False, False)
+    flags = StreamFlags(bool(g_aux), False, False, field is not None)
+    if field is not None:
+        g_aux.update(zip(FIELD_KEYS, g_field or (None,) * 6))
     return plain_vjp(
-        lambda flat, r, m: _chain(flat, r, cfg, static_meta, m, flags,
-                                  uniforms=uniforms),
+        lambda flat, r, m, fld=None: _chain(flat, r, cfg, static_meta, m,
+                                            flags, uniforms=uniforms,
+                                            field=fld),
         flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength,
-        g_aux)
+        g_aux, field=field)
 
 
 def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid,
-              maps=None, need_wavelength=False, g_aux=None):
+              maps=None, need_wavelength=False, g_aux=None, field=None):
     """``torch.autograd.grad`` of ``forward(flat, rays, maps) -> (rays,
     SensorState[, aux])`` at ``(flat_table, rays, maps)`` with the
     cotangents of ``trace_seq_bwd_plain`` and ``g_aux``, those of the
@@ -983,7 +1123,9 @@ def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid,
     output does not depend on an input.  It is also the backward of
     ``FusedTraceStreams`` and ``FusedNonseqStreams`` on a recording run,
     with the eager trace as ``forward``, as the reference's ``_fused_bwd``
-    recomputes through its XLA trace."""
+    recomputes through its XLA trace.  With ``field`` (the launch field's
+    six streams) ``forward`` takes them fourth, and their cotangents come
+    last."""
     with torch.enable_grad():
         flat = flat_table.detach().requires_grad_(True)
         comps = [getattr(rays, c).detach().requires_grad_(True)
@@ -994,7 +1136,9 @@ def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid,
         r_in = rays.replace(**dict(zip(COMPS, comps)))
         if need_wavelength:
             r_in = r_in.replace(wavelength=wl[0])
-        res = forward(flat, r_in, tuple(maps_in))
+        field_in = [f.detach().requires_grad_(True) for f in field or ()]
+        res = forward(flat, r_in, tuple(maps_in),
+                      *((tuple(field_in),) if field is not None else ()))
         out, sensors = res[:2]
         aux = res[2] if len(res) > 2 else {}
         g_aux = g_aux or {}
@@ -1003,18 +1147,23 @@ def plain_vjp(forward, flat_table, rays, g_rays, g_moments, g_grid,
              sensors.grid, *(aux[k] for k in g_aux)],
             [*g_rays, g_moments, g_grid, *g_aux.values()])
             if g is not None and o.requires_grad]
-        inputs = [flat, *comps, *maps_in, *wl]
+        inputs = [flat, *comps, *maps_in, *wl, *field_in]
         grads = (torch.autograd.grad([o for o, _ in pairs],
                                      inputs, [g for _, g in pairs],
                                      allow_unused=True)
                  if pairs else [None] * len(inputs))
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, inputs)]
+    g_field = ()
+    if field is not None:
+        g_field = (tuple(grads[-len(field_in):]),)
+        grads = grads[:-len(field_in)]
     if need_wavelength:
-        return grads[0], tuple(grads[1:8]), tuple(grads[8:-1]), grads[-1]
+        return (grads[0], tuple(grads[1:8]), tuple(grads[8:-1]), grads[-1],
+                *g_field)
     if maps is not None:
-        return grads[0], tuple(grads[1:8]), tuple(grads[8:])
-    return grads[0], tuple(grads[1:8])
+        return grads[0], tuple(grads[1:8]), tuple(grads[8:]), *g_field
+    return grads[0], tuple(grads[1:8]), *g_field
 
 
 def build():
@@ -1046,7 +1195,8 @@ def kernel(symbol):
 
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
                   ext=False, disp=False, streams=False, fresnel=False,
-                  coat=False, diff=False, fuzzy_words=0, freeform=False):
+                  coat=False, diff=False, fuzzy_words=0, freeform=False,
+                  field=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
@@ -1060,12 +1210,14 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     ``diff``, the one with the diffractive kinds, likewise; with
     ``fuzzy_words``, the one with fuzzy programs of that many words,
     likewise; with ``freeform``, the one with freeform surfaces, whose
-    program buffer has ``fuzzy_words`` words, likewise) runs, at that
-    launch's dynamic shared memory
+    program buffer has ``fuzzy_words`` words, likewise; with ``field``, the
+    one with the field, likewise) runs, at that launch's dynamic shared
+    memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (9 if freeform else 8 if fuzzy_words else 7 if diff else 6 if coat
+    code = (10 if field else 9 if freeform else 8 if fuzzy_words
+            else 7 if diff else 6 if coat
             else 5 if fresnel
             else 4 if streams else (3 if disp else 2) if ext
             else int(bool(plates)))
@@ -1206,9 +1358,10 @@ def grad_cols(plates, ext, disp=False, coat=False, diff=False,
 
 def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                        maps=None, ext=False, track_opl=False,
-                       record_paths=False, record_hits=False, fresnel=False,
-                       uniforms=None, coat=None, diff=False, fuzzy=None,
-                       ff=None):
+                       record_paths=False, record_hits=False,
+                       fresnel=False, uniforms=None,
+                       coat=None, diff=False, fuzzy=None, ff=None,
+                       field=None):
     """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -1233,12 +1386,18 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     reads ``coat`` so.  ``ff``, the int32 exponent pairs of ``ff_side``
     (None: no row is freeform), runs the instantiation with freeform
     surfaces, built on the one with fuzzy programs, which reads ``fuzzy`` so
-    (``fuzzy_buffer`` gives it a -1 a row on a table without a callable)."""
+    (``fuzzy_buffer`` gives it a -1 a row on a table without a callable).
+    ``field``, the launch field's six [N] streams (None: no field), runs the instantiation with the field, built
+    on the one with freeform surfaces, which reads ``coat``, ``fuzzy`` and
+    ``ff`` so (``coat_side``, ``fuzzy_buffer`` and ``ff_side`` give them for
+    a ``TraceMeta`` with ``field``); ``aux`` then holds the final field's six
+    streams as ``FIELD_KEYS``."""
     global LAUNCHES
-    flags = StreamFlags(track_opl, record_paths, record_hits)
+    flags = StreamFlags(track_opl, record_paths, record_hits,
+                        field is not None)
     res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
                           'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms,
-                          coat, diff, fuzzy, ff)
+                          coat, diff, fuzzy, ff, field)
     LAUNCHES += res[-1]
     return res[:-1]
 
@@ -1343,15 +1502,29 @@ def stream_aux(bufs):
             for k, v in bufs.items()}
 
 
+def field_buffer(field, n, device):
+    """The launch field's six [N] streams as the kernels read them: one
+    contiguous float32 [6, N] tensor on ``device``."""
+    if len(field) != 6:
+        raise ValueError(f'the field has six streams, got {len(field)}')
+    buf = torch.stack([f.detach().to(torch.float32) for f in field])
+    check(buf, 'field', torch.float32, (6, n), device)
+    return buf
+
+
 def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                     flags=NO_STREAMS, fresnel=False, uniforms=None,
-                    coat=None, diff=False, fuzzy=None, ff=None):
+                    coat=None, diff=False, fuzzy=None, ff=None, field=None):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
     global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
-    global DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES
+    global DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES, FIELD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
+    if field is not None and (coat is None or fuzzy is None or ff is None):
+        raise ValueError('the instantiation with the field reads the side '
+                         'buffers: pass coat=, fuzzy= and ff= of a TraceMeta '
+                         'with field=True')
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy, ff)
@@ -1364,6 +1537,8 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                            dtype=torch.float32, device=device)
     grid = new_grid(cfg, device)
     bufs = stream_buffers(flags, k, n, device)
+    f_in = field_buffer(field, n, device) if field is not None else None
+    f_out = torch.empty_like(f_in) if field is not None else None
     launched = 0
     if n > 0:
         args = (flat_table.data_ptr(), kinds.data_ptr(), k,
@@ -1373,7 +1548,11 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if fresnel or flags.any:
+            if field is not None:
+                rc = kernel('rtt_trace_seq_fwd_field')(
+                    *args, *stream_args(bufs), *draws, f_in.data_ptr(),
+                    f_out.data_ptr(), n, stream(device))
+            elif fresnel or flags.any:
                 rc = kernel('rtt_trace_seq_fwd_streams')(
                     *args, *stream_args(bufs), *draws, n, stream(device))
             else:
@@ -1383,7 +1562,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if ff is not None:
+        if field is not None:
+            FIELD_LAUNCHES += 1
+        elif ff is not None:
             FREEFORM_LAUNCHES += 1
         elif fuzzy is not None:
             FUZZY_LAUNCHES += 1
@@ -1400,7 +1581,10 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
     out = rays.replace(**dict(zip(COMPS, outs)))
     sensors = SensorState(moments=partials.sum(dim=0), grid=grid)
     if flags.any:
-        return out, sensors, stream_aux(bufs), launched
+        aux = stream_aux(bufs)
+        if field is not None:
+            aux.update(zip(FIELD_KEYS, f_out if n > 0 else f_in))
+        return out, sensors, aux, launched
     return out, sensors, launched
 
 
@@ -1410,11 +1594,12 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        disp=None, need_wavelength=False, g_opl=None,
                        g_nfinal=None, opl=False, fresnel=False,
                        uniforms=None, coat=None, diff=False, fuzzy=None,
-                       ff=None):
+                       ff=None, field=None, g_field=None):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
-    kinds) their cotangents (or None) third, and with ``need_wavelength``
-    the wavelength's cotangent fourth.
+    kinds) their cotangents (or None) third, with ``need_wavelength``
+    the wavelength's cotangent fourth, and with ``field`` the launch
+    field's six cotangents last.
 
     Inputs as for ``trace_seq_fwd_cuda``; ``g_rays`` holds the cotangents
     of the 7 output streams (None for zero), ``g_moments`` that of the
@@ -1437,11 +1622,19 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     (``FF_GRAD_COLS``); ``fuzzy`` as there: the one with fuzzy programs,
     whose hits' cotangents add the adjoint of each program's factor; ``ff``
     as there: the one with freeform surfaces, which reverses the freeform
-    rows' Newton steps and reduces all 32 ff columns (``FF_TERM_COLS``)."""
+    rows' Newton steps and reduces all 32 ff columns (``FF_TERM_COLS``);
+    ``field`` as there: the one with the field, with ``g_field`` the final
+    field's six cotangents (each None for zero)."""
     global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
     global COAT_LAUNCHES, DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES
+    global FIELD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
+    if field is not None and (coat is None or fuzzy is None or ff is None):
+        raise ValueError('the instantiation with the field reads the side '
+                         'buffers: pass coat=, fuzzy= and ff= of a TraceMeta '
+                         'with field=True')
+    opl = opl or field is not None
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     ext = ext or need_wavelength or opl or fresnel
@@ -1462,8 +1655,16 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
               if plates is not None and need_maps else None)
     g_wl = (torch.empty(n, dtype=torch.float32, device=device)
             if need_wavelength else None)
+    f_in = field_buffer(field, n, device) if field is not None else None
+    g_fout = c_field = None
+    if field is not None:
+        if any(g is not None for g in g_field or ()):
+            g_fout = field_buffer(
+                [torch.zeros(n, device=device) if g is None else g
+                 for g in g_field], n, device)
+        c_field = torch.zeros_like(f_in)
     if n > 0 and (need_table or need_rays or g_maps is not None
-                  or need_wavelength):
+                  or need_wavelength or field is not None):
         args = (flat_table.data_ptr(), kinds.data_ptr(), k,
                 *(getattr(rays, c).data_ptr() for c in COMPS),
                 rays.ray_id.data_ptr(), *map(ptr, g_rays),
@@ -1472,7 +1673,11 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                 *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if fresnel or opl:
+            if field is not None:
+                rc = kernel('rtt_trace_seq_bwd_field')(
+                    *args, ptr(g_opl), ptr(g_nfinal), *draws, f_in.data_ptr(),
+                    ptr(g_fout), c_field.data_ptr(), n, stream(device))
+            elif fresnel or opl:
                 rc = kernel('rtt_trace_seq_bwd_opl')(
                     *args, ptr(g_opl), ptr(g_nfinal), *draws, n,
                     stream(device))
@@ -1483,7 +1688,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if ff is not None:
+        if field is not None:
+            FIELD_LAUNCHES += 1
+        elif ff is not None:
             FREEFORM_LAUNCHES += 1
         elif fuzzy is not None:
             FUZZY_LAUNCHES += 1
@@ -1497,8 +1704,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             STREAM_LAUNCHES += 1
         else:
             EXT_LAUNCHES += int(ext)
-    return table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
-                                    device, g_wl)
+    res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
+                                   device, g_wl)
+    return res + (tuple(c_field),) if field is not None else res
 
 
 def check_streams(grads, n, device):

@@ -44,6 +44,11 @@ irradiance grid (``sensors.grid [S, H, W]``), binned by kernel K3 on the
 card.  A ``PhaseGridPlate``'s ``[H, W]`` map rides the side channel
 ``side_grids(params)`` into every trace, eager and fused.
 
+A ``SequentialScene``'s ``simulate`` and ``simulate_fused`` carry the
+polarized field (``track_field``, ``E0``; core/field.py), through the
+kernels' instantiation with the field on the card; a non-sequential
+``Scene`` refuses it (ROADMAP Queue 1 position 3b).
+
 Ray sources are registered with ``add_bundle`` and drawn with
 ``sample_rays``; the sensor moments keep one column per bundle, so
 ``n_bundles=None`` means the scene's bundle count, as in the JAX package.
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.field import TODO_FIELD
 from ..core.sensor import SensorConfig
 from ..core.static_dispatch import StaticRowMeta
 from ..core.table import stack_records
@@ -170,7 +176,8 @@ class Scene:
                         n_coat=r.n_coat, dispm=r.disp_model,
                         metal=r.is_metal, metal_nk=r.metal_nk,
                         coat_k=r.coat_k, ff=r.ff_powers or None,
-                        doe=r.doe))
+                        doe=r.doe, jones_chrom=r.jones_chrom,
+                        jones_bire=r.jones_bire))
                 if el.is_sensor:
                     slot += 1
             self._static_meta = meta
@@ -226,7 +233,8 @@ class Scene:
         ``track_opl``, ``record_paths`` and ``record_hits``; the FRESNEL
         draws' ``generator`` or injected ``draws``; ``fuzzy_fns`` (default
         ``self.fuzzy_fns()``); the field and ``E0`` raise
-        NotImplementedError naming their ROADMAP item."""
+        NotImplementedError naming their ROADMAP item (core/field.py::
+        TODO_FIELD)."""
         kw.setdefault('grids', self.side_grids(params))
         kw.setdefault('fuzzy_fns', self.fuzzy_fns())
         return trace_nonsequential(self.build_table(params), rays,
@@ -235,7 +243,8 @@ class Scene:
                                    self.static_meta(), **kw)
 
     def simulate_fused(self, params, rays, n_bundles=None, track_opl=False,
-                       record_paths=False, record_hits=False, generator=None):
+                       record_paths=False, record_hits=False, generator=None,
+                       track_field=False, E0=None):
         """Fused bounce loop -> (rays, sensors, aux): kernel K5 on the card,
         its plain version on the CPU.  Each ray leaves the loop at its first
         bounce with no hit, so the default budget of 100 costs what the
@@ -247,7 +256,13 @@ class Scene:
         kernel draws by counter, so an injected ``draws`` function is
         ``simulate``'s alone.  The scene's fuzzy callables (``fuzzy_fns()``)
         must be component-style and within the kernels' op set
-        (ops/fuzzy_program.py); any other raises NotImplementedError."""
+        (ops/fuzzy_program.py); any other raises NotImplementedError.  The
+        field (``track_field``, ``E0``) raises NotImplementedError naming
+        its ROADMAP item (core/field.py::TODO_FIELD)."""
+        if track_field or E0 is not None:
+            raise NotImplementedError(
+                f'track_field and E0 in the non-sequential trace are '
+                f'{TODO_FIELD}')
         res = trace_nonseq_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), self.n_bounces,
@@ -278,12 +293,14 @@ class SequentialScene(Scene):
 
     def simulate(self, params, rays, n_bundles=None, track_opl=False,
                  record_paths=False, record_hits=False, generator=None,
-                 uniforms=None, fuzzy_fns=None):
+                 uniforms=None, fuzzy_fns=None, track_field=False, E0=None):
         """Eager differentiable trace -> (rays, sensors, aux); ``aux`` holds
         the streams asked for (core/trace.py::trace_sequential).  FRESNEL
         rows read ``uniforms`` ([F, N]) or streams drawn from
         ``generator``.  ``fuzzy_fns`` (None: ``self.fuzzy_fns()``) takes
-        callables of either style."""
+        callables of either style.  ``track_field=True`` carries the
+        polarized field from ``E0`` (None: x-linear): ``aux['field']``,
+        ``aux['field_power']``, and the sensors weigh by |E|^2."""
         return trace_sequential(self.build_table(params), rays,
                                 self.sensor_config(n_bundles),
                                 self.static_meta(),
@@ -293,11 +310,12 @@ class SequentialScene(Scene):
                                 record_hits=record_hits, generator=generator,
                                 uniforms=uniforms,
                                 fuzzy_fns=(self.fuzzy_fns() if fuzzy_fns is None
-                                           else fuzzy_fns))
+                                           else fuzzy_fns),
+                                track_field=track_field, E0=E0)
 
     def simulate_fused(self, params, rays, n_bundles=None, track_opl=False,
                        record_paths=False, record_hits=False, generator=None,
-                       uniforms=None):
+                       uniforms=None, track_field=False, E0=None):
         """Fused trace -> (rays, sensors, aux): the CUDA kernels on the card
         (K1 forward, K2 backward under grad), their plain versions on the
         CPU.  Differentiable with respect to the params (phase maps
@@ -307,13 +325,16 @@ class SequentialScene(Scene):
         recomputes its backward through the eager chain, as the JAX
         package's does.  FRESNEL rows read ``uniforms`` or streams drawn
         from ``generator``, the same that ``simulate`` draws from the same
-        generator state.  Fuzzy callables as for ``Scene.simulate_fused``."""
+        generator state.  Fuzzy callables as for ``Scene.simulate_fused``.
+        ``track_field`` and ``E0`` as for ``simulate``: the kernels'
+        instantiation with the field on the card, whose backward also gives
+        ``E0`` its cotangent."""
         res = trace_sequential_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), grids=self.side_grids(params),
             track_opl=track_opl, record_paths=record_paths,
             record_hits=record_hits, generator=generator, uniforms=uniforms,
-            fuzzy_fns=self.fuzzy_fns())
+            fuzzy_fns=self.fuzzy_fns(), track_field=track_field, E0=E0)
         return res if len(res) == 3 else (*res, {})
 
     def to_base(self):

@@ -716,17 +716,19 @@ def test_routing_bits_and_side_buffer():
 
 
 def test_remaining_refusals():
-    """Rough mirrors and the SCATTER and JONES kinds still raise
-    NotImplementedError naming their ROADMAP item; a coating on an ideal
+    """Rough mirrors and the SCATTER kind still raise NotImplementedError
+    naming their ROADMAP item (JONES traces with the field); a coating on an
+    ideal
     reflector and a dispersive unnamed metal raise ValueError, as in the
     JAX package."""
     with pytest.raises(NotImplementedError, match='Queue 1 item 14'):
         trt.SphericalMirror(c1=-0.01, d=10., roughness=0.01)
     with pytest.raises(NotImplementedError):
         trt.ParabolicMirror(c1=-0.01, d=10., metal='Al', roughness=0.01)
-    for ph in (10, 11):
-        why = unsupported(StaticRowMeta(ph, 0, 0))
-        assert why is not None and 'ROADMAP Queue 1 item 14' in why
+    why = unsupported(StaticRowMeta(10, 0, 0))
+    assert why is not None and 'ROADMAP Queue 1 item 14' in why
+    # JONES traces with the polarized field now (tests/test_torch_field.py)
+    assert unsupported(StaticRowMeta(11, 0, 0)) is None
     with pytest.raises(ValueError, match='metal substrate'):
         trt.ConicMirror(c1=-0.01, k=-1.0, d=10., coating=[(NC, 0.1)])
     with pytest.raises(ValueError, match='NAMED metal'):

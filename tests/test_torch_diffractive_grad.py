@@ -420,15 +420,29 @@ def test_bundle_limits():
     dict(ph=11, sb=0, vb=0),                   # JONES
 ])
 def test_refused_kinds_name_their_item(meta):
-    """GRIN, SCATTER and JONES rows still raise NotImplementedError naming
-    their ROADMAP item, eagerly and in the fused traces, whatever their
-    bounds (SCATTER and JONES scenes: tests/test_torch_coated_trace.py;
-    freeform faces trace now: tests/test_torch_freeform.py; the CONE_NAPPE
-    and HALFSPACES bounds: tests/test_torch_solids.py)."""
+    """GRIN and SCATTER rows still raise NotImplementedError naming their
+    ROADMAP item, eagerly and in the fused traces, whatever their bounds
+    (SCATTER scenes: tests/test_torch_coated_trace.py; freeform faces trace
+    now: tests/test_torch_freeform.py; the CONE_NAPPE and HALFSPACES
+    bounds: tests/test_torch_solids.py).  A JONES row traces with the
+    polarized field (tests/test_torch_field.py): the fused trace takes its
+    kinds under the field and refuses it without, naming the field."""
     m = StaticRowMeta(**meta)
+    cfg = trt.SensorConfig(n_sensors=0, n_bundles=1)
+    if m.ph == trt.PhysKind.JONES:
+        assert unsupported(m) is None
+        assert fused_trace.kind_rows(
+            fused_trace.TraceMeta([m], field=True), cfg)[0][0] == m.ph
+        sc = trt.SequentialScene([trt.LinearPolarizer(radius=1.0,
+                                                      name='p')])
+        rays = trt.Rays.create(torch.zeros(4, 3),
+                               torch.tensor([[0.0, 0.0, 1.0]] * 4))
+        with pytest.raises(NotImplementedError, match='track_field'):
+            fused_trace.flat_inputs(sc.build_table(sc.init_params('cpu')),
+                                    rays, cfg, sc.static_meta())
+        return
     why = unsupported(m)
     assert why is not None and 'ROADMAP' in why
-    cfg = trt.SensorConfig(n_sensors=0, n_bundles=1)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         fused_trace.kind_rows([m], cfg)
 
