@@ -77,7 +77,11 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 - the polarized field (chip_smoke.py section 17): K1 and K2 in their
   instantiation with the field on example 22's analyzer scene and example
   07's Brewster plane (circular E0, its grid), and example 22's
-  ``simulate_fused`` and design step (the analyzer's angle).
+  ``simulate_fused`` and design step (the analyzer's angle);
+- the field through coated interfaces and metal mirrors (chip_smoke.py
+  section 18): K1 and K2 in the same instantiation on the coated FRESNEL_W
+  bench singlet (circular E0) and on stack8, and the coated singlet's
+  ``simulate_fused`` and grad step (c1, c2 and the coat).
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -769,6 +773,42 @@ def main():
         'field_simulate_fused_analyzer': (lambda: dsc.simulate_fused(
             d_p, d_rays, track_field=True), 'trace_seq_fwd_kernel'),
         'field_grad_step_fused_analyzer': (field_step, 'trace_seq_bwd')})
+    # the field through coated interfaces and metal mirrors (section 18)
+    for name in ('coated_w', 'stack8'):
+        fsc, fp, fr, fe0, fu = cs.field_coat_case(rt, torch, name, n, dev,
+                                                  cs.FIELD_COAT_SEED + 7)
+        fmeta, fcfg, fflat, fkinds, fmaps, ffield, fside = cs.field_inputs(
+            rt, torch, fsc, fp, fr, fe0, dev)
+        fgm = torch.ones(1, 1, 7, device=dev)
+        label = f'field_coat_{name}'
+        calls[f'{label}_k1'] = (
+            lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
+            sd=fside: fused_trace.trace_seq_fwd_cuda(
+                f, k, r, c, m, True, fresnel=True, diff=True, field=e, **sd),
+            'trace_seq_fwd_kernel')
+        calls[f'{label}_k2'] = (
+            lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
+            sd=fside, g=fgm: fused_trace.trace_seq_bwd_cuda(
+                f, k, r, c, (None,) * 7, g, maps=m, ext=True, fresnel=True,
+                diff=True, field=e, g_field=[r.px] * 6, **sd),
+            'trace_seq_bwd')
+    fcsc = cs.field_coat_scene(rt, 'coated_w')
+    fc_p = fcsc.init_params(dev)
+    fc_rays = cs.field_coat_ref_rays(rt, 'coated_w', n, dev)
+    fc_e0 = cs.FIELD_COAT_E0['circular']
+
+    def coat_field_step():
+        p = {k: dict(v) for k, v in fc_p.items()}
+        for k in ('c1', 'c2', 'coat_d'):
+            p['lens'][k] = fc_p['lens'][k].clone().requires_grad_(True)
+        fcsc.simulate_fused(p, fc_rays, track_field=True, E0=fc_e0)[1] \
+            .total_weight(0)[0].backward()
+    calls.update({
+        'field_coat_simulate_fused_coated_w': (
+            lambda: fcsc.simulate_fused(fc_p, fc_rays, track_field=True,
+                                       E0=fc_e0), 'trace_seq_fwd_kernel'),
+        'field_coat_grad_step_fused_coated_w': (coat_field_step,
+                                                'trace_seq_bwd')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

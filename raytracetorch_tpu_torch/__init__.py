@@ -92,7 +92,9 @@ Hopper.  The port covers:
   ``SequentialScene.simulate`` and ``simulate_fused`` (core/field.py), the
   ``LinearPolarizer``, ``Waveplate`` (chromatic, or of a crystal:
   utils/birefringence.py), ``QuarterWaveplate`` and ``HalfWaveplate``
-  (JONES), and the Stokes analysis of utils/polarization.py, eager and
+  (JONES), through coated interfaces and metal mirrors (their stacks'
+  complex amplitudes), the Stokes analysis and the Jones pupil
+  (``jones_pupil``, ``JonesPupil``) of utils/polarization.py, eager and
   through K1 and K2 (an instantiation of their own).
 
 ROADMAP.md lists what is still to be ported.

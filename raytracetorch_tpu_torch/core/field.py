@@ -13,10 +13,14 @@ the final state.  The fused kernels K1 and K2 run the same functions
 (csrc/field.cuh).
 
 On the Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W) the branch power lives
-in the draw or the intensity factor (core/static_dispatch.py::polarized_R),
+in the draw or the intensity factor (core/static_dispatch.py::polarized_RT),
 so the field is renormalized there and carries the branch's polarization
-state alone.  Rows whose thin-film stack or metal substrate acts raise
-NotImplementedError (``TODO_FIELD``), as does the non-sequential trace.
+state alone.  A coated interface takes its thin-film stack's complex
+amplitudes (utils/coatings.py::coating_amplitudes; a coated SNELL row's
+transmission is not renormalized, so |E|^2 carries the coating's T), a
+metal mirror its metal's (metal_reflection_amplitudes), renormalized as its
+polarized R weighs the intensity.  The non-sequential trace refuses the
+field (``TODO_FIELD``).
 """
 
 from __future__ import annotations
@@ -27,10 +31,13 @@ import torch
 from ..constants import PhysKind
 from ..geom import vec3 as v3
 from ..utils.birefringence import birefringence
+from ..utils.coatings import coating_amplitudes, metal_reflection_amplitudes
+from .static_dispatch import _stack_lam, in_ray_order, metal_nk, stack_columns
 
 # ROADMAP.md item that brings the rest of the polarized field
 TODO_FIELD = ('ROADMAP Queue 1 position 3b (the field in the non-sequential '
-              'trace and through coated and metal rows)')
+              'trace)')
+
 # the kinds whose transport takes the Fresnel amplitudes
 FIELD_FRESNEL_KINDS = (PhysKind.SNELL, PhysKind.FRESNEL, PhysKind.FRESNEL_W,
                        PhysKind.REFLECT_W)
@@ -176,17 +183,6 @@ class FieldState:
         return cls.of(v3.scale(Er, 1.0 / norm), v3.scale(Ei, 1.0 / norm))
 
 
-def field_acts(meta):
-    """Why the field cannot pass this row yet (None when it can): a row
-    whose thin-film stack or metal substrate acts needs the coated or metal
-    amplitudes (``TODO_FIELD``)."""
-    if meta.metal:
-        return f'the field through a metal mirror is {TODO_FIELD}'
-    if meta.n_coat and meta.ph in FIELD_FRESNEL_KINDS:
-        return f'the field through a coated interface is {TODO_FIELD}'
-    return None
-
-
 def _cmul(a, e_r, e_i):
     """(a_r + i a_i) (e_r + i e_i) with a = (a_r, a_i) -> (real, imag)."""
     return a[0] * e_r - a[1] * e_i, a[0] * e_i + a[1] * e_r
@@ -213,18 +209,17 @@ def transport_field(meta, row, d_in, new_dir, n_w, imod, Er, Ei,
 
     SNELL and the Fresnel kinds apply the Fresnel amplitudes (reflection
     where the direction's normal component flipped: TIR or a FRESNEL
-    reflection draw), renormalized on the Fresnel kinds; JONES multiplies
+    reflection draw), a coated row its stack's (``_coated_amplitudes``),
+    renormalized on the Fresnel kinds; a metal mirror reflects with its
+    metal's amplitudes, renormalized (``_metal``); JONES multiplies
     the transverse field by its Jones matrix, with axes at ``ph[0]`` from
     the element-local x axis projected transverse to the ray, retardance
     ``ph[3]`` (scaled by lam0 / lam on a chromatic plate, and by the
     crystal's dn(lam) / dn(lam0) on a plate of a material); DOE and
     PHASE_GRID rebuild the s/p components around the new direction with
-    amplitude sqrt(imod); a perfect REFLECT reflects the field like a
-    direction, BLOCK zeroes it, and every other kind scales it by
+    amplitude sqrt(imod); a perfect (not metal) REFLECT reflects the field
+    like a direction, BLOCK zeroes it, and every other kind scales it by
     sqrt(imod)."""
-    why = field_acts(meta)
-    if why:
-        raise NotImplementedError(why)
     if meta.ph in FIELD_FRESNEL_KINDS:
         if meta.disp and wavelength is not None:
             from .static_dispatch import dispersive_iors
@@ -237,8 +232,11 @@ def transport_field(meta, row, d_in, new_dir, n_w, imod, Er, Ei,
         n2 = torch.where(from_in, n_out, n_in)
         cos_i = torch.abs(dot)
         sin2_t = (n1 / n2) ** 2 * (1.0 - cos_i ** 2)
-        ts, tp, rs, rp, _ = fresnel_amplitudes(n1, n2, cos_i, sin2_t)
+        ts, tp, rs, rp, tir = fresnel_amplitudes(n1, n2, cos_i, sin2_t)
         ts_c, tp_c = (ts, torch.zeros_like(ts)), (tp, torch.zeros_like(tp))
+        if meta.n_coat:
+            ts_c, tp_c, rs, rp = _coated_amplitudes(
+                meta, row, n1, n2, cos_i, tir, rs, rp, wavelength)
         s_hat, p_in = sp_basis(d_in, n_w)
         _, p_out = sp_basis(new_dir, n_w)       # the same s, the new p
         Es_r, Es_i = v3.dot(Er, s_hat), v3.dot(Ei, s_hat)
@@ -255,6 +253,8 @@ def transport_field(meta, row, d_in, new_dir, n_w, imod, Er, Ei,
         if meta.ph != PhysKind.SNELL:
             Er_new, Ei_new = _renormalize(Er, Ei, Er_new, Ei_new)
         return Er_new, Ei_new
+    if meta.ph == PhysKind.REFLECT and meta.metal:
+        return _metal(meta, row, d_in, new_dir, n_w, Er, Ei, wavelength)
     if meta.ph == PhysKind.JONES:
         return _jones(meta, row, new_dir, Er, Ei, wavelength)
     if meta.ph in (PhysKind.DOE, PhysKind.PHASE_GRID):
@@ -275,6 +275,43 @@ def transport_field(meta, row, d_in, new_dir, n_w, imod, Er, Ei,
         return zero, zero
     amp = torch.sqrt(torch.clamp(imod, min=0.0))
     return v3.scale(Er, amp), v3.scale(Ei, amp)
+
+
+def _coated_amplitudes(meta, row, n1, n2, cos_i, tir, rs, rp, wavelength):
+    """A coated interface's ``(ts, tp, rs, rp)`` as (re, im) pairs: its
+    stack's complex amplitudes (``coating_amplitudes``) in the order the ray
+    meets its layers (``in_ray_order``); under TIR the bare interface's
+    reflections ``rs``, ``rp`` (an evanescent-coupled stack is out of
+    scope)."""
+    lam = _stack_lam(wavelength)
+    ts, rs_c = in_ray_order(meta, row, n1, n2, lambda ns, ds, ks: (
+        coating_amplitudes(ns, ds, n1, n2, cos_i, lam, pol='s', k_stack=ks)))
+    tp, rp_c = in_ray_order(meta, row, n1, n2, lambda ns, ds, ks: (
+        coating_amplitudes(ns, ds, n1, n2, cos_i, lam, pol='p', k_stack=ks)))
+    return (ts, tp, tuple(torch.where(tir, a, b) for a, b in zip(rs, rs_c)),
+            tuple(torch.where(tir, a, b) for a, b in zip(rp, rp_c)))
+
+
+def _metal(meta, row, d_in, new_dir, n_w, Er, Ei, wavelength):
+    """A metal mirror's transport: the complex s and p reflections of its
+    (coated) metal (``metal_reflection_amplitudes``; ph = (n_metal,
+    k_metal, n_ambient), a dispersive metal's (n, k) at the rays'
+    wavelength on its knots), renormalized to the incoming |E|^2 (the
+    intensity carries the polarized R, core/static_dispatch.py)."""
+    cos_i = torch.abs(v3.dot(d_in, n_w))
+    lam = _stack_lam(wavelength)
+    n_m, k_m = metal_nk(meta, row, lam, cos_i)
+    ns, ds, ks = stack_columns(meta, row)
+    rs, rp = (metal_reflection_amplitudes(ns, ds, row.ph[..., 2], n_m, k_m,
+                                          cos_i, lam, pol=pol, k_stack=ks)
+              for pol in ('s', 'p'))
+    s_hat, p_in = sp_basis(d_in, n_w)
+    _, p_out = sp_basis(new_dir, n_w)
+    a_s = _cmul(rs, v3.dot(Er, s_hat), v3.dot(Ei, s_hat))
+    a_p = _cmul(rp, v3.dot(Er, p_in), v3.dot(Ei, p_in))
+    return _renormalize(
+        Er, Ei, v3.add(v3.scale(s_hat, a_s[0]), v3.scale(p_out, a_p[0])),
+        v3.add(v3.scale(s_hat, a_s[1]), v3.scale(p_out, a_p[1])))
 
 
 def jones_retardance(meta, row, wavelength=None):

@@ -24,11 +24,12 @@ rows (``meta.ff``, the static exponent pairs), dispersive media (Cauchy
 and Sellmeier, ``dispersive_iors``) and the polarizers' and waveplates'
 JONES, a geometric pass-through whose action is on the tracked field
 (core/field.py), which raises without one.  Under ``track_field`` (a
-``field``, core/field.py::FieldState) the Fresnel kinds of bare interfaces
-take the polarized reflectance of the rays' field state
-(``polarized_R``): FRESNEL's draw compares the same ``u`` with it,
-FRESNEL_W weighs by 1 - R_pol and REFLECT_W by R_pol.  Every other kind
-(SCATTER, GRIN) raises NotImplementedError naming the ROADMAP item that
+``field``, core/field.py::FieldState) the Fresnel kinds, bare or coated,
+take the polarized reflectance and transmittance of the rays' field state
+(``polarized_RT``): FRESNEL's draw compares the same ``u`` with R_pol,
+FRESNEL_W weighs by 1 - R_pol (an absorbing stack's by T_pol) and
+REFLECT_W by R_pol; a metal mirror weighs by its polarized R.  Every other
+kind (SCATTER, GRIN) raises NotImplementedError naming the ROADMAP item that
 brings it.  ``medium_after`` gives the index of the medium a ray travels in
 after a row, for the optical path length (``track_opl``).
 """
@@ -175,10 +176,17 @@ class StaticRowMeta:
 
 def coat_acts(meta: StaticRowMeta):
     """Whether the row's thin-film stack or metal substrate changes the
-    trace: a metal mirror, or a stack on a Fresnel kind (on a SNELL row a
-    stack has no intensity to act on: it only enters the polarized field's
-    amplitudes, which raise under the field: core/field.py::field_acts)."""
+    rays' intensity: a metal mirror, or a stack on a Fresnel kind (on a
+    SNELL row a stack acts on the polarized field's amplitudes alone:
+    ``field_coat_acts``)."""
     return meta.metal or bool(meta.n_coat and meta.ph in FRESNEL_KINDS)
+
+
+def field_coat_acts(meta: StaticRowMeta):
+    """Whether the row's stack or metal changes a trace with the polarized
+    field: ``coat_acts``, or a stack on a SNELL row (whose field takes the
+    stack's transmission amplitudes, core/field.py::transport_field)."""
+    return coat_acts(meta) or bool(meta.n_coat and meta.ph == PhysKind.SNELL)
 
 
 def unsupported(meta: StaticRowMeta):
@@ -283,24 +291,49 @@ def coated_rt_sp(meta: StaticRowMeta, row, d, n, n_in, n_out,
     package.  The wavelength is the ray's own, or 0.5876 um where it is
     0."""
     _, cos_i, n1, n2, _, _, _, _ = refract_components(d, n, n_in, n_out)
+    lam = _stack_lam(wavelength)
+    rs, ts = in_ray_order(meta, row, n1, n2, lambda ns, ds, ks: coating_rt(
+        ns, ds, n1, n2, cos_i, lam, pol='s', k_stack=ks))
+    rp, tp = in_ray_order(meta, row, n1, n2, lambda ns, ds, ks: coating_rt(
+        ns, ds, n1, n2, cos_i, lam, pol='p', k_stack=ks))
+    return rs, rp, ts, tp
+
+
+def stack_columns(meta: StaticRowMeta, row):
+    """A row's stack as ``(ns, ds, ks)``: the layers' indices and
+    thicknesses (its coat columns, outermost first) and their static
+    extinction (None: a dielectric stack)."""
     ns = [row.coat[..., 2 * i] for i in range(meta.n_coat)]
     ds = [row.coat[..., 2 * i + 1] for i in range(meta.n_coat)]
-    ks = list(meta.coat_k) if meta.coat_k is not None else None
-    lam = _stack_lam(wavelength)
+    return ns, ds, list(meta.coat_k) if meta.coat_k is not None else None
 
-    def rt_of(pol):
-        r, t = coating_rt(ns, ds, n1, n2, cos_i, lam, pol=pol, k_stack=ks)
-        if meta.n_coat > 1:
-            r_rev, t_rev = coating_rt(
-                ns[::-1], ds[::-1], n1, n2, cos_i, lam, pol=pol,
-                k_stack=ks[::-1] if ks is not None else None)
-            r = torch.where(n1 < n2, r, r_rev)
-            t = torch.where(n1 < n2, t, t_rev)
-        return r, t
 
-    rs, ts = rt_of('s')
-    rp, tp = rt_of('p')
-    return rs, rp, ts, tp
+def in_ray_order(meta: StaticRowMeta, row, n1, n2, fn):
+    """``fn(ns, ds, ks)`` (a tuple of tensors, or of (re, im) pairs) of the
+    row's stack in the order a ray from index n1 into n2 meets its layers:
+    reversed where n1 >= n2 when there are more than one (both orders are
+    computed and selected per ray, as in the JAX package)."""
+    ns, ds, ks = stack_columns(meta, row)
+    out = fn(ns, ds, ks)
+    if meta.n_coat < 2:
+        return out
+    rev = fn(ns[::-1], ds[::-1], ks[::-1] if ks is not None else None)
+
+    def pick(a, b):
+        if isinstance(a, tuple):
+            return tuple(pick(x, y) for x, y in zip(a, b))
+        return torch.where(n1 < n2, a, b)
+    return pick(out, rev)
+
+
+def metal_nk(meta: StaticRowMeta, row, lam, like):
+    """A metal row's substrate index ``(n, k)``: ph[0:2], or with
+    ``meta.metal_nk`` (metal_dispersion=True) its knots at ``lam`` (the
+    stack's wavelength, a float or a tensor shaped as ``like``)."""
+    if meta.metal_nk is None:
+        return row.ph[..., 0], row.ph[..., 1]
+    lam_t = lam if torch.is_tensor(lam) else torch.full_like(like, lam)
+    return metal_nk_at(meta.metal_nk[0], meta.metal_nk[1], lam_t)
 
 
 def mirror_reflectances_sp(meta: StaticRowMeta, row, d, n, wavelength=None):
@@ -315,15 +348,9 @@ def mirror_reflectances_sp(meta: StaticRowMeta, row, d, n, wavelength=None):
     same knots."""
     cos_i = torch.abs(v3.dot(d, n))
     n_amb = row.ph[..., 2]
-    ns = [row.coat[..., 2 * i] for i in range(meta.n_coat)]
-    ds = [row.coat[..., 2 * i + 1] for i in range(meta.n_coat)]
+    ns, ds, ks = stack_columns(meta, row)
     lam = _stack_lam(wavelength)
-    if meta.metal_nk is not None:
-        lam_t = lam if torch.is_tensor(lam) else torch.full_like(cos_i, lam)
-        n_m, k_m = metal_nk_at(meta.metal_nk[0], meta.metal_nk[1], lam_t)
-    else:
-        n_m, k_m = row.ph[..., 0], row.ph[..., 1]
-    ks = list(meta.coat_k) if meta.coat_k is not None else None
+    n_m, k_m = metal_nk(meta, row, lam, cos_i)
     rs = metal_reflectance(ns, ds, n_amb, n_m, k_m, cos_i, lam, pol='s',
                            k_stack=ks)
     rp = metal_reflectance(ns, ds, n_amb, n_m, k_m, cos_i, lam, pol='p',
@@ -331,30 +358,36 @@ def mirror_reflectances_sp(meta: StaticRowMeta, row, d, n, wavelength=None):
     return rs, rp
 
 
-def polarized_R(meta: StaticRowMeta, row, d, n, n_in, n_out, field):
+def polarized_R(meta: StaticRowMeta, row, d, n, n_in, n_out, field,
+                wavelength=None):
     """The polarization-weighted reflectance R_pol = (Rs |Es|^2 + Rp
-    |Ep|^2) / |E|^2 of a bare interface for the rays' field state: the
-    branch probability of the polarized FRESNEL draw and the weighted
-    kinds' loss, so that intensity * |E|^2 is energy-exact."""
-    return polarized_RT(meta, row, d, n, n_in, n_out, field)[0]
+    |Ep|^2) / |E|^2 of the row's interface (bare or coated) for the rays'
+    field state: the branch probability of the polarized FRESNEL draw and
+    the weighted kinds' loss, so that intensity * |E|^2 is energy-exact."""
+    return polarized_RT(meta, row, d, n, n_in, n_out, field, wavelength)[0]
 
 
-def polarized_RT(meta: StaticRowMeta, row, d, n, n_in, n_out, field):
-    """Polarization-weighted ``(R_pol, T_pol)`` of a bare interface for
-    the rays' field state (``field``, a core/field.py::FieldState): T_pol =
-    1 - R_pol, and ``(1, 0)`` under TIR.  A coated row raises (its stack's
-    amplitudes under the field are ROADMAP Queue 1 position 3b)."""
-    from .field import TODO_FIELD, sp_power_fractions
-    if meta.n_coat or meta.metal:
-        raise NotImplementedError(
-            f'the polarized reflectance of a coated row is {TODO_FIELD}')
+def polarized_RT(meta: StaticRowMeta, row, d, n, n_in, n_out, field,
+                 wavelength=None):
+    """Polarization-weighted ``(R_pol, T_pol)`` of the row's interface for
+    the rays' field state (``field``, a core/field.py::FieldState): (Rs, Rp,
+    Ts, Tp) of the bare interface (T = 1 - R) or of its thin-film stack
+    (``coated_rt_sp`` at the rays' ``wavelength``; an absorbing stack has T
+    < 1 - R), weighted by the field's s and p powers; ``(1, 0)`` under
+    TIR."""
+    from .field import sp_power_fractions
     _, cos_i, n1, n2, _, tir, cos_t, _ = refract_components(d, n, n_in,
                                                             n_out)
-    Rs, Rp = fresnel_rs_rp(cos_i, cos_t, n1, n2)
+    if meta.n_coat:
+        Rs, Rp, Ts, Tp = coated_rt_sp(meta, row, d, n, n_in, n_out,
+                                      wavelength)
+    else:
+        Rs, Rp = fresnel_rs_rp(cos_i, cos_t, n1, n2)
+        Ts, Tp = 1.0 - Rs, 1.0 - Rp
     fs, fp = sp_power_fractions(field.r_c, field.i_c, d, n)
     frac = torch.clamp(fs + fp, min=1e-20)
     R = (Rs * fs + Rp * fp) / frac
-    T = ((1.0 - Rs) * fs + (1.0 - Rp) * fp) / frac
+    T = (Ts * fs + Tp * fp) / frac
     return torch.where(tir, 1.0, R), torch.where(tir, 0.0, T)
 
 
@@ -394,7 +427,7 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None,
         return n2
     if meta.ph == PhysKind.FRESNEL:
         if field is not None:
-            R = polarized_R(meta, row, d, n, n_in, n_out, field)
+            R = polarized_R(meta, row, d, n, n_in, n_out, field, wavelength)
             return torch.where(_draw(u) < R, n1, n2)
         if meta.n_coat:
             r_raw = coated_reflectance(meta, row, d, n, n_in, n_out,
@@ -453,8 +486,10 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     intensity factor 0.
 
     ``field`` (a core/field.py::FieldState, under ``track_field``) gives the
-    Fresnel kinds of bare interfaces the polarized reflectance of the rays'
-    field state (``polarized_RT``); a JONES row passes the ray through
+    Fresnel kinds, bare or coated, the polarized reflectance and
+    transmittance of the rays' field state (``polarized_RT``,
+    ``_polarized_fresnel``) and a metal mirror the factor (Rs |Es|^2 + Rp
+    |Ep|^2) / max(|E|^2, 1e-20); a JONES row passes the ray through
     (its action is core/field.py::transport_field's) and raises without
     a field."""
     why = unsupported(meta)
@@ -474,7 +509,12 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     if kind == PhysKind.REFLECT:
         if meta.metal:
             rs, rp = mirror_reflectances_sp(meta, row, d, n, wavelength)
-            return reflect_dir(d, n), 0.5 * (rs + rp)
+            if field is None:
+                return reflect_dir(d, n), 0.5 * (rs + rp)
+            from .field import sp_power_fractions
+            fs, fp = sp_power_fractions(field.r_c, field.i_c, d, n)
+            return reflect_dir(d, n), (rs * fs + rp * fp) / torch.clamp(
+                fs + fp, min=1e-20)
         return reflect_dir(d, n), ones
     if kind == PhysKind.SNELL:
         return snell_dir(d, n, n_in, n_out), ones
@@ -486,7 +526,8 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
                 'ensemble has no per-ray Jones action)')
         return d, ones
     if field is not None and kind in FRESNEL_KINDS:
-        return _polarized_fresnel(meta, row, d, n, n_in, n_out, u, field)
+        return _polarized_fresnel(meta, row, d, n, n_in, n_out, u, field,
+                                  wavelength)
     if kind == PhysKind.FRESNEL:
         if not meta.n_coat:
             return fresnel_dir(d, n, n_in, n_out, _draw(u)), ones
@@ -544,17 +585,30 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
     return (d[0] * mod, d[1] * mod, d[2] * mod), mod
 
 
-def _polarized_fresnel(meta, row, d, n, n_in, n_out, u, field):
-    """``apply_physics_one`` of the Fresnel kinds of a bare interface
-    under the field: FRESNEL reflects where ``u`` < R_pol, FRESNEL_W
+def _polarized_fresnel(meta, row, d, n, n_in, n_out, u, field, wavelength):
+    """``apply_physics_one`` of the Fresnel kinds under the field, with the
+    polarized (R_pol, T_pol) of the bare or coated interface
+    (``polarized_RT``): FRESNEL reflects where ``u`` < R_pol, FRESNEL_W
     refracts with factor clip(1 - R_pol, 0, 1), REFLECT_W reflects with
-    clip(R_pol, 0, 1); TIR reflects at full power."""
+    clip(R_pol, 0, 1); TIR reflects at full power.  Under an absorbing
+    stack FRESNEL's transmitted branch carries clip(T_pol / max(1 - R_pol,
+    1e-12), 0, 1) (the draw's R and branch) and FRESNEL_W clip(T_pol, 0,
+    1)."""
     ones = torch.ones_like(d[0])
-    R, _ = polarized_RT(meta, row, d, n, n_in, n_out, field)
-    if meta.ph == PhysKind.FRESNEL:
-        return fresnel_dir(d, n, n_in, n_out, _draw(u), R_override=R), ones
+    R, T = polarized_RT(meta, row, d, n, n_in, n_out, field, wavelength)
     tir = refract_components(d, n, n_in, n_out)[5]
+    if meta.ph == PhysKind.FRESNEL:
+        out = fresnel_dir(d, n, n_in, n_out, _draw(u), R_override=R)
+        if meta.coat_k is None:
+            return out, ones
+        r_eff = torch.where(tir, 1.0, R)
+        w_t = T / _max(1.0 - r_eff, 1e-12)
+        return out, torch.where(_draw(u) < r_eff, ones,
+                                torch.clamp(w_t, 0.0, 1.0))
     if meta.ph == PhysKind.FRESNEL_W:
+        if meta.coat_k is not None:
+            return snell_dir(d, n, n_in, n_out), torch.where(
+                tir, 1.0, torch.clamp(T, 0.0, 1.0))
         R = torch.where(tir, 0.0, R)
         return snell_dir(d, n, n_in, n_out), torch.where(
             tir, 1.0, torch.clamp(1.0 - R, 0.0, 1.0))

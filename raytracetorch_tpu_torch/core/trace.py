@@ -33,11 +33,11 @@ reference's do; any callable runs here.  ``trace_sequential`` carries the
 polarized field (``track_field``, the launch field ``E0``;
 core/field.py): each row's physics sees the incoming field (the polarized
 Fresnel reflectance), its sensor weight is ``intensity * |E|^2``, and the
-field is transported after the row where it is active; ``aux['field']``
-and ``aux['field_power']`` hold the final state.  A row whose coating or
-metal acts raises under the field, and the non-sequential loop refuses the
-field (core/field.py::TODO_FIELD); rows of the kinds the port lacks
-(GRIN, scatter) raise through ``unsupported``.  A solid's faces
+field is transported after the row where it is active (through coated
+interfaces and metal mirrors with their amplitudes); ``aux['field']`` and
+``aux['field_power']`` hold the final state.  The non-sequential loop
+refuses the field (core/field.py::TODO_FIELD); rows of the kinds the port
+lacks (GRIN, scatter) raise through ``unsupported``.  A solid's faces
 (HALFSPACES) read their row's half-space columns in both loops, a flat
 row's mask as float 0/1.
 
@@ -69,7 +69,7 @@ from ..geom import vec3 as v3
 from ..rays.draws import nonseq_draws, sequential_uniforms, stream_index
 from ..elements.aperture import call_fuzzy
 from ..rays.ray import Rays
-from .field import TODO_FIELD, FieldState, field_acts, transport_field
+from .field import TODO_FIELD, FieldState, transport_field
 from .intersect import intersect, normal_world
 from .sensor import SensorConfig, SensorState
 from .static_dispatch import apply_physics_one, medium_after, unsupported
@@ -218,8 +218,6 @@ def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
     first = stream_index(static_meta)
     traced = field is not None
-    if traced:
-        check_field_rows(static_meta)
     for k, meta in enumerate(static_meta):
         u = uniforms[first[k]] if k in first else None
         rays, sensors, field = _surface_step(
@@ -227,15 +225,6 @@ def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
             grid=(grids or {}).get(k), streams=streams, u=u,
             fuzzy_fn=(fuzzy_fns or {}).get(k), field=field)
     return (rays, sensors, field) if traced else (rays, sensors)
-
-
-def check_field_rows(static_meta):
-    """Raise NotImplementedError on a row the field cannot pass yet (a
-    coated or metal row: core/field.py::field_acts)."""
-    for k, meta in enumerate(static_meta):
-        why = field_acts(meta)
-        if why:
-            raise NotImplementedError(f'row {k}: {why}')
 
 
 def _refuse_field(track_field=False, E0=None):

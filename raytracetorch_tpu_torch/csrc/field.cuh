@@ -2,7 +2,8 @@
 // and K2 (trace_seq_bwd.cu), in their instantiation with the field (kField):
 // the s/p basis, the flux-normalized Fresnel amplitudes, the polarized
 // reflectance, one row's transport of the complex E-vector, and the
-// hand-written adjoint of each.
+// hand-written adjoint of each, through coated interfaces and metal mirrors
+// too (their stacks' amplitudes, thin_film.cuh).
 //
 // Replaces the field code of the TPU kernels raytracetorch_tpu/ops/
 // pallas_trace.py::_kernel_v2 (its field streams :544-567, the transport
@@ -15,14 +16,20 @@
 //
 // A ray's field is six floats, the real and imaginary parts of E (Fld).  A
 // row's transport (field_transport) by its physics kind:
-// - SNELL, FRESNEL, FRESNEL_W, REFLECT_W (bare interfaces): E is split on
-//   the s/p basis of the incoming direction and the normal, multiplied by
-//   the transmission amplitudes (or, where the new direction's normal
-//   component flipped sign, the complex reflection amplitudes: TIR or a
-//   FRESNEL reflection draw) and rebuilt on the s/p basis of the new
-//   direction; the Fresnel kinds renormalize it to the incoming |E|^2
-//   (their branch power lives in the draw or the intensity factor), with a
-//   guarded divide: a branch of zero amplitude gets scale 0;
+// - SNELL, FRESNEL, FRESNEL_W, REFLECT_W: E is split on the s/p basis of
+//   the incoming direction and the normal, multiplied by the transmission
+//   amplitudes (or, where the new direction's normal component flipped
+//   sign, the complex reflection amplitudes: TIR or a FRESNEL reflection
+//   draw) and rebuilt on the s/p basis of the new direction; the Fresnel
+//   kinds renormalize it to the incoming |E|^2 (their branch power lives in
+//   the draw or the intensity factor), with a guarded divide: a branch of
+//   zero amplitude gets scale 0.  A coated interface (FieldRow::stack
+//   kStackCoated) takes its stack's complex amplitudes, which the caller
+//   evaluates (thin_film.cuh::stack_field, the layers in the order the ray
+//   meets them; under TIR the bare interface's reflection); a coated SNELL
+//   row is not renormalized, so |E|^2 carries the coating's T;
+// - a metal REFLECT row (kStackMetal): the same split and rebuild with its
+//   (coated) metal's complex reflections, renormalized;
 // - JONES: the transverse field times J = R(theta) diag(a1 e^{-i delta/2},
 //   a2 e^{i delta/2}) R(-theta), its axes the row's Rw column 0 projected
 //   transverse to the ray (column 1 where the ray runs along column 0), the
@@ -32,6 +39,9 @@
 // - DOE, PHASE_GRID: the s/p components rebuilt around the new direction,
 //   times sqrt(imod); a perfect REFLECT mirrors E like a direction; BLOCK
 //   zeroes it; every other kind scales it by sqrt(imod).
+// The polarized reflectance and transmittance (polarized_r, polarized_rt)
+// weigh an interface's or a mirror's Rs, Rp (Ts, Tp) by the field's s and p
+// powers: the FRESNEL draw's R and the weighted kinds' factors.
 // The adjoints differentiate the branch the forward took, with the same
 // guards (1e-24 under the square roots, the degenerate bases), the
 // convention of PyTorch autograd of the plain version: a guarded branch
@@ -44,6 +54,8 @@
 #pragma once
 
 #include <cmath>
+
+#include "thin_film.cuh"
 
 #ifdef __CUDACC__
 #define RTT_FD_HD __host__ __device__ __forceinline__
@@ -305,6 +317,54 @@ RTT_FD_HD void polarized_r_ct(const Fld& e, const SpBasis& b, const PolR& o, flo
   g_p = faxpy(faxpy(g_p, g_pr, e.r), g_pi, e.i);
 }
 
+// R_pol and T_pol = (Rs fs + Rp fp, Ts fs + Tp fp) / max(fs + fp, 1e-20)
+// of a coated interface or a metal mirror (core/static_dispatch.py::
+// polarized_RT; the metal's polarized R in apply_physics_one), Rs, Rp, Ts,
+// Tp from its stack.
+struct PolRT {
+  float R, T, fs, fp, rs, rp, ts, tp;
+};
+
+RTT_FD_HD PolRT polarized_rt(const Fld& e, const SpBasis& b, float rs, float rp, float ts,
+                             float tp) {
+  PolRT o;
+  sp_powers(e, b, o.fs, o.fp);
+  o.rs = rs;
+  o.rp = rp;
+  o.ts = ts;
+  o.tp = tp;
+  const float frac = fmaxf(o.fs + o.fp, 1e-20f);
+  o.R = (rs * o.fs + rp * o.fp) / frac;
+  o.T = (ts * o.fs + tp * o.fp) / frac;
+  return o;
+}
+
+// Adjoint of polarized_rt: g_R, g_T add the cotangents of the field (g_e)
+// and of the basis (g_s, g_p), and return those of Rs, Rp, Ts and Tp.
+RTT_FD_HD void polarized_rt_ct(const Fld& e, const SpBasis& b, const PolRT& o, float g_R,
+                               float g_T, Fld& g_e, F3& g_s, F3& g_p, float& g_rs, float& g_rp,
+                               float& g_ts, float& g_tp) {
+  const float sum = o.fs + o.fp;
+  const float frac = fmaxf(sum, 1e-20f);
+  const float g_nr = g_R / frac, g_nt = g_T / frac;
+  const float g_frac = -(g_R * o.R + g_T * o.T) / frac;
+  const float g_sum = sum >= 1e-20f ? g_frac : 0.0f;
+  const float g_fs = g_nr * o.rs + g_nt * o.ts + g_sum;
+  const float g_fp = g_nr * o.rp + g_nt * o.tp + g_sum;
+  g_rs = g_nr * o.fs;
+  g_rp = g_nr * o.fp;
+  g_ts = g_nt * o.fs;
+  g_tp = g_nt * o.fp;
+  const float sr = fdot(e.r, b.s), si = fdot(e.i, b.s);
+  const float pr = fdot(e.r, b.p), pi = fdot(e.i, b.p);
+  const float g_sr = 2.0f * sr * g_fs, g_si = 2.0f * si * g_fs;
+  const float g_pr = 2.0f * pr * g_fp, g_pi = 2.0f * pi * g_fp;
+  g_e.r = faxpy(faxpy(g_e.r, g_sr, b.s), g_pr, b.p);
+  g_e.i = faxpy(faxpy(g_e.i, g_si, b.s), g_pi, b.p);
+  g_s = faxpy(faxpy(g_s, g_sr, e.r), g_si, e.i);
+  g_p = faxpy(faxpy(g_p, g_pr, e.r), g_pi, e.i);
+}
+
 // ---- the waveplate crystals (utils/birefringence.py) ----
 
 // n^2 of one index of crystal `xtal` (1 quartz, 2 MgF2, 3 calcite; `side`
@@ -408,20 +468,29 @@ RTT_FD_HD float jones_delta(int jones, float ret, float lam0, float wl, float g 
 // transmission (by the side of d . nw); imod: the row's intensity factor
 // (after a fuzzy program's); theta, a1, a2, delta: a JONES row's angle,
 // amplitudes and retardance (jones_delta); xw, yw: its Rw columns 0 and 1.
+// stack: kStackCoated a Fresnel kind with layers, kStackMetal a metal
+// mirror, else kStackNone; ts, tp, rs, rp: such a row's stack's complex
+// amplitudes at the ray's incidence (thin_film.cuh::stack_field).
+constexpr int kStackNone = 0, kStackCoated = 1, kStackMetal = 2;
+
 struct FieldRow {
   int ph;
   F3 d, nd, nw;
   float n1, n2, imod;
   float theta, a1, a2, delta;
   F3 xw, yw;
+  int stack;
+  Cx ts, tp, rs, rp;
 };
 
-// The cotangents a row's transport adjoint adds.
+// The cotangents a row's transport adjoint adds (a stack's amplitudes':
+// the caller takes them through the stack, thin_film.cuh::stack_field_ct).
 struct FieldRowCt {
   F3 d, nd, nw;
   float n1, n2, imod;
   float theta, a1, a2, delta;
   F3 xw, yw;
+  Cx ts, tp, rs, rp;
 };
 
 RTT_FD_HD bool field_fresnel_kind(int ph) {
@@ -490,12 +559,16 @@ RTT_FD_HD void rebuild_ct(const Fld& g, F3 u, float a_r, float a_i, F3 v, float 
   g_v = faxpy(faxpy(g_v, b_r, g.r), b_i, g.i);
 }
 
-// The Fresnel transport's forward values.
+// The Fresnel transport's forward values (a metal mirror's too): the bases,
+// the bare amplitudes m (not a metal's), the field's s/p components and the
+// amplitudes taken, as (re, im): t_* transmission, r_* reflection (a
+// coated row's its stack's, FieldRow::ts .. rp, but r under TIR).
 struct FresnelT {
   SpBasis bi, bo;
   Amps m;
   float dot, ci, sin2;
   float es_r, es_i, ep_r, ep_i;
+  float ts_r, ts_i, tp_r, tp_i, rs_r, rs_i, rp_r, rp_i;
   float as_r, as_i, ap_r, ap_i;
   bool reflected;
 };
@@ -504,22 +577,46 @@ RTT_FD_HD FresnelT fresnel_transport(const FieldRow& fr, const Fld& e) {
   FresnelT t;
   t.dot = fdot(fr.d, fr.nw);
   t.ci = fabsf(t.dot);
-  const float q = fr.n1 / fr.n2;
-  t.sin2 = q * q * (1.0f - t.ci * t.ci);
-  t.m = fresnel_amps(fr.n1, fr.n2, t.ci, t.sin2);
+  const bool metal = fr.stack == kStackMetal;
+  t.sin2 = 0.0f;
+  t.m = Amps{};
+  if (!metal) {
+    const float q = fr.n1 / fr.n2;
+    t.sin2 = q * q * (1.0f - t.ci * t.ci);
+    t.m = fresnel_amps(fr.n1, fr.n2, t.ci, t.sin2);
+  }
+  t.ts_r = t.m.ts;
+  t.tp_r = t.m.tp;
+  t.ts_i = t.tp_i = 0.0f;
+  t.rs_r = t.m.rs_r;
+  t.rs_i = t.m.rs_i;
+  t.rp_r = t.m.rp_r;
+  t.rp_i = t.m.rp_i;
+  if (fr.stack != kStackNone) {
+    t.ts_r = fr.ts.re;
+    t.ts_i = fr.ts.im;
+    t.tp_r = fr.tp.re;
+    t.tp_i = fr.tp.im;
+    if (!t.m.tir) {
+      t.rs_r = fr.rs.re;
+      t.rs_i = fr.rs.im;
+      t.rp_r = fr.rp.re;
+      t.rp_i = fr.rp.im;
+    }
+  }
   t.bi = sp_basis(fr.d, fr.nw);
   t.bo = sp_basis(fr.nd, fr.nw);
   t.es_r = fdot(e.r, t.bi.s);
   t.es_i = fdot(e.i, t.bi.s);
   t.ep_r = fdot(e.r, t.bi.p);
   t.ep_i = fdot(e.i, t.bi.p);
-  t.reflected = fdot(fr.nd, fr.nw) * t.dot < 0.0f;
+  t.reflected = metal || fdot(fr.nd, fr.nw) * t.dot < 0.0f;
   if (t.reflected) {
-    cmul(t.m.rs_r, t.m.rs_i, t.es_r, t.es_i, t.as_r, t.as_i);
-    cmul(t.m.rp_r, t.m.rp_i, t.ep_r, t.ep_i, t.ap_r, t.ap_i);
+    cmul(t.rs_r, t.rs_i, t.es_r, t.es_i, t.as_r, t.as_i);
+    cmul(t.rp_r, t.rp_i, t.ep_r, t.ep_i, t.ap_r, t.ap_i);
   } else {
-    cmul(t.m.ts, 0.0f, t.es_r, t.es_i, t.as_r, t.as_i);
-    cmul(t.m.tp, 0.0f, t.ep_r, t.ep_i, t.ap_r, t.ap_i);
+    cmul(t.ts_r, t.ts_i, t.es_r, t.es_i, t.as_r, t.as_i);
+    cmul(t.tp_r, t.tp_i, t.ep_r, t.ep_i, t.ap_r, t.ap_i);
   }
   return t;
 }
@@ -533,7 +630,7 @@ RTT_FD_HD float renorm_scale(float p_in, float p_raw) {
 // One row's transport of the field e (an active row; the caller keeps e
 // where the row is inactive).
 RTT_FD_HD Fld field_transport(const FieldRow& fr, const Fld& e) {
-  if (field_fresnel_kind(fr.ph)) {
+  if (field_fresnel_kind(fr.ph) || fr.stack == kStackMetal) {
     const FresnelT t = fresnel_transport(fr, e);
     Fld o = rebuild(t.bi.s, t.as_r, t.as_i, t.bo.p, t.ap_r, t.ap_i);
     if (fr.ph != kFkSnell) {
@@ -570,7 +667,7 @@ RTT_FD_HD Fld field_transport(const FieldRow& fr, const Fld& e) {
 RTT_FD_HD Fld field_transport_ct(const FieldRow& fr, const Fld& e, const Fld& g_o,
                                  FieldRowCt& c) {
   Fld g_e = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
-  if (field_fresnel_kind(fr.ph)) {
+  if (field_fresnel_kind(fr.ph) || fr.stack == kStackMetal) {
     const FresnelT t = fresnel_transport(fr, e);
     Fld g_raw = g_o;
     if (fr.ph != kFkSnell) {
@@ -594,14 +691,14 @@ RTT_FD_HD Fld field_transport_ct(const FieldRow& fr, const Fld& e, const Fld& g_
     rebuild_ct(g_raw, t.bi.s, t.as_r, t.as_i, t.bo.p, t.ap_r, t.ap_i, g_s, g_pout, g_asr, g_asi,
                g_apr, g_api);
     float g_esr = 0.0f, g_esi = 0.0f, g_epr = 0.0f, g_epi = 0.0f;
-    float g_ts = 0.0f, g_tp = 0.0f, g_rsr = 0.0f, g_rsi = 0.0f, g_rpr = 0.0f, g_rpi = 0.0f;
+    float g_tsr = 0.0f, g_tsi = 0.0f, g_tpr = 0.0f, g_tpi = 0.0f;
+    float g_rsr = 0.0f, g_rsi = 0.0f, g_rpr = 0.0f, g_rpi = 0.0f;
     if (t.reflected) {
-      cmul_ct(t.m.rs_r, t.m.rs_i, t.es_r, t.es_i, g_asr, g_asi, g_rsr, g_rsi, g_esr, g_esi);
-      cmul_ct(t.m.rp_r, t.m.rp_i, t.ep_r, t.ep_i, g_apr, g_api, g_rpr, g_rpi, g_epr, g_epi);
+      cmul_ct(t.rs_r, t.rs_i, t.es_r, t.es_i, g_asr, g_asi, g_rsr, g_rsi, g_esr, g_esi);
+      cmul_ct(t.rp_r, t.rp_i, t.ep_r, t.ep_i, g_apr, g_api, g_rpr, g_rpi, g_epr, g_epi);
     } else {
-      float unused = 0.0f;
-      cmul_ct(t.m.ts, 0.0f, t.es_r, t.es_i, g_asr, g_asi, g_ts, unused, g_esr, g_esi);
-      cmul_ct(t.m.tp, 0.0f, t.ep_r, t.ep_i, g_apr, g_api, g_tp, unused, g_epr, g_epi);
+      cmul_ct(t.ts_r, t.ts_i, t.es_r, t.es_i, g_asr, g_asi, g_tsr, g_tsi, g_esr, g_esi);
+      cmul_ct(t.tp_r, t.tp_i, t.ep_r, t.ep_i, g_apr, g_api, g_tpr, g_tpi, g_epr, g_epi);
     }
     // es = (E . s), ep = (E . p_in)
     g_e.r = faxpy(faxpy(g_e.r, g_esr, t.bi.s), g_epr, t.bi.p);
@@ -610,15 +707,29 @@ RTT_FD_HD Fld field_transport_ct(const FieldRow& fr, const Fld& e, const Fld& g_
     g_pin = faxpy(faxpy(g_pin, g_epr, e.r), g_epi, e.i);
     sp_basis_ct(t.bi, fr.d, fr.nw, g_s, g_pin, c.d, c.nw);
     sp_basis_ct(t.bo, fr.nd, fr.nw, F3{0.0f, 0.0f, 0.0f}, g_pout, c.nd, c.nw);
-    // the amplitudes of (n1, n2, ci, sin2); sin2 = (n1 / n2)^2 (1 - ci^2)
-    float g_ci = 0.0f, g_sin2 = 0.0f;
-    fresnel_amps_ct(fr.n1, fr.n2, t.ci, t.sin2, t.m, g_ts, g_tp, g_rsr, g_rsi, g_rpr, g_rpi,
-                    c.n1, c.n2, g_ci, g_sin2);
-    const float q = fr.n1 / fr.n2, om = 1.0f - t.ci * t.ci;
-    const float g_q = g_sin2 * om * 2.0f * q;
-    g_ci += g_sin2 * q * q * (-2.0f * t.ci);
-    c.n1 += g_q / fr.n2;
-    c.n2 -= g_q * fr.n1 / (fr.n2 * fr.n2);
+    float g_ci = 0.0f;
+    if (fr.stack != kStackNone && !t.m.tir) {
+      // a stack's amplitudes (a metal's m is zeros: never TIR); under TIR a
+      // coated row reflects with the bare r, and its stack's t is not read
+      c.ts = {c.ts.re + g_tsr, c.ts.im + g_tsi};
+      c.tp = {c.tp.re + g_tpr, c.tp.im + g_tpi};
+      c.rs = {c.rs.re + g_rsr, c.rs.im + g_rsi};
+      c.rp = {c.rp.re + g_rpr, c.rp.im + g_rpi};
+    }
+    if (fr.stack != kStackMetal) {
+      // the bare amplitudes of (n1, n2, ci, sin2); sin2 = (n1 / n2)^2 (1 -
+      // ci^2); a coated row's are its stack's but under TIR, where it
+      // reflects with the bare r alone
+      float g_sin2 = 0.0f;
+      if (fr.stack == kStackNone || t.m.tir)
+        fresnel_amps_ct(fr.n1, fr.n2, t.ci, t.sin2, t.m, g_tsr, g_tpr, g_rsr, g_rsi, g_rpr,
+                        g_rpi, c.n1, c.n2, g_ci, g_sin2);
+      const float q = fr.n1 / fr.n2, om = 1.0f - t.ci * t.ci;
+      const float g_q = g_sin2 * om * 2.0f * q;
+      g_ci += g_sin2 * q * q * (-2.0f * t.ci);
+      c.n1 += g_q / fr.n2;
+      c.n2 -= g_q * fr.n1 / (fr.n2 * fr.n2);
+    }
     // ci = |d . nw|
     const float g_dot = g_ci * fsign(t.dot);
     c.d = faxpy(c.d, g_dot, fr.nw);

@@ -40,6 +40,11 @@
 // __noinline__ on the device, so that a kernel's ray state is not spilled
 // around the stack's registers at every row that has none.
 //
+// The polarized field (field.cuh) reads a stack's R, T and complex
+// amplitudes (r and the flux-normalized t) from one (B, C) per polarization
+// (stack_field) and their adjoint through one reverse sweep
+// (stack_field_ct), whose layer sweep (stack_bc_ct) repeats stack_rt_ct's.
+//
 // Cost (the bound's count, PERF.md): per coated row, ray and polarization,
 // for each layer one sin and one cos and about 30 floating-point operations
 // on the real path; the complex path adds a complex square root, two
@@ -352,6 +357,160 @@ RTT_TF_HD StackRT stack_rt_unpolarized(const StackIn& a) {
   return {0.5f * (s.R + p.R), 0.5f * (s.T + p.T)};
 }
 
+// The reverse of a stack's (B, C) accumulation for the adjoint of its R, T
+// and amplitudes (stack_field_ct): from the forward's saved (B, C) before each
+// layer, sin_i2 = max(raw0, 0), kin2 = n_in^2 sin_i2 and eta0, and the
+// cotangents of eta0 (g_eta0), of the substrate's admittance beyond its
+// start of C (g_es) and of the final (B, C) (gB, gC), the cotangents of the
+// layers, the substrate and the incidence medium are added into g.  It is
+// the second half of stack_rt_ct, line for line; stack_rt_ct keeps its own
+// copy, because calling this from it moved the SASS of K6's coated
+// kernels.
+RTT_TF_HD void stack_bc_ct(const StackIn& a, bool p, const Cx* saved, float raw0, float sin_i2,
+                           float kin2, float eta0, float g_eta0, Cx g_es, Cx gB, Cx gC,
+                           StackCt& g) {
+  float g_sin_i2 = 0.0f, g_kin2 = 0.0f;
+
+  // ---- the layers, the last applied (the ray's first) first ----
+  for (int j = 0; j < a.n; ++j) {
+    const int s = layer_at(a, j);
+    const Cx B0 = saved[2 * j], C0 = saved[2 * j + 1];
+    const float nl = a.coat[2 * s], dl = a.coat[2 * s + 1];
+    if (a.absorbing) {
+      const Cx nc = {nl, -a.k[s]};
+      const Cx cl = c_cos(kin2, nc);
+      const Cx el = c_eta(nc, cl, p);
+      const float phase = kTwoPi * dl / a.lam;
+      const Cx dlt = cmul(nc, cl);
+      const Cx delta = {phase * dlt.re, phase * dlt.im};
+      Cx cd, sd;
+      ctrig(delta, cd, sd);
+      const Cx isd = {-sd.im, sd.re};
+      const Cx q = cdiv(isd, el), w = cmul(isd, el);
+      // nB = cd B + q C, nC = w B + cd C
+      const Cx g_cd = cadd(cmul_ct(gB, B0), cmul_ct(gC, C0));
+      const Cx g_q = cmul_ct(gB, C0), g_w = cmul_ct(gC, B0);
+      const Cx nB0 = cadd(cmul_ct(gB, cd), cmul_ct(gC, w));
+      const Cx nC0 = cadd(cmul_ct(gB, q), cmul_ct(gC, cd));
+      Cx g_isd = cmul_ct(g_w, el), g_el = cmul_ct(g_w, isd);
+      cdiv_ct(isd, el, g_q, g_isd, g_el);
+      const Cx g_sd = {g_isd.im, -g_isd.re};
+      const Cx g_delta = ctrig_ct(delta, g_cd, g_sd);
+      const float g_phase = g_delta.re * dlt.re + g_delta.im * dlt.im;
+      const Cx g_dlt = {phase * g_delta.re, phase * g_delta.im};
+      Cx g_cl = cmul_ct(g_dlt, nc), g_nc = {0.0f, 0.0f};
+      c_eta_ct(nc, cl, p, g_el, g_nc, g_cl);
+      c_cos_ct(kin2, nc, g_cl, g_kin2, g_nc);  // the index is static: g_nc unused
+      // phase = 2 pi d / lam
+      g.d[s] += g_phase * kTwoPi / a.lam;
+      g.lam -= g_phase * phase / a.lam;
+      gB = nB0;
+      gC = nC0;
+    } else {
+      const float ratio = a.n_in / nl;
+      const float rawl = 1.0f - ratio * ratio * sin_i2;
+      const float cl = sqrtf(fmaxf(rawl, 1e-12f));
+      const float tn = kTwoPi * nl;
+      const float num = tn * dl * cl;
+      const float delta = num / a.lam;
+      const float cd = cosf(delta), sd = sinf(delta);
+      const float mc = fmaxf(cl, 1e-6f);
+      const float el = p ? nl / mc : nl * cl;
+      const float q = sd / el, w = el * sd;
+      // nB = (cd B.re - q C.im, cd B.im + q C.re), nC = (cd C.re - w B.im,
+      // cd C.im + w B.re)
+      const float g_cd = gB.re * B0.re + gB.im * B0.im + gC.re * C0.re + gC.im * C0.im;
+      const float g_q = -gB.re * C0.im + gB.im * C0.re;
+      const float g_w = -gC.re * B0.im + gC.im * B0.re;
+      const Cx nB0 = {gB.re * cd + gC.im * w, gB.im * cd - gC.re * w};
+      const Cx nC0 = {gC.re * cd + gB.im * q, gC.im * cd - gB.re * q};
+      const float g_sd = g_q / el + g_w * el;
+      const float g_el = -(g_q * q / el) + g_w * sd;
+      const float g_delta = -g_cd * sd + g_sd * cd;
+      float g_cl = 0.0f;
+      if (p) {
+        const float g_mc = -(g_el * el / mc);
+        g_cl += max_ct(cl, 1e-6f, g_mc);
+      } else {
+        g_cl += g_el * nl;
+      }
+      // delta = ((2 pi nl) dl cl) / lam
+      const float g_num = g_delta / a.lam;
+      g.lam -= g_delta * delta / a.lam;
+      g.d[s] += g_num * tn * cl;
+      g_cl += g_num * tn * dl;
+      // cl = sqrt(max(1 - ratio^2 sin_i2, 1e-12)), ratio = n_in / nl
+      const float g_raw = max_ct(rawl, 1e-12f, g_cl / (2.0f * cl));
+      g_sin_i2 -= g_raw * ratio * ratio;
+      g.n_in += -(g_raw * 2.0f * ratio * sin_i2) / nl;
+      gB = nB0;
+      gC = nC0;
+    }
+  }
+  // ---- C starts as the substrate's admittance ----
+  g_es = cadd(g_es, gC);
+  if (a.absorbing) {
+    const Cx nc = {a.n_out, a.metal ? -a.k_out : -(0.0f * a.n_out)};
+    const Cx cs = c_cos(kin2, nc);
+    Cx g_nc = {0.0f, 0.0f}, g_cs = {0.0f, 0.0f};
+    c_eta_ct(nc, cs, p, g_es, g_nc, g_cs);
+    c_cos_ct(kin2, nc, g_cs, g_kin2, g_nc);
+    g.n_out += g_nc.re;
+    if (a.metal) g.k_out -= g_nc.im;
+  } else if (a.metal) {
+    const Cx nc = {a.n_out, -a.k_out};
+    const Cx nc2 = cmul(nc, nc);
+    const float ar = a.n_in * a.n_in * sin_i2;
+    const Cx r2 = cdiv(Cx{ar, 0.0f}, nc2);
+    const Cx arg = {1.0f - r2.re, -r2.im};
+    const Cx ct = csqrt(arg);
+    Cx g_nc = {0.0f, 0.0f}, g_ct = {0.0f, 0.0f};
+    c_eta_ct(nc, ct, p, g_es, g_nc, g_ct);
+    const Cx g_arg = csqrt_ct(arg, g_ct);
+    Cx g_a = {0.0f, 0.0f}, g_nc2 = {0.0f, 0.0f};
+    cdiv_ct(Cx{ar, 0.0f}, nc2, Cx{-g_arg.re, -g_arg.im}, g_a, g_nc2);
+    const Cx g1 = cmul_ct(g_nc2, nc);
+    g_nc.re += 2.0f * g1.re;
+    g_nc.im += 2.0f * g1.im;
+    g.n_in += g_a.re * 2.0f * a.n_in * sin_i2;
+    g_sin_i2 += g_a.re * a.n_in * a.n_in;
+    g.n_out += g_nc.re;
+    g.k_out -= g_nc.im;
+  } else {
+    // eta_sub = eta(n_out, ct), ct = real_cos(n_in, max(n_out, 1e-6))
+    const float n_c = fmaxf(a.n_out, 1e-6f);
+    const float ratio = a.n_in / n_c;
+    const float rawt = 1.0f - ratio * ratio * sin_i2;
+    const float ct = sqrtf(fmaxf(rawt, 1e-12f));
+    float g_ct = 0.0f;
+    if (p) {
+      const float mc = fmaxf(ct, 1e-6f);
+      g.n_out += g_es.re / mc;
+      g_ct += max_ct(ct, 1e-6f, -(g_es.re * (a.n_out / mc) / mc));
+    } else {
+      g.n_out += g_es.re * ct;
+      g_ct += g_es.re * a.n_out;
+    }
+    const float g_raw = max_ct(rawt, 1e-12f, g_ct / (2.0f * ct));
+    g_sin_i2 -= g_raw * ratio * ratio;
+    const float g_ratio = -(g_raw * 2.0f * ratio * sin_i2);
+    g.n_in += g_ratio / n_c;
+    g.n_out += max_ct(a.n_out, 1e-6f, -(g_ratio * ratio / n_c));
+  }
+  // ---- eta0, kin2 = n_in^2 sin_i2, sin_i2 = max(1 - cos_i^2, 0) ----
+  if (p) {
+    const float mci = fmaxf(a.cos_i, 1e-6f);
+    g.n_in += g_eta0 / mci;
+    g.cos_i += max_ct(a.cos_i, 1e-6f, -(g_eta0 * eta0 / mci));
+  } else {
+    g.n_in += g_eta0 * a.cos_i;
+    g.cos_i += g_eta0 * a.n_in;
+  }
+  g.n_in += g_kin2 * 2.0f * a.n_in * sin_i2;
+  g_sin_i2 += g_kin2 * a.n_in * a.n_in;
+  g.cos_i += max_ct(raw0, 0.0f, g_sin_i2) * (-2.0f * a.cos_i);
+}
+
 // Adjoint of stack_rt for one polarization: g_R, g_T -> the inputs'
 // cotangents, added into g.
 RTT_TF_NOINLINE void stack_rt_ct(const StackIn& a, bool p, float g_R, float g_T, StackCt& g) {
@@ -530,6 +689,97 @@ RTT_TF_NOINLINE void stack_rt_ct(const StackIn& a, bool p, float g_R, float g_T,
 RTT_TF_HD void stack_rt_unpolarized_ct(const StackIn& a, float g_R, float g_T, StackCt& g) {
   stack_rt_ct(a, false, 0.5f * g_R, 0.5f * g_T, g);
   stack_rt_ct(a, true, 0.5f * g_R, 0.5f * g_T, g);
+}
+
+// ---- One evaluation for the polarized field (field.cuh) ----
+
+// A stack's R, T and complex amplitudes for one polarization from one (B, C)
+// (utils/coatings.py::coating_rt and coating_amplitudes, or
+// metal_reflectance and metal_reflection_amplitudes, which evaluate them
+// apart): R and T as stack_rt has them; r = (eta0 B - C) / (eta0 B + C),
+// flipped for p (the admittance form's r_p has the opposite sign to the
+// Fresnel convention of field.cuh::fresnel_amps); the flux-normalized
+// transmission t = 2 sqrt(max(eta0 Re(eta_sub), 0)) conj(eta0 B + C) /
+// max(|eta0 B + C|^2, 1e-24), so that |t|^2 = T (a metal mirror's T and t
+// are not read).
+struct StackField {
+  float R, T;
+  Cx t, r;
+};
+
+RTT_TF_NOINLINE StackField stack_field(const StackIn& a, bool p) {
+  const float sin_i2 = fmaxf(1.0f - a.cos_i * a.cos_i, 0.0f);
+  const float kin2 = a.n_in * a.n_in * sin_i2;
+  const float eta0 = eta0_of(a.n_in, a.cos_i, p);
+  const Cx es = substrate_eta(a, p, sin_i2, kin2);
+  Cx B, C;
+  if (a.absorbing)
+    stack_cx_bc(a, p, kin2, es, B, C, nullptr);
+  else
+    stack_real_bc(a, p, sin_i2, es, B, C, nullptr);
+  const Cx num = {eta0 * B.re - C.re, eta0 * B.im - C.im};
+  const Cx den = {eta0 * B.re + C.re, eta0 * B.im + C.im};
+  const float den2 = fmaxf(den.re * den.re + den.im * den.im, 1e-24f);
+  const Cx r = cdiv(num, den);
+  const float amp = 2.0f * sqrtf(fmaxf(eta0 * es.re, 0.0f));
+  StackField o;
+  o.R = (num.re * num.re + num.im * num.im) / den2;
+  o.T = 4.0f * eta0 * es.re / den2;
+  o.r = p ? Cx{-r.re, -r.im} : r;
+  o.t = {amp * den.re / den2, -(amp * den.im) / den2};
+  return o;
+}
+
+// Adjoint of stack_field for one polarization: g_R, g_T, g_t, g_r (the
+// cotangents of R, T, t and r) -> the inputs' cotangents, added into g,
+// through one reverse layer sweep.
+RTT_TF_NOINLINE void stack_field_ct(const StackIn& a, bool p, float g_R, float g_T, Cx g_t,
+                                    Cx g_r, StackCt& g) {
+  // ---- forward, saving (B, C) before each layer ----
+  const float raw0 = 1.0f - a.cos_i * a.cos_i;
+  const float sin_i2 = fmaxf(raw0, 0.0f);
+  const float kin2 = a.n_in * a.n_in * sin_i2;
+  const float eta0 = eta0_of(a.n_in, a.cos_i, p);
+  const Cx es = substrate_eta(a, p, sin_i2, kin2);
+  Cx saved[2 * kMaxCoatLayers];
+  Cx B, C;
+  if (a.absorbing)
+    stack_cx_bc(a, p, kin2, es, B, C, saved);
+  else
+    stack_real_bc(a, p, sin_i2, es, B, C, saved);
+  const Cx num = {eta0 * B.re - C.re, eta0 * B.im - C.im};
+  const Cx den = {eta0 * B.re + C.re, eta0 * B.im + C.im};
+  const float raw2 = den.re * den.re + den.im * den.im;
+  const float den2 = fmaxf(raw2, 1e-24f);
+  const float x = eta0 * es.re;
+  const float amp = 2.0f * sqrtf(fmaxf(x, 0.0f));
+  const float R = (num.re * num.re + num.im * num.im) / den2;
+  const float T = 4.0f * eta0 * es.re / den2;
+  const Cx t = {amp * den.re / den2, -(amp * den.im) / den2};
+
+  // ---- R = |num|^2 / den2, T = 4 x / den2 ----
+  const float g_nn = g_R / den2;
+  Cx g_num = {2.0f * num.re * g_nn, 2.0f * num.im * g_nn}, g_den = {0.0f, 0.0f};
+  float g_x = 4.0f * g_T / den2;
+  // ---- r = cdiv(num, den), negated for p ----
+  cdiv_ct(num, den, p ? Cx{-g_r.re, -g_r.im} : g_r, g_num, g_den);
+  // ---- t = amp (den.re, -den.im) / den2, den2 = max(|den|^2, 1e-24) ----
+  const float g_amp = (g_t.re * den.re - g_t.im * den.im) / den2;
+  g_den.re += g_t.re * amp / den2;
+  g_den.im -= g_t.im * amp / den2;
+  const float g_raw2 =
+      max_ct(raw2, 1e-24f, -(g_R * R + g_T * T + g_t.re * t.re + g_t.im * t.im) / den2);
+  g_den.re += 2.0f * den.re * g_raw2;
+  g_den.im += 2.0f * den.im * g_raw2;
+  // ---- amp = 2 sqrt(max(x, 0)), x = eta0 Re(eta_sub) ----
+  if (g_amp != 0.0f) g_x += max_ct(x, 0.0f, g_amp / sqrtf(fmaxf(x, 0.0f)));
+  // ---- num = eta0 B - C, den = eta0 B + C ----
+  const Cx g_sum = cadd(g_num, g_den);
+  const float g_eta0 = g_x * es.re + g_sum.re * B.re + g_sum.im * B.im;
+  const Cx g_es = {g_x * eta0, 0.0f};
+  const Cx gB = {g_sum.re * eta0, g_sum.im * eta0};
+  const Cx gC = {g_den.re - g_num.re, g_den.im - g_num.im};
+  stack_bc_ct(a, p, saved, raw0, sin_i2, kin2, eta0, g_eta0, g_es, gB, gC, g);
 }
 
 // ---- A dispersive metal: utils/coatings.py::metal_nk_at ----

@@ -273,8 +273,9 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   PhysBranch br = {};
   V3 nd;
   float imod;
+  FieldStack fst;
   if constexpr (kField)
-    field_physics<kDispersion, kDiff>(r, kd, d, nw, h.hs, pl, u, *fe, side, nd, imod, &br);
+    field_physics<kDispersion, kDiff>(r, kd, d, nw, h.hs, pl, u, *fe, side, nd, imod, &br, fst);
   else
     apply_physics<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff>(
         r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br, kd.dispm, u, kd.coat, side);
@@ -285,7 +286,7 @@ __device__ __forceinline__ uint32_t row_forward(const float* r, const RowKinds& 
   if (h.valid && inten > 0.0f) {
     bits |= kActive;
     if constexpr (kField)
-      *fe = field_transport(field_row<kDispersion>(r, kd, d, nd, nw, imod, pl.wl), *fe);
+      *fe = field_transport(field_row<kDispersion>(r, kd, d, nd, nw, imod, pl.wl, fst), *fe);
     p = fma3(p, h.t, d);
     d = nd;
     inten = inten * imod;
@@ -401,16 +402,29 @@ __device__ __forceinline__ void fresnel_weight_backward(const RowKinds& kd, cons
 // branch's clip(T / max(1 - R, 1e-12), 0, 1).  Returns whether the row has
 // one; then `a` receives its stack, `imod` the weight, and g_r, g_t the
 // cotangents of the stack's mean R and T from g_w, the weight's (the clips
-// pass it inside [0, 1], bounds included, as torch.clamp).
+// pass it inside [0, 1], bounds included, as torch.clamp).  With kPol (the
+// field, kField) R and T are the polarized ones of the incoming field *e
+// (field.cuh::polarized_rt, a metal's R its polarized one) from the row's
+// evaluated stack *fs (field_stack; `a` is not written): *b receives the
+// s/p basis and *w the weighing, and g_r, g_t are R_pol's and T_pol's.
+template <bool kPol = false>
 __device__ __forceinline__ bool stack_weight(const float* r, const RowKinds& kd, const Plates& pl,
                                              V3 d, V3 nw, uint32_t bits, const float* side,
                                              float g_w, StackIn& a, float& imod, float& g_r,
-                                             float& g_t) {
+                                             float& g_t, const Fld* e = nullptr,
+                                             const FieldStack* fs = nullptr, SpBasis* b = nullptr,
+                                             PolRT* w = nullptr) {
   const float cos_i = fabsf(dot3(d, nw));
   if (kd.ph == REFLECT) {
     if (!(kd.coat & kCoatMetal)) return false;
-    a = metal_stack(r, kd.coat, side, cos_i, pl.wl);
-    imod = stack_rt_unpolarized(a).R;
+    if constexpr (kPol) {
+      *b = sp_basis(F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z});
+      *w = polarized_rt(*e, *b, fs->s.R, fs->p.R, 0.0f, 0.0f);
+      imod = w->R;
+    } else {
+      a = metal_stack(r, kd.coat, side, cos_i, pl.wl);
+      imod = stack_rt_unpolarized(a).R;
+    }
     g_r = g_w;
     return true;
   }
@@ -419,10 +433,17 @@ __device__ __forceinline__ bool stack_weight(const float* r, const RowKinds& kd,
       !(kd.ph == FRESNEL_W || kd.ph == REFLECT_W ||
         (kd.ph == FRESNEL && absorbing && !(bits & kReflect))))
     return false;
-  float n1, n2;
-  media_iors<true>(r, bits & kFromIn, kd.dispm, pl.wl, n1, n2);
-  a = coated_stack(r, kd.coat, side, n1, n2, cos_i, pl.wl);
-  const StackRT rt = stack_rt_unpolarized(a);
+  StackRT rt;
+  if constexpr (kPol) {
+    *b = sp_basis(F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z});
+    *w = polarized_rt(*e, *b, fs->s.R, fs->p.R, fs->s.T, fs->p.T);
+    rt = {w->R, w->T};
+  } else {
+    float n1, n2;
+    media_iors<true>(r, bits & kFromIn, kd.dispm, pl.wl, n1, n2);
+    a = coated_stack(r, kd.coat, side, n1, n2, cos_i, pl.wl);
+    rt = stack_rt_unpolarized(a);
+  }
   float x;
   if (kd.ph == FRESNEL) {
     const float m = fmaxf(1.0f - rt.R, 1e-12f);
@@ -444,22 +465,18 @@ __device__ __forceinline__ bool stack_weight(const float* r, const RowKinds& kd,
   return true;
 }
 
-// Adjoint of a stack's weight (kCoat): g_r, g_t, the cotangents of the
-// stack's mean R and T (stack_weight) add those of the direction (g_d) and
-// the normal (g_nw) through cos_i = |d . nw|; of a coated row's media
-// (media_backward, its n1 and n2: ph[0:2], or a dispersive row's wc); of a
-// metal's ambient ph[2] and its (n, k), ph[0:2], or through a dispersive
-// metal's knots the wavelength; of the wavelength (wc->wl, where the ray
-// has one: an unset wavelength is the constant d line); and of the layers'
+// The cotangents sc of a row's stack's inputs (kCoat), added on: cos_i =
+// |d . nw| into the direction (g_d) and the normal (g_nw); a coated row's
+// media (media_backward, its n1 and n2: ph[0:2], or a dispersive row's wc);
+// a metal's ambient ph[2] and its (n, k), ph[0:2], or through a dispersive
+// metal's knots the wavelength; the wavelength (wc->wl, where the ray has
+// one: an unset wavelength is the constant d line); and the layers'
 // thicknesses (tc, in the coat columns' order).
 template <bool kDispersion>
-__device__ __forceinline__ void stack_weight_backward(const RowKinds& kd, const StackIn& a, V3 d,
-                                                      V3 nw, uint32_t bits, float wl,
-                                                      const float* side, float g_r, float g_t,
-                                                      V3& g_d, V3& g_nw, float* tg, WaveCt* wc,
-                                                      float* tc) {
-  StackCt sc = {};
-  stack_rt_unpolarized_ct(a, g_r, g_t, sc);
+__device__ __forceinline__ void stack_ct_backward(const RowKinds& kd, const StackIn& a, V3 d,
+                                                  V3 nw, uint32_t bits, float wl,
+                                                  const float* side, const StackCt& sc, V3& g_d,
+                                                  V3& g_nw, float* tg, WaveCt* wc, float* tc) {
   const float dn = dot3(d, nw);
   const float g_dn = sc.cos_i * (dn < 0.0f ? -1.0f : (dn > 0.0f ? 1.0f : 0.0f));
   g_d = fma3(g_d, g_dn, nw);
@@ -480,6 +497,20 @@ __device__ __forceinline__ void stack_weight_backward(const RowKinds& kd, const 
   }
   if (wl > 0.0f) wc->wl += g_lam;
   for (int j = 0; j < a.n; ++j) tc[j] += sc.d[j];
+}
+
+// Adjoint of a stack's weight (kCoat): g_r, g_t, the cotangents of the
+// stack's mean R and T (stack_weight), through the stack into its inputs
+// (stack_ct_backward).
+template <bool kDispersion>
+__device__ __forceinline__ void stack_weight_backward(const RowKinds& kd, const StackIn& a, V3 d,
+                                                      V3 nw, uint32_t bits, float wl,
+                                                      const float* side, float g_r, float g_t,
+                                                      V3& g_d, V3& g_nw, float* tg, WaveCt* wc,
+                                                      float* tc) {
+  StackCt sc = {};
+  stack_rt_unpolarized_ct(a, g_r, g_t, sc);
+  stack_ct_backward<kDispersion>(kd, a, d, nw, bits, wl, side, sc, g_d, g_nw, tg, wc, tc);
 }
 
 // Adjoint of dispersive_iors on a dispersive row at the ray's wavelength
@@ -1059,10 +1090,20 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   PolR pr = {};
   SpBasis pb = {};
   // kCoat: a stack's weight, its inputs and the cotangents of its R and T
+  // (kField: the polarized ones, with their basis and weighing, from the
+  // row's stack evaluated once, fst, which the transport reads too)
   bool stacked = false;
   StackIn sa = {};
   float g_sr = 0.0f, g_st = 0.0f;
-  if constexpr (kCoat) {
+  SpBasis sb = {};
+  PolRT sw = {};
+  FieldStack fst;
+  if constexpr (kField) {
+    fst = field_stack<kDispersion>(r, kd, d, nw, pl.wl, side);
+    stacked = stack_weight<true>(r, kd, pl, d, nw, bits, side,
+                                 kFuzzy ? gi * inten * fw.w : gi * inten, sa, imod, g_sr, g_st,
+                                 &fc->e, &fst, &sb, &sw);
+  } else if constexpr (kCoat) {
     stacked = stack_weight(r, kd, pl, d, nw, bits, side,
                            kFuzzy ? gi * inten * fw.w : gi * inten, sa, imod, g_sr, g_st);
   }
@@ -1090,12 +1131,33 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   Fld g_etr = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
   if constexpr (kField) {
     g_etr = field_transport_ct(
-        field_row<kDispersion>(r, kd, d, fc->nd, nw, kFuzzy ? imod * fw.w : imod, pl.wl), fc->e,
-        fc->g, fld_ct);
+        field_row<kDispersion>(r, kd, d, fc->nd, nw, kFuzzy ? imod * fw.w : imod, pl.wl, fst),
+        fc->e, fc->g, fld_ct);
     // the factor's cotangent: a DOE row's efficiency's share (its own imod)
     if constexpr (kDiff) {
       if (kd.ph == DOE && (doe_of(kd.coat) & kDoeEfficiency) && (bits & kPgOk))
         g_eta += kFuzzy ? fld_ct.imod * fw.w : fld_ct.imod;
+    }
+    // a coated or metal row's stack, here, where its values die: the
+    // polarized weight's cotangent into the field, the basis (so d and nw,
+    // through fld_ct) and the stack's Rs, Rp, Ts, Tp; then, with the
+    // transport's amplitudes', one reverse sweep a polarization into the
+    // stack's inputs
+    if (fst.kind != kStackNone) {
+      float g_rs = 0.0f, g_rp = 0.0f, g_ts = 0.0f, g_tp = 0.0f;
+      if (stacked) {
+        F3 g_s = {0.0f, 0.0f, 0.0f}, g_p = {0.0f, 0.0f, 0.0f};
+        polarized_rt_ct(fc->e, sb, sw, g_sr, g_st, g_ein, g_s, g_p, g_rs, g_rp, g_ts, g_tp);
+        sp_basis_ct(sb, F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z}, g_s, g_p, fld_ct.d, fld_ct.nw);
+      }
+      StackCt sc = {};
+      stack_field_ct(fst.a, false, g_rs, g_ts, fld_ct.ts, fld_ct.rs, sc);
+      stack_field_ct(fst.a, true, g_rp, g_tp, fld_ct.tp, fld_ct.rp, sc);
+      V3 gd3 = {0.0f, 0.0f, 0.0f}, gn3 = {0.0f, 0.0f, 0.0f};
+      stack_ct_backward<kDispersion>(kd, fst.a, d, nw, bits, pl.wl, side, sc, gd3, gn3, tg, wc,
+                                     tc);
+      fld_ct.d = fadd(fld_ct.d, F3{gd3.x, gd3.y, gd3.z});
+      fld_ct.nw = fadd(fld_ct.nw, F3{gn3.x, gn3.y, gn3.z});
     }
   }
   float g_t = dot3(gp, d);
@@ -1263,7 +1325,7 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   } else if constexpr (kFresnel) {
     if (weighted) fresnel_weight_backward<kDispersion>(kd, ff, d, nw, bits, g_R, g_d, g_nw, tg, wc);
   }
-  if constexpr (kCoat) {
+  if constexpr (kCoat && !kField) {
     if (stacked)
       stack_weight_backward<kDispersion>(kd, sa, d, nw, bits, pl.wl, side, g_sr, g_st, g_d, g_nw,
                                          tg, wc, tc);

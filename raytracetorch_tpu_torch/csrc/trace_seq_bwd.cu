@@ -155,7 +155,12 @@
 //   row_backward's field adjoint (trace_seq_adjoint.cuh, field.cuh), which
 //   adds the cotangents of the directions, the normals, the media, a JONES
 //   row's ph[0:5] and Rw columns and the wavelength.  A JONES row's
-//   cotangents land in columns the table already reduces (Rw, ph[0:6]).
+//   cotangents land in columns the table already reduces (Rw, ph[0:6]).  A
+//   coated interface's and a metal mirror's polarized weights and
+//   amplitudes go back through their stacks together, one reverse sweep a
+//   polarization (thin_film.cuh::stack_field_ct, recomputed: no saved
+//   state for them) into the layers' thicknesses (the coat columns), a
+//   metal's ambient and (n, k) and the wavelength.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the

@@ -976,6 +976,40 @@ __device__ __forceinline__ StackIn metal_stack(const float* r, int coat, const f
   return a;
 }
 
+// A coated Fresnel kind's or a metal mirror's stack under the field
+// (kField): its kind (field.cuh::kStackNone, kStackCoated, kStackMetal),
+// its inputs at the ray's incidence |d . nw| (a coated row's media by the
+// side of d . nw), and one evaluation per polarization of its R, T and
+// amplitudes (thin_film.cuh::stack_field), which the draw or weight and
+// the field's transport share.
+struct FieldStack {
+  int kind;
+  StackIn a;
+  StackField s, p;
+};
+
+template <bool kDispersion>
+__device__ __forceinline__ FieldStack field_stack(const float* r, const RowKinds& kd, V3 d, V3 nw,
+                                                  float wl, const float* side) {
+  FieldStack fs;
+  const float dn = dot3(d, nw);
+  if (kd.ph == REFLECT && (kd.coat & kCoatMetal)) {
+    fs.kind = kStackMetal;
+    fs.a = metal_stack(r, kd.coat, side, fabsf(dn), wl);
+  } else if (field_fresnel_kind(kd.ph) && (kd.coat & kCoatCountMask) != 0) {
+    float n1, n2;
+    media_iors<kDispersion>(r, dn < 0.0f, kd.dispm, wl, n1, n2);
+    fs.kind = kStackCoated;
+    fs.a = coated_stack(r, kd.coat, side, n1, n2, fabsf(dn), wl);
+  } else {
+    fs.kind = kStackNone;
+    return fs;
+  }
+  fs.s = stack_field(fs.a, false);
+  fs.p = stack_field(fs.a, true);
+  return fs;
+}
+
 // The Fresnel kinds' physics (kFresnel; core/static_dispatch.py::
 // apply_physics_one): the refraction's geometry as SNELL takes it, then
 // FRESNEL reflects where u < R (R = 1 under TIR), FRESNEL_W refracts (TIR
@@ -984,14 +1018,17 @@ __device__ __forceinline__ StackIn metal_stack(const float* r, int coat, const f
 // its side-buffer row `side`) takes R (and T) from its stack; an absorbing
 // stack weighs FRESNEL's transmitted branch by clip(T / max(1 - R, 1e-12),
 // 0, 1) and FRESNEL_W by clip(T, 0, 1).  With kField (core/static_dispatch.py
-// ::_polarized_fresnel; a bare interface) R is the polarized reflectance of
-// the ray's field *e (field.cuh::polarized_r).
+// ::_polarized_fresnel) R (and T) are the polarized reflectance (and
+// transmittance) of the ray's field *e: a bare interface's (field.cuh::
+// polarized_r) or, with kCoat, a coated one's (polarized_rt of its stack's
+// Rs, Rp, Ts, Tp, evaluated by the caller: *fs).
 template <bool kDispersion, bool kCoat = false, bool kField = false>
 __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3 nw, float wl,
                                                 int dispm, float u, V3& nd, float& imod,
                                                 PhysBranch* br, int coat = 0,
                                                 const float* side = nullptr,
-                                                const Fld* e = nullptr) {
+                                                const Fld* e = nullptr,
+                                                const FieldStack* fs = nullptr) {
   const float dn = dot3(d, nw);
   const bool from_in = dn < 0.0f;
   const float eff_sign = from_in ? 1.0f : -1.0f;
@@ -1005,7 +1042,14 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
   const float cos_t = tir ? 0.0f : sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
   float R, T = 0.0f;
   if constexpr (kField) {
-    R = polarized_r(*e, sp_basis(F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z}), cos_i, cos_t, n1, n2).R;
+    const SpBasis b = sp_basis(F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z});
+    if (kCoat && fs->kind == kStackCoated) {
+      const PolRT w = polarized_rt(*e, b, fs->s.R, fs->p.R, fs->s.T, fs->p.T);
+      R = w.R;
+      T = w.T;
+    } else {
+      R = polarized_r(*e, b, cos_i, cos_t, n1, n2).R;
+    }
   } else if (kCoat && (coat & kCoatCountMask) != 0) {
     const StackRT rt = stack_rt_unpolarized(coated_stack(r, coat, side, n1, n2, cos_i, wl));
     R = rt.R;
@@ -1037,12 +1081,13 @@ __device__ __forceinline__ void fresnel_physics(const float* r, int ph, V3 d, V3
 // What a row's field transport reads (field.cuh::FieldRow): the incoming
 // direction d, the new one nd, the normal nw, the media by the side of
 // d . nw (the transport kinds of field.cuh's Fresnel branch), the row's
-// factor imod (after a fuzzy program's), and a JONES row's angle,
+// factor imod (after a fuzzy program's), a JONES row's angle,
 // amplitudes, retardance at the ray's wavelength wl (its static bits in
-// kd.coat: field.cuh::jones_delta) and Rw columns 0 and 1.
+// kd.coat: field.cuh::jones_delta) and Rw columns 0 and 1, and a coated
+// Fresnel kind's or a metal mirror's stack amplitudes (field_stack's fs).
 template <bool kDispersion>
 __device__ __forceinline__ FieldRow field_row(const float* r, const RowKinds& kd, V3 d, V3 nd,
-                                              V3 nw, float imod, float wl) {
+                                              V3 nw, float imod, float wl, const FieldStack& fs) {
   FieldRow fr;
   fr.ph = kd.ph;
   fr.d = F3{d.x, d.y, d.z};
@@ -1055,6 +1100,13 @@ __device__ __forceinline__ FieldRow field_row(const float* r, const RowKinds& kd
   fr.xw = fr.yw = F3{0.0f, 0.0f, 0.0f};
   if (field_fresnel_kind(kd.ph))
     media_iors<kDispersion>(r, dot3(d, nw) < 0.0f, kd.dispm, wl, fr.n1, fr.n2);
+  fr.stack = fs.kind;
+  if (fs.kind != kStackNone) {
+    fr.ts = fs.s.t;
+    fr.rs = fs.s.r;
+    fr.tp = fs.p.t;
+    fr.rp = fs.p.r;
+  }
   if (kd.ph == JONES) {
     fr.theta = r[kPh];
     fr.a1 = r[kPh + 1];
@@ -1202,18 +1254,28 @@ __device__ __forceinline__ void apply_physics(const float* r, int ph, int sbk, i
   }
 }
 
-// A row's physics under the field (kField): the Fresnel kinds by
-// fresnel_physics with the field, every other kind by apply_physics (a JONES row
-// falls through it: nd = d, imod = 1).
+// A row's physics under the field (kField): a coated Fresnel kind's or a
+// metal mirror's stack is evaluated once (field_stack, into fs, which the
+// transport reads too); the Fresnel kinds, bare or coated, by
+// fresnel_physics with the field, a metal mirror reflects with the
+// polarized R of its stack's Rs and Rp (core/static_dispatch.py::
+// apply_physics_one), every other kind by apply_physics (a JONES row falls
+// through it: nd = d, imod = 1).
 template <bool kDispersion, bool kDiff>
 __device__ __forceinline__ void field_physics(const float* r, const RowKinds& kd, V3 d, V3 nw,
                                               V3 hs, const Plates& pl, float u, const Fld& e,
                                               const float* side, V3& nd, float& imod,
-                                              PhysBranch* br) {
-  if (kd.ph == FRESNEL || kd.ph == FRESNEL_W || kd.ph == REFLECT_W)
-    fresnel_physics<kDispersion, false, true>(r, kd.ph, d, nw, pl.wl, kd.dispm, u, nd, imod, br,
-                                              0, nullptr, &e);
-  else
+                                              PhysBranch* br, FieldStack& fs) {
+  fs = field_stack<kDispersion>(r, kd, d, nw, pl.wl, side);
+  if (kd.ph == FRESNEL || kd.ph == FRESNEL_W || kd.ph == REFLECT_W) {
+    fresnel_physics<kDispersion, true, true>(r, kd.ph, d, nw, pl.wl, kd.dispm, u, nd, imod, br,
+                                             kd.coat, side, &e, &fs);
+  } else if (fs.kind == kStackMetal) {
+    nd = fma3(d, -2.0f * dot3(d, nw), nw);
+    imod = polarized_rt(e, sp_basis(F3{d.x, d.y, d.z}, F3{nw.x, nw.y, nw.z}), fs.s.R, fs.p.R,
+                        0.0f, 0.0f)
+               .R;
+  } else
     apply_physics<true, true, kDispersion, true, true, kDiff>(
         r, kd.ph, kd.sb, kd.map, d, nw, hs, pl, nd, imod, br, kd.dispm, u, kd.coat, side);
 }

@@ -143,11 +143,15 @@
 // final field, [6][N] planar: the real parts of x, y, z, then the imaginary
 // ones), built on the one with freeform surfaces, so every other
 // instantiation keeps its code.  Each thread carries its ray's six field
-// floats through the rows: the Fresnel kinds draw and weigh with the
-// polarized reflectance of the incoming field (trace_seq_common.cuh::
-// fresnel_physics with kField), a sensor row's moments and grid take w * |E|^2,
-// and an active row transports the field (field.cuh::field_transport).  It
-// reads and writes 48 B a ray more than the instantiation below it.
+// floats through the rows: the Fresnel kinds, bare or coated, draw and weigh
+// with the polarized reflectance (and an absorbing stack's transmittance)
+// of the incoming field (trace_seq_common.cuh::fresnel_physics with
+// kField), a metal mirror weighs by its polarized R (field_physics), a
+// sensor row's moments and grid take w * |E|^2, and an active row
+// transports the field (field.cuh::field_transport; a coated interface and
+// a metal mirror with their stacks' amplitudes, from the one evaluation per
+// polarization, thin_film.cuh::stack_field, that the draw or weight read).
+// It reads and writes 48 B a ray more than the instantiation below it.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
@@ -378,6 +382,7 @@ __device__ __forceinline__ void seq_fwd(
     V3 nd;
     float imod;
     PhysBranch br = {};
+    FieldStack fst;  // kField: a coated or metal row's stack, for the transport
     if constexpr (kFresnel) {
       float u = 0.0f;
       if (kd.ph == FRESNEL) {  // warp-uniform
@@ -386,7 +391,7 @@ __device__ __forceinline__ void seq_fwd(
       }
       if constexpr (kField)
         field_physics<kExt, kDiff>(r, kd, d, nw, h.hs, pl, u, fe, cside + k * kCoatSide, nd, imod,
-                                   &br);
+                                   &br, fst);
       else
         apply_physics<kPlates, kExt, kExt, true, kCoat, kDiff>(r, kd.ph, kd.sb, kd.map, d, nw,
                                                                h.hs, pl, nd, imod, &br, kd.dispm,
@@ -401,11 +406,18 @@ __device__ __forceinline__ void seq_fwd(
                                    kd.dispm);
     const bool active = h.valid && inten > 0.0f;
     const float t = h.t;
+    // kField: the incoming |E|^2 weighs a sensor row's moments; an active
+    // row transports the field here, where a stack's amplitudes die
+    float pw = 1.0f;
+    if constexpr (kField) {
+      pw = fpower(fe);
+      if (active) fe = field_transport(field_row<kExt>(r, kd, d, nd, nw, imod, pl.wl, fst), fe);
+    }
 
     // ---- sensor moments and grid of the incoming intensity ----
     if (kd.sensor) {
       float w = active ? inten : 0.0f;
-      if constexpr (kField) w = w * fpower(fe);
+      if constexpr (kField) w = w * pw;
       const float x = h.hs.x, y = h.hs.y;
       const float terms[kMoments] = {w,         w * x,     w * y, w * x * x,
                                      w * y * y, w * x * y, w > 0.0f ? 1.0f : 0.0f};
@@ -440,7 +452,6 @@ __device__ __forceinline__ void seq_fwd(
       }
     }
     if (active) {
-      if constexpr (kField) fe = field_transport(field_row<kExt>(r, kd, d, nd, nw, imod, pl.wl), fe);
       p = fma3(p, t, d);
       d = nd;
       inten = inten * imod;

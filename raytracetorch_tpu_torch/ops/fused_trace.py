@@ -141,8 +141,13 @@ module:
   cotangents and returns the launch field's.  A JONES row's static bits
   (chromatic, crystal) ride its kinds row's physics column from bit
   ``COAT_SHIFT`` on (``jones_bits``); its cotangents land in ph[0:5] and Rw,
-  columns the kernels already reduce.  Coated and metal rows under the field
-  raise NotImplementedError (ROADMAP Queue 1 position 3b).
+  columns the kernels already reduce.  Coated interfaces and metal mirrors
+  take their stacks' and metals' amplitudes in the field's transport and
+  their polarized R (and T) in the weights (csrc/field.cuh); the coated
+  rows' side buffer (``coat_side``) is filled, and a coated SNELL row,
+  whose stack acts on the field alone, carries its coating bits
+  (``coat_bits``) in a trace with the field only.  The thicknesses'
+  cotangents land in ``COAT_GRAD_COLS``.
 - The kernels take up to ``MAX_BUNDLES`` (18) bundles, the JAX kernels'
   limit (n_bundles * 7 <= 128).  K5 and K6 keep per-thread moment sums of
   at most 64 (slot, bundle) pairs: more raise NotImplementedError
@@ -165,9 +170,9 @@ from ..constants import MAX_FF_TERMS, PhysKind, SBKind, VBKind
 from ..core.field import FieldState
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.static_dispatch import (DIFFRACTIVE_KINDS, FRESNEL_KINDS,
-                                    coat_acts, unsupported)
+                                    coat_acts, field_coat_acts, unsupported)
 from ..core.table import ROW_OFFSETS, ROW_WIDTH, FlatRow, flatten_table_rows
-from ..core.trace import Streams, check_field_rows, surface_chain
+from ..core.trace import Streams, surface_chain
 from ..rays.draws import draws_per_ray, sequential_uniforms
 from ..rays.ray import Rays
 from . import fuzzy_program, nvcc_build
@@ -502,10 +507,11 @@ def jones_bits(m):
     return (int(m.jones_chrom) | crystal << 1) << COAT_SHIFT
 
 
-def coat_bits(m):
+def coat_bits(m, field=False):
     """A row's coating data in its kinds row's physics column (shifted by
-    COAT_SHIFT): 0 unless its stack or metal acts."""
-    if not coat_acts(m):
+    COAT_SHIFT): 0 unless its stack or metal acts (``coat_acts``; with
+    ``field``, a trace with the polarized field, ``field_coat_acts``)."""
+    if not (field_coat_acts(m) if field else coat_acts(m)):
         return 0
     return ((m.n_coat | (COAT_METAL if m.metal else 0)
              | (COAT_METAL_NK if m.metal_nk is not None else 0)
@@ -569,7 +575,8 @@ def kind_rows(static_meta, cfg: SensorConfig):
         # DOE (its ff columns the radial phase's), never both
         surf = (SURF_FREEFORM if m.ff else SURF_ASPHERE if m.asph
                 else SURF_PLANE if m.plane else SURF_QUADRIC)
-        ph = m.ph | coat_bits(m) | doe_bits(m) | jones_bits(m)
+        ph = (m.ph | coat_bits(m, field_kinds(static_meta)) | doe_bits(m)
+              | jones_bits(m))
         if m.disp:
             ph |= (m.dispm[0] << DISP_SHIFT) | (m.dispm[1] << DISP_SHIFT + 2)
         rows.append([ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
@@ -667,13 +674,11 @@ def trace_sequential_fused(table, rays, cfg: SensorConfig, static_meta,
     the polarized field from ``E0`` (core/field.py::FieldState.init, made
     here in torch, so E0 and the launch directions get its cotangent):
     ``aux`` then holds ``field`` and ``field_power``, and the sensors weigh
-    by |E|^2; a coated or metal row raises NotImplementedError.
+    by |E|^2, through coated interfaces and metal mirrors too.
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels (or
     raise: there is no fallback)."""
     flags = StreamFlags(track_opl, record_paths, record_hits, track_field)
-    if track_field:
-        check_field_rows(static_meta)
     static_meta = TraceMeta(static_meta, fuzzy_fns, track_field)
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
     u = sequential_uniforms(static_meta, rays.n, rays.px.device, generator,

@@ -45,8 +45,9 @@ card.  A ``PhaseGridPlate``'s ``[H, W]`` map rides the side channel
 ``side_grids(params)`` into every trace, eager and fused.
 
 A ``SequentialScene``'s ``simulate`` and ``simulate_fused`` carry the
-polarized field (``track_field``, ``E0``; core/field.py), through the
-kernels' instantiation with the field on the card; a non-sequential
+polarized field (``track_field``, ``E0``; core/field.py), through every row
+kind the kernels take (coated interfaces and metal mirrors included), in
+the kernels' instantiation with the field on the card; a non-sequential
 ``Scene`` refuses it (ROADMAP Queue 1 position 3b).
 
 Ray sources are registered with ``add_bundle`` and drawn with

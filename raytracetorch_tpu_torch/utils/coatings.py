@@ -1,12 +1,12 @@
 """Differentiable thin-film multilayer coatings and metal reflectance
 (characteristic-matrix method).
 
-Counterpart of ``raytracetorch_tpu/utils/coatings.py`` for the intensity
+Counterpart of ``raytracetorch_tpu/utils/coatings.py``: the intensity
 reflectances and transmittances the trace reads (``coating_rt``,
-``metal_reflectance``, their unpolarized means), the entry parser and the
-metal tables; the complex amplitudes of the polarized trace
-(``coating_amplitudes``, ``metal_reflection_amplitudes``) are ROADMAP
-Queue 1 item 14 (``track_field``).
+``metal_reflectance``, their unpolarized means), the complex amplitudes the
+polarized field takes through a coated interface or a metal mirror
+(``coating_amplitudes``, ``metal_reflection_amplitudes``; core/field.py),
+the entry parser and the metal tables.
 
 Physics: the 2x2 characteristic matrix of each layer
 ``M_l = [[cos delta, i sin delta / eta], [i eta sin delta, cos delta]]``
@@ -232,6 +232,29 @@ def coating_rt(n_stack, d_stack, n_in, n_out, cos_i, wavelength, pol='s',
     return r, t
 
 
+def coating_amplitudes(n_stack, d_stack, n_in, n_out, cos_i, wavelength,
+                       pol='s', k_stack=None):
+    """Complex amplitudes ``(t, r)`` of a multilayer as (re, im) pairs: ``r
+    = (eta0 B - C) / (eta0 B + C)`` and the flux-normalized transmission ``t
+    = 2 sqrt(max(eta0 eta_sub, 0)) / (eta0 B + C)``, so that |t|^2 = T, the
+    convention of core/field.py::fresnel_amplitudes.  The admittance form's
+    r_p has the opposite sign to that convention's, so it is flipped: an
+    empty stack gives the bare interface's Fresnel amplitudes.  With an
+    absorbing stack (``k_stack``) |r|^2 + |t|^2 < 1."""
+    eta0, eta_sub, (b_re, b_im), (c_re, c_im) = _stack_bc(
+        n_stack, d_stack, n_in, n_out, cos_i, wavelength, pol,
+        k_stack=k_stack)
+    den_re, den_im = eta0 * b_re + c_re, eta0 * b_im + c_im
+    den2 = _max(den_re * den_re + den_im * den_im, 1e-24)
+    num_re, num_im = eta0 * b_re - c_re, eta0 * b_im - c_im
+    r_re = (num_re * den_re + num_im * den_im) / den2
+    r_im = (num_im * den_re - num_re * den_im) / den2
+    if pol == 'p':
+        r_re, r_im = -r_re, -r_im
+    amp = 2.0 * torch.sqrt(_max(eta0 * eta_sub, 0.0))
+    return (amp * den_re / den2, -amp * den_im / den2), (r_re, r_im)
+
+
 # Fixed complex indices (n, k) near the d line (550-590 nm), handbook
 # values (Rakic / Johnson-Christy), as in the JAX package.
 METALS = {
@@ -315,6 +338,19 @@ def metal_reflectance(n_stack, d_stack, n_in, n_metal, k_metal, cos_i,
     den = (eta0 * b_re + c_re, eta0 * b_im + c_im)
     den2 = _max(den[0] * den[0] + den[1] * den[1], 1e-24)
     return (num[0] * num[0] + num[1] * num[1]) / den2
+
+
+def metal_reflection_amplitudes(n_stack, d_stack, n_in, n_metal, k_metal,
+                                cos_i, wavelength, pol='s', k_stack=None):
+    """Complex reflection amplitude ``r = (eta0 B - C) / (eta0 B + C)`` of a
+    (coated) metal mirror as an (re, im) pair, p flipped as in
+    ``coating_amplitudes``."""
+    eta0, _, (b_re, b_im), (c_re, c_im) = _stack_bc(
+        n_stack, d_stack, n_in, n_metal, cos_i, wavelength, pol,
+        k_out=k_metal, k_stack=k_stack)
+    r = _c_div((eta0 * b_re - c_re, eta0 * b_im - c_im),
+               (eta0 * b_re + c_re, eta0 * b_im + c_im))
+    return (-r[0], -r[1]) if pol == 'p' else r
 
 
 def unpolarized_metal_reflectance(n_stack, d_stack, n_in, n_metal, k_metal,

@@ -8,7 +8,8 @@ trace's plain version against the JAX package's
 ``simulate(track_field=True)``, on the same rays (and, on FRESNEL rows, the
 same draws: rays/reference_prng.py); the gradients in an analyzer's angle,
 a waveplate's retardance, a lens curvature and E0 against ``jax.grad``;
-and the refusals of what waits for ROADMAP Queue 1 position 3b.  The plain
+and the refusals of what waits for ROADMAP Queue 1 position 3b (the
+non-sequential field).  The plain
 K1 and K2 against the JAX kernels: tests/test_torch_field_kernels.py.
 
 Tolerances, each with its reason: the field's six streams and |E|^2 atol
@@ -558,9 +559,10 @@ def test_gradients(name, fused):
 # ---- what waits for ROADMAP Queue 1 position 3b ----
 
 def test_refusals():
-    """Coated and metal rows under the field, a non-sequential Scene with
-    the field (eager and fused) and a JONES row without the field raise
-    NotImplementedError, naming position 3b or the missing field."""
+    """A non-sequential Scene with the field (eager and fused) and a JONES
+    row without the field raise NotImplementedError, naming position 3b or
+    the missing field; coated and metal rows now trace under the field
+    (tests/test_torch_field_coat.py holds them to the JAX package)."""
     rays = _disk(16, 1.0, -5.0)[1]
     coated = trt.SequentialScene([trt.SingletLens(
         c1=0.02, c2=-0.02, d=10.0, t=3.0, ior_glass=1.5, fresnel='weighted',
@@ -569,8 +571,8 @@ def test_refusals():
         c1=-0.02, d=10.0, metal='Al', name='m', translation=[0, 0, 20.0])])
     for sc in (coated, metal):
         for sim in (sc.simulate, sc.simulate_fused):
-            with pytest.raises(NotImplementedError, match='3b'):
-                sim(sc.init_params('cpu'), rays, track_field=True)
+            aux = sim(sc.init_params('cpu'), rays, track_field=True)[2]
+            assert bool(torch.isfinite(aux['field_power']).all())
     ns = trt.Scene([trt.LinearPolarizer(radius=10.0, name='p')])
     for sim in (ns.simulate, ns.simulate_fused):
         with pytest.raises(NotImplementedError, match='3b'):
