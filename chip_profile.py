@@ -81,7 +81,11 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 - the field through coated interfaces and metal mirrors (chip_smoke.py
   section 18): K1 and K2 in the same instantiation on the coated FRESNEL_W
   bench singlet (circular E0) and on stack8, and the coated singlet's
-  ``simulate_fused`` and grad step (c1, c2 and the coat).
+  ``simulate_fused`` and grad step (c1, c2 and the coat);
+- the field in the non-sequential scene (chip_smoke.py section 19): K5 and
+  K6 in their instantiation with the field on the naive scene (circular
+  E0, its grid) and the mirror fold, and the mirror fold's
+  ``simulate_fused`` and grad step (its curvature and E0).
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -809,6 +813,43 @@ def main():
                                        E0=fc_e0), 'trace_seq_fwd_kernel'),
         'field_coat_grad_step_fused_coated_w': (coat_field_step,
                                                 'trace_seq_bwd')})
+    # the field in the non-sequential scene (section 19)
+    for name in ('naive', 'fold'):
+        fsc, fp, fr, fe0, _ = cs.field_ns_case(rt, torch, name, n, dev,
+                                               cs.FIELD_NS_SEED + 7)
+        fmeta, fcfg, fflat, fkinds, fmaps, ffield, fcoat = cs.field_ns_inputs(
+            rt, torch, fsc, fp, fr, fe0, dev)
+        fgm = torch.ones(1, 1, 7, device=dev)
+        label = f'field_ns_{name}'
+        calls[f'{label}_k5'] = (
+            lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
+            co=fcoat, nb=fsc.n_bounces: fused_nonseq.trace_nonseq_fwd_cuda(
+                f, k, r, c, nb, m, True, fresnel=True, coat=co, field=e),
+            'trace_nonseq_fwd_kernel')
+        calls[f'{label}_k6'] = (
+            lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
+            co=fcoat, nb=fsc.n_bounces, g=fgm:
+            fused_nonseq.trace_nonseq_bwd_cuda(
+                f, k, r, c, nb, (None,) * 7, g, maps=m, ext=True,
+                fresnel=True, coat=co, field=e, g_field=[r.px] * 6),
+            'trace_nonseq_bwd_kernel')
+    nfsc = cs.field_ns_scene(rt, 'fold')
+    nf_p = nfsc.init_params(dev)
+    nf_rays = cs.ref_disk(rt, n, 2.0, 1.0, dev)
+    nf_e0 = cs.field_ns_source('fold')[4]
+
+    def ns_field_step():
+        p = {k: dict(v) for k, v in nf_p.items()}
+        p['mirror']['c'] = nf_p['mirror']['c'].clone().requires_grad_(True)
+        e0 = torch.tensor(nf_e0, device=dev, requires_grad=True)
+        _, s, aux = nfsc.simulate_fused(p, nf_rays, track_field=True, E0=e0)
+        cs.field_ns_loss(s, aux).backward()
+    calls.update({
+        'field_ns_simulate_fused_fold': (
+            lambda: nfsc.simulate_fused(nf_p, nf_rays, track_field=True,
+                                       E0=nf_e0), 'trace_nonseq_fwd_kernel'),
+        'field_ns_grad_step_fused_fold': (ns_field_step,
+                                          'trace_nonseq_bwd_kernel')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

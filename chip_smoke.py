@@ -6372,56 +6372,57 @@ def ray_chunks(n, size):
     return [slice(a, min(a + size, n)) for a in range(0, n, size)]
 
 
+def join_chunks(torch, parts):
+    """One run's result from a plain version's results on consecutive
+    chunks of rays (ray_chunks).  A forward's (rays, sensors, aux): the rays
+    and the aux streams joined, the moments and the grid summed.  A
+    backward's (table, rays'[, maps'][, wavelength's][, launch field's]):
+    the table's and the maps' cotangents summed, the per-ray ones joined."""
+    if len(parts) == 1:
+        return parts[0]
+    last = len(parts[0]) - 1
+
+    def join(i, xs):
+        x = xs[0]
+        if torch.is_tensor(x):
+            return sum(xs) if i == 0 else torch.cat(xs)
+        if isinstance(x, tuple):
+            if i in (1, last):
+                return tuple(torch.cat(c) for c in zip(*xs))
+            return tuple(sum(c) for c in zip(*xs))
+        if isinstance(x, dict):
+            return {k: torch.cat([a[k] for a in xs]) for k in x}
+        if hasattr(x, 'moments'):
+            return dataclasses.replace(x, moments=sum(a.moments for a in xs),
+                                       grid=sum(a.grid for a in xs))
+        return x.replace(**{f.name: torch.cat([getattr(o, f.name)
+                                               for o in xs])
+                            for f in dataclasses.fields(x)})
+    return tuple(join(i, [p[i] for p in parts]) for i in range(last + 1))
+
+
 def plain_field_fwd(torch, ft, flat, rays, cfg, meta, maps, uniforms, field,
                     chunk=None):
     """trace_sequential_fused_plain with the field, ``chunk`` rays at a time
-    (a ray's trace does not depend on the others'): the rays and the final
-    field's streams joined, the moments and the grid summed."""
-    outs, auxs, sens = [], [], None
-    for sl in ray_chunks(rays.n, chunk):
-        o, s, aux = ft.trace_sequential_fused_plain(
-            flat, ray_slice(ft, rays, sl), cfg, meta, maps,
-            uniforms=None if uniforms is None else uniforms[:, sl],
-            field=[f[sl] for f in field])
-        outs.append(o)
-        auxs.append(aux)
-        sens = s if sens is None else dataclasses.replace(
-            sens, moments=sens.moments + s.moments, grid=sens.grid + s.grid)
-    if len(outs) == 1:
-        return outs[0], sens, auxs[0]
-    out = outs[0].replace(**{f.name: torch.cat([getattr(o, f.name)
-                                                for o in outs])
-                             for f in dataclasses.fields(outs[0])})
-    return out, sens, {k: torch.cat([a[k] for a in auxs]) for k in auxs[0]}
+    (a ray's trace does not depend on the others'; join_chunks)."""
+    return join_chunks(torch, [ft.trace_sequential_fused_plain(
+        flat, ray_slice(ft, rays, sl), cfg, meta, maps,
+        uniforms=None if uniforms is None else uniforms[:, sl],
+        field=[f[sl] for f in field]) for sl in ray_chunks(rays.n, chunk)])
 
 
 def plain_field_bwd(torch, ft, flat, rays, cfg, meta, g_rays, g_mom, g_grid,
                     maps, uniforms, field, g_field, need_wavelength,
                     chunk=None):
-    """trace_seq_bwd_plain with the field, ``chunk`` rays at a time: the
-    table's and the maps' cotangents summed, the rays', the wavelength's
-    and the launch field's joined."""
-    parts = []
-    for sl in ray_chunks(rays.n, chunk):
-        parts.append(ft.trace_seq_bwd_plain(
-            flat, ray_slice(ft, rays, sl), cfg, meta,
-            [None if g is None else g[sl] for g in g_rays], g_mom,
-            g_grid=g_grid, maps=maps,
-            uniforms=None if uniforms is None else uniforms[:, sl],
-            field=[f[sl] for f in field], g_field=[g[sl] for g in g_field],
-            need_wavelength=need_wavelength))
-    if len(parts) == 1:
-        return parts[0]
-    res = [sum(p[0] for p in parts)]
-    for i in range(1, len(parts[0])):
-        xs = [p[i] for p in parts]
-        if torch.is_tensor(xs[0]):          # the wavelength's, per ray
-            res.append(torch.cat(xs))
-        elif i == 1 or i == len(parts[0]) - 1:  # the rays', the field's
-            res.append([torch.cat(c) for c in zip(*xs)])
-        else:                               # the maps'
-            res.append(tuple(sum(c) for c in zip(*xs)))
-    return tuple(res)
+    """trace_seq_bwd_plain with the field, ``chunk`` rays at a time
+    (join_chunks)."""
+    return join_chunks(torch, [ft.trace_seq_bwd_plain(
+        flat, ray_slice(ft, rays, sl), cfg, meta,
+        [None if g is None else g[sl] for g in g_rays], g_mom,
+        g_grid=g_grid, maps=maps,
+        uniforms=None if uniforms is None else uniforms[:, sl],
+        field=[f[sl] for f in field], g_field=[g[sl] for g in g_field],
+        need_wavelength=need_wavelength) for sl in ray_chunks(rays.n, chunk)])
 
 
 def field_kernels_vs_plain(rt, torch, name, n, device, seed, case=None,
@@ -6543,18 +6544,24 @@ def plain_float64_cotangents(torch, ft, flat, rays, cfg, meta, maps, field,
     return res[1], res[-1]
 
 
-def rays_off_float64(torch, g, g64, groups):
-    """The rays whose cotangents ``g`` break BWD_TOL's rule against the
-    float64 ones ``g64``, each against the largest |float64| of its group
-    in ``groups`` (compare_ray_cotangents's groups and scales for the rays'
-    7, compare_field_cotangents's one group for the field's 6)."""
-    bad = torch.zeros_like(g64[0], dtype=torch.bool)
+def rays_off(torch, g, g_ref, groups):
+    """The mask of the rays whose cotangents ``g`` break BWD_TOL's rule
+    against ``g_ref``, each against the largest |g_ref| of its group in
+    ``groups`` (compare_ray_cotangents's groups and scales for the rays' 7,
+    compare_field_cotangents's one group for the field's 6)."""
+    bad = torch.zeros_like(g_ref[0], dtype=torch.bool)
     for grp in groups:
-        scale = max(float(g64[j].abs().max()) for j in grp)
+        scale = max(float(g_ref[j].abs().max()) for j in grp)
         for j in grp:
-            bad |= (g[j].double() - g64[j]).abs() > BWD_TOL * (
-                g64[j].abs() + scale)
-    return int(bad.sum())
+            bad |= ((g[j].double() - g_ref[j]).abs() > BWD_TOL * (
+                g_ref[j].abs() + scale)) | ~torch.isfinite(g[j])
+    return bad
+
+
+def rays_off_float64(torch, g, g64, groups):
+    """The number of rays whose cotangents ``g`` break BWD_TOL's rule
+    against the float64 ones ``g64`` (``rays_off``)."""
+    return int(rays_off(torch, g, g64, groups).sum())
 
 
 def compare_field_cotangents(torch, g_k, g_p):
@@ -7938,12 +7945,568 @@ def field_coat_phases(rt, torch, dev, reset_counters, counters, only):
                 bounds=bounds)
 
 
+# ---- Section 19: the polarized field in the non-sequential scene (K5's
+# and K6's instantiation with the field) ----
+#
+# Tolerances, each with its reason: K5 and K6 against their plain versions
+# under section 17's and 18's rules (NS_* for the rays and moments, as
+# sections 11 and 12 hold K5; FIELD_TOL and FIELD_POWER_TOL for the six
+# field streams and |E|^2 of the rays both trace alike; BWD_TOL's rule for
+# the ray, table and launch-field cotangents), K6's replay equal to K5 bit
+# for bit, rays and field; the grad step's c1 and E0 cotangents, fused
+# against eager, within the JAX test's own rtol (tests/test_pallas.py:
+# 628-665: 3e-2 for c1, whose per-ray terms cancel, 1e-3 for E0); the
+# JAX package's numbers (JAX_PLATFORMS=cpu python tests/field_anchors.py
+# --nonseq) on the reference's own rays within FIELD_REF_ATOL of a mean
+# where the trace draws nothing (the aluminium mirror against the JAX
+# package in float64, as section 18), and where it draws (the Brewster
+# plane, the coated singlet: K5 draws Philox, the JAX package its own
+# generator) within FIELD_NS_SIGMAS standard errors of the difference of
+# two Monte-Carlo means; the Brewster analytics: p transmits with Tp = 1
+# within FIELD_NS_TP_ATOL (no p ray reflects), s with Ts = 1 - Rs within
+# FIELD_NS_SIGMAS binomial standard errors.
+FIELD_NS_SEED = SEED + 2001
+FIELD_NS_CASES = ('fold', 'brewster_p', 'brewster_s', 'brewster_45',
+                  'jones', 'coated', 'al', 'naive')
+FIELD_NS_SIGMAS = 5.0
+FIELD_NS_TP_ATOL = 1e-5
+# the grad step's gradients, fused against eager, each within
+# FIELD_NS_GRAD_RTOL of the eager one (c1) or of |eager| + 1e-3 of the
+# largest (E0): an H100 reads them within 5e-7 (PERF.md section 6)
+FIELD_NS_GRAD_RTOL = 1e-4
+# K6 keeps fused_nonseq.K6_FIELD_CHECKPOINTS bounces under the field: the
+# metal light guide's rays (FIELD_NS_GUIDE_BOUNCES) are reversed in
+# segments, which no other case reaches
+FIELD_NS_SEGMENT_CASES = ('guide',)
+FIELD_NS_GUIDE_BOUNCES = 16
+FIELD_NS_GUIDE_TILT = 0.7
+FIELD_NS_BREWSTER_N = 1.5168
+FIELD_NS_QW = 0.5876 / (4 * 1.38)
+
+
+def field_ns_scene(rt, name):
+    """Section 19's Scene of a case, in either package: the mirror fold of
+    tests/test_pallas.py:667 ('fold'); the Brewster FRESNEL plane of
+    tests/test_polarization.py:207-262 ('brewster_*'); the polarizer and
+    quarter-wave plate of tests/test_polarization_optics.py:230 ('jones');
+    the coated FRESNEL singlet of tests/test_coatings.py:239 ('coated'); the
+    aluminium parabola of :365 ('al', and 'al_disp', its dispersive metal
+    of :576); the naive scene ('naive'); a light guide of two flat
+    aluminium walls 2 apart, unbounded, and a sensor ('guide'), between
+    which every ray lives FIELD_NS_GUIDE_BOUNCES bounces."""
+    import importlib
+    shapes = importlib.import_module(rt.__name__ + '.elements.shapes')
+    mirror = importlib.import_module(rt.__name__ + '.elements.mirror')
+    if name == 'fold':
+        return mirror_fold_scene(rt)
+    if name == 'naive':
+        return naive_scene(rt)
+    if name.startswith('brewster'):
+        kinds = importlib.import_module(rt.__name__ + '.constants').PhysKind
+        return rt.Scene([rt.ElementCustom(
+            shapes.plane, 1, kinds.FRESNEL, ph=(FIELD_NS_BREWSTER_N, 1.0),
+            name='iface')], n_bounces=3)
+    if name == 'jones':
+        return rt.Scene([
+            rt.LinearPolarizer(radius=10.0, angle=0.4,
+                               translation=[0, 0, 8.0], name='pol'),
+            rt.QuarterWaveplate(radius=10.0, angle=math.pi / 4,
+                                translation=[0, 0, 14.0], name='q'),
+            rt.SensorElement(radius=40.0, translation=[0, 0, 30.0],
+                             name='s')], n_bounces=4)
+    if name == 'guide':
+        return rt.Scene([mirror.ParabolicMirror(
+            c1=0.0, d=0.0, metal='Al', rotation=[math.pi / 2, 0.0, 0.0],
+            translation=[0.0, y, 0.0], name=f'wall{i}')
+            for i, y in enumerate((1.0, -1.0))] + [rt.SensorElement(
+                radius=3.0, translation=[0.0, 0.0, 30.0], name='s')],
+            n_bounces=FIELD_NS_GUIDE_BOUNCES)
+    if name == 'coated':
+        return rt.Scene([
+            rt.SingletLens(c1=0.02, c2=-0.02, d=10.0, t=3.0,
+                           ior_glass=FIELD_NS_BREWSTER_N, fresnel=True,
+                           coating=[(1.38, FIELD_NS_QW)], name='lens'),
+            rt.SensorElement(radius=8.0, translation=[0, 0, 19.3],
+                             name='s')], n_bounces=6)
+    return rt.Scene([
+        mirror.ParabolicMirror(c1=-0.001, d=30.0, translation=[0, 0, 50.0],
+                               metal='Al', metal_dispersion=name == 'al_disp',
+                               name='m'),
+        rt.SensorElement(radius=20.0, translation=[0, 0, 0.5], name='s')],
+        n_bounces=3)
+
+
+def field_ns_source(name):
+    """(radius, z, rotation about x, wavelength, E0) of a section 19 case's
+    collimated beam and launch field."""
+    th_b = math.atan(FIELD_NS_BREWSTER_N)
+    s2 = math.sqrt(0.5)
+    e_p = [0.0, math.cos(th_b), math.sin(th_b)]
+    brewster = {'brewster_p': [e_p], 'brewster_s': [[1.0, 0.0, 0.0]],
+                'brewster_45': [[s2, s2 * e_p[1], s2 * e_p[2]]]}
+    if name in brewster:
+        return 2.0, -10.0, th_b, 0.0, brewster[name]
+    if name == 'guide':
+        tilt = FIELD_NS_GUIDE_TILT
+        return 0.5, -2.0, tilt, 0.0, [[0.6, 0.8 * math.cos(tilt),
+                                       0.8 * math.sin(tilt)]]
+    return {'fold': (2.0, 1.0, 0.0, 0.0, [[s2, s2, 0.0]]),
+            'jones': (1.0, -5.0, 0.0, 0.0, None),
+            'coated': (1.0, -10.0, 0.0, 0.0, [[1.0, 0.0, 0.0]]),
+            'al': (1.0, 1.0, 0.0, 0.0, [[1.0, 0.0, 0.0]]),
+            'al_disp': (1.0, 1.0, 0.0, 0.80, [[0.6, 0.8, 0.0]]),
+            'naive': (4.0, -10.0, 0.0, 0.0,
+                      [[complex(s2), complex(0.0, s2), 0.0]])}[name]
+
+
+def field_ns_bundle(rt, name):
+    """The CollimatedDisk of a section 19 case, in either package."""
+    radius, z, rot, wl, _ = field_ns_source(name)
+    kw = dict(rotation=[rot, 0.0, 0.0]) if rot else {}
+    if wl:
+        kw['wavelength'] = wl
+    return rt.CollimatedDisk.make(radius=radius, translation=[0.0, 0.0, z],
+                                  **kw)
+
+
+def brewster_rs():
+    """The s reflectance of the Brewster plane at its Brewster angle."""
+    n2 = FIELD_NS_BREWSTER_N ** 2
+    return ((n2 - 1.0) / (n2 + 1.0)) ** 2
+
+
+# the cases whose rays meet a lens face or a metal mirror near normal
+# incidence near the axis (section 17's FIELD_AXIS_R rule, float64 checks)
+FIELD_NS_LENS_CASES = ('coated', 'al', 'naive')
+FIELD_NS_CHUNK = 250_000
+# The JAX package's numbers (JAX_PLATFORMS=cpu python tests/field_anchors.py
+# --nonseq): per case on the reference's own rays of PRNGKey(0) (the
+# Brewster plane: N_MAIN rays of its own tilted beam and its own draws) at
+# N_MAIN rays, the means of |E|^2 ('power'), of intensity * |E|^2 over the
+# rays that leave forward ('flux') and its per-ray standard deviation
+# ('flux_std'), and the sensor's weight and first moments per ray
+FIELD_NS_REF = {
+    'fold': {'power': 1.0000001332411765, 'flux': 0.0, 'flux_std': 0.0,
+             'weight': 1.0, 'mx': 0.0005668544311523437, 'my':
+             -0.000376492919921875},
+    'brewster_p': {'power': 0.9999998807907104, 'flux': 0.9999998807907104,
+                   'flux_std': 0.0, 'weight': 0.0, 'mx': 0.0, 'my': 0.0},
+    'brewster_s': {'power': 1.0, 'flux': 0.844827, 'flux_std':
+                   0.36206970484351664, 'weight': 0.0, 'mx': 0.0, 'my': 0.0},
+    'brewster_45': {'power': 0.9999999450194835, 'flux': 0.9224199450194835,
+                    'flux_std': 0.267509638388283, 'weight': 0.0, 'mx': 0.0,
+                    'my': 0.0},
+    'jones': {'power': 0.8483532667160034, 'flux': 0.8483532667160034,
+              'flux_std': 0.0, 'weight': 0.8483524375, 'mx':
+              -0.0002456339569091797, 'my': 0.00016308888244628906},
+    'coated': {'power': 0.9999999758201241, 'flux': 0.9746129762044549,
+               'flux_std': 0.15729756439737685, 'weight': 0.974613, 'mx':
+               -0.00020014199829101561, 'my': 0.00010007659149169922},
+    'al': {'power': 1.0, 'flux': 0.0, 'flux_std': 0.0, 'weight':
+           0.9154468327899592, 'mx': -0.00023881949409116333, 'my':
+           0.0001585645332993524},
+    'naive': {'power': 0.9214589553720355, 'flux': 0.9214589553720355,
+              'flux_std': 0.00013222069909448605, 'weight': 0.9214589375, 'mx':
+              -5.376567840576172e-05, 'my': 3.274417495727539e-05}}
+
+
+def field_ns_case(rt, torch, name, n, device, seed):
+    """(scene, params, rays, E0, Philox key) of a section 19 case on seeded
+    rays (the key None without a FRESNEL row)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sc = field_ns_scene(rt, name)
+    rays = field_ns_bundle(rt, name).sample(gen, n, device)
+    key = FRESNEL_KEY if any(m.ph == 4 for m in sc.static_meta()) else None
+    return sc, sc.init_params(device), rays, field_ns_source(name)[4], key
+
+
+def field_ns_inputs(rt, torch, sc, params, rays, E0, device):
+    """(meta, cfg, flat, kinds, maps, launch field, side buffer) of a
+    non-sequential field trace: the ``TraceMeta`` with ``field``."""
+    from raytracetorch_tpu_torch.core.field import FieldState
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    meta = ft.TraceMeta(sc.static_meta(), None, field=True)
+    cfg = sc.sensor_config()
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(ft.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=device)
+    return (meta, cfg, flat, kinds, ft.plate_maps(meta, {}),
+            FieldState.init(rays, E0).streams(), ft.coat_side(meta, device))
+
+
+def chunk_draws(torch, key, sl, device):
+    """K5's Philox draws of the rays ``sl`` (a slice of the launch), as the
+    plain versions take them for a chunk of rays (None without a key)."""
+    if key is None:
+        return None
+    from raytracetorch_tpu_torch.rays.draws import philox_uniform
+    index = torch.arange(sl.start, sl.stop, dtype=torch.int64, device=device)
+    return lambda b, k: philox_uniform(index, b, k, key)
+
+
+def plain_ns_field_fwd(torch, flat, rays, cfg, meta, nb, maps, key, field,
+                       chunk=None):
+    """trace_nonseq_fused_plain with the field, ``chunk`` rays at a time on
+    K5's draws (join_chunks)."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    return join_chunks(torch, [fn.trace_nonseq_fused_plain(
+        flat, ray_slice(ft, rays, sl), cfg, meta, nb, maps,
+        draws=chunk_draws(torch, key, sl, rays.px.device),
+        field=[f[sl] for f in field]) for sl in ray_chunks(rays.n, chunk)])
+
+
+def plain_ns_field_bwd(torch, flat, rays, cfg, meta, nb, g_rays, g_mom,
+                       g_grid, maps, key, field, g_field, chunk=None,
+                       dtype=None):
+    """trace_nonseq_bwd_plain with the field, ``chunk`` rays at a time on
+    K5's draws (join_chunks) -> (table, 7 ray and 6 launch-field
+    cotangents); with ``dtype`` (torch.float64) the table, rays, field and
+    cotangents widened to it."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    wide = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+
+    def part(sl):
+        r = ray_slice(ft, rays, sl)
+        r = r.replace(**{c: wide(getattr(r, c)) for c in ft.COMPS},
+                      wavelength=None if r.wavelength is None
+                      else wide(r.wavelength))
+        return fn.trace_nonseq_bwd_plain(
+            wide(flat), r, cfg, meta, nb,
+            [None if g is None else wide(g[sl]) for g in g_rays],
+            wide(g_mom), g_grid=None if g_grid is None else wide(g_grid),
+            maps=maps, draws=chunk_draws(torch, key, sl, rays.px.device),
+            field=[wide(f[sl]) for f in field],
+            g_field=[wide(g[sl]) for g in g_field])
+    res = join_chunks(torch, [part(sl) for sl in ray_chunks(rays.n, chunk)])
+    return res[0], res[1], res[-1]
+
+
+def field_ns_kernels_vs_plain(rt, torch, name, n, device, seed):
+    """K5 and K6 in their instantiation with the field against their plain
+    versions on a section 19 case, on K5's draws: the rays, moments, grid,
+    the final field's six streams and |E|^2 (the NS_* rules; the field on
+    the rays both trace alike); then, on those rays under seeded
+    cotangents (the final field's too), the ray, table and launch-field
+    cotangents, and K6's replay against K5 bit for bit, its rays and its
+    field.  The launch-field cotangents are held on the rays whose
+    position and direction cotangents agree (the others number at most
+    the NS rule's).  On the segment cases (FIELD_NS_SEGMENT_CASES) rays
+    live beyond two segments of K6's checkpoints.  The lens cases
+    (FIELD_NS_LENS_CASES) leave the rays within FIELD_AXIS_R of the axis
+    out of the per-ray cotangent rule and hold the kernel's ray and
+    launch-field cotangents on every ray to the plain version's float64
+    ones, as section 17 does -> dict; raises on a breach.  The plain
+    versions run FIELD_NS_CHUNK rays at a time."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    sc, params, rays, E0, key = field_ns_case(rt, torch, name, n, device,
+                                              seed)
+    meta, cfg, flat, kinds, maps, field, coat = field_ns_inputs(
+        rt, torch, sc, params, rays, E0, device)
+    nb, disp = sc.n_bounces, ft.dispersive(meta)
+    out_k, s_k, aux_k = fn.trace_nonseq_fwd_cuda(
+        flat, kinds, rays, cfg, nb, maps, True, fresnel=True, key=key,
+        coat=coat, field=field)
+    out_p, s_p, aux_p = plain_ns_field_fwd(torch, flat, rays, cfg, meta, nb,
+                                           maps, key, field, FIELD_NS_CHUNK)
+    torch.cuda.synchronize()
+    res = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+    apart = ~((torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
+                            for c in ('px', 'py', 'pz')]).amax(0)
+               <= NS_POS_TOL)
+              & ((out_k.intensity - out_p.intensity).abs() <= NS_INT_TOL))
+    res.update(compare_field(torch, aux_k, aux_p, ~apart))
+    res.update(rows=len(meta), apart=int(apart.sum()))
+    if name in FIELD_NS_SEGMENT_CASES:
+        lives = nonseq_work(rt, torch, sc, params, rays)[2]
+        res['max_live_bounces'] = int(lives.max())
+        res['replayed_bounces'] = segment_replays(lives,
+                                                  fn.K6_FIELD_CHECKPOINTS)
+        check(res['max_live_bounces'] > 2 * fn.K6_FIELD_CHECKPOINTS,
+              f'{name}: no ray lives beyond two segments of K6\'s '
+              f'{fn.K6_FIELD_CHECKPOINTS} checkpoints')
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, g_grid = random_cotangents(torch, rays.n, cfg, device,
+                                              seed + 2)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    g_field = [torch.randn(rays.n, generator=gen, device=device)
+               for _ in range(6)]
+    g_k = fn.trace_nonseq_bwd_cuda(
+        flat, kinds, rays, cfg, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
+        ext=True, disp=disp, fresnel=True, key=key, coat=coat, replay=True,
+        need_wavelength=disp, field=field, g_field=g_field)
+    g_p = plain_ns_field_bwd(torch, flat, rays, cfg, meta, nb, g_rays, g_mom,
+                             g_grid, maps, key, field, g_field,
+                             FIELD_NS_CHUNK)
+    out_k, _, aux_k = fn.trace_nonseq_fwd_cuda(
+        flat, kinds, rays, cfg, nb, maps, True, fresnel=True, key=key,
+        coat=coat, field=field)
+    torch.cuda.synchronize()
+    res['replay_equal'] = all(torch.equal(getattr(g_k[-2], c),
+                                          getattr(out_k, c))
+                              for c in ft.COMPS)
+    res['replay_field_equal'] = all(torch.equal(a, aux_k[k]) for a, k in
+                                    zip(g_k[-1], ft.FIELD_KEYS))
+    check(res['replay_equal'] and res['replay_field_equal'],
+          f'{name}: K6 replay differs from K5 (rays '
+          f'{res["replay_equal"]}, field {res["replay_field_equal"]})')
+    keep = torch.ones_like(rays.px, dtype=torch.bool)
+    if name in FIELD_NS_LENS_CASES:
+        keep = (rays.px ** 2 + rays.py ** 2).sqrt() >= FIELD_AXIS_R
+        g64 = plain_ns_field_bwd(torch, flat, rays, cfg, meta, nb, g_rays,
+                                 g_mom, g_grid, maps, key, field, g_field,
+                                 FIELD_NS_CHUNK, torch.float64)
+        res['near_axis'] = int((~keep).sum())
+        allowed = math.ceil(BWD_FLIPS_PER_MILLION * rays.n / 1e6)
+        for label, gk, gp, g64_, groups in (
+                ('rays', g_k[1], g_p[1], g64[1], ((0, 1, 2), (3, 4, 5),
+                                                  (6,))),
+                ('field', g_k[-3], g_p[2], g64[2], (tuple(range(6)),))):
+            off_k = rays_off_float64(torch, gk, g64_, groups)
+            off_p = rays_off_float64(torch, gp, g64_, groups)
+            res[f'{label}_off_f64'] = dict(kernel=off_k, plain=off_p)
+            check(off_k <= FIELD_F64_RATIO * off_p + allowed,
+                  f'{name}: the kernel departs from the float64 {label} '
+                  f'cotangents on {off_k} rays, the plain version on {off_p}')
+    allowed = max(3, math.ceil(NS_MISMATCH_SHARE * rays.n))
+    grid_allowed = math.ceil(GRID_SHARE * rays.n) if cfg.grid_shape else 0
+    res['bwd'] = compare_ray_cotangents(
+        torch, [g[keep] for g in g_k[1]], [g[keep] for g in g_p[1]],
+        allowed=allowed, intensity_allowed=grid_allowed)
+    res['bwd'].update(compare_table_cotangents(
+        torch, ft, g_k[0], g_p[0], plates=True, ext=True, disp=disp,
+        coat=True))
+    # a ray whose position or direction cotangents differ (the NS rule
+    # above: a hit that flips at a rim in one of the two runs) has other
+    # field cotangents too; the others' are held to sections 17 and 18's
+    # rule
+    same = ~rays_off(torch, [g[keep] for g in g_k[1]],
+                     [g[keep] for g in g_p[1]], ((0, 1, 2), (3, 4, 5)))
+    res['bwd']['field'] = compare_field_cotangents(
+        torch, [g[keep][same] for g in g_k[-3]],
+        [g[keep][same] for g in g_p[2]])
+    res['bwd']['field']['geometry_differ'] = int((~same).sum())
+    return res
+
+
+def field_ns_stats(torch, out, sens, aux):
+    """A section 19 path's means: |E|^2, intensity * |E|^2 over the rays
+    that leave forward and its per-ray standard deviation, the sensor's
+    weight and first moments per ray (FIELD_NS_REF's keys)."""
+    n = out.px.shape[0]
+    w = (out.intensity * aux['field_power']).double()
+    w = torch.where((out.dz > 0) & (out.intensity > 0), w, 0.0)
+    m = sens.moments[0, 0].double()
+    return dict(power=float(aux['field_power'].double().mean()),
+                flux=float(w.mean()), flux_std=float(w.std()),
+                weight=float(m[0]) / n, mx=float(m[1]) / n,
+                my=float(m[2]) / n)
+
+
+def field_ns_paths(rt, torch, dev, reset_counters, counters, only):
+    """Each case through Scene.simulate_fused at N_MAIN rays (K5 once, in
+    its instantiation with the field), against the JAX package's means
+    (FIELD_NS_REF) and the Brewster analytics -> dict; raises on a
+    breach."""
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    res, rs = {}, brewster_rs()
+    for name in FIELD_NS_CASES:
+        sc = field_ns_scene(rt, name)
+        radius, z, rot, wl, E0 = field_ns_source(name)
+        gen = torch.Generator(device=dev).manual_seed(FIELD_NS_SEED + 5)
+        rays = (field_ns_bundle(rt, name).sample(gen, N_MAIN, dev) if rot
+                else ref_disk(rt, N_MAIN, radius, z, dev, wl))
+        reset_counters()
+        out, sens, aux = sc.simulate_fused(sc.init_params(dev), rays,
+                                           generator=gen, track_field=True,
+                                           E0=E0)
+        torch.cuda.synchronize()
+        stats = field_ns_stats(torch, out, sens, aux)
+        stats['launches'] = counters()
+        check(only(stats['launches'], trace_nonseq_fwd=1, field=1),
+              f'{name}: simulate_fused launched {stats["launches"]}')
+        check(bool(torch.isfinite(aux['field_power']).all()),
+              f'{name}: the field is not finite')
+        ref = FIELD_NS_REF[name]
+        if rot or name == 'coated':   # Monte-Carlo: two sets of draws
+            sigma = max(math.hypot(stats['flux_std'], ref['flux_std'])
+                        / math.sqrt(N_MAIN), FIELD_REF_ATOL)
+            stats['flux_sigmas'] = abs(stats['flux'] - ref['flux']) / sigma
+            check(stats['flux_sigmas'] <= FIELD_NS_SIGMAS,
+                  f'{name} flux {stats["flux"]} vs JAX {ref["flux"]}')
+            check(abs(stats['power'] - ref['power']) <= FIELD_REF_ATOL,
+                  f'{name} power {stats["power"]} vs JAX {ref["power"]}')
+        else:
+            for k in ('power', 'flux', 'weight', 'mx', 'my'):
+                check(abs(stats[k] - ref[k]) <= FIELD_REF_ATOL,
+                      f'{name} {k} {stats[k]} vs JAX {ref[k]}')
+        if name == 'brewster_p':
+            stats['reflected'] = int(((out.dz < 0) & (out.intensity > 0))
+                                     .sum())
+            check(stats['reflected'] == 0 and abs(stats['flux'] - 1.0)
+                  <= FIELD_NS_TP_ATOL, f'Brewster p: {stats}')
+        if name == 'brewster_s':
+            sigma = math.sqrt(rs * (1.0 - rs) / N_MAIN)
+            stats['ts_sigmas'] = abs(stats['flux'] - (1.0 - rs)) / sigma
+            check(stats['ts_sigmas'] <= FIELD_NS_SIGMAS,
+                  f'Brewster s: Ts {stats["flux"]} vs 1 - Rs {1.0 - rs}')
+        res[name] = stats
+        torch.cuda.empty_cache()
+    return res
+
+
+def field_ns_loss(s, aux):
+    """The grad loss of the mirror fold (tests/test_torch_field_nonseq.py):
+    |E|^2, the sensor's weight and first moment, a sum of squares and the
+    final field's x-real and y-imaginary parts, which carry E0's
+    polarization past the mirror (|E|^2 alone does not)."""
+    f = aux['field']
+    return (aux['field_power'].mean() + s.total_weight(0)[0] * 1e-3
+            + s.moments[0, 0, 1] * 1e-3 + (aux['field_power'] ** 2).sum()
+            * 1e-4 + (f.erx + f.eiy).mean())
+
+
+def field_ns_grads(rt, torch, dev, reset_counters, counters, only):
+    """The mirror fold's grad step through simulate_fused (K5 + K6 once
+    each, in their instantiation with the field) against the eager
+    Scene.simulate's at N_MAIN rays: the gradients in the mirror's c1 and
+    in a complex E0 of ``field_ns_loss`` -> dict; raises on a breach
+    (FIELD_NS_GRAD_RTOL)."""
+    sc = field_ns_scene(rt, 'fold')
+    params = sc.init_params(dev)
+    radius, z, _, _, _ = field_ns_source('fold')
+    rays = ref_disk(rt, N_MAIN, radius, z, dev)
+    res = {}
+    for sim in ('simulate_fused', 'simulate'):
+        p = {k: dict(v) for k, v in params.items()}
+        p['mirror']['c'] = params['mirror']['c'].clone().requires_grad_(True)
+        re = torch.tensor([[0.6, 0.8 * math.sqrt(0.5), 0.0]], device=dev,
+                          requires_grad=True)
+        im = torch.tensor([[0.0, 0.8 * math.sqrt(0.5), 0.0]], device=dev,
+                          requires_grad=True)
+        reset_counters()
+        _, s, aux = getattr(sc, sim)(p, rays, track_field=True,
+                                     E0=torch.complex(re, im))
+        loss = field_ns_loss(s, aux)
+        g = torch.autograd.grad(loss, [p['mirror']['c'], re, im])
+        torch.cuda.synchronize()
+        res[sim] = dict(loss=float(loss.detach()), launches=counters(),
+                        c1=float(g[0]), E0=[float(x) for x in
+                                            torch.cat([g[1], g[2]]).flatten()])
+    f, e = res['simulate_fused'], res['simulate']
+    check(only(f['launches'], trace_nonseq_fwd=1, trace_nonseq_bwd=1,
+               field=2), f'fold grad step launched {f["launches"]}')
+    check(e['launches']['trace_nonseq_fwd'] == 0
+          and e['launches']['trace_nonseq_bwd'] == 0,
+          f'the eager grad step launched {e["launches"]}')
+    tol = FIELD_NS_GRAD_RTOL
+    check(abs(f['c1'] - e['c1']) <= tol * abs(e['c1']),
+          f'fold c1 gradient {f["c1"]} vs eager {e["c1"]}')
+    scale = max(abs(x) for x in e['E0'])
+    check(all(abs(a - b) <= tol * (abs(b) + 1e-3 * scale)
+              for a, b in zip(f['E0'], e['E0'])),
+          f'fold E0 gradient {f["E0"]} vs eager {e["E0"]}')
+    return res
+
+
+def field_ns_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 19: the polarized field in the non-sequential scene, K5 and
+    K6 in their instantiation with the field: each against its plain
+    version at N_MAIN rays on FIELD_NS_CASES and the light guide, whose
+    rays K6 reverses in segments (K6's replay bit for bit); the counted
+    simulate_fused paths against the JAX package's means and the Brewster
+    analytics; the mirror fold's grad step fused against eager; times, bounds (the field's work counted on the winners) and
+    blocks per SM on the naive scene and the mirror fold.  17d holds the
+    SASS of every earlier kernel."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    t0 = time.perf_counter()
+
+    # 19a. each kernel against its plain version
+    kern = {}
+    for name in FIELD_NS_CASES + FIELD_NS_SEGMENT_CASES:
+        t1 = time.perf_counter()
+        kern[name] = field_ns_kernels_vs_plain(rt, torch, name, N_MAIN, dev,
+                                               FIELD_NS_SEED + 11)
+        kern[name]['seconds'] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    emit('field_ns_kernels_vs_plain', n=N_MAIN, **kern)
+
+    # 19b. the counted paths and their anchors, the grad step
+    paths = field_ns_paths(rt, torch, dev, reset_counters, counters, only)
+    grads = field_ns_grads(rt, torch, dev, reset_counters, counters, only)
+    emit('field_ns_main', paths=paths, grads=grads)
+
+    # 19c. times at N_MAIN against the plain versions, bounds and blocks
+    timing, bounds, occ = {}, {}, {}
+    for name in ('naive', 'fold'):
+        sc, params, r, E0, key = field_ns_case(rt, torch, name, N_MAIN, dev,
+                                               FIELD_NS_SEED + 7)
+        meta, cfg, flat, kinds, maps, field, coat = field_ns_inputs(
+            rt, torch, sc, params, r, E0, dev)
+        nb = sc.n_bounces
+        g_rays, g_mom, g_grid = random_cotangents(torch, r.n, cfg, dev,
+                                                  SEED + 6)
+        g_field = [g_rays[0]] * 6
+        kfn = (lambda: fn.trace_nonseq_fwd_cuda(
+            flat, kinds, r, cfg, nb, maps, True, fresnel=True, coat=coat,
+            field=field))
+        pfn = (lambda: fn.trace_nonseq_fused_plain(
+            flat, r, cfg, meta, nb, maps, field=field))
+        bk = (lambda: fn.trace_nonseq_bwd_cuda(
+            flat, kinds, r, cfg, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
+            ext=True, fresnel=True, coat=coat, field=field, g_field=g_field))
+        bp = (lambda: fn.trace_nonseq_bwd_plain(
+            flat, r, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
+            field=field, g_field=g_field))
+        scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
+        replayed = segment_replays(lives, fn.K6_FIELD_CHECKPOINTS)
+        k5_ops, k6_ops = nonseq_ops(meta, scans, wins, replayed)
+        # a winner's work under the field: section 18's count of a row
+        field_ops = sum(w * field_coat_row_ops(m)
+                        for w, m in zip(wins, meta))
+        cols = len(ft.grad_cols((), True, ft.dispersive(meta), True))
+        # K5 reads 9 streams and the launch field and writes 7 and the
+        # final field; K6 reads K5's inputs, the 7 ray and 6 field
+        # cotangents and writes their 13 cotangents and its partials
+        io5 = r.n * (36 + 28 + 48) + table_bytes(meta) + grid_bytes(cfg)
+        io6 = (r.n * (36 + 24 + 52 + 52) + table_bytes(meta)
+               + grid_bytes(cfg) + -(-r.n // 256) * len(meta) * cols * 4)
+        bounds[f'k5_{name}'] = bound(io5, k5_ops + field_ops)
+        bounds[f'k6_{name}'] = bound(io6, k6_ops + 3 * field_ops)
+        timing[f'{name}_work'] = dict(k5_row_scans=scans,
+                                      k5_winners_per_row=wins,
+                                      k6_replayed=replayed)
+        for key_, kf, pf in ((f'k5_{name}', kfn, pfn),
+                             (f'k6_{name}', bk, bp)):
+            k_runs = time_ms(torch, kf, warmup=2, reps=10)
+            p_runs = time_ms(torch, pf, warmup=1, reps=3)
+            timing[key_] = dict(kernel_ms=statistics.median(k_runs),
+                                plain_ms=statistics.median(p_runs),
+                                kernel_runs=k_runs)
+        for lib in ('trace_nonseq_fwd', 'trace_nonseq_bwd'):
+            occ[f'{lib}_{name}'] = ft.blocks_per_sm(
+                lib, len(meta), cfg, True, nb, ext=True, field=True)
+        torch.cuda.empty_cache()
+    emit('field_ns_timing', **timing)
+    emit('field_ns_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('field_ns_occupancy', blocks_per_sm=occ)
+    emit('field_ns_seconds', seconds=time.perf_counter() - t0)
+    return dict(kernels=kern, paths=paths, grads=grads, timing=timing,
+                bounds=bounds)
+
+
 # The SASS of every kernel of the four trace libraries built before the
-# field (58: K1's 9, K2's 20, K5's 19, K6's 10), which this slice must not
-# change: sha256 (first 16 hex digits) of each kernel's normalized `cuobjdump
-# -sass` listing (sass_digests), keyed by the first 12 hex digits of the
-# sha256 of its mangled name (the anonymous namespace's hash stripped), read
-# from the parent commit's build on an NVIDIA H100 80GB HBM3 ->
+# non-sequential field (61: K1's 10, K2's 22, K5's 19, K6's 10; the 58
+# built before the field and K1's and K2's instantiations with it), which
+# this slice must not change: sha256 (first 16 hex digits) of each
+# kernel's normalized `cuobjdump -sass` listing (sass_digests), keyed by
+# the first 12 hex digits of the sha256 of its mangled name (the anonymous
+# namespace's hash stripped), read from the parent commit's build on an
+# NVIDIA H100 80GB HBM3 ->
 # {library: {name key: digest}}.
 SASS_ALL = {'trace_nonseq_bwd': {'03df43c7e5e9': '92e972321c93b1b8',
                                  '08244a1bf7e2': '19e6d69b132f9fb7',
@@ -7993,7 +8556,10 @@ SASS_ALL = {'trace_nonseq_bwd': {'03df43c7e5e9': '92e972321c93b1b8',
                               'e10faef7dd52': 'af344ce0f36349b7',
                               'ea678026567c': '32d8c1114a5dcce5',
                               'fcfcf7083be2': '406ad68e10ffb3a5',
-                              'fd94565fe71d': 'e856cfef69d710c6'},
+                              'fd94565fe71d': 'e856cfef69d710c6',
+                              # K2's instantiation with the field
+                              '173ffbedaf5a': '980d42d766422808',
+                              '4b54f461854d': '2085e7ed4a410027'},
             'trace_seq_fwd': {'49ccce64c5da': '7908e35cdb5af917',
                               '58f790fd9dac': 'e2a054b1252e678c',
                               '6a7fef6cd344': 'd744510beb7a1926',
@@ -8002,7 +8568,9 @@ SASS_ALL = {'trace_nonseq_bwd': {'03df43c7e5e9': '92e972321c93b1b8',
                               'ae165d077666': '3518c58d21cd8015',
                               'bc46f50c42b3': '1c13bcdf573d1199',
                               'dfddf45ad8d0': 'abea182f20a732c1',
-                              'fbe38a674d17': '4dcffb06ba91d2c7'}}
+                              'fbe38a674d17': '4dcffb06ba91d2c7',
+                              # K1's instantiation with the field
+                              'c911369e8df6': '1a3167dccfe6dd53'}}
 
 
 def sass_keyed(path):
@@ -8996,6 +9564,9 @@ def main():
     field_coat = field_coat_phases(rt, torch, dev, reset_counters, counters,
                                    only)
 
+    # 19. the polarized field in the non-sequential scene
+    field_ns = field_ns_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -9658,6 +10229,26 @@ def main():
             name, 'trace_seq_fwd.cu' if 'fwd' in name else 'trace_seq_bwd.cu',
             line, launches_, err, fc_t[key]['kernel_ms'],
             fc_t[key]['plain_ms']))
+    # K5's and K6's instantiation with the field (section 19): launches on
+    # the counted grad step of the mirror fold, errors at 1M rays over the
+    # cases (rays and field), times and bounds on the naive scene
+    fn_k, fn_t, fn_b = (field_ns['kernels'], field_ns['timing'],
+                        field_ns['bounds'])
+    fn_l = field_ns['grads']['simulate_fused']['launches']
+    for name, source, line, launches_, err, key in (
+            ('trace_nonseq_fwd_field', 'trace_nonseq_fwd.cu', 1029,
+             fn_l['trace_nonseq_fwd'],
+             max(max(c['max_abs_err'], c['field_max_abs_err'])
+                 for c in fn_k.values()), 'k5_naive'),
+            ('trace_nonseq_bwd_field', 'trace_nonseq_bwd.cu', 2157,
+             fn_l['trace_nonseq_bwd'],
+             max(max(c['bwd']['max_abs_err'],
+                     c['bwd']['field']['max_abs_err'])
+                 for c in fn_k.values()), 'k6_naive')):
+        bounds[name] = fn_b[key]
+        summary['kernels'].append(entry(
+            name, source, line, launches_, err, fn_t[key]['kernel_ms'],
+            fn_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

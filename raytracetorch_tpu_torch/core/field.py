@@ -9,7 +9,8 @@ around the outgoing direction, so |E|^2 is the polarization-resolved power
 fraction.  ``trace_sequential(track_field=True, E0=...)`` carries it
 (core/trace.py): the sensor moments and grids are weighted by
 ``intensity * |E|^2``, and ``aux['field']`` / ``aux['field_power']`` hold
-the final state.  The fused kernels K1 and K2 run the same functions
+the final state; ``trace_nonsequential`` carries it through the bounce
+loop likewise.  The fused kernels K1, K2, K5 and K6 run the same functions
 (csrc/field.cuh).
 
 On the Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W) the branch power lives
@@ -19,8 +20,7 @@ state alone.  A coated interface takes its thin-film stack's complex
 amplitudes (utils/coatings.py::coating_amplitudes; a coated SNELL row's
 transmission is not renormalized, so |E|^2 carries the coating's T), a
 metal mirror its metal's (metal_reflection_amplitudes), renormalized as its
-polarized R weighs the intensity.  The non-sequential trace refuses the
-field (``TODO_FIELD``).
+polarized R weighs the intensity.
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ from ..geom import vec3 as v3
 from ..utils.birefringence import birefringence
 from ..utils.coatings import coating_amplitudes, metal_reflection_amplitudes
 from .static_dispatch import _stack_lam, in_ray_order, metal_nk, stack_columns
-
-# ROADMAP.md item that brings the rest of the polarized field
-TODO_FIELD = ('ROADMAP Queue 1 position 3b (the field in the non-sequential '
-              'trace)')
 
 # the kinds whose transport takes the Fresnel amplitudes
 FIELD_FRESNEL_KINDS = (PhysKind.SNELL, PhysKind.FRESNEL, PhysKind.FRESNEL_W,

@@ -35,9 +35,11 @@ core/field.py): each row's physics sees the incoming field (the polarized
 Fresnel reflectance), its sensor weight is ``intensity * |E|^2``, and the
 field is transported after the row where it is active (through coated
 interfaces and metal mirrors with their amplitudes); ``aux['field']`` and
-``aux['field_power']`` hold the final state.  The non-sequential loop
-refuses the field (core/field.py::TODO_FIELD); rows of the kinds the port
-lacks (GRIN, scatter) raise through ``unsupported``.  A solid's faces
+``aux['field_power']`` hold the final state.  ``trace_nonsequential``
+carries it the same way: each row's physics sees the field at the bounce's
+start, the winner's sensor record weighs by ``intensity * |E|^2`` and the
+winner transports the field.  Rows of the kinds the port lacks (GRIN,
+scatter) raise through ``unsupported``.  A solid's faces
 (HALFSPACES) read their row's half-space columns in both loops, a flat
 row's mask as float 0/1.
 
@@ -69,7 +71,7 @@ from ..geom import vec3 as v3
 from ..rays.draws import nonseq_draws, sequential_uniforms, stream_index
 from ..elements.aperture import call_fuzzy
 from ..rays.ray import Rays
-from .field import TODO_FIELD, FieldState, transport_field
+from .field import FieldState, transport_field
 from .intersect import intersect, normal_world
 from .sensor import SensorConfig, SensorState
 from .static_dispatch import apply_physics_one, medium_after, unsupported
@@ -227,13 +229,6 @@ def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
     return (rays, sensors, field) if traced else (rays, sensors)
 
 
-def _refuse_field(track_field=False, E0=None):
-    if track_field or E0 is not None:
-        raise NotImplementedError(
-            f'track_field and E0 in the non-sequential trace are '
-            f'{TODO_FIELD}')
-
-
 def trace_sequential(table, rays: Rays, cfg: SensorConfig = SensorConfig(),
                      static_meta=None, grids=None, record_paths=False,
                      record_hits=False, track_opl=False, track_field=False,
@@ -289,8 +284,9 @@ def nearest_hit(table, pos, direction, static_meta):
 
 def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
                 static_meta, plain=False, grids=None, streams=None,
-                draws=None, bounce=0, fuzzy_fns=None):
-    """One non-sequential bounce -> ``(rays, sensors, active [N])``.
+                draws=None, bounce=0, fuzzy_fns=None, field=None):
+    """One non-sequential bounce -> ``(rays, sensors, active [N])``, with a
+    ``field`` (a FieldState) ``(rays, sensors, active, field)``.
 
     ``rows`` holds one row per table row (SurfaceTable rows or FlatRows);
     ``grids`` maps each PHASE_GRID row to its phase map; ``draws(bounce,
@@ -305,7 +301,11 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     every winner (a non-refracting one keeps ``n_cur``), so a nearer mirror
     overtaking a refracting candidate leaves no stale medium.
     ``fuzzy_fns`` maps a row to its apodization callable, which multiplies
-    that row's factor before the merge."""
+    that row's factor before the merge.  Under the ``field`` every row's
+    physics sees the field at the bounce's start, the sensor weight (and
+    the recorded hit weight) is ``intensity * |E|^2`` of that field, and
+    the winner's transport (core/field.py::transport_field) is merged like
+    its direction."""
     pos, d = rays.pos_c, rays.dir_c
     best_t = torch.full_like(rays.intensity, BIG)
     new_pos, new_dir = pos, d
@@ -318,6 +318,10 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     track_opl = streams is not None and streams.opl is not None
     n_next = streams.n_cur if track_opl else None
     live = rays.intensity > 0
+    w_in = rays.intensity
+    if field is not None:
+        w_in = w_in * field.power()
+        er_acc, ei_acc = field.r_c, field.i_c
     for k, (row, meta) in enumerate(zip(rows, static_meta)):
         res = intersect(row, pos, d, meta)
         mask = (res['t'] < best_t) & res['valid'] & live
@@ -326,20 +330,27 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
         u = draws(bounce, k) if meta.ph == PhysKind.FRESNEL else None
         dir_k, imod_k = apply_physics_one(meta, row, res['hit_s'], d, n_w,
                                           rays.wavelength,
-                                          (grids or {}).get(k), plain, u)
+                                          (grids or {}).get(k), plain, u,
+                                          field)
         if k in (fuzzy_fns or {}):
             imod_k = imod_k * call_fuzzy(fuzzy_fns[k], res['hit_s'])
         new_pos = v3.where(mask, v3.fma(pos, res['t'], d), new_pos)
         new_dir = v3.where(mask, dir_k, new_dir)
         imod_all = torch.where(mask, imod_k, imod_all)
         active_any = active_any | mask
+        if field is not None:
+            er_k, ei_k = transport_field(meta, row, d, dir_k, n_w, imod_k,
+                                         field.r_c, field.i_c,
+                                         rays.wavelength)
+            er_acc = v3.where(mask, er_k, er_acc)
+            ei_acc = v3.where(mask, ei_k, ei_acc)
         if track_opl:
-            n_k = medium_after(meta, row, d, n_w, rays.wavelength, u)
+            n_k = medium_after(meta, row, d, n_w, rays.wavelength, u, field)
             n_next = torch.where(mask, n_k if n_k is not None
                                  else streams.n_cur, n_next)
         if meta.sensor:
             sens_hit = v3.where(mask, res['hit_s'], sens_hit)
-            sens_w = torch.where(mask, rays.intensity, sens_w)
+            sens_w = torch.where(mask, w_in, sens_w)
             sens_slot = torch.where(mask, meta.slot, sens_slot)
         else:
             sens_w = torch.where(mask, 0.0, sens_w)
@@ -349,31 +360,37 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     if streams is not None:
         streams.bounce(rays, torch.where(active_any, best_t, 0.0), active_any,
                        n_next, sens_hit, sens_w, sens_slot)
-    return rays, sensors, active_any
+    if field is None:
+        return rays, sensors, active_any
+    return rays, sensors, active_any, field.masked(active_any, er_acc,
+                                                   ei_acc)
 
 
 def bounce_loop(rows, rays: Rays, n_bounces: int, cfg: SensorConfig,
                 static_meta, dtype, plain=False, grids=None, streams=None,
-                draws=None, fuzzy_fns=None):
+                draws=None, fuzzy_fns=None, field=None):
     """Up to ``n_bounces`` bounce steps, stopping after the first bounce in
-    which no ray interacted -> ``(rays, sensors)``.  ``streams`` records
-    every bounce of the full budget: the bounces after the stop as settled
+    which no ray interacted -> ``(rays, sensors)``, with a launch ``field``
+    (a FieldState) ``(rays, sensors, field)``.  ``streams`` records every
+    bounce of the full budget: the bounces after the stop as settled
     (``Streams.settled``).  ``draws`` as for ``bounce_step`` (None: no row
     draws); the stop changes no draw, each being a function of its
     bounce.  ``fuzzy_fns`` as for ``bounce_step``."""
     sensors = SensorState.init(cfg, dtype=dtype, device=rays.px.device)
+    traced = field is not None
     for b in range(n_bounces):
-        rays, sensors, act = bounce_step(rows, rays, cfg, sensors,
-                                         static_meta, plain=plain,
-                                         grids=grids, streams=streams,
-                                         draws=draws, bounce=b,
-                                         fuzzy_fns=fuzzy_fns)
+        res = bounce_step(rows, rays, cfg, sensors, static_meta, plain=plain,
+                          grids=grids, streams=streams, draws=draws, bounce=b,
+                          fuzzy_fns=fuzzy_fns, field=field)
+        rays, sensors, act = res[:3]
+        if traced:
+            field = res[3]
         if not bool(act.any()):
             if streams is not None:
                 for _ in range(b + 1, n_bounces):
                     streams.settled(rays)
             break
-    return rays, sensors
+    return (rays, sensors, field) if traced else (rays, sensors)
 
 
 def trace_nonsequential(table, rays: Rays, n_bounces: int,
@@ -392,13 +409,14 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
     asked for: ``paths [B, N, 3]`` (the position
     after each bounce of the full budget B), ``hits [B, N, 3]``,
     ``hit_weights [B, N]`` and ``hit_slots [B, N]`` int32 (the winning
-    sensor's local hit, the incoming intensity and the slot; a nearer
-    non-sensor winner zeroes the weight), ``opl`` and ``n_final``
-    ``[N]``."""
+    sensor's local hit, the incoming intensity (times |E|^2 under the
+    field) and the slot; a nearer non-sensor winner zeroes the weight),
+    ``opl`` and ``n_final`` ``[N]``.  ``track_field`` and ``E0`` as for
+    ``trace_sequential`` (``bounce_step`` says what the field does in a
+    bounce): ``aux`` then holds ``field`` and ``field_power``."""
     if static_meta is None or len(static_meta) != table.n_surfaces:
         raise ValueError('trace_nonsequential needs one StaticRowMeta per '
                          'row (Scene.static_meta())')
-    _refuse_field(track_field, E0)
     for k, meta in enumerate(static_meta):
         why = unsupported(meta)
         if why:
@@ -408,7 +426,13 @@ def trace_nonsequential(table, rays: Rays, n_bounces: int,
     dtype = torch.promote_types(rays.px.dtype, table.tw.dtype)
     streams = Streams.of(rays, record_paths, record_hits, track_opl,
                          launch=False)
-    rays, sensors = bounce_loop(rows, rays, n_bounces, cfg, static_meta,
-                                dtype, grids=grids, streams=streams,
-                                draws=rng, fuzzy_fns=fuzzy_fns)
-    return rays, sensors, streams.aux() if streams is not None else {}
+    res = bounce_loop(rows, rays, n_bounces, cfg, static_meta, dtype,
+                      grids=grids, streams=streams, draws=rng,
+                      fuzzy_fns=fuzzy_fns,
+                      field=(FieldState.init(rays, E0) if track_field
+                             else None))
+    aux = streams.aux() if streams is not None else {}
+    if track_field:
+        aux['field'] = res[2]
+        aux['field_power'] = res[2].power()
+    return res[0], res[1], aux

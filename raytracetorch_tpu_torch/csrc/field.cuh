@@ -1,5 +1,6 @@
-// The polarized field of the fused sequential kernels K1 (trace_seq_fwd.cu)
-// and K2 (trace_seq_bwd.cu), in their instantiation with the field (kField):
+// The polarized field of the fused kernels K1 (trace_seq_fwd.cu), K2
+// (trace_seq_bwd.cu), K5 (trace_nonseq_fwd.cu) and K6 (trace_nonseq_bwd.cu),
+// in their instantiation with the field (kField):
 // the s/p basis, the flux-normalized Fresnel amplitudes, the polarized
 // reflectance, one row's transport of the complex E-vector, and the
 // hand-written adjoint of each, through coated interfaces and metal mirrors
@@ -9,7 +10,10 @@
 // pallas_trace.py::_kernel_v2 (its field streams :544-567, the transport
 // :1653-1661 and the |E|^2 weights :1632-1633 of _chain_pure) and of
 // _kernel_v2_bwd (the field's inputs and cotangents :1720-1736,
-// :1822-1831), which run raytracetorch_tpu/core/field.py and the polarized
+// :1822-1831), and of _kernel_nonseq (:1035, :1047, :1131-1168) and
+// _kernel_nonseq_bwd(_scan) (:2054-2149, :2182-2406) through
+// _nonseq_bounce_core (:861, :971-975), which run
+// raytracetorch_tpu/core/field.py and the polarized
 // branches of core/static_dispatch.py.  The plain PyTorch versions are the
 // port's core/field.py (sp_basis, fresnel_amplitudes, transport_field) and
 // core/static_dispatch.py::polarized_RT, run by the eager chain.

@@ -11,9 +11,10 @@
 // extended kinds included), the optical path length, the Fresnel kinds
 // with their draws, thin-film coatings and metal mirrors, the diffractive
 // and ideal elements, component-style fuzzy apodization (the TPU kernel's
-// fuzzy_fns, :2292), freeform surfaces and the solids' and cones' bounds
+// fuzzy_fns, :2292), freeform surfaces, the solids' and cones' bounds
 // (HALFSPACES, CONE_NAPPE: decisions without a cotangent, which the replay
-// takes through K5's nonseq_bounce), with every other optional stream off.
+// takes through K5's nonseq_bounce) and the polarized field (g_field),
+// with every other optional stream off.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_bwd_plain
 // (autograd of the eager bounce loop), and the wrapper that launches it is
 // ops/fused_nonseq.py::trace_nonseq_bwd_cuda.
@@ -152,6 +153,30 @@
 // winner's normal and 8 Newton steps (freeform.cuh, through row_backward);
 // its warp slots hold 32 ff columns a row in place of a DOE winner's 8.
 //
+// The polarized field runs in one more instantiation, kField, built on
+// kCoat and not on kDiff, kFuzzy or kFreeform (an overload with one more
+// argument after the side buffer, FieldIn: K5's launch field, the
+// cotangent of its final field, the launch field's cotangent and the
+// replay's final field, each [6][N] planar; the TPU kernels' g_field,
+// :2054-2149 and :2182-2406).  Its replays carry the field through K5's
+// bounce (nonseq_bounce with kField: the winner's field_physics and
+// transport), so they reach K5's field bit for bit, and each checkpoint
+// keeps the field before its bounce after the medium: 15 words
+// (state_words<true, true>), 15 KB a bounce for a block.  So it keeps
+// kFieldCkpt = 6 bounces, not 13: 90 KB, with which two blocks of a table
+// of up to 12 rows (the naive scene's 5 among them) still share an SM's
+// 228 KB (at 7, 105 KB, only up to 4 rows would).  A ray that lives L
+// bounces is reversed in segments of 6, which replays about L^2 / 12
+// bounces in place of L^2 / 26.  Of chip_smoke.py section 19's scenes only
+// the light guide's rays (16 bounces: three segments, 18 replayed) run out
+// (the mirror fold's live 2 bounces, the naive scene's up to 5, the coated
+// singlet's budget is 6).  The reverse sweep runs K2's row adjoint with
+// the field (trace_seq_adjoint.cuh::row_backward with kField, field.cuh,
+// thin_film.cuh::stack_field_ct), the new direction of each bounce's
+// transport being the next bounce's saved direction (the ray's final one
+// after the last bounce), and the final field's cotangent comes back as
+// the launch field's.
+//
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..18
 // bundles and slots x bundles <= 64, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
 // 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
@@ -177,9 +202,14 @@ namespace {
 // min(budget, kCkpt) (checkpoints()): a budget that fits takes no more
 // shared memory than it needs, and leaves the rest to L1.
 constexpr int kCkpt = 13;
+// The instantiation with the field (kField) keeps kFieldCkpt bounces of
+// state_words<true, true>() = 15 words: 90 KB at 6.
+constexpr int kFieldCkpt = 6;
 
+template <bool kField = false>
 __host__ __device__ __forceinline__ int checkpoints(int n_bounces) {
-  return n_bounces < 1 ? 1 : (n_bounces < kCkpt ? n_bounces : kCkpt);
+  constexpr int kMax = kField ? kFieldCkpt : kCkpt;
+  return n_bounces < 1 ? 1 : (n_bounces < kMax ? n_bounces : kMax);
 }
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -191,24 +221,26 @@ constexpr unsigned kFull = 0xffffffffu;
 // kCoat (which has kFresnel) a coated or metal winner reads its row of the
 // side buffer `cside`; with kDiff (which has kCoat) the diffractive kinds;
 // with kFuzzy (which has kDiff) a winner with a program in `fz` weighs by
-// it; with kFreeform (which has kFuzzy) the freeform rows of `ffs`.
+// it; with kFreeform (which has kFuzzy) the freeform rows of `ffs`; with
+// kField (which has kCoat alone) the winner sees and transports the field
+// *fe.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits, float* n_cur = nullptr,
                                       const RayDraw* rd = nullptr,
                                       const float* cside = nullptr,
                                       const int32_t* fz = nullptr,
-                                      const int32_t* ffs = nullptr) {
+                                      const int32_t* ffs = nullptr, Fld* fe = nullptr) {
   RowHit hw = {};
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
-  const int k =
-      nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
-          recs, tab, knd, n_rows, pl, p, d, inten, hw, kw, &degen, &br, nullptr, rd, cside, fz,
-          ffs);
+  const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy,
+                              kFreeform, kField>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kw,
+                                                 &degen, &br, nullptr, rd, cside, fz, ffs, fe);
   if (k >= 0) bits = branch_bits<kFresnel>(hw, degen, br) | kActive;
   if constexpr (kOpl) {
     if (k >= 0)
@@ -273,6 +305,33 @@ struct FfSide {
   const int32_t* pw;
 };
 
+// What only the instantiation with the field takes, [6][n] floats each (Er
+// x, y, z, then Ei x, y, z): K5's launch field `in`, the cotangent of K5's
+// final field `g_out` (null: zero), the launch field's cotangent `c_in`
+// (null: not wanted) and the field the forward replay ends at `r_out`
+// (null: not wanted).
+struct FieldIn {
+  const float* in;
+  const float* g_out;
+  float* c_in;
+  float* r_out;
+};
+
+// A ray's launch field (kField; zero past the ragged edge or without the
+// field).
+template <bool kField>
+__device__ __forceinline__ Fld launch_field(const FieldIn& fi, long long i, long long n,
+                                            bool live) {
+  Fld fe = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  if constexpr (kField) {
+    if (live) {
+      fe.r = {fi.in[i], fi.in[n + i], fi.in[2 * n + i]};
+      fe.i = {fi.in[3 * n + i], fi.in[4 * n + i], fi.in[5 * n + i]};
+    }
+  }
+  return fe;
+}
+
 // The kernel's body, shared by its six instantiations (the kernels below).
 // With kOpl (which has kDispersion) the replays also carry the index of the
 // medium, each checkpoint keeps the one before its bounce as a ninth word
@@ -286,9 +345,13 @@ struct FfSide {
 // columns.  With kFuzzy (which has kDiff) the winners with a program in `fp`
 // (copied into shared memory after the side buffer) weigh by it.  With
 // kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
-// memory after the programs), and 32 ff columns a row.
+// memory after the programs), and 32 ff columns a row.  With kField (which
+// has kCoat alone) the replays carry the field from `fi.in`, each
+// checkpoint keeps the field before its bounce, and the reverse sweep
+// carries its cotangent from `fi.g_out` to `fi.c_in`.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -306,14 +369,17 @@ __device__ __forceinline__ void nonseq_bwd(
     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
     float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo,
     OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr},
-    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr}) {
+    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr},
+    FieldIn fi = {nullptr, nullptr, nullptr, nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
+  static_assert(kCoat || !kField, "the field runs with the coatings");
+  static_assert(!(kField && kDiff), "the field runs without the diffractive kinds");
   constexpr int kCols = grad_cols<kPlates, kExt>();
-  constexpr int kWords = state_words<kOpl>();
+  constexpr int kWords = state_words<kOpl, kField>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
   // a row's columns in the warp slots and the partials: with a dispersive
   // row (kDispersion) its disp columns after the kCols, with kCoat the coat
@@ -379,7 +445,7 @@ __device__ __forceinline__ void nonseq_bwd(
   // last segment of them in the checkpoints, bounce b in slot b % n_ck ----
   // each checkpoint: a bounce's input state p, d, intensity and its winner
   // row << 16 | the winner's bits, [n_ck][kStateWords][kThreads]
-  const int n_ck = checkpoints(n_bounces);
+  const int n_ck = checkpoints<kField>(n_bounces);
   float* const ck = warp_tab + kWarps * n_rows * n_cols + tid;
   constexpr int kSlot = kWords * kThreads;
   V3 p = p0, d = d0;
@@ -387,20 +453,26 @@ __device__ __forceinline__ void nonseq_bwd(
   int n_live = 0;
   float n_cur = 1.0f;  // kOpl: the medium (index 1 at launch)
   RayDraw rd = {key, static_cast<uint32_t>(i), 0u};  // kFresnel: the draws' counter
+  // kField: the ray's field, from its launch
+  Fld fe = launch_field<kField>(fi, i, n, live);
 #pragma unroll 1
   for (int b = 0; b < n_bounces && inten > 0.0f; ++b) {
     const V3 pb = p, db = d;
     const float ib = inten, nb = n_cur;
+    const Fld fb = fe;
     uint32_t bits = 0;
     rd.bounce = static_cast<uint32_t>(b);
-    const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
-        recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs);
+    const int k =
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform, kField>(
+            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs,
+            kField ? &fe : nullptr);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
     put_state<kThreads>(ck + (b % n_ck) * kSlot, pb, db, ib,
                         (static_cast<uint32_t>(k) << 16) | bits);
     if constexpr (kOpl) put_medium<kThreads>(ck + (b % n_ck) * kSlot, nb);
+    if constexpr (kField) put_field<kThreads>(ck + (b % n_ck) * kSlot, fb);
     n_live = b + 1;
   }
   if (live && rpx != nullptr) {
@@ -411,6 +483,13 @@ __device__ __forceinline__ void nonseq_bwd(
     rdy[i] = d.y;
     rdz[i] = d.z;
     rintensity[i] = inten;
+  }
+  if constexpr (kField) {
+    if (live && fi.r_out != nullptr) {
+      const float v[6] = {fe.r.x, fe.r.y, fe.r.z, fe.i.x, fe.i.y, fe.i.z};
+#pragma unroll
+      for (int j = 0; j < 6; ++j) fi.r_out[j * n + i] = v[j];
+    }
   }
 
   // ---- reverse sweep, in segments of n_ck bounces, the last first ----
@@ -426,6 +505,17 @@ __device__ __forceinline__ void nonseq_bwd(
       oc.g_n = oi.g_nfinal ? oi.g_nfinal[i] : 0.0f;
     }
   }
+  // kField: the field's cotangent, and the direction after the bounce (the
+  // ray's final one after the last bounce)
+  FieldCt fc = {{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}},
+                {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}},
+                d};
+  if constexpr (kField) {
+    if (live && fi.g_out != nullptr) {
+      fc.g.r = {fi.g_out[i], fi.g_out[n + i], fi.g_out[2 * n + i]};
+      fc.g.i = {fi.g_out[3 * n + i], fi.g_out[4 * n + i], fi.g_out[5 * n + i]};
+    }
+  }
   const int warp_live = __reduce_max_sync(kFull, n_live);
   const int s_last = warp_live > 0 ? (warp_live - 1) / n_ck * n_ck : -1;
   float* slots = warp_tab + warp * n_rows * n_cols;
@@ -437,21 +527,25 @@ __device__ __forceinline__ void nonseq_bwd(
       d = d0;
       inten = i0;
       n_cur = 1.0f;
+      fe = launch_field<kField>(fi, i, n, live);
       uint32_t bits = 0;
 #pragma unroll 1
       for (int b = 0; b < s; ++b) {
         rd.bounce = static_cast<uint32_t>(b);
-        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
-            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs);
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
+               kField>(recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs,
+                       ffs, kField ? &fe : nullptr);
       }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
         const V3 pb = p, db = d;
         const float ib = inten, nb = n_cur;
+        if constexpr (kField) put_field<kThreads>(ck + j * kSlot, fe);
         rd.bounce = static_cast<uint32_t>(s + j);
-        const int k =
-            bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
-                recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs);
+        const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
+                             kFreeform, kField>(recs, tab, knd, n_rows, pl, p, d, inten, bits,
+                                                &n_cur, &rd, cside, fzs, ffs,
+                                                kField ? &fe : nullptr);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
       }
@@ -466,6 +560,9 @@ __device__ __forceinline__ void nonseq_bwd(
       if (act) get_state<kThreads>(ck + j * kSlot, sp, sd, si, word);
       if constexpr (kOpl) {
         if (act) oc.n_cur = get_medium<kThreads>(ck + j * kSlot);
+      }
+      if constexpr (kField) {
+        if (act) fc.e = get_field<kThreads>(ck + j * kSlot);
       }
       const int k = act ? static_cast<int>(word >> 16) : -1;
       float tg[kCols];
@@ -487,10 +584,12 @@ __device__ __forceinline__ void nonseq_bwd(
               read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
           const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
           row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                       kFreeform>(tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm,
-                                  n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc, &oc,
-                                  cside + k * kCoatSide, tc, tf,
-                                  kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp);
+                       kFreeform, kField>(tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu,
+                                          rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc,
+                                          &oc, cside + k * kCoatSide, tc, tf,
+                                          kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
+                                          kField ? &fc : nullptr);
+          if constexpr (kField) fc.nd = sd;
           dispm = kd.dispm;
           coated = kd.coat & kCoatCountMask;
           doe = kDiff && (kd.ph == DOE || (kFreeform && ffp != nullptr));
@@ -540,6 +639,13 @@ __device__ __forceinline__ void nonseq_bwd(
   }
   if constexpr (kDispersion) {
     if (live && wo.cwl != nullptr) wo.cwl[i] = gwl;
+  }
+  if constexpr (kField) {
+    if (live && fi.c_in != nullptr) {
+      const float v[6] = {fc.g.r.x, fc.g.r.y, fc.g.r.z, fc.g.i.x, fc.g.i.y, fc.g.i.z};
+#pragma unroll
+      for (int j = 0; j < 6; ++j) fi.c_in[j * n + i] = v[j];
+    }
   }
 
   if (partials == nullptr) return;
@@ -645,7 +751,18 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey k
                                                                       key, cs, fp, ff);
 }
 
-// The types of the eight kernels.
+// The kernel with those (but the diffractive kinds, the fuzzy programs and
+// the freeform surfaces) and the field.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
+                        FieldIn fi) {
+  static_assert(kPlates && kExt, "the field runs with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true, true, true, false, false, false, true>(
+      RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs, FuzzyProgs{nullptr, 0}, FfSide{nullptr}, fi);
+}
+
+// The types of the nine kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -657,6 +774,8 @@ using BwdFuzzyKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey
                                 DiffKinds, FuzzyProgs);
 using BwdFreeformKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
                                    DiffKinds, FuzzyProgs, FfSide);
+using BwdFieldKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
+                                FieldIn);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
@@ -666,11 +785,11 @@ using BwdFreeformKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, Philox
 // buffer, the warp slots (disp_cols more columns a row on a table with a
 // dispersive row, with kCoat 8 more, with kDiff 8 more again, with
 // kFreeform 32 in their place), the fuzzy programs' `fuzzy_words`, with
-// kFreeform the rows' exponent pairs, and the checkpoints.  Without the
-// records the mixed-surface Scene's 11 rows and 12 checkpoints fit two
-// blocks an SM.
+// kFreeform the rows' exponent pairs, and the checkpoints (kField: fewer,
+// of 15 words).  Without the records the mixed-surface Scene's 11 rows and
+// 12 checkpoints fit two blocks an SM.
 template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false,
-          bool kFreeform = false>
+          bool kFreeform = false, bool kField = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols,
                     int fuzzy_words = 0) {
   return sizeof(float) *
@@ -681,14 +800,19 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int d
           static_cast<size_t>(kWarps) * n_rows *
               (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
                (kDiff ? (kFreeform ? kMaxFfTerms : kMaxDoeTerms) : 0)) +
-          static_cast<size_t>(checkpoints(n_bounces)) * state_words<kOpl>() * kThreads);
+          static_cast<size_t>(checkpoints<kField>(n_bounces)) * state_words<kOpl, kField>() *
+              kThreads);
 }
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kFreeform)
+  if constexpr (kField)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdFieldKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kFreeform)
     return reinterpret_cast<const void*>(
         static_cast<BwdFreeformKernel>(trace_nonseq_bwd_kernel<true, true>));
   else if constexpr (kFuzzy)
@@ -716,11 +840,13 @@ const void* kernel_fn() {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
-      kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(),
+      kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
+                kField>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -897,6 +1023,54 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
 }
 
+// Launches the instantiation with the field on `stream`: the arguments of
+// rtt_trace_nonseq_bwd_opl up to `g_nfinal`, the Philox key of K5's draws
+// (key0, key1), the n_rows * 20 floats of the side buffer `coat_side`
+// (ops/fused_trace.py::coat_side of a trace with the field), then K5's
+// launch field `field_in`, the cotangent of K5's final field `g_field`
+// (null: zero), the launch field's cotangent `c_field` and the field the
+// forward replay ends at `r_field` (null: not wanted), [6][n] floats each.
+// Its partials hold the 8 coat columns after the disp columns.  Returns a
+// cudaError_t.
+extern "C" int rtt_trace_nonseq_bwd_field(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
+    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
+    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
+    float* cintensity, float* partials, float* rpx, float* rpy, float* rpz, float* rdx,
+    float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
+    const float* g_nfinal, uint32_t key0, uint32_t key1, const float* coat_side,
+    const float* field_in, const float* g_field, float* c_field, float* r_field, int n_bounces,
+    long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (coat_side == nullptr || field_in == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
+  const size_t smem = shared_bytes<true, true, true, true, false, false, true>(
+      n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
+  const cudaError_t e =
+      prepare<true, true, true, true, true, true, false, false, false, true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trace_nonseq_bwd_kernel<true, true>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+          gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy,
+          rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
+          GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces, n,
+          wo, OplIn{g_opl, g_nfinal}, PhiloxKey{key0, key1}, CoatSide{coat_side},
+          FieldIn{field_in, g_field, c_field, r_field});
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without
@@ -906,8 +1080,8 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
 // table, 6 the one with the coatings on such a table, 7 the one with the
 // diffractive kinds on such a table, 8 the one with the fuzzy programs (of
 // `fuzzy_words` words) on such a table, 9 the one with the freeform surfaces
-// (and programs of `fuzzy_words` words) on such a table.  Returns a
-// cudaError_t.
+// (and programs of `fuzzy_words` words) on such a table, 10 the one with the
+// field on such a table.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
                                               int* blocks) {
@@ -916,7 +1090,12 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 9) {
+  if (code == 10) {
+    smem = shared_bytes<true, true, true, true, false, false, true>(n_rows, n_slots, n_bundles,
+                                                                   n_bounces, kDispGradCols);
+    e = prepare<true, true, true, true, true, true, false, false, false, true>(smem);
+    fn = kernel_fn<true, true, true, true, true, true, false, false, false, true>();
+  } else if (code == 9) {
     smem = shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                             kDispGradCols, fuzzy_words);
     e = prepare<true, true, true, true, true, true, true, true, true>(smem);
@@ -977,5 +1156,18 @@ extern "C" int rtt_trace_nonseq_bwd_freeform_smem(int n_rows, int n_slots, int n
     return static_cast<int>(cudaErrorInvalidValue);
   *bytes = static_cast<long long>(shared_bytes<true, true, true, true, true, true>(
       n_rows, n_slots, n_bundles, n_bounces, disp ? kDispGradCols : 0, fuzzy_words));
+  return 0;
+}
+
+// The dynamic shared memory that a launch of the instantiation with the
+// field takes, into *bytes: `disp` whether the table has a dispersive row.
+// The host's limit (ops/fused_nonseq.py::field_k6_shared_bytes) is held to
+// it.  Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_bwd_field_smem(int n_rows, int n_slots, int n_bundles,
+                                               int n_bounces, int disp, long long* bytes) {
+  if (n_rows <= 0 || n_rows > 64 || n_bounces < 0 || bytes == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *bytes = static_cast<long long>(shared_bytes<true, true, true, true, false, false, true>(
+      n_rows, n_slots, n_bundles, n_bounces, disp ? kDispGradCols : 0));
   return 0;
 }

@@ -15,7 +15,8 @@
 // intersect :879 and normal_world :942); a convex solid's HALFSPACES bound
 // (the TPU kernel's scalar plane reads, :821, :1249) and a single cone's
 // CONE_NAPPE bound run in the extended kinds' instantiation and every one
-// built on it: no scatter draws, field or GRIN rows.
+// built on it, and the polarized field (one more): no scatter draws or GRIN
+// rows.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -137,10 +138,28 @@
 // (freeform.cuh, in nonseq_bounce), as _nonseq_bounce_core's intersect
 // (:879) and normal_world (:942) do.
 //
+// The polarized field (track_field; the TPU kernel's field refs :1035 and
+// :1047, _nonseq_bounce_core's power_in :861 and transport :971-975) runs
+// in one more instantiation, kField, of the streams' body (an overload with
+// one more argument after the side buffer: FieldIO, the launch field and
+// the final field, [6][N] planar), built on kCoat and not on kDiff, kFuzzy
+// or kFreeform (the wrapper refuses those kinds under the field), so every
+// other instantiation keeps its code.  Each thread carries its ray's six
+// field floats through the bounces: the winner's physics sees the field at
+// the bounce's start (the Fresnel kinds, bare or coated, draw and weigh
+// with its polarized reflectance, a metal mirror weighs by its polarized
+// R: trace_seq_common.cuh::field_physics), the winner transports it
+// (field.cuh::field_transport, inside nonseq_bounce, so K6's replay reaches
+// the same field), and a sensor winner records w = I |E|^2 of the field at
+// the bounce's start (the TPU kernel's weights :1131-1168; its count only
+// where w > 0).  It reads and writes 48 B a ray more than the coatings'
+// instantiation.
+//
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -200,6 +219,13 @@ struct FuzzyProgs {
 // (freeform.cuh's layout).
 struct FfSide {
   const int32_t* pw;
+};
+
+// The field (kField): the launch field `in` and the final field `out`,
+// [6][n] floats each (Er x, y, z, then Ei x, y, z).
+struct FieldIO {
+  const float* in;
+  float* out;
 };
 
 template <int kMomBucket, bool kPlates, bool kExt>
@@ -342,9 +368,12 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // kinds and the ELLIPSE bound; with kFuzzy (which has kDiff) the winners
 // with a program in `fp` (copied into shared memory after the side buffer)
 // weigh by it; with kFreeform (which has kFuzzy) the freeform rows of `ff`
-// (copied into shared memory after the programs) are freeform surfaces.
+// (copied into shared memory after the programs) are freeform surfaces;
+// with kField (which has kCoat alone) each ray carries its field from
+// `fio.in` (the winner's field_physics and transport, the |E|^2 weights) to
+// `fio.out`.
 template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false,
-          bool kFuzzy = false, bool kFreeform = false>
+          bool kFuzzy = false, bool kFreeform = false, bool kField = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -357,11 +386,13 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so,
     PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0},
-    FfSide ff = {nullptr}) {
+    FfSide ff = {nullptr}, FieldIO fio = {nullptr, nullptr}) {
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
+  static_assert(kCoat || !kField, "the field runs with the coatings");
+  static_assert(!(kField && kDiff), "the field runs without the diffractive kinds");
   constexpr bool kPlates = true, kExt = true;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -416,6 +447,14 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   const bool counted = rid >= 0 && rid < n_bundles;
   // the streams: the path length, the medium (index 1 at launch)
   float opl = 0.0f, n_cur = 1.0f;
+  // kField: the ray's field (zero past the ragged edge)
+  Fld fe = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  if constexpr (kField) {
+    if (live) {
+      fe.r = {fio.in[i], fio.in[n + i], fio.in[2 * n + i]};
+      fe.i = {fio.in[3 * n + i], fio.in[4 * n + i], fio.in[5 * n + i]};
+    }
+  }
 
   // The moment sums: bucket 1 keeps its 7 in shared memory, [moment]
   // [thread] (a warp's access is 32 consecutive words, no bank conflict),
@@ -435,16 +474,18 @@ __device__ __forceinline__ void nonseq_fwd_streams(
       b_end = b;
       break;
     }
-    const float w = inten;
+    // kField: the incoming |E|^2 weighs a sensor winner's record
+    float w = inten;
+    if constexpr (kField) w = w * fpower(fe);
     RowHit hw = {};
     RowKinds kd = {};
     PhysBranch br = {};
     SensorRec rec;
     const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
     const int k_win =
-        nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(
-            recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec, &rd, cside, fzs,
-            ffs);
+        nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
+                      kField>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec,
+                              &rd, cside, fzs, ffs, kField ? &fe : nullptr);
     if (k_win < 0) {
       b_end = b;
       break;
@@ -476,7 +517,7 @@ __device__ __forceinline__ void nonseq_fwd_streams(
         a[3 * kStride] += w * x * x;
         a[4 * kStride] += w * y * y;
         a[5 * kStride] += w * x * y;
-        a[6 * kStride] += 1.0f;
+        a[6 * kStride] += kField ? (w > 0.0f ? 1.0f : 0.0f) : 1.0f;
       }
       if (grid != nullptr) {
         int gh = grid_h, gw = grid_w;
@@ -498,6 +539,11 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     if (so.opl != nullptr) {
       so.opl[i] = opl;
       so.n_final[i] = n_cur;
+    }
+    if constexpr (kField) {
+      const float v[6] = {fe.r.x, fe.r.y, fe.r.z, fe.i.x, fe.i.y, fe.i.z};
+#pragma unroll
+      for (int j = 0; j < 6; ++j) fio.out[j * n + i] = v[j];
     }
     // the settled bounces, from the one at which the ray left its loop
     for (int s = b_end; s < n_bounces; ++s) {
@@ -606,6 +652,17 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, Coat
                                                                fp, ff);
 }
 
+// The kernel with the streams, the Fresnel kinds, the coatings and the
+// field.
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
+                        FieldIO fio) {
+  static_assert(kPlates && kExt, "the field runs with the extended kinds");
+  nonseq_fwd_streams<kMomBucket, true, true, false, false, false, true>(
+      RTT_NONSEQ_FWD_ARGS, so, key, cs, FuzzyProgs{nullptr, 0}, FfSide{nullptr}, fio);
+}
+
 // Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
 // one after the other), into 4 n words: the device generator's known-answer
 // check (tests/test_torch_cuda.py, chip_smoke.py).
@@ -618,7 +675,7 @@ __global__ void philox_kernel(const uint32_t* __restrict__ ctr, const uint32_t* 
   for (int w = 0; w < 4; ++w) out[4 * j + w] = c[w];
 }
 
-// The types of the seven kernels.
+// The types of the eight kernels.
 using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey);
@@ -629,15 +686,20 @@ using FwdFuzzyKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, Coa
                                 DiffKinds, FuzzyProgs);
 using FwdFreeformKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
                                    DiffKinds, FuzzyProgs, FfSide);
+using FwdFieldKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide, FieldIO);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kFreeform)
+  if constexpr (kField)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdFieldKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else if constexpr (kFreeform)
     return reinterpret_cast<const void*>(
         static_cast<FwdFreeformKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
   else if constexpr (kFuzzy)
@@ -670,11 +732,13 @@ struct PlateArgs {
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
+          bool kField = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
-      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy, kFreeform>(),
+      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
+                kField>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -715,9 +779,14 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the
 // diffractive kinds, 8 the one with the fuzzy programs, 9 the one with the
-// freeform surfaces) and moment bucket, its shared memory allowed.
+// freeform surfaces, 10 the one with the field) and moment bucket, its
+// shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 10) {
+    *e = prepare<kMomBucket, true, true, true, true, true, false, false, false, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, true, true, false, false, false, true>();
+  }
   if (code == 9) {
     *e = prepare<kMomBucket, true, true, true, true, true, true, true, true>(smem);
     return kernel_fn<kMomBucket, true, true, true, true, true, true, true, true>();
@@ -896,6 +965,54 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
   return fresnel ? go(PhiloxKey{key0, key1}) : go();
 }
 
+// Launches the instantiation with the field on `stream`: the arguments of
+// rtt_trace_nonseq_fwd_streams up to `hit_slot`, the Philox key of the
+// FRESNEL draws (key0, key1), the n_rows * 20 floats of the side buffer
+// `coat_side` (ops/fused_trace.py::coat_side of a trace with the field),
+// the launch field `field_in` and the final field `field_out` ([6][n]
+// floats each: Er x, y, z, then Ei x, y, z).  Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_fwd_field(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
+    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
+    float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, const float* coat_side,
+    const float* field_in, float* field_out, int n_bounces, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (coat_side == nullptr || field_in == nullptr || field_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr) ||
+      (hits == nullptr) != (hit_slot == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, true);
+  const StreamOut so = {opl, n_final, paths, hits, hit_w, hit_slot};
+  const PhiloxKey key = {key0, key1};
+  const CoatSide cs = {coat_side};
+  const FieldIO fio = {field_in, field_out};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto bucket) {
+    constexpr int kB = decltype(bucket)::value;
+    const cudaError_t e =
+        prepare<kB, true, true, true, true, true, false, false, false, true>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    trace_nonseq_fwd_kernel<kB, true, true><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody,
+        odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+        map_desc, wavelength, n_bounces, n, so, key, cs, fio);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (n_slots * n_bundles == 1) return go(std::integral_constant<int, 1>{});
+  return go(std::integral_constant<int, 64>{});
+}
+
 // Philox4x32-10 of n counters (4 n words) under n keys (2 n words) into out
 // (4 n words), on `stream`: the known-answer check of the device generator.
 // Returns a cudaError_t.
@@ -915,15 +1032,15 @@ extern "C" int rtt_philox4x32(const uint32_t* ctr, const uint32_t* key, uint32_t
 // instantiation with the streams, 5 the one with the Fresnel kinds, 6 the
 // one with the coatings, 7 the one with the diffractive kinds, 8 the one
 // with the fuzzy programs (of `fuzzy_words` words), 9 the one with the
-// freeform surfaces (and programs of `fuzzy_words` words).  Returns a
-// cudaError_t.
+// freeform surfaces (and programs of `fuzzy_words` words), 10 the one with
+// the field.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
                                               int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code >= 6,
-                                   code >= 8 ? fuzzy_words : 0, code == 9);
+                                   code == 8 || code == 9 ? fuzzy_words : 0, code == 9);
   cudaError_t e;
   const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
                                             : kernel_of<64>(code, smem, &e);

@@ -955,7 +955,8 @@ __device__ __forceinline__ void asph_normal_backward(const Asph& s, V3 h, V3 g_n
 // the forward did and reverses both (ff_refine_backward,
 // ff_normal_backward); its coefficients' cotangents add into
 // tf[kMaxFfTerms] (a DOE row's into its first kMaxDoeTerms).  With kField
-// (which has kFreeform) `fc` carries the row's field (FieldCt): the
+// (which has kCoat: K2's is built on kFreeform, K6's on kCoat alone) `fc`
+// carries the row's field (FieldCt): the
 // transport's adjoint, the sensor weight w |E|^2 and a weighted Fresnel
 // row's polarized reflectance, and fc->g becomes the cotangent of the
 // incoming field; a JONES row passes the direction's cotangent through.
@@ -978,7 +979,7 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
-  static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
+  static_assert(kCoat || !kField, "the field runs with the coatings");
   if (!(bits & kActive)) {  // where(active, new, old) passes through
     if (kFresnel && kd.ph == REFLECT_W) gi = 0.0f;
     return;

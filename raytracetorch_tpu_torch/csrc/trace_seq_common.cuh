@@ -86,8 +86,9 @@
 //
 // The polarized field (track_field: a complex E-vector per ray, field.cuh)
 // takes one more compile-time flag, kField, set only in one more
-// instantiation of K1 and K2, built on the one with freeform surfaces:
-// every other instantiation holds none of its code.  Under it the Fresnel
+// instantiation of K1 and K2, built on the one with freeform surfaces, and
+// of K5 and K6, built on the one with the coatings (nonseq_bounce,
+// field_winner): every other instantiation holds none of its code.  Under it the Fresnel
 // kinds of bare interfaces draw and weigh with the polarized reflectance of
 // the ray's field (fresnel_physics with kField), a JONES row (a polarizer
 // or a waveplate) passes the ray through, and field_row gathers what a row's
@@ -1280,6 +1281,21 @@ __device__ __forceinline__ void field_physics(const float* r, const RowKinds& kd
         r, kd.ph, kd.sb, kd.map, d, nw, hs, pl, nd, imod, br, kd.dispm, u, kd.coat, side);
 }
 
+// A non-sequential winner's physics and transport under the field (kField,
+// K5's and K6's, built on kCoat): field_physics, then field_transport of the
+// field *e into itself.  Out of line, so that K5 and K6's replay run one
+// compiled body and the replay reaches K5's field bit for bit: inlined, the
+// two kernels contracted the transport's multiply-adds apart (its rays
+// agreed, its field did not).
+template <bool kDispersion>
+__device__ __noinline__ void field_winner(const float* r, const RowKinds& kd, V3 d, V3 nw, V3 hs,
+                                          const Plates& pl, float u, const float* side, V3& nd,
+                                          float& imod, PhysBranch* br, Fld& e) {
+  FieldStack fst;
+  field_physics<kDispersion, false>(r, kd, d, nw, hs, pl, u, e, side, nd, imod, br, fst);
+  e = field_transport(field_row<kDispersion>(r, kd, d, nd, nw, imod, pl.wl, fst), e);
+}
+
 // The index of the medium a ray travels in after an active row
 // (core/static_dispatch.py::medium_after): a SNELL (or FRESNEL_W) row moves
 // it into the transmission-side medium unless total internal reflection
@@ -1359,9 +1375,12 @@ struct SensorRec {
 // its factor by the program's value at its surface-frame hit; with
 // kFreeform (which has kFuzzy) the freeform rows of the side buffer `ffs`
 // ([K][kFfSide]) intersect and take their normals as freeform surfaces.
+// With kField (which has kCoat, and none of kDiff, kFuzzy, kFreeform) the
+// winner's physics sees the ray's field *fe (field_physics) and the winner
+// transports it (field_transport), so that K6's replay reaches K5's field.
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false>
+          bool kFreeform = false, bool kField = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
@@ -1370,13 +1389,14 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
                                              const RayDraw* rd = nullptr,
                                              const float* cside = nullptr,
                                              const int32_t* fz = nullptr,
-                                             const int32_t* ffs = nullptr) {
+                                             const int32_t* ffs = nullptr, Fld* fe = nullptr) {
   static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
   static_assert(kExt || !kFresnel, "the Fresnel kinds read the kinds rows of the flat scan");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
+  static_assert(!kField || (kCoat && !kDiff), "the field runs with the coatings alone");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -1404,7 +1424,13 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   kw = read_row_kinds<kExt, kDispersion, kCoat>(knd + k_win * kKindWidth);
   V3 nd;
   float imod;
-  if constexpr (kFreeform) {
+  if constexpr (kField) {
+    const float u = kw.ph == FRESNEL
+                        ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
+                        : 0.0f;
+    field_winner<kDispersion>(r, kw, d, world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph),
+                              hw.hs, pl, u, cside + k_win * kCoatSide, nd, imod, br, *fe);
+  } else if constexpr (kFreeform) {
     const float u = kw.ph == FRESNEL
                         ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
                         : 0.0f;

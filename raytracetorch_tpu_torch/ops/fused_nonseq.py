@@ -65,6 +65,23 @@ The kernels' notes are in their sources.  In this module:
   of shared memory a block: a freeform table that needs more (about 32
   rows at 13 checkpoints) raises NotImplementedError when it would run
   backward (``check_freeform_shared``), on either device.
+- The polarized field (``track_field``, ``E0``; core/field.py) runs in one
+  more instantiation of K5 and K6, built on the one with the coatings (so
+  it takes the Fresnel kinds, coatings and metal mirrors, the extended
+  kinds, dispersion and the streams, with the side buffer ``coat_side``
+  filled), not on the ones with the diffractive kinds, fuzzy programs or
+  freeform surfaces: under the field a table with such rows raises
+  NotImplementedError on either device (``check_field_kinds``, ROADMAP
+  Queue 1 position 3c), which the eager ``Scene.simulate`` traces.  Its
+  launches count in ``fused_trace.FIELD_LAUNCHES``, not in
+  ``COAT_LAUNCHES``.  The launch field is made in torch
+  (``FieldState.init``, so ``E0``'s cotangent flows there) and enters the
+  kernels as six planar streams; K5 returns the final field's six
+  (``aux['field']``, ``aux['field_power']``) and K6 takes their
+  cotangents and returns the launch field's.  K6 keeps
+  ``K6_FIELD_CHECKPOINTS`` bounces of ``K6_FIELD_STATE_WORDS`` words in
+  shared memory; a table that needs more than ``MAX_SHARED_BYTES`` raises
+  NotImplementedError when it would run backward (``check_field_shared``).
 - K5 and K6 keep each thread's moment sums of at most ``MAX_MOMENT_PAIRS``
   (64) (slot, bundle) pairs (in local memory, the bucket of 64 of
   csrc/trace_nonseq_fwd.cu): a scene with more raises NotImplementedError
@@ -77,25 +94,27 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..core.field import FieldState
 from ..core.sensor import N_MOMENTS, SensorConfig, SensorState
 from ..core.table import FlatRow
 from ..core.trace import Streams, bounce_loop
 from ..rays.draws import NonseqDraws, needs_draws, nonseq_draws
 from . import fused_trace
-from .fused_trace import (COAT_SIDE, COMPS, FF_SIDE, NO_STREAMS,
+from .fused_trace import (COAT_SIDE, COMPS, FF_SIDE, FIELD_KEYS, NO_STREAMS,
                           StreamFlags, THREADS,
                           backward_result, check_cotangents, check_inputs,
                           check_streams, coat_ptr, coat_side,
                           diffractive_kinds, dispersive, dispersive_kinds,
-                          ext_kinds, ext_maps, ff_ptr, ff_side,
-                          flat_inputs, freeform_kinds,
-                          fresnel_kinds, fused_forward, fuzzy_args,
-                          fuzzy_buffer, TraceMeta,
+                          ext_kinds, ext_maps, ff_ptr, ff_side, field_aux,
+                          field_buffer, field_kinds, flat_inputs,
+                          freeform_kinds, fresnel_kinds, fused_forward,
+                          fuzzy_args, fuzzy_buffer, fuzzy_kinds, TraceMeta,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
-                          plate_maps, plate_rows, ptr, saved_inputs, stream,
-                          stream_args, stream_aux, stream_buffers,
-                          stream_cotangents, table_and_map_cotangents, unpack)
+                          plate_maps, plate_rows, ptr, saved_field,
+                          saved_inputs, stream, stream_args, stream_aux,
+                          stream_buffers, stream_cotangents,
+                          table_and_map_cotangents, unpack)
 
 NONSEQ_LAUNCHES = 0       # kernel launches by trace_nonseq_fwd_cuda (K5)
 NONSEQ_BWD_LAUNCHES = 0   # kernel launches by trace_nonseq_bwd_cuda (K6)
@@ -105,6 +124,9 @@ MAX_MOMENT_PAIRS = 64
 # checkpointed bounces (kCkpt) of 9 words (the path length's instantiations)
 MAX_SHARED_BYTES = 227 * 1024
 K6_CHECKPOINTS, K6_STATE_WORDS = 13, 9
+# K6's instantiation with the field: its checkpointed bounces (kFieldCkpt)
+# of 15 words (the medium's and the incoming field's six after the state)
+K6_FIELD_CHECKPOINTS, K6_FIELD_STATE_WORDS = 6, 15
 
 
 def check_moment_pairs(cfg: SensorConfig):
@@ -146,43 +168,97 @@ def check_freeform_shared(static_meta, cfg: SensorConfig, n_bounces):
             f'at {n_bounces} bounces needs {need}')
 
 
+def field_k6_shared_bytes(static_meta, cfg: SensorConfig, n_bounces):
+    """The shared memory of K6's instantiation with the field
+    (csrc/trace_nonseq_bwd.cu::shared_bytes): per row its table, kinds and
+    side buffer and its warp slots of the coatings' columns (``grad_cols``),
+    the moment cotangent and the checkpoints."""
+    k = len(static_meta)
+    cols = len(grad_cols((), True, dispersive(static_meta), True))
+    ck = min(max(n_bounces, 1), K6_FIELD_CHECKPOINTS)
+    return 4 * (k * (160 + 8 + COAT_SIDE)
+                + max(cfg.n_sensors, 1) * cfg.n_bundles * N_MOMENTS
+                + 8 * k * cols + ck * K6_FIELD_STATE_WORDS * THREADS)
+
+
+def check_field_shared(static_meta, cfg: SensorConfig, n_bounces):
+    """Raise NotImplementedError when K6's instantiation with the field
+    would need more than MAX_SHARED_BYTES a block."""
+    need = field_k6_shared_bytes(static_meta, cfg, n_bounces)
+    if need > MAX_SHARED_BYTES:
+        raise NotImplementedError(
+            f'the fused non-sequential backward (K6) with the field takes at '
+            f'most MAX_SHARED_BYTES = {MAX_SHARED_BYTES} bytes of shared '
+            f'memory a block; this table of {len(static_meta)} rows at '
+            f'{n_bounces} bounces needs {need} (ROADMAP Queue 2 I)')
+
+
+def check_field_kinds(static_meta):
+    """Raise NotImplementedError when a trace with the field has a
+    diffractive, fuzzy or freeform row: K5's and K6's instantiation with the
+    field is built on the one with the coatings, and those kinds wait for
+    the collapse of the instantiation chain (ROADMAP Queue 1 position
+    3c)."""
+    what = [name for name, has in (
+        ('diffractive or ideal elements (or an ELLIPSE bound)',
+         diffractive_kinds(static_meta)),
+        ('fuzzy apodization', fuzzy_kinds(static_meta)),
+        ('freeform surfaces', freeform_kinds(static_meta))) if has]
+    if what:
+        raise NotImplementedError(
+            f'the fused non-sequential trace with the field takes no '
+            f'{" or ".join(what)} until ROADMAP Queue 1 position 3c: use '
+            f'Scene.simulate')
+
+
 def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
                        n_bounces, grids=None, track_opl=False,
                        record_paths=False, record_hits=False, generator=None,
-                       fuzzy_fns=None):
+                       fuzzy_fns=None, track_field=False, E0=None):
     """Fused bounce loop within ``n_bounces`` -> ``(rays, SensorState)``,
     differentiable with respect to the table, the 7 ray streams
     px..intensity and the phase maps of ``grids`` ({PHASE_GRID row:
     [H, W] map}) (first order).  With any of ``track_opl``,
-    ``record_paths`` and ``record_hits`` -> ``(rays, SensorState, aux)``
-    (core/trace.py::trace_nonsequential's ``aux``).  A table with FRESNEL
-    rows draws under two Philox seed words drawn once from ``generator``;
-    without it it raises ValueError.  ``fuzzy_fns`` as for
-    ``fused_trace.trace_sequential_fused``.
+    ``record_paths``, ``record_hits`` and ``track_field`` -> ``(rays,
+    SensorState, aux)`` (core/trace.py::trace_nonsequential's ``aux``).  A
+    table with FRESNEL rows draws under two Philox seed words drawn once
+    from ``generator``; without it it raises ValueError.  ``fuzzy_fns`` as
+    for ``fused_trace.trace_sequential_fused``.  ``track_field=True``
+    carries the polarized field from ``E0`` (core/field.py::
+    FieldState.init, made here in torch, so E0 and the launch directions
+    get its cotangent): ``aux`` then holds ``field`` and ``field_power``,
+    and the sensors weigh by |E|^2; a table with diffractive, fuzzy or
+    freeform rows then raises NotImplementedError (``check_field_kinds``).
 
     CPU tensors run the plain versions; CUDA tensors launch K5 and, in
     backward, K6 (or raise: there is no fallback)."""
-    flags = StreamFlags(track_opl, record_paths, record_hits)
+    flags = StreamFlags(track_opl, record_paths, record_hits, track_field)
     check_moment_pairs(cfg)
-    static_meta = TraceMeta(static_meta, fuzzy_fns)
+    static_meta = TraceMeta(static_meta, fuzzy_fns, track_field)
+    if track_field:
+        check_field_kinds(static_meta)
     flat, kinds = flat_inputs(table, rays, cfg, static_meta)
     key = draw_key(static_meta, generator)
     maps = plate_maps(static_meta, grids)
     comps = [getattr(rays, c) for c in COMPS]
-    if needs_grad(flat, rays, maps):
+    field = FieldState.init(rays, E0).streams() if track_field else ()
+    if needs_grad(flat, rays, maps) or any(f.requires_grad for f in field):
         if freeform_kinds(static_meta):
             check_freeform_shared(static_meta, cfg, n_bounces)
+        if track_field:
+            check_field_shared(static_meta, cfg, n_bounces)
         if flags.any or key is not None:
             outs = FusedNonseqStreams.apply(
                 flat, kinds, cfg, static_meta, flags, n_bounces, key,
-                *comps, rays.ray_id, *plate_inputs(rays, maps))
+                *comps, rays.ray_id, *plate_inputs(rays, maps), *field)
             return unpack(outs, rays, cfg, flags, nonseq=True)
         return unpack(FusedNonseq.apply(flat, kinds, cfg, static_meta,
                                         n_bounces, *comps, rays.ray_id,
                                         *plate_inputs(rays, maps)),
                       rays, cfg)
-    return _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps,
-                    flags, key)
+    res = _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps,
+                   flags, key, field or None)
+    return (*res[:2], field_aux(res[2])) if flags.any else res
 
 
 def draw_key(static_meta, generator=None):
@@ -194,18 +270,30 @@ def draw_key(static_meta, generator=None):
 
 
 def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
-             flags=NO_STREAMS, key=None):
+             flags=NO_STREAMS, key=None, field=None):
     if flat.device.type == 'cpu':
         return trace_nonseq_fused_plain(flat, rays, cfg, static_meta,
                                         n_bounces, maps, **flags.stream_kw(),
-                                        key=key)
+                                        key=key, field=field)
     return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
                                  ext_kinds(static_meta), **flags.stream_kw(),
                                  fresnel=fresnel_kinds(static_meta), key=key,
-                                 coat=coat_side(static_meta, flat.device),
-                                 diff=diffractive_kinds(static_meta),
-                                 fuzzy=fuzzy_buffer(static_meta, flat.device),
-                                 ff=ff_side(static_meta, flat.device))
+                                 field=field, **side_buffers(static_meta,
+                                                             flat.device))
+
+
+def side_buffers(static_meta, device):
+    """The K5 and K6 wrappers' side-buffer arguments of a trace: the
+    coatings' side buffer, the diffractive kinds, the fuzzy programs and the
+    freeform rows' pairs; with the field (a ``TraceMeta`` with ``field``,
+    whose instantiation is built on the one with the coatings) the side
+    buffer alone."""
+    if field_kinds(static_meta):
+        return dict(coat=coat_side(static_meta, device))
+    return dict(coat=coat_side(static_meta, device),
+                diff=diffractive_kinds(static_meta),
+                fuzzy=fuzzy_buffer(static_meta, device),
+                ff=ff_side(static_meta, device))
 
 
 class FusedNonseq(torch.autograd.Function):
@@ -250,20 +338,25 @@ class FusedNonseqStreams(torch.autograd.Function):
     after the grid: ``opl`` and ``n_final`` [N], ``paths`` [B, N, 3],
     ``hits`` [B, N, 3], ``hit_weights`` [B, N] and ``hit_slots`` [B, N]
     (int32, no derivative), each when asked for, and with ``key``, the
-    FRESNEL draws' two seed words (None: no row draws).
+    FRESNEL draws' two seed words (None: no row draws).  With
+    ``flags.track_field`` the launch field's six streams follow the plates
+    as inputs and the final field's six (``FIELD_KEYS``) follow the other
+    streams as outputs.
 
     ``apply(flat_table, kinds, cfg, meta, flags, n_bounces, key, px, ...,
-    ray_id, *plates)``; its backward as ``FusedTraceStreams``'s, with K6
-    replaying the draws by their counters; a recording run on a drawing
-    scene raises there."""
+    ray_id, *plates, *field)``; its backward as ``FusedTraceStreams``'s,
+    with K6 replaying the draws by their counters; a recording run on a
+    drawing scene raises there."""
 
     @staticmethod
     def forward(ctx, flat_table, kinds, cfg, meta, flags, n_bounces, key, px,
                 py, pz, dx, dy, dz, intensity, ray_id, *plates):
         ctx.n_bounces = n_bounces
+        n_field = 6 if flags.track_field else 0
         return fused_forward(ctx, _forward, flat_table, kinds, cfg, meta,
                              flags, key, (px, py, pz, dx, dy, dz, intensity),
-                             ray_id, plates, n_bounces)
+                             ray_id, plates[:len(plates) - n_field],
+                             n_bounces, field=plates[len(plates) - n_field:])
 
     @staticmethod
     @once_differentiable
@@ -275,7 +368,12 @@ def _nonseq_backward(ctx, grads, need):
     """``FusedNonseqStreams``'s backward (``FusedNonseq``'s with ``need``
     holding False for the flags) -> the cotangents of its inputs."""
     flat, kinds, rays, maps = saved_inputs(ctx)
+    field = saved_field(ctx)
     g_rays, g_moments, g_grid, g_aux = stream_cotangents(ctx, grads)
+    g_field = [g_aux.get(k) for k in FIELD_KEYS]
+    # the launch field's inputs come last: the plates' need before them
+    need_field = need[len(need) - ctx.n_field:] if field else ()
+    need = need[:len(need) - ctx.n_field]
     need_table, need_rays = need[0], any(need[7:14])
     need_maps, need_wl = any(need[16:]), len(need) > 15 and need[15]
     if ctx.flags.records and ctx.draws is not None:
@@ -287,9 +385,11 @@ def _nonseq_backward(ctx, grads, need):
     if ctx.flags.records:
         fused_trace.RECORD_RECOMPUTES += 1
         res = plain_vjp(
-            lambda f, r, m: _loop(f, r, ctx.cfg, ctx.meta, ctx.n_bounces, m,
-                                  ctx.flags, plain=False),
-            flat, rays, g_rays, g_moments, g_grid, maps, need_wl, g_aux)
+            lambda f, r, m, fld=None: _loop(f, r, ctx.cfg, ctx.meta,
+                                            ctx.n_bounces, m, ctx.flags,
+                                            plain=False, field=fld),
+            flat, rays, g_rays, g_moments, g_grid, maps, need_wl, g_aux,
+            field=field)
     elif flat.device.type == 'cuda':
         res = trace_nonseq_bwd_cuda(
             flat, kinds, rays, ctx.cfg, ctx.n_bounces, g_rays, g_moments,
@@ -298,27 +398,30 @@ def _nonseq_backward(ctx, grads, need):
             disp=dispersive(ctx.meta), need_wavelength=need_wl,
             g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
             opl=ctx.flags.track_opl, fresnel=fresnel_kinds(ctx.meta),
-            key=ctx.draws, coat=coat_side(ctx.meta, flat.device),
-            diff=diffractive_kinds(ctx.meta),
-            fuzzy=fuzzy_buffer(ctx.meta, flat.device),
-            ff=ff_side(ctx.meta, flat.device))
+            key=ctx.draws, field=field, g_field=g_field,
+            **side_buffers(ctx.meta, flat.device))
     else:
         res = trace_nonseq_bwd_plain(
             flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
             g_grid=g_grid, maps=maps, need_wavelength=need_wl,
             g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
-            key=ctx.draws)
-    return backward_result(res, maps, need, 7)
+            key=ctx.draws, field=field, g_field=g_field)
+    if field is None:
+        return backward_result(res, maps, need, 7)
+    return backward_result(res[:-1], maps, need, 7) + tuple(
+        g if n else None for g, n in zip(res[-1], need_field))
 
 
 def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
-          flags=NO_STREAMS, plain=True, key=None, draws=None):
+          flags=NO_STREAMS, plain=True, key=None, draws=None, field=None):
     """The eager bounce loop of core/trace.py over the rows of the flat
     table -> ``(rays, SensorState)``, with ``flags``' streams ``(rays,
     SensorState, aux)``; FRESNEL rows draw Philox under ``key``, or from
     ``draws(bounce, row)`` when given; a ``TraceMeta``'s callables apodize
-    their rows.  ``plain=False`` runs K3's and K4's
-    kernels on CUDA tensors, as the eager ``Scene.simulate`` does."""
+    their rows; ``field`` (six streams, with ``flags.track_field``) is the
+    launch field, and ``aux`` holds the final one's as ``FIELD_KEYS``.
+    ``plain=False`` runs K3's and K4's kernels on CUDA tensors, as the
+    eager ``Scene.simulate`` does."""
     streams = Streams.of(rays, **flags.stream_kw(), launch=False)
     rows = [FlatRow(flat_table[k]) for k in range(len(static_meta))]
     rng = None
@@ -327,34 +430,44 @@ def _loop(flat_table, rays, cfg, static_meta, n_bounces, maps=None,
             raise ValueError('a table with FRESNEL rows needs the Philox key '
                              'of its draws')
         rng = NonseqDraws(rays.n, rays.px.device, key=key, fn=draws)
-    out, sensors = bounce_loop(
+    res = bounce_loop(
         rows, rays, n_bounces, cfg, static_meta, torch.float32, plain=plain,
         grids=dict(zip(plate_rows(static_meta), maps or ())), streams=streams,
-        draws=rng, fuzzy_fns=getattr(static_meta, 'fuzzy', None))
-    return (out, sensors) if streams is None else (out, sensors,
-                                                   streams.aux())
+        draws=rng, fuzzy_fns=getattr(static_meta, 'fuzzy', None),
+        field=FieldState(*field) if flags.track_field else None)
+    if not flags.any:
+        return res
+    aux = streams.aux() if streams is not None else {}
+    if flags.track_field:
+        aux.update(zip(FIELD_KEYS, res[2].streams()))
+    return res[0], res[1], aux
 
 
 def trace_nonseq_fused_plain(flat_table, rays, cfg: SensorConfig,
                              static_meta, n_bounces, maps=None,
                              track_opl=False, record_paths=False,
-                             record_hits=False, key=None, draws=None):
+                             record_hits=False, key=None, draws=None,
+                             field=None):
     """K5's function in plain torch: the eager bounce loop over the rows of
     the flat table the kernel reads, with the phase maps ``maps`` of its
     PHASE_GRID rows (in row order) and the FRESNEL draws' Philox ``key`` ->
     ``(rays, SensorState)``, with any stream ``(rays, SensorState, aux)``.
     ``draws(bounce, row) -> [N]`` replaces the Philox draws (the tests feed
     the JAX package's; K5 itself draws by counter only).  A ``TraceMeta``
-    ``static_meta`` applies its fuzzy callables themselves."""
+    ``static_meta`` applies its fuzzy callables themselves.  ``field``, the
+    launch field's six streams (None: no field), traces the field: ``aux``
+    then holds the final field's six as ``FIELD_KEYS``."""
     return _loop(flat_table, rays, cfg, static_meta, n_bounces, maps,
-                 StreamFlags(track_opl, record_paths, record_hits), key=key,
-                 draws=draws)
+                 StreamFlags(track_opl, record_paths, record_hits,
+                             field is not None), key=key, draws=draws,
+                 field=field)
 
 
 def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
                            n_bounces, g_rays, g_moments, g_grid=None,
                            maps=None, need_wavelength=False, g_opl=None,
-                           g_nfinal=None, key=None):
+                           g_nfinal=None, key=None, field=None,
+                           g_field=None, draws=None):
     """K6's function in plain torch: re-run ``trace_nonseq_fused_plain``
     under grad and take ``torch.autograd.grad``.
 
@@ -365,23 +478,29 @@ def trace_nonseq_bwd_plain(flat_table, rays, cfg: SensorConfig, static_meta,
     Returns ``(g_flat [K, 160], 7 input-ray cotangents)``, with phase maps
     their cotangents third, and with ``need_wavelength`` the wavelength's
     cotangent fourth (the maps' then ``()`` without maps).  ``key``: the
-    forward's Philox key.  A ``TraceMeta`` ``static_meta`` applies its fuzzy
-    callables themselves."""
+    forward's Philox key (``draws`` as for ``trace_nonseq_fused_plain``).
+    A ``TraceMeta`` ``static_meta`` applies its fuzzy callables themselves.
+    With ``field``, the launch field's six streams,
+    ``g_field`` holds the final field's six cotangents (each None for zero),
+    and the launch field's six cotangents come last."""
     g_aux = {k: g for k, g in (('opl', g_opl), ('n_final', g_nfinal))
              if g is not None}
-    flags = StreamFlags(bool(g_aux), False, False)
+    flags = StreamFlags(bool(g_aux), False, False, field is not None)
+    if field is not None:
+        g_aux.update(zip(FIELD_KEYS, g_field or (None,) * 6))
     return plain_vjp(
-        lambda flat, r, m: _loop(flat, r, cfg, static_meta, n_bounces, m,
-                                 flags, key=key),
+        lambda flat, r, m, fld=None: _loop(flat, r, cfg, static_meta,
+                                           n_bounces, m, flags, key=key,
+                                           draws=draws, field=fld),
         flat_table, rays, g_rays, g_moments, g_grid, maps, need_wavelength,
-        g_aux)
+        g_aux, field=field)
 
 
 def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, maps=None, ext=False, track_opl=False,
                           record_paths=False, record_hits=False,
                           fresnel=False, key=None, coat=None, diff=False,
-                          fuzzy=None, ff=None):
+                          fuzzy=None, ff=None, field=None):
     """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -399,14 +518,22 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     kinds and the streams; ``diff`` (``fused_trace.diffractive_kinds``) the
     one with the diffractive kinds, built on it, which reads ``coat``;
     ``fuzzy`` as for ``fused_trace.trace_seq_fwd_cuda`` (the one with fuzzy
-    programs), and ``ff`` too (the one with freeform surfaces).  More than
+    programs), and ``ff`` too (the one with freeform surfaces).
+    ``field``, the launch field's six [N] streams (None: no field), runs
+    the instantiation with the field, built on the one with the coatings
+    (not on the diffractive kinds, fuzzy programs or freeform surfaces:
+    ``diff``, ``fuzzy`` and ``ff`` must be off), which reads ``coat``
+    (``coat_side`` of a ``TraceMeta`` with ``field`` gives it); ``aux`` then
+    holds the final field's six streams as ``FIELD_KEYS``.  More than
     MAX_MOMENT_PAIRS slots x bundles raise NotImplementedError."""
     global NONSEQ_LAUNCHES
-    flags = StreamFlags(track_opl, record_paths, record_hits)
+    flags = StreamFlags(track_opl, record_paths, record_hits,
+                        field is not None)
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
+    _check_field_args(field, coat, diff, fuzzy, ff)
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
@@ -418,6 +545,8 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                            dtype=torch.float32, device=device)
     grid = new_grid(cfg, device)
     bufs = stream_buffers(flags, n_bounces, n, device, nonseq=True)
+    f_in = field_buffer(field, n, device) if field is not None else None
+    f_out = torch.empty_like(f_in) if field is not None else None
     if n > 0:
         args = (flat_table.data_ptr(), kinds.data_ptr(), k,
                 *(getattr(rays, c).data_ptr() for c in COMPS),
@@ -426,7 +555,12 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if fresnel or flags.any:
+            if field is not None:
+                rc = kernel('rtt_trace_nonseq_fwd_field')(
+                    *args, *stream_args(bufs, nonseq=True), *key_args[:2],
+                    coat.data_ptr(), f_in.data_ptr(), f_out.data_ptr(),
+                    int(n_bounces), n, stream(device))
+            elif fresnel or flags.any:
                 rc = kernel('rtt_trace_nonseq_fwd_streams')(
                     *args, *stream_args(bufs, nonseq=True), *key_args,
                     int(n_bounces), n, stream(device))
@@ -437,25 +571,49 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        if ff is not None:
-            fused_trace.FREEFORM_LAUNCHES += 1
-        elif fuzzy is not None:
-            fused_trace.FUZZY_LAUNCHES += 1
-        elif diff:
-            fused_trace.DIFF_LAUNCHES += 1
-        elif coat is not None:
-            fused_trace.COAT_LAUNCHES += 1
-        elif fresnel:
-            fused_trace.FRESNEL_LAUNCHES += 1
-        elif flags.any:
-            fused_trace.STREAM_LAUNCHES += 1
-        else:
-            fused_trace.EXT_LAUNCHES += int(ext)
+        _count(ext, flags.any, fresnel, coat, diff, fuzzy, ff, field)
     out = rays.replace(**dict(zip(COMPS, outs)))
     sensors = SensorState(moments=partials.sum(dim=0), grid=grid)
     if flags.any:
-        return out, sensors, stream_aux(bufs)
+        aux = stream_aux(bufs)
+        if field is not None:
+            aux.update(zip(FIELD_KEYS, f_out if n > 0 else f_in))
+        return out, sensors, aux
     return out, sensors
+
+
+def _count(ext, streams, fresnel, coat, diff, fuzzy, ff, field):
+    """Count a K5 or K6 launch in its instantiation's counter."""
+    if field is not None:
+        fused_trace.FIELD_LAUNCHES += 1
+    elif ff is not None:
+        fused_trace.FREEFORM_LAUNCHES += 1
+    elif fuzzy is not None:
+        fused_trace.FUZZY_LAUNCHES += 1
+    elif diff:
+        fused_trace.DIFF_LAUNCHES += 1
+    elif coat is not None:
+        fused_trace.COAT_LAUNCHES += 1
+    elif fresnel:
+        fused_trace.FRESNEL_LAUNCHES += 1
+    elif streams:
+        fused_trace.STREAM_LAUNCHES += 1
+    else:
+        fused_trace.EXT_LAUNCHES += int(ext)
+
+
+def _check_field_args(field, coat, diff, fuzzy, ff):
+    """Raise unless the field's instantiation gets what it reads: the side
+    buffer, and none of the kinds it is not built on."""
+    if field is None:
+        return
+    if coat is None:
+        raise ValueError('the instantiation with the field reads the side '
+                         'buffer: pass coat= of a TraceMeta with field=True')
+    if diff or fuzzy is not None or ff is not None:
+        raise ValueError('the instantiation with the field is built on the '
+                         'one with the coatings: no diff, fuzzy or ff '
+                         '(ROADMAP Queue 1 position 3c)')
 
 
 def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
@@ -464,13 +622,15 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           maps=None, need_maps=True, ext=False, disp=None,
                           need_wavelength=False, g_opl=None, g_nfinal=None,
                           opl=False, fresnel=False, key=None, coat=None,
-                          diff=False, fuzzy=None, ff=None):
+                          diff=False, fuzzy=None, ff=None, field=None,
+                          g_field=None):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
-    wavelength's cotangent next, and with ``replay=True`` last the rays at
-    the state the kernel's forward replay ended at (K5's output, bit for
-    bit).
+    wavelength's cotangent next, with ``field`` the launch field's six
+    cotangents next, and with ``replay=True`` last the rays at the state
+    the kernel's forward replay ended at (K5's output, bit for bit), with
+    ``field`` followed by the replay's final field (six streams).
 
     Inputs as for ``trace_nonseq_fwd_cuda``; ``g_rays`` holds the
     cotangents of the 7 output streams (None for zero), ``g_moments`` that
@@ -490,12 +650,17 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     one with the diffractive kinds, which adds a DOE row's coefficients',
     ``fused_trace.FF_GRAD_COLS``), and ``fuzzy`` too (the one with fuzzy
     programs), and ``ff`` too (the one with freeform surfaces, which adds
-    all 32 ff columns' cotangents, ``fused_trace.FF_TERM_COLS``)."""
+    all 32 ff columns' cotangents, ``fused_trace.FF_TERM_COLS``), and
+    ``field`` too (the one with the field, built on the one with the
+    coatings, as for ``trace_nonseq_fwd_cuda``), with ``g_field`` the final
+    field's six cotangents (each None for zero)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
+    _check_field_args(field, coat, diff, fuzzy, ff)
+    opl = opl or field is not None
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
@@ -519,8 +684,17 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
               if plates is not None and need_maps else None)
     g_wl = (torch.empty(n, dtype=torch.float32, device=device)
             if need_wavelength else None)
+    f_in = field_buffer(field, n, device) if field is not None else None
+    g_fout = c_field = f_end = None
+    if field is not None:
+        if any(g is not None for g in g_field or ()):
+            g_fout = field_buffer(
+                [torch.zeros(n, device=device) if g is None else g
+                 for g in g_field], n, device)
+        c_field = torch.zeros_like(f_in)
+        f_end = torch.empty_like(f_in) if replay else None
     if n > 0 and (need_table or need_rays or replay or g_maps is not None
-                  or need_wavelength):
+                  or need_wavelength or field is not None):
         args = (flat_table.data_ptr(), kinds.data_ptr(), k,
                 *(getattr(rays, c).data_ptr() for c in COMPS),
                 rays.ray_id.data_ptr(), *map(ptr, g_rays),
@@ -529,7 +703,13 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if fresnel or opl:
+            if field is not None:
+                rc = kernel('rtt_trace_nonseq_bwd_field')(
+                    *args, ptr(g_opl), ptr(g_nfinal), *key_args[:2],
+                    coat.data_ptr(), f_in.data_ptr(), ptr(g_fout),
+                    c_field.data_ptr(), ptr(f_end), int(n_bounces), n,
+                    stream(device))
+            elif fresnel or opl:
                 rc = kernel('rtt_trace_nonseq_bwd_opl')(
                     *args, ptr(g_opl), ptr(g_nfinal), *key_args,
                     int(n_bounces), n, stream(device))
@@ -540,24 +720,15 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        if ff is not None:
-            fused_trace.FREEFORM_LAUNCHES += 1
-        elif fuzzy is not None:
-            fused_trace.FUZZY_LAUNCHES += 1
-        elif diff:
-            fused_trace.DIFF_LAUNCHES += 1
-        elif coat is not None:
-            fused_trace.COAT_LAUNCHES += 1
-        elif fresnel:
-            fused_trace.FRESNEL_LAUNCHES += 1
-        elif opl:
-            fused_trace.STREAM_LAUNCHES += 1
-        else:
-            fused_trace.EXT_LAUNCHES += int(ext)
+        _count(ext, opl, fresnel, coat, diff, fuzzy, ff, field)
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                    device, g_wl)
+    if field is not None:
+        res += (tuple(c_field),)
     if replay:
         res += (rays.replace(**dict(zip(COMPS, ends))),)
+        if field is not None:
+            res += (tuple(f_end),)
     return res
 
 

@@ -132,6 +132,8 @@ module:
   row's 8.  ``trace_sequential_v1`` routes a freeform table there too.
 - The polarized field (``track_field``, ``E0``; core/field.py) runs in one
   more instantiation of K1 and K2, built on the one with freeform surfaces
+  (K5's and K6's is built on the one with the coatings:
+  ops/fused_nonseq.py)
   (so it takes every kind and stream that one takes, with its side buffers
   as zeros and -1s where the table has none); its launches count in
   ``FIELD_LAUNCHES``, not in ``FREEFORM_LAUNCHES``.  The launch field is
@@ -204,8 +206,8 @@ FUZZY_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with freeform surfaces
 FREEFORM_LAUNCHES = 0
-# launches of K1 and K2 (each also counted above) in their instantiation with
-# the field
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with the field
 FIELD_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
@@ -313,6 +315,10 @@ _UNIFORMS = [_P, _I, _I, _P, _I, _P, _I, _P]
 _FIELD_FWD = [_P, _P]
 _FIELD_BWD = [_P, _P, _P]
 _KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I, _P, _I, _P]
+# K5's and K6's instantiation with the field: the Philox key and the side
+# buffer (its field buffers as K1's and K2's, K6's then the replay's final
+# field or null)
+_KEY_FIELD = [ctypes.c_uint32, ctypes.c_uint32, _P]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
 # or the path length, 5 the Fresnel kinds, 6 the coatings, 7 the diffractive
@@ -351,6 +357,9 @@ _LIBRARIES = {
         + _PLATES + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
         + _GRID + _PLATES + _STREAMS + [_P] + _KEY + [_I, _L, _P],
+        'rtt_trace_nonseq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I]
+        + _GRID + _PLATES + _STREAMS + [_P] + _KEY_FIELD + _FIELD_FWD
+        + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY,
         'rtt_philox4x32': [_P, _P, _P, _I, _P]}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
@@ -358,8 +367,13 @@ _LIBRARIES = {
         + _PLATES + [_P] + _WAVE + _EXT + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_opl': [_P, _P, _I] + [_P] * 31 + [_I, _I]
         + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY + [_I, _L, _P],
+        'rtt_trace_nonseq_bwd_field': [_P, _P, _I] + [_P] * 31 + [_I, _I]
+        + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY_FIELD + _FIELD_BWD
+        + [_P, _I, _L, _P],
         'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY,
         'rtt_trace_nonseq_bwd_freeform_smem': [_I] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong)],
+        'rtt_trace_nonseq_bwd_field_smem': [_I] * 5 + [
             ctypes.POINTER(ctypes.c_longlong)]}),
 }
 _fns = {}
@@ -614,7 +628,7 @@ class StreamFlags(collections.namedtuple(
         'StreamFlags', ('track_opl', 'record_paths', 'record_hits',
                         'track_field'), defaults=(False,))):
     """Which optional streams a fused trace computes: the deterministic
-    ones and (sequential only) the polarized field."""
+    ones and the polarized field."""
 
     @property
     def any(self):

@@ -44,11 +44,12 @@ irradiance grid (``sensors.grid [S, H, W]``), binned by kernel K3 on the
 card.  A ``PhaseGridPlate``'s ``[H, W]`` map rides the side channel
 ``side_grids(params)`` into every trace, eager and fused.
 
-A ``SequentialScene``'s ``simulate`` and ``simulate_fused`` carry the
-polarized field (``track_field``, ``E0``; core/field.py), through every row
-kind the kernels take (coated interfaces and metal mirrors included), in
-the kernels' instantiation with the field on the card; a non-sequential
-``Scene`` refuses it (ROADMAP Queue 1 position 3b).
+Both scene types' ``simulate`` and ``simulate_fused`` carry the polarized
+field (``track_field``, ``E0``; core/field.py), in the kernels'
+instantiation with the field on the card: a ``SequentialScene`` through
+every row kind the kernels take, a ``Scene`` through the kinds of the
+coatings' instantiation (bare, Fresnel, coated, metal and JONES rows; the
+eager ``simulate`` through every kind).
 
 Ray sources are registered with ``add_bundle`` and drawn with
 ``sample_rays``; the sensor moments keep one column per bundle, so
@@ -59,7 +60,6 @@ from __future__ import annotations
 
 import torch
 
-from ..core.field import TODO_FIELD
 from ..core.sensor import SensorConfig
 from ..core.static_dispatch import StaticRowMeta
 from ..core.table import stack_records
@@ -233,9 +233,9 @@ class Scene:
         goes to core/trace.py::trace_nonsequential: the streams
         ``track_opl``, ``record_paths`` and ``record_hits``; the FRESNEL
         draws' ``generator`` or injected ``draws``; ``fuzzy_fns`` (default
-        ``self.fuzzy_fns()``); the field and ``E0`` raise
-        NotImplementedError naming their ROADMAP item (core/field.py::
-        TODO_FIELD)."""
+        ``self.fuzzy_fns()``); ``track_field`` and ``E0`` (the polarized
+        field from ``E0``, None: x-linear; ``aux['field']``,
+        ``aux['field_power']``, and the sensors weigh by |E|^2)."""
         kw.setdefault('grids', self.side_grids(params))
         kw.setdefault('fuzzy_fns', self.fuzzy_fns())
         return trace_nonsequential(self.build_table(params), rays,
@@ -257,19 +257,19 @@ class Scene:
         kernel draws by counter, so an injected ``draws`` function is
         ``simulate``'s alone.  The scene's fuzzy callables (``fuzzy_fns()``)
         must be component-style and within the kernels' op set
-        (ops/fuzzy_program.py); any other raises NotImplementedError.  The
-        field (``track_field``, ``E0``) raises NotImplementedError naming
-        its ROADMAP item (core/field.py::TODO_FIELD)."""
-        if track_field or E0 is not None:
-            raise NotImplementedError(
-                f'track_field and E0 in the non-sequential trace are '
-                f'{TODO_FIELD}')
+        (ops/fuzzy_program.py); any other raises NotImplementedError.
+        ``track_field`` and ``E0`` as for ``simulate``: K5's and K6's
+        instantiation with the field on the card, whose backward also gives
+        ``E0`` its cotangent; a scene with diffractive, fuzzy or freeform
+        rows raises NotImplementedError under the field
+        (ops/fused_nonseq.py::check_field_kinds)."""
         res = trace_nonseq_fused(
             self.build_table(params), rays, self.sensor_config(n_bundles),
             self.static_meta(), self.n_bounces,
             grids=self.side_grids(params), track_opl=track_opl,
             record_paths=record_paths, record_hits=record_hits,
-            generator=generator, fuzzy_fns=self.fuzzy_fns())
+            generator=generator, fuzzy_fns=self.fuzzy_fns(),
+            track_field=track_field, E0=E0)
         return res if len(res) == 3 else (*res, {})
 
     # -- conversions -------------------------------------------------------

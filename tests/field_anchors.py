@@ -1,11 +1,11 @@
-"""Anchors of chip_smoke.py sections 17 (the polarized field) and 18 (the
-field through coated interfaces and metal mirrors), computed with the JAX
-package on the CPU.
+"""Anchors of chip_smoke.py sections 17 (the polarized field), 18 (the
+field through coated interfaces and metal mirrors) and 19 (the field in the
+non-sequential scene), computed with the JAX package on the CPU.
 
-    JAX_PLATFORMS=cpu python tests/field_anchors.py [--coat]
+    JAX_PLATFORMS=cpu python tests/field_anchors.py [--coat | --nonseq]
 
 prints ``FIELD_REF`` (without ``--coat``) and ``FIELD_COAT_REF`` for
-chip_smoke.py.  ``FIELD_REF``: on the reference's own rays
+chip_smoke.py, or with ``--nonseq`` ``FIELD_NS_REF`` alone.  ``FIELD_REF``: on the reference's own rays
 (PRNGKey(0), which rays/reference_prng.py reproduces) at each example's
 published size and at N_MAIN rays,
 
@@ -40,9 +40,18 @@ where the JAX package's float32 complex square root does not cancel):
   n = 16 (pupil radius 3) on the coated singlet tilted 0.3 rad and on
   stack8.
 
+``FIELD_NS_REF``: for each of chip_smoke.py's FIELD_NS_CASES (its
+``field_ns_scene``, ``field_ns_source``) through the JAX package's
+``Scene.simulate(track_field=True)`` at N_MAIN rays, on the reference's own
+rays of PRNGKey(0) (the Brewster plane: its tilted beam's, sampled by the
+JAX package) and the JAX package's draws, the aluminium mirror in float64:
+the means of |E|^2 ('power') and of intensity * |E|^2 over the rays that
+leave forward ('flux') with its per-ray standard deviation ('flux_std'),
+and the sensor's weight and first moments per ray.
+
 The tests do not run it.  Without ``--coat`` it takes a few minutes
 (example 22's design at N_MAIN rays leads); ``--coat`` alone about 1.5
-minutes.
+minutes; ``--nonseq`` alone about 2 minutes.
 """
 
 import json
@@ -350,8 +359,46 @@ def coat_jones():
     return res
 
 
+def ns_stats(out, sens, aux):
+    """chip_smoke.py::field_ns_stats of a JAX trace."""
+    n = out.px.shape[0]
+    w = np.asarray(out.intensity, np.float64) * np.asarray(
+        aux['field_power'], np.float64)
+    fwd = (np.asarray(out.dir)[:, 2] > 0) & (np.asarray(out.intensity) > 0)
+    w = np.where(fwd, w, 0.0)
+    m = np.asarray(sens.moments, np.float64)[0, 0]
+    return dict(power=float(np.asarray(aux['field_power'],
+                                       np.float64).mean()),
+                flux=float(w.mean()), flux_std=float(w.std(ddof=1)),
+                weight=float(m[0]) / n, mx=float(m[1]) / n,
+                my=float(m[2]) / n)
+
+
+def ns_paths():
+    import chip_smoke as cs
+    res = {}
+    for name in cs.FIELD_NS_CASES:
+        sc = cs.field_ns_scene(jrt, name)
+        radius, z, rot, wl, E0 = cs.field_ns_source(name)
+        rays = (cs.field_ns_bundle(jrt, name).sample(KEY, N_MAIN) if rot
+                else disk(N_MAIN, radius, z, wl or None))
+        p = sc.init_params()
+        if name.startswith('al'):
+            with enable_x64():
+                res[name] = ns_stats(*sc.simulate(x64(p), x64(rays), KEY,
+                                                  track_field=True, E0=E0))
+        else:
+            res[name] = ns_stats(*sc.simulate(p, rays, KEY,
+                                              track_field=True, E0=E0))
+    return res
+
+
 def main():
     t0 = time.time()
+    if '--nonseq' in sys.argv:
+        print('FIELD_NS_REF =', json.dumps(ns_paths(), indent=1))
+        print(f'# {time.time() - t0:.0f} s', file=sys.stderr)
+        return
     if '--coat' not in sys.argv:
         ref = {'ex07': {n: ex07(n) for n in (200_000, N_MAIN)},
                'ex22': {n: ex22(n) for n in (20_000, N_MAIN)},

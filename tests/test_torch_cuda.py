@@ -2234,3 +2234,45 @@ def test_freeform_shared_limit_is_the_kernels(dev):
                              words, ctypes.byref(out)) == 0
                 assert out.value == fused_nonseq.freeform_k6_shared_bytes(
                     meta, cfg, bounces), (len(meta), bundles, bounces)
+
+
+@pytest.mark.cuda
+def test_field_shared_limit_is_the_kernels(dev):
+    """``fused_nonseq.field_k6_shared_bytes``, the host's limit of K6 with
+    the field, equals the shared memory K6's launch takes
+    (``rtt_trace_nonseq_bwd_field_smem``) on section 19's naive scene and
+    coated singlet, and the coated singlet with a dispersive row, at bounce
+    budgets below, at and above its checkpoints and at 1 and 3
+    bundles."""
+    import ctypes
+    query = fused_trace.kernel('rtt_trace_nonseq_bwd_field_smem')
+    disp = trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                           abbe_vd=60.0, translation=[0, 0, 30.0],
+                           name='disp')
+    coated = chip_smoke.field_ns_scene(trt, 'coated')
+    for sc in (chip_smoke.field_ns_scene(trt, 'naive'), coated,
+               trt.Scene(coated.elements + [disp], n_bounces=6)):
+        meta = fused_trace.TraceMeta(sc.static_meta(), None, field=True)
+        for bundles in (1, 3):
+            cfg = sc.sensor_config(bundles)
+            for bounces in (1, 4, fused_nonseq.K6_FIELD_CHECKPOINTS, 25):
+                out = ctypes.c_longlong(0)
+                assert query(len(meta), max(cfg.n_sensors, 1), cfg.n_bundles,
+                             bounces, int(fused_trace.dispersive(meta)),
+                             ctypes.byref(out)) == 0
+                assert out.value == fused_nonseq.field_k6_shared_bytes(
+                    meta, cfg, bounces), (len(meta), bundles, bounces)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', chip_smoke.FIELD_NS_CASES
+                         + chip_smoke.FIELD_NS_SEGMENT_CASES)
+def test_field_nonseq_kernels_match_plain(name, dev):
+    """K5 and K6 with the field against their plain versions on section
+    19's cases (chip_smoke.py's bounds), the light guide's rays living
+    beyond two segments of K6's checkpoints: the rays, moments, field and
+    cotangents, and K6's replay equal to K5 bit for bit, its field too."""
+    res = chip_smoke.field_ns_kernels_vs_plain(trt, torch, name, N, dev, 93)
+    assert res['replay_equal'] and res['replay_field_equal']
+    assert res['bwd']['field']['rays_differ'] <= res['bwd']['field'][
+        'allowed']

@@ -8,8 +8,8 @@ trace's plain version against the JAX package's
 ``simulate(track_field=True)``, on the same rays (and, on FRESNEL rows, the
 same draws: rays/reference_prng.py); the gradients in an analyzer's angle,
 a waveplate's retardance, a lens curvature and E0 against ``jax.grad``;
-and the refusals of what waits for ROADMAP Queue 1 position 3b (the
-non-sequential field).  The plain
+and the refusals that remain (a JONES row without the field; the
+non-sequential field: tests/test_torch_field_nonseq.py).  The plain
 K1 and K2 against the JAX kernels: tests/test_torch_field_kernels.py.
 
 Tolerances, each with its reason: the field's six streams and |E|^2 atol
@@ -556,13 +556,15 @@ def test_gradients(name, fused):
     _close(grads[-1], ge_j, rtol=1e-4, atol=1e-6)
 
 
-# ---- what waits for ROADMAP Queue 1 position 3b ----
+# ---- the refusals that remain ----
 
 def test_refusals():
-    """A non-sequential Scene with the field (eager and fused) and a JONES
-    row without the field raise NotImplementedError, naming position 3b or
-    the missing field; coated and metal rows now trace under the field
-    (tests/test_torch_field_coat.py holds them to the JAX package)."""
+    """A JONES row without the field raises NotImplementedError naming the
+    missing field, sequential or not; coated and metal rows trace under the
+    field (tests/test_torch_field_coat.py holds them to the JAX package),
+    and so does a non-sequential Scene, eager and fused (E0 without
+    ``track_field`` is ignored, as in the JAX package;
+    tests/test_torch_field_nonseq.py holds it to the JAX package)."""
     rays = _disk(16, 1.0, -5.0)[1]
     coated = trt.SequentialScene([trt.SingletLens(
         c1=0.02, c2=-0.02, d=10.0, t=3.0, ior_glass=1.5, fresnel='weighted',
@@ -575,9 +577,9 @@ def test_refusals():
             assert bool(torch.isfinite(aux['field_power']).all())
     ns = trt.Scene([trt.LinearPolarizer(radius=10.0, name='p')])
     for sim in (ns.simulate, ns.simulate_fused):
-        with pytest.raises(NotImplementedError, match='3b'):
-            sim(ns.init_params('cpu'), rays, track_field=True)
-        with pytest.raises(NotImplementedError, match='3b'):
+        aux = sim(ns.init_params('cpu'), rays, track_field=True)[2]
+        assert bool(torch.isfinite(aux['field_power']).all())
+        with pytest.raises(NotImplementedError, match='track_field'):
             sim(ns.init_params('cpu'), rays, E0=[1.0, 0.0, 0.0])
     sq = _plates(trt, _pol(0.0))
     for sim in (sq.simulate, sq.simulate_fused):

@@ -342,13 +342,17 @@ def test_unported_mirror_options_raise(make, match):
 
 
 def test_unported_streams_raise():
+    """The streams this test refused until the field came to the
+    non-sequential trace: ``track_field`` now traces (finite |E|^2 in
+    ``aux``; tests/test_torch_field_nonseq.py holds it to the JAX package)
+    and an ``E0`` without it is ignored, as in the JAX package."""
     scene = _naive(trt)
     p = scene.init_params('cpu')
     rays = trt.CollimatedDisk.make(radius=4.0, translation=[0, 0, -10.0]) \
         .sample(torch.Generator().manual_seed(0), 64, 'cpu')
-    for kw in ({'track_field': True}, {'E0': torch.ones(1, 3)}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            scene.simulate(p, rays, **kw)
+    aux = scene.simulate(p, rays, track_field=True)[2]
+    assert bool(torch.isfinite(aux['field_power']).all())
+    assert 'field' not in scene.simulate(p, rays, E0=torch.ones(1, 3))[2]
 
 
 def test_fuzzy_fns_run():
