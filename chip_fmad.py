@@ -1,5 +1,6 @@
-"""The kernels with freeform surfaces built with and without -fmad=false,
-against their plain versions and the eager trace, on an NVIDIA card.
+"""The kernels with freeform surfaces and with GRIN rods built with and
+without -fmad=false, against their plain versions and the eager trace, on
+an NVIDIA card.
 
 Run from the repository's root on a machine with a CUDA card:
 
@@ -12,6 +13,9 @@ of the first in the same process), and with each build measures:
 - K1 (K5 on the Scene) with freeform surfaces against its plain version on
   chip_smoke.py section 15's five cases at 2,999 and 100,000 rays: the rays
   whose outputs (and example 20's path lengths) differ in any bit;
+- K1 and K5 with GRIN rods against their plain versions on section 20's
+  five cases (the turning-point rod among them) at the same sizes, with the
+  path length: the rays whose outputs or path lengths differ in any bit;
 - example 20's wavefront RMS^2 and its gradient in z1 through simulate_fused
   against the eager trace at 1M rays on four ray sets, the first section
   15b's (chip_smoke.fused_vs_eager): each run's RMS, the gradients' relative
@@ -21,8 +25,9 @@ of the first in the same process), and with each build measures:
 Example 20's prescription is measured once, with the first build, so both
 builds trace one plate.  Prints the card's name and power limit, one JSON
 line per build and last {"ok": ...}; exits 1 unless K1 and K5 built with
--fmad=false equal their plain versions bit for bit and example 20's fused
-and eager gradients then agree within chip_smoke.GRAD_RTOL in norm.
+-fmad=false equal their plain versions bit for bit (with freeform
+surfaces and GRIN rods) and example 20's fused and eager gradients then
+agree within chip_smoke.GRAD_RTOL in norm.
 """
 import json
 import os
@@ -65,6 +70,28 @@ def bitwise(rt, torch, dev, terms):
             if opl:
                 differ |= rk[2]['opl'] != rp[2]['opl']
             out[f'{name}_{n}'] = int(differ.sum())
+    for name in cs.GRIN_SEQ_CASES + cs.GRIN_NS_CASES:
+        for n in BITWISE_RAYS:
+            sc = cs.grin_scene(rt, name)
+            p = sc.init_params(dev)
+            rays = cs.grin_rays(rt, torch, name, n, dev, cs.GRIN_SEED + 11)
+            meta, cfg, flat, kinds, maps, ext = cs.grin_inputs(rt, torch, sc,
+                                                               p)
+            if name in cs.GRIN_NS_CASES:
+                rk = fused_nonseq.trace_nonseq_fwd_cuda(
+                    flat, kinds, rays, cfg, sc.n_bounces, maps, ext,
+                    track_opl=True)
+                rp = fused_nonseq.trace_nonseq_fused_plain(
+                    flat, rays, cfg, meta, sc.n_bounces, maps, track_opl=True)
+            else:
+                rk = fused_trace.trace_seq_fwd_cuda(
+                    flat, kinds, rays, cfg, maps, ext, track_opl=True)
+                rp = fused_trace.trace_sequential_fused_plain(
+                    flat, rays, cfg, meta, maps, track_opl=True)
+            differ = rk[2]['opl'] != rp[2]['opl']
+            for c in fused_trace.COMPS:
+                differ |= getattr(rk[0], c) != getattr(rp[0], c)
+            out[f'grin_{name}_{n}'] = int(differ.sum())
     return out
 
 

@@ -85,7 +85,11 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 - the field in the non-sequential scene (chip_smoke.py section 19): K5 and
   K6 in their instantiation with the field on the naive scene (circular
   E0, its grid) and the mirror fold, and the mirror fold's
-  ``simulate_fused`` and grad step (its curvature and E0).
+  ``simulate_fused`` and grad step (its curvature and E0);
+- GRIN rods (chip_smoke.py section 20): K1 and K2 in their instantiation
+  with GRIN rods on the quarter-pitch rod and the mixed table (with the
+  path length), K5 and K6 on the rod as a Scene, and example 24's design
+  scene's ``simulate_fused`` and grad step (n0 and grin_A) on 1M rays.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -850,6 +854,52 @@ def main():
                                        E0=nf_e0), 'trace_nonseq_fwd_kernel'),
         'field_ns_grad_step_fused_fold': (ns_field_step,
                                           'trace_nonseq_bwd_kernel')})
+    # GRIN rods (section 20)
+    for name in ('quarter', 'mixed', 'ns'):
+        rsc = cs.grin_scene(rt, name)
+        rp = rsc.init_params(dev)
+        rr = cs.grin_rays(rt, torch, name, n, dev, cs.GRIN_SEED + 7)
+        rmeta, rcfg, rflat, rkinds, rmaps, rext = cs.grin_inputs(rt, torch,
+                                                                 rsc, rp)
+        rgm = torch.ones(1, 1, 7, device=dev)
+        if name == 'ns':
+            calls['grin_ns_k5'] = (
+                lambda f=rflat, k=rkinds, r=rr, c=rcfg, m=rmaps, e=rext,
+                nb=rsc.n_bounces: fused_nonseq.trace_nonseq_fwd_cuda(
+                    f, k, r, c, nb, m, e, track_opl=True),
+                'trace_nonseq_fwd_kernel')
+            calls['grin_ns_k6'] = (
+                lambda f=rflat, k=rkinds, r=rr, c=rcfg, m=rmaps, e=rext,
+                nb=rsc.n_bounces, g=rgm: fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, nb, (r.px,) + (None,) * 6, g, maps=m, ext=e,
+                    opl=True, g_opl=r.px),
+                'trace_nonseq_bwd_kernel')
+            continue
+        calls[f'grin_{name}_k1'] = (
+            lambda f=rflat, k=rkinds, r=rr, c=rcfg, m=rmaps, e=rext:
+            fused_trace.trace_seq_fwd_cuda(f, k, r, c, m, e, track_opl=True),
+            'trace_seq_fwd_kernel')
+        calls[f'grin_{name}_k2'] = (
+            lambda f=rflat, k=rkinds, r=rr, c=rcfg, m=rmaps, e=rext, g=rgm:
+            fused_trace.trace_seq_bwd_cuda(f, k, r, c, (r.px,) + (None,) * 6,
+                                           g, maps=m, ext=e, opl=True,
+                                           g_opl=r.px),
+            'trace_seq_bwd')
+    rod_sc = cs.grin_scene(rt, 'design')
+    rod_p = rod_sc.init_params(dev)
+    rod_rays = rt.CollimatedDisk.make(radius=0.8, translation=[0, 0, -3.0]) \
+        .sample(torch.Generator(device=dev).manual_seed(cs.GRIN_SEED), n, dev)
+
+    def rod_step():
+        p = {k: dict(v) for k, v in rod_p.items()}
+        for k in ('n0', 'grin_A'):
+            p['rod'][k] = rod_p['rod'][k].clone().requires_grad_(True)
+        (rod_sc.simulate_fused(p, rod_rays)[1].spot_rms(0)[0] ** 2).backward()
+    calls.update({
+        'grin_simulate_fused_design': (
+            lambda: rod_sc.simulate_fused(rod_p, rod_rays),
+            'trace_seq_fwd_kernel'),
+        'grin_grad_step_fused_design': (rod_step, 'trace_seq_bwd')})
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

@@ -95,7 +95,14 @@ Hopper.  The port covers:
   (JONES), through coated interfaces and metal mirrors (their stacks'
   complex amplitudes), the Stokes analysis and the Jones pupil
   (``jones_pupil``, ``JonesPupil``) of utils/polarization.py, eager and
-  through K1 and K2 (an instantiation of their own).
+  through K1 and K2 (an instantiation of their own), and in the
+  non-sequential scene (``Scene.simulate``, and ``simulate_fused`` through
+  K5 and K6);
+- GRIN rods: ``GrinRod`` (core/grin.py's fixed-step RK4 through a radial
+  and axial index profile), in both scene types, eagerly (the field
+  through the rod included) and through K1, K2, K5 and K6 (an
+  instantiation of their own, csrc/grin.cuh), with gradients in the
+  profile, the thickness and the pose.
 
 ROADMAP.md lists what is still to be ported.
 
@@ -133,6 +140,7 @@ from .elements.mirror import (AsphericMirror, ConicMirror,  # noqa: E402
                               CylindricalMirror, ManginMirror,
                               ParabolicMirror, ParabolicMirrorOffAxis,
                               ParabolicMirrorXZ, SphericalMirror)
+from .elements.grin import GrinRod  # noqa: E402
 from .elements.mla import MicrolensArray  # noqa: E402
 from .elements.polarization import (HalfWaveplate,  # noqa: E402
                                     LinearPolarizer, QuarterWaveplate,

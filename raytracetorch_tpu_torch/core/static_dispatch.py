@@ -23,13 +23,16 @@ reflection, intensity times R) on bare or thin-film coated interfaces
 rows (``meta.ff``, the static exponent pairs), dispersive media (Cauchy
 and Sellmeier, ``dispersive_iors``) and the polarizers' and waveplates'
 JONES, a geometric pass-through whose action is on the tracked field
-(core/field.py), which raises without one.  Under ``track_field`` (a
-``field``, core/field.py::FieldState) the Fresnel kinds, bare or coated,
-take the polarized reflectance and transmittance of the rays' field state
-(``polarized_RT``): FRESNEL's draw compares the same ``u`` with R_pol,
+(core/field.py), which raises without one.  GRIN rows are traced by the
+trace loops themselves (core/grin.py): ``apply_physics_one`` and
+``medium_after`` raise on them, as the JAX package's physics does.  Under
+``track_field`` (a ``field``, core/field.py::FieldState) the Fresnel kinds,
+bare or coated, take the polarized reflectance and transmittance of the
+rays' field state (``polarized_RT``): FRESNEL's draw compares the same
+``u`` with R_pol,
 FRESNEL_W weighs by 1 - R_pol (an absorbing stack's by T_pol) and
 REFLECT_W by R_pol; a metal mirror weighs by its polarized R.  Every other
-kind (SCATTER, GRIN) raises NotImplementedError naming the ROADMAP item that
+kind (SCATTER) raises NotImplementedError naming the ROADMAP item that
 brings it.  ``medium_after`` gives the index of the medium a ray travels in
 after a row, for the optical path length (``track_opl``).
 """
@@ -193,11 +196,14 @@ def unsupported(meta: StaticRowMeta):
     """Why the port cannot trace this row yet (None when it can)."""
     if meta.metal and meta.ph != PhysKind.REFLECT:
         return 'a metal substrate is a REFLECT row\'s'
-    if meta.ph in (PhysKind.SCATTER, PhysKind.GRIN):
+    if meta.ph == PhysKind.SCATTER:
         return f'physics {PhysKind(meta.ph).name} is {TODO_ELEMENTS}'
+    if meta.ph == PhysKind.GRIN and meta.grin_steps < 1:
+        return 'a GRIN row needs its static RK4 step count (grin_steps >= 1)'
     if meta.ph not in (PhysKind.TRANSMIT, PhysKind.BLOCK, PhysKind.REFLECT,
                        PhysKind.SNELL, PhysKind.APERTURE,
-                       PhysKind.PHASE_GRID, PhysKind.JONES) + \
+                       PhysKind.PHASE_GRID, PhysKind.JONES,
+                       PhysKind.GRIN) + \
             FRESNEL_KINDS + DIFFRACTIVE_KINDS:
         return f'physics {PhysKind(meta.ph).name} is {TODO_FEATURES}'
     if meta.ph == PhysKind.DOE and not (
@@ -414,6 +420,10 @@ def medium_after(meta: StaticRowMeta, row, d, n, wavelength=None, u=None,
     why = unsupported(meta)
     if why:
         raise NotImplementedError(why)
+    if meta.ph == PhysKind.GRIN:
+        raise NotImplementedError(
+            'a GRIN rod leaves its ray in the ambient medium ph[0]: the '
+            'traces take it from core/grin.py, not from medium_after')
     if meta.ph not in (PhysKind.SNELL, PhysKind.PHASE_GRID, PhysKind.FRESNEL,
                        PhysKind.FRESNEL_W, PhysKind.DOE):
         return None
@@ -525,6 +535,11 @@ def apply_physics_one(meta: StaticRowMeta, row, hit_local, d, n,
                 'E-field: trace with track_field=True (an unpolarized '
                 'ensemble has no per-ray Jones action)')
         return d, ones
+    if kind == PhysKind.GRIN:
+        raise NotImplementedError(
+            'GRIN rods are a volumetric interaction that the traces handle '
+            'directly (core/grin.py::grin_surface_step, grin_interaction), '
+            'not a surface physics')
     if field is not None and kind in FRESNEL_KINDS:
         return _polarized_fresnel(meta, row, d, n, n_in, n_out, u, field,
                                   wavelength)

@@ -143,6 +143,8 @@ class SurfaceRec:
     jones_bire: Any = None       # static: its crystal ('QUARTZ', 'MGF2',
                                  # 'CALCITE'; utils/birefringence.py), whose
                                  # dn(lam) / dn(lam0) scales it too
+    grin_steps: int = 0          # static: a GRIN row's RK4 step count,
+                                 # on StaticRowMeta
     is_sensor: bool = False
     sensor_slot: int = 0
     is_plane: bool = False       # static: row is a z=0 plane (fast path)

@@ -38,8 +38,15 @@ interfaces and metal mirrors with their amplitudes); ``aux['field']`` and
 ``aux['field_power']`` hold the final state.  ``trace_nonsequential``
 carries it the same way: each row's physics sees the field at the bounce's
 start, the winner's sensor record weighs by ``intensity * |E|^2`` and the
-winner transports the field.  Rows of the kinds the port lacks (GRIN,
-scatter) raise through ``unsupported``.  A solid's faces
+winner transports the field.  A GRIN rod (core/grin.py) is one volumetric
+interaction in both loops: its entry plane's hit runs the whole entry
+coupling, RK4 through the profile and exit coupling, landing the ray at the
+exit face (sequentially the row, non-sequentially the bounce it wins, for
+rays travelling +z in the rod frame), with the in-medium optical path added
+to ``opl``, the ambient index as the medium after it, the exit-face world
+position recorded with weight 0 and, under the field, the field
+parallel-transported along the ray.  Rows of the kinds the port lacks
+(scatter) raise through ``unsupported``.  A solid's faces
 (HALFSPACES) read their row's half-space columns in both loops, a flat
 row's mask as float 0/1.
 
@@ -72,6 +79,7 @@ from ..rays.draws import nonseq_draws, sequential_uniforms, stream_index
 from ..elements.aperture import call_fuzzy
 from ..rays.ray import Rays
 from .field import FieldState, transport_field
+from .grin import grin_interaction, grin_surface_step
 from .intersect import intersect, normal_world
 from .sensor import SensorConfig, SensorState
 from .static_dispatch import apply_physics_one, medium_after, unsupported
@@ -122,14 +130,32 @@ class Streams:
             self.hits.append(v3.to_array(res['hit_s']))
             self.weights.append(torch.where(active, out.intensity, 0.0))
 
-    def bounce(self, out: Rays, best_t, active, n_next, hit, weight, slot):
-        """A non-sequential bounce: opl += n_cur best_t where a row won,
-        then the winner's medium ``n_next``; the position after the bounce;
-        the winning sensor's local hit, its INCOMING intensity and its slot
-        (0, 0 and 0 where no sensor won)."""
+    def grin(self, row, out: Rays, active, t_entry, seg_opl):
+        """A sequential GRIN row: opl += n_cur t + the in-medium path where
+        active, then the ambient index ph[0]; the exit-face position after
+        the row, recorded as the row's hit with weight 0."""
+        if self.opl is not None:
+            self.opl = self.opl + torch.where(active, self.n_cur * t_entry
+                                              + seg_opl, 0.0)
+            self.n_cur = torch.where(active, row.ph[..., 0], self.n_cur)
+        if self.paths is not None:
+            self.paths.append(v3.to_array(out.pos_c))
+        if self.hits is not None:
+            self.hits.append(v3.to_array(out.pos_c))
+            self.weights.append(torch.zeros_like(out.intensity))
+
+    def bounce(self, out: Rays, best_t, active, n_next, hit, weight, slot,
+               grin_opl=None):
+        """A non-sequential bounce: opl += n_cur best_t where a row won
+        (plus ``grin_opl``, a winning rod's in-medium path), then the
+        winner's medium ``n_next``; the position after the bounce; the
+        winning sensor's local hit, its INCOMING intensity and its slot (0,
+        0 and 0 where no sensor won)."""
         if self.opl is not None:
             self.opl = self.opl + torch.where(active, self.n_cur * best_t,
                                               0.0)
+            if grin_opl is not None:
+                self.opl = self.opl + grin_opl
             self.n_cur = torch.where(active, n_next, self.n_cur)
         self.settled(out, hit, weight, slot)
 
@@ -221,6 +247,12 @@ def surface_chain(rows, rays: Rays, cfg: SensorConfig, static_meta, dtype,
     first = stream_index(static_meta)
     traced = field is not None
     for k, meta in enumerate(static_meta):
+        if meta.ph == PhysKind.GRIN:
+            rays, active, t_entry, seg_opl, field = grin_surface_step(
+                rows[k], meta, rays, field)
+            if streams is not None:
+                streams.grin(rows[k], rays, active, t_entry, seg_opl)
+            continue
         u = uniforms[first[k]] if k in first else None
         rays, sensors, field = _surface_step(
             rows[k], rays, cfg, sensors, meta, plain=plain,
@@ -322,10 +354,39 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     if field is not None:
         w_in = w_in * field.power()
         er_acc, ei_acc = field.r_c, field.i_c
+    has_grin = any(m.ph == PhysKind.GRIN for m in static_meta)
+    grin_opl = zero if has_grin and track_opl else None
     for k, (row, meta) in enumerate(zip(rows, static_meta)):
         res = intersect(row, pos, d, meta)
+        if meta.ph == PhysKind.GRIN:
+            # the rod's entry face winning the bounce makes the whole
+            # entry -> RK4 -> exit step the bounce's interaction; a backward
+            # ray never couples in (fwd): its hit is a miss
+            g = grin_interaction(
+                row, meta, d, res['hit_s'],
+                Er=field.r_c if field is not None else None,
+                Ei=field.i_c if field is not None else None)
+            mask = (res['t'] < best_t) & res['valid'] & g[3] & live
+            best_t = torch.where(mask, res['t'], best_t)
+            new_pos = v3.where(mask, g[0], new_pos)
+            new_dir = v3.where(mask, g[1], new_dir)
+            imod_all = torch.where(mask, torch.where(g[2], 1.0, 0.0),
+                                   imod_all)
+            active_any = active_any | mask
+            if field is not None:
+                er_acc = v3.where(mask, g[5], er_acc)
+                ei_acc = v3.where(mask, g[6], ei_acc)
+            if track_opl:
+                grin_opl = torch.where(mask, g[4], grin_opl)
+                n_next = torch.where(mask, row.ph[..., 0], n_next)
+            # a nearer rod win zeroes an earlier sensor crossing
+            sens_w = torch.where(mask, 0.0, sens_w)
+            continue
         mask = (res['t'] < best_t) & res['valid'] & live
         best_t = torch.where(mask, res['t'], best_t)
+        if grin_opl is not None:
+            # a nearer non-GRIN winner clears a stale rod in-medium path
+            grin_opl = torch.where(mask, 0.0, grin_opl)
         n_w = normal_world(row, res['hit_s'], meta)
         u = draws(bounce, k) if meta.ph == PhysKind.FRESNEL else None
         dir_k, imod_k = apply_physics_one(meta, row, res['hit_s'], d, n_w,
@@ -359,7 +420,7 @@ def bounce_step(rows, rays: Rays, cfg: SensorConfig, sensors: SensorState,
     rays = rays.masked_update(active_any, new_pos, new_dir, imod_all)
     if streams is not None:
         streams.bounce(rays, torch.where(active_any, best_t, 0.0), active_any,
-                       n_next, sens_hit, sens_w, sens_slot)
+                       n_next, sens_hit, sens_w, sens_slot, grin_opl)
     if field is None:
         return rays, sensors, active_any
     return rays, sensors, active_any, field.masked(active_any, er_acc,

@@ -177,6 +177,17 @@
 // after the last bounce), and the final field's cotangent comes back as
 // the launch field's.
 //
+// GRIN rods run in one more instantiation, kGrin, built on kOpl alone (an
+// overload with one more argument, GrinRows, a tag; the wrapper refuses the
+// Fresnel kinds and every flag built on them beside a rod).  Its replays
+// run K5's bounce with GRIN winners (nonseq_bounce with kGrin, the rod out
+// of line in grin.cuh::grin_rod, so they reach K5's state bit for bit), a
+// GRIN winner's checkpoint keeping the rod's decisions in its bits (the
+// steps it applied, whether it lived, whether its exit coupled), and its
+// reverse sweep runs K2's rod adjoint (trace_seq_adjoint.cuh::
+// grin_row_backward) on a GRIN winner, into the pose columns and ph[0:6].
+// The checkpoints stay 9 words.
+//
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..18
 // bundles and slots x bundles <= 64, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
 // 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
@@ -223,10 +234,11 @@ constexpr unsigned kFull = 0xffffffffu;
 // with kFuzzy (which has kDiff) a winner with a program in `fz` weighs by
 // it; with kFreeform (which has kFuzzy) the freeform rows of `ffs`; with
 // kField (which has kCoat alone) the winner sees and transports the field
-// *fe.
+// *fe; with kGrin (which has kOpl alone) a GRIN winner runs its rod, its
+// bits being the rod's decisions and its medium the rod's ambient index.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false>
+          bool kField = false, bool kGrin = false>
 __device__ __forceinline__ int bounce(const float4* recs, const float* tab, const int32_t* knd,
                                       int n_rows, const Plates& pl, V3& p, V3& d, float& inten,
                                       uint32_t& bits, float* n_cur = nullptr,
@@ -238,6 +250,24 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
   RowKinds kw = {};
   bool degen = false;
   PhysBranch br = {};
+  if constexpr (kGrin) {
+    GrinExit ge;
+    const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, false, false, false, false,
+                                false, false, true>(recs, tab, knd, n_rows, pl, p, d, inten, hw,
+                                                    kw, &degen, &br, nullptr, rd, cside, fz, ffs,
+                                                    fe, &ge);
+    if (k >= 0 && kw.ph == GRIN) {
+      bits = kActive | ge.bits;
+      *n_cur = tab[k * kRowWidth + kPh];
+      return k;
+    }
+    if (k >= 0) {
+      bits = branch_bits(hw, degen, br) | kActive;
+      *n_cur = medium_after<kDispersion>(tab + k * kRowWidth, kw, br.from_in, br.tir, pl.wl,
+                                         *n_cur);
+    }
+    return k;
+  }
   const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy,
                               kFreeform, kField>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kw,
                                                  &degen, &br, nullptr, rd, cside, fz, ffs, fe);
@@ -305,6 +335,11 @@ struct FfSide {
   const int32_t* pw;
 };
 
+// The instantiation with GRIN rods (kGrin): its overload's tag.
+struct GrinRows {
+  int unused;
+};
+
 // What only the instantiation with the field takes, [6][n] floats each (Er
 // x, y, z, then Ei x, y, z): K5's launch field `in`, the cotangent of K5's
 // final field `g_out` (null: zero), the launch field's cotangent `c_in`
@@ -348,10 +383,12 @@ __device__ __forceinline__ Fld launch_field(const FieldIn& fi, long long i, long
 // memory after the programs), and 32 ff columns a row.  With kField (which
 // has kCoat alone) the replays carry the field from `fi.in`, each
 // checkpoint keeps the field before its bounce, and the reverse sweep
-// carries its cotangent from `fi.g_out` to `fi.c_in`.
+// carries its cotangent from `fi.g_out` to `fi.c_in`.  With kGrin (which has
+// kOpl alone) the replays run GRIN winners' rods and the reverse sweep their
+// adjoints.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false>
+          bool kField = false, bool kGrin = false>
 __device__ __forceinline__ void nonseq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -378,6 +415,7 @@ __device__ __forceinline__ void nonseq_bwd(
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kCoat || !kField, "the field runs with the coatings");
   static_assert(!(kField && kDiff), "the field runs without the diffractive kinds");
+  static_assert(!kGrin || (kOpl && !kFresnel), "GRIN rods run with the path length alone");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl, kField>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
@@ -463,9 +501,9 @@ __device__ __forceinline__ void nonseq_bwd(
     uint32_t bits = 0;
     rd.bounce = static_cast<uint32_t>(b);
     const int k =
-        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform, kField>(
-            recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs,
-            kField ? &fe : nullptr);
+        bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform, kField,
+               kGrin>(recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs,
+                      kField ? &fe : nullptr);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -533,8 +571,8 @@ __device__ __forceinline__ void nonseq_bwd(
       for (int b = 0; b < s; ++b) {
         rd.bounce = static_cast<uint32_t>(b);
         bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
-               kField>(recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs,
-                       ffs, kField ? &fe : nullptr);
+               kField, kGrin>(recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside,
+                              fzs, ffs, kField ? &fe : nullptr);
       }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
@@ -543,9 +581,9 @@ __device__ __forceinline__ void nonseq_bwd(
         if constexpr (kField) put_field<kThreads>(ck + j * kSlot, fe);
         rd.bounce = static_cast<uint32_t>(s + j);
         const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                             kFreeform, kField>(recs, tab, knd, n_rows, pl, p, d, inten, bits,
-                                                &n_cur, &rd, cside, fzs, ffs,
-                                                kField ? &fe : nullptr);
+                             kFreeform, kField, kGrin>(recs, tab, knd, n_rows, pl, p, d, inten,
+                                                       bits, &n_cur, &rd, cside, fzs, ffs,
+                                                       kField ? &fe : nullptr);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
       }
@@ -583,12 +621,22 @@ __device__ __forceinline__ void nonseq_bwd(
           const RowKinds kd =
               read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
           const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
-          row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                       kFreeform, kField>(tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu,
-                                          rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg, &wc,
-                                          &oc, cside + k * kCoatSide, tc, tf,
-                                          kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
-                                          kField ? &fc : nullptr);
+          if constexpr (kGrin) {
+            if (kd.ph == GRIN)  // a GRIN winner: the rod's adjoint
+              grin_row_backward(tab + k * kRowWidth, kd, sp, sd, word & 0xffffu, oc, gp, gd, gi,
+                                tg);
+            else
+              row_backward<kPlates, kExt, kDispersion, kOpl>(
+                  tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm, n_bundles, gg, pl,
+                  gmaps, gp, gd, gi, tg, &wc, &oc);
+          } else {
+            row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
+                         kFreeform, kField>(tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu,
+                                            rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg,
+                                            &wc, &oc, cside + k * kCoatSide, tc, tf,
+                                            kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
+                                            kField ? &fc : nullptr);
+          }
           if constexpr (kField) fc.nd = sd;
           dispm = kd.dispm;
           coated = kd.coat & kCoatCountMask;
@@ -762,7 +810,16 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey k
       RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs, FuzzyProgs{nullptr, 0}, FfSide{nullptr}, fi);
 }
 
-// The types of the nine kernels.
+// The kernel with those (the path length) and GRIN rods.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, GrinRows) {
+  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
+  nonseq_bwd<kPlates, kExt, true, true, false, false, false, false, false, false, true>(
+      RTT_NONSEQ_BWD_ARGS, wo, oi);
+}
+
+// The types of the ten kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -776,6 +833,7 @@ using BwdFreeformKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, Philox
                                    DiffKinds, FuzzyProgs, FfSide);
 using BwdFieldKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
                                 FieldIn);
+using BwdGrinKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, GrinRows);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
@@ -807,9 +865,12 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int d
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false>
+          bool kField = false, bool kGrin = false>
 const void* kernel_fn() {
-  if constexpr (kField)
+  if constexpr (kGrin)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdGrinKernel>(trace_nonseq_bwd_kernel<true, true>));
+  else if constexpr (kField)
     return reinterpret_cast<const void*>(
         static_cast<BwdFieldKernel>(trace_nonseq_bwd_kernel<true, true>));
   else if constexpr (kFreeform)
@@ -841,12 +902,12 @@ const void* kernel_fn() {
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false>
+          bool kField = false, bool kGrin = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
-                kField>(),
+                kField, kGrin>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -1071,6 +1132,45 @@ extern "C" int rtt_trace_nonseq_bwd_field(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches the instantiation with GRIN rods on `stream`: the arguments of
+// rtt_trace_nonseq_bwd_opl up to `g_nfinal` (the key and the side buffers
+// of the kinds it does not take left out), then `n_bounces`.  A GRIN row's
+// RK4 step count (1..kMaxGrinSteps) is its kinds row's last column.
+// Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_bwd_grin(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
+    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
+    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
+    float* cintensity, float* partials, float* rpx, float* rpy, float* rpz, float* rdx,
+    float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
+    const float* g_nfinal, int n_bounces, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
+  const size_t smem =
+      shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
+  const cudaError_t e =
+      prepare<true, true, true, true, false, false, false, false, false, false, true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trace_nonseq_bwd_kernel<true, true>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+          gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy,
+          rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
+          GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces, n,
+          wo, OplIn{g_opl, g_nfinal}, GrinRows{0});
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without
@@ -1081,7 +1181,8 @@ extern "C" int rtt_trace_nonseq_bwd_field(
 // diffractive kinds on such a table, 8 the one with the fuzzy programs (of
 // `fuzzy_words` words) on such a table, 9 the one with the freeform surfaces
 // (and programs of `fuzzy_words` words) on such a table, 10 the one with the
-// field on such a table.  Returns a cudaError_t.
+// field on such a table, 11 the one with GRIN rods on such a table.
+// Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
                                               int* blocks) {
@@ -1090,7 +1191,11 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 10) {
+  if (code == 11) {
+    smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
+    e = prepare<true, true, true, true, false, false, false, false, false, false, true>(smem);
+    fn = kernel_fn<true, true, true, true, false, false, false, false, false, false, true>();
+  } else if (code == 10) {
     smem = shared_bytes<true, true, true, true, false, false, true>(n_rows, n_slots, n_bundles,
                                                                    n_bounces, kDispGradCols);
     e = prepare<true, true, true, true, true, true, false, false, false, true>(smem);

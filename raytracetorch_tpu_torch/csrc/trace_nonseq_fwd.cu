@@ -15,8 +15,8 @@
 // intersect :879 and normal_world :942); a convex solid's HALFSPACES bound
 // (the TPU kernel's scalar plane reads, :821, :1249) and a single cone's
 // CONE_NAPPE bound run in the extended kinds' instantiation and every one
-// built on it, and the polarized field (one more): no scatter draws or GRIN
-// rows.
+// built on it, the polarized field (one more) and GRIN rods (one more;
+// _nonseq_bounce_core's GRIN winner :881-945): no scatter draws.
 // Its plain PyTorch version is ops/fused_nonseq.py::trace_nonseq_fused_plain
 // (the eager bounce loop of core/trace.py over the flat rows), and the
 // wrapper that launches it is ops/fused_nonseq.py::trace_nonseq_fwd_cuda.
@@ -155,6 +155,19 @@
 // where w > 0).  It reads and writes 48 B a ray more than the coatings'
 // instantiation.
 //
+// GRIN rods (grin.cuh) run in one more instantiation, kGrin, of the
+// streams' body (an overload with one more argument, GrinRows, a tag),
+// built on the streams alone (the wrapper refuses the Fresnel kinds and
+// every flag built on them beside a rod, ROADMAP Queue 1 position 3c), so
+// every other instantiation keeps its code.  The scan lets a rod's entry
+// face win only a ray travelling +z in its frame (grin.cuh::grin_fwd, a
+// few multiply-adds on the rod's rows alone), and the winner runs the
+// whole rod once (grin_rod, out of line, so that K6's replay reaches this
+// state bit for bit), where the TPU kernel runs it for every candidate row
+// (:888-908).  The path length adds the winner's in-medium path after n_cur
+// t and the medium becomes the rod's ambient index; a nearer winner leaves
+// no stale path, each bounce's being its winner's alone (:940, :1022).
+//
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
 
@@ -226,6 +239,11 @@ struct FfSide {
 struct FieldIO {
   const float* in;
   float* out;
+};
+
+// The instantiation with GRIN rods (kGrin): its overload's tag.
+struct GrinRows {
+  int unused;
 };
 
 template <int kMomBucket, bool kPlates, bool kExt>
@@ -371,9 +389,10 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // (copied into shared memory after the programs) are freeform surfaces;
 // with kField (which has kCoat alone) each ray carries its field from
 // `fio.in` (the winner's field_physics and transport, the |E|^2 weights) to
-// `fio.out`.
+// `fio.out`; with kGrin (which has none of the others) a GRIN winner runs
+// its rod and adds its in-medium path.
 template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false,
-          bool kFuzzy = false, bool kFreeform = false, bool kField = false>
+          bool kFuzzy = false, bool kFreeform = false, bool kField = false, bool kGrin = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -482,17 +501,28 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     PhysBranch br = {};
     SensorRec rec;
     const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
+    GrinExit ge;  // kGrin: a GRIN winner's exit
     const int k_win =
         nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
-                      kField>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr, &br, &rec,
-                              &rd, cside, fzs, ffs, kField ? &fe : nullptr);
+                      kField, kGrin>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr,
+                                     &br, &rec, &rd, cside, fzs, ffs, kField ? &fe : nullptr,
+                                     kGrin ? &ge : nullptr);
     if (k_win < 0) {
       b_end = b;
       break;
     }
     opl = opl + n_cur * hw.t;
-    n_cur = medium_after<kExt, kFresnel, kDiff>(tab + k_win * kRowWidth, kd, br.from_in, br.tir,
-                                                pl.wl, n_cur, br.reflect);
+    if constexpr (kGrin) {
+      if (kd.ph == GRIN) {  // the rod's in-medium path; it exits into n_ambient
+        opl = opl + ge.seg;
+        n_cur = tab[k_win * kRowWidth + kPh];
+      } else {
+        n_cur = medium_after<kExt>(tab + k_win * kRowWidth, kd, br.from_in, br.tir, pl.wl, n_cur);
+      }
+    } else {
+      n_cur = medium_after<kExt, kFresnel, kDiff>(tab + k_win * kRowWidth, kd, br.from_in, br.tir,
+                                                  pl.wl, n_cur, br.reflect);
+    }
     if (live && so.paths != nullptr) {
       float* dst = so.paths + 3 * b * n + i;
       dst[0] = p.x;
@@ -663,6 +693,15 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, Coat
       RTT_NONSEQ_FWD_ARGS, so, key, cs, FuzzyProgs{nullptr, 0}, FfSide{nullptr}, fio);
 }
 
+// The kernel with the streams and GRIN rods.
+template <int kMomBucket, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, GrinRows) {
+  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
+  nonseq_fwd_streams<kMomBucket, false, false, false, false, false, false, true>(
+      RTT_NONSEQ_FWD_ARGS, so);
+}
+
 // Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
 // one after the other), into 4 n words: the device generator's known-answer
 // check (tests/test_torch_cuda.py, chip_smoke.py).
@@ -687,6 +726,7 @@ using FwdFuzzyKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, Coa
 using FwdFreeformKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
                                    DiffKinds, FuzzyProgs, FfSide);
 using FwdFieldKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide, FieldIO);
+using FwdGrinKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, GrinRows);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
@@ -694,9 +734,12 @@ using FwdFieldKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, Coa
 // The kernel of an instantiation.
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false>
+          bool kField = false, bool kGrin = false>
 const void* kernel_fn() {
-  if constexpr (kField)
+  if constexpr (kGrin)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdGrinKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+  else if constexpr (kField)
     return reinterpret_cast<const void*>(
         static_cast<FwdFieldKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
   else if constexpr (kFreeform)
@@ -733,12 +776,12 @@ struct PlateArgs {
 // Allow the kernel its shared memory (beyond 48 KB only on request).
 template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false>
+          bool kField = false, bool kGrin = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
-                kField>(),
+                kField, kGrin>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -779,10 +822,16 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the
 // diffractive kinds, 8 the one with the fuzzy programs, 9 the one with the
-// freeform surfaces, 10 the one with the field) and moment bucket, its
-// shared memory allowed.
+// freeform surfaces, 10 the one with the field, 11 the one with GRIN rods)
+// and moment bucket, its shared memory allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 11) {
+    *e = prepare<kMomBucket, true, true, true, false, false, false, false, false, false, true>(
+        smem);
+    return kernel_fn<kMomBucket, true, true, true, false, false, false, false, false, false,
+                     true>();
+  }
   if (code == 10) {
     *e = prepare<kMomBucket, true, true, true, true, true, false, false, false, true>(smem);
     return kernel_fn<kMomBucket, true, true, true, true, true, false, false, false, true>();
@@ -1013,6 +1062,47 @@ extern "C" int rtt_trace_nonseq_fwd_field(
   return go(std::integral_constant<int, 64>{});
 }
 
+// Launches the instantiation with GRIN rods on `stream`: the arguments of
+// rtt_trace_nonseq_fwd_streams up to `hit_slot` (the key and the side
+// buffers of the kinds it does not take left out), then `n_bounces`.  A GRIN
+// row's RK4 step count (1..kMaxGrinSteps) is its kinds row's last column.
+// Returns a cudaError_t.
+extern "C" int rtt_trace_nonseq_fwd_grin(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
+    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
+    float* hit_w, int32_t* hit_slot, int n_bounces, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr) ||
+      (hits == nullptr) != (hit_slot == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true);
+  const StreamOut so = {opl, n_final, paths, hits, hit_w, hit_slot};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto bucket) {
+    constexpr int kB = decltype(bucket)::value;
+    const cudaError_t e =
+        prepare<kB, true, true, true, false, false, false, false, false, false, true>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    trace_nonseq_fwd_kernel<kB, true, true><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody,
+        odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+        map_desc, wavelength, n_bounces, n, so, GrinRows{0});
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (n_slots * n_bundles == 1) return go(std::integral_constant<int, 1>{});
+  return go(std::integral_constant<int, 64>{});
+}
+
 // Philox4x32-10 of n counters (4 n words) under n keys (2 n words) into out
 // (4 n words), on `stream`: the known-answer check of the device generator.
 // Returns a cudaError_t.
@@ -1033,13 +1123,14 @@ extern "C" int rtt_philox4x32(const uint32_t* ctr, const uint32_t* key, uint32_t
 // one with the coatings, 7 the one with the diffractive kinds, 8 the one
 // with the fuzzy programs (of `fuzzy_words` words), 9 the one with the
 // freeform surfaces (and programs of `fuzzy_words` words), 10 the one with
-// the field.  Returns a cudaError_t.
+// the field, 11 the one with GRIN rods.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
                                               int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, code >= 6,
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2,
+                                   code >= 6 && code <= 10,
                                    code == 8 || code == 9 ? fuzzy_words : 0, code == 9);
   cudaError_t e;
   const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)

@@ -1463,6 +1463,24 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
   gi = g_i;
 }
 
+// The adjoint of a GRIN row of K2's chain or a GRIN winner of K6's bounce
+// (kGrin) at its saved input state p, d and bits (grin.cuh::grin_backward;
+// an inactive row passes every cotangent through): gp, gd and gi become the
+// cotangents before it, oc's medium cotangent that of the medium before
+// it, and the table's cotangents add into tg's Rw, tw and ph[0:6] columns.
+__device__ __forceinline__ void grin_row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
+                                                  uint32_t bits, OplCt& oc, V3& gp, V3& gd,
+                                                  float& gi, float* tg) {
+  if (!(bits & kActive)) return;
+  G3 g_p = {gp.x, gp.y, gp.z}, g_d = {gd.x, gd.y, gd.z};
+  float g_n = 0.0f;
+  grin_backward(r, kd.map, G3{p.x, p.y, p.z}, G3{d.x, d.y, d.z}, bits, oc.n_cur, oc.g_opl,
+                oc.g_n, g_p, g_d, gi, tg + kGRw, tg + kGTw, tg + kGPh, g_n);
+  oc.g_n = g_n;
+  gp = {g_p.x, g_p.y, g_p.z};
+  gd = {g_d.x, g_d.y, g_d.z};
+}
+
 // One step of reduce_row's transpose reduce-scatter on the kH columns of
 // a[0:2 kH]: a lane keeps the half that its bit kH selects, sends the other
 // half to lane ^ kH and adds what that lane sends back, into a[0:kH].  kH is

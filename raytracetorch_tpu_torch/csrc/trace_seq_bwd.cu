@@ -161,6 +161,17 @@
 //   polarization (thin_film.cuh::stack_field_ct, recomputed: no saved
 //   state for them) into the layers' thicknesses (the coat columns), a
 //   metal's ambient and (n, k) and the wavelength.
+// - GRIN rods: a twelfth instantiation, kGrin, built on the fifth (the
+//   path length; an overload with one more argument, GrinRows, a tag), so
+//   that the others keep their code.  Its forward sweep runs a GRIN row as
+//   K1 does (trace_seq_common.cuh::grin_row, the rod out of line) and saves
+//   the rod's decisions in the row's bits (grin.cuh: it lived, its exit
+//   coupled, the steps it applied); its reverse sweep runs the rod's
+//   adjoint (grin.cuh::grin_backward), which re-runs the rod from the saved
+//   state with those decisions, keeping a checkpoint every 16 steps, and
+//   reverses the steps a segment at a time, into the pose columns (Rw, tw)
+//   and ph[0:6] (n_ambient, c0, c2, c4, cz, L), all among the 27 columns.
+//   The saved state stays 9 words.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -248,6 +259,11 @@ struct FfSide {
   const int32_t* pw;
 };
 
+// The instantiation with GRIN rods (kGrin): its overload's tag.
+struct GrinRows {
+  int unused;
+};
+
 // What only the instantiation with the field takes, [6][n] floats each (Er
 // x, y, z, then Ei x, y, z): K1's launch field `in`, the cotangent of K1's
 // final field `g_out` (null: zero) and the launch field's cotangent `c_in`
@@ -274,10 +290,11 @@ struct FieldIn {
 // kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
 // memory after the programs) refine their roots onto their sags, and the ff
 // columns are 32 a row (a freeform row's coefficients, or a DOE row's in
-// the first 8).
+// the first 8).  With kGrin (which has kOpl and none of kFresnel and the
+// flags built on it) a GRIN row runs the rod forward and its adjoint back.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false, bool kField = false>
+          bool kFreeform = false, bool kField = false, bool kGrin = false>
 __device__ __forceinline__ void seq_bwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -300,6 +317,7 @@ __device__ __forceinline__ void seq_bwd(
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
+  static_assert(!kGrin || (kOpl && !kFresnel), "GRIN rods run with the path length alone");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
   constexpr int kStride = kShared ? kThreads : 1;
@@ -378,6 +396,19 @@ __device__ __forceinline__ void seq_bwd(
     const V3 p0 = p, d0 = d;
     const float i0 = inten;
     const RowKinds kd = read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
+    if constexpr (kGrin) {
+      if (kd.ph == GRIN) {  // warp-uniform: the rod, as K1 runs it
+        GrinExit ge;
+        float t;
+        const uint32_t gbits =
+            grin_row<kPlates>(tab + k * kRowWidth, kd, p, d, inten, ge, t) ? kActive | ge.bits
+                                                                          : 0u;
+        put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, gbits);
+        put_medium<kStride>(saved + k * kWords * kStride, n_cur);
+        if (gbits & kActive) n_cur = tab[k * kRowWidth + kPh];
+        continue;
+      }
+    }
     float u = 0.0f;
     if constexpr (kFresnel) {
       if (kd.ph == FRESNEL) {  // warp-uniform
@@ -448,11 +479,21 @@ __device__ __forceinline__ void seq_bwd(
 #pragma unroll
       for (int c = 0; c < (kDiff ? kFfCols : 1); ++c) tf[c] = 0.0f;
       const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
-      row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
-                   kField>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi,
-                           tg, &wc, &oc, cside + k * kCoatSide, tc, tf,
-                           kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
-                           kField ? &fc : nullptr);
+      if constexpr (kGrin) {
+        if (kd.ph == GRIN) {  // warp-uniform: the rod's adjoint
+          grin_row_backward(r, kd, sp, sd, bits, oc, gp, gd, gi, tg);
+        } else {
+          row_backward<kPlates, kExt, kDispersion, kOpl>(r, kd, sp, sd, si, bits, rid, gm,
+                                                         n_bundles, gg, pl, gmaps, gp, gd, gi, tg,
+                                                         &wc, &oc);
+        }
+      } else {
+        row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
+                     kField>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd,
+                             gi, tg, &wc, &oc, cside + k * kCoatSide, tc, tf,
+                             kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
+                             kField ? &fc : nullptr);
+      }
       if constexpr (kField) fc.nd = sd;
       const bool any = partials != nullptr && __any_sync(0xffffffffu, bits & kActive);
       float* slot = warp_tab + (warp * n_rows + k) * n_cols;
@@ -615,7 +656,16 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, Coat
       RTT_SEQ_BWD_ARGS, wo, oi, dr, cs, fp, ff, fi);
 }
 
-// The types of the nine kernels.
+// The kernel with those (the path length) and GRIN rods.
+template <bool kShared, bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, GrinRows) {
+  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
+  seq_bwd<kShared, kPlates, kExt, true, true, false, false, false, false, false, false, true>(
+      RTT_SEQ_BWD_ARGS, wo, oi);
+}
+
+// The types of the ten kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
@@ -629,6 +679,7 @@ using BwdFreeformKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws,
                                    DiffKinds, FuzzyProgs, FfSide);
 using BwdFieldKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide, DiffKinds,
                                 FuzzyProgs, FfSide, FieldIn);
+using BwdGrinKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, GrinRows);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -669,9 +720,12 @@ size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols,
 // The kernel of an instantiation.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false, bool kField = false>
+          bool kFreeform = false, bool kField = false, bool kGrin = false>
 const void* kernel_fn() {
-  if constexpr (kField)
+  if constexpr (kGrin)
+    return reinterpret_cast<const void*>(
+        static_cast<BwdGrinKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+  else if constexpr (kField)
     return reinterpret_cast<const void*>(
         static_cast<BwdFieldKernel>(trace_seq_bwd_kernel<kShared, true, true>));
   else if constexpr (kFreeform)
@@ -704,10 +758,10 @@ const void* kernel_fn() {
 // only on request) -> (cudaError_t, the kernel).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false, bool kField = false>
+          bool kFreeform = false, bool kField = false, bool kGrin = false>
 cudaError_t prepare(size_t smem, const void** fn) {
   *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                  kFreeform, kField>();
+                  kFreeform, kField, kGrin>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -987,6 +1041,54 @@ extern "C" int rtt_trace_seq_bwd_field(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches the instantiation with GRIN rods on `stream`: the arguments of
+// rtt_trace_seq_bwd_opl up to `g_nfinal` (the draws and side buffers of the
+// kinds it does not take left out).  A GRIN row's RK4 step count
+// (1..kMaxGrinSteps) is its kinds row's last column.  Returns a
+// cudaError_t.
+extern "C" int rtt_trace_seq_bwd_grin(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
+    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
+    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
+    float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
+    const float* g_nfinal, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
+  const OplIn oi = {g_opl, g_nfinal};
+  const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(blocks);
+  const bool shared = n_rows <= kSharedRows;
+  const void* fn;
+  const cudaError_t e =
+      shared ? prepare<true, true, true, true, true, false, false, false, false, false, false,
+                       true>(smem, &fn)
+             : prepare<false, true, true, true, true, false, false, false, false, false, false,
+                       true>(smem, &fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
+  if (shared)
+    trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
+        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, GrinRows{0});
+  else
+    trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
+        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, GrinRows{0});
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs, at its dynamic shared memory, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
@@ -998,12 +1100,25 @@ extern "C" int rtt_trace_seq_bwd_field(
 // on such a table, 8 the one with the fuzzy programs (of `fuzzy_words`
 // words) on such a table, 9 the one with the freeform surfaces (and
 // programs of `fuzzy_words` words) on such a table, 10 the one with the
-// field (likewise).
+// field (likewise), 11 the one with GRIN rods (likewise).
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int fuzzy_words,
                                            int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
+  if (code == 11) {
+    const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols);
+    const void* fn;
+    const cudaError_t e =
+        n_rows <= kSharedRows
+            ? prepare<true, true, true, true, true, false, false, false, false, false, false,
+                      true>(smem, &fn)
+            : prepare<false, true, true, true, true, false, false, false, false, false, false,
+                      true>(smem, &fn);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
+  }
   const size_t smem =
       code == 10 ? shared_bytes<true, true, true, true, true, true, true>(
                        n_rows, n_slots, n_bundles, disp_cols, fuzzy_words)

@@ -106,6 +106,7 @@
 #include "freeform.cuh"
 #include "fuzzy.cuh"
 #include "grid_corners.cuh"
+#include "grin.cuh"
 #include "thin_film.cuh"
 
 namespace rtt {
@@ -125,6 +126,8 @@ constexpr int kHpN = 64, kHpD = 88, kHpMask = 96;
 constexpr int kMaxHalfspaces = 8;
 constexpr int kCoatCol = 104;  // the thin-film stack: (index, thickness) x 8
 constexpr int kFf = 120;       // a DOE row's radial phase coefficients
+static_assert(kGrRw == kRw && kGrTw == kTw && kGrSb == kSb && kGrPh == kPh,
+              "grin.cuh reads the flat row's columns");
 
 // Columns of a kinds row (ops/fused_trace.py::kind_rows).
 constexpr int kPhCol = 0, kSbCol = 1, kVbCol = 2, kPlaneCol = 3;
@@ -160,6 +163,7 @@ enum PhysKind {
   FRESNEL_W = 8,
   REFLECT_W = 9,
   JONES = 11,
+  GRIN = 12,
   DOE = 13,
   MLA = 14,
   PHASE_GRID = 15
@@ -1329,6 +1333,25 @@ __device__ __forceinline__ float medium_after(const float* r, const RowKinds& kd
   }
 }
 
+// A GRIN row of K1's chain (and of K2's forward sweep, kGrin): the entry
+// plane's hit, and where the row is active (valid, intensity > 0, the ray
+// travelling +z in the rod's frame: grin_fwd) the whole rod (grin.cuh::
+// grin_rod): the ray lands at the exit face with its intensity times 1 or 0
+// (dead).  Returns whether the row was active; `ge` and `t` receive the
+// rod's exit and the entry plane's ray parameter.
+template <bool kPlates>
+__device__ __forceinline__ bool grin_row(const float* r, const RowKinds& kd, V3& p, V3& d,
+                                         float& inten, GrinExit& ge, float& t) {
+  const RowHit h = intersect_row<kPlates, true>(r, kd, p, d);
+  t = h.t;
+  if (!(h.valid && inten > 0.0f && grin_fwd(r, d.x, d.y, d.z))) return false;
+  ge = grin_rod(r, kd.map, d.x, d.y, d.z, h.hs.x, h.hs.y);
+  p = {ge.p.x, ge.p.y, ge.p.z};
+  d = {ge.d.x, ge.d.y, ge.d.z};
+  if (!(ge.bits & kGrinAlive)) inten = 0.0f;
+  return true;
+}
+
 // The stream outputs of K1's and K5's instantiation with the streams, each
 // null when not wanted: the optical path length and the final medium's
 // index (n floats each); the positions (K1: the launch position, then after
@@ -1378,9 +1401,15 @@ struct SensorRec {
 // With kField (which has kCoat, and none of kDiff, kFuzzy, kFreeform) the
 // winner's physics sees the ray's field *fe (field_physics) and the winner
 // transports it (field_transport), so that K6's replay reaches K5's field.
+// With kGrin (which has kExt, and none of kFresnel and the flags built on
+// it) a GRIN row's entry face wins only a ray travelling +z in its frame
+// (grin_fwd), and a GRIN winner runs its whole rod (grin.cuh::grin_rod, out
+// of line, so that K6's replay reaches K5's state): the ray lands at the
+// exit face, and `ge` receives the rod's exit (its in-medium path and
+// bits).
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false, bool kField = false>
+          bool kFreeform = false, bool kField = false, bool kGrin = false>
 __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* tab,
                                              const int32_t* knd, int n_rows, const Plates& pl,
                                              V3& p, V3& d, float& inten, RowHit& hw,
@@ -1389,7 +1418,8 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
                                              const RayDraw* rd = nullptr,
                                              const float* cside = nullptr,
                                              const int32_t* fz = nullptr,
-                                             const int32_t* ffs = nullptr, Fld* fe = nullptr) {
+                                             const int32_t* ffs = nullptr, Fld* fe = nullptr,
+                                             GrinExit* ge = nullptr) {
   static_assert(kExt || !kRecord, "the records read the kinds rows of the flat scan");
   static_assert(kExt || !kFresnel, "the Fresnel kinds read the kinds rows of the flat scan");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
@@ -1397,6 +1427,7 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(!kField || (kCoat && !kDiff), "the field runs with the coatings alone");
+  static_assert(!kGrin || (kExt && !kFresnel), "GRIN rods read the kinds rows of the flat scan");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -1406,6 +1437,10 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
       const RowKinds kk = read_row_kinds<kExt>(knd + k * kKindWidth);
       h = intersect_row<kPlates, kExt, kDiff, kFreeform>(tab + k * kRowWidth, kk, p, d,
                                                          kFreeform ? ff_row_of(ffs, k) : nullptr);
+      if constexpr (kGrin) {
+        // a backward ray never couples into a rod: its hit is a miss
+        if (kk.ph == GRIN && !grin_fwd(tab + k * kRowWidth, d.x, d.y, d.z)) h.valid = false;
+      }
       if constexpr (kRecord) {
         if (h.valid && h.t < best_t && kk.sensor) *rec = SensorRec{h.hs, kk.slot};
       }
@@ -1422,6 +1457,15 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   if (k_win < 0) return -1;
   const float* r = tab + k_win * kRowWidth;
   kw = read_row_kinds<kExt, kDispersion, kCoat>(knd + k_win * kKindWidth);
+  if constexpr (kGrin) {
+    if (kw.ph == GRIN) {
+      *ge = grin_rod(r, kw.map, d.x, d.y, d.z, hw.hs.x, hw.hs.y);
+      p = {ge->p.x, ge->p.y, ge->p.z};
+      d = {ge->d.x, ge->d.y, ge->d.z};
+      if (!(ge->bits & kGrinAlive)) inten = 0.0f;
+      return k_win;
+    }
+  }
   V3 nd;
   float imod;
   if constexpr (kField) {

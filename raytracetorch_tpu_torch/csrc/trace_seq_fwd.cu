@@ -153,6 +153,19 @@
 // polarization, thin_film.cuh::stack_field, that the draw or weight read).
 // It reads and writes 48 B a ray more than the instantiation below it.
 //
+// GRIN rods (grin.cuh) run in one more instantiation, kGrin, an overload
+// with one more argument (GrinRows, a tag: a rod's data ride its flat row
+// and its RK4 step count its kinds row's last column), built on the one
+// with the streams alone (the Fresnel kinds and every flag built on them
+// stay off: the wrapper refuses them beside a rod, ROADMAP Queue 1 position
+// 3c), so every other instantiation keeps its code.  A GRIN row's active
+// rays (valid, intensity > 0, travelling +z in the rod's frame) run the
+// whole rod, out of line (grin_rod): the entry coupling, the RK4 steps, the
+// exit coupling; the ray lands at the exit face, its intensity times 1 or
+// 0, the path length adds n_cur t + the in-medium path and the medium
+// becomes the ambient index; the records take the exit-face position as
+// the row's position and hit, with weight 0 (_chain_pure :1569-1604).
+//
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
 // rely on (finite BIG sentinels for misses, +1e-24 under every sqrt, the
@@ -266,6 +279,11 @@ struct FieldIO {
   float* out;
 };
 
+// The instantiation with GRIN rods (kGrin): its overload's tag.
+struct GrinRows {
+  int unused;
+};
+
 // The kernel's body, shared by its instantiations (the kernels below).  With
 // kStreams (the instantiation with the streams: plate code, the extended
 // kinds and dispersion) it also accumulates the optical path length n_cur t
@@ -284,9 +302,12 @@ struct FieldIO {
 // kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
 // memory after the programs) refine their roots onto their sags.  With
 // kField (which has kFreeform) each ray carries its field from `fio.in`
-// (field_physics, the |E|^2 weights, field_transport) to `fio.out`.
+// (field_physics, the |E|^2 weights, field_transport) to `fio.out`.  With
+// kGrin (which has kStreams and none of kFresnel and the flags built on it)
+// a GRIN row's active rays run the rod (grin_row).
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false>
+          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false,
+          bool kGrin = false>
 __device__ __forceinline__ void seq_fwd(
     const float* __restrict__ table, const int32_t* __restrict__ kinds, int n_rows,
     const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -306,6 +327,7 @@ __device__ __forceinline__ void seq_fwd(
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
+  static_assert(!kGrin || (kStreams && !kFresnel), "GRIN rods run with the streams alone");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -376,6 +398,30 @@ __device__ __forceinline__ void seq_fwd(
   for (int k = 0; k < n_rows; ++k) {
     const float* r = tab + k * kRowWidth;
     const RowKinds kd = read_row_kinds4<kExt, kCoat>(knd4 + 2 * k);
+    if constexpr (kGrin) {
+      if (kd.ph == GRIN) {  // warp-uniform: the rod is the row's interaction
+        GrinExit ge;
+        float t;
+        if (grin_row<kPlates>(r, kd, p, d, inten, ge, t)) {
+          opl = opl + (n_cur * t + ge.seg);
+          n_cur = r[kPh];
+        }
+        if (live && so.paths != nullptr) {
+          float* dst = so.paths + 3 * (k + 1) * n + i;
+          dst[0] = p.x;
+          dst[n] = p.y;
+          dst[2 * n] = p.z;
+        }
+        if (live && so.hits != nullptr) {
+          float* dst = so.hits + 3 * k * n + i;
+          dst[0] = p.x;
+          dst[n] = p.y;
+          dst[2 * n] = p.z;
+          so.hit_w[k * n + i] = 0.0f;
+        }
+        continue;
+      }
+    }
     const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
     const RowHit h = intersect_row<kPlates, kExt, kDiff, kFreeform>(r, kd, p, d, ffp);
     const V3 nw = world_normal<kExt, kFreeform>(r, kd.plane, h.hs, nullptr, kd.asph, ffp);
@@ -594,7 +640,16 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs,
                                                                    fp, ff, fio);
 }
 
-// The types of the eight kernels.
+// The kernel with the streams and GRIN rods.
+template <bool kPlates, bool kExt>
+__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, GrinRows) {
+  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
+  seq_fwd<kPlates, kExt, true, false, false, false, false, false, false, true>(RTT_SEQ_FWD_ARGS,
+                                                                               so);
+}
+
+// The types of the nine kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
 using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
@@ -606,15 +661,20 @@ using FwdFreeformKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, Coat
                                    FuzzyProgs, FfSide);
 using FwdFieldKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
                                 FuzzyProgs, FfSide, FieldIO);
+using FwdGrinKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, GrinRows);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
 // The kernel of an instantiation.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false>
+          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false,
+          bool kGrin = false>
 const void* kernel_fn() {
-  if constexpr (kField)
+  if constexpr (kGrin)
+    return reinterpret_cast<const void*>(
+        static_cast<FwdGrinKernel>(trace_seq_fwd_kernel<true, true>));
+  else if constexpr (kField)
     return reinterpret_cast<const void*>(
         static_cast<FwdFieldKernel>(trace_seq_fwd_kernel<true, true>));
   else if constexpr (kFreeform)
@@ -643,11 +703,11 @@ const void* kernel_fn() {
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
 template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false>
+          bool kField = false, bool kGrin = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy,
-                                        kFreeform, kField>(),
+                                        kFreeform, kField, kGrin>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -671,8 +731,13 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 // it and the extended kinds, 4 the one with the streams, 5 the one with the
 // Fresnel kinds, 6 the one with the coatings, 7 the one with the diffractive
 // kinds, 8 the one with the fuzzy programs, 9 the one with the freeform
-// surfaces, 10 the one with the field), its shared memory allowed.
+// surfaces, 10 the one with the field, 11 the one with GRIN rods), its
+// shared memory allowed.
 const void* kernel_of(int code, size_t smem, cudaError_t* e) {
+  if (code == 11) {
+    *e = prepare<true, true, true, false, false, false, false, false, false, true>(smem);
+    return kernel_fn<true, true, true, false, false, false, false, false, false, true>();
+  }
   if (code == 10) {
     *e = prepare<true, true, true, true, true, true, true, true, true>(smem);
     return kernel_fn<true, true, true, true, true, true, true, true, true>();
@@ -874,6 +939,39 @@ extern "C" int rtt_trace_seq_fwd_field(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches the instantiation with GRIN rods on `stream`: the arguments of
+// rtt_trace_seq_fwd_streams up to `hit_w` (its `ext` implied: `maps`,
+// `map_desc` and `wavelength` must be given), each stream output null when
+// not wanted.  A GRIN row's RK4 step count (1..kMaxGrinSteps) is its kinds
+// row's last column.  Returns a cudaError_t.
+extern "C" int rtt_trace_seq_fwd_grin(
+    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
+    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
+    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
+    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
+    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
+    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
+    float* hit_w, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
+  const cudaError_t e =
+      prepare<true, true, true, false, false, false, false, false, false, true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trace_seq_fwd_kernel<true, true>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
+          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+          map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr},
+          GrinRows{0});
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The resident blocks per SM of the instantiation that a launch with these
 // sizes runs (K1 has no bounces: the argument keeps the other kernels'
 // signature), at its dynamic shared memory, into *blocks
@@ -883,14 +981,15 @@ extern "C" int rtt_trace_seq_fwd_field(
 // the one with the Fresnel kinds, 6 the one with the coatings, 7 the one
 // with the diffractive kinds, 8 the one with the fuzzy programs (of
 // `fuzzy_words` words), 9 the one with the freeform surfaces (and programs
-// of `fuzzy_words` words), 10 the one with the field (likewise).  Returns a
-// cudaError_t.
+// of `fuzzy_words` words), 10 the one with the field (likewise), 11 the one
+// with GRIN rods.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int fuzzy_words,
                                            int* blocks) {
   (void)n_bounces;
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 6,
-                                   code >= 8 ? fuzzy_words : 0, code >= 9);
+  const bool side = code >= 6 && code <= 10;
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, side,
+                                   side && code >= 8 ? fuzzy_words : 0, side && code >= 9);
   cudaError_t e;
   const void* fn = kernel_of(code, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -60,6 +60,24 @@ def cross(u, v):
             u[0] * v[1] - u[1] * v[0])
 
 
+def rotate_between(a, b, v):
+    """Apply the minimal rotation taking unit vector ``a`` to unit vector
+    ``b`` to ``v`` (Rodrigues, normalize-free form):
+
+        R(v) = c v + w x v + w (w . v) / (1 + c),   c = a.b, w = a x b
+
+    the parallel transport of a polarization frame along a bending ray
+    (core/grin.py).  It preserves norms and maps a-transverse vectors to
+    b-transverse ones; 1 + c is held at 1e-6 or more (a 180-degree flip has
+    no minimal axis, and no caller's ray reverses within one step)."""
+    c = dot(a, b)
+    w = cross(a, b)
+    s = dot(w, v) / torch.clamp(1.0 + c, min=1e-6)
+    return (c * v[0] + (w[1] * v[2] - w[2] * v[1]) + w[0] * s,
+            c * v[1] + (w[2] * v[0] - w[0] * v[2]) + w[1] * s,
+            c * v[2] + (w[0] * v[1] - w[1] * v[0]) + w[2] * s)
+
+
 def rot(v, R):
     """v @ R as nine scalar products."""
     x, y, z = v

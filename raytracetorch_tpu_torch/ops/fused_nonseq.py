@@ -82,6 +82,13 @@ The kernels' notes are in their sources.  In this module:
   ``K6_FIELD_CHECKPOINTS`` bounces of ``K6_FIELD_STATE_WORDS`` words in
   shared memory; a table that needs more than ``MAX_SHARED_BYTES`` raises
   NotImplementedError when it would run backward (``check_field_shared``).
+- GRIN rods run in K5's and K6's instantiation with them, built on the one
+  with the streams (``fused_trace.grin_kinds``;
+  ``fused_trace.GRIN_LAUNCHES``), with the refusals of
+  ``fused_trace.check_grin_kinds``: the scan lets a rod's entry face win
+  only a ray travelling +z in the rod frame, and the winner runs the whole
+  rod once (csrc/grin.cuh), where the JAX kernel runs it for every
+  candidate row.
 - K5 and K6 keep each thread's moment sums of at most ``MAX_MOMENT_PAIRS``
   (64) (slot, bundle) pairs (in local memory, the bucket of 64 of
   csrc/trace_nonseq_fwd.cu): a scene with more raises NotImplementedError
@@ -109,6 +116,7 @@ from .fused_trace import (COAT_SIDE, COMPS, FF_SIDE, FIELD_KEYS, NO_STREAMS,
                           field_buffer, field_kinds, flat_inputs,
                           freeform_kinds, fresnel_kinds, fused_forward,
                           fuzzy_args, fuzzy_buffer, fuzzy_kinds, TraceMeta,
+                          check_grin_args, grin_kinds,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
                           plate_maps, plate_rows, ptr, saved_field,
@@ -278,8 +286,8 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
     return trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, n_bounces, maps,
                                  ext_kinds(static_meta), **flags.stream_kw(),
                                  fresnel=fresnel_kinds(static_meta), key=key,
-                                 field=field, **side_buffers(static_meta,
-                                                             flat.device))
+                                 field=field, grin=grin_kinds(static_meta),
+                                 **side_buffers(static_meta, flat.device))
 
 
 def side_buffers(static_meta, device):
@@ -399,7 +407,7 @@ def _nonseq_backward(ctx, grads, need):
             g_opl=g_aux.get('opl'), g_nfinal=g_aux.get('n_final'),
             opl=ctx.flags.track_opl, fresnel=fresnel_kinds(ctx.meta),
             key=ctx.draws, field=field, g_field=g_field,
-            **side_buffers(ctx.meta, flat.device))
+            grin=grin_kinds(ctx.meta), **side_buffers(ctx.meta, flat.device))
     else:
         res = trace_nonseq_bwd_plain(
             flat, rays, ctx.cfg, ctx.meta, ctx.n_bounces, g_rays, g_moments,
@@ -500,7 +508,7 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           n_bounces, maps=None, ext=False, track_opl=False,
                           record_paths=False, record_hits=False,
                           fresnel=False, key=None, coat=None, diff=False,
-                          fuzzy=None, ff=None, field=None):
+                          fuzzy=None, ff=None, field=None, grin=None):
     """Launch K5 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -524,8 +532,10 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     (not on the diffractive kinds, fuzzy programs or freeform surfaces:
     ``diff``, ``fuzzy`` and ``ff`` must be off), which reads ``coat``
     (``coat_side`` of a ``TraceMeta`` with ``field`` gives it); ``aux`` then
-    holds the final field's six streams as ``FIELD_KEYS``.  More than
-    MAX_MOMENT_PAIRS slots x bundles raise NotImplementedError."""
+    holds the final field's six streams as ``FIELD_KEYS``.  ``grin`` as for
+    ``fused_trace.trace_seq_fwd_cuda`` (None: read it off ``kinds``): the
+    instantiation with GRIN rods, built on the one with the streams.  More
+    than MAX_MOMENT_PAIRS slots x bundles raise NotImplementedError."""
     global NONSEQ_LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits,
                         field is not None)
@@ -534,11 +544,13 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
     _check_field_args(field, coat, diff, fuzzy, ff)
+    grin = check_grin_args(kinds, grin, fresnel, key, coat, diff, fuzzy, ff,
+                           field)
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
-    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
-                           device)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel or grin),
+                           rays, device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     partials = torch.empty(-(-n // THREADS), n_slots, n_bundles, N_MOMENTS,
@@ -555,7 +567,11 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if field is not None:
+            if grin:
+                rc = kernel('rtt_trace_nonseq_fwd_grin')(
+                    *args, *stream_args(bufs, nonseq=True), int(n_bounces), n,
+                    stream(device))
+            elif field is not None:
                 rc = kernel('rtt_trace_nonseq_fwd_field')(
                     *args, *stream_args(bufs, nonseq=True), *key_args[:2],
                     coat.data_ptr(), f_in.data_ptr(), f_out.data_ptr(),
@@ -571,7 +587,7 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        _count(ext, flags.any, fresnel, coat, diff, fuzzy, ff, field)
+        _count(ext, flags.any, fresnel, coat, diff, fuzzy, ff, field, grin)
     out = rays.replace(**dict(zip(COMPS, outs)))
     sensors = SensorState(moments=partials.sum(dim=0), grid=grid)
     if flags.any:
@@ -582,9 +598,11 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     return out, sensors
 
 
-def _count(ext, streams, fresnel, coat, diff, fuzzy, ff, field):
+def _count(ext, streams, fresnel, coat, diff, fuzzy, ff, field, grin=False):
     """Count a K5 or K6 launch in its instantiation's counter."""
-    if field is not None:
+    if grin:
+        fused_trace.GRIN_LAUNCHES += 1
+    elif field is not None:
         fused_trace.FIELD_LAUNCHES += 1
     elif ff is not None:
         fused_trace.FREEFORM_LAUNCHES += 1
@@ -623,7 +641,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                           need_wavelength=False, g_opl=None, g_nfinal=None,
                           opl=False, fresnel=False, key=None, coat=None,
                           diff=False, fuzzy=None, ff=None, field=None,
-                          g_field=None):
+                          g_field=None, grin=None):
     """Launch K6 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended kinds)
     their cotangents (or None) next, with ``need_wavelength`` the
@@ -653,18 +671,22 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     all 32 ff columns' cotangents, ``fused_trace.FF_TERM_COLS``), and
     ``field`` too (the one with the field, built on the one with the
     coatings, as for ``trace_nonseq_fwd_cuda``), with ``g_field`` the final
-    field's six cotangents (each None for zero)."""
+    field's six cotangents (each None for zero), and ``grin`` too (the one
+    with GRIN rods, built on the one with the path length, which it takes
+    whatever ``opl``)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
     _check_field_args(field, coat, diff, fuzzy, ff)
+    grin = check_grin_args(kinds, grin, fresnel, key, coat, diff, fuzzy, ff,
+                           field)
     opl = opl or field is not None
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
-    ext = ext or need_wavelength or opl or fresnel
+    ext = ext or need_wavelength or opl or fresnel or grin
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
@@ -703,7 +725,11 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if field is not None:
+            if grin:
+                rc = kernel('rtt_trace_nonseq_bwd_grin')(
+                    *args, ptr(g_opl), ptr(g_nfinal), int(n_bounces), n,
+                    stream(device))
+            elif field is not None:
                 rc = kernel('rtt_trace_nonseq_bwd_field')(
                     *args, ptr(g_opl), ptr(g_nfinal), *key_args[:2],
                     coat.data_ptr(), f_in.data_ptr(), ptr(g_fout),
@@ -720,7 +746,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        _count(ext, opl, fresnel, coat, diff, fuzzy, ff, field)
+        _count(ext, opl, fresnel, coat, diff, fuzzy, ff, field, grin)
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                    device, g_wl)
     if field is not None:

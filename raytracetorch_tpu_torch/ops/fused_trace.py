@@ -150,6 +150,20 @@ module:
   whose stack acts on the field alone, carries its coating bits
   (``coat_bits``) in a trace with the field only.  The thicknesses'
   cotangents land in ``COAT_GRAD_COLS``.
+- GRIN rods (``GrinRod``, a GRIN row: core/grin.py; ``grin_kinds``, and
+  ``grin_rows`` of the kinds tensor in the wrappers) run in one more
+  instantiation of each of K1, K2, K5 and K6, built on the one with
+  the streams (K1, K5) or the path length (K2, K6), so that every other
+  instantiation keeps its code; their launches count in ``GRIN_LAUNCHES``,
+  not in ``STREAM_LAUNCHES`` or ``EXT_LAUNCHES``.  A rod's RK4 step count
+  rides its kinds row's last column; its cotangents land in ph[0:6]
+  (n_ambient, c0, c2, c4, cz, L) and the pose columns, all among
+  ``EXT_GRAD_COLS``.  A trace of GRIN rows with the Fresnel kinds,
+  coatings, diffractive, fuzzy or freeform rows (ROADMAP Queue 1 position
+  3c), under the field (position 4b) or with more than ``MAX_GRIN_STEPS``
+  steps raises NotImplementedError on either device (``check_grin_kinds``);
+  the eager traces take them.  ``trace_sequential_v1`` refuses GRIN rows,
+  as the TPU kernel it stands for does.
 - The kernels take up to ``MAX_BUNDLES`` (18) bundles, the JAX kernels'
   limit (n_bundles * 7 <= 128).  K5 and K6 keep per-thread moment sums of
   at most 64 (slot, bundle) pairs: more raise NotImplementedError
@@ -209,6 +223,9 @@ FREEFORM_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with the field
 FIELD_LAUNCHES = 0
+# launches of K1, K2, K5 and K6 (each also counted above or in
+# ops/fused_nonseq.py) in their instantiation with GRIN rods
+GRIN_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -244,6 +261,11 @@ JONES_CRYSTALS = ('QUARTZ', 'MGF2', 'CALCITE')
 # The six planar streams of the field (core/field.py::FieldState), as the
 # autograd Functions' outputs and the kernels' [6, N] buffers name them.
 FIELD_KEYS = tuple('field_' + f for f in FieldState.FIELDS)
+# A GRIN row's RK4 step count rides its kinds row's last column (the map
+# column, a PHASE_GRID row's alone).  K2 and K6 recompute a rod's steps
+# from checkpoints in a per-thread array sized for MAX_GRIN_STEPS
+# (csrc/grin.cuh::kMaxGrinSteps; ROADMAP Queue 2 I).
+MAX_GRIN_STEPS = 256
 # The rows hold their kinds in one block of shared memory and the kernels
 # loop over them: 64 rows fill K2's and K6's 128-register budget's shared
 # memory with their warp slots (ROADMAP Queue 2 I).
@@ -322,8 +344,8 @@ _KEY_FIELD = [ctypes.c_uint32, ctypes.c_uint32, _P]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
 # or the path length, 5 the Fresnel kinds, 6 the coatings, 7 the diffractive
-# kinds, 8 the fuzzy programs, 9 the freeform surfaces, 10 the field), the
-# programs' words, out: resident blocks per SM
+# kinds, 8 the fuzzy programs, 9 the freeform surfaces, 10 the field, 11
+# GRIN rods), the programs' words, out: resident blocks per SM
 _OCCUPANCY = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
@@ -334,6 +356,8 @@ _LIBRARIES = {
         + _GRID + _PLATES + _STREAMS + _UNIFORMS + [_L, _P],
         'rtt_trace_seq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I]
         + _GRID + _PLATES + _STREAMS + _UNIFORMS + _FIELD_FWD + [_L, _P],
+        'rtt_trace_seq_fwd_grin': [_P, _P, _I] + [_P] * 16 + [_I, _I]
+        + _GRID + _PLATES + _STREAMS + [_L, _P],
         'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
@@ -343,6 +367,8 @@ _LIBRARIES = {
         'rtt_trace_seq_bwd_field': [_P, _P, _I] + [_P] * 24 + [_I, _I]
         + _GRID + _PLATES + [_P] + _WAVE + _OPL + _UNIFORMS + _FIELD_BWD
         + [_L, _P],
+        'rtt_trace_seq_bwd_grin': [_P, _P, _I] + [_P] * 24 + [_I, _I]
+        + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
@@ -360,6 +386,8 @@ _LIBRARIES = {
         'rtt_trace_nonseq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I]
         + _GRID + _PLATES + _STREAMS + [_P] + _KEY_FIELD + _FIELD_FWD
         + [_I, _L, _P],
+        'rtt_trace_nonseq_fwd_grin': [_P, _P, _I] + [_P] * 16 + [_I, _I]
+        + _GRID + _PLATES + _STREAMS + [_P] + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY,
         'rtt_philox4x32': [_P, _P, _P, _I, _P]}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
@@ -370,6 +398,8 @@ _LIBRARIES = {
         'rtt_trace_nonseq_bwd_field': [_P, _P, _I] + [_P] * 31 + [_I, _I]
         + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY_FIELD + _FIELD_BWD
         + [_P, _I, _L, _P],
+        'rtt_trace_nonseq_bwd_grin': [_P, _P, _I] + [_P] * 31 + [_I, _I]
+        + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY,
         'rtt_trace_nonseq_bwd_freeform_smem': [_I] * 6 + [
             ctypes.POINTER(ctypes.c_longlong)],
@@ -438,6 +468,38 @@ def freeform_kinds(static_meta):
     """Whether a row is a freeform surface (``meta.ff``), which only the
     kernels' instantiation with freeform surfaces takes."""
     return any(m.ff for m in static_meta)
+
+
+def grin_kinds(static_meta):
+    """Whether a row is a GRIN rod, which only the kernels' instantiation
+    with GRIN rods (built on the one with the streams) takes."""
+    return any(m.ph == PhysKind.GRIN for m in static_meta)
+
+
+def check_grin_kinds(static_meta):
+    """Raise NotImplementedError when a fused trace of GRIN rows has what
+    the kernels' instantiation with them does not take: the polarized field
+    (ROADMAP Queue 1 position 4b) or a kind of an instantiation above the
+    one with the streams (the Fresnel kinds, coatings and metal mirrors, the
+    diffractive and ideal elements, fuzzy apodization, freeform surfaces:
+    position 3c).  The eager traces take all of them."""
+    if not grin_kinds(static_meta):
+        return
+    if field_kinds(static_meta):
+        raise NotImplementedError(
+            'the fused trace takes no GRIN rod under the polarized field '
+            'until ROADMAP Queue 1 position 4b: use simulate')
+    what = [name for name, has in (
+        ('Fresnel kinds', fresnel_kinds(static_meta)),
+        ('coatings or metal mirrors', coating_kinds(static_meta)),
+        ('diffractive or ideal elements (or an ELLIPSE bound)',
+         diffractive_kinds(static_meta)),
+        ('fuzzy apodization', fuzzy_kinds(static_meta)),
+        ('freeform surfaces', freeform_kinds(static_meta))) if has]
+    if what:
+        raise NotImplementedError(
+            f'the fused trace takes no {" or ".join(what)} beside GRIN rods '
+            f'until ROADMAP Queue 1 position 3c: use simulate')
 
 
 def field_kinds(static_meta):
@@ -565,6 +627,15 @@ def dispersive_kinds(kinds):
     return bool((kinds[:, 0] >> DISP_SHIFT).any())
 
 
+def grin_rows(kinds):
+    """Whether a kinds tensor of ``kind_rows`` has a GRIN row (its physics
+    column's kind below the dispersion bits): one copy of the [K, 8] tensor
+    to the host, which picks the K1, K2, K5 and K6 wrappers' instantiation
+    when their caller does not say."""
+    mask = (1 << DISP_SHIFT) - 1
+    return any((row[0] & mask) == PhysKind.GRIN for row in kinds.tolist())
+
+
 def kind_rows(static_meta, cfg: SensorConfig):
     """[K, KIND_WIDTH] int rows the kernels read; raises NotImplementedError
     for anything the kernels do not take.  The surface column holds
@@ -573,8 +644,8 @@ def kind_rows(static_meta, cfg: SensorConfig):
     column adds its two DispModels from bit DISP_SHIFT on, a coated or
     metal row's coating data from bit COAT_SHIFT on (``coat_bits``) and a
     DOE row's term count and efficiency flag from bit DOE_SHIFT on
-    (``doe_bits``); the last column is a PHASE_GRID row's map index (0 for
-    every other row)."""
+    (``doe_bits``); the last column is a PHASE_GRID row's map index or a
+    GRIN row's RK4 step count (0 for every other row)."""
     n_slots = _check_limits(len(static_meta), cfg)
     maps = {k: j for j, k in enumerate(plate_rows(static_meta))}
     rows = []
@@ -585,6 +656,11 @@ def kind_rows(static_meta, cfg: SensorConfig):
         if m.sensor and not 0 <= m.slot < n_slots:
             raise ValueError(f'row {k}: sensor slot {m.slot} outside '
                              f'0..{n_slots - 1}')
+        if m.ph == PhysKind.GRIN and m.grin_steps > MAX_GRIN_STEPS:
+            raise NotImplementedError(
+                f'fused trace, row {k}: a GRIN rod of {m.grin_steps} RK4 '
+                f'steps, over MAX_GRIN_STEPS = {MAX_GRIN_STEPS} (ROADMAP '
+                f'Queue 2 I): use simulate')
         # a row is freeform (its ff columns the monomials' coefficients) or
         # DOE (its ff columns the radial phase's), never both
         surf = (SURF_FREEFORM if m.ff else SURF_ASPHERE if m.asph
@@ -593,8 +669,9 @@ def kind_rows(static_meta, cfg: SensorConfig):
               | jones_bits(m))
         if m.disp:
             ph |= (m.dispm[0] << DISP_SHIFT) | (m.dispm[1] << DISP_SHIFT + 2)
+        last = m.grin_steps if m.ph == PhysKind.GRIN else maps.get(k, 0)
         rows.append([ph, m.sb, m.vb, surf, int(m.sensor), m.slot,
-                     int(m.invert), maps.get(k, 0)])
+                     int(m.invert), last])
     return rows
 
 
@@ -723,7 +800,7 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     ``_kernel``), forward only.
 
     Its contract is the TPU kernel's: no irradiance grid, no stochastic
-    (FRESNEL), GRIN or phase-grid rows (``unsupported`` refuses GRIN), at
+    (FRESNEL), GRIN or phase-grid rows, at
     most 8 sensor slots; FRESNEL_W and REFLECT_W take K1's instantiation
     with the Fresnel kinds, coated and metal rows the one with the
     coatings, the diffractive and ideal elements theirs, freeform surfaces
@@ -745,6 +822,9 @@ def trace_sequential_v1(table, rays, cfg: SensorConfig, static_meta):
     if draws_per_ray(static_meta):
         raise ValueError('trace_sequential_v1 takes no stochastic (FRESNEL) '
                          'rows: use trace_sequential_fused')
+    if grin_kinds(static_meta):
+        raise ValueError('trace_sequential_v1 takes no GRIN rows (as the TPU '
+                         'kernel it stands for): use trace_sequential_fused')
     flat, kinds_t = flat_inputs(table, rays, cfg, static_meta)
     if flat.device.type == 'cpu':
         out, sensors = trace_sequential_fused_plain(flat, rays, cfg,
@@ -779,9 +859,10 @@ def unpack(outs, rays, cfg, flags=NO_STREAMS, nonseq=False):
 def flat_inputs(table, rays, cfg, static_meta):
     """The flat [K, 160] table and the [K, 8] int32 kinds on the rays'
     device, for K1 and K5; raises before anything runs on rows or limits
-    the kernels do not take (a JONES row outside a trace with the field
-    among them)."""
+    the kernels do not take (a JONES row outside a trace with the field and
+    the GRIN rows of ``check_grin_kinds`` among them)."""
     kinds = kind_rows(static_meta, cfg)
+    check_grin_kinds(static_meta)
     if not field_kinds(static_meta) and any(m.ph == PhysKind.JONES
                                             for m in static_meta):
         raise NotImplementedError(
@@ -842,7 +923,7 @@ def _forward(flat, kinds, rays, cfg, static_meta, maps=None,
                               diff=diffractive_kinds(static_meta),
                               fuzzy=fuzzy_buffer(static_meta, flat.device),
                               ff=ff_side(static_meta, flat.device),
-                              field=field)
+                              field=field, grin=grin_kinds(static_meta))
 
 
 def _rays_of(comps, ray_id, wavelength):
@@ -1016,7 +1097,8 @@ def _fused_backward(ctx, grads, need):
                                  fuzzy=fuzzy_buffer(ctx.meta, flat.device),
                                  ff=ff_side(ctx.meta, flat.device),
                                  field=field,
-                                 g_field=[g_aux.get(k) for k in FIELD_KEYS])
+                                 g_field=[g_aux.get(k) for k in FIELD_KEYS],
+                                 grin=grin_kinds(ctx.meta))
     else:
         res = trace_seq_bwd_plain(flat, rays, ctx.cfg, ctx.meta, g_rays,
                                   g_moments, g_grid=g_grid, maps=maps,
@@ -1215,7 +1297,7 @@ def kernel(symbol):
 def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
                   ext=False, disp=False, streams=False, fresnel=False,
                   coat=False, diff=False, fuzzy_words=0, freeform=False,
-                  field=False):
+                  field=False, grin=False):
     """Resident blocks per SM of the instantiation of K1
     (``library='trace_seq_fwd'``), K2 (``'trace_seq_bwd'``), K5
     (``'trace_nonseq_fwd'``) or K6
@@ -1230,12 +1312,14 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     ``fuzzy_words``, the one with fuzzy programs of that many words,
     likewise; with ``freeform``, the one with freeform surfaces, whose
     program buffer has ``fuzzy_words`` words, likewise; with ``field``, the
-    one with the field, likewise) runs, at that launch's dynamic shared
-    memory
+    one with the field, likewise; with ``grin``, the one with GRIN rods,
+    built on the one with the streams, likewise) runs, at that launch's
+    dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (10 if field else 9 if freeform else 8 if fuzzy_words
+    code = (11 if grin else 10 if field else 9 if freeform
+            else 8 if fuzzy_words
             else 7 if diff else 6 if coat
             else 5 if fresnel
             else 4 if streams else (3 if disp else 2) if ext
@@ -1380,7 +1464,7 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                        record_paths=False, record_hits=False,
                        fresnel=False, uniforms=None,
                        coat=None, diff=False, fuzzy=None, ff=None,
-                       field=None):
+                       field=None, grin=None):
     """Launch K1 on the current stream -> ``(rays, SensorState)``, with any
     stream ``(rays, SensorState, aux)``.
 
@@ -1410,13 +1494,18 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     on the one with freeform surfaces, which reads ``coat``, ``fuzzy`` and
     ``ff`` so (``coat_side``, ``fuzzy_buffer`` and ``ff_side`` give them for
     a ``TraceMeta`` with ``field``); ``aux`` then holds the final field's six
-    streams as ``FIELD_KEYS``."""
+    streams as ``FIELD_KEYS``.  ``grin`` (the table has a GRIN row,
+    ``grin_kinds``; None: read it off ``kinds``, ``grin_rows``, one copy to
+    the host) runs the instantiation with GRIN rods, built on the one with
+    the streams (which it also takes, whatever the flags): ``fresnel``,
+    ``uniforms``, ``coat``, ``diff``, ``fuzzy``, ``ff`` and ``field`` must
+    then be off (``check_grin_args``; ``check_grin_kinds`` for a trace)."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits,
                         field is not None)
     res = _seq_fwd_launch(flat_table, kinds, rays, cfg, maps,
                           'trace_seq_fwd_cuda', ext, flags, fresnel, uniforms,
-                          coat, diff, fuzzy, ff, field)
+                          coat, diff, fuzzy, ff, field, grin)
     LAUNCHES += res[-1]
     return res[:-1]
 
@@ -1533,13 +1622,17 @@ def field_buffer(field, n, device):
 
 def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                     flags=NO_STREAMS, fresnel=False, uniforms=None,
-                    coat=None, diff=False, fuzzy=None, ff=None, field=None):
+                    coat=None, diff=False, fuzzy=None, ff=None, field=None,
+                    grin=None):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
     global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
     global DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES, FIELD_LAUNCHES
+    global GRIN_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
+    grin = check_grin_args(kinds, grin, fresnel, uniforms, coat, diff, fuzzy,
+                           ff, field)
     if field is not None and (coat is None or fuzzy is None or ff is None):
         raise ValueError('the instantiation with the field reads the side '
                          'buffers: pass coat=, fuzzy= and ff= of a TraceMeta '
@@ -1547,8 +1640,8 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
     draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy, ff)
-    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel), rays,
-                           device)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel or grin),
+                           rays, device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     n_blocks = -(-n // THREADS)
@@ -1567,7 +1660,10 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if field is not None:
+            if grin:
+                rc = kernel('rtt_trace_seq_fwd_grin')(
+                    *args, *stream_args(bufs), n, stream(device))
+            elif field is not None:
                 rc = kernel('rtt_trace_seq_fwd_field')(
                     *args, *stream_args(bufs), *draws, f_in.data_ptr(),
                     f_out.data_ptr(), n, stream(device))
@@ -1581,7 +1677,9 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if field is not None:
+        if grin:
+            GRIN_LAUNCHES += 1
+        elif field is not None:
             FIELD_LAUNCHES += 1
         elif ff is not None:
             FREEFORM_LAUNCHES += 1
@@ -1613,7 +1711,7 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                        disp=None, need_wavelength=False, g_opl=None,
                        g_nfinal=None, opl=False, fresnel=False,
                        uniforms=None, coat=None, diff=False, fuzzy=None,
-                       ff=None, field=None, g_field=None):
+                       ff=None, field=None, g_field=None, grin=None):
     """Launch K2 on the current stream -> ``(g_flat [K, 160] or None, 7
     input-ray cotangents or None)``, with phase maps (or the extended
     kinds) their cotangents (or None) third, with ``need_wavelength``
@@ -1643,12 +1741,17 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     as there: the one with freeform surfaces, which reverses the freeform
     rows' Newton steps and reduces all 32 ff columns (``FF_TERM_COLS``);
     ``field`` as there: the one with the field, with ``g_field`` the final
-    field's six cotangents (each None for zero)."""
+    field's six cotangents (each None for zero); ``grin`` as there: the one
+    with GRIN rods, built on the one with the path length (which it takes,
+    whatever ``opl``), which reverses each rod's RK4 steps from checkpoints
+    (csrc/grin.cuh)."""
     global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
     global COAT_LAUNCHES, DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES
-    global FIELD_LAUNCHES
+    global FIELD_LAUNCHES, GRIN_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
+    grin = check_grin_args(kinds, grin, fresnel, uniforms, coat, diff, fuzzy,
+                           ff, field)
     if field is not None and (coat is None or fuzzy is None or ff is None):
         raise ValueError('the instantiation with the field reads the side '
                          'buffers: pass coat=, fuzzy= and ff= of a TraceMeta '
@@ -1656,7 +1759,7 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     opl = opl or field is not None
     fresnel = fresnel or coat is not None
     diff = diff or fuzzy is not None
-    ext = ext or need_wavelength or opl or fresnel
+    ext = ext or need_wavelength or opl or fresnel or grin
     draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy, ff)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
@@ -1692,7 +1795,10 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                 *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if field is not None:
+            if grin:
+                rc = kernel('rtt_trace_seq_bwd_grin')(
+                    *args, ptr(g_opl), ptr(g_nfinal), n, stream(device))
+            elif field is not None:
                 rc = kernel('rtt_trace_seq_bwd_field')(
                     *args, ptr(g_opl), ptr(g_nfinal), *draws, f_in.data_ptr(),
                     ptr(g_fout), c_field.data_ptr(), n, stream(device))
@@ -1707,7 +1813,9 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if field is not None:
+        if grin:
+            GRIN_LAUNCHES += 1
+        elif field is not None:
             FIELD_LAUNCHES += 1
         elif ff is not None:
             FREEFORM_LAUNCHES += 1
@@ -1726,6 +1834,24 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                    device, g_wl)
     return res + (tuple(c_field),) if field is not None else res
+
+
+def check_grin_args(kinds, grin=None, fresnel=False, uniforms=None,
+                    coat=None, diff=False, fuzzy=None, ff=None, field=None):
+    """Whether the K1, K2, K5 and K6 wrappers run their instantiation with
+    GRIN rods: ``grin``, or with None whether ``kinds`` has a GRIN row
+    (``grin_rows``); raises if that instantiation (built on the one with the
+    streams) would get a kind it is not built on (``check_grin_kinds`` says
+    so for a trace)."""
+    if grin is None:
+        grin = grin_rows(kinds)
+    if grin and (fresnel or uniforms is not None or coat is not None or diff
+                 or fuzzy is not None or ff is not None or field is not None):
+        raise ValueError('the instantiation with GRIN rods is built on the '
+                         'one with the streams: no fresnel, uniforms, coat, '
+                         'diff, fuzzy, ff or field (ROADMAP Queue 1 '
+                         'positions 3c, 4b)')
+    return grin
 
 
 def check_streams(grads, n, device):

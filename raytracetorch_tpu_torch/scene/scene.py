@@ -178,7 +178,7 @@ class Scene:
                         metal=r.is_metal, metal_nk=r.metal_nk,
                         coat_k=r.coat_k, ff=r.ff_powers or None,
                         doe=r.doe, jones_chrom=r.jones_chrom,
-                        jones_bire=r.jones_bire))
+                        jones_bire=r.jones_bire, grin_steps=r.grin_steps))
                 if el.is_sensor:
                     slot += 1
             self._static_meta = meta

@@ -2276,3 +2276,80 @@ def test_field_nonseq_kernels_match_plain(name, dev):
     assert res['replay_equal'] and res['replay_field_equal']
     assert res['bwd']['field']['rays_differ'] <= res['bwd']['field'][
         'allowed']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', chip_smoke.GRIN_SEQ_CASES
+                         + chip_smoke.GRIN_NS_CASES)
+def test_grin_kernels_match_plain(name, dev):
+    """K1 and K2 (the quarter-pitch rod, the relay, the mixed table) and K5
+    and K6 (the rod as a Scene, with barrel kills; the rod whose axial term
+    takes rays to their turning points) in their instantiation with GRIN
+    rods against their plain versions, with the path length
+    (chip_smoke.py section 20's bounds): rays, moments, path lengths, the
+    rays a rod kills, cotangents and K6's replay equal to K5 bit for
+    bit."""
+    res = chip_smoke.grin_kernels_vs_plain(trt, torch, name, N, dev, 95)
+    assert res['killed_differ'] <= res['apart']
+    if name in chip_smoke.GRIN_NS_CASES:
+        assert res['replay_equal'] and res['killed'] > 0
+
+
+@pytest.mark.cuda
+def test_grin_paths_launch_their_instantiation(dev):
+    """simulate_fused of a rod launches K1 (a Scene: K5) in the
+    instantiation with GRIN rods, its grad step K1 + K2 (K5 + K6), and the
+    fused gradients in n0 and grin_A equal the eager ones; K0's counterpart
+    refuses the rod."""
+    for name in ('quarter', 'ns'):
+        sc = chip_smoke.grin_scene(trt, name)
+        rays = chip_smoke.grin_rays(trt, torch, name, N, dev, 96)
+        grads = []
+        for simulate in ('simulate_fused', 'simulate'):
+            p = sc.init_params(dev)
+            leaves = [p['rod'][k].requires_grad_(True)
+                      for k in ('n0', 'grin_A')]
+            fused_trace.LAUNCHES = fused_trace.BWD_LAUNCHES = 0
+            fused_nonseq.NONSEQ_LAUNCHES = fused_nonseq.NONSEQ_BWD_LAUNCHES = 0
+            fused_trace.GRIN_LAUNCHES = fused_trace.STREAM_LAUNCHES = 0
+            loss = getattr(sc, simulate)(p, rays)[1].spot_rms(0)[0]
+            grads.append(torch.stack(torch.autograd.grad(loss, leaves)))
+            torch.cuda.synchronize()
+            if simulate == 'simulate_fused':
+                pair = ((fused_nonseq.NONSEQ_LAUNCHES,
+                         fused_nonseq.NONSEQ_BWD_LAUNCHES) if name == 'ns'
+                        else (fused_trace.LAUNCHES, fused_trace.BWD_LAUNCHES))
+                assert pair == (1, 1)
+                assert (fused_trace.GRIN_LAUNCHES,
+                        fused_trace.STREAM_LAUNCHES) == (2, 0)
+        torch.testing.assert_close(grads[0], grads[1],
+                                   rtol=chip_smoke.GRIN_GRAD_RTOL, atol=0)
+    sc = chip_smoke.grin_scene(trt, 'quarter')
+    with pytest.raises(ValueError, match='GRIN'):
+        fused_trace.trace_sequential_v1(sc.build_table(sc.init_params(dev)),
+                                        rays, sc.sensor_config(),
+                                        sc.static_meta())
+
+
+@pytest.mark.cuda
+def test_grin_instantiations_are_built(dev):
+    """K1 and K6 build one overload with GRIN rods, K2 one for each home of
+    its saved states and K5 one for each moment bucket; each has its
+    registers, and each keeps a block resident on an SM on the section 20
+    scenes."""
+    from raytracetorch_tpu_torch.ops import nvcc_build
+    logs = fused_trace.build()
+    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
+            'trace_nonseq_bwd': 1}
+    for lib, count in want.items():
+        usage = nvcc_build.ptxas_usage(logs[lib][0])
+        found = [k for k in usage if f'{lib}_kernel' in k and 'GrinRows' in k]
+        assert len(found) == count, (lib, found)
+        assert all(usage[k]['registers'] for k in found)
+    for name, libs in (('mixed', ('trace_seq_fwd', 'trace_seq_bwd')),
+                       ('ns', ('trace_nonseq_fwd', 'trace_nonseq_bwd'))):
+        sc = chip_smoke.grin_scene(trt, name)
+        for lib in libs:
+            assert fused_trace.blocks_per_sm(
+                lib, len(sc.static_meta()), sc.sensor_config(), True,
+                getattr(sc, 'n_bounces', 0), ext=True, grin=True) >= 1, lib

@@ -414,21 +414,32 @@ def test_bundle_limits():
 
 
 @pytest.mark.parametrize('meta', [
-    dict(ph=12, sb=0, vb=0),                   # GRIN
+    dict(ph=12, sb=1, vb=0, plane=True, grin_steps=64),   # GRIN
     dict(ph=10, sb=0, vb=0),                   # SCATTER
     dict(ph=10, sb=6, vb=5),                   # SCATTER on a solid cone
     dict(ph=11, sb=0, vb=0),                   # JONES
 ])
 def test_refused_kinds_name_their_item(meta):
-    """GRIN and SCATTER rows still raise NotImplementedError naming their
-    ROADMAP item, eagerly and in the fused traces, whatever their bounds
-    (SCATTER scenes: tests/test_torch_coated_trace.py; freeform faces trace
-    now: tests/test_torch_freeform.py; the CONE_NAPPE and HALFSPACES
-    bounds: tests/test_torch_solids.py).  A JONES row traces with the
-    polarized field (tests/test_torch_field.py): the fused trace takes its
-    kinds under the field and refuses it without, naming the field."""
+    """SCATTER rows still raise NotImplementedError naming their ROADMAP
+    item, eagerly and in the fused traces, whatever their bounds (SCATTER
+    scenes: tests/test_torch_coated_trace.py; freeform faces trace now:
+    tests/test_torch_freeform.py; the CONE_NAPPE and HALFSPACES bounds:
+    tests/test_torch_solids.py).  A JONES row traces with the polarized
+    field (tests/test_torch_field.py): the fused trace takes its kinds under
+    the field and refuses it without, naming the field.  A GRIN row traces
+    (tests/test_torch_grin.py): the fused trace takes its kinds, its RK4
+    step count in the last column, and under the field refuses it naming
+    its ROADMAP item (Queue 1 position 4b)."""
     m = StaticRowMeta(**meta)
     cfg = trt.SensorConfig(n_sensors=0, n_bundles=1)
+    if m.ph == trt.PhysKind.GRIN:
+        assert unsupported(m) is None
+        assert fused_trace.kind_rows([m], cfg)[0] == [12, 1, 0, 1, 0, 0, 0,
+                                                      64]
+        with pytest.raises(NotImplementedError, match='ROADMAP.*4b'):
+            fused_trace.check_grin_kinds(
+                fused_trace.TraceMeta([m], field=True))
+        return
     if m.ph == trt.PhysKind.JONES:
         assert unsupported(m) is None
         assert fused_trace.kind_rows(

@@ -166,10 +166,11 @@ def _ellipse_scene():
 
 
 def _grin_scene():
-    # a GRIN row: its RK4 march is not ported
+    # a GRIN rod: it traces (tests/test_torch_grin.py), but not under the
+    # polarized field on the fused path
     return jrt.SequentialScene([
-        ElementCustom(shapes.plane, 1, PhysKind.GRIN, ph=(1.5, 1.0),
-                      name='grin'),
+        jrt.GrinRod(radius=5.0, thickness=10.0, n_steps=8,
+                    translation=[0, 0, 5.0], name='grin'),
         jrt.SensorElement(radius=50.0, translation=[0, 0, 25.0],
                           name='sensor')])
 
@@ -190,9 +191,19 @@ def _box_scene():
 def test_dispatcher_raises_on_unsupported_rows(make):
     """Rows the fused trace does not take raise NotImplementedError naming
     their ROADMAP item; a JONES row (ported with the polarized field) raises
-    naming the field it needs when the trace carries none."""
+    naming the field it needs when the trace carries none; a GRIN rod
+    traces, and under the polarized field raises naming ROADMAP Queue 1
+    position 4b (the field through the rod in the kernels)."""
     scene = make()
     table, rays, cfg, meta = _port_inputs(scene, _rays(64, 1, seed=0), 1)
+    if make is _grin_scene:
+        out, _ = trt.trace_sequential_fused(table, rays, cfg, meta)
+        assert bool(torch.isfinite(out.px).all())
+        assert float((out.intensity > 0).float().mean()) > 0.5
+        with pytest.raises(NotImplementedError, match='ROADMAP.*4b'):
+            trt.trace_sequential_fused(table, rays, cfg, meta,
+                                       track_field=True)
+        return
     why = 'track_field' if make is _jones_scene else 'ROADMAP'
     with pytest.raises(NotImplementedError, match=why):
         trt.trace_sequential_fused(table, rays, cfg, meta)
