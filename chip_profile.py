@@ -89,7 +89,14 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
 - GRIN rods (chip_smoke.py section 20): K1 and K2 in their instantiation
   with GRIN rods on the quarter-pitch rod and the mixed table (with the
   path length), K5 and K6 on the rod as a Scene, and example 24's design
-  scene's ``simulate_fused`` and grad step (n0 and grin_A) on 1M rays.
+  scene's ``simulate_fused`` and grad step (n0 and grin_A) on 1M rays;
+- the kind mix (chip_smoke.py section 21): K1 and K2 in their family
+  instantiation on each sequential case (a GRIN rod beside a Fresnel,
+  coated, diffractive, fuzzy or freeform row), K5 and K6 on the rod as a
+  Scene beside a coated window and a grating, and K5 and K6 in the field's
+  instantiation on the field cases (a DOE, a microlens array, an apodized
+  pupil, example 19's corrector), each with the path length or the field,
+  on the JAX package's rays.
 
 The last line names the card and its power limit as nvidia-smi gives
 them.  A call whose profile holds no device time reports null there.
@@ -821,21 +828,21 @@ def main():
     for name in ('naive', 'fold'):
         fsc, fp, fr, fe0, _ = cs.field_ns_case(rt, torch, name, n, dev,
                                                cs.FIELD_NS_SEED + 7)
-        fmeta, fcfg, fflat, fkinds, fmaps, ffield, fcoat = cs.field_ns_inputs(
+        fmeta, fcfg, fflat, fkinds, fmaps, ffield, fside = cs.field_ns_inputs(
             rt, torch, fsc, fp, fr, fe0, dev)
         fgm = torch.ones(1, 1, 7, device=dev)
         label = f'field_ns_{name}'
         calls[f'{label}_k5'] = (
             lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
-            co=fcoat, nb=fsc.n_bounces: fused_nonseq.trace_nonseq_fwd_cuda(
-                f, k, r, c, nb, m, True, fresnel=True, coat=co, field=e),
+            s=fside, nb=fsc.n_bounces: fused_nonseq.trace_nonseq_fwd_cuda(
+                f, k, r, c, nb, m, True, fresnel=True, field=e, **s),
             'trace_nonseq_fwd_kernel')
         calls[f'{label}_k6'] = (
             lambda f=fflat, k=fkinds, r=fr, c=fcfg, m=fmaps, e=ffield,
-            co=fcoat, nb=fsc.n_bounces, g=fgm:
+            s=fside, nb=fsc.n_bounces, g=fgm:
             fused_nonseq.trace_nonseq_bwd_cuda(
                 f, k, r, c, nb, (None,) * 7, g, maps=m, ext=True,
-                fresnel=True, coat=co, field=e, g_field=[r.px] * 6),
+                fresnel=True, field=e, g_field=[r.px] * 6, **s),
             'trace_nonseq_bwd_kernel')
     nfsc = cs.field_ns_scene(rt, 'fold')
     nf_p = nfsc.init_params(dev)
@@ -900,6 +907,47 @@ def main():
             lambda: rod_sc.simulate_fused(rod_p, rod_rays),
             'trace_seq_fwd_kernel'),
         'grin_grad_step_fused_design': (rod_step, 'trace_seq_bwd')})
+    # the kind mix (section 21)
+    for name in cs.MIX_SEQ_CASES + cs.MIX_NS_CASES + cs.MIX_FIELD_CASES:
+        xsc = cs.mix_scene(rt, name, torch)
+        xp = xsc.init_params(dev)
+        xr = cs.mix_rays(rt, torch, name, n, dev)
+        xmeta, xcfg, xflat, xkinds, xmaps, xext, xside = cs.mix_inputs(
+            rt, torch, xsc, xp, name, dev)
+        xgm = torch.ones(max(xcfg.n_sensors, 1), xcfg.n_bundles, 7,
+                         device=dev)
+        xu = cs.mix_uniforms(torch, xmeta, n, dev)
+        xfield = None
+        if name in cs.MIX_FIELD_CASES:
+            from raytracetorch_tpu_torch.core.field import FieldState
+            xfield = FieldState.init(xr, list(cs.MIX_E0)).streams()
+        if xsc.sequential:
+            calls[f'mix_{name}_k1'] = (
+                lambda f=xflat, k=xkinds, r=xr, c=xcfg, m=xmaps, e=xext,
+                u=xu, s=xside: fused_trace.trace_seq_fwd_cuda(
+                    f, k, r, c, m, e, track_opl=True, uniforms=u, **s),
+                'trace_seq_fwd_kernel')
+            calls[f'mix_{name}_k2'] = (
+                lambda f=xflat, k=xkinds, r=xr, c=xcfg, m=xmaps, e=xext,
+                u=xu, s=xside, g=xgm: fused_trace.trace_seq_bwd_cuda(
+                    f, k, r, c, (r.px,) + (None,) * 6, g, maps=m, ext=e,
+                    opl=True, g_opl=r.px, uniforms=u, **s),
+                'trace_seq_bwd')
+            continue
+        calls[f'mix_{name}_k5'] = (
+            lambda f=xflat, k=xkinds, r=xr, c=xcfg, m=xmaps, e=xext,
+            nb=xsc.n_bounces, s=xside, fld=xfield:
+            fused_nonseq.trace_nonseq_fwd_cuda(
+                f, k, r, c, nb, m, e, track_opl=True, field=fld, **s),
+            'trace_nonseq_fwd_kernel')
+        calls[f'mix_{name}_k6'] = (
+            lambda f=xflat, k=xkinds, r=xr, c=xcfg, m=xmaps, e=xext,
+            nb=xsc.n_bounces, s=xside, g=xgm, fld=xfield:
+            fused_nonseq.trace_nonseq_bwd_cuda(
+                f, k, r, c, nb, (r.px,) + (None,) * 6, g, maps=m, ext=e,
+                opl=True, g_opl=r.px, field=fld,
+                g_field=None if fld is None else [r.px] * 6, **s),
+            'trace_nonseq_bwd_kernel')
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])

@@ -3372,13 +3372,15 @@ def coating_phases(rt, torch, dev, reset_counters, counters, only):
     out, sens, _ = sc.simulate_fused(sc.init_params(dev), rays)
     torch.cuda.synchronize()
     fwd = counters()
-    check(only(fwd, trace_seq_fwd=1, coat=1),
+    # the family instantiation counts in each family it ran with: the
+    # coated faces are FRESNEL_W rows
+    check(only(fwd, trace_seq_fwd=1, fresnel=1, coat=1),
           f'coated singlet simulate_fused launched {fwd}')
     reset_counters()
     g_f, loss_f = grads(sc, sc.simulate_fused, keys, rays, rt.spot_size_loss)
     torch.cuda.synchronize()
     gl = counters()
-    check(only(gl, trace_seq_fwd=1, trace_seq_bwd=1, coat=2),
+    check(only(gl, trace_seq_fwd=1, trace_seq_bwd=1, fresnel=2, coat=2),
           f'coated singlet grad step launched {gl}')
     g_e, loss_e = grads(sc, sc.simulate, keys, rays, rt.spot_size_loss)
     flux = float(out.intensity.double().mean())
@@ -3420,7 +3422,8 @@ def coating_phases(rt, torch, dev, reset_counters, counters, only):
         d_opt=float(coat_d.detach()[0]), d_qw=COAT_QW, launches=d_launches,
         seconds=time.perf_counter() - t0)
     check(only(d_launches, trace_nonseq_fwd=150, trace_nonseq_bwd=150,
-               coat=300), f'the coat design launched {d_launches}')
+               fresnel=300, coat=300),
+          f'the coat design launched {d_launches}')
     check(abs(paths['coat_design']['d_opt'] - COAT_QW) <= COAT_DESIGN_TOL,
           f'coat design ended at {paths["coat_design"]["d_opt"]} (QW '
           f'{COAT_QW})')
@@ -3434,7 +3437,8 @@ def coating_phases(rt, torch, dev, reset_counters, counters, only):
             generator=torch.Generator(device=dev).manual_seed(COAT_SEED))
         torch.cuda.synchronize()
         fl = counters()
-        check(only(fl, **{lib: 1, 'coat': 1}), f'{label} launched {fl}')
+        check(only(fl, **{lib: 1, 'fresnel': 1, 'coat': 1}),
+              f'{label} launched {fl}')
         paths[label] = dict(launches=fl,
                             forward=float((out.dz > 0).float().mean()),
                             sensor_share=float(sens.moments[0, 0, 6]) /
@@ -4435,7 +4439,9 @@ def fuzzy_phases(rt, torch, dev, reset_counters, counters, only):
         out_f, s_f, _ = sc.simulate_fused(params, rays)
     torch.cuda.synchronize()
     fl = counters()
-    check(only(fl, trace_seq_fwd=1, fuzzy=1), f'pupil launched {fl}')
+    # the pupil's IdealThinLens is of the diffractive family
+    check(only(fl, trace_seq_fwd=1, diff=1, fuzzy=1),
+          f'pupil launched {fl}')
     out_e, s_e, _ = sc.simulate(params, rays)
     share = float(out_f.intensity.double().sum()) / rays.n
     flips = int(((out_f.intensity - out_e.intensity).abs() > 0.5).sum())
@@ -4504,7 +4510,9 @@ def fuzzy_phases(rt, torch, dev, reset_counters, counters, only):
             out_f, s_f, _ = sc.simulate_fused(params, rays)
         torch.cuda.synchronize()
         fl = counters()
-        check(only(fl, trace_nonseq_fwd=1, fuzzy=1), f'{name} launched {fl}')
+        check(only(fl, trace_nonseq_fwd=1, fuzzy=1,
+                   diff=int(name == 'pupil_scene')),
+              f'{name} launched {fl}')
         ent = dict(fwd_launches=fl,
                    transmitted=float(out_f.intensity.double().mean()))
         if trained:
@@ -4561,9 +4569,10 @@ def fuzzy_phases(rt, torch, dev, reset_counters, counters, only):
             rt, torch, sc, params, r, cfg)
         ext = fused_trace.ext_kinds(meta)
         g_rays, g_mom, _ = random_cotangents(torch, r.n, cfg, dev, SEED + 6)
-        io = (r.n * (36 + 28) + table_bytes(meta)
-              + len(meta) * fused_trace.COAT_SIDE * 4 + prog.numel() * 4)
-        cols = len(fused_trace.grad_cols((), True, False, True, True))
+        io = (r.n * (36 + 28) + table_bytes(meta) + prog.numel() * 4
+              + (0 if coat is None else coat.numel() * 4))
+        cols = len(fused_trace.grad_cols((), True, False, coat is not None,
+                                         True))
         pops = fuzzy_program_ops(meta)
         if nonseq:
             nb = sc.n_bounces
@@ -5222,7 +5231,9 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
         out, _, _ = sc.simulate_fused(sc.init_params(dev), rays)
     torch.cuda.synchronize()
     fl = counters()
-    check(only(fl, trace_seq_fwd=1, freeform=1), f'ex26 launched {fl}')
+    # ex26's microlens array is of the diffractive family
+    check(only(fl, trace_seq_fwd=1, diff=1, freeform=1),
+          f'ex26 launched {fl}')
     coef, n_cells = ex26_reconstruct(rt, out, x0, y0)
     errs = {j: abs(c - EX26_HIDDEN.get(j, 0.0)) for j, c in coef.items()}
     paths['ex26'] = dict(fwd_launches=fl, recovered=coef, cells=n_cells,
@@ -5290,10 +5301,14 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
         ext = fused_trace.ext_kinds(meta)
         opl = name == 'ex20'
         g_rays, g_mom, _ = random_cotangents(torch, r.n, cfg, dev, SEED + 6)
-        io = (r.n * (36 + 28) + table_bytes(meta)
-              + len(meta) * (fused_trace.COAT_SIDE + fused_trace.FF_SIDE) * 4
-              + prog.numel() * 4 + (r.n * 8 if opl else 0))
-        cols = len(fused_trace.grad_cols((), True, False, True, True, True))
+        # the side data a launch reads: the pairs, and the side buffer and
+        # programs where the table has them
+        side_words = sum(t.numel() for t in (coat, prog, ff) if t is not None)
+        io = (r.n * (36 + 28) + table_bytes(meta) + side_words * 4
+              + (r.n * 8 if opl else 0))
+        cols = len(fused_trace.grad_cols(
+            (), True, False, coat is not None,
+            fused_trace.diffractive_kinds(meta), True))
         ff_f = [freeform_ops(m) for m in meta]
         if nonseq:
             nb = sc.n_bounces
@@ -5352,7 +5367,8 @@ def freeform_phases(rt, torch, dev, reset_counters, counters, only):
                     else ('trace_seq_fwd', 'trace_seq_bwd')):
             occ[f'{lib}_{name}'] = fused_trace.blocks_per_sm(
                 lib, len(meta), cfg, True, sc.n_bounces, ext=True,
-                diff=True, fuzzy_words=int(prog.numel()), freeform=True)
+                diff=True, fuzzy_words=0 if prog is None else int(prog.numel()),
+                freeform=True)
     sc, params, rays, _, _ = freeform_case(rt, torch, 'ex19', N_MAIN, dev,
                                            FREEFORM_SEED + 13)
 
@@ -5462,22 +5478,29 @@ HALFSPACE_PLANE_OPS, CONE_NAPPE_OPS = 7, 4
 
 
 # The SASS of every instantiation without the extended kinds (kExt = false:
-# the main path's and the plates-only ones), which this slice must not
-# change: sha256 (first 16 hex digits) of each kernel's `cuobjdump -sass`
-# listing with addresses, encodings, whitespace and the anonymous
-# namespace's hash stripped (sass_digests), read from the parent commit's
-# build on an NVIDIA H100 80GB HBM3 (the A/B of PR 17's first call, which
-# found this tree's equal) -> {library: {template arguments: digest}}.
+# the main path's and the plates-only ones), which a slice must not change
+# unless it means to: sha256 (first 16 hex digits) of each kernel's
+# `cuobjdump -sass` listing with addresses, encodings, whitespace and the
+# anonymous namespace's hash stripped (sass_digests) -> {library: {template
+# arguments: digest}}.  Read from the parent commit's build on an NVIDIA
+# H100 80GB HBM3 (the A/B of PR 17's first call), but K6's '0,0', re-read
+# when the family chain collapsed: its listing differs from the parent's
+# only in the order of two independent predicate instructions (the same
+# 4,290 lines, the same registers; PERF.md), which the rest of the library
+# moved.
 SASS_NO_EXT = {
-    'trace_seq_fwd': {'0,0': '4dcffb06ba91d2c7', '1,0': 'abea182f20a732c1'},
-    'trace_seq_bwd': {'0,0,0': '32d8c1114a5dcce5', '1,0,0': 'd4967b555f6bc35c',
-                      '0,1,0': '0f698b264124fd4e',
-                      '1,1,0': 'afd3ff09b28616af'},
-    'trace_nonseq_fwd': {'64,0,0': '2b72c16e13a3c5dd',
-                         '1,0,0': 'a3dd8a66842f008d',
-                         '64,1,0': 'a0517998fbf76f95',
-                         '1,1,0': '743dfdc6af310d8b'},
-    'trace_nonseq_bwd': {'0,0': '19e6d69b132f9fb7', '1,0': 'a78d2d8c8d9b5f2a'},
+    'trace_seq_fwd': {'0,0': '4dcffb06ba91d2c7',
+        '1,0': 'abea182f20a732c1'},
+    'trace_seq_bwd': {'0,0,0': '32d8c1114a5dcce5',
+        '0,1,0': '0f698b264124fd4e',
+        '1,0,0': 'd4967b555f6bc35c',
+        '1,1,0': 'afd3ff09b28616af'},
+    'trace_nonseq_fwd': {'1,0,0': 'a3dd8a66842f008d',
+        '1,1,0': '743dfdc6af310d8b',
+        '64,0,0': '2b72c16e13a3c5dd',
+        '64,1,0': 'a0517998fbf76f95'},
+    'trace_nonseq_bwd': {'0,0': '4075e21f4ad306c0',
+        '1,0': 'a78d2d8c8d9b5f2a'},
 }
 _NS_HASH = r'_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}'
 
@@ -8187,7 +8210,12 @@ FIELD_NS_REF = {
 
 def field_ns_case(rt, torch, name, n, device, seed):
     """(scene, params, rays, E0, Philox key) of a section 19 case on seeded
-    rays (the key None without a FRESNEL row)."""
+    rays (the key None without a FRESNEL row), or of a section 21 field case
+    (MIX_FIELD_CASES) on the JAX package's rays."""
+    if name in MIX_FIELD_CASES:
+        sc = mix_scene(rt, name, torch)
+        return (sc, sc.init_params(device),
+                mix_rays(rt, torch, name, n, device), list(MIX_E0), None)
     gen = torch.Generator(device=device).manual_seed(seed)
     sc = field_ns_scene(rt, name)
     rays = field_ns_bundle(rt, name).sample(gen, n, device)
@@ -8196,17 +8224,20 @@ def field_ns_case(rt, torch, name, n, device, seed):
 
 
 def field_ns_inputs(rt, torch, sc, params, rays, E0, device):
-    """(meta, cfg, flat, kinds, maps, launch field, side buffer) of a
-    non-sequential field trace: the ``TraceMeta`` with ``field``."""
+    """(meta, cfg, flat, kinds, maps, launch field, family arguments) of a
+    non-sequential field trace: the ``TraceMeta`` with ``field``, and the
+    K5 and K6 wrappers' ``coat``, ``diff``, ``fuzzy`` and ``ff``."""
     from raytracetorch_tpu_torch.core.field import FieldState
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
     from raytracetorch_tpu_torch.ops import fused_trace as ft
-    meta = ft.TraceMeta(sc.static_meta(), None, field=True)
+    meta = ft.TraceMeta(sc.static_meta(), sc.fuzzy_fns(), field=True)
     cfg = sc.sensor_config()
     flat = rt.flatten_table_rows(sc.build_table(params)).detach()
     kinds = torch.tensor(ft.kind_rows(meta, cfg), dtype=torch.int32,
                          device=device)
     return (meta, cfg, flat, kinds, ft.plate_maps(meta, {}),
-            FieldState.init(rays, E0).streams(), ft.coat_side(meta, device))
+            FieldState.init(rays, E0).streams(),
+            fn.side_buffers(meta, device))
 
 
 def chunk_draws(torch, key, sl, device):
@@ -8278,12 +8309,12 @@ def field_ns_kernels_vs_plain(rt, torch, name, n, device, seed):
     from raytracetorch_tpu_torch.ops import fused_trace as ft
     sc, params, rays, E0, key = field_ns_case(rt, torch, name, n, device,
                                               seed)
-    meta, cfg, flat, kinds, maps, field, coat = field_ns_inputs(
+    meta, cfg, flat, kinds, maps, field, side = field_ns_inputs(
         rt, torch, sc, params, rays, E0, device)
     nb, disp = sc.n_bounces, ft.dispersive(meta)
     out_k, s_k, aux_k = fn.trace_nonseq_fwd_cuda(
         flat, kinds, rays, cfg, nb, maps, True, fresnel=True, key=key,
-        coat=coat, field=field)
+        field=field, **side)
     out_p, s_p, aux_p = plain_ns_field_fwd(torch, flat, rays, cfg, meta, nb,
                                            maps, key, field, FIELD_NS_CHUNK)
     torch.cuda.synchronize()
@@ -8310,14 +8341,14 @@ def field_ns_kernels_vs_plain(rt, torch, name, n, device, seed):
                for _ in range(6)]
     g_k = fn.trace_nonseq_bwd_cuda(
         flat, kinds, rays, cfg, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
-        ext=True, disp=disp, fresnel=True, key=key, coat=coat, replay=True,
-        need_wavelength=disp, field=field, g_field=g_field)
+        ext=True, disp=disp, fresnel=True, key=key, replay=True,
+        need_wavelength=disp, field=field, g_field=g_field, **side)
     g_p = plain_ns_field_bwd(torch, flat, rays, cfg, meta, nb, g_rays, g_mom,
                              g_grid, maps, key, field, g_field,
                              FIELD_NS_CHUNK)
     out_k, _, aux_k = fn.trace_nonseq_fwd_cuda(
         flat, kinds, rays, cfg, nb, maps, True, fresnel=True, key=key,
-        coat=coat, field=field)
+        field=field, **side)
     torch.cuda.synchronize()
     res['replay_equal'] = all(torch.equal(getattr(g_k[-2], c),
                                           getattr(out_k, c))
@@ -8328,7 +8359,7 @@ def field_ns_kernels_vs_plain(rt, torch, name, n, device, seed):
           f'{name}: K6 replay differs from K5 (rays '
           f'{res["replay_equal"]}, field {res["replay_field_equal"]})')
     keep = torch.ones_like(rays.px, dtype=torch.bool)
-    if name in FIELD_NS_LENS_CASES:
+    if name in FIELD_NS_LENS_CASES + MIX_FIELD_CASES:
         keep = (rays.px ** 2 + rays.py ** 2).sqrt() >= FIELD_AXIS_R
         g64 = plain_ns_field_bwd(torch, flat, rays, cfg, meta, nb, g_rays,
                                  g_mom, g_grid, maps, key, field, g_field,
@@ -8352,7 +8383,8 @@ def field_ns_kernels_vs_plain(rt, torch, name, n, device, seed):
         allowed=allowed, intensity_allowed=grid_allowed)
     res['bwd'].update(compare_table_cotangents(
         torch, ft, g_k[0], g_p[0], plates=True, ext=True, disp=disp,
-        coat=True))
+        coat=side['coat'] is not None, diff=side['diff'],
+        freeform=side['ff'] is not None))
     # a ray whose position or direction cotangents differ (the NS rule
     # above: a hit that flips at a rim in one of the two runs) has other
     # field cotangents too; the others' are held to sections 17 and 18's
@@ -8519,20 +8551,20 @@ def field_ns_phases(rt, torch, dev, reset_counters, counters, only):
     for name in ('naive', 'fold'):
         sc, params, r, E0, key = field_ns_case(rt, torch, name, N_MAIN, dev,
                                                FIELD_NS_SEED + 7)
-        meta, cfg, flat, kinds, maps, field, coat = field_ns_inputs(
+        meta, cfg, flat, kinds, maps, field, side = field_ns_inputs(
             rt, torch, sc, params, r, E0, dev)
         nb = sc.n_bounces
         g_rays, g_mom, g_grid = random_cotangents(torch, r.n, cfg, dev,
                                                   SEED + 6)
         g_field = [g_rays[0]] * 6
         kfn = (lambda: fn.trace_nonseq_fwd_cuda(
-            flat, kinds, r, cfg, nb, maps, True, fresnel=True, coat=coat,
-            field=field))
+            flat, kinds, r, cfg, nb, maps, True, fresnel=True, field=field,
+            **side))
         pfn = (lambda: fn.trace_nonseq_fused_plain(
             flat, r, cfg, meta, nb, maps, field=field))
         bk = (lambda: fn.trace_nonseq_bwd_cuda(
             flat, kinds, r, cfg, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
-            ext=True, fresnel=True, coat=coat, field=field, g_field=g_field))
+            ext=True, fresnel=True, field=field, g_field=g_field, **side))
         bp = (lambda: fn.trace_nonseq_bwd_plain(
             flat, r, cfg, meta, nb, g_rays, g_mom, g_grid=g_grid, maps=maps,
             field=field, g_field=g_field))
@@ -8542,7 +8574,8 @@ def field_ns_phases(rt, torch, dev, reset_counters, counters, only):
         # a winner's work under the field: section 18's count of a row
         field_ops = sum(w * field_coat_row_ops(m)
                         for w, m in zip(wins, meta))
-        cols = len(ft.grad_cols((), True, ft.dispersive(meta), True))
+        cols = len(ft.grad_cols((), True, ft.dispersive(meta),
+                                side['coat'] is not None))
         # K5 reads 9 streams and the launch field and writes 7 and the
         # final field; K6 reads K5's inputs, the 7 ray and 6 field
         # cotangents and writes their 13 cotangents and its partials
@@ -9130,94 +9163,661 @@ def grin_phases(rt, torch, dev, reset_counters, counters, only):
                 timing=timing, bounds=bounds)
 
 
-# The SASS of every kernel of the four trace libraries (70: K1's 11, K2's
-# 24, K5's 23, K6's 12; the 58 built before the field, K1's and K2's
-# instantiations with it, K5's and K6's with it, and the instantiations
-# with GRIN rods), which a later slice must not change unless it means to:
-# sha256 (first 16 hex digits) of each kernel's normalized `cuobjdump
-# -sass` listing (sass_digests), keyed by the first 12 hex digits of the
-# sha256 of its mangled name (the anonymous namespace's hash stripped);
-# the 64 earlier kernels' read from the parent commit's build, the GRIN
-# kernels' from this tree's, on an NVIDIA H100 80GB HBM3 ->
-# {library: {name key: digest}}.
-SASS_ALL = {'trace_nonseq_bwd': {# K6's instantiation with GRIN rods
-                                 '51123f155cc6': '37972544efc5fc2a',
-                                 # K6's instantiation with the field
-                                 'd7815c80c94b': 'eefe3c92e6459656',
-                                 '03df43c7e5e9': '92e972321c93b1b8',
-                                 '08244a1bf7e2': '19e6d69b132f9fb7',
-                                 '1a141c888635': '144e7df402ce66e5',
-                                 '1c73ee0c1106': '911fb5ab5914eda9',
-                                 '40ff669ffc99': '377a9f183a44a24e',
-                                 '7b291c5d10e6': '787c894f94c7f330',
-                                 'a67af5124e4e': 'ae8e2808ef9f57e8',
-                                 'd098edf12ff4': '291adac1a8fed8d6',
-                                 'ef1210f8502a': '8def0959880507a7',
-                                 'efd221452f49': 'a78d2d8c8d9b5f2a'},
-            'trace_nonseq_fwd': {# K5's instantiation with GRIN rods
-                                 'ce8acaeb63c0': '22116d64edb83346',
-                                 '2eb270dfa9f8': 'ce02e22c8b0d2664',
-                                 # K5's instantiation with the field
-                                 'ce8dbcef2dca': 'd48195d422048d41',
-                                 '431d0aa9a8b8': 'b79c18246e5d7992',
-                                 '06536acb2714': '43426f973e980015',
-                                 '077f607dc967': '2b3366748168cc07',
-                                 '167dc62ca7ba': 'a0517998fbf76f95',
-                                 '2d5647b05d53': '118a424363bbc31c',
-                                 '409ca9948ad0': 'a3dd8a66842f008d',
-                                 '4f9725044bc5': 'cf734ce216a28839',
-                                 '63b98f7c3418': '743dfdc6af310d8b',
-                                 '767a104e8821': 'ada485bbf3674cca',
-                                 '8377483e155c': '46bbc2564a911c69',
-                                 '8ece81f19a33': '5006a8ebac560e71',
-                                 'a4dbec718c61': 'f9d90741f25b6cb2',
-                                 'a81982b16b90': '8526c3bfac0542da',
-                                 'a95f8af70d7d': 'cf478798b278ed3e',
-                                 'ab38a4774321': '83c7afd665093f06',
-                                 'bf2fb8301d57': 'cc6600d8603c2591',
-                                 'ee90de7b0fef': '7056114a9e57dd56',
-                                 'ef63c80cdf39': '6ac47e1fc1f49aff',
-                                 'fa6ede60da44': '2b72c16e13a3c5dd',
-                                 'fe1a1d9473e3': '87d8d25dbc360977'},
-            'trace_seq_bwd': {'0d2846390bbb': 'dc7874fb8066daf8',
-                              '1b1c8ca95e5f': 'c3dec1901cbbec0e',
-                              '388a1f6be95b': '173a212ed7f8ce76',
-                              '3eedf1deee4b': 'd4967b555f6bc35c',
-                              '42d3b9e6215c': '24e563443a3b5bd8',
-                              '4d733f812142': 'ab659b7c23503212',
-                              '5518a8bebb18': 'f7b4a21642b937bd',
-                              '63e51899a554': 'f93c0e3de9fa3c29',
-                              '642e70824648': 'c1c113682e92a126',
-                              '6d9f41f2d2d7': 'ca096d846b6e88b2',
-                              '77b0c422bac6': 'e91c2402210dc34d',
-                              '79a5222d8b70': '50dac8ca0f9949cf',
-                              '838e6a6d04c7': '0f698b264124fd4e',
-                              'a07eb81f1edd': 'afd3ff09b28616af',
-                              'ab9231e34ce7': '80117d2d8a000e59',
-                              'd7fdbaed4743': '31c6adc31a02bbc8',
-                              'e10faef7dd52': 'af344ce0f36349b7',
-                              'ea678026567c': '32d8c1114a5dcce5',
-                              'fcfcf7083be2': '406ad68e10ffb3a5',
-                              'fd94565fe71d': 'e856cfef69d710c6',
-                              # K2's instantiation with the field
-                              '173ffbedaf5a': '980d42d766422808',
-                              '4b54f461854d': '2085e7ed4a410027',
-                              # K2's instantiation with GRIN rods
-                              'b82b89c59efb': '3070d650848e6117',
-                              '15d3493dee15': 'a88254f81fe6cd7c'},
-            'trace_seq_fwd': {'49ccce64c5da': '7908e35cdb5af917',
-                              '58f790fd9dac': 'e2a054b1252e678c',
-                              '6a7fef6cd344': 'd744510beb7a1926',
-                              '7f24aa638f84': '53a3de2d10a62d95',
-                              '917bcc14d516': '8d3e966f838356d6',
-                              'ae165d077666': '3518c58d21cd8015',
-                              'bc46f50c42b3': '1c13bcdf573d1199',
-                              'dfddf45ad8d0': 'abea182f20a732c1',
-                              'fbe38a674d17': '4dcffb06ba91d2c7',
-                              # K1's instantiation with the field
-                              'c911369e8df6': '1a3167dccfe6dd53',
-                              # K1's instantiation with GRIN rods
-                              '6597eaae921b': 'f6f6b4a629646b91'}}
+# ---- 21. the kind mix: families of kinds together in one table ----
+
+MIX_SEED = SEED + 2101
+# A GRIN rod away from its turning point (8 of its quarter pitch's 15.7 mm,
+# 16 RK4 steps) before a row of another family, a sensor after them
+# (SequentialScenes, K1 and K2); the rod as a Scene beside a coated window
+# and a grating (K5 and K6); and Scenes under the field with the families
+# that K5's and K6's field instantiation took from this slice on: a DOE, a
+# microlens array, a fuzzy (apodized) pupil before a singlet and example
+# 19's freeform corrector (tilted, alone before a sensor: a shallow
+# Scene).
+MIX_SEQ_CASES = ('fresnel_w', 'fresnel_mc', 'coated', 'doe', 'fuzzy',
+                 'freeform')
+MIX_NS_CASES = ('ns',)
+MIX_FIELD_CASES = ('field_doe', 'field_mla', 'field_pupil', 'field_ff')
+MIX_ROD_L, MIX_ROD_STEPS = 8.0, 16
+MIX_NS_BOUNCES, MIX_FIELD_BOUNCES = 6, 3
+MIX_WL = 0.55
+MIX_E0 = (0.6, 0.8, 0.0)
+# The plain versions run MIX_CHUNK rays at a time (GRIN_CHUNK's reason).
+MIX_CHUNK = 250_000
+
+
+def mix_apodizer(xp):
+    """exp(-(x^2 + y^2) / 32) of the array module ``xp`` (torch or
+    jax.numpy): the fuzzy case's component-style callable."""
+    def apod(x, y, z):
+        return xp.exp(-(x * x + y * y) / 32.0)
+    return apod
+
+
+def mix_scene(rt, name, xp):
+    """A section 21 case's scene (both packages: ``rt``; ``xp`` the array
+    module of the fuzzy case's apodizer)."""
+    import importlib
+    kinds = importlib.import_module(rt.__name__ + '.constants').PhysKind
+    shapes = importlib.import_module(rt.__name__ + '.elements.shapes')
+    z = MIX_ROD_L + 7.0
+
+    def sensor(zs, r=12.0):
+        return rt.SensorElement(radius=r, translation=[0.0, 0.0, zs],
+                                name='s')
+    if name in MIX_SEQ_CASES:
+        if name == 'fresnel_w':
+            # tests/test_grin.py:283's FRESNEL_W plate, tilted 0.4 rad so
+            # that the rod's rays cross it clear of total reflection
+            other = rt.ElementCustom(
+                shapes.disk, 1, kinds.FRESNEL_W, ph=(1.0, 1.5),
+                extra={'radius': 30.0}, rotation=[0.0, 0.4, 0.0],
+                translation=[0.0, 0.0, z], name='plate')
+        elif name == 'fresnel_mc':
+            other = rt.SingletLens(c1=0.0, c2=0.0, d=20.0, t=2.0,
+                                   ior_glass=1.5, fresnel=True,
+                                   translation=[0.0, 0.0, z], name='window')
+        elif name == 'coated':
+            other = rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0,
+                                   ior_glass=1.5, fresnel='weighted',
+                                   coating=[(COAT_NC, COAT_QW)],
+                                   translation=[0.0, 0.0, z], name='lens')
+        elif name == 'doe':
+            # tests/test_doe.py:133's DiffractiveLens
+            other = rt.DiffractiveLens(radius=10.0, coeffs=[-8.0, 0.02],
+                                       efficiency=True,
+                                       translation=[0.0, 0.0, z], name='doe')
+        elif name == 'fuzzy':
+            other = rt.FuzzyAperture(mix_apodizer(xp), components=True,
+                                     translation=[0.0, 0.0, z], name='apod')
+        else:
+            other = rt.FreeformLens(c1=0.0, c2=0.0, d=20.0, t=2.0,
+                                    ior_glass=1.5,
+                                    xy1=[(2, 0, 2e-3), (0, 2, -1e-3),
+                                         (2, 1, 1e-4)],
+                                    translation=[0.0, 0.0, z], name='ff')
+        return rt.SequentialScene([
+            grin_rod(rt, MIX_ROD_L, 0.0, n_steps=MIX_ROD_STEPS), other,
+            sensor(z + 15.0)])
+    if name == 'ns':
+        return rt.Scene([
+            grin_rod(rt, MIX_ROD_L, 0.0, n_steps=MIX_ROD_STEPS),
+            rt.SingletLens(c1=0.0, c2=0.0, d=20.0, t=2.0, ior_glass=1.5,
+                           fresnel='weighted', coating=[(COAT_NC, COAT_QW)],
+                           translation=[0.0, 0.0, z], name='window'),
+            rt.DiffractionGrating(period_um=10.0, order=1,
+                                  translation=[0.0, 0.0, z + 8.0], name='g'),
+            sensor(z + 25.0, 20.0)], n_bounces=MIX_NS_BOUNCES)
+    nb = MIX_FIELD_BOUNCES
+    if name == 'field_doe':
+        return rt.Scene([rt.DiffractiveLens(radius=10.0, coeffs=[-8.0, 0.02],
+                                            efficiency=True, name='doe'),
+                         sensor(40.0, 50.0)], n_bounces=nb)
+    if name == 'field_mla':
+        return rt.Scene([rt.MicrolensArray(half_x=4.0, half_y=4.0, pitch=1.0,
+                                           f=10.0, name='mla'),
+                         sensor(10.0, 8.0)], n_bounces=nb)
+    if name == 'field_pupil':
+        # an apodized pupil before the bench singlet
+        return rt.Scene([
+            rt.FuzzyAperture(mix_apodizer(xp), components=True, name='apod'),
+            rt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
+                           c1_grad=True, translation=[0.0, 0.0, 6.0],
+                           name='lens'),
+            sensor(25.0)], n_bounces=nb + 1)
+    # example 19's freeform corrector, tilted so that no ray meets it at
+    # normal incidence (where the field's s and p basis is undefined and
+    # its cotangents cancel in float32), before a sensor
+    return rt.Scene([
+        rt.FreeformLens(c1=0.0, c2=0.0, d=24.0, t=2.0, ior_glass=EX19_GLASS,
+                        translation=[0, 0, 20.0], rotation=[0.2, 0.0, 0.0],
+                        xy1=[(i, j, c) for (i, j), c in zip(EX19_TERMS,
+                                                             EX19_COEFFS)],
+                        xy1_grad=True, name='corrector'),
+        sensor(40.0)], n_bounces=nb)
+
+
+def mix_source(name):
+    """(radius, translation, wavelength) of a section 21 case's collimated
+    disk (the JAX package's CollimatedDisk, reference_prng.collimated_disk's
+    draws)."""
+    if name == 'fresnel_w':
+        # the rod's beam kept clear of grazing incidence on the plate, where
+        # 1 - R takes the rod's rounding at many times its size
+        return 2.0, (0.0, 0.0, -3.0), MIX_WL
+    if name in MIX_SEQ_CASES or name == 'ns':
+        return 4.0, (0.0, 0.0, -3.0), MIX_WL
+    if name == 'field_pupil':
+        return 4.0, (0.0, 0.0, -3.0), 0.5876
+    if name == 'field_ff':
+        return EX19_BEAM, (0.0, 0.0, -10.0), 0.5876
+    return (6.0 if name == 'field_doe' else 3.5), (0.0, 0.0, -5.0), MIX_WL
+
+
+def mix_rays(rt, torch, name, n, device, seed=MIX_SEED):
+    """A section 21 case's rays: the JAX package's very collimated disk
+    under PRNGKey(seed) (reference_prng), on ``device``."""
+    from raytracetorch_tpu_torch.rays import reference_prng as rp
+    radius, trans, wl = mix_source(name)
+    return rp.collimated_disk(rp.prng_key(seed), n, radius, trans, wl,
+                              device=device)
+
+
+def mix_uniforms(torch, meta, n, device, seed=MIX_SEED):
+    """The FRESNEL rows' [F, N] uniforms the JAX package draws under
+    PRNGKey(seed) (reference_prng.fresnel_uniforms); None without a
+    FRESNEL row."""
+    from raytracetorch_tpu_torch.rays import reference_prng as rp
+    u = rp.fresnel_uniforms(rp.prng_key(seed), meta, n, device)
+    return u if u.shape[0] else None
+
+
+def mix_stats(torch, out, sens, aux=None):
+    """A section 21 case's numbers: the sensor's total weight, centroid and
+    RMS spot size (slot 0, bundle 0), the mean intensity and, under the
+    field, the mean |E|^2."""
+    m = sens.moments[0, 0].double()
+    w = float(m[0])
+    cx, cy = float(m[1] / m[0]), float(m[2] / m[0])
+    var = float(m[3] / m[0] - (m[1] / m[0]) ** 2
+                + m[4] / m[0] - (m[2] / m[0]) ** 2)
+    res = dict(weight=w, cx=cx, cy=cy, rms=math.sqrt(max(var, 0.0)),
+               mean_intensity=float(out.intensity.double().mean()))
+    if aux is not None and 'field_power' in aux:
+        res['field_power'] = float(aux['field_power'].double().mean())
+    return res
+
+
+# The leaves of each case's fused-against-eager gradient (and
+# tests/test_torch_kind_mix.py's against jax.grad): the rod's and the other
+# row's, or the field case's element's.
+MIX_LEAVES = {'fresnel_w': (('rod', 'n0'), ('rod', 'grin_A')),
+              'fresnel_mc': (('rod', 'grin_A'), ('rod', 't')),
+              'coated': (('rod', 'grin_A'), ('lens', 'coat_d')),
+              'doe': (('rod', 'n0'), ('doe', 'phase')),
+              'fuzzy': (('rod', 'grin_A'), ('rod', 't')),
+              'freeform': (('rod', 'grin_A'), ('ff', 'xy1')),
+              'ns': (('rod', 'grin_A'), ('window', 'coat_d')),
+              'field_doe': (('doe', 'phase'),),
+              'field_mla': (('mla', 'f'),),
+              'field_pupil': (('lens', 'c1'), ('s', 'trans')),
+              'field_ff': (('corrector', 'xy1'),)}
+# The counted paths at N_MAIN against the JAX package's numbers on its own
+# rays (its CollimatedDisk under PRNGKey(MIX_SEED), its FRESNEL draws under
+# the same key), recorded on the CPU by `JAX_PLATFORMS=cpu python
+# tests/mix_anchors.py`: the sensor's weight, centroid and RMS, the mean
+# intensity and, under the field, the mean |E|^2.  Each is held within
+# MIX_REF_RTOL (MOMENT_RTOL: sums over 1M rays in another order) of its
+# value, a centroid of its value and the spot's RMS (its moment's scale).
+MIX_REF = {
+    'fresnel_w': {'weight': 941725.1875, 'cx': -3.7585975685714574,
+        'cy': -0.005795567130850209, 'rms': 4.574830961074835,
+        'mean_intensity': 0.9505330733476282},
+    'fresnel_mc': {'weight': 920656.0, 'cx': -0.006971004341096185,
+        'cy': -0.006303822865163535, 'rms': 6.00249622179683,
+        'mean_intensity': 1.0},
+    'coated': {'weight': 971384.1875, 'cx': -0.007373914861955687,
+        'cy': -0.0071581708595344, 'rms': 5.391130171365142,
+        'mean_intensity': 0.9713841186243296},
+    'doe': {'weight': 984718.375, 'cx': -0.008637585205198898,
+        'cy': -0.00822121606041042, 'rms': 6.150108588404815,
+        'mean_intensity': 0.9847187399864197},
+    'fuzzy': {'weight': 983446.625, 'cx': -0.008608307082120497,
+        'cy': -0.008276478754153282, 'rms': 6.241491375155073,
+        'mean_intensity': 0.9834465917540193},
+    'freeform': {'weight': 1000000.0, 'cx': -0.008444048828125,
+        'cy': -0.00812194189453125, 'rms': 6.00092165688732,
+        'mean_intensity': 1.0},
+    'ns': {'weight': 971313.875, 'cx': 1.0551518426523043,
+        'cy': -0.012943751382631078, 'rms': 9.731984377264288,
+        'mean_intensity': 0.9713138532560468},
+    'field_doe': {'weight': 968798.8125, 'cx': 0.003056979032217796,
+        'cy': -1.314209651758837, 'rms': 2.6161957368137982,
+        'mean_intensity': 0.9847187399864197,
+        'field_power': 0.9838329928219653},
+    'field_mla': {'weight': 1000000.0625, 'cx': 0.0031769998014375125,
+        'cy': 0.0031999998000000127, 'rms': 2.494256758603647,
+        'mean_intensity': 1.0, 'field_power': 1.0},
+    'field_pupil': {'weight': 582470.375, 'cx': 6.477163432730177e-05,
+        'cy': 0.0001436354705113892, 'rms': 0.16396900335527137,
+        'mean_intensity': 0.7869024709564447,
+        'field_power': 0.7251148800349235},
+    'field_ff': {'weight': 918612.3125, 'cx': 0.007414565151328461,
+        'cy': -0.13209596989263084, 'rms': 5.6593887090032835,
+        'mean_intensity': 1.0, 'field_power': 0.9186124250827432}}
+MIX_REF_RTOL = MOMENT_RTOL
+
+
+def mix_inputs(rt, torch, sc, params, name, device):
+    """(meta, cfg, flat, kinds, maps, ext, the wrappers' family arguments) of
+    a section 21 case, as its fused trace passes them."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    meta = ft.TraceMeta(sc.static_meta(), sc.fuzzy_fns(),
+                        name in MIX_FIELD_CASES)
+    cfg = sc.sensor_config()
+    flat = rt.flatten_table_rows(sc.build_table(params)).detach()
+    kinds = torch.tensor(ft.kind_rows(meta, cfg), dtype=torch.int32,
+                         device=device)
+    side = dict(fresnel=ft.fresnel_kinds(meta), grin=ft.grin_kinds(meta),
+                **fn.side_buffers(meta, device))
+    return meta, cfg, flat, kinds, ft.plate_maps(meta, {}), ft.ext_kinds(
+        meta), side
+
+
+def mix_family_counts(meta, launches):
+    """The family counters a launch of the family instantiation on ``meta``
+    moves (one count in each of its families): {counter: launches}."""
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    fam = ft.families(meta)
+    names = ((ft.FAM_FRESNEL, 'fresnel'), (ft.FAM_COAT, 'coat'),
+             (ft.FAM_DIFF, 'diff'), (ft.FAM_FUZZY, 'fuzzy'),
+             (ft.FAM_FREEFORM, 'freeform'), (ft.FAM_GRIN, 'grin'))
+    return {k: launches for bit, k in names if fam & bit}
+
+
+def mix_kernels_vs_plain(rt, torch, name, n, device, seed=MIX_SEED):
+    """The family instantiation of K1 and K2 (a sequential case) or of K5
+    and K6 (the Scene) against their plain versions on a section 21 case at
+    n rays, with the path length: the rays, moments, path lengths and final
+    media of the rays both trace alike (sections 3's, 10's and 20's rules;
+    behind a weighting Fresnel row intensities within FRESNEL_I_RTOL), then
+    on those rays under seeded cotangents the ray and table cotangents
+    (BWD_TOL; with the diffractive kinds DISP_BWD_TOL, as section 13) and
+    K6's
+    replay against K5 bit for bit -> dict; raises on a breach.  The field
+    cases run section 19's field_ns_kernels_vs_plain.  The plain backward
+    runs MIX_CHUNK rays at a time."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    if name in MIX_FIELD_CASES:
+        return field_ns_kernels_vs_plain(rt, torch, name, n, device, seed)
+    sc = mix_scene(rt, name, torch)
+    params = sc.init_params(device)
+    rays = mix_rays(rt, torch, name, n, device, seed)
+    meta, cfg, flat, kinds, maps, ext, side = mix_inputs(rt, torch, sc,
+                                                         params, name, device)
+    nonseq = name in MIX_NS_CASES
+    u = None if nonseq else mix_uniforms(torch, meta, n, device, seed)
+    weighted = any(m.ph in (8, 9) or m.n_coat for m in meta)
+    # behind a weighting Fresnel row (FRESNEL_I_RTOL) or a fuzzy program
+    # (FUZZY_I_RTOL, section 14's) the intensities within a share
+    i_rtol = max(FRESNEL_I_RTOL if weighted else 0.0,
+                 FUZZY_I_RTOL if ft.fuzzy_kinds(meta) else 0.0)
+    if nonseq:
+        nb = sc.n_bounces
+        out_k, s_k, aux_k = fn.trace_nonseq_fwd_cuda(
+            flat, kinds, rays, cfg, nb, maps, ext, track_opl=True, **side)
+        out_p, s_p, aux_p = fn.trace_nonseq_fused_plain(
+            flat, rays, cfg, meta, nb, maps, track_opl=True)
+    else:
+        out_k, s_k, aux_k = ft.trace_seq_fwd_cuda(
+            flat, kinds, rays, cfg, maps, ext, track_opl=True, uniforms=u,
+            **side)
+        out_p, s_p, aux_p = ft.trace_sequential_fused_plain(
+            flat, rays, cfg, meta, maps, track_opl=True, uniforms=u)
+    torch.cuda.synchronize()
+    if nonseq:
+        res = compare_nonseq(torch, out_k, s_k, out_p, s_p)
+        pos = torch.stack([(getattr(out_k, c) - getattr(out_p, c)).abs()
+                           for c in ('px', 'py', 'pz')]).amax(0)
+        apart = ((pos > NS_POS_TOL)
+                 | ((out_k.intensity - out_p.intensity).abs() > NS_INT_TOL))
+    else:
+        res = compare(torch, out_k, s_k, out_p, s_p, i_rtol)
+        apart = traced_apart(torch, out_k, out_p, i_rtol)[0]
+    res.update(compare_streams(
+        torch, *({k: v[~apart] for k, v in aux.items()}
+                 for aux in (aux_k, aux_p))))
+    res.update(rows=len(meta), apart=int(apart.sum()),
+               families=ft.families(meta),
+               killed=int(((rays.intensity > 0)
+                           & (out_k.intensity == 0)).sum()))
+    rays = rays.replace(intensity=torch.where(apart, 0.0, rays.intensity))
+    g_rays, g_mom, _ = random_cotangents(torch, rays.n, cfg, device,
+                                         seed + 2)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    g_opl, g_nf = (torch.randn(rays.n, generator=gen, device=device)
+                   for _ in range(2))
+
+    def part(sl):
+        r = ray_slice(ft, rays, sl)
+        gr = [g[sl] for g in g_rays]
+        if nonseq:
+            return fn.trace_nonseq_bwd_plain(flat, r, cfg, meta, nb, gr,
+                                             g_mom, maps=maps,
+                                             g_opl=g_opl[sl],
+                                             g_nfinal=g_nf[sl])
+        return ft.trace_seq_bwd_plain(
+            flat, r, cfg, meta, gr, g_mom, maps=maps, g_opl=g_opl[sl],
+            g_nfinal=g_nf[sl], uniforms=None if u is None else u[:, sl])
+    g_p = join_chunks(torch, [part(sl)
+                              for sl in ray_chunks(rays.n, MIX_CHUNK)])
+    if nonseq:
+        g_k = fn.trace_nonseq_bwd_cuda(
+            flat, kinds, rays, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+            opl=True, g_opl=g_opl, g_nfinal=g_nf, replay=True, **side)
+        out_r = fn.trace_nonseq_fwd_cuda(flat, kinds, rays, cfg, nb, maps,
+                                         ext, track_opl=True, **side)[0]
+        torch.cuda.synchronize()
+        res['replay_equal'] = all(torch.equal(getattr(g_k[-1], c),
+                                              getattr(out_r, c))
+                                  for c in ft.COMPS)
+        check(res['replay_equal'], f'{name}: K6 replay differs from K5')
+        allowed = max(3, math.ceil(NS_MISMATCH_SHARE * rays.n))
+    else:
+        g_k = ft.trace_seq_bwd_cuda(flat, kinds, rays, cfg, g_rays, g_mom,
+                                    maps=maps, ext=ext, opl=True,
+                                    g_opl=g_opl, g_nfinal=g_nf, uniforms=u,
+                                    **side)
+        torch.cuda.synchronize()
+        allowed = None
+    res['bwd'] = compare_ray_cotangents(
+        torch, g_k[1], g_p[1], allowed=allowed,
+        tol=DISP_BWD_TOL if side['diff'] else BWD_TOL)
+    res['bwd'].update(compare_table_cotangents(
+        torch, ft, g_k[0], g_p[0], plates=True, ext=True,
+        coat=side['coat'] is not None, diff=side['diff'],
+        freeform=side['ff'] is not None))
+    return res
+
+
+def mix_loss(sens):
+    """A section 21 case's loss: the spot's mean square radius and a share
+    of its weight."""
+    return sens.spot_rms(0)[0] ** 2 + 1e-3 * sens.total_weight(0)[0]
+
+
+def mix_paths(rt, torch, dev, reset_counters, counters, only):
+    """The counted paths at N_MAIN: each case through simulate_fused (K1 or
+    K5 once, in the family instantiation or the field's) against the JAX
+    package's numbers (MIX_REF), and a grad step of GRIN_GRAD_RAYS rays in
+    the case's leaves (K1 + K2 or K5 + K6 once each) against the eager
+    trace's gradients (GRIN_GRAD_RTOL of the leaf's scale) -> dict; raises
+    on a breach."""
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    res = {}
+    for name in MIX_SEQ_CASES + MIX_NS_CASES + MIX_FIELD_CASES:
+        sc = mix_scene(rt, name, torch)
+        meta = ft.TraceMeta(sc.static_meta(), sc.fuzzy_fns(),
+                            name in MIX_FIELD_CASES)
+        fwd, bwd = (('trace_seq_fwd', 'trace_seq_bwd') if sc.sequential
+                    else ('trace_nonseq_fwd', 'trace_nonseq_bwd'))
+        kw = {}
+        if name in MIX_FIELD_CASES:
+            kw.update(track_field=True, E0=list(MIX_E0))
+        ent = {}
+        for n, label in ((N_MAIN, 'forward'), (GRIN_GRAD_RAYS, 'grad')):
+            rays = mix_rays(rt, torch, name, n, dev)
+            u = mix_uniforms(torch, meta, n, dev)
+            kw_n = dict(kw, uniforms=u) if u is not None else dict(kw)
+            if label == 'forward':
+                reset_counters()
+                with torch.no_grad():
+                    out, sens, *aux = sc.simulate_fused(
+                        sc.init_params(dev), rays, **kw_n)
+                torch.cuda.synchronize()
+                fl = counters()
+                want = ({fwd: 1, 'field': 1} if name in MIX_FIELD_CASES
+                        else {fwd: 1, **mix_family_counts(meta, 1)})
+                check(only(fl, **want), f'{name} launched {fl}')
+                st = mix_stats(torch, out, sens, aux[0] if aux else None)
+                ent['forward'] = dict(launches=fl, **st)
+                ref = MIX_REF.get(name)
+                if ref is not None:
+                    err = {k: abs(st[k] - v) for k, v in ref.items()}
+                    ent['ref_err'] = err
+                    check(all(err[k] <= MIX_REF_RTOL * (
+                        abs(v) + (ref['rms'] if k in ('cx', 'cy') else 0.0))
+                        for k, v in ref.items()),
+                          f'{name}: {st} vs the JAX package {ref}')
+                continue
+            got = {}
+            for sim in ('simulate_fused', 'simulate'):
+                p = sc.init_params(dev)
+                leaves = [p[el][k].requires_grad_(True)
+                          for el, k in MIX_LEAVES[name]]
+                reset_counters()
+                g = torch.autograd.grad(
+                    mix_loss(getattr(sc, sim)(p, rays, **kw_n)[1]), leaves)
+                torch.cuda.synchronize()
+                got[sim] = dict(launches=counters(),
+                                grads=[x.detach().flatten().tolist()
+                                       for x in g])
+            f, e = got['simulate_fused'], got['simulate']
+            want = ({fwd: 1, bwd: 1, 'field': 2} if name in MIX_FIELD_CASES
+                    else {fwd: 1, bwd: 1, **mix_family_counts(meta, 2)})
+            check(only(f['launches'], **want),
+                  f'{name}: the fused grad step launched {f["launches"]}')
+            err = [max(abs(a - b) for a, b in zip(fa, ea))
+                   / max(max(abs(b) for b in ea), 1e-30)
+                   for fa, ea in zip(f['grads'], e['grads'])]
+            ent['grad'] = dict(fused=f, eager=e, rel_err=err)
+            check(max(err) <= GRIN_GRAD_RTOL,
+                  f'{name}: fused gradients {f["grads"]} vs eager '
+                  f'{e["grads"]}')
+        res[name] = ent
+        torch.cuda.empty_cache()
+    return res
+
+
+def mix_phases(rt, torch, dev, reset_counters, counters, only):
+    """Section 21: the kind mix, K1, K2, K5 and K6 in their family
+    instantiation (and K5 and K6 in the field's) on tables that mix
+    families: each against its plain version at N_MAIN rays (K6's replay
+    bit for bit); the counted paths against the JAX package's numbers and
+    fused against eager gradients; times, bounds and blocks per SM."""
+    from raytracetorch_tpu_torch.ops import fused_nonseq as fn
+    from raytracetorch_tpu_torch.ops import fused_trace as ft
+    t0 = time.perf_counter()
+
+    # 21a. each kernel against its plain version
+    kern = {}
+    for name in MIX_SEQ_CASES + MIX_NS_CASES + MIX_FIELD_CASES:
+        t1 = time.perf_counter()
+        kern[name] = mix_kernels_vs_plain(rt, torch, name, N_MAIN, dev)
+        kern[name]['seconds'] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    emit('mix_kernels_vs_plain', n=N_MAIN, **kern)
+
+    # 21b. the counted paths and the gradients
+    paths = mix_paths(rt, torch, dev, reset_counters, counters, only)
+    emit('mix_main', paths=paths)
+
+    # 21c. times at N_MAIN against the plain versions, bounds and blocks:
+    # the family instantiation of K1 and K2 on the rod and the coated
+    # singlet, of K5 and K6 on the Scene, the field's on the freeform
+    # corrector
+    timing, bounds, occ = {}, {}, {}
+    for name, keys in (('coated', ('k1', 'k2')), ('ns', ('k5', 'k6')),
+                       ('field_ff', ('k5f', 'k6f'))):
+        sc = mix_scene(rt, name, torch)
+        params = sc.init_params(dev)
+        r = mix_rays(rt, torch, name, N_MAIN, dev, MIX_SEED + 7)
+        meta, cfg, flat, kinds, maps, ext, side = mix_inputs(
+            rt, torch, sc, params, name, dev)
+        g_rays, g_mom, _ = random_cotangents(torch, r.n, cfg, dev, SEED + 6)
+        one = slice(0, MIX_CHUNK)
+        r1 = ray_slice(ft, r, one)
+        g1 = [g[one] for g in g_rays]
+        field = field1 = None
+        if name in MIX_FIELD_CASES:
+            from raytracetorch_tpu_torch.core.field import FieldState
+            field = FieldState.init(r, list(MIX_E0)).streams()
+            field1 = [f[one] for f in field]
+        g_field = [g_rays[0]] * 6 if field is not None else None
+        g_field1 = [g_rays[0][one]] * 6 if field is not None else None
+        cols = len(ft.grad_cols((), True, ft.dispersive(meta),
+                                side['coat'] is not None, side['diff'],
+                                side['ff'] is not None))
+        prog = fuzzy_program_ops(meta) if ft.fuzzy_kinds(meta) else \
+            [0] * len(meta)
+        row = [intersect_ops(m) + (grin_ops(m) or apply_ops(m))
+               + coat_ops(m) + prog[k] for k, m in enumerate(meta)]
+        if sc.sequential:
+            kf = (lambda: ft.trace_seq_fwd_cuda(
+                flat, kinds, r, cfg, maps, ext, track_opl=True, **side))
+            pf = (lambda: ft.trace_sequential_fused_plain(
+                flat, r, cfg, meta, maps, track_opl=True))
+            bk = (lambda: ft.trace_seq_bwd_cuda(
+                flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=ext,
+                opl=True, g_opl=g_rays[0], **side))
+            bp = (lambda: ft.trace_seq_bwd_plain(
+                flat, r1, cfg, meta, g1, g_mom, maps=maps, g_opl=g1[0]))
+            steps = max(m.grin_steps for m in meta)
+            fwd_ops = r.n * sum(row)
+            # K2: the forward and an adjoint of twice its size, the rod's
+            # steps reversed once in place of that estimate (section 20)
+            bwd_ops = 3 * fwd_ops + r.n * steps * (GRIN_REV_STEP_OPS
+                                                   - 2 * GRIN_STEP_OPS)
+        else:
+            nb = sc.n_bounces
+            kf = (lambda: fn.trace_nonseq_fwd_cuda(
+                flat, kinds, r, cfg, nb, maps, ext, track_opl=True,
+                field=field, **side))
+            pf = (lambda: fn.trace_nonseq_fused_plain(
+                flat, r, cfg, meta, nb, maps, track_opl=True, field=field))
+            bk = (lambda: fn.trace_nonseq_bwd_cuda(
+                flat, kinds, r, cfg, nb, g_rays, g_mom, maps=maps, ext=ext,
+                opl=True, g_opl=g_rays[0], field=field, g_field=g_field,
+                **side))
+            bp = (lambda: fn.trace_nonseq_bwd_plain(
+                flat, r1, cfg, meta, nb, g1, g_mom, maps=maps,
+                g_opl=g1[0], field=field1, g_field=g_field1))
+            scans, wins, lives = nonseq_work(rt, torch, sc, params, r)
+            replayed = segment_replays(
+                lives, fn.K6_FIELD_CHECKPOINTS if field is not None
+                else fn.K6_CHECKPOINTS)
+            k5_ops, k6_ops = nonseq_ops(meta, scans, wins, replayed)
+            extra = sum(w * (grin_ops(m) + coat_ops(m) + prog[k]
+                             + (field_coat_row_ops(m) if field else 0))
+                        for k, (w, m) in enumerate(zip(wins, meta)))
+            fwd_ops, bwd_ops = k5_ops + extra, k6_ops + 3 * extra
+            timing[f'{name}_work'] = dict(k5_row_scans=scans,
+                                          k5_winners_per_row=wins,
+                                          k6_replayed=replayed)
+        # the forward reads 9 streams (and the launch field) and writes 7,
+        # the path length and medium (and the final field); the backward
+        # reads the forward's inputs, 7 ray and 2 stream cotangents (and 6
+        # field cotangents) and writes 7 (and 6) and its partials
+        f_io = 48 if field is not None else 0
+        io_f = r.n * (36 + 28 + 8 + 2 * f_io) + table_bytes(meta)
+        io_b = (r.n * (36 + 28 + 8 + 28 + 3 * f_io) + table_bytes(meta)
+                + -(-r.n // 256) * len(meta) * cols * 4)
+        bounds[f'{keys[0]}_{name}'] = bound(io_f, fwd_ops)
+        bounds[f'{keys[1]}_{name}'] = bound(io_b, bwd_ops)
+        for key_, kfn, pfn, share in ((f'{keys[0]}_{name}', kf, pf, 1.0),
+                                      (f'{keys[1]}_{name}', bk, bp,
+                                       r.n / r1.n)):
+            k_runs = time_ms(torch, kfn, warmup=2, reps=10)
+            p_runs = time_ms(torch, pfn, warmup=1, reps=1)
+            timing[key_] = dict(kernel_ms=statistics.median(k_runs),
+                                plain_ms=statistics.median(p_runs) * share,
+                                plain_rays=r.n / share, kernel_runs=k_runs)
+        libs = (('trace_seq_fwd', 'trace_seq_bwd') if sc.sequential
+                else ('trace_nonseq_fwd', 'trace_nonseq_bwd'))
+        words = 0 if side['fuzzy'] is None else int(side['fuzzy'].numel())
+        for lib in libs:
+            occ[f'{lib}_{name}'] = ft.blocks_per_sm(
+                lib, len(meta), cfg, True, getattr(sc, 'n_bounces', 0),
+                ext=True, disp=ft.dispersive(meta), fresnel=side['fresnel'],
+                coat=side['coat'] is not None, diff=side['diff'],
+                fuzzy_words=words, freeform=side['ff'] is not None,
+                grin=side['grin'], field=field is not None)
+        torch.cuda.empty_cache()
+    emit('mix_timing', **timing)
+    emit('mix_bounds', n=N_MAIN,
+         **{k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    emit('mix_occupancy', blocks_per_sm=occ)
+    emit('mix_seconds', seconds=time.perf_counter() - t0)
+    return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds)
+
+
+# The SASS of every kernel of the four trace libraries (73: K1's 11, K2's
+# 24, K5's 25, K6's 13), which a later slice must not change unless it
+# means to: sha256 (first 16 hex digits) of each kernel's normalized
+# `cuobjdump -sass` listing (sass_digests), keyed by the first 12 hex
+# digits of the sha256 of its mangled name (the anonymous namespace's hash
+# stripped), read from this tree's build on an NVIDIA H100 80GB HBM3 when
+# the family chain collapsed: the kernels that kept their code kept their
+# digests, but K6's instantiations without dispersion, with it and with
+# the path length, whose listings moved two independent predicate
+# instructions (PERF.md) -> {library: {name key: digest}}.
+SASS_ALL = {
+    'trace_nonseq_bwd': {
+        '03df43c7e5e9': '33691adada7802a5',
+        '08244a1bf7e2': '4075e21f4ad306c0',
+        '1a141c888635': '92d4b78af3dbf07e',
+        '7b291c5d10e6': '787c894f94c7f330',
+        '890121c01118': 'dde89048293c22aa',
+        '934c4c3721a8': '8912f19f0e71dc88',
+        '9fb6f9ef47b2': 'c0100c0bc0dbdff6',
+        'be39b3457e72': '5899b7eacd76d69a',
+        'd2b0a0757307': 'f30ed5853daea54e',
+        'e5328c4bb36d': '9a9ece152bd43ffa',
+        'ed6702cc88ee': '8f9a69e0fe4d738d',
+        'efd221452f49': 'a78d2d8c8d9b5f2a'},
+    'trace_nonseq_fwd': {
+        '069afa8fc02e': 'f22476b559971682',
+        '0e7f8f95cf21': '42f80af41fd9d51c',
+        '167dc62ca7ba': 'a0517998fbf76f95',
+        '168d45467d41': '0f7f6e4372a3b094',
+        '172bf2bab62f': 'faed464783f26bf8',
+        '409ca9948ad0': 'a3dd8a66842f008d',
+        '4631f0a57922': '87162240d0ff255c',
+        '4f9725044bc5': 'cf734ce216a28839',
+        '63b98f7c3418': '743dfdc6af310d8b',
+        '8ece81f19a33': '5006a8ebac560e71',
+        '9887ea03277d': 'a2b42ccbc7a9f2c8',
+        'a69da8a34718': '5fa4bbf53bb53ab5',
+        'a95f8af70d7d': 'cf478798b278ed3e',
+        'aa7325da1eb9': 'd555d803c9eb251b',
+        'bf2fb8301d57': 'cc6600d8603c2591',
+        'c05fe594c11a': 'cdb9550d8dd1fed8',
+        'd6e73ed266ee': '0dd5386947a5843a',
+        'e3989ed9b356': '9dae38d5609657e0',
+        'ede4017e7976': '432e6c6465189d61',
+        'ef63c80cdf39': '6ac47e1fc1f49aff',
+        'fa6ede60da44': '2b72c16e13a3c5dd',
+        'fbd49f5bd426': 'e8205e302381af7a',
+        'fd6c4573cf32': '956160ff3158b00a'},
+    'trace_seq_bwd': {
+        '1b1c8ca95e5f': 'c3dec1901cbbec0e',
+        '27dec186cbaa': 'dc438c9dedec2f7d',
+        '355d32931f62': 'd99a41bf18338a10',
+        '388a1f6be95b': '173a212ed7f8ce76',
+        '3eedf1deee4b': 'd4967b555f6bc35c',
+        '42d3b9e6215c': '24e563443a3b5bd8',
+        '4d733f812142': 'ab659b7c23503212',
+        '63e51899a554': 'f93c0e3de9fa3c29',
+        '7dbc0d64159f': '3070d650848e6117',
+        '838e6a6d04c7': '0f698b264124fd4e',
+        '83e7f3681f0b': '0ea01155e408f645',
+        '886f1bcf94e3': '94a3852495da1797',
+        '88c096aee4a1': 'f6a31b3b772cdbb6',
+        '8abdf665eb4e': '50dac8ca0f9949cf',
+        '90d3e46e4d7c': '134d95db9b48eadd',
+        '9398fdcc4d13': '9172a10c04414689',
+        '9a56ef3383e0': 'c0f50fbdaffcdbf2',
+        '9bcd32ef5f3f': 'ec6768b2b46c68a5',
+        'a07eb81f1edd': 'afd3ff09b28616af',
+        'a52b4e6eb558': 'ca096d846b6e88b2',
+        'c65979489e95': 'a88254f81fe6cd7c',
+        'd6d123094fce': 'd288b661e1bb16b0',
+        'ea678026567c': '32d8c1114a5dcce5',
+        'fd94565fe71d': 'e856cfef69d710c6'},
+    'trace_seq_fwd': {
+        '16fa3b59cf26': '2273abadad990939',
+        '74f8135ef41f': 'ae3d3dce30f0c652',
+        '7f24aa638f84': '53a3de2d10a62d95',
+        '87083c76f7fe': '034692c1d3d3deda',
+        'ae165d077666': '3518c58d21cd8015',
+        'bf04f1bf6e88': '7908e35cdb5af917',
+        'cae7781557a1': '3e0e2ebbda134ea4',
+        'd4fd4a6fbbe0': 'f6f6b4a629646b91',
+        'dfddf45ad8d0': 'abea182f20a732c1',
+        'eb17cd4764ff': '8d031725c92e153f',
+        'fbe38a674d17': '4dcffb06ba91d2c7'}}
 
 
 def sass_keyed(path):
@@ -10221,6 +10821,9 @@ def main():
     # 20. GRIN rods
     grin = grin_phases(rt, torch, dev, reset_counters, counters, only)
 
+    # 21. the kind mix: families of kinds together in one table
+    mix = mix_phases(rt, torch, dev, reset_counters, counters, only)
+
     # 6. timing
     timing = {'card': card}
     g_mom1 = torch.randn(1, 1, 7, generator=torch.Generator(
@@ -10930,6 +11533,34 @@ def main():
         summary['kernels'].append(entry(
             name, source, line, launches_, err, gr_t[key]['kernel_ms'],
             gr_t[key]['plain_ms']))
+    # the family instantiation on tables that mix families (section 21):
+    # launches on the counted grad steps of the coated case (K1, K2) and
+    # the Scene (K5, K6), and the field's on the freeform corrector's;
+    # errors at 1M rays over the cases, times and bounds on those three
+    mx_k, mx_t, mx_b = mix['kernels'], mix['timing'], mix['bounds']
+    mx_p = mix['paths']
+    for name, source, line, case, key, cases in (
+            ('trace_seq_fwd_family', 'trace_seq_fwd.cu', 1528, 'coated',
+             'k1_coated', MIX_SEQ_CASES),
+            ('trace_seq_bwd_family', 'trace_seq_bwd.cu', 1712, 'coated',
+             'k2_coated', MIX_SEQ_CASES),
+            ('trace_nonseq_fwd_family', 'trace_nonseq_fwd.cu', 830, 'ns',
+             'k5_ns', MIX_NS_CASES),
+            ('trace_nonseq_bwd_family', 'trace_nonseq_bwd.cu', 2157, 'ns',
+             'k6_ns', MIX_NS_CASES),
+            ('trace_nonseq_fwd_field_family', 'trace_nonseq_fwd.cu', 861,
+             'field_ff', 'k5f_field_ff', MIX_FIELD_CASES),
+            ('trace_nonseq_bwd_field_family', 'trace_nonseq_bwd.cu', 2054,
+             'field_ff', 'k6f_field_ff', MIX_FIELD_CASES)):
+        bwd_entry = '_bwd' in name
+        lib = name.split('_family')[0].replace('_field', '')
+        err = max(mx_k[c]['bwd']['max_abs_err'] if bwd_entry
+                  else mx_k[c]['max_abs_err'] for c in cases)
+        bounds[name] = mx_b[key]
+        summary['kernels'].append(entry(
+            name, source, line,
+            mx_p[case]['grad']['fused']['launches'][lib], err,
+            mx_t[key]['kernel_ms'], mx_t[key]['plain_ms']))
     print(json.dumps(summary))
     print(card)
     print(json.dumps({'ok': True, 'device': {

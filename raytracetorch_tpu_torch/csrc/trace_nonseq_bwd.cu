@@ -101,24 +101,51 @@
 //   word, its cotangent being the same at every bounce), and the reverse
 //   sweep runs K2's path-length adjoint of the winner.
 //
-// - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W): a sixth
-//   instantiation, kFresnel, built on the fifth (an overload with one more
-//   argument, the Philox key of K5's draws), so that the others keep their
-//   code.  The TPU scan kernel replays its in-kernel draws by reseeding per
-//   tile and bounce (_kernel_nonseq_bwd_scan :2227-2246); here a FRESNEL
-//   winner's draw is philox_uniform of (ray, bounce, row), so the first
-//   replay and every segment replay recompute K5's very draws from their
-//   counters, and nothing is stored.  The drawn branch is a saved bit
-//   (kReflect), and the reverse sweep runs K2's Fresnel adjoints
-//   (trace_seq_adjoint.cuh).
-//
-// - Thin-film coatings and metal mirrors: a seventh instantiation, kCoat,
-//   built on the sixth (an overload with one more argument, CoatSide: the
-//   rows' [K][20] side buffer, in shared memory after the moment
-//   cotangent).  Replays and the reverse sweep take a coated or metal
-//   winner's weight through its stack (thin_film.cuh, recomputed: the
-//   checkpoints keep their words), and a winner's 8 coat-thickness columns
-//   are reduced after its disp columns.
+// - The families of kinds (the Fresnel kinds, coatings and metal mirrors,
+//   the diffractive and ideal elements, fuzzy apodization, freeform
+//   surfaces, GRIN rods): one more instantiation, the family
+//   instantiation, built on the fifth (an overload with one more argument,
+//   FamSide: K5's side data and the runtime word `fam` of the families the
+//   table has, trace_seq_common.cuh), so that the others keep their code.
+//   It compiles every family together, so a scene may mix them; a family
+//   the table lacks skips its block setup and its columns (a table that
+//   one of the chain's links took runs that link's instantiation,
+//   trace_seq_common.cuh::fam_link, as K1 does, but for GRIN rods alone,
+//   which run the family instantiation, as K5).  Its replays
+//   run K5's bounce with every family (nonseq_bounce), so they reach K5's
+//   state bit for bit.  Per family:
+//   - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W).  The TPU scan
+//     kernel replays its in-kernel draws by reseeding per tile and bounce
+//     (_kernel_nonseq_bwd_scan :2227-2246); here a FRESNEL winner's draw is
+//     philox_uniform of (ray, bounce, row) under FamSide::key, so the
+//     first replay and every segment replay recompute K5's very draws from
+//     their counters, and nothing is stored.  The drawn branch is a saved
+//     bit (kReflect), and the reverse sweep runs K2's Fresnel adjoints
+//     (trace_seq_adjoint.cuh).
+//   - Thin-film coatings and metal mirrors: the rows' [K][20] side buffer
+//     sits in shared memory after the moment cotangent.  Replays and the
+//     reverse sweep take a coated or metal winner's weight through its
+//     stack (thin_film.cuh, recomputed: the checkpoints keep their words),
+//     and a winner's 8 coat-thickness columns are reduced after its disp
+//     columns.
+//   - The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA
+//     rows, the ELLIPSE bound): the reverse sweep runs
+//     diffractive_backward (trace_seq_adjoint.cuh) and reduces a DOE
+//     winner's 8 ff columns after the coat columns.
+//   - Fuzzy apodization (the traced programs' int32 buffer, in shared
+//     memory after the side buffer): the reverse sweep re-runs a fuzzy
+//     winner's program at the replayed hit with forward-mode partials
+//     (fuzzy.cuh) and adds g I imod dw/d(hit) to the hit's cotangent
+//     (row_backward).
+//   - Freeform surfaces (the rows' exponent pairs, in shared memory after
+//     the programs): the reverse sweep reverses a freeform winner's normal
+//     and 8 Newton steps (freeform.cuh, through row_backward); the warp
+//     slots hold 32 ff columns a row in place of a DOE winner's 8.
+//   - GRIN rods: a GRIN winner's checkpoint keeps the rod's decisions in
+//     its bits (the steps it applied, whether it lived, whether its exit
+//     coupled), and the reverse sweep runs K2's rod adjoint
+//     (trace_seq_adjoint.cuh::grin_row_backward) on a GRIN winner, into the
+//     pose columns and ph[0:6].  The checkpoints stay 9 words.
 //
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
@@ -132,30 +159,11 @@
 // is an estimate by count (chip_smoke.py computes the bound from a run's
 // rays); PERF.md holds the measured time.
 //
-// The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows, the
-// ELLIPSE bound) run in one more instantiation, kDiff, built on the one with
-// the coatings (an overload with one more argument, DiffKinds): its replay
-// is K5's, its reverse sweep runs diffractive_backward (trace_seq_adjoint.cuh)
-// and reduces a DOE winner's 8 ff columns after the coat columns.
-//
-// Fuzzy apodization runs in one more instantiation, kFuzzy, built on kDiff
-// (an overload with one more argument, FuzzyProgs: the traced programs'
-// int32 buffer, in shared memory after the side buffer): its replays run
-// K5's bounce with the programs (nonseq_bounce), so they reach K5's state
-// bit for bit, and its reverse sweep re-runs a fuzzy winner's program at the
-// replayed hit with forward-mode partials (fuzzy.cuh) and adds g I imod
-// dw/d(hit) to the hit's cotangent (row_backward).
-//
-// Freeform surfaces run in one more instantiation, kFreeform, built on
-// kFuzzy (an overload with one more argument, FfSide: the rows' exponent
-// pairs, in shared memory after the programs): its replays run K5's bounce
-// with them (nonseq_bounce), and its reverse sweep reverses a freeform
-// winner's normal and 8 Newton steps (freeform.cuh, through row_backward);
-// its warp slots hold 32 ff columns a row in place of a DOE winner's 8.
-//
-// The polarized field runs in one more instantiation, kField, built on
-// kCoat and not on kDiff, kFuzzy or kFreeform (an overload with one more
-// argument after the side buffer, FieldIn: K5's launch field, the
+// The polarized field runs in one more instantiation, kField, which
+// compiles every family but GRIN rods (for a table without the
+// diffractive, fuzzy or freeform kinds the Fresnel kinds and coatings
+// alone, kFamFieldCoat, as K5) (an overload with one more argument
+// after the side data, FieldIn: K5's launch field, the
 // cotangent of its final field, the launch field's cotangent and the
 // replay's final field, each [6][N] planar; the TPU kernels' g_field,
 // :2054-2149 and :2182-2406).  Its replays carry the field through K5's
@@ -177,17 +185,6 @@
 // after the last bounce), and the final field's cotangent comes back as
 // the launch field's.
 //
-// GRIN rods run in one more instantiation, kGrin, built on kOpl alone (an
-// overload with one more argument, GrinRows, a tag; the wrapper refuses the
-// Fresnel kinds and every flag built on them beside a rod).  Its replays
-// run K5's bounce with GRIN winners (nonseq_bounce with kGrin, the rod out
-// of line in grin.cuh::grin_rod, so they reach K5's state bit for bit), a
-// GRIN winner's checkpoint keeping the rod's decisions in its bits (the
-// steps it applied, whether it lived, whether its exit coupled), and its
-// reverse sweep runs K2's rod adjoint (trace_seq_adjoint.cuh::
-// grin_row_backward) on a GRIN winner, into the pose columns and ph[0:6].
-// The checkpoints stay 9 words.
-//
 // Limits (checked by the wrapper): 1..64 rows, <= 8 sensor slots, 1..18
 // bundles and slots x bundles <= 64, any bounce budget >= 0.  Shared memory is 4 * (204 K + 7 S B +
 // 8 * 19 K + 8 * 256 * min(budget, 13)) bytes: 71 KB for the naive scene,
@@ -198,6 +195,7 @@
 // derivative conventions (trace_seq_bwd.cu).
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -227,15 +225,15 @@ constexpr unsigned kFull = 0xffffffffu;
 // One bounce of K5 (nonseq_bounce, the very function K5 runs).  Returns the
 // winner row, or -1 when no row wins (nothing moves); `bits` receives the
 // winner's branch bits.  With kOpl, n_cur becomes the winner's medium
-// (medium_after, as K5's instantiation with the streams takes it).  With
-// kFresnel a FRESNEL winner draws at `rd`'s counter, as K5 drew; with
-// kCoat (which has kFresnel) a coated or metal winner reads its row of the
-// side buffer `cside`; with kDiff (which has kCoat) the diffractive kinds;
-// with kFuzzy (which has kDiff) a winner with a program in `fz` weighs by
-// it; with kFreeform (which has kFuzzy) the freeform rows of `ffs`; with
-// kField (which has kCoat alone) the winner sees and transports the field
-// *fe; with kGrin (which has kOpl alone) a GRIN winner runs its rod, its
-// bits being the rod's decisions and its medium the rod's ambient index.
+// (medium_after, as K5's instantiation with the streams takes it).  The
+// family flags as for nonseq_bounce: with kFresnel a FRESNEL winner draws at
+// `rd`'s counter, as K5 drew; with kCoat a coated or metal winner reads its
+// row of the side buffer `cside`; with kDiff the diffractive kinds; with
+// kFuzzy a winner with a program in `fz` (null: none) weighs by it; with
+// kFreeform the freeform rows of `ffs` (null: none); with kField the winner
+// sees and transports the field *fe; with kGrin a GRIN winner runs its rod,
+// its bits being the rod's decisions and its medium the rod's ambient
+// index.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
           bool kField = false, bool kGrin = false>
@@ -252,19 +250,19 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
   PhysBranch br = {};
   if constexpr (kGrin) {
     GrinExit ge;
-    const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, false, false, false, false,
-                                false, false, true>(recs, tab, knd, n_rows, pl, p, d, inten, hw,
-                                                    kw, &degen, &br, nullptr, rd, cside, fz, ffs,
-                                                    fe, &ge);
+    const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy,
+                                kFreeform, false, true>(recs, tab, knd, n_rows, pl, p, d, inten,
+                                                        hw, kw, &degen, &br, nullptr, rd, cside,
+                                                        fz, ffs, nullptr, &ge);
     if (k >= 0 && kw.ph == GRIN) {
       bits = kActive | ge.bits;
       *n_cur = tab[k * kRowWidth + kPh];
       return k;
     }
     if (k >= 0) {
-      bits = branch_bits(hw, degen, br) | kActive;
-      *n_cur = medium_after<kDispersion>(tab + k * kRowWidth, kw, br.from_in, br.tir, pl.wl,
-                                         *n_cur);
+      bits = branch_bits<kFresnel>(hw, degen, br) | kActive;
+      *n_cur = medium_after<kDispersion, kFresnel, kDiff>(tab + k * kRowWidth, kw, br.from_in,
+                                                          br.tir, pl.wl, *n_cur, br.reflect);
     }
     return k;
   }
@@ -311,35 +309,6 @@ struct OplIn {
   const float* g_nfinal;
 };
 
-// What only the instantiation with the coatings takes: the rows' side
-// buffer, [K][kCoatSide] floats (ops/fused_trace.py::coat_side).
-struct CoatSide {
-  const float* side;
-};
-
-// The instantiation with the diffractive kinds (kDiff): its overload's tag.
-struct DiffKinds {
-  int unused;
-};
-
-// What only the instantiation with the fuzzy programs takes: their n_words
-// int32 words (fuzzy.cuh's layout).
-struct FuzzyProgs {
-  const int32_t* words;
-  int n_words;
-};
-
-// What only the instantiation with the freeform surfaces takes: the rows'
-// exponent pairs, [K][kFfSide] int32 words (freeform.cuh's layout).
-struct FfSide {
-  const int32_t* pw;
-};
-
-// The instantiation with GRIN rods (kGrin): its overload's tag.
-struct GrinRows {
-  int unused;
-};
-
 // What only the instantiation with the field takes, [6][n] floats each (Er
 // x, y, z, then Ei x, y, z): K5's launch field `in`, the cotangent of K5's
 // final field `g_out` (null: zero), the launch field's cotangent `c_in`
@@ -372,20 +341,21 @@ __device__ __forceinline__ Fld launch_field(const FieldIn& fi, long long i, long
 // medium, each checkpoint keeps the one before its bounce as a ninth word
 // (a segment replay recomputes it from the launch, as it recomputes the
 // rest), and the reverse sweep runs row_backward's path-length adjoint.
-// With kFresnel (which has kOpl) every replayed bounce draws under `key` at
-// its own counter (ray, bounce).  With kCoat (which has kFresnel) coated and
-// metal winners read their rows of `cs`, and a row's 8 coat-thickness
-// columns follow its disp columns.  With kDiff (which has kCoat) the
-// diffractive kinds, and a DOE winner's 8 ff columns follow the coat
-// columns.  With kFuzzy (which has kDiff) the winners with a program in `fp`
-// (copied into shared memory after the side buffer) weigh by it.  With
-// kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
-// memory after the programs), and 32 ff columns a row.  With kField (which
-// has kCoat alone) the replays carry the field from `fi.in`, each
-// checkpoint keeps the field before its bounce, and the reverse sweep
-// carries its cotangent from `fi.g_out` to `fi.c_in`.  With kGrin (which has
-// kOpl alone) the replays run GRIN winners' rods and the reverse sweep their
-// adjoints.
+// The family flags (each with kOpl) compile a family of kinds in, and the
+// runtime word fs.fam says which of them the table has: with kFresnel
+// every replayed bounce draws under fs.key at its own counter (ray,
+// bounce); with kCoat coated and metal winners read their rows of fs.coat,
+// and (with kFamCoat) a row's 8 coat-thickness columns follow its disp
+// columns; with kDiff the diffractive kinds, and (with kFamDiff) a DOE
+// winner's 8 ff columns follow the coat columns; with kFuzzy the winners
+// with a program in fs.fuzzy (copied into shared memory after the side
+// buffer) weigh by it; with kFreeform the freeform rows of fs.ff (copied
+// into shared memory after the programs), and (with kFamFreeform) 32 ff
+// columns a row; with kGrin the replays run GRIN winners' rods and the
+// reverse sweep their adjoints.  With kField (which has every family flag
+// but kGrin) the replays carry the field from `fi.in`, each checkpoint
+// keeps the field before its bounce, and the reverse sweep carries its
+// cotangent from `fi.g_out` to `fi.c_in`.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
           bool kField = false, bool kGrin = false>
@@ -405,8 +375,7 @@ __device__ __forceinline__ void nonseq_bwd(
     int n_slots, int n_bundles, GridCt gg, const float* __restrict__ maps,
     const int32_t* __restrict__ map_desc, const float* __restrict__ wavelength,
     float* __restrict__ gmaps, int n_bounces, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}, PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr},
-    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr},
+    OplIn oi = {nullptr, nullptr}, FamSide fs = {},
     FieldIn fi = {nullptr, nullptr, nullptr, nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
@@ -414,17 +383,21 @@ __device__ __forceinline__ void nonseq_bwd(
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kCoat || !kField, "the field runs with the coatings");
-  static_assert(!(kField && kDiff), "the field runs without the diffractive kinds");
-  static_assert(!kGrin || (kOpl && !kFresnel), "GRIN rods run with the path length alone");
+  static_assert(!kGrin || kOpl, "GRIN rods run with the path length");
+  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl, kField>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
+  // the families the table has (fs.fam), each false without its flag
+  const bool coat = kCoat && (fs.fam & kFamCoat);
+  const bool freeform = kFreeform && (fs.fam & kFamFreeform);
   // a row's columns in the warp slots and the partials: with a dispersive
-  // row (kDispersion) its disp columns after the kCols, with kCoat the coat
-  // columns after those, with kDiff a DOE row's ff columns after those
-  const int n_cols = kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-                                       (kDiff ? kFfCols : 0)
-                                 : kCols;
+  // row (kDispersion) its disp columns after the kCols, with the coatings
+  // the coat columns after those, with the freeform surfaces or the
+  // diffractive kinds a row's ff columns after those
+  const int coat_cols = coat ? kMaxCoatLayers : 0;
+  const int ff_cols = freeform ? kMaxFfTerms : kDiff && (fs.fam & kFamDiff) ? kMaxDoeTerms : 0;
+  const int n_cols = kDispersion ? kCols + wo.disp_cols + coat_cols + ff_cols : kCols;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
   constexpr int kRecs = kExt ? 0 : kRec4;
@@ -435,10 +408,14 @@ __device__ __forceinline__ void nonseq_bwd(
   const int n_mom = n_slots * n_bundles * kMoments;
   float* cside = gm + n_mom;  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
-  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
-  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
-  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) + (kFuzzy ? fp.n_words : 0) +
-                    (kFreeform ? n_rows * kFfSide : 0);  // [kWarps, n_rows, n_cols]
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? fam_coat_words(fs, n_rows) : 0));
+  int32_t* ffs = fzs + (kFuzzy ? fam_fuzzy_words(fs) : 0);  // kFreeform: the pairs
+  float* warp_tab = cside + (kCoat ? fam_coat_words(fs, n_rows) : 0) +
+                    (kFuzzy ? fam_fuzzy_words(fs) : 0) +
+                    (kFreeform ? fam_ff_words(fs, n_rows) : 0);  // [kWarps, n_rows, n_cols]
+  // the programs and the pairs, null where the table lacks their family
+  const int32_t* progs = kFuzzy && (fs.fam & kFamFuzzy) ? fzs : nullptr;
+  const int32_t* pairs = freeform ? ffs : nullptr;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -448,19 +425,21 @@ __device__ __forceinline__ void nonseq_bwd(
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
   if constexpr (kCoat) {
-    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+    for (int j = tid; j < fam_coat_words(fs, n_rows); j += kThreads) cside[j] = fs.coat[j];
   }
   if constexpr (kFuzzy) {
-    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+    for (int j = tid; j < fam_fuzzy_words(fs); j += kThreads) fzs[j] = fs.fuzzy[j];
   }
   if constexpr (kFreeform) {
-    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
+    for (int j = tid; j < fam_ff_words(fs, n_rows); j += kThreads) ffs[j] = fs.ff[j];
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
   if constexpr (kDiff) {
-    ellipse_rows(tab, knd, n_rows, tid, kThreads);
-    __syncthreads();
+    if (fs.fam & kFamDiff) {  // uniform across the block
+      ellipse_rows(tab, knd, n_rows, tid, kThreads);
+      __syncthreads();
+    }
   }
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -490,7 +469,7 @@ __device__ __forceinline__ void nonseq_bwd(
   float inten = i0;
   int n_live = 0;
   float n_cur = 1.0f;  // kOpl: the medium (index 1 at launch)
-  RayDraw rd = {key, static_cast<uint32_t>(i), 0u};  // kFresnel: the draws' counter
+  RayDraw rd = {fs.key, static_cast<uint32_t>(i), 0u};  // kFresnel: the draws' counter
   // kField: the ray's field, from its launch
   Fld fe = launch_field<kField>(fi, i, n, live);
 #pragma unroll 1
@@ -502,8 +481,8 @@ __device__ __forceinline__ void nonseq_bwd(
     rd.bounce = static_cast<uint32_t>(b);
     const int k =
         bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform, kField,
-               kGrin>(recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, fzs, ffs,
-                      kField ? &fe : nullptr);
+               kGrin>(recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside, progs,
+                      pairs, kField ? &fe : nullptr);
     // a bounce that no row wins leaves its slot alone: it may hold bounce
     // b - n_ck of the last segment, which the reverse sweep needs
     if (k < 0) break;
@@ -572,7 +551,7 @@ __device__ __forceinline__ void nonseq_bwd(
         rd.bounce = static_cast<uint32_t>(b);
         bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
                kField, kGrin>(recs, tab, knd, n_rows, pl, p, d, inten, bits, &n_cur, &rd, cside,
-                              fzs, ffs, kField ? &fe : nullptr);
+                              progs, pairs, kField ? &fe : nullptr);
       }
 #pragma unroll 1
       for (int j = 0; j < n_ck && s + j < n_live; ++j) {
@@ -582,7 +561,7 @@ __device__ __forceinline__ void nonseq_bwd(
         rd.bounce = static_cast<uint32_t>(s + j);
         const int k = bounce<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
                              kFreeform, kField, kGrin>(recs, tab, knd, n_rows, pl, p, d, inten,
-                                                       bits, &n_cur, &rd, cside, fzs, ffs,
+                                                       bits, &n_cur, &rd, cside, progs, pairs,
                                                        kField ? &fe : nullptr);
         put_state<kThreads>(ck + j * kSlot, pb, db, ib, (static_cast<uint32_t>(k) << 16) | bits);
         if constexpr (kOpl) put_medium<kThreads>(ck + j * kSlot, nb);
@@ -620,27 +599,23 @@ __device__ __forceinline__ void nonseq_bwd(
         if (act) {
           const RowKinds kd =
               read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
-          const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
-          if constexpr (kGrin) {
-            if (kd.ph == GRIN)  // a GRIN winner: the rod's adjoint
-              grin_row_backward(tab + k * kRowWidth, kd, sp, sd, word & 0xffffu, oc, gp, gd, gi,
-                                tg);
-            else
-              row_backward<kPlates, kExt, kDispersion, kOpl>(
-                  tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu, rid, gm, n_bundles, gg, pl,
-                  gmaps, gp, gd, gi, tg, &wc, &oc);
+          const int32_t* ffp = freeform ? ff_row_of(ffs, k) : nullptr;
+          if (kGrin && kd.ph == GRIN) {  // a GRIN winner: the rod's adjoint
+            grin_row_backward(tab + k * kRowWidth, kd, sp, sd, word & 0xffffu, oc, gp, gd, gi,
+                              tg);
           } else {
             row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
                          kFreeform, kField>(tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu,
                                             rid, gm, n_bundles, gg, pl, gmaps, gp, gd, gi, tg,
                                             &wc, &oc, cside + k * kCoatSide, tc, tf,
-                                            kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
-                                            kField ? &fc : nullptr);
+                                            progs != nullptr && fzs[k] >= 0 ? fzs + fzs[k]
+                                                                            : nullptr,
+                                            ffp, kField ? &fc : nullptr);
           }
           if constexpr (kField) fc.nd = sd;
           dispm = kd.dispm;
-          coated = kd.coat & kCoatCountMask;
-          doe = kDiff && (kd.ph == DOE || (kFreeform && ffp != nullptr));
+          coated = coat ? kd.coat & kCoatCountMask : 0;
+          doe = kDiff && (kd.ph == DOE || ffp != nullptr);
         }
         if (partials != nullptr) reduce_winners<kCols>(k, tg, slots, n_cols, lane);
         // a dispersive winner: its media's cotangents on to the disp
@@ -654,16 +629,17 @@ __device__ __forceinline__ void nonseq_bwd(
           reduce_winners<kDispGradCols>(dispm != 0 ? k : -1, td, slots + kCols, n_cols, lane);
         // a coated or metal winner: its thickness columns
         if constexpr (kCoat) {
-          if (partials != nullptr)
+          if (partials != nullptr && coat)
             reduce_winners<kMaxCoatLayers>(coated != 0 ? k : -1, tc,
                                            slots + kCols + wo.disp_cols, n_cols, lane);
         }
         // a DOE or freeform winner: its coefficients' columns
         if constexpr (kDiff) {
-          if (partials != nullptr)
-            reduce_winners<kFfCols>(doe ? k : -1, tf,
-                                         slots + kCols + wo.disp_cols + kMaxCoatLayers, n_cols,
-                                         lane);
+          float* ffslot = slots + kCols + wo.disp_cols + coat_cols;
+          if (partials != nullptr && freeform)
+            reduce_winners<kFfCols>(doe ? k : -1, tf, ffslot, n_cols, lane);
+          else if (partials != nullptr && ff_cols != 0)
+            reduce_winners<kMaxDoeTerms>(doe ? k : -1, tf, ffslot, n_cols, lane);
         }
       } else {
         if (act)
@@ -754,140 +730,82 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi) {
   nonseq_bwd<kPlates, kExt, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi);
 }
 
-// The kernel with those and the Fresnel kinds.
-template <bool kPlates, bool kExt>
+// The family instantiation (kFams = kFamAll; kFamGrin for GRIN rods
+// alone): those and the families of kFams, which the table has reading
+// fs.fam.
+template <bool kPlates, bool kExt, uint32_t kFams = kFamAll>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key) {
-  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
-  nonseq_bwd<kPlates, kExt, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key);
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs) {
+  static_assert(kPlates && kExt, "the families run with the extended kinds");
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  nonseq_bwd<kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, false,
+             fam_has(kFams, kFamGrin)>(RTT_NONSEQ_BWD_ARGS, wo, oi, fs);
 }
 
-// The kernel with those and the coatings.
-template <bool kPlates, bool kExt>
+// The field's instantiation: those, the families of kFams (every family
+// but GRIN rods; kFamFieldCoat for tables without the diffractive, fuzzy or
+// freeform kinds) and the field.
+template <bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs) {
-  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
-  nonseq_bwd<kPlates, kExt, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs);
-}
-
-// The kernel with those and the diffractive kinds.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
-                        DiffKinds) {
-  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
-  nonseq_bwd<kPlates, kExt, true, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs);
-}
-
-// The kernel with those and the fuzzy programs.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
-                        DiffKinds, FuzzyProgs fp) {
-  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
-  nonseq_bwd<kPlates, kExt, true, true, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi, key,
-                                                                cs, fp);
-}
-
-// The kernel with those and the freeform surfaces.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
-                        DiffKinds, FuzzyProgs fp, FfSide ff) {
-  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
-  nonseq_bwd<kPlates, kExt, true, true, true, true, true, true, true>(RTT_NONSEQ_BWD_ARGS, wo, oi,
-                                                                      key, cs, fp, ff);
-}
-
-// The kernel with those (but the diffractive kinds, the fuzzy programs and
-// the freeform surfaces) and the field.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, PhiloxKey key, CoatSide cs,
-                        FieldIn fi) {
+trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs, FieldIn fi) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
-  nonseq_bwd<kPlates, kExt, true, true, true, true, false, false, false, true>(
-      RTT_NONSEQ_BWD_ARGS, wo, oi, key, cs, FuzzyProgs{nullptr, 0}, FfSide{nullptr}, fi);
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  nonseq_bwd<kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, true>(RTT_NONSEQ_BWD_ARGS, wo,
+                                                                     oi, fs, fi);
 }
 
-// The kernel with those (the path length) and GRIN rods.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, GrinRows) {
-  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
-  nonseq_bwd<kPlates, kExt, true, true, false, false, false, false, false, false, true>(
-      RTT_NONSEQ_BWD_ARGS, wo, oi);
-}
-
-// The types of the ten kernels.
+// The types of the kernels.
 using BwdKernel = void (*)(RTT_NONSEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn);
-using BwdFresnelKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey);
-using BwdCoatKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide);
-using BwdDiffKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
-                               DiffKinds);
-using BwdFuzzyKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
-                                DiffKinds, FuzzyProgs);
-using BwdFreeformKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
-                                   DiffKinds, FuzzyProgs, FfSide);
-using BwdFieldKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, PhiloxKey, CoatSide,
-                                FieldIn);
-using BwdGrinKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, GrinRows);
+using BwdFamKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, FamSide);
+using BwdFieldKernel = void (*)(RTT_NONSEQ_BWD_PARAMS, WaveOut, OplIn, FamSide, FieldIn);
 
 #undef RTT_NONSEQ_BWD_PARAMS
 #undef RTT_NONSEQ_BWD_ARGS
 
 // The dynamic shared memory of a launch: the packed scan records (not with
-// kExt), the table, its kinds, the moment cotangent, with kCoat the side
-// buffer, the warp slots (disp_cols more columns a row on a table with a
-// dispersive row, with kCoat 8 more, with kDiff 8 more again, with
-// kFreeform 32 in their place), the fuzzy programs' `fuzzy_words`, with
-// kFreeform the rows' exponent pairs, and the checkpoints (kField: fewer,
-// of 15 words).  Without the records the mixed-surface Scene's 11 rows and
-// 12 checkpoints fit two blocks an SM.
-template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false,
-          bool kFreeform = false, bool kField = false>
+// kExt), the table, its kinds, the moment cotangent, in the family and field
+// instantiations the side data of the families `fs` has (the side buffer,
+// the programs' words, the exponent pairs), the warp slots (disp_cols more
+// columns a row on a table with a dispersive row, 8 more with the coatings,
+// then 32 with freeform surfaces or 8 with the diffractive kinds), and the
+// checkpoints (kField: fewer, of 15 words).  Without the records the
+// mixed-surface Scene's 11 rows and 12 checkpoints fit two blocks an SM.
+template <bool kPlates, bool kExt, bool kOpl = false, bool kField = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int n_bounces, int disp_cols,
-                    int fuzzy_words = 0) {
+                    const FamSide& fs = {}) {
+  const int ff_cols = (fs.fam & kFamFreeform) ? kMaxFfTerms
+                      : (fs.fam & kFamDiff)   ? kMaxDoeTerms
+                                              : 0;
   return sizeof(float) *
-         (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth +
-                                         (kCoat ? kCoatSide : 0) + (kFreeform ? kFfSide : 0)) +
-          static_cast<size_t>(fuzzy_words) +
+         (static_cast<size_t>(n_rows) * ((kExt ? 0 : kRecWords) + kRowWidth + kKindWidth) +
+          static_cast<size_t>(fam_coat_words(fs, n_rows)) +
+          static_cast<size_t>(fam_fuzzy_words(fs)) + static_cast<size_t>(fam_ff_words(fs, n_rows)) +
           static_cast<size_t>(n_slots) * n_bundles * kMoments +
           static_cast<size_t>(kWarps) * n_rows *
-              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-               (kDiff ? (kFreeform ? kMaxFfTerms : kMaxDoeTerms) : 0)) +
+              (grad_cols<kPlates, kExt>() + disp_cols +
+               ((fs.fam & kFamCoat) ? kMaxCoatLayers : 0) + ff_cols) +
           static_cast<size_t>(checkpoints<kField>(n_bounces)) * state_words<kOpl, kField>() *
               kThreads);
 }
 
-// The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false, bool kGrin = false>
+// The kernel of an instantiation: without dispersion (kPlates, kExt), with
+// it (kDispersion), with the path length (kOpl), the family instantiation
+// (kFam) or the field's (kField).
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, uint32_t kFams = 0u,
+          bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kGrin)
+  if constexpr (kField)
     return reinterpret_cast<const void*>(
-        static_cast<BwdGrinKernel>(trace_nonseq_bwd_kernel<true, true>));
-  else if constexpr (kField)
+        static_cast<BwdFieldKernel>(trace_nonseq_bwd_kernel<true, true, kFams>));
+  else if constexpr (kFams != 0u)
     return reinterpret_cast<const void*>(
-        static_cast<BwdFieldKernel>(trace_nonseq_bwd_kernel<true, true>));
-  else if constexpr (kFreeform)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdFreeformKernel>(trace_nonseq_bwd_kernel<true, true>));
-  else if constexpr (kFuzzy)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdFuzzyKernel>(trace_nonseq_bwd_kernel<true, true>));
-  else if constexpr (kDiff)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdDiffKernel>(trace_nonseq_bwd_kernel<true, true>));
-  else if constexpr (kCoat)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdCoatKernel>(trace_nonseq_bwd_kernel<true, true>));
-  else if constexpr (kFresnel)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdFresnelKernel>(trace_nonseq_bwd_kernel<true, true>));
+        static_cast<BwdFamKernel>(trace_nonseq_bwd_kernel<true, true, kFams>));
   else if constexpr (kOpl)
     return reinterpret_cast<const void*>(
         static_cast<BwdOplKernel>(trace_nonseq_bwd_kernel<true, true>));
@@ -900,16 +818,31 @@ const void* kernel_fn() {
 }
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false, bool kGrin = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, uint32_t kFams = 0u,
+          bool kField = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel_fn<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
-                kField, kGrin>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kDispersion, kOpl, kFams, kField>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// The side data of a family or field launch from its C arguments, checked,
+// as K5's (trace_nonseq_fwd.cu::fam_side).
+cudaError_t fam_side(uint32_t key0, uint32_t key1, const float* coat_side, const int32_t* fuzzy,
+                     int fuzzy_words, const int32_t* ff_side, unsigned fam, int n_rows,
+                     FamSide* fs) {
+  if (fam & ~(kFamFresnel | kFamCoat | kFamDiff | kFamFuzzy | kFamFreeform | kFamGrin))
+    return cudaErrorInvalidValue;
+  if ((coat_side != nullptr) != ((fam & kFamCoat) != 0) ||
+      (fuzzy != nullptr) != ((fam & kFamFuzzy) != 0) ||
+      (ff_side != nullptr) != ((fam & kFamFreeform) != 0))
+    return cudaErrorInvalidValue;
+  if (fuzzy != nullptr && (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return cudaErrorInvalidValue;
+  *fs = FamSide{nullptr, 0, PhiloxKey{key0, key1}, coat_side, fuzzy,
+                fuzzy == nullptr ? 0 : fuzzy_words, ff_side, fam};
+  return cudaSuccess;
 }
 
 template <bool kPlates, bool kExt, bool kDispersion>
@@ -1006,19 +939,13 @@ extern "C" int rtt_trace_nonseq_bwd(
 // arguments of rtt_trace_nonseq_bwd (its `ext` implied: `maps`, `map_desc`
 // and `wavelength` must be given, a PHASE_GRID row or not), then `g_opl`
 // and `g_nfinal`, the cotangents of K5's opl and n_final streams (n floats
-// each; null: zero).  `fresnel` nonzero selects the instantiation with the
-// Fresnel kinds, which replays K5's draws under its Philox key (key0,
-// key1); without it the key is ignored.  `coat_side`, when not null,
-// selects the instantiation with the coatings (which also takes the Fresnel
-// kinds and the key so): the n_rows * 20 floats of ops/fused_trace.py::
-// coat_side; its partials hold 8 more columns a row (the coat thicknesses,
-// after the disp columns).  With `coat_side`, `diff` nonzero selects the
-// instantiation with the diffractive kinds, whose partials hold 8 more (a
-// DOE row's coefficients, after the coat columns), and with it `fuzzy`,
-// when not null, the one with the fuzzy programs: K5's `fuzzy_words` int32
-// words; with that `ff_side`, when not null, the one with the freeform
-// surfaces: K5's exponent pairs, whose partials hold 32 ff columns a row in
-// place of the 8.  Returns a cudaError_t.
+// each; null: zero), then K5's families: `fam` nonzero (kFam* bits)
+// selects the family instantiation, which replays K5's draws under its
+// Philox key (key0, key1) and reads `coat_side`, `fuzzy` (`fuzzy_words`
+// int32 words) and `ff_side`, each null where its family's bit is clear.
+// Its partials hold a row's 27 columns, the disp columns with `disp`, the
+// 8 coat thicknesses with kFamCoat, then 32 ff columns with kFamFreeform or
+// 8 (a DOE row's coefficients) with kFamDiff.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -1029,15 +956,13 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
     float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, uint32_t key0, uint32_t key1, int fresnel, const float* coat_side,
-    int diff, const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, int n_bounces,
+    const float* g_nfinal, uint32_t key0, uint32_t key1, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam, int n_bounces,
     long long n, void* stream) {
   if (n <= 0) return 0;
-  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy == nullptr) fuzzy_words = 0;
+  FamSide fs;
+  cudaError_t e = fam_side(key0, key1, coat_side, fuzzy, fuzzy_words, ff_side, fam, n_rows, &fs);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -1046,53 +971,43 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const size_t smem =
-      ff_side != nullptr
-          ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                             wo.disp_cols, fuzzy_words)
-      : diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                          wo.disp_cols, fuzzy_words)
-      : coat_side != nullptr
-          ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                 wo.disp_cols)
-          : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  // one launch for the six instantiations: the Fresnel kernel's overload
-  // takes the key as its last argument, the coated one the key and the side
-  // buffer, the diffractive one those and its tag, the fuzzy one those and
-  // the programs, the freeform one those and the exponent pairs
-  auto go = [&](auto... draws) {
-    const cudaError_t e =
-        prepare<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
-                sizeof...(draws) >= 3, sizeof...(draws) >= 4, sizeof...(draws) == 5>(smem);
+      shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols, fs);
+  const unsigned g = static_cast<unsigned>(blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
+  const OplIn oi = {g_opl, g_nfinal};
+  if (fam == 0) {  // the path length's kernel: the overload without side data
+    e = prepare<true, true, true, true>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    trace_nonseq_bwd_kernel<true, true>
-        <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-            table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
-            gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx,
-            rpy, rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
-            GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces,
-            n, wo, OplIn{g_opl, g_nfinal}, draws...);
+    trace_nonseq_bwd_kernel<true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy, rpz,
+        rdx, rdy, rdz, rintensity, n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps,
+        n_bounces, n, wo, oi);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the family instantiation of kFams: its overload takes the side data last
+  auto go = [&](auto fams) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    const cudaError_t e2 = prepare<true, true, true, true, kFams>(smem);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    trace_nonseq_bwd_kernel<true, true, kFams><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
+        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy, rpz,
+        rdx, rdy, rdz, rintensity, n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps,
+        n_bounces, n, wo, oi, fs);
     return static_cast<int>(cudaGetLastError());
   };
-  if (ff_side != nullptr)
-    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
-  if (fuzzy != nullptr)
-    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words});
-  if (diff) return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0});
-  if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
-  return fresnel ? go(PhiloxKey{key0, key1}) : go();
+  return with_fam_link<false>(fam, go);
 }
 
 // Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_nonseq_bwd_opl up to `g_nfinal`, the Philox key of K5's draws
-// (key0, key1), the n_rows * 20 floats of the side buffer `coat_side`
-// (ops/fused_trace.py::coat_side of a trace with the field), then K5's
-// launch field `field_in`, the cotangent of K5's final field `g_field`
-// (null: zero), the launch field's cotangent `c_field` and the field the
-// forward replay ends at `r_field` (null: not wanted), [6][n] floats each.
-// Its partials hold the 8 coat columns after the disp columns.  Returns a
-// cudaError_t.
+// rtt_trace_nonseq_bwd_opl (whose `fam` must not hold kFamGrin) up to
+// `fam`, then K5's launch field `field_in`, the cotangent of K5's final
+// field `g_field` (null: zero), the launch field's cotangent `c_field` and
+// the field the forward replay ends at `r_field` (null: not wanted), [6][n]
+// floats each.  Its partials hold the columns of rtt_trace_nonseq_bwd_opl's
+// family instantiation.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_field(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -1104,11 +1019,14 @@ extern "C" int rtt_trace_nonseq_bwd_field(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
     const float* g_nfinal, uint32_t key0, uint32_t key1, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam,
     const float* field_in, const float* g_field, float* c_field, float* r_field, int n_bounces,
     long long n, void* stream) {
   if (n <= 0) return 0;
-  if (coat_side == nullptr || field_in == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  FamSide fs;
+  cudaError_t e = fam_side(key0, key1, coat_side, fuzzy, fuzzy_words, ff_side, fam, n_rows, &fs);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if ((fam & kFamGrin) || field_in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -1116,59 +1034,23 @@ extern "C" int rtt_trace_nonseq_bwd_field(
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
-  const size_t smem = shared_bytes<true, true, true, true, false, false, true>(
-      n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  const cudaError_t e =
-      prepare<true, true, true, true, true, true, false, false, false, true>(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  trace_nonseq_bwd_kernel<true, true>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-          gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy,
-          rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
-          GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces, n,
-          wo, OplIn{g_opl, g_nfinal}, PhiloxKey{key0, key1}, CoatSide{coat_side},
-          FieldIn{field_in, g_field, c_field, r_field});
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches the instantiation with GRIN rods on `stream`: the arguments of
-// rtt_trace_nonseq_bwd_opl up to `g_nfinal` (the key and the side buffers
-// of the kinds it does not take left out), then `n_bounces`.  A GRIN row's
-// RK4 step count (1..kMaxGrinSteps) is its kinds row's last column.
-// Returns a cudaError_t.
-extern "C" int rtt_trace_nonseq_bwd_grin(
-    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
-    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
-    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
-    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
-    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
-    float* cintensity, float* partials, float* rpx, float* rpy, float* rpz, float* rdx,
-    float* rdy, float* rdz, float* rintensity, int n_slots, int n_bundles, const float* ggrid,
-    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
-    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, int n_bounces, long long n, void* stream) {
-  if (n <= 0) return 0;
-  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
-  const size_t smem =
-      shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, wo.disp_cols);
-  const cudaError_t e =
-      prepare<true, true, true, true, false, false, false, false, false, false, true>(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  trace_nonseq_bwd_kernel<true, true>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-          gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx, rpy,
-          rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
-          GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces, n,
-          wo, OplIn{g_opl, g_nfinal}, GrinRows{0});
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                           wo.disp_cols, fs);
+  auto go = [&](auto fams) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    const cudaError_t e2 = prepare<true, true, true, true, kFams, true>(smem);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    trace_nonseq_bwd_kernel<true, true, kFams>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+            gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, rpx,
+            rpy, rpz, rdx, rdy, rdz, rintensity, n_slots, n_bundles,
+            GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength, gmaps, n_bounces,
+            n, wo, OplIn{g_opl, g_nfinal}, fs, FieldIn{field_in, g_field, c_field, r_field});
+    return static_cast<int>(cudaGetLastError());
+  };
+  return field_coat_alone(fam) ? go(std::integral_constant<uint32_t, kFamFieldCoat>{})
+                               : go(std::integral_constant<uint32_t, kFamField>{});
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
@@ -1176,54 +1058,38 @@ extern "C" int rtt_trace_nonseq_bwd_grin(
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without
 // plate code, 1 with it, 2 with it and the extended kinds, 3 with those and
 // dispersion on a table with a dispersive row, 4 the instantiation with the
-// path length on such a table, 5 the one with the Fresnel kinds on such a
-// table, 6 the one with the coatings on such a table, 7 the one with the
-// diffractive kinds on such a table, 8 the one with the fuzzy programs (of
-// `fuzzy_words` words) on such a table, 9 the one with the freeform surfaces
-// (and programs of `fuzzy_words` words) on such a table, 10 the one with the
-// field on such a table, 11 the one with GRIN rods on such a table.
-// Returns a cudaError_t.
+// path length on such a table, 5 the family instantiation on such a table,
+// 6 the field's on such a table, these two with the families `fam` (kFam*
+// bits) and programs of `fuzzy_words` words.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
-                                              int* blocks) {
+                                              unsigned fam, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const FamSide fs = {nullptr, 0, PhiloxKey{0u, 0u}, nullptr, nullptr, fuzzy_words, nullptr,
+                      code >= 5 ? fam : 0u};
   size_t smem;
   cudaError_t e;
   const void* fn;
-  if (code == 11) {
-    smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
-    e = prepare<true, true, true, true, false, false, false, false, false, false, true>(smem);
-    fn = kernel_fn<true, true, true, true, false, false, false, false, false, false, true>();
-  } else if (code == 10) {
-    smem = shared_bytes<true, true, true, true, false, false, true>(n_rows, n_slots, n_bundles,
-                                                                   n_bounces, kDispGradCols);
-    e = prepare<true, true, true, true, true, true, false, false, false, true>(smem);
-    fn = kernel_fn<true, true, true, true, true, true, false, false, false, true>();
-  } else if (code == 9) {
-    smem = shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                            kDispGradCols, fuzzy_words);
-    e = prepare<true, true, true, true, true, true, true, true, true>(smem);
-    fn = kernel_fn<true, true, true, true, true, true, true, true, true>();
-  } else if (code == 8) {
-    smem = shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                      kDispGradCols, fuzzy_words);
-    e = prepare<true, true, true, true, true, true, true, true>(smem);
-    fn = kernel_fn<true, true, true, true, true, true, true, true>();
-  } else if (code == 7) {
-    smem = shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                      kDispGradCols);
-    e = prepare<true, true, true, true, true, true, true>(smem);
-    fn = kernel_fn<true, true, true, true, true, true, true>();
-  } else if (code == 6) {
+  if (code == 6) {
     smem = shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
-                                                kDispGradCols);
-    e = prepare<true, true, true, true, true, true>(smem);
-    fn = kernel_fn<true, true, true, true, true, true>();
+                                                kDispGradCols, fs);
+    if (field_coat_alone(fam)) {
+      e = prepare<true, true, true, true, kFamFieldCoat, true>(smem);
+      fn = kernel_fn<true, true, true, true, kFamFieldCoat, true>();
+    } else {
+      e = prepare<true, true, true, true, kFamField, true>(smem);
+      fn = kernel_fn<true, true, true, true, kFamField, true>();
+    }
   } else if (code == 5) {
-    smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
-    e = prepare<true, true, true, true, true>(smem);
-    fn = kernel_fn<true, true, true, true, true>();
+    smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols,
+                                          fs);
+    with_fam_link<false>(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      e = prepare<true, true, true, true, kFams>(smem);
+      fn = kernel_fn<true, true, true, true, kFams>();
+      return 0;
+    });
   } else if (code == 4) {
     smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols);
     e = prepare<true, true, true, true>(smem);
@@ -1249,30 +1115,23 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
 }
 
-// The dynamic shared memory that a launch of the instantiation with freeform
-// surfaces takes, into *bytes: `disp` whether the table has a dispersive row,
-// `fuzzy_words` the program buffer's words.  The host's limit
-// (ops/fused_nonseq.py::freeform_k6_shared_bytes) is held to it.  Returns a
+// The dynamic shared memory that a launch of the family instantiation
+// (`field` zero) or of the field's (`field` nonzero) takes, into *bytes:
+// `disp` whether the table has a dispersive row, `fam` its families (kFam*
+// bits), `fuzzy_words` the program buffer's words.  The host's limit
+// (ops/fused_nonseq.py::k6_shared_bytes) is held to it.  Returns a
 // cudaError_t.
-extern "C" int rtt_trace_nonseq_bwd_freeform_smem(int n_rows, int n_slots, int n_bundles,
-                                                  int n_bounces, int disp, int fuzzy_words,
-                                                  long long* bytes) {
+extern "C" int rtt_trace_nonseq_bwd_smem(int n_rows, int n_slots, int n_bundles, int n_bounces,
+                                         int disp, int fuzzy_words, unsigned fam, int field,
+                                         long long* bytes) {
   if (n_rows <= 0 || n_rows > 64 || n_bounces < 0 || bytes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  *bytes = static_cast<long long>(shared_bytes<true, true, true, true, true, true>(
-      n_rows, n_slots, n_bundles, n_bounces, disp ? kDispGradCols : 0, fuzzy_words));
-  return 0;
-}
-
-// The dynamic shared memory that a launch of the instantiation with the
-// field takes, into *bytes: `disp` whether the table has a dispersive row.
-// The host's limit (ops/fused_nonseq.py::field_k6_shared_bytes) is held to
-// it.  Returns a cudaError_t.
-extern "C" int rtt_trace_nonseq_bwd_field_smem(int n_rows, int n_slots, int n_bundles,
-                                               int n_bounces, int disp, long long* bytes) {
-  if (n_rows <= 0 || n_rows > 64 || n_bounces < 0 || bytes == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  *bytes = static_cast<long long>(shared_bytes<true, true, true, true, false, false, true>(
-      n_rows, n_slots, n_bundles, n_bounces, disp ? kDispGradCols : 0));
+  const FamSide fs = {nullptr, 0, PhiloxKey{0u, 0u}, nullptr, nullptr, fuzzy_words, nullptr, fam};
+  const int disp_cols = disp ? kDispGradCols : 0;
+  *bytes = static_cast<long long>(
+      field ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
+                                                    disp_cols, fs)
+            : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, disp_cols,
+                                             fs));
   return 0;
 }

@@ -96,77 +96,74 @@
 // ray and bounce, 256 B at the naive scene's 8-bounce budget, against the
 // 72 B of the rest.
 //
-// The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W) run in one more
-// instantiation, kFresnel, of the streams' body (an overload with one more
-// argument, the Philox key), so every other instantiation keeps its code.
-// The TPU kernel draws with the TPU's own generator, reseeded per tile and
-// bounce (_kernel_nonseq :1102-1114), which cannot be reproduced off the
-// TPU.  Here a FRESNEL winner draws philox_uniform (trace_seq_common.cuh) of
-// the counter (ray, bounce, row): a pure function, so the draw of the
-// winning row alone equals the eager loop's draw of every row then the
-// winner's, K6 replays it by its counter with nothing stored, and the
-// plain version (rays/draws.py) draws the same values.  Ten Philox rounds
-// cost ~100 integer operations a FRESNEL winner, against the ~400 of a
-// bounce's row scan on the naive scene.
+// The families of kinds run in one more instantiation of the streams' body,
+// the family instantiation (an overload with one more argument, FamSide:
+// the families' side data and the runtime word `fam` of the families the
+// table has, trace_seq_common.cuh), so every other instantiation keeps its
+// code.  It compiles every family together, so a scene may mix them (a
+// GRIN rod beside a coated window and a grating, as the TPU kernel's bounce
+// core runs them); a family the table lacks skips its block setup and
+// passes a null buffer (a table that one of the chain's links took runs
+// that link's instantiation, trace_seq_common.cuh::fam_link, as K1 does,
+// but for GRIN rods alone, which run the family instantiation).  Per
+// family:
 //
-// Thin-film coatings and metal mirrors run in one more instantiation,
-// kCoat, of the streams' body (an overload with one more argument after the
-// key: CoatSide, the rows' [K][20] side buffer, copied into shared memory
-// after the kinds), so every other instantiation keeps its code.  Only the
-// winner's physics reads it: the stack runs once per coated winner and
-// bounce (twice: s and p).
-//
-// The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows, the
-// ELLIPSE bound) run in one more instantiation, kDiff, of the streams' body
-// (an overload with one more argument after the side buffer, DiffKinds), so
-// every other instantiation keeps its code: the scan tests the ELLIPSE bound
-// with its rotation's cosine and sine, written once per row and block into
-// the shared table (ellipse_rows), and only the winner evaluates its map.
-//
-// Fuzzy apodization runs in one more instantiation, kFuzzy, of the streams'
-// body (an overload with one more argument after the tag, FuzzyProgs: the
-// traced programs' int32 buffer, copied into shared memory after the side
-// buffer), built on kDiff: a winner with a program multiplies its factor by
-// the program's value at its surface-frame hit (fuzzy.cuh's interpreter,
-// in nonseq_bounce, which K6's replay runs too).
-//
-// Freeform surfaces run in one more instantiation, kFreeform, of the
-// streams' body (an overload with one more argument after the programs,
-// FfSide: the rows' exponent pairs, copied into shared memory after them),
-// built on kFuzzy: the scan refines a freeform row's base-conic roots onto
-// its sag by 8 Newton steps, and a freeform winner takes its sag's normal
-// (freeform.cuh, in nonseq_bounce), as _nonseq_bounce_core's intersect
-// (:879) and normal_world (:942) do.
+// - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W).  The TPU kernel
+//   draws with the TPU's own generator, reseeded per tile and bounce
+//   (_kernel_nonseq :1102-1114), which cannot be reproduced off the TPU.
+//   Here a FRESNEL winner draws philox_uniform (trace_seq_common.cuh) of the
+//   counter (ray, bounce, row) under FamSide::key: a pure function, so the
+//   draw of the winning row alone equals the eager loop's draw of every row
+//   then the winner's, K6 replays it by its counter with nothing stored,
+//   and the plain version (rays/draws.py) draws the same values.  Ten
+//   Philox rounds cost ~100 integer operations a FRESNEL winner, against
+//   the ~400 of a bounce's row scan on the naive scene.
+// - Thin-film coatings and metal mirrors: the rows' [K][20] side buffer is
+//   copied into shared memory after the kinds.  Only the winner's physics
+//   reads it: the stack runs once per coated winner and bounce (twice: s
+//   and p).
+// - The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows,
+//   the ELLIPSE bound): the scan tests the ELLIPSE bound with its
+//   rotation's cosine and sine, written once per row and block into the
+//   shared table (ellipse_rows), and only the winner evaluates its map.
+// - Fuzzy apodization: the traced programs' int32 buffer is copied into
+//   shared memory after the side buffer; a winner with a program multiplies
+//   its factor by the program's value at its surface-frame hit (fuzzy.cuh's
+//   interpreter, in nonseq_bounce, which K6's replay runs too).
+// - Freeform surfaces: the rows' exponent pairs are copied into shared
+//   memory after the programs; the scan refines a freeform row's
+//   base-conic roots onto its sag by 8 Newton steps, and a freeform winner
+//   takes its sag's normal (freeform.cuh, in nonseq_bounce), as
+//   _nonseq_bounce_core's intersect (:879) and normal_world (:942) do.
+// - GRIN rods (grin.cuh): the scan lets a rod's entry face win only a ray
+//   travelling +z in its frame (grin.cuh::grin_fwd, a few multiply-adds on
+//   the rod's rows alone), and the winner runs the whole rod once
+//   (grin_rod, out of line, so that K6's replay reaches this state bit for
+//   bit), where the TPU kernel runs it for every candidate row (:888-908).
+//   The path length adds the winner's in-medium path after n_cur t and the
+//   medium becomes the rod's ambient index; a nearer winner leaves no stale
+//   path, each bounce's being its winner's alone (:940, :1022).
 //
 // The polarized field (track_field; the TPU kernel's field refs :1035 and
 // :1047, _nonseq_bounce_core's power_in :861 and transport :971-975) runs
 // in one more instantiation, kField, of the streams' body (an overload with
-// one more argument after the side buffer: FieldIO, the launch field and
-// the final field, [6][N] planar), built on kCoat and not on kDiff, kFuzzy
-// or kFreeform (the wrapper refuses those kinds under the field), so every
-// other instantiation keeps its code.  Each thread carries its ray's six
-// field floats through the bounces: the winner's physics sees the field at
-// the bounce's start (the Fresnel kinds, bare or coated, draw and weigh
-// with its polarized reflectance, a metal mirror weighs by its polarized
-// R: trace_seq_common.cuh::field_physics), the winner transports it
-// (field.cuh::field_transport, inside nonseq_bounce, so K6's replay reaches
-// the same field), and a sensor winner records w = I |E|^2 of the field at
-// the bounce's start (the TPU kernel's weights :1131-1168; its count only
-// where w > 0).  It reads and writes 48 B a ray more than the coatings'
-// instantiation.
-//
-// GRIN rods (grin.cuh) run in one more instantiation, kGrin, of the
-// streams' body (an overload with one more argument, GrinRows, a tag),
-// built on the streams alone (the wrapper refuses the Fresnel kinds and
-// every flag built on them beside a rod, ROADMAP Queue 1 position 3c), so
-// every other instantiation keeps its code.  The scan lets a rod's entry
-// face win only a ray travelling +z in its frame (grin.cuh::grin_fwd, a
-// few multiply-adds on the rod's rows alone), and the winner runs the
-// whole rod once (grin_rod, out of line, so that K6's replay reaches this
-// state bit for bit), where the TPU kernel runs it for every candidate row
-// (:888-908).  The path length adds the winner's in-medium path after n_cur
-// t and the medium becomes the rod's ambient index; a nearer winner leaves
-// no stale path, each bounce's being its winner's alone (:940, :1022).
+// one more argument after the side data: FieldIO, the launch field and the
+// final field, [6][N] planar), which compiles every family but GRIN rods
+// (the field through a rod is not in the kernels yet: the wrapper refuses
+// it, ROADMAP Queue 1 position 4b), so every other instantiation keeps its
+// code; a table without the diffractive, fuzzy or freeform kinds runs it
+// instantiated for the Fresnel kinds and coatings alone (kFamFieldCoat, the
+// earlier field instantiation, whose rounding section 19 holds).  Each
+// thread carries its ray's six field floats through the bounces: the
+// winner's physics sees the field at the bounce's start (the Fresnel kinds,
+// bare or coated, draw and weigh with its polarized reflectance, a metal
+// mirror weighs by its polarized R, the diffractive kinds redirect it:
+// trace_seq_common.cuh::field_physics), its fuzzy program apodizes it, the
+// winner transports it (field.cuh::field_transport, inside nonseq_bounce's
+// out-of-line field_winner, so K6's replay reaches the same field), and a
+// sensor winner records w = I |E|^2 of the field at the bounce's start (the
+// TPU kernel's weights :1131-1168; its count only where w > 0).  It reads
+// and writes 48 B a ray more than the family instantiation.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, as K1, with the
 // same intersection, normal and physics (trace_seq_common.cuh).
@@ -197,53 +194,25 @@ __host__ __device__ constexpr int fwd_min_blocks() {
 }
 
 // The dynamic shared memory of a launch: the packed scan records (not with
-// the extended kinds), the flat table, its kinds, with `coat` (the
-// instantiation with the coatings) the side buffer, the fuzzy programs'
-// `fuzzy_words`, with `freeform` the rows' exponent pairs, the per-warp
-// moment partials and bucket 1's per-thread moment sums.
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext, bool coat = false,
-                    int fuzzy_words = 0, bool freeform = false) {
+// the extended kinds), the flat table, its kinds, in the family and field
+// instantiations the side data of the families `fs` has (the side buffer,
+// the fuzzy programs' words, the rows' exponent pairs), the per-warp moment
+// partials and bucket 1's per-thread moment sums.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool ext, const FamSide& fs = {}) {
   return sizeof(float) * (static_cast<size_t>(n_rows) *
-                              ((ext ? 0 : kRecWords) + kRowWidth + kKindWidth +
-                               (coat ? kCoatSide : 0) + (freeform ? kFfSide : 0)) +
-                          static_cast<size_t>(fuzzy_words) +
+                              ((ext ? 0 : kRecWords) + kRowWidth + kKindWidth) +
+                          static_cast<size_t>(fam_coat_words(fs, n_rows)) +
+                          static_cast<size_t>(fam_fuzzy_words(fs)) +
+                          static_cast<size_t>(fam_ff_words(fs, n_rows)) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
                           static_cast<size_t>(kMoments) * kThreads);
 }
-
-// The coated rows' side buffer (kCoat): [K][kCoatSide] floats
-// (ops/fused_trace.py::coat_side).
-struct CoatSide {
-  const float* side;
-};
-
-// The instantiation with the diffractive kinds (kDiff): its overload's tag.
-struct DiffKinds {
-  int unused;
-};
-
-// The fuzzy programs (kFuzzy): n_words int32 words (fuzzy.cuh's layout).
-struct FuzzyProgs {
-  const int32_t* words;
-  int n_words;
-};
-
-// The freeform rows' exponent pairs (kFreeform): [K][kFfSide] int32 words
-// (freeform.cuh's layout).
-struct FfSide {
-  const int32_t* pw;
-};
 
 // The field (kField): the launch field `in` and the final field `out`,
 // [6][n] floats each (Er x, y, z, then Ei x, y, z).
 struct FieldIO {
   const float* in;
   float* out;
-};
-
-// The instantiation with GRIN rods (kGrin): its overload's tag.
-struct GrinRows {
-  int unused;
 };
 
 template <int kMomBucket, bool kPlates, bool kExt>
@@ -379,18 +348,18 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // was the nearest when the scan met it, and the incoming intensity where a
 // sensor won, 0 where a nearer row did), and from the bounce at which the
 // ray leaves its loop to the budget the settled ones: the position
-// unchanged, zero hits, weights and slots.  With kFresnel it also runs the
-// Fresnel kinds, a FRESNEL winner drawing Philox under `key`; with kCoat
-// (which has kFresnel) the coated and metal winners weigh by their stacks,
-// reading their rows of `cs`; with kDiff (which has kCoat) the diffractive
-// kinds and the ELLIPSE bound; with kFuzzy (which has kDiff) the winners
-// with a program in `fp` (copied into shared memory after the side buffer)
-// weigh by it; with kFreeform (which has kFuzzy) the freeform rows of `ff`
-// (copied into shared memory after the programs) are freeform surfaces;
-// with kField (which has kCoat alone) each ray carries its field from
-// `fio.in` (the winner's field_physics and transport, the |E|^2 weights) to
-// `fio.out`; with kGrin (which has none of the others) a GRIN winner runs
-// its rod and adds its in-medium path.
+// unchanged, zero hits, weights and slots.  The family flags compile a
+// family of kinds in, and the runtime word fs.fam says which of them the
+// table has: with kFresnel a FRESNEL winner draws Philox under fs.key;
+// with kCoat the coated and metal winners weigh by their stacks, reading
+// their rows of fs.coat; with kDiff the diffractive kinds and the ELLIPSE
+// bound; with kFuzzy the winners with a program in fs.fuzzy (copied into
+// shared memory after the side buffer) weigh by it; with kFreeform the
+// freeform rows of fs.ff (copied into shared memory after the programs)
+// are freeform surfaces; with kGrin a GRIN winner runs its rod and adds its
+// in-medium path.  With kField (which has every family flag but kGrin)
+// each ray carries its field from `fio.in` (the winner's field_physics and
+// transport, the |E|^2 weights) to `fio.out`.
 template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false,
           bool kFuzzy = false, bool kFreeform = false, bool kField = false, bool kGrin = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
@@ -404,14 +373,13 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, int n_bounces, long long n, StreamOut so,
-    PhiloxKey key = {0u, 0u}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0},
-    FfSide ff = {nullptr}, FieldIO fio = {nullptr, nullptr}) {
+    FamSide fs = {}, FieldIO fio = {nullptr, nullptr}) {
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kCoat || !kField, "the field runs with the coatings");
-  static_assert(!(kField && kDiff), "the field runs without the diffractive kinds");
+  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   constexpr bool kPlates = true, kExt = true;
   extern __shared__ float4 smem4[];
   // the packed scan records (none with kExt, whose scan reads the flat rows)
@@ -421,10 +389,10 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
   float* cside = tab + n_rows * (kRowWidth + kKindWidth);  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
-  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
-  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? fam_coat_words(fs, n_rows) : 0));
+  int32_t* ffs = fzs + (kFuzzy ? fam_fuzzy_words(fs) : 0);  // kFreeform: the pairs
   float* warp_mom =
-      reinterpret_cast<float*>(ffs) + (kFreeform ? n_rows * kFfSide : 0);
+      reinterpret_cast<float*>(ffs) + (kFreeform ? fam_ff_words(fs, n_rows) : 0);
   const int n_mom = n_slots * n_bundles * kMoments;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -434,19 +402,24 @@ __device__ __forceinline__ void nonseq_fwd_streams(
   for (int j = tid; j < n_rows * kRowWidth; j += kThreads) tab[j] = table[j];
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   if constexpr (kCoat) {
-    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+    for (int j = tid; j < fam_coat_words(fs, n_rows); j += kThreads) cside[j] = fs.coat[j];
   }
   if constexpr (kFuzzy) {
-    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+    for (int j = tid; j < fam_fuzzy_words(fs); j += kThreads) fzs[j] = fs.fuzzy[j];
   }
   if constexpr (kFreeform) {
-    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
+    for (int j = tid; j < fam_ff_words(fs, n_rows); j += kThreads) ffs[j] = fs.ff[j];
   }
   __syncthreads();
   if constexpr (kDiff) {
-    ellipse_rows(tab, knd, n_rows, tid, kThreads);
-    __syncthreads();
+    if (fs.fam & kFamDiff) {  // uniform across the block
+      ellipse_rows(tab, knd, n_rows, tid, kThreads);
+      __syncthreads();
+    }
   }
+  // the programs and the pairs, null where the table lacks their family
+  const int32_t* progs = kFuzzy && (fs.fam & kFamFuzzy) ? fzs : nullptr;
+  const int32_t* pairs = kFreeform && (fs.fam & kFamFreeform) ? ffs : nullptr;
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
   const bool live = i < n;
@@ -500,12 +473,12 @@ __device__ __forceinline__ void nonseq_fwd_streams(
     RowKinds kd = {};
     PhysBranch br = {};
     SensorRec rec;
-    const RayDraw rd = {key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
+    const RayDraw rd = {fs.key, static_cast<uint32_t>(i), static_cast<uint32_t>(b)};
     GrinExit ge;  // kGrin: a GRIN winner's exit
     const int k_win =
         nonseq_bounce<kPlates, kExt, kExt, true, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
                       kField, kGrin>(recs, tab, knd, n_rows, pl, p, d, inten, hw, kd, nullptr,
-                                     &br, &rec, &rd, cside, fzs, ffs, kField ? &fe : nullptr,
+                                     &br, &rec, &rd, cside, progs, pairs, kField ? &fe : nullptr,
                                      kGrin ? &ge : nullptr);
     if (k_win < 0) {
       b_end = b;
@@ -517,7 +490,8 @@ __device__ __forceinline__ void nonseq_fwd_streams(
         opl = opl + ge.seg;
         n_cur = tab[k_win * kRowWidth + kPh];
       } else {
-        n_cur = medium_after<kExt>(tab + k_win * kRowWidth, kd, br.from_in, br.tir, pl.wl, n_cur);
+        n_cur = medium_after<kExt, kFresnel, kDiff>(tab + k_win * kRowWidth, kd, br.from_in,
+                                                    br.tir, pl.wl, n_cur, br.reflect);
       }
     } else {
       n_cur = medium_after<kExt, kFresnel, kDiff>(tab + k_win * kRowWidth, kd, br.from_in, br.tir,
@@ -635,71 +609,32 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so) {
   nonseq_fwd_streams<kMomBucket>(RTT_NONSEQ_FWD_ARGS, so);
 }
 
-// The kernel with the streams and the Fresnel kinds.
-template <int kMomBucket, bool kPlates, bool kExt>
+// The family instantiation (kFams = kFamAll; kFamGrin for GRIN rods alone):
+// the streams and the families of kFams, which the table has reading
+// fs.fam.
+template <int kMomBucket, bool kPlates, bool kExt, uint32_t kFams = kFamAll>
 __global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
-trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key) {
-  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
-  nonseq_fwd_streams<kMomBucket, true>(RTT_NONSEQ_FWD_ARGS, so, key);
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, FamSide fs) {
+  static_assert(kPlates && kExt, "the families run with the extended kinds");
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  nonseq_fwd_streams<kMomBucket, kF, kC, kD, kZ, kFF, false,
+                     fam_has(kFams, kFamGrin)>(RTT_NONSEQ_FWD_ARGS, so, fs);
 }
 
-// The kernel with the streams, the Fresnel kinds and the coatings.
-template <int kMomBucket, bool kPlates, bool kExt>
+// The field's instantiation: the streams, the families of kFams (every
+// family but GRIN rods; kFamFieldCoat for tables without the diffractive,
+// fuzzy or freeform kinds) and the field.
+template <int kMomBucket, bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
-trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs) {
-  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
-  nonseq_fwd_streams<kMomBucket, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings and the
-// diffractive kinds.
-template <int kMomBucket, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
-trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
-                        DiffKinds) {
-  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
-  nonseq_fwd_streams<kMomBucket, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings, the
-// diffractive kinds and the fuzzy programs.
-template <int kMomBucket, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
-trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
-                        DiffKinds, FuzzyProgs fp) {
-  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
-  nonseq_fwd_streams<kMomBucket, true, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs, fp);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings, the
-// diffractive kinds, the fuzzy programs and the freeform surfaces.
-template <int kMomBucket, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
-trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
-                        DiffKinds, FuzzyProgs fp, FfSide ff) {
-  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
-  nonseq_fwd_streams<kMomBucket, true, true, true, true, true>(RTT_NONSEQ_FWD_ARGS, so, key, cs,
-                                                               fp, ff);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings and the
-// field.
-template <int kMomBucket, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
-trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, PhiloxKey key, CoatSide cs,
-                        FieldIO fio) {
+trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, FamSide fs, FieldIO fio) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
-  nonseq_fwd_streams<kMomBucket, true, true, false, false, false, true>(
-      RTT_NONSEQ_FWD_ARGS, so, key, cs, FuzzyProgs{nullptr, 0}, FfSide{nullptr}, fio);
-}
-
-// The kernel with the streams and GRIN rods.
-template <int kMomBucket, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
-trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, GrinRows) {
-  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
-  nonseq_fwd_streams<kMomBucket, false, false, false, false, false, false, true>(
-      RTT_NONSEQ_FWD_ARGS, so);
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  nonseq_fwd_streams<kMomBucket, kF, kC, kD, kZ, kFF, true>(
+      RTT_NONSEQ_FWD_ARGS, so, fs, fio);
 }
 
 // Philox4x32-10 of n counters under n keys (4 and 2 words each, laid out
@@ -714,49 +649,27 @@ __global__ void philox_kernel(const uint32_t* __restrict__ ctr, const uint32_t* 
   for (int w = 0; w < 4; ++w) out[4 * j + w] = c[w];
 }
 
-// The types of the eight kernels.
+// The types of the kernels.
 using FwdKernel = void (*)(RTT_NONSEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut);
-using FwdFresnelKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey);
-using FwdCoatKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide);
-using FwdDiffKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
-                               DiffKinds);
-using FwdFuzzyKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
-                                DiffKinds, FuzzyProgs);
-using FwdFreeformKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide,
-                                   DiffKinds, FuzzyProgs, FfSide);
-using FwdFieldKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, PhiloxKey, CoatSide, FieldIO);
-using FwdGrinKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, GrinRows);
+using FwdFamKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, FamSide);
+using FwdFieldKernel = void (*)(RTT_NONSEQ_FWD_PARAMS, StreamOut, FamSide, FieldIO);
 
 #undef RTT_NONSEQ_FWD_PARAMS
 #undef RTT_NONSEQ_FWD_ARGS
 
-// The kernel of an instantiation.
-template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false, bool kGrin = false>
+// The kernel of an instantiation: without the streams (kPlates, kExt),
+// with them (kStreams), the family instantiation (kFam) or the field's
+// (kField).
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, uint32_t kFams = 0u,
+          bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kGrin)
+  if constexpr (kField)
     return reinterpret_cast<const void*>(
-        static_cast<FwdGrinKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
-  else if constexpr (kField)
+        static_cast<FwdFieldKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true, kFams>));
+  else if constexpr (kFams != 0u)
     return reinterpret_cast<const void*>(
-        static_cast<FwdFieldKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
-  else if constexpr (kFreeform)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdFreeformKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
-  else if constexpr (kFuzzy)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdFuzzyKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
-  else if constexpr (kDiff)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdDiffKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
-  else if constexpr (kCoat)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdCoatKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
-  else if constexpr (kFresnel)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdFresnelKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
+        static_cast<FwdFamKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true, kFams>));
   else if constexpr (kStreams)
     return reinterpret_cast<const void*>(
         static_cast<FwdStreamKernel>(trace_nonseq_fwd_kernel<kMomBucket, true, true>));
@@ -774,14 +687,11 @@ struct PlateArgs {
 };
 
 // Allow the kernel its shared memory (beyond 48 KB only on request).
-template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false, bool kGrin = false>
+template <int kMomBucket, bool kPlates, bool kExt, bool kStreams = false, uint32_t kFams = 0u,
+          bool kField = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
-                kField, kGrin>(),
+  return cudaFuncSetAttribute(kernel_fn<kMomBucket, kPlates, kExt, kStreams, kFams, kField>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -819,43 +729,25 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 }
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
-// it and the extended kinds, 4 the one with the streams, 5 the one with the
-// Fresnel kinds, 6 the one with the coatings, 7 the one with the
-// diffractive kinds, 8 the one with the fuzzy programs, 9 the one with the
-// freeform surfaces, 10 the one with the field, 11 the one with GRIN rods)
-// and moment bucket, its shared memory allowed.
+// it and the extended kinds, 4 the one with the streams, 5 the family
+// instantiation, 6 the field's) and moment bucket, its shared memory
+// allowed.
 template <int kMomBucket>
-const void* kernel_of(int code, size_t smem, cudaError_t* e) {
-  if (code == 11) {
-    *e = prepare<kMomBucket, true, true, true, false, false, false, false, false, false, true>(
-        smem);
-    return kernel_fn<kMomBucket, true, true, true, false, false, false, false, false, false,
-                     true>();
-  }
-  if (code == 10) {
-    *e = prepare<kMomBucket, true, true, true, true, true, false, false, false, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, true, true, false, false, false, true>();
-  }
-  if (code == 9) {
-    *e = prepare<kMomBucket, true, true, true, true, true, true, true, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, true, true, true, true, true>();
-  }
-  if (code == 8) {
-    *e = prepare<kMomBucket, true, true, true, true, true, true, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, true, true, true, true>();
-  }
-  if (code == 7) {
-    *e = prepare<kMomBucket, true, true, true, true, true, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, true, true, true>();
+const void* kernel_of(int code, uint32_t fam, size_t smem, cudaError_t* e) {
+  if (code == 6 && field_coat_alone(fam)) {
+    *e = prepare<kMomBucket, true, true, true, kFamFieldCoat, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, kFamFieldCoat, true>();
   }
   if (code == 6) {
-    *e = prepare<kMomBucket, true, true, true, true, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, true, true>();
+    *e = prepare<kMomBucket, true, true, true, kFamField, true>(smem);
+    return kernel_fn<kMomBucket, true, true, true, kFamField, true>();
   }
-  if (code == 5) {
-    *e = prepare<kMomBucket, true, true, true, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, true>();
-  }
+  if (code == 5)
+    return with_fam_link<false>(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      *e = prepare<kMomBucket, true, true, true, kFams>(smem);
+      return kernel_fn<kMomBucket, true, true, true, kFams>();
+    });
   if (code == 4) {
     *e = prepare<kMomBucket, true, true, true>(smem);
     return kernel_fn<kMomBucket, true, true, true>();
@@ -872,30 +764,55 @@ const void* kernel_of(int code, size_t smem, cudaError_t* e) {
   return kernel_fn<kMomBucket, false, false>();
 }
 
-// The instantiation with the streams, or with `draws` (the Philox key) the
-// one with the Fresnel kinds too: the Fresnel kernel's overload takes the
-// key as its last argument; with the key and the side buffer the one with
-// the coatings; with those and the tag the one with the diffractive kinds;
-// with those and the programs the one with the fuzzy programs; with those
-// and the exponent pairs the one with the freeform surfaces.
-template <int kMomBucket, class... Draws>
+// The instantiation with the streams (kFams 0, no `side`), or with `side`
+// (the families' side data) the family instantiation of the families
+// kFams, or with `side` and the field the field's: their overloads take
+// the side data and the field last.
+template <int kMomBucket, uint32_t kFams = 0u, class... Side>
 int launch_streams(size_t smem, long long blocks, cudaStream_t stream, const float* table,
                    const int32_t* kinds, int n_rows, const float* const* rays,
                    const int32_t* ray_id, float* const* outs, float* partials, int n_slots,
                    int n_bundles, float* grid, int grid_h, int grid_w, float grid_e,
                    const PlateArgs& pa, int n_bounces, long long n, const StreamOut& so,
-                   Draws... draws) {
+                   Side... side) {
   const cudaError_t e =
-      prepare<kMomBucket, true, true, true, sizeof...(Draws) != 0, sizeof...(Draws) >= 2,
-              sizeof...(Draws) >= 3, sizeof...(Draws) >= 4, sizeof...(Draws) == 5>(smem);
+      prepare<kMomBucket, true, true, true, kFams, sizeof...(Side) == 2>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_nonseq_fwd_kernel<kMomBucket, true, true>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-          table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
-          ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials,
-          n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa.maps, pa.desc, pa.wavelength,
-          n_bounces, n, so, draws...);
+  if constexpr (kFams == 0u)
+    trace_nonseq_fwd_kernel<kMomBucket, true, true>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+            table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+            ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials,
+            n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa.maps, pa.desc, pa.wavelength,
+            n_bounces, n, so);
+  else
+    trace_nonseq_fwd_kernel<kMomBucket, true, true, kFams>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+            table, kinds, n_rows, rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
+            ray_id, outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6], partials,
+            n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa.maps, pa.desc, pa.wavelength,
+            n_bounces, n, so, side...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The side data of a family or field launch from its C arguments, checked:
+// -> cudaSuccess or cudaErrorInvalidValue.  Each buffer is given exactly
+// when its family's bit is set, the programs with n_rows to kFuzzyMaxWords
+// words; the key is read with kFamFresnel.
+cudaError_t fam_side(uint32_t key0, uint32_t key1, const float* coat_side, const int32_t* fuzzy,
+                     int fuzzy_words, const int32_t* ff_side, unsigned fam, int n_rows,
+                     FamSide* fs) {
+  if (fam & ~(kFamFresnel | kFamCoat | kFamDiff | kFamFuzzy | kFamFreeform | kFamGrin))
+    return cudaErrorInvalidValue;
+  if ((coat_side != nullptr) != ((fam & kFamCoat) != 0) ||
+      (fuzzy != nullptr) != ((fam & kFamFuzzy) != 0) ||
+      (ff_side != nullptr) != ((fam & kFamFreeform) != 0))
+    return cudaErrorInvalidValue;
+  if (fuzzy != nullptr && (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return cudaErrorInvalidValue;
+  *fs = FamSide{nullptr, 0, PhiloxKey{key0, key1}, coat_side, fuzzy,
+                fuzzy == nullptr ? 0 : fuzzy_words, ff_side, fam};
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -951,17 +868,16 @@ extern "C" int rtt_trace_nonseq_fwd(const float* table, const int32_t* kinds, in
 // outputs, each null when not wanted: `opl` and `n_final` (n floats each),
 // `paths` (n_bounces * 3 * n floats), `hits` (n_bounces * 3 * n), `hit_w`
 // (n_bounces * n floats) and `hit_slot` (n_bounces * n int32, both given
-// with `hits`).  `fresnel` nonzero selects the instantiation with the
-// Fresnel kinds, whose FRESNEL rows draw under the Philox key (key0, key1);
-// without it the key is ignored.  `coat_side`, when not null, selects the
-// instantiation with the coatings (which also takes the Fresnel kinds and
-// reads the key so): the n_rows * 20 floats of ops/fused_trace.py::
-// coat_side; with it, `diff` nonzero selects the one with the diffractive
-// kinds, and with that `fuzzy`, when not null, the one with the fuzzy
-// programs: its `fuzzy_words` int32 words (n_rows to kFuzzyMaxWords;
-// fuzzy.cuh); with that `ff_side`, when not null, the one with the freeform
-// surfaces: the rows' n_rows * kFfSide int32 words of exponent pairs
-// (freeform.cuh).  Returns a cudaError_t.
+// with `hits`), then the families: `fam` nonzero (kFam* bits, the families
+// the table has) selects the family instantiation, whose FRESNEL rows draw
+// under the Philox key (key0, key1) and which reads `coat_side`, the n_rows
+// * 20 floats of ops/fused_trace.py::coat_side (with kFamCoat), `fuzzy`,
+// the programs' `fuzzy_words` int32 words (n_rows to kFuzzyMaxWords;
+// fuzzy.cuh; with kFamFuzzy), and `ff_side`, the rows' n_rows * kFfSide
+// int32 words of exponent pairs (freeform.cuh; with kFamFreeform), each
+// null where its family's bit is clear.  A GRIN row's RK4 step count
+// (1..kMaxGrinSteps) is its kinds row's last column.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -969,15 +885,14 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, int fresnel,
-    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words,
-    const int32_t* ff_side, int n_bounces, long long n, void* stream) {
+    float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam, int n_bounces,
+    long long n, void* stream) {
   if (n <= 0) return 0;
-  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy == nullptr) fuzzy_words = 0;
+  FamSide fs;
+  const cudaError_t e =
+      fam_side(key0, key1, coat_side, fuzzy, fuzzy_words, ff_side, fam, n_rows, &fs);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -987,39 +902,31 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, coat_side != nullptr,
-                                  fuzzy_words, ff_side != nullptr);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, fs);
   const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
   float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PlateArgs pa = {maps, map_desc, wavelength};
   const StreamOut so = {opl, n_final, paths, hits, hit_w, hit_slot};
-  auto go = [&](auto... draws) {
+  auto go = [&](auto fams, auto... side) {
+    constexpr uint32_t kFams = decltype(fams)::value;
     if (n_slots * n_bundles == 1)
-      return launch_streams<1>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
-                               partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
-                               n_bounces, n, so, draws...);
-    return launch_streams<64>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
-                              partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, pa,
-                              n_bounces, n, so, draws...);
+      return launch_streams<1, kFams>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                                      partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                                      pa, n_bounces, n, so, side...);
+    return launch_streams<64, kFams>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                                     partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                                     pa, n_bounces, n, so, side...);
   };
-  if (ff_side != nullptr)
-    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
-  if (fuzzy != nullptr)
-    return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words});
-  if (diff) return go(PhiloxKey{key0, key1}, CoatSide{coat_side}, DiffKinds{0});
-  if (coat_side != nullptr) return go(PhiloxKey{key0, key1}, CoatSide{coat_side});
-  return fresnel ? go(PhiloxKey{key0, key1}) : go();
+  if (fam == 0) return go(std::integral_constant<uint32_t, 0u>{});
+  return with_fam_link<false>(fam, [&](auto fams) { return go(fams, fs); });
 }
 
 // Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_nonseq_fwd_streams up to `hit_slot`, the Philox key of the
-// FRESNEL draws (key0, key1), the n_rows * 20 floats of the side buffer
-// `coat_side` (ops/fused_trace.py::coat_side of a trace with the field),
-// the launch field `field_in` and the final field `field_out` ([6][n]
-// floats each: Er x, y, z, then Ei x, y, z).  Returns a cudaError_t.
+// rtt_trace_nonseq_fwd_streams (whose `fam` must not hold kFamGrin) up to
+// `fam`, then the launch field `field_in` and the final field `field_out`
+// ([6][n] floats each: Er x, y, z, then Ei x, y, z).  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_field(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -1028,9 +935,14 @@ extern "C" int rtt_trace_nonseq_fwd_field(
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
     float* hit_w, int32_t* hit_slot, uint32_t key0, uint32_t key1, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam,
     const float* field_in, float* field_out, int n_bounces, long long n, void* stream) {
   if (n <= 0) return 0;
-  if (coat_side == nullptr || field_in == nullptr || field_out == nullptr)
+  FamSide fs;
+  const cudaError_t e =
+      fam_side(key0, key1, coat_side, fuzzy, fuzzy_words, ff_side, fam, n_rows, &fs);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if ((fam & kFamGrin) || field_in == nullptr || field_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1041,66 +953,25 @@ extern "C" int rtt_trace_nonseq_fwd_field(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, true);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, fs);
+  const float* rays[7] = {px, py, pz, dx, dy, dz, intensity};
+  float* outs[7] = {opx, opy, opz, odx, ody, odz, ointensity};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PlateArgs pa = {maps, map_desc, wavelength};
   const StreamOut so = {opl, n_final, paths, hits, hit_w, hit_slot};
-  const PhiloxKey key = {key0, key1};
-  const CoatSide cs = {coat_side};
   const FieldIO fio = {field_in, field_out};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto bucket) {
-    constexpr int kB = decltype(bucket)::value;
-    const cudaError_t e =
-        prepare<kB, true, true, true, true, true, false, false, false, true>(smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    trace_nonseq_fwd_kernel<kB, true, true><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody,
-        odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
-        map_desc, wavelength, n_bounces, n, so, key, cs, fio);
-    return static_cast<int>(cudaGetLastError());
+  auto go = [&](auto fams) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    if (n_slots * n_bundles == 1)
+      return launch_streams<1, kFams>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                                      partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                                      pa, n_bounces, n, so, fs, fio);
+    return launch_streams<64, kFams>(smem, blocks, s, table, kinds, n_rows, rays, ray_id, outs,
+                                     partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+                                     pa, n_bounces, n, so, fs, fio);
   };
-  if (n_slots * n_bundles == 1) return go(std::integral_constant<int, 1>{});
-  return go(std::integral_constant<int, 64>{});
-}
-
-// Launches the instantiation with GRIN rods on `stream`: the arguments of
-// rtt_trace_nonseq_fwd_streams up to `hit_slot` (the key and the side
-// buffers of the kinds it does not take left out), then `n_bounces`.  A GRIN
-// row's RK4 step count (1..kMaxGrinSteps) is its kinds row's last column.
-// Returns a cudaError_t.
-extern "C" int rtt_trace_nonseq_fwd_grin(
-    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
-    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
-    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
-    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
-    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
-    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, int32_t* hit_slot, int n_bounces, long long n, void* stream) {
-  if (n <= 0) return 0;
-  if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr) ||
-      (hits == nullptr) != (hit_slot == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true);
-  const StreamOut so = {opl, n_final, paths, hits, hit_w, hit_slot};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto bucket) {
-    constexpr int kB = decltype(bucket)::value;
-    const cudaError_t e =
-        prepare<kB, true, true, true, false, false, false, false, false, false, true>(smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    trace_nonseq_fwd_kernel<kB, true, true><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody,
-        odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
-        map_desc, wavelength, n_bounces, n, so, GrinRows{0});
-    return static_cast<int>(cudaGetLastError());
-  };
-  if (n_slots * n_bundles == 1) return go(std::integral_constant<int, 1>{});
-  return go(std::integral_constant<int, 64>{});
+  return field_coat_alone(fam) ? go(std::integral_constant<uint32_t, kFamFieldCoat>{})
+                               : go(std::integral_constant<uint32_t, kFamField>{});
 }
 
 // Philox4x32-10 of n counters (4 n words) under n keys (2 n words) into out
@@ -1119,22 +990,20 @@ extern "C" int rtt_philox4x32(const uint32_t* ctr, const uint32_t* key, uint32_t
 // memory, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 // `code`: 0 without plate code, 1 with it, 2 (or 3, as K2's and K6's code
 // for a table with a dispersive row) with it and the extended kinds, 4 the
-// instantiation with the streams, 5 the one with the Fresnel kinds, 6 the
-// one with the coatings, 7 the one with the diffractive kinds, 8 the one
-// with the fuzzy programs (of `fuzzy_words` words), 9 the one with the
-// freeform surfaces (and programs of `fuzzy_words` words), 10 the one with
-// the field, 11 the one with GRIN rods.  Returns a cudaError_t.
+// instantiation with the streams, 5 the family instantiation, 6 the
+// field's, these two with the families `fam` (kFam* bits) and programs of
+// `fuzzy_words` words.  Returns a cudaError_t.
 extern "C" int rtt_trace_nonseq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                               int n_bounces, int code, int fuzzy_words,
-                                              int* blocks) {
+                                              unsigned fam, int* blocks) {
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2,
-                                   code >= 6 && code <= 10,
-                                   code == 8 || code == 9 ? fuzzy_words : 0, code == 9);
+  const FamSide fs = {nullptr, 0, PhiloxKey{0u, 0u}, nullptr, nullptr, fuzzy_words, nullptr,
+                      code >= 5 ? fam : 0u};
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, code >= 2, fs);
   cudaError_t e;
-  const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, smem, &e)
-                                            : kernel_of<64>(code, smem, &e);
+  const void* fn = n_slots * n_bundles == 1 ? kernel_of<1>(code, fs.fam, smem, &e)
+                                            : kernel_of<64>(code, fs.fam, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));

@@ -102,76 +102,75 @@
 //   cotangent to the index it took).  A recording run's backward does not
 //   come here: it recomputes through the eager chain, as the reference's
 //   _fused_bwd does (ops/fused_trace.py).
-// - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W): a sixth
-//   instantiation, kFresnel, built on the fifth (an overload with one more
-//   argument, SeqDraws: K1's [F][N] uniforms), so that the others keep their
-//   code.  Its forward sweep reads each FRESNEL row's uniform as K1 does and
-//   saves the drawn branch as a bit (kReflect); its reverse sweep runs
-//   row_backward's Fresnel adjoints (trace_seq_adjoint.cuh): the chosen
-//   direction alone for FRESNEL, and for FRESNEL_W and REFLECT_W the
-//   cotangent of the reflectance R in their weights.  The saved state stays
-//   9 words.
-// - Thin-film coatings and metal mirrors: a seventh instantiation, kCoat,
-//   built on the sixth (an overload with one more argument, CoatSide: the
-//   rows' [K][20] side buffer, copied into shared memory after the moment
-//   cotangent), so that the others keep their code.  Its reverse sweep
-//   takes a coated or metal row's weight back through the row's stack
-//   (thin_film.cuh::stack_rt_ct, recomputed there: no saved state for it)
-//   and reduces the 8 coat-thickness columns after the others.
-// - The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows,
-//   the ELLIPSE bound): an eighth instantiation, kDiff, built on the
-//   seventh (an overload with one more argument, DiffKinds), so that the
-//   others keep their code.  Its reverse sweep runs diffractive_backward
-//   (trace_seq_adjoint.cuh, diffractive.cuh) and reduces a DOE row's 8 ff
-//   columns after the coat columns, only on DOE rows; GRATING and DOE rows
-//   add their share to the wavelength's cotangent.
-// - Fuzzy apodization: a ninth instantiation, kFuzzy, built on the eighth
-//   (an overload with one more argument, FuzzyProgs: the traced programs'
-//   int32 buffer, copied into shared memory after the side buffer), so that
-//   the others keep their code.  Its forward sweep multiplies a row's
-//   factor by its program's value at the hit, as K1 does; its reverse sweep
-//   re-runs the program at the replayed hit with forward-mode partials
-//   (fuzzy.cuh: 4 floats a register, no stored tape) and adds g I imod
-//   dw/d(hit) to the hit's cotangent (row_backward).  The programs have no
-//   parameters of the table: the table's columns are unchanged.
-// - Freeform surfaces: a tenth instantiation, kFreeform, built on the ninth
-//   (an overload with one more argument, FfSide: the rows' exponent pairs,
-//   copied into shared memory after the programs), so that the others keep
-//   their code.  Its forward sweep refines a freeform row's roots as K1
-//   does; its reverse sweep reverses the row's normal and its 8 Newton
-//   steps (freeform.cuh, recomputed from the saved state: the saved state
-//   stays 9 words), and its warp slots hold 32 ff columns a row in place of
-//   a DOE row's 8: the coefficients of up to MAX_FF_TERMS monomials, after
-//   the coat columns (67 columns a row, 79 on a table with a dispersive
-//   row: 2.5 KB a row of shared memory beside the 9 KB of saved state).
-// - The polarized field: an eleventh instantiation, kField, built on the
-//   tenth (an overload with one more argument, FieldIn: K1's launch field,
-//   the cotangent of its final field and the launch field's cotangent, each
-//   [6][N] planar), so that the others keep their code.  Its forward sweep
-//   carries the field as K1 does and saves the incoming field as six more
-//   state words a row (15 in all: 15 KB a row of shared memory, so tables
-//   of up to kFieldSharedRows rows keep them there, longer ones in local
-//   memory); its reverse sweep carries the field's cotangent through
-//   row_backward's field adjoint (trace_seq_adjoint.cuh, field.cuh), which
-//   adds the cotangents of the directions, the normals, the media, a JONES
-//   row's ph[0:5] and Rw columns and the wavelength.  A JONES row's
-//   cotangents land in columns the table already reduces (Rw, ph[0:6]).  A
-//   coated interface's and a metal mirror's polarized weights and
-//   amplitudes go back through their stacks together, one reverse sweep a
-//   polarization (thin_film.cuh::stack_field_ct, recomputed: no saved
-//   state for them) into the layers' thicknesses (the coat columns), a
-//   metal's ambient and (n, k) and the wavelength.
-// - GRIN rods: a twelfth instantiation, kGrin, built on the fifth (the
-//   path length; an overload with one more argument, GrinRows, a tag), so
-//   that the others keep their code.  Its forward sweep runs a GRIN row as
-//   K1 does (trace_seq_common.cuh::grin_row, the rod out of line) and saves
-//   the rod's decisions in the row's bits (grin.cuh: it lived, its exit
-//   coupled, the steps it applied); its reverse sweep runs the rod's
-//   adjoint (grin.cuh::grin_backward), which re-runs the rod from the saved
-//   state with those decisions, keeping a checkpoint every 16 steps, and
-//   reverses the steps a segment at a time, into the pose columns (Rw, tw)
-//   and ph[0:6] (n_ambient, c0, c2, c4, cz, L), all among the 27 columns.
-//   The saved state stays 9 words.
+// - The families of kinds (the Fresnel kinds, coatings and metal mirrors,
+//   the diffractive and ideal elements, fuzzy apodization, freeform
+//   surfaces, GRIN rods): one more instantiation, the family
+//   instantiation, built on the fifth (an overload with one more argument,
+//   FamSide: K1's side data and the runtime word `fam` of the families the
+//   table has, trace_seq_common.cuh), so that the others keep their code.
+//   It compiles every family together, so a table may mix them; a family
+//   the table lacks skips its block setup and its columns (a table that
+//   one of the chain's links took runs that link's instantiation,
+//   trace_seq_common.cuh::fam_link, as K1 does).  Per family:
+//   - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W): the forward sweep
+//     reads each FRESNEL row's uniform as K1 does and saves the drawn
+//     branch as a bit (kReflect); the reverse sweep runs row_backward's
+//     Fresnel adjoints (trace_seq_adjoint.cuh): the chosen direction alone
+//     for FRESNEL, and for FRESNEL_W and REFLECT_W the cotangent of the
+//     reflectance R in their weights.  The saved state stays 9 words.
+//   - Thin-film coatings and metal mirrors: the rows' [K][20] side buffer is
+//     copied into shared memory after the moment cotangent; the reverse
+//     sweep takes a coated or metal row's weight back through the row's
+//     stack (thin_film.cuh::stack_rt_ct, recomputed there: no saved state
+//     for it) and reduces the 8 coat-thickness columns after the others.
+//   - The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA
+//     rows, the ELLIPSE bound): the reverse sweep runs diffractive_backward
+//     (trace_seq_adjoint.cuh, diffractive.cuh) and reduces a DOE row's 8 ff
+//     columns after the coat columns, only on DOE rows; GRATING and DOE rows
+//     add their share to the wavelength's cotangent.
+//   - Fuzzy apodization: the traced programs' int32 buffer is copied into
+//     shared memory after the side buffer; the forward sweep multiplies a
+//     row's factor by its program's value at the hit, as K1 does; the
+//     reverse sweep re-runs the program at the replayed hit with
+//     forward-mode partials (fuzzy.cuh: 4 floats a register, no stored
+//     tape) and adds g I imod dw/d(hit) to the hit's cotangent
+//     (row_backward).  The programs have no parameters of the table.
+//   - Freeform surfaces: the rows' exponent pairs are copied into shared
+//     memory after the programs; the forward sweep refines a freeform row's
+//     roots as K1 does; the reverse sweep reverses the row's normal and its
+//     8 Newton steps (freeform.cuh, recomputed from the saved state), and
+//     the warp slots hold 32 ff columns a row in place of a DOE row's 8:
+//     the coefficients of up to MAX_FF_TERMS monomials.
+//   - GRIN rods: the forward sweep runs a GRIN row as K1 does
+//     (trace_seq_common.cuh::grin_row, the rod out of line) and saves the
+//     rod's decisions in the row's bits (grin.cuh: it lived, its exit
+//     coupled, the steps it applied); the reverse sweep runs the rod's
+//     adjoint (grin.cuh::grin_backward), which re-runs the rod from the
+//     saved state with those decisions, keeping a checkpoint every 16 steps
+//     in local memory, and reverses the steps a segment at a time, into the
+//     pose columns (Rw, tw) and ph[0:6] (n_ambient, c0, c2, c4, cz, L), all
+//     among the 27 columns.
+//   A row's columns: the 27, the disp columns on a table with a dispersive
+//   row, the 8 coat columns when the table has coatings, then 32 ff
+//   columns with freeform surfaces or 8 with the diffractive kinds.
+// - The polarized field: one more instantiation, kField, which compiles
+//   every family but GRIN rods (an overload with one more argument,
+//   FieldIn: K1's launch field, the cotangent of its final field and the
+//   launch field's cotangent, each [6][N] planar), so that the others keep
+//   their code.  Its forward sweep carries the field as K1 does and saves
+//   the incoming field as six more state words a row (15 in all: 15 KB a
+//   row of shared memory, so tables of up to kFieldSharedRows rows keep
+//   them there, longer ones in local memory); its reverse sweep carries the
+//   field's cotangent through row_backward's field adjoint
+//   (trace_seq_adjoint.cuh, field.cuh), which adds the cotangents of the
+//   directions, the normals, the media, a JONES row's ph[0:5] and Rw
+//   columns and the wavelength.  A JONES row's cotangents land in columns
+//   the table already reduces (Rw, ph[0:6]).  A coated interface's and a
+//   metal mirror's polarized weights and amplitudes go back through their
+//   stacks together, one reverse sweep a polarization (thin_film.cuh::
+//   stack_field_ct, recomputed: no saved state for them) into the layers'
+//   thicknesses (the coat columns), a metal's ambient and (n, k) and the
+//   wavelength.
 // - Grid cotangent: at each active sensor row the ray's incoming intensity
 //   gets g_grid[slot, iy, ix] (the gather of the TPU kernel's
 //   _grid_partial_g_bwd, exact in float32), with the bin recomputed in the
@@ -196,6 +195,7 @@
 // where-guarded sqrt and division branches get no cotangent.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -228,42 +228,6 @@ struct OplIn {
   const float* g_nfinal;
 };
 
-// What only the instantiation with the Fresnel kinds takes: K1's uniforms,
-// n_draws streams of n floats, one per FRESNEL row in row order.
-struct SeqDraws {
-  const float* u;
-  int n_draws;
-};
-
-// What only the instantiation with the coatings takes: the rows' side
-// buffer, [K][kCoatSide] floats (ops/fused_trace.py::coat_side).
-struct CoatSide {
-  const float* side;
-};
-
-// The instantiation with the diffractive kinds (kDiff): its overload's tag.
-struct DiffKinds {
-  int unused;
-};
-
-// What only the instantiation with the fuzzy programs takes: their n_words
-// int32 words (fuzzy.cuh's layout).
-struct FuzzyProgs {
-  const int32_t* words;
-  int n_words;
-};
-
-// What only the instantiation with the freeform surfaces takes: the rows'
-// exponent pairs, [K][kFfSide] int32 words (freeform.cuh's layout).
-struct FfSide {
-  const int32_t* pw;
-};
-
-// The instantiation with GRIN rods (kGrin): its overload's tag.
-struct GrinRows {
-  int unused;
-};
-
 // What only the instantiation with the field takes, [6][n] floats each (Er
 // x, y, z, then Ei x, y, z): K1's launch field `in`, the cotangent of K1's
 // final field `g_out` (null: zero) and the launch field's cotangent `c_in`
@@ -274,24 +238,26 @@ struct FieldIn {
   float* c_in;
 };
 
-// The kernel's body, shared by its six instantiations (the kernels below).
+// The kernel's body, shared by its instantiations (the kernels below).
 // With kOpl (which has kDispersion) the forward sweep also carries the
 // index of the medium and saves it before each row as a ninth state word
 // (recomputing it in the reverse sweep would mean replaying the chain up to
 // each row: the word costs 1 KB a row of shared memory), and the reverse
-// sweep runs row_backward's path-length adjoint (OplCt).  With kFresnel
-// (which has kOpl) a FRESNEL row of the forward sweep reads the ray's
-// uniform from the next stream of `dr`.  With kCoat (which has kFresnel)
-// coated and metal rows read their rows of `cs`, and a row's 8
-// coat-thickness columns follow its disp columns.  With kDiff (which has
-// kCoat) the diffractive kinds, and a DOE row's 8 ff columns follow the coat
-// columns.  With kFuzzy (which has kDiff) the rows with a program in `fp`
-// (copied into shared memory after the side buffer) weigh by it.  With
-// kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
-// memory after the programs) refine their roots onto their sags, and the ff
-// columns are 32 a row (a freeform row's coefficients, or a DOE row's in
-// the first 8).  With kGrin (which has kOpl and none of kFresnel and the
-// flags built on it) a GRIN row runs the rod forward and its adjoint back.
+// sweep runs row_backward's path-length adjoint (OplCt).  The family flags
+// (each with kOpl) compile a family of kinds in, and the runtime word
+// fs.fam says which of them the table has: with kFresnel a FRESNEL row of
+// the forward sweep reads the ray's uniform from the next stream of fs.u;
+// with kCoat coated and metal rows read their rows of fs.coat, and (with
+// kFamCoat) a row's 8 coat-thickness columns follow its disp columns; with
+// kDiff the diffractive kinds, and (with kFamDiff) a DOE row's 8 ff columns
+// follow the coat columns; with kFuzzy the rows with a program in fs.fuzzy
+// (copied into shared memory after the side buffer) weigh by it; with
+// kFreeform the freeform rows of fs.ff (copied into shared memory after the
+// programs) refine their roots onto their sags, and (with kFamFreeform)
+// the ff columns are 32 a row (a freeform row's coefficients, or a DOE
+// row's in the first 8); with kGrin a GRIN row runs the rod forward and its
+// adjoint back.  With kField (which has every family flag but kGrin) the
+// field rides the state as K1 carries it.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
           bool kFreeform = false, bool kField = false, bool kGrin = false>
@@ -308,8 +274,7 @@ __device__ __forceinline__ void seq_bwd(
     float* __restrict__ cintensity, float* __restrict__ partials, int n_slots, int n_bundles,
     GridCt gg, const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
     const float* __restrict__ wavelength, float* __restrict__ gmaps, long long n, WaveOut wo,
-    OplIn oi = {nullptr, nullptr}, SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr},
-    FuzzyProgs fp = {nullptr, 0}, FfSide ff = {nullptr},
+    OplIn oi = {nullptr, nullptr}, FamSide fs = {},
     FieldIn fi = {nullptr, nullptr, nullptr}) {
   static_assert(kOpl || !kFresnel, "the Fresnel kinds run with the path length");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
@@ -317,17 +282,23 @@ __device__ __forceinline__ void seq_bwd(
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
-  static_assert(!kGrin || (kOpl && !kFresnel), "GRIN rods run with the path length alone");
+  static_assert(!kGrin || kOpl, "GRIN rods run with the path length");
+  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
   constexpr int kStride = kShared ? kThreads : 1;
   constexpr int kWords = state_words<kOpl, kField>();
+  // the families the table has (fs.fam), each false without its flag
+  const bool coat = kCoat && (fs.fam & kFamCoat);
+  const bool fuzzy = kFuzzy && (fs.fam & kFamFuzzy);
+  const bool freeform = kFreeform && (fs.fam & kFamFreeform);
   // a row's columns in the warp slots and the partials: with a dispersive
-  // row (kDispersion) its disp columns after the kCols, with kCoat the coat
-  // columns after those, with kDiff a DOE row's ff columns after those
-  const int n_cols = kDispersion ? kCols + wo.disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-                                       (kDiff ? kFfCols : 0)
-                                 : kCols;
+  // row (kDispersion) its disp columns after the kCols, with the coatings
+  // the coat columns after those, with the freeform surfaces or the
+  // diffractive kinds a row's ff columns after those
+  const int coat_cols = coat ? kMaxCoatLayers : 0;
+  const int ff_cols = freeform ? kMaxFfTerms : kDiff && (fs.fam & kFamDiff) ? kMaxDoeTerms : 0;
+  const int n_cols = kDispersion ? kCols + wo.disp_cols + coat_cols + ff_cols : kCols;
   extern __shared__ float smem[];
   float* tab = smem;
   int32_t* knd = reinterpret_cast<int32_t*>(smem + n_rows * kRowWidth);
@@ -335,10 +306,11 @@ __device__ __forceinline__ void seq_bwd(
   const int n_mom = n_slots * n_bundles * kMoments;
   float* cside = gm + n_mom;  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
-  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
-  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
-  float* warp_tab = cside + (kCoat ? n_rows * kCoatSide : 0) + (kFuzzy ? fp.n_words : 0) +
-                    (kFreeform ? n_rows * kFfSide : 0);  // [kWarps, n_rows, n_cols]
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? fam_coat_words(fs, n_rows) : 0));
+  int32_t* ffs = fzs + (kFuzzy ? fam_fuzzy_words(fs) : 0);  // kFreeform: the pairs
+  float* warp_tab = cside + (kCoat ? fam_coat_words(fs, n_rows) : 0) +
+                    (kFuzzy ? fam_fuzzy_words(fs) : 0) +
+                    (kFreeform ? fam_ff_words(fs, n_rows) : 0);  // [kWarps, n_rows, n_cols]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   // each row's saved state: [n_rows][kStateWords][kThreads] after the
@@ -350,19 +322,21 @@ __device__ __forceinline__ void seq_bwd(
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < n_mom; j += kThreads) gm[j] = gmom[j];
   if constexpr (kCoat) {
-    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+    for (int j = tid; j < fam_coat_words(fs, n_rows); j += kThreads) cside[j] = fs.coat[j];
   }
   if constexpr (kFuzzy) {
-    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+    for (int j = tid; j < fam_fuzzy_words(fs); j += kThreads) fzs[j] = fs.fuzzy[j];
   }
   if constexpr (kFreeform) {
-    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
+    for (int j = tid; j < fam_ff_words(fs, n_rows); j += kThreads) ffs[j] = fs.ff[j];
   }
   for (int j = tid; j < kWarps * n_rows * n_cols; j += kThreads) warp_tab[j] = 0.0f;
   __syncthreads();
   if constexpr (kDiff) {
-    ellipse_rows(tab, knd, n_rows, tid, kThreads);
-    __syncthreads();
+    if (fs.fam & kFamDiff) {  // uniform across the block
+      ellipse_rows(tab, knd, n_rows, tid, kThreads);
+      __syncthreads();
+    }
   }
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -412,7 +386,7 @@ __device__ __forceinline__ void seq_bwd(
     float u = 0.0f;
     if constexpr (kFresnel) {
       if (kd.ph == FRESNEL) {  // warp-uniform
-        if (live && f < dr.n_draws) u = dr.u[static_cast<long long>(f) * n + i];
+        if (live && f < fs.n_draws) u = fs.u[static_cast<long long>(f) * n + i];
         ++f;
       }
     }
@@ -420,8 +394,8 @@ __device__ __forceinline__ void seq_bwd(
     const uint32_t bits =
         row_forward<kPlates, kExt, kDispersion, kFresnel, kCoat, kDiff, kFuzzy, kFreeform, kField>(
             tab + k * kRowWidth, kd, pl, p, d, inten, u, cside + k * kCoatSide,
-            kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr,
-            kFreeform ? ff_row_of(ffs, k) : nullptr, kField ? &fe : nullptr);
+            fuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr,
+            freeform ? ff_row_of(ffs, k) : nullptr, kField ? &fe : nullptr);
     put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, bits);
     if constexpr (kOpl) {
       put_medium<kStride>(saved + k * kWords * kStride, n_cur);
@@ -478,20 +452,14 @@ __device__ __forceinline__ void seq_bwd(
       float tf[kDiff ? kFfCols : 1];
 #pragma unroll
       for (int c = 0; c < (kDiff ? kFfCols : 1); ++c) tf[c] = 0.0f;
-      const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
-      if constexpr (kGrin) {
-        if (kd.ph == GRIN) {  // warp-uniform: the rod's adjoint
-          grin_row_backward(r, kd, sp, sd, bits, oc, gp, gd, gi, tg);
-        } else {
-          row_backward<kPlates, kExt, kDispersion, kOpl>(r, kd, sp, sd, si, bits, rid, gm,
-                                                         n_bundles, gg, pl, gmaps, gp, gd, gi, tg,
-                                                         &wc, &oc);
-        }
+      const int32_t* ffp = freeform ? ff_row_of(ffs, k) : nullptr;
+      if (kGrin && kd.ph == GRIN) {  // warp-uniform: the rod's adjoint
+        grin_row_backward(r, kd, sp, sd, bits, oc, gp, gd, gi, tg);
       } else {
         row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
                      kField>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd,
                              gi, tg, &wc, &oc, cside + k * kCoatSide, tc, tf,
-                             kFuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
+                             fuzzy && fzs[k] >= 0 ? fzs + fzs[k] : nullptr, ffp,
                              kField ? &fc : nullptr);
       }
       if constexpr (kField) fc.nd = sd;
@@ -510,13 +478,16 @@ __device__ __forceinline__ void seq_bwd(
       }
       // a coated or metal row (warp-uniform): its thickness columns
       if constexpr (kCoat) {
-        if (any && (kd.coat & kCoatCountMask) != 0)
+        if (any && coat && (kd.coat & kCoatCountMask) != 0)
           reduce_cols<kMaxCoatLayers>(tc, slot + kCols + wo.disp_cols, lane);
       }
       // a DOE or freeform row (warp-uniform): its coefficients' columns
       if constexpr (kDiff) {
-        if (any && (kd.ph == DOE || (kFreeform && ffp != nullptr)))
-          reduce_cols<kFfCols>(tf, slot + kCols + wo.disp_cols + kMaxCoatLayers, lane);
+        float* ffslot = slot + kCols + wo.disp_cols + coat_cols;
+        if (any && freeform && (kd.ph == DOE || ffp != nullptr))
+          reduce_cols<kFfCols>(tf, ffslot, lane);
+        else if (any && ff_cols != 0 && kd.ph == DOE)
+          reduce_cols<kMaxDoeTerms>(tf, ffslot, lane);
       }
     } else {
       row_backward<kPlates, kExt>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp,
@@ -600,86 +571,39 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi) {
   seq_bwd<kShared, kPlates, kExt, true, true>(RTT_SEQ_BWD_ARGS, wo, oi);
 }
 
-// The kernel with those and the Fresnel kinds.
-template <bool kShared, bool kPlates, bool kExt>
+// The family instantiation (kFams = kFamAll; kFamGrin for GRIN rods
+// alone): those and the families of kFams, which the table has reading
+// fs.fam.
+template <bool kShared, bool kPlates, bool kExt, uint32_t kFams = kFamAll>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr) {
-  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
-  seq_bwd<kShared, kPlates, kExt, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr);
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs) {
+  static_assert(kPlates && kExt, "the families run with the extended kinds");
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  seq_bwd<kShared, kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, false, fam_has(kFams, kFamGrin)>(
+      RTT_SEQ_BWD_ARGS, wo, oi, fs);
 }
 
-// The kernel with those and the coatings.
-template <bool kShared, bool kPlates, bool kExt>
+// The field's instantiation: those, the families of kFams (every family
+// but GRIN rods) and the field.
+template <bool kShared, bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs) {
-  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
-  seq_bwd<kShared, kPlates, kExt, true, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr, cs);
-}
-
-// The kernel with those and the diffractive kinds.
-template <bool kShared, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
-                     DiffKinds) {
-  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
-  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi, dr,
-                                                                cs);
-}
-
-// The kernel with those and the fuzzy programs.
-template <bool kShared, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
-                     DiffKinds, FuzzyProgs fp) {
-  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
-  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true, true>(RTT_SEQ_BWD_ARGS, wo, oi,
-                                                                      dr, cs, fp);
-}
-
-// The kernel with those and the freeform surfaces.
-template <bool kShared, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
-                     DiffKinds, FuzzyProgs fp, FfSide ff) {
-  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
-  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true, true, true>(
-      RTT_SEQ_BWD_ARGS, wo, oi, dr, cs, fp, ff);
-}
-
-// The kernel with those and the field.
-template <bool kShared, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, SeqDraws dr, CoatSide cs,
-                     DiffKinds, FuzzyProgs fp, FfSide ff, FieldIn fi) {
+trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs, FieldIn fi) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
-  seq_bwd<kShared, kPlates, kExt, true, true, true, true, true, true, true, true>(
-      RTT_SEQ_BWD_ARGS, wo, oi, dr, cs, fp, ff, fi);
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  seq_bwd<kShared, kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, true>(
+      RTT_SEQ_BWD_ARGS, wo, oi, fs, fi);
 }
 
-// The kernel with those (the path length) and GRIN rods.
-template <bool kShared, bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, GrinRows) {
-  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
-  seq_bwd<kShared, kPlates, kExt, true, true, false, false, false, false, false, false, true>(
-      RTT_SEQ_BWD_ARGS, wo, oi);
-}
-
-// The types of the ten kernels.
+// The types of the kernels.
 using BwdKernel = void (*)(RTT_SEQ_BWD_PARAMS);
 using BwdExtKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut);
 using BwdOplKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn);
-using BwdFresnelKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws);
-using BwdCoatKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide);
-using BwdDiffKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
-                               DiffKinds);
-using BwdFuzzyKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
-                                DiffKinds, FuzzyProgs);
-using BwdFreeformKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide,
-                                   DiffKinds, FuzzyProgs, FfSide);
-using BwdFieldKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, SeqDraws, CoatSide, DiffKinds,
-                                FuzzyProgs, FfSide, FieldIn);
-using BwdGrinKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, GrinRows);
+using BwdFamKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, FamSide);
+using BwdFieldKernel = void (*)(RTT_SEQ_BWD_PARAMS, WaveOut, OplIn, FamSide, FieldIn);
 
 #undef RTT_SEQ_BWD_PARAMS
 #undef RTT_SEQ_BWD_ARGS
@@ -694,55 +618,44 @@ struct PlateArgs {
 };
 
 // The dynamic shared memory of a launch: the table, its kinds, the moment
-// cotangent, with kCoat the side buffer, the warp slots (disp_cols more
-// columns a row on a table with a dispersive row, with kCoat 8 more, with
-// kDiff 8 more again, with kFreeform 32 in their place), the fuzzy
-// programs' `fuzzy_words`, with kFreeform the rows' exponent pairs and, for
-// tables of up to kSharedRows rows, the saved states (a word more a row
-// with the path length).
-template <bool kPlates, bool kExt, bool kOpl = false, bool kCoat = false, bool kDiff = false,
-          bool kFreeform = false, bool kField = false>
+// cotangent, in the family and field instantiations the side data of the
+// families `fs` has (the side buffer, the programs' words, the exponent
+// pairs), the warp slots (disp_cols more columns a row on a table with a
+// dispersive row, 8 more with the coatings, then 32 with freeform surfaces
+// or 8 with the diffractive kinds) and, for tables of up to kSharedRows
+// rows (kFieldSharedRows with the field), the saved states (a word more a
+// row with the path length, six more with the field).
+template <bool kPlates, bool kExt, bool kOpl = false, bool kField = false>
 size_t shared_bytes(int n_rows, int n_slots, int n_bundles, int disp_cols,
-                    int fuzzy_words = 0) {
+                    const FamSide& fs = {}) {
   const size_t rows = static_cast<size_t>(n_rows);
+  const int ff_cols = (fs.fam & kFamFreeform) ? kMaxFfTerms
+                      : (fs.fam & kFamDiff)   ? kMaxDoeTerms
+                                              : 0;
   return sizeof(float) *
          (rows * (kRowWidth + kKindWidth) + static_cast<size_t>(n_slots) * n_bundles * kMoments +
-          (kCoat ? rows * kCoatSide : 0) + static_cast<size_t>(fuzzy_words) +
-          (kFreeform ? rows * kFfSide : 0) +
+          static_cast<size_t>(fam_coat_words(fs, n_rows)) +
+          static_cast<size_t>(fam_fuzzy_words(fs)) + static_cast<size_t>(fam_ff_words(fs, n_rows)) +
           static_cast<size_t>(kWarps) * rows *
-              (grad_cols<kPlates, kExt>() + disp_cols + (kCoat ? kMaxCoatLayers : 0) +
-               (kDiff ? (kFreeform ? kMaxFfTerms : kMaxDoeTerms) : 0)) +
+              (grad_cols<kPlates, kExt>() + disp_cols +
+               ((fs.fam & kFamCoat) ? kMaxCoatLayers : 0) + ff_cols) +
           (n_rows <= (kField ? kFieldSharedRows : kSharedRows)
                ? rows * state_words<kOpl, kField>() * kThreads
                : 0));
 }
 
-// The kernel of an instantiation.
+// The kernel of an instantiation: without dispersion (kPlates, kExt), with
+// it (kDispersion), with the path length (kOpl), the family instantiation
+// of the families kFams or the field's (kField).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false, bool kField = false, bool kGrin = false>
+          uint32_t kFams = 0u, bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kGrin)
+  if constexpr (kField)
     return reinterpret_cast<const void*>(
-        static_cast<BwdGrinKernel>(trace_seq_bwd_kernel<kShared, true, true>));
-  else if constexpr (kField)
+        static_cast<BwdFieldKernel>(trace_seq_bwd_kernel<kShared, true, true, kFams>));
+  else if constexpr (kFams != 0u)
     return reinterpret_cast<const void*>(
-        static_cast<BwdFieldKernel>(trace_seq_bwd_kernel<kShared, true, true>));
-  else if constexpr (kFreeform)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdFreeformKernel>(trace_seq_bwd_kernel<kShared, true, true>));
-  else if constexpr (kFuzzy)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdFuzzyKernel>(trace_seq_bwd_kernel<kShared, true, true>));
-  else if constexpr (kDiff)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdDiffKernel>(trace_seq_bwd_kernel<kShared, true, true>));
-  else if constexpr (kCoat)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdCoatKernel>(trace_seq_bwd_kernel<kShared, true, true>));
-  else if constexpr (kFresnel)
-    return reinterpret_cast<const void*>(
-        static_cast<BwdFresnelKernel>(trace_seq_bwd_kernel<kShared, true, true>));
+        static_cast<BwdFamKernel>(trace_seq_bwd_kernel<kShared, true, true, kFams>));
   else if constexpr (kOpl)
     return reinterpret_cast<const void*>(
         static_cast<BwdOplKernel>(trace_seq_bwd_kernel<kShared, true, true>));
@@ -757,24 +670,20 @@ const void* kernel_fn() {
 // The instantiation a launch runs, its shared memory allowed (beyond 48 KB
 // only on request) -> (cudaError_t, the kernel).
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
-          bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
-          bool kFreeform = false, bool kField = false, bool kGrin = false>
+          uint32_t kFams = 0u, bool kField = false>
 cudaError_t prepare(size_t smem, const void** fn) {
-  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                  kFreeform, kField, kGrin>();
+  *fn = kernel_fn<kShared, kPlates, kExt, kDispersion, kOpl, kFams, kField>();
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false>
+template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, uint32_t kFams = 0u,
+          bool kField = false>
 cudaError_t prepare_rows(int n_rows, size_t smem, const void** fn) {
-  return n_rows <= kSharedRows
-             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                       kFreeform>(smem, fn)
-             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
-                       kFreeform>(smem, fn);
+  return n_rows <= (kField ? kFieldSharedRows : kSharedRows)
+             ? prepare<true, kPlates, kExt, kDispersion, kOpl, kFams, kField>(smem, fn)
+             : prepare<false, kPlates, kExt, kDispersion, kOpl, kFams, kField>(smem, fn);
 }
 
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion>
@@ -881,23 +790,38 @@ extern "C" int rtt_trace_seq_bwd(const float* table, const int32_t* kinds, int n
                                           PlateArgs{nullptr, nullptr, nullptr, nullptr}, none, n);
 }
 
+// The side data of a family or field launch from its C arguments, checked,
+// as K1's (trace_seq_fwd.cu::fam_side).
+cudaError_t fam_side(const float* uniforms, int n_draws, const float* coat_side,
+                     const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side,
+                     unsigned fam, int n_rows, FamSide* fs) {
+  if (fam & ~(kFamFresnel | kFamCoat | kFamDiff | kFamFuzzy | kFamFreeform | kFamGrin))
+    return cudaErrorInvalidValue;
+  if ((coat_side != nullptr) != ((fam & kFamCoat) != 0) ||
+      (fuzzy != nullptr) != ((fam & kFamFuzzy) != 0) ||
+      (ff_side != nullptr) != ((fam & kFamFreeform) != 0))
+    return cudaErrorInvalidValue;
+  if (fuzzy != nullptr && (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return cudaErrorInvalidValue;
+  if (n_draws < 0 || (n_draws > 0 && (uniforms == nullptr || !(fam & kFamFresnel))))
+    return cudaErrorInvalidValue;
+  *fs = FamSide{uniforms, n_draws, PhiloxKey{0u, 0u}, coat_side, fuzzy,
+                fuzzy == nullptr ? 0 : fuzzy_words, ff_side, fam};
+  return cudaSuccess;
+}
+
 // Launches the instantiation with the optical path length on `stream`: the
 // arguments of rtt_trace_seq_bwd (its `ext` implied: `maps`, `map_desc` and
 // `wavelength` must be given, a PHASE_GRID row or not), then `g_opl` and
 // `g_nfinal`, the cotangents of K1's opl and n_final streams (n floats
-// each; null: zero).  `fresnel` nonzero selects the instantiation with the
-// Fresnel kinds, which reads K1's `uniforms`, n_draws * n floats (null with
-// n_draws 0 when no row draws); without it both are ignored.  `coat_side`,
-// when not null, selects the instantiation with the coatings (which also
-// takes the Fresnel kinds and reads `uniforms` so): the n_rows * 20 floats
-// of ops/fused_trace.py::coat_side; its partials hold 8 more columns a row
-// (the coat thicknesses, after the disp columns).  With `coat_side`, `diff`
-// nonzero selects the instantiation with the diffractive kinds, whose
-// partials hold 8 more (a DOE row's coefficients, after the coat columns),
-// and with it `fuzzy`, when not null, the one with the fuzzy programs: K1's
-// `fuzzy_words` int32 words; with that `ff_side`, when not null, the one
-// with the freeform surfaces: K1's exponent pairs, whose partials hold 32
-// ff columns a row in place of the 8.  Returns a cudaError_t.
+// each; null: zero), then K1's families: `fam` nonzero (kFam* bits) selects
+// the family instantiation, which reads K1's `uniforms` (n_draws * n
+// floats, null with n_draws 0 when no row draws), `coat_side`, `fuzzy`
+// (`fuzzy_words` int32 words) and `ff_side`, each null where its family's
+// bit is clear.  Its partials hold a row's 27 columns, the disp columns
+// with `disp`, the 8 coat thicknesses with kFamCoat, then 32 ff columns
+// with kFamFreeform or 8 (a DOE row's coefficients) with kFamDiff.
+// Returns a cudaError_t.
 extern "C" int rtt_trace_seq_bwd_opl(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -907,76 +831,69 @@ extern "C" int rtt_trace_seq_bwd_opl(
     float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, const float* uniforms, int n_draws, int fresnel,
-    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words,
-    const int32_t* ff_side, long long n, void* stream) {
+    const float* g_nfinal, const float* uniforms, int n_draws, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam, long long n,
+    void* stream) {
   if (n <= 0) return 0;
-  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy == nullptr) fuzzy_words = 0;
-  if (coat_side != nullptr) fresnel = 1;
+  FamSide fs;
+  cudaError_t e = fam_side(uniforms, n_draws, coat_side, fuzzy, fuzzy_words, ff_side, fam,
+                           n_rows, &fs);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (fresnel && (n_draws < 0 || (n_draws > 0 && uniforms == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const OplIn oi = {g_opl, g_nfinal};
-  const size_t smem =
-      ff_side != nullptr
-          ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles,
-                                                             wo.disp_cols, fuzzy_words)
-      : diff ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols,
-                                                          fuzzy_words)
-      : coat_side != nullptr
-          ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols)
-          : shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
+  const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols, fs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  // one launch per row layout for the six instantiations: the Fresnel
-  // kernel's overload takes the draws as its last argument, the coated one
-  // the draws and the side buffer, the diffractive one those and its tag,
-  // the fuzzy one those and the programs, the freeform one those and the
-  // exponent pairs
-  auto go = [&](auto... draws) {
-    const void* fn;
-    const cudaError_t e =
-        prepare_rows<true, true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
-                     sizeof...(draws) >= 3, sizeof...(draws) >= 4, sizeof...(draws) == 5>(
-            n_rows, smem, &fn);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (n_rows <= kSharedRows)
+  const bool shared = n_rows <= kSharedRows;
+  const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
+  const void* fn;
+  e = fam == 0 ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
+               : with_fam_link(fam, [&](auto fams) {
+                   return prepare_rows<true, true, true, true, decltype(fams)::value>(
+                       n_rows, smem, &fn);
+                 });
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // one launch per row layout for the instantiations: the family kernel's
+  // overload takes the side data as its last argument, its family set
+  // (kFams) as a template argument
+  auto go = [&](auto fams, auto... side) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    if (shared)
+      trace_seq_bwd_kernel<true, true, true, kFams><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, side...);
+    else
+      trace_seq_bwd_kernel<false, true, true, kFams><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, side...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (fam == 0) {
+    // the path length's kernel: the overload without side data
+    if (shared)
       trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
           table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
           gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
-          n_slots, n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength,
-          gmaps, n, wo, oi, draws...);
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi);
     else
       trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
           table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
           gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
-          n_slots, n_bundles, GridCt{ggrid, grid_h, grid_w, grid_e}, maps, map_desc, wavelength,
-          gmaps, n, wo, oi, draws...);
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi);
     return static_cast<int>(cudaGetLastError());
-  };
-  if (ff_side != nullptr)
-    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
-  if (fuzzy != nullptr)
-    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words});
-  if (diff) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0});
-  if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
-  return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
+  }
+  return with_fam_link(fam, [&](auto fams) { return go(fams, fs); });
 }
 
 // Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_seq_bwd_opl, whose `coat_side`, `diff`, `fuzzy` and `ff_side`
-// must all be given (the field runs with the freeform surfaces), then
+// rtt_trace_seq_bwd_opl (whose `fam` must not hold kFamGrin), then
 // `field_in`, K1's launch field, `g_field`, the cotangent of K1's final
 // field (null: zero), and `c_field`, which receives the launch field's
 // cotangent (null: not wanted), 6 * n floats each ([6][n]: Er x, y, z, then
@@ -991,101 +908,41 @@ extern "C" int rtt_trace_seq_bwd_field(
     float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, const float* uniforms, int n_draws, int fresnel,
-    const float* coat_side, int diff, const int32_t* fuzzy, int fuzzy_words,
-    const int32_t* ff_side, const float* field_in, const float* g_field, float* c_field,
-    long long n, void* stream) {
-  (void)fresnel;
+    const float* g_nfinal, const float* uniforms, int n_draws, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam,
+    const float* field_in, const float* g_field, float* c_field, long long n, void* stream) {
   if (n <= 0) return 0;
-  if (coat_side == nullptr || !diff || fuzzy == nullptr || ff_side == nullptr ||
-      field_in == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords)
-    return static_cast<int>(cudaErrorInvalidValue);
+  FamSide fs;
+  cudaError_t e = fam_side(uniforms, n_draws, coat_side, fuzzy, fuzzy_words, ff_side, fam,
+                           n_rows, &fs);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if ((fam & kFamGrin) || field_in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_draws < 0 || (n_draws > 0 && uniforms == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
   const OplIn oi = {g_opl, g_nfinal};
-  const size_t smem = shared_bytes<true, true, true, true, true, true, true>(
-      n_rows, n_slots, n_bundles, wo.disp_cols, fuzzy_words);
+  const size_t smem =
+      shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols, fs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  const bool shared = n_rows <= kFieldSharedRows;
   const void* fn;
-  const cudaError_t e =
-      shared ? prepare<true, true, true, true, true, true, true, true, true, true, true>(smem, &fn)
-             : prepare<false, true, true, true, true, true, true, true, true, true, true>(smem,
-                                                                                          &fn);
+  e = prepare_rows<true, true, true, true, kFamField, true>(n_rows, smem, &fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
-  const SeqDraws dr = {uniforms, n_draws};
-  const FuzzyProgs fp = {fuzzy, fuzzy_words};
   const FieldIn fi = {field_in, g_field, c_field};
-  if (shared)
-    trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
+  if (n_rows <= kFieldSharedRows)
+    trace_seq_bwd_kernel<true, true, true, kFamField><<<g, kThreads, smem, s>>>(
         table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
         gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, dr, CoatSide{coat_side},
-        DiffKinds{0}, fp, FfSide{ff_side}, fi);
+        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
   else
-    trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
+    trace_seq_bwd_kernel<false, true, true, kFamField><<<g, kThreads, smem, s>>>(
         table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
         gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, dr, CoatSide{coat_side},
-        DiffKinds{0}, fp, FfSide{ff_side}, fi);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches the instantiation with GRIN rods on `stream`: the arguments of
-// rtt_trace_seq_bwd_opl up to `g_nfinal` (the draws and side buffers of the
-// kinds it does not take left out).  A GRIN row's RK4 step count
-// (1..kMaxGrinSteps) is its kinds row's last column.  Returns a
-// cudaError_t.
-extern "C" int rtt_trace_seq_bwd_grin(
-    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
-    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
-    const int32_t* ray_id, const float* gpx, const float* gpy, const float* gpz,
-    const float* gdx, const float* gdy, const float* gdz, const float* gintensity,
-    const float* gmom, float* cpx, float* cpy, float* cpz, float* cdx, float* cdy, float* cdz,
-    float* cintensity, float* partials, int n_slots, int n_bundles, const float* ggrid,
-    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
-    const float* wavelength, float* gmaps, float* cwl, int disp, const float* g_opl,
-    const float* g_nfinal, long long n, void* stream) {
-  if (n <= 0) return 0;
-  if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const WaveOut wo = {cwl, disp ? kDispGradCols : 0};
-  const OplIn oi = {g_opl, g_nfinal};
-  const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(blocks);
-  const bool shared = n_rows <= kSharedRows;
-  const void* fn;
-  const cudaError_t e =
-      shared ? prepare<true, true, true, true, true, false, false, false, false, false, false,
-                       true>(smem, &fn)
-             : prepare<false, true, true, true, true, false, false, false, false, false, false,
-                       true>(smem, &fn);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
-  if (shared)
-    trace_seq_bwd_kernel<true, true, true><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, GrinRows{0});
-  else
-    trace_seq_bwd_kernel<false, true, true><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, GrinRows{0});
+        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1095,63 +952,34 @@ extern "C" int rtt_trace_seq_bwd_grin(
 // (n_bounces is K6's; K2 has none.)  `code`: 0 without plate code, 1 with
 // it, 2 with it and the extended kinds, 3 with those and dispersion on a
 // table with a dispersive row, 4 the instantiation with the path length on
-// such a table, 5 the one with the Fresnel kinds on such a table, 6 the one
-// with the coatings on such a table, 7 the one with the diffractive kinds
-// on such a table, 8 the one with the fuzzy programs (of `fuzzy_words`
-// words) on such a table, 9 the one with the freeform surfaces (and
-// programs of `fuzzy_words` words) on such a table, 10 the one with the
-// field (likewise), 11 the one with GRIN rods (likewise).
+// such a table, 5 the family instantiation on such a table, 6 the field's,
+// these two with the families `fam` (kFam* bits) and programs of
+// `fuzzy_words` words.
 extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int /*n_bounces*/, int code, int fuzzy_words,
-                                           int* blocks) {
+                                           unsigned fam, int* blocks) {
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const int disp_cols = code >= 3 ? kDispGradCols : 0;
-  if (code == 11) {
-    const size_t smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols);
-    const void* fn;
-    const cudaError_t e =
-        n_rows <= kSharedRows
-            ? prepare<true, true, true, true, true, false, false, false, false, false, false,
-                      true>(smem, &fn)
-            : prepare<false, true, true, true, true, false, false, false, false, false, false,
-                      true>(smem, &fn);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));
-  }
+  const FamSide fs = {nullptr, 0, PhiloxKey{0u, 0u}, nullptr, nullptr, fuzzy_words, nullptr,
+                      code >= 5 ? fam : 0u};
   const size_t smem =
-      code == 10 ? shared_bytes<true, true, true, true, true, true, true>(
-                       n_rows, n_slots, n_bundles, disp_cols, fuzzy_words)
-      : code == 9 ? shared_bytes<true, true, true, true, true, true>(n_rows, n_slots, n_bundles,
-                                                                   disp_cols, fuzzy_words)
-      : code == 8 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles,
-                                                               disp_cols, fuzzy_words)
-      : code == 7 ? shared_bytes<true, true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
-      : code == 6 ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
-      : code >= 4 ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols)
+      code == 6   ? shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, disp_cols, fs)
+      : code >= 4 ? shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, disp_cols, fs)
       : code >= 2 ? shared_bytes<true, true>(n_rows, n_slots, n_bundles, disp_cols)
       : code == 1 ? shared_bytes<true, false>(n_rows, n_slots, n_bundles, 0)
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
   const cudaError_t e =
-      code == 10 ? (n_rows <= kFieldSharedRows
-                        ? prepare<true, true, true, true, true, true, true, true, true, true, true>(
-                              smem, &fn)
-                        : prepare<false, true, true, true, true, true, true, true, true, true,
-                                  true>(smem, &fn))
-                        : code == 9 ? prepare_rows<true, true, true, true, true, true, true, true,
-                                                 true>(n_rows, smem, &fn)
-                        : code == 8 ? prepare_rows<true, true, true, true, true, true, true, true>(
-                                        n_rows, smem, &fn)
-                        : code == 7 ? prepare_rows<true, true, true, true, true, true, true>(
-                                        n_rows, smem, &fn)
-                        : code == 6 ? prepare_rows<true, true, true, true, true, true>(n_rows, smem, &fn)
-                        : code == 5 ? prepare_rows<true, true, true, true, true>(n_rows, smem, &fn)
-                        : code == 4 ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
-                        : code == 3 ? prepare_rows<true, true, true>(n_rows, smem, &fn)
-                        : code == 2 ? prepare_rows<true, true, false>(n_rows, smem, &fn)
-                        : code == 1 ? prepare_rows<true, false, false>(n_rows, smem, &fn)
-                                    : prepare_rows<false, false, false>(n_rows, smem, &fn);
+      code == 6   ? prepare_rows<true, true, true, true, kFamField, true>(n_rows, smem, &fn)
+      : code == 5 ? with_fam_link(fam, [&](auto fams) {
+                      return prepare_rows<true, true, true, true, decltype(fams)::value>(
+                          n_rows, smem, &fn);
+                    })
+      : code == 4 ? prepare_rows<true, true, true, true>(n_rows, smem, &fn)
+      : code == 3 ? prepare_rows<true, true, true>(n_rows, smem, &fn)
+      : code == 2 ? prepare_rows<true, true, false>(n_rows, smem, &fn)
+      : code == 1 ? prepare_rows<true, false, false>(n_rows, smem, &fn)
+                  : prepare_rows<false, false, false>(n_rows, smem, &fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));

@@ -86,18 +86,31 @@
 //
 // The polarized field (track_field: a complex E-vector per ray, field.cuh)
 // takes one more compile-time flag, kField, set only in one more
-// instantiation of K1 and K2, built on the one with freeform surfaces, and
-// of K5 and K6, built on the one with the coatings (nonseq_bounce,
-// field_winner): every other instantiation holds none of its code.  Under it the Fresnel
+// instantiation of each kernel, which takes every family but GRIN rods
+// (nonseq_bounce, field_winner): every other instantiation holds none of
+// its code.  Under it the Fresnel
 // kinds of bare interfaces draw and weigh with the polarized reflectance of
 // the ray's field (fresnel_physics with kField), a JONES row (a polarizer
 // or a waveplate) passes the ray through, and field_row gathers what a row's
 // transport reads; a JONES row's static bits (chromatic, crystal) ride its
 // kinds row where a coated row's coating bits ride theirs.
+//
+// The families.  The flags kFresnel, kCoat, kDiff, kFuzzy, kFreeform and
+// kGrin are each a family of kinds; the kernels compile them together, in
+// one instantiation of each (the family instantiation, with the streams),
+// and the field's instantiation compiles all but kGrin, so that a table
+// that mixes families (a GRIN rod beside a coated lens, a DOE under the
+// field) runs as the JAX kernels run it.  Which families a table has rides
+// a launch's runtime word FamSide::fam (kFam* bits; ops/fused_trace.py::
+// families): an absent family's per-block setup (the shared copies of its
+// side buffer, programs or exponent pairs, the ELLIPSE rows) is skipped and
+// its buffer pointer is null.  A row's physics still dispatches on its own
+// kind, as in every instantiation.
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -415,6 +428,108 @@ struct RayDraw {
   PhiloxKey key;
   uint32_t ray, bounce;
 };
+
+// The families of kinds a launch of the family or field instantiation runs
+// (ops/fused_trace.py::FAM_*): bits of FamSide::fam.
+constexpr uint32_t kFamFresnel = 1u, kFamCoat = 2u, kFamDiff = 4u, kFamFuzzy = 8u,
+                   kFamFreeform = 16u, kFamGrin = 32u;
+// The compile-time family sets of the instantiations: the family
+// instantiation's (every family); the chain's links, which a table of one
+// family runs, as before the collapse (the A/B of PERF.md: on such tables
+// the family instantiation, carrying every family's code, runs K2 and K6
+// 1.3-2.2x slower): the Fresnel kinds alone, the coatings (with the Fresnel
+// kinds of their faces), the diffractive kinds (built on those), the fuzzy
+// programs (built on those), GRIN rods alone; the field's (every family but
+// GRIN) and the field's on the Fresnel kinds and coatings alone (K5's and
+// K6's for tables without the diffractive, fuzzy or freeform kinds: the
+// earlier field instantiation).
+constexpr uint32_t kFamAll = 63u, kFamField = kFamAll & ~kFamGrin;
+constexpr uint32_t kFamCoatLink = kFamFresnel | kFamCoat;
+constexpr uint32_t kFamDiffLink = kFamCoatLink | kFamDiff;
+constexpr uint32_t kFamFuzzyLink = kFamDiffLink | kFamFuzzy;
+constexpr uint32_t kFamFieldCoat = kFamCoatLink;
+
+// Whether the family set kFams (a template argument) holds family `bit`.
+__host__ __device__ constexpr bool fam_has(uint32_t fams, uint32_t bit) {
+  return (fams & bit) != 0u;
+}
+
+// The family set of the instantiation that a launch of the families `fam`
+// (not 0) runs: the chain's first link that takes them all, or for a
+// freeform table, a GRIN rod beside another family or any other mix the
+// chain did not take, the family instantiation.  K5 and K6 (kGrinLink
+// false) run GRIN rods alone in the family instantiation too: with the
+// field's two instantiations (below) a seventh link would take them past
+// the parent's seven instantiations above the streams' (PERF.md).
+template <bool kGrinLink = true>
+__host__ __device__ constexpr uint32_t fam_link(uint32_t fam) {
+  return kGrinLink && fam == kFamGrin       ? kFamGrin
+         : fam == kFamFresnel               ? kFamFresnel
+         : (fam & ~kFamCoatLink) == 0u      ? kFamCoatLink
+         : (fam & ~kFamDiffLink) == 0u      ? kFamDiffLink
+         : (fam & ~kFamFuzzyLink) == 0u     ? kFamFuzzyLink
+                                            : kFamAll;
+}
+
+// Calls f(std::integral_constant<uint32_t, kFams>{}) with the family set of
+// the instantiation fam_link<kGrinLink>(fam) selects: a launcher's one call
+// site for the six instantiations (five without kGrinLink).
+template <bool kGrinLink = true, class F>
+auto with_fam_link(uint32_t fam, F&& f) {
+  if constexpr (kGrinLink) {  // (without it no kernel of that link is built)
+    if (fam == kFamGrin) return f(std::integral_constant<uint32_t, kFamGrin>{});
+  }
+  switch (fam_link<kGrinLink>(fam)) {
+    case kFamFresnel:
+      return f(std::integral_constant<uint32_t, kFamFresnel>{});
+    case kFamCoatLink:
+      return f(std::integral_constant<uint32_t, kFamCoatLink>{});
+    case kFamDiffLink:
+      return f(std::integral_constant<uint32_t, kFamDiffLink>{});
+    case kFamFuzzyLink:
+      return f(std::integral_constant<uint32_t, kFamFuzzyLink>{});
+    default:
+      return f(std::integral_constant<uint32_t, kFamAll>{});
+  }
+}
+
+// K5's and K6's field instantiation for the families `fam`: without the
+// diffractive, fuzzy or freeform kinds kFamFieldCoat's, else kFamField's.
+__host__ __device__ __forceinline__ bool field_coat_alone(uint32_t fam) {
+  return (fam & ~kFamFieldCoat) == 0u;
+}
+
+// The side data of the family and field instantiations, each pointer null
+// where the table lacks its family: K1's and K2's FRESNEL uniforms (n_draws
+// streams of n floats, one per FRESNEL row in row order) or K5's and K6's
+// Philox key, the coated rows' side buffer ([K][kCoatSide] floats,
+// ops/fused_trace.py::coat_side), the fuzzy programs (n_words int32 words,
+// fuzzy.cuh), the freeform rows' exponent pairs ([K][kFfSide] int32 words,
+// freeform.cuh), and the families (kFam* bits).  GRIN rods read nothing
+// more: a rod rides its flat row, its step count its kinds row, and K2's and
+// K6's adjoint keeps its checkpoints in local memory (grin.cuh).
+struct FamSide {
+  const float* u;
+  int n_draws;
+  PhiloxKey key;
+  const float* coat;
+  const int32_t* fuzzy;
+  int fuzzy_words;
+  const int32_t* ff;
+  uint32_t fam;
+};
+
+// The words of a launch's fuzzy programs and freeform pairs in shared
+// memory (0 where the table lacks the family), and of its side buffer.
+__host__ __device__ __forceinline__ int fam_coat_words(const FamSide& fs, int n_rows) {
+  return (fs.fam & kFamCoat) ? n_rows * kCoatSide : 0;
+}
+__host__ __device__ __forceinline__ int fam_fuzzy_words(const FamSide& fs) {
+  return (fs.fam & kFamFuzzy) ? fs.fuzzy_words : 0;
+}
+__host__ __device__ __forceinline__ int fam_ff_words(const FamSide& fs, int n_rows) {
+  return (fs.fam & kFamFreeform) ? n_rows * kFfSide : 0;
+}
 
 // ---- The packed scan record (K5's scan, and K6's replay of it) ----
 //
@@ -1286,17 +1401,20 @@ __device__ __forceinline__ void field_physics(const float* r, const RowKinds& kd
 }
 
 // A non-sequential winner's physics and transport under the field (kField,
-// K5's and K6's, built on kCoat): field_physics, then field_transport of the
-// field *e into itself.  Out of line, so that K5 and K6's replay run one
-// compiled body and the replay reaches K5's field bit for bit: inlined, the
-// two kernels contracted the transport's multiply-adds apart (its rays
+// K5's and K6's): field_physics (with kDiff the diffractive kinds), the
+// winner's fuzzy factor `fz` (1 without a program) times its factor, then
+// field_transport of the field *e into itself, so the transport sees the
+// apodized factor as K1's does.  Out of line, so that K5 and K6's replay run
+// one compiled body and the replay reaches K5's field bit for bit: inlined,
+// the two kernels contracted the transport's multiply-adds apart (its rays
 // agreed, its field did not).
-template <bool kDispersion>
+template <bool kDispersion, bool kDiff, bool kFuzzy>
 __device__ __noinline__ void field_winner(const float* r, const RowKinds& kd, V3 d, V3 nw, V3 hs,
-                                          const Plates& pl, float u, const float* side, V3& nd,
-                                          float& imod, PhysBranch* br, Fld& e) {
+                                          const Plates& pl, float u, const float* side, float fz,
+                                          V3& nd, float& imod, PhysBranch* br, Fld& e) {
   FieldStack fst;
-  field_physics<kDispersion, false>(r, kd, d, nw, hs, pl, u, e, side, nd, imod, br, fst);
+  field_physics<kDispersion, kDiff>(r, kd, d, nw, hs, pl, u, e, side, nd, imod, br, fst);
+  if constexpr (kFuzzy) imod = imod * fz;
   e = field_transport(field_row<kDispersion>(r, kd, d, nd, nw, imod, pl.wl, fst), e);
 }
 
@@ -1398,11 +1516,11 @@ struct SensorRec {
 // its factor by the program's value at its surface-frame hit; with
 // kFreeform (which has kFuzzy) the freeform rows of the side buffer `ffs`
 // ([K][kFfSide]) intersect and take their normals as freeform surfaces.
-// With kField (which has kCoat, and none of kDiff, kFuzzy, kFreeform) the
-// winner's physics sees the ray's field *fe (field_physics) and the winner
-// transports it (field_transport), so that K6's replay reaches K5's field.
-// With kGrin (which has kExt, and none of kFresnel and the flags built on
-// it) a GRIN row's entry face wins only a ray travelling +z in its frame
+// A null `fz` or `ffs` (a table without that family) skips its code.
+// With kField (which has kCoat) the winner's physics sees the ray's field
+// *fe (field_physics) and the winner transports it (field_winner), so that
+// K6's replay reaches K5's field.  With kGrin (which has kExt; not with
+// kField) a GRIN row's entry face wins only a ray travelling +z in its frame
 // (grin_fwd), and a GRIN winner runs its whole rod (grin.cuh::grin_rod, out
 // of line, so that K6's replay reaches K5's state): the ray lands at the
 // exit face, and `ge` receives the rod's exit (its in-medium path and
@@ -1426,8 +1544,9 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
-  static_assert(!kField || (kCoat && !kDiff), "the field runs with the coatings alone");
-  static_assert(!kGrin || (kExt && !kFresnel), "GRIN rods read the kinds rows of the flat scan");
+  static_assert(!kField || kCoat, "the field runs with the coatings");
+  static_assert(!kGrin || kExt, "GRIN rods read the kinds rows of the flat scan");
+  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -1435,8 +1554,8 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
     RowHit h;
     if constexpr (kExt) {
       const RowKinds kk = read_row_kinds<kExt>(knd + k * kKindWidth);
-      h = intersect_row<kPlates, kExt, kDiff, kFreeform>(tab + k * kRowWidth, kk, p, d,
-                                                         kFreeform ? ff_row_of(ffs, k) : nullptr);
+      h = intersect_row<kPlates, kExt, kDiff, kFreeform>(
+          tab + k * kRowWidth, kk, p, d, kFreeform && ffs != nullptr ? ff_row_of(ffs, k) : nullptr);
       if constexpr (kGrin) {
         // a backward ray never couples into a rod: its hit is a miss
         if (kk.ph == GRIN && !grin_fwd(tab + k * kRowWidth, d.x, d.y, d.z)) h.valid = false;
@@ -1472,15 +1591,20 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
     const float u = kw.ph == FRESNEL
                         ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
                         : 0.0f;
-    field_winner<kDispersion>(r, kw, d, world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph),
-                              hw.hs, pl, u, cside + k_win * kCoatSide, nd, imod, br, *fe);
+    const float fzw =
+        kFuzzy && fz != nullptr ? fuzzy_factor(fz, k_win, hw.hs.x, hw.hs.y, hw.hs.z) : 1.0f;
+    const int32_t* ffp = kFreeform && ffs != nullptr ? ff_row_of(ffs, k_win) : nullptr;
+    field_winner<kDispersion, kDiff, kFuzzy>(
+        r, kw, d, world_normal<kExt, kFreeform>(r, kw.plane, hw.hs, degen, kw.asph, ffp), hw.hs,
+        pl, u, cside + k_win * kCoatSide, fzw, nd, imod, br, *fe);
   } else if constexpr (kFreeform) {
     const float u = kw.ph == FRESNEL
                         ? philox_uniform(rd->key, rd->ray, rd->bounce, static_cast<uint32_t>(k_win))
                         : 0.0f;
     apply_physics<kPlates, kExt, kDispersion, true, true, kDiff>(
         r, kw.ph, kw.sb, kw.map, d,
-        world_normal<kExt, true>(r, kw.plane, hw.hs, degen, kw.asph, ff_row_of(ffs, k_win)),
+        world_normal<kExt, true>(r, kw.plane, hw.hs, degen, kw.asph,
+                                 ffs != nullptr ? ff_row_of(ffs, k_win) : nullptr),
         hw.hs, pl, nd, imod, br, kw.dispm, u, kw.coat, cside + k_win * kCoatSide);
   } else if constexpr (kCoat) {
     const float u = kw.ph == FRESNEL
@@ -1501,7 +1625,9 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
                                  world_normal<kExt>(r, kw.plane, hw.hs, degen, kw.asph), hw.hs, pl,
                                  nd, imod, br, kw.dispm);
   }
-  if constexpr (kFuzzy) imod = imod * fuzzy_factor(fz, k_win, hw.hs.x, hw.hs.y, hw.hs.z);
+  if constexpr (kFuzzy && !kField) {
+    if (fz != nullptr) imod = imod * fuzzy_factor(fz, k_win, hw.hs.x, hw.hs.y, hw.hs.z);
+  }
   p = fma3(p, best_t, d);
   d = nd;
   inten = inten * imod;

@@ -87,84 +87,82 @@
 // 16 B a row: ~220 B a ray on the 5-row bench scene with both records, ~380
 // B on the 11-row Cooke triplet.
 //
-// The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W; trace_seq_common.cuh::
-// fresnel_physics) run in one more instantiation, kFresnel, an overload
-// with one more argument (SeqDraws), built on the one with the streams
-// (which it takes too), so every other instantiation keeps its code.  A
-// FRESNEL row reads the ray's uniform from its stream of the [F][N] draws
-// the wrapper pre-draws from the caller's generator (the TPU kernel's
-// pre-drawn u_vals, one stream per FRESNEL row in row order): 4 B a ray and
-// FRESNEL row more to read.  A REFLECT_W row that a ray misses kills it
-// (intensity 0), as core/trace.py::_surface_step does; the TPU kernel's
-// chain omits the kill (ROADMAP Queue 3), and this one follows the eager
-// chain, so a ghost table (utils/ghosts.py) runs here too.
+// The families of kinds run in one more instantiation, the family
+// instantiation: an overload of the kernel with one more argument than the
+// streams' (FamSide: the families' side data and the runtime word `fam`
+// that says which families the table has, trace_seq_common.cuh), built on
+// the one with the streams, so every other instantiation keeps its code.
+// It compiles every family together, so a table may mix them (a GRIN rod
+// beside a coated lens and a DOE, as the TPU kernel's chain runs them); a
+// family the table lacks skips its block setup and passes a null buffer.
+// A table that the chain of family links took before the collapse (one
+// family, with the families the link was built on: the Fresnel kinds; the
+// coatings; the diffractive kinds; the fuzzy programs; GRIN rods alone)
+// runs the same overload instantiated for that link's family set (a
+// template argument, trace_seq_common.cuh::fam_link): carrying every
+// family's code, the family instantiation ran such tables 1.1-2.2x slower
+// (PERF.md, the collapse's A/B); freeform tables, which the last link took with
+// every family below it, and every mix run the family instantiation.
 //
-// Thin-film coatings and metal mirrors (coated FRESNEL, FRESNEL_W and
-// REFLECT_W rows, metal REFLECT rows; trace_seq_common.cuh, thin_film.cuh)
-// run in one more instantiation, kCoat, an overload with one more argument
-// (CoatSide, the [K][20] side buffer of the rows' static coating data,
-// copied into shared memory after the moment partials), built on the one
-// with the Fresnel kinds, so every other instantiation keeps its code.  Per
-// coated row and ray it evaluates the stack twice (s and p): per layer a
-// sin, a cos and ~30 flops (an absorbing layer adds a complex square root,
-// two complex divisions and two exp).
-//
-// The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows, the
-// ELLIPSE bound; trace_seq_common.cuh, diffractive.cuh) run in one more
-// instantiation, kDiff, an overload with one more argument (DiffKinds),
-// built on the one with the coatings (which it takes too, with its side
-// buffer), so every other instantiation keeps its code.  Each block writes
-// an ELLIPSE row's rotation's cosine and sine into its shared table once
-// (ellipse_rows); a DOE row's coefficients are read from the shared table,
-// its radial sum a loop of at most 8 terms.
-//
-// Fuzzy apodization runs in one more instantiation, kFuzzy, an overload
-// with one more argument (FuzzyProgs: the traced programs' int32 buffer,
-// ops/fuzzy_program.py::pack), built on the one with the diffractive kinds,
-// so every other instantiation keeps its code.  Each block copies the
-// buffer into shared memory after the side buffer; a row with a program
-// multiplies its factor by the program's value at the surface-frame hit
-// after its physics (fuzzy.cuh's interpreter: one dispatch an operation,
-// its register file in local memory), as _chain_pure multiplies imod by the
-// callable's value.
-//
-// Freeform surfaces (FreeformLens and ZernikeLens faces) run in one more
-// instantiation, kFreeform, an overload with one more argument (FfSide: the
-// rows' exponent pairs, ops/fused_trace.py::ff_side), built on the one with
-// the fuzzy programs, so every other instantiation keeps its code.  Each
-// block copies the side buffer into shared memory after the programs; a
-// freeform row refines both base-conic roots onto its sag by 8 Newton steps
-// and takes its normal from the sag's gradient (freeform.cuh), as
-// _chain_pure's intersect (:1567) does through raytracetorch_tpu/core/
-// intersect.py:69-79 and :149-156.
+// - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W; trace_seq_common.cuh::
+//   fresnel_physics): a FRESNEL row reads the ray's uniform from its stream
+//   of the [F][N] draws the wrapper pre-draws from the caller's generator
+//   (the TPU kernel's pre-drawn u_vals, one stream per FRESNEL row in row
+//   order): 4 B a ray and FRESNEL row more to read.  A REFLECT_W row that a
+//   ray misses kills it (intensity 0), as core/trace.py::_surface_step does;
+//   the TPU kernel's chain omits the kill (ROADMAP Queue 3), and this one
+//   follows the eager chain, so a ghost table (utils/ghosts.py) runs here
+//   too.
+// - Thin-film coatings and metal mirrors (coated FRESNEL, FRESNEL_W and
+//   REFLECT_W rows, metal REFLECT rows; trace_seq_common.cuh,
+//   thin_film.cuh): the [K][20] side buffer of the rows' static coating
+//   data is copied into shared memory after the moment partials.  Per
+//   coated row and ray the stack is evaluated twice (s and p): per layer a
+//   sin, a cos and ~30 flops (an absorbing layer adds a complex square root,
+//   two complex divisions and two exp).
+// - The diffractive and ideal elements (LINEAR, GRATING, DOE and MLA rows,
+//   the ELLIPSE bound; trace_seq_common.cuh, diffractive.cuh): each block
+//   writes an ELLIPSE row's rotation's cosine and sine into its shared table
+//   once (ellipse_rows); a DOE row's coefficients are read from the shared
+//   table, its radial sum a loop of at most 8 terms.
+// - Fuzzy apodization: each block copies the traced programs' int32 buffer
+//   (ops/fuzzy_program.py::pack) into shared memory after the side buffer;
+//   a row with a program multiplies its factor by the program's value at
+//   the surface-frame hit after its physics (fuzzy.cuh's interpreter: one
+//   dispatch an operation, its register file in local memory), as
+//   _chain_pure multiplies imod by the callable's value.
+// - Freeform surfaces (FreeformLens and ZernikeLens faces): each block
+//   copies the rows' exponent pairs (ops/fused_trace.py::ff_side) into
+//   shared memory after the programs; a freeform row refines both
+//   base-conic roots onto its sag by 8 Newton steps and takes its normal
+//   from the sag's gradient (freeform.cuh), as _chain_pure's intersect
+//   (:1567) does through raytracetorch_tpu/core/intersect.py:69-79 and
+//   :149-156.
+// - GRIN rods (grin.cuh): a rod's data ride its flat row and its RK4 step
+//   count its kinds row's last column.  A GRIN row's active rays (valid,
+//   intensity > 0, travelling +z in the rod's frame) run the whole rod, out
+//   of line (grin_rod): the entry coupling, the RK4 steps, the exit
+//   coupling; the ray lands at the exit face, its intensity times 1 or 0,
+//   the path length adds n_cur t + the in-medium path and the medium
+//   becomes the ambient index; the records take the exit-face position as
+//   the row's position and hit, with weight 0 (_chain_pure :1569-1604).
 //
 // The polarized field (track_field) runs in one more instantiation, kField,
 // an overload with one more argument (FieldIO: the launch field and the
 // final field, [6][N] planar: the real parts of x, y, z, then the imaginary
-// ones), built on the one with freeform surfaces, so every other
-// instantiation keeps its code.  Each thread carries its ray's six field
-// floats through the rows: the Fresnel kinds, bare or coated, draw and weigh
-// with the polarized reflectance (and an absorbing stack's transmittance)
-// of the incoming field (trace_seq_common.cuh::fresnel_physics with
-// kField), a metal mirror weighs by its polarized R (field_physics), a
-// sensor row's moments and grid take w * |E|^2, and an active row
-// transports the field (field.cuh::field_transport; a coated interface and
-// a metal mirror with their stacks' amplitudes, from the one evaluation per
-// polarization, thin_film.cuh::stack_field, that the draw or weight read).
-// It reads and writes 48 B a ray more than the instantiation below it.
-//
-// GRIN rods (grin.cuh) run in one more instantiation, kGrin, an overload
-// with one more argument (GrinRows, a tag: a rod's data ride its flat row
-// and its RK4 step count its kinds row's last column), built on the one
-// with the streams alone (the Fresnel kinds and every flag built on them
-// stay off: the wrapper refuses them beside a rod, ROADMAP Queue 1 position
-// 3c), so every other instantiation keeps its code.  A GRIN row's active
-// rays (valid, intensity > 0, travelling +z in the rod's frame) run the
-// whole rod, out of line (grin_rod): the entry coupling, the RK4 steps, the
-// exit coupling; the ray lands at the exit face, its intensity times 1 or
-// 0, the path length adds n_cur t + the in-medium path and the medium
-// becomes the ambient index; the records take the exit-face position as
-// the row's position and hit, with weight 0 (_chain_pure :1569-1604).
+// ones), which compiles every family but GRIN rods (the field through a rod
+// is not in the kernels yet: the wrapper refuses it, ROADMAP Queue 1
+// position 4b), so every other instantiation keeps its code.  Each thread
+// carries its ray's six field floats through the rows: the Fresnel kinds,
+// bare or coated, draw and weigh with the polarized reflectance (and an
+// absorbing stack's transmittance) of the incoming field
+// (trace_seq_common.cuh::fresnel_physics with kField), a metal mirror
+// weighs by its polarized R (field_physics), a sensor row's moments and
+// grid take w * |E|^2, and an active row transports the field
+// (field.cuh::field_transport; a coated interface and a metal mirror with
+// their stacks' amplitudes, from the one evaluation per polarization,
+// thin_film.cuh::stack_field, that the draw or weight read).  It reads and
+// writes 48 B a ray more than the family instantiation.
 //
 // Numerics: fp32 throughout, built without --use_fast_math, so sqrt and
 // division are IEEE-rounded and denormals are kept, which the epsilon rules
@@ -197,17 +195,15 @@ __host__ __device__ constexpr int seq_fwd_min_blocks() {
 }
 
 // The dynamic shared memory of a launch: the flat table, its kinds (16-byte
-// aligned after it), the per-warp moment partials, with `coat` (the
-// instantiation with the coatings) the side buffer, with the fuzzy
-// programs their `fuzzy_words` words, and with `freeform` the rows'
-// exponent pairs.
-size_t shared_bytes(int n_rows, int n_slots, int n_bundles, bool coat = false,
-                    int fuzzy_words = 0, bool freeform = false) {
+// aligned after it), the per-warp moment partials and, in the family and
+// field instantiations, the side data of the families `fs` has: the side
+// buffer, the fuzzy programs' words and the rows' exponent pairs.
+size_t shared_bytes(int n_rows, int n_slots, int n_bundles, const FamSide& fs = {}) {
   return sizeof(float) * (static_cast<size_t>(n_rows) * (kRowWidth + kKindWidth) +
                           static_cast<size_t>(kWarps) * n_slots * n_bundles * kMoments +
-                          (coat ? static_cast<size_t>(n_rows) * kCoatSide : 0) +
-                          static_cast<size_t>(fuzzy_words) +
-                          (freeform ? static_cast<size_t>(n_rows) * kFfSide : 0));
+                          static_cast<size_t>(fam_coat_words(fs, n_rows)) +
+                          static_cast<size_t>(fam_fuzzy_words(fs)) +
+                          static_cast<size_t>(fam_ff_words(fs, n_rows)));
 }
 
 // A row's kinds from its 8 ints in shared memory, 16-byte aligned: two
@@ -241,47 +237,11 @@ __device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
   return c;
 }
 
-// The FRESNEL rows' uniforms (kFresnel): n_draws streams of n floats, one
-// per FRESNEL row in row order.
-struct SeqDraws {
-  const float* u;
-  int n_draws;
-};
-
-// The coated rows' side buffer (kCoat): [K][kCoatSide] floats, the layers'
-// extinction and a dispersive metal's knots (ops/fused_trace.py::coat_side).
-struct CoatSide {
-  const float* side;
-};
-
-// The instantiation with the diffractive kinds (kDiff): its overload's tag
-// (its rows' data ride the table and the kinds).
-struct DiffKinds {
-  int unused;
-};
-
-// The fuzzy programs (kFuzzy): n_words int32 words (fuzzy.cuh's layout).
-struct FuzzyProgs {
-  const int32_t* words;
-  int n_words;
-};
-
-// The freeform rows' exponent pairs (kFreeform): [K][kFfSide] int32 words
-// (freeform.cuh's layout).
-struct FfSide {
-  const int32_t* pw;
-};
-
 // The field (kField): the launch field `in` and the final field `out`,
 // [6][n] floats each (Er x, y, z, then Ei x, y, z).
 struct FieldIO {
   const float* in;
   float* out;
-};
-
-// The instantiation with GRIN rods (kGrin): its overload's tag.
-struct GrinRows {
-  int unused;
 };
 
 // The kernel's body, shared by its instantiations (the kernels below).  With
@@ -291,20 +251,20 @@ struct GrinRows {
 // streams of `so` that are not null: the position after each row, and each
 // row's raw surface-frame hit (every ray's, active or not) with the
 // intensity after the row as its weight where the row is active (0 else).
-// With kFresnel (which has kStreams) it also runs the Fresnel kinds, a
-// FRESNEL row reading the ray's uniform from the next stream of `dr`, and a
-// REFLECT_W row kills the rays it does not hold.  With kCoat (which has
-// kFresnel) coated and metal rows weigh by their stacks, reading their rows
-// of `cs`, copied into shared memory.  With kDiff (which has kCoat) the
-// diffractive and ideal kinds and the ELLIPSE bound.  With kFuzzy (which has
-// kDiff) the rows with a program in `fp` (copied into shared memory after
-// the side buffer) multiply their factor by its value at the hit.  With
-// kFreeform (which has kFuzzy) the freeform rows of `ff` (copied into shared
-// memory after the programs) refine their roots onto their sags.  With
-// kField (which has kFreeform) each ray carries its field from `fio.in`
-// (field_physics, the |E|^2 weights, field_transport) to `fio.out`.  With
-// kGrin (which has kStreams and none of kFresnel and the flags built on it)
-// a GRIN row's active rays run the rod (grin_row).
+// The family flags (each with kStreams) compile a family of kinds in, and
+// the runtime word fs.fam says which of them the table has
+// (trace_seq_common.cuh): with kFresnel the Fresnel kinds, a FRESNEL row
+// reading the ray's uniform from the next stream of fs.u, and a REFLECT_W
+// row kills the rays it does not hold; with kCoat coated and metal rows
+// weigh by their stacks, reading their rows of fs.coat, copied into shared
+// memory; with kDiff the diffractive and ideal kinds and the ELLIPSE bound;
+// with kFuzzy the rows with a program in fs.fuzzy (copied into shared
+// memory after the side buffer) multiply their factor by its value at the
+// hit; with kFreeform the freeform rows of fs.ff (copied into shared memory
+// after the programs) refine their roots onto their sags; with kGrin a GRIN
+// row's active rays run the rod (grin_row).  With kField (which has every
+// family flag but kGrin) each ray carries its field from `fio.in`
+// (field_physics, the |E|^2 weights, field_transport) to `fio.out`.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
           bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false,
           bool kGrin = false>
@@ -318,16 +278,16 @@ __device__ __forceinline__ void seq_fwd(
     float* __restrict__ ointensity, float* __restrict__ partials, int n_slots, int n_bundles,
     float* __restrict__ grid, int grid_h, int grid_w, float grid_e,
     const float* __restrict__ maps, const int32_t* __restrict__ map_desc,
-    const float* __restrict__ wavelength, long long n, StreamOut so,
-    SeqDraws dr = {nullptr, 0}, CoatSide cs = {nullptr}, FuzzyProgs fp = {nullptr, 0},
-    FfSide ff = {nullptr}, FieldIO fio = {nullptr, nullptr}) {
+    const float* __restrict__ wavelength, long long n, StreamOut so, FamSide fs = {},
+    FieldIO fio = {nullptr, nullptr}) {
   static_assert(kStreams || !kFresnel, "the Fresnel kinds run with the streams");
   static_assert(kFresnel || !kCoat, "the coatings run with the Fresnel kinds");
   static_assert(kCoat || !kDiff, "the diffractive kinds run with the coatings");
   static_assert(kDiff || !kFuzzy, "the fuzzy programs run with the diffractive kinds");
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
-  static_assert(!kGrin || (kStreams && !kFresnel), "GRIN rods run with the streams alone");
+  static_assert(!kGrin || kStreams, "GRIN rods run with the streams");
+  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -336,8 +296,10 @@ __device__ __forceinline__ void seq_fwd(
   const int n_mom = n_slots * n_bundles * kMoments;
   float* cside = warp_mom + kWarps * n_mom;  // kCoat: the side buffer
   // kFuzzy: the programs, after the side buffer
-  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? n_rows * kCoatSide : 0));
-  int32_t* ffs = fzs + (kFuzzy ? fp.n_words : 0);  // kFreeform: the pairs
+  int32_t* fzs = reinterpret_cast<int32_t*>(cside + (kCoat ? fam_coat_words(fs, n_rows) : 0));
+  int32_t* ffs = fzs + (kFuzzy ? fam_fuzzy_words(fs) : 0);  // kFreeform: the pairs
+  const bool fuzzy = kFuzzy && (fs.fam & kFamFuzzy);
+  const bool freeform = kFreeform && (fs.fam & kFamFreeform);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -380,18 +342,20 @@ __device__ __forceinline__ void seq_fwd(
   for (int j = tid; j < n_rows * kKindWidth; j += kThreads) knd[j] = kinds[j];
   for (int j = tid; j < kWarps * n_mom; j += kThreads) warp_mom[j] = 0.0f;
   if constexpr (kCoat) {
-    for (int j = tid; j < n_rows * kCoatSide; j += kThreads) cside[j] = cs.side[j];
+    for (int j = tid; j < fam_coat_words(fs, n_rows); j += kThreads) cside[j] = fs.coat[j];
   }
   if constexpr (kFuzzy) {
-    for (int j = tid; j < fp.n_words; j += kThreads) fzs[j] = fp.words[j];
+    for (int j = tid; j < fam_fuzzy_words(fs); j += kThreads) fzs[j] = fs.fuzzy[j];
   }
   if constexpr (kFreeform) {
-    for (int j = tid; j < n_rows * kFfSide; j += kThreads) ffs[j] = ff.pw[j];
+    for (int j = tid; j < fam_ff_words(fs, n_rows); j += kThreads) ffs[j] = fs.ff[j];
   }
   __syncthreads();
   if constexpr (kDiff) {
-    ellipse_rows(tab, knd, n_rows, tid, kThreads);
-    __syncthreads();
+    if (fs.fam & kFamDiff) {  // uniform across the block
+      ellipse_rows(tab, knd, n_rows, tid, kThreads);
+      __syncthreads();
+    }
   }
 
   int f = 0;  // kFresnel: the next FRESNEL row's stream
@@ -422,7 +386,7 @@ __device__ __forceinline__ void seq_fwd(
         continue;
       }
     }
-    const int32_t* ffp = kFreeform ? ff_row_of(ffs, k) : nullptr;
+    const int32_t* ffp = freeform ? ff_row_of(ffs, k) : nullptr;
     const RowHit h = intersect_row<kPlates, kExt, kDiff, kFreeform>(r, kd, p, d, ffp);
     const V3 nw = world_normal<kExt, kFreeform>(r, kd.plane, h.hs, nullptr, kd.asph, ffp);
     V3 nd;
@@ -432,7 +396,7 @@ __device__ __forceinline__ void seq_fwd(
     if constexpr (kFresnel) {
       float u = 0.0f;
       if (kd.ph == FRESNEL) {  // warp-uniform
-        if (live && f < dr.n_draws) u = dr.u[static_cast<long long>(f) * n + i];
+        if (live && f < fs.n_draws) u = fs.u[static_cast<long long>(f) * n + i];
         ++f;
       }
       if constexpr (kField)
@@ -443,7 +407,7 @@ __device__ __forceinline__ void seq_fwd(
                                                                h.hs, pl, nd, imod, &br, kd.dispm,
                                                                u, kd.coat,
                                                                cside + k * kCoatSide);
-      if constexpr (kFuzzy) imod = imod * fuzzy_factor(fzs, k, h.hs.x, h.hs.y, h.hs.z);
+      if (fuzzy) imod = imod * fuzzy_factor(fzs, k, h.hs.x, h.hs.y, h.hs.z);
     } else if constexpr (kStreams)
       apply_physics<kPlates, kExt>(r, kd.ph, kd.sb, kd.map, d, nw, h.hs, pl, nd, imod, &br,
                                    kd.dispm);
@@ -583,115 +547,53 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so) {
   seq_fwd<kPlates, kExt, true>(RTT_SEQ_FWD_ARGS, so);
 }
 
-// The kernel with the streams and the Fresnel kinds.
-template <bool kPlates, bool kExt>
+// The family instantiation (kFams = kFamAll; kFamGrin for GRIN rods alone):
+// the streams and the families of kFams, which the table has reading
+// fs.fam.
+template <bool kPlates, bool kExt, uint32_t kFams = kFamAll>
 __global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr) {
-  static_assert(kPlates && kExt, "the Fresnel kinds run with the extended kinds");
-  seq_fwd<kPlates, kExt, true, true>(RTT_SEQ_FWD_ARGS, so, dr);
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, FamSide fs) {
+  static_assert(kPlates && kExt, "the families run with the extended kinds");
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  seq_fwd<kPlates, kExt, true, kF, kC, kD, kZ, kFF, false,
+          fam_has(kFams, kFamGrin)>(RTT_SEQ_FWD_ARGS, so, fs);
 }
 
-// The kernel with the streams, the Fresnel kinds and the coatings.
-template <bool kPlates, bool kExt>
+// The field's instantiation: the streams, the families of kFams (every
+// family but GRIN rods) and the field.
+template <bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs) {
-  static_assert(kPlates && kExt, "the coatings run with the extended kinds");
-  seq_fwd<kPlates, kExt, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings and the
-// diffractive kinds.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds) {
-  static_assert(kPlates && kExt, "the diffractive kinds run with the extended kinds");
-  seq_fwd<kPlates, kExt, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings, the
-// diffractive kinds and the fuzzy programs.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds,
-                     FuzzyProgs fp) {
-  static_assert(kPlates && kExt, "the fuzzy programs run with the extended kinds");
-  seq_fwd<kPlates, kExt, true, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs, fp);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings, the
-// diffractive kinds, the fuzzy programs and the freeform surfaces.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds,
-                     FuzzyProgs fp, FfSide ff) {
-  static_assert(kPlates && kExt, "the freeform surfaces run with the extended kinds");
-  seq_fwd<kPlates, kExt, true, true, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs, fp,
-                                                             ff);
-}
-
-// The kernel with the streams, the Fresnel kinds, the coatings, the
-// diffractive kinds, the fuzzy programs, the freeform surfaces and the field.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, SeqDraws dr, CoatSide cs, DiffKinds,
-                     FuzzyProgs fp, FfSide ff, FieldIO fio) {
+trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, FamSide fs, FieldIO fio) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
-  seq_fwd<kPlates, kExt, true, true, true, true, true, true, true>(RTT_SEQ_FWD_ARGS, so, dr, cs,
-                                                                   fp, ff, fio);
+  constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
+  constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
+  constexpr bool kFF = fam_has(kFams, kFamFreeform);
+  seq_fwd<kPlates, kExt, true, kF, kC, kD, kZ, kFF, true>(RTT_SEQ_FWD_ARGS, so, fs, fio);
 }
 
-// The kernel with the streams and GRIN rods.
-template <bool kPlates, bool kExt>
-__global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
-trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, GrinRows) {
-  static_assert(kPlates && kExt, "GRIN rods run with the extended kinds");
-  seq_fwd<kPlates, kExt, true, false, false, false, false, false, false, true>(RTT_SEQ_FWD_ARGS,
-                                                                               so);
-}
-
-// The types of the nine kernels.
+// The types of the five kernels.
 using FwdKernel = void (*)(RTT_SEQ_FWD_PARAMS);
 using FwdStreamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut);
-using FwdFresnelKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws);
-using FwdCoatKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide);
-using FwdDiffKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds);
-using FwdFuzzyKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
-                                FuzzyProgs);
-using FwdFreeformKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
-                                   FuzzyProgs, FfSide);
-using FwdFieldKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, SeqDraws, CoatSide, DiffKinds,
-                                FuzzyProgs, FfSide, FieldIO);
-using FwdGrinKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, GrinRows);
+using FwdFamKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, FamSide);
+using FwdFieldKernel = void (*)(RTT_SEQ_FWD_PARAMS, StreamOut, FamSide, FieldIO);
 
 #undef RTT_SEQ_FWD_PARAMS
 #undef RTT_SEQ_FWD_ARGS
 
-// The kernel of an instantiation.
-template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
-          bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false,
-          bool kGrin = false>
+// The kernel of an instantiation: without the streams (kPlates, kExt), with
+// them (kStreams), the family instantiation of the families kFams or the
+// field's (kField).
+template <bool kPlates, bool kExt, bool kStreams = false, uint32_t kFams = 0u,
+          bool kField = false>
 const void* kernel_fn() {
-  if constexpr (kGrin)
+  if constexpr (kField)
     return reinterpret_cast<const void*>(
-        static_cast<FwdGrinKernel>(trace_seq_fwd_kernel<true, true>));
-  else if constexpr (kField)
+        static_cast<FwdFieldKernel>(trace_seq_fwd_kernel<true, true, kFams>));
+  else if constexpr (kFams != 0u)
     return reinterpret_cast<const void*>(
-        static_cast<FwdFieldKernel>(trace_seq_fwd_kernel<true, true>));
-  else if constexpr (kFreeform)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdFreeformKernel>(trace_seq_fwd_kernel<true, true>));
-  else if constexpr (kFuzzy)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdFuzzyKernel>(trace_seq_fwd_kernel<true, true>));
-  else if constexpr (kDiff)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdDiffKernel>(trace_seq_fwd_kernel<true, true>));
-  else if constexpr (kCoat)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdCoatKernel>(trace_seq_fwd_kernel<true, true>));
-  else if constexpr (kFresnel)
-    return reinterpret_cast<const void*>(
-        static_cast<FwdFresnelKernel>(trace_seq_fwd_kernel<true, true>));
+        static_cast<FwdFamKernel>(trace_seq_fwd_kernel<true, true, kFams>));
   else if constexpr (kStreams)
     return reinterpret_cast<const void*>(
         static_cast<FwdStreamKernel>(trace_seq_fwd_kernel<true, true>));
@@ -701,13 +603,11 @@ const void* kernel_fn() {
 }
 
 // Allow the instantiation its shared memory (beyond 48 KB only on request).
-template <bool kPlates, bool kExt, bool kStreams = false, bool kFresnel = false,
-          bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
-          bool kField = false, bool kGrin = false>
+template <bool kPlates, bool kExt, bool kStreams = false, uint32_t kFams = 0u,
+          bool kField = false>
 cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFresnel, kCoat, kDiff, kFuzzy,
-                                        kFreeform, kField, kGrin>(),
+  return cudaFuncSetAttribute(kernel_fn<kPlates, kExt, kStreams, kFams, kField>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -728,40 +628,20 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 }
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
-// it and the extended kinds, 4 the one with the streams, 5 the one with the
-// Fresnel kinds, 6 the one with the coatings, 7 the one with the diffractive
-// kinds, 8 the one with the fuzzy programs, 9 the one with the freeform
-// surfaces, 10 the one with the field, 11 the one with GRIN rods), its
-// shared memory allowed.
-const void* kernel_of(int code, size_t smem, cudaError_t* e) {
-  if (code == 11) {
-    *e = prepare<true, true, true, false, false, false, false, false, false, true>(smem);
-    return kernel_fn<true, true, true, false, false, false, false, false, false, true>();
-  }
-  if (code == 10) {
-    *e = prepare<true, true, true, true, true, true, true, true, true>(smem);
-    return kernel_fn<true, true, true, true, true, true, true, true, true>();
-  }
-  if (code == 9) {
-    *e = prepare<true, true, true, true, true, true, true, true>(smem);
-    return kernel_fn<true, true, true, true, true, true, true, true>();
-  }
-  if (code == 8) {
-    *e = prepare<true, true, true, true, true, true, true>(smem);
-    return kernel_fn<true, true, true, true, true, true, true>();
-  }
-  if (code == 7) {
-    *e = prepare<true, true, true, true, true, true>(smem);
-    return kernel_fn<true, true, true, true, true, true>();
-  }
+// it and the extended kinds, 4 the one with the streams, 5 the family
+// instantiation for the families `fam`, 6 the field's), its shared memory
+// allowed.
+const void* kernel_of(int code, uint32_t fam, size_t smem, cudaError_t* e) {
   if (code == 6) {
-    *e = prepare<true, true, true, true, true>(smem);
-    return kernel_fn<true, true, true, true, true>();
+    *e = prepare<true, true, true, kFamField, true>(smem);
+    return kernel_fn<true, true, true, kFamField, true>();
   }
-  if (code == 5) {
-    *e = prepare<true, true, true, true>(smem);
-    return kernel_fn<true, true, true, true>();
-  }
+  if (code == 5)
+    return with_fam_link(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      *e = prepare<true, true, true, kFams>(smem);
+      return kernel_fn<true, true, true, kFams>();
+    });
   if (code == 4) {
     *e = prepare<true, true, true>(smem);
     return kernel_fn<true, true, true>();
@@ -776,6 +656,29 @@ const void* kernel_of(int code, size_t smem, cudaError_t* e) {
   }
   *e = prepare<false, false>(smem);
   return kernel_fn<false, false, false>();
+}
+
+// The side data of a family or field launch from its C arguments, checked:
+// -> cudaSuccess or cudaErrorInvalidValue.  Each buffer is given exactly
+// when its family's bit is set (the uniforms also with no FRESNEL row that
+// draws: null with n_draws 0), the programs with n_rows to kFuzzyMaxWords
+// words.
+cudaError_t fam_side(const float* uniforms, int n_draws, const float* coat_side,
+                     const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side,
+                     unsigned fam, int n_rows, FamSide* fs) {
+  if (fam & ~(kFamFresnel | kFamCoat | kFamDiff | kFamFuzzy | kFamFreeform | kFamGrin))
+    return cudaErrorInvalidValue;
+  if ((coat_side != nullptr) != ((fam & kFamCoat) != 0) ||
+      (fuzzy != nullptr) != ((fam & kFamFuzzy) != 0) ||
+      (ff_side != nullptr) != ((fam & kFamFreeform) != 0))
+    return cudaErrorInvalidValue;
+  if (fuzzy != nullptr && (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
+    return cudaErrorInvalidValue;
+  if (n_draws < 0 || (n_draws > 0 && (uniforms == nullptr || !(fam & kFamFresnel))))
+    return cudaErrorInvalidValue;
+  *fs = FamSide{uniforms, n_draws, PhiloxKey{0u, 0u}, coat_side, fuzzy,
+                fuzzy == nullptr ? 0 : fuzzy_words, ff_side, fam};
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -828,18 +731,17 @@ extern "C" int rtt_trace_seq_fwd(const float* table, const int32_t* kinds, int n
 // must be given, a PHASE_GRID row or not), then the stream outputs, each
 // null when not wanted: `opl` and `n_final` (n floats each), `paths`
 // ((n_rows + 1) * 3 * n floats), `hits` (n_rows * 3 * n) and `hit_w`
-// (n_rows * n, given with `hits`).  `fresnel` nonzero selects the
-// instantiation with the Fresnel kinds, which reads `uniforms`, the FRESNEL
-// rows' n_draws * n floats ([F][n], one stream per FRESNEL row in row order;
-// null with n_draws 0 when no row draws); without it both are ignored.
-// `coat_side`, when not null, selects the instantiation with the coatings
-// (which also takes the Fresnel kinds and reads `uniforms` so): the
-// n_rows * 20 floats of ops/fused_trace.py::coat_side; with it, `diff`
-// nonzero selects the one with the diffractive kinds, and with that `fuzzy`,
-// when not null, the one with the fuzzy programs: its `fuzzy_words` int32
-// words (n_rows to kFuzzyMaxWords; fuzzy.cuh); with that `ff_side`, when not
-// null, the one with the freeform surfaces: the rows' n_rows * kFfSide
-// int32 words of exponent pairs (freeform.cuh).  Returns a cudaError_t.
+// (n_rows * n, given with `hits`), then the families: `fam` nonzero (kFam*
+// bits, the families the table has) selects the family instantiation,
+// which reads `uniforms`, the FRESNEL rows' n_draws * n floats ([F][n], one
+// stream per FRESNEL row in row order; null with n_draws 0 when no row
+// draws), `coat_side`, the n_rows * 20 floats of ops/fused_trace.py::
+// coat_side (with kFamCoat), `fuzzy`, the programs' `fuzzy_words` int32
+// words (n_rows to kFuzzyMaxWords; fuzzy.cuh; with kFamFuzzy), and
+// `ff_side`, the rows' n_rows * kFfSide int32 words of exponent pairs
+// (freeform.cuh; with kFamFreeform), each null where its family's bit is
+// clear.  A GRIN row's RK4 step count (1..kMaxGrinSteps) is its kinds
+// row's last column.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_streams(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -847,58 +749,51 @@ extern "C" int rtt_trace_seq_fwd_streams(
     float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, const float* uniforms, int n_draws, int fresnel, const float* coat_side,
-    int diff, const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, long long n,
+    float* hit_w, const float* uniforms, int n_draws, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam, long long n,
     void* stream) {
   if (n <= 0) return 0;
-  if (diff && coat_side == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (ff_side != nullptr && fuzzy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy != nullptr && (!diff || fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy == nullptr) fuzzy_words = 0;
-  if (coat_side != nullptr) fresnel = 1;
+  FamSide fs;
+  cudaError_t e = fam_side(uniforms, n_draws, coat_side, fuzzy, fuzzy_words, ff_side, fam,
+                           n_rows, &fs);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (fresnel && (n_draws < 0 || (n_draws > 0 && uniforms == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, coat_side != nullptr,
-                                  fuzzy_words, ff_side != nullptr);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, fs);
   const StreamOut so = {opl, n_final, paths, hits, hit_w, nullptr};
-  // one launch for the six instantiations: the Fresnel kernel's overload
-  // takes the draws as its last argument, the coated one the draws and the
-  // side buffer, the diffractive one those and its tag, the fuzzy one those
-  // and the programs, the freeform one those and the exponent pairs
-  auto go = [&](auto... draws) {
-    const cudaError_t e =
-        prepare<true, true, true, sizeof...(draws) != 0, sizeof...(draws) >= 2,
-                sizeof...(draws) >= 3, sizeof...(draws) >= 4, sizeof...(draws) == 5>(smem);
+  const unsigned g = static_cast<unsigned>(blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fam == 0) {
+    e = prepare<true, true, true>(smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    trace_seq_fwd_kernel<true, true>
-        <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-            table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
-            ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
-            maps, map_desc, wavelength, n, so, draws...);
-    return static_cast<int>(cudaGetLastError());
-  };
-  if (ff_side != nullptr)
-    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side});
-  if (fuzzy != nullptr)
-    return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
-              FuzzyProgs{fuzzy, fuzzy_words});
-  if (diff) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0});
-  if (coat_side != nullptr) return go(SeqDraws{uniforms, n_draws}, CoatSide{coat_side});
-  return fresnel ? go(SeqDraws{uniforms, n_draws}) : go();
+    trace_seq_fwd_kernel<true, true><<<g, kThreads, smem, s>>>(
+        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx, ody,
+        odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+        map_desc, wavelength, n, so);
+  } else {
+    // the instantiation of the families' set (fam_link)
+    e = with_fam_link(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      const cudaError_t e2 = prepare<true, true, true, kFams>(smem);
+      if (e2 != cudaSuccess) return e2;
+      trace_seq_fwd_kernel<true, true, kFams><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
+          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
+          map_desc, wavelength, n, so, fs);
+      return cudaSuccess;
+    });
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_seq_fwd_streams, whose `coat_side`, `diff`, `fuzzy` and
-// `ff_side` must all be given (the field runs with the freeform surfaces),
-// then `field_in`, the launch field, and `field_out`, the final field (6 * n
+// rtt_trace_seq_fwd_streams (whose `fam` must not hold kFamGrin), then
+// `field_in`, the launch field, and `field_out`, the final field (6 * n
 // floats each, [6][n]: Er x, y, z, then Ei x, y, z).  Returns a
 // cudaError_t.
 extern "C" int rtt_trace_seq_fwd_field(
@@ -908,67 +803,31 @@ extern "C" int rtt_trace_seq_fwd_field(
     float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
     int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
     const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, const float* uniforms, int n_draws, int fresnel, const float* coat_side,
-    int diff, const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side,
+    float* hit_w, const float* uniforms, int n_draws, const float* coat_side,
+    const int32_t* fuzzy, int fuzzy_words, const int32_t* ff_side, unsigned fam,
     const float* field_in, float* field_out, long long n, void* stream) {
-  (void)fresnel;
   if (n <= 0) return 0;
-  if (coat_side == nullptr || !diff || fuzzy == nullptr || ff_side == nullptr ||
-      field_in == nullptr || field_out == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (fuzzy_words < n_rows || fuzzy_words > kFuzzyMaxWords)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_draws < 0 || (n_draws > 0 && uniforms == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, true, fuzzy_words, true);
-  const cudaError_t e = prepare<true, true, true, true, true, true, true, true, true>(smem);
+  FamSide fs;
+  cudaError_t e = fam_side(uniforms, n_draws, coat_side, fuzzy, fuzzy_words, ff_side, fam,
+                           n_rows, &fs);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_seq_fwd_kernel<true, true>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
-          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
-          map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr},
-          SeqDraws{uniforms, n_draws}, CoatSide{coat_side}, DiffKinds{0},
-          FuzzyProgs{fuzzy, fuzzy_words}, FfSide{ff_side}, FieldIO{field_in, field_out});
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches the instantiation with GRIN rods on `stream`: the arguments of
-// rtt_trace_seq_fwd_streams up to `hit_w` (its `ext` implied: `maps`,
-// `map_desc` and `wavelength` must be given), each stream output null when
-// not wanted.  A GRIN row's RK4 step count (1..kMaxGrinSteps) is its kinds
-// row's last column.  Returns a cudaError_t.
-extern "C" int rtt_trace_seq_fwd_grin(
-    const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
-    const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
-    const int32_t* ray_id, float* opx, float* opy, float* opz, float* odx, float* ody,
-    float* odz, float* ointensity, float* partials, int n_slots, int n_bundles, float* grid,
-    int grid_h, int grid_w, float grid_e, const float* maps, const int32_t* map_desc,
-    const float* wavelength, float* opl, float* n_final, float* paths, float* hits,
-    float* hit_w, long long n, void* stream) {
-  if (n <= 0) return 0;
+  if ((fam & kFamGrin) || field_in == nullptr || field_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles);
-  const cudaError_t e =
-      prepare<true, true, true, false, false, false, false, false, false, true>(smem);
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, fs);
+  e = prepare<true, true, true, kFamField, true>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_seq_fwd_kernel<true, true>
+  trace_seq_fwd_kernel<true, true, kFamField>
       <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
           ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
-          map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr},
-          GrinRows{0});
+          map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr}, fs,
+          FieldIO{field_in, field_out});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -978,20 +837,18 @@ extern "C" int rtt_trace_seq_fwd_grin(
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `code`: 0 without plate
 // code, 1 with it, 2 (or 3, as K2's code for a table with a dispersive row)
 // with it and the extended kinds, 4 the instantiation with the streams, 5
-// the one with the Fresnel kinds, 6 the one with the coatings, 7 the one
-// with the diffractive kinds, 8 the one with the fuzzy programs (of
-// `fuzzy_words` words), 9 the one with the freeform surfaces (and programs
-// of `fuzzy_words` words), 10 the one with the field (likewise), 11 the one
-// with GRIN rods.  Returns a cudaError_t.
+// the family instantiation, 6 the field's, these two with the families
+// `fam` (kFam* bits) and programs of `fuzzy_words` words.  Returns a
+// cudaError_t.
 extern "C" int rtt_trace_seq_fwd_occupancy(int n_rows, int n_slots, int n_bundles,
                                            int n_bounces, int code, int fuzzy_words,
-                                           int* blocks) {
+                                           unsigned fam, int* blocks) {
   (void)n_bounces;
-  const bool side = code >= 6 && code <= 10;
-  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, side,
-                                   side && code >= 8 ? fuzzy_words : 0, side && code >= 9);
+  const FamSide fs = {nullptr, 0, PhiloxKey{0u, 0u}, nullptr, nullptr, fuzzy_words, nullptr,
+                      code >= 5 ? fam : 0u};
+  const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, fs);
   cudaError_t e;
-  const void* fn = kernel_of(code, smem, &e);
+  const void* fn = kernel_of(code, fs.fam, smem, &e);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem));

@@ -39,56 +39,43 @@ The kernels' notes are in their sources.  In this module:
   ``n_final``, or on a recording run the eager bounce loop under autograd
   (``fused_trace.plain_vjp``), as the reference's ``_fused_nonseq_bwd``
   recomputes through its XLA trace.
-- The Fresnel kinds run K5's and K6's instantiation with them
-  (``fused_trace.fresnel_kinds``; ``fused_trace.FRESNEL_LAUNCHES``).
-  FRESNEL draws the counter-based Philox value of (ray, bounce, row) under
-  the trace's two seed words (drawn once from the caller's ``generator``:
-  rays/draws.py), in K5, K6's replay and the plain versions
-  alike, so K6 replays K5's branches by their counters.  As the
+- The families of kinds (``fused_trace.families``: the Fresnel kinds,
+  coatings and metal mirrors, the diffractive and ideal elements, fuzzy
+  apodization, freeform surfaces, GRIN rods) run K5's and K6's family
+  instantiation, which compiles them together, so a Scene may mix them (a
+  table of one family runs its chain link, as in ops/fused_trace.py);
+  each launch passes the table's families as a bit word and each family's
+  side data (``side_buffers``, None where the table lacks the family), and
+  counts once in each of its families' counters (``fused_trace.
+  count_launch``).  FRESNEL draws the counter-based Philox value of (ray,
+  bounce, row) under the trace's two seed words (drawn once from the
+  caller's ``generator``: rays/draws.py), in K5, K6's replay and the plain
+  versions alike, so K6 replays K5's branches by their counters.  As the
   reference's ``_fused_nonseq_bwd`` does, a recording run's backward
-  raises on a drawing scene.
-- Coatings and metal mirrors run K5's and K6's instantiation with them
-  (``fused_trace.coating_kinds``, the side buffer ``fused_trace.coat_side``;
-  ``fused_trace.COAT_LAUNCHES``), as in ops/fused_trace.py, and the
-  diffractive and ideal elements the one built on it
-  (``fused_trace.diffractive_kinds``; ``fused_trace.DIFF_LAUNCHES``), and
-  fuzzy apodization the one built on that (``fused_trace.fuzzy_kinds``,
-  the callables in a ``fused_trace.TraceMeta``, their programs' buffer
-  ``fused_trace.fuzzy_buffer``; ``fused_trace.FUZZY_LAUNCHES``): a fuzzy
-  winner's factor is multiplied by its program's value, in K5 and K6's
-  replay alike; and freeform surfaces the one built on that
-  (``fused_trace.freeform_kinds``, the exponent pairs
-  ``fused_trace.ff_side``; ``fused_trace.FREEFORM_LAUNCHES``): the scan
-  refines a freeform row's roots onto its sag, in K5 and K6's replay alike.
-- K6's instantiation with freeform surfaces keeps 32 ff columns a row in
-  its warp slots beside its checkpoints, in at most ``MAX_SHARED_BYTES``
-  of shared memory a block: a freeform table that needs more (about 32
-  rows at 13 checkpoints) raises NotImplementedError when it would run
-  backward (``check_freeform_shared``), on either device.
+  raises on a drawing scene.  A fuzzy winner's factor is multiplied by its
+  program's value, the scan refines a freeform row's roots onto its sag,
+  and a GRIN rod's entry face wins only a ray travelling +z in the rod
+  frame, the winner running the whole rod once (csrc/grin.cuh), where the
+  JAX kernel runs it for every candidate row: in K5 and K6's replay
+  alike.
 - The polarized field (``track_field``, ``E0``; core/field.py) runs in one
-  more instantiation of K5 and K6, built on the one with the coatings (so
-  it takes the Fresnel kinds, coatings and metal mirrors, the extended
-  kinds, dispersion and the streams, with the side buffer ``coat_side``
-  filled), not on the ones with the diffractive kinds, fuzzy programs or
-  freeform surfaces: under the field a table with such rows raises
-  NotImplementedError on either device (``check_field_kinds``, ROADMAP
-  Queue 1 position 3c), which the eager ``Scene.simulate`` traces.  Its
-  launches count in ``fused_trace.FIELD_LAUNCHES``, not in
-  ``COAT_LAUNCHES``.  The launch field is made in torch
-  (``FieldState.init``, so ``E0``'s cotangent flows there) and enters the
-  kernels as six planar streams; K5 returns the final field's six
-  (``aux['field']``, ``aux['field_power']``) and K6 takes their
-  cotangents and returns the launch field's.  K6 keeps
-  ``K6_FIELD_CHECKPOINTS`` bounces of ``K6_FIELD_STATE_WORDS`` words in
-  shared memory; a table that needs more than ``MAX_SHARED_BYTES`` raises
-  NotImplementedError when it would run backward (``check_field_shared``).
-- GRIN rods run in K5's and K6's instantiation with them, built on the one
-  with the streams (``fused_trace.grin_kinds``;
-  ``fused_trace.GRIN_LAUNCHES``), with the refusals of
-  ``fused_trace.check_grin_kinds``: the scan lets a rod's entry face win
-  only a ray travelling +z in the rod frame, and the winner runs the whole
-  rod once (csrc/grin.cuh), where the JAX kernel runs it for every
-  candidate row.
+  more instantiation of K5 and K6, which compiles every family but GRIN
+  rods (a GRIN rod under the field raises NotImplementedError naming ROADMAP
+  Queue 1 position 4b, ``fused_trace.check_grin_kinds``) and reads the
+  table's families as the family instantiation does.  Its launches count
+  in ``fused_trace.FIELD_LAUNCHES`` alone.  The launch field is made in
+  torch (``FieldState.init``, so ``E0``'s cotangent flows there) and
+  enters the kernels as six planar streams; K5 returns the final field's
+  six (``aux['field']``, ``aux['field_power']``) and K6 takes their
+  cotangents and returns the launch field's.
+- K6 keeps its checkpoints (``K6_CHECKPOINTS`` bounces of
+  ``K6_STATE_WORDS`` words, with the field ``K6_FIELD_CHECKPOINTS`` of
+  ``K6_FIELD_STATE_WORDS``) beside the families' side data and warp slots
+  (32 ff columns a row with freeform surfaces) in at most
+  ``MAX_SHARED_BYTES`` of shared memory a block (``k6_shared_bytes``): a
+  table that needs more (about 32 freeform rows at 13 checkpoints) raises
+  NotImplementedError when it would run backward (``check_freeform_shared``,
+  ``check_field_shared``), on either device.
 - K5 and K6 keep each thread's moment sums of at most ``MAX_MOMENT_PAIRS``
   (64) (slot, bundle) pairs (in local memory, the bucket of 64 of
   csrc/trace_nonseq_fwd.cu): a scene with more raises NotImplementedError
@@ -107,15 +94,17 @@ from ..core.table import FlatRow
 from ..core.trace import Streams, bounce_loop
 from ..rays.draws import NonseqDraws, needs_draws, nonseq_draws
 from . import fused_trace
-from .fused_trace import (COAT_SIDE, COMPS, FF_SIDE, FIELD_KEYS, NO_STREAMS,
-                          StreamFlags, THREADS,
+from .fused_trace import (COAT_SIDE, COMPS, FAM_COAT, FAM_DIFF,
+                          FAM_FREEFORM, FAM_FUZZY, FF_SIDE, FIELD_KEYS,
+                          NO_STREAMS, StreamFlags, THREADS,
                           backward_result, check_cotangents, check_inputs,
-                          check_streams, coat_ptr, coat_side,
+                          check_streams, coat_side, count_launch,
                           diffractive_kinds, dispersive, dispersive_kinds,
-                          ext_kinds, ext_maps, ff_ptr, ff_side, field_aux,
+                          ext_kinds, ext_maps, families, family_args,
+                          family_bits, ff_side, field_aux,
                           field_buffer, field_kinds, flat_inputs,
-                          freeform_kinds, fresnel_kinds, fused_forward,
-                          fuzzy_args, fuzzy_buffer, fuzzy_kinds, TraceMeta,
+                          fresnel_kinds, fused_forward,
+                          fuzzy_buffer, TraceMeta,
                           check_grin_args, grin_kinds,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
@@ -149,44 +138,54 @@ def check_moment_pairs(cfg: SensorConfig):
             f'= {pairs} (ROADMAP Queue 2 I): use Scene.simulate')
 
 
-def freeform_k6_shared_bytes(static_meta, cfg: SensorConfig, n_bounces):
-    """The shared memory of K6's instantiation with freeform surfaces
-    (csrc/trace_nonseq_bwd.cu::shared_bytes): per row its table, kinds, side
-    buffer and exponent pairs and its warp slots of the 32 ff columns
-    (``grad_cols``), the programs' words, the moment cotangent and the
-    checkpoints."""
+def k6_shared_bytes(static_meta, cfg: SensorConfig, n_bounces, field=None):
+    """The shared memory of K6's family instantiation, or with ``field``
+    (None: the ``TraceMeta``'s) of its field's
+    (csrc/trace_nonseq_bwd.cu::shared_bytes): per row its table and kinds,
+    the side data of the table's families (``families``: the side buffer,
+    the programs' words, the exponent pairs), its warp slots of the columns
+    (``grad_cols``), the moment cotangent and the checkpoints (with the
+    field fewer, of more words)."""
+    field = field_kinds(static_meta) if field is None else field
+    fam = families(static_meta)
     k = len(static_meta)
-    cols = len(grad_cols((), True, dispersive(static_meta), True, True, True))
-    ck = min(max(n_bounces, 1), K6_CHECKPOINTS)
-    words = len(getattr(static_meta, 'words', None) or ()) or k
-    return 4 * (k * (160 + 8 + COAT_SIDE + FF_SIDE) + words
+    cols = len(grad_cols((), True, dispersive(static_meta),
+                         bool(fam & FAM_COAT), bool(fam & FAM_DIFF),
+                         bool(fam & FAM_FREEFORM)))
+    ck = min(max(n_bounces, 1),
+             K6_FIELD_CHECKPOINTS if field else K6_CHECKPOINTS)
+    words = K6_FIELD_STATE_WORDS if field else K6_STATE_WORDS
+    programs = (len(static_meta.words) if fam & FAM_FUZZY else 0)
+    return 4 * (k * (160 + 8 + (COAT_SIDE if fam & FAM_COAT else 0)
+                     + (FF_SIDE if fam & FAM_FREEFORM else 0)) + programs
                 + max(cfg.n_sensors, 1) * cfg.n_bundles * N_MOMENTS
-                + 8 * k * cols + ck * K6_STATE_WORDS * THREADS)
+                + 8 * k * cols + ck * words * THREADS)
+
+
+def freeform_k6_shared_bytes(static_meta, cfg: SensorConfig, n_bounces):
+    """``k6_shared_bytes`` of K6's family instantiation (freeform
+    surfaces' 32 ff columns a row the largest of its families' part)."""
+    return k6_shared_bytes(static_meta, cfg, n_bounces, field=False)
 
 
 def check_freeform_shared(static_meta, cfg: SensorConfig, n_bounces):
-    """Raise NotImplementedError when K6's instantiation with freeform
-    surfaces would need more than MAX_SHARED_BYTES a block."""
+    """Raise NotImplementedError when K6's family instantiation would need
+    more than MAX_SHARED_BYTES a block."""
     need = freeform_k6_shared_bytes(static_meta, cfg, n_bounces)
     if need > MAX_SHARED_BYTES:
         raise NotImplementedError(
-            f'the fused non-sequential backward (K6) with freeform surfaces '
-            f'takes at most MAX_SHARED_BYTES = {MAX_SHARED_BYTES} bytes of '
-            f'shared memory a block; this table of {len(static_meta)} rows '
-            f'at {n_bounces} bounces needs {need}')
+            f'the fused non-sequential backward (K6) with these families of '
+            f'kinds takes at most MAX_SHARED_BYTES = {MAX_SHARED_BYTES} '
+            f'bytes of shared memory a block; this table of '
+            f'{len(static_meta)} rows at {n_bounces} bounces needs {need} '
+            f'(ROADMAP Queue 2 I)')
 
 
 def field_k6_shared_bytes(static_meta, cfg: SensorConfig, n_bounces):
-    """The shared memory of K6's instantiation with the field
-    (csrc/trace_nonseq_bwd.cu::shared_bytes): per row its table, kinds and
-    side buffer and its warp slots of the coatings' columns (``grad_cols``),
-    the moment cotangent and the checkpoints."""
-    k = len(static_meta)
-    cols = len(grad_cols((), True, dispersive(static_meta), True))
-    ck = min(max(n_bounces, 1), K6_FIELD_CHECKPOINTS)
-    return 4 * (k * (160 + 8 + COAT_SIDE)
-                + max(cfg.n_sensors, 1) * cfg.n_bundles * N_MOMENTS
-                + 8 * k * cols + ck * K6_FIELD_STATE_WORDS * THREADS)
+    """``k6_shared_bytes`` of K6's field instantiation: the field's
+    checkpoints and the table's families' side data and columns
+    together."""
+    return k6_shared_bytes(static_meta, cfg, n_bounces, field=True)
 
 
 def check_field_shared(static_meta, cfg: SensorConfig, n_bounces):
@@ -199,24 +198,6 @@ def check_field_shared(static_meta, cfg: SensorConfig, n_bounces):
             f'most MAX_SHARED_BYTES = {MAX_SHARED_BYTES} bytes of shared '
             f'memory a block; this table of {len(static_meta)} rows at '
             f'{n_bounces} bounces needs {need} (ROADMAP Queue 2 I)')
-
-
-def check_field_kinds(static_meta):
-    """Raise NotImplementedError when a trace with the field has a
-    diffractive, fuzzy or freeform row: K5's and K6's instantiation with the
-    field is built on the one with the coatings, and those kinds wait for
-    the collapse of the instantiation chain (ROADMAP Queue 1 position
-    3c)."""
-    what = [name for name, has in (
-        ('diffractive or ideal elements (or an ELLIPSE bound)',
-         diffractive_kinds(static_meta)),
-        ('fuzzy apodization', fuzzy_kinds(static_meta)),
-        ('freeform surfaces', freeform_kinds(static_meta))) if has]
-    if what:
-        raise NotImplementedError(
-            f'the fused non-sequential trace with the field takes no '
-            f'{" or ".join(what)} until ROADMAP Queue 1 position 3c: use '
-            f'Scene.simulate')
 
 
 def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
@@ -235,26 +216,23 @@ def trace_nonseq_fused(table, rays, cfg: SensorConfig, static_meta,
     carries the polarized field from ``E0`` (core/field.py::
     FieldState.init, made here in torch, so E0 and the launch directions
     get its cotangent): ``aux`` then holds ``field`` and ``field_power``,
-    and the sensors weigh by |E|^2; a table with diffractive, fuzzy or
-    freeform rows then raises NotImplementedError (``check_field_kinds``).
+    and the sensors weigh by |E|^2.
 
     CPU tensors run the plain versions; CUDA tensors launch K5 and, in
     backward, K6 (or raise: there is no fallback)."""
     flags = StreamFlags(track_opl, record_paths, record_hits, track_field)
     check_moment_pairs(cfg)
     static_meta = TraceMeta(static_meta, fuzzy_fns, track_field)
-    if track_field:
-        check_field_kinds(static_meta)
     flat, kinds = flat_inputs(table, rays, cfg, static_meta)
     key = draw_key(static_meta, generator)
     maps = plate_maps(static_meta, grids)
     comps = [getattr(rays, c) for c in COMPS]
     field = FieldState.init(rays, E0).streams() if track_field else ()
     if needs_grad(flat, rays, maps) or any(f.requires_grad for f in field):
-        if freeform_kinds(static_meta):
-            check_freeform_shared(static_meta, cfg, n_bounces)
         if track_field:
             check_field_shared(static_meta, cfg, n_bounces)
+        elif families(static_meta):
+            check_freeform_shared(static_meta, cfg, n_bounces)
         if flags.any or key is not None:
             outs = FusedNonseqStreams.apply(
                 flat, kinds, cfg, static_meta, flags, n_bounces, key,
@@ -291,13 +269,10 @@ def _forward(flat, kinds, rays, cfg, static_meta, n_bounces, maps=None,
 
 
 def side_buffers(static_meta, device):
-    """The K5 and K6 wrappers' side-buffer arguments of a trace: the
-    coatings' side buffer, the diffractive kinds, the fuzzy programs and the
-    freeform rows' pairs; with the field (a ``TraceMeta`` with ``field``,
-    whose instantiation is built on the one with the coatings) the side
-    buffer alone."""
-    if field_kinds(static_meta):
-        return dict(coat=coat_side(static_meta, device))
+    """The K5 and K6 wrappers' family arguments of a trace beside the key:
+    the coatings' side buffer, the diffractive kinds, the fuzzy programs and
+    the freeform rows' pairs (None or False where the table lacks the
+    family)."""
     return dict(coat=coat_side(static_meta, device),
                 diff=diffractive_kinds(static_meta),
                 fuzzy=fuzzy_buffer(static_meta, device),
@@ -517,25 +492,17 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     in row order; all on one CUDA device.  ``ext``: the table has the
     extended kinds (``fused_trace.ext_kinds``).  The streams run K5's
     instantiation with them, whatever ``ext``; ``fresnel`` (the table has a
-    Fresnel kind, ``fused_trace.fresnel_kinds``) the one with the Fresnel
-    kinds, which also takes the streams.  ``key`` is the FRESNEL draws' two
+    Fresnel kind, ``fused_trace.fresnel_kinds``) a family.  ``key`` is the
+    FRESNEL draws' two
     Philox seed words, None when no row draws; its caller derives it from
-    the table's static metadata (``draw_key``).  ``coat``, the ``[K, 20]``
-    side buffer of ``fused_trace.coat_side`` (None: no row's coating acts),
-    runs the instantiation with the coatings, which also takes the Fresnel
-    kinds and the streams; ``diff`` (``fused_trace.diffractive_kinds``) the
-    one with the diffractive kinds, built on it, which reads ``coat``;
-    ``fuzzy`` as for ``fused_trace.trace_seq_fwd_cuda`` (the one with fuzzy
-    programs), and ``ff`` too (the one with freeform surfaces).
-    ``field``, the launch field's six [N] streams (None: no field), runs
-    the instantiation with the field, built on the one with the coatings
-    (not on the diffractive kinds, fuzzy programs or freeform surfaces:
-    ``diff``, ``fuzzy`` and ``ff`` must be off), which reads ``coat``
-    (``coat_side`` of a ``TraceMeta`` with ``field`` gives it); ``aux`` then
-    holds the final field's six streams as ``FIELD_KEYS``.  ``grin`` as for
-    ``fused_trace.trace_seq_fwd_cuda`` (None: read it off ``kinds``): the
-    instantiation with GRIN rods, built on the one with the streams.  More
-    than MAX_MOMENT_PAIRS slots x bundles raise NotImplementedError."""
+    the table's static metadata (``draw_key``).  The families (``coat``,
+    ``diff``, ``fuzzy``, ``ff``, ``grin``) as for
+    ``fused_trace.trace_seq_fwd_cuda``: the family instantiation, which
+    also takes the streams.  ``field``, the launch field's six [N] streams
+    (None: no field), runs the field's instantiation with the same families
+    (no ``grin``); ``aux`` then holds the final field's six streams as
+    ``FIELD_KEYS``.  More than MAX_MOMENT_PAIRS slots x bundles raise
+    NotImplementedError."""
     global NONSEQ_LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits,
                         field is not None)
@@ -543,14 +510,11 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
-    _check_field_args(field, coat, diff, fuzzy, ff)
-    grin = check_grin_args(kinds, grin, fresnel, key, coat, diff, fuzzy, ff,
-                           field)
-    fresnel = fresnel or coat is not None
-    diff = diff or fuzzy is not None
-    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
-    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel or grin),
-                           rays, device)
+    grin = check_grin_args(kinds, grin, field)
+    fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
+    key_args = _key_args(fam, fresnel, key, k, device, coat, fuzzy, ff)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any or fam), rays,
+                           device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     partials = torch.empty(-(-n // THREADS), n_slots, n_bundles, N_MOMENTS,
@@ -567,16 +531,12 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if grin:
-                rc = kernel('rtt_trace_nonseq_fwd_grin')(
-                    *args, *stream_args(bufs, nonseq=True), int(n_bounces), n,
-                    stream(device))
-            elif field is not None:
+            if field is not None:
                 rc = kernel('rtt_trace_nonseq_fwd_field')(
-                    *args, *stream_args(bufs, nonseq=True), *key_args[:2],
-                    coat.data_ptr(), f_in.data_ptr(), f_out.data_ptr(),
-                    int(n_bounces), n, stream(device))
-            elif fresnel or flags.any:
+                    *args, *stream_args(bufs, nonseq=True), *key_args,
+                    f_in.data_ptr(), f_out.data_ptr(), int(n_bounces), n,
+                    stream(device))
+            elif fam or flags.any:
                 rc = kernel('rtt_trace_nonseq_fwd_streams')(
                     *args, *stream_args(bufs, nonseq=True), *key_args,
                     int(n_bounces), n, stream(device))
@@ -587,7 +547,7 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_fwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_LAUNCHES += 1
-        _count(ext, flags.any, fresnel, coat, diff, fuzzy, ff, field, grin)
+        count_launch(fam, field is not None, flags.any, ext)
     out = rays.replace(**dict(zip(COMPS, outs)))
     sensors = SensorState(moments=partials.sum(dim=0), grid=grid)
     if flags.any:
@@ -596,42 +556,6 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             aux.update(zip(FIELD_KEYS, f_out if n > 0 else f_in))
         return out, sensors, aux
     return out, sensors
-
-
-def _count(ext, streams, fresnel, coat, diff, fuzzy, ff, field, grin=False):
-    """Count a K5 or K6 launch in its instantiation's counter."""
-    if grin:
-        fused_trace.GRIN_LAUNCHES += 1
-    elif field is not None:
-        fused_trace.FIELD_LAUNCHES += 1
-    elif ff is not None:
-        fused_trace.FREEFORM_LAUNCHES += 1
-    elif fuzzy is not None:
-        fused_trace.FUZZY_LAUNCHES += 1
-    elif diff:
-        fused_trace.DIFF_LAUNCHES += 1
-    elif coat is not None:
-        fused_trace.COAT_LAUNCHES += 1
-    elif fresnel:
-        fused_trace.FRESNEL_LAUNCHES += 1
-    elif streams:
-        fused_trace.STREAM_LAUNCHES += 1
-    else:
-        fused_trace.EXT_LAUNCHES += int(ext)
-
-
-def _check_field_args(field, coat, diff, fuzzy, ff):
-    """Raise unless the field's instantiation gets what it reads: the side
-    buffer, and none of the kinds it is not built on."""
-    if field is None:
-        return
-    if coat is None:
-        raise ValueError('the instantiation with the field reads the side '
-                         'buffer: pass coat= of a TraceMeta with field=True')
-    if diff or fuzzy is not None or ff is not None:
-        raise ValueError('the instantiation with the field is built on the '
-                         'one with the coatings: no diff, fuzzy or ff '
-                         '(ROADMAP Queue 1 position 3c)')
 
 
 def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
@@ -660,33 +584,23 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     wavelength's cotangent take the instantiation with dispersion), and
     ``opl``, ``g_opl`` and ``g_nfinal`` too (K5 ran with ``track_opl``: the
     instantiation with the optical path length, whatever ``ext``), and
-    ``fresnel`` and ``key`` as for ``trace_nonseq_fwd_cuda``
-    (the instantiation with the Fresnel kinds, which replays K5's draws by
-    their counters and also takes the path length), and ``coat`` too (the
-    one with the coatings, whose table cotangent adds the layer
-    thicknesses', ``fused_trace.COAT_GRAD_COLS``), and ``diff`` too (the
-    one with the diffractive kinds, which adds a DOE row's coefficients',
-    ``fused_trace.FF_GRAD_COLS``), and ``fuzzy`` too (the one with fuzzy
-    programs), and ``ff`` too (the one with freeform surfaces, which adds
-    all 32 ff columns' cotangents, ``fused_trace.FF_TERM_COLS``), and
-    ``field`` too (the one with the field, built on the one with the
-    coatings, as for ``trace_nonseq_fwd_cuda``), with ``g_field`` the final
-    field's six cotangents (each None for zero), and ``grin`` too (the one
-    with GRIN rods, built on the one with the path length, which it takes
-    whatever ``opl``)."""
+    the families (``fresnel``, ``key``, ``coat``, ``diff``, ``fuzzy``,
+    ``ff``, ``grin``) as for ``trace_nonseq_fwd_cuda``: the family
+    instantiation (which replays K5's draws by their counters and also takes
+    the path length), whose table cotangent adds the columns of
+    ``fused_trace.trace_seq_bwd_cuda``'s, and ``field`` too (the field's
+    instantiation with those families), with ``g_field`` the final field's
+    six cotangents (each None for zero)."""
     global NONSEQ_BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
-    _check_field_args(field, coat, diff, fuzzy, ff)
-    grin = check_grin_args(kinds, grin, fresnel, key, coat, diff, fuzzy, ff,
-                           field)
+    grin = check_grin_args(kinds, grin, field)
+    fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
     opl = opl or field is not None
-    fresnel = fresnel or coat is not None
-    diff = diff or fuzzy is not None
-    key_args = _key_args(fresnel, key, coat, k, device, diff, fuzzy, ff)
-    ext = ext or need_wavelength or opl or fresnel or grin
+    key_args = _key_args(fam, fresnel, key, k, device, coat, fuzzy, ff)
+    ext = ext or need_wavelength or opl or bool(fam)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
@@ -725,17 +639,12 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
                 n_bundles, *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if grin:
-                rc = kernel('rtt_trace_nonseq_bwd_grin')(
-                    *args, ptr(g_opl), ptr(g_nfinal), int(n_bounces), n,
-                    stream(device))
-            elif field is not None:
+            if field is not None:
                 rc = kernel('rtt_trace_nonseq_bwd_field')(
-                    *args, ptr(g_opl), ptr(g_nfinal), *key_args[:2],
-                    coat.data_ptr(), f_in.data_ptr(), ptr(g_fout),
-                    c_field.data_ptr(), ptr(f_end), int(n_bounces), n,
-                    stream(device))
-            elif fresnel or opl:
+                    *args, ptr(g_opl), ptr(g_nfinal), *key_args,
+                    f_in.data_ptr(), ptr(g_fout), c_field.data_ptr(),
+                    ptr(f_end), int(n_bounces), n, stream(device))
+            elif fam or opl:
                 rc = kernel('rtt_trace_nonseq_bwd_opl')(
                     *args, ptr(g_opl), ptr(g_nfinal), *key_args,
                     int(n_bounces), n, stream(device))
@@ -746,7 +655,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
             raise RuntimeError(f'trace_nonseq_bwd launch failed with CUDA '
                                f'error {rc}')
         NONSEQ_BWD_LAUNCHES += 1
-        _count(ext, opl, fresnel, coat, diff, fuzzy, ff, field, grin)
+        count_launch(fam, field is not None, opl, ext)
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                    device, g_wl)
     if field is not None:
@@ -758,23 +667,16 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     return res
 
 
-def _key_args(fresnel, key, coat=None, k=0, device=None, diff=False,
-              fuzzy=None, ff=None):
-    """The Philox key, Fresnel, coating, diffractive, fuzzy and freeform C
-    arguments of K5's and K6's instantiation with the streams: the key's two
-    words (0 when no row draws), whether to run the instantiation with the
-    Fresnel kinds, the ``[K, 20]`` side buffer ``coat`` (null: not the one
-    with the coatings), whether to run the one with the diffractive kinds,
-    the program buffer ``fuzzy`` and its words (null, 0: not the one with
-    fuzzy programs) and the exponent pairs ``ff`` (null: not the one with
-    freeform surfaces)."""
+def _key_args(fam, fresnel, key, k, device, coat=None, fuzzy=None, ff=None):
+    """The C arguments of K5's and K6's family and field instantiations
+    after the streams: the Philox key's two words (0 when no row draws),
+    then ``fused_trace.family_args`` of the families ``fam``."""
     if key is not None and not fresnel:
-        raise ValueError('a Philox key is read only by the instantiation '
-                         'with the Fresnel kinds')
+        raise ValueError('a Philox key is read only by the family '
+                         'instantiation with the Fresnel kinds')
     k0, k1 = key if key is not None else (0, 0)
-    return (int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF, int(fresnel),
-            *coat_ptr(coat, k, device, diff), *fuzzy_args(fuzzy, k, device),
-            ff_ptr(ff, k, device, fuzzy))
+    return (int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF,
+            *family_args(fam, k, device, coat, fuzzy, ff))
 
 
 def _check_bounces(n_bounces):

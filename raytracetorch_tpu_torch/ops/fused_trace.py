@@ -74,96 +74,90 @@ module:
   ``RECORD_RECOMPUTES``), because K2, like the TPU reverse kernel, carries
   no cotangent streams for the O(K N) records; K2 is not tried on such a
   run.  That is the reference's design, not a fallback.
-- The Fresnel kinds of uncoated interfaces (FRESNEL, FRESNEL_W,
-  REFLECT_W; ``fresnel_kinds``) run in one more instantiation of each of
-  K1, K2, K5 and K6, built on the one with the streams (K1, K5) or the path
-  length (K2, K6), so that every other instantiation keeps its code; their
-  launches count in ``FRESNEL_LAUNCHES``, not in ``STREAM_LAUNCHES`` or
-  ``EXT_LAUNCHES``.  FRESNEL's Monte-Carlo branch reads the trace's draws
-  (rays/draws.py): K1, K2 and their plain versions the ``[F, N]`` uniform
-  streams pre-drawn from the caller's generator (or injected), in row
-  order, the same streams the eager chain reads; K5, K6 and theirs the
-  counter-based Philox draw of (ray, bounce, row) under two seed words.
-  The streams travel into ``FusedTraceStreams`` as an input without
-  derivative (the choice has none), and a recording run's eager recompute
-  reuses them.  A scene with a drawing row runs ``FusedTraceStreams`` even
-  without streams.
-- Thin-film coatings and metal mirrors (a stack on a Fresnel row, a metal
-  REFLECT row; ``coating_kinds``) run in one more instantiation of each of
-  K1, K2, K5 and K6, built on the one with the Fresnel kinds; their
-  launches count in ``COAT_LAUNCHES``, not in ``FRESNEL_LAUNCHES``.  A
-  row's layer count and flags ride its kinds row's physics column from bit
-  ``COAT_SHIFT`` on; the layers' extinction and a dispersive metal's knots
-  go in a ``[K, 20]`` side buffer (``coat_side``); K2 and K6 add the layer
-  thicknesses' cotangents (``COAT_GRAD_COLS``).
-- The diffractive and ideal elements (LINEAR, GRATING, DOE, MLA rows and
-  the ELLIPSE bound; ``diffractive_kinds``) run in one more instantiation
-  of each of K1, K2, K5 and K6, built on the one with the coatings, so
-  that every JAX combination runs (a DOE beside dispersive glass, a grating
-  beside a coated lens, a DOE under ``track_opl``); their launches count in
-  ``DIFF_LAUNCHES``, not in ``COAT_LAUNCHES``.  It reads the coatings' side
-  buffer (zeros on a table without a coating).  A DOE row's term count and
-  efficiency flag ride its kinds row's physics column from bit
-  ``DOE_SHIFT`` on; K2 and K6 add its 8 ``ff`` coefficients' cotangents
-  (``FF_GRAD_COLS``) after the coat columns.
-- Fuzzy apodization (``fuzzy_fns``, {row: component-style callable};
-  ``fuzzy_kinds``) runs in one more instantiation of each of K1, K2, K5 and
-  K6, built on the one with the diffractive kinds (so it takes every kind
-  and stream that one takes; its side buffer is zeros on a table without a
-  coating); its launches count in ``FUZZY_LAUNCHES``, not in
-  ``DIFF_LAUNCHES``.  ``TraceMeta`` carries the callables beside the rows'
-  static metadata and traces them into programs (ops/fuzzy_program.py),
-  which the kernels take as one int32 buffer and interpret per ray: K1 and
-  K5 multiply a row's factor by the program's value at the surface-local
-  hit, K2 and K6 add the adjoint of that multiply to the hit's cotangent
-  with the program's forward-mode partials.  The plain versions call the
-  callables themselves.  A callable outside the op set or its limits, or a
-  legacy ``[N, 3]`` one, raises NotImplementedError on either device.
-- Freeform surfaces (``FreeformLens`` and ``ZernikeLens`` faces, a row
-  with ``meta.ff``; ``freeform_kinds``) run in one more instantiation of
-  each of K1, K2, K5 and K6, built on the one with fuzzy programs (so it
-  takes every kind and stream that one takes; its program buffer holds a
-  -1 per row on a table without a callable, its side buffer zeros on a
-  table without a coating); its launches count in ``FREEFORM_LAUNCHES``,
-  not in ``FUZZY_LAUNCHES``.  A freeform row's kinds row has the surface
-  ``SURF_FREEFORM``, its exponent pairs ride a ``[K, FF_SIDE]`` int32 side
-  buffer (``ff_side``) and its coefficients its ``ff`` columns; K2 and K6
-  reduce 32 ``ff`` columns a row (``FF_TERM_COLS``) in place of a DOE
-  row's 8.  ``trace_sequential_v1`` routes a freeform table there too.
+- The families of kinds (``families``: the Fresnel kinds, coatings and
+  metal mirrors, the diffractive and ideal elements, fuzzy apodization,
+  freeform surfaces and GRIN rods, each a ``FAM_*`` bit) run in one more
+  instantiation of each of K1, K2, K5 and K6, the family instantiation,
+  built on the one with the streams (K1, K5) or the path length (K2, K6),
+  so that every other instantiation keeps its code.  It compiles every
+  family together, so a table may mix them as the JAX kernels take them (a
+  GRIN rod beside a coated lens, a DOE and a fuzzy pupil); the launch
+  passes the table's families as a bit word and each family's side data,
+  None where the table lacks it.  A table that the chain of family links
+  took before (the Fresnel kinds; coatings; the diffractive kinds; fuzzy
+  programs, each with the families below it; GRIN rods alone) runs that
+  link's instantiation, chosen in the C launcher from the bits
+  (csrc/trace_seq_common.cuh::fam_link): the family instantiation ran such
+  tables 1.1-2.2x slower.  A launch counts once in the counter of
+  each family it ran with: ``FRESNEL_LAUNCHES``, ``COAT_LAUNCHES``,
+  ``DIFF_LAUNCHES``, ``FUZZY_LAUNCHES``, ``FREEFORM_LAUNCHES``,
+  ``GRIN_LAUNCHES`` (not in ``STREAM_LAUNCHES`` or ``EXT_LAUNCHES``).  Per
+  family:
+
+  - The Fresnel kinds (FRESNEL, FRESNEL_W, REFLECT_W; ``fresnel_kinds``).
+    FRESNEL's Monte-Carlo branch reads the trace's draws (rays/draws.py):
+    K1, K2 and their plain versions the ``[F, N]`` uniform streams
+    pre-drawn from the caller's generator (or injected), in row order, the
+    same streams the eager chain reads; K5, K6 and theirs the counter-based
+    Philox draw of (ray, bounce, row) under two seed words.  The streams
+    travel into ``FusedTraceStreams`` as an input without derivative (the
+    choice has none), and a recording run's eager recompute reuses them.  A
+    scene with a drawing row runs ``FusedTraceStreams`` even without
+    streams.
+  - Thin-film coatings and metal mirrors (a stack on a Fresnel row, a metal
+    REFLECT row; ``coating_kinds``).  A row's layer count and flags ride its
+    kinds row's physics column from bit ``COAT_SHIFT`` on; the layers'
+    extinction and a dispersive metal's knots go in a ``[K, 20]`` side
+    buffer (``coat_side``); K2 and K6 add the layer thicknesses' cotangents
+    (``COAT_GRAD_COLS``).
+  - The diffractive and ideal elements (LINEAR, GRATING, DOE, MLA rows and
+    the ELLIPSE bound; ``diffractive_kinds``).  A DOE row's term count and
+    efficiency flag ride its kinds row's physics column from bit
+    ``DOE_SHIFT`` on; K2 and K6 add its 8 ``ff`` coefficients' cotangents
+    (``FF_GRAD_COLS``) after the coat columns.
+  - Fuzzy apodization (``fuzzy_fns``, {row: component-style callable};
+    ``fuzzy_kinds``).  ``TraceMeta`` carries the callables beside the rows'
+    static metadata and traces them into programs (ops/fuzzy_program.py),
+    which the kernels take as one int32 buffer (``fuzzy_buffer``) and
+    interpret per ray: K1 and K5 multiply a row's factor by the program's
+    value at the surface-local hit, K2 and K6 add the adjoint of that
+    multiply to the hit's cotangent with the program's forward-mode
+    partials.  The plain versions call the callables themselves.  A
+    callable outside the op set or its limits, or a legacy ``[N, 3]`` one,
+    raises NotImplementedError on either device.
+  - Freeform surfaces (``FreeformLens`` and ``ZernikeLens`` faces, a row
+    with ``meta.ff``; ``freeform_kinds``).  A freeform row's kinds row has
+    the surface ``SURF_FREEFORM``, its exponent pairs ride a ``[K,
+    FF_SIDE]`` int32 side buffer (``ff_side``) and its coefficients its
+    ``ff`` columns; K2 and K6 reduce 32 ``ff`` columns a row
+    (``FF_TERM_COLS``) in place of a DOE row's 8.  ``trace_sequential_v1``
+    routes a freeform table there too.
+  - GRIN rods (``GrinRod``, a GRIN row: core/grin.py; ``grin_kinds``, and
+    ``grin_rows`` of the kinds tensor in the wrappers).  A rod's RK4 step
+    count rides its kinds row's last column; its cotangents land in
+    ph[0:6] (n_ambient, c0, c2, c4, cz, L) and the pose columns, all among
+    ``EXT_GRAD_COLS``.  A trace of GRIN rows under the field (ROADMAP
+    Queue 1 position 4b) or with more than ``MAX_GRIN_STEPS`` steps raises
+    NotImplementedError on either device (``check_grin_kinds``); the eager
+    traces take them.  ``trace_sequential_v1`` refuses GRIN rows, as the
+    TPU kernel it stands for does.
 - The polarized field (``track_field``, ``E0``; core/field.py) runs in one
-  more instantiation of K1 and K2, built on the one with freeform surfaces
-  (K5's and K6's is built on the one with the coatings:
-  ops/fused_nonseq.py)
-  (so it takes every kind and stream that one takes, with its side buffers
-  as zeros and -1s where the table has none); its launches count in
-  ``FIELD_LAUNCHES``, not in ``FREEFORM_LAUNCHES``.  The launch field is
-  made in torch (``FieldState.init``, so ``E0``'s cotangent flows there) and
-  enters the kernels as six planar streams; K1 returns the six of the final
-  field (``aux['field']``, ``aux['field_power']``) and K2 takes their
-  cotangents and returns the launch field's.  A JONES row's static bits
-  (chromatic, crystal) ride its kinds row's physics column from bit
-  ``COAT_SHIFT`` on (``jones_bits``); its cotangents land in ph[0:5] and Rw,
-  columns the kernels already reduce.  Coated interfaces and metal mirrors
-  take their stacks' and metals' amplitudes in the field's transport and
-  their polarized R (and T) in the weights (csrc/field.cuh); the coated
-  rows' side buffer (``coat_side``) is filled, and a coated SNELL row,
-  whose stack acts on the field alone, carries its coating bits
-  (``coat_bits``) in a trace with the field only.  The thicknesses'
-  cotangents land in ``COAT_GRAD_COLS``.
-- GRIN rods (``GrinRod``, a GRIN row: core/grin.py; ``grin_kinds``, and
-  ``grin_rows`` of the kinds tensor in the wrappers) run in one more
-  instantiation of each of K1, K2, K5 and K6, built on the one with
-  the streams (K1, K5) or the path length (K2, K6), so that every other
-  instantiation keeps its code; their launches count in ``GRIN_LAUNCHES``,
-  not in ``STREAM_LAUNCHES`` or ``EXT_LAUNCHES``.  A rod's RK4 step count
-  rides its kinds row's last column; its cotangents land in ph[0:6]
-  (n_ambient, c0, c2, c4, cz, L) and the pose columns, all among
-  ``EXT_GRAD_COLS``.  A trace of GRIN rows with the Fresnel kinds,
-  coatings, diffractive, fuzzy or freeform rows (ROADMAP Queue 1 position
-  3c), under the field (position 4b) or with more than ``MAX_GRIN_STEPS``
-  steps raises NotImplementedError on either device (``check_grin_kinds``);
-  the eager traces take them.  ``trace_sequential_v1`` refuses GRIN rows,
-  as the TPU kernel it stands for does.
+  more instantiation of each of K1, K2, K5 and K6, which compiles every
+  family but GRIN rods and reads the table's families as the family
+  instantiation does; its launches count in ``FIELD_LAUNCHES`` alone.  The
+  launch field is made in torch (``FieldState.init``, so ``E0``'s
+  cotangent flows there) and enters the kernels as six planar streams; K1
+  returns the six of the final field (``aux['field']``,
+  ``aux['field_power']``) and K2 takes their cotangents and returns the
+  launch field's.  A JONES row's static bits (chromatic, crystal) ride its
+  kinds row's physics column from bit ``COAT_SHIFT`` on (``jones_bits``);
+  its cotangents land in ph[0:5] and Rw, columns the kernels already
+  reduce.  Coated interfaces and metal mirrors take their stacks' and
+  metals' amplitudes in the field's transport and their polarized R (and
+  T) in the weights (csrc/field.cuh); a coated SNELL row, whose stack acts
+  on the field alone, carries its coating bits (``coat_bits``) in a trace
+  with the field only.  The thicknesses' cotangents land in
+  ``COAT_GRAD_COLS``.
 - The kernels take up to ``MAX_BUNDLES`` (18) bundles, the JAX kernels'
   limit (n_bundles * 7 <= 128).  K5 and K6 keep per-thread moment sums of
   at most 64 (slot, bundle) pairs: more raise NotImplementedError
@@ -206,26 +200,19 @@ STREAM_LAUNCHES = 0
 # (FusedTraceStreams and FusedNonseqStreams)
 RECORD_RECOMPUTES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with the Fresnel kinds
+# ops/fused_nonseq.py) in their family instantiation, one counter a family
+# (a launch counts in each family it ran with): the Fresnel kinds, the
+# coatings, the diffractive kinds, fuzzy programs, freeform surfaces and
+# GRIN rods
 FRESNEL_LAUNCHES = 0
-# launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with the coatings
 COAT_LAUNCHES = 0
-# launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with the diffractive kinds
 DIFF_LAUNCHES = 0
-# launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with fuzzy programs
 FUZZY_LAUNCHES = 0
-# launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with freeform surfaces
 FREEFORM_LAUNCHES = 0
+GRIN_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
 # ops/fused_nonseq.py) in their instantiation with the field
 FIELD_LAUNCHES = 0
-# launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with GRIN rods
-GRIN_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
 KIND_WIDTH = 8        # ph, sb, vb, surface, sensor, slot, invert, map
@@ -266,6 +253,12 @@ FIELD_KEYS = tuple('field_' + f for f in FieldState.FIELDS)
 # from checkpoints in a per-thread array sized for MAX_GRIN_STEPS
 # (csrc/grin.cuh::kMaxGrinSteps; ROADMAP Queue 2 I).
 MAX_GRIN_STEPS = 256
+# The families of kinds of the family instantiation, bits of its runtime
+# word (csrc/trace_seq_common.cuh kFam*): the Fresnel kinds, the coatings
+# and metal mirrors, the diffractive and ideal elements, fuzzy programs,
+# freeform surfaces, GRIN rods.
+FAM_FRESNEL, FAM_COAT, FAM_DIFF, FAM_FUZZY, FAM_FREEFORM, FAM_GRIN = (
+    1, 2, 4, 8, 16, 32)
 # The rows hold their kinds in one block of shared memory and the kernels
 # loop over them: 64 rows fill K2's and K6's 128-register budget's shared
 # memory with their warp slots (ROADMAP Queue 2 I).
@@ -324,29 +317,25 @@ _WAVE = [_P, _I]
 # and hit slots); K2's and K6's stream cotangents: g_opl, g_nfinal
 _STREAMS = [_P] * 5
 _OPL = [_P, _P]
-# the draws of the instantiations with the Fresnel kinds, then whether to
-# run that instantiation: K1's and K2's [F, N] uniform streams and their
-# count F; K5's and K6's two Philox seed words; then the coated rows' side
-# buffer (null: not the instantiation with the coatings), whether to run
-# the instantiation with the diffractive kinds, the fuzzy programs' buffer
-# and its words (null, 0: not the instantiation with them) and the freeform
-# rows' exponent pairs (null: not the instantiation with them)
-_UNIFORMS = [_P, _I, _I, _P, _I, _P, _I, _P]
+# the family instantiation's side data (each null where the table lacks
+# its family) and its families' bits: K1's and K2's [F, N] uniform streams
+# and their count F (K5's and K6's two Philox seed words in their place),
+# the coated rows' side buffer, the fuzzy programs' buffer and its words,
+# the freeform rows' exponent pairs, the FAM_* bits (0: the instantiation
+# with the streams or the path length)
+_U = ctypes.c_uint
+_UNIFORMS = [_P, _I, _P, _P, _I, _P, _U]
+_KEY = [ctypes.c_uint32, ctypes.c_uint32, _P, _P, _I, _P, _U]
 # the field's buffers: K1's launch and final field; K2's launch field, the
-# final field's cotangent and the launch field's ([6, N] each)
+# final field's cotangent and the launch field's ([6, N] each); K6's then
+# the replay's final field or null
 _FIELD_FWD = [_P, _P]
 _FIELD_BWD = [_P, _P, _P]
-_KEY = [ctypes.c_uint32, ctypes.c_uint32, _I, _P, _I, _P, _I, _P]
-# K5's and K6's instantiation with the field: the Philox key and the side
-# buffer (its field buffers as K1's and K2's, K6's then the replay's final
-# field or null)
-_KEY_FIELD = [ctypes.c_uint32, ctypes.c_uint32, _P]
 # rows, slots, bundles, bounces, code (0 no plate code, 1 plate code, 2 plate
 # code and the extended kinds, 3 those and a dispersive table, 4 the streams
-# or the path length, 5 the Fresnel kinds, 6 the coatings, 7 the diffractive
-# kinds, 8 the fuzzy programs, 9 the freeform surfaces, 10 the field, 11
-# GRIN rods), the programs' words, out: resident blocks per SM
-_OCCUPANCY = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+# or the path length, 5 the family instantiation, 6 the field's), the
+# programs' words, the FAM_* bits, out: resident blocks per SM
+_OCCUPANCY = [_I, _I, _I, _I, _I, _I, _U, ctypes.POINTER(ctypes.c_int)]
 # library name -> (source, {C entry point: argtypes})
 _LIBRARIES = {
     'trace_seq_fwd': ('trace_seq_fwd.cu', {
@@ -356,8 +345,6 @@ _LIBRARIES = {
         + _GRID + _PLATES + _STREAMS + _UNIFORMS + [_L, _P],
         'rtt_trace_seq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I]
         + _GRID + _PLATES + _STREAMS + _UNIFORMS + _FIELD_FWD + [_L, _P],
-        'rtt_trace_seq_fwd_grin': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-        + _GRID + _PLATES + _STREAMS + [_L, _P],
         'rtt_trace_seq_fwd_occupancy': _OCCUPANCY}),
     'trace_seq_bwd': ('trace_seq_bwd.cu', {
         'rtt_trace_seq_bwd': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
@@ -367,8 +354,6 @@ _LIBRARIES = {
         'rtt_trace_seq_bwd_field': [_P, _P, _I] + [_P] * 24 + [_I, _I]
         + _GRID + _PLATES + [_P] + _WAVE + _OPL + _UNIFORMS + _FIELD_BWD
         + [_L, _P],
-        'rtt_trace_seq_bwd_grin': [_P, _P, _I] + [_P] * 24 + [_I, _I]
-        + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_L, _P],
         'rtt_trace_seq_bwd_occupancy': _OCCUPANCY}),
     'grid_bin': ('grid_bin.cu', {
         'rtt_grid_bin': [_P, _P, _P, _P, _I, _L, _P, _I, _I, _I, _F, _P],
@@ -384,10 +369,8 @@ _LIBRARIES = {
         'rtt_trace_nonseq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
         + _GRID + _PLATES + _STREAMS + [_P] + _KEY + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-        + _GRID + _PLATES + _STREAMS + [_P] + _KEY_FIELD + _FIELD_FWD
+        + _GRID + _PLATES + _STREAMS + [_P] + _KEY + _FIELD_FWD
         + [_I, _L, _P],
-        'rtt_trace_nonseq_fwd_grin': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-        + _GRID + _PLATES + _STREAMS + [_P] + [_I, _L, _P],
         'rtt_trace_nonseq_fwd_occupancy': _OCCUPANCY,
         'rtt_philox4x32': [_P, _P, _P, _I, _P]}),
     'trace_nonseq_bwd': ('trace_nonseq_bwd.cu', {
@@ -396,15 +379,12 @@ _LIBRARIES = {
         'rtt_trace_nonseq_bwd_opl': [_P, _P, _I] + [_P] * 31 + [_I, _I]
         + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_field': [_P, _P, _I] + [_P] * 31 + [_I, _I]
-        + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY_FIELD + _FIELD_BWD
+        + _GRID + _PLATES + [_P] + _WAVE + _OPL + _KEY + _FIELD_BWD
         + [_P, _I, _L, _P],
-        'rtt_trace_nonseq_bwd_grin': [_P, _P, _I] + [_P] * 31 + [_I, _I]
-        + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_I, _L, _P],
         'rtt_trace_nonseq_bwd_occupancy': _OCCUPANCY,
-        'rtt_trace_nonseq_bwd_freeform_smem': [_I] * 6 + [
-            ctypes.POINTER(ctypes.c_longlong)],
-        'rtt_trace_nonseq_bwd_field_smem': [_I] * 5 + [
-            ctypes.POINTER(ctypes.c_longlong)]}),
+        'rtt_trace_nonseq_bwd_smem': [_I] * 6 + [_U, _I,
+                                                  ctypes.POINTER(
+                                                      ctypes.c_longlong)]}),
 }
 _fns = {}
 
@@ -437,69 +417,65 @@ def ext_kinds(static_meta):
 
 
 def fresnel_kinds(static_meta):
-    """Whether a row has a Fresnel kind (FRESNEL, FRESNEL_W, REFLECT_W),
-    which only the kernels' instantiations with the Fresnel kinds take."""
+    """Whether a row has a Fresnel kind (FRESNEL, FRESNEL_W, REFLECT_W), a
+    family of the kernels' family instantiation."""
     return any(m.ph in FRESNEL_KINDS for m in static_meta)
 
 
 def coating_kinds(static_meta):
     """Whether a row's thin-film stack or metal substrate acts
-    (``coat_acts``), which only the kernels' instantiation with the
-    coatings takes."""
-    return any(coat_acts(m) for m in static_meta)
+    (``coat_acts``; in a trace with the field ``field_coat_acts``), a family
+    of the kernels' family instantiation."""
+    return any(coat_bits(m, field_kinds(static_meta)) for m in static_meta)
 
 
 def diffractive_kinds(static_meta):
     """Whether a row is a diffractive or ideal element (LINEAR, GRATING,
-    DOE, MLA) or has an ELLIPSE bound, which only the kernels' instantiation
-    with the diffractive kinds takes."""
+    DOE, MLA) or has an ELLIPSE bound, a family of the kernels' family
+    instantiation."""
     return any(m.ph in DIFFRACTIVE_KINDS or m.sb == SBKind.ELLIPSE
                for m in static_meta)
 
 
 def fuzzy_kinds(static_meta):
     """Whether the trace applies fuzzy apodization (a ``TraceMeta`` with
-    callables), which only the kernels' instantiation with fuzzy programs
-    takes."""
+    callables), a family of the kernels' family instantiation."""
     return bool(getattr(static_meta, 'fuzzy', None))
 
 
 def freeform_kinds(static_meta):
-    """Whether a row is a freeform surface (``meta.ff``), which only the
-    kernels' instantiation with freeform surfaces takes."""
+    """Whether a row is a freeform surface (``meta.ff``), a family of the
+    kernels' family instantiation."""
     return any(m.ff for m in static_meta)
 
 
 def grin_kinds(static_meta):
-    """Whether a row is a GRIN rod, which only the kernels' instantiation
-    with GRIN rods (built on the one with the streams) takes."""
+    """Whether a row is a GRIN rod, a family of the kernels' family
+    instantiation."""
     return any(m.ph == PhysKind.GRIN for m in static_meta)
 
 
+def families(static_meta):
+    """The ``FAM_*`` bits of the families of kinds a trace's table has:
+    the family instantiation runs it when any is set (and the field's reads
+    them)."""
+    return ((FAM_FRESNEL if fresnel_kinds(static_meta) else 0)
+            | (FAM_COAT if coating_kinds(static_meta) else 0)
+            | (FAM_DIFF if diffractive_kinds(static_meta) else 0)
+            | (FAM_FUZZY if fuzzy_kinds(static_meta) else 0)
+            | (FAM_FREEFORM if freeform_kinds(static_meta) else 0)
+            | (FAM_GRIN if grin_kinds(static_meta) else 0))
+
+
 def check_grin_kinds(static_meta):
-    """Raise NotImplementedError when a fused trace of GRIN rows has what
-    the kernels' instantiation with them does not take: the polarized field
-    (ROADMAP Queue 1 position 4b) or a kind of an instantiation above the
-    one with the streams (the Fresnel kinds, coatings and metal mirrors, the
-    diffractive and ideal elements, fuzzy apodization, freeform surfaces:
-    position 3c).  The eager traces take all of them."""
-    if not grin_kinds(static_meta):
-        return
-    if field_kinds(static_meta):
+    """Raise NotImplementedError when a fused trace of GRIN rows carries
+    the polarized field, which the kernels' field instantiation does not
+    take through a rod (ROADMAP Queue 1 position 4b).  The eager traces
+    take it."""
+    if grin_kinds(static_meta) and field_kinds(static_meta):
         raise NotImplementedError(
             'the fused trace takes no GRIN rod under the polarized field '
             'until ROADMAP Queue 1 position 4b: use simulate')
-    what = [name for name, has in (
-        ('Fresnel kinds', fresnel_kinds(static_meta)),
-        ('coatings or metal mirrors', coating_kinds(static_meta)),
-        ('diffractive or ideal elements (or an ELLIPSE bound)',
-         diffractive_kinds(static_meta)),
-        ('fuzzy apodization', fuzzy_kinds(static_meta)),
-        ('freeform surfaces', freeform_kinds(static_meta))) if has]
-    if what:
-        raise NotImplementedError(
-            f'the fused trace takes no {" or ".join(what)} beside GRIN rods '
-            f'until ROADMAP Queue 1 position 3c: use simulate')
 
 
 def field_kinds(static_meta):
@@ -510,13 +486,11 @@ def field_kinds(static_meta):
 
 
 def ff_side(static_meta, device):
-    """The ``[K, FF_SIDE]`` int32 side buffer of the instantiation with
-    freeform surfaces (and of the one with the field, built on it): per row
+    """The ``[K, FF_SIDE]`` int32 side buffer of freeform surfaces: per row
     its term count and its exponent pairs packed as ``i | j << 16`` (zeros
-    for a row that is not freeform); None when no row is freeform and the
-    field is off.  An exponent above FF_MAX_EXPONENT raises
-    NotImplementedError."""
-    if not (freeform_kinds(static_meta) or field_kinds(static_meta)):
+    for a row that is not freeform); None when no row is freeform.  An
+    exponent above FF_MAX_EXPONENT raises NotImplementedError."""
+    if not freeform_kinds(static_meta):
         return None
     rows = []
     for k, m in enumerate(static_meta):
@@ -553,14 +527,8 @@ class TraceMeta(tuple):
 
 def fuzzy_buffer(static_meta, device):
     """The int32 program buffer of a ``TraceMeta``'s callables on
-    ``device``: without a callable None, or on a table with a freeform row
-    (whose instantiation is built on the one with fuzzy programs) a -1 per
-    row."""
-    words = getattr(static_meta, 'words', None)
-    if words is None and (freeform_kinds(static_meta)
-                          or field_kinds(static_meta)):
-        words = (-1,) * len(static_meta)
-    return fuzzy_program.buffer(words, device)
+    ``device``; None without a callable."""
+    return fuzzy_program.buffer(getattr(static_meta, 'words', None), device)
 
 
 def doe_bits(m):
@@ -596,16 +564,11 @@ def coat_bits(m, field=False):
 
 
 def coat_side(static_meta, device):
-    """The ``[K, COAT_SIDE]`` float32 side buffer of the instantiation with
-    the coatings (and of the one with the diffractive kinds, built on it):
-    per row its layers' extinction coefficients (8, zeros for a dielectric
-    stack) and a dispersive metal's 6 n and 6 k knots on METAL_GRID_UM
-    (zeros otherwise); None when no row's coating acts, no row is
-    diffractive, fuzzy or freeform (the instantiations with the diffractive
-    kinds, fuzzy programs and freeform surfaces read it)."""
-    if not (coating_kinds(static_meta) or diffractive_kinds(static_meta)
-            or fuzzy_kinds(static_meta) or freeform_kinds(static_meta)
-            or field_kinds(static_meta)):
+    """The ``[K, COAT_SIDE]`` float32 side buffer of the coatings: per row
+    its layers' extinction coefficients (8, zeros for a dielectric stack)
+    and a dispersive metal's 6 n and 6 k knots on METAL_GRID_UM (zeros
+    otherwise); None when no row's coating acts (``coating_kinds``)."""
+    if not coating_kinds(static_meta):
         return None
     rows = []
     for m in static_meta:
@@ -682,11 +645,10 @@ def plate_maps(static_meta, grids):
     None when no row has a plate's kinds (PHASE_GRID physics, the RECT
     bound), the extended kinds (``ext_kinds``), a coating that acts
     (``coating_kinds``: a stack reads the rays' wavelength), a diffractive
-    kind (``diffractive_kinds``: a grating and a DOE read it) or fuzzy
-    apodization (``fuzzy_kinds``, whose instantiation is built on theirs)
-    or a freeform surface (``freeform_kinds``, built on that one): the
-    kernels then run their instantiation without plate code.  Such a scene
-    without a plate gives ``()``."""
+    kind (``diffractive_kinds``: a grating and a DOE read it), fuzzy
+    apodization or a freeform surface (``fuzzy_kinds``, ``freeform_kinds``)
+    or the field: the kernels then run their instantiation without plate
+    code.  Such a scene without a plate gives ``()``."""
     grids = grids or {}
     missing = [k for k in plate_rows(static_meta) if k not in grids]
     if missing:
@@ -1306,27 +1268,22 @@ def blocks_per_sm(library, n_rows, cfg: SensorConfig, plates, n_bounces=0,
     ``plates``, plate code (with ``ext``, also the extended kinds; with
     ``disp`` too, on a table with a dispersive row; with ``streams``, the
     instantiation with the streams, on a table with a dispersive row when
-    ``disp``; with ``fresnel``, the instantiation with the Fresnel kinds,
-    likewise; with ``coat``, the one with the coatings, likewise; with
-    ``diff``, the one with the diffractive kinds, likewise; with
-    ``fuzzy_words``, the one with fuzzy programs of that many words,
-    likewise; with ``freeform``, the one with freeform surfaces, whose
-    program buffer has ``fuzzy_words`` words, likewise; with ``field``, the
-    one with the field, likewise; with ``grin``, the one with GRIN rods,
-    built on the one with the streams, likewise) runs, at that launch's
-    dynamic shared memory
+    ``disp``; with any of the families ``fresnel``, ``coat``, ``diff``,
+    ``fuzzy_words`` (programs of that many words), ``freeform`` and
+    ``grin``, the family instantiation with those families, likewise; with
+    ``field``, the field's with those families, likewise) runs, at that
+    launch's dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     device)."""
     out = ctypes.c_int(0)
-    code = (11 if grin else 10 if field else 9 if freeform
-            else 8 if fuzzy_words
-            else 7 if diff else 6 if coat
-            else 5 if fresnel
-            else 4 if streams else (3 if disp else 2) if ext
-            else int(bool(plates)))
+    fam = ((FAM_FRESNEL if fresnel else 0) | (FAM_COAT if coat else 0)
+           | (FAM_DIFF if diff else 0) | (FAM_FUZZY if fuzzy_words else 0)
+           | (FAM_FREEFORM if freeform else 0) | (FAM_GRIN if grin else 0))
+    code = (6 if field else 5 if fam else 4 if streams
+            else (3 if disp else 2) if ext else int(bool(plates)))
     rc = kernel(f'rtt_{library}_occupancy')(
         n_rows, max(cfg.n_sensors, 1), cfg.n_bundles, int(n_bounces), code,
-        int(fuzzy_words), ctypes.byref(out))
+        int(fuzzy_words), fam, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f'{library} occupancy query failed with CUDA '
                            f'error {rc}')
@@ -1445,15 +1402,14 @@ def ext_maps(maps, ext):
 def grad_cols(plates, ext, disp=False, coat=False, diff=False,
               freeform=False):
     """The table columns whose cotangents K2 and K6 reduce (``disp``: the
-    table has a dispersive row, which only the extended kinds take;
-    ``coat``: the instantiation with the coatings, which adds the layer
-    thicknesses after them; ``diff``: the one with the diffractive kinds,
-    built on it, which adds a DOE row's coefficients after those;
-    ``freeform``: the one with freeform surfaces, built on those, which
-    adds all 32 ff columns in their place)."""
+    table has a dispersive row, which only the extended kinds take; the
+    families of the family and field instantiations: ``coat``, the coatings,
+    add the layer thicknesses after them; ``diff``, the diffractive kinds,
+    a DOE row's coefficients after those; ``freeform``, freeform surfaces,
+    all 32 ff columns in their place)."""
     if ext:
         return (EXT_GRAD_COLS + (DISP_GRAD_COLS if disp else ())
-                + (COAT_GRAD_COLS if coat or diff or freeform else ())
+                + (COAT_GRAD_COLS if coat else ())
                 + (FF_TERM_COLS if freeform
                    else FF_GRAD_COLS if diff else ()))
     return PLATE_GRAD_COLS if plates is not None else GRAD_COLS
@@ -1477,29 +1433,18 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     streams.  ``uniforms`` holds the table's FRESNEL rows' [F, N] draws, one
     stream per such row in row order (None: no row draws); its caller
     derives them from the table's static metadata
-    (rays/draws.py::sequential_uniforms).  ``coat``, the ``[K, 20]`` side
-    buffer of ``coat_side`` (None: no row's coating acts), runs the
-    instantiation with the coatings, which also takes the Fresnel kinds
-    and the streams; ``diff`` (the table has a diffractive kind,
-    ``diffractive_kinds``) the one with the diffractive kinds, built on it,
-    which reads ``coat`` (``coat_side`` gives it zeros on a table without
-    a coating).  ``fuzzy``, the int32 program buffer of ``fuzzy_buffer``
-    (None: no row is fuzzy), runs the instantiation with fuzzy programs,
-    built on the one with the diffractive kinds (whatever ``diff``), which
-    reads ``coat`` so.  ``ff``, the int32 exponent pairs of ``ff_side``
-    (None: no row is freeform), runs the instantiation with freeform
-    surfaces, built on the one with fuzzy programs, which reads ``fuzzy`` so
-    (``fuzzy_buffer`` gives it a -1 a row on a table without a callable).
-    ``field``, the launch field's six [N] streams (None: no field), runs the instantiation with the field, built
-    on the one with freeform surfaces, which reads ``coat``, ``fuzzy`` and
-    ``ff`` so (``coat_side``, ``fuzzy_buffer`` and ``ff_side`` give them for
-    a ``TraceMeta`` with ``field``); ``aux`` then holds the final field's six
-    streams as ``FIELD_KEYS``.  ``grin`` (the table has a GRIN row,
-    ``grin_kinds``; None: read it off ``kinds``, ``grin_rows``, one copy to
-    the host) runs the instantiation with GRIN rods, built on the one with
-    the streams (which it also takes, whatever the flags): ``fresnel``,
-    ``uniforms``, ``coat``, ``diff``, ``fuzzy``, ``ff`` and ``field`` must
-    then be off (``check_grin_args``; ``check_grin_kinds`` for a trace)."""
+    (rays/draws.py::sequential_uniforms).  The families run the family
+    instantiation, which also takes the streams, with each family's side
+    data (``family_args``): ``coat``, the ``[K, 20]`` side buffer of
+    ``coat_side`` (None: no row's coating acts); ``diff`` (the table has a
+    diffractive kind, ``diffractive_kinds``); ``fuzzy``, the int32 program
+    buffer of ``fuzzy_buffer`` (None: no row is fuzzy); ``ff``, the int32
+    exponent pairs of ``ff_side`` (None: no row is freeform); ``grin`` (the
+    table has a GRIN row, ``grin_kinds``; None: read it off ``kinds``,
+    ``grin_rows``, one copy to the host).  ``field``, the launch field's six
+    [N] streams (None: no field), runs the field's instantiation with the
+    same families (no ``grin``: ``check_grin_args``); ``aux`` then holds
+    the final field's six streams as ``FIELD_KEYS``."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits,
                         field is not None)
@@ -1510,55 +1455,69 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     return res[:-1]
 
 
-def draw_args(fresnel, uniforms, n, device, coat=None, k=0, diff=False,
-              fuzzy=None, ff=None):
+def family_bits(fresnel=False, coat=None, diff=False, fuzzy=None, ff=None,
+                grin=False):
+    """The ``FAM_*`` bits of a K1, K2, K5 or K6 wrapper's family arguments
+    (0: no family, the instantiation with the streams or the path
+    length)."""
+    return ((FAM_FRESNEL if fresnel else 0)
+            | (FAM_COAT if coat is not None else 0)
+            | (FAM_DIFF if diff else 0)
+            | (FAM_FUZZY if fuzzy is not None else 0)
+            | (FAM_FREEFORM if ff is not None else 0)
+            | (FAM_GRIN if grin else 0))
+
+
+def family_args(fam, k, device, coat=None, fuzzy=None, ff=None):
+    """The side data's C arguments of the family and field instantiations
+    after the draws: the side buffer ``coat`` (checked to be a contiguous
+    float32 [K, COAT_SIDE] tensor on ``device``), the program buffer
+    ``fuzzy`` and its words, the exponent pairs ``ff`` (a contiguous int32
+    [K, FF_SIDE] tensor), each null for None, then the ``FAM_*`` bits
+    ``fam``."""
+    if coat is not None:
+        check(coat, 'coat side buffer', torch.float32, (k, COAT_SIDE), device)
+    if ff is not None:
+        check(ff, 'freeform exponent pairs', torch.int32, (k, FF_SIDE),
+              device)
+    return (ptr(coat), *fuzzy_args(fuzzy, k, device), ptr(ff), fam)
+
+
+def draw_args(fresnel, uniforms, n, device):
     """The K1 and K2 wrappers' draw arguments: the [F, N] ``uniforms``
     (None: no row draws) checked to be a contiguous float32 tensor on
-    ``device``, the ``[K, 20]`` side buffer ``coat`` (None: not the
-    instantiation with the coatings), ``diff``, the program buffer
-    ``fuzzy`` and the exponent pairs ``ff`` -> the (pointer, F,
-    ``fresnel``, side pointer, ``diff``, program pointer, words, pairs
-    pointer) C arguments."""
-    side = (coat_ptr(coat, k, device, diff) + fuzzy_args(fuzzy, k, device)
-            + (ff_ptr(ff, k, device, fuzzy),))
+    ``device`` -> the (pointer, F) C arguments."""
     if uniforms is None or uniforms.shape[0] == 0:
-        return None, 0, int(fresnel), *side
+        return None, 0
     if not fresnel:
-        raise ValueError('uniforms are read only by the instantiation with '
-                         'the Fresnel kinds')
+        raise ValueError('uniforms are read only by the family '
+                         'instantiation with the Fresnel kinds')
     check(uniforms, 'uniforms', torch.float32, (uniforms.shape[0], n),
           device)
-    return uniforms.data_ptr(), uniforms.shape[0], 1, *side
+    return uniforms.data_ptr(), uniforms.shape[0]
 
 
-def coat_ptr(coat, k, device, diff=False):
-    """The side buffer's and ``diff``'s C arguments (``coat`` checked to be
-    a contiguous float32 [K, COAT_SIDE] tensor on ``device``; null for None,
-    which the instantiation with the diffractive kinds, ``diff``, does not
-    take)."""
-    if coat is None:
-        if diff:
-            raise ValueError('the instantiation with the diffractive kinds '
-                             'reads the side buffer: pass coat=coat_side('
-                             'static_meta, device)')
-        return None, int(diff)
-    check(coat, 'coat side buffer', torch.float32, (k, COAT_SIDE), device)
-    return coat.data_ptr(), int(diff)
-
-
-def ff_ptr(ff, k, device, fuzzy=None):
-    """The exponent pairs' C argument: ``ff`` checked to be a contiguous
-    int32 ``[K, FF_SIDE]`` tensor on ``device`` beside a program buffer
-    ``fuzzy`` (the instantiation with freeform surfaces is built on the one
-    with fuzzy programs); null for None."""
-    if ff is None:
-        return None
-    if fuzzy is None:
-        raise ValueError('the instantiation with freeform surfaces reads the '
-                         'program buffer: pass fuzzy=fuzzy_buffer('
-                         'static_meta, device)')
-    check(ff, 'freeform exponent pairs', torch.int32, (k, FF_SIDE), device)
-    return ff.data_ptr()
+def count_launch(fam, field=False, streams=False, ext=False):
+    """Count a K1, K2, K5 or K6 launch in its instantiation's counters: the
+    field's in ``FIELD_LAUNCHES``, the family instantiation's in each of its
+    families' (``fam``), the streams' (or path length's) in
+    ``STREAM_LAUNCHES``, the extended kinds' in ``EXT_LAUNCHES``."""
+    global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
+    global DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES, FIELD_LAUNCHES
+    global GRIN_LAUNCHES
+    if field:
+        FIELD_LAUNCHES += 1
+    elif fam:
+        FRESNEL_LAUNCHES += bool(fam & FAM_FRESNEL)
+        COAT_LAUNCHES += bool(fam & FAM_COAT)
+        DIFF_LAUNCHES += bool(fam & FAM_DIFF)
+        FUZZY_LAUNCHES += bool(fam & FAM_FUZZY)
+        FREEFORM_LAUNCHES += bool(fam & FAM_FREEFORM)
+        GRIN_LAUNCHES += bool(fam & FAM_GRIN)
+    elif streams:
+        STREAM_LAUNCHES += 1
+    else:
+        EXT_LAUNCHES += int(ext)
 
 
 def fuzzy_args(fuzzy, k, device):
@@ -1626,22 +1585,14 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                     grin=None):
     """K1's launch -> ``(rays, SensorState, launches)``, with any stream
     ``(rays, SensorState, aux, launches)``."""
-    global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
-    global DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES, FIELD_LAUNCHES
-    global GRIN_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
-    grin = check_grin_args(kinds, grin, fresnel, uniforms, coat, diff, fuzzy,
-                           ff, field)
-    if field is not None and (coat is None or fuzzy is None or ff is None):
-        raise ValueError('the instantiation with the field reads the side '
-                         'buffers: pass coat=, fuzzy= and ff= of a TraceMeta '
-                         'with field=True')
-    fresnel = fresnel or coat is not None
-    diff = diff or fuzzy is not None
-    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy, ff)
-    plates = plate_buffers(ext_maps(maps, ext or flags.any or fresnel or grin),
-                           rays, device)
+    grin = check_grin_args(kinds, grin, field)
+    fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
+    draws = draw_args(fresnel, uniforms, n, device)
+    side = family_args(fam, k, device, coat, fuzzy, ff)
+    plates = plate_buffers(ext_maps(maps, ext or flags.any or fam), rays,
+                           device)
     outs = [torch.empty(n, dtype=torch.float32, device=device)
             for _ in COMPS]
     n_blocks = -(-n // THREADS)
@@ -1660,16 +1611,14 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
                 *grid_args(cfg, grid if cfg.grid_shape else None),
                 *plate_args(plates))
         with torch.cuda.device(device):
-            if grin:
-                rc = kernel('rtt_trace_seq_fwd_grin')(
-                    *args, *stream_args(bufs), n, stream(device))
-            elif field is not None:
+            if field is not None:
                 rc = kernel('rtt_trace_seq_fwd_field')(
-                    *args, *stream_args(bufs), *draws, f_in.data_ptr(),
-                    f_out.data_ptr(), n, stream(device))
-            elif fresnel or flags.any:
+                    *args, *stream_args(bufs), *draws, *side,
+                    f_in.data_ptr(), f_out.data_ptr(), n, stream(device))
+            elif fam or flags.any:
                 rc = kernel('rtt_trace_seq_fwd_streams')(
-                    *args, *stream_args(bufs), *draws, n, stream(device))
+                    *args, *stream_args(bufs), *draws, *side, n,
+                    stream(device))
             else:
                 rc = kernel('rtt_trace_seq_fwd')(*args, int(ext), n,
                                                  stream(device))
@@ -1677,24 +1626,7 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
             raise RuntimeError(f'trace_seq_fwd launch failed with CUDA '
                                f'error {rc}')
         launched = 1
-        if grin:
-            GRIN_LAUNCHES += 1
-        elif field is not None:
-            FIELD_LAUNCHES += 1
-        elif ff is not None:
-            FREEFORM_LAUNCHES += 1
-        elif fuzzy is not None:
-            FUZZY_LAUNCHES += 1
-        elif diff:
-            DIFF_LAUNCHES += 1
-        elif coat is not None:
-            COAT_LAUNCHES += 1
-        elif fresnel:
-            FRESNEL_LAUNCHES += 1
-        elif flags.any:
-            STREAM_LAUNCHES += 1
-        else:
-            EXT_LAUNCHES += int(ext)
+        count_launch(fam, field is not None, flags.any, ext)
     out = rays.replace(**dict(zip(COMPS, outs)))
     sensors = SensorState(moments=partials.sum(dim=0), grid=grid)
     if flags.any:
@@ -1730,37 +1662,26 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     whatever ``ext``.  ``opl`` (K1 ran with ``track_opl``) takes the
     instantiation with the optical path length, whatever ``ext``, with
     ``g_opl`` and ``g_nfinal`` the cotangents of K1's ``opl`` and
-    ``n_final`` (None for zero).  ``fresnel`` and ``uniforms`` as for
-    ``trace_seq_fwd_cuda``: the instantiation with the Fresnel kinds
-    (which also takes the path length), reading K1's draws; ``coat`` as
-    there: the one with the coatings, whose table cotangent adds the layer
-    thicknesses' (``COAT_GRAD_COLS``); ``diff`` as there: the one with the
-    diffractive kinds, which adds a DOE row's coefficients'
-    (``FF_GRAD_COLS``); ``fuzzy`` as there: the one with fuzzy programs,
-    whose hits' cotangents add the adjoint of each program's factor; ``ff``
-    as there: the one with freeform surfaces, which reverses the freeform
-    rows' Newton steps and reduces all 32 ff columns (``FF_TERM_COLS``);
-    ``field`` as there: the one with the field, with ``g_field`` the final
-    field's six cotangents (each None for zero); ``grin`` as there: the one
-    with GRIN rods, built on the one with the path length (which it takes,
-    whatever ``opl``), which reverses each rod's RK4 steps from checkpoints
-    (csrc/grin.cuh)."""
-    global BWD_LAUNCHES, EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES
-    global COAT_LAUNCHES, DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES
-    global FIELD_LAUNCHES, GRIN_LAUNCHES
+    ``n_final`` (None for zero).  The families (``fresnel``, ``uniforms``,
+    ``coat``, ``diff``, ``fuzzy``, ``ff``, ``grin``) as for
+    ``trace_seq_fwd_cuda``: the family instantiation (which also takes the
+    path length), reading K1's draws and side data, whose table cotangent
+    adds the layer thicknesses' (``COAT_GRAD_COLS``, with ``coat``) and
+    then all 32 ff columns' (``FF_TERM_COLS``, with ``ff``) or a DOE row's
+    coefficients' (``FF_GRAD_COLS``, with ``diff``); it reverses a fuzzy
+    row's factor with the program's partials, a freeform row's Newton steps
+    and a rod's RK4 steps from checkpoints (csrc/grin.cuh).  ``field`` as
+    there: the field's instantiation with those families, with ``g_field``
+    the final field's six cotangents (each None for zero)."""
+    global BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
-    grin = check_grin_args(kinds, grin, fresnel, uniforms, coat, diff, fuzzy,
-                           ff, field)
-    if field is not None and (coat is None or fuzzy is None or ff is None):
-        raise ValueError('the instantiation with the field reads the side '
-                         'buffers: pass coat=, fuzzy= and ff= of a TraceMeta '
-                         'with field=True')
+    grin = check_grin_args(kinds, grin, field)
+    fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
     opl = opl or field is not None
-    fresnel = fresnel or coat is not None
-    diff = diff or fuzzy is not None
-    ext = ext or need_wavelength or opl or fresnel or grin
-    draws = draw_args(fresnel, uniforms, n, device, coat, k, diff, fuzzy, ff)
+    ext = ext or need_wavelength or opl or bool(fam)
+    draws = draw_args(fresnel, uniforms, n, device)
+    side = family_args(fam, k, device, coat, fuzzy, ff)
     if disp is None:
         disp = ext and dispersive_kinds(kinds)
     plates = plate_buffers(ext_maps(maps, ext), rays, device)
@@ -1795,16 +1716,14 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
                 *grid_args(cfg, g_grid), *plate_args(plates),
                 ptr(g_maps), ptr(g_wl), int(ext and disp))
         with torch.cuda.device(device):
-            if grin:
-                rc = kernel('rtt_trace_seq_bwd_grin')(
-                    *args, ptr(g_opl), ptr(g_nfinal), n, stream(device))
-            elif field is not None:
+            if field is not None:
                 rc = kernel('rtt_trace_seq_bwd_field')(
-                    *args, ptr(g_opl), ptr(g_nfinal), *draws, f_in.data_ptr(),
-                    ptr(g_fout), c_field.data_ptr(), n, stream(device))
-            elif fresnel or opl:
+                    *args, ptr(g_opl), ptr(g_nfinal), *draws, *side,
+                    f_in.data_ptr(), ptr(g_fout), c_field.data_ptr(), n,
+                    stream(device))
+            elif fam or opl:
                 rc = kernel('rtt_trace_seq_bwd_opl')(
-                    *args, ptr(g_opl), ptr(g_nfinal), *draws, n,
+                    *args, ptr(g_opl), ptr(g_nfinal), *draws, *side, n,
                     stream(device))
             else:
                 rc = kernel('rtt_trace_seq_bwd')(*args, int(ext), n,
@@ -1813,44 +1732,23 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
             raise RuntimeError(f'trace_seq_bwd launch failed with CUDA '
                                f'error {rc}')
         BWD_LAUNCHES += 1
-        if grin:
-            GRIN_LAUNCHES += 1
-        elif field is not None:
-            FIELD_LAUNCHES += 1
-        elif ff is not None:
-            FREEFORM_LAUNCHES += 1
-        elif fuzzy is not None:
-            FUZZY_LAUNCHES += 1
-        elif diff:
-            DIFF_LAUNCHES += 1
-        elif coat is not None:
-            COAT_LAUNCHES += 1
-        elif fresnel:
-            FRESNEL_LAUNCHES += 1
-        elif opl:
-            STREAM_LAUNCHES += 1
-        else:
-            EXT_LAUNCHES += int(ext)
+        count_launch(fam, field is not None, opl, ext)
     res = table_and_map_cotangents(k, cols, partials, outs, plates, g_maps,
                                    device, g_wl)
     return res + (tuple(c_field),) if field is not None else res
 
 
-def check_grin_args(kinds, grin=None, fresnel=False, uniforms=None,
-                    coat=None, diff=False, fuzzy=None, ff=None, field=None):
-    """Whether the K1, K2, K5 and K6 wrappers run their instantiation with
-    GRIN rods: ``grin``, or with None whether ``kinds`` has a GRIN row
-    (``grin_rows``); raises if that instantiation (built on the one with the
-    streams) would get a kind it is not built on (``check_grin_kinds`` says
-    so for a trace)."""
+def check_grin_args(kinds, grin=None, field=None):
+    """Whether the K1, K2, K5 and K6 wrappers run GRIN rods (in the family
+    instantiation): ``grin``, or with None whether ``kinds`` has a GRIN row
+    (``grin_rows``); raises if the field's instantiation would get one
+    (ROADMAP Queue 1 position 4b; ``check_grin_kinds`` says so for a
+    trace)."""
     if grin is None:
         grin = grin_rows(kinds)
-    if grin and (fresnel or uniforms is not None or coat is not None or diff
-                 or fuzzy is not None or ff is not None or field is not None):
-        raise ValueError('the instantiation with GRIN rods is built on the '
-                         'one with the streams: no fresnel, uniforms, coat, '
-                         'diff, fuzzy, ff or field (ROADMAP Queue 1 '
-                         'positions 3c, 4b)')
+    if grin and field is not None:
+        raise ValueError('the field\'s instantiation takes no GRIN rods '
+                         '(ROADMAP Queue 1 position 4b)')
     return grin
 
 

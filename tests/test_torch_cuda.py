@@ -726,10 +726,11 @@ def test_bwd_table_cotangent_is_deterministic(lib, dev):
 
 
 def _flags(name):
-    """The template arguments of a mangled kernel name, as ints: the last
-    is kExt, the one before kPlates."""
+    """The bool and int template arguments of a mangled kernel name, as
+    ints (a family set, uint32_t, left out): the last is kExt, the one
+    before kPlates."""
     import re
-    m = re.search(r'_kernelI((?:L[bi]\d+E)+)E', name)
+    m = re.search(r'_kernelI((?:L[bij]\d+E)+)E', name)
     return [int(v) for v in re.findall(r'L[bi](\d+)E', m.group(1))]
 
 
@@ -748,48 +749,21 @@ def _ext(name):
 
 def _streams(name):
     """Whether a mangled kernel name is an overload with the deterministic
-    streams (a StreamOut or OplIn argument) and without the Fresnel kinds,
-    the coatings or the diffractive kinds (``_fresnel``, ``_coat``,
-    ``_diff``), which take those arguments too."""
-    return (('StreamOut' in name or 'OplIn' in name)
-            and not ('SeqDraws' in name or 'PhiloxKey' in name))
+    streams (a StreamOut or OplIn argument) and without the families' side
+    data (a FamSide argument: ``_family``, the field's), which take those
+    arguments too."""
+    return ('StreamOut' in name or 'OplIn' in name) and 'FamSide' not in name
 
 
-def _fresnel(name):
-    """Whether a mangled kernel name is an overload with the Fresnel kinds
-    (a SeqDraws or PhiloxKey argument) and without the coatings or the
-    diffractive kinds (``_coat``, ``_diff``), which take those arguments
-    too."""
-    return (('SeqDraws' in name or 'PhiloxKey' in name)
-            and 'CoatSide' not in name)
-
-
-def _coat(name):
-    """Whether a mangled kernel name is an overload with the coatings (a
-    CoatSide argument) and without the diffractive kinds (a DiffKinds
-    argument: ``_diff``, ``_fuzzy``), which take that argument too."""
-    return 'CoatSide' in name and 'DiffKinds' not in name
-
-
-def _diff(name):
-    """Whether a mangled kernel name is an overload with the diffractive
-    kinds (a DiffKinds argument) and without the fuzzy programs (a
-    FuzzyProgs argument: ``_fuzzy``, ``_freeform``), which take that
-    argument too."""
-    return 'DiffKinds' in name and 'FuzzyProgs' not in name
-
-
-def _fuzzy(name):
-    """Whether a mangled kernel name is an overload with the fuzzy programs
-    (a FuzzyProgs argument) and without the freeform surfaces
-    (``_freeform``), which take that argument too."""
-    return 'FuzzyProgs' in name and not _freeform(name)
-
-
-def _freeform(name):
-    """Whether a mangled kernel name is an overload with the freeform
-    surfaces (an FfSide argument)."""
-    return 'FfSide' in name
+def _family(name, fams=63):
+    """Whether a mangled kernel name is an instantiation with a FamSide
+    argument of the family set ``fams`` (csrc/trace_seq_common.cuh::
+    fam_link: 63, the family instantiation, every family together; 1, 3, 7,
+    15 and 32, the chain's links that a table of one family runs: the
+    Fresnel kinds, the coatings, the diffractive kinds, the fuzzy programs,
+    GRIN rods), not the field's (a FieldIO or FieldIn argument too)."""
+    return ('FamSide' in name and 'Field' not in name
+            and f'Lj{fams}E' in name)
 
 
 @pytest.mark.cuda
@@ -1363,8 +1337,7 @@ def test_ext_instantiations_are_built(dev):
         usage = nvcc_build.ptxas_usage(logs[lib][0])
         ext = [k for k in usage
                if f'{lib}_kernel' in k and _ext(k) and not _streams(k)
-               and not _fresnel(k) and not _coat(k) and not _diff(k)
-               and not _fuzzy(k) and not _freeform(k)]
+               and 'FamSide' not in k]
         assert len(ext) == count, (lib, ext)
         assert all(usage[k]['registers'] for k in ext)
     for case in EXT_CASES:
@@ -1792,7 +1765,8 @@ def test_fresnel_instantiations_are_built(dev):
             'trace_nonseq_bwd': 1}
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
-        found = [k for k in usage if f'{lib}_kernel' in k and _fresnel(k)]
+        found = [k for k in usage if f'{lib}_kernel' in k
+                 and _family(k, 1)]
         assert len(found) == count, (lib, found)
         assert all(usage[k]['registers'] for k in found)
 
@@ -1831,8 +1805,9 @@ def test_coat_kernels_match_plain(name, nonseq, dev):
 @pytest.mark.cuda
 def test_coat_paths_launch_their_instantiation(dev):
     """``simulate_fused`` of a coated scene launches K1 (K5) once in the
-    instantiation with the coatings and, under grad, K2 (K6) in theirs;
-    a scene whose stack sits on SNELL faces takes the main path's."""
+    family instantiation with the coatings (and the Fresnel kinds of its
+    faces) and, under grad, K2 (K6) in theirs; a scene whose stack sits on
+    SNELL faces takes the main path's."""
     rays = chip_smoke.sample_rays(trt, torch, N, dev, 62)
     for nb, mod, fwd, bwd in (
             (None, fused_trace, 'LAUNCHES', 'BWD_LAUNCHES'),
@@ -1847,8 +1822,10 @@ def test_coat_paths_launch_their_instantiation(dev):
         sens.moments[0, 0, 0].backward()
         torch.cuda.synchronize()
         assert (getattr(mod, fwd), getattr(mod, bwd)) == (1, 1)
+        # the family instantiation counts in each family it ran with: the
+        # coated faces are FRESNEL_W rows
         assert fused_trace.COAT_LAUNCHES == 2
-        assert fused_trace.FRESNEL_LAUNCHES == 0
+        assert fused_trace.FRESNEL_LAUNCHES == 2
         assert float(p['lens']['coat_d'].grad.abs().max()) > 0
     fused_trace.COAT_LAUNCHES = 0
     snell = chip_smoke.coated_scene(trt, False)
@@ -1867,7 +1844,8 @@ def test_coat_instantiations_are_built(dev):
             'trace_nonseq_bwd': 1}
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
-        found = [k for k in usage if f'{lib}_kernel' in k and _coat(k)]
+        found = [k for k in usage if f'{lib}_kernel' in k
+                 and _family(k, 3)]
         assert len(found) == count, (lib, found)
         assert all(usage[k]['registers'] for k in found)
 
@@ -1939,7 +1917,8 @@ def test_diff_instantiations_are_built(dev):
             'trace_nonseq_bwd': 1}
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
-        found = [k for k in usage if f'{lib}_kernel' in k and _diff(k)]
+        found = [k for k in usage if f'{lib}_kernel' in k
+                 and _family(k, 7)]
         assert len(found) == count, (lib, found)
         assert all(usage[k]['registers'] for k in found)
 
@@ -2010,7 +1989,8 @@ def test_fuzzy_kernels_match_plain(name, dev):
 @pytest.mark.cuda
 def test_fuzzy_paths_launch_their_instantiation(dev):
     """``simulate_fused`` of the obscured pupil launches K1 (as a Scene K5)
-    once in the instantiation with fuzzy programs; a grad step of the
+    once in the family instantiation with fuzzy programs (and the
+    diffractive kinds of its ideal lens); a grad step of the
     Gaussian apodizer K1 and K2 in theirs, and its curvatures get the eager
     trace's gradients."""
     for name, mod, fwd in (('pupil', fused_trace, 'LAUNCHES'),
@@ -2023,7 +2003,9 @@ def test_fuzzy_paths_launch_their_instantiation(dev):
             out, _, _ = sc.simulate_fused(p, rays)
         torch.cuda.synchronize()
         assert getattr(mod, fwd) == 1 and fused_trace.FUZZY_LAUNCHES == 1
-        assert fused_trace.DIFF_LAUNCHES == 0
+        # the family instantiation counts in each family it ran with: the
+        # pupil's IdealThinLens is of the diffractive family
+        assert fused_trace.DIFF_LAUNCHES == 1
         ref, _, _ = sc.simulate(p, rays)
         torch.testing.assert_close(out.intensity, ref.intensity, rtol=0,
                                    atol=0)
@@ -2056,7 +2038,8 @@ def test_fuzzy_instantiations_are_built(dev):
             'trace_nonseq_bwd': 1}
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
-        found = [k for k in usage if f'{lib}_kernel' in k and _fuzzy(k)]
+        found = [k for k in usage if f'{lib}_kernel' in k
+                 and _family(k, 15)]
         assert len(found) == count, (lib, found)
         assert all(usage[k]['registers'] for k in found)
 
@@ -2175,7 +2158,8 @@ def test_freeform_instantiations_are_built(dev):
             'trace_nonseq_bwd': 1}
     for lib, count in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
-        found = [k for k in usage if f'{lib}_kernel' in k and _freeform(k)]
+        found = [k for k in usage if f'{lib}_kernel' in k
+                 and _family(k, 63)]
         assert len(found) == count, (lib, found)
         assert all(usage[k]['registers'] for k in found)
 
@@ -2213,55 +2197,61 @@ def _freeform_smem_scenes():
             for extra in ([], [disp], [apod])]
 
 
+def _k6_smem(meta, cfg, bounces, field, dev):
+    """The shared memory K6's family (or, with ``field``, field)
+    instantiation takes for a launch of this table (``rtt_trace_nonseq_bwd_
+    smem``)."""
+    import ctypes
+    query = fused_trace.kernel('rtt_trace_nonseq_bwd_smem')
+    prog = fused_trace.fuzzy_buffer(meta, dev)
+    out = ctypes.c_longlong(0)
+    assert query(len(meta), max(cfg.n_sensors, 1), cfg.n_bundles, bounces,
+                 int(fused_trace.dispersive(meta)),
+                 0 if prog is None else int(prog.numel()),
+                 fused_trace.families(meta), int(field),
+                 ctypes.byref(out)) == 0
+    return out.value
+
+
 @pytest.mark.cuda
 def test_freeform_shared_limit_is_the_kernels(dev):
-    """``fused_nonseq.freeform_k6_shared_bytes``, the host's limit of K6 with
-    freeform surfaces, equals the shared memory K6's launch takes
-    (``rtt_trace_nonseq_bwd_freeform_smem``) on the freeform Scene, with a
+    """``fused_nonseq.freeform_k6_shared_bytes``, the host's limit of K6's
+    family instantiation, equals the shared memory K6's launch takes
+    (``rtt_trace_nonseq_bwd_smem``) on the freeform Scene, with a
     dispersive row and with fuzzy programs, at bounce budgets below, at and
     above the checkpoints and at 1 and 3 bundles."""
-    import ctypes
-    query = fused_trace.kernel('rtt_trace_nonseq_bwd_freeform_smem')
     for sc in _freeform_smem_scenes():
         meta = fused_trace.TraceMeta(sc.static_meta(), sc.fuzzy_fns())
-        words = int(fused_trace.fuzzy_buffer(meta, dev).numel())
         for bundles in (1, 3):
             cfg = sc.sensor_config(bundles)
             for bounces in (1, 8, fused_nonseq.K6_CHECKPOINTS, 25):
-                out = ctypes.c_longlong(0)
-                assert query(len(meta), max(cfg.n_sensors, 1), cfg.n_bundles,
-                             bounces, int(fused_trace.dispersive(meta)),
-                             words, ctypes.byref(out)) == 0
-                assert out.value == fused_nonseq.freeform_k6_shared_bytes(
-                    meta, cfg, bounces), (len(meta), bundles, bounces)
+                assert _k6_smem(meta, cfg, bounces, False, dev) == \
+                    fused_nonseq.freeform_k6_shared_bytes(
+                        meta, cfg, bounces), (len(meta), bundles, bounces)
 
 
 @pytest.mark.cuda
 def test_field_shared_limit_is_the_kernels(dev):
     """``fused_nonseq.field_k6_shared_bytes``, the host's limit of K6 with
     the field, equals the shared memory K6's launch takes
-    (``rtt_trace_nonseq_bwd_field_smem``) on section 19's naive scene and
-    coated singlet, and the coated singlet with a dispersive row, at bounce
-    budgets below, at and above its checkpoints and at 1 and 3
-    bundles."""
-    import ctypes
-    query = fused_trace.kernel('rtt_trace_nonseq_bwd_field_smem')
+    (``rtt_trace_nonseq_bwd_smem``) on section 19's naive scene and
+    coated singlet, the coated singlet with a dispersive row, and section
+    21's freeform corrector under the field, at bounce budgets below, at
+    and above its checkpoints and at 1 and 3 bundles."""
     disp = trt.SingletLens(c1=0.05, c2=-0.05, d=10.0, t=3.0, ior_glass=1.5,
                            abbe_vd=60.0, translation=[0, 0, 30.0],
                            name='disp')
     coated = chip_smoke.field_ns_scene(trt, 'coated')
     for sc in (chip_smoke.field_ns_scene(trt, 'naive'), coated,
-               trt.Scene(coated.elements + [disp], n_bounces=6)):
+               trt.Scene(coated.elements + [disp], n_bounces=6),
+               chip_smoke.ex19_scene(trt, n_bounces=4)):
         meta = fused_trace.TraceMeta(sc.static_meta(), None, field=True)
         for bundles in (1, 3):
             cfg = sc.sensor_config(bundles)
             for bounces in (1, 4, fused_nonseq.K6_FIELD_CHECKPOINTS, 25):
-                out = ctypes.c_longlong(0)
-                assert query(len(meta), max(cfg.n_sensors, 1), cfg.n_bundles,
-                             bounces, int(fused_trace.dispersive(meta)),
-                             ctypes.byref(out)) == 0
-                assert out.value == fused_nonseq.field_k6_shared_bytes(
-                    meta, cfg, bounces), (len(meta), bundles, bounces)
+                assert _k6_smem(meta, cfg, bounces, True, dev) == \
+                    fused_nonseq.field_k6_shared_bytes(
+                        meta, cfg, bounces), (len(meta), bundles, bounces)
 
 
 @pytest.mark.cuda
@@ -2333,17 +2323,18 @@ def test_grin_paths_launch_their_instantiation(dev):
 
 @pytest.mark.cuda
 def test_grin_instantiations_are_built(dev):
-    """K1 and K6 build one overload with GRIN rods, K2 one for each home of
-    its saved states and K5 one for each moment bucket; each has its
-    registers, and each keeps a block resident on an SM on the section 20
-    scenes."""
+    """K1 builds one instantiation for GRIN rods alone and K2 one for each
+    home of its saved states; K5 and K6 run such tables in their family
+    instantiation (K5 one for each moment bucket); each has its registers,
+    and each keeps a block resident on an SM on the section 20 scenes."""
     from raytracetorch_tpu_torch.ops import nvcc_build
     logs = fused_trace.build()
-    want = {'trace_seq_fwd': 1, 'trace_seq_bwd': 2, 'trace_nonseq_fwd': 2,
-            'trace_nonseq_bwd': 1}
-    for lib, count in want.items():
+    want = {'trace_seq_fwd': (1, 32), 'trace_seq_bwd': (2, 32),
+            'trace_nonseq_fwd': (2, 63), 'trace_nonseq_bwd': (1, 63)}
+    for lib, (count, fams) in want.items():
         usage = nvcc_build.ptxas_usage(logs[lib][0])
-        found = [k for k in usage if f'{lib}_kernel' in k and 'GrinRows' in k]
+        found = [k for k in usage if f'{lib}_kernel' in k
+                 and _family(k, fams)]
         assert len(found) == count, (lib, found)
         assert all(usage[k]['registers'] for k in found)
     for name, libs in (('mixed', ('trace_seq_fwd', 'trace_seq_bwd')),
@@ -2353,3 +2344,55 @@ def test_grin_instantiations_are_built(dev):
             assert fused_trace.blocks_per_sm(
                 lib, len(sc.static_meta()), sc.sensor_config(), True,
                 getattr(sc, 'n_bounces', 0), ext=True, grin=True) >= 1, lib
+
+
+# ---- the kind mix: the family instantiation on tables that mix families
+# (chip_smoke.py section 21) ----
+
+MIX_CASES = (chip_smoke.MIX_SEQ_CASES + chip_smoke.MIX_NS_CASES
+             + chip_smoke.MIX_FIELD_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', MIX_CASES)
+def test_kind_mix_kernels_match_plain(name, dev):
+    """K1 and K2, K5 and K6 in their family instantiation (the field's on
+    the field cases) against their plain versions on a section 21 case:
+    chip_smoke.mix_kernels_vs_plain's rules at 20,000 rays (K6's replay
+    against K5 bit for bit)."""
+    res = chip_smoke.mix_kernels_vs_plain(trt, torch, name, 20_000, dev)
+    assert res['apart'] <= max(3, 20_000 * 1e-3), res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', MIX_CASES)
+def test_kind_mix_launches_the_family_instantiation(name, dev):
+    """``simulate_fused`` of a section 21 case launches K1 (K5) once, counted
+    in each family its table has (the field's cases in FIELD_LAUNCHES
+    alone), and its grad step K2 (K6) once more."""
+    sc = chip_smoke.mix_scene(trt, name, torch)
+    field = name in chip_smoke.MIX_FIELD_CASES
+    meta = fused_trace.TraceMeta(sc.static_meta(), sc.fuzzy_fns(), field)
+    rays = chip_smoke.mix_rays(trt, torch, name, 4096, dev)
+    kw = dict(track_field=True, E0=list(chip_smoke.MIX_E0)) if field else {}
+    u = chip_smoke.mix_uniforms(torch, meta, rays.n, dev)
+    if u is not None:
+        kw['uniforms'] = u
+    names = ('FRESNEL', 'COAT', 'DIFF', 'FUZZY', 'FREEFORM', 'GRIN',
+             'FIELD')
+    for k in names:
+        setattr(fused_trace, f'{k}_LAUNCHES', 0)
+    p = sc.init_params(dev)
+    el, leaf = chip_smoke.MIX_LEAVES[name][0]
+    p[el][leaf].requires_grad_(True)
+    chip_smoke.mix_loss(sc.simulate_fused(p, rays, **kw)[1]).backward()
+    torch.cuda.synchronize()
+    got = {k: getattr(fused_trace, f'{k}_LAUNCHES') for k in names}
+    want = dict.fromkeys(names, 0)
+    if field:
+        want['FIELD'] = 2
+    else:
+        want.update({k.upper(): v for k, v in
+                     chip_smoke.mix_family_counts(meta, 2).items()})
+    assert got == want, (name, got, want)
+    assert bool(torch.isfinite(p[el][leaf].grad).all())

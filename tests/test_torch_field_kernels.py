@@ -321,17 +321,19 @@ def test_header_kinds():
 def test_jones_kind_bits(make, bits):
     """A JONES row's kinds row carries its chromatic flag and crystal above
     COAT_SHIFT (field.cuh::jones_delta's bits), and the fused trace runs
-    the instantiation with the field for it: the side buffers of a
-    TraceMeta with ``field``."""
+    the instantiation with the field for it, with no family's side data
+    (a JONES row is of none)."""
     sc = trt.SequentialScene([make(), trt.SensorElement(radius=5.0,
                                                         name='s')])
     meta = ft.TraceMeta(sc.static_meta(), None, field=True)
     rows = ft.kind_rows(meta, sc.sensor_config())
     assert rows[0][0] == PhysKind.JONES | bits << ft.COAT_SHIFT
     assert ft.field_kinds(meta) and not ft.field_kinds(sc.static_meta())
-    assert ft.coat_side(meta, 'cpu').shape == (2, ft.COAT_SIDE)
-    assert ft.ff_side(meta, 'cpu').shape == (2, ft.FF_SIDE)
-    assert ft.fuzzy_buffer(meta, 'cpu').tolist() == [-1, -1]
+    # no family: the field's instantiation reads no side data
+    assert ft.families(meta) == 0
+    assert ft.coat_side(meta, 'cpu') is None
+    assert ft.ff_side(meta, 'cpu') is None
+    assert ft.fuzzy_buffer(meta, 'cpu') is None
     assert ft.plate_maps(meta, None) == ()
     flags = ft.StreamFlags(False, False, False, True)
     assert flags.any and flags.keys() == ft.FIELD_KEYS

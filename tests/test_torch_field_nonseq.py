@@ -273,10 +273,10 @@ def test_gradients_match_jax(fused):
 
 
 def test_refusals_and_the_field_free_path():
-    """Under the field the fused trace refuses diffractive, fuzzy and
-    freeform rows (ROADMAP Queue 1 position 3c) on the CPU as on the card,
-    where the eager trace takes them; a JONES row without the field raises
-    in both traces; K6's shared memory of the field is planned (the naive
+    """Under the field the fused trace takes diffractive, fuzzy and freeform
+    rows (the field's instantiation compiles every family but GRIN rods)
+    and equals the eager trace; a JONES row without the field raises in
+    both traces; K6's shared memory of the field is planned (the naive
     scene fits two blocks an SM, a 60-row table raises); an E0 without
     ``track_field`` changes nothing, sequential or not."""
     gen = torch.Generator().manual_seed(0)
@@ -286,10 +286,14 @@ def test_refusals_and_the_field_free_path():
                cs.ex19_scene(trt, n_bounces=4)):
         p = sc.init_params('cpu')
         r = rays.replace(wavelength=torch.full_like(rays.px, 0.5876))
-        with pytest.raises(NotImplementedError, match='3c'):
-            sc.simulate_fused(p, r, track_field=True)
-        aux = sc.simulate(p, r, track_field=True)[2]
+        out_f, s_f, aux_f = sc.simulate_fused(p, r, track_field=True)
+        out_e, s_e, aux = sc.simulate(p, r, track_field=True)
         assert bool(torch.isfinite(aux['field_power']).all())
+        torch.testing.assert_close(aux_f['field_power'], aux['field_power'],
+                                   rtol=0, atol=1e-5)
+        torch.testing.assert_close(out_f.px, out_e.px, rtol=0, atol=1e-5)
+        torch.testing.assert_close(s_f.moments, s_e.moments, rtol=1e-5,
+                                   atol=1e-5)
     pol = cs.field_ns_scene(trt, 'jones')
     for sim in (pol.simulate, pol.simulate_fused):
         with pytest.raises(NotImplementedError, match='track_field'):

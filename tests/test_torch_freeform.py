@@ -465,7 +465,8 @@ def test_value_errors_match_jax(make):
 def test_freeform_side_buffer_and_kinds():
     """A freeform row's kinds row has SURF_FREEFORM, its side-buffer row its
     term count and pairs packed i | j << 16; the K2/K6 columns widen to the
-    32 ff columns."""
+    32 ff columns; a freeform table without a callable has no program
+    buffer."""
     ts = ex19(trt)
     meta = ts.static_meta()
     kinds = fused_trace.kind_rows(meta, ts.sensor_config())
@@ -480,8 +481,10 @@ def test_freeform_side_buffer_and_kinds():
     assert fused_trace.ff_side(ex20(trt).static_meta()[1:], 'cpu') is None
     cols = fused_trace.grad_cols((), True, False, True, True, True)
     assert cols[-32:] == fused_trace.FF_TERM_COLS
-    buf = fused_trace.fuzzy_buffer(fused_trace.TraceMeta(meta), 'cpu')
-    assert buf.tolist() == [-1] * len(meta)
+    # no program buffer without a callable: the family instantiation reads
+    # the freeform pairs alone
+    assert fused_trace.fuzzy_buffer(fused_trace.TraceMeta(meta), 'cpu') is None
+    assert fused_trace.families(meta) == fused_trace.FAM_FREEFORM
     with pytest.raises(NotImplementedError, match='FF_MAX_EXPONENT'):
         fused_trace.ff_side([trt.StaticRowMeta(3, 0, 0, ff=((1 << 16, 0),))],
                             'cpu')

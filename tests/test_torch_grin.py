@@ -621,19 +621,28 @@ def _with(rt, kind):
                                                 name='s')])
 
 
+def _fused_equals_eager(sc, p, rays, **kw):
+    """The fused trace of ``sc`` (the plain versions on the CPU) equals its
+    eager trace on ``rays``: ray state and moments to float32 round-off."""
+    out_f, s_f = sc.simulate_fused(p, rays, generator=torch.Generator()
+                                   .manual_seed(0), **kw)[:2]
+    out_e, s_e = sc.simulate(p, rays, generator=torch.Generator()
+                             .manual_seed(0), **kw)[:2]
+    for c in ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity'):
+        torch.testing.assert_close(getattr(out_f, c), getattr(out_e, c),
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(s_f.moments, s_e.moments, rtol=1e-5,
+                               atol=1e-5)
+    assert torch.isfinite(out_f.px).all()
+
+
 @pytest.mark.parametrize('kind', ['fresnel', 'coat', 'diff', 'freeform'])
 def test_fused_refuses_grin_beside_other_families(kind):
-    """GRIN beside a row of an instantiation above the streams' raises on
-    the fused path naming ROADMAP 3c, on either device; the eager trace
-    takes it."""
+    """GRIN beside a row of another family (the Fresnel kinds, a coating, a
+    grating, a freeform surface) runs on the fused path, the family
+    instantiation's on the card, and equals the eager trace."""
     sc = _with(trt, kind)
-    p = sc.init_params('cpu')
-    rays = _fan([0.1, 0.5])[1]
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match='3c'):
-        sc.simulate_fused(p, rays, generator=gen)
-    out = sc.simulate(p, rays, generator=gen)[0]
-    assert torch.isfinite(out.px).all()
+    _fused_equals_eager(sc, sc.init_params('cpu'), _fan([0.1, 0.5])[1])
 
 
 def test_fused_refuses_field_steps_and_k0():
@@ -641,7 +650,8 @@ def test_fused_refuses_field_steps_and_k0():
     trace carries the field through it); more than MAX_GRIN_STEPS steps
     raise naming the limit; trace_sequential_v1 (K0's counterpart) refuses
     GRIN rows, as the TPU kernel does (pallas_trace.py:166); fuzzy
-    apodization beside a rod names 3c."""
+    apodization of a rod's row runs and equals the eager chain (which
+    applies none to a rod)."""
     sc = trt.SequentialScene([_rod(trt, 10.0)])
     p = sc.init_params('cpu')
     rays = _fan([0.1, 0.5])[1]
@@ -655,19 +665,22 @@ def test_fused_refuses_field_steps_and_k0():
     with pytest.raises(ValueError, match='GRIN'):
         ft.trace_sequential_v1(table, rays, sc.sensor_config(),
                                sc.static_meta())
-    with pytest.raises(NotImplementedError, match='3c'):
-        ft.trace_sequential_fused(
-            table, rays, sc.sensor_config(), sc.static_meta(),
-            fuzzy_fns={0: trt.ComponentFuzzy(lambda x, y, z: 1.0 - x * x)})
+    fz = {0: trt.ComponentFuzzy(lambda x, y, z: 1.0 - x * x)}
+    out_f, s_f = ft.trace_sequential_fused(
+        table, rays, sc.sensor_config(), sc.static_meta(), fuzzy_fns=fz)
+    out_e, s_e = sc.simulate(p, rays, fuzzy_fns=fz)[:2]
+    torch.testing.assert_close(out_f.intensity, out_e.intensity, rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(out_f.px, out_e.px, rtol=0, atol=1e-5)
     assert ft.grin_kinds(sc.static_meta())
     assert ft.kind_rows(sc.static_meta(), sc.sensor_config())[0][7] == 64
 
 
 def test_wrappers_read_grin_from_kinds():
-    """The K1, K2, K5 and K6 wrappers take the instantiation with GRIN rods
-    from the kinds tensor (``grin_rows``) when their caller does not say,
-    whatever bits ride above a row's kind, and refuse that instantiation
-    with a kind it is not built on."""
+    """The K1, K2, K5 and K6 wrappers take GRIN rods from the kinds tensor
+    (``grin_rows``) when their caller does not say, whatever bits ride
+    above a row's kind; the family instantiation takes a rod beside every
+    other family (``family_bits``), and the field's refuses one (4b)."""
     def kinds_of(sc):
         return torch.tensor(ft.kind_rows(sc.static_meta(),
                                          sc.sensor_config()),
@@ -678,14 +691,17 @@ def test_wrappers_read_grin_from_kinds():
     assert ft.grin_rows(other)
     lens = kinds_of(trt.SequentialScene(_with(trt, 'fresnel').elements[1:]))
     assert not ft.grin_rows(lens)
-    assert not ft.check_grin_args(lens, fresnel=True)
+    assert not ft.check_grin_args(lens)
     lens[:, 0] |= int(PhysKind.GRIN) << ft.DISP_SHIFT
     assert not ft.grin_rows(lens)
-    for kw in (dict(fresnel=True), dict(diff=True), dict(ff=object()),
-               dict(field=object())):
+    for kw in (dict(fresnel=True), dict(diff=True), dict(ff=object())):
         for kinds, grin in ((rod, None), (lens, True)):
-            with pytest.raises(ValueError, match='GRIN'):
-                ft.check_grin_args(kinds, grin, **kw)
+            assert ft.check_grin_args(kinds, grin)
+            bits = ft.family_bits(grin=True, **kw)
+            assert bits & ft.FAM_GRIN and bits != ft.FAM_GRIN
+    for kinds, grin in ((rod, None), (lens, True)):
+        with pytest.raises(ValueError, match='GRIN'):
+            ft.check_grin_args(kinds, grin, field=object())
 
 
 # ---- csrc/grin.cuh on the host ----
