@@ -22,20 +22,16 @@ together), then:
   point in turns: 6 rounds of 20 CUDA events each, the order reversed
   every other round; it reports the median of the round medians of each
   and their ratio.  The other build is bound with this checkout's argument
-  types, but for the entry points of the family and field instantiations,
-  whose arguments changed when the chain of family instantiations (one
-  template flag each, built one on another) became one family
-  instantiation: ``parent_call`` maps such a launch onto the chain's entry
-  point (``PARENT_ARGTYPES``), with the chain's zeroed side buffer and
-  program buffer where the family instantiation passes none.  A launch
-  that runs one of the chain's links in this build is also timed in the
-  family instantiation (``family_call``: ``family_ms``), the one a table
-  that mixes families runs.
+  types: the two must share their entry points (the collapse of the family
+  chain's, PR 23's, and later).  A launch that runs one of the chain's
+  links in this build is also timed in the family instantiation
+  (``family_call``: ``family_ms``), the one a table that mixes families
+  runs.
 
 Cases that run a kind the other tree lacks time different work there
 (its kernels take other branches), so their ratios say nothing; a launch
-that mixes GRIN rods with another family has no counterpart in the chain
-and is timed in this build alone.  Prints
+that the other build refuses (a GRIN rod under the field, before it took
+one: ``parent_call``) is timed in this build alone.  Prints
 the card's name and power limit, one JSON line per part, and writes them to
 ``chiprun_out/chip_ab.json``.
 """
@@ -94,7 +90,16 @@ def cases(rt, torch, dev, n):
     for name in ('quarter', 'mixed', 'ns'):
         out.append((f'grin_{name}', cs.grin_scene(rt, name), None,
                     cs.grin_rays(rt, torch, name, n, dev, 12), {}))
-    # the field in the non-sequential scene (section 19)
+    # the field in the sequential chain (sections 17 and 18: example 22's
+    # analyzer, the coated singlet) and in the non-sequential scene
+    # (section 19)
+    for label, make, name in (('field_analyzer', cs.field_case, 'analyzer'),
+                              ('field_coat_singlet', cs.field_coat_case,
+                               'coated_w')):
+        sc, p, r, e0, u = make(rt, torch, name, n, dev, 13)
+        out.append((label, sc, p, r, dict(
+            track_field=True, E0=e0, **({} if u is None
+                                        else dict(uniforms=u)))))
     for name in ('naive', 'fold', 'coated'):
         sc, p, r, e0, _ = cs.field_ns_case(rt, torch, name, n, dev, 13)
         out.append((f'field_ns_{name}', sc, p, r,
@@ -112,46 +117,14 @@ def cases(rt, torch, dev, n):
             kw['uniforms'] = cs.mix_uniforms(torch, meta, n, dev)
         out.append((f'mix_{name}', sc, None,
                     cs.mix_rays(rt, torch, name, n, dev), kw))
+    # section 22: the field through GRIN rods (this build alone)
+    for name in cs.GRIN_FIELD_CASES:
+        out.append((f'grin_field_{name}', cs.grin_field_scene(rt, name), None,
+                    cs.grin_field_rays(rt, torch, name, n, dev),
+                    dict(track_field=True, E0=cs.GRIN_FIELD_E0[name])))
     return out
 
 
-# The chain's entry points of the family and field instantiations (the
-# parent's argument types, ops/fused_trace.py before the collapse).
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_U32 = ctypes.c_uint32
-_GRID, _PLATES, _STREAMS, _OPL = [_P, _I, _I, ctypes.c_float], [_P] * 3, \
-    [_P] * 5, [_P, _P]
-_WAVE = [_P, _I]
-_CHAIN_U = [_P, _I, _I, _P, _I, _P, _I, _P]
-_CHAIN_K = [_U32, _U32, _I, _P, _I, _P, _I, _P]
-PARENT_ARGTYPES = {
-    'rtt_trace_seq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
-    + _PLATES + _STREAMS + _CHAIN_U + [_L, _P],
-    'rtt_trace_seq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
-    + _PLATES + _STREAMS + _CHAIN_U + [_P, _P] + [_L, _P],
-    'rtt_trace_seq_fwd_grin': [_P, _P, _I] + [_P] * 16 + [_I, _I] + _GRID
-    + _PLATES + _STREAMS + [_L, _P],
-    'rtt_trace_seq_bwd_opl': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
-    + _PLATES + [_P] + _WAVE + _OPL + _CHAIN_U + [_L, _P],
-    'rtt_trace_seq_bwd_field': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
-    + _PLATES + [_P] + _WAVE + _OPL + _CHAIN_U + [_P, _P, _P] + [_L, _P],
-    'rtt_trace_seq_bwd_grin': [_P, _P, _I] + [_P] * 24 + [_I, _I] + _GRID
-    + _PLATES + [_P] + _WAVE + _OPL + [_L, _P],
-    'rtt_trace_nonseq_fwd_streams': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-    + _GRID + _PLATES + _STREAMS + [_P] + _CHAIN_K + [_I, _L, _P],
-    'rtt_trace_nonseq_fwd_field': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-    + _GRID + _PLATES + _STREAMS + [_P] + [_U32, _U32, _P] + [_P, _P]
-    + [_I, _L, _P],
-    'rtt_trace_nonseq_fwd_grin': [_P, _P, _I] + [_P] * 16 + [_I, _I]
-    + _GRID + _PLATES + _STREAMS + [_P] + [_I, _L, _P],
-    'rtt_trace_nonseq_bwd_opl': [_P, _P, _I] + [_P] * 31 + [_I, _I] + _GRID
-    + _PLATES + [_P] + _WAVE + _OPL + _CHAIN_K + [_I, _L, _P],
-    'rtt_trace_nonseq_bwd_field': [_P, _P, _I] + [_P] * 31 + [_I, _I]
-    + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_U32, _U32, _P]
-    + [_P, _P, _P, _P] + [_I, _L, _P],
-    'rtt_trace_nonseq_bwd_grin': [_P, _P, _I] + [_P] * 31 + [_I, _I]
-    + _GRID + _PLATES + [_P] + _WAVE + _OPL + [_I, _L, _P],
-}
 # where the family's side data start in each changed entry point's
 # arguments, counted from the end (after them: the field's buffers, then
 # n_bounces (K5, K6), n and the stream)
@@ -175,7 +148,7 @@ def family_call(torch, sym, args, n_rows, keep):
     fam = args[at]
     # csrc/trace_seq_common.cuh::fam_link: the chain's links (GRIN rods
     # alone: K1's and K2's); K5's and K6's field instantiation on the
-    # Fresnel kinds and coatings alone (field_coat_alone)
+    # Fresnel kinds and coatings alone (field_link)
     coat = ft.FAM_FRESNEL | ft.FAM_COAT
     links = (coat, coat | ft.FAM_DIFF, coat | ft.FAM_DIFF | ft.FAM_FUZZY)
     if 'field' in sym:
@@ -198,50 +171,16 @@ def family_call(torch, sym, args, n_rows, keep):
     return tuple(args)
 
 
-def parent_call(torch, sym, args, n_rows, keep):
-    """(the chain's symbol, its arguments) of this build's launch ``sym``
-    with ``args``, or None where the chain has no instantiation for it (a
-    GRIN rod beside another family, or under the field).  The chain's
-    freeform and fuzzy instantiations read a side buffer and a program
-    buffer whatever the table: zeros and -1s, kept alive in ``keep``."""
+def parent_call(sym, args):
+    """(the other build's symbol, its arguments) of this build's launch
+    ``sym`` with ``args`` (the two share their entry points), or None where
+    the other build has no instantiation for it: a GRIN rod under the field
+    (the field's instantiation with every family, csrc/trace_seq_common.cuh::
+    field_link), which it refuses."""
     from raytracetorch_tpu_torch.ops import fused_trace as ft
-    if sym not in _TAIL:
-        return sym, args
-    tail = _TAIL[sym]
-    head, side, rest = (args[:len(args) - tail - 7],
-                        args[len(args) - tail - 7:len(args) - tail],
-                        args[len(args) - tail:])
-    draw0, draw1, coat, fuzzy, words, ff, fam = side
-    field = 'field' in sym
-    if fam & ft.FAM_GRIN:
-        if fam != ft.FAM_GRIN or field:
-            return None
-        return sym.rsplit('_', 1)[0] + '_grin', head + rest
-    if field or fam & (ft.FAM_DIFF | ft.FAM_FUZZY | ft.FAM_FREEFORM):
-        # the chain's diffractive, fuzzy, freeform and field links read a
-        # side buffer; the freeform and field links a program buffer too
-        if coat is None:
-            keep.append(torch.zeros(n_rows, ft.COAT_SIDE, device='cuda'))
-            coat = keep[-1].data_ptr()
-        if fuzzy is None and (ff is not None or field):
-            keep.append(torch.full((n_rows,), -1, dtype=torch.int32,
-                                   device='cuda'))
-            fuzzy, words = keep[-1].data_ptr(), n_rows
-        if ff is None and field and 'nonseq' not in sym:
-            keep.append(torch.zeros(n_rows, ft.FF_SIDE, dtype=torch.int32,
-                                    device='cuda'))
-            ff = keep[-1].data_ptr()
-    if field and 'nonseq' in sym:
-        if fam & (ft.FAM_DIFF | ft.FAM_FUZZY | ft.FAM_FREEFORM):
-            return None
-        return sym, head + (draw0, draw1, coat) + rest
-    diff = int(bool(fam & (ft.FAM_DIFF | ft.FAM_FUZZY | ft.FAM_FREEFORM))
-               or field)
-    fresnel = int(bool(fam & ft.FAM_FRESNEL) or coat is not None)
-    if fuzzy is None:
-        words = 0
-    return sym, head + (draw0, draw1, fresnel, coat, diff, fuzzy, words,
-                        ff) + rest
+    if 'field' in sym and args[len(args) - _TAIL[sym] - 1] & ft.FAM_GRIN:
+        return None
+    return sym, args
 
 
 def build_other(csrc, name, out_dir):
@@ -306,14 +245,11 @@ def main():
     other_fns = {}
     for n in TRACE:
         lib = ctypes.CDLL(built[n][0])
-        syms = dict(fused_trace._LIBRARIES[n][1])
-        syms.update({k: v for k, v in PARENT_ARGTYPES.items()
-                     if k.startswith(f'rtt_{n}_')})
-        for sym, argtypes in syms.items():
+        for sym, argtypes in fused_trace._LIBRARIES[n][1].items():
             fn = getattr(lib, sym, None)
             if fn is None:
                 continue
-            fn.argtypes = PARENT_ARGTYPES.get(sym, argtypes)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             other_fns[sym] = fn
     launches = [s for n in TRACE for s in fused_trace._LIBRARIES[n][1]
@@ -358,7 +294,7 @@ def main():
         res = {}
         for i, (sym, args, _) in enumerate(records):
             keep = []
-            mapped = parent_call(torch, sym, args, args[2], keep)
+            mapped = parent_call(sym, args)
             if mapped is None:
                 fns = {'this': saved[sym]}
                 calls = {'this': args}

@@ -96,10 +96,14 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   Scene beside a coated window and a grating, and K5 and K6 in the field's
   instantiation on the field cases (a DOE, a microlens array, an apodized
   pupil, example 19's corrector), each with the path length or the field,
-  on the JAX package's rays.
+  on the JAX package's rays;
+- the field through GRIN rods (chip_smoke.py section 22): K1 and K2 in
+  their field instantiation with GRIN rods on the quarter-pitch rod with
+  E0, K5 and K6 on the rod as a Scene under skew rays, circular E0.
 
-The last line names the card and its power limit as nvidia-smi gives
-them.  A call whose profile holds no device time reports null there.
+Arguments, if any, are prefixes: only the calls whose names start with
+one of them are profiled (``python3 chip_profile.py grin_field``).  The
+last line names the card and its power limit as nvidia-smi gives them.  A call whose profile holds no device time reports null there.
 """
 
 import json
@@ -948,12 +952,50 @@ def main():
                 opl=True, g_opl=r.px, field=fld,
                 g_field=None if fld is None else [r.px] * 6, **s),
             'trace_nonseq_bwd_kernel')
+    # the field through GRIN rods (section 22)
+    for name in ('quarter', 'ns'):
+        gsc = cs.grin_field_scene(rt, name)
+        gr = cs.grin_field_rays(rt, torch, name, n, dev,
+                                cs.GRIN_FIELD_SEED + 7)
+        gmeta, gcfg, gflat, gkinds, gmaps, gfield, gside = \
+            cs.field_ns_inputs(rt, torch, gsc, gsc.init_params(dev), gr,
+                               cs.GRIN_FIELD_E0[name], dev)
+        ggm = torch.ones(1, 1, 7, device=dev)
+        if name == 'ns':
+            calls['grin_field_ns_k5'] = (
+                lambda f=gflat, k=gkinds, r=gr, c=gcfg, m=gmaps,
+                nb=gsc.n_bounces, s=gside, fld=gfield:
+                fused_nonseq.trace_nonseq_fwd_cuda(f, k, r, c, nb, m, True,
+                                                   field=fld, **s),
+                'trace_nonseq_fwd_kernel')
+            calls['grin_field_ns_k6'] = (
+                lambda f=gflat, k=gkinds, r=gr, c=gcfg, m=gmaps,
+                nb=gsc.n_bounces, s=gside, g=ggm, fld=gfield:
+                fused_nonseq.trace_nonseq_bwd_cuda(
+                    f, k, r, c, nb, (r.px,) + (None,) * 6, g, maps=m,
+                    ext=True, field=fld, g_field=[r.px] * 6, **s),
+                'trace_nonseq_bwd_kernel')
+            continue
+        calls['grin_field_quarter_k1'] = (
+            lambda f=gflat, k=gkinds, r=gr, c=gcfg, m=gmaps, s=gside,
+            fld=gfield: fused_trace.trace_seq_fwd_cuda(f, k, r, c, m, True,
+                                                       field=fld, **s),
+            'trace_seq_fwd_kernel')
+        calls['grin_field_quarter_k2'] = (
+            lambda f=gflat, k=gkinds, r=gr, c=gcfg, m=gmaps, s=gside,
+            g=ggm, fld=gfield: fused_trace.trace_seq_bwd_cuda(
+                f, k, r, c, (r.px,) + (None,) * 6, g, maps=m, ext=True,
+                field=fld, g_field=[r.px] * 6, **s),
+            'trace_seq_bwd')
     cam = Camera(position=[25.0, 18.0, -25.0], look_at=[0.0, 0.0, 10.0],
                  fov_deg=45.0, width=cs.RENDER_SIZE[1],
                  height=cs.RENDER_SIZE[0])
     renderer = Renderer(nscene)
     calls['render_1024x1024'] = (lambda: renderer.render_3d(nparams, cam),
                                  None)
+    if len(sys.argv) > 1:   # only the calls whose names start so
+        calls = {k: v for k, v in calls.items()
+                 if k.startswith(tuple(sys.argv[1:]))}
     out = {'n': n, 'reps': REPS}
     for name, (fn, key) in calls.items():
         out[name] = profile(torch, fn, key)

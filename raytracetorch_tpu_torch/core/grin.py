@@ -83,7 +83,12 @@ def integrate_grin(c0, c2, c4, cz, L, r2_max, x, y, px, py, n_steps,
     direction (``v3.rotate_between``, the per-step Rytov rotation).
 
     Returns ``(x, y, px, py, opl, alive[, er, ei])``."""
-    h = L / n_steps
+    # h = L / n_steps and h / 6 divide by tensors: a CUDA tensor divided by
+    # a Python number is multiplied by its reciprocal, which rounds otherwise
+    # than the division of the CPU and the kernels (csrc/grin.cuh)
+    L = torch.as_tensor(L, dtype=x.dtype, device=x.device)
+    h = L / torch.full_like(L, float(n_steps))
+    w = h / torch.full_like(h, 6.0)
     opl = torch.zeros_like(x)
     alive = torch.where((x * x + y * y) <= r2_max, 1.0, 0.0)
     track_e = er is not None
@@ -104,7 +109,7 @@ def integrate_grin(c0, c2, c4, cz, L, r2_max, x, y, px, py, n_steps,
                      z + h)
 
         def rk(j):
-            return (h / 6.0) * (k1[j] + 2.0 * k2[j] + 2.0 * k3[j] + k4[j])
+            return w * (k1[j] + 2.0 * k2[j] + 2.0 * k3[j] + k4[j])
 
         xn, yn = x + rk(0), y + rk(1)
         pxn, pyn = px + rk(2), py + rk(3)

@@ -52,6 +52,20 @@
 // bytes the ray moves; the adjoint runs the steps twice more and their
 // reverse (~3x a step), ~25,000 flops a ray.
 //
+// The polarized field (the instantiation with the field and GRIN rods):
+// grin_rod_field carries a ray's complex E-vector through the rod as the
+// plain version does (core/grin.py: the JAX package's :153-156, :236-239,
+// :262-264), each rotation v3.rotate_between of two unit directions
+// applied to the field's real and imaginary parts in the rod's frame: the
+// entry coupling from the incoming direction to the rod's first _p_dir
+// (grin_pdir), every applied RK4 step from _p_dir at its start to _p_dir
+// at its end, and the exit coupling from the last _p_dir to the exit
+// direction, rounded as the plain version rounds them (grot_between).  Its
+// adjoint (grin_backward with kField) keeps the field beside each
+// checkpoint of the state (six words), so local memory a thread grows from
+// 512 to 1,280 bytes: 16 checkpoints and one segment of states (16 bytes
+// each) and of fields (24 bytes each).
+//
 // The functions are __host__ __device__ and use no CUDA type, so the same
 // source compiles as plain C++ for a host check against torch autograd.
 
@@ -217,6 +231,37 @@ RTT_GR_HD bool grin_fwd(const float* r, float dx, float dy, float dz) {
   return gdot3(dx, R[2], dy, R[5], dz, R[8]) > 1e-6f;
 }
 
+// The field of a ray (kField): the real and imaginary parts of E.
+struct GrinFld {
+  G3 r, i;
+};
+
+// The unit ray direction at state s and height z, pz re-solved from |p| =
+// n and clamped (core/grin.py::_p_dir), rounded as the plain version.
+RTT_GR_HD G3 grin_pdir(const GrinProf& g, GrinPt s, float z) {
+  const float n2 = grin_n2(g, grin_r2(s.x, s.y), z);
+  const float pz = gsqrt(fmaxf(grin_pz2(n2, s.px, s.py), 1e-12f));
+  const float inv_n = gdiv(1.0f, gsqrt(fmaxf(n2, 1e-12f)));
+  return {gmul(s.px, inv_n), gmul(s.py, inv_n), gmul(pz, inv_n)};
+}
+
+// The minimal rotation taking unit a to unit b applied to v
+// (geom/vec3.py::rotate_between: c v + w x v + w (w . v) / max(1 + c,
+// 1e-6), c = a . b, w = a x b), rounded as the plain version.
+RTT_GR_HD G3 grot_between(G3 a, G3 b, G3 v) {
+  const float c = gdot3(a.x, b.x, a.y, b.y, a.z, b.z);
+  const G3 w = {gsub(gmul(a.y, b.z), gmul(a.z, b.y)), gsub(gmul(a.z, b.x), gmul(a.x, b.z)),
+                gsub(gmul(a.x, b.y), gmul(a.y, b.x))};
+  const float s = gdiv(gdot3(w.x, v.x, w.y, v.y, w.z, v.z), fmaxf(gadd(1.0f, c), 1e-6f));
+  return {gadd(gadd(gmul(c, v.x), gsub(gmul(w.y, v.z), gmul(w.z, v.y))), gmul(w.x, s)),
+          gadd(gadd(gmul(c, v.y), gsub(gmul(w.z, v.x), gmul(w.x, v.z))), gmul(w.y, s)),
+          gadd(gadd(gmul(c, v.z), gsub(gmul(w.x, v.y), gmul(w.y, v.x))), gmul(w.z, s))};
+}
+
+RTT_GR_HD GrinFld grot_between(G3 a, G3 b, const GrinFld& e) {
+  return {grot_between(a, b, e.r), grot_between(a, b, e.i)};
+}
+
 // A rod's exit: the world position and direction, the in-medium optical
 // path (0 for a dead ray) and the saved bits (grin_bits).
 struct GrinExit {
@@ -229,15 +274,21 @@ struct GrinExit {
 // direction d that meets its entry plane at the surface-frame hit (hx,
 // hy): the entry coupling, the steps up to the first dead one, the exit
 // coupling, and the exit in world coordinates (core/grin.py::
-// grin_interaction).  Out of line: K5 and K6's replay run this one body.
-RTT_GR_NOINLINE GrinExit grin_rod(const float* r, int steps, float dx, float dy, float dz,
-                                  float hx, float hy) {
+// grin_interaction).  With kField the field *fe (world frame) rides along
+// the rod's rotations.  grin_rod and grin_rod_field run it out of line:
+// K5 and K6's replay run one body.
+template <bool kField>
+RTT_GR_HD GrinExit grin_rod_body(const float* r, int steps, float dx, float dy, float dz,
+                                 float hx, float hy, GrinFld* fe) {
   const GrinProf g = grin_prof(r, steps);
   const float* R = r + kGrRw;
   const G3 ds = grot_r(G3{dx, dy, dz}, R);
   GrinPt s = {hx, hy, gmul(g.namb, ds.x), gmul(g.namb, ds.y)};
   const float r2 = grin_r2(hx, hy);
   const bool alive_in = grin_pz2(grin_n2(g, r2, 0.0f), s.px, s.py) > 1e-10f;
+  GrinFld e;  // kField: the field in the rod's frame
+  if constexpr (kField)
+    e = grot_between(ds, grin_pdir(g, s, 0.0f), GrinFld{grot_r(fe->r, R), grot_r(fe->i, R)});
   float opl = 0.0f;
   int m = 0;
   if (alive_in && r2 <= g.r2max) {
@@ -245,8 +296,10 @@ RTT_GR_NOINLINE GrinExit grin_rod(const float* r, int steps, float dx, float dy,
       GrinPt t = s;
       float o = opl;
       bool ok;
-      grin_step(g, t, o, gmul(static_cast<float>(m), g.h), ok);
+      const float z = gmul(static_cast<float>(m), g.h);
+      grin_step(g, t, o, z, ok);
       if (!(ok && grin_r2(t.x, t.y) <= g.r2max)) break;
+      if constexpr (kField) e = grot_between(grin_pdir(g, s, z), grin_pdir(g, t, gadd(z, g.h)), e);
       s = t;
       opl = o;
     }
@@ -256,14 +309,29 @@ RTT_GR_NOINLINE GrinExit grin_rod(const float* r, int steps, float dx, float dy,
   const float pz_out = gsqrt(ok_out ? pz2_out : 1.0f);
   const float inv_n = gdiv(1.0f, g.namb);
   const bool alive = alive_in && r2 <= g.r2max && m == steps && ok_out;
-  const G3 e = grot_t_r(G3{s.x, s.y, g.L}, R);
+  const G3 ex = grot_t_r(G3{s.x, s.y, g.L}, R);
   GrinExit out;
-  out.p = {gadd(e.x, r[kGrTw]), gadd(e.y, r[kGrTw + 1]), gadd(e.z, r[kGrTw + 2])};
+  out.p = {gadd(ex.x, r[kGrTw]), gadd(ex.y, r[kGrTw + 1]), gadd(ex.z, r[kGrTw + 2])};
   out.d = grot_t_r(G3{gmul(s.px, inv_n), gmul(s.py, inv_n), gmul(pz_out, inv_n)}, R);
   out.seg = alive ? opl : 0.0f;
   out.bits = (alive ? kGrinAlive : 0u) | (ok_out ? kGrinOkOut : 0u) |
              (static_cast<uint32_t>(m) << kGrinStepShift);
+  if constexpr (kField) {
+    const G3 dout = {gmul(s.px, inv_n), gmul(s.py, inv_n), gmul(pz_out, inv_n)};
+    e = grot_between(grin_pdir(g, s, g.L), dout, e);
+    *fe = {grot_t_r(e.r, R), grot_t_r(e.i, R)};
+  }
   return out;
+}
+
+RTT_GR_NOINLINE GrinExit grin_rod(const float* r, int steps, float dx, float dy, float dz,
+                                  float hx, float hy) {
+  return grin_rod_body<false>(r, steps, dx, dy, dz, hx, hy, nullptr);
+}
+
+RTT_GR_NOINLINE GrinExit grin_rod_field(const float* r, int steps, float dx, float dy, float dz,
+                                        float hx, float hy, GrinFld& fe) {
+  return grin_rod_body<true>(r, steps, dx, dy, dz, hx, hy, &fe);
 }
 
 // The cotangents of the profile and of the step h that the steps' adjoint
@@ -310,6 +378,76 @@ RTT_GR_HD void grin_derivs_ct(const GrinProf& g, GrinPt v, float z, const float 
   gv.y += g_y;
   gv.px += g_px;
   gv.py += g_py;
+}
+
+// Adjoint of grin_pdir at (s, z): gd, the direction's cotangent, adds
+// those of s into gs and of the profile into gc; returns that of z.  A
+// clamp passes its cotangent where its input is at or above the bound
+// (PyTorch's rule).
+RTT_GR_HD float grin_pdir_ct(const GrinProf& g, GrinPt s, float z, G3 gd, GrinPt& gs,
+                             GrinProfCt& gc) {
+  const float r2 = s.x * s.x + s.y * s.y;
+  const float n2 = g.c0 + (g.c2 + g.c4 * r2) * r2 + g.cz * z;
+  const float pz2 = n2 - s.px * s.px - s.py * s.py;
+  const float pz = sqrtf(fmaxf(pz2, 1e-12f)), sn = sqrtf(fmaxf(n2, 1e-12f));
+  const float inv_n = 1.0f / sn;
+  // d = (px, py, pz) * inv_n, inv_n = 1 / sqrt(n2), pz = sqrt(n2 - px^2 - py^2)
+  const float g_inv = gd.x * s.px + gd.y * s.py + gd.z * pz;
+  float g_n2 = n2 >= 1e-12f ? -(g_inv * inv_n * inv_n) / (2.0f * sn) : 0.0f;
+  const float g_pz2 = pz2 >= 1e-12f ? gd.z * inv_n / (2.0f * pz) : 0.0f;
+  g_n2 += g_pz2;
+  // n2 = c0 + (c2 + c4 r2) r2 + cz z
+  const float g_r2 = g_n2 * (g.c2 + 2.0f * g.c4 * r2);
+  gc.c0 += g_n2;
+  gc.c2 += g_n2 * r2;
+  gc.c4 += g_n2 * r2 * r2;
+  gc.cz += g_n2 * z;
+  gs.x += 2.0f * s.x * g_r2;
+  gs.y += 2.0f * s.y * g_r2;
+  gs.px += gd.x * inv_n - 2.0f * s.px * g_pz2;
+  gs.py += gd.y * inv_n - 2.0f * s.py * g_pz2;
+  return g_n2 * g.cz;
+}
+
+// Adjoint of grot_between(a, b, v) given g, the result's cotangent:
+// returns that of v and adds those of a and b into ga and gb (the clamp of
+// 1 + c as grin_pdir_ct's).
+RTT_GR_HD G3 grot_between_ct(G3 a, G3 b, G3 v, G3 g, G3& ga, G3& gb) {
+  const float c = a.x * b.x + a.y * b.y + a.z * b.z;
+  const G3 w = {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+  const float den = fmaxf(1.0f + c, 1e-6f);
+  const float s = (w.x * v.x + w.y * v.y + w.z * v.z) / den;
+  // out = c v + w x v + w s, s = (w . v) / den
+  const float q = (g.x * w.x + g.y * w.y + g.z * w.z) / den;
+  const float g_c = (g.x * v.x + g.y * v.y + g.z * v.z) + (1.0f + c >= 1e-6f ? -q * s : 0.0f);
+  const G3 gw = {v.y * g.z - v.z * g.y + g.x * s + v.x * q,
+                 v.z * g.x - v.x * g.z + g.y * s + v.y * q,
+                 v.x * g.y - v.y * g.x + g.z * s + v.z * q};
+  // c = a . b, w = a x b
+  ga.x += g_c * b.x + (b.y * gw.z - b.z * gw.y);
+  ga.y += g_c * b.y + (b.z * gw.x - b.x * gw.z);
+  ga.z += g_c * b.z + (b.x * gw.y - b.y * gw.x);
+  gb.x += g_c * a.x + (gw.y * a.z - gw.z * a.y);
+  gb.y += g_c * a.y + (gw.z * a.x - gw.x * a.z);
+  gb.z += g_c * a.z + (gw.x * a.y - gw.y * a.x);
+  return {c * g.x + (g.y * w.z - g.z * w.y) + w.x * q, c * g.y + (g.z * w.x - g.x * w.z) + w.y * q,
+          c * g.z + (g.x * w.y - g.y * w.x) + w.z * q};
+}
+
+RTT_GR_HD GrinFld grot_between_ct(G3 a, G3 b, const GrinFld& v, const GrinFld& g, G3& ga,
+                                  G3& gb) {
+  return {grot_between_ct(a, b, v.r, g.r, ga, gb), grot_between_ct(a, b, v.i, g.i, ga, gb)};
+}
+
+// v @ R of both parts of a field; and tg_rw[3 i + j] += u_i v_j, a
+// rotation's cotangent (of w @ R at its input w and cotangent g: u = w, v
+// = g; of w @ R.T: u = g, v = w)
+RTT_GR_HD GrinFld grot(const GrinFld& e, const float* R) { return {grot(e.r, R), grot(e.i, R)}; }
+
+RTT_GR_HD void grin_rw_ct(const G3& u, const G3& v, float* tg_rw) {
+  const float uv[3] = {u.x, u.y, u.z}, gv[3] = {v.x, v.y, v.z};
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) tg_rw[3 * i + j] += uv[i] * gv[j];
 }
 
 // Adjoint of the RK4 step i from state s: gs (the cotangent of the step's
@@ -394,10 +532,15 @@ RTT_GR_HD void grin_step_ct(const GrinProf& g, GrinPt s, int i, float g_opl, Gri
 // derivative); g_opl is the path length's (the rod adds n_cur t + seg),
 // g_nafter that of the medium after the rod (n_ambient).  The table's
 // cotangents add into tg_rw[9], tg_tw[3] and tg_ph[6]; g_nbefore receives
-// that of the medium before the rod (g_opl t).
+// that of the medium before the rod (g_opl t).  With kField (grin_rod_field)
+// *fin is the field before the rod and *gfe the cotangent of the field
+// after it, which becomes that of the field before it; the field's
+// checkpoints ride beside the state's.
+template <bool kField = false>
 RTT_GR_HD void grin_backward(const float* r, int steps, G3 p, G3 d, uint32_t bits, float n_cur,
                              float g_opl, float g_nafter, G3& gp, G3& gd, float& gi,
-                             float* tg_rw, float* tg_tw, float* tg_ph, float& g_nbefore) {
+                             float* tg_rw, float* tg_tw, float* tg_ph, float& g_nbefore,
+                             const GrinFld* fin = nullptr, GrinFld* gfe = nullptr) {
   const GrinProf g = grin_prof(r, steps);
   const float* R = r + kGrRw;
   // ---- the forward's values, with its saved decisions ----
@@ -410,12 +553,23 @@ RTT_GR_HD void grin_backward(const float* r, int steps, G3 p, G3 d, uint32_t bit
   const bool alive = bits & kGrinAlive, ok_out = bits & kGrinOkOut;
   const GrinPt s0 = {o.x + t * ds.x, o.y + t * ds.y, g.namb * ds.x, g.namb * ds.y};
   GrinPt ck[kGrinCkpts];
+  GrinFld fck[kField ? kGrinCkpts : 1];  // kField: the field at each checkpoint
   GrinPt s = s0;
+  GrinFld fe;  // kField: the field in the rod's frame
+  if constexpr (kField) fe = grot_between(ds, grin_pdir(g, s0, 0.0f), grot(*fin, R));
   float opl = 0.0f;
   for (int i = 0; i < m; ++i) {
     if (i % kGrinSeg == 0) ck[i / kGrinSeg] = s;
     bool ok;
-    grin_step(g, s, opl, static_cast<float>(i) * g.h, ok);
+    if constexpr (kField) {
+      if (i % kGrinSeg == 0) fck[i / kGrinSeg] = fe;
+      const float z = static_cast<float>(i) * g.h;
+      const GrinPt s1 = s;
+      grin_step(g, s, opl, z, ok);
+      fe = grot_between(grin_pdir(g, s1, z), grin_pdir(g, s, z + g.h), fe);
+    } else {
+      grin_step(g, s, opl, static_cast<float>(i) * g.h, ok);
+    }
   }
   const float pz2_out = g.namb * g.namb - s.px * s.px - s.py * s.py;
   const float pz_out = sqrtf(ok_out ? pz2_out : 1.0f);
@@ -424,14 +578,27 @@ RTT_GR_HD void grin_backward(const float* r, int steps, G3 p, G3 d, uint32_t bit
   const float dout[3] = {s.px * inv_n, s.py * inv_n, pz_out * inv_n};
 
   // ---- exit: p' = (x, y, L) @ R.T + tw, d' = dout @ R.T ----
-  const G3 g_e = grot(gp, R), g_dout = grot(gd, R);
+  const G3 g_e = grot(gp, R);
+  G3 g_dout = grot(gd, R);
   const float gpv[3] = {gp.x, gp.y, gp.z}, gdv[3] = {gd.x, gd.y, gd.z};
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j) tg_rw[3 * i + j] += gpv[i] * e[j] + gdv[i] * dout[j];
     tg_tw[i] += gpv[i];
   }
+  GrinProfCt gc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  GrinFld gf;  // kField: the field's cotangent in the rod's frame
+  G3 g_d1 = {0.0f, 0.0f, 0.0f};
+  if constexpr (kField) {
+    // E' = rotate_between(d1, dout, E) @ R.T, d1 = _p_dir at the exit face
+    const G3 d1 = grin_pdir(g, s, g.L), dv = {dout[0], dout[1], dout[2]};
+    const GrinFld ex = grot_between(d1, dv, fe);
+    grin_rw_ct(gfe->r, ex.r, tg_rw);
+    grin_rw_ct(gfe->i, ex.i, tg_rw);
+    gf = grot_between_ct(d1, dv, fe, grot(*gfe, R), g_d1, g_dout);
+  }
   GrinPt gs = {g_e.x, g_e.y, g_dout.x * inv_n, g_dout.y * inv_n};
   float g_L = g_e.z;
+  if constexpr (kField) g_L += grin_pdir_ct(g, s, g.L, g_d1, gs, gc);
   // dout = (px, py, pz_out) * inv_n, inv_n = 1 / n_amb
   const float g_invn = g_dout.x * s.px + g_dout.y * s.py + g_dout.z * pz_out;
   float g_namb = -(g_invn * inv_n * inv_n);
@@ -446,25 +613,62 @@ RTT_GR_HD void grin_backward(const float* r, int steps, G3 p, G3 d, uint32_t bit
   const float g_seg = alive ? g_opl : 0.0f;
 
   // ---- the steps, a segment at a time, the last first ----
-  GrinProfCt gc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   GrinPt buf[kGrinSeg];
+  GrinFld fbuf[kField ? kGrinSeg : 1];  // kField: the segment's fields
   for (int seg = (m - 1) / kGrinSeg; m > 0 && seg >= 0; --seg) {
     const int i0 = seg * kGrinSeg, i1 = m < i0 + kGrinSeg ? m : i0 + kGrinSeg;
     GrinPt u = ck[seg];
     float o2 = 0.0f;
-    for (int i = i0; i < i1; ++i) {
-      buf[i - i0] = u;
-      bool ok;
-      grin_step(g, u, o2, static_cast<float>(i) * g.h, ok);
+    if constexpr (kField) {
+      GrinFld ue = fck[seg];
+      for (int i = i0; i < i1; ++i) {
+        buf[i - i0] = u;
+        fbuf[i - i0] = ue;
+        bool ok;
+        const float z = static_cast<float>(i) * g.h;
+        grin_step(g, u, o2, z, ok);
+        ue = grot_between(grin_pdir(g, buf[i - i0], z), grin_pdir(g, u, z + g.h), ue);
+      }
+      // step i: the field's rotation from _p_dir at its start (z = i h) to
+      // _p_dir at its end (z + h), then the step itself
+      for (int i = i1 - 1; i >= i0; --i) {
+        const float z = static_cast<float>(i) * g.h;
+        const GrinPt sa = buf[i - i0], sb = i + 1 < i1 ? buf[i + 1 - i0] : u;
+        const G3 a = grin_pdir(g, sa, z), b = grin_pdir(g, sb, z + g.h);
+        G3 g_a = {0.0f, 0.0f, 0.0f}, g_b = {0.0f, 0.0f, 0.0f};
+        gf = grot_between_ct(a, b, fbuf[i - i0], gf, g_a, g_b);
+        gc.h += static_cast<float>(i + 1) * grin_pdir_ct(g, sb, z + g.h, g_b, gs, gc);
+        grin_step_ct(g, sa, i, g_seg, gs, gc);
+        gc.h += static_cast<float>(i) * grin_pdir_ct(g, sa, z, g_a, gs, gc);
+      }
+    } else {
+      for (int i = i0; i < i1; ++i) {
+        buf[i - i0] = u;
+        bool ok;
+        grin_step(g, u, o2, static_cast<float>(i) * g.h, ok);
+      }
+      for (int i = i1 - 1; i >= i0; --i) grin_step_ct(g, buf[i - i0], i, g_seg, gs, gc);
     }
-    for (int i = i1 - 1; i >= i0; --i) grin_step_ct(g, buf[i - i0], i, g_seg, gs, gc);
   }
   // h = L / steps
   g_L += gc.h / static_cast<float>(steps);
+  // kField: the entry coupling, E_s = rotate_between(ds, d0, E @ R), d0 =
+  // _p_dir at the entry state (z = 0)
+  G3 g_dsf = {0.0f, 0.0f, 0.0f};
+  if constexpr (kField) {
+    const G3 d0 = grin_pdir(g, s0, 0.0f);
+    G3 g_d0 = {0.0f, 0.0f, 0.0f};
+    gf = grot_between_ct(ds, d0, grot(*fin, R), gf, g_dsf, g_d0);
+    grin_pdir_ct(g, s0, 0.0f, g_d0, gs, gc);
+    grin_rw_ct(fin->r, gf.r, tg_rw);
+    grin_rw_ct(fin->i, gf.i, tg_rw);
+    *gfe = {grot_t(gf.r, R), grot_t(gf.i, R)};
+  }
 
   // ---- entry: (x0, y0) = hs.xy, (px, py) = n_amb ds.xy ----
   g_namb += gs.px * ds.x + gs.py * ds.y;
   G3 g_ds = {gs.px * g.namb, gs.py * g.namb, 0.0f};
+  if constexpr (kField) g_ds = {g_ds.x + g_dsf.x, g_ds.y + g_dsf.y, g_dsf.z};
   // hs = o + t ds; opl += n_cur t
   const float g_t = g_opl * n_cur + gs.x * ds.x + gs.y * ds.y;
   G3 g_o = {gs.x, gs.y, 0.0f};
@@ -493,6 +697,18 @@ RTT_GR_HD void grin_backward(const float* r, int steps, G3 p, G3 d, uint32_t bit
   gp = g_a;
   gd = grot_t(g_ds, R);
   if (!alive) gi = 0.0f;
+}
+
+// grin_backward with the field, out of line: the field's instantiations
+// with GRIN rods call it, once a kernel (inlined into them, each took nvcc
+// ~45 s more to build).
+RTT_GR_NOINLINE void grin_backward_field(const float* r, int steps, G3 p, G3 d, uint32_t bits,
+                                         float n_cur, float g_opl, float g_nafter, G3& gp,
+                                         G3& gd, float& gi, float* tg_rw, float* tg_tw,
+                                         float* tg_ph, float& g_nbefore, const GrinFld& fin,
+                                         GrinFld& gfe) {
+  grin_backward<true>(r, steps, p, d, bits, n_cur, g_opl, g_nafter, gp, gd, gi, tg_rw, tg_tw,
+                      tg_ph, g_nbefore, &fin, &gfe);
 }
 
 }  // namespace rtt

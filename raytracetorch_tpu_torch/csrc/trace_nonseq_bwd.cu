@@ -145,7 +145,10 @@
 //     its bits (the steps it applied, whether it lived, whether its exit
 //     coupled), and the reverse sweep runs K2's rod adjoint
 //     (trace_seq_adjoint.cuh::grin_row_backward) on a GRIN winner, into the
-//     pose columns and ph[0:6].  The checkpoints stay 9 words.
+//     pose columns and ph[0:6].  The checkpoints stay 9 words.  Under the
+//     field (below) the rod takes the field's cotangent back too (grin.cuh::
+//     grin_backward with kField, its own checkpoints of the field beside
+//     the rod's state, in local memory).
 //
 // What bounds it: per ray it reads 8 input streams and up to 7 cotangents
 // (60 B) and writes 7 cotangents (28 B): 88 MB at 1M rays, ~26 us at the
@@ -159,10 +162,12 @@
 // is an estimate by count (chip_smoke.py computes the bound from a run's
 // rays); PERF.md holds the measured time.
 //
-// The polarized field runs in one more instantiation, kField, which
-// compiles every family but GRIN rods (for a table without the
+// The polarized field runs in the field's instantiations, kField, which
+// compile every family but GRIN rods (for a table without the
 // diffractive, fuzzy or freeform kinds the Fresnel kinds and coatings
-// alone, kFamFieldCoat, as K5) (an overload with one more argument
+// alone, kFamFieldCoat, as K5) or, for a table with a GRIN rod, every
+// family (kFamAll: trace_seq_common.cuh::field_link) (an overload with one
+// more argument
 // after the side data, FieldIn: K5's launch field, the
 // cotangent of its final field, the launch field's cotangent and the
 // replay's final field, each [6][N] planar; the TPU kernels' g_field,
@@ -231,9 +236,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // row of the side buffer `cside`; with kDiff the diffractive kinds; with
 // kFuzzy a winner with a program in `fz` (null: none) weighs by it; with
 // kFreeform the freeform rows of `ffs` (null: none); with kField the winner
-// sees and transports the field *fe; with kGrin a GRIN winner runs its rod,
-// its bits being the rod's decisions and its medium the rod's ambient
-// index.
+// sees and transports the field *fe; with kGrin a GRIN winner runs its rod
+// (with kField carrying *fe through it), its bits being the rod's
+// decisions and its medium the rod's ambient index.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
           bool kCoat = false, bool kDiff = false, bool kFuzzy = false, bool kFreeform = false,
           bool kField = false, bool kGrin = false>
@@ -251,9 +256,9 @@ __device__ __forceinline__ int bounce(const float4* recs, const float* tab, cons
   if constexpr (kGrin) {
     GrinExit ge;
     const int k = nonseq_bounce<kPlates, kExt, kDispersion, false, kFresnel, kCoat, kDiff, kFuzzy,
-                                kFreeform, false, true>(recs, tab, knd, n_rows, pl, p, d, inten,
-                                                        hw, kw, &degen, &br, nullptr, rd, cside,
-                                                        fz, ffs, nullptr, &ge);
+                                kFreeform, kField, true>(recs, tab, knd, n_rows, pl, p, d, inten,
+                                                         hw, kw, &degen, &br, nullptr, rd, cside,
+                                                         fz, ffs, fe, &ge);
     if (k >= 0 && kw.ph == GRIN) {
       bits = kActive | ge.bits;
       *n_cur = tab[k * kRowWidth + kPh];
@@ -353,7 +358,8 @@ __device__ __forceinline__ Fld launch_field(const FieldIn& fi, long long i, long
 // into shared memory after the programs), and (with kFamFreeform) 32 ff
 // columns a row; with kGrin the replays run GRIN winners' rods and the
 // reverse sweep their adjoints.  With kField (which has every family flag
-// but kGrin) the replays carry the field from `fi.in`, each checkpoint
+// but kGrin, and kGrin in the instantiation for rods) the replays carry
+// the field from `fi.in`, each checkpoint
 // keeps the field before its bounce, and the reverse sweep carries its
 // cotangent from `fi.g_out` to `fi.c_in`.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
@@ -384,7 +390,6 @@ __device__ __forceinline__ void nonseq_bwd(
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kCoat || !kField, "the field runs with the coatings");
   static_assert(!kGrin || kOpl, "GRIN rods run with the path length");
-  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kWords = state_words<kOpl, kField>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
@@ -601,8 +606,8 @@ __device__ __forceinline__ void nonseq_bwd(
               read_row_kinds<kExt, kDispersion, kCoat>(knd + k * kKindWidth);
           const int32_t* ffp = freeform ? ff_row_of(ffs, k) : nullptr;
           if (kGrin && kd.ph == GRIN) {  // a GRIN winner: the rod's adjoint
-            grin_row_backward(tab + k * kRowWidth, kd, sp, sd, word & 0xffffu, oc, gp, gd, gi,
-                              tg);
+            grin_row_backward<kField>(tab + k * kRowWidth, kd, sp, sd, word & 0xffffu, oc, gp,
+                                      gd, gi, tg, kField ? &fc : nullptr);
           } else {
             row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy,
                          kFreeform, kField>(tab + k * kRowWidth, kd, sp, sd, si, word & 0xffffu,
@@ -746,7 +751,8 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs)
 
 // The field's instantiation: those, the families of kFams (every family
 // but GRIN rods; kFamFieldCoat for tables without the diffractive, fuzzy or
-// freeform kinds) and the field.
+// freeform kinds; kFamAll, with GRIN rods, for tables with a rod) and the
+// field.
 template <bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs, FieldIn fi) {
@@ -754,8 +760,8 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs,
   constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
   constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
   constexpr bool kFF = fam_has(kFams, kFamFreeform);
-  nonseq_bwd<kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, true>(RTT_NONSEQ_BWD_ARGS, wo,
-                                                                     oi, fs, fi);
+  nonseq_bwd<kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, true, fam_has(kFams, kFamGrin)>(
+      RTT_NONSEQ_BWD_ARGS, wo, oi, fs, fi);
 }
 
 // The types of the kernels.
@@ -1001,9 +1007,9 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   return with_fam_link<false>(fam, go);
 }
 
-// Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_nonseq_bwd_opl (whose `fam` must not hold kFamGrin) up to
-// `fam`, then K5's launch field `field_in`, the cotangent of K5's final
+// Launches the instantiation with the field on `stream` (field_link: the
+// one with every family for a table with a GRIN rod): the arguments of
+// rtt_trace_nonseq_bwd_opl up to `fam`, then K5's launch field `field_in`, the cotangent of K5's final
 // field `g_field` (null: zero), the launch field's cotangent `c_field` and
 // the field the forward replay ends at `r_field` (null: not wanted), [6][n]
 // floats each.  Its partials hold the columns of rtt_trace_nonseq_bwd_opl's
@@ -1026,7 +1032,7 @@ extern "C" int rtt_trace_nonseq_bwd_field(
   FamSide fs;
   cudaError_t e = fam_side(key0, key1, coat_side, fuzzy, fuzzy_words, ff_side, fam, n_rows, &fs);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if ((fam & kFamGrin) || field_in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (field_in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || n_rows > 64 || n_slots * n_bundles > 64 || n_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
@@ -1049,8 +1055,7 @@ extern "C" int rtt_trace_nonseq_bwd_field(
             n, wo, OplIn{g_opl, g_nfinal}, fs, FieldIn{field_in, g_field, c_field, r_field});
     return static_cast<int>(cudaGetLastError());
   };
-  return field_coat_alone(fam) ? go(std::integral_constant<uint32_t, kFamFieldCoat>{})
-                               : go(std::integral_constant<uint32_t, kFamField>{});
+  return with_field_link<true>(fam, go);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
@@ -1074,13 +1079,12 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   if (code == 6) {
     smem = shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                 kDispGradCols, fs);
-    if (field_coat_alone(fam)) {
-      e = prepare<true, true, true, true, kFamFieldCoat, true>(smem);
-      fn = kernel_fn<true, true, true, true, kFamFieldCoat, true>();
-    } else {
-      e = prepare<true, true, true, true, kFamField, true>(smem);
-      fn = kernel_fn<true, true, true, true, kFamField, true>();
-    }
+    with_field_link<true>(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      e = prepare<true, true, true, true, kFams, true>(smem);
+      fn = kernel_fn<true, true, true, true, kFams, true>();
+      return 0;
+    });
   } else if (code == 5) {
     smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols,
                                           fs);

@@ -1468,14 +1468,27 @@ __device__ __forceinline__ void row_backward(const float* r, const RowKinds& kd,
 // an inactive row passes every cotangent through): gp, gd and gi become the
 // cotangents before it, oc's medium cotangent that of the medium before
 // it, and the table's cotangents add into tg's Rw, tw and ph[0:6] columns.
+// With kField, fc's field cotangent after the rod becomes the one before
+// it (its saved field fc->e).
+template <bool kField = false>
 __device__ __forceinline__ void grin_row_backward(const float* r, const RowKinds& kd, V3 p, V3 d,
                                                   uint32_t bits, OplCt& oc, V3& gp, V3& gd,
-                                                  float& gi, float* tg) {
+                                                  float& gi, float* tg,
+                                                  FieldCt* fc = nullptr) {
   if (!(bits & kActive)) return;
   G3 g_p = {gp.x, gp.y, gp.z}, g_d = {gd.x, gd.y, gd.z};
   float g_n = 0.0f;
-  grin_backward(r, kd.map, G3{p.x, p.y, p.z}, G3{d.x, d.y, d.z}, bits, oc.n_cur, oc.g_opl,
-                oc.g_n, g_p, g_d, gi, tg + kGRw, tg + kGTw, tg + kGPh, g_n);
+  if constexpr (kField) {
+    const GrinFld fin = grin_fld(fc->e);
+    GrinFld g_e = grin_fld(fc->g);
+    grin_backward_field(r, kd.map, G3{p.x, p.y, p.z}, G3{d.x, d.y, d.z}, bits, oc.n_cur,
+                        oc.g_opl, oc.g_n, g_p, g_d, gi, tg + kGRw, tg + kGTw, tg + kGPh, g_n,
+                        fin, g_e);
+    fc->g = fld_of(g_e);
+  } else {
+    grin_backward(r, kd.map, G3{p.x, p.y, p.z}, G3{d.x, d.y, d.z}, bits, oc.n_cur, oc.g_opl,
+                  oc.g_n, g_p, g_d, gi, tg + kGRw, tg + kGTw, tg + kGPh, g_n);
+  }
   oc.g_n = g_n;
   gp = {g_p.x, g_p.y, g_p.z};
   gd = {g_d.x, g_d.y, g_d.z};

@@ -153,11 +153,15 @@
 //   A row's columns: the 27, the disp columns on a table with a dispersive
 //   row, the 8 coat columns when the table has coatings, then 32 ff
 //   columns with freeform surfaces or 8 with the diffractive kinds.
-// - The polarized field: one more instantiation, kField, which compiles
-//   every family but GRIN rods (an overload with one more argument,
-//   FieldIn: K1's launch field, the cotangent of its final field and the
-//   launch field's cotangent, each [6][N] planar), so that the others keep
-//   their code.  Its forward sweep carries the field as K1 does and saves
+// - The polarized field: the field's instantiations, kField, one that
+//   compiles every family but GRIN rods and one, for tables with a rod,
+//   that compiles every family (trace_seq_common.cuh::field_link) (an
+//   overload with one more argument, FieldIn: K1's launch field, the
+//   cotangent of its final field and the launch field's cotangent, each
+//   [6][N] planar), so that the others keep their code.  A rod takes the
+//   field's cotangent back through its exit coupling, its steps (the field
+//   at each of the rod's checkpoints rides beside its state) and its entry
+//   coupling (grin.cuh::grin_backward with kField).  Its forward sweep carries the field as K1 does and saves
 //   the incoming field as six more state words a row (15 in all: 15 KB a
 //   row of shared memory, so tables of up to kFieldSharedRows rows keep
 //   them there, longer ones in local memory); its reverse sweep carries the
@@ -256,8 +260,9 @@ struct FieldIn {
 // programs) refine their roots onto their sags, and (with kFamFreeform)
 // the ff columns are 32 a row (a freeform row's coefficients, or a DOE
 // row's in the first 8); with kGrin a GRIN row runs the rod forward and its
-// adjoint back.  With kField (which has every family flag but kGrin) the
-// field rides the state as K1 carries it.
+// adjoint back.  With kField (which has every family flag but kGrin, and
+// kGrin in the instantiation for rods) the field rides the state as K1
+// carries it.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
           bool kFreeform = false, bool kField = false, bool kGrin = false>
@@ -283,7 +288,6 @@ __device__ __forceinline__ void seq_bwd(
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
   static_assert(!kGrin || kOpl, "GRIN rods run with the path length");
-  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   constexpr int kCols = grad_cols<kPlates, kExt>();
   constexpr int kFfCols = kFreeform ? kMaxFfTerms : kMaxDoeTerms;  // kDiff: the ff columns
   constexpr int kStride = kShared ? kThreads : 1;
@@ -374,9 +378,11 @@ __device__ __forceinline__ void seq_bwd(
       if (kd.ph == GRIN) {  // warp-uniform: the rod, as K1 runs it
         GrinExit ge;
         float t;
-        const uint32_t gbits =
-            grin_row<kPlates>(tab + k * kRowWidth, kd, p, d, inten, ge, t) ? kActive | ge.bits
-                                                                          : 0u;
+        if constexpr (kField) put_field<kStride>(saved + k * kWords * kStride, fe);
+        const uint32_t gbits = grin_row<kPlates, kField>(tab + k * kRowWidth, kd, p, d, inten, ge,
+                                                         t, kField ? &fe : nullptr)
+                                   ? kActive | ge.bits
+                                   : 0u;
         put_state<kStride>(saved + k * kWords * kStride, p0, d0, i0, gbits);
         put_medium<kStride>(saved + k * kWords * kStride, n_cur);
         if (gbits & kActive) n_cur = tab[k * kRowWidth + kPh];
@@ -454,7 +460,8 @@ __device__ __forceinline__ void seq_bwd(
       for (int c = 0; c < (kDiff ? kFfCols : 1); ++c) tf[c] = 0.0f;
       const int32_t* ffp = freeform ? ff_row_of(ffs, k) : nullptr;
       if (kGrin && kd.ph == GRIN) {  // warp-uniform: the rod's adjoint
-        grin_row_backward(r, kd, sp, sd, bits, oc, gp, gd, gi, tg);
+        grin_row_backward<kField>(r, kd, sp, sd, bits, oc, gp, gd, gi, tg,
+                                  kField ? &fc : nullptr);
       } else {
         row_backward<kPlates, kExt, kDispersion, kOpl, kFresnel, kCoat, kDiff, kFuzzy, kFreeform,
                      kField>(r, kd, sp, sd, si, bits, rid, gm, n_bundles, gg, pl, gmaps, gp, gd,
@@ -586,7 +593,7 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs) {
 }
 
 // The field's instantiation: those, the families of kFams (every family
-// but GRIN rods) and the field.
+// but GRIN rods; kFamAll, with them, for tables with a rod) and the field.
 template <bool kShared, bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs, FieldIn fi) {
@@ -594,8 +601,8 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs, Field
   constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
   constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
   constexpr bool kFF = fam_has(kFams, kFamFreeform);
-  seq_bwd<kShared, kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, true>(
-      RTT_SEQ_BWD_ARGS, wo, oi, fs, fi);
+  seq_bwd<kShared, kPlates, kExt, true, true, kF, kC, kD, kZ, kFF, true,
+          fam_has(kFams, kFamGrin)>(RTT_SEQ_BWD_ARGS, wo, oi, fs, fi);
 }
 
 // The types of the kernels.
@@ -892,9 +899,9 @@ extern "C" int rtt_trace_seq_bwd_opl(
   return with_fam_link(fam, [&](auto fams) { return go(fams, fs); });
 }
 
-// Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_seq_bwd_opl (whose `fam` must not hold kFamGrin), then
-// `field_in`, K1's launch field, `g_field`, the cotangent of K1's final
+// Launches the instantiation with the field on `stream` (field_link: the
+// one with every family for a table with a GRIN rod): the arguments of
+// rtt_trace_seq_bwd_opl, then `field_in`, K1's launch field, `g_field`, the cotangent of K1's final
 // field (null: zero), and `c_field`, which receives the launch field's
 // cotangent (null: not wanted), 6 * n floats each ([6][n]: Er x, y, z, then
 // Ei x, y, z).  Tables of up to kFieldSharedRows rows keep their saved
@@ -916,7 +923,7 @@ extern "C" int rtt_trace_seq_bwd_field(
   cudaError_t e = fam_side(uniforms, n_draws, coat_side, fuzzy, fuzzy_words, ff_side, fam,
                            n_rows, &fs);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if ((fam & kFamGrin) || field_in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (field_in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -928,21 +935,26 @@ extern "C" int rtt_trace_seq_bwd_field(
       shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols, fs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  const void* fn;
-  e = prepare_rows<true, true, true, true, kFamField, true>(n_rows, smem, &fn);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
   const FieldIn fi = {field_in, g_field, c_field};
-  if (n_rows <= kFieldSharedRows)
-    trace_seq_bwd_kernel<true, true, true, kFamField><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
-  else
-    trace_seq_bwd_kernel<false, true, true, kFamField><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
+  e = with_field_link<false>(fam, [&](auto fams) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    const void* fn;
+    const cudaError_t e2 = prepare_rows<true, true, true, true, kFams, true>(n_rows, smem, &fn);
+    if (e2 != cudaSuccess) return e2;
+    if (n_rows <= kFieldSharedRows)
+      trace_seq_bwd_kernel<true, true, true, kFams><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
+    else
+      trace_seq_bwd_kernel<false, true, true, kFams><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
+    return cudaSuccess;
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -970,7 +982,10 @@ extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundle
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
   const cudaError_t e =
-      code == 6   ? prepare_rows<true, true, true, true, kFamField, true>(n_rows, smem, &fn)
+      code == 6   ? with_field_link<false>(fam, [&](auto fams) {
+                      return prepare_rows<true, true, true, true, decltype(fams)::value, true>(
+                          n_rows, smem, &fn);
+                    })
       : code == 5 ? with_fam_link(fam, [&](auto fams) {
                       return prepare_rows<true, true, true, true, decltype(fams)::value>(
                           n_rows, smem, &fn);

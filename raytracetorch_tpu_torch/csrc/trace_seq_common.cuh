@@ -85,10 +85,12 @@
 // elements build no such row): both read the ff columns.
 //
 // The polarized field (track_field: a complex E-vector per ray, field.cuh)
-// takes one more compile-time flag, kField, set only in one more
-// instantiation of each kernel, which takes every family but GRIN rods
-// (nonseq_bounce, field_winner): every other instantiation holds none of
-// its code.  Under it the Fresnel
+// takes one more compile-time flag, kField, set only in the field's
+// instantiations of each kernel: one that takes every family but GRIN rods
+// (nonseq_bounce, field_winner) and one for tables with a GRIN rod, which
+// takes every family (field_link): every other instantiation holds none of
+// its code.  A rod carries the field through its steps (grin.cuh::
+// grin_rod_field).  Under it the Fresnel
 // kinds of bare interfaces draw and weigh with the polarized reflectance of
 // the ray's field (fresnel_physics with kField), a JONES row (a polarizer
 // or a waveplate) passes the ray through, and field_row gathers what a row's
@@ -98,9 +100,10 @@
 // The families.  The flags kFresnel, kCoat, kDiff, kFuzzy, kFreeform and
 // kGrin are each a family of kinds; the kernels compile them together, in
 // one instantiation of each (the family instantiation, with the streams),
-// and the field's instantiation compiles all but kGrin, so that a table
-// that mixes families (a GRIN rod beside a coated lens, a DOE under the
-// field) runs as the JAX kernels run it.  Which families a table has rides
+// and the field's instantiations compile all but kGrin and, for a table
+// with a rod, all, so that a table that mixes families (a GRIN rod beside a
+// coated lens, a DOE under the field, a rod under the field) runs as the
+// JAX kernels run it.  Which families a table has rides
 // a launch's runtime word FamSide::fam (kFam* bits; ops/fused_trace.py::
 // families): an absent family's per-block setup (the shared copies of its
 // side buffer, programs or exponent pairs, the ELLIPSE rows) is skipped and
@@ -440,9 +443,10 @@ constexpr uint32_t kFamFresnel = 1u, kFamCoat = 2u, kFamDiff = 4u, kFamFuzzy = 8
 // 1.3-2.2x slower): the Fresnel kinds alone, the coatings (with the Fresnel
 // kinds of their faces), the diffractive kinds (built on those), the fuzzy
 // programs (built on those), GRIN rods alone; the field's (every family but
-// GRIN) and the field's on the Fresnel kinds and coatings alone (K5's and
+// GRIN), the field's on the Fresnel kinds and coatings alone (K5's and
 // K6's for tables without the diffractive, fuzzy or freeform kinds: the
-// earlier field instantiation).
+// earlier field instantiation) and the field's with every family (tables
+// with a GRIN rod: field_link).
 constexpr uint32_t kFamAll = 63u, kFamField = kFamAll & ~kFamGrin;
 constexpr uint32_t kFamCoatLink = kFamFresnel | kFamCoat;
 constexpr uint32_t kFamDiffLink = kFamCoatLink | kFamDiff;
@@ -493,10 +497,32 @@ auto with_fam_link(uint32_t fam, F&& f) {
   }
 }
 
-// K5's and K6's field instantiation for the families `fam`: without the
-// diffractive, fuzzy or freeform kinds kFamFieldCoat's, else kFamField's.
-__host__ __device__ __forceinline__ bool field_coat_alone(uint32_t fam) {
-  return (fam & ~kFamFieldCoat) == 0u;
+// The family set of the field's instantiation that a launch of the
+// families `fam` runs: a table with a GRIN rod the one with every family
+// (kFamAll), so that the others keep their code; else K5's and K6's
+// (kCoatLink) kFamFieldCoat without the diffractive, fuzzy or freeform
+// kinds, and kFamField.
+template <bool kCoatLink>
+__host__ __device__ constexpr uint32_t field_link(uint32_t fam) {
+  return (fam & kFamGrin) != 0u                       ? kFamAll
+         : kCoatLink && (fam & ~kFamFieldCoat) == 0u ? kFamFieldCoat
+                                                      : kFamField;
+}
+
+// Calls f(std::integral_constant<uint32_t, kFams>{}) with the family set
+// field_link<kCoatLink>(fam) selects: a launcher's one call site for the
+// field's instantiations.
+template <bool kCoatLink, class F>
+auto with_field_link(uint32_t fam, F&& f) {
+  switch (field_link<kCoatLink>(fam)) {
+    case kFamAll:
+      return f(std::integral_constant<uint32_t, kFamAll>{});
+    case kFamFieldCoat:
+      if constexpr (kCoatLink) return f(std::integral_constant<uint32_t, kFamFieldCoat>{});
+      [[fallthrough]];
+    default:
+      return f(std::integral_constant<uint32_t, kFamField>{});
+  }
 }
 
 // The side data of the family and field instantiations, each pointer null
@@ -1451,19 +1477,44 @@ __device__ __forceinline__ float medium_after(const float* r, const RowKinds& kd
   }
 }
 
+// A ray's field as grin.cuh carries it, and back.
+__device__ __forceinline__ GrinFld grin_fld(const Fld& e) {
+  return {{e.r.x, e.r.y, e.r.z}, {e.i.x, e.i.y, e.i.z}};
+}
+__device__ __forceinline__ Fld fld_of(const GrinFld& e) {
+  return {{e.r.x, e.r.y, e.r.z}, {e.i.x, e.i.y, e.i.z}};
+}
+
+// A GRIN rod's run from its entry-plane hit hs (grin.cuh::grin_rod), with
+// kField (fe not null) carrying the ray's field *fe through it
+// (grin_rod_field).
+template <bool kField>
+__device__ __forceinline__ GrinExit grin_run(const float* r, int steps, V3 d, V3 hs, Fld* fe) {
+  if constexpr (kField) {
+    GrinFld e = grin_fld(*fe);
+    const GrinExit ge = grin_rod_field(r, steps, d.x, d.y, d.z, hs.x, hs.y, e);
+    *fe = fld_of(e);
+    return ge;
+  } else {
+    return grin_rod(r, steps, d.x, d.y, d.z, hs.x, hs.y);
+  }
+}
+
 // A GRIN row of K1's chain (and of K2's forward sweep, kGrin): the entry
 // plane's hit, and where the row is active (valid, intensity > 0, the ray
 // travelling +z in the rod's frame: grin_fwd) the whole rod (grin.cuh::
 // grin_rod): the ray lands at the exit face with its intensity times 1 or 0
-// (dead).  Returns whether the row was active; `ge` and `t` receive the
-// rod's exit and the entry plane's ray parameter.
-template <bool kPlates>
+// (dead), with kField its field *fe carried through the rod.  Returns
+// whether the row was active; `ge` and `t` receive the rod's exit and the
+// entry plane's ray parameter.
+template <bool kPlates, bool kField = false>
 __device__ __forceinline__ bool grin_row(const float* r, const RowKinds& kd, V3& p, V3& d,
-                                         float& inten, GrinExit& ge, float& t) {
+                                         float& inten, GrinExit& ge, float& t,
+                                         Fld* fe = nullptr) {
   const RowHit h = intersect_row<kPlates, true>(r, kd, p, d);
   t = h.t;
   if (!(h.valid && inten > 0.0f && grin_fwd(r, d.x, d.y, d.z))) return false;
-  ge = grin_rod(r, kd.map, d.x, d.y, d.z, h.hs.x, h.hs.y);
+  ge = grin_run<kField>(r, kd.map, d, h.hs, fe);
   p = {ge.p.x, ge.p.y, ge.p.z};
   d = {ge.d.x, ge.d.y, ge.d.z};
   if (!(ge.bits & kGrinAlive)) inten = 0.0f;
@@ -1519,12 +1570,12 @@ struct SensorRec {
 // A null `fz` or `ffs` (a table without that family) skips its code.
 // With kField (which has kCoat) the winner's physics sees the ray's field
 // *fe (field_physics) and the winner transports it (field_winner), so that
-// K6's replay reaches K5's field.  With kGrin (which has kExt; not with
-// kField) a GRIN row's entry face wins only a ray travelling +z in its frame
-// (grin_fwd), and a GRIN winner runs its whole rod (grin.cuh::grin_rod, out
-// of line, so that K6's replay reaches K5's state): the ray lands at the
-// exit face, and `ge` receives the rod's exit (its in-medium path and
-// bits).
+// K6's replay reaches K5's field.  With kGrin (which has kExt) a GRIN row's
+// entry face wins only a ray travelling +z in its frame (grin_fwd), and a
+// GRIN winner runs its whole rod (grin.cuh::grin_rod, out of line, so that
+// K6's replay reaches K5's state; with kField grin_rod_field, its field
+// too): the ray lands at the exit face, and `ge` receives the rod's exit
+// (its in-medium path and bits).
 template <bool kPlates, bool kExt = false, bool kDispersion = kExt, bool kRecord = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
           bool kFreeform = false, bool kField = false, bool kGrin = false>
@@ -1546,7 +1597,6 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(!kField || kCoat, "the field runs with the coatings");
   static_assert(!kGrin || kExt, "GRIN rods read the kinds rows of the flat scan");
-  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   float best_t = kBig;
   int k_win = -1;
   if constexpr (kRecord) *rec = SensorRec{V3{0.0f, 0.0f, 0.0f}, 0};
@@ -1578,7 +1628,7 @@ __device__ __forceinline__ int nonseq_bounce(const float4* recs, const float* ta
   kw = read_row_kinds<kExt, kDispersion, kCoat>(knd + k_win * kKindWidth);
   if constexpr (kGrin) {
     if (kw.ph == GRIN) {
-      *ge = grin_rod(r, kw.map, d.x, d.y, d.z, hw.hs.x, hw.hs.y);
+      *ge = grin_run<kField>(r, kw.map, d, hw.hs, fe);
       p = {ge->p.x, ge->p.y, ge->p.z};
       d = {ge->d.x, ge->d.y, ge->d.z};
       if (!(ge->bits & kGrinAlive)) inten = 0.0f;

@@ -147,12 +147,14 @@
 //   becomes the ambient index; the records take the exit-face position as
 //   the row's position and hit, with weight 0 (_chain_pure :1569-1604).
 //
-// The polarized field (track_field) runs in one more instantiation, kField,
-// an overload with one more argument (FieldIO: the launch field and the
-// final field, [6][N] planar: the real parts of x, y, z, then the imaginary
-// ones), which compiles every family but GRIN rods (the field through a rod
-// is not in the kernels yet: the wrapper refuses it, ROADMAP Queue 1
-// position 4b), so every other instantiation keeps its code.  Each thread
+// The polarized field (track_field) runs in the field's instantiations
+// (kField), an overload with one more argument (FieldIO: the launch field
+// and the final field, [6][N] planar: the real parts of x, y, z, then the
+// imaginary ones): one that compiles every family but GRIN rods and one,
+// for tables with a rod, that compiles every family
+// (trace_seq_common.cuh::field_link), so every other instantiation keeps
+// its code.  A rod carries the field through its entry coupling, each RK4
+// step and its exit coupling (grin.cuh::grin_rod_field).  Each thread
 // carries its ray's six field floats through the rows: the Fresnel kinds,
 // bare or coated, draw and weigh with the polarized reflectance (and an
 // absorbing stack's transmittance) of the incoming field
@@ -263,8 +265,9 @@ struct FieldIO {
 // hit; with kFreeform the freeform rows of fs.ff (copied into shared memory
 // after the programs) refine their roots onto their sags; with kGrin a GRIN
 // row's active rays run the rod (grin_row).  With kField (which has every
-// family flag but kGrin) each ray carries its field from `fio.in`
-// (field_physics, the |E|^2 weights, field_transport) to `fio.out`.
+// family flag but kGrin, and kGrin in the instantiation for rods) each ray
+// carries its field from `fio.in` (field_physics, the |E|^2 weights,
+// field_transport, a rod's rotations) to `fio.out`.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
           bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false,
           bool kGrin = false>
@@ -287,7 +290,6 @@ __device__ __forceinline__ void seq_fwd(
   static_assert(kFuzzy || !kFreeform, "the freeform surfaces run with the fuzzy programs");
   static_assert(kFreeform || !kField, "the field runs with the freeform surfaces");
   static_assert(!kGrin || kStreams, "GRIN rods run with the streams");
-  static_assert(!(kGrin && kField), "the field through a GRIN rod is not in the kernels");
   extern __shared__ float4 smem4[];
   float* tab = reinterpret_cast<float*>(smem4);
   int32_t* knd = reinterpret_cast<int32_t*>(tab + n_rows * kRowWidth);
@@ -366,7 +368,7 @@ __device__ __forceinline__ void seq_fwd(
       if (kd.ph == GRIN) {  // warp-uniform: the rod is the row's interaction
         GrinExit ge;
         float t;
-        if (grin_row<kPlates>(r, kd, p, d, inten, ge, t)) {
+        if (grin_row<kPlates, kField>(r, kd, p, d, inten, ge, t, kField ? &fe : nullptr)) {
           opl = opl + (n_cur * t + ge.seg);
           n_cur = r[kPh];
         }
@@ -562,7 +564,8 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, FamSide fs) {
 }
 
 // The field's instantiation: the streams, the families of kFams (every
-// family but GRIN rods) and the field.
+// family but GRIN rods; kFamAll, with them, for tables with a rod) and the
+// field.
 template <bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
 trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, FamSide fs, FieldIO fio) {
@@ -570,7 +573,8 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, FamSide fs, FieldIO fio) 
   constexpr bool kF = fam_has(kFams, kFamFresnel), kC = fam_has(kFams, kFamCoat);
   constexpr bool kD = fam_has(kFams, kFamDiff), kZ = fam_has(kFams, kFamFuzzy);
   constexpr bool kFF = fam_has(kFams, kFamFreeform);
-  seq_fwd<kPlates, kExt, true, kF, kC, kD, kZ, kFF, true>(RTT_SEQ_FWD_ARGS, so, fs, fio);
+  seq_fwd<kPlates, kExt, true, kF, kC, kD, kZ, kFF, true, fam_has(kFams, kFamGrin)>(
+      RTT_SEQ_FWD_ARGS, so, fs, fio);
 }
 
 // The types of the five kernels.
@@ -629,13 +633,15 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the family
-// instantiation for the families `fam`, 6 the field's), its shared memory
-// allowed.
+// instantiation for the families `fam`, 6 the field's for them), its
+// shared memory allowed.
 const void* kernel_of(int code, uint32_t fam, size_t smem, cudaError_t* e) {
-  if (code == 6) {
-    *e = prepare<true, true, true, kFamField, true>(smem);
-    return kernel_fn<true, true, true, kFamField, true>();
-  }
+  if (code == 6)
+    return with_field_link<false>(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      *e = prepare<true, true, true, kFams, true>(smem);
+      return kernel_fn<true, true, true, kFams, true>();
+    });
   if (code == 5)
     return with_fam_link(fam, [&](auto fams) {
       constexpr uint32_t kFams = decltype(fams)::value;
@@ -791,11 +797,11 @@ extern "C" int rtt_trace_seq_fwd_streams(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_seq_fwd_streams (whose `fam` must not hold kFamGrin), then
-// `field_in`, the launch field, and `field_out`, the final field (6 * n
-// floats each, [6][n]: Er x, y, z, then Ei x, y, z).  Returns a
-// cudaError_t.
+// Launches the instantiation with the field on `stream` (field_link: the
+// one with every family for a table with a GRIN rod): the arguments of
+// rtt_trace_seq_fwd_streams, then `field_in`, the launch field, and
+// `field_out`, the final field (6 * n floats each, [6][n]: Er x, y, z, then
+// Ei x, y, z).  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_fwd_field(
     const float* table, const int32_t* kinds, int n_rows, const float* px, const float* py,
     const float* pz, const float* dx, const float* dy, const float* dz, const float* intensity,
@@ -811,8 +817,7 @@ extern "C" int rtt_trace_seq_fwd_field(
   cudaError_t e = fam_side(uniforms, n_draws, coat_side, fuzzy, fuzzy_words, ff_side, fam,
                            n_rows, &fs);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if ((fam & kFamGrin) || field_in == nullptr || field_out == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (field_in == nullptr || field_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (maps == nullptr || map_desc == nullptr || wavelength == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opl == nullptr) != (n_final == nullptr) || (hits == nullptr) != (hit_w == nullptr))
@@ -820,14 +825,19 @@ extern "C" int rtt_trace_seq_fwd_field(
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, fs);
-  e = prepare<true, true, true, kFamField, true>(smem);
+  e = with_field_link<false>(fam, [&](auto fams) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    const cudaError_t e2 = prepare<true, true, true, kFams, true>(smem);
+    if (e2 != cudaSuccess) return e2;
+    trace_seq_fwd_kernel<true, true, kFams>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
+            ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+            maps, map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr},
+            fs, FieldIO{field_in, field_out});
+    return cudaSuccess;
+  });
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_seq_fwd_kernel<true, true, kFamField>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
-          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
-          map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr}, fs,
-          FieldIO{field_in, field_out});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,12 +58,13 @@ The kernels' notes are in their sources.  In this module:
   frame, the winner running the whole rod once (csrc/grin.cuh), where the
   JAX kernel runs it for every candidate row: in K5 and K6's replay
   alike.
-- The polarized field (``track_field``, ``E0``; core/field.py) runs in one
-  more instantiation of K5 and K6, which compiles every family but GRIN
-  rods (a GRIN rod under the field raises NotImplementedError naming ROADMAP
-  Queue 1 position 4b, ``fused_trace.check_grin_kinds``) and reads the
-  table's families as the family instantiation does.  Its launches count
-  in ``fused_trace.FIELD_LAUNCHES`` alone.  The launch field is made in
+- The polarized field (``track_field``, ``E0``; core/field.py) runs in the
+  field's instantiations of K5 and K6, which read the table's families as
+  the family instantiation does: one compiles every family but GRIN rods,
+  and a table with a rod runs one that compiles every family, a winning rod
+  carrying the field through its couplings and steps.  Their launches count
+  in ``fused_trace.FIELD_LAUNCHES`` (a table with a rod's also in
+  ``fused_trace.GRIN_LAUNCHES``).  The launch field is made in
   torch (``FieldState.init``, so ``E0``'s cotangent flows there) and
   enters the kernels as six planar streams; K5 returns the final field's
   six (``aux['field']``, ``aux['field_power']``) and K6 takes their
@@ -105,7 +106,7 @@ from .fused_trace import (COAT_SIDE, COMPS, FAM_COAT, FAM_DIFF,
                           field_buffer, field_kinds, flat_inputs,
                           fresnel_kinds, fused_forward,
                           fuzzy_buffer, TraceMeta,
-                          check_grin_args, grin_kinds,
+                          grin_of, grin_kinds,
                           grad_cols, grid_args, kernel, needs_grad, new_grid,
                           plain_vjp, plate_args, plate_buffers, plate_inputs,
                           plate_maps, plate_rows, ptr, saved_field,
@@ -143,9 +144,11 @@ def k6_shared_bytes(static_meta, cfg: SensorConfig, n_bounces, field=None):
     (None: the ``TraceMeta``'s) of its field's
     (csrc/trace_nonseq_bwd.cu::shared_bytes): per row its table and kinds,
     the side data of the table's families (``families``: the side buffer,
-    the programs' words, the exponent pairs), its warp slots of the columns
-    (``grad_cols``), the moment cotangent and the checkpoints (with the
-    field fewer, of more words)."""
+    the programs' words, the exponent pairs; a GRIN rod has none, its data
+    riding its flat row and its checkpoints local memory, with the field
+    too: csrc/grin.cuh), its warp slots of the columns (``grad_cols``), the
+    moment cotangent and the checkpoints (with the field fewer, of more
+    words)."""
     field = field_kinds(static_meta) if field is None else field
     fam = families(static_meta)
     k = len(static_meta)
@@ -510,7 +513,7 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
         flat_table, kinds, rays, cfg, 'trace_nonseq_fwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
-    grin = check_grin_args(kinds, grin, field)
+    grin = grin_of(kinds, grin)
     fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
     key_args = _key_args(fam, fresnel, key, k, device, coat, fuzzy, ff)
     plates = plate_buffers(ext_maps(maps, ext or flags.any or fam), rays,
@@ -596,7 +599,7 @@ def trace_nonseq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
         flat_table, kinds, rays, cfg, 'trace_nonseq_bwd_cuda')
     check_moment_pairs(cfg)
     _check_bounces(n_bounces)
-    grin = check_grin_args(kinds, grin, field)
+    grin = grin_of(kinds, grin)
     fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
     opl = opl or field is not None
     key_args = _key_args(fam, fresnel, key, k, device, coat, fuzzy, ff)

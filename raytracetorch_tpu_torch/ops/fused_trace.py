@@ -136,15 +136,17 @@ module:
     ``grin_rows`` of the kinds tensor in the wrappers).  A rod's RK4 step
     count rides its kinds row's last column; its cotangents land in
     ph[0:6] (n_ambient, c0, c2, c4, cz, L) and the pose columns, all among
-    ``EXT_GRAD_COLS``.  A trace of GRIN rows under the field (ROADMAP
-    Queue 1 position 4b) or with more than ``MAX_GRIN_STEPS`` steps raises
-    NotImplementedError on either device (``check_grin_kinds``); the eager
-    traces take them.  ``trace_sequential_v1`` refuses GRIN rows, as the
-    TPU kernel it stands for does.
-- The polarized field (``track_field``, ``E0``; core/field.py) runs in one
-  more instantiation of each of K1, K2, K5 and K6, which compiles every
-  family but GRIN rods and reads the table's families as the family
-  instantiation does; its launches count in ``FIELD_LAUNCHES`` alone.  The
+    ``EXT_GRAD_COLS``.  A rod of more than ``MAX_GRIN_STEPS`` steps raises
+    NotImplementedError on either device (``kind_rows``); the eager traces
+    take it.  ``trace_sequential_v1`` refuses GRIN rows, as the TPU kernel
+    it stands for does.
+- The polarized field (``track_field``, ``E0``; core/field.py) runs in the
+  field's instantiations of each of K1, K2, K5 and K6, which read the
+  table's families as the family instantiation does: one compiles every
+  family but GRIN rods, and a table with a rod runs one that compiles every
+  family, its rods carrying the field through their couplings and steps
+  (csrc/grin.cuh).  Their launches count in ``FIELD_LAUNCHES`` (a table
+  with a rod's also in ``GRIN_LAUNCHES``).  The
   launch field is made in torch (``FieldState.init``, so ``E0``'s
   cotangent flows there) and enters the kernels as six planar streams; K1
   returns the six of the final field (``aux['field']``,
@@ -211,7 +213,8 @@ FUZZY_LAUNCHES = 0
 FREEFORM_LAUNCHES = 0
 GRIN_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with the field
+# ops/fused_nonseq.py) in their instantiations with the field (the one for
+# a table with a GRIN rod also in GRIN_LAUNCHES)
 FIELD_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
@@ -465,17 +468,6 @@ def families(static_meta):
             | (FAM_FUZZY if fuzzy_kinds(static_meta) else 0)
             | (FAM_FREEFORM if freeform_kinds(static_meta) else 0)
             | (FAM_GRIN if grin_kinds(static_meta) else 0))
-
-
-def check_grin_kinds(static_meta):
-    """Raise NotImplementedError when a fused trace of GRIN rows carries
-    the polarized field, which the kernels' field instantiation does not
-    take through a rod (ROADMAP Queue 1 position 4b).  The eager traces
-    take it."""
-    if grin_kinds(static_meta) and field_kinds(static_meta):
-        raise NotImplementedError(
-            'the fused trace takes no GRIN rod under the polarized field '
-            'until ROADMAP Queue 1 position 4b: use simulate')
 
 
 def field_kinds(static_meta):
@@ -821,10 +813,9 @@ def unpack(outs, rays, cfg, flags=NO_STREAMS, nonseq=False):
 def flat_inputs(table, rays, cfg, static_meta):
     """The flat [K, 160] table and the [K, 8] int32 kinds on the rays'
     device, for K1 and K5; raises before anything runs on rows or limits
-    the kernels do not take (a JONES row outside a trace with the field and
-    the GRIN rows of ``check_grin_kinds`` among them)."""
+    the kernels do not take (a JONES row outside a trace with the field
+    among them)."""
     kinds = kind_rows(static_meta, cfg)
-    check_grin_kinds(static_meta)
     if not field_kinds(static_meta) and any(m.ph == PhysKind.JONES
                                             for m in static_meta):
         raise NotImplementedError(
@@ -1443,7 +1434,7 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     table has a GRIN row, ``grin_kinds``; None: read it off ``kinds``,
     ``grin_rows``, one copy to the host).  ``field``, the launch field's six
     [N] streams (None: no field), runs the field's instantiation with the
-    same families (no ``grin``: ``check_grin_args``); ``aux`` then holds
+    same families (``grin``: the one with every family); ``aux`` then holds
     the final field's six streams as ``FIELD_KEYS``."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits,
@@ -1499,14 +1490,17 @@ def draw_args(fresnel, uniforms, n, device):
 
 def count_launch(fam, field=False, streams=False, ext=False):
     """Count a K1, K2, K5 or K6 launch in its instantiation's counters: the
-    field's in ``FIELD_LAUNCHES``, the family instantiation's in each of its
-    families' (``fam``), the streams' (or path length's) in
-    ``STREAM_LAUNCHES``, the extended kinds' in ``EXT_LAUNCHES``."""
+    field's in ``FIELD_LAUNCHES`` (its instantiation with every family, for
+    a table with a GRIN rod, also in ``GRIN_LAUNCHES``), the family
+    instantiation's in each of its families' (``fam``), the streams' (or
+    path length's) in ``STREAM_LAUNCHES``, the extended kinds' in
+    ``EXT_LAUNCHES``."""
     global EXT_LAUNCHES, STREAM_LAUNCHES, FRESNEL_LAUNCHES, COAT_LAUNCHES
     global DIFF_LAUNCHES, FUZZY_LAUNCHES, FREEFORM_LAUNCHES, FIELD_LAUNCHES
     global GRIN_LAUNCHES
     if field:
         FIELD_LAUNCHES += 1
+        GRIN_LAUNCHES += bool(fam & FAM_GRIN)
     elif fam:
         FRESNEL_LAUNCHES += bool(fam & FAM_FRESNEL)
         COAT_LAUNCHES += bool(fam & FAM_COAT)
@@ -1587,7 +1581,7 @@ def _seq_fwd_launch(flat_table, kinds, rays, cfg, maps, name, ext=False,
     ``(rays, SensorState, aux, launches)``."""
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, name)
-    grin = check_grin_args(kinds, grin, field)
+    grin = grin_of(kinds, grin)
     fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
     draws = draw_args(fresnel, uniforms, n, device)
     side = family_args(fam, k, device, coat, fuzzy, ff)
@@ -1676,7 +1670,7 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     global BWD_LAUNCHES
     device, k, n, n_slots, n_bundles = check_inputs(
         flat_table, kinds, rays, cfg, 'trace_seq_bwd_cuda')
-    grin = check_grin_args(kinds, grin, field)
+    grin = grin_of(kinds, grin)
     fam = family_bits(fresnel, coat, diff, fuzzy, ff, grin)
     opl = opl or field is not None
     ext = ext or need_wavelength or opl or bool(fam)
@@ -1738,18 +1732,12 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
     return res + (tuple(c_field),) if field is not None else res
 
 
-def check_grin_args(kinds, grin=None, field=None):
+def grin_of(kinds, grin=None):
     """Whether the K1, K2, K5 and K6 wrappers run GRIN rods (in the family
-    instantiation): ``grin``, or with None whether ``kinds`` has a GRIN row
-    (``grin_rows``); raises if the field's instantiation would get one
-    (ROADMAP Queue 1 position 4b; ``check_grin_kinds`` says so for a
-    trace)."""
-    if grin is None:
-        grin = grin_rows(kinds)
-    if grin and field is not None:
-        raise ValueError('the field\'s instantiation takes no GRIN rods '
-                         '(ROADMAP Queue 1 position 4b)')
-    return grin
+    instantiation, or under the field the field's with every family):
+    ``grin``, or with None whether ``kinds`` has a GRIN row
+    (``grin_rows``)."""
+    return grin_rows(kinds) if grin is None else grin
 
 
 def check_streams(grads, n, device):

@@ -428,17 +428,31 @@ def test_refused_kinds_name_their_item(meta):
     field (tests/test_torch_field.py): the fused trace takes its kinds under
     the field and refuses it without, naming the field.  A GRIN row traces
     (tests/test_torch_grin.py): the fused trace takes its kinds, its RK4
-    step count in the last column, and under the field refuses it naming
-    its ROADMAP item (Queue 1 position 4b)."""
+    step count in the last column, under the field too, where a rod's
+    fused trace equals its eager one (tests/test_torch_grin_field.py holds
+    both to the JAX package)."""
     m = StaticRowMeta(**meta)
     cfg = trt.SensorConfig(n_sensors=0, n_bundles=1)
     if m.ph == trt.PhysKind.GRIN:
         assert unsupported(m) is None
-        assert fused_trace.kind_rows([m], cfg)[0] == [12, 1, 0, 1, 0, 0, 0,
-                                                      64]
-        with pytest.raises(NotImplementedError, match='ROADMAP.*4b'):
-            fused_trace.check_grin_kinds(
-                fused_trace.TraceMeta([m], field=True))
+        for field in (False, True):
+            meta_t = fused_trace.TraceMeta([m], field=field)
+            assert fused_trace.kind_rows(meta_t, cfg)[0] == [
+                12, 1, 0, 1, 0, 0, 0, 64]
+            assert fused_trace.families(meta_t) == fused_trace.FAM_GRIN
+        sc = trt.SequentialScene([trt.GrinRod(radius=5.0, thickness=10.0,
+                                              n_steps=8,
+                                              translation=[0, 0, 5.0],
+                                              name='rod')])
+        p = sc.init_params('cpu')
+        rays = trt.Rays.create(torch.tensor([[0.5, 0.2, -1.0]] * 4),
+                               torch.tensor([[0.0, 0.0, 1.0]] * 4))
+        f_f, f_e = (getattr(sc, sim)(p, rays, track_field=True,
+                                     E0=[0.0, 1.0, 0.0])[2]['field']
+                    for sim in ('simulate_fused', 'simulate'))
+        for c in ('erx', 'ery', 'erz', 'eix', 'eiy', 'eiz'):
+            torch.testing.assert_close(getattr(f_f, c), getattr(f_e, c),
+                                       rtol=0, atol=1e-6)
         return
     if m.ph == trt.PhysKind.JONES:
         assert unsupported(m) is None

@@ -166,8 +166,8 @@ def _ellipse_scene():
 
 
 def _grin_scene():
-    # a GRIN rod: it traces (tests/test_torch_grin.py), but not under the
-    # polarized field on the fused path
+    # a GRIN rod: it traces (tests/test_torch_grin.py), under the polarized
+    # field too (tests/test_torch_grin_field.py)
     return jrt.SequentialScene([
         jrt.GrinRod(radius=5.0, thickness=10.0, n_steps=8,
                     translation=[0, 0, 5.0], name='grin'),
@@ -192,17 +192,23 @@ def test_dispatcher_raises_on_unsupported_rows(make):
     """Rows the fused trace does not take raise NotImplementedError naming
     their ROADMAP item; a JONES row (ported with the polarized field) raises
     naming the field it needs when the trace carries none; a GRIN rod
-    traces, and under the polarized field raises naming ROADMAP Queue 1
-    position 4b (the field through the rod in the kernels)."""
+    traces, and under the polarized field the fused trace equals the eager
+    one, rays and field."""
     scene = make()
     table, rays, cfg, meta = _port_inputs(scene, _rays(64, 1, seed=0), 1)
     if make is _grin_scene:
         out, _ = trt.trace_sequential_fused(table, rays, cfg, meta)
         assert bool(torch.isfinite(out.px).all())
         assert float((out.intensity > 0).float().mean()) > 0.5
-        with pytest.raises(NotImplementedError, match='ROADMAP.*4b'):
-            trt.trace_sequential_fused(table, rays, cfg, meta,
-                                       track_field=True)
+        out_f, _, aux_f = trt.trace_sequential_fused(table, rays, cfg, meta,
+                                                     track_field=True)
+        out_e, _, aux_e = trt.trace_sequential(table, rays, cfg, meta,
+                                               track_field=True)
+        for c in ('px', 'py', 'pz', 'dx', 'dy', 'dz', 'intensity'):
+            torch.testing.assert_close(getattr(out_f, c), getattr(out_e, c),
+                                       rtol=0, atol=1e-5)
+        torch.testing.assert_close(aux_f['field_power'],
+                                   aux_e['field_power'], rtol=0, atol=1e-6)
         return
     why = 'track_field' if make is _jones_scene else 'ROADMAP'
     with pytest.raises(NotImplementedError, match=why):

@@ -14,10 +14,10 @@
 - the plain fused versions (``simulate_fused`` on CPU tensors) against the
   JAX package's fused kernels in interpret mode (the pattern of
   tests/test_grin.py:328 and :367), forward and backward;
-- the refusals: GRIN beside the Fresnel kinds, coatings, diffractive,
-  fuzzy or freeform rows (ROADMAP Queue 1 position 3c) and under the field
-  (4b) on the fused path, more than MAX_GRIN_STEPS steps, and K0's
-  counterpart ``trace_sequential_v1``; the eager traces take them;
+- GRIN beside the Fresnel kinds, coatings, diffractive or freeform rows
+  and under the field on the fused path, equal to the eager trace; the
+  refusals: more than MAX_GRIN_STEPS steps, and K0's counterpart
+  ``trace_sequential_v1``; the eager traces take them;
 - the rod's hand-written forward and adjoint (csrc/grin.cuh, through the
   host harness tests/grin_harness.cpp built with g++) against the plain
   rod and torch autograd of it in float64.
@@ -646,18 +646,23 @@ def test_fused_refuses_grin_beside_other_families(kind):
 
 
 def test_fused_refuses_field_steps_and_k0():
-    """Under the field the fused trace refuses a rod naming 4b (the eager
-    trace carries the field through it); more than MAX_GRIN_STEPS steps
-    raise naming the limit; trace_sequential_v1 (K0's counterpart) refuses
-    GRIN rows, as the TPU kernel does (pallas_trace.py:166); fuzzy
-    apodization of a rod's row runs and equals the eager chain (which
-    applies none to a rod)."""
+    """Under the field the fused trace carries the field through a rod and
+    equals the eager trace, rays and field (tests/test_torch_grin_field.py
+    holds it to the JAX package); more than MAX_GRIN_STEPS steps raise
+    naming the limit; trace_sequential_v1 (K0's counterpart) refuses GRIN
+    rows, as the TPU kernel does (pallas_trace.py:166); fuzzy apodization
+    of a rod's row runs and equals the eager chain (which applies none to a
+    rod)."""
     sc = trt.SequentialScene([_rod(trt, 10.0)])
     p = sc.init_params('cpu')
     rays = _fan([0.1, 0.5])[1]
-    with pytest.raises(NotImplementedError, match='4b'):
-        sc.simulate_fused(p, rays, track_field=True)
-    assert torch.isfinite(sc.simulate(p, rays, track_field=True)[0].px).all()
+    E0 = [0.6, 0.8, 0.0]
+    _fused_equals_eager(sc, p, rays, track_field=True, E0=E0)
+    f_f = sc.simulate_fused(p, rays, track_field=True, E0=E0)[2]['field']
+    f_e = sc.simulate(p, rays, track_field=True, E0=E0)[2]['field']
+    for f in FIELDS:
+        torch.testing.assert_close(getattr(f_f, f), getattr(f_e, f),
+                                   rtol=0, atol=1e-6)
     big = trt.SequentialScene([_rod(trt, 10.0, n_steps=ft.MAX_GRIN_STEPS + 1)])
     with pytest.raises(NotImplementedError, match='MAX_GRIN_STEPS'):
         big.simulate_fused(big.init_params('cpu'), rays)
@@ -680,28 +685,29 @@ def test_wrappers_read_grin_from_kinds():
     """The K1, K2, K5 and K6 wrappers take GRIN rods from the kinds tensor
     (``grin_rows``) when their caller does not say, whatever bits ride
     above a row's kind; the family instantiation takes a rod beside every
-    other family (``family_bits``), and the field's refuses one (4b)."""
+    other family (``family_bits``), and so does the field's: a rod beside a
+    Fresnel lens under the field traces, fused equal to eager."""
     def kinds_of(sc):
         return torch.tensor(ft.kind_rows(sc.static_meta(),
                                          sc.sensor_config()),
                             dtype=torch.int32)
     rod = kinds_of(trt.SequentialScene([_rod(trt, 10.0)]))
-    assert ft.grin_rows(rod) and ft.check_grin_args(rod)
+    assert ft.grin_rows(rod) and ft.grin_of(rod)
     other = kinds_of(_with(trt, 'fresnel'))
     assert ft.grin_rows(other)
     lens = kinds_of(trt.SequentialScene(_with(trt, 'fresnel').elements[1:]))
     assert not ft.grin_rows(lens)
-    assert not ft.check_grin_args(lens)
+    assert not ft.grin_of(lens)
     lens[:, 0] |= int(PhysKind.GRIN) << ft.DISP_SHIFT
     assert not ft.grin_rows(lens)
     for kw in (dict(fresnel=True), dict(diff=True), dict(ff=object())):
         for kinds, grin in ((rod, None), (lens, True)):
-            assert ft.check_grin_args(kinds, grin)
+            assert ft.grin_of(kinds, grin)
             bits = ft.family_bits(grin=True, **kw)
             assert bits & ft.FAM_GRIN and bits != ft.FAM_GRIN
-    for kinds, grin in ((rod, None), (lens, True)):
-        with pytest.raises(ValueError, match='GRIN'):
-            ft.check_grin_args(kinds, grin, field=object())
+    sc = _with(trt, 'fresnel')
+    _fused_equals_eager(sc, sc.init_params('cpu'), _fan([0.1, 0.5])[1],
+                        track_field=True, E0=[0.0, 1.0, 0.0])
 
 
 # ---- csrc/grin.cuh on the host ----
