@@ -1243,12 +1243,12 @@ def time_ms(torch, fn, warmup=3, reps=20):
 
 def time_pair(torch, kernel_fn, plain_fn, reps=20, warmup=3):
     """Kernel and plain version in turns (plain, kernel, kernel, plain),
-    reps/2 kernel calls per turn after ``warmup``, a quarter as many plain
+    reps/2 kernel calls per turn after ``warmup``, a fifth as many plain
     calls (at least one) after one warm-up: the plain versions take 10 ms
     to 3 s a call and are a reference, not the measured kernel -> (kernel
     ms median, plain ms median, runs)."""
     half = reps // 2
-    plain = max(1, half // 2)
+    plain = max(1, half // 5)
     p1 = time_ms(torch, plain_fn, 1, plain)
     k1 = time_ms(torch, kernel_fn, warmup, half)
     k2 = time_ms(torch, kernel_fn, warmup, half)
@@ -4707,9 +4707,10 @@ EX19_BEAM = 8.0
 EX19_DESIGN_RAYS, EX19_DESIGN_STEPS, EX19_DESIGN_LR = 20_000, 400, 2e-4
 # The eager design runs the first EX19_EAGER_STEPS of those steps (its host
 # cost, ~0.2 s a step, is the smoke's largest: the whole design took the
-# smoke to 1055.7 s on a slower host), and its loss there is held to the
-# fused design's loss at the same step within EX19_DESIGN_RTOL.
-EX19_EAGER_STEPS = 100
+# smoke to 1055.7 s on a slower host; 100 steps kept it over 800 s once
+# section 22 came), and its loss there is held to the fused design's loss
+# at the same step within EX19_DESIGN_RTOL.
+EX19_EAGER_STEPS = 50
 FF_NS_BOUNCES = 12
 EX20_BEAM_R, EX20_TILT, EX20_WAVELEN = 6.0, 0.03, 0.587e-3
 EX20_N_TERMS, EX20_MIN_WAVES = 28, 0.05
@@ -9832,8 +9833,11 @@ GRIN_FIELD_NA, GRIN_FIELD_SRC = 0.15, (1.5, 0.5, -3.0)
 GRIN_FIELD_E0 = {'quarter': [0.6, 0.8, 0.0], 'brewster': [1.0, 0.0, 0.0],
                  'ns': [complex(math.sqrt(0.5)), complex(0.0, math.sqrt(0.5)),
                         0.0]}
-# The grad step's leaves (the rod's n0 and grin_A, and E0).
+# The grad step's leaves (the rod's n0 and grin_A, and E0) and rays; the
+# plain versions are timed on GRIN_FIELD_TIME_RAYS rays, scaled to N_MAIN
+# (the section's time: at 65,536 rays and 1M / 250,000 it took 83 s).
 GRIN_FIELD_LEAVES = ('n0', 'grin_A')
+GRIN_FIELD_GRAD_RAYS, GRIN_FIELD_TIME_RAYS = 16_384, 62_500
 # The counted paths at N_MAIN against the JAX package's numbers on its own
 # rays, recorded on the CPU by `JAX_PLATFORMS=cpu python
 # tests/grin_field_anchors.py`: the sensor's weight, centroid and RMS, the
@@ -10017,7 +10021,7 @@ def grin_field_paths(rt, torch, dev, reset_counters, counters, only):
     N_MAIN rays (K1 or K5 once, in the field's instantiation with GRIN rods)
     against the JAX package's numbers (GRIN_FIELD_REF: the weight and
     centroid as section 21 holds them, the mean |E|^2 within
-    FIELD_REF_ATOL); and a grad step of GRIN_GRAD_RAYS rays in the rod's n0
+    FIELD_REF_ATOL); and a grad step of GRIN_FIELD_GRAD_RAYS rays in the rod's n0
     and grin_A and in E0 (K1 + K2 or K5 + K6 once each) against the eager
     trace's (GRIN_GRAD_RTOL of the leaf's scale) -> dict; raises on a
     breach."""
@@ -10050,7 +10054,7 @@ def grin_field_paths(rt, torch, dev, reset_counters, counters, only):
             check(abs(st['mean_intensity'] - 1.0) <= FIELD_NS_TP_ATOL,
                   f'T_p at Brewster\'s angle after the rod: '
                   f'{st["mean_intensity"]}')
-        rays = grin_field_rays(rt, torch, name, GRIN_GRAD_RAYS, dev)
+        rays = grin_field_rays(rt, torch, name, GRIN_FIELD_GRAD_RAYS, dev)
         got = {}
         for sim in ('simulate_fused', 'simulate'):
             p = sc.init_params(dev)
@@ -10114,7 +10118,7 @@ def grin_field_phases(rt, torch, dev, reset_counters, counters, only):
             rt, torch, sc, params, r, GRIN_FIELD_E0[name], dev)
         g_rays, g_mom, _ = random_cotangents(torch, r.n, cfg, dev, SEED + 6)
         g_field = [g_rays[0]] * 6
-        one = slice(0, GRIN_CHUNK)
+        one = slice(0, GRIN_FIELD_TIME_RAYS)
         r1 = ray_slice(ft, r, one)
         g1 = [g[one] for g in g_rays]
         field1, g_field1 = [f[one] for f in field], [g[one] for g in g_field]
@@ -10125,7 +10129,7 @@ def grin_field_phases(rt, torch, dev, reset_counters, counters, only):
             kf = (lambda: fn.trace_nonseq_fwd_cuda(
                 flat, kinds, r, cfg, nb, maps, True, field=field, **side))
             pf = (lambda: fn.trace_nonseq_fused_plain(
-                flat, r, cfg, meta, nb, maps, field=field))
+                flat, r1, cfg, meta, nb, maps, field=field1))
             bk = (lambda: fn.trace_nonseq_bwd_cuda(
                 flat, kinds, r, cfg, nb, g_rays, g_mom, maps=maps, ext=True,
                 field=field, g_field=g_field, **side))
@@ -10149,7 +10153,7 @@ def grin_field_phases(rt, torch, dev, reset_counters, counters, only):
             kf = (lambda: ft.trace_seq_fwd_cuda(
                 flat, kinds, r, cfg, maps, True, field=field, **side))
             pf = (lambda: ft.trace_sequential_fused_plain(
-                flat, r, cfg, meta, maps, field=field))
+                flat, r1, cfg, meta, maps, field=field1))
             bk = (lambda: ft.trace_seq_bwd_cuda(
                 flat, kinds, r, cfg, g_rays, g_mom, maps=maps, ext=True,
                 field=field, g_field=g_field, **side))
@@ -10175,14 +10179,14 @@ def grin_field_phases(rt, torch, dev, reset_counters, counters, only):
                 + -(-r.n // 256) * len(meta) * cols * 4)
         bounds[f'{keys[0]}_{name}'] = bound(io_f, fwd_ops)
         bounds[f'{keys[1]}_{name}'] = bound(io_b, bwd_ops)
-        for key_, kfn, pfn, share in ((f'{keys[0]}_{name}', kf, pf, 1.0),
-                                      (f'{keys[1]}_{name}', bk, bp,
-                                       r.n / r1.n)):
+        for key_, kfn, pfn in ((f'{keys[0]}_{name}', kf, pf),
+                               (f'{keys[1]}_{name}', bk, bp)):
             k_runs = time_ms(torch, kfn, warmup=2, reps=10)
             p_runs = time_ms(torch, pfn, warmup=1, reps=1)
             timing[key_] = dict(kernel_ms=statistics.median(k_runs),
-                                plain_ms=statistics.median(p_runs) * share,
-                                plain_rays=r.n / share, kernel_runs=k_runs)
+                                plain_ms=statistics.median(p_runs)
+                                * r.n / r1.n,
+                                plain_rays=r1.n, kernel_runs=k_runs)
         for lib in (('trace_nonseq_fwd', 'trace_nonseq_bwd') if name == 'ns'
                     else ('trace_seq_fwd', 'trace_seq_bwd')):
             occ[f'{lib}_{name}'] = ft.blocks_per_sm(
