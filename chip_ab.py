@@ -6,7 +6,7 @@ checkout's ``raytracetorch_tpu_torch/csrc`` unpacked beside it (for the
 parent commit: ``git archive HEAD raytracetorch_tpu_torch/csrc | tar -x -C
 _chip/parent``, in the git-ignored ``_chip/``):
 
-    python3 chip_ab.py _chip/parent/raytracetorch_tpu_torch/csrc
+    python3 chip_ab.py _chip/parent/raytracetorch_tpu_torch/csrc [PREFIX ...]
 
 It builds this checkout's six libraries as chip_smoke.py does and the other
 tree's four trace libraries (K1, K2, K5, K6; one nvcc each, all started
@@ -17,13 +17,14 @@ together), then:
   namespace's hash stripped) and their ptxas lines;
 - records the C arguments of every K1, K2, K5 and K6 launch of one grad
   step (``simulate_fused`` with the ray positions under grad) on each case
-  of ``CASES`` at 1M rays, keeping every tensor of the launching frames
-  alive, and times each launch with this build's and the other's entry
-  point in turns: 6 rounds of 20 CUDA events each, the order reversed
-  every other round; it reports the median of the round medians of each
-  and their ratio.  The other build is bound with this checkout's argument
-  types: the two must share their entry points (the collapse of the family
-  chain's, PR 23's, and later).  A launch that runs one of the chain's
+  of ``cases`` at 1M rays (those whose label starts with one of the
+  PREFIXes, where any are given), keeping every tensor of the launching
+  frames alive, and times each launch with this build's and the other's
+  entry point in turns: 6 rounds of 20 CUDA events each, the order
+  reversed every other round; it reports the median of the round medians
+  of each and their ratio.  The other build is bound with this checkout's
+  argument types: the two must share their entry points (both from after
+  the family chain became family sets).  A launch that runs one of the chain's
   links in this build is also timed in the family instantiation
   (``family_call``: ``family_ms``), the one a table that mixes families
   runs.
@@ -148,7 +149,7 @@ def family_call(torch, sym, args, n_rows, keep):
     fam = args[at]
     # csrc/trace_seq_common.cuh::fam_link: the chain's links (GRIN rods
     # alone: K1's and K2's); K5's and K6's field instantiation on the
-    # Fresnel kinds and coatings alone (field_link)
+    # Fresnel kinds and coatings alone (field_coat_alone)
     coat = ft.FAM_FRESNEL | ft.FAM_COAT
     links = (coat, coat | ft.FAM_DIFF, coat | ft.FAM_DIFF | ft.FAM_FUZZY)
     if 'field' in sym:
@@ -174,9 +175,8 @@ def family_call(torch, sym, args, n_rows, keep):
 def parent_call(sym, args):
     """(the other build's symbol, its arguments) of this build's launch
     ``sym`` with ``args`` (the two share their entry points), or None where
-    the other build has no instantiation for it: a GRIN rod under the field
-    (the field's instantiation with every family, csrc/trace_seq_common.cuh::
-    field_link), which it refuses."""
+    the other build has no instantiation for it: a GRIN rod under the field,
+    which it refuses."""
     from raytracetorch_tpu_torch.ops import fused_trace as ft
     if 'field' in sym and args[len(args) - _TAIL[sym] - 1] & ft.FAM_GRIN:
         return None
@@ -197,10 +197,11 @@ def build_other(csrc, name, out_dir):
 def main():
     import re
     import torch
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
+    if not torch.cuda.is_available() or len(sys.argv) < 2:
         print('chip_ab: needs a CUDA card and the other csrc directory',
               file=sys.stderr)
         return 2
+    prefixes = tuple(sys.argv[2:])
     sys.path.insert(0, cs.ROOT)
     import raytracetorch_tpu_torch as rt
     from raytracetorch_tpu_torch.ops import fused_trace, nvcc_build
@@ -278,6 +279,8 @@ def main():
 
     dev = torch.device('cuda')
     for label, sc, params, rays, kw in cases(rt, torch, dev, cs.N_MAIN):
+        if prefixes and not label.startswith(prefixes):
+            continue
         params = sc.init_params(dev) if params is None else params
         saved = dict(fused_trace._fns)
         for sym in launches:
