@@ -149,7 +149,7 @@ def family_call(torch, sym, args, n_rows, keep):
     fam = args[at]
     # csrc/trace_seq_common.cuh::fam_link: the chain's links (GRIN rods
     # alone: K1's and K2's); K5's and K6's field instantiation on the
-    # Fresnel kinds and coatings alone (field_coat_alone)
+    # Fresnel kinds and coatings alone (field_link)
     coat = ft.FAM_FRESNEL | ft.FAM_COAT
     links = (coat, coat | ft.FAM_DIFF, coat | ft.FAM_DIFF | ft.FAM_FUZZY)
     if 'field' in sym:
@@ -175,8 +175,9 @@ def family_call(torch, sym, args, n_rows, keep):
 def parent_call(sym, args):
     """(the other build's symbol, its arguments) of this build's launch
     ``sym`` with ``args`` (the two share their entry points), or None where
-    the other build has no instantiation for it: a GRIN rod under the field,
-    which it refuses."""
+    the other build has no instantiation for it: a GRIN rod under the field
+    (the field's instantiation with every family, csrc/trace_seq_common.cuh::
+    field_link), which it refuses."""
     from raytracetorch_tpu_torch.ops import fused_trace as ft
     if 'field' in sym and args[len(args) - _TAIL[sym] - 1] & ft.FAM_GRIN:
         return None

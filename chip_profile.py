@@ -98,7 +98,7 @@ time / wall time.  The calls, at 1M rays on the scenes of chip_smoke.py:
   pupil, example 19's corrector), each with the path length or the field,
   on the JAX package's rays;
 - the field through GRIN rods (chip_smoke.py section 22): K1 and K2 in
-  their field instantiation on the quarter-pitch rod with
+  their field instantiation with GRIN rods on the quarter-pitch rod with
   E0, K5 and K6 on the rod as a Scene under skew rays, circular E0.
 
 Arguments, if any, are prefixes: only the calls whose names start with

@@ -118,9 +118,9 @@ through K1 + K2 (its spot RMS and the paraxial working distance of the
 fitted A); times, bounds and blocks per SM.
 
 Section 22 drives the polarized field through GRIN rods (tests/test_grin.py
-:242, :283, :435) through K1, K2, K5 and K6 in their field instantiation,
-which takes every family (csrc/grin.cuh::grin_rod_field and its adjoint):
-each against its plain version at 1M rays (the quarter-pitch rod with E0, the
+:242, :283, :435) through K1, K2, K5 and K6 in their field instantiation
+with GRIN rods (csrc/grin.cuh::grin_rod_field and its adjoint): each
+against its plain version at 1M rays (the quarter-pitch rod with E0, the
 rod before a plate at Brewster's angle to its exit, the rod as a 4-bounce
 Scene lit by an off-axis point source with a circular E0; the rays, the
 final field and |E|^2, the ray, table and launch-field cotangents; K6's
@@ -10041,8 +10041,8 @@ def grin_field_kernels_vs_plain(rt, torch, name, n, device):
 
 def grin_field_paths(rt, torch, dev, reset_counters, counters, only):
     """The counted paths: each case through simulate_fused with the field at
-    N_MAIN rays (K1 or K5 once, in the field's instantiation, counted in
-    FIELD_LAUNCHES and GRIN_LAUNCHES) against the JAX package's numbers (GRIN_FIELD_REF: the weight and
+    N_MAIN rays (K1 or K5 once, in the field's instantiation with GRIN rods)
+    against the JAX package's numbers (GRIN_FIELD_REF: the weight and
     centroid as section 21 holds them, the mean |E|^2 within
     FIELD_REF_ATOL); and a grad step of GRIN_FIELD_GRAD_RAYS rays in the rod's n0
     and grin_A and in E0 (K1 + K2 or K5 + K6 once each) against the eager
@@ -10108,7 +10108,7 @@ def grin_field_paths(rt, torch, dev, reset_counters, counters, only):
 
 def grin_field_phases(rt, torch, dev, reset_counters, counters, only):
     """Section 22: the polarized field through GRIN rods, K1, K2, K5 and K6
-    in their field instantiation: each against its plain
+    in their field instantiation with GRIN rods: each against its plain
     version at N_MAIN rays (K6's replay bit for bit, its field too); the
     counted paths against the JAX package's numbers and fused against eager
     gradients; times, bounds and blocks per SM."""
@@ -10195,8 +10195,8 @@ def grin_field_phases(rt, torch, dev, reset_counters, counters, only):
     return dict(kernels=kern, paths=paths, timing=timing, bounds=bounds)
 
 
-# The SASS of every kernel of the four trace libraries (70: K1's 11, K2's
-# 24, K5's 23, K6's 12), which a later slice must not change unless it
+# The SASS of every kernel of the four trace libraries (76: K1's 12, K2's
+# 26, K5's 25, K6's 13), which a later slice must not change unless it
 # means to: sha256 (first 16 hex digits) of each kernel's normalized
 # `cuobjdump -sass` listing (sass_digests), keyed by the first 12 hex
 # digits of the sha256 of its mangled name (the anonymous namespace's hash
@@ -10204,9 +10204,9 @@ def grin_field_phases(rt, torch, dev, reset_counters, counters, only):
 # the family chain collapsed: the kernels that kept their code kept their
 # digests, but K6's instantiations without dispersion, with it and with
 # the path length, whose listings moved two independent predicate
-# instructions (PERF.md); the field's instantiation with every family (K1
-# one, K2 two, K5 two, K6 one), read again when it took GRIN rods ->
-# {library: {name key: digest}}.
+# instructions (PERF.md); and the field's instantiations with every family,
+# for tables with a GRIN rod (K1 one, K2 two, K5 two, K6 one), read when
+# they came -> {library: {name key: digest}}.
 SASS_ALL = {
     'trace_nonseq_bwd': {
         '03df43c7e5e9': '33691adada7802a5',
@@ -10218,6 +10218,7 @@ SASS_ALL = {
         '934c4c3721a8': '8912f19f0e71dc88',
         '9fb6f9ef47b2': 'c0100c0bc0dbdff6',
         'be39b3457e72': '5899b7eacd76d69a',
+        'd2b0a0757307': 'f30ed5853daea54e',
         'e5328c4bb36d': '9a9ece152bd43ffa',
         'ed6702cc88ee': '8f9a69e0fe4d738d',
         'efd221452f49': 'a78d2d8c8d9b5f2a'},
@@ -10233,6 +10234,8 @@ SASS_ALL = {
         '4f9725044bc5': 'cf734ce216a28839',
         '63b98f7c3418': '743dfdc6af310d8b',
         '8ece81f19a33': '5006a8ebac560e71',
+        '9887ea03277d': 'a2b42ccbc7a9f2c8',
+        'a69da8a34718': '5fa4bbf53bb53ab5',
         'a95f8af70d7d': 'cf478798b278ed3e',
         'aa7325da1eb9': 'd555d803c9eb251b',
         'bf2fb8301d57': 'cc6600d8603c2591',
@@ -10259,7 +10262,9 @@ SASS_ALL = {
         '838e6a6d04c7': '0f698b264124fd4e',
         '83e7f3681f0b': '0ea01155e408f645',
         '886f1bcf94e3': '94a3852495da1797',
+        '88c096aee4a1': 'f6a31b3b772cdbb6',
         '8abdf665eb4e': '50dac8ca0f9949cf',
+        '90d3e46e4d7c': '134d95db9b48eadd',
         '9398fdcc4d13': '9172a10c04414689',
         '9a56ef3383e0': 'c0f50fbdaffcdbf2',
         '9bcd32ef5f3f': 'ec6768b2b46c68a5',
@@ -10273,6 +10278,7 @@ SASS_ALL = {
     'trace_seq_fwd': {
         '15c4a4872cdb': '9d9e7a657e1eb148',
         '16fa3b59cf26': '2273abadad990939',
+        '74f8135ef41f': 'ae3d3dce30f0c652',
         '7f24aa638f84': '53a3de2d10a62d95',
         '87083c76f7fe': '034692c1d3d3deda',
         'ae165d077666': '3518c58d21cd8015',
@@ -12032,7 +12038,7 @@ def main():
             name, source, line,
             mx_p[case]['grad']['fused']['launches'][lib], err,
             mx_t[key]['kernel_ms'], mx_t[key]['plain_ms']))
-    # the field's instantiation on GRIN rods (section 22): launches on the
+    # the field's instantiation with GRIN rods (section 22): launches on the
     # counted grad steps of the Brewster case (K1, K2) and the Scene (K5,
     # K6), errors at 1M rays over the cases (rays and field), times and
     # bounds on the quarter-pitch rod and the Scene

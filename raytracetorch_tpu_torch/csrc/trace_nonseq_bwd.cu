@@ -162,11 +162,13 @@
 // is an estimate by count (chip_smoke.py computes the bound from a run's
 // rays); PERF.md holds the measured time.
 //
-// The polarized field runs in one more instantiation, kField, which
-// compiles every family (for a table without the diffractive, fuzzy,
-// freeform or GRIN kinds the Fresnel kinds and coatings alone,
-// kFamFieldCoat, as K5) (an overload with one more argument after the side
-// data, FieldIn: K5's launch field, the
+// The polarized field runs in the field's instantiations, kField, which
+// compile every family but GRIN rods (for a table without the
+// diffractive, fuzzy or freeform kinds the Fresnel kinds and coatings
+// alone, kFamFieldCoat, as K5) or, for a table with a GRIN rod, every
+// family (kFamAll: trace_seq_common.cuh::field_link) (an overload with one
+// more argument
+// after the side data, FieldIn: K5's launch field, the
 // cotangent of its final field, the launch field's cotangent and the
 // replay's final field, each [6][N] planar; the TPU kernels' g_field,
 // :2054-2149 and :2182-2406).  Its replays carry the field through K5's
@@ -355,9 +357,9 @@ __device__ __forceinline__ Fld launch_field(const FieldIn& fi, long long i, long
 // buffer) weigh by it; with kFreeform the freeform rows of fs.ff (copied
 // into shared memory after the programs), and (with kFamFreeform) 32 ff
 // columns a row; with kGrin the replays run GRIN winners' rods and the
-// reverse sweep their adjoints.  With kField (which has the coatings' family
-// flags, or every family's) the replays carry the field from `fi.in`, each
-// checkpoint
+// reverse sweep their adjoints.  With kField (which has every family flag
+// but kGrin, and kGrin in the instantiation for rods) the replays carry
+// the field from `fi.in`, each checkpoint
 // keeps the field before its bounce, and the reverse sweep carries its
 // cotangent from `fi.g_out` to `fi.c_in`.
 template <bool kPlates, bool kExt, bool kDispersion, bool kOpl = false, bool kFresnel = false,
@@ -747,10 +749,11 @@ trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs)
              fam_has(kFams, kFamGrin)>(RTT_NONSEQ_BWD_ARGS, wo, oi, fs);
 }
 
-// The field's instantiation: those, the families of kFams (every family;
-// kFamFieldCoat for tables without the diffractive, fuzzy, freeform or
-// GRIN kinds) and the field.
-template <bool kPlates, bool kExt, uint32_t kFams = kFamAll>
+// The field's instantiation: those, the families of kFams (every family
+// but GRIN rods; kFamFieldCoat for tables without the diffractive, fuzzy or
+// freeform kinds; kFamAll, with GRIN rods, for tables with a rod) and the
+// field.
+template <bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_nonseq_bwd_kernel(RTT_NONSEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs, FieldIn fi) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
@@ -1004,9 +1007,10 @@ extern "C" int rtt_trace_nonseq_bwd_opl(
   return with_fam_link<false>(fam, go);
 }
 
-// Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_nonseq_bwd_opl up to
-// `fam`, then K5's launch field `field_in`, the cotangent of K5's final
+// Launches the instantiation with the field on `stream` (field_link: the
+// one with every family for a table with a GRIN rod): the arguments of
+// rtt_trace_nonseq_bwd_opl up to `fam`, then K5's launch field `field_in`,
+// the cotangent of K5's final
 // field `g_field` (null: zero), the launch field's cotangent `c_field` and
 // the field the forward replay ends at `r_field` (null: not wanted), [6][n]
 // floats each.  Its partials hold the columns of rtt_trace_nonseq_bwd_opl's
@@ -1052,8 +1056,7 @@ extern "C" int rtt_trace_nonseq_bwd_field(
             n, wo, OplIn{g_opl, g_nfinal}, fs, FieldIn{field_in, g_field, c_field, r_field});
     return static_cast<int>(cudaGetLastError());
   };
-  return field_coat_alone(fam) ? go(std::integral_constant<uint32_t, kFamFieldCoat>{})
-                               : go(std::integral_constant<uint32_t, kFamAll>{});
+  return with_field_link<true>(fam, go);
 }
 
 // The resident blocks per SM of the instantiation that a launch with these
@@ -1077,13 +1080,12 @@ extern "C" int rtt_trace_nonseq_bwd_occupancy(int n_rows, int n_slots, int n_bun
   if (code == 6) {
     smem = shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, n_bounces,
                                                 kDispGradCols, fs);
-    if (field_coat_alone(fam)) {
-      e = prepare<true, true, true, true, kFamFieldCoat, true>(smem);
-      fn = kernel_fn<true, true, true, true, kFamFieldCoat, true>();
-    } else {
-      e = prepare<true, true, true, true, kFamAll, true>(smem);
-      fn = kernel_fn<true, true, true, true, kFamAll, true>();
-    }
+    with_field_link<true>(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      e = prepare<true, true, true, true, kFams, true>(smem);
+      fn = kernel_fn<true, true, true, true, kFams, true>();
+      return 0;
+    });
   } else if (code == 5) {
     smem = shared_bytes<true, true, true>(n_rows, n_slots, n_bundles, n_bounces, kDispGradCols,
                                           fs);

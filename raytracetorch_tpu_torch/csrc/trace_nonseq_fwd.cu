@@ -148,13 +148,15 @@
 // :1047, _nonseq_bounce_core's power_in :861 and transport :971-975) runs
 // in one more instantiation, kField, of the streams' body (an overload with
 // one more argument after the side data: FieldIO, the launch field and the
-// final field, [6][N] planar), which compiles every family, so every other
-// instantiation keeps its code; a table without the diffractive, fuzzy,
-// freeform or GRIN kinds runs it instantiated for the Fresnel kinds and
-// coatings alone (kFamFieldCoat, the earlier field instantiation, whose
-// rounding section 19 holds).  A winning rod carries the field through its
-// couplings and steps (grin.cuh::grin_rod_field, out of line: K6's replay
-// reaches its field bit for bit).  Each
+// final field, [6][N] planar), which compiles every family but GRIN rods,
+// so every other instantiation keeps its code; a table without the
+// diffractive, fuzzy or freeform kinds runs it instantiated for the Fresnel
+// kinds and coatings alone (kFamFieldCoat, the earlier field
+// instantiation, whose rounding section 19 holds), and a table with a GRIN
+// rod instantiated for every family (kFamAll: trace_seq_common.cuh::
+// field_link), its winning rod carrying the field through its couplings and
+// steps (grin.cuh::grin_rod_field, out of line: K6's replay reaches its
+// field bit for bit).  Each
 // thread carries its ray's six field floats through the bounces: the
 // winner's physics sees the field at the bounce's start (the Fresnel kinds,
 // bare or coated, draw and weigh with its polarized reflectance, a metal
@@ -358,9 +360,10 @@ trace_nonseq_fwd_kernel(const float* __restrict__ table, const int32_t* __restri
 // shared memory after the side buffer) weigh by it; with kFreeform the
 // freeform rows of fs.ff (copied into shared memory after the programs)
 // are freeform surfaces; with kGrin a GRIN winner runs its rod and adds its
-// in-medium path.  With kField (which has the coatings' family flags, or
-// every family's) each ray carries its field from `fio.in` (the winner's
-// field_physics and transport or rod, the |E|^2 weights) to `fio.out`.
+// in-medium path.  With kField (which has every family flag but kGrin, and
+// kGrin in the instantiation for rods) each ray carries its field from
+// `fio.in` (the winner's field_physics and transport or rod, the |E|^2
+// weights) to `fio.out`.
 template <int kMomBucket, bool kFresnel = false, bool kCoat = false, bool kDiff = false,
           bool kFuzzy = false, bool kFreeform = false, bool kField = false, bool kGrin = false>
 __device__ __forceinline__ void nonseq_fwd_streams(
@@ -624,9 +627,10 @@ trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, FamSide fs) {
 }
 
 // The field's instantiation: the streams, the families of kFams (every
-// family; kFamFieldCoat for tables without the diffractive, fuzzy,
-// freeform or GRIN kinds) and the field.
-template <int kMomBucket, bool kPlates, bool kExt, uint32_t kFams = kFamAll>
+// family but GRIN rods; kFamFieldCoat for tables without the diffractive,
+// fuzzy or freeform kinds; kFamAll, with GRIN rods, for tables with a rod)
+// and the field.
+template <int kMomBucket, bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, fwd_min_blocks<kMomBucket, kExt>())
 trace_nonseq_fwd_kernel(RTT_NONSEQ_FWD_PARAMS, StreamOut so, FamSide fs, FieldIO fio) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
@@ -734,14 +738,12 @@ int launch_bucket(size_t smem, long long blocks, cudaStream_t stream, const floa
 // allowed.
 template <int kMomBucket>
 const void* kernel_of(int code, uint32_t fam, size_t smem, cudaError_t* e) {
-  if (code == 6 && field_coat_alone(fam)) {
-    *e = prepare<kMomBucket, true, true, true, kFamFieldCoat, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, kFamFieldCoat, true>();
-  }
-  if (code == 6) {
-    *e = prepare<kMomBucket, true, true, true, kFamAll, true>(smem);
-    return kernel_fn<kMomBucket, true, true, true, kFamAll, true>();
-  }
+  if (code == 6)
+    return with_field_link<true>(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      *e = prepare<kMomBucket, true, true, true, kFams, true>(smem);
+      return kernel_fn<kMomBucket, true, true, true, kFams, true>();
+    });
   if (code == 5)
     return with_fam_link<false>(fam, [&](auto fams) {
       constexpr uint32_t kFams = decltype(fams)::value;
@@ -922,7 +924,8 @@ extern "C" int rtt_trace_nonseq_fwd_streams(
   return with_fam_link<false>(fam, [&](auto fams) { return go(fams, fs); });
 }
 
-// Launches the instantiation with the field on `stream`: the arguments of
+// Launches the instantiation with the field on `stream` (field_link: the
+// one with every family for a table with a GRIN rod): the arguments of
 // rtt_trace_nonseq_fwd_streams up to `fam`, then the launch field
 // `field_in` and the final field `field_out`
 // ([6][n] floats each: Er x, y, z, then Ei x, y, z).  Returns a
@@ -969,8 +972,7 @@ extern "C" int rtt_trace_nonseq_fwd_field(
                                      partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
                                      pa, n_bounces, n, so, fs, fio);
   };
-  return field_coat_alone(fam) ? go(std::integral_constant<uint32_t, kFamFieldCoat>{})
-                               : go(std::integral_constant<uint32_t, kFamAll>{});
+  return with_field_link<true>(fam, go);
 }
 
 // Philox4x32-10 of n counters (4 n words) under n keys (2 n words) into out

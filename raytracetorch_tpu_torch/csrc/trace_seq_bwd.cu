@@ -153,14 +153,16 @@
 //   A row's columns: the 27, the disp columns on a table with a dispersive
 //   row, the 8 coat columns when the table has coatings, then 32 ff
 //   columns with freeform surfaces or 8 with the diffractive kinds.
-// - The polarized field: one more instantiation, kField, which compiles
-//   every family (an overload with one more argument, FieldIn: K1's launch
-//   field, the cotangent of its final field and the launch field's
-//   cotangent, each [6][N] planar), so that the others keep their code.  A
-//   rod takes the field's cotangent back through its exit coupling, its
-//   steps (the field at each of the rod's checkpoints rides beside its
-//   state) and its entry coupling (grin.cuh::grin_backward with kField).
-//   Its forward sweep carries the field as K1 does and saves
+// - The polarized field: the field's instantiations, kField, one that
+//   compiles every family but GRIN rods and one, for tables with a rod,
+//   that compiles every family (trace_seq_common.cuh::field_link) (an
+//   overload with one more argument, FieldIn: K1's launch field, the
+//   cotangent of its final field and the launch field's cotangent, each
+//   [6][N] planar), so that the others keep their code.  A rod takes the
+//   field's cotangent back through its exit coupling, its steps (the field
+//   at each of the rod's checkpoints rides beside its state) and its entry
+//   coupling (grin.cuh::grin_backward with kField).  Its forward sweep
+//   carries the field as K1 does and saves
 //   the incoming field as six more state words a row (15 in all: 15 KB a
 //   row of shared memory, so tables of up to kFieldSharedRows rows keep
 //   them there, longer ones in local memory); its reverse sweep carries the
@@ -259,7 +261,8 @@ struct FieldIn {
 // programs) refine their roots onto their sags, and (with kFamFreeform)
 // the ff columns are 32 a row (a freeform row's coefficients, or a DOE
 // row's in the first 8); with kGrin a GRIN row runs the rod forward and its
-// adjoint back.  With kField (which has every family flag) the field rides the state as K1
+// adjoint back.  With kField (which has every family flag but kGrin, and
+// kGrin in the instantiation for rods) the field rides the state as K1
 // carries it.
 template <bool kShared, bool kPlates, bool kExt, bool kDispersion, bool kOpl = false,
           bool kFresnel = false, bool kCoat = false, bool kDiff = false, bool kFuzzy = false,
@@ -590,8 +593,9 @@ trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs) {
       RTT_SEQ_BWD_ARGS, wo, oi, fs);
 }
 
-// The field's instantiation: those, every family and the field.
-template <bool kShared, bool kPlates, bool kExt, uint32_t kFams = kFamAll>
+// The field's instantiation: those, the families of kFams (every family
+// but GRIN rods; kFamAll, with them, for tables with a rod) and the field.
+template <bool kShared, bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 trace_seq_bwd_kernel(RTT_SEQ_BWD_PARAMS, WaveOut wo, OplIn oi, FamSide fs, FieldIn fi) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
@@ -896,11 +900,11 @@ extern "C" int rtt_trace_seq_bwd_opl(
   return with_fam_link(fam, [&](auto fams) { return go(fams, fs); });
 }
 
-// Launches the instantiation with the field on `stream`: the arguments of
-// rtt_trace_seq_bwd_opl, then `field_in`, K1's launch field, `g_field`,
-// the cotangent of K1's final field (null: zero), and `c_field`, which
-// receives the launch field's cotangent (null: not wanted), 6 * n floats
-// each ([6][n]: Er x, y, z, then
+// Launches the instantiation with the field on `stream` (field_link: the
+// one with every family for a table with a GRIN rod): the arguments of
+// rtt_trace_seq_bwd_opl, then `field_in`, K1's launch field, `g_field`, the cotangent of K1's final
+// field (null: zero), and `c_field`, which receives the launch field's
+// cotangent (null: not wanted), 6 * n floats each ([6][n]: Er x, y, z, then
 // Ei x, y, z).  Tables of up to kFieldSharedRows rows keep their saved
 // states in shared memory.  Returns a cudaError_t.
 extern "C" int rtt_trace_seq_bwd_field(
@@ -932,21 +936,26 @@ extern "C" int rtt_trace_seq_bwd_field(
       shared_bytes<true, true, true, true>(n_rows, n_slots, n_bundles, wo.disp_cols, fs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
-  const void* fn;
-  e = prepare_rows<true, true, true, true, kFamAll, true>(n_rows, smem, &fn);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const GridCt gg = {ggrid, grid_h, grid_w, grid_e};
   const FieldIn fi = {field_in, g_field, c_field};
-  if (n_rows <= kFieldSharedRows)
-    trace_seq_bwd_kernel<true, true, true, kFamAll><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
-  else
-    trace_seq_bwd_kernel<false, true, true, kFamAll><<<g, kThreads, smem, s>>>(
-        table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx, gdy,
-        gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials, n_slots,
-        n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
+  e = with_field_link<false>(fam, [&](auto fams) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    const void* fn;
+    const cudaError_t e2 = prepare_rows<true, true, true, true, kFams, true>(n_rows, smem, &fn);
+    if (e2 != cudaSuccess) return e2;
+    if (n_rows <= kFieldSharedRows)
+      trace_seq_bwd_kernel<true, true, true, kFams><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
+    else
+      trace_seq_bwd_kernel<false, true, true, kFams><<<g, kThreads, smem, s>>>(
+          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, gpx, gpy, gpz, gdx,
+          gdy, gdz, gintensity, gmom, cpx, cpy, cpz, cdx, cdy, cdz, cintensity, partials,
+          n_slots, n_bundles, gg, maps, map_desc, wavelength, gmaps, n, wo, oi, fs, fi);
+    return cudaSuccess;
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -974,7 +983,10 @@ extern "C" int rtt_trace_seq_bwd_occupancy(int n_rows, int n_slots, int n_bundle
                   : shared_bytes<false, false>(n_rows, n_slots, n_bundles, 0);
   const void* fn;
   const cudaError_t e =
-      code == 6   ? prepare_rows<true, true, true, true, kFamAll, true>(n_rows, smem, &fn)
+      code == 6   ? with_field_link<false>(fam, [&](auto fams) {
+                      return prepare_rows<true, true, true, true, decltype(fams)::value, true>(
+                          n_rows, smem, &fn);
+                    })
       : code == 5 ? with_fam_link(fam, [&](auto fams) {
                       return prepare_rows<true, true, true, true, decltype(fams)::value>(
                           n_rows, smem, &fn);

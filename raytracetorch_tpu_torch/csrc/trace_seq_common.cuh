@@ -86,11 +86,11 @@
 //
 // The polarized field (track_field: a complex E-vector per ray, field.cuh)
 // takes one more compile-time flag, kField, set only in the field's
-// instantiation of each kernel, which takes every family (nonseq_bounce,
-// field_winner; K5 and K6 keep one more for the Fresnel kinds and coatings
-// alone: field_coat_alone): every other instantiation holds none of its code.  A
-// rod carries the field through its steps (grin.cuh::grin_rod_field).
-// Under it the Fresnel
+// instantiations of each kernel: one that takes every family but GRIN rods
+// (nonseq_bounce, field_winner) and one for tables with a GRIN rod, which
+// takes every family (field_link): every other instantiation holds none of
+// its code.  A rod carries the field through its steps (grin.cuh::
+// grin_rod_field).  Under it the Fresnel
 // kinds of bare interfaces draw and weigh with the polarized reflectance of
 // the ray's field (fresnel_physics with kField), a JONES row (a polarizer
 // or a waveplate) passes the ray through, and field_row gathers what a row's
@@ -100,11 +100,12 @@
 // The families.  The flags kFresnel, kCoat, kDiff, kFuzzy, kFreeform and
 // kGrin are each a family of kinds; the kernels compile them together, in
 // one instantiation of each (the family instantiation, with the streams),
-// and the field's instantiation compiles them all too, so that a table
-// that mixes families (a GRIN rod beside a coated lens, a DOE under the
-// field, a rod under the field) runs as the JAX kernels run it.  Which
-// families a table has rides a launch's runtime word FamSide::fam (kFam*
-// bits; ops/fused_trace.py::families): an absent family's per-block setup (the shared copies of its
+// and the field's instantiations compile all but kGrin and, for a table
+// with a rod, all, so that a table that mixes families (a GRIN rod beside a
+// coated lens, a DOE under the field, a rod under the field) runs as the
+// JAX kernels run it.  Which families a table has rides
+// a launch's runtime word FamSide::fam (kFam* bits; ops/fused_trace.py::
+// families): an absent family's per-block setup (the shared copies of its
 // side buffer, programs or exponent pairs, the ELLIPSE rows) is skipped and
 // its buffer pointer is null.  A row's physics still dispatches on its own
 // kind, as in every instantiation.
@@ -441,11 +442,12 @@ constexpr uint32_t kFamFresnel = 1u, kFamCoat = 2u, kFamDiff = 4u, kFamFuzzy = 8
 // the family instantiation, carrying every family's code, runs K2 and K6
 // 1.3-2.2x slower): the Fresnel kinds alone, the coatings (with the Fresnel
 // kinds of their faces), the diffractive kinds (built on those), the fuzzy
-// programs (built on those), GRIN rods alone; and the field's on the
-// Fresnel kinds and coatings alone (K5's and K6's for tables without the
-// diffractive, fuzzy, freeform or GRIN kinds: the earlier field
-// instantiation; the field's other instantiation takes every family).
-constexpr uint32_t kFamAll = 63u;
+// programs (built on those), GRIN rods alone; the field's (every family but
+// GRIN), the field's on the Fresnel kinds and coatings alone (K5's and
+// K6's for tables without the diffractive, fuzzy or freeform kinds: the
+// earlier field instantiation) and the field's with every family (tables
+// with a GRIN rod: field_link).
+constexpr uint32_t kFamAll = 63u, kFamField = kFamAll & ~kFamGrin;
 constexpr uint32_t kFamCoatLink = kFamFresnel | kFamCoat;
 constexpr uint32_t kFamDiffLink = kFamCoatLink | kFamDiff;
 constexpr uint32_t kFamFuzzyLink = kFamDiffLink | kFamFuzzy;
@@ -495,11 +497,32 @@ auto with_fam_link(uint32_t fam, F&& f) {
   }
 }
 
-// K5's and K6's field instantiation for the families `fam`: without the
-// diffractive, fuzzy, freeform or GRIN kinds kFamFieldCoat's, else
-// kFamAll's.
-__host__ __device__ __forceinline__ bool field_coat_alone(uint32_t fam) {
-  return (fam & ~kFamFieldCoat) == 0u;
+// The family set of the field's instantiation that a launch of the
+// families `fam` runs: a table with a GRIN rod the one with every family
+// (kFamAll), so that the others keep their code; else K5's and K6's
+// (kCoatLink) kFamFieldCoat without the diffractive, fuzzy or freeform
+// kinds, and kFamField.
+template <bool kCoatLink>
+__host__ __device__ constexpr uint32_t field_link(uint32_t fam) {
+  return (fam & kFamGrin) != 0u                       ? kFamAll
+         : kCoatLink && (fam & ~kFamFieldCoat) == 0u ? kFamFieldCoat
+                                                      : kFamField;
+}
+
+// Calls f(std::integral_constant<uint32_t, kFams>{}) with the family set
+// field_link<kCoatLink>(fam) selects: a launcher's one call site for the
+// field's instantiations.
+template <bool kCoatLink, class F>
+auto with_field_link(uint32_t fam, F&& f) {
+  switch (field_link<kCoatLink>(fam)) {
+    case kFamAll:
+      return f(std::integral_constant<uint32_t, kFamAll>{});
+    case kFamFieldCoat:
+      if constexpr (kCoatLink) return f(std::integral_constant<uint32_t, kFamFieldCoat>{});
+      [[fallthrough]];
+    default:
+      return f(std::integral_constant<uint32_t, kFamField>{});
+  }
 }
 
 // The side data of the family and field instantiations, each pointer null

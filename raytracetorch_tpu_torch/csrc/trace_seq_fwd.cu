@@ -147,13 +147,14 @@
 //   becomes the ambient index; the records take the exit-face position as
 //   the row's position and hit, with weight 0 (_chain_pure :1569-1604).
 //
-// The polarized field (track_field) runs in one more instantiation,
-// kField, an overload with one more argument (FieldIO: the launch field and
-// the final field, [6][N] planar: the real parts of x, y, z, then the
-// imaginary ones), which compiles every family, so every other
-// instantiation keeps its code.  A rod carries the field through its entry
-// coupling, each RK4 step and its exit coupling (grin.cuh::grin_rod_field).
-// Each thread
+// The polarized field (track_field) runs in the field's instantiations
+// (kField), an overload with one more argument (FieldIO: the launch field
+// and the final field, [6][N] planar: the real parts of x, y, z, then the
+// imaginary ones): one that compiles every family but GRIN rods and one,
+// for tables with a rod, that compiles every family
+// (trace_seq_common.cuh::field_link), so every other instantiation keeps
+// its code.  A rod carries the field through its entry coupling, each RK4
+// step and its exit coupling (grin.cuh::grin_rod_field).  Each thread
 // carries its ray's six field floats through the rows: the Fresnel kinds,
 // bare or coated, draw and weigh with the polarized reflectance (and an
 // absorbing stack's transmittance) of the incoming field
@@ -264,8 +265,9 @@ struct FieldIO {
 // hit; with kFreeform the freeform rows of fs.ff (copied into shared memory
 // after the programs) refine their roots onto their sags; with kGrin a GRIN
 // row's active rays run the rod (grin_row).  With kField (which has every
-// family flag) each ray carries its field from `fio.in` (field_physics, the
-// |E|^2 weights, field_transport, a rod's rotations) to `fio.out`.
+// family flag but kGrin, and kGrin in the instantiation for rods) each ray
+// carries its field from `fio.in` (field_physics, the |E|^2 weights,
+// field_transport, a rod's rotations) to `fio.out`.
 template <bool kPlates, bool kExt, bool kStreams, bool kFresnel = false, bool kCoat = false,
           bool kDiff = false, bool kFuzzy = false, bool kFreeform = false, bool kField = false,
           bool kGrin = false>
@@ -561,8 +563,10 @@ trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, FamSide fs) {
           fam_has(kFams, kFamGrin)>(RTT_SEQ_FWD_ARGS, so, fs);
 }
 
-// The field's instantiation: the streams, every family and the field.
-template <bool kPlates, bool kExt, uint32_t kFams = kFamAll>
+// The field's instantiation: the streams, the families of kFams (every
+// family but GRIN rods; kFamAll, with them, for tables with a rod) and the
+// field.
+template <bool kPlates, bool kExt, uint32_t kFams = kFamField>
 __global__ void __launch_bounds__(kThreads, seq_fwd_min_blocks<kPlates, kExt>())
 trace_seq_fwd_kernel(RTT_SEQ_FWD_PARAMS, StreamOut so, FamSide fs, FieldIO fio) {
   static_assert(kPlates && kExt, "the field runs with the extended kinds");
@@ -629,13 +633,15 @@ int launch(size_t smem, long long blocks, cudaStream_t stream, const float* tabl
 
 // The instantiation of `code` (0 without plate code, 1 with it, 2 or 3 with
 // it and the extended kinds, 4 the one with the streams, 5 the family
-// instantiation for the families `fam`, 6 the field's), its shared memory
-// allowed.
+// instantiation for the families `fam`, 6 the field's for them), its
+// shared memory allowed.
 const void* kernel_of(int code, uint32_t fam, size_t smem, cudaError_t* e) {
-  if (code == 6) {
-    *e = prepare<true, true, true, kFamAll, true>(smem);
-    return kernel_fn<true, true, true, kFamAll, true>();
-  }
+  if (code == 6)
+    return with_field_link<false>(fam, [&](auto fams) {
+      constexpr uint32_t kFams = decltype(fams)::value;
+      *e = prepare<true, true, true, kFams, true>(smem);
+      return kernel_fn<true, true, true, kFams, true>();
+    });
   if (code == 5)
     return with_fam_link(fam, [&](auto fams) {
       constexpr uint32_t kFams = decltype(fams)::value;
@@ -791,7 +797,8 @@ extern "C" int rtt_trace_seq_fwd_streams(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the instantiation with the field on `stream`: the arguments of
+// Launches the instantiation with the field on `stream` (field_link: the
+// one with every family for a table with a GRIN rod): the arguments of
 // rtt_trace_seq_fwd_streams, then `field_in`, the launch field, and
 // `field_out`, the final field (6 * n floats each, [6][n]: Er x, y, z, then
 // Ei x, y, z).  Returns a cudaError_t.
@@ -818,14 +825,19 @@ extern "C" int rtt_trace_seq_fwd_field(
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = shared_bytes(n_rows, n_slots, n_bundles, fs);
-  e = prepare<true, true, true, kFamAll, true>(smem);
+  e = with_field_link<false>(fam, [&](auto fams) {
+    constexpr uint32_t kFams = decltype(fams)::value;
+    const cudaError_t e2 = prepare<true, true, true, kFams, true>(smem);
+    if (e2 != cudaSuccess) return e2;
+    trace_seq_fwd_kernel<true, true, kFams>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
+            ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e,
+            maps, map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr},
+            fs, FieldIO{field_in, field_out});
+    return cudaSuccess;
+  });
   if (e != cudaSuccess) return static_cast<int>(e);
-  trace_seq_fwd_kernel<true, true, kFamAll>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          table, kinds, n_rows, px, py, pz, dx, dy, dz, intensity, ray_id, opx, opy, opz, odx,
-          ody, odz, ointensity, partials, n_slots, n_bundles, grid, grid_h, grid_w, grid_e, maps,
-          map_desc, wavelength, n, StreamOut{opl, n_final, paths, hits, hit_w, nullptr}, fs,
-          FieldIO{field_in, field_out});
   return static_cast<int>(cudaGetLastError());
 }
 

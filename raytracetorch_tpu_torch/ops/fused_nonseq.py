@@ -58,12 +58,12 @@ The kernels' notes are in their sources.  In this module:
   frame, the winner running the whole rod once (csrc/grin.cuh), where the
   JAX kernel runs it for every candidate row: in K5 and K6's replay
   alike.
-- The polarized field (``track_field``, ``E0``; core/field.py) runs in one
-  more instantiation of K5 and K6, which compiles every family (a table of
-  the Fresnel kinds and coatings alone runs it instantiated for those) and
-  reads the table's families as the family instantiation does; a winning
-  rod carries the field through its couplings and steps.  Its launches
-  count in ``fused_trace.FIELD_LAUNCHES`` (a table with a rod's also in
+- The polarized field (``track_field``, ``E0``; core/field.py) runs in the
+  field's instantiations of K5 and K6, which read the table's families as
+  the family instantiation does: one compiles every family but GRIN rods,
+  and a table with a rod runs one that compiles every family, a winning rod
+  carrying the field through its couplings and steps.  Their launches count
+  in ``fused_trace.FIELD_LAUNCHES`` (a table with a rod's also in
   ``fused_trace.GRIN_LAUNCHES``).  The launch field is made in
   torch (``FieldState.init``, so ``E0``'s cotangent flows there) and
   enters the kernels as six planar streams; K5 returns the final field's
@@ -502,8 +502,8 @@ def trace_nonseq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     ``diff``, ``fuzzy``, ``ff``, ``grin``) as for
     ``fused_trace.trace_seq_fwd_cuda``: the family instantiation, which
     also takes the streams.  ``field``, the launch field's six [N] streams
-    (None: no field), runs the field's instantiation with the same
-    families; ``aux`` then holds the final field's six streams as
+    (None: no field), runs the field's instantiation with the same families
+    (no ``grin``); ``aux`` then holds the final field's six streams as
     ``FIELD_KEYS``.  More than MAX_MOMENT_PAIRS slots x bundles raise
     NotImplementedError."""
     global NONSEQ_LAUNCHES

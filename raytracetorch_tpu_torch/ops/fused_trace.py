@@ -140,12 +140,13 @@ module:
     NotImplementedError on either device (``kind_rows``); the eager traces
     take it.  ``trace_sequential_v1`` refuses GRIN rows, as the TPU kernel
     it stands for does.
-- The polarized field (``track_field``, ``E0``; core/field.py) runs in one
-  more instantiation of each of K1, K2, K5 and K6, which compiles every
-  family and reads the table's families as the family instantiation does;
-  its rods carry the field through their couplings and steps
-  (csrc/grin.cuh).  Its launches count in ``FIELD_LAUNCHES`` (a table with
-  a rod's also in ``GRIN_LAUNCHES``).  The
+- The polarized field (``track_field``, ``E0``; core/field.py) runs in the
+  field's instantiations of each of K1, K2, K5 and K6, which read the
+  table's families as the family instantiation does: one compiles every
+  family but GRIN rods, and a table with a rod runs one that compiles every
+  family, its rods carrying the field through their couplings and steps
+  (csrc/grin.cuh).  Their launches count in ``FIELD_LAUNCHES`` (a table
+  with a rod's also in ``GRIN_LAUNCHES``).  The
   launch field is made in torch (``FieldState.init``, so ``E0``'s
   cotangent flows there) and enters the kernels as six planar streams; K1
   returns the six of the final field (``aux['field']``,
@@ -212,8 +213,8 @@ FUZZY_LAUNCHES = 0
 FREEFORM_LAUNCHES = 0
 GRIN_LAUNCHES = 0
 # launches of K1, K2, K5 and K6 (each also counted above or in
-# ops/fused_nonseq.py) in their instantiation with the field (a table with
-# a GRIN rod's also in GRIN_LAUNCHES)
+# ops/fused_nonseq.py) in their instantiations with the field (the one for
+# a table with a GRIN rod also in GRIN_LAUNCHES)
 FIELD_LAUNCHES = 0
 
 THREADS = 256         # rays per block (kThreads in the CUDA sources)
@@ -1433,7 +1434,7 @@ def trace_seq_fwd_cuda(flat_table, kinds, rays, cfg: SensorConfig,
     table has a GRIN row, ``grin_kinds``; None: read it off ``kinds``,
     ``grin_rows``, one copy to the host).  ``field``, the launch field's six
     [N] streams (None: no field), runs the field's instantiation with the
-    same families; ``aux`` then holds
+    same families (``grin``: the one with every family); ``aux`` then holds
     the final field's six streams as ``FIELD_KEYS``."""
     global LAUNCHES
     flags = StreamFlags(track_opl, record_paths, record_hits,
@@ -1489,8 +1490,8 @@ def draw_args(fresnel, uniforms, n, device):
 
 def count_launch(fam, field=False, streams=False, ext=False):
     """Count a K1, K2, K5 or K6 launch in its instantiation's counters: the
-    field's in ``FIELD_LAUNCHES`` (for a table with a GRIN rod also in
-    ``GRIN_LAUNCHES``), the family
+    field's in ``FIELD_LAUNCHES`` (its instantiation with every family, for
+    a table with a GRIN rod, also in ``GRIN_LAUNCHES``), the family
     instantiation's in each of its families' (``fam``), the streams' (or
     path length's) in ``STREAM_LAUNCHES``, the extended kinds' in
     ``EXT_LAUNCHES``."""
@@ -1733,7 +1734,8 @@ def trace_seq_bwd_cuda(flat_table, kinds, rays, cfg: SensorConfig, g_rays,
 
 def grin_of(kinds, grin=None):
     """Whether the K1, K2, K5 and K6 wrappers run GRIN rods (in the family
-    instantiation, or under the field the field's): ``grin``, or with None whether ``kinds`` has a GRIN row
+    instantiation, or under the field the field's with every family):
+    ``grin``, or with None whether ``kinds`` has a GRIN row
     (``grin_rows``)."""
     return grin_rows(kinds) if grin is None else grin
 

@@ -2336,7 +2336,7 @@ def test_grin_instantiations_are_built(dev):
     """K1 builds one instantiation for GRIN rods alone and K2 one for each
     home of its saved states; K5 and K6 run such tables in their family
     instantiation (K5 one for each moment bucket); under the field each
-    runs its field instantiation, which takes every family (K2's two
+    runs its field instantiation with every family (field_link: K2's two
     homes, K5's two buckets); each has its registers, and each keeps a
     block resident on an SM on the section 20 and 22 scenes."""
     from raytracetorch_tpu_torch.ops import nvcc_build
@@ -2390,7 +2390,7 @@ def test_grin_field_kernels_match_plain(name, dev):
 @pytest.mark.parametrize('name', chip_smoke.GRIN_FIELD_CASES)
 def test_grin_field_launches_its_instantiation(name, dev):
     """simulate_fused with the field through a rod launches K1 (a Scene:
-    K5) once in the field's instantiation (counted in
+    K5) once in the field's instantiation with GRIN rods (counted in
     FIELD_LAUNCHES and GRIN_LAUNCHES), its grad step K2 (K6) once more, and
     the fused gradients in n0, grin_A and E0 equal the eager ones within
     GRIN_GRAD_RTOL of each leaf's scale."""
